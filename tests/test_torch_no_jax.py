@@ -1,0 +1,31 @@
+"""The port runs without JAX: the machine with the card has none installed."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_port_imports_and_counts_without_loading_jax():
+    code = (
+        "import sys\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "m = P.AhoCorasickSet(['he', 'she', 'hers'], engine='device', device='cpu')\n"
+        "assert m.count('ushers and she') == 5, m.count('ushers and she')\n"
+        "assert m.match('ushers') == [(1, 4), (2, 4), (2, 6)]\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
+def test_port_sources_never_import_jax():
+    pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
+    sources = sorted((ROOT / "ahocorasick_tpu_torch").rglob("*.py"))
+    sources.append(ROOT / "chip_smoke.py")
+    assert len(sources) > 8
+    offenders = [str(p) for p in sources if pattern.search(p.read_text())]
+    assert offenders == []
