@@ -4,7 +4,7 @@
 ``ahocorasick_tpu.ops.scan_batched.build_packed(m).table`` or the padded
 ``_DeviceTables(m).packed_dfa.table`` (via ``np.asarray``) — and returns the
 port's ``PackedDfa`` of tensors.  ``from_compiled`` wraps a
-``CompiledMatcher`` (freshly compiled, or loaded from an npz the JAX package
+``CompiledMatcher`` (freshly compiled, or loaded from an npz either package
 saved) in the port's matcher class for its kind.
 """
 
@@ -13,6 +13,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ahocorasick_tpu.core.compiler import SHORTEST
 from ahocorasick_tpu.models.matchers import _bucket_up
 from ahocorasick_tpu_torch.ops.scan_batched import PackedDfa
 
@@ -37,12 +38,17 @@ def packed_from_numpy(table, state_bits: int, halo: int, num_classes: int,
     return PackedDfa(t, None, int(state_bits), int(halo))
 
 
-def from_compiled(compiled, engine: str = "auto", device=None):
-    """The port's matcher for ``compiled`` (AC kind, set or map)."""
+def from_compiled(compiled, engine: str = "auto", device=None, ac_compiled=None):
+    """The port's matcher for ``compiled`` (any kind but whole-word-longest,
+    set or map).  ``ac_compiled`` is a shortest artifact's internal AC
+    automaton, when it was saved with it."""
     from ahocorasick_tpu_torch.models.matchers import _CLASS_BY_KIND
 
     cls = _CLASS_BY_KIND.get((compiled.kind, compiled.values is not None))
     if cls is None:
         raise NotImplementedError(
-            f"the port has no {compiled.kind!r} matcher yet (ROADMAP.md A2-A4)")
+            f"the port has no {compiled.kind!r} matcher yet (ROADMAP.md A4)")
+    if compiled.kind == SHORTEST:
+        return cls.from_compiled(compiled, engine=engine, device=device,
+                                 ac_compiled=ac_compiled)
     return cls.from_compiled(compiled, engine=engine, device=device)

@@ -1,13 +1,18 @@
-"""Build the CUDA kernels of ``csrc/`` with nvcc into a plain-C shared
+"""Build the CUDA kernels of ``csrc/`` with nvcc into one plain-C shared
 library, and load it with ctypes.
 
 The library is built at first use, from the package's own sources, into
 ``ahocorasick_tpu_torch/_build/`` under a name keyed by a hash of the sources
-and flags, so an edited kernel is never served from a stale build.  A
-temporary file plus ``os.replace`` keeps concurrent builders from loading a
-half-written library.  Building needs ``nvcc`` (``$CUDA_HOME/bin``,
-``/usr/local/cuda/bin`` or ``PATH``); the ptxas report (registers, shared
-memory, spills) is kept beside the library as ``<name>.log``.
+and flags, so an edited kernel is never served from a stale build.  Each
+source compiles to an object in its own nvcc process, all started together,
+and one more nvcc call links the objects.  A temporary file plus
+``os.replace`` keeps concurrent build processes from loading a half-written
+library.  Building needs ``nvcc`` (``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
+or ``PATH``); the ptxas report (registers, shared memory, spills) is kept
+beside the library as ``<name>.log``.
+
+``launches`` counts kernel launches by wrapper name; each wrapper adds one
+where it launches its kernel, and nowhere else.
 
     python -m ahocorasick_tpu_torch.kernels.build
 """
@@ -21,12 +26,44 @@ import shutil
 import subprocess
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-SOURCES = (os.path.join(_PKG, "csrc", "packed_scan.cu"),)
+SOURCES = tuple(
+    os.path.join(_PKG, "csrc", name)
+    for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu")
+)
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
+
+launches = {
+    "packed_scan_count": 0,
+    "packed_scan_planes": 0,
+    "compact_planes": 0,
+    "shortest_states": 0,
+}
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+_P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+# (table, windows, window_bytes, num_windows, width, halo, num_classes,
+#  state_bits, out, device, stream)
+_SCAN_ARGS = [_P, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P]
+ARGTYPES = {
+    "packed_scan_count": _SCAN_ARGS,
+    "packed_scan_planes": _SCAN_ARGS,
+    "compact_tile": [],
+    # (bits, planes, n, block_counts, offsets, total, device, stream)
+    "compact_count": [_P, _I, _I64, _P, _P, _P, _I, _P],
+    # (bits, planes, n, offsets, idx, masks, device, stream)
+    "compact_write": [_P, _I, _I64, _P, _P, _P, _I, _P],
+    # (dfa_next, match_len, cls, cls_bytes, n, num_classes, out, device, stream)
+    "shortest_states": [_P, _P, _P, _I, _I64, _I, _P, _I, _P],
+}
 
 _lib = None
 
@@ -47,7 +84,7 @@ def library_path() -> str:
     for src in SOURCES:
         with open(src, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libpacked_scan-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"libac_kernels-{h.hexdigest()[:16]}.so")
 
 
 def build() -> str:
@@ -57,15 +94,36 @@ def build() -> str:
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
     tmp = f"{out}.tmp.{os.getpid()}"
-    proc = subprocess.run(
-        [_nvcc(), *FLAGS, "-o", tmp, *SOURCES],
-        capture_output=True, text=True,
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr}")
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in SOURCES]
+    procs = [
+        subprocess.Popen([nvcc, *FLAGS, "-c", "-o", obj, src],
+                         stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for src, obj in zip(SOURCES, objs)
+    ]
+    logs = []
+    try:
+        for src, proc in zip(SOURCES, procs):
+            stdout, stderr = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(
+                    f"nvcc failed on {os.path.basename(src)} ({proc.returncode}):\n{stderr}")
+            logs.append(stdout + stderr)
+        link = subprocess.run([nvcc, "-shared", "-o", tmp, *objs],
+                              capture_output=True, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n{link.stderr}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     with open(out[: -len(".so")] + ".log", "w") as fh:
-        fh.write(proc.stdout + proc.stderr)
+        fh.write("".join(logs))
     os.replace(tmp, out)
     return out
 
@@ -75,24 +133,19 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(build())
-        args = [
-            ctypes.c_void_p,  # table
-            ctypes.c_void_p,  # windows
-            ctypes.c_int,  # window_bytes
-            ctypes.c_int64,  # num_windows
-            ctypes.c_int,  # width
-            ctypes.c_int,  # halo
-            ctypes.c_int,  # num_classes (table row stride)
-            ctypes.c_int,  # state_bits
-            ctypes.c_void_p,  # out
-            ctypes.c_int,  # device
-            ctypes.c_void_p,  # stream
-        ]
-        for fn in (lib.packed_scan_count, lib.packed_scan_planes):
+        for name, args in ARGTYPES.items():
+            fn = getattr(lib, name)
             fn.argtypes = args
             fn.restype = ctypes.c_int
         _lib = lib
     return _lib
+
+
+def call(name: str, *args) -> None:
+    """Call a launcher of the library and raise on a CUDA error code."""
+    rc = getattr(library(), name)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
 
 
 if __name__ == "__main__":

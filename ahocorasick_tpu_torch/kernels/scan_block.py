@@ -19,7 +19,7 @@ Inputs follow the windows contract of ``ops/scan_batched.chunk_classes``:
 
 A wrapper runs the plain twin for tensors on the CPU, and launches the
 kernel for tensors on a CUDA device: there is no fallback from one to the
-other.  ``launches`` counts kernel launches only.
+other.  ``launches`` (``kernels/build.py``) counts kernel launches only.
 """
 
 from __future__ import annotations
@@ -27,15 +27,9 @@ from __future__ import annotations
 import torch
 
 from ahocorasick_tpu_torch.kernels import build
-
-launches = {"packed_scan_count": 0, "packed_scan_planes": 0}
+from ahocorasick_tpu_torch.kernels.build import launches
 
 _WINDOW_BYTES = {torch.uint8: 1, torch.uint16: 2}
-
-
-def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
 
 
 def _check(table: torch.Tensor, windows: torch.Tensor, halo: int, state_bits: int):
@@ -61,14 +55,11 @@ def _check(table: torch.Tensor, windows: torch.Tensor, halo: int, state_bits: in
 def _launch(name: str, table, windows, halo, state_bits, out) -> None:
     B, W = windows.shape
     dev = windows.device
-    fn = getattr(build.library(), name)
-    rc = fn(
-        table.data_ptr(), windows.data_ptr(), _WINDOW_BYTES[windows.dtype],
+    build.call(
+        name, table.data_ptr(), windows.data_ptr(), _WINDOW_BYTES[windows.dtype],
         B, W, halo, table.shape[1], state_bits, out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
-    if rc != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
     launches[name] += 1
 
 

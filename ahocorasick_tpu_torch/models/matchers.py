@@ -1,6 +1,6 @@
-"""Public matcher classes of the PyTorch/CUDA port: ``AhoCorasickSet`` and
-``AhoCorasickMap`` (the port of ``ahocorasick_tpu/models/matchers.py``'s AC
-kind).
+"""Public matcher classes of the PyTorch/CUDA port (the port of
+``ahocorasick_tpu/models/matchers.py``): all-matches, leftmost-longest,
+whole-word and leftmost-shortest, each as a set and as a map.
 
 Reporting conventions are the reference's: ``end`` is one past the last
 matched UTF-16 unit, a listener returning ``False`` stops delivery, and
@@ -8,14 +8,16 @@ matches come in the sequential automaton's emission order.  With no
 listener, ``match`` returns ``(start, end)`` tuples (sets) or
 ``(start, end, value)`` (maps).
 
-Engines: ``"device"`` runs the packed-scan kernels on the matcher's torch
-device (their plain PyTorch twins when that device is the CPU); ``"gold"``
-runs the sequential host model; ``"auto"`` picks gold below
-``_AUTO_DEVICE_MIN_UNITS``.  ``device=None`` means CUDA, and the constructor
-raises when CUDA is unavailable.
+Engines: ``"device"`` runs the kernels on the matcher's torch device (their
+plain PyTorch twins when that device is the CPU); ``"gold"`` runs the
+sequential host model; ``"auto"`` picks gold below ``_AUTO_DEVICE_MIN_UNITS``.
+``device=None`` means CUDA, and the constructor raises when CUDA is
+unavailable.  Every kind's device path is the END-indexed planes kernel,
+then hot-position compaction and a host resolve per kind; shortest matchers
+loaded without their internal AC automaton take the sequential restart scan.
 
-The compiler, gold model, artifact format, native extractor and value
-re-walk are the JAX package's host code, imported as they are.
+The compiler, gold model, artifact format, native extractor, resolvers and
+value re-walk are the JAX package's host code, imported as they are.
 """
 
 from __future__ import annotations
@@ -26,10 +28,18 @@ import numpy as np
 import torch
 
 from ahocorasick_tpu.core import gold
-from ahocorasick_tpu.core.compiler import AC, CompiledMatcher, compile_matcher
+from ahocorasick_tpu.core.compiler import (
+    AC,
+    LONGEST,
+    SHORTEST,
+    WHOLE_WORD,
+    CompiledMatcher,
+    compile_matcher,
+)
+from ahocorasick_tpu.models.matchers import _bucket_up, _build_cls_map, _resolve_word_chars
 from ahocorasick_tpu.utils import chartables
 from ahocorasick_tpu_torch import convert
-from ahocorasick_tpu_torch.ops import dispatch, scan_batched
+from ahocorasick_tpu_torch.ops import dispatch, emit, scan_batched, scan_dfa
 
 # Input size (UTF-16 units) from which "auto" takes the device.  The JAX
 # package derives it per engine from TPU costs; this port uses one constant
@@ -49,21 +59,30 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _device_capable(compiled: CompiledMatcher) -> bool:
-    """Dense AC matchers always have a device table; row-compressed
-    (wide-alphabet) ones only when their quotient DFA packs inline."""
-    return not compiled.is_row_compressed or scan_batched.quotient_packable(compiled)
+def _device_capable(compiled: CompiledMatcher, kind: str) -> bool:
+    """Does this compiled matcher have a device scan path?
+
+    Dense matchers: always.  Row-compressed (wide-alphabet) ones: the AC,
+    longest and whole-word kinds when their quotient DFA packs inline.
+    Shortest answers True: it delegates to its internal AC matcher, which
+    ``ShortestMatchSet._pick_engine`` consults itself."""
+    if not compiled.is_row_compressed or kind == SHORTEST:
+        return True
+    return kind in (AC, LONGEST, WHOLE_WORD) and scan_batched.quotient_packable(compiled)
 
 
 class _DeviceTables:
     """Lazy per-matcher cache of the device tables (torch tensors on the
-    matcher's device).  Class columns are padded to a power-of-two bucket as
-    in the JAX package, so table bytes match it exactly."""
+    matcher's device).  State rows and class columns are padded to the
+    power-of-two buckets of the JAX package, so table bytes match it
+    exactly."""
 
     def __init__(self, m: CompiledMatcher, device: torch.device):
         self._m = m
         self.device = device
         self._cache = {}
+        self._sp = _bucket_up(m.num_states + 1)
+        self._ap = _bucket_up(m.num_classes)
 
     @property
     def packed_dfa(self) -> scan_batched.PackedDfa:
@@ -75,11 +94,31 @@ class _DeviceTables:
                 pd.table, pd.state_bits, pd.halo, self._m.num_classes, self.device)
         return self._cache["packed_dfa"]
 
+    @property
+    def dfa_next(self) -> torch.Tensor:
+        """Goto-closure DFA ``int32[S_pad, A_pad]``, zero-filled padding
+        (the shortest restart scan's table)."""
+        if "dfa_next" not in self._cache:
+            m = self._m
+            t = np.zeros((self._sp, self._ap), dtype=np.int32)
+            t[: m.num_states, : m.num_classes] = m.dfa_next
+            self._cache["dfa_next"] = torch.from_numpy(t).to(self.device)
+        return self._cache["dfa_next"]
+
+    @property
+    def match_len(self) -> torch.Tensor:
+        """Shortest-match length per state ``int32[S_pad]``, 0-padded."""
+        if "match_len" not in self._cache:
+            arr = np.zeros(self._sp, dtype=np.int32)
+            arr[: len(self._m.match_len)] = self._m.match_len
+            self._cache["match_len"] = torch.from_numpy(arr).to(self.device)
+        return self._cache["match_len"]
+
     def device_bytes(self) -> int:
         """Bytes of the device tables built so far."""
         total = 0
         for entry in self._cache.values():
-            for leaf in entry:
+            for leaf in entry if isinstance(entry, tuple) else (entry,):
                 if isinstance(leaf, torch.Tensor):
                     total += leaf.nbytes
         return total
@@ -95,6 +134,7 @@ class _Matcher:
         case_sensitive: bool = True,
         *,
         values: Optional[Iterable] = None,
+        word_chars: Optional[np.ndarray] = None,
         engine: str = "auto",
         device=None,
         thresholder=None,
@@ -108,12 +148,13 @@ class _Matcher:
             self.kind,
             case_sensitive,
             values=values if self.is_map else None,
+            word_chars=word_chars,
             thresholder=thresholder,
         )
-        if engine == "device" and not _device_capable(self.compiled):
+        if engine == "device" and not _device_capable(self.compiled, self.kind):
             raise ValueError(
-                "dictionary is too wide for the device path "
-                f"({self.compiled.num_states} states x "
+                "dictionary is too wide for this kind's device path "
+                f"(kind {self.kind!r}, {self.compiled.num_states} states x "
                 f"{self.compiled.num_classes} classes); use engine='auto' "
                 "or 'gold'"
             )
@@ -126,7 +167,7 @@ class _Matcher:
         return self.compiled.charmap[units]
 
     def _pick_engine(self, n_units: int) -> str:
-        if not _device_capable(self.compiled):
+        if not _device_capable(self.compiled, self.kind):
             return "gold"
         if self.engine != "auto":
             return self.engine
@@ -168,12 +209,22 @@ class _Matcher:
 
     def device_table_bytes(self) -> int:
         """Device bytes of the tables uploaded so far (0 before the first
-        device scan)."""
-        return self.dev.device_bytes()
+        device scan).  Shortest matchers include their internal AC
+        automaton's once it is built."""
+        total = self.dev.device_bytes()
+        inner = self.__dict__.get("_ac_cache")
+        if inner is not None:
+            total += inner.device_table_bytes()
+        return total
 
     def host_table_bytes(self) -> int:
-        """Host bytes of the compiled form."""
-        return self.compiled.memory_bytes()
+        """Host bytes of the compiled form(s): shortest matchers add their
+        internal AC automaton's once it is built."""
+        total = self.compiled.memory_bytes()
+        inner = self.__dict__.get("_ac_cache")
+        if inner is not None:
+            total += inner.host_table_bytes()
+        return total
 
     def _deliver(self, text: str, listener, starts, ends, vals):
         values = self.compiled.values
@@ -207,6 +258,15 @@ class _Matcher:
             return [(s, e, values[v]) for s, e, v in zip(sl, el, vl)]
         return list(zip(sl, el))
 
+    # ----------------------------- persistence ----------------------------- #
+
+    def save(self, path) -> None:
+        """Persist the compiled automaton (``core/artifact.py`` npz, which
+        either package loads)."""
+        from ahocorasick_tpu.core import artifact
+
+        artifact.save(self.compiled, path)
+
     @classmethod
     def from_compiled(cls, compiled: CompiledMatcher, engine: str = "auto",
                       device=None):
@@ -219,10 +279,19 @@ class _Matcher:
                 f"{'map' if compiled.values is not None else 'set'}; "
                 f"expected {cls.kind!r} {'map' if cls.is_map else 'set'}"
             )
-        if engine == "device" and not _device_capable(compiled):
+        if engine == "device" and not _device_capable(compiled, cls.kind):
             raise ValueError(
-                "row-compressed artifact has no device path; use engine='auto' "
-                "or 'gold'"
+                "row-compressed artifact has no device path for this kind; "
+                "use engine='auto' or 'gold'"
+            )
+        if engine == "device" and cls.kind == SHORTEST and compiled.is_row_compressed:
+            # _device_capable answers True for SHORTEST by delegating to the
+            # internal AC automaton, which an artifact without it cannot
+            # rebuild (no keyword source); only the host path remains.
+            raise ValueError(
+                "row-compressed shortest artifact has no device path (no "
+                "keyword source for the internal AC automaton); use "
+                "engine='auto' or 'gold'"
             )
         self = cls.__new__(cls)
         self.engine = engine
@@ -246,10 +315,9 @@ class _PfacEngine(_Matcher):
 
     def _windows(self, cls: np.ndarray, halo: int) -> torch.Tensor:
         """``chunk_classes`` windows, uploaded narrow (uint8 or uint16)."""
-        w = scan_batched.chunk_classes(cls, _BATCH_CHUNK, halo, self.compiled.num_classes)
-        if w.dtype == np.uint16:  # upload through an int16 view: same bits
-            return torch.from_numpy(w.view(np.int16)).to(self.device).view(torch.uint16)
-        return torch.from_numpy(w).to(self.device)
+        nc = self.compiled.num_classes
+        w = scan_batched.chunk_classes(cls, _BATCH_CHUNK, halo, nc)
+        return scan_batched.classes_to_device(w, nc, self.device)
 
 
 class AhoCorasickSet(_PfacEngine):
@@ -289,13 +357,188 @@ class AhoCorasickMap(AhoCorasickSet):
         super().__init__(keywords, case_sensitive, values=values, **kw)
 
 
-_CLASS_BY_KIND = {(AC, False): AhoCorasickSet, (AC, True): AhoCorasickMap}
+class LongestMatchSet(_PfacEngine):
+    """Leftmost-longest non-overlapping (reference ``LongestMatchSet``):
+    the planes kernel, then the fused native extract-and-resolve."""
+
+    kind = LONGEST
+
+    def _device_triples(self, cls):
+        return emit.resolve_end_planes(self.compiled, cls, self._end_planes(cls), "longest")
+
+
+class LongestMatchMap(LongestMatchSet):
+    kind = LONGEST
+    is_map = True
+
+    def __init__(self, keywords, values, case_sensitive=True, **kw):
+        super().__init__(keywords, case_sensitive, values=values, **kw)
+
+
+class WholeWordMatchSet(_PfacEngine):
+    """Whole-word-only matches (reference ``WholeWordMatchSet``).
+
+    Device path: pure-word-char keywords match a whole word iff they occur
+    as an AC substring with non-word (or text-edge) characters on both
+    sides, so the AC candidates from the planes kernel go through the
+    JAX package's vectorized boundary filter."""
+
+    kind = WHOLE_WORD
+
+    def __init__(self, keywords, case_sensitive=True, *, word_chars=None, toggle_flags=None, **kw):
+        word_chars = _resolve_word_chars(word_chars, toggle_flags)
+        super().__init__(keywords, case_sensitive, word_chars=word_chars, **kw)
+
+    def _device_triples(self, cls):
+        from ahocorasick_tpu.resolve.wholeword import boundary_filter
+
+        return boundary_filter(self.compiled.class_is_word, cls, *self._candidates(cls))
+
+
+class WholeWordMatchMap(WholeWordMatchSet):
+    kind = WHOLE_WORD
+    is_map = True
+
+    def __init__(self, keywords, values, case_sensitive=True, **kw):
+        super().__init__(keywords, case_sensitive, values=values, **kw)
+
+
+class ShortestMatchSet(_Matcher):
+    """Leftmost-shortest non-overlapping (reference ``ShortestMatchSet``).
+
+    The reference's lagged restart loop is sequential, so the device path
+    scans a plain AC automaton over the insert-surviving keywords
+    (``compiler.shortest_survivors``) with the planes kernel and runs the
+    exact min-end greedy resolve on the host.  ``save`` bundles that
+    internal AC automaton into the one npz; an artifact loaded without it
+    takes the sequential restart scan (``ops/scan_dfa``, dense tables) or
+    the host path.
+    """
+
+    kind = SHORTEST
+
+    def __init__(self, keywords, case_sensitive: bool = True, **kw):
+        keywords = list(keywords)
+        if kw.get("values") is not None:
+            kw["values"] = list(kw["values"])
+        super().__init__(keywords, case_sensitive, **kw)
+        self._src = (keywords, kw.get("values"), case_sensitive, kw.get("thresholder"))
+        self._ac_cache = None
+        self._cls_map = None
+        if self.engine == "device" and not _device_capable(self._ac.compiled, AC):
+            raise ValueError(
+                "dictionary is too wide for the shortest device path "
+                "(the internal AC automaton has no packable quotient); "
+                "use engine='auto' or 'gold'"
+            )
+
+    @property
+    def _ac(self):
+        """Internal AC matcher over the insert-surviving keywords, on the
+        same device (built lazily); None for ``from_compiled`` artifacts
+        without one."""
+        if self.__dict__.get("_ac_cache") is not None:
+            return self._ac_cache
+        src = self.__dict__.get("_src")
+        if src is None:
+            return None
+        from ahocorasick_tpu.core.compiler import shortest_survivors
+
+        kws, vals, case_sensitive, thresholder = src
+        skws, svals = shortest_survivors(kws, case_sensitive, vals)
+        if self.is_map:
+            self._ac_cache = AhoCorasickMap(skws, svals, case_sensitive,
+                                            thresholder=thresholder, device=self.device)
+        else:
+            self._ac_cache = AhoCorasickSet(skws, case_sensitive,
+                                            thresholder=thresholder, device=self.device)
+        # The charmaps normally coincide; remap classes if they ever diverge.
+        self._cls_map = _build_cls_map(self.compiled, self._ac_cache.compiled)
+        return self._ac_cache
+
+    def _ac_classes(self, cls: np.ndarray) -> np.ndarray:
+        """Shortest-charmap classes -> internal-AC-charmap classes."""
+        return cls if self._cls_map is None else self._cls_map[cls]
+
+    def save(self, path) -> None:
+        """Persist the compiled automaton and the internal AC automaton in
+        one npz (``artifact.save(..., ac=)``), for any target: path, bytes
+        path or file-like."""
+        from ahocorasick_tpu.core import artifact
+
+        ac = self._ac
+        artifact.save(self.compiled, path, ac=ac.compiled if ac is not None else None)
+
+    @classmethod
+    def from_compiled(cls, compiled, engine: str = "auto", device=None, ac_compiled=None):
+        """``ac_compiled``: the internal AC automaton saved beside
+        ``compiled``; it restores the planes-scan device path."""
+        if ac_compiled is None:
+            return super().from_compiled(compiled, engine=engine, device=device)
+        self = _Matcher.from_compiled.__func__(cls, compiled, "auto", device)
+        self._src = None
+        ac_cls = AhoCorasickMap if cls.is_map else AhoCorasickSet
+        self._ac_cache = ac_cls.from_compiled(ac_compiled, device=self.device)
+        self._cls_map = _build_cls_map(compiled, ac_compiled)
+        if engine == "device" and not _device_capable(ac_compiled, AC):
+            raise ValueError("the bundled AC automaton has no device path; use engine='auto'")
+        self.engine = engine
+        return self
+
+    def _pick_engine(self, n_units: int) -> str:
+        if self.engine == "gold":
+            return "gold"  # never build the internal AC for gold matchers
+        if self.engine == "auto" and n_units < _AUTO_DEVICE_MIN_UNITS:
+            return "gold"  # small input: skip the second compile too
+        ac = self._ac
+        if ac is None:
+            if self.compiled.is_row_compressed:
+                return "gold"  # artifact without dense tables: host path
+            return super()._pick_engine(n_units)
+        if not _device_capable(ac.compiled, AC):
+            return "gold"
+        return "device"
+
+    def _device_triples(self, cls):
+        ac = self._ac
+        if ac is not None:
+            cls = self._ac_classes(cls)
+            return emit.resolve_end_planes(ac.compiled, cls, ac._end_planes(cls), "shortest")
+        return scan_dfa.shortest_triples(self.compiled, self.dev, cls)
+
+
+class ShortestMatchMap(ShortestMatchSet):
+    kind = SHORTEST
+    is_map = True
+
+    def __init__(self, keywords, values, case_sensitive=True, **kw):
+        super().__init__(keywords, case_sensitive, values=values, **kw)
+
+
+_CLASS_BY_KIND = {
+    (cls.kind, cls.is_map): cls
+    for cls in (
+        AhoCorasickSet, AhoCorasickMap, LongestMatchSet, LongestMatchMap,
+        WholeWordMatchSet, WholeWordMatchMap, ShortestMatchSet, ShortestMatchMap,
+    )
+}
 
 
 def load_matcher(path, allow_pickle: bool = False, engine: str = "auto", device=None):
     """Load a matcher artifact saved by either package (``core.artifact``
-    npz) and wrap it in the port's matcher for its kind."""
+    npz) and wrap it in the port's matcher for its kind.
+
+    Shortest artifacts bundle their internal AC automaton in the npz; older
+    saves kept it in a ``<path>.ac`` sidecar, still read for path targets."""
+    import os
+
     from ahocorasick_tpu.core import artifact
 
-    compiled = artifact.load(path, allow_pickle=allow_pickle)
-    return convert.from_compiled(compiled, engine=engine, device=device)
+    compiled, ac_compiled = artifact.load_with_ac(path, allow_pickle=allow_pickle)
+    if (compiled.kind == SHORTEST and ac_compiled is None
+            and (isinstance(path, (str, bytes)) or hasattr(path, "__fspath__"))):
+        sidecar = os.fsdecode(os.fspath(path)) + ".ac"
+        if os.path.exists(sidecar):
+            ac_compiled = artifact.load(sidecar, allow_pickle=allow_pickle)
+    return convert.from_compiled(compiled, engine=engine, device=device,
+                                 ac_compiled=ac_compiled)

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from ahocorasick_tpu.core.compiler import CompiledMatcher, RowTable
+from ahocorasick_tpu_torch.kernels import compact
 
 PAD_CLASS = 0
 
@@ -130,6 +131,15 @@ def class_dtype(num_classes: int):
     return np.uint8 if num_classes <= 256 else np.uint16
 
 
+def classes_to_device(arr: np.ndarray, num_classes: int, device) -> torch.Tensor:
+    """Class ids (any shape) uploaded in the narrow dtype of ``class_dtype``:
+    uint8, or uint16 through an int16 view (same bits)."""
+    arr = np.ascontiguousarray(arr, dtype=class_dtype(num_classes))
+    if arr.dtype == np.uint16:
+        return torch.from_numpy(arr.view(np.int16)).to(device).view(torch.uint16)
+    return torch.from_numpy(arr).to(device)
+
+
 def chunk_classes(
     cls: np.ndarray, chunk: int, halo: int, num_classes: Optional[int] = None
 ) -> np.ndarray:
@@ -164,20 +174,23 @@ def planes_to_sparse(bits, n: int):
     with any emit bit: ascending ``idx`` (int64) below ``n`` and hot-major
     ``masks`` (uint32[k, P]).  None when a dense download is the better deal
     (small inputs, numpy input, CPU tensors, or more than ``n // 4`` hot
-    positions)."""
+    positions).  CUDA planes go through the compaction kernel, CPU planes
+    through its plain twin (``kernels/compact.py``); only the hot entries
+    are downloaded."""
     if not isinstance(bits, torch.Tensor) or n < _SPARSE_MIN_UNITS:
         return None
     if not _SPARSE_ON_CPU and bits.device.type == "cpu":
         return None
-    words = bits.view(torch.int32)  # same bits; int32 has every op needed
-    idx = torch.nonzero((words != 0).any(dim=0)).squeeze(1)
-    if idx.numel() > n // 4:
+    out = compact.compact_planes(bits, limit=n // 4)
+    if out is None:
         return None
-    masks = words[:, idx].T.contiguous()
+    _, idx, masks = out
     idx = idx.cpu().numpy()
-    masks = masks.cpu().numpy().view(np.uint32)
-    keep = idx < n  # padded window lanes trail the text
-    return idx[keep], masks[keep]
+    masks = masks.view(torch.int32).cpu().numpy().view(np.uint32)
+    # Padded window lanes trail the text; idx ascends, so idx < n is a
+    # prefix and slicing keeps views instead of copying.
+    keep = int(np.searchsorted(idx, n))
+    return idx[:keep], masks[:keep]
 
 
 def to_host(bits) -> np.ndarray:

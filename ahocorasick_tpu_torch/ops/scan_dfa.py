@@ -1,0 +1,39 @@
+"""Sequential DFA scan of the leftmost-shortest matcher — the port of
+``ahocorasick_tpu/ops/scan_dfa.py``'s ``shortest_states`` path.
+
+The reference's lagged restart (``ShortestMatchSet.java:182-260``) makes the
+state depend on where earlier matches ended, so the scan is one sequential
+walk (``kernels/scan_dfa.shortest_states``).  The shortest matcher runs it
+only for artifacts loaded without their internal AC automaton; with one, it
+takes the parallel planes scan and a host resolve instead.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from ahocorasick_tpu_torch.kernels import scan_dfa as kernels
+from ahocorasick_tpu_torch.ops import scan_batched
+
+PAD_CLASS = 0
+
+
+def pad_classes(cls, max_depth: int, bucket: int = 1) -> np.ndarray:
+    """Right-pad a class array so every lane can read ``max_depth`` chars,
+    the lane count rounded up to ``bucket`` (``scan_pfac.pad_classes``, whose
+    module imports JAX)."""
+    cls = np.asarray(cls)
+    n = len(cls)
+    n_pad = -(-max(n, 1) // bucket) * bucket
+    return np.pad(cls, (0, n_pad - n + max_depth), constant_values=PAD_CLASS)
+
+
+def shortest_triples(m, dev, cls: np.ndarray):
+    """Shortest-match ``(starts, ends, vals)`` of ``cls`` from the arrival
+    states of the restart-loop scan over ``dev``'s padded tables."""
+    from ahocorasick_tpu.ops import emit
+
+    n = len(cls)
+    cls_d = scan_batched.classes_to_device(pad_classes(cls, 0), m.num_classes, dev.device)
+    states = kernels.shortest_states(dev.dfa_next, dev.match_len, cls_d)
+    return emit.states_to_shortest_matches(m, states[:n].cpu().numpy())

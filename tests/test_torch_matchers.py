@@ -129,10 +129,10 @@ def test_jax_saved_npz_loads_through_the_port(tmp_path):
     text = "ushers and she said hishers"
     assert p.match(text) == j.match(text)
     assert len(p.match(text)) > 5
-    jl = jax_pkg.LongestMatchSet(kws)
-    jl.save(tmp_path / "l.npz")
-    with pytest.raises(NotImplementedError):
-        port.load_matcher(tmp_path / "l.npz", device="cpu")
+    jw = jax_pkg.WholeWordLongestMatchSet(kws)
+    jw.save(tmp_path / "wwl.npz")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
+        port.load_matcher(tmp_path / "wwl.npz", device="cpu")
 
 
 @pytest.mark.parametrize("dense", [True, False])

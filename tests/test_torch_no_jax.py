@@ -22,6 +22,31 @@ def test_port_imports_and_counts_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_new_kinds_and_kernels_run_without_loading_jax():
+    code = (
+        "import io, sys\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "from ahocorasick_tpu_torch.kernels import build, compact, scan_dfa\n"
+        "from ahocorasick_tpu_torch.ops import emit, scan_dfa as ops_scan_dfa\n"
+        "from ahocorasick_tpu.core.compiler import compile_matcher\n"
+        "kw = dict(engine='device', device='cpu')\n"
+        "t = 'ushers and she said hers'\n"
+        "assert P.LongestMatchSet(['he', 'she', 'hers'], **kw).match(t) == [(1, 4), (11, 14), (20, 24)]\n"
+        "assert P.WholeWordMatchSet(['she', 'hers'], **kw).match(t) == [(11, 14), (20, 24)]\n"
+        "s = P.ShortestMatchMap(['he', 'she', 'hers'], [1, 2, 3], **kw)\n"
+        "assert s.match(t) == [(1, 4, 2), (11, 14, 2), (20, 22, 1)], s.match(t)\n"
+        "buf = io.BytesIO(); s.save(buf); buf.seek(0)\n"
+        "assert P.load_matcher(buf, **kw).match(t) == s.match(t)\n"
+        "c = compile_matcher(['he', 'she', 'hers'], 'shortest', True)\n"
+        "f = P.ShortestMatchSet.from_compiled(c, **kw)\n"
+        "assert f.match(t) == [(1, 4), (11, 14), (20, 22)], f.match(t)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_port_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     sources = sorted((ROOT / "ahocorasick_tpu_torch").rglob("*.py"))
