@@ -1,9 +1,10 @@
 """ahocorasick_tpu_torch — the PyTorch/CUDA port of ahocorasick_tpu.
 
 Multi-pattern string matching (Aho-Corasick all-matches, leftmost-longest,
-whole-word and leftmost-shortest, as sets and maps) with the scan and the
-hot-position compaction run by hand-written CUDA kernels on an NVIDIA H100
-(``csrc/``), and by their plain PyTorch twins on the CPU.  The host
+whole-word, leftmost-shortest and whole-word-longest, as sets and maps) with
+the scans, the hot-position compaction and the whole-word-longest walks run
+by hand-written CUDA kernels on an NVIDIA H100 (``csrc/``), and by their
+plain PyTorch twins on the CPU.  The host
 compiler, gold model, artifact format, resolvers and native extractor are
 shared with ``ahocorasick_tpu`` by import; this package never imports JAX.
 
@@ -19,6 +20,8 @@ from ahocorasick_tpu_torch.models.matchers import (
     LongestMatchSet,
     ShortestMatchMap,
     ShortestMatchSet,
+    WholeWordLongestMatchMap,
+    WholeWordLongestMatchSet,
     WholeWordMatchMap,
     WholeWordMatchSet,
     load_matcher,
@@ -31,6 +34,8 @@ __all__ = [
     "LongestMatchMap",
     "WholeWordMatchSet",
     "WholeWordMatchMap",
+    "WholeWordLongestMatchSet",
+    "WholeWordLongestMatchMap",
     "ShortestMatchSet",
     "ShortestMatchMap",
     "load_matcher",

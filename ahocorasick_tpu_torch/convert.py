@@ -3,7 +3,8 @@
 ``packed_from_numpy`` takes a packed table as the JAX package builds it —
 ``ahocorasick_tpu.ops.scan_batched.build_packed(m).table`` or the padded
 ``_DeviceTables(m).packed_dfa.table`` (via ``np.asarray``) — and returns the
-port's ``PackedDfa`` of tensors.  ``from_compiled`` wraps a
+port's ``PackedDfa`` of tensors.  ``wwl_scan_from_numpy`` does the same for
+the whole-word-longest scan tables.  ``from_compiled`` wraps a
 ``CompiledMatcher`` (freshly compiled, or loaded from an npz either package
 saved) in the port's matcher class for its kind.
 """
@@ -16,6 +17,7 @@ import torch
 from ahocorasick_tpu.core.compiler import SHORTEST
 from ahocorasick_tpu.models.matchers import _bucket_up
 from ahocorasick_tpu_torch.ops.scan_batched import PackedDfa
+from ahocorasick_tpu_torch.ops.scan_wwl import WwlScan
 
 
 def packed_from_numpy(table, state_bits: int, halo: int, num_classes: int,
@@ -33,21 +35,43 @@ def packed_from_numpy(table, state_bits: int, halo: int, num_classes: int,
     host = np.empty((table.shape[0], _bucket_up(num_classes)), dtype=np.uint32)
     host[:, :num_classes] = table[:, :num_classes]
     host[:, num_classes:] = table[:, :1]
-    # Upload through an int32 view: same bits, and every copy path has it.
-    t = torch.from_numpy(host.view(np.int32)).to(device).view(torch.uint32)
-    return PackedDfa(t, None, int(state_bits), int(halo))
+    return PackedDfa(_uint32_tensor(host, device), None, int(state_bits), int(halo))
+
+
+def _uint32_tensor(arr: np.ndarray, device) -> torch.Tensor:
+    """uint32 numpy -> ``torch.uint32`` through an int32 view (same bits;
+    every copy path has int32)."""
+    arr = np.ascontiguousarray(arr, dtype=np.uint32)
+    return torch.from_numpy(arr.view(np.int32)).to(device).view(torch.uint32)
+
+
+def wwl_scan_from_numpy(sc, device) -> WwlScan:
+    """A whole-word-longest scan table set as the JAX package builds it
+    (``ahocorasick_tpu.ops.scan_wwl.build_wwl_scan`` /
+    ``build_wwl_scan_mixed``, or ``_DeviceTables(m).wwl_scan_host``; numpy
+    arrays) -> the port's ``WwlScan`` of tensors on ``device``."""
+    table = np.asarray(sc.table)
+    if table.dtype != np.uint32 or table.ndim != (2 if sc.row_layout else 1):
+        raise ValueError(f"expected a uint32 {'row' if sc.row_layout else 'flat'} table, "
+                         f"got {table.dtype}{table.shape}")
+    rows_flat = None
+    if sc.rows_flat is not None:
+        rows_flat = torch.from_numpy(np.ascontiguousarray(sc.rows_flat, dtype=np.int32)).to(device)
+    outrows = torch.from_numpy(np.ascontiguousarray(sc.outrows, dtype=np.int32)).to(device)
+    return WwlScan(_uint32_tensor(table, device), rows_flat, outrows, int(sc.id_bits),
+                   int(sc.depth_bits), int(sc.halo), int(sc.num_classes), bool(sc.row_layout),
+                   bool(sc.quotient), bool(sc.has_cross))
 
 
 def from_compiled(compiled, engine: str = "auto", device=None, ac_compiled=None):
-    """The port's matcher for ``compiled`` (any kind but whole-word-longest,
-    set or map).  ``ac_compiled`` is a shortest artifact's internal AC
-    automaton, when it was saved with it."""
+    """The port's matcher for ``compiled``, of any kind, set or map.
+    ``ac_compiled`` is a shortest artifact's internal AC automaton, when it
+    was saved with it."""
     from ahocorasick_tpu_torch.models.matchers import _CLASS_BY_KIND
 
     cls = _CLASS_BY_KIND.get((compiled.kind, compiled.values is not None))
     if cls is None:
-        raise NotImplementedError(
-            f"the port has no {compiled.kind!r} matcher yet (ROADMAP.md A4)")
+        raise ValueError(f"unknown matcher kind {compiled.kind!r}")
     if compiled.kind == SHORTEST:
         return cls.from_compiled(compiled, engine=engine, device=device,
                                  ac_compiled=ac_compiled)

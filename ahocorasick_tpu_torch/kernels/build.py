@@ -28,7 +28,8 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
-    for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu")
+    for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
+                 "wwl_walk.cu")
 )
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
@@ -41,6 +42,9 @@ launches = {
     "packed_scan_planes": 0,
     "compact_planes": 0,
     "shortest_states": 0,
+    "wwl_scan_plane": 0,
+    "wwl_sweep_at": 0,
+    "wwl_walks_at": 0,
 }
 
 
@@ -63,6 +67,20 @@ ARGTYPES = {
     "compact_write": [_P, _I, _I64, _P, _P, _P, _I, _P],
     # (dfa_next, match_len, cls, cls_bytes, n, num_classes, out, device, stream)
     "shortest_states": [_P, _P, _P, _I, _I64, _I, _P, _I, _P],
+    # (table, windows, class_bytes, num_windows, width, halo, stride,
+    #  num_classes, id_bits, plane, entry, device, stream)
+    "wwl_scan_plane": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # (plane, entry, rows_flat, outrows, starts, num_starts, live, d, id_bits,
+    #  depth_bits, cross, die_pos, has, m_start, m_end, m_val, cont, device,
+    #  stream)
+    "wwl_sweep_at": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
+                     _P, _P, _P, _P, _P, _P, _I, _P],
+    # (trie_next, own_len, own_val, fail_len, fail_off, fail_val,
+    #  class_is_word, num_states, stride, cls, cls_bytes, num_cls, starts,
+    #  num_starts, max_depth, die_pos, has, m_start, m_end, m_val, device,
+    #  stream)
+    "wwl_walks_at": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I64, _P, _I64, _I,
+                     _P, _P, _P, _P, _P, _I, _P],
 }
 
 _lib = None

@@ -1,6 +1,7 @@
 """Public matcher classes of the PyTorch/CUDA port (the port of
 ``ahocorasick_tpu/models/matchers.py``): all-matches, leftmost-longest,
-whole-word and leftmost-shortest, each as a set and as a map.
+whole-word, leftmost-shortest and whole-word-longest, each as a set and as
+a map.
 
 Reporting conventions are the reference's: ``end`` is one past the last
 matched UTF-16 unit, a listener returning ``False`` stops delivery, and
@@ -12,9 +13,14 @@ Engines: ``"device"`` runs the kernels on the matcher's torch device (their
 plain PyTorch twins when that device is the CPU); ``"gold"`` runs the
 sequential host model; ``"auto"`` picks gold below ``_AUTO_DEVICE_MIN_UNITS``.
 ``device=None`` means CUDA, and the constructor raises when CUDA is
-unavailable.  Every kind's device path is the END-indexed planes kernel,
-then hot-position compaction and a host resolve per kind; shortest matchers
-loaded without their internal AC automaton take the sequential restart scan.
+unavailable.  The AC, longest, whole-word and shortest kinds' device path
+is the END-indexed planes kernel, then hot-position compaction and a host
+resolve per kind; shortest matchers loaded without their internal AC
+automaton take the sequential restart scan.  Whole-word-longest computes
+per-start walk outcomes on the device (``ops/scan_wwl.py``) and follows the
+restart chain on the host.  Dictionaries that no ported kernel can take
+(see ``_no_device_path``) answer through gold under ``"auto"``, and raise
+under ``"device"``.
 
 The compiler, gold model, artifact format, native extractor, resolvers and
 value re-walk are the JAX package's host code, imported as they are.
@@ -33,13 +39,15 @@ from ahocorasick_tpu.core.compiler import (
     LONGEST,
     SHORTEST,
     WHOLE_WORD,
+    WHOLE_WORD_LONGEST,
     CompiledMatcher,
     compile_matcher,
 )
 from ahocorasick_tpu.models.matchers import _bucket_up, _build_cls_map, _resolve_word_chars
+from ahocorasick_tpu.resolve.wholeword import follow_chain
 from ahocorasick_tpu.utils import chartables
 from ahocorasick_tpu_torch import convert
-from ahocorasick_tpu_torch.ops import dispatch, emit, scan_batched, scan_dfa
+from ahocorasick_tpu_torch.ops import dispatch, emit, scan_batched, scan_dfa, scan_wwl
 
 # Input size (UTF-16 units) from which "auto" takes the device.  The JAX
 # package derives it per engine from TPU costs; this port uses one constant
@@ -59,16 +67,47 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-def _device_capable(compiled: CompiledMatcher, kind: str) -> bool:
-    """Does this compiled matcher have a device scan path?
+def _no_device_path(compiled: CompiledMatcher, kind: str) -> Optional[str]:
+    """Why this compiled matcher has no device path in the port, or None.
 
-    Dense matchers: always.  Row-compressed (wide-alphabet) ones: the AC,
-    longest and whole-word kinds when their quotient DFA packs inline.
-    Shortest answers True: it delegates to its internal AC matcher, which
+    AC, longest and whole-word: the packed scan kernels take dense tables
+    whose emit masks pack inline beside the state, and row-compressed ones
+    whose quotient DFA does.  Dense dictionaries beyond that need the
+    count-packed, hotstate or split layouts, which are not ported yet (for
+    them the JAX package has engines; the port answers through gold under
+    ``"auto"``).  Whole-word-longest: dense always (the per-start walk takes
+    any trie); row-compressed when a scan table applies.  Shortest answers
+    None: it delegates to its internal AC matcher, which
     ``ShortestMatchSet._pick_engine`` consults itself."""
-    if not compiled.is_row_compressed or kind == SHORTEST:
-        return True
-    return kind in (AC, LONGEST, WHOLE_WORD) and scan_batched.quotient_packable(compiled)
+    if kind == SHORTEST:
+        return None
+    size = (f"kind {kind!r}, {compiled.num_states} states x {compiled.num_classes} classes, "
+            f"max depth {compiled.max_depth}")
+    if kind == WHOLE_WORD_LONGEST:
+        if (not compiled.is_row_compressed or scan_wwl.scan_applicable(compiled)
+                or scan_wwl.mixed_scan_applicable(compiled)):
+            return None
+        return f"dictionary is too wide for this kind's device path ({size})"
+    if compiled.is_row_compressed:
+        if kind in (AC, LONGEST, WHOLE_WORD) and scan_batched.quotient_packable(compiled):
+            return None
+        return f"dictionary is too wide for this kind's device path ({size})"
+    if scan_batched.inline_packable(compiled):
+        return None
+    return (f"dictionary does not pack inline ({size}: state bits + max depth > 32); its "
+            "count-packed, hotstate and split layouts are not ported yet (ROADMAP.md A6)")
+
+
+def _device_capable(compiled: CompiledMatcher, kind: str) -> bool:
+    """Does this compiled matcher have a device path in the port?"""
+    return _no_device_path(compiled, kind) is None
+
+
+def _require_device_path(compiled: CompiledMatcher, kind: str) -> None:
+    """Raise for ``engine="device"`` on a dictionary with no device path."""
+    reason = _no_device_path(compiled, kind)
+    if reason is not None:
+        raise ValueError(f"{reason}; use engine='auto' or 'gold'")
 
 
 class _DeviceTables:
@@ -104,6 +143,50 @@ class _DeviceTables:
             t[: m.num_states, : m.num_classes] = m.dfa_next
             self._cache["dfa_next"] = torch.from_numpy(t).to(self.device)
         return self._cache["dfa_next"]
+
+    @property
+    def wwl_scan(self) -> scan_wwl.WwlScan:
+        """Whole-word-longest scan tables over the goto closure (or its
+        quotient rows), for word-uniform dictionaries."""
+        if "wwl_scan" not in self._cache:
+            self._cache["wwl_scan"] = convert.wwl_scan_from_numpy(
+                scan_wwl.build_wwl_scan(self._m), self.device)
+        return self._cache["wwl_scan"]
+
+    @property
+    def wwl_scan_mixed(self) -> scan_wwl.WwlScan:
+        """Whole-word-longest scan tables over the truncated closure, with
+        crossing bits, for separator-spanning dictionaries."""
+        if "wwl_scan_mixed" not in self._cache:
+            self._cache["wwl_scan_mixed"] = convert.wwl_scan_from_numpy(
+                scan_wwl.build_wwl_scan_mixed(self._m), self.device)
+        return self._cache["wwl_scan_mixed"]
+
+    @property
+    def wwl_walk(self) -> Tuple[torch.Tensor, ...]:
+        """The per-start walk's tables, padded as the JAX package pads them:
+        ``(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
+        class_is_word)``.  ``trie_next`` is int32[S_pad, A_pad] with the dead
+        state re-anchored to ``S_pad - 1``; the outcome arrays are
+        int32[S_pad], the ``_val`` ones padded with -1; ``class_is_word`` is
+        bool[A_pad]."""
+        if "wwl_walk" not in self._cache:
+            m = self._m
+            dead = self._sp - 1
+            trie = np.full((self._sp, self._ap), dead, dtype=np.int32)
+            trie[: m.num_states + 1, : m.num_classes] = np.where(
+                m.trie_next == m.num_states, dead, m.trie_next)
+            arrays = [trie]
+            for name in ("own_len", "own_val", "fail_len", "fail_off", "fail_val"):
+                arr = getattr(m, name)
+                out = np.full(self._sp, -1 if name.endswith("_val") else 0, dtype=arr.dtype)
+                out[: len(arr)] = arr
+                arrays.append(out)
+            word = np.zeros(self._ap, dtype=bool)
+            word[: m.num_classes] = m.class_is_word
+            arrays.append(word)
+            self._cache["wwl_walk"] = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+        return self._cache["wwl_walk"]
 
     @property
     def match_len(self) -> torch.Tensor:
@@ -151,13 +234,8 @@ class _Matcher:
             word_chars=word_chars,
             thresholder=thresholder,
         )
-        if engine == "device" and not _device_capable(self.compiled, self.kind):
-            raise ValueError(
-                "dictionary is too wide for this kind's device path "
-                f"(kind {self.kind!r}, {self.compiled.num_states} states x "
-                f"{self.compiled.num_classes} classes); use engine='auto' "
-                "or 'gold'"
-            )
+        if engine == "device":
+            _require_device_path(self.compiled, self.kind)
         self.dev = _DeviceTables(self.compiled, self.device)
 
     # ------------------------------------------------------------------ #
@@ -279,11 +357,8 @@ class _Matcher:
                 f"{'map' if compiled.values is not None else 'set'}; "
                 f"expected {cls.kind!r} {'map' if cls.is_map else 'set'}"
             )
-        if engine == "device" and not _device_capable(compiled, cls.kind):
-            raise ValueError(
-                "row-compressed artifact has no device path for this kind; "
-                "use engine='auto' or 'gold'"
-            )
+        if engine == "device":
+            _require_device_path(compiled, cls.kind)
         if engine == "device" and cls.kind == SHORTEST and compiled.is_row_compressed:
             # _device_capable answers True for SHORTEST by delegating to the
             # internal AC automaton, which an artifact without it cannot
@@ -425,12 +500,8 @@ class ShortestMatchSet(_Matcher):
         self._src = (keywords, kw.get("values"), case_sensitive, kw.get("thresholder"))
         self._ac_cache = None
         self._cls_map = None
-        if self.engine == "device" and not _device_capable(self._ac.compiled, AC):
-            raise ValueError(
-                "dictionary is too wide for the shortest device path "
-                "(the internal AC automaton has no packable quotient); "
-                "use engine='auto' or 'gold'"
-            )
+        if self.engine == "device":
+            _require_device_path(self._ac.compiled, AC)
 
     @property
     def _ac(self):
@@ -480,8 +551,8 @@ class ShortestMatchSet(_Matcher):
         ac_cls = AhoCorasickMap if cls.is_map else AhoCorasickSet
         self._ac_cache = ac_cls.from_compiled(ac_compiled, device=self.device)
         self._cls_map = _build_cls_map(compiled, ac_compiled)
-        if engine == "device" and not _device_capable(ac_compiled, AC):
-            raise ValueError("the bundled AC automaton has no device path; use engine='auto'")
+        if engine == "device":
+            _require_device_path(ac_compiled, AC)
         self.engine = engine
         return self
 
@@ -515,11 +586,85 @@ class ShortestMatchMap(ShortestMatchSet):
         super().__init__(keywords, case_sensitive, values=values, **kw)
 
 
+class WholeWordLongestMatchSet(_Matcher):
+    """Whole-word matches that may span separators (reference
+    ``WholeWordLongestMatchSet``).
+
+    Device path: the walk outcomes at position 0 and every word start
+    (``ops/scan_wwl.py``), downloaded and followed along the restart chain
+    on the host (``resolve.wholeword.follow_chain``).  The route is the
+    first that applies: the packed scan over the goto closure for
+    word-uniform dictionaries (dense or quotient rows); the scan over the
+    truncated closure for separator-spanning ones ("New York"), with the
+    walks whose die char hit a crossing edge re-run on the host over the
+    full trie; else the per-start trie walk.  The JAX package also switches
+    dense inputs to a walk from every position (``_WWL_COMPACT_DENSITY``, a
+    TPU gather-cost rule); both of its branches feed the same chain
+    follower, so the port walks only the chain's lanes."""
+
+    kind = WHOLE_WORD_LONGEST
+
+    def __init__(self, keywords, case_sensitive=True, *, word_chars=None, toggle_flags=None, **kw):
+        word_chars = _resolve_word_chars(word_chars, toggle_flags)
+        super().__init__(keywords, case_sensitive, word_chars=word_chars, **kw)
+
+    def _device_triples(self, cls):
+        m = self.compiled
+        lanes = scan_wwl.compact_lanes(m, cls)
+        if scan_wwl.scan_applicable(m):
+            return self._scan_triples(self.dev.wwl_scan, lanes, len(cls))
+        if scan_wwl.mixed_scan_applicable(m):
+            return self._scan_triples(self.dev.wwl_scan_mixed, lanes, len(cls))
+        return self._walk_triples(lanes, len(cls))
+
+    def _scan_triples(self, sc, compact, n: int):
+        """The scan route over ``sc``; with crossing bits, the flagged walks
+        are re-run on the host over the full trie."""
+        cls_p, starts, lanes, ws, d = compact
+        outs = scan_wwl.scan_walks(sc, cls_p, starts, d, self.device)
+        arrays = [x[: len(lanes)].cpu().numpy() for x in outs[:5]]
+        if sc.has_cross:
+            cont = np.nonzero(outs[5][: len(lanes)].cpu().numpy())[0]
+            scan_wwl.apply_crossing_fixes(self.compiled, cls_p, d, arrays, cont, lanes[cont])
+        return self._chain_from_lanes(arrays, lanes, ws, n)
+
+    def _walk_triples(self, compact, n: int):
+        """The per-start trie walk route (any dense dictionary)."""
+        cls_p, starts, lanes, ws, d = compact
+        cls_d = scan_batched.classes_to_device(cls_p, self.compiled.num_classes, self.device)
+        starts_d = torch.from_numpy(starts).to(self.device)
+        outs = scan_wwl.wwl_walks_at(*self.dev.wwl_walk, cls_d, starts_d, d)
+        return self._chain_from_lanes([x[: len(lanes)].cpu().numpy() for x in outs], lanes, ws, n)
+
+    @staticmethod
+    def _chain_from_lanes(arrays, lanes, ws, n: int):
+        """Scatter per-lane outcomes to position-indexed arrays and follow
+        the restart chain (the JAX matcher's ``_chain_from_lanes``)."""
+        pos = [np.zeros(n, dtype=a.dtype) for a in arrays]
+        for full, a in zip(pos, arrays):
+            full[lanes] = a
+        trip = follow_chain(*pos, ws, n)
+        if not trip:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z.copy(), z.copy()
+        a = np.asarray(trip, dtype=np.int64)
+        return a[:, 0], a[:, 1], a[:, 2]
+
+
+class WholeWordLongestMatchMap(WholeWordLongestMatchSet):
+    kind = WHOLE_WORD_LONGEST
+    is_map = True
+
+    def __init__(self, keywords, values, case_sensitive=True, **kw):
+        super().__init__(keywords, case_sensitive, values=values, **kw)
+
+
 _CLASS_BY_KIND = {
     (cls.kind, cls.is_map): cls
     for cls in (
         AhoCorasickSet, AhoCorasickMap, LongestMatchSet, LongestMatchMap,
         WholeWordMatchSet, WholeWordMatchMap, ShortestMatchSet, ShortestMatchMap,
+        WholeWordLongestMatchSet, WholeWordLongestMatchMap,
     )
 }
 

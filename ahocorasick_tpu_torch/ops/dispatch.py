@@ -7,8 +7,9 @@ cannot drift apart.  The TPU chooser (``scan_rowdfa.pick_engine``: per-char
 cost constants, VMEM budgets, one-hot select, R-round permute) does not carry
 over: on the H100 every dictionary that packs inline, dense or quotient,
 takes the packed-scan kernel family (``which="packed"``).  Dictionaries
-whose emit masks do not fit beside the state raise ``NotImplementedError``;
-there is no silent host fallback.
+whose emit masks do not fit beside the state raise ``NotImplementedError``
+here; the matchers never ask for them (``models/matchers._no_device_path``
+sends them to gold under ``"auto"`` and refuses ``"device"``).
 """
 
 from __future__ import annotations

@@ -3,9 +3,10 @@
 
 Drives the port's paths on the device engine at ``bench.py``'s
 configuration, 10,000 seeded keywords over 32 Mi UTF-16 units (64 MiB) of
-word-soup text: ``AhoCorasickSet.count`` / ``.match``, and the resolved
-kinds ``LongestMatchSet``, ``WholeWordMatchSet``, ``ShortestMatchSet`` and a
-map.  Phases, each raising on failure:
+word-soup text: ``AhoCorasickSet.count`` / ``.match``, the resolved kinds
+``LongestMatchSet``, ``WholeWordMatchSet``, ``ShortestMatchSet`` and a map,
+and ``WholeWordLongestMatchSet`` / ``Map`` on each of its routes.  Phases,
+each raising on failure:
 
 1. the card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power
    limit;
@@ -14,17 +15,28 @@ map.  Phases, each raising on failure:
    seeded dictionaries and shapes: the scans up to the main path's
    65,536 x 524 windows, the compaction on every planes tensor they make and
    on synthetic ones, the shortest restart scan on fuzz dictionaries and on
-   the 10k dictionary over 64 Ki units;
+   the 10k dictionary over 64 Ki units; the whole-word-longest scan plane
+   and die sweep on fuzz (row and flat layouts), the full-node quotient
+   dictionary (uint16 classes), a separator-spanning dictionary (crossing
+   bits) and the 10k dictionary over 32 Mi units, and the per-start walk on
+   fuzz and on the 10k dictionary's chain lanes over 32 Mi units;
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
    end-ascending (and non-overlapping for the resolved kinds) on the device
    engine; a case-folding map == gold; a listener's ``False`` stops
    delivery; a shortest matcher saved to npz and loaded back, and one
-   loaded without its internal AC (the restart-scan kernel), == gold; every
-   kernel of a path was launched;
+   loaded without its internal AC (the restart-scan kernel), == gold;
+   whole-word-longest: the scan route on 32 Mi units (== gold on 1 Mi), the
+   mixed route on BASELINE config #7's shape (10k keywords and 500 two-word
+   phrases, apostrophe a word char; == gold on 1 Mi), config #4's Unicode
+   map case-folded (== gold on 1 Mi), and the walk route == the scan
+   route's triples on 32 Mi units; a dictionary that does not pack inline
+   answers through gold under ``auto``; every kernel of a path was
+   launched;
 5. times on the card with CUDA events (kernels) and the host clock
-   (facade calls), as GB/s = 2 x units / s, the ``bench.py`` definition.
+   (facade calls and stages), as GB/s = 2 x units / s, the ``bench.py``
+   definition.
 
 It prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -60,7 +72,14 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                        "ahocorasick_tpu/ops/scan_batched.py:500"),
     "shortest_states": ("ahocorasick_tpu_torch/csrc/shortest_scan.cu",
                         "ahocorasick_tpu/ops/scan_dfa.py:37"),
+    "wwl_scan_plane": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
+                       "ahocorasick_tpu/ops/scan_wwl.py:747"),
+    "wwl_sweep_at": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
+                     "ahocorasick_tpu/ops/scan_wwl.py:685"),
+    "wwl_walks_at": ("ahocorasick_tpu_torch/csrc/wwl_walk.cu",
+                     "ahocorasick_tpu/ops/scan_wwl.py:137"),
 }
+DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # does not pack inline
 SHORTEST_TWIN_UNITS = 1 << 16
 
 
@@ -93,9 +112,15 @@ def main() -> int:
         return 1
 
     import ahocorasick_tpu_torch as port
+    from ahocorasick_tpu.bench.__main__ import english_like_keywords
+    from ahocorasick_tpu.bench.__main__ import word_soup as bench_word_soup
     from ahocorasick_tpu.core.compiler import compile_matcher
+    from ahocorasick_tpu.resolve.wholeword import follow_chain
+    from ahocorasick_tpu.utils import chartables
+    from ahocorasick_tpu_torch import convert
     from ahocorasick_tpu_torch.kernels import build, compact, scan_block, scan_dfa
-    from ahocorasick_tpu_torch.ops import scan_batched
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+    from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
     from bench import make_dictionary
 
     dev = torch.device("cuda")
@@ -185,6 +210,70 @@ def main() -> int:
             raise AssertionError(f"shortest {label}: kernel disagrees with its plain twin")
         return restarts
 
+    def max_err(got, want):
+        """Largest |kernel - twin| over tuples of integer tensors (uint32
+        read unsigned); 1 where shapes or the presence of an output differ."""
+        e = 0
+        for g, w in zip(got, want):
+            if (g is None) != (w is None) or (g is not None and g.shape != w.shape):
+                return max(e, 1)
+            if g is not None and g.numel():
+                to64 = widen if g.dtype == torch.uint32 else (lambda t: t.to(torch.int64))
+                e = max(e, int((to64(g) - to64(w)).abs().max()))
+        return e if len(got) == len(want) else max(e, 1)
+
+    def wwl_inputs(m, cls, num_classes):
+        """The scan route's inputs on the card: windows of the padded
+        classes, starts, and ``compact_lanes``' host arrays."""
+        cls_p, starts, lanes, ws, d = scan_wwl.compact_lanes(m.compiled, cls)
+        w = scan_batched.chunk_classes(cls_p, 512, d, num_classes)
+        return (scan_batched.classes_to_device(w, num_classes, dev),
+                torch.from_numpy(starts).to(dev), cls_p, lanes, d)
+
+    def check_wwl_scan(label, m, cls, sc):
+        wd, st, _, lanes, d = wwl_inputs(m, cls, sc.num_classes)
+        pargs = (sc.table, wd, d, sc.id_bits, sc.num_classes, sc.quotient)
+        plane = kwwl.wwl_scan_plane(*pargs)
+        plane_twin = kwwl.wwl_scan_plane_plain(*pargs)
+        sargs = (plane[0], plane[1], sc.rows_flat if sc.quotient else None, sc.outrows, st)
+        skw = dict(d=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits, cross=sc.has_cross)
+        outs = kwwl.wwl_sweep_at(*sargs, **skw)
+        outs_twin = kwwl.wwl_sweep_at_plain(*sargs, **skw)
+        torch.cuda.synchronize()
+        e_plane, e_sweep = max_err(plane, plane_twin), max_err(outs, outs_twin)
+        errs["wwl_scan_plane"] = max(errs["wwl_scan_plane"], e_plane)
+        errs["wwl_sweep_at"] = max(errs["wwl_sweep_at"], e_sweep)
+        n = len(lanes)
+        has = int(outs_twin[1][:n].sum())
+        cont = int(outs_twin[5][:n].sum()) if sc.has_cross else 0
+        print(f"  wwl scan {label}: B={wd.shape[0]} W={wd.shape[1]} "
+              f"{str(wd.dtype).replace('torch.', '')} "
+              f"{'row' if sc.row_layout else 'flat'}{' quotient' if sc.quotient else ''} "
+              f"table {tuple(sc.table.shape)}, {n} lanes, {has} with a match, {cont} crossing; "
+              f"plane max_abs_err={e_plane} sweep max_abs_err={e_sweep}")
+        if e_plane or e_sweep:
+            raise AssertionError(f"wwl scan {label}: kernel disagrees with its plain twin")
+        return has, cont
+
+    def check_wwl_walk(label, m, cls):
+        cls_p, starts, lanes, _, d = scan_wwl.compact_lanes(m.compiled, cls)
+        st = torch.from_numpy(starts).to(dev)
+        tabs = m.dev.wwl_walk
+        e = 0
+        narrow = scan_batched.classes_to_device(cls_p, m.compiled.num_classes, dev)
+        for c in (narrow, torch.from_numpy(cls_p.astype(np.int32)).to(dev)):
+            got = kwwl.wwl_walks_at(*tabs, c, st, d)
+            want = kwwl.wwl_walks_at_plain(*tabs, c, st, d)
+            torch.cuda.synchronize()
+            e = max(e, max_err(got, want))
+        errs["wwl_walks_at"] = max(errs["wwl_walks_at"], e)
+        has = int(want[1][: len(lanes)].sum())
+        print(f"  wwl walk {label}: {len(cls_p)} classes ({str(narrow.dtype).replace('torch.', '')} "
+              f"and int32), {len(lanes)} lanes, {has} with a match, max_abs_err={e}")
+        if e:
+            raise AssertionError(f"wwl walk {label}: kernel disagrees with its plain twin")
+        return has
+
     # 3. Kernels vs plain twins on the card.
     print("kernel vs plain twin:")
     rng = np.random.default_rng(SEED)
@@ -240,6 +329,44 @@ def main() -> int:
     short_cls = restart._classes(text[:SHORTEST_TWIN_UNITS])
     check_shortest("10k keywords x 64 Ki units", restart.dev, short_cls)
 
+    wwl_rng = np.random.default_rng(SEED + 3)
+    for seed in range(3):
+        r = np.random.default_rng(seed)
+        m = port.WholeWordLongestMatchSet(fuzz_keywords(r, "abcdef", 60, 8), engine="device",
+                                          device=dev)
+        text_f = "".join(r.choice(list("abcdefgh ,"), size=20_000 + 4096 * seed))
+        cls_f = m._classes(text_f)
+        assert check_wwl_scan(f"fuzz seed {seed}", m, cls_f, m.dev.wwl_scan)[0] > 0
+        assert check_wwl_walk(f"fuzz seed {seed}", m, cls_f) > 0
+        if seed == 0:
+            saved = scan_wwl._ROW_MAX_BYTES
+            scan_wwl._ROW_MAX_BYTES = 0  # force the flat layout
+            try:
+                flat = convert.wwl_scan_from_numpy(scan_wwl.build_wwl_scan(m.compiled), dev)
+            finally:
+                scan_wwl._ROW_MAX_BYTES = saved
+            assert not flat.row_layout
+            check_wwl_scan("fuzz seed 0, flat layout", m, cls_f, flat)
+    m = port.WholeWordLongestMatchSet([chr(c) for c in range(32, 0xD800)], engine="device",
+                                      device=dev)
+    full_text = "".join(chr(int(c)) for c in wwl_rng.integers(32, 0xD800, size=30_000))
+    sc = m.dev.wwl_scan
+    assert sc.quotient and m.compiled.num_classes > 256
+    check_wwl_scan("full-node quotient (uint16)", m, m._classes(full_text), sc)
+    words = fuzz_keywords(wwl_rng, "abcde", 40, 4)
+    mixed_kws = words + [f"{a} {b}" for a, b in zip(words[:10], words[10:20])]
+    m = port.WholeWordLongestMatchSet(mixed_kws, engine="device", device=dev)
+    mixed_text = " ".join(wwl_rng.choice(mixed_kws + ["zz", "a,"], size=20_000))
+    assert check_wwl_scan("separator-spanning", m, m._classes(mixed_text),
+                          m.dev.wwl_scan_mixed)[1] > 0
+    big_wwl = port.WholeWordLongestMatchSet(keywords, engine="device", device=dev)
+    cls_w = big_wwl._classes(text)
+    sc10 = big_wwl.dev.wwl_scan
+    print(f"  10k dictionary, whole-word-longest: table {tuple(sc10.table.shape)} "
+          f"({sc10.table.nbytes} B), id_bits {sc10.id_bits}, depth_bits {sc10.depth_bits}")
+    check_wwl_scan("10k keywords x 32 Mi units", big_wwl, cls_w, sc10)
+    check_wwl_walk("10k keywords x 32 Mi units", big_wwl, cls_w)
+
     # 4. The paths through the public classes, counters zeroed just before
     # each and read just after it.
     small = text[:BASE_UNITS]
@@ -255,8 +382,10 @@ def main() -> int:
         if missing:
             raise AssertionError(f"path {label}: {missing} never launched: {counts}")
 
-    def resolved_ok(label, m, full_text, gold_m, probe):
-        s, e, _ = m.match_triples(full_text)
+    def resolved_ok(label, m, full_text, gold_m, probe, keep=None):
+        s, e, v = m.match_triples(full_text)
+        if keep is not None:
+            keep[label] = (s, e, v)
         if m.last_stats.engine != "device" or len(s) == 0:
             raise AssertionError(f"{label}: engine {m.last_stats.engine}, {len(s)} matches")
         if not (np.all(s < e) and np.all(e[1:] >= e[:-1]) and np.all(s[1:] >= e[:-1])
@@ -335,6 +464,98 @@ def main() -> int:
 
     run_path("ShortestMatchSet npz / from_compiled", ("packed_scan_planes", "compact_planes",
                                                       "shortest_states"), shortest_artifacts)
+    # Whole-word-longest: each route, and the auto repair.
+    wwl_kernels = ("wwl_scan_plane", "wwl_sweep_at")
+    wwl_triples = {}
+    run_path("WholeWordLongestMatchSet", wwl_kernels, lambda: resolved_ok(
+        "scan route", big_wwl, text, port.WholeWordLongestMatchSet(
+            keywords, engine="gold", device=dev), small, keep=wwl_triples))
+
+    word_chars = chartables.default_word_chars().copy()
+    word_chars[ord("'")] = True  # BASELINE configs #4 and #7: apostrophe is a word char
+    phrases = [f"{a} {b}" for a, b in zip(keywords[:500], keywords[500:1000])]
+    kws7 = keywords + phrases
+    text7 = bench_word_soup(np.random.default_rng(SEED + 7), kws7, BASE_UNITS) * (
+        TEXT_UNITS // BASE_UNITS)
+    mixed = port.WholeWordLongestMatchSet(kws7, word_chars=word_chars, engine="device",
+                                          device=dev)
+    continued = []
+
+    def mixed_path():
+        if scan_wwl.scan_applicable(mixed.compiled) or not scan_wwl.mixed_scan_applicable(
+                mixed.compiled):
+            raise AssertionError("the phrase dictionary does not take the mixed route")
+        real = scan_wwl.apply_crossing_fixes
+
+        def counting(m, cls_p, d, arrays, idx, starts):
+            continued.append(len(idx))
+            return real(m, cls_p, d, arrays, idx, starts)
+
+        scan_wwl.apply_crossing_fixes = counting
+        try:
+            gold_m = port.WholeWordLongestMatchSet(kws7, word_chars=word_chars, engine="gold",
+                                                   device=dev)
+            detail = resolved_ok("mixed route", mixed, text7, gold_m, text7[:BASE_UNITS],
+                                 keep=wwl_triples)
+        finally:
+            scan_wwl.apply_crossing_fixes = real
+        s, e, _ = wwl_triples["mixed route"]
+        spans = int(sum(" " in text7[a:b] for a, b in zip(s[:20_000].tolist(), e[:20_000].tolist())))
+        if not spans:
+            raise AssertionError("no phrase matched across a separator")
+        return (f"{detail}; host-continued lanes per call {continued}; "
+                f"{spans} of the first 20,000 matches span a separator")
+
+    run_path("WholeWordLongestMatchSet mixed (BASELINE #7 shape)", wwl_kernels, mixed_path)
+
+    def unicode_map_path():
+        rng4 = np.random.default_rng(SEED + 4)
+        kws4 = english_like_keywords(rng4, 1000) + ["naïve", "can't", "übermäßig"]
+        text4 = bench_word_soup(rng4, kws4, BASE_UNITS) + " can't naïve übermäßig can'tx"
+        text4 = text4[: len(text4) // 2].upper() + text4[len(text4) // 2:]
+        vals4 = [f"v{i}" for i in range(len(kws4))]
+        args = (kws4, vals4, False)
+        m = port.WholeWordLongestMatchMap(*args, word_chars=word_chars, engine="device",
+                                          device=dev)
+        g = port.WholeWordLongestMatchMap(*args, word_chars=word_chars, engine="gold",
+                                          device=dev)
+        got, want = m.match(text4), g.match(text4)
+        if got != want or m.last_stats.engine != "device" or len(want) < len(text4) // 200:
+            raise AssertionError(f"Unicode map != gold ({len(got)} vs {len(want)} matches)")
+        special = sorted({v for _, _, v in want} & {vals4[-3], vals4[-2], vals4[-1]})
+        if len(special) != 3:
+            raise AssertionError(f"the Unicode keywords did not all match: {special}")
+        return f"case-folded Unicode map == gold on {len(text4)} units ({len(want)} matches)"
+
+    run_path("WholeWordLongestMatchMap Unicode (BASELINE #4 shape)", wwl_kernels,
+             unicode_map_path)
+
+    def walk_path():
+        s, e, v = big_wwl._walk_triples(scan_wwl.compact_lanes(big_wwl.compiled, cls_w), len(cls_w))
+        ref = wwl_triples["scan route"]
+        if not (np.array_equal(s, ref[0]) and np.array_equal(e, ref[1])
+                and np.array_equal(v, ref[2])):
+            raise AssertionError(f"walk route != scan route ({len(s)} vs {len(ref[0])} matches)")
+        return f"walk route == scan route on {len(text)} units ({len(s)} matches)"
+
+    run_path("WholeWordLongestMatchSet walk route", ("wwl_walks_at",), walk_path)
+
+    def repair_path():
+        t = "aaaa the " * 3000
+        out = []
+        for name in ("AhoCorasickSet", "LongestMatchSet", "WholeWordMatchSet"):
+            m = getattr(port, name)(DEEP, device=dev)
+            got, want = m.match(t), getattr(port, name)(DEEP, engine="gold", device=dev).match(t)
+            if got != want or m.last_stats.engine != "gold":
+                raise AssertionError(f"{name} auto on a deep dictionary: engine "
+                                     f"{m.last_stats.engine}, {len(got)} vs {len(want)}")
+            out.append(f"{name} {len(got)}")
+        n = port.AhoCorasickSet(DEEP, device=dev).count(t)
+        if n != 33000:
+            raise AssertionError(f"deep dictionary count {n} != 33000")
+        return f"auto == gold, engine gold, on {len(t)} units: " + ", ".join(out)
+
+    run_path("auto on a dictionary that does not pack inline", (), repair_path)
     counts = {k: sum(c[k] for c in path_launches.values()) for k in KERNELS}
 
     # 5. Times.
@@ -378,6 +599,26 @@ def main() -> int:
           f"({t_s1m * 1e6 / len(small)} ns/unit); plain twin {t_p64} ms on {len(short_cls)} "
           f"units ({t_p64 * 1e6 / len(short_cls)} ns/unit) [{smi}]")
 
+    wd10, st10, cls_p10, lanes10, d10 = wwl_inputs(big_wwl, cls_w, sc10.num_classes)
+    pargs = (sc10.table, wd10, d10, sc10.id_bits, sc10.num_classes, False)
+    plane10 = kwwl.wwl_scan_plane(*pargs)[0]
+    skw = dict(d=d10, id_bits=sc10.id_bits, depth_bits=sc10.depth_bits, cross=False)
+    sargs = (plane10, None, None, sc10.outrows, st10)
+    walk_args = (*big_wwl.dev.wwl_walk,
+                 scan_batched.classes_to_device(cls_p10, big_wwl.compiled.num_classes, dev),
+                 st10, d10)
+    ms["wwl_scan_plane"] = (cuda_ms(lambda: kwwl.wwl_scan_plane(*pargs), 20),
+                            cuda_ms(lambda: kwwl.wwl_scan_plane_plain(*pargs), 3))
+    ms["wwl_sweep_at"] = (cuda_ms(lambda: kwwl.wwl_sweep_at(*sargs, **skw), 20),
+                          cuda_ms(lambda: kwwl.wwl_sweep_at_plain(*sargs, **skw), 3))
+    ms["wwl_walks_at"] = (cuda_ms(lambda: kwwl.wwl_walks_at(*walk_args), 20),
+                          cuda_ms(lambda: kwwl.wwl_walks_at_plain(*walk_args), 3))
+    for k in ("wwl_scan_plane", "wwl_sweep_at", "wwl_walks_at"):
+        t_kernel, t_plain = ms[k]
+        print(f"time {k} at {tuple(wd10.shape)} windows, {st10.shape[0]} start slots "
+              f"({len(lanes10)} lanes): kernel {t_kernel} ms ({gbps(t_kernel)} GB/s), plain twin "
+              f"{t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
+
     def host_s(fn, reps):
         fn()
         out = []
@@ -393,6 +634,8 @@ def main() -> int:
               ("AhoCorasickSet match_triples", lambda: big.match_triples(text))]
     facade += [(f"{k} match_triples", (lambda m: lambda: m.match_triples(text))(matchers[k]))
                for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet")]
+    facade += [("WholeWordLongestMatchSet match_triples", lambda: big_wwl.match_triples(text)),
+               ("WholeWordLongestMatchSet mixed match_triples", lambda: mixed.match_triples(text7))]
     for label, fn in facade:
         runs = host_s(fn, 3)
         med = sorted(runs)[1]
@@ -424,6 +667,44 @@ def main() -> int:
           lambda: scan_batched.ac_matches_batched(big.compiled, c, bits))
     print(f"stages on {len(text)} units ({'sparse' if sp else 'dense'} download, "
           f"{len(sp[0]) if sp else 0} hot positions): "
+          + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
+
+    # The whole-word-longest facade's stages: the scan route on the 10k
+    # dictionary, then the mixed route's host continuations.
+    stages = {}
+    c = stage("classes", lambda: big_wwl._classes(text))
+    cls_p, starts, lanes, ws, d = stage("compact_lanes", lambda: scan_wwl.compact_lanes(
+        big_wwl.compiled, c))
+    w = stage("windows (chunk_classes)", lambda: scan_batched.chunk_classes(
+        cls_p, 512, d, sc10.num_classes))
+    wd, st = stage("upload (windows + starts)", lambda: (
+        scan_batched.classes_to_device(w, sc10.num_classes, dev), torch.from_numpy(starts).to(dev)))
+    plane = stage("plane kernel", lambda: kwwl.wwl_scan_plane(
+        sc10.table, wd, d, sc10.id_bits, sc10.num_classes, False))
+    outs = stage("sweep kernel", lambda: kwwl.wwl_sweep_at(
+        plane[0], None, None, sc10.outrows, st, d=d, id_bits=sc10.id_bits,
+        depth_bits=sc10.depth_bits, cross=False))
+    arrays = stage("download of lane outcomes", lambda: [
+        x[: len(lanes)].cpu().numpy() for x in outs])
+    def scatter():
+        pos = [np.zeros(len(c), dtype=x.dtype) for x in arrays]
+        for full, x in zip(pos, arrays):
+            full[lanes] = x
+        return pos
+
+    pos = stage("scatter to position arrays", scatter)
+    trip = stage("follow_chain (native, int64 copies included)", lambda: follow_chain(
+        *pos, ws, len(c)))
+    stage("triples list -> arrays", lambda: np.asarray(trip, dtype=np.int64))
+    c7 = mixed._classes(text7)
+    cls_p7, starts7, lanes7, _, d7 = scan_wwl.compact_lanes(mixed.compiled, c7)
+    outs7 = scan_wwl.scan_walks(mixed.dev.wwl_scan_mixed, cls_p7, starts7, d7, dev)
+    arrays7 = [x[: len(lanes7)].cpu().numpy() for x in outs7[:5]]
+    cont7 = np.nonzero(outs7[5][: len(lanes7)].cpu().numpy())[0]
+    stage("host continuations (mixed)", lambda: scan_wwl.apply_crossing_fixes(
+        mixed.compiled, cls_p7, d7, arrays7, cont7, lanes7[cont7]))
+    print(f"wwl stages on {len(text)} units ({len(lanes)} lanes; mixed: {len(lanes7)} lanes, "
+          f"{len(cont7)} continued on the host): "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
 
     print(json.dumps({"kernels": [

@@ -16,6 +16,7 @@ from ahocorasick_tpu_torch.models import matchers as port_matchers
 CLASSES = [
     "AhoCorasickSet", "AhoCorasickMap", "LongestMatchSet", "LongestMatchMap",
     "WholeWordMatchSet", "WholeWordMatchMap", "ShortestMatchSet", "ShortestMatchMap",
+    "WholeWordLongestMatchSet", "WholeWordLongestMatchMap",
 ]
 KWS = ["he", "she", "his", "hers", "h", "ushe", "the", "there"]
 TEXT = "ushers and she said his hers; there, the he h ushe " * 6
@@ -128,9 +129,18 @@ def test_row_compressed_shortest_artifact_has_no_device_path(tmp_path):
 
 
 def test_whole_word_longest_artifact_names_the_roadmap(tmp_path):
-    jax_pkg.WholeWordLongestMatchMap(KWS, list(range(len(KWS)))).save(tmp_path / "w.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        port.load_matcher(tmp_path / "w.npz", device="cpu")
+    """A separator-spanning whole-word-longest map (no compiled goto
+    closure: the truncated-closure scan) round-trips both ways."""
+    kws = KWS + ["she said", "his hers"]
+    j = jax_pkg.WholeWordLongestMatchMap(kws, list(range(len(kws))), engine="device")
+    j.save(tmp_path / "w.npz")
+    p = port.load_matcher(tmp_path / "w.npz", engine="device", device="cpu")
+    assert isinstance(p, port.WholeWordLongestMatchMap) and p.compiled.dfa_next is None
+    want = j.match(TEXT)
+    assert p.match(TEXT) == want == _gold(p, TEXT)
+    assert sum(v in (8, 9) for _, _, v in want) == 12
+    p.save(tmp_path / "p.npz")
+    assert jax_pkg.load_matcher(tmp_path / "p.npz", engine="device").match(TEXT) == want
 
 
 def test_every_ported_kind_is_registered():

@@ -131,8 +131,9 @@ def test_jax_saved_npz_loads_through_the_port(tmp_path):
     assert len(p.match(text)) > 5
     jw = jax_pkg.WholeWordLongestMatchSet(kws)
     jw.save(tmp_path / "wwl.npz")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md A4"):
-        port.load_matcher(tmp_path / "wwl.npz", device="cpu")
+    pw = port.load_matcher(tmp_path / "wwl.npz", engine="device", device="cpu")
+    assert isinstance(pw, port.WholeWordLongestMatchSet)
+    assert pw.match(text) == jw.match(text) == [(11, 14)]
 
 
 @pytest.mark.parametrize("dense", [True, False])
@@ -149,14 +150,44 @@ def test_device_table_bytes_equals_jax_batched(dense):
     assert p.host_table_bytes() == j.host_table_bytes() == p.compiled.memory_bytes()
 
 
+DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # count-packed / hotstate layout
+
+
 def test_packed_overflow_dictionary_raises_not_implemented():
-    kws = ["a" * i for i in range(1, 40)] + ["the"]  # count-packed / hotstate layout
-    p = port.AhoCorasickSet(kws, engine="device", device="cpu")
-    assert not port_sb.inline_packable(p.compiled)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.count("aaaa the")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        p.match("aaaa the")
+    """``engine="device"`` on a dictionary no ported kernel takes raises at
+    construction, naming the roadmap item that ports its layouts."""
+    from ahocorasick_tpu.core.compiler import compile_matcher
+
+    with pytest.raises(ValueError, match="ROADMAP.md A6"):
+        port.AhoCorasickSet(DEEP, engine="device", device="cpu")
+    compiled = compile_matcher(DEEP, "longest", True)
+    assert not port_sb.inline_packable(compiled)
+    with pytest.raises(ValueError, match="ROADMAP.md A6"):
+        port.LongestMatchSet.from_compiled(compiled, engine="device", device="cpu")
+    deep_prefix_free = ["a" * i + "b" for i in range(40)]  # the inner AC is deep too
+    with pytest.raises(ValueError, match="ROADMAP.md A6"):
+        port.ShortestMatchSet(deep_prefix_free, engine="device", device="cpu")
+    gold_m = port.AhoCorasickSet(DEEP, engine="gold", device="cpu")
+    assert gold_m.count("aaaa the") == 11
+
+
+@pytest.mark.parametrize("name, kws", [
+    ("AhoCorasickSet", DEEP), ("LongestMatchSet", DEEP), ("WholeWordMatchSet", DEEP),
+    ("ShortestMatchSet", DEEP), ("ShortestMatchSet", ["a" * i + "b" for i in range(40)]),
+], ids=["ac", "longest", "whole_word", "shortest", "shortest_deep_inner_ac"])
+def test_auto_on_a_deep_dictionary_equals_jax(name, kws):
+    """Under ``"auto"`` a dictionary that does not pack inline answers
+    through gold, as the JAX package's engines answer it."""
+    text = "aaaa the " * 3000 + "a" * 45 + "b aab"
+    assert len(text) >= port_matchers._AUTO_DEVICE_MIN_UNITS
+    p = getattr(port, name)(kws, device="cpu")
+    j = getattr(jax_pkg, name)(kws)
+    assert p.match(text) == j.match(text)
+    assert p.count(text) == j.count(text) > 0
+    inner_packs = name == "ShortestMatchSet" and kws is DEEP  # its survivors: "a", "the"
+    assert p.last_stats.engine == ("device" if inner_packs else "gold")
+    if name == "AhoCorasickSet":
+        assert p.count("aaaa the " * 3000) == 33000
 
 
 def test_auto_engine_threshold():

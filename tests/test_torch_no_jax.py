@@ -47,6 +47,25 @@ def test_new_kinds_and_kernels_run_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_whole_word_longest_runs_without_loading_jax():
+    code = (
+        "import io, sys\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "kw = dict(engine='device', device='cpu')\n"
+        "t = 'new york and york, new yorker at new  york'\n"
+        "s = P.WholeWordLongestMatchSet(['new', 'york', 'yorker'], **kw)\n"
+        "assert s.match(t) == [(0, 3), (4, 8), (13, 17), (19, 22), (23, 29), (33, 36), (38, 42)], s.match(t)\n"
+        "m = P.WholeWordLongestMatchMap(['new york', 'new', 'york'], [1, 2, 3], **kw)\n"
+        "assert m.match(t) == [(0, 8, 1), (13, 17, 3), (19, 22, 2), (33, 36, 2), (38, 42, 3)], m.match(t)\n"
+        "buf = io.BytesIO(); m.save(buf); buf.seek(0)\n"
+        "assert P.load_matcher(buf, **kw).match(t) == m.match(t)\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_port_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     sources = sorted((ROOT / "ahocorasick_tpu_torch").rglob("*.py"))

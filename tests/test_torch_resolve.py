@@ -20,7 +20,7 @@ KINDS = ("LongestMatch", "WholeWordMatch", "ShortestMatch")
 
 _FIXTURES = os.path.join(os.path.dirname(__file__), "golden", "fixtures.json")
 with open(_FIXTURES) as fh:
-    FIXTURES = [c for c in json.load(fh) if c["kind"] != "whole_word_longest"]
+    FIXTURES = json.load(fh)
 
 
 class _NeverDense:
@@ -221,8 +221,15 @@ def test_device_capable_is_kind_aware():
         for kws, thr in ((wide, _NeverDense()), (["ab", "b"], _NeverDense()), (wide, None)):
             cases.append(compile_matcher(kws, kind, True, thresholder=thr))
     got = [port_matchers._device_capable(m, m.kind) for m in cases]
-    assert got == [jax_matchers._device_capable(m, m.kind) for m in cases]
-    assert got.count(False) == 3  # ac, longest, whole_word on the wide quotient
+    want = [jax_matchers._device_capable(m, m.kind) for m in cases]
+    # The JAX package scans dense dictionaries that do not pack inline with
+    # layouts the port has not ported (ROADMAP.md A6); there, the port has
+    # no device path and ``auto`` answers through gold.
+    unported = [not m.is_row_compressed and not port_sb.inline_packable(m)
+                and m.kind != "shortest" for m in cases]
+    assert got == [w and not u for w, u in zip(want, unported)]
+    assert got.count(False) == 6  # ac, longest, whole_word: wide quotient and wide dense
+    assert sum(unported) == 3
     with pytest.raises(ValueError, match="too wide"):
         port.LongestMatchSet(wide, engine="device", device="cpu", thresholder=_NeverDense())
     s = port.ShortestMatchSet(["ab", "b"], device="cpu", thresholder=_NeverDense())
