@@ -3,10 +3,11 @@
 ``packed_from_numpy`` takes a packed table as the JAX package builds it —
 ``ahocorasick_tpu.ops.scan_batched.build_packed(m).table`` or the padded
 ``_DeviceTables(m).packed_dfa.table`` (via ``np.asarray``) — and returns the
-port's ``PackedDfa`` of tensors.  ``wwl_scan_from_numpy`` does the same for
-the whole-word-longest scan tables.  ``from_compiled`` wraps a
-``CompiledMatcher`` (freshly compiled, or loaded from an npz either package
-saved) in the port's matcher class for its kind.
+port's ``PackedDfa`` of tensors.  ``count_packed_from_numpy`` and
+``split_from_numpy`` do the same for the huge-dictionary layouts, and
+``wwl_scan_from_numpy`` for the whole-word-longest scan tables.
+``from_compiled`` wraps a ``CompiledMatcher`` (freshly compiled, or loaded
+from an npz either package saved) in the port's matcher class for its kind.
 """
 
 from __future__ import annotations
@@ -42,7 +43,36 @@ def _uint32_tensor(arr: np.ndarray, device) -> torch.Tensor:
     """uint32 numpy -> ``torch.uint32`` through an int32 view (same bits;
     every copy path has int32)."""
     arr = np.ascontiguousarray(arr, dtype=np.uint32)
+    if not arr.flags.writeable:  # e.g. a view of a JAX buffer: torch needs its own
+        arr = arr.copy()
     return torch.from_numpy(arr.view(np.int32)).to(device).view(torch.uint32)
+
+
+def count_packed_from_numpy(flat, state_bits: int, halo: int, device):
+    """A count-packed table as the JAX package builds it
+    (``ahocorasick_tpu.ops.scan_batched.build_count_packed(m)``, or
+    ``np.asarray`` of ``_DeviceTables(m).count_packed_dfa[0]``) ->
+    ``(table_flat, state_bits, halo)`` with a flat ``torch.uint32`` table on
+    ``device``, the tuple of the port's ``_DeviceTables.count_packed_dfa``."""
+    flat = np.asarray(flat)
+    if flat.dtype != np.uint32 or flat.ndim != 1:
+        raise ValueError(f"expected a flat uint32[S*A] table, got {flat.dtype}{flat.shape}")
+    return _uint32_tensor(flat, device), int(state_bits), int(halo)
+
+
+def split_from_numpy(dfa_flat, emit_tab, halo: int, device):
+    """The split layout as the JAX package builds it (``build_packed(m)``
+    of a dictionary that does not pack inline: ``table.reshape(-1)`` and
+    ``emit_mask``, or ``np.asarray`` of ``_DeviceTables(m).split_dfa``) ->
+    ``(dfa_flat, emit_tab, halo)``: flat ``uint32[S*A]`` next states and
+    ``uint32[S, P]`` emit planes on ``device``."""
+    dfa_flat = np.asarray(dfa_flat)
+    emit_tab = np.asarray(emit_tab)
+    if dfa_flat.dtype != np.uint32 or dfa_flat.ndim != 1:
+        raise ValueError(f"expected a flat uint32[S*A] table, got {dfa_flat.dtype}{dfa_flat.shape}")
+    if emit_tab.dtype != np.uint32 or emit_tab.ndim != 2:
+        raise ValueError(f"expected uint32[S, P] emit planes, got {emit_tab.dtype}{emit_tab.shape}")
+    return _uint32_tensor(dfa_flat, device), _uint32_tensor(emit_tab, device), int(halo)
 
 
 def wwl_scan_from_numpy(sc, device) -> WwlScan:

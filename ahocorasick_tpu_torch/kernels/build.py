@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
     for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
-                 "wwl_walk.cu")
+                 "wwl_walk.cu", "huge_scan.cu")
 )
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
@@ -45,6 +45,10 @@ launches = {
     "wwl_scan_plane": 0,
     "wwl_sweep_at": 0,
     "wwl_walks_at": 0,
+    "packedcount_count": 0,
+    "packedcount_hotstate_plane": 0,
+    "split_count": 0,
+    "split_emit_planes": 0,
 }
 
 
@@ -57,9 +61,16 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (table, windows, window_bytes, num_windows, width, halo, num_classes,
 #  state_bits, out, device, stream)
 _SCAN_ARGS = [_P, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P]
+# (dfa_flat, emit_tab, windows, window_bytes, num_windows, width, halo,
+#  num_classes, num_planes, out, device, stream)
+_SPLIT_ARGS = [_P, *_SCAN_ARGS]
 ARGTYPES = {
     "packed_scan_count": _SCAN_ARGS,
     "packed_scan_planes": _SCAN_ARGS,
+    "packedcount_count": _SCAN_ARGS,
+    "packedcount_hotstate_plane": _SCAN_ARGS,
+    "split_count": _SPLIT_ARGS,
+    "split_emit_planes": _SPLIT_ARGS,
     "compact_tile": [],
     # (bits, planes, n, block_counts, offsets, total, device, stream)
     "compact_count": [_P, _I, _I64, _P, _P, _P, _I, _P],

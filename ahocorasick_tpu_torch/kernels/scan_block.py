@@ -32,24 +32,31 @@ from ahocorasick_tpu_torch.kernels.build import launches
 _WINDOW_BYTES = {torch.uint8: 1, torch.uint16: 2}
 
 
-def _check(table: torch.Tensor, windows: torch.Tensor, halo: int, state_bits: int):
-    if table.dtype != torch.uint32 or table.dim() != 2:
-        raise TypeError(f"table must be uint32[S, A], got {table.dtype}{tuple(table.shape)}")
+def _check_windows(windows: torch.Tensor, halo: int, *tables: torch.Tensor):
+    """Checks ``chunk_classes`` windows and that the tables lie beside them;
+    returns ``(B, W)``."""
     if windows.dtype not in _WINDOW_BYTES or windows.dim() != 2:
         raise TypeError(
             f"windows must be uint8 or uint16[B, W], got {windows.dtype}{tuple(windows.shape)}")
-    if table.device != windows.device:
-        raise ValueError(f"table on {table.device}, windows on {windows.device}")
-    if not (table.is_contiguous() and windows.is_contiguous()):
-        raise ValueError("table and windows must be contiguous")
+    for t in tables:
+        if t.device != windows.device:
+            raise ValueError(f"table on {t.device}, windows on {windows.device}")
+    if not all(t.is_contiguous() for t in (windows, *tables)):
+        raise ValueError("tables and windows must be contiguous")
     B, W = windows.shape
     if B < 1 or not 0 <= halo < W:
         raise ValueError(f"need B >= 1 and 0 <= halo < W; got B={B}, W={W}, halo={halo}")
-    if not 1 <= state_bits <= 31 or table.shape[0] > (1 << state_bits):
-        raise ValueError(f"state_bits={state_bits} cannot address {table.shape[0]} states")
     if windows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {windows.device}")
     return B, W
+
+
+def _check(table: torch.Tensor, windows: torch.Tensor, halo: int, state_bits: int):
+    if table.dtype != torch.uint32 or table.dim() != 2:
+        raise TypeError(f"table must be uint32[S, A], got {table.dtype}{tuple(table.shape)}")
+    if not 1 <= state_bits <= 31 or table.shape[0] > (1 << state_bits):
+        raise ValueError(f"state_bits={state_bits} cannot address {table.shape[0]} states")
+    return _check_windows(windows, halo, table)
 
 
 def _launch(name: str, table, windows, halo, state_bits, out) -> None:
@@ -108,16 +115,22 @@ def _popcount32(x: torch.Tensor) -> torch.Tensor:
     return ((x * 0x01010101) >> 24) & 0xFF
 
 
-def _scan_plain(table, windows, halo, state_bits, emit):
-    A = table.shape[1]
-    tf = _widen(table.reshape(-1))
-    smask = (1 << state_bits) - 1
+def _lane_scan_plain(table_flat, windows, halo, num_classes, smask, emit):
+    """The lane scan of every twin: entry ``v = table_flat[s * num_classes +
+    c]`` per column, ``emit(j, v)`` at body column j, next state
+    ``v & smask``."""
+    tf = _widen(table_flat)
     s = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
     for t in range(windows.shape[1]):
-        v = tf[s * A + _widen(windows[:, t])]
+        v = tf[s * num_classes + _widen(windows[:, t])]
         if t >= halo:
-            emit(t - halo, v >> state_bits)
+            emit(t - halo, v)
         s = v & smask
+
+
+def _scan_plain(table, windows, halo, state_bits, emit):
+    _lane_scan_plain(table.reshape(-1), windows, halo, table.shape[1], (1 << state_bits) - 1,
+                     lambda j, v: emit(j, v >> state_bits))
 
 
 def packed_scan_count_plain(table, windows, halo, state_bits) -> torch.Tensor:

@@ -14,13 +14,18 @@ plain PyTorch twins when that device is the CPU); ``"gold"`` runs the
 sequential host model; ``"auto"`` picks gold below ``_AUTO_DEVICE_MIN_UNITS``.
 ``device=None`` means CUDA, and the constructor raises when CUDA is
 unavailable.  The AC, longest, whole-word and shortest kinds' device path
-is the END-indexed planes kernel, then hot-position compaction and a host
-resolve per kind; shortest matchers loaded without their internal AC
-automaton take the sequential restart scan.  Whole-word-longest computes
-per-start walk outcomes on the device (``ops/scan_wwl.py``) and follows the
-restart chain on the host.  Dictionaries that no ported kernel can take
+is an END-indexed planes kernel, then hot-position compaction and a host
+resolve per kind: the packed scan for dictionaries whose emit masks pack
+inline beside the state, and for every other dense dictionary the
+huge-dictionary layouts of ``ops/dispatch.py`` (the hotstate plane, decoded
+on the host, or the split planes; ``AhoCorasickSet.count`` sums emit counts
+on the count-packed table).  Shortest matchers loaded without their
+internal AC automaton take the sequential restart scan.
+Whole-word-longest computes per-start walk outcomes on the device
+(``ops/scan_wwl.py``) and follows the restart chain on the host.  Only
+row-compressed (wide-alphabet) dictionaries that no ported kernel can take
 (see ``_no_device_path``) answer through gold under ``"auto"``, and raise
-under ``"device"``.
+under ``"device"``; ``_device_capable`` answers as the JAX package's does.
 
 The compiler, gold model, artifact format, native extractor, resolvers and
 value re-walk are the JAX package's host code, imported as they are.
@@ -70,32 +75,23 @@ def _resolve_device(device) -> torch.device:
 def _no_device_path(compiled: CompiledMatcher, kind: str) -> Optional[str]:
     """Why this compiled matcher has no device path in the port, or None.
 
-    AC, longest and whole-word: the packed scan kernels take dense tables
-    whose emit masks pack inline beside the state, and row-compressed ones
-    whose quotient DFA does.  Dense dictionaries beyond that need the
-    count-packed, hotstate or split layouts, which are not ported yet (for
-    them the JAX package has engines; the port answers through gold under
-    ``"auto"``).  Whole-word-longest: dense always (the per-start walk takes
-    any trie); row-compressed when a scan table applies.  Shortest answers
-    None: it delegates to its internal AC matcher, which
-    ``ShortestMatchSet._pick_engine`` consults itself."""
-    if kind == SHORTEST:
+    Dense dictionaries always have one: AC, longest and whole-word take the
+    packed scan, or the count-packed / hotstate / split layouts when the
+    emit masks do not fit beside the state; whole-word-longest the
+    per-start walk.  Row-compressed ones: AC, longest and whole-word when
+    their quotient DFA packs inline; whole-word-longest when a scan table
+    applies.  Shortest answers None: it delegates to its internal AC
+    matcher, which ``ShortestMatchSet._pick_engine`` consults itself."""
+    if kind == SHORTEST or not compiled.is_row_compressed:
         return None
-    size = (f"kind {kind!r}, {compiled.num_states} states x {compiled.num_classes} classes, "
-            f"max depth {compiled.max_depth}")
     if kind == WHOLE_WORD_LONGEST:
-        if (not compiled.is_row_compressed or scan_wwl.scan_applicable(compiled)
-                or scan_wwl.mixed_scan_applicable(compiled)):
+        if scan_wwl.scan_applicable(compiled) or scan_wwl.mixed_scan_applicable(compiled):
             return None
-        return f"dictionary is too wide for this kind's device path ({size})"
-    if compiled.is_row_compressed:
-        if kind in (AC, LONGEST, WHOLE_WORD) and scan_batched.quotient_packable(compiled):
-            return None
-        return f"dictionary is too wide for this kind's device path ({size})"
-    if scan_batched.inline_packable(compiled):
+    elif kind in (AC, LONGEST, WHOLE_WORD) and scan_batched.quotient_packable(compiled):
         return None
-    return (f"dictionary does not pack inline ({size}: state bits + max depth > 32); its "
-            "count-packed, hotstate and split layouts are not ported yet (ROADMAP.md A6)")
+    return (f"dictionary is too wide for this kind's device path (kind {kind!r}, "
+            f"{compiled.num_states} states x {compiled.num_classes} classes, "
+            f"max depth {compiled.max_depth})")
 
 
 def _device_capable(compiled: CompiledMatcher, kind: str) -> bool:
@@ -132,6 +128,29 @@ class _DeviceTables:
             self._cache["packed_dfa"] = convert.packed_from_numpy(
                 pd.table, pd.state_bits, pd.halo, self._m.num_classes, self.device)
         return self._cache["packed_dfa"]
+
+    @property
+    def count_packed_dfa(self) -> Tuple[torch.Tensor, int, int]:
+        """``(table_flat, state_bits, halo)``: the flat, unpadded
+        ``next | emit_count << state_bits`` table of a huge dictionary, for
+        its count and hotstate kernels."""
+        if "count_packed_dfa" not in self._cache:
+            self._cache["count_packed_dfa"] = convert.count_packed_from_numpy(
+                *scan_batched.build_count_packed(self._m), self.device)
+        return self._cache["count_packed_dfa"]
+
+    @property
+    def split_dfa(self) -> Tuple[torch.Tensor, torch.Tensor, int]:
+        """``(dfa_flat, emit_tab, halo)``: the flat, unpadded next-state
+        table and the per-state emit planes ``uint32[S, P]`` of a dictionary
+        whose emit counts do not fit beside the state either."""
+        if "split_dfa" not in self._cache:
+            pd = scan_batched.build_packed(self._m)
+            if pd.emit_mask is None:
+                raise ValueError("dictionary packs inline; it has no split layout")
+            self._cache["split_dfa"] = convert.split_from_numpy(
+                pd.table.reshape(-1), pd.emit_mask, pd.halo, self.device)
+        return self._cache["split_dfa"]
 
     @property
     def dfa_next(self) -> torch.Tensor:
@@ -377,16 +396,22 @@ class _Matcher:
 
 
 class _PfacEngine(_Matcher):
-    """All-candidates scan: END-indexed emit planes from the packed-scan
-    kernel, hot positions compacted on the device, native extraction."""
+    """All-candidates scan: END-indexed emit planes (or the hotstate plane of
+    a huge dictionary) from the kernel ``ops/dispatch.planes_plan`` picks,
+    hot positions compacted on the device, native extraction."""
 
     def _candidates(self, cls: np.ndarray):
-        return scan_batched.ac_matches_batched(self.compiled, cls, self._end_planes(cls))
+        bits, layout = self._end_planes(cls)
+        return scan_batched.ac_matches_batched(self.compiled, cls, bits, layout=layout)
 
     def _end_planes(self, cls: np.ndarray):
-        """END-indexed emit planes ``uint32[1, >=len(cls)]`` on the device."""
+        """``(bits, layout)`` on the device: END-indexed emit planes
+        ``uint32[P, >=len(cls)]`` with layout ``"planes"``, or the packed
+        (state, count) plane with layout ``"hotstate"`` (huge
+        dictionaries)."""
         plan = dispatch.planes_plan(self.compiled, self.dev)
-        return plan.fn(plan.tables, self._windows(cls, plan.halo))
+        bits = plan.fn(plan.tables, self._windows(cls, plan.halo))
+        return bits, ("hotstate" if plan.which == "hotstate" else "planes")
 
     def _windows(self, cls: np.ndarray, halo: int) -> torch.Tensor:
         """``chunk_classes`` windows, uploaded narrow (uint8 or uint16)."""
@@ -404,9 +429,10 @@ class AhoCorasickSet(_PfacEngine):
         return self._candidates(cls)
 
     def count(self, text: str) -> int:
-        """Total match count.  On the device this is the fused count kernel:
-        popcounts summed on the device, one scalar downloaded, no
-        extraction."""
+        """Total match count.  On the device this is a fused count kernel
+        (emit-mask popcounts, or the emit counts of a huge dictionary's
+        count-packed table, summed on the device): one scalar downloaded,
+        no extraction."""
         from ahocorasick_tpu.utils.stats import ScanStats, timed
 
         cls = self._classes(text)
@@ -439,7 +465,8 @@ class LongestMatchSet(_PfacEngine):
     kind = LONGEST
 
     def _device_triples(self, cls):
-        return emit.resolve_end_planes(self.compiled, cls, self._end_planes(cls), "longest")
+        bits, layout = self._end_planes(cls)
+        return emit.resolve_end_planes(self.compiled, cls, bits, "longest", layout=layout)
 
 
 class LongestMatchMap(LongestMatchSet):
@@ -574,7 +601,8 @@ class ShortestMatchSet(_Matcher):
         ac = self._ac
         if ac is not None:
             cls = self._ac_classes(cls)
-            return emit.resolve_end_planes(ac.compiled, cls, ac._end_planes(cls), "shortest")
+            bits, layout = ac._end_planes(cls)
+            return emit.resolve_end_planes(ac.compiled, cls, bits, "shortest", layout=layout)
         return scan_dfa.shortest_triples(self.compiled, self.dev, cls)
 
 

@@ -1,20 +1,32 @@
 """Packed-table builders, window layout, hot-position compaction and match
 extraction for the batched-halo DFA scan — the port of
 ``ahocorasick_tpu/ops/scan_batched.py`` without its JAX scan loops (those
-became the kernels of ``kernels/scan_block.py``).
+became the kernels of ``kernels/scan_block.py`` and
+``kernels/scan_batched.py``).
 
 The builders are numpy and re-implemented here because their home module
 imports JAX at the top; they must stay byte-identical to it
-(``tests/test_torch_tables.py``).  The scan is d-synchronizing: a window that
-starts at the root and consumes ``halo = max_depth`` classes of left context
-reaches the sequential automaton's state, so B windows scan in parallel
-lanes.  Table entries pack ``next_state | emit_mask << state_bits``, where bit
-``L-1`` of ``emit_mask`` means "a keyword of length L ends here" (the state's
-whole suffix-chain emit set).
+(``tests/test_torch_tables.py``, ``tests/test_torch_huge.py``).  The scan is
+d-synchronizing: a window that starts at the root and consumes
+``halo = max_depth`` classes of left context reaches the sequential
+automaton's state, so B windows scan in parallel lanes.  Table entries pack
+``next_state | emit_mask << state_bits``, where bit ``L-1`` of ``emit_mask``
+means "a keyword of length L ends here" (the state's whole suffix-chain emit
+set).
+
+Huge dictionaries, whose state bits plus max depth exceed 32, have three
+layouts of their own: count-packed (``next | emit_count << state_bits``,
+``build_count_packed``) for counts; hotstate (the same table, the whole
+packed word kept where a keyword ends, decoded on the host by
+``hotstate_sparse``) for matches; and split (the bare next-state table plus
+per-state emit planes) when even the emit count does not fit beside the
+state.
 """
 
 from __future__ import annotations
 
+import weakref
+from collections import OrderedDict
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -123,6 +135,95 @@ def build_packed(m: CompiledMatcher) -> PackedDfa:
         )
         return PackedDfa(packed, None, state_bits, halo)
     return PackedDfa(m.dfa_next.astype(np.uint32), planes, 32, halo)
+
+
+def count_packable(m: CompiledMatcher) -> bool:
+    """Count-packed layout applies: state bits + emit-count bits fit 32.
+
+    Counting needs only how many keywords end at each position, and the
+    per-state emit count (the suffix-chain length) is small, so
+    ``next | count << state_bits`` keeps one lookup per character where the
+    per-length mask does not fit beside the state."""
+    if m.is_row_compressed or m.emit_count is None or m.dfa_next is None:
+        return False
+    state_bits = max(int(m.num_states - 1).bit_length(), 1)
+    cap = 32 - state_bits
+    if cap <= 0:
+        return False
+    return int(m.emit_count[: m.num_states].max(initial=0)) < (1 << cap)
+
+
+def build_count_packed(m: CompiledMatcher):
+    """``(uint32[S*A] flat, state_bits, halo)``: ``next | emit_count(next)
+    << state_bits``."""
+    if not count_packable(m):
+        raise ValueError("dictionary's emit counts do not fit beside the state")
+    S, A = m.num_states, m.num_classes
+    state_bits = max(int(S - 1).bit_length(), 1)
+    counts = m.emit_count[:S].astype(np.uint32)
+    packed = m.dfa_next.astype(np.uint32) | (
+        counts[m.dfa_next] << np.uint32(state_bits)
+    )
+    return packed.reshape(S * A), state_bits, max(m.max_depth, 1)
+
+
+def hotstate_layout(m: CompiledMatcher) -> bool:
+    """Huge-dictionary match layout: packed-inline overflows but the
+    count-packed table fits.  The scan keeps the packed (state, count) word
+    at each position where a keyword ends, and the host recovers the emit
+    masks from the state id (``hotstate_sparse``)."""
+    return (
+        m.dfa_next is not None
+        and not m.is_row_compressed
+        and not inline_packable(m)
+        and count_packable(m)
+    )
+
+
+_HOST_EMIT_PLANES: "OrderedDict[int, tuple]" = OrderedDict()
+
+
+def host_emit_planes(m: CompiledMatcher) -> np.ndarray:
+    """Cached host copy of the per-state emit planes (LRU of 4 matchers).
+
+    Entries hold a weak reference to the matcher: a huge dictionary's planes
+    are tens of MB, and a strong reference would pin the matcher's tables
+    after its callers drop it; an entry evicts itself when its matcher is
+    collected."""
+    key = id(m)
+    ent = _HOST_EMIT_PLANES.get(key)
+    if ent is not None and ent[0]() is m:
+        _HOST_EMIT_PLANES.move_to_end(key)
+        return ent[1]
+    planes = _state_emit_planes(m)
+
+    def _evict(_ref, _key=key):
+        _HOST_EMIT_PLANES.pop(_key, None)
+
+    _HOST_EMIT_PLANES[key] = (weakref.ref(m, _evict), planes)
+    if len(_HOST_EMIT_PLANES) > 4:
+        _HOST_EMIT_PLANES.popitem(last=False)
+    return planes
+
+
+def hotstate_sparse(m: CompiledMatcher, bits, n: int):
+    """Hotstate plane ``uint32[1, N]`` -> ``(idx, masks[k, P])``, the
+    contract of ``planes_to_sparse``, so the sparse extraction and the native
+    extract-and-resolve serve both layouts.  The hot words are compacted
+    (or, when that does not pay, found in the dense download), and each
+    word's state indexes the host emit planes."""
+    S = m.num_states
+    smask = np.uint32((1 << max(int(S - 1).bit_length(), 1)) - 1)
+    planes_tab = host_emit_planes(m)
+    sp = planes_to_sparse(bits, n)
+    if sp is not None:
+        idx, packed = sp
+        states = (packed[:, 0] & smask).astype(np.int64)
+        return idx, planes_tab[states]
+    v = to_host(bits)[0, :n]
+    idx = np.nonzero(v)[0].astype(np.int64)
+    states = (v[idx] & smask).astype(np.int64)
+    return idx, planes_tab[states]
 
 
 def class_dtype(num_classes: int):
@@ -238,21 +339,30 @@ def end_planes_to_matches(bits: np.ndarray, n: int, max_depth: int):
     return sparse_planes_to_matches(hot.astype(np.int64), bits[:, hot].T, max_depth)
 
 
-def ac_matches_batched(m: CompiledMatcher, cls: np.ndarray, bits):
-    """(starts, ends, vals) in reference emission order from END-planes
-    (the ``"planes"`` layout).
+def ac_matches_batched(m: CompiledMatcher, cls: np.ndarray, bits,
+                       layout: str = "planes"):
+    """(starts, ends, vals) in reference emission order.
 
-    ``bits`` may be a device tensor straight from the planes kernel (hot
-    positions are compacted on the device and only they are downloaded) or a
-    host array.  Extraction runs through the native C extractor when it is
-    available: it walks the bit words end-ascending, longest-first, so its
-    output is already in the reference emission order."""
+    ``layout`` says how to read ``bits``: ``"planes"``, END-indexed emit
+    planes; ``"hotstate"``, the packed (state, count) plane of
+    ``packedcount_hotstate_plane``, decoded by ``hotstate_sparse``.  ``bits``
+    may be a device tensor straight from the kernel (hot positions are
+    compacted on the device and only they are downloaded) or a host array.
+    Extraction runs through the native C extractor when it is available: it
+    walks the bit words end-ascending, longest-first, so its output is
+    already in the reference emission order."""
     from ahocorasick_tpu.native import lib as native_lib
     from ahocorasick_tpu.ops import emit as emit_mod
 
     native_ok = native_lib.available()
     n = len(cls)
-    if (sp := planes_to_sparse(bits, n)) is not None:
+    if layout == "hotstate":
+        idx, masks = hotstate_sparse(m, bits, n)
+        if native_ok:
+            starts, ends = native_lib.extract_resolve_sparse(idx, masks, n, m.max_depth, "all")
+            return starts, ends, _ac_vals(m, cls, starts, ends)
+        starts, lens = sparse_planes_to_matches(idx, masks, m.max_depth)
+    elif (sp := planes_to_sparse(bits, n)) is not None:
         if native_ok:
             starts, ends = native_lib.extract_resolve_sparse(
                 sp[0], sp[1], n, m.max_depth, "all")

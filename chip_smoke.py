@@ -5,8 +5,11 @@ Drives the port's paths on the device engine at ``bench.py``'s
 configuration, 10,000 seeded keywords over 32 Mi UTF-16 units (64 MiB) of
 word-soup text: ``AhoCorasickSet.count`` / ``.match``, the resolved kinds
 ``LongestMatchSet``, ``WholeWordMatchSet``, ``ShortestMatchSet`` and a map,
-and ``WholeWordLongestMatchSet`` / ``Map`` on each of its routes.  Phases,
-each raising on failure:
+and ``WholeWordLongestMatchSet`` / ``Map`` on each of its routes; and the
+huge-dictionary layouts (count-packed count, hotstate plane, split scans)
+at the 1M-keyword scale of ``tests/test_full_random_1m.py`` (995,169 seeded
+keywords, 4,356,756 states: 23 state bits + depth 12 do not pack inline)
+and on deep dictionaries.  Phases, each raising on failure:
 
 1. the card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power
    limit;
@@ -19,7 +22,12 @@ each raising on failure:
    and die sweep on fuzz (row and flat layouts), the full-node quotient
    dictionary (uint16 classes), a separator-spanning dictionary (crossing
    bits) and the 10k dictionary over 32 Mi units, and the per-start walk on
-   fuzz and on the 10k dictionary's chain lanes over 32 Mi units;
+   fuzz and on the 10k dictionary's chain lanes over 32 Mi units; the
+   count-packed count, hotstate plane and split count and planes on a deep
+   dictionary (P = 2), ``a``..``a * 100`` (split, P = 4, against gold as
+   ``tests/test_split.py`` drives it), a deep dictionary of > 256 classes
+   (uint16 windows, P = 1) and the 1M dictionary at 65,536 x 524 windows
+   (count-packed and hotstate, and split on its split tables);
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -31,12 +39,19 @@ each raising on failure:
    mixed route on BASELINE config #7's shape (10k keywords and 500 two-word
    phrases, apostrophe a word char; == gold on 1 Mi), config #4's Unicode
    map case-folded (== gold on 1 Mi), and the walk route == the scan
-   route's triples on 32 Mi units; a dictionary that does not pack inline
-   answers through gold under ``auto``; every kernel of a path was
-   launched;
+   route's triples on 32 Mi units; the 1M dictionary: ``AhoCorasickSet``
+   count on the pinned 1 Mi-unit text == 1,282,185 and ``match`` on its
+   128 Ki window == the naive oracle, ``LongestMatchSet`` count == 323,331
+   and window == ``gold.gold_longest``; deep dictionaries (a map,
+   WholeWord, Shortest with a deep inner AC) == gold; the split layout
+   through the public classes with ``count_packable`` forced False (the
+   dispatcher's branch for dictionaries of about 2**26 states) == gold; a
+   dictionary that does not pack inline scans on the device under
+   ``auto``; every kernel of a path was launched;
 5. times on the card with CUDA events (kernels) and the host clock
    (facade calls and stages), as GB/s = 2 x units / s, the ``bench.py``
-   definition.
+   definition; the 1M dictionary's kernels and facade calls on 32 Mi units
+   of BASELINE config #5's word soup, and its stages.
 
 It prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -78,9 +93,47 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                      "ahocorasick_tpu/ops/scan_wwl.py:685"),
     "wwl_walks_at": ("ahocorasick_tpu_torch/csrc/wwl_walk.cu",
                      "ahocorasick_tpu/ops/scan_wwl.py:137"),
+    "packedcount_count": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
+                          "ahocorasick_tpu/ops/scan_batched.py:189"),
+    "packedcount_hotstate_plane": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
+                                   "ahocorasick_tpu/ops/scan_batched.py:236"),
+    "split_count": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
+                    "ahocorasick_tpu/ops/scan_batched.py:459"),
+    "split_emit_planes": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
+                          "ahocorasick_tpu/ops/scan_batched.py:416"),
 }
 DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # does not pack inline
 SHORTEST_TWIN_UNITS = 1 << 16
+# The 1M-keyword dictionary of tests/test_full_random_1m.py (seed 77) and its
+# pinned facts, for its 1 Mi-unit text and the 128 Ki window at 300,000.
+ONE_M = {"candidates": 1_100_000, "keywords": 995_169, "states": 4_356_756,
+         "text_units": 1 << 20, "ac_count": 1_282_185, "longest_count": 323_331,
+         "window": (300_000, 1 << 17)}
+
+
+def one_m_keywords(n_cand: int):
+    """The seed-77 generator of ``tests/test_full_random_1m.py``: sorted
+    distinct random lowercase keywords of 3-12 letters, the first million;
+    returns the generator too, for the text that follows it."""
+    rng = np.random.default_rng(77)
+    lens = rng.integers(3, 13, size=n_cand)
+    flat = rng.integers(0, 26, size=int(lens.sum()))
+    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
+    chars = letters[flat].tobytes().decode()
+    offs = np.concatenate([[0], np.cumsum(lens)])
+    kws = {chars[offs[i]: offs[i + 1]] for i in range(n_cand)}
+    return sorted(kws)[:1_000_000], rng, letters
+
+
+def one_m_text(rng, letters, kws, n_units: int) -> str:
+    """The test's pinned text: random letters with 2,000 planted keywords."""
+    text = list(letters[rng.integers(0, 26, size=n_units)].tobytes().decode())
+    pos = rng.integers(0, n_units - 16, size=2000)
+    kw_pick = rng.integers(0, len(kws), size=2000)
+    for p, k in zip(pos, kw_pick):
+        w = kws[k]
+        text[p: p + len(w)] = w
+    return "".join(text)[:n_units]
 
 
 def word_soup(keywords, rng, n_units: int) -> str:
@@ -114,11 +167,14 @@ def main() -> int:
     import ahocorasick_tpu_torch as port
     from ahocorasick_tpu.bench.__main__ import english_like_keywords
     from ahocorasick_tpu.bench.__main__ import word_soup as bench_word_soup
+    from ahocorasick_tpu.core import gold
     from ahocorasick_tpu.core.compiler import compile_matcher
+    from ahocorasick_tpu.native import lib as native_lib
     from ahocorasick_tpu.resolve.wholeword import follow_chain
     from ahocorasick_tpu.utils import chartables
     from ahocorasick_tpu_torch import convert
     from ahocorasick_tpu_torch.kernels import build, compact, scan_block, scan_dfa
+    from ahocorasick_tpu_torch.kernels import scan_batched as khuge
     from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
     from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
     from bench import make_dictionary
@@ -274,6 +330,56 @@ def main() -> int:
             raise AssertionError(f"wwl walk {label}: kernel disagrees with its plain twin")
         return has
 
+    def check_huge(label, m, cls, chunk=512):
+        """The huge-dictionary kernels against their twins on the windows of
+        ``cls``: the count-packed count and hotstate plane where the
+        dictionary is count-packable, and the split count and planes on its
+        split tables.  Returns the counts and the split planes."""
+        comp, A = m.compiled, m.compiled.num_classes
+        out = {}
+
+        def win(halo):
+            w = scan_batched.chunk_classes(cls, chunk, halo, A)
+            return scan_batched.classes_to_device(w, A, dev)
+
+        def report(kind, names, got, want, shape, extra):
+            e_count = abs(int(got[0]) - int(want[0]))
+            e_plane = max_err(got[1:], want[1:])
+            for k, e in zip(names, (e_count, e_plane)):
+                errs[k] = max(errs[k], e)
+            print(f"  {kind} {label}: {shape} count={int(got[0])} twin={int(want[0])} "
+                  f"count max_abs_err={e_count} plane max_abs_err={e_plane}{extra}")
+            if e_count or e_plane:
+                raise AssertionError(f"{kind} {label}: kernel disagrees with its plain twin")
+
+        if scan_batched.count_packable(comp):
+            flat, sb, halo = m.dev.count_packed_dfa
+            w = win(halo)
+            args = (flat, w, halo, sb, A)
+            got = (khuge.packedcount_count(*args), khuge.packedcount_hotstate_plane(*args))
+            want = (khuge.packedcount_count_plain(*args),
+                    khuge.packedcount_hotstate_plane_plain(*args))
+            torch.cuda.synchronize()
+            hot = int((widen(want[1]) != 0).sum())
+            report("count-packed", ("packedcount_count", "packedcount_hotstate_plane"), got,
+                   want, f"B={w.shape[0]} W={w.shape[1]} {str(w.dtype).replace('torch.', '')} "
+                   f"state_bits={sb}", f", {hot} hot positions")
+            out["count"], out["hot"] = int(got[0]), hot
+        dfa_flat, emit_tab, halo = m.dev.split_dfa
+        P = emit_tab.shape[1]
+        w = win(halo)
+        args = (dfa_flat, emit_tab, w, halo, A, P)
+        got = (khuge.split_count(*args), khuge.split_emit_planes(*args))
+        want = (khuge.split_count_plain(*args), khuge.split_emit_planes_plain(*args))
+        torch.cuda.synchronize()
+        report("split", ("split_count", "split_emit_planes"), got, want,
+               f"B={w.shape[0]} W={w.shape[1]} {str(w.dtype).replace('torch.', '')} P={P}", "")
+        out["split_count"], out["split_planes"] = int(got[0]), got[1]
+        return out
+
+    def gold_pairs(compiled, text):
+        return [(a, b) for a, b, _ in gold.gold_match(compiled, text)]
+
     # 3. Kernels vs plain twins on the card.
     print("kernel vs plain twin:")
     rng = np.random.default_rng(SEED)
@@ -366,6 +472,54 @@ def main() -> int:
           f"({sc10.table.nbytes} B), id_bits {sc10.id_bits}, depth_bits {sc10.depth_bits}")
     check_wwl_scan("10k keywords x 32 Mi units", big_wwl, cls_w, sc10)
     check_wwl_walk("10k keywords x 32 Mi units", big_wwl, cls_w)
+
+    # The huge-dictionary kernels: deep dictionaries, then the 1M one.
+    deep_m = port.AhoCorasickSet(DEEP, engine="device", device=dev)
+    deep_text = "aaaa the " * 3000 + "a" * 45 + "b aab" + bench_word_soup(
+        np.random.default_rng(SEED + 5), DEEP, 50_000)
+    deep_cls = deep_m._classes(deep_text)
+    got = check_huge("deep (depth 39)", deep_m, deep_cls)
+    n_gold = len(gold.gold_match(deep_m.compiled, deep_text))
+    if not got["count"] == got["split_count"] == n_gold > 0:
+        raise AssertionError(f"deep dictionary: counts {got} != gold {n_gold}")
+    a100 = port.AhoCorasickSet(["a" * i for i in range(1, 101)], engine="device", device=dev)
+    for text_s, chunk in (("a" * 300 + "b" + "a" * 150, 512), ("aab" * 200 + "a" * 120, 128)):
+        c = a100._classes(text_s)
+        got = check_huge(f"a..a*100, {len(text_s)} units, chunk {chunk}", a100, c, chunk)
+        s_, e_, _ = scan_batched.ac_matches_batched(a100.compiled, c, got["split_planes"])
+        want = gold_pairs(a100.compiled, text_s)
+        if list(zip(s_.tolist(), e_.tolist())) != want or got["split_count"] != len(want):
+            raise AssertionError("a..a*100: split planes or count != gold")
+    wide_deep = wide_kws + ["".join(chr(0x100 + (11 * i) % 300) for i in range(30))]
+    wd_m = port.AhoCorasickSet(wide_deep, engine="device", device=dev)
+    wd_text = wide_text + wide_deep[-1] + wide_text[:5000] + wide_deep[-1]
+    got = check_huge("> 256 classes, depth 30 (uint16)", wd_m, wd_m._classes(wd_text))
+    if not got["count"] == got["split_count"] == len(gold.gold_match(wd_m.compiled, wd_text)):
+        raise AssertionError("wide deep dictionary: counts != gold")
+
+    if not native_lib.available():
+        raise RuntimeError("the native compiler library did not build (g++); the 1M "
+                           "dictionary is not compiled in Python")
+    kws1m, rng1m, letters1m = one_m_keywords(ONE_M["candidates"])
+    t0 = time.perf_counter()
+    ac1m = port.AhoCorasickSet(kws1m, engine="device", device=dev)
+    t_compile = time.perf_counter() - t0
+    c1m = ac1m.compiled
+    print(f"  1M dictionary: {len(kws1m)} keywords, {c1m.num_states} states, "
+          f"{c1m.num_classes} classes, depth {c1m.max_depth}; native compiler "
+          f"available {native_lib.available()}, compile {t_compile} s; inline packable "
+          f"{scan_batched.inline_packable(c1m)}, hotstate {scan_batched.hotstate_layout(c1m)}")
+    if (len(kws1m), c1m.num_states) != (ONE_M["keywords"], ONE_M["states"]) or \
+            not scan_batched.hotstate_layout(c1m):
+        raise AssertionError("the 1M dictionary is not the pinned one")
+    text1m = one_m_text(rng1m, letters1m, kws1m, ONE_M["text_units"])
+    # BASELINE config #5's text shape: bench word soup over the dictionary.
+    base5 = bench_word_soup(np.random.default_rng(SEED + 6), kws1m, BASE_UNITS)
+    text5 = base5 * (TEXT_UNITS // BASE_UNITS)
+    cls5 = ac1m._classes(text5)
+    got = check_huge("1M keywords x 32 Mi units", ac1m, cls5)
+    if got["count"] != got["split_count"]:
+        raise AssertionError("1M dictionary: count-packed and split counts differ")
 
     # 4. The paths through the public classes, counters zeroed just before
     # each and read just after it.
@@ -546,16 +700,100 @@ def main() -> int:
         for name in ("AhoCorasickSet", "LongestMatchSet", "WholeWordMatchSet"):
             m = getattr(port, name)(DEEP, device=dev)
             got, want = m.match(t), getattr(port, name)(DEEP, engine="gold", device=dev).match(t)
-            if got != want or m.last_stats.engine != "gold":
+            if got != want or m.last_stats.engine != "device":
                 raise AssertionError(f"{name} auto on a deep dictionary: engine "
                                      f"{m.last_stats.engine}, {len(got)} vs {len(want)}")
             out.append(f"{name} {len(got)}")
-        n = port.AhoCorasickSet(DEEP, device=dev).count(t)
-        if n != 33000:
-            raise AssertionError(f"deep dictionary count {n} != 33000")
-        return f"auto == gold, engine gold, on {len(t)} units: " + ", ".join(out)
+        m = port.AhoCorasickSet(DEEP, device=dev)
+        n = m.count(t)
+        if n != 33000 or m.last_stats.engine != "device":
+            raise AssertionError(f"deep dictionary count {n} != 33000 ({m.last_stats.engine})")
+        return f"auto == gold, engine device, on {len(t)} units: " + ", ".join(out)
 
-    run_path("auto on a dictionary that does not pack inline", (), repair_path)
+    run_path("auto on a dictionary that does not pack inline",
+             ("packedcount_count", "packedcount_hotstate_plane"), repair_path)
+
+    w0, w_len = ONE_M["window"]
+    window1m = text1m[w0: w0 + w_len]
+
+    def ac_1m_path():
+        n = ac1m.count(text1m)
+        if n != ONE_M["ac_count"] or ac1m.last_stats.engine != "device":
+            raise AssertionError(f"1M count {n} != {ONE_M['ac_count']} "
+                                 f"({ac1m.last_stats.engine})")
+        kwset = set(kws1m)
+        oracle = [(i, i + L) for i in range(len(window1m)) for L in range(3, 13)
+                  if i + L <= len(window1m) and window1m[i: i + L] in kwset]
+        got = ac1m.match(window1m)
+        if len(got) != len(oracle) or sorted(got) != sorted(oracle) or not oracle:
+            raise AssertionError(f"1M match != naive oracle ({len(got)} vs {len(oracle)})")
+        return (f"count {n} == pinned on {len(text1m)} units; match == naive oracle on "
+                f"{len(window1m)} units ({len(got)} matches)")
+
+    run_path("AhoCorasickSet 1M keywords", ("packedcount_count", "packedcount_hotstate_plane"),
+             ac_1m_path)
+    huge_matchers = {}
+
+    def longest_1m_path():
+        t = time.perf_counter()
+        lm = port.LongestMatchSet(kws1m, engine="device", device=dev)
+        t = time.perf_counter() - t
+        huge_matchers["LongestMatchSet"] = lm
+        n = lm.count(text1m)
+        if n != ONE_M["longest_count"] or lm.last_stats.engine != "device":
+            raise AssertionError(f"1M longest count {n} != {ONE_M['longest_count']}")
+        got = lm.match(window1m)
+        want = [(a, b) for a, b, _ in gold.gold_longest(lm.compiled, window1m)]
+        if got != want or not want:
+            raise AssertionError(f"1M longest window != gold ({len(got)} vs {len(want)})")
+        return (f"compile {t} s; count {n} == pinned on {len(text1m)} units; window == "
+                f"gold_longest ({len(want)} matches)")
+
+    run_path("LongestMatchSet 1M keywords", ("packedcount_hotstate_plane",), longest_1m_path)
+
+    def deep_path():
+        inner = ["a" * i + "b" for i in range(40)]  # Shortest's inner AC is deep too
+        t = deep_text * (BASE_UNITS // len(deep_text) + 1)
+        vals = [f"v{i}" for i in range(len(DEEP))]
+        out = []
+        for name, args in (("AhoCorasickMap", (DEEP, vals)), ("WholeWordMatchSet", (DEEP,)),
+                           ("ShortestMatchSet", (inner,))):
+            m = getattr(port, name)(*args, engine="device", device=dev)
+            got = m.match(t)
+            want = getattr(port, name)(*args, engine="gold", device=dev).match(t)
+            if got != want or not want or m.last_stats.engine != "device":
+                raise AssertionError(f"{name} on a deep dictionary != gold "
+                                     f"({len(got)} vs {len(want)})")
+            out.append(f"{name} {len(want)}")
+        return f"== gold on {len(t)} units: " + ", ".join(out)
+
+    run_path("deep dictionaries (hotstate)", ("packedcount_hotstate_plane", "compact_planes"),
+             deep_path)
+
+    def split_path():
+        # The dispatcher takes split only when the emit counts do not fit
+        # beside the state (about 2**26 states); force that branch.
+        real = scan_batched.count_packable
+        scan_batched.count_packable = lambda m: False
+        try:
+            out = []
+            for name, kws, t in (
+                    ("AhoCorasickSet", ["a" * i for i in range(1, 101)],
+                     "a" * 300 + "b" + "a" * 150 + " aab" * 20_000),
+                    ("LongestMatchSet", DEEP, deep_text),
+                    ("WholeWordMatchSet", DEEP, deep_text)):
+                m = getattr(port, name)(kws, engine="device", device=dev)
+                g = getattr(port, name)(kws, engine="gold", device=dev)
+                got, want = m.match(t), g.match(t)
+                n = m.count(t)
+                if got != want or n != len(want) or not want or m.last_stats.engine != "device":
+                    raise AssertionError(f"{name} split layout != gold ({len(got)} vs {len(want)})")
+                out.append(f"{name} {len(want)}")
+        finally:
+            scan_batched.count_packable = real
+        return "count_packable forced False: == gold: " + ", ".join(out)
+
+    run_path("split layout through the classes", ("split_count", "split_emit_planes"), split_path)
     counts = {k: sum(c[k] for c in path_launches.values()) for k in KERNELS}
 
     # 5. Times.
@@ -619,6 +857,32 @@ def main() -> int:
               f"({len(lanes10)} lanes): kernel {t_kernel} ms ({gbps(t_kernel)} GB/s), plain twin "
               f"{t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
 
+    # The huge-dictionary kernels on the 1M dictionary, BASELINE #5's text.
+    flat1m, sb1m, halo1m = ac1m.dev.count_packed_dfa
+    A1m = c1m.num_classes
+    w5 = scan_batched.classes_to_device(
+        scan_batched.chunk_classes(cls5, 512, halo1m, A1m), A1m, dev)
+    cargs = (flat1m, w5, halo1m, sb1m, A1m)
+    dfa1m, emit1m, halo_s = ac1m.dev.split_dfa
+    w5s = w5 if halo_s == halo1m else scan_batched.classes_to_device(
+        scan_batched.chunk_classes(cls5, 512, halo_s, A1m), A1m, dev)
+    sargs1m = (dfa1m, emit1m, w5s, halo_s, A1m, emit1m.shape[1])
+    ms["packedcount_count"] = (cuda_ms(lambda: khuge.packedcount_count(*cargs), 20),
+                               cuda_ms(lambda: khuge.packedcount_count_plain(*cargs), 3))
+    ms["packedcount_hotstate_plane"] = (
+        cuda_ms(lambda: khuge.packedcount_hotstate_plane(*cargs), 20),
+        cuda_ms(lambda: khuge.packedcount_hotstate_plane_plain(*cargs), 3))
+    ms["split_count"] = (cuda_ms(lambda: khuge.split_count(*sargs1m), 20),
+                         cuda_ms(lambda: khuge.split_count_plain(*sargs1m), 3))
+    ms["split_emit_planes"] = (cuda_ms(lambda: khuge.split_emit_planes(*sargs1m), 20),
+                               cuda_ms(lambda: khuge.split_emit_planes_plain(*sargs1m), 3))
+    for k in ("packedcount_count", "packedcount_hotstate_plane", "split_count",
+              "split_emit_planes"):
+        t_kernel, t_plain = ms[k]
+        print(f"time {k} at {tuple(w5.shape)} windows, 1M dictionary ({flat1m.nbytes} B "
+              f"count-packed, {dfa1m.nbytes + emit1m.nbytes} B split): kernel {t_kernel} ms "
+              f"({gbps(t_kernel)} GB/s), plain twin {t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
+
     def host_s(fn, reps):
         fn()
         out = []
@@ -636,6 +900,10 @@ def main() -> int:
                for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet")]
     facade += [("WholeWordLongestMatchSet match_triples", lambda: big_wwl.match_triples(text)),
                ("WholeWordLongestMatchSet mixed match_triples", lambda: mixed.match_triples(text7))]
+    lm1m = huge_matchers["LongestMatchSet"]
+    facade += [("1M AhoCorasickSet count", lambda: ac1m.count(text5)),
+               ("1M AhoCorasickSet match_triples", lambda: ac1m.match_triples(text5)),
+               ("1M LongestMatchSet match_triples", lambda: lm1m.match_triples(text5))]
     for label, fn in facade:
         runs = host_s(fn, 3)
         med = sorted(runs)[1]
@@ -705,6 +973,37 @@ def main() -> int:
         mixed.compiled, cls_p7, d7, arrays7, cont7, lanes7[cont7]))
     print(f"wwl stages on {len(text)} units ({len(lanes)} lanes; mixed: {len(lanes7)} lanes, "
           f"{len(cont7)} continued on the host): "
+          + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
+
+    # The 1M dictionary's match path, stage by stage (hotstate layout).
+    stages = {}
+    scan_batched.host_emit_planes(c1m)  # built once per matcher, then cached
+    c = stage("classes", lambda: ac1m._classes(text5))
+    w = stage("windows (chunk_classes)", lambda: scan_batched.chunk_classes(
+        c, 512, halo1m, A1m))
+    wd = stage("upload", lambda: scan_batched.classes_to_device(w, A1m, dev))
+    stage("count kernel + scalar download", lambda: int(khuge.packedcount_count(
+        flat1m, wd, halo1m, sb1m, A1m)))
+    bits = stage("hotstate kernel", lambda: khuge.packedcount_hotstate_plane(
+        flat1m, wd, halo1m, sb1m, A1m))
+    sp = stage("compaction kernel + download (sparse, or dense when over n // 4 hot)",
+               lambda: scan_batched.planes_to_sparse(bits, len(c)) or scan_batched.to_host(bits))
+    smask = np.uint32((1 << sb1m) - 1)
+
+    def decode():
+        planes_tab = scan_batched.host_emit_planes(c1m)
+        if isinstance(sp, tuple):
+            idx, packed = sp
+            return idx, planes_tab[(packed[:, 0] & smask).astype(np.int64)]
+        v = sp[0, : len(c)]
+        idx = np.nonzero(v)[0].astype(np.int64)
+        return idx, planes_tab[(v[idx] & smask).astype(np.int64)]
+
+    idx, masks = stage("host decode (state -> emit planes)", decode)
+    starts, ends = stage("native extract", lambda: native_lib.extract_resolve_sparse(
+        idx, masks, len(c), c1m.max_depth, "all"))
+    print(f"huge stages on {len(text5)} units, 1M dictionary ({'sparse' if isinstance(sp, tuple) else 'dense'} "
+          f"download, {len(idx)} hot positions, {len(starts)} matches): "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
 
     print(json.dumps({"kernels": [

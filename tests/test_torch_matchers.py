@@ -154,21 +154,30 @@ DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # count-packed / hotstate layo
 
 
 def test_packed_overflow_dictionary_raises_not_implemented():
-    """``engine="device"`` on a dictionary no ported kernel takes raises at
-    construction, naming the roadmap item that ports its layouts."""
+    """``engine="device"`` on a dictionary that does not pack inline takes
+    the huge-dictionary layouts, from the constructor and ``from_compiled``
+    alike, and answers as gold does."""
     from ahocorasick_tpu.core.compiler import compile_matcher
 
-    with pytest.raises(ValueError, match="ROADMAP.md A6"):
-        port.AhoCorasickSet(DEEP, engine="device", device="cpu")
+    text = "aaaa the " * 40 + "a" * 45 + "b aab"
+    m = port.AhoCorasickSet(DEEP, engine="device", device="cpu")
+    gold_m = port.AhoCorasickSet(DEEP, engine="gold", device="cpu")
+    assert gold_m.count("aaaa the ") == 11
+    assert m.match(text) == gold_m.match(text)
+    # 40 x 11 in the "aaaa the" runs, sum(46 - i for i in 1..39) in a * 45, 3 in "aab"
+    assert m.count(text) == gold_m.count(text) == 440 + 1014 + 3
+    assert m.last_stats.engine == "device"
     compiled = compile_matcher(DEEP, "longest", True)
     assert not port_sb.inline_packable(compiled)
-    with pytest.raises(ValueError, match="ROADMAP.md A6"):
-        port.LongestMatchSet.from_compiled(compiled, engine="device", device="cpu")
+    lm = port.LongestMatchSet.from_compiled(compiled, engine="device", device="cpu")
+    assert lm.match(text) == port.LongestMatchSet(DEEP, engine="gold", device="cpu").match(text)
+    assert lm.last_stats.engine == "device"
     deep_prefix_free = ["a" * i + "b" for i in range(40)]  # the inner AC is deep too
-    with pytest.raises(ValueError, match="ROADMAP.md A6"):
-        port.ShortestMatchSet(deep_prefix_free, engine="device", device="cpu")
-    gold_m = port.AhoCorasickSet(DEEP, engine="gold", device="cpu")
-    assert gold_m.count("aaaa the") == 11
+    sm = port.ShortestMatchSet(deep_prefix_free, engine="device", device="cpu")
+    assert not port_sb.inline_packable(sm._ac.compiled)
+    assert sm.match(text) == port.ShortestMatchSet(deep_prefix_free, engine="gold",
+                                                   device="cpu").match(text)
+    assert sm.last_stats.engine == "device"
 
 
 @pytest.mark.parametrize("name, kws", [
@@ -176,16 +185,16 @@ def test_packed_overflow_dictionary_raises_not_implemented():
     ("ShortestMatchSet", DEEP), ("ShortestMatchSet", ["a" * i + "b" for i in range(40)]),
 ], ids=["ac", "longest", "whole_word", "shortest", "shortest_deep_inner_ac"])
 def test_auto_on_a_deep_dictionary_equals_jax(name, kws):
-    """Under ``"auto"`` a dictionary that does not pack inline answers
-    through gold, as the JAX package's engines answer it."""
+    """Under ``"auto"`` a dictionary that does not pack inline scans on the
+    device (count-packed and hotstate layouts), as the JAX package's does."""
     text = "aaaa the " * 3000 + "a" * 45 + "b aab"
     assert len(text) >= port_matchers._AUTO_DEVICE_MIN_UNITS
     p = getattr(port, name)(kws, device="cpu")
     j = getattr(jax_pkg, name)(kws)
     assert p.match(text) == j.match(text)
+    assert p.last_stats.engine == "device"
     assert p.count(text) == j.count(text) > 0
-    inner_packs = name == "ShortestMatchSet" and kws is DEEP  # its survivors: "a", "the"
-    assert p.last_stats.engine == ("device" if inner_packs else "gold")
+    assert p.last_stats.engine == "device"
     if name == "AhoCorasickSet":
         assert p.count("aaaa the " * 3000) == 33000
 

@@ -66,6 +66,27 @@ def test_whole_word_longest_runs_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_huge_dictionary_layouts_run_without_loading_jax():
+    code = (
+        "import sys\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "from ahocorasick_tpu_torch.kernels import scan_batched\n"
+        "from ahocorasick_tpu_torch.ops import dispatch\n"
+        "deep = ['a' * i for i in range(1, 40)] + ['the']\n"
+        "m = P.AhoCorasickSet(deep, engine='device', device='cpu')\n"
+        "assert dispatch.planes_plan(m.compiled, m.dev).which == 'hotstate'\n"
+        "assert m.count('aaaa the') == 11, m.count('aaaa the')\n"
+        "assert m.match('aab the') == [(0, 1), (0, 2), (1, 2), (4, 7)], m.match('aab the')\n"
+        "assert m.last_stats.engine == 'device'\n"
+        "l = P.LongestMatchSet(deep, engine='device', device='cpu')\n"
+        "assert l.match('aaaa the') == [(0, 4), (5, 8)], l.match('aaaa the')\n"
+        "assert 'jax' not in sys.modules, 'jax was imported'\n"
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_port_sources_never_import_jax():
     pattern = re.compile(r"^\s*(import jax|from jax)\b", re.M)
     sources = sorted((ROOT / "ahocorasick_tpu_torch").rglob("*.py"))

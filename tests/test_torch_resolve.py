@@ -222,14 +222,12 @@ def test_device_capable_is_kind_aware():
             cases.append(compile_matcher(kws, kind, True, thresholder=thr))
     got = [port_matchers._device_capable(m, m.kind) for m in cases]
     want = [jax_matchers._device_capable(m, m.kind) for m in cases]
-    # The JAX package scans dense dictionaries that do not pack inline with
-    # layouts the port has not ported (ROADMAP.md A6); there, the port has
-    # no device path and ``auto`` answers through gold.
-    unported = [not m.is_row_compressed and not port_sb.inline_packable(m)
-                and m.kind != "shortest" for m in cases]
-    assert got == [w and not u for w, u in zip(want, unported)]
-    assert got.count(False) == 6  # ac, longest, whole_word: wide quotient and wide dense
-    assert sum(unported) == 3
+    # Dense dictionaries that do not pack inline take the count-packed,
+    # hotstate or split layouts in both packages.
+    assert got == want
+    assert got.count(False) == 3  # ac, longest, whole_word: the wide quotient
+    deep_dense = [not m.is_row_compressed and not port_sb.inline_packable(m) for m in cases]
+    assert sum(deep_dense) == 4 and all(g for g, d in zip(got, deep_dense) if d)
     with pytest.raises(ValueError, match="too wide"):
         port.LongestMatchSet(wide, engine="device", device="cpu", thresholder=_NeverDense())
     s = port.ShortestMatchSet(["ab", "b"], device="cpu", thresholder=_NeverDense())

@@ -70,6 +70,20 @@ def test_inline_packable_agrees(name):
     assert port_sb.quotient_packable(m) == jax_sb.quotient_packable(m)
     assert port_sb.effective_rows(m) == jax_sb.effective_rows(m)
     assert port_sb.inline_packable(m) == (name != "split")
+    assert port_sb.count_packable(m) == jax_sb.count_packable(m) == (name != "quotient")
+    assert port_sb.hotstate_layout(m) == jax_sb.hotstate_layout(m) == (name == "split")
+
+
+@pytest.mark.parametrize("name", ["dense", "wide", "split"])
+def test_build_count_packed_identical(name):
+    m = _dictionary(name)
+    got, want = port_sb.build_count_packed(m), jax_sb.build_count_packed(m)
+    assert got[0].dtype == want[0].dtype == np.uint32
+    np.testing.assert_array_equal(got[0], want[0])
+    assert got[1:] == want[1:]
+    table, state_bits, halo = convert.count_packed_from_numpy(*want, "cpu")
+    assert table.dtype == torch.uint32 and (state_bits, halo) == want[1:]
+    np.testing.assert_array_equal(table.view(torch.int32).numpy().view(np.uint32), want[0])
 
 
 @pytest.mark.parametrize("name", PACKED)
