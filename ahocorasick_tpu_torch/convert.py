@@ -6,19 +6,81 @@
 port's ``PackedDfa`` of tensors.  ``count_packed_from_numpy`` and
 ``split_from_numpy`` do the same for the huge-dictionary layouts, and
 ``wwl_scan_from_numpy`` for the whole-word-longest scan tables.
-``from_compiled`` wraps a ``CompiledMatcher`` (freshly compiled, or loaded
-from an npz either package saved) in the port's matcher class for its kind.
+``compiled_from_numpy`` carries a whole compiled automaton across: the fields
+of the JAX package's ``CompiledMatcher`` as plain numpy arrays and Python
+values (a ``RowTable`` as ``{"rows", "row_id"}``) become the port's own
+``CompiledMatcher`` with the port's own ``RowTable``; npz artifacts are the
+other carrier.  ``from_compiled`` wraps a port ``CompiledMatcher`` (freshly
+compiled, carried across, or loaded from an npz either package saved) in the
+port's matcher class for its kind.
+
+This module imports nothing of the JAX package: callers hand it numpy.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
-from ahocorasick_tpu.core.compiler import SHORTEST
-from ahocorasick_tpu.models.matchers import _bucket_up
+from ahocorasick_tpu_torch.core.compiler import SHORTEST, CompiledMatcher, RowTable
 from ahocorasick_tpu_torch.ops.scan_batched import PackedDfa
 from ahocorasick_tpu_torch.ops.scan_wwl import WwlScan
+
+
+def _bucket_up(n: int, minimum: int = 8) -> int:
+    """The power-of-two bucket the JAX package pads state rows and class
+    columns to (its ``models.matchers._bucket_up``)."""
+    b = minimum
+    while b < n:
+        b *= 2
+    return b
+
+
+def compiled_to_numpy(compiled) -> dict:
+    """The fields of a ``CompiledMatcher`` of either package as the dict
+    ``compiled_from_numpy`` takes: read by attribute name, a row-compressed
+    table (anything with ``rows`` and ``row_id``) as ``{"rows", "row_id"}``."""
+    out = {}
+    for f in dataclasses.fields(CompiledMatcher):
+        v = getattr(compiled, f.name)
+        if hasattr(v, "rows") and hasattr(v, "row_id"):
+            v = {"rows": np.asarray(v.rows), "row_id": np.asarray(v.row_id)}
+        out[f.name] = v
+    return out
+
+
+def compiled_from_numpy(fields: dict) -> CompiledMatcher:
+    """A compiled automaton from its fields as plain numpy arrays and Python
+    values, keyed by the names of ``CompiledMatcher``'s dataclass fields.
+
+    A row-compressed table (``trie_next`` / ``dfa_next`` of a wide-alphabet
+    dictionary) is given as ``{"rows": int32[R, A], "row_id": int32[S]}`` and
+    becomes the port's ``RowTable``.  Arrays are taken as they are (no copy);
+    missing or unknown field names raise."""
+    names = [f.name for f in dataclasses.fields(CompiledMatcher)]
+    unknown = set(fields) - set(names)
+    missing = set(names) - set(fields)
+    if unknown or missing:
+        raise ValueError(
+            f"CompiledMatcher fields do not match: missing {sorted(missing)}, "
+            f"unknown {sorted(unknown)}")
+    out = {}
+    for name in names:
+        v = fields[name]
+        if isinstance(v, dict):
+            if set(v) != {"rows", "row_id"}:
+                raise ValueError(f"{name}: expected {{'rows', 'row_id'}}, got {sorted(v)}")
+            v = RowTable(np.asarray(v["rows"]), np.asarray(v["row_id"]))
+        elif name == "values":
+            v = None if v is None else list(v)
+        elif isinstance(v, np.generic):
+            v = v.item()
+        elif v is not None and not isinstance(v, (str, bool, int)):
+            v = np.asarray(v)
+        out[name] = v
+    return CompiledMatcher(**out)
 
 
 def packed_from_numpy(table, state_bits: int, halo: int, num_classes: int,

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
     for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
-                 "wwl_walk.cu", "huge_scan.cu")
+                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu")
 )
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
@@ -49,6 +49,7 @@ launches = {
     "packedcount_hotstate_plane": 0,
     "split_count": 0,
     "split_emit_planes": 0,
+    "seq_states": 0,
 }
 
 
@@ -92,6 +93,8 @@ ARGTYPES = {
     #  stream)
     "wwl_walks_at": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I64, _P, _I64, _I,
                      _P, _P, _P, _P, _P, _I, _P],
+    # (table, row_id or null, cls, n, num_classes, s0, out, device, stream)
+    "seq_states": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
 }
 
 _lib = None

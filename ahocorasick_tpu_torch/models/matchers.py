@@ -4,10 +4,14 @@ whole-word, leftmost-shortest and whole-word-longest, each as a set and as
 a map.
 
 Reporting conventions are the reference's: ``end`` is one past the last
-matched UTF-16 unit, a listener returning ``False`` stops delivery, and
-matches come in the sequential automaton's emission order.  With no
-listener, ``match`` returns ``(start, end)`` tuples (sets) or
-``(start, end, value)`` (maps).
+matched UTF-16 unit, a listener returning ``False`` stops the run (texts
+over ``_LISTENER_CHUNK`` units are scanned chunk by chunk through the stream
+cursor, so the rest is never scanned), and matches come in the sequential
+automaton's emission order.  With no listener, ``match`` returns
+``(start, end)`` tuples (sets) or ``(start, end, value)`` (maps).
+``match_stream``, ``stream()`` and the maps' ``match_readable`` scan
+unbounded inputs through the cursors of ``core/stream.py``, on the
+matcher's device.
 
 Engines: ``"device"`` runs the kernels on the matcher's torch device (their
 plain PyTorch twins when that device is the CPU); ``"gold"`` runs the
@@ -26,9 +30,12 @@ Whole-word-longest computes per-start walk outcomes on the device
 row-compressed (wide-alphabet) dictionaries that no ported kernel can take
 (see ``_no_device_path``) answer through gold under ``"auto"``, and raise
 under ``"device"``; ``_device_capable`` answers as the JAX package's does.
+For row-compressed AC, longest and shortest dictionaries gold is one cursor
+feed over the sequential-scan kernel, not the per-character loop.
 
 The compiler, gold model, artifact format, native extractor, resolvers and
-value re-walk are the JAX package's host code, imported as they are.
+value re-walk are the port's own copies of the JAX package's host code, under
+the same module names.
 """
 
 from __future__ import annotations
@@ -38,8 +45,10 @@ from typing import Callable, Iterable, Optional, Tuple
 import numpy as np
 import torch
 
-from ahocorasick_tpu.core import gold
-from ahocorasick_tpu.core.compiler import (
+from ahocorasick_tpu_torch import convert
+from ahocorasick_tpu_torch.convert import _bucket_up
+from ahocorasick_tpu_torch.core import artifact, gold, stream
+from ahocorasick_tpu_torch.core.compiler import (
     AC,
     LONGEST,
     SHORTEST,
@@ -47,12 +56,12 @@ from ahocorasick_tpu.core.compiler import (
     WHOLE_WORD_LONGEST,
     CompiledMatcher,
     compile_matcher,
+    shortest_survivors,
 )
-from ahocorasick_tpu.models.matchers import _bucket_up, _build_cls_map, _resolve_word_chars
-from ahocorasick_tpu.resolve.wholeword import follow_chain
-from ahocorasick_tpu.utils import chartables
-from ahocorasick_tpu_torch import convert
 from ahocorasick_tpu_torch.ops import dispatch, emit, scan_batched, scan_dfa, scan_wwl
+from ahocorasick_tpu_torch.resolve.wholeword import boundary_filter, follow_chain
+from ahocorasick_tpu_torch.utils import chartables
+from ahocorasick_tpu_torch.utils.stats import ScanStats, timed
 
 # Input size (UTF-16 units) from which "auto" takes the device.  The JAX
 # package derives it per engine from TPU costs; this port uses one constant
@@ -164,6 +173,18 @@ class _DeviceTables:
         return self._cache["dfa_next"]
 
     @property
+    def seq_tables(self):
+        """``(table, row_id)`` for the sequential-scan kernel over the goto
+        closure: the padded ``dfa_next`` and None, or a row-compressed
+        table's distinct rows and its state -> row map."""
+        if "seq_tables" not in self._cache:
+            if self._m.is_row_compressed:
+                self._cache["seq_tables"] = stream.seq_tensors(self._m.dfa_next, self.device)
+            else:
+                self._cache["seq_tables"] = (self.dfa_next, None)
+        return self._cache["seq_tables"]
+
+    @property
     def wwl_scan(self) -> scan_wwl.WwlScan:
         """Whole-word-longest scan tables over the goto closure (or its
         quotient rows), for word-uniform dictionaries."""
@@ -219,9 +240,11 @@ class _DeviceTables:
     def device_bytes(self) -> int:
         """Bytes of the device tables built so far."""
         total = 0
+        seen = set()  # seq_tables shares the padded dfa_next
         for entry in self._cache.values():
             for leaf in entry if isinstance(entry, tuple) else (entry,):
-                if isinstance(leaf, torch.Tensor):
+                if isinstance(leaf, torch.Tensor) and id(leaf) not in seen:
+                    seen.add(id(leaf))
                     total += leaf.nbytes
         return total
 
@@ -276,8 +299,6 @@ class _Matcher:
         return self._match_triples_impl(text, self._classes(text))
 
     def _match_triples_impl(self, text: str, cls: np.ndarray):
-        from ahocorasick_tpu.utils.stats import ScanStats, timed
-
         engine = self._pick_engine(len(cls))
         self.last_stats = ScanStats(units=len(cls), engine=engine, kind=self.kind)
         if len(cls) == 0:
@@ -285,7 +306,15 @@ class _Matcher:
             return z, z.copy(), z.copy()
         with timed(self.last_stats):
             if engine == "gold":
-                trip = gold.gold_match(self.compiled, text)
+                if self.compiled.is_row_compressed and self.kind in (AC, LONGEST, SHORTEST):
+                    # Row-compressed dictionaries skip the per-char Python
+                    # gold loop: one cursor feed (the sequential-scan kernel
+                    # over the two-level table, then numpy emit expansion) is
+                    # exact for any text (core/stream.py).
+                    trip = stream.make_cursor(
+                        self.compiled, self.device, self.dev, "gold").feed(cls, is_final=True)
+                else:
+                    trip = gold.gold_match(self.compiled, text)
                 if not trip:
                     z = np.zeros(0, dtype=np.int64)
                     out = z, z, z.copy()
@@ -337,16 +366,24 @@ class _Matcher:
                 if listener(text, s, e) is False:
                     return
 
-    def match(self, haystack: str, listener: Optional[Callable] = None):
-        """Reference ``match``: deliver to a listener, or return the list.
+    # Listener-mode scans of haystacks longer than this are chunked through
+    # the stream cursor so a False return stops the scan after the current
+    # chunk — the reference breaks its scan loop on False
+    # (AhoCorasickSet.java:223-225).  Chunks grow geometrically from
+    # _LISTENER_CHUNK_MIN so a listener that stops on the first match scans
+    # KiBs, not MiBs, while full scans reach the big chunk within 3 feeds.
+    _LISTENER_CHUNK = 1 << 20
+    _LISTENER_CHUNK_MIN = 1 << 14
 
-        A listener sees the matches of one full scan; the JAX package's
-        chunked early-stop scan waits for the stream cursors (ROADMAP.md A5),
-        so a ``False`` stops delivery but not the scan."""
-        starts, ends, vals = self.match_triples(haystack)
+    def match(self, haystack: str, listener: Optional[Callable] = None):
+        """Reference ``match``: deliver to a listener, or return the list."""
         if listener is not None:
+            if self._listener_chunkable(haystack):
+                return self._match_chunked(haystack, listener)
+            starts, ends, vals = self.match_triples(haystack)
             self._deliver(haystack, listener, starts, ends, vals)
             return None
+        starts, ends, vals = self.match_triples(haystack)
         sl = np.asarray(starts).tolist()
         el = np.asarray(ends).tolist()
         if self.is_map:
@@ -355,13 +392,117 @@ class _Matcher:
             return [(s, e, values[v]) for s, e, v in zip(sl, el, vl)]
         return list(zip(sl, el))
 
+    def _listener_chunkable(self, haystack: str) -> bool:
+        # Every kind's stream cursor rides the device kernels, so chunked
+        # delivery costs nothing and a False listener saves the unscanned
+        # suffix.  Dictionaries without a device path pick "gold" here and
+        # keep the full-scan path.  The gate is in UTF-16 UNITS: astral code
+        # points count twice, so texts near the threshold measure their exact
+        # unit length.
+        n = len(haystack)
+        if 2 * n <= self._LISTENER_CHUNK:
+            return False  # cannot reach the gate even if all astral
+        if n <= self._LISTENER_CHUNK:
+            n = len(chartables.to_utf16_units(haystack))
+        return n > self._LISTENER_CHUNK and self._pick_engine(n) == "device"
+
+    def _match_chunked(self, haystack: str, listener) -> None:
+        """Chunk-at-a-time listener delivery; stops reading on False.
+
+        Delivery order is identical to the full-scan path: each kind's
+        stream cursor finalizes matches in the batch emission order, and
+        chunk outputs are consecutive."""
+        scanner = self._stream_scanner(self._LISTENER_CHUNK)
+        values = self.compiled.values
+        n = len(haystack)
+        self.last_stats = ScanStats(units=0, engine="device", kind=self.kind)
+        delivered = 0
+        with timed(self.last_stats):
+            i = 0
+            chunk = min(self._LISTENER_CHUNK_MIN, self._LISTENER_CHUNK)
+            while i < n:
+                piece = haystack[i : i + chunk]
+                i += len(piece)
+                chunk = min(chunk * 4, self._LISTENER_CHUNK)
+                starts, ends, vals = scanner.feed_arrays(piece, is_final=i >= n)
+                # Cursor offsets are UTF-16 units (ScanStats contract);
+                # code-point slicing only drives the chunk loop.
+                self.last_stats.units = scanner.cursor.off
+                sl = np.asarray(starts).tolist()
+                el = np.asarray(ends).tolist()
+                if self.is_map:
+                    vl = np.asarray(vals).tolist()
+                    for s, e, v in zip(sl, el, vl):
+                        delivered += 1
+                        if listener(haystack, s, e, values[v]) is False:
+                            self.last_stats.matches = delivered
+                            return None
+                else:
+                    for s, e in zip(sl, el):
+                        delivered += 1
+                        if listener(haystack, s, e) is False:
+                            self.last_stats.matches = delivered
+                            return None
+        self.last_stats.matches = delivered
+        return None
+
+    # ------------------------------ streaming ------------------------------ #
+
+    def match_stream(self, source, listener: Optional[Callable] = None, *, chunk_units=None):
+        """Scan an unbounded stream (file-like ``read(n)`` or str iterable).
+
+        Output equals String-mode ``match`` with global UTF-16 offsets, for
+        any chunking (see ``core/stream.py``).  With a listener
+        (``(start, end[, value]) -> bool``), matches are delivered as they
+        finalize and a ``False`` return stops reading; otherwise the full
+        list is returned."""
+        scanner = self._stream_scanner(chunk_units)
+        values = self.compiled.values
+        if listener is None:
+            if self.is_map:
+                return [(s, e, values[v]) for s, e, v in scanner.scan(source)]
+            return [(s, e) for s, e, _ in scanner.scan(source)]
+        for s, e, v in scanner.scan(source):
+            res = listener(s, e, values[v]) if self.is_map else listener(s, e)
+            if res is False:
+                break
+        return None
+
+    def stream(self, chunk_units=None):
+        """A push-mode scanner: ``feed(text, is_final)`` returns finalized
+        global matches — ``(start, end)`` for sets, ``(start, end, value)``
+        for maps; ``state_dict()``/``load_state_dict()`` persist the cursor
+        across processes (resumable scans)."""
+        return _MatcherStream(self._stream_scanner(chunk_units), self.is_map)
+
+    def _stream_scanner(self, chunk_units):
+        """Streaming scanner wired to this matcher's device and device
+        tables, so large feeds take the same kernels as batch mode
+        (exactness: ``core/stream._CandidateSource``)."""
+        return stream.StreamScanner(self.compiled, chunk_units, device=self.device,
+                                    dev=self.dev, engine=self.engine, ac=self._stream_ac())
+
+    def _stream_ac(self):
+        return None
+
+    def match_readable(self, source, listener: Callable, *, chunk_units=None):
+        """Reference ``StringMap.match(Readable, ReadableMatchListener)``:
+        the listener receives values only (``StringMap.java:6``,
+        ``ReadableMatchListener.java:4-9``); ``False`` stops the run."""
+        if not self.is_map:
+            raise TypeError("match_readable is a map-matcher API (values-only)")
+        scanner = self._stream_scanner(chunk_units)
+        values = self.compiled.values
+        for _, _, v in scanner.scan(source):
+            if listener(values[v]) is False:
+                break
+        return None
+
     # ----------------------------- persistence ----------------------------- #
 
     def save(self, path) -> None:
         """Persist the compiled automaton (``core/artifact.py`` npz, which
         either package loads)."""
-        from ahocorasick_tpu.core import artifact
-
         artifact.save(self.compiled, path)
 
     @classmethod
@@ -433,8 +574,6 @@ class AhoCorasickSet(_PfacEngine):
         (emit-mask popcounts, or the emit counts of a huge dictionary's
         count-packed table, summed on the device): one scalar downloaded,
         no extraction."""
-        from ahocorasick_tpu.utils.stats import ScanStats, timed
-
         cls = self._classes(text)
         engine = self._pick_engine(len(cls))
         if engine != "device" or len(cls) == 0:
@@ -492,8 +631,6 @@ class WholeWordMatchSet(_PfacEngine):
         super().__init__(keywords, case_sensitive, word_chars=word_chars, **kw)
 
     def _device_triples(self, cls):
-        from ahocorasick_tpu.resolve.wholeword import boundary_filter
-
         return boundary_filter(self.compiled.class_is_word, cls, *self._candidates(cls))
 
 
@@ -540,8 +677,6 @@ class ShortestMatchSet(_Matcher):
         src = self.__dict__.get("_src")
         if src is None:
             return None
-        from ahocorasick_tpu.core.compiler import shortest_survivors
-
         kws, vals, case_sensitive, thresholder = src
         skws, svals = shortest_survivors(kws, case_sensitive, vals)
         if self.is_map:
@@ -562,8 +697,6 @@ class ShortestMatchSet(_Matcher):
         """Persist the compiled automaton and the internal AC automaton in
         one npz (``artifact.save(..., ac=)``), for any target: path, bytes
         path or file-like."""
-        from ahocorasick_tpu.core import artifact
-
         ac = self._ac
         artifact.save(self.compiled, path, ac=ac.compiled if ac is not None else None)
 
@@ -582,6 +715,25 @@ class ShortestMatchSet(_Matcher):
             _require_device_path(ac_compiled, AC)
         self.engine = engine
         return self
+
+    def _stream_ac(self):
+        """Streaming candidate source: a SUPPLIER of the internal AC
+        automaton + class remap, resolved lazily by the cursor only when a
+        feed crosses the device threshold — small streams never pay the
+        second compile (mirrors ``_pick_engine``'s small-input guard).  None
+        for gold matchers; the supplier itself returns None for
+        ``from_compiled`` artifacts without their AC automaton (the cursor
+        then keeps the sequential restart scan)."""
+        if self.engine == "gold":
+            return None
+
+        def supplier():
+            ac = self._ac
+            if ac is None:
+                return None
+            return (ac.compiled, ac.dev, self._cls_map)
+
+        return supplier
 
     def _pick_engine(self, n_units: int) -> str:
         if self.engine == "gold":
@@ -638,31 +790,23 @@ class WholeWordLongestMatchSet(_Matcher):
 
     def _device_triples(self, cls):
         m = self.compiled
-        lanes = scan_wwl.compact_lanes(m, cls)
+        compact = scan_wwl.compact_lanes(m, cls)
         if scan_wwl.scan_applicable(m):
-            return self._scan_triples(self.dev.wwl_scan, lanes, len(cls))
+            return self._scan_triples(self.dev.wwl_scan, compact, len(cls))
         if scan_wwl.mixed_scan_applicable(m):
-            return self._scan_triples(self.dev.wwl_scan_mixed, lanes, len(cls))
-        return self._walk_triples(lanes, len(cls))
+            return self._scan_triples(self.dev.wwl_scan_mixed, compact, len(cls))
+        return self._walk_triples(compact, len(cls))
 
     def _scan_triples(self, sc, compact, n: int):
-        """The scan route over ``sc``; with crossing bits, the flagged walks
-        are re-run on the host over the full trie."""
-        cls_p, starts, lanes, ws, d = compact
-        outs = scan_wwl.scan_walks(sc, cls_p, starts, d, self.device)
-        arrays = [x[: len(lanes)].cpu().numpy() for x in outs[:5]]
-        if sc.has_cross:
-            cont = np.nonzero(outs[5][: len(lanes)].cpu().numpy())[0]
-            scan_wwl.apply_crossing_fixes(self.compiled, cls_p, d, arrays, cont, lanes[cont])
-        return self._chain_from_lanes(arrays, lanes, ws, n)
+        """The scan route over ``sc`` (``ops/scan_wwl.scan_lane_outcomes``)."""
+        arrays = scan_wwl.scan_lane_outcomes(self.compiled, sc, compact, self.device)
+        return self._chain_from_lanes(arrays, compact[2], compact[3], n)
 
     def _walk_triples(self, compact, n: int):
         """The per-start trie walk route (any dense dictionary)."""
-        cls_p, starts, lanes, ws, d = compact
-        cls_d = scan_batched.classes_to_device(cls_p, self.compiled.num_classes, self.device)
-        starts_d = torch.from_numpy(starts).to(self.device)
-        outs = scan_wwl.wwl_walks_at(*self.dev.wwl_walk, cls_d, starts_d, d)
-        return self._chain_from_lanes([x[: len(lanes)].cpu().numpy() for x in outs], lanes, ws, n)
+        arrays = scan_wwl.walk_lane_outcomes(self.compiled, self.dev.wwl_walk, compact,
+                                             self.device)
+        return self._chain_from_lanes(arrays, compact[2], compact[3], n)
 
     @staticmethod
     def _chain_from_lanes(arrays, lanes, ws, n: int):
@@ -687,6 +831,27 @@ class WholeWordLongestMatchMap(WholeWordLongestMatchSet):
         super().__init__(keywords, case_sensitive, values=values, **kw)
 
 
+class _MatcherStream:
+    """Push-mode façade translating value ids to user values (maps)."""
+
+    def __init__(self, scanner, is_map: bool):
+        self._scanner = scanner
+        self._is_map = is_map
+        self._values = scanner.m.values
+
+    def feed(self, text: str, is_final: bool):
+        trips = self._scanner.feed(text, is_final)
+        if self._is_map:
+            return [(s, e, self._values[v]) for s, e, v in trips]
+        return [(s, e) for s, e, _ in trips]
+
+    def state_dict(self) -> dict:
+        return self._scanner.state_dict()
+
+    def load_state_dict(self, d: dict) -> None:
+        self._scanner.load_state_dict(d)
+
+
 _CLASS_BY_KIND = {
     (cls.kind, cls.is_map): cls
     for cls in (
@@ -697,6 +862,27 @@ _CLASS_BY_KIND = {
 }
 
 
+def _build_cls_map(mc: CompiledMatcher, ac: CompiledMatcher):
+    """Outer-charmap class -> internal-AC class remap (None when the
+    charmaps coincide, the normal case; see ``ShortestMatchSet._ac``)."""
+    if np.array_equal(mc.charmap, ac.charmap):
+        return None
+    M = np.zeros(mc.num_classes, dtype=np.int32)
+    M[mc.charmap] = ac.charmap
+    return M
+
+
+def _resolve_word_chars(word_chars, toggle_flags):
+    """Reference constructor overloads (``WholeWordMatchSet.java:16-45``)."""
+    if word_chars is None:
+        return None  # the compiler installs the default table
+    if isinstance(word_chars, np.ndarray) and word_chars.dtype == bool:
+        return word_chars
+    if toggle_flags is not None:
+        return chartables.word_chars_with_toggles(word_chars, toggle_flags)
+    return chartables.word_chars_from_list(word_chars)
+
+
 def load_matcher(path, allow_pickle: bool = False, engine: str = "auto", device=None):
     """Load a matcher artifact saved by either package (``core.artifact``
     npz) and wrap it in the port's matcher for its kind.
@@ -704,8 +890,6 @@ def load_matcher(path, allow_pickle: bool = False, engine: str = "auto", device=
     Shortest artifacts bundle their internal AC automaton in the npz; older
     saves kept it in a ``<path>.ac`` sidecar, still read for path targets."""
     import os
-
-    from ahocorasick_tpu.core import artifact
 
     compiled, ac_compiled = artifact.load_with_ac(path, allow_pickle=allow_pickle)
     if (compiled.kind == SHORTEST and ac_compiled is None

@@ -4,8 +4,8 @@ extraction for the batched-halo DFA scan — the port of
 became the kernels of ``kernels/scan_block.py`` and
 ``kernels/scan_batched.py``).
 
-The builders are numpy and re-implemented here because their home module
-imports JAX at the top; they must stay byte-identical to it
+The table-building functions are numpy, the port's own copies of that
+module's; they must stay byte-identical to it
 (``tests/test_torch_tables.py``, ``tests/test_torch_huge.py``).  The scan is
 d-synchronizing: a window that starts at the root and consumes
 ``halo = max_depth`` classes of left context reaches the sequential
@@ -32,8 +32,9 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ahocorasick_tpu.core.compiler import CompiledMatcher, RowTable
+from ahocorasick_tpu_torch.core.compiler import CompiledMatcher, RowTable
 from ahocorasick_tpu_torch.kernels import compact
+from ahocorasick_tpu_torch.native import lib as native_lib
 
 PAD_CLASS = 0
 
@@ -351,8 +352,7 @@ def ac_matches_batched(m: CompiledMatcher, cls: np.ndarray, bits,
     Extraction runs through the native C extractor when it is available: it
     walks the bit words end-ascending, longest-first, so its output is
     already in the reference emission order."""
-    from ahocorasick_tpu.native import lib as native_lib
-    from ahocorasick_tpu.ops import emit as emit_mod
+    from ahocorasick_tpu_torch.ops import emit as emit_mod
 
     native_ok = native_lib.available()
     n = len(cls)
@@ -379,7 +379,7 @@ def ac_matches_batched(m: CompiledMatcher, cls: np.ndarray, bits,
 
 
 def _ac_vals(m: CompiledMatcher, cls: np.ndarray, starts, ends):
-    from ahocorasick_tpu.ops import emit as emit_mod
+    from ahocorasick_tpu_torch.ops import emit as emit_mod
 
     if m.values is not None:
         return emit_mod.walk_values(m, cls, starts, ends - starts)

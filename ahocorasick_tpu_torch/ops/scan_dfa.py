@@ -1,5 +1,7 @@
-"""Sequential DFA scan of the leftmost-shortest matcher — the port of
-``ahocorasick_tpu/ops/scan_dfa.py``'s ``shortest_states`` path.
+"""Sequential DFA scans — the port of ``ahocorasick_tpu/ops/scan_dfa.py``:
+``dfa_states`` (arrival states from an entry state, the dense case of
+``kernels/scan_dfa.seq_states``) and the ``shortest_states`` path of the
+leftmost-shortest matcher.
 
 The reference's lagged restart (``ShortestMatchSet.java:182-260``) makes the
 state depend on where earlier matches ended, so the scan is one sequential
@@ -13,26 +15,30 @@ from __future__ import annotations
 import numpy as np
 
 from ahocorasick_tpu_torch.kernels import scan_dfa as kernels
-from ahocorasick_tpu_torch.ops import scan_batched
+from ahocorasick_tpu_torch.ops import emit, scan_batched
 
 PAD_CLASS = 0
 
 
 def pad_classes(cls, max_depth: int, bucket: int = 1) -> np.ndarray:
     """Right-pad a class array so every lane can read ``max_depth`` chars,
-    the lane count rounded up to ``bucket`` (``scan_pfac.pad_classes``, whose
-    module imports JAX)."""
+    the lane count rounded up to ``bucket`` (the JAX package's
+    ``scan_pfac.pad_classes``)."""
     cls = np.asarray(cls)
     n = len(cls)
     n_pad = -(-max(n, 1) // bucket) * bucket
     return np.pad(cls, (0, n_pad - n + max_depth), constant_values=PAD_CLASS)
 
 
+def dfa_states(dfa_next, cls, s0: int = 0):
+    """Arrival states ``s_1 .. s_N`` for one stream (int32[N]) over a dense
+    ``int32[S, A]`` table, from the entry state ``s0``."""
+    return kernels.seq_states(dfa_next, None, cls, s0)
+
+
 def shortest_triples(m, dev, cls: np.ndarray):
     """Shortest-match ``(starts, ends, vals)`` of ``cls`` from the arrival
     states of the restart-loop scan over ``dev``'s padded tables."""
-    from ahocorasick_tpu.ops import emit
-
     n = len(cls)
     cls_d = scan_batched.classes_to_device(pad_classes(cls, 0), m.num_classes, dev.device)
     states = kernels.shortest_states(dev.dfa_next, dev.match_len, cls_d)

@@ -23,8 +23,8 @@ Two device engines, each a pair of kernels in ``kernels/scan_wwl.py``:
 * the per-start trie walk (``wwl_walks_at``), for dictionaries that neither
   scan table packs.
 
-The numpy builders are re-implemented here because their home module
-imports JAX at the top; they stay byte-identical to it
+The numpy table-building functions are the port's own copies of that
+module's; they stay byte-identical to it
 (``tests/test_torch_wwl.py``).  The JAX module's fused ring variant is not
 ported (it lost the v5e A/B, ``FUSED_DEFAULT = False``), nor are its v5e
 gather tricks (``_plane_take``, the meta-word packing): a GPU thread reads
@@ -38,8 +38,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from ahocorasick_tpu.core.compiler import WHOLE_WORD_LONGEST, RowTable
-from ahocorasick_tpu.utils.lanes import LANE_BUCKET, bucket_depth
+from ahocorasick_tpu_torch.core.compiler import WHOLE_WORD_LONGEST, RowTable
+from ahocorasick_tpu_torch.utils.lanes import LANE_BUCKET, bucket_depth
 from ahocorasick_tpu_torch.kernels import scan_wwl as kernels
 from ahocorasick_tpu_torch.ops import scan_batched
 from ahocorasick_tpu_torch.ops.scan_dfa import pad_classes
@@ -520,3 +520,43 @@ def wwl_walks(trie_next, own_len, own_val, fail_len, fail_off, fail_val, class_i
     starts = torch.arange(max(n, 0), dtype=torch.int32, device=cls_padded.device)
     return kernels.wwl_walks_at(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
                                 class_is_word, cls_padded, starts, max_depth)
+
+
+# ------------------------------------------------- outcomes for chain lanes
+
+
+def scan_lane_outcomes(m, sc: WwlScan, compact, device):
+    """The scan route over ``sc`` for the lanes of ``compact``
+    (``compact_lanes``): host arrays ``[die, has, m_start, m_end, m_val]``,
+    one entry per lane.  With crossing bits, the flagged walks are re-run on
+    the host over the full trie."""
+    cls_p, starts, lanes, _ws, d = compact
+    outs = scan_walks(sc, cls_p, starts, d, device)
+    arrays = [x[: len(lanes)].cpu().numpy() for x in outs[:5]]
+    if sc.has_cross:
+        cont = np.nonzero(outs[5][: len(lanes)].cpu().numpy())[0]
+        apply_crossing_fixes(m, cls_p, d, arrays, cont, lanes[cont])
+    return arrays
+
+
+def walk_lane_outcomes(m, walk_tables, compact, device):
+    """The per-start trie walk route (any dense dictionary) for the lanes of
+    ``compact``, over ``_DeviceTables.wwl_walk``; arrays as above."""
+    cls_p, starts, lanes, _ws, d = compact
+    cls_d = scan_batched.classes_to_device(cls_p, m.num_classes, device)
+    starts_d = torch.from_numpy(starts).to(device)
+    outs = wwl_walks_at(*walk_tables, cls_d, starts_d, d)
+    return [x[: len(lanes)].cpu().numpy() for x in outs]
+
+
+def lane_outcomes(m, dev, compact):
+    """Walk outcomes for the lanes of ``compact`` by the first route that
+    applies: the scan over the goto closure (word-uniform dictionaries,
+    dense or quotient rows), the scan over the truncated closure
+    (separator-spanning ones), else the per-start trie walk.  ``dev`` is the
+    matcher's ``_DeviceTables``."""
+    if scan_applicable(m):
+        return scan_lane_outcomes(m, dev.wwl_scan, compact, dev.device)
+    if mixed_scan_applicable(m):
+        return scan_lane_outcomes(m, dev.wwl_scan_mixed, compact, dev.device)
+    return walk_lane_outcomes(m, dev.wwl_walk, compact, dev.device)

@@ -9,11 +9,17 @@ and ``WholeWordLongestMatchSet`` / ``Map`` on each of its routes; and the
 huge-dictionary layouts (count-packed count, hotstate plane, split scans)
 at the 1M-keyword scale of ``tests/test_full_random_1m.py`` (995,169 seeded
 keywords, 4,356,756 states: 23 state bits + depth 12 do not pack inline)
-and on deep dictionaries.  Phases, each raising on failure:
+and on deep dictionaries; and the stream cursors (``stream().feed``,
+``match_stream``, ``match_readable``) and the chunked early-stop listener
+scan at the same sizes.  It imports the port only: the dictionary and text
+generators of ``bench.py`` and of the JAX package's bench suite are copied
+here.  Phases, each raising on failure:
 
 1. the card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power
    limit;
-2. build the CUDA kernels from ``ahocorasick_tpu_torch/csrc`` with nvcc;
+2. build the CUDA kernels from ``ahocorasick_tpu_torch/csrc`` with nvcc, and
+   the port's native host library from ``ahocorasick_tpu_torch/native/src``
+   with g++ (a failed build raises: nothing carries on in numpy);
 3. every kernel against its plain PyTorch twin on the card, bit for bit, on
    seeded dictionaries and shapes: the scans up to the main path's
    65,536 x 524 windows, the compaction on every planes tensor they make and
@@ -27,7 +33,11 @@ and on deep dictionaries.  Phases, each raising on failure:
    dictionary (P = 2), ``a``..``a * 100`` (split, P = 4, against gold as
    ``tests/test_split.py`` drives it), a deep dictionary of > 256 classes
    (uint16 windows, P = 1) and the 1M dictionary at 65,536 x 524 windows
-   (count-packed and hotstate, and split on its split tables);
+   (count-packed and hotstate, and split on its split tables); the
+   sequential scan from an entry state on the 10k dictionary's dense table
+   (1 to 64 Ki units, entry state 0 and not 0), on RowTables (a fuzz
+   dictionary kept row-compressed, and a 55,040-class alphabet) and on the
+   10k shortest restart table;
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -47,11 +57,24 @@ and on deep dictionaries.  Phases, each raising on failure:
    through the public classes with ``count_packable`` forced False (the
    dispatcher's branch for dictionaries of about 2**26 states) == gold; a
    dictionary that does not pack inline scans on the device under
-   ``auto``; every kernel of a path was launched;
+   ``auto``; streams: the 10k dictionary over 32 Mi units through
+   ``stream().feed`` in seeded uneven pieces (1 unit to 4 Mi, on both sides of
+   the 16 Ki-unit device threshold) for each of the five kinds ==
+   ``match_triples`` of the whole text, and a ``state_dict`` saved
+   mid-stream, through JSON, into a fresh matcher's stream == the unbroken
+   stream; the 1M dictionary's ``match_stream`` == 1,282,185 matches; a
+   row-compressed 55,040-class dictionary through the gold branch on 32 Mi
+   units (one cursor feed over the RowTable scan) == its device engine and,
+   on a prefix, the per-character gold loop; ``match(text, listener)`` with
+   ``False`` on the first match scans 16 Ki of the 32 Mi units;
+   ``match_readable`` over a real file; every kernel of a path was launched;
 5. times on the card with CUDA events (kernels) and the host clock
    (facade calls and stages), as GB/s = 2 x units / s, the ``bench.py``
    definition; the 1M dictionary's kernels and facade calls on 32 Mi units
-   of BASELINE config #5's word soup, and its stages.
+   of BASELINE config #5's word soup, and its stages; the sequential scan per
+   launch and per unit, each streamed kind, the gold branch and the early
+   stop; each kernel's bound (bytes over 3.35 TB/s or operations over
+   67 T/s, whichever is larger) and the compaction's library-call time.
 
 It prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -62,9 +85,12 @@ result.
 
 from __future__ import annotations
 
+import io
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -101,7 +127,14 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                     "ahocorasick_tpu/ops/scan_batched.py:459"),
     "split_emit_planes": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
                           "ahocorasick_tpu/ops/scan_batched.py:416"),
+    "seq_states": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
+                   "ahocorasick_tpu/core/stream.py:96"),
 }
+# The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate,
+# and the 32-bit rate outside the tensor cores, taken for these kernels'
+# integer lookups, shifts and adds.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_OPS_PER_S = 67e12
 DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # does not pack inline
 SHORTEST_TWIN_UNITS = 1 << 16
 # The 1M-keyword dictionary of tests/test_full_random_1m.py (seed 77) and its
@@ -152,6 +185,64 @@ def word_soup(keywords, rng, n_units: int) -> str:
     return text[:n_units]
 
 
+def make_dictionary(rng: np.random.Generator, n: int) -> list:
+    """``bench.make_dictionary``: ``n`` sorted distinct letter-frequency-weighted
+    lowercase keywords of 3-12 letters (the headline dictionary; copied so
+    that the same seed gives the same 10k dictionary)."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    freqs = np.array([8.2, 1.5, 2.8, 4.3, 12.7, 2.2, 2.0, 6.1, 7.0, 0.2, 0.8, 4.0,
+                      2.4, 6.7, 7.5, 1.9, 0.1, 6.0, 6.3, 9.1, 2.8, 1.0, 2.4, 0.2,
+                      2.0, 0.1])
+    p = freqs / freqs.sum()
+    words = set()
+    while len(words) < n:
+        length = int(rng.integers(3, 13))
+        words.add("".join(rng.choice(letters, size=length, p=p)))
+    return sorted(words)
+
+
+def english_like_keywords(rng: np.random.Generator, n: int, lo=3, hi=13) -> list:
+    """The generator of the JAX package's bench suite
+    (``ahocorasick_tpu/bench/__main__.py``), copied."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    out = set()
+    while len(out) < n:
+        out.add("".join(rng.choice(letters, size=int(rng.integers(lo, hi)))))
+    return sorted(out)
+
+
+def bench_word_soup(rng: np.random.Generator, keywords: list, n_units: int, hit_rate=0.1) -> str:
+    """The text generator of the JAX package's bench suite, copied: words of
+    the dictionary at ``hit_rate``, else random 3-10-letter words."""
+    pieces = []
+    total = 0
+    kw = list(rng.choice(keywords, size=min(512, len(keywords))))
+    letters = "abcdefghijklmnopqrstuvwxyz"
+    # total counts a trailing separator join never appends, so require one
+    # extra unit: the joined text is then always >= n_units long.
+    while total < n_units + 1:
+        if rng.random() < hit_rate:
+            w = kw[int(rng.integers(len(kw)))]
+        else:
+            w = "".join(rng.choice(list(letters), size=int(rng.integers(3, 11))))
+        pieces.append(w)
+        total += len(w) + 1
+    return " ".join(pieces)[:n_units]
+
+
+def stream_pieces(seed: int, n_units: int) -> list:
+    """Seeded uneven feed sizes summing to ``n_units``: log-uniform from 1
+    unit to 4 Mi, so that feeds fall on both sides of the streams' device
+    threshold (16 Ki units)."""
+    rng = np.random.default_rng(seed)
+    out, left = [], n_units
+    while left:
+        k = min(left, int(2 ** rng.uniform(0, 22)))
+        out.append(k)
+        left -= k
+    return out
+
+
 def fuzz_keywords(rng, alphabet: str, n: int, max_len: int):
     return sorted({"".join(rng.choice(list(alphabet), size=int(rng.integers(1, max_len + 1))))
                    for _ in range(n)})
@@ -165,19 +256,18 @@ def main() -> int:
         return 1
 
     import ahocorasick_tpu_torch as port
-    from ahocorasick_tpu.bench.__main__ import english_like_keywords
-    from ahocorasick_tpu.bench.__main__ import word_soup as bench_word_soup
-    from ahocorasick_tpu.core import gold
-    from ahocorasick_tpu.core.compiler import compile_matcher
-    from ahocorasick_tpu.native import lib as native_lib
-    from ahocorasick_tpu.resolve.wholeword import follow_chain
-    from ahocorasick_tpu.utils import chartables
     from ahocorasick_tpu_torch import convert
+    from ahocorasick_tpu_torch.core import gold
+    from ahocorasick_tpu_torch.core import stream as stream_mod
+    from ahocorasick_tpu_torch.core.compiler import compile_matcher
     from ahocorasick_tpu_torch.kernels import build, compact, scan_block, scan_dfa
     from ahocorasick_tpu_torch.kernels import scan_batched as khuge
     from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+    from ahocorasick_tpu_torch.native import build as native_build
+    from ahocorasick_tpu_torch.native import lib as native_lib
     from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
-    from bench import make_dictionary
+    from ahocorasick_tpu_torch.resolve.wholeword import follow_chain
+    from ahocorasick_tpu_torch.utils import chartables
 
     dev = torch.device("cuda")
 
@@ -195,6 +285,11 @@ def main() -> int:
     path = build.build()
     build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({path})")
+    t0 = time.perf_counter()
+    native_path = native_build.build()  # raises if g++ fails: no numpy stand-in here
+    if not native_lib.available():
+        raise RuntimeError("the port's native host library did not load")
+    print(f"native build: {time.perf_counter() - t0:.2f} s ({native_path})")
     with open(path[: -len(".so")] + ".log") as fh:
         for line in fh.read().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
@@ -435,6 +530,74 @@ def main() -> int:
     short_cls = restart._classes(text[:SHORTEST_TWIN_UNITS])
     check_shortest("10k keywords x 64 Ki units", restart.dev, short_cls)
 
+    # The sequential scan from an entry state: dense, RowTable, restart table.
+    def check_seq(label, table, row_id, cls_np, s0):
+        c = torch.from_numpy(np.ascontiguousarray(cls_np, dtype=np.int32)).to(dev)
+        got = scan_dfa.seq_states(table, row_id, c, s0)
+        t = time.perf_counter()
+        want = scan_dfa.seq_states_plain(table, row_id, c, s0)
+        torch.cuda.synchronize()
+        t_twin = time.perf_counter() - t
+        e = max_err((got,), (want,))
+        errs["seq_states"] = max(errs["seq_states"], e)
+        print(f"  seq {label}: N={len(cls_np)} s0={s0} "
+              f"{'rows ' + str(tuple(table.shape)) + ' row_id ' + str(tuple(row_id.shape)) if row_id is not None else 'dense ' + str(tuple(table.shape))} "
+              f"last state={int(want[-1])} max_abs_err={e} (twin {t_twin:.2f} s)")
+        if e:
+            raise AssertionError(f"seq {label}: kernel disagrees with its plain twin")
+        return got
+
+    dense_tab = big.dev.seq_tables
+    assert dense_tab[1] is None and dense_tab[0] is big.dev.dfa_next
+    s_mid = int(check_seq("10k dense, warm-up", *dense_tab, cls[:1000], 0)[-1]) or 1
+    for n_seq in (1, 2, 2047, 2048, 2049, 1 << 16):
+        for s0 in (0, s_mid):
+            check_seq("10k dense", *dense_tab, cls[5000: 5000 + n_seq], s0)
+
+    class NeverDense:
+        """A thresholder that keeps every table row-compressed."""
+
+        def is_over_threshold(self, size, lo, hi):
+            return False
+
+    rows_rng = np.random.default_rng(SEED + 8)
+    rows_kws = fuzz_keywords(rows_rng, "abcdef", 200, 9)
+    rows_m = port.AhoCorasickSet(rows_kws, engine="gold", device=dev, thresholder=NeverDense())
+    rows_tab = rows_m.dev.seq_tables
+    assert rows_m.compiled.is_row_compressed and rows_tab[1] is not None
+    rows_cls = rows_m._classes("".join(rows_rng.choice(list("abcdefgh "), size=1 << 16)))
+    s_mid = int(check_seq("fuzz RowTable, warm-up", *rows_tab, rows_cls[:1000], 0)[-1]) or 1
+    for n_seq in (1, 2049, 1 << 16):
+        for s0 in (0, s_mid):
+            check_seq("fuzz RowTable", *rows_tab, rows_cls[:n_seq], s0)
+    # A wide alphabet (55,040 classes): the compiler row-compresses it itself.
+    wide_ac_kws = [chr(c) for c in range(0x100, 0xD800)]
+    wide_gold = port.AhoCorasickSet(wide_ac_kws, engine="gold", device=dev)
+    assert wide_gold.compiled.is_row_compressed
+    wrng = np.random.default_rng(SEED + 9)
+
+    def wide_soup(n_units):
+        """ASCII word soup with about 1% dictionary characters."""
+        units = np.frombuffer(bench_word_soup(wrng, DEMO, n_units).encode("utf-16-le"),
+                              dtype=np.uint16).copy()
+        hits = wrng.random(n_units) < 0.01
+        units[hits] = wrng.integers(0x100, 0xD800, size=int(hits.sum()))
+        return units.tobytes().decode("utf-16-le")
+
+    wide_base = wide_soup(BASE_UNITS)
+    wide_tab = wide_gold.dev.seq_tables
+    wide_cls = wide_gold._classes(wide_base[: 1 << 16])
+    for s0 in (0, int(wide_cls[wide_cls > 0][0])):
+        check_seq("wide alphabet RowTable", *wide_tab, wide_cls, s0)
+    restart_tab = stream_mod.seq_tensors(
+        stream_mod._ShortestCursor._restart_table(short_compiled), dev)
+    got = check_seq("10k shortest restart table", *restart_tab, short_cls, 0)
+    same = scan_dfa.shortest_states(restart.dev.dfa_next, restart.dev.match_len,
+                                    scan_batched.classes_to_device(
+                                        short_cls, short_compiled.num_classes, dev))
+    if not torch.equal(got, same):
+        raise AssertionError("restart-table scan != the lagged-restart kernel's states")
+
     wwl_rng = np.random.default_rng(SEED + 3)
     for seed in range(3):
         r = np.random.default_rng(seed)
@@ -531,7 +694,8 @@ def main() -> int:
         detail = fn()
         counts = dict(port.launches)
         path_launches[label] = counts
-        print(f"path {label}: {detail}; launches {counts}")
+        print(f"path {label}: {detail}; launches "
+              f"{ {k: v for k, v in counts.items() if v} }")
         missing = [k for k in expected if counts[k] < 1]
         if missing:
             raise AssertionError(f"path {label}: {missing} never launched: {counts}")
@@ -599,8 +763,6 @@ def main() -> int:
               case_sensitive=False)
 
     def shortest_artifacts():
-        import io
-
         buf = io.BytesIO()
         matchers["ShortestMatchSet"].save(buf)
         buf.seek(0)
@@ -794,6 +956,160 @@ def main() -> int:
         return "count_packable forced False: == gold: " + ", ".join(out)
 
     run_path("split layout through the classes", ("split_count", "split_emit_planes"), split_path)
+    # Streams: each kind's cursor over the 10k dictionary and 32 Mi units fed
+    # in uneven pieces, on "auto" matchers so that small feeds take the
+    # sequential-scan kernel and large ones the planes kernels.
+    sizes = stream_pieces(SEED + 10, len(text))
+    small_feeds = sum(k < stream_mod._STREAM_DEVICE_MIN for k in sizes)
+    print(f"stream feeds: {len(sizes)} pieces of {min(sizes)}..{max(sizes)} units, "
+          f"{small_feeds} below the {stream_mod._STREAM_DEVICE_MIN}-unit device threshold")
+    if not 0 < small_feeds < len(sizes):
+        raise AssertionError("the feed sizes do not fall on both sides of the threshold")
+    stream_times = {}
+
+    def feed_all(stream, pieces, start, last):
+        """Feed ``pieces`` from text offset ``start``; flat (start, end) pairs."""
+        out, i = [], start
+        for k in pieces:
+            out.extend(stream.feed(text[i: i + k], i + k >= last))
+            i += k
+        return out
+
+    def stream_path(cls_name, make, ref, expected):
+        def drive():
+            m = make()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            got = feed_all(m.stream(), sizes, 0, len(text))
+            torch.cuda.synchronize()
+            stream_times[cls_name] = time.perf_counter() - t
+            want = np.stack([np.asarray(ref[0]), np.asarray(ref[1])], axis=1)
+            if not np.array_equal(np.asarray(got, dtype=np.int64).reshape(-1, 2), want):
+                raise AssertionError(f"{cls_name}: streamed output != match_triples "
+                                     f"({len(got)} vs {len(want)} matches)")
+            # A resume point saved mid-stream, through JSON, into a fresh
+            # matcher's stream: the same output from there on.
+            half = len(sizes) // 2
+            cut = sum(sizes[:half])
+            s1 = m.stream()
+            first = feed_all(s1, sizes[:half], 0, len(text))
+            state = json.loads(json.dumps(s1.state_dict()))
+            s2 = make().stream()
+            s2.load_state_dict(state)
+            rest = feed_all(s2, sizes[half:], cut, len(text))
+            if first + rest != got:
+                raise AssertionError(f"{cls_name}: resumed stream != unbroken stream")
+            return (f"{len(got)} matches over {len(sizes)} feeds == match_triples; resumed at "
+                    f"unit {cut} (state keys {sorted(state)}) == unbroken; "
+                    f"{stream_times[cls_name]} s ({2 * len(text) / stream_times[cls_name] / 1e9} "
+                    f"GB/s) [{smi}]")
+        run_path(f"{cls_name} stream", expected, drive)
+
+    planes_stream = ("seq_states", "packed_scan_planes", "compact_planes")
+    ac_ref = big.match_triples(text)
+    stream_path("AhoCorasickSet", lambda: port.AhoCorasickSet(keywords, device=dev), ac_ref,
+                planes_stream)
+    for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet"):
+        stream_path(k, (lambda n: lambda: getattr(port, n)(keywords, device=dev))(k),
+                    matchers[k].match_triples(text), planes_stream)
+    stream_path("WholeWordLongestMatchSet",
+                lambda: port.WholeWordLongestMatchSet(keywords, device=dev),
+                wwl_triples["scan route"], wwl_kernels)
+
+    def stream_1m_path():
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = ac1m.match_stream(io.StringIO(text1m))
+        t = time.perf_counter() - t
+        if len(got) != ONE_M["ac_count"]:
+            raise AssertionError(f"1M match_stream: {len(got)} matches != {ONE_M['ac_count']}")
+        s, e, _ = ac1m.match_triples(text1m)
+        if got != list(zip(s.tolist(), e.tolist())):
+            raise AssertionError("1M match_stream != match_triples")
+        return (f"match_stream {len(got)} matches == pinned == match_triples on {len(text1m)} "
+                f"units in {t} s [{smi}]")
+
+    run_path("AhoCorasickSet 1M keywords match_stream", ("packedcount_hotstate_plane",),
+             stream_1m_path)
+
+    # Row-compressed dictionary through the gold branch: one cursor feed over
+    # the RowTable form of the sequential scan.
+    wide_text32 = wide_base * (TEXT_UNITS // BASE_UNITS)
+    gold_times = {}
+
+    def rows_gold_path():
+        dev_m = port.AhoCorasickSet(wide_ac_kws, engine="device", device=dev)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s, e, v = wide_gold.match_triples(wide_text32)
+        gold_times["facade"] = time.perf_counter() - t
+        if wide_gold.last_stats.engine != "gold" or wide_gold.last_stats.units != len(wide_text32):
+            raise AssertionError(f"gold branch: {wide_gold.last_stats}")
+        ds, de, _ = dev_m.match_triples(wide_text32)
+        if not (np.array_equal(s, ds) and np.array_equal(e, de)) or len(s) < len(wide_text32) // 200:
+            raise AssertionError(f"gold branch != device engine ({len(s)} vs {len(ds)} matches)")
+        probe = wide_base[: 1 << 17]
+        want = [(a, b) for a, b, _ in gold.gold_match(wide_gold.compiled, probe)]
+        if wide_gold.match(probe) != want or not want:
+            raise AssertionError("gold branch != the per-character gold loop")
+        fuzz_text = "".join(rows_rng.choice(list("abcdefgh "), size=200_000))
+        want = [(a, b) for a, b, _ in gold.gold_match(rows_m.compiled, fuzz_text)]
+        if rows_m.match(fuzz_text) != want or rows_m.match_stream([fuzz_text[:999],
+                                                                    fuzz_text[999:]]) != want:
+            raise AssertionError("fuzz RowTable dictionary: gold branch or stream != gold loop")
+        return (f"{len(s)} matches on {len(wide_text32)} units == device engine, in "
+                f"{gold_times['facade']} s ({gold_times['facade'] * 1e9 / len(wide_text32)} ns/unit); "
+                f"== gold loop on {len(probe)} units; fuzz RowTable == gold loop [{smi}]")
+
+    run_path("row-compressed AhoCorasickSet, gold branch", ("seq_states",), rows_gold_path)
+
+    # match(text, listener): False on the first match stops the scan.
+    early = {}
+
+    def early_stop_path():
+        m = port.AhoCorasickSet(keywords, device=dev)
+        m.match(small, lambda t, s, e: False)  # tables uploaded, kernels loaded
+        calls = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        m.match(text, lambda t, s, e: calls.append((s, e)) or False)
+        early["stop"] = time.perf_counter() - t
+        units, delivered = m.last_stats.units, m.last_stats.matches
+        if len(calls) != 1 or delivered != 1 or not 0 < units <= 2 * m._LISTENER_CHUNK_MIN:
+            raise AssertionError(f"early stop: {len(calls)} calls, {units} units scanned")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        n_all = []
+        m.match(text, lambda t, s, e: n_all.append(e) or True)
+        early["full"] = time.perf_counter() - t
+        if m.last_stats.units != len(text) or len(n_all) != len(ac_ref[0]) or \
+                not np.array_equal(np.asarray(n_all), ac_ref[1]):
+            raise AssertionError("chunked listener scan != match_triples")
+        return (f"False on the first match: {units} of {len(text)} units scanned in "
+                f"{early['stop']} s; a listener that never stops: {len(n_all)} matches in "
+                f"{early['full']} s [{smi}]")
+
+    run_path("match(text, listener) early stop", ("packed_scan_planes",), early_stop_path)
+
+    def readable_path():
+        values = [f"v{i}" for i in range(len(keywords))]
+        mp = port.AhoCorasickMap(keywords, values, device=dev)
+        want = [v for _, _, v in mp.match(small)]
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "text.txt")
+            with open(path, "w", encoding="utf-8") as fh:
+                fh.write(small)
+            got = []
+            with open(path, encoding="utf-8") as fh:
+                mp.match_readable(fh, got.append)
+            few = []
+            with open(path, encoding="utf-8") as fh:
+                mp.match_readable(fh, lambda v: few.append(v) or len(few) < 5)
+        if got != want or not want or few != want[:5]:
+            raise AssertionError(f"match_readable != match ({len(got)} vs {len(want)} values)")
+        return f"{len(got)} values from a {len(small)}-unit file == match; False stops after 5"
+
+    run_path("AhoCorasickMap match_readable", ("packed_scan_planes",), readable_path)
     counts = {k: sum(c[k] for c in path_launches.values()) for k in KERNELS}
 
     # 5. Times.
@@ -836,6 +1152,31 @@ def main() -> int:
           f"({t_s64 * 1e6 / len(short_cls)} ns/unit), {t_s1m} ms on {len(small)} units "
           f"({t_s1m * 1e6 / len(small)} ns/unit); plain twin {t_p64} ms on {len(short_cls)} "
           f"units ({t_p64 * 1e6 / len(short_cls)} ns/unit) [{smi}]")
+
+    def int32_classes(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(dev)
+
+    q16, q64 = int32_classes(cls[: 1 << 14]), int32_classes(cls[: 1 << 16])
+    q_short = int32_classes(short_cls)
+    q_wide = int32_classes(wide_gold._classes(wide_base))
+    t_q16 = cuda_ms(lambda: scan_dfa.seq_states(*dense_tab, q16, 0), 5)
+    t_q64 = cuda_ms(lambda: scan_dfa.seq_states(*dense_tab, q64, 0), 3)
+    t_qr = cuda_ms(lambda: scan_dfa.seq_states(*restart_tab, q_short, 0), 3)
+    t_qw = cuda_ms(lambda: scan_dfa.seq_states(*wide_tab, q_wide, 0), 1)
+    t_qp = cuda_ms(lambda: scan_dfa.seq_states_plain(*dense_tab, q64, 0), 1)
+    ms["seq_states"] = (t_q64, t_qp)
+    print(f"time seq_states: dense 10k table {t_q16} ms on {len(q16)} units "
+          f"({t_q16 * 1e6 / len(q16)} ns/unit), {t_q64} ms on {len(q64)} units "
+          f"({t_q64 * 1e6 / len(q64)} ns/unit); 10k shortest restart table {t_qr} ms on "
+          f"{len(q_short)} units ({t_qr * 1e6 / len(q_short)} ns/unit); wide-alphabet RowTable "
+          f"{t_qw} ms on {len(q_wide)} units ({t_qw * 1e6 / len(q_wide)} ns/unit); plain twin "
+          f"{t_qp} ms on {len(q64)} units ({t_qp * 1e6 / len(q64)} ns/unit) [{smi}]")
+    print(f"time streams on {len(text)} units in {len(sizes)} uneven feeds: "
+          + "; ".join(f"{k} {v} s ({2 * len(text) / v / 1e9} GB/s)"
+                      for k, v in stream_times.items())
+          + f"; gold branch, wide-alphabet RowTable, {gold_times['facade']} s "
+          f"({gold_times['facade'] * 1e9 / len(text)} ns/unit); listener False on the first "
+          f"match {early['stop']} s, listener that never stops {early['full']} s [{smi}]")
 
     wd10, st10, cls_p10, lanes10, d10 = wwl_inputs(big_wwl, cls_w, sc10.num_classes)
     pargs = (sc10.table, wd10, d10, sc10.id_bits, sc10.num_classes, False)
@@ -975,6 +1316,53 @@ def main() -> int:
           f"{len(cont7)} continued on the host): "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
 
+    # Where a stream's time goes: the AC and Longest streams again, with the
+    # cursor's stages timed (each call synchronized, so the total is above
+    # the untimed run's).
+    def timed_stream(cls_name):
+        totals = {}
+        targets = [(stream_mod.StreamScanner, "_classes", "classes"),
+                   (stream_mod._CandidateSource, "candidates", "candidates"),
+                   (stream_mod._SeqScan, "states", "sequential scan (upload, kernel, download)"),
+                   (stream_mod, "expand_state_emits", "emit expansion"),
+                   (scan_batched, "chunk_classes", "windows"),
+                   (scan_batched, "ac_matches_batched",
+                    "compaction, download and native extraction")]
+        saved = []
+        for obj, attr, label in targets:
+            real = getattr(obj, attr)
+
+            def wrap(*a, _real=real, _label=label, **k):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                out = _real(*a, **k)
+                torch.cuda.synchronize()
+                totals[_label] = totals.get(_label, 0.0) + time.perf_counter() - t
+                return out
+
+            saved.append((obj, attr, real))
+            setattr(obj, attr, wrap)
+        try:
+            m = getattr(port, cls_name)(keywords, device=dev)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            n_out = len(feed_all(m.stream(), sizes, 0, len(text)))
+            total = time.perf_counter() - t
+        finally:
+            for obj, attr, real in saved:
+                setattr(obj, attr, real)
+        inside = totals.pop("candidates")
+        rest = total - inside - totals["classes"]
+        print(f"stream stages {cls_name} on {len(text)} units in {len(sizes)} feeds "
+              f"({n_out} matches): total {total} s; "
+              + "; ".join(f"{k} {v} s" for k, v in totals.items())
+              + f"; other work inside candidates (upload, planes kernel, tail filter) "
+              f"{inside - sum(v for k, v in totals.items() if k != 'classes')} s; outside it "
+              f"(text slices, tuple lists, the pending queue) {rest} s [{smi}]")
+
+    timed_stream("AhoCorasickSet")
+    timed_stream("LongestMatchSet")
+
     # The 1M dictionary's match path, stage by stage (hotstate layout).
     stages = {}
     scan_batched.host_emit_planes(c1m)  # built once per matcher, then cached
@@ -1006,10 +1394,65 @@ def main() -> int:
           f"download, {len(idx)} hot positions, {len(starts)} matches): "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
 
+    # The least time the card could take for each kernel's timed call: the
+    # bytes it must move (each streamed input read once, each output written
+    # once, at this run's sizes) over the memory rate, or its operations over
+    # the 32-bit rate, whichever is larger.  The transition tables are left
+    # out of the bytes: how much of a table a scan touches depends on the
+    # text, so the bound is a floor.
+    def nbytes(*xs):
+        total = 0
+        for x in xs:
+            for leaf in x if isinstance(x, (tuple, list)) else (x,):
+                if isinstance(leaf, torch.Tensor):
+                    total += leaf.nbytes
+        return total
+
+    chars10, chars_w, chars5 = w_full.numel(), wd10.numel(), w5.numel()
+    hot_out = compact.compact_planes(planes_full)
+    n64 = len(short_cls)
+    work = {  # name: (bytes, operations)
+        "packed_scan_count": (nbytes(w_full) + 8, 4 * chars10),
+        "packed_scan_planes": (nbytes(w_full, planes_full), 4 * chars10),
+        "compact_planes": (nbytes(planes_full, hot_out[1], hot_out[2]) + 8, planes_full.numel()),
+        "shortest_states": (nbytes(c_twin) + 4 * n64, 4 * n64),
+        "wwl_scan_plane": (nbytes(wd10, kwwl.wwl_scan_plane(*pargs)), 4 * chars_w),
+        # at least one plane word per live lane, then its outcome row
+        "wwl_sweep_at": (nbytes(st10, kwwl.wwl_sweep_at(*sargs, **skw)) + 4 * len(lanes10),
+                         6 * len(lanes10)),
+        "wwl_walks_at": (nbytes(walk_args[-3], st10, kwwl.wwl_walks_at(*walk_args)),
+                         6 * len(lanes10)),
+        "packedcount_count": (nbytes(w5) + 8, 4 * chars5),
+        "packedcount_hotstate_plane": (nbytes(w5, khuge.packedcount_hotstate_plane(*cargs)),
+                                       4 * chars5),
+        "split_count": (nbytes(w5s) + 8, 6 * chars5),
+        "split_emit_planes": (nbytes(w5s, khuge.split_emit_planes(*sargs1m)), 6 * chars5),
+        "seq_states": (8 * len(q64), 2 * len(q64)),
+    }
+    bounds = {}
+    for k, (b, ops) in work.items():
+        t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+        bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
+        print(f"bound {k}: {b} B / 3.35 TB/s = {t_bytes} ms, {ops} operations / 67 T/s = "
+              f"{t_ops} ms; kernel {ms[k][0]} ms = {ms[k][0] / bounds[k][0]} x its bound [{smi}]")
+    # One PyTorch call chain that computes the compaction (P = 1): nonzero,
+    # then a gather.  Timed here as the yardstick; the port never calls it.
+    plane0 = planes_full.view(torch.int32)[0]
+
+    def library_compact():
+        idx = torch.nonzero(plane0).squeeze(1)
+        return idx, plane0[idx]
+
+    library = dict.fromkeys(KERNELS)
+    library["compact_planes"] = cuda_ms(library_compact, 20)
+    print(f"time library compact (torch.nonzero + gather, P = 1, {plane0.numel()} positions): "
+          f"{library['compact_planes']} ms [{smi}]")
+
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": counts[k], "max_abs_err": errs[k],
-         "ms": ms[k][0], "plain_ms": ms[k][1]}
+         "ms": ms[k][0], "plain_ms": ms[k][1], "bound_ms": bounds[k][0],
+         "bound_by": bounds[k][1], "library_ms": library[k]}
         for k in KERNELS
     ]}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ import ahocorasick_tpu_torch as port
 from ahocorasick_tpu.core import artifact, gold
 from ahocorasick_tpu.core.compiler import compile_matcher
 from ahocorasick_tpu_torch.models import matchers as port_matchers
+from test_torch_host import carry
 
 CLASSES = [
     "AhoCorasickSet", "AhoCorasickMap", "LongestMatchSet", "LongestMatchMap",
@@ -122,8 +123,8 @@ def test_row_compressed_shortest_artifact_has_no_device_path(tmp_path):
     compiled = compile_matcher(KWS, "shortest", True, thresholder=_NeverDense())
     assert compiled.is_row_compressed
     with pytest.raises(ValueError, match="row-compressed shortest"):
-        port.ShortestMatchSet.from_compiled(compiled, engine="device", device="cpu")
-    auto = port.ShortestMatchSet.from_compiled(compiled, device="cpu")
+        port.ShortestMatchSet.from_compiled(carry(compiled), engine="device", device="cpu")
+    auto = port.ShortestMatchSet.from_compiled(carry(compiled), device="cpu")
     assert auto._pick_engine(1 << 20) == "gold"
     assert auto.match(TEXT) == _gold(auto, TEXT)
 

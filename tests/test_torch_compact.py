@@ -19,6 +19,7 @@ from ahocorasick_tpu_torch.kernels.build import launches
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import scan_batched as port_sb
 from ahocorasick_tpu_torch.ops import scan_dfa as port_ops_dfa
+from test_torch_host import carry
 
 
 def _planes(name):
@@ -101,7 +102,7 @@ def test_cpu_tensors_take_the_twins_not_the_kernels():
     before = dict(launches)
     compact.compact_planes(_tensor(_planes("p1_sparse")[0]))
     m = compile_matcher(["ab", "b"], "shortest", True)
-    dev = port_matchers._DeviceTables(m, torch.device("cpu"))
+    dev = port_matchers._DeviceTables(carry(m), torch.device("cpu"))
     scan_dfa.shortest_states(dev.dfa_next, dev.match_len, torch.tensor([1, 2, 0], dtype=torch.uint8))
     assert launches == before
 
@@ -125,7 +126,7 @@ def _shortest_case(name):
 def test_shortest_states_twin_equals_jax(name):
     m, cls = _shortest_case(name)
     jdev = jax_matchers._DeviceTables(m)
-    pdev = port_matchers._DeviceTables(m, torch.device("cpu"))
+    pdev = port_matchers._DeviceTables(carry(m), torch.device("cpu"))
     # The padded tables are the JAX package's, byte for byte.
     np.testing.assert_array_equal(pdev.dfa_next.numpy(), np.asarray(jdev.dfa_next))
     np.testing.assert_array_equal(pdev.match_len.numpy(), np.asarray(jdev.match_len))
@@ -153,7 +154,7 @@ def test_pad_classes_equals_jax(n, max_depth, bucket):
 @pytest.mark.parametrize("bad", ["int64_table", "short_match_len", "int64_classes", "two_dim_classes"])
 def test_shortest_states_rejects_what_the_kernel_does_not_take(bad):
     m, cls = _shortest_case("fuzz")
-    dev = port_matchers._DeviceTables(m, torch.device("cpu"))
+    dev = port_matchers._DeviceTables(carry(m), torch.device("cpu"))
     table, lens = dev.dfa_next, dev.match_len
     c = torch.from_numpy(cls.astype(np.int32))
     if bad == "int64_table":

@@ -25,6 +25,8 @@ from ahocorasick_tpu_torch.kernels import scan_batched as huge
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import dispatch as port_dispatch
 from ahocorasick_tpu_torch.ops import scan_batched as port_sb
+from ahocorasick_tpu_torch.core.compiler import compile_matcher as port_compile
+from test_torch_host import carry
 
 DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # depth 39: P = 2
 
@@ -90,16 +92,16 @@ def _gold_count(m, text):
 @pytest.mark.parametrize("name", NAMES)
 def test_layout_predicates_identical(name):
     m = _compiled(name)
-    assert port_sb.count_packable(m) == jax_sb.count_packable(m) is True
-    assert port_sb.hotstate_layout(m) == jax_sb.hotstate_layout(m) is True
-    assert port_sb.inline_packable(m) == jax_sb.inline_packable(m) is False
+    assert port_sb.count_packable(carry(m)) == jax_sb.count_packable(m) is True
+    assert port_sb.hotstate_layout(carry(m)) == jax_sb.hotstate_layout(m) is True
+    assert port_sb.inline_packable(carry(m)) == jax_sb.inline_packable(m) is False
     assert (m.num_classes > 256) == (name == "wide_deep")
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_build_count_packed_identical(name):
     m = _compiled(name)
-    got, want = port_sb.build_count_packed(m), jax_sb.build_count_packed(m)
+    got, want = port_sb.build_count_packed(carry(m)), jax_sb.build_count_packed(m)
     assert got[0].dtype == want[0].dtype == np.uint32 and got[0].ndim == 1
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
@@ -112,26 +114,26 @@ def test_build_count_packed_refuses_row_compressed():
 
     m = compile_matcher(["ab", "b"], "ac", True, thresholder=_NeverDense())
     assert m.is_row_compressed
-    assert not port_sb.count_packable(m) and not jax_sb.count_packable(m)
-    assert not port_sb.hotstate_layout(m)
+    assert not port_sb.count_packable(carry(m)) and not jax_sb.count_packable(m)
+    assert not port_sb.hotstate_layout(carry(m))
     with pytest.raises(ValueError, match="emit counts"):
-        port_sb.build_count_packed(m)
+        port_sb.build_count_packed(carry(m))
 
 
 @pytest.mark.parametrize("name", NAMES)
 def test_host_emit_planes_identical(name):
     m = _compiled(name)
-    got = port_sb.host_emit_planes(m)
+    got = port_sb.host_emit_planes(carry(m))
     want = jax_sb.host_emit_planes(m)
     assert got.dtype == want.dtype == np.uint32
     assert got.shape == want.shape == (m.num_states, (m.max_depth + 31) // 32)
     np.testing.assert_array_equal(got, want)
-    assert port_sb.host_emit_planes(m) is got  # cached
+    assert port_sb.host_emit_planes(carry(m)) is got  # cached
 
 
 def test_host_emit_planes_lru_holds_weak_references():
     port_sb._HOST_EMIT_PLANES.clear()
-    ms = [compile_matcher(["a" * i for i in range(1, 36 + k)], "ac", True) for k in range(5)]
+    ms = [port_compile(["a" * i for i in range(1, 36 + k)], "ac", True) for k in range(5)]
     for m in ms:
         port_sb.host_emit_planes(m)
     assert len(port_sb._HOST_EMIT_PLANES) == 4  # LRU of 4
@@ -163,7 +165,7 @@ def test_hotstate_sparse_identical(name, branch, monkeypatch):
     real = port_sb.planes_to_sparse
     monkeypatch.setattr(port_sb, "planes_to_sparse",
                         lambda b, k: seen.append(real(b, k)) or seen[-1])
-    idx, masks = port_sb.hotstate_sparse(m, bits, n)
+    idx, masks = port_sb.hotstate_sparse(carry(m), bits, n)
     want_idx, want_masks = jax_sb.hotstate_sparse(m, jax_bits, n)
     np.testing.assert_array_equal(idx, want_idx)
     np.testing.assert_array_equal(masks, want_masks)
@@ -178,7 +180,7 @@ def test_hotstate_sparse_identical(name, branch, monkeypatch):
 def test_device_tables_identical(name):
     m = _compiled(name)
     jt = jax_matchers._DeviceTables(m)
-    pt = port_matchers._DeviceTables(m, "cpu")
+    pt = port_matchers._DeviceTables(carry(m), "cpu")
     flat, state_bits, halo = pt.count_packed_dfa
     want_flat, want_bits, want_halo = jt.count_packed_dfa
     assert flat.dtype == torch.uint32 and flat.dim() == 1
@@ -246,7 +248,7 @@ def test_split_twins_equal_jax(name):
     np.testing.assert_array_equal(_u32(planes), want)
     assert (want[-1] != 0).any()  # the top plane carries the longest keywords
     # The planes decode to the gold matches.
-    s, e, _ = port_sb.ac_matches_batched(m, cls, planes)
+    s, e, _ = port_sb.ac_matches_batched(carry(m), cls, planes)
     assert list(zip(s.tolist(), e.tolist())) == [(a, b) for a, b, _ in gold.gold_match(m, text)]
 
 
@@ -284,17 +286,17 @@ def test_dispatch_which_equals_jax(name, split, monkeypatch):
         for mod in (port_sb, jax_sb):
             monkeypatch.setattr(mod, "count_packable", lambda m: False)
     m = _compiled(name)
-    pt, jt = port_matchers._DeviceTables(m, "cpu"), jax_matchers._DeviceTables(m)
+    pt, jt = port_matchers._DeviceTables(carry(m), "cpu"), jax_matchers._DeviceTables(m)
     for plan_fn in ("count_plan", "planes_plan"):
         got = getattr(port_dispatch, plan_fn)(m, pt)
         want = getattr(jax_dispatch, plan_fn)(m, jt)
         assert got.which == want.which and got.halo == want.halo
     want = ("split", "split") if split else ("packedcount", "hotstate")
-    assert (port_dispatch.count_plan(m, pt).which,
-            port_dispatch.planes_plan(m, pt).which) == want
+    assert (port_dispatch.count_plan(carry(m), pt).which,
+            port_dispatch.planes_plan(carry(m), pt).which) == want
     text = _text(name, 1500, 0.4, seed=4)
-    cls, _, wt = _windows(m, text, port_dispatch.count_plan(m, pt).halo, chunk=512)
-    plan = port_dispatch.count_plan(m, pt)
+    cls, _, wt = _windows(m, text, port_dispatch.count_plan(carry(m), pt).halo, chunk=512)
+    plan = port_dispatch.count_plan(carry(m), pt)
     assert int(plan.fn(plan.tables, wt)) == _gold_count(m, text)
 
 
@@ -346,7 +348,7 @@ def test_every_class_on_deep_dictionaries(name, kws):
     j = getattr(jax_pkg, name)(*args, engine="device")
     g = getattr(port, name)(*args, engine="gold", device="cpu")
     inner = p._ac.compiled if name.startswith("Shortest") else p.compiled
-    assert not port_sb.inline_packable(inner) and port_sb.hotstate_layout(inner)
+    assert not port_sb.inline_packable(carry(inner)) and port_sb.hotstate_layout(carry(inner))
     text = _class_text(kws, 3000, seed=len(name))
     want = g.match(text)
     assert p.match(text) == j.match(text) == want and len(want) > 20
@@ -358,7 +360,7 @@ def test_every_class_on_deep_dictionaries(name, kws):
 
 def test_hotstate_without_the_native_extractor(monkeypatch):
     """The numpy extraction and resolvers read the hotstate masks (P = 2)."""
-    from ahocorasick_tpu.native import lib as native_lib
+    from ahocorasick_tpu_torch.native import lib as native_lib
 
     monkeypatch.setattr(native_lib, "available", lambda: False)
     text = _class_text(DEEP, 3000, seed=6)

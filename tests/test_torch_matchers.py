@@ -10,6 +10,7 @@ import ahocorasick_tpu_torch as port
 from ahocorasick_tpu.core import gold
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import scan_batched as port_sb
+from test_torch_host import carry
 
 
 class _NeverDense:
@@ -168,8 +169,8 @@ def test_packed_overflow_dictionary_raises_not_implemented():
     assert m.count(text) == gold_m.count(text) == 440 + 1014 + 3
     assert m.last_stats.engine == "device"
     compiled = compile_matcher(DEEP, "longest", True)
-    assert not port_sb.inline_packable(compiled)
-    lm = port.LongestMatchSet.from_compiled(compiled, engine="device", device="cpu")
+    assert not port_sb.inline_packable(carry(compiled))
+    lm = port.LongestMatchSet.from_compiled(carry(compiled), engine="device", device="cpu")
     assert lm.match(text) == port.LongestMatchSet(DEEP, engine="gold", device="cpu").match(text)
     assert lm.last_stats.engine == "device"
     deep_prefix_free = ["a" * i + "b" for i in range(40)]  # the inner AC is deep too

@@ -15,6 +15,7 @@ from ahocorasick_tpu.core import gold
 from ahocorasick_tpu.utils import chartables
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import scan_batched as port_sb
+from test_torch_host import carry
 
 KINDS = ("LongestMatch", "WholeWordMatch", "ShortestMatch")
 
@@ -126,8 +127,8 @@ def test_shortest_remaps_outer_classes_to_the_inner_ac():
     survivors, _ = shortest_survivors(kws, True)
     inner = compile_matcher(survivors + ["AZ"], "ac", True)
     assert not np.array_equal(outer.charmap, inner.charmap)
-    p = port.ShortestMatchSet.from_compiled(outer, engine="device", device="cpu",
-                                            ac_compiled=inner)
+    p = port.ShortestMatchSet.from_compiled(carry(outer), engine="device", device="cpu",
+                                            ac_compiled=carry(inner))
     j = jax_pkg.ShortestMatchSet.from_compiled(outer, engine="device", ac_compiled=inner)
     assert p._cls_map is not None and p._cls_map[1] != 1
     _check(p, j, text, min_matches=20)
@@ -138,7 +139,7 @@ def test_forced_sparse_resolve(monkeypatch, kind, mode):
     kws, text = _fuzz(11, n_text=5000, noise="defghijklmnopqrstuvwxyz ")
     monkeypatch.setattr(port_sb, "_SPARSE_ON_CPU", True)
     monkeypatch.setattr(port_sb, "_SPARSE_MIN_UNITS", 1024)
-    from ahocorasick_tpu.native import lib as native_lib
+    from ahocorasick_tpu_torch.native import lib as native_lib
 
     calls = []
     real = native_lib.extract_resolve_sparse
@@ -157,7 +158,7 @@ def test_forced_sparse_resolve(monkeypatch, kind, mode):
 def test_resolve_without_the_native_library(monkeypatch, kind):
     """Without the native extractor, all candidates are extracted and
     resolved in numpy (``resolve_longest`` / ``resolve_shortest``)."""
-    from ahocorasick_tpu.native import lib as native_lib
+    from ahocorasick_tpu_torch.native import lib as native_lib
 
     kws, text = _fuzz(13, n_text=2000)
     monkeypatch.setattr(native_lib, "available", lambda: False)
@@ -220,13 +221,13 @@ def test_device_capable_is_kind_aware():
     for kind in ("ac", "longest", "whole_word", "shortest"):
         for kws, thr in ((wide, _NeverDense()), (["ab", "b"], _NeverDense()), (wide, None)):
             cases.append(compile_matcher(kws, kind, True, thresholder=thr))
-    got = [port_matchers._device_capable(m, m.kind) for m in cases]
+    got = [port_matchers._device_capable(carry(m), m.kind) for m in cases]
     want = [jax_matchers._device_capable(m, m.kind) for m in cases]
     # Dense dictionaries that do not pack inline take the count-packed,
     # hotstate or split layouts in both packages.
     assert got == want
     assert got.count(False) == 3  # ac, longest, whole_word: the wide quotient
-    deep_dense = [not m.is_row_compressed and not port_sb.inline_packable(m) for m in cases]
+    deep_dense = [not m.is_row_compressed and not port_sb.inline_packable(carry(m)) for m in cases]
     assert sum(deep_dense) == 4 and all(g for g, d in zip(got, deep_dense) if d)
     with pytest.raises(ValueError, match="too wide"):
         port.LongestMatchSet(wide, engine="device", device="cpu", thresholder=_NeverDense())

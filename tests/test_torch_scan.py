@@ -21,6 +21,7 @@ from ahocorasick_tpu.ops import scan_rowdfa
 from ahocorasick_tpu_torch.kernels import scan_block
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import scan_batched as port_sb
+from test_torch_host import carry
 
 DEMO = [
     "he", "she", "his", "hers", "the", "then", "them", "there",
@@ -65,7 +66,7 @@ def _case(name):
 
 
 def _port_scan(m, cls, chunk):
-    pd = port_matchers._DeviceTables(m, "cpu").packed_dfa
+    pd = port_matchers._DeviceTables(carry(m), "cpu").packed_dfa
     w = port_sb.chunk_classes(cls, chunk, pd.halo, m.num_classes)
     if w.dtype == np.uint16:
         wt = torch.from_numpy(w.view(np.int16)).view(torch.uint16)
@@ -127,7 +128,7 @@ def test_cpu_tensors_take_the_twin_not_the_kernel():
     before = dict(scan_block.launches)
     count, planes, _ = _port_scan(m, cls, chunk)
     assert scan_block.launches == before
-    pd = port_matchers._DeviceTables(m, "cpu").packed_dfa
+    pd = port_matchers._DeviceTables(carry(m), "cpu").packed_dfa
     w = torch.from_numpy(port_sb.chunk_classes(cls, chunk, pd.halo, m.num_classes))
     assert int(scan_block.packed_scan_count_plain(pd.table, w, pd.halo, pd.state_bits)) == count
     np.testing.assert_array_equal(
@@ -138,7 +139,7 @@ def test_cpu_tensors_take_the_twin_not_the_kernel():
                                  "strided_windows", "state_bits_too_small"])
 def test_wrapper_rejects_what_the_kernel_does_not_take(bad):
     m, cls, chunk = _case("demo")
-    pd = port_matchers._DeviceTables(m, "cpu").packed_dfa
+    pd = port_matchers._DeviceTables(carry(m), "cpu").packed_dfa
     table, halo, state_bits = pd.table, pd.halo, pd.state_bits
     w = torch.from_numpy(port_sb.chunk_classes(cls, chunk, halo, m.num_classes))
     if bad == "int32_windows":

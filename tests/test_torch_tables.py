@@ -11,6 +11,7 @@ from ahocorasick_tpu.ops import scan_batched as jax_sb
 from ahocorasick_tpu_torch import convert
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import scan_batched as port_sb
+from test_torch_host import carry
 
 
 class _NeverDense:
@@ -53,7 +54,7 @@ PACKED = ["dense", "dense_folded", "quotient", "wide"]
 def test_build_packed_identical(name):
     m = _dictionary(name)
     want = jax_sb.build_packed(m)
-    got = port_sb.build_packed(m)
+    got = port_sb.build_packed(carry(m))
     assert got.table.dtype == want.table.dtype == np.uint32
     np.testing.assert_array_equal(got.table, want.table)
     assert (got.state_bits, got.halo) == (want.state_bits, want.halo)
@@ -66,18 +67,18 @@ def test_build_packed_identical(name):
 @pytest.mark.parametrize("name", PACKED + ["split"])
 def test_inline_packable_agrees(name):
     m = _dictionary(name)
-    assert port_sb.inline_packable(m) == jax_sb.inline_packable(m)
-    assert port_sb.quotient_packable(m) == jax_sb.quotient_packable(m)
-    assert port_sb.effective_rows(m) == jax_sb.effective_rows(m)
-    assert port_sb.inline_packable(m) == (name != "split")
-    assert port_sb.count_packable(m) == jax_sb.count_packable(m) == (name != "quotient")
-    assert port_sb.hotstate_layout(m) == jax_sb.hotstate_layout(m) == (name == "split")
+    assert port_sb.inline_packable(carry(m)) == jax_sb.inline_packable(m)
+    assert port_sb.quotient_packable(carry(m)) == jax_sb.quotient_packable(m)
+    assert port_sb.effective_rows(carry(m)) == jax_sb.effective_rows(m)
+    assert port_sb.inline_packable(carry(m)) == (name != "split")
+    assert port_sb.count_packable(carry(m)) == jax_sb.count_packable(m) == (name != "quotient")
+    assert port_sb.hotstate_layout(carry(m)) == jax_sb.hotstate_layout(m) == (name == "split")
 
 
 @pytest.mark.parametrize("name", ["dense", "wide", "split"])
 def test_build_count_packed_identical(name):
     m = _dictionary(name)
-    got, want = port_sb.build_count_packed(m), jax_sb.build_count_packed(m)
+    got, want = port_sb.build_count_packed(carry(m)), jax_sb.build_count_packed(m)
     assert got[0].dtype == want[0].dtype == np.uint32
     np.testing.assert_array_equal(got[0], want[0])
     assert got[1:] == want[1:]
@@ -90,7 +91,7 @@ def test_build_count_packed_identical(name):
 def test_padded_packed_dfa_identical(name):
     m = _dictionary(name)
     want = jax_matchers._DeviceTables(m).packed_dfa
-    got = port_matchers._DeviceTables(m, "cpu").packed_dfa
+    got = port_matchers._DeviceTables(carry(m), "cpu").packed_dfa
     assert got.table.dtype == torch.uint32
     np.testing.assert_array_equal(got.table.numpy(), np.asarray(want.table))
     assert (got.state_bits, got.halo) == (want.state_bits, want.halo)

@@ -26,6 +26,7 @@ from ahocorasick_tpu_torch.kernels import scan_wwl as kernels
 from ahocorasick_tpu_torch.kernels.build import launches
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import scan_wwl as port_wwl
+from test_torch_host import carry
 
 WWL = "whole_word_longest"
 
@@ -117,16 +118,16 @@ def layout(request, monkeypatch):
 def test_applicability_agrees(name):
     m, _ = _dictionary(name)
     for fn in ("word_uniform_trie", "scan_applicable", "mixed_scan_applicable"):
-        assert getattr(port_wwl, fn)(m) == getattr(jax_wwl, fn)(m), fn
-    assert port_wwl.scan_applicable(m) == (name in SCAN)
-    assert port_wwl.mixed_scan_applicable(m) == (name in MIXED)
+        assert getattr(port_wwl, fn)(carry(m)) == getattr(jax_wwl, fn)(m), fn
+    assert port_wwl.scan_applicable(carry(m)) == (name in SCAN)
+    assert port_wwl.mixed_scan_applicable(carry(m)) == (name in MIXED)
     assert m.is_row_compressed == (name in ("fullnode", "quotient", "mixed_quotient"))
 
 
 @pytest.mark.parametrize("name", ALL)
 def test_scan_tables_identical(name, layout):
     m, _ = _dictionary(name)
-    want, got = _build(jax_wwl, m), _build(port_wwl, m)
+    want, got = _build(jax_wwl, m), _build(port_wwl, carry(m))
     assert got._fields == want._fields
     for field, w, g in zip(want._fields, want, got):
         if isinstance(w, np.ndarray):
@@ -144,7 +145,7 @@ def test_scan_tables_identical(name, layout):
 def test_truncated_closures_identical(name):
     m, _ = _dictionary(name)
     for fn in ("_truncated_closure_dense", "_truncated_closure"):
-        for w, g in zip(getattr(jax_wwl, fn)(m), getattr(port_wwl, fn)(m)):
+        for w, g in zip(getattr(jax_wwl, fn)(m), getattr(port_wwl, fn)(carry(m))):
             assert g.dtype == w.dtype
             np.testing.assert_array_equal(g, w, err_msg=fn)
 
@@ -155,7 +156,7 @@ def test_compact_lanes_identical(n, text_start):
     m, text = _dictionary("dense")
     cls = m.charmap[chartables.to_utf16_units((text * 2)[:n])]
     want = jax_wwl.compact_lanes(m, cls, text_start=text_start)
-    got = port_wwl.compact_lanes(m, cls, text_start=text_start)
+    got = port_wwl.compact_lanes(carry(m), cls, text_start=text_start)
     for w, g in zip(want[:4], got[:4]):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
@@ -166,9 +167,9 @@ def test_compact_lanes_identical(n, text_start):
 @pytest.mark.parametrize("name", ["mixed", "mixed_quotient", "dense"])
 def test_host_walks_at_identical(name):
     m, text = _dictionary(name)
-    cls_p, starts, lanes, ws, d = port_wwl.compact_lanes(m, m.charmap[chartables.to_utf16_units(text)])
+    cls_p, starts, lanes, ws, d = port_wwl.compact_lanes(carry(m), m.charmap[chartables.to_utf16_units(text)])
     for w, g in zip(jax_wwl.host_walks_at(m, cls_p, starts, d),
-                    port_wwl.host_walks_at(m, cls_p, starts, d)):
+                    port_wwl.host_walks_at(carry(m), cls_p, starts, d)):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
 
@@ -176,7 +177,7 @@ def test_host_walks_at_identical(name):
 def test_walk_tables_identical():
     m, _ = _dictionary("mixed")
     want = jax_matchers._DeviceTables(m)
-    got = port_matchers._DeviceTables(m, "cpu").wwl_walk
+    got = port_matchers._DeviceTables(carry(m), "cpu").wwl_walk
     names = ("trie_next", "own_len", "own_val", "fail_len", "fail_off", "fail_val",
              "class_is_word")
     for name, g in zip(names, got):
@@ -303,7 +304,7 @@ def test_walks_every_position_twin_equals_jax(name):
 
 def test_wrappers_reject_bad_inputs():
     m, _ = _dictionary("dense")
-    sc = convert.wwl_scan_from_numpy(port_wwl.build_wwl_scan(m), "cpu")
+    sc = convert.wwl_scan_from_numpy(port_wwl.build_wwl_scan(carry(m)), "cpu")
     w = torch.zeros((2, 520), dtype=torch.uint8)
     with pytest.raises(TypeError, match="windows"):
         kernels.wwl_scan_plane(sc.table, w.to(torch.int64), 8, sc.id_bits, sc.num_classes, False)
@@ -322,7 +323,7 @@ def test_wrappers_reject_bad_inputs():
                                 id_bits=sc.id_bits, depth_bits=sc.depth_bits,
                                 num_classes=sc.num_classes, d=8, row_layout=False,
                                 quotient=False)
-    walk = port_matchers._DeviceTables(m, "cpu").wwl_walk
+    walk = port_matchers._DeviceTables(carry(m), "cpu").wwl_walk
     with pytest.raises(TypeError, match="class_is_word"):
         kernels.wwl_walks_at(*walk[:6], walk[6][:3], w[0], starts, 4)
 
@@ -390,7 +391,7 @@ def test_wwl_equals_jax_device_and_gold(seed, is_map, monkeypatch):
 def test_routes_equal_jax_and_gold(name, route, layout, monkeypatch):
     taken = _routes(monkeypatch)
     m, text = _dictionary(name)
-    p = port.WholeWordLongestMatchSet.from_compiled(m, engine="device", device="cpu")
+    p = port.WholeWordLongestMatchSet.from_compiled(carry(m), engine="device", device="cpu")
     j = jax_pkg.WholeWordLongestMatchSet.from_compiled(m, engine="device")
     _check(p, j, text, min_matches=5)
     assert taken == [route]
@@ -400,7 +401,7 @@ def test_routes_equal_jax_and_gold(name, route, layout, monkeypatch):
     # The walk route, called directly, gives the same triples on dense tries.
     if not m.is_row_compressed:
         cls = p._classes(text)
-        s, e, _ = p._walk_triples(port_wwl.compact_lanes(m, cls), len(cls))
+        s, e, _ = p._walk_triples(port_wwl.compact_lanes(carry(m), cls), len(cls))
         assert list(zip(s.tolist(), e.tolist())) == _gold(p, text)
 
 
