@@ -34,6 +34,8 @@ from ahocorasick_tpu_torch.utils import chartables
 from ahocorasick_tpu_torch.utils.chartables import default_word_chars
 from ahocorasick_tpu_torch.utils.thresholds import RangeNodeThreshold, Thresholder
 
+__version__ = "0.5.0"  # the JAX package's, whose API this port follows
+
 __all__ = [
     "AhoCorasickSet",
     "AhoCorasickMap",

@@ -1,5 +1,6 @@
 // Whole-word-longest scan engine for Hopper (sm_90a): the packed DFA scan
-// plane and the die sweep with walk outcomes at the requested starts, behind
+// plane and the die sweep with walk outcomes at the requested starts or at
+// every position, behind
 // a plain C interface loaded with ctypes (ahocorasick_tpu_torch/kernels/
 // build.py builds it, kernels/scan_wwl.py binds it).
 //
@@ -8,7 +9,9 @@
 // lax.scan that writes the packed entry of every position, a sweep over d+1
 // shifted slices of that plane for every position, a compaction to the walk
 // starts (the v5e row-gather trick _plane_take, not carried over) and the
-// outcome-row gather.
+// outcome-row gather.  And wwl_scan_walks_all (:1117-1155), the same core
+// with the outcome-row gather at every position 0 .. n_keep-1, which the
+// sharded scanner runs per shard: wwl_sweep_all.
 //
 // What it computes.  Table entries pack
 //     id | depth << id_bits | word << (id_bits + depth_bits)
@@ -26,7 +29,9 @@
 // rows_flat[entry[w+k_die-1]]; the root when k_die = 0), and applies the
 // outcome rules of WholeWordLongestMatchSet.java:65-94 to its outrows row.
 // A start outside [0, L), L = B*C - (d+1), reads a zero sweep word, as the
-// JAX engine's zero-padded plane gives padded start slots.
+// JAX engine's zero-padded plane gives padded start slots.  wwl_sweep_all:
+// thread i is the walk from position i (no starts array: it would be an
+// arange of 4*n_keep bytes read for nothing); n_keep <= L.
 //
 // What bounds it on the H100.  The plane kernel is the packed-scan kernel's
 // chain: one table load per char whose address depends on the previous one,
@@ -40,8 +45,12 @@
 // design does about it: the state and the sweep live in registers, tables
 // are read through the read-only path (__ldg), flat indices are 64-bit, the
 // sweep stops at the die step, and the plane is written once and read back
-// only at the starts.  Fusing the sweep into the scan, staging the table in
-// shared memory and coalescing the window loads are later work.
+// only at the starts.  The every-position sweep is bound by bytes: it reads
+// the plane once (neighbouring threads read neighbouring words, and the d+1
+// words of a walk overlap its neighbours', so they come from L1) and writes
+// four int32 and one or two bool planes.  Fusing the sweep into the scan,
+// staging the table in shared memory and coalescing the window loads are
+// later work.
 
 #include <cstdint>
 
@@ -75,17 +84,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-__global__ void __launch_bounds__(kThreads)
-    sweep_kernel(const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
-                 const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows,
-                 const int32_t* __restrict__ starts, int64_t num_starts, int64_t live, int d,
-                 int id_bits, int depth_bits, int cross, int32_t* __restrict__ die_pos,
-                 bool* __restrict__ has, int32_t* __restrict__ m_start,
-                 int32_t* __restrict__ m_end, int32_t* __restrict__ m_val,
-                 bool* __restrict__ cont) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= num_starts) return;
-  const int32_t w = starts[i];
+// One walk: the die sweep from start `w`, the pre-die state and the outcome
+// rules, written to slot `i` of the outputs.
+__device__ __forceinline__ void sweep_one(
+    const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
+    const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows, int64_t i,
+    int32_t w, int64_t live, int d, int id_bits, int depth_bits, int cross,
+    int32_t* __restrict__ die_pos, bool* __restrict__ has, int32_t* __restrict__ m_start,
+    int32_t* __restrict__ m_end, int32_t* __restrict__ m_val, bool* __restrict__ cont) {
   const uint32_t idmask = (1u << id_bits) - 1u;
   const uint32_t dmask = (1u << depth_bits) - 1u;
   int32_t kd = 0;
@@ -123,11 +129,40 @@ __global__ void __launch_bounds__(kThreads)
   if (cont != nullptr) cont[i] = crossed;
 }
 
+__global__ void __launch_bounds__(kThreads)
+    sweep_kernel(const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
+                 const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows,
+                 const int32_t* __restrict__ starts, int64_t num_starts, int64_t live, int d,
+                 int id_bits, int depth_bits, int cross, int32_t* __restrict__ die_pos,
+                 bool* __restrict__ has, int32_t* __restrict__ m_start,
+                 int32_t* __restrict__ m_end, int32_t* __restrict__ m_val,
+                 bool* __restrict__ cont) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= num_starts) return;
+  sweep_one(plane, entry, rows_flat, outrows, i, starts[i], live, d, id_bits, depth_bits, cross,
+            die_pos, has, m_start, m_end, m_val, cont);
+}
+
+// The sweep at every position 0 .. n_keep-1: a thread's start is its own
+// index, so no starts array is read.
+__global__ void __launch_bounds__(kThreads)
+    sweep_all_kernel(const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
+                     const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows,
+                     int64_t n_keep, int64_t live, int d, int id_bits, int depth_bits, int cross,
+                     int32_t* __restrict__ die_pos, bool* __restrict__ has,
+                     int32_t* __restrict__ m_start, int32_t* __restrict__ m_end,
+                     int32_t* __restrict__ m_val, bool* __restrict__ cont) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= n_keep) return;
+  sweep_one(plane, entry, rows_flat, outrows, i, static_cast<int32_t>(i), live, d, id_bits,
+            depth_bits, cross, die_pos, has, m_start, m_end, m_val, cont);
+}
+
 unsigned grid_for(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
 }  // namespace
 
-// Both entry points return cudaGetLastError() after the launch (0 = the
+// The entry points return cudaGetLastError() after the launch (0 = the
 // launch was accepted).  The caller validates shapes and types and launches
 // only non-empty work.  class_bytes selects the uint8 (1), uint16 (2) or
 // int32 (4) window instantiation; `stride` is the table's row length (the
@@ -181,5 +216,26 @@ extern "C" int wwl_sweep_at(const void* plane, const void* entry, const void* ro
       static_cast<const int32_t*>(starts), num_starts, live, d, id_bits, depth_bits, cross,
       static_cast<int32_t*>(die_pos), static_cast<bool*>(has), static_cast<int32_t*>(m_start),
       static_cast<int32_t*>(m_end), static_cast<int32_t*>(m_val), static_cast<bool*>(cont));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The sweep at every position 0 .. n_keep-1 of the plane (n_keep <= live, so
+// every start reads d+1 real plane words); outputs have n_keep slots.
+extern "C" int wwl_sweep_all(const void* plane, const void* entry, const void* rows_flat,
+                             const void* outrows, int64_t n_keep, int64_t live, int d,
+                             int id_bits, int depth_bits, int cross, void* die_pos, void* has,
+                             void* m_start, void* m_end, void* m_val, void* cont, int device,
+                             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_keep < 1 || n_keep > live || live > 2147483647 || d < 0 ||
+      (entry == nullptr) != (rows_flat == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  sweep_all_kernel<<<grid_for(n_keep), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(plane), static_cast<const int32_t*>(entry),
+      static_cast<const int32_t*>(rows_flat), static_cast<const int32_t*>(outrows), n_keep, live,
+      d, id_bits, depth_bits, cross, static_cast<int32_t*>(die_pos), static_cast<bool*>(has),
+      static_cast<int32_t*>(m_start), static_cast<int32_t*>(m_end), static_cast<int32_t*>(m_val),
+      static_cast<bool*>(cont));
   return static_cast<int>(cudaGetLastError());
 }

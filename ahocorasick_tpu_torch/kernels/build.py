@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
     for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
-                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu")
+                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu")
 )
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
@@ -50,6 +50,10 @@ launches = {
     "split_count": 0,
     "split_emit_planes": 0,
     "seq_states": 0,
+    "wwl_sweep_all": 0,
+    "state_maps": 0,
+    "entry_fold": 0,
+    "rescan": 0,
 }
 
 
@@ -95,6 +99,18 @@ ARGTYPES = {
                      _P, _P, _P, _P, _P, _I, _P],
     # (table, row_id or null, cls, n, num_classes, s0, out, device, stream)
     "seq_states": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    # (plane, entry, rows_flat, outrows, n_keep, live, d, id_bits, depth_bits,
+    #  cross, die_pos, has, m_start, m_end, m_val, cont, device, stream)
+    "wwl_sweep_all": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
+                      _P, _P, _P, _P, _P, _P, _I, _P],
+    # (table, cls, num_chunks, chunk_len, num_states, num_classes, sigma,
+    #  device, stream)
+    "state_maps": [_P, _P, _I64, _I64, _I64, _I, _P, _I, _P],
+    # (sigma, num_chunks, num_states, s0, entry, device, stream)
+    "entry_fold": [_P, _I64, _I64, _I, _P, _I, _P],
+    # (table, cls, entry, num_chunks, chunk_len, num_classes, out, device,
+    #  stream)
+    "rescan": [_P, _P, _P, _I64, _I64, _I, _P, _I, _P],
 }
 
 _lib = None

@@ -1,7 +1,7 @@
 """Whole-word-longest walk outcomes: the Hopper kernels and their plain
 PyTorch twins.
 
-Three kernels (``csrc/wwl_scan.cu``, ``csrc/wwl_walk.cu``):
+Four kernels (``csrc/wwl_scan.cu``, ``csrc/wwl_walk.cu``):
 
 * ``wwl_scan_plane(table, windows, halo, id_bits, num_classes, quotient)``
   scans ``chunk_classes`` windows over the packed
@@ -12,13 +12,17 @@ Three kernels (``csrc/wwl_scan.cu``, ``csrc/wwl_walk.cu``):
 * ``wwl_sweep_at(plane, entry, rows_flat, outrows, starts, ...)`` runs the
   die sweep ``k_die(w) = min{k >= 0 : depth[w + k] <= k}`` at each start and
   applies the outcome rules to the pre-die state's ``outrows`` row;
+* ``wwl_sweep_all(plane, entry, rows_flat, outrows, n_keep, ...)`` is that
+  sweep at every position ``0 .. n_keep - 1``, which the sharded scanner runs
+  on each shard;
 * ``wwl_walks_at(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
   class_is_word, cls_padded, starts, max_depth)`` walks the trie from each
   start for at most ``max_depth + 1`` steps (dead = ``trie_next.shape[0] -
   1``) and applies the same rules.
 
 Together they replace the JAX package's ``ops/scan_wwl.py`` ``wwl_scan_walks``
-(with ``_wwl_core``) and ``wwl_walks_at`` / ``wwl_walks``.  The outputs are
+(with ``_wwl_core``), ``wwl_scan_walks_all`` and ``wwl_walks_at`` /
+``wwl_walks``.  The outputs are
 the JAX contract: ``(die_pos, has, m_start, m_end, m_val)``, int32 with
 ``has`` bool, plus ``cont`` (bool) from the sweep when ``cross``.  A start at
 or past ``L = B*C - (d + 1)`` reads a zero sweep word (``k_die = 0``, a
@@ -161,11 +165,7 @@ def wwl_scan_plane_plain(table, windows, halo, id_bits, num_classes, quotient):
 # ------------------------------------------------------------- die sweep (B11)
 
 
-def wwl_sweep_at(plane: torch.Tensor, entry: Optional[torch.Tensor],
-                 rows_flat: Optional[torch.Tensor], outrows: torch.Tensor,
-                 starts: torch.Tensor, *, d: int, id_bits: int, depth_bits: int, cross: bool):
-    """Walk outcomes at ``starts`` from a ``wwl_scan_plane`` plane; quotient
-    tables pass its ``entry`` plane and ``rows_flat`` (both or neither)."""
+def _check_sweep_args(plane, entry, rows_flat, outrows, d, id_bits, depth_bits, cross):
     if plane.dtype != torch.uint32 or plane.dim() != 1:
         raise TypeError(f"plane must be uint32[N], got {plane.dtype}{tuple(plane.shape)}")
     if (entry is None) != (rows_flat is None):
@@ -176,12 +176,20 @@ def wwl_sweep_at(plane: torch.Tensor, entry: Optional[torch.Tensor],
     _check_int32("outrows", outrows, None)
     if outrows.dim() != 2 or outrows.shape[1] != 8:
         raise TypeError(f"outrows must be int32[S, 8], got {tuple(outrows.shape)}")
+    if d < 0 or not 1 <= id_bits <= 30 or not 1 <= depth_bits or id_bits + depth_bits + 1 + cross > 32:
+        raise ValueError(f"bad d={d}, id_bits={id_bits}, depth_bits={depth_bits}")
+
+
+def wwl_sweep_at(plane: torch.Tensor, entry: Optional[torch.Tensor],
+                 rows_flat: Optional[torch.Tensor], outrows: torch.Tensor,
+                 starts: torch.Tensor, *, d: int, id_bits: int, depth_bits: int, cross: bool):
+    """Walk outcomes at ``starts`` from a ``wwl_scan_plane`` plane; quotient
+    tables pass its ``entry`` plane and ``rows_flat`` (both or neither)."""
+    _check_sweep_args(plane, entry, rows_flat, outrows, d, id_bits, depth_bits, cross)
     _check_int32("starts", starts, None)
     if starts.dim() != 1:
         raise TypeError(f"starts must be int32[W], got {tuple(starts.shape)}")
     dev = _same_device(*[t for t in (plane, entry, rows_flat, outrows, starts) if t is not None])
-    if d < 0 or not 1 <= id_bits <= 30 or not 1 <= depth_bits or id_bits + depth_bits + 1 + cross > 32:
-        raise ValueError(f"bad d={d}, id_bits={id_bits}, depth_bits={depth_bits}")
     if dev.type == "cpu":
         return wwl_sweep_at_plain(plane, entry, rows_flat, outrows, starts, d=d, id_bits=id_bits,
                                   depth_bits=depth_bits, cross=cross)
@@ -228,6 +236,46 @@ def wwl_sweep_at_plain(plane, entry, rows_flat, outrows, starts, *, d, id_bits, 
     o = outrows.to(torch.int64)[s_last]
     outs = _outcomes(o[:, 0], o[:, 1], o[:, 2], o[:, 3], o[:, 4], w + kd, dw.bool())
     return outs + (cx.bool(),) if cross else outs
+
+
+# ------------------------------------------------- every-position sweep (B12)
+
+
+def wwl_sweep_all(plane: torch.Tensor, entry: Optional[torch.Tensor],
+                  rows_flat: Optional[torch.Tensor], outrows: torch.Tensor, n_keep: int, *,
+                  d: int, id_bits: int, depth_bits: int, cross: bool):
+    """Walk outcomes at every position ``0 .. n_keep - 1`` of a
+    ``wwl_scan_plane`` plane (the thread's own index is its start, so no
+    starts array is read).  ``n_keep`` may not pass ``len(plane) - (d + 1)``:
+    every walk then reads ``d + 1`` real plane words."""
+    _check_sweep_args(plane, entry, rows_flat, outrows, d, id_bits, depth_bits, cross)
+    n_keep = int(n_keep)
+    live = plane.shape[0] - (d + 1)
+    if not 0 <= n_keep <= max(live, 0):
+        raise ValueError(f"n_keep={n_keep} outside [0, {live}]: the plane of {plane.shape[0]} "
+                         f"words must extend d + 1 = {d + 1} past the last start")
+    dev = _same_device(*[t for t in (plane, entry, rows_flat, outrows) if t is not None])
+    if dev.type == "cpu":
+        return wwl_sweep_all_plain(plane, entry, rows_flat, outrows, n_keep, d=d,
+                                   id_bits=id_bits, depth_bits=depth_bits, cross=cross)
+    outs = _empty_outcomes(n_keep, dev, cross)
+    if n_keep == 0:
+        return outs
+    ptr = lambda t: None if t is None else t.data_ptr()
+    build.call("wwl_sweep_all", plane.data_ptr(), ptr(entry), ptr(rows_flat), outrows.data_ptr(),
+               n_keep, live, d, id_bits, depth_bits, int(cross),
+               *(t.data_ptr() for t in outs[:5]), ptr(outs[5] if cross else None),
+               dev.index, _stream(dev))
+    launches["wwl_sweep_all"] += 1
+    return outs
+
+
+def wwl_sweep_all_plain(plane, entry, rows_flat, outrows, n_keep, *, d, id_bits, depth_bits,
+                        cross):
+    """The plain twin: ``wwl_sweep_at_plain`` over ``arange(n_keep)``."""
+    starts = torch.arange(n_keep, dtype=torch.int32, device=plane.device)
+    return wwl_sweep_at_plain(plane, entry, rows_flat, outrows, starts, d=d, id_bits=id_bits,
+                              depth_bits=depth_bits, cross=cross)
 
 
 # ------------------------------------------------------ per-start walk (B13)

@@ -539,7 +539,22 @@ class _Matcher:
 class _PfacEngine(_Matcher):
     """All-candidates scan: END-indexed emit planes (or the hotstate plane of
     a huge dictionary) from the kernel ``ops/dispatch.planes_plan`` picks,
-    hot positions compacted on the device, native extraction."""
+    hot positions compacted on the device, native extraction.
+
+    ``device_engine`` keeps the JAX package's knob for its callers:
+    ``"rowdfa"`` (the default), ``"batched"``, ``"batched2"`` and ``"pfac2"``
+    are accepted and select nothing, since the port has one kernel family
+    and every name gives the same output; any other value raises at scan
+    time."""
+
+    device_engine = "rowdfa"
+    _DEVICE_ENGINES = ("rowdfa", "batched", "batched2", "pfac2")
+
+    def _check_device_engine(self) -> None:
+        if self.device_engine not in self._DEVICE_ENGINES:
+            raise ValueError(
+                f"unknown device_engine {self.device_engine!r}; expected one of "
+                f"{self._DEVICE_ENGINES}")
 
     def _candidates(self, cls: np.ndarray):
         bits, layout = self._end_planes(cls)
@@ -550,6 +565,7 @@ class _PfacEngine(_Matcher):
         ``uint32[P, >=len(cls)]`` with layout ``"planes"``, or the packed
         (state, count) plane with layout ``"hotstate"`` (huge
         dictionaries)."""
+        self._check_device_engine()
         plan = dispatch.planes_plan(self.compiled, self.dev)
         bits = plan.fn(plan.tables, self._windows(cls, plan.halo))
         return bits, ("hotstate" if plan.which == "hotstate" else "planes")
@@ -585,6 +601,7 @@ class AhoCorasickSet(_PfacEngine):
         return n
 
     def _device_count(self, cls: np.ndarray):
+        self._check_device_engine()
         plan = dispatch.count_plan(self.compiled, self.dev)
         return plan.fn(plan.tables, self._windows(cls, plan.halo))
 

@@ -497,6 +497,22 @@ def wwl_scan_walks(table, rows_flat, outrows, windows, starts, *, halo: int, id_
                                 d=d, id_bits=id_bits, depth_bits=depth_bits, cross=cross)
 
 
+def wwl_scan_walks_all(table, rows_flat, outrows, windows, *, halo: int, id_bits: int,
+                       depth_bits: int, num_classes: int, d: int, row_layout: bool,
+                       quotient: bool, n_keep: int, cross: bool = False):
+    """Walk outcomes for every position ``0 .. n_keep - 1`` in flat text
+    order (the JAX ``wwl_scan_walks_all`` contract): ``(die_pos, has,
+    m_start, m_end, m_val)``, each ``[n_keep]``, plus ``cont`` with
+    ``cross``.  The windows must cover ``d + 1`` units past the last kept
+    position.  The sharded scanner runs this on each shard: per-position
+    outputs avoid ragged per-shard word-start plumbing."""
+    if row_layout != (table.dim() == 2):
+        raise ValueError(f"row_layout={row_layout} but the table has shape {tuple(table.shape)}")
+    plane, entry = kernels.wwl_scan_plane(table, windows, halo, id_bits, num_classes, quotient)
+    return kernels.wwl_sweep_all(plane, entry, rows_flat if quotient else None, outrows, n_keep,
+                                 d=d, id_bits=id_bits, depth_bits=depth_bits, cross=cross)
+
+
 def scan_walks(sc: WwlScan, cls_p: np.ndarray, starts: np.ndarray, d: int, device):
     """The scan engine for the given starts: windows of ``cls_p`` with a
     ``d``-unit halo uploaded narrow, then ``wwl_scan_walks``."""

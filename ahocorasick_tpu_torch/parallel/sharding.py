@@ -1,0 +1,599 @@
+"""Data-parallel sharded scanning — the port of the data-parallel half of
+``ahocorasick_tpu/parallel/sharding.py``.
+
+The corpus is sharded across the devices of a mesh; the compiled tables are
+replicated (they are read-only and small next to the text).  A scan lane
+reads at most ``max_depth`` classes beside its own shard, so the only
+dependency between shards is a halo of the neighbour's classes; the first
+shard's missing left halo and the last shard's missing right halo are zeros,
+which is exactly ``PAD_CLASS``.  Counts reduce with a sum; planes stay
+shard-local and are concatenated in text order, so global offsets are just
+shard offsets (matches are chunk-local once the entry state is known,
+``AhoCorasickMap.java:208-275``).
+
+Where the JAX module runs ``shard_map`` bodies over a ``Mesh`` with
+``ppermute`` / ``psum`` / ``all_gather``, the port runs one plain per-shard
+function per rank over the existing kernels, in either of two forms:
+
+* **a mesh**: an ordered list of ``torch.device``, in which a device may
+  appear more than once (``[torch.device("cuda:0")] * 8`` runs eight shards
+  on one card; the CPU tests pass ``[torch.device("cpu")] * 8``).  One
+  process drives every shard; halos are slices of the neighbour's shard
+  copied to this shard's device, the reduction is a sum of the per-shard
+  counts and the gather a concatenation.  Tables are uploaded once per
+  distinct device;
+* **a process group** (``group=``, one rank per process under
+  ``torch.distributed``: gloo on the CPU, NCCL over several GPUs): every rank
+  calls the same function with the same host classes, takes its own shard on
+  its own device, fetches its halos with ``batch_isend_irecv`` and reduces
+  with ``all_reduce`` / ``all_gather``; every rank returns the full result.
+  Only the gloo form has been run; NCCL at world > 1 is unverified.
+
+The table-sharded (state-sharded) scanner of the JAX module is not ported
+here.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence
+
+import numpy as np
+import torch
+
+from ahocorasick_tpu_torch.core import stream as core_stream
+from ahocorasick_tpu_torch.kernels import stitch as stitch_kernels
+from ahocorasick_tpu_torch.models.matchers import _DeviceTables, _device_capable
+from ahocorasick_tpu_torch.ops import dispatch, scan_batched, scan_wwl
+from ahocorasick_tpu_torch.resolve.parallel import (
+    resolve_longest_sharded,
+    resolve_shortest_sharded,
+)
+from ahocorasick_tpu_torch.resolve.wholeword import boundary_filter, follow_chain, word_starts
+
+
+def data_mesh(devices=None) -> List[torch.device]:
+    """The mesh: ``devices`` as ``torch.device``s in rank order, by default
+    every visible CUDA device (raises without CUDA)."""
+    if devices is None:
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "CUDA is not available; pass the mesh's devices, e.g. "
+                "[torch.device('cpu')] * 8")
+        devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    mesh = [_indexed(torch.device(d)) for d in devices]
+    if not mesh:
+        raise ValueError("a mesh needs at least one device")
+    return mesh
+
+
+def _indexed(dev: torch.device) -> torch.device:
+    """``cuda`` -> ``cuda:<current>``, so that equal devices compare equal."""
+    if dev.type == "cuda" and dev.index is None:
+        return torch.device("cuda", torch.cuda.current_device())
+    return dev
+
+
+def _tables_on(matcher, device: torch.device) -> _DeviceTables:
+    """The matcher's device tables on ``device``: its own cache when that is
+    its device, else one more cache per distinct device, kept on the
+    matcher's."""
+    device = _indexed(device)
+    if device == _indexed(matcher.device):
+        return matcher.dev
+    key = ("shard_tables", str(device))
+    if key not in matcher.dev._cache:
+        matcher.dev._cache[key] = _DeviceTables(matcher.compiled, device)
+    return matcher.dev._cache[key]
+
+
+# --------------------------------------------------------------- the shards
+
+
+def _signed(t: torch.Tensor) -> torch.Tensor:
+    """uint16 classes as their int16 bits: slicing, concatenation and copies
+    between devices and processes move the same bytes under either type."""
+    return t.view(torch.int16) if t.dtype == torch.uint16 else t
+
+
+def _cat(parts: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([_signed(p) for p in parts]).view(parts[0].dtype)
+
+
+def _left_halo(shards: Sequence[torch.Tensor], rank: int, halo: int) -> torch.Tensor:
+    """Last ``halo`` classes of the left neighbour's shard on this shard's
+    device (zeros before the start)."""
+    mine = shards[rank]
+    if rank == 0:
+        return torch.zeros(halo, dtype=mine.dtype, device=mine.device)
+    src = shards[rank - 1]
+    return _signed(src)[src.shape[0] - halo :].to(mine.device).view(mine.dtype)
+
+
+def _right_halo(shards: Sequence[torch.Tensor], rank: int, halo: int) -> torch.Tensor:
+    """First ``halo`` classes of the right neighbour's shard on this shard's
+    device (zeros past the end)."""
+    mine = shards[rank]
+    if rank == len(shards) - 1:
+        return torch.zeros(halo, dtype=mine.dtype, device=mine.device)
+    return _signed(shards[rank + 1])[:halo].to(mine.device).view(mine.dtype)
+
+
+def _chunk_for(halo: int, chunk: int) -> int:
+    """Window chunk length >= halo (multiples of the base chunk).
+
+    The overlapped-window construction below requires halo <= chunk;
+    split/hotstate-layout dictionaries can have halo (= max keyword
+    length) beyond the 512 base, so the sharded scans widen the chunk
+    instead of silently clamping the warmup."""
+    return max(chunk, -(-halo // chunk) * chunk)
+
+
+def _windows_on_device(cls_with_halo: torch.Tensor, chunk: int, halo: int) -> torch.Tensor:
+    """(B, halo+chunk) overlapped windows from [halo | N_local] classes, on
+    the classes' device."""
+    if halo > chunk:  # callers widen via _chunk_for
+        raise ValueError(f"halo {halo} exceeds the window chunk {chunk}")
+    windows = _signed(cls_with_halo).unfold(0, halo + chunk, chunk).contiguous()
+    return windows.view(cls_with_halo.dtype)
+
+
+class _Shards:
+    """The ranks this process drives and how they talk: every rank of a
+    device-list mesh, or this process's one rank of a process group."""
+
+    def __init__(self, mesh, group, device: torch.device):
+        self.group = group
+        if group is not None:
+            if mesh is not None:
+                raise ValueError("pass a mesh or a process group, not both")
+            import torch.distributed as dist
+
+            self.world = dist.get_world_size(group)
+            self.ranks = [dist.get_rank(group)]
+            self.devices = {self.ranks[0]: _indexed(torch.device(device))}
+        else:
+            mesh = data_mesh(mesh)
+            self.world = len(mesh)
+            self.ranks = list(range(self.world))
+            self.devices = dict(enumerate(mesh))
+
+    def scatter(self, cls_p: np.ndarray, num_classes: Optional[int]) -> dict:
+        """rank -> that rank's slice of the padded host classes on its
+        device, narrow (``class_dtype``) with ``num_classes``, else int32."""
+        per = len(cls_p) // self.world
+        out = {}
+        for r in self.ranks:
+            piece = cls_p[r * per : (r + 1) * per]
+            if num_classes is None:
+                out[r] = torch.from_numpy(np.ascontiguousarray(piece, dtype=np.int32)).to(
+                    self.devices[r])
+            else:
+                out[r] = scan_batched.classes_to_device(piece, num_classes, self.devices[r])
+        return out
+
+    def halos(self, shards: dict, left: int, right: int) -> dict:
+        """rank -> ``(left halo, right halo)`` of ``left`` / ``right``
+        classes on the rank's device."""
+        if self.group is None:
+            ordered = [shards[r] for r in range(self.world)]
+            return {r: (_left_halo(ordered, r, left), _right_halo(ordered, r, right))
+                    for r in self.ranks}
+        import torch.distributed as dist
+
+        rank = self.ranks[0]
+        mine = shards[rank]
+        lh = torch.zeros(left, dtype=mine.dtype, device=mine.device)
+        rh = torch.zeros(right, dtype=mine.dtype, device=mine.device)
+        peer = lambda r: dist.get_global_rank(self.group, r)
+        # Bytes travel: gloo carries neither uint16 nor uint32 tensors.
+        sends = [mine[mine.shape[0] - left :].contiguous().view(torch.uint8),
+                 mine[:right].contiguous().view(torch.uint8)]
+        ops = []
+        if rank + 1 < self.world and left:
+            ops.append(dist.P2POp(dist.isend, sends[0], peer(rank + 1), self.group))
+        if rank > 0 and right:
+            ops.append(dist.P2POp(dist.isend, sends[1], peer(rank - 1), self.group))
+        if rank > 0 and left:
+            ops.append(dist.P2POp(dist.irecv, lh.view(torch.uint8), peer(rank - 1), self.group))
+        if rank + 1 < self.world and right:
+            ops.append(dist.P2POp(dist.irecv, rh.view(torch.uint8), peer(rank + 1), self.group))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        return {rank: (lh, rh)}
+
+    def total(self, counts: dict) -> int:
+        """Sum of the per-rank counts (0-d int64 tensors) over all ranks."""
+        if self.group is None:
+            return sum(int(c) for c in counts.values())
+        import torch.distributed as dist
+
+        t = counts[self.ranks[0]].reshape(1).to(torch.int64)
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return int(t[0])
+
+    def gather(self, parts: dict) -> List[torch.Tensor]:
+        """The per-rank tensors (equal shapes) of every rank, in rank order;
+        the other ranks' arrive on this rank's device."""
+        if self.group is None:
+            return [parts[r] for r in range(self.world)]
+        import torch.distributed as dist
+
+        mine = parts[self.ranks[0]].contiguous()
+        raw = mine.view(torch.uint8) if mine.dtype != torch.uint8 else mine
+        bufs = [torch.empty_like(raw) for _ in range(self.world)]
+        dist.all_gather(bufs, raw, group=self.group)
+        return [b.view(mine.dtype) for b in bufs]
+
+    def gather_host(self, parts: dict) -> np.ndarray:
+        """``gather`` downloaded and concatenated."""
+        return np.concatenate([t.cpu().numpy() for t in self.gather(parts)])
+
+
+def _pad_to(cls: np.ndarray, total: int) -> np.ndarray:
+    return np.pad(cls, (0, total - len(cls)), constant_values=scan_batched.PAD_CLASS)
+
+
+# ------------------------------------------------- whole-word-longest walks
+
+
+def sharded_wwl_walks(matcher, cls: np.ndarray, mesh=None, *, group=None):
+    """Per-position whole-word-longest walk outcomes across the mesh.
+
+    Every walk reads at most ``max_depth + 1`` classes past its own lane, so
+    the only dependency between shards is a right halo (plus, on the scan
+    branch, a left halo that warms the scan up); the last shard's halo
+    arrives as zeros, exactly the non-word pad class the single-device path
+    uses.  Outcomes are returned in global coordinates as ``(die, has, ms,
+    me, mv, cont)`` host arrays; ``cont`` is None except on the
+    truncated-closure (mixed-dictionary) scan, where True flags positions
+    whose walk needs the full-trie host continuation
+    (``scan_wwl.host_walks_at``).  The sequential restart chain is followed
+    on the host (``resolve/wholeword.follow_chain``), mirroring the
+    reference loop ``WholeWordLongestMatchSet.java:47-178``."""
+    m = matcher.compiled
+    sh = _Shards(mesh, group, matcher.device)
+    d = scan_wwl.bucket_depth(m.max_depth)  # bucketed like single-device
+    n = len(cls)
+
+    pure = scan_wwl.scan_applicable(m)
+    if pure or scan_wwl.mixed_scan_applicable(m):
+        # Scan engine per shard: a LEFT halo of d classes makes the depth
+        # plane exact at every local position (trie-prefix suffixes are <= d
+        # long, the d-synchronization of the AC engines; the truncated
+        # closure satisfies the same argument), and a RIGHT halo of
+        # cw >= d + 1 covers walks dying past the shard edge.  Also the only
+        # sharded path for row-compressed dictionaries.
+        cw = _chunk_for(d + 1, 512)
+        chunk = -(-max(n, 1) // (sh.world * cw)) * cw
+        shards = sh.scatter(_pad_to(cls, chunk * sh.world), m.num_classes)
+        halos = sh.halos(shards, d, cw)
+        parts = {}
+        for r in sh.ranks:
+            tabs = _tables_on(matcher, sh.devices[r])
+            sc = tabs.wwl_scan if pure else tabs.wwl_scan_mixed
+            lh, rh = halos[r]
+            windows = _windows_on_device(_cat([lh, shards[r], rh]), cw, d)
+            outs = scan_wwl.wwl_scan_walks_all(
+                sc.table, sc.rows_flat, sc.outrows, windows, halo=d, id_bits=sc.id_bits,
+                depth_bits=sc.depth_bits, num_classes=sc.num_classes, d=d,
+                row_layout=sc.row_layout, quotient=sc.quotient, n_keep=chunk, cross=not pure)
+            parts[r] = _globalize(outs, r * chunk)
+        outs = _gather_outcomes(sh, parts, n)
+        return outs + (None,) if pure else outs
+
+    chunk = max(-(-max(n, 1) // sh.world), d + 1)
+    shards = sh.scatter(_pad_to(cls, chunk * sh.world), m.num_classes)
+    halos = sh.halos(shards, 0, d + 1)
+    parts = {}
+    for r in sh.ranks:
+        local = _cat([shards[r], halos[r][1]])
+        outs = scan_wwl.wwl_walks(*_tables_on(matcher, sh.devices[r]).wwl_walk, local, d)
+        parts[r] = _globalize(outs, r * chunk)
+    return _gather_outcomes(sh, parts, n) + (None,)
+
+
+def _globalize(outs, off: int):
+    """Shard-local ``(die, has, ms, me, mv[, cont])`` in text coordinates."""
+    die, has, ms, me, mv = outs[:5]
+    return (die + off, has, ms + off, me + off, mv) + tuple(outs[5:])
+
+
+def _gather_outcomes(sh: _Shards, parts: dict, n: int):
+    """The outcome planes of every shard as host arrays cut to ``n``."""
+    k = len(next(iter(parts.values())))
+    return tuple(sh.gather_host({r: p[i] for r, p in parts.items()})[:n] for i in range(k))
+
+
+# ------------------------------------------------------------ arrival states
+
+
+def sharded_arrival_states(table: torch.Tensor, cls: np.ndarray, mesh=None, *,
+                           group=None) -> np.ndarray:
+    """Exact sequential arrival states across the mesh via sigma-stitching.
+
+    Each shard scans its classes once carrying all S entry-state lanes (the
+    sigma map), the (D, S) sigma set is gathered, the maps are folded into
+    each shard's true entry state, and each shard rescans from it.  Exactly
+    the stream-mode state-carry invariant (``AhoCorasickMap.java:208-275``)
+    parallelized; suits small-to-medium S.  ``table`` is a dense total
+    transition function ``int32[S(+pad), A]``.  Returns int32[len(cls)]
+    arrival states (s_1..s_N of the flat scan)."""
+    sh = _Shards(mesh, group, table.device)
+    n = len(cls)
+    chunk = -(-max(n, 1) // sh.world)
+    # Class 0 never advances toward a match but does change state in a total
+    # DFA: pad with it and return only the first n states.
+    shards = sh.scatter(_pad_to(cls, chunk * sh.world), None)
+    tables = {}
+    for r in sh.ranks:
+        dev = sh.devices[r]
+        if dev not in tables:
+            tables[dev] = table if _indexed(table.device) == dev else table.to(dev)
+    sigma = {r: stitch_kernels.state_maps(tables[sh.devices[r]], shards[r][None])
+             for r in sh.ranks}
+    gathered = sh.gather(sigma)
+    sigmas = torch.cat([s.to(gathered[0].device) for s in gathered])  # (D, S)
+    entry = stitch_kernels.entry_fold(sigmas, 0)
+    states = {}
+    for r in sh.ranks:
+        dev = sh.devices[r]
+        states[r] = stitch_kernels.rescan(tables[dev], shards[r][None],
+                                          entry[r : r + 1].to(dev))[0]
+    return sh.gather_host(states)[:n]
+
+
+# ------------------------------------------------------- counts and planes
+
+
+def _plans(matcher, sh: _Shards, make_plan):
+    """``(plan_on, which, halo)``: ``make_plan`` (``dispatch.count_plan`` or
+    ``planes_plan``) over the matcher's tables on each distinct device of
+    ``sh``, built at first use; ``which`` and ``halo`` are the same on all."""
+    plans = {}
+
+    def plan_on(dev):
+        if dev not in plans:
+            plans[dev] = make_plan(matcher.compiled, _tables_on(matcher, dev))
+        return plans[dev]
+
+    first = plan_on(sh.devices[sh.ranks[0]])
+    return plan_on, first.which, first.halo
+
+
+def _shard_windows(sh: _Shards, shards: dict, chunk: int, halo: int) -> dict:
+    """rank -> ``[left halo | shard]`` cut into windows on the rank's device."""
+    halos = sh.halos(shards, halo, 0)
+    return {r: _windows_on_device(_cat([halos[r][0], shards[r]]), chunk, halo)
+            for r in sh.ranks}
+
+
+def make_sharded_counter(matcher, mesh=None, chunk: int = 512, *, group=None):
+    """Best-engine data-parallel match counter over the mesh.
+
+    Runs on every shard the kernel ``ops/dispatch.count_plan`` picks for the
+    single device, with the left halo taken from the neighbour.  Returns
+    ``(prepare, count, which)``: ``prepare(cls)`` pads the class array and
+    uploads each shard once, narrow; ``count(x, reps=1)`` is the all-shard
+    sum of ``reps`` scans (for benchmarking: scan ``i`` rolls the windows by
+    ``i``; ``reps=1`` for real use)."""
+    m = matcher.compiled
+    if m.is_row_compressed and not scan_batched.quotient_packable(m):
+        raise ValueError(
+            "row-compressed (wide-alphabet) matcher has no packed quotient "
+            "device layout; use the host path")
+    sh = _Shards(mesh, group, matcher.device)
+    plan_on, which, halo = _plans(matcher, sh, dispatch.count_plan)
+    chunk = _chunk_for(halo, chunk)
+
+    def prepare(cls: np.ndarray) -> dict:
+        per = -(-max(len(cls), 1) // (sh.world * chunk)) * chunk
+        return sh.scatter(_pad_to(cls, per * sh.world), m.num_classes)
+
+    def count(shards: dict, reps: int = 1) -> int:
+        counts = {}
+        for r, windows in _shard_windows(sh, shards, chunk, halo).items():
+            plan = plan_on(sh.devices[r])
+            tot = plan.fn(plan.tables, windows)
+            for i in range(1, reps):
+                rolled = torch.roll(_signed(windows), i, 0).view(windows.dtype)
+                tot = tot + plan.fn(plan.tables, rolled)
+            counts[r] = tot
+        return sh.total(counts)
+
+    return prepare, count, which
+
+
+def make_sharded_planes(matcher, mesh=None, chunk: int = 512, *, group=None):
+    """Plan-driven sharded emit-plane scan: ``(fn, which, chunk)`` where
+    ``fn(cls) -> uint32[P, N_padded]``, a tensor on the first shard's device
+    (so that ``ac_matches_batched`` compacts the hot positions there and
+    downloads only them).
+
+    Same structure as ``make_sharded_counter`` but for the planes plans, so
+    huge dictionaries (split / hotstate layouts) shard-scan with their
+    single-device kernels.  ``which`` tells the caller how to decode
+    (``"hotstate"``: the packed (state, count) plane, else END-indexed emit
+    planes); ``chunk`` is the window chunk the shard cuts are multiples of."""
+    m = matcher.compiled
+    sh = _Shards(mesh, group, matcher.device)
+    plan_on, which, halo = _plans(matcher, sh, dispatch.planes_plan)
+    chunk = _chunk_for(halo, chunk)
+
+    def fn(cls: np.ndarray) -> torch.Tensor:
+        per = -(-max(len(cls), 1) // (sh.world * chunk)) * chunk
+        shards = sh.scatter(_pad_to(cls, per * sh.world), m.num_classes)
+        bits = {}
+        for r, windows in _shard_windows(sh, shards, chunk, halo).items():
+            plan = plan_on(sh.devices[r])
+            # Exactly per = B * chunk positions per shard: the all-shard
+            # concatenation is contiguous in text order.
+            bits[r] = plan.fn(plan.tables, windows)
+        gathered = sh.gather(bits)
+        home = gathered[0].device
+        return torch.cat([b.view(torch.int32).to(home) for b in gathered], dim=1).view(
+            torch.uint32)
+
+    return fn, which, chunk
+
+
+# ---------------------------------------------------------------- the facade
+
+
+def _triples_from_list(trip):
+    if not trip:
+        z = np.zeros(0, dtype=np.int64)
+        return z, z.copy(), z.copy()
+    a = np.asarray(trip, dtype=np.int64)
+    return a[:, 0], a[:, 1], a[:, 2]
+
+
+class ShardedScanner:
+    """Data-parallel façade over a compiled matcher of any of the five kinds.
+
+    ``count`` is an all-shard reduction; ``match_triples`` extracts exact
+    global triples from shard-local planes.  ``mesh`` is a list of devices
+    (default: every visible CUDA device)."""
+
+    def __init__(self, matcher, mesh=None):
+        m = matcher.compiled
+        if not _device_capable(m, m.kind):
+            raise ValueError(
+                "row-compressed (wide-alphabet) matcher has no sharded "
+                "device path for this kind; scan on the host path "
+                "(matcher.match)")
+        self.matcher = matcher
+        self.mesh = data_mesh(mesh)
+        self._inner = None  # shortest: lazy scanner over the internal AC
+        self._counter = None  # lazy plan-driven sharded count closures
+        self._planes = None  # lazy plan-driven sharded planes closures
+
+    def _shard_boundaries(self, n: int, chunk: int = 512):
+        """Per-shard cut positions in text coordinates (the same split
+        ``make_sharded_planes`` uses): the resolve stitch points."""
+        n_dev = len(self.mesh)
+        per = -(-max(n, 1) // (n_dev * chunk)) * chunk
+        return [per * i for i in range(1, n_dev)]
+
+    def count(self, text: str) -> int:
+        m = self.matcher.compiled
+        if m.kind == "ac":
+            if self._counter is None:
+                self._counter = make_sharded_counter(self.matcher, self.mesh)
+            prepare, count, _ = self._counter
+            return int(count(prepare(self.matcher._classes(text)), reps=1))
+        # Counting needs the resolved / filtered match set for the other
+        # kinds (non-overlap resolution and boundary filtering change it).
+        return len(self.match_triples(text)[0])
+
+    def stream(self) -> "ShardedStream":
+        """Streaming cursor whose per-chunk scans run on the mesh (AC kind:
+        the d-synchronizing tail carry, ``AhoCorasickMap.java:208-275``)."""
+        return ShardedStream(self)
+
+    def match_triples(self, text: str):
+        return self.match_triples_classes(self.matcher._classes(text))
+
+    def match_triples_classes(self, cls: np.ndarray):
+        """``match_triples`` over a precomputed class array (the sharded
+        streaming cursor's entry point: feeds arrive as [tail | chunk])."""
+        m = self.matcher.compiled
+        if m.kind == "shortest":
+            # Candidates-then-resolve: shard-scan the internal AC automaton
+            # over the insert-surviving keywords, then the exact min-end
+            # greedy resolve.  Matchers without a keyword source
+            # (from_compiled artifacts) use the exact host cursor.
+            ac = getattr(self.matcher, "_ac", None)
+            if ac is not None and _device_capable(ac.compiled, "ac"):
+                if self._inner is None:
+                    self._inner = ShardedScanner(ac, self.mesh)
+                # The internal AC sees the same UTF-16 unit count (classes
+                # differ, positions don't), so the shard cuts follow the
+                # INNER scanner's planes chunk.
+                inner_trip = self._inner.match_triples_classes(
+                    self.matcher._ac_classes(cls))
+                inner_chunk = self._inner._planes[2]
+                return resolve_shortest_sharded(
+                    *inner_trip,
+                    boundaries=self._shard_boundaries(len(cls), inner_chunk),
+                    max_depth=ac.compiled.max_depth)
+            cursor = core_stream.make_cursor(m, self.matcher.device, self.matcher.dev)
+            return _triples_from_list(cursor.feed(cls, is_final=True))
+        if m.kind == "whole_word_longest":
+            die, has, ms, me, mv, cont = sharded_wwl_walks(self.matcher, cls, self.mesh)
+            ws = word_starts(np.asarray(m.class_is_word)[cls])
+            if cont is not None:
+                # Mixed dictionary: re-run the walks whose die char crossed
+                # into the truncated region, at the positions the restart
+                # chain can consume, as sparse host walks.
+                d = scan_wwl.bucket_depth(m.max_depth)
+                lanes = scan_wwl.chain_lanes(ws, len(cls))
+                need = lanes[cont[lanes]]
+                scan_wwl.apply_crossing_fixes(
+                    m, np.pad(cls, (0, d + 1)), d, (die, has, ms, me, mv), need, need)
+            return _triples_from_list(follow_chain(die, has, ms, me, mv, ws, len(cls)))
+        if self._planes is None:
+            self._planes = make_sharded_planes(self.matcher, self.mesh)
+        fn, which, planes_chunk = self._planes
+        layout = "hotstate" if which == "hotstate" else "planes"
+        triples = scan_batched.ac_matches_batched(m, cls, fn(cls), layout=layout)
+        if m.kind == "longest":
+            # Shard-parallel resolve: each shard's candidates resolve
+            # locally and the boundary (anchor, tail) stitch repairs the
+            # interactions exactly (resolve/parallel.py;
+            # SetMatchQueue.java:45-95 semantics).
+            return resolve_longest_sharded(
+                *triples, boundaries=self._shard_boundaries(len(cls), planes_chunk),
+                max_depth=m.max_depth)
+        if m.kind == "whole_word":
+            # Boundary filter over AC candidates, the same equivalence the
+            # single-device path uses (WholeWordMatchSet.java:47-132).
+            return boundary_filter(m.class_is_word, cls, *triples)
+        return triples
+
+
+class ShardedStream:
+    """Streaming cursor whose per-chunk scans run on the mesh.
+
+    The same d-synchronizing tail-carry invariant as the single-device
+    cursor (``core/stream._DfaCursor``; reference stream carry
+    ``AhoCorasickMap.java:208-275``): the last ``max_depth`` classes replay
+    as the next feed's left context, and candidates ending inside the tail
+    region (already delivered last feed) are dropped, so an unbounded stream
+    scans chunk-at-a-time with exact global offsets at any chunking."""
+
+    def __init__(self, scanner):
+        m = scanner.matcher.compiled
+        if m.kind != "ac":
+            raise ValueError(
+                "sharded streaming carries the AC tail invariant; use the "
+                "matcher's own stream() for the resolved/filtered kinds")
+        self.scanner = scanner
+        self.halo = max(m.max_depth, 1)
+        self.tail = np.zeros(0, dtype=np.int32)
+        self.off = 0  # global index of the next unit
+
+    def feed(self, text: str, is_final: bool = False):
+        """New matches this feed as GLOBAL (starts, ends, value_ids)."""
+        cls = self.scanner.matcher._classes(text)
+        if len(cls) == 0:
+            z = np.zeros(0, dtype=np.int64)
+            return z, z.copy(), z.copy()
+        buf = np.concatenate([self.tail, cls]) if len(self.tail) else cls
+        off0 = self.off - len(self.tail)
+        starts, ends, vals = self.scanner.match_triples_classes(buf)
+        keep_after = self.off - off0
+        if keep_after > 0:
+            keep = ends > keep_after
+            starts, ends, vals = starts[keep], ends[keep], vals[keep]
+        self.off += len(cls)
+        keep_tail = min(len(buf), self.halo)
+        self.tail = np.asarray(buf[len(buf) - keep_tail:], dtype=np.int32)
+        return starts + off0, ends + off0, vals
+
+    def state_dict(self) -> dict:
+        return {"tail": self.tail.tolist(), "off": int(self.off)}
+
+    def load_state_dict(self, d: dict) -> None:
+        self.tail = np.asarray(d["tail"], dtype=np.int32)
+        self.off = int(d["off"])

@@ -5,13 +5,15 @@ Drives the port's paths on the device engine at ``bench.py``'s
 configuration, 10,000 seeded keywords over 32 Mi UTF-16 units (64 MiB) of
 word-soup text: ``AhoCorasickSet.count`` / ``.match``, the resolved kinds
 ``LongestMatchSet``, ``WholeWordMatchSet``, ``ShortestMatchSet`` and a map,
-and ``WholeWordLongestMatchSet`` / ``Map`` on each of its routes; and the
+and ``WholeWordLongestMatchSet`` / ``Map`` on each of its routes; the
 huge-dictionary layouts (count-packed count, hotstate plane, split scans)
 at the 1M-keyword scale of ``tests/test_full_random_1m.py`` (995,169 seeded
 keywords, 4,356,756 states: 23 state bits + depth 12 do not pack inline)
 and on deep dictionaries; and the stream cursors (``stream().feed``,
 ``match_stream``, ``match_readable``) and the chunked early-stop listener
-scan at the same sizes.  It imports the port only: the dictionary and text
+scan at the same sizes; and the data-parallel ``ShardedScanner`` /
+``ShardedStream`` on eight shards of the one card, with the sigma stitch.  It
+imports the port only: the dictionary and text
 generators of ``bench.py`` and of the JAX package's bench suite are copied
 here.  Phases, each raising on failure:
 
@@ -37,7 +39,12 @@ here.  Phases, each raising on failure:
    sequential scan from an entry state on the 10k dictionary's dense table
    (1 to 64 Ki units, entry state 0 and not 0), on RowTables (a fuzz
    dictionary kept row-compressed, and a 55,040-class alphabet) and on the
-   10k shortest restart table;
+   10k shortest restart table; the every-position sweep beside the sweep at
+   starts on each of those whole-word-longest planes; the sigma maps, the
+   entry fold and the rescan on the demo dictionary (1, 8 and 4,096 chunks,
+   ragged lengths, entry state 0 and not 0), on the 10k dense table (64
+   chunks of 1 Ki units) and on the 10k shortest restart table, and the
+   stitched scan == the sequential scan on each;
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -67,13 +74,23 @@ here.  Phases, each raising on failure:
    units (one cursor feed over the RowTable scan) == its device engine and,
    on a prefix, the per-character gold loop; ``match(text, listener)`` with
    ``False`` on the first match scans 16 Ki of the 32 Mi units;
-   ``match_readable`` over a real file; every kernel of a path was launched;
+   ``match_readable`` over a real file; the data-parallel sharded scanner on
+   a mesh that names the card eight times (``ShardedScanner``): each of the
+   five kinds and a map on 32 Mi units == the single-device matcher's count
+   and triples (AC also on 1 and 3 shards, uneven cuts), the mixed-route
+   dictionary, the walk branch (the scan tables forced off), the 1M
+   dictionary's pinned counts and triples, ``sharded_arrival_states`` ==
+   the sequential scan (the demo dictionary on 32 Mi units, the 10k table on
+   256 Ki), ``ShardedStream`` over the same uneven pieces and a resume in a
+   fresh scanner, ``graft_entry.dryrun_multigpu(8)`` and ``entry()``; every
+   kernel of a path was launched;
 5. times on the card with CUDA events (kernels) and the host clock
    (facade calls and stages), as GB/s = 2 x units / s, the ``bench.py``
    definition; the 1M dictionary's kernels and facade calls on 32 Mi units
    of BASELINE config #5's word soup, and its stages; the sequential scan per
    launch and per unit, each streamed kind, the gold branch and the early
-   stop; each kernel's bound (bytes over 3.35 TB/s or operations over
+   stop; the sharded facades and the sharded count's stages; the stitched
+   scan beside the sequential scan at the same length; each kernel's bound (bytes over 3.35 TB/s or operations over
    67 T/s, whichever is larger) and the compaction's library-call time.
 
 It prints one JSON line of kernel records, then as its last line
@@ -129,6 +146,14 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                           "ahocorasick_tpu/ops/scan_batched.py:416"),
     "seq_states": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                    "ahocorasick_tpu/core/stream.py:96"),
+    "wwl_sweep_all": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
+                      "ahocorasick_tpu/ops/scan_wwl.py:1117"),
+    "state_maps": ("ahocorasick_tpu_torch/csrc/stitch.cu",
+                   "ahocorasick_tpu/ops/stitch.py:33"),
+    "entry_fold": ("ahocorasick_tpu_torch/csrc/stitch.cu",
+                   "ahocorasick_tpu/ops/stitch.py:48"),
+    "rescan": ("ahocorasick_tpu_torch/csrc/stitch.cu",
+               "ahocorasick_tpu/ops/stitch.py:68"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate,
 # and the 32-bit rate outside the tensor cores, taken for these kernels'
@@ -137,6 +162,8 @@ PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
 DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # does not pack inline
 SHORTEST_TWIN_UNITS = 1 << 16
+N_SHARDS = 8  # the sharded scanner's mesh: eight shards on the one card
+ARRIVAL_UNITS_10K = 1 << 18  # sigma-stitched arrival states on the 10k table
 # The 1M-keyword dictionary of tests/test_full_random_1m.py (seed 77) and its
 # pinned facts, for its 1 Mi-unit text and the 128 Ki window at 300,000.
 ONE_M = {"candidates": 1_100_000, "keywords": 995_169, "states": 4_356_756,
@@ -263,9 +290,12 @@ def main() -> int:
     from ahocorasick_tpu_torch.kernels import build, compact, scan_block, scan_dfa
     from ahocorasick_tpu_torch.kernels import scan_batched as khuge
     from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+    from ahocorasick_tpu_torch.kernels import stitch as kstitch
     from ahocorasick_tpu_torch.native import build as native_build
     from ahocorasick_tpu_torch.native import lib as native_lib
-    from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
+    from ahocorasick_tpu_torch import graft_entry
+    from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl, stitch
+    from ahocorasick_tpu_torch.parallel import sharding
     from ahocorasick_tpu_torch.resolve.wholeword import follow_chain
     from ahocorasick_tpu_torch.utils import chartables
 
@@ -390,10 +420,15 @@ def main() -> int:
         skw = dict(d=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits, cross=sc.has_cross)
         outs = kwwl.wwl_sweep_at(*sargs, **skw)
         outs_twin = kwwl.wwl_sweep_at_plain(*sargs, **skw)
+        n_keep = plane[0].shape[0] - (d + 1)  # every position a walk can start at
+        every = kwwl.wwl_sweep_all(*sargs[:4], n_keep, **skw)
+        every_twin = kwwl.wwl_sweep_all_plain(*sargs[:4], n_keep, **skw)
         torch.cuda.synchronize()
         e_plane, e_sweep = max_err(plane, plane_twin), max_err(outs, outs_twin)
+        e_all = max_err(every, every_twin)
         errs["wwl_scan_plane"] = max(errs["wwl_scan_plane"], e_plane)
         errs["wwl_sweep_at"] = max(errs["wwl_sweep_at"], e_sweep)
+        errs["wwl_sweep_all"] = max(errs["wwl_sweep_all"], e_all)
         n = len(lanes)
         has = int(outs_twin[1][:n].sum())
         cont = int(outs_twin[5][:n].sum()) if sc.has_cross else 0
@@ -401,8 +436,9 @@ def main() -> int:
               f"{str(wd.dtype).replace('torch.', '')} "
               f"{'row' if sc.row_layout else 'flat'}{' quotient' if sc.quotient else ''} "
               f"table {tuple(sc.table.shape)}, {n} lanes, {has} with a match, {cont} crossing; "
-              f"plane max_abs_err={e_plane} sweep max_abs_err={e_sweep}")
-        if e_plane or e_sweep:
+              f"plane max_abs_err={e_plane} sweep max_abs_err={e_sweep}; sweep at all "
+              f"{n_keep} positions ({int(every_twin[1].sum())} with a match) max_abs_err={e_all}")
+        if e_plane or e_sweep or e_all:
             raise AssertionError(f"wwl scan {label}: kernel disagrees with its plain twin")
         return has, cont
 
@@ -549,9 +585,9 @@ def main() -> int:
 
     dense_tab = big.dev.seq_tables
     assert dense_tab[1] is None and dense_tab[0] is big.dev.dfa_next
-    s_mid = int(check_seq("10k dense, warm-up", *dense_tab, cls[:1000], 0)[-1]) or 1
+    s_mid_10k = int(check_seq("10k dense, warm-up", *dense_tab, cls[:1000], 0)[-1]) or 1
     for n_seq in (1, 2, 2047, 2048, 2049, 1 << 16):
-        for s0 in (0, s_mid):
+        for s0 in (0, s_mid_10k):
             check_seq("10k dense", *dense_tab, cls[5000: 5000 + n_seq], s0)
 
     class NeverDense:
@@ -597,6 +633,46 @@ def main() -> int:
                                         short_cls, short_compiled.num_classes, dev))
     if not torch.equal(got, same):
         raise AssertionError("restart-table scan != the lagged-restart kernel's states")
+
+    # Chunk stitching: sigma maps, entry fold and rescan against their twins,
+    # and the stitched scan against the one sequential scan.
+    def check_stitch(label, table, cls_np, chunks, s0):
+        K = len(cls_np) // chunks
+        flat = torch.from_numpy(np.ascontiguousarray(cls_np[: chunks * K], dtype=np.int32)).to(dev)
+        c = flat.reshape(chunks, K)
+        sigma, sigma_twin = kstitch.state_maps(table, c), kstitch.state_maps_plain(table, c)
+        entry, entry_twin = kstitch.entry_fold(sigma, s0), kstitch.entry_fold_plain(sigma, s0)
+        states, states_twin = kstitch.rescan(table, c, entry), kstitch.rescan_plain(table, c, entry)
+        whole = stitch.stitched_scan(table, c, s0)
+        seq = scan_dfa.seq_states(table, None, flat, s0)
+        torch.cuda.synchronize()
+        e = {"state_maps": max_err((sigma,), (sigma_twin,)),
+             "entry_fold": max_err((entry,), (entry_twin,)),
+             "rescan": max_err((states,), (states_twin,))}
+        for k, v in e.items():
+            errs[k] = max(errs[k], v)
+        same = torch.equal(whole.reshape(-1), seq) and torch.equal(whole, states)
+        print(f"  stitch {label}: C={chunks} K={K} table {tuple(table.shape)} s0={s0} "
+              f"entry states {entry[:4].tolist()}..{entry[-1:].tolist()} max_abs_err {e}; "
+              f"stitched_scan == seq_states: {same}")
+        if any(e.values()) or not same:
+            raise AssertionError(f"stitch {label}: a kernel disagrees with its plain twin, or "
+                                 f"the stitched scan with the sequential one")
+        return int(seq[-1]) if len(seq) else s0
+
+    demo_m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
+    demo_cls = demo_m._classes(demo_text * 84)  # 4.2 M units
+    demo_tab = demo_m.dev.dfa_next
+    s_demo = check_stitch("demo, warm-up", demo_tab, demo_cls[:999], 3, 0) or 1
+    for chunks, units in ((1, 20_001), (8, 8 * 6_251), (4096, 4096 * 1_025), (4096, 4096 * 37)):
+        for s0 in (0, s_demo):
+            check_stitch("demo 20 keywords", demo_tab, demo_cls[:units], chunks, s0)
+    check_stitch("10k dense table", dense_tab[0], cls[:SHORTEST_TWIN_UNITS], 64, 0)
+    check_stitch("10k dense table", dense_tab[0], cls[5000: 5000 + SHORTEST_TWIN_UNITS], 64,
+                 s_mid_10k)
+    if restart_tab[1] is not None:
+        raise AssertionError("the 10k shortest restart table is not dense")
+    check_stitch("10k shortest restart table", restart_tab[0], short_cls, 64, 0)
 
     wwl_rng = np.random.default_rng(SEED + 3)
     for seed in range(3):
@@ -1009,9 +1085,11 @@ def main() -> int:
     ac_ref = big.match_triples(text)
     stream_path("AhoCorasickSet", lambda: port.AhoCorasickSet(keywords, device=dev), ac_ref,
                 planes_stream)
+    kind_ref = {"AhoCorasickSet": ac_ref}
     for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet"):
+        kind_ref[k] = matchers[k].match_triples(text)
         stream_path(k, (lambda n: lambda: getattr(port, n)(keywords, device=dev))(k),
-                    matchers[k].match_triples(text), planes_stream)
+                    kind_ref[k], planes_stream)
     stream_path("WholeWordLongestMatchSet",
                 lambda: port.WholeWordLongestMatchSet(keywords, device=dev),
                 wwl_triples["scan route"], wwl_kernels)
@@ -1110,6 +1188,172 @@ def main() -> int:
         return f"{len(got)} values from a {len(small)}-unit file == match; False stops after 5"
 
     run_path("AhoCorasickMap match_readable", ("packed_scan_planes",), readable_path)
+
+    # The data-parallel sharded scanner: eight shards on the one card (the
+    # mesh names the device eight times), held against the single-device
+    # matchers' output on the same text.
+    mesh = [torch.device("cuda", 0)] * N_SHARDS
+    sharded_times = {}
+
+    def same_triples(label, got, want):
+        for g, w in zip(got, want):
+            if not np.array_equal(np.asarray(g), np.asarray(w)):
+                raise AssertionError(f"{label}: sharded triples != the single-device matcher's "
+                                     f"({len(got[0])} vs {len(want[0])} matches)")
+
+    def timed(label, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        sharded_times[label] = time.perf_counter() - t
+        return out
+
+    def sharded_ac_path():
+        out = []
+        for world in (N_SHARDS, 1, 3):
+            sc = sharding.ShardedScanner(big, mesh[:world])
+            n = timed(f"AhoCorasickSet count, {world} shards", lambda: sc.count(text))
+            got = timed(f"AhoCorasickSet match_triples, {world} shards",
+                        lambda: sc.match_triples(text))
+            same_triples(f"AhoCorasickSet, {world} shards", got, ac_ref)
+            if n != len(ac_ref[0]) or sc._counter[2] != "packed" or sc._planes[1] != "packed":
+                raise AssertionError(f"sharded count {n} != {len(ac_ref[0])} on {world} shards")
+            out.append(f"{world} shards: count {n} == triples == single-device, cuts at "
+                       f"{sc._shard_boundaries(len(cls), sc._planes[2])}")
+        return "; ".join(out)
+
+    run_path("ShardedScanner AhoCorasickSet", ("packed_scan_count", "packed_scan_planes",
+                                               "compact_planes"), sharded_ac_path)
+
+    def sharded_kind_path(cls_name, ref):
+        def drive():
+            sc = sharding.ShardedScanner(matchers[cls_name], mesh)
+            got = timed(f"{cls_name} match_triples, {N_SHARDS} shards",
+                        lambda: sc.match_triples(text))
+            same_triples(cls_name, got, ref)
+            n = sc.count(text)
+            if n != len(ref[0]):
+                raise AssertionError(f"{cls_name}: sharded count {n} != {len(ref[0])}")
+            inner = sc._inner if sc._inner is not None else sc
+            return (f"{n} matches on {len(text)} units == single-device; cuts at "
+                    f"{sc._shard_boundaries(len(cls), inner._planes[2])}")
+        run_path(f"ShardedScanner {cls_name}", ("packed_scan_planes", "compact_planes"), drive)
+
+    for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet"):
+        sharded_kind_path(k, kind_ref[k])
+    sharded_kind_path("LongestMatchMap", matchers["LongestMatchMap"].match_triples(text))
+
+    sweep_kernels = ("wwl_scan_plane", "wwl_sweep_all")
+
+    def sharded_wwl(label, m, full_text, ref):
+        sc = sharding.ShardedScanner(m, mesh)
+        got = timed(f"{label} match_triples, {N_SHARDS} shards",
+                    lambda: sc.match_triples(full_text))
+        same_triples(label, got, ref)
+        return f"{len(got[0])} matches on {len(full_text)} units == single-device"
+
+    run_path("ShardedScanner WholeWordLongestMatchSet", sweep_kernels, lambda: sharded_wwl(
+        "WholeWordLongestMatchSet", big_wwl, text, wwl_triples["scan route"]))
+    run_path("ShardedScanner WholeWordLongestMatchSet mixed", sweep_kernels, lambda: sharded_wwl(
+        "WholeWordLongestMatchSet mixed", mixed, text7, wwl_triples["mixed route"]))
+
+    def sharded_walk_path():
+        # Neither scan table (forced): the per-start walk at every position.
+        real = scan_wwl.scan_applicable, scan_wwl.mixed_scan_applicable
+        scan_wwl.scan_applicable = scan_wwl.mixed_scan_applicable = lambda m: False
+        try:
+            return sharded_wwl("WholeWordLongestMatchSet walk branch", big_wwl, text,
+                               wwl_triples["scan route"])
+        finally:
+            scan_wwl.scan_applicable, scan_wwl.mixed_scan_applicable = real
+
+    run_path("ShardedScanner WholeWordLongestMatchSet walk branch", ("wwl_walks_at",),
+             sharded_walk_path)
+
+    def sharded_1m_path():
+        sc = sharding.ShardedScanner(ac1m, mesh)
+        n = sc.count(text1m)
+        if n != ONE_M["ac_count"] or sc._counter[2] != "packedcount":
+            raise AssertionError(f"sharded 1M count {n} != {ONE_M['ac_count']} "
+                                 f"({sc._counter[2]})")
+        same_triples("AhoCorasickSet 1M", sc.match_triples(text1m), ac1m.match_triples(text1m))
+        if sc._planes[1] != "hotstate":
+            raise AssertionError(f"sharded 1M planes took {sc._planes[1]}, not hotstate")
+        nl = sharding.ShardedScanner(huge_matchers["LongestMatchSet"], mesh).count(text1m)
+        if nl != ONE_M["longest_count"]:
+            raise AssertionError(f"sharded 1M longest count {nl} != {ONE_M['longest_count']}")
+        return (f"count {n} == pinned (packedcount), triples == single-device (hotstate), "
+                f"Longest {nl} == pinned, on {len(text1m)} units, cuts at "
+                f"{sc._shard_boundaries(len(text1m), sc._planes[2])}")
+
+    run_path("ShardedScanner 1M keywords", ("packedcount_count", "packedcount_hotstate_plane"),
+             sharded_1m_path)
+
+    def int32_classes(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(dev)
+
+    demo32 = demo_m._classes((demo_text * (TEXT_UNITS // len(demo_text) + 1))[:TEXT_UNITS])
+
+    def arrival_path():
+        out = []
+        for label, table, c in (("demo dictionary", demo_tab, demo32),
+                                ("10k dictionary", dense_tab[0], cls[:ARRIVAL_UNITS_10K])):
+            got = timed(f"sharded_arrival_states, {label}, {len(c)} units",
+                        lambda: sharding.sharded_arrival_states(table, c, mesh))
+            want = timed(f"seq_states, {label}, {len(c)} units",
+                         lambda: scan_dfa.seq_states(table, None, int32_classes(c), 0).cpu().numpy())
+            if not np.array_equal(got, want):
+                raise AssertionError(f"sharded arrival states != seq_states ({label})")
+            out.append(f"{label}, table {tuple(table.shape)}, {len(c)} units: == seq_states "
+                       f"(last state {int(got[-1])})")
+        return "; ".join(out)
+
+    run_path("sharded_arrival_states", ("state_maps", "entry_fold", "rescan"), arrival_path)
+
+    def sharded_stream_path():
+        def feed_arrays(st, pieces, start):
+            parts, i = [], start
+            for k in pieces:
+                parts.append(st.feed(text[i: i + k], i + k >= len(text)))
+                i += k
+            return [np.concatenate([p[j] for p in parts]) for j in range(3)]
+
+        sc = sharding.ShardedScanner(big, mesh)
+        got = timed(f"ShardedStream AhoCorasickSet, {len(sizes)} feeds",
+                    lambda: feed_arrays(sc.stream(), sizes, 0))
+        same_triples("ShardedStream", got, ac_ref)
+        half = len(sizes) // 2
+        cut = sum(sizes[:half])
+        s1 = sc.stream()
+        first = feed_arrays(s1, sizes[:half], 0)
+        state = json.loads(json.dumps(s1.state_dict()))
+        s2 = sharding.ShardedScanner(port.AhoCorasickSet(keywords, engine="device", device=dev),
+                                     mesh).stream()
+        s2.load_state_dict(state)
+        rest = feed_arrays(s2, sizes[half:], cut)
+        same_triples("ShardedStream resumed", [np.concatenate(p) for p in zip(first, rest)], got)
+        return (f"{len(got[0])} matches over {len(sizes)} feeds == match_triples; resumed at "
+                f"unit {cut} in a fresh scanner == unbroken")
+
+    run_path("ShardedStream AhoCorasickSet", ("packed_scan_planes",), sharded_stream_path)
+
+    def graft_path():
+        graft_entry.dryrun_multigpu(N_SHARDS)
+        fn, example = graft_entry.entry()
+        got = fn(*example)
+        want = scan_block.packed_scan_planes_plain(*example, fn.halo, fn.state_bits)
+        torch.cuda.synchronize()
+        if got.device != example[1].device or max_err((got,), (want,)):
+            raise AssertionError("graft_entry.entry(): fn(*example_args) != its plain twin")
+        return (f"dryrun_multigpu({N_SHARDS}) passed; entry() planes {tuple(got.shape)} over "
+                f"{tuple(example[1].shape)} windows, {int((widen(got) != 0).sum())} hot positions")
+
+    run_path("graft_entry", ("packed_scan_count", "packed_scan_planes", "wwl_scan_plane",
+                             "wwl_sweep_all", "state_maps", "entry_fold", "rescan", "seq_states"),
+             graft_path)
+    print("time sharded facades (host clock, one call each): "
+          + "; ".join(f"{k} {v} s" for k, v in sharded_times.items()) + f" [{smi}]")
     counts = {k: sum(c[k] for c in path_launches.values()) for k in KERNELS}
 
     # 5. Times.
@@ -1153,9 +1397,6 @@ def main() -> int:
           f"({t_s1m * 1e6 / len(small)} ns/unit); plain twin {t_p64} ms on {len(short_cls)} "
           f"units ({t_p64 * 1e6 / len(short_cls)} ns/unit) [{smi}]")
 
-    def int32_classes(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(dev)
-
     q16, q64 = int32_classes(cls[: 1 << 14]), int32_classes(cls[: 1 << 16])
     q_short = int32_classes(short_cls)
     q_wide = int32_classes(wide_gold._classes(wide_base))
@@ -1197,6 +1438,55 @@ def main() -> int:
         print(f"time {k} at {tuple(wd10.shape)} windows, {st10.shape[0]} start slots "
               f"({len(lanes10)} lanes): kernel {t_kernel} ms ({gbps(t_kernel)} GB/s), plain twin "
               f"{t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
+
+    # The every-position sweep on one shard of the sharded WWL scan (4 Mi
+    # positions and the 512-word right halo), and the stitch kernels at the
+    # arrival-states path's per-shard shapes on the 10k table (C = 1).
+    per_w = TEXT_UNITS // N_SHARDS
+    all_args = (plane10[: per_w + 512].contiguous(), None, None, sc10.outrows, per_w)
+    ms["wwl_sweep_all"] = (cuda_ms(lambda: kwwl.wwl_sweep_all(*all_args, **skw), 20),
+                           cuda_ms(lambda: kwwl.wwl_sweep_all_plain(*all_args, **skw), 3))
+    print(f"time wwl_sweep_all at {per_w} positions of a {all_args[0].shape[0]}-word plane: "
+          f"kernel {ms['wwl_sweep_all'][0]} ms, plain twin {ms['wwl_sweep_all'][1]} ms [{smi}]")
+    tab10 = dense_tab[0]
+    K10 = ARRIVAL_UNITS_10K // N_SHARDS
+    c10 = [int32_classes(cls[r * K10: (r + 1) * K10]).reshape(1, K10) for r in range(N_SHARDS)]
+    sigma8 = torch.cat([kstitch.state_maps(tab10, c) for c in c10])
+    entry8 = kstitch.entry_fold(sigma8, 0)
+    ms["state_maps"] = (cuda_ms(lambda: kstitch.state_maps(tab10, c10[0]), 5),
+                        cuda_ms(lambda: kstitch.state_maps_plain(tab10, c10[0]), 1))
+    ms["entry_fold"] = (cuda_ms(lambda: kstitch.entry_fold(sigma8, 0), 20),
+                        cuda_ms(lambda: kstitch.entry_fold_plain(sigma8, 0), 3))
+    ms["rescan"] = (cuda_ms(lambda: kstitch.rescan(tab10, c10[1], entry8[1:2]), 5),
+                    cuda_ms(lambda: kstitch.rescan_plain(tab10, c10[1], entry8[1:2]), 1))
+    for k, shape in (("state_maps", f"C=1 K={K10} S={tab10.shape[0]}"),
+                     ("entry_fold", f"sigma {tuple(sigma8.shape)}"), ("rescan", f"C=1 K={K10}")):
+        print(f"time {k}, 10k dense table {tuple(tab10.shape)}, {shape}: kernel {ms[k][0]} ms, "
+              f"plain twin {ms[k][1]} ms [{smi}]")
+
+    # The stitched scan beside the one sequential scan at the same N: a small
+    # automaton (the demo dictionary) on 32 Mi units, and the 10k table.
+    demo_flat = int32_classes(demo32)
+    for label, table, flat, shapes in (
+            ("demo dictionary", demo_tab, demo_flat, ((N_SHARDS, TEXT_UNITS // N_SHARDS),
+                                                      (4096, TEXT_UNITS // 4096))),
+            ("10k dictionary", tab10, int32_classes(cls[:ARRIVAL_UNITS_10K]),
+             ((N_SHARDS, K10), (64, ARRIVAL_UNITS_10K // 64),
+              (1024, ARRIVAL_UNITS_10K // 1024)))):
+        t_seq = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0), 1)
+        for chunks, K in shapes:
+            c = flat.reshape(chunks, K)
+            sig = kstitch.state_maps(table, c)
+            ent = kstitch.entry_fold(sig, 0)
+            reps = 1 if chunks == N_SHARDS else 3
+            parts = (cuda_ms(lambda: kstitch.state_maps(table, c), reps),
+                     cuda_ms(lambda: kstitch.entry_fold(sig, 0), reps),
+                     cuda_ms(lambda: kstitch.rescan(table, c, ent), reps))
+            t_all = cuda_ms(lambda: stitch.stitched_scan(table, c, 0), reps)
+            print(f"time stitched_scan, {label}, table {tuple(table.shape)}, N={flat.shape[0]} "
+                  f"C={chunks} K={K}: {t_all} ms (state_maps {parts[0]}, entry_fold {parts[1]}, "
+                  f"rescan {parts[2]}) against seq_states {t_seq} ms = "
+                  f"{t_seq / t_all} x [{smi}]")
 
     # The huge-dictionary kernels on the 1M dictionary, BASELINE #5's text.
     flat1m, sb1m, halo1m = ac1m.dev.count_packed_dfa
@@ -1245,6 +1535,12 @@ def main() -> int:
     facade += [("1M AhoCorasickSet count", lambda: ac1m.count(text5)),
                ("1M AhoCorasickSet match_triples", lambda: ac1m.match_triples(text5)),
                ("1M LongestMatchSet match_triples", lambda: lm1m.match_triples(text5))]
+    sc8 = sharding.ShardedScanner(big, mesh)
+    planes8 = sharding.make_sharded_planes(big, mesh)[0]
+    facade += [(f"ShardedScanner AhoCorasickSet count, {N_SHARDS} shards", lambda: sc8.count(text)),
+               (f"ShardedScanner AhoCorasickSet match_triples, {N_SHARDS} shards",
+                lambda: sc8.match_triples(text)),
+               (f"make_sharded_planes fn(cls), {N_SHARDS} shards", lambda: planes8(cls))]
     for label, fn in facade:
         runs = host_s(fn, 3)
         med = sorted(runs)[1]
@@ -1276,6 +1572,26 @@ def main() -> int:
           lambda: scan_batched.ac_matches_batched(big.compiled, c, bits))
     print(f"stages on {len(text)} units ({'sparse' if sp else 'dense'} download, "
           f"{len(sp[0]) if sp else 0} hot positions): "
+          + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
+
+    # The sharded count's stages: the narrow 1-D upload and windows cut on
+    # the device, beside the facade's host windows above.
+    stages = {}
+    c = stage("classes (UTF-16 encode + charmap)", lambda: big._classes(text))
+    prepare8, _, _ = sharding.make_sharded_counter(big, mesh)
+    shards8 = stage(f"pad + narrow upload of {N_SHARDS} shards", lambda: prepare8(c))
+    ordered = [shards8[r] for r in range(N_SHARDS)]
+    wins = stage("halos + windows on the device", lambda: [
+        sharding._windows_on_device(
+            sharding._cat([sharding._left_halo(ordered, r, pd.halo), ordered[r]]), 512, pd.halo)
+        for r in range(N_SHARDS)])
+    parts = stage(f"count kernels ({N_SHARDS} launches)", lambda: [
+        scan_block.packed_scan_count(pd.table, w8, pd.halo, pd.state_bits) for w8 in wins])
+    n8 = stage("reduce (scalar downloads + sum)", lambda: sum(int(t) for t in parts))
+    if n8 != len(ac_ref[0]):
+        raise AssertionError(f"staged sharded count {n8} != {len(ac_ref[0])}")
+    print(f"sharded count stages on {len(text)} units, {N_SHARDS} shards of "
+          f"{ordered[0].shape[0]} units: "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
 
     # The whole-word-longest facade's stages: the scan route on the 10k
@@ -1428,6 +1744,14 @@ def main() -> int:
         "split_count": (nbytes(w5s) + 8, 6 * chars5),
         "split_emit_planes": (nbytes(w5s, khuge.split_emit_planes(*sargs1m)), 6 * chars5),
         "seq_states": (8 * len(q64), 2 * len(q64)),
+        # the plane once, four int32 and one bool plane out
+        "wwl_sweep_all": (4 * (per_w + d10 + 1)
+                          + nbytes(kwwl.wwl_sweep_all(*all_args, **skw)), 6 * per_w),
+        # S lanes of work per class: C * K * S lookups
+        "state_maps": (nbytes(c10[0]) + 4 * tab10.shape[0], K10 * tab10.shape[0]),
+        # a chain of C dependent loads: latency, not bytes
+        "entry_fold": (8 * sigma8.shape[0], sigma8.shape[0]),
+        "rescan": (8 * K10 + 4, 2 * K10),
     }
     bounds = {}
     for k, (b, ops) in work.items():

@@ -15,6 +15,7 @@ from ahocorasick_tpu.core import compiler as jax_compiler
 from ahocorasick_tpu.core import gold as jax_gold
 from ahocorasick_tpu.native import lib as jax_native
 from ahocorasick_tpu.ops import emit as jax_emit
+from ahocorasick_tpu.resolve import parallel as jax_parallel
 from ahocorasick_tpu.resolve import queue as jax_queue
 from ahocorasick_tpu.resolve import wholeword as jax_wholeword
 from ahocorasick_tpu.utils import alloc as jax_alloc
@@ -29,6 +30,7 @@ from ahocorasick_tpu_torch.core import gold as port_gold
 from ahocorasick_tpu_torch.native import build as port_native_build
 from ahocorasick_tpu_torch.native import lib as port_native
 from ahocorasick_tpu_torch.ops import emit as port_emit
+from ahocorasick_tpu_torch.resolve import parallel as port_parallel
 from ahocorasick_tpu_torch.resolve import queue as port_queue
 from ahocorasick_tpu_torch.resolve import wholeword as port_wholeword
 from ahocorasick_tpu_torch.utils import alloc as port_alloc
@@ -296,6 +298,76 @@ def test_resolvers_equal(fn, seed, native, monkeypatch):
         np.testing.assert_array_equal(np.asarray(g), np.asarray(w))
     empty = (np.zeros(0, np.int64),) * 3
     assert [len(x) for x in getattr(port_queue, fn)(*empty)] == [0, 0, 0]
+
+
+def _sorted_candidates(trips):
+    trips = sorted(trips, key=lambda t: (t[1], t[0]))
+    a = np.asarray(trips, dtype=np.int64).reshape(len(trips), 3)
+    return a[:, 0], a[:, 1], a[:, 2]
+
+
+def _sharded_resolve_cases():
+    """The cases of ``tests/test_resolve_parallel.py``: (mode, candidates,
+    boundaries, max_depth)."""
+    chain = [(i, i + 2, i % 2) for i in range(12)]  # "ababab" parity chain
+    for boundaries in ([5], [3, 7], [1, 2, 3, 4, 5, 6]):
+        yield "longest", chain, boundaries, 2
+    for boundaries in ([10], [9], [11]):  # a straddling same-start replacement
+        yield "longest", [(0, 3, 0), (6, 9, 1), (6, 12, 2), (12, 14, 3)], boundaries, 6
+    yield "longest", [(8, 11, 0), (9, 13, 1), (11, 15, 2)], [12], 4
+    yield "shortest", [(2, 6, 0), (4, 8, 1), (6, 9, 2)], [7], 4
+    for mode in ("longest", "shortest"):
+        yield mode, [], [10], 4
+        rng = np.random.default_rng(42 if mode == "longest" else 43)
+        for _ in range(60):
+            n, d = int(rng.integers(0, 120)), int(rng.integers(1, 9))
+            trips = []
+            for _ in range(n):
+                start = int(rng.integers(0, 80))
+                trips.append((start, start + int(rng.integers(1, d + 1)), int(rng.integers(0, 50))))
+            trips = list({(s, e): (s, e, v) for s, e, v in trips}.values())
+            n_b = int(rng.integers(1, 6))
+            yield mode, trips, sorted(int(x) for x in rng.integers(0, 90, size=n_b)), d
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "numpy"])
+@pytest.mark.parametrize("mode", ["longest", "shortest"])
+def test_sharded_resolvers_equal(mode, native, monkeypatch):
+    if not native:
+        monkeypatch.setattr(port_native, "available", lambda: False)
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+    fn = f"resolve_{mode}_sharded"
+    ran = 0
+    for case_mode, trips, boundaries, d in _sharded_resolve_cases():
+        if case_mode != mode:
+            continue
+        cand = _sorted_candidates(trips)
+        want = getattr(jax_parallel, fn)(*cand, boundaries, max_depth=d)
+        got = getattr(port_parallel, fn)(*cand, boundaries, max_depth=d)
+        glob = getattr(port_queue, f"resolve_{mode}")(*cand)
+        for g, w, x in zip(got, want, glob):
+            assert g.dtype == w.dtype == np.int64
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, x)
+        ran += 1
+    assert ran > 60
+
+
+def test_sharded_longest_resolver_thread_pool_equal():
+    """Enough candidates on several shards for the thread-parallel phase."""
+    rng = np.random.default_rng(7)
+    starts = np.sort(rng.integers(0, 1 << 20, size=1 << 17))
+    ends = starts + rng.integers(1, 9, size=len(starts))
+    order = np.lexsort((starts, ends))
+    cand = (starts[order].astype(np.int64), ends[order].astype(np.int64),
+            rng.integers(0, 50, size=len(starts)).astype(np.int64))
+    boundaries = [(1 << 20) * i // 8 for i in range(1, 8)]
+    want = jax_parallel.resolve_longest_sharded(*cand, boundaries, max_depth=8)
+    got = port_parallel.resolve_longest_sharded(*cand, boundaries, max_depth=8)
+    for g, w, x in zip(got, want, port_queue.resolve_longest(*cand)):
+        np.testing.assert_array_equal(g, w)
+        np.testing.assert_array_equal(g, x)
+    assert len(got[0]) > 1 << 15
 
 
 @pytest.mark.parametrize("seed", [0, 1])

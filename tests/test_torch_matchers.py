@@ -219,3 +219,33 @@ def test_default_device_is_cuda():
             port.AhoCorasickSet(["a"])
         with pytest.raises(RuntimeError, match="CUDA"):
             port.AhoCorasickSet(["a"], device="cuda")
+
+
+@pytest.mark.parametrize("name", ["rowdfa", "batched", "batched2", "pfac2", "rowdfa3"])
+@pytest.mark.parametrize("klass", ["AhoCorasickMap", "LongestMatchSet", "WholeWordMatchSet"])
+def test_device_engine_knob(klass, name):
+    """The JAX package's ``device_engine`` names are accepted and give the
+    JAX matcher's triples under the same knob; any other name raises."""
+    kws, text = _fuzz(11, n_text=900)
+    args = (kws, list(range(len(kws)))) if klass.endswith("Map") else (kws,)
+    p = getattr(port, klass)(*args, engine="device", device="cpu")
+    assert p.device_engine == getattr(jax_pkg, klass).device_engine == "rowdfa"
+    p.device_engine = name
+    if name == "rowdfa3":
+        with pytest.raises(ValueError, match="unknown device_engine 'rowdfa3'"):
+            p.match_triples(text)
+        if klass == "AhoCorasickMap":
+            with pytest.raises(ValueError, match="unknown device_engine"):
+                p.count(text)
+        return
+    j = getattr(jax_pkg, klass)(*args, engine="device")
+    j.device_engine = name
+    got, want = p.match_triples(text), j.match_triples(text)
+    assert len(got[0]) > 20
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g, np.asarray(w))
+    assert p.count(text) == j.count(text) == len(got[0])
+
+
+def test_version_is_the_jax_packages():
+    assert port.__version__ == jax_pkg.__version__

@@ -131,6 +131,45 @@ def test_streams_and_every_class_run_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_sharded_scanner_and_stitch_run_without_loading_jax():
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "from ahocorasick_tpu_torch import graft_entry\n"
+        "from ahocorasick_tpu_torch.kernels import stitch as stitch_kernels\n"
+        "from ahocorasick_tpu_torch.ops import scan_dfa, stitch\n"
+        "from ahocorasick_tpu_torch.parallel import sharding\n"
+        "from ahocorasick_tpu_torch.resolve import parallel\n"
+        "mesh = [torch.device('cpu')] * 4\n"
+        "t = 'ushers and she said hers ' * 50\n"
+        "kw = dict(engine='device', device='cpu')\n"
+        "m = P.AhoCorasickSet(['he', 'she', 'hers'], **kw)\n"
+        "sc = sharding.ShardedScanner(m, mesh)\n"
+        "assert sc.count(t) == m.count(t) == 350, sc.count(t)\n"
+        "assert [x.tolist() for x in sc.match_triples(t)] == [x.tolist() for x in m.match_triples(t)]\n"
+        "l = P.LongestMatchSet(['he', 'she', 'hers'], **kw)\n"
+        "assert sharding.ShardedScanner(l, mesh).count(t) == len(l.match(t)) == 150\n"
+        "w = P.WholeWordLongestMatchSet(['she said', 'she', 'hers'], **kw)\n"
+        "assert sharding.ShardedScanner(w, mesh).count(t) == len(w.match(t)) == 100\n"
+        "cls = torch.from_numpy(m._classes(t).astype('int32'))\n"
+        "flat = scan_dfa.dfa_states(m.dev.dfa_next, cls)\n"
+        "assert torch.equal(stitch.stitched_scan(m.dev.dfa_next, cls.reshape(50, 25)).reshape(-1), flat)\n"
+        "assert (sharding.sharded_arrival_states(m.dev.dfa_next, m._classes(t), mesh) == flat.numpy()).all()\n"
+        "graft_entry.dryrun_multigpu(4, mesh)\n"
+        "fn, args = graft_entry.entry('cpu')\n"
+        "assert fn(*args).dtype == torch.uint32\n"
+        "assert P.__version__\n"
+        "sys.path.insert(0, 'tests')\n"
+        "import test_torch_sharding_dist as ranks\n"
+        "assert ranks._run_cases(mesh=mesh)['arrival'].shape == (301,)\n"
+        + _CLEAN
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|ahocorasick_tpu)(?![\w])", re.M)
 
 
@@ -146,10 +185,15 @@ def test_import_guard_pattern():
 
 
 def test_port_sources_never_import_jax():
-    """Neither ``jax`` nor the JAX package, in the port or ``chip_smoke.py``."""
+    """Neither ``jax`` nor the JAX package, in the port, ``chip_smoke.py`` or
+    the module of the spawned gloo ranks."""
     pattern = _IMPORT
     sources = sorted((ROOT / "ahocorasick_tpu_torch").rglob("*.py"))
     sources.append(ROOT / "chip_smoke.py")
+    sources.append(ROOT / "tests" / "test_torch_sharding_dist.py")
     assert len(sources) > 8
+    for name in ("parallel/sharding.py", "parallel/__init__.py", "ops/stitch.py",
+                 "kernels/stitch.py", "resolve/parallel.py", "graft_entry.py"):
+        assert ROOT / "ahocorasick_tpu_torch" / name in sources, name
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
