@@ -6,13 +6,15 @@ run — the counterparts of the JAX package's root ``__graft_entry__.py``.
 ``AhoCorasickSet.java:204-226``), as a function plus example arguments on the
 device.
 
-``dryrun_multigpu(n)`` builds an ``n``-shard mesh and runs the full
-data-parallel scan step (corpus shards, halo exchange, count reduction, the
-sigma stitcher that provides the sequence-parallel path, the shard-local
-resolves of the other four kinds, the separator-spanning whole-word-longest
-dictionary and the sharded stream) on tiny shapes.  The JAX dry run's
-state-sharded (table-parallel) steps have no counterpart yet: the port has no
-table-sharded scanner.
+``dryrun_multigpu(n)`` builds an ``n``-shard mesh and runs the full sharded
+scan step on tiny shapes: the data-parallel path (corpus shards, halo
+exchange, count reduction, the sigma stitcher that provides the
+sequence-parallel path, the shard-local resolves of the other four kinds, the
+separator-spanning whole-word-longest dictionary and the sharded stream) and
+the table-sharded path (the table's rows over the same devices as a model
+mesh: emit planes, a resolved kind, the whole-word-longest raw plane, the
+hotstate layout, the 2-axis data x model mesh when ``n`` is even and at least
+4, and the separator-spanning dictionary).
 """
 
 from __future__ import annotations
@@ -86,13 +88,21 @@ def dryrun_multigpu(n_shards: int, devices=None) -> None:
     them all)."""
     from ahocorasick_tpu_torch.core import gold
     from ahocorasick_tpu_torch.models.matchers import (
+        AhoCorasickSet,
         LongestMatchSet,
         ShortestMatchSet,
         WholeWordLongestMatchSet,
         WholeWordMatchSet,
     )
     from ahocorasick_tpu_torch.ops import scan_dfa, stitch
-    from ahocorasick_tpu_torch.parallel.sharding import ShardedScanner, data_mesh
+    from ahocorasick_tpu_torch.ops import scan_batched
+    from ahocorasick_tpu_torch.parallel.sharding import (
+        ShardedScanner,
+        TableShardedScanner,
+        data_mesh,
+        dp_tp_mesh,
+        model_mesh,
+    )
 
     if devices is None:
         visible = data_mesh()
@@ -146,8 +156,39 @@ def dryrun_multigpu(n_shards: int, devices=None) -> None:
         _check(sck.count(text5) == len(want), mk.kind)
         _check(len(want) > 0, mk.kind)  # the check must actually check spans
 
+    # Table-sharded surface on the mesh: the table's rows sharded over a
+    # model axis, full match surface gold-exact: packed-inline planes (AC), a
+    # resolved kind, the whole-word-longest raw plane, then the hotstate
+    # (state, count) layout of a dictionary whose emit mask overflows.
+    tp_mesh = model_mesh(mesh)
+    for mk in (m, LongestMatchSet(_KEYWORDS, device=first),
+               WholeWordLongestMatchSet(_KEYWORDS, device=first)):
+        ts = TableShardedScanner(mk, tp_mesh)
+        s5, e5, _ = ts.match_triples(text5)
+        want = [(a, b) for a, b, _ in gold.GOLD_BY_KIND[mk.kind](mk.compiled, text5)]
+        _check(list(zip(s5.tolist(), e5.tolist())) == want, ("table-sharded", mk.kind))
+        _check(ts.count(text5) == len(want) > 0, ("table-sharded count", mk.kind))
+
+    mh = AhoCorasickSet(["a" * i for i in range(1, 40)] + ["the", "then"], engine="device",
+                        device=first)
+    _check(scan_batched.hotstate_layout(mh.compiled), "the deep dictionary packs inline")
+    th = TableShardedScanner(mh, tp_mesh)
+    _check(th.layout == "hotstate", th.layout)
+    sh, eh, _ = th.match_triples(text5)
+    wanth = [(a, b) for a, b, _ in gold.gold_ac(mh.compiled, text5)]
+    _check(list(zip(sh.tolist(), eh.tolist())) == wanth, "table-sharded hotstate")
+
+    # Data x model composition: windows sharded over the model groups, table
+    # rows inside each group (2-axis mesh).
+    if n_shards >= 4 and n_shards % 2 == 0:
+        t2 = TableShardedScanner(m, dp_tp_mesh(mesh))
+        s2, e2, _ = t2.match_triples(text5)
+        want2 = [(a, b) for a, b, _ in gold.gold_ac(m.compiled, text5)]
+        _check(list(zip(s2.tolist(), e2.tolist())) == want2, "data x model mesh")
+        _check(t2.count(text5) == len(want2) > 0, "data x model count")
+
     # Separator-spanning whole-word-longest: the truncated-closure scan +
-    # host continuations, data-parallel, vs gold.
+    # host continuations, data-parallel and table-sharded, vs gold.
     mx = WholeWordLongestMatchSet(
         ["new york", "new", "york", "the", "then"], case_sensitive=False, device=first)
     textm = ("then new york falls the new yorker rises new  york ") * 20
@@ -155,6 +196,8 @@ def dryrun_multigpu(n_shards: int, devices=None) -> None:
     _check(len(wantm) > 0, "mixed wwl gold is empty")
     sm, em, _ = ShardedScanner(mx, mesh).match_triples(textm)
     _check(list(zip(sm.tolist(), em.tolist())) == wantm, "sharded mixed wwl")
+    sm, em, _ = TableShardedScanner(mx, tp_mesh).match_triples(textm)
+    _check(list(zip(sm.tolist(), em.tolist())) == wantm, "table-sharded mixed wwl")
 
     # Stream cursor on the mesh: three uneven chunks through the sharded
     # tail-carry stream must equal the one-shot gold match list (stream

@@ -29,7 +29,7 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
     for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
-                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu")
+                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu", "table_sharded.cu")
 )
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
@@ -54,6 +54,7 @@ launches = {
     "state_maps": 0,
     "entry_fold": 0,
     "rescan": 0,
+    "table_sharded_scan": 0,
 }
 
 
@@ -111,6 +112,10 @@ ARGTYPES = {
     # (table, cls, entry, num_chunks, chunk_len, num_classes, out, device,
     #  stream)
     "rescan": [_P, _P, _P, _I64, _I64, _I, _P, _I, _P],
+    # (shard pointers, owners (host int array), n_model, rows_per, stride,
+    #  windows, window_bytes, num_windows, width, halo, state_bits, mode, out,
+    #  device, stream)
+    "table_sharded_scan": [_P, _P, _I, _I64, _I, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P],
 }
 
 _lib = None

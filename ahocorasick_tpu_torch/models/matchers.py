@@ -125,6 +125,7 @@ class _DeviceTables:
         self._m = m
         self.device = device
         self._cache = {}
+        self._host = {}  # numpy tables kept beside their device copies
         self._sp = _bucket_up(m.num_states + 1)
         self._ap = _bucket_up(m.num_classes)
 
@@ -184,23 +185,43 @@ class _DeviceTables:
                 self._cache["seq_tables"] = (self.dfa_next, None)
         return self._cache["seq_tables"]
 
+    def _wwl_host(self, name: str, build) -> scan_wwl.WwlScan:
+        """The numpy ``WwlScan`` of ``build``, built once and kept in
+        ``_host``; nothing is uploaded."""
+        if name not in self._host:
+            self._host[name] = build(self._m)
+        return self._host[name]
+
+    def _wwl_tables(self, name: str, build) -> scan_wwl.WwlScan:
+        """The tensors on the device of the one build of ``_wwl_host``."""
+        if name not in self._cache:
+            self._cache[name] = convert.wwl_scan_from_numpy(
+                self._wwl_host(name, build), self.device)
+        return self._cache[name]
+
     @property
     def wwl_scan(self) -> scan_wwl.WwlScan:
         """Whole-word-longest scan tables over the goto closure (or its
         quotient rows), for word-uniform dictionaries."""
-        if "wwl_scan" not in self._cache:
-            self._cache["wwl_scan"] = convert.wwl_scan_from_numpy(
-                scan_wwl.build_wwl_scan(self._m), self.device)
-        return self._cache["wwl_scan"]
+        return self._wwl_tables("wwl_scan", scan_wwl.build_wwl_scan)
+
+    @property
+    def wwl_scan_host(self) -> scan_wwl.WwlScan:
+        """Host (numpy) build of ``wwl_scan``: the table-sharded scanner cuts
+        its table into row shards itself and uploads none of it whole
+        (``TableShardedScanner``)."""
+        return self._wwl_host("wwl_scan", scan_wwl.build_wwl_scan)
 
     @property
     def wwl_scan_mixed(self) -> scan_wwl.WwlScan:
         """Whole-word-longest scan tables over the truncated closure, with
         crossing bits, for separator-spanning dictionaries."""
-        if "wwl_scan_mixed" not in self._cache:
-            self._cache["wwl_scan_mixed"] = convert.wwl_scan_from_numpy(
-                scan_wwl.build_wwl_scan_mixed(self._m), self.device)
-        return self._cache["wwl_scan_mixed"]
+        return self._wwl_tables("wwl_scan_mixed", scan_wwl.build_wwl_scan_mixed)
+
+    @property
+    def wwl_scan_mixed_host(self) -> scan_wwl.WwlScan:
+        """Host (numpy) build of ``wwl_scan_mixed``."""
+        return self._wwl_host("wwl_scan_mixed", scan_wwl.build_wwl_scan_mixed)
 
     @property
     def wwl_walk(self) -> Tuple[torch.Tensor, ...]:

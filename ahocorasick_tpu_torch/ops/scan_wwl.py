@@ -513,6 +513,36 @@ def wwl_scan_walks_all(table, rows_flat, outrows, windows, *, halo: int, id_bits
                                  d=d, id_bits=id_bits, depth_bits=depth_bits, cross=cross)
 
 
+def walks_from_raw(sc: WwlScan, rows_flat, outrows, raw: torch.Tensor, cls_p: np.ndarray,
+                   n: int):
+    """Walk outcomes at every position ``< n`` from a raw packed scan plane
+    (the table-sharded scan's ``"raw"`` output, ``uint32[>= n + d + 1]`` in
+    flat text order), on the plane's device: the per-character lookups ran
+    over the row shards and only the every-position die sweep remains
+    (``kernels.wwl_sweep_all``).  ``sc`` gives the layout (its tables may be
+    numpy); ``outrows`` and, for quotient tables, ``rows_flat`` are tensors on
+    the plane's device.  ``cls_p`` is the host class array the plane was
+    scanned over, padded with the non-word class 0.  Returns the
+    ``wwl_scan_walks_all`` outcomes, ``cont`` included when the table packs
+    crossing bits.
+
+    Quotient planes carry row ids, and the sweep resolves the pre-die state
+    through the flat entry index ``row_{i-1} * A + c_i`` (the root row 0
+    before the first position): any ``halo >= d`` warm-up reaches the same
+    row as the sequential scan, so the index follows from the plane itself."""
+    entry = None
+    if sc.quotient:
+        ids = raw.view(torch.int32) & ((1 << sc.id_bits) - 1)
+        c = np.zeros(raw.shape[0], dtype=np.int32)
+        c[: len(cls_p)] = cls_p[: raw.shape[0]]
+        entry = torch.roll(ids, 1)
+        entry[0] = 0
+        entry = entry * sc.num_classes + torch.from_numpy(c).to(raw.device)
+    return kernels.wwl_sweep_all(raw, entry, rows_flat if sc.quotient else None, outrows, n,
+                                 d=sc.halo, id_bits=sc.id_bits, depth_bits=sc.depth_bits,
+                                 cross=sc.has_cross)
+
+
 def scan_walks(sc: WwlScan, cls_p: np.ndarray, starts: np.ndarray, d: int, device):
     """The scan engine for the given starts: windows of ``cls_p`` with a
     ``d``-unit halo uploaded narrow, then ``wwl_scan_walks``."""

@@ -1,14 +1,16 @@
-"""Data-parallel sharded scanning — the port of the data-parallel half of
-``ahocorasick_tpu/parallel/sharding.py``.
+"""Sharded scanning over several devices — the port of
+``ahocorasick_tpu/parallel/sharding.py``: the data-parallel scanner (the text
+is sharded, the tables replicated) and the table-sharded scanner (the table's
+rows are sharded, the text replicated).
 
-The corpus is sharded across the devices of a mesh; the compiled tables are
-replicated (they are read-only and small next to the text).  A scan lane
-reads at most ``max_depth`` classes beside its own shard, so the only
-dependency between shards is a halo of the neighbour's classes; the first
-shard's missing left halo and the last shard's missing right halo are zeros,
-which is exactly ``PAD_CLASS``.  Counts reduce with a sum; planes stay
-shard-local and are concatenated in text order, so global offsets are just
-shard offsets (matches are chunk-local once the entry state is known,
+**Data-parallel.**  The corpus is sharded across the devices of a mesh; the
+compiled tables are replicated (they are read-only and small next to the
+text).  A scan lane reads at most ``max_depth`` classes beside its own shard,
+so the only dependency between shards is a halo of the neighbour's classes;
+the first shard's missing left halo and the last shard's missing right halo
+are zeros, which is exactly ``PAD_CLASS``.  Counts reduce with a sum; planes
+stay shard-local and are concatenated in text order, so global offsets are
+just shard offsets (matches are chunk-local once the entry state is known,
 ``AhoCorasickMap.java:208-275``).
 
 Where the JAX module runs ``shard_map`` bodies over a ``Mesh`` with
@@ -29,25 +31,49 @@ function per rank over the existing kernels, in either of two forms:
   with ``all_reduce`` / ``all_gather``; every rank returns the full result.
   Only the gloo form has been run; NCCL at world > 1 is unverified.
 
-The table-sharded (state-sharded) scanner of the JAX module is not ported
-here.
+**Table-sharded** (``TableShardedScanner``, ``sharded_table_count``), for
+dictionaries whose packed table exceeds one device's memory.  The packed table
+is cut into contiguous row slices, one per device of the model axis, each a
+separate allocation, and every window is scanned by the kernel of
+``kernels/table_sharded.py``, which reads the shard that owns the current
+state through an array of base pointers (the JAX body looks every shard up
+under a mask and combines them with a ``psum`` per character).
+
+* A **1-axis (model) mesh** is the list of devices above: shard k lies on
+  ``mesh[k]``, the scan runs on ``mesh[0]``, and the text is not cut.
+* A **2-axis (data, model) mesh** is a list of model groups, each a list of
+  devices: ``mesh[i][k]`` is the device at position ``(i, k)`` of the JAX
+  ``Mesh(devices.reshape(n_data, n_model), ("data", "model"))``.  Each model
+  group holds the whole table in row shards and scans its contiguous slice of
+  the windows; counts add and planes concatenate in text order
+  (``dp_tp_mesh`` builds one).
+* Shards on GPUs other than the scanning one are reached by peer access.
+  Only meshes that name one card have been run (one H100): the several-GPU
+  form is unverified.
+* Under ``group=`` (one rank per model shard, 1-axis only) each rank holds
+  its row slice and the scan is the plain twin's column loop with one
+  ``all_reduce`` per character, as the JAX body.  That form has no kernel, so
+  it takes CPU ranks only (gloo; the words travel as int64) and raises for a
+  CUDA device: on cards the table-sharded scan takes a mesh.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ahocorasick_tpu_torch.core import stream as core_stream
 from ahocorasick_tpu_torch.kernels import stitch as stitch_kernels
+from ahocorasick_tpu_torch.kernels import table_sharded
 from ahocorasick_tpu_torch.models.matchers import _DeviceTables, _device_capable
 from ahocorasick_tpu_torch.ops import dispatch, scan_batched, scan_wwl
 from ahocorasick_tpu_torch.resolve.parallel import (
     resolve_longest_sharded,
     resolve_shortest_sharded,
 )
+from ahocorasick_tpu_torch.resolve.queue import resolve_longest, resolve_shortest
 from ahocorasick_tpu_torch.resolve.wholeword import boundary_filter, follow_chain, word_starts
 
 
@@ -211,6 +237,14 @@ class _Shards:
         t = counts[self.ranks[0]].reshape(1).to(torch.int64)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return int(t[0])
+
+    def reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """``t`` (int64) summed over the ranks of the process group, in
+        place."""
+        import torch.distributed as dist
+
+        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
+        return t
 
     def gather(self, parts: dict) -> List[torch.Tensor]:
         """The per-rank tensors (equal shapes) of every rank, in rank order;
@@ -435,6 +469,367 @@ def make_sharded_planes(matcher, mesh=None, chunk: int = 512, *, group=None):
             torch.uint32)
 
     return fn, which, chunk
+
+
+# ------------------------------------------------------- the table-sharded scan
+
+
+def model_mesh(devices=None) -> List[torch.device]:
+    """The 1-axis model mesh: shard k of the table lies on ``devices[k]``
+    (default: every visible CUDA device)."""
+    return data_mesh(devices)
+
+
+def dp_tp_mesh(devices=None, shape: Optional[Tuple[int, int]] = None) -> List[List[torch.device]]:
+    """2-axis data x model mesh: ``shape[0]`` model groups of ``shape[1]``
+    devices each, cut from ``devices`` in order (the JAX
+    ``devices.reshape(shape)``).  Text windows shard over the groups, table
+    rows over the devices of a group, so the text is replicated only inside
+    a model group.  Default shape: ``(2, n // 2)`` for an even ``n >= 4``,
+    else ``(1, n)``."""
+    devices = data_mesh(devices)
+    n = len(devices)
+    if shape is None:
+        shape = (2, n // 2) if n >= 4 and n % 2 == 0 else (1, n)
+    n_data, n_model = shape
+    if n_data < 1 or n_model < 1 or n_data * n_model != n:
+        raise ValueError(f"mesh shape {tuple(shape)} does not hold {n} devices")
+    return [devices[i * n_model : (i + 1) * n_model] for i in range(n_data)]
+
+
+def _model_groups(mesh) -> List[List[torch.device]]:
+    """The mesh as its model groups: one for a 1-axis mesh, ``n_data`` for a
+    2-axis one."""
+    if mesh is None:
+        return [model_mesh()]
+    mesh = list(mesh)
+    if not (mesh and isinstance(mesh[0], (list, tuple))):
+        return [data_mesh(mesh)]
+    if any(isinstance(d, (list, tuple)) for g in mesh for d in g) or not all(
+            isinstance(g, (list, tuple)) for g in mesh):
+        raise ValueError("the table-sharded scan takes a 1-axis (model) or 2-axis "
+                         "(data, model) mesh")
+    groups = [data_mesh(g) for g in mesh]
+    if len({len(g) for g in groups}) != 1:
+        raise ValueError("the model groups of a 2-axis mesh must be equally long")
+    return groups
+
+
+def _cpu_ranks_only(device) -> None:
+    """The process-group form of the table-sharded scan is the plain column
+    loop and has no kernel: raise unless ``device`` names the CPU (None means
+    CUDA), so that tensors on a card never run it."""
+    if device is None or torch.device(device).type != "cpu":
+        raise NotImplementedError(
+            "the process-group form of the table-sharded scan has no kernel and runs on "
+            f"CPU ranks only (device='cpu'), not on {device or 'cuda'}; on CUDA devices "
+            "pass a mesh of devices instead of group=")
+
+
+def _shard_tensor(rows: np.ndarray, device: torch.device) -> torch.Tensor:
+    """Table rows as a ``torch.uint32`` tensor on ``device`` in an allocation
+    of its own (also on the CPU, where ``.to`` alone would alias ``rows``)."""
+    rows = np.ascontiguousarray(rows, dtype=np.uint32)
+    if not rows.flags.writeable:
+        rows = rows.copy()
+    return torch.from_numpy(rows.view(np.int32)).to(device, copy=True).view(torch.uint32)
+
+
+def _table_sharded_run(packed_table: np.ndarray, cls: np.ndarray, halo: int, state_bits: int,
+                       mesh, chunk: int, mode: str, *, group=None, device=None):
+    """Table-sharded packed-DFA scan core: the table ``uint32[S, A]`` is
+    sharded by rows over the mesh's model axis, the text replicated (and, on
+    a 2-axis mesh, its windows sharded over the data axis).
+
+    It trades one more indirection per character for memory capacity, and is
+    for tables that do not fit one device; the data-parallel
+    ``make_sharded_counter`` is the fast path whenever the table fits.
+
+    Modes (payload = packed bits above ``state_bits``):
+    ``count``        — payload is an emit mask; returns its total popcount.
+    ``count_packed`` — payload is an emit count; returns its total sum.
+    ``planes``       — returns the END-indexed emit-mask plane uint32[1, N]
+                       (the contract of ``packed_scan_planes``).
+    ``hotstate``     — returns the packed (state, count) word at positions
+                       whose arrival state ends >= 1 keyword, 0 elsewhere
+                       (the contract of ``packedcount_hotstate_plane``).
+    ``raw``          — returns the packed word at every position.
+    Counts are ints; planes are tensors on the first model group's scanning
+    device."""
+    tables, run, A = _table_sharded_build(packed_table, halo, state_bits, mesh, mode,
+                                          group=group, device=device)
+    return run(tables, scan_batched.chunk_classes(cls, chunk, halo, A))
+
+
+def _table_sharded_build(packed_table: np.ndarray, halo: int, state_bits: int, mesh, mode: str,
+                         *, group=None, device=None, tables=None):
+    """``(tables, run, A)``: the uploaded row shards and the scan closure
+    ``run(tables, windows)`` over host ``chunk_classes(cls, chunk, halo, A)``
+    windows.
+
+    Split from ``_table_sharded_run`` so that ``TableShardedScanner`` keeps
+    both across calls: the scanner exists for tables at or above one device's
+    memory, where an upload per call would dominate everything.  ``tables``
+    hands in shards uploaded for another mode (the upload does not depend on
+    the mode).
+
+    Meshes: a 1-axis mesh shards the table's rows over its devices and scans
+    every window on the first; a 2-axis mesh (a list of model groups)
+    additionally shards the windows over the groups, each window carrying its
+    own left halo, so data shards need no halo exchange; the number of
+    windows must be a multiple of the number of groups.  ``tables`` is one
+    ``kernels.table_sharded.ShardedTable`` per model group (a shard that two
+    groups keep on one device is uploaded once).  Under ``group=`` it is this
+    rank's one shard, and ``run`` is the column loop with an ``all_reduce``
+    per character: ``device`` must be the CPU (``_cpu_ranks_only``)."""
+    if mode not in table_sharded.MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {table_sharded.MODES}")
+    packed_table = np.asarray(packed_table)
+    if packed_table.dtype != np.uint32 or packed_table.ndim != 2:
+        raise TypeError(f"expected a uint32[S, A] packed table, got "
+                        f"{packed_table.dtype}{packed_table.shape}")
+    S, A = packed_table.shape
+    counting = mode in ("count", "count_packed")
+
+    def shard_rows(k: int, rows_per: int) -> np.ndarray:
+        rows = packed_table[k * rows_per : (k + 1) * rows_per]
+        if len(rows) < rows_per:  # the last shards: zero rows past the table's end
+            rows = np.pad(rows, ((0, rows_per - len(rows)), (0, 0)))
+        return rows
+
+    if group is not None:
+        _cpu_ranks_only(device)
+        sh = _Shards(mesh, group, torch.device("cpu"))
+        rank, dev = sh.ranks[0], sh.devices[sh.ranks[0]]
+        rows_per = -(-S // sh.world)
+        if tables is None:
+            tables = [_shard_tensor(shard_rows(rank, rows_per), dev)]
+        mine = table_sharded.shard_lookup(tables[0], rank, rows_per, A)
+
+        def run(tables, windows):
+            out = table_sharded.scan_columns(
+                lambda s, c: sh.reduce(mine(s, c)),
+                scan_batched.classes_to_device(windows, A, dev), halo, state_bits, mode)
+            return int(out) if counting else out
+
+        return tables, run, A
+
+    groups = _model_groups(mesh)
+    n_model = len(groups[0])
+    rows_per = -(-S // n_model)
+    if tables is None:
+        uploaded = {}
+
+        def shard_on(k: int, dev: torch.device) -> torch.Tensor:
+            if (k, dev) not in uploaded:
+                uploaded[k, dev] = _shard_tensor(shard_rows(k, rows_per), dev)
+            return uploaded[k, dev]
+
+        tables = [table_sharded.ShardedTable([shard_on(k, d) for k, d in enumerate(g)])
+                  for g in groups]
+
+    def run(tables, windows):
+        windows = np.asarray(windows)
+        if windows.shape[0] % len(groups):
+            raise ValueError(f"{windows.shape[0]} windows do not divide over "
+                             f"{len(groups)} model groups: pad with all-PAD windows")
+        per = windows.shape[0] // len(groups)
+        parts = [table_sharded.table_sharded_scan(
+            table, scan_batched.classes_to_device(windows[i * per : (i + 1) * per], A, g[0]),
+            halo, state_bits, mode)
+            for i, (g, table) in enumerate(zip(groups, tables))]
+        if counting:
+            return sum(int(p) for p in parts)
+        if len(parts) == 1:
+            return parts[0]
+        home = parts[0].device
+        return torch.cat([p.view(torch.int32).to(home) for p in parts], dim=1).view(torch.uint32)
+
+    return tables, run, A
+
+
+def sharded_table_count(packed_table: np.ndarray, cls: np.ndarray, halo: int, state_bits: int,
+                        mesh=None, chunk: int = 512, *, group=None, device=None) -> int:
+    """Table-sharded packed-DFA match count of ``next | emit << state_bits``
+    (see ``_table_sharded_run``)."""
+    return int(_table_sharded_run(packed_table, cls, halo, state_bits, mesh, chunk, "count",
+                                  group=group, device=device))
+
+
+class TableShardedScanner:
+    """Table-sharded scanner with the full match surface for all five kinds.
+
+    For dictionaries whose packed table exceeds one device's memory: the
+    table's rows are sharded over the mesh, and ``match_triples`` delivers
+    every (start, end, value) span exactly as the reference's ``match`` does
+    at any size, for every variant (``AhoCorasickSet.java:193-252``,
+    ``LongestMatchSet.java:211-232``, ``ShortestMatchSet.java:182-260``,
+    ``WholeWordMatchSet.java:47-132``,
+    ``WholeWordLongestMatchSet.java:47-178``).  The same
+    candidates-then-resolve split as the data-parallel ``ShardedScanner``,
+    with the candidate scan table-sharded:
+
+    * ``ac`` — packed-inline emit planes (layout ``planes``), or the hotstate
+      (state, count) plane for huge dictionaries, the masks recovered on the
+      host (layout ``hotstate``);
+    * ``longest`` — the AC candidate scan of its own packed table, then the
+      exact greedy resolve;
+    * ``shortest`` — a table-sharded scanner over the internal AC of the
+      insert-surviving keywords, then the min-end resolve; artifacts loaded
+      without that AC take the exact host cursor (layout ``host``);
+    * ``whole_word`` — the AC candidate scan, then the boundary filter;
+    * ``whole_word_longest`` — the packed scan table of ``ops/scan_wwl.py``
+      in ``raw`` mode, then the every-position die sweep on the scanning
+      device (``ops.scan_wwl.walks_from_raw``), which holds the table's
+      outcome rows (32 B per state) but none of the table whole; the restart
+      chain runs on the host (layout ``wwl``).
+
+    ``mesh``: a 1-axis model mesh (a list of devices; default every visible
+    CUDA device) or a 2-axis one (a list of model groups, ``dp_tp_mesh``);
+    or ``group=``, one rank per model shard (CPU matchers only: that form has
+    no kernel and raises for a matcher on a CUDA device)."""
+
+    def __init__(self, matcher, mesh=None, chunk: int = 512, *, group=None):
+        self.matcher = matcher
+        self.m = m = matcher.compiled
+        self.group = group
+        if group is not None:
+            if mesh is not None:
+                raise ValueError("pass a mesh or a process group, not both")
+            _cpu_ranks_only(matcher.device)
+            self.mesh = None
+        else:
+            self.mesh = _model_groups(mesh)
+        self.chunk = chunk
+        self._built = {}  # mode -> (tables, run, A)
+        self._inner = None  # shortest: the scanner over the internal AC
+        self._wwl = None  # whole_word_longest: the host WwlScan tables
+        self._sweep = {}  # ... and (rows_flat, outrows) per scanning device
+        if m.kind == "shortest":
+            ac = getattr(matcher, "_ac", None)
+            if ac is not None:
+                self._inner = TableShardedScanner(ac, mesh, chunk, group=group)
+                self.layout = "shortest"
+            else:
+                # An artifact loaded without its internal AC: the exact host
+                # cursor, as in the data-parallel ShardedScanner.
+                self.layout = "host"
+            return
+        if m.kind == "whole_word_longest":
+            # The matcher's cached host tables: one closure build serves the
+            # single-device, data-parallel and table-sharded paths, and the
+            # table is uploaded here only as row shards.
+            if scan_wwl.scan_applicable(m):
+                sc = matcher.dev.wwl_scan_host
+            elif scan_wwl.mixed_scan_applicable(m):
+                # Separator-spanning dictionary: the truncated closure;
+                # crossing walks are re-run by the sparse host walker.
+                sc = matcher.dev.wwl_scan_mixed_host
+            else:
+                raise ValueError("whole-word-longest matcher has no packed scan table "
+                                 "(unpackable shape); no table-sharded path applies")
+            self._wwl = sc
+            self._table = sc.table if sc.row_layout else sc.table.reshape(-1, sc.num_classes)
+            self._sb = sc.id_bits
+            self._halo = sc.halo
+            self.layout = "wwl"
+            return
+        if scan_batched.inline_packable(m):
+            pd = scan_batched.build_packed(m)
+            self._table, self._sb, self._halo = pd.table, pd.state_bits, pd.halo
+            self.layout = "planes"
+        elif scan_batched.count_packable(m):
+            flat, self._sb, self._halo = scan_batched.build_count_packed(m)
+            self._table = flat.reshape(m.num_states, m.num_classes)
+            self.layout = "hotstate"
+        else:
+            raise ValueError("matcher has neither a packed-inline nor a count-packed "
+                             "layout; no table-sharded scan applies")
+
+    def _scan(self, cls: np.ndarray, mode: str):
+        if mode not in self._built:
+            first = next(iter(self._built.values()), None)
+            self._built[mode] = _table_sharded_build(
+                self._table, self._halo, self._sb, self.mesh, mode, group=self.group,
+                device=self.matcher.device, tables=None if first is None else first[0])
+        tables, run, A = self._built[mode]
+        windows = scan_batched.chunk_classes(cls, self.chunk, self._halo, A)
+        n_data = 1 if self.mesh is None else len(self.mesh)
+        if windows.shape[0] % n_data:
+            # Windows shard over the data axis: pad their number up to a
+            # multiple of its size with all-PAD windows (they scan class 0
+            # from the root: no emits, and positions past the text are
+            # trimmed anyway).
+            pad = n_data - windows.shape[0] % n_data
+            windows = np.concatenate(
+                [windows, np.zeros((pad, windows.shape[1]), windows.dtype)])
+        return run(tables, windows)
+
+    def _sweep_tables(self, device: torch.device):
+        """``(rows_flat or None, outrows)`` of the whole-word-longest tables
+        on ``device``, uploaded at first use."""
+        if device not in self._sweep:
+            up = lambda a: None if a is None else torch.from_numpy(
+                np.ascontiguousarray(a, dtype=np.int32)).to(device)
+            self._sweep[device] = (up(self._wwl.rows_flat), up(self._wwl.outrows))
+        return self._sweep[device]
+
+    def count(self, text: str) -> int:
+        if self.m.kind == "ac":
+            mode = "count" if self.layout == "planes" else "count_packed"
+            return int(self._scan(self.matcher._classes(text), mode))
+        # Resolution and boundary filtering change the other kinds' counts.
+        return int(len(self.match_triples(text)[0]))
+
+    def stream(self) -> "ShardedStream":
+        """Streaming cursor whose per-chunk scans run table-sharded on the
+        mesh (AC kind, tail carry): streaming for dictionaries beyond one
+        device's memory (``AhoCorasickMap.java:208-275`` at any size)."""
+        return ShardedStream(self)
+
+    def match_triples(self, text: str):
+        """(starts, ends, value_ids) in reference emission order."""
+        return self.match_triples_classes(self.matcher._classes(text))
+
+    def match_triples_classes(self, cls: np.ndarray):
+        """``match_triples`` over a precomputed class array (the streaming
+        cursor's entry point: feeds arrive as [tail | chunk])."""
+        m = self.m
+        if self.layout == "host":
+            cursor = core_stream.make_cursor(m, self.matcher.device, self.matcher.dev)
+            return _triples_from_list(cursor.feed(cls, is_final=True))
+        if self.layout == "shortest":
+            # The inner scanner scans its own charmap's classes; positions
+            # are shared (the same UTF-16 text).
+            return resolve_shortest(*self._inner.match_triples_classes(
+                self.matcher._ac_classes(cls)))
+        if self.layout == "wwl":
+            n = len(cls)
+            if n == 0:
+                return _triples_from_list([])
+            sc = self._wwl
+            d = sc.halo
+            # The die sweep reads d + 1 positions past each start: pad so
+            # that the raw plane covers them (PAD class 0 is a non-word dead
+            # end).
+            cls_p = np.pad(cls, (0, d + 1))
+            raw = self._scan(cls_p, "raw")[0]
+            outs = [x.cpu().numpy() for x in scan_wwl.walks_from_raw(
+                sc, *self._sweep_tables(raw.device), raw, cls_p, n)]
+            die, has, ms, me, mv = outs[:5]
+            ws = word_starts(np.asarray(m.class_is_word)[cls])
+            if sc.has_cross:
+                lanes = scan_wwl.chain_lanes(ws, n)
+                need = lanes[outs[5][lanes]]
+                scan_wwl.apply_crossing_fixes(m, cls_p, d, (die, has, ms, me, mv), need, need)
+            return _triples_from_list(follow_chain(die, has, ms, me, mv, ws, n))
+        triples = scan_batched.ac_matches_batched(
+            m, cls, self._scan(cls, self.layout), layout=self.layout)
+        if m.kind == "longest":
+            return resolve_longest(*triples)
+        if m.kind == "whole_word":
+            return boundary_filter(m.class_is_word, cls, *triples)
+        return triples
 
 
 # ---------------------------------------------------------------- the facade

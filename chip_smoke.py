@@ -12,7 +12,11 @@ keywords, 4,356,756 states: 23 state bits + depth 12 do not pack inline)
 and on deep dictionaries; and the stream cursors (``stream().feed``,
 ``match_stream``, ``match_readable``) and the chunked early-stop listener
 scan at the same sizes; and the data-parallel ``ShardedScanner`` /
-``ShardedStream`` on eight shards of the one card, with the sigma stitch.  It
+``ShardedStream`` on eight shards of the one card, with the sigma stitch; and
+the table-sharded ``TableShardedScanner`` with the table's rows in eight
+separate allocations on the one card (1-axis and 2-axis meshes, its stream,
+``sharded_table_count``, the 1M dictionary's 470 MB table), then
+``parallel.corpus.scan_corpus``.  It
 imports the port only: the dictionary and text
 generators of ``bench.py`` and of the JAX package's bench suite are copied
 here.  Phases, each raising on failure:
@@ -44,7 +48,10 @@ here.  Phases, each raising on failure:
    entry fold and the rescan on the demo dictionary (1, 8 and 4,096 chunks,
    ragged lengths, entry state 0 and not 0), on the 10k dense table (64
    chunks of 1 Ki units) and on the 10k shortest restart table, and the
-   stitched scan == the sequential scan on each;
+   stitched scan == the sequential scan on each; the row-sharded scan in all
+   five modes on fuzz tables cut into 1, 3 and 8 shards (one with more shards
+   than rows), the 10k table at 65,536 x 524 windows, a whole-word-longest
+   table in row and flat layout, and the 1M count-packed table in 8 shards;
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -82,14 +89,23 @@ here.  Phases, each raising on failure:
    dictionary's pinned counts and triples, ``sharded_arrival_states`` ==
    the sequential scan (the demo dictionary on 32 Mi units, the 10k table on
    256 Ki), ``ShardedStream`` over the same uneven pieces and a resume in a
-   fresh scanner, ``graft_entry.dryrun_multigpu(8)`` and ``entry()``; every
+   fresh scanner, ``graft_entry.dryrun_multigpu(8)`` and ``entry()``; the
+   table-sharded scanner on the same mesh read as a model mesh (eight row
+   shards, each an allocation of its own): each of the five kinds and the
+   mixed-route dictionary on 32 Mi units == the single-device triples, AC on
+   (2, 4) and (4, 2) data x model meshes, ``sharded_table_count``, the 1M
+   dictionary (layout ``hotstate``; count 1,282,185, triples == the
+   single-device facade's), ``stream()`` over the same uneven pieces, and
+   ``scan_corpus`` over 300 seeded documents == ``match`` per document; every
    kernel of a path was launched;
 5. times on the card with CUDA events (kernels) and the host clock
    (facade calls and stages), as GB/s = 2 x units / s, the ``bench.py``
    definition; the 1M dictionary's kernels and facade calls on 32 Mi units
    of BASELINE config #5's word soup, and its stages; the sequential scan per
    launch and per unit, each streamed kind, the gold branch and the early
-   stop; the sharded facades and the sharded count's stages; the stitched
+   stop; the sharded facades and the sharded count's stages; the row-sharded
+   scan per mode beside the single-table kernels, the table-sharded facades
+   and their stages; the stitched
    scan beside the sequential scan at the same length; each kernel's bound (bytes over 3.35 TB/s or operations over
    67 T/s, whichever is larger) and the compaction's library-call time.
 
@@ -154,6 +170,8 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                    "ahocorasick_tpu/ops/stitch.py:48"),
     "rescan": ("ahocorasick_tpu_torch/csrc/stitch.cu",
                "ahocorasick_tpu/ops/stitch.py:68"),
+    "table_sharded_scan": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
+                           "ahocorasick_tpu/parallel/sharding.py:321"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate,
 # and the 32-bit rate outside the tensor cores, taken for these kernels'
@@ -163,6 +181,7 @@ PEAK_OPS_PER_S = 67e12
 DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # does not pack inline
 SHORTEST_TWIN_UNITS = 1 << 16
 N_SHARDS = 8  # the sharded scanner's mesh: eight shards on the one card
+CORPUS_DOCS = 300  # scan_corpus: seeded documents of 0 to 4 Ki units
 ARRIVAL_UNITS_10K = 1 << 18  # sigma-stitched arrival states on the 10k table
 # The 1M-keyword dictionary of tests/test_full_random_1m.py (seed 77) and its
 # pinned facts, for its 1 Mi-unit text and the 128 Ki window at 300,000.
@@ -291,12 +310,13 @@ def main() -> int:
     from ahocorasick_tpu_torch.kernels import scan_batched as khuge
     from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
     from ahocorasick_tpu_torch.kernels import stitch as kstitch
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
     from ahocorasick_tpu_torch.native import build as native_build
     from ahocorasick_tpu_torch.native import lib as native_lib
     from ahocorasick_tpu_torch import graft_entry
     from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl, stitch
-    from ahocorasick_tpu_torch.parallel import sharding
-    from ahocorasick_tpu_torch.resolve.wholeword import follow_chain
+    from ahocorasick_tpu_torch.parallel import corpus, sharding
+    from ahocorasick_tpu_torch.resolve.wholeword import follow_chain, word_starts
     from ahocorasick_tpu_torch.utils import chartables
 
     dev = torch.device("cuda")
@@ -560,7 +580,7 @@ def main() -> int:
           f"{big.compiled.num_classes} classes (table {tuple(pd.table.shape)}, "
           f"{pd.table.nbytes} B), depth {big.compiled.max_depth}, "
           f"state_bits {pd.state_bits}")
-    check("10k keywords x 32 Mi units", big, cls, 512)
+    count10k = check("10k keywords x 32 Mi units", big, cls, 512)
     short_compiled = compile_matcher(keywords, "shortest", True)
     restart = port.ShortestMatchSet.from_compiled(short_compiled, engine="device", device=dev)
     short_cls = restart._classes(text[:SHORTEST_TWIN_UNITS])
@@ -759,6 +779,89 @@ def main() -> int:
     got = check_huge("1M keywords x 32 Mi units", ac1m, cls5)
     if got["count"] != got["split_count"]:
         raise AssertionError("1M dictionary: count-packed and split counts differ")
+    count1m_32, hot1m_32 = got["count"], got["hot"]
+
+    # The row-sharded scan: every mode against its twin, the shards separate
+    # allocations on the one card.
+    def check_tp(label, table, cls_np, halo, sb, n_model, chunk=512):
+        tables, _, A = sharding._table_sharded_build(table, halo, sb, [dev] * n_model, "count")
+        st = tables[0]
+        if len({t.data_ptr() for t in st.shards}) != n_model or st.n_model != n_model:
+            raise AssertionError(f"row-sharded {label}: the shards are not separate allocations")
+        w = scan_batched.classes_to_device(
+            scan_batched.chunk_classes(cls_np, chunk, halo, A), A, dev)
+        out = {}
+        t = time.perf_counter()
+        for mode in ktp.MODES:
+            got = ktp.table_sharded_scan(st, w, halo, sb, mode)
+            want = ktp.table_sharded_scan_plain(st, w, halo, sb, mode)
+            torch.cuda.synchronize()
+            e = max_err((got.reshape(-1),), (want.reshape(-1),))
+            errs["table_sharded_scan"] = max(errs["table_sharded_scan"], e)
+            out[mode] = int(got) if got.dim() == 0 else int((widen(got) != 0).sum())
+            if e:
+                raise AssertionError(f"row-sharded {label}, mode {mode}: kernel disagrees with "
+                                     f"its plain twin (max_abs_err {e})")
+        print(f"  row-sharded {label}: table {tuple(table.shape)} in {n_model} shards of "
+              f"{st.rows_per} rows, B={w.shape[0]} W={w.shape[1]} "
+              f"{str(w.dtype).replace('torch.', '')} state_bits={sb}; count / count_packed "
+              f"{out['count']} / {out['count_packed']}, non-zero words planes / hotstate / raw "
+              f"{out['planes']} / {out['hotstate']} / {out['raw']}; five modes max_abs_err=0 "
+              f"({time.perf_counter() - t:.2f} s with the twins)")
+        return out, st, w
+
+    for seed, n_model in ((0, 1), (1, 3), (2, 8)):
+        r = np.random.default_rng(seed)
+        m = port.AhoCorasickSet(fuzz_keywords(r, "abcdef", 60, 8), engine="device", device=dev)
+        pd_f = scan_batched.build_packed(m.compiled)
+        text_f = "".join(r.choice(list("abcdefgh "), size=20_000 + 77 * seed))
+        got = check_tp(f"fuzz seed {seed}", pd_f.table, m._classes(text_f), pd_f.halo,
+                       pd_f.state_bits, n_model)[0]
+        if got["count"] != m.count(text_f) or got["count"] <= 0:
+            raise AssertionError(f"row-sharded fuzz seed {seed}: count {got['count']} != "
+                                 f"the single-table count {m.count(text_f)}")
+    tiny = port.AhoCorasickSet(["x", "y"], engine="device", device=dev, thresholder=NeverDense())
+    pd_t = scan_batched.build_packed(tiny.compiled)
+    if not pd_t.table.shape[0] < N_SHARDS:
+        raise AssertionError("the tiny quotient table has as many rows as shards")
+    got = check_tp("more shards than rows", pd_t.table, tiny._classes("xxyxy x!y" * 100),
+                   pd_t.halo, pd_t.state_bits, N_SHARDS, chunk=64)[0]
+    if got["count"] != 700:
+        raise AssertionError(f"more shards than rows: count {got['count']} != 700")
+    table10k = scan_batched.build_packed(big.compiled).table
+    got, st10k, _ = check_tp("10k keywords x 32 Mi units", table10k, cls, pd.halo, pd.state_bits,
+                             N_SHARDS)
+    if got["count"] != count10k:
+        raise AssertionError(f"row-sharded 10k table: count {got['count']} != the single-table "
+                             f"count {count10k}")
+    wwl_f = port.WholeWordLongestMatchSet(fuzz_keywords(np.random.default_rng(0), "abcdef", 60, 8),
+                                          engine="device", device=dev)
+    cls_f = wwl_f._classes("".join(np.random.default_rng(0).choice(list("abcdefgh ,"),
+                                                                  size=20_000)))
+    row_sc = wwl_f.dev.wwl_scan_host
+    saved = scan_wwl._ROW_MAX_BYTES
+    scan_wwl._ROW_MAX_BYTES = 0  # force the flat layout
+    try:
+        flat_sc = scan_wwl.build_wwl_scan(wwl_f.compiled)
+    finally:
+        scan_wwl._ROW_MAX_BYTES = saved
+    if not row_sc.row_layout or flat_sc.row_layout:
+        raise AssertionError("the whole-word-longest fuzz tables are not row and flat")
+    raw_words = {}
+    for label, sc_f in (("row", row_sc), ("flat", flat_sc)):
+        tab = sc_f.table if sc_f.row_layout else sc_f.table.reshape(-1, sc_f.num_classes)
+        raw_words[label] = check_tp(f"whole-word-longest table, {label} layout", tab, cls_f,
+                                    sc_f.halo, sc_f.id_bits, 3)[0]["raw"]
+    if raw_words["row"] != raw_words["flat"] or not raw_words["row"]:
+        raise AssertionError(f"row and flat whole-word-longest raw planes differ: {raw_words}")
+    flat1m_host, sb1m_host, halo1m_host = scan_batched.build_count_packed(c1m)
+    table1m = flat1m_host.reshape(c1m.num_states, c1m.num_classes)
+    got_tp1m, st1m, w1m = check_tp("1M keywords x 32 Mi units (count-packed table)", table1m,
+                                   cls5, halo1m_host, sb1m_host, N_SHARDS)
+    if got_tp1m["count_packed"] != count1m_32 or got_tp1m["hotstate"] != hot1m_32:
+        raise AssertionError(f"row-sharded 1M table: count {got_tp1m['count_packed']} and "
+                             f"{got_tp1m['hotstate']} hot positions != the single-table "
+                             f"{count1m_32} and {hot1m_32}")
 
     # 4. The paths through the public classes, counters zeroed just before
     # each and read just after it.
@@ -1350,8 +1453,171 @@ def main() -> int:
                 f"{tuple(example[1].shape)} windows, {int((widen(got) != 0).sum())} hot positions")
 
     run_path("graft_entry", ("packed_scan_count", "packed_scan_planes", "wwl_scan_plane",
-                             "wwl_sweep_all", "state_maps", "entry_fold", "rescan", "seq_states"),
+                             "wwl_sweep_all", "state_maps", "entry_fold", "rescan", "seq_states",
+                             "table_sharded_scan"),
              graft_path)
+
+    # The table-sharded scanner: the same mesh read as a model mesh, the
+    # table's rows in eight separate allocations on the one card, held against
+    # the single-device matchers' output on the same text.
+    tp_kernel = ("table_sharded_scan",)
+    tp_scanners = {}
+
+    def row_shards(ts, mode):
+        """The scanner's shards for ``mode``: (tables, distinct allocations)."""
+        tables = ts._built[mode][0]
+        return tables, len({t.data_ptr() for tab in tables for t in tab.shards})
+
+    def tp_kind_path(label, m, full_text, ref, layout, mode, expected=tp_kernel):
+        def drive():
+            ts = sharding.TableShardedScanner(m, mesh)
+            tp_scanners[label] = ts
+            if ts.layout != layout:
+                raise AssertionError(f"{label}: layout {ts.layout}, expected {layout}")
+            got = timed(f"TableShardedScanner {label} match_triples, {N_SHARDS} row shards",
+                        lambda: ts.match_triples(full_text))
+            same_triples(f"TableShardedScanner {label}", got, ref)
+            n = timed(f"TableShardedScanner {label} count, {N_SHARDS} row shards",
+                      lambda: ts.count(full_text))
+            if n != len(ref[0]) or n <= 0:
+                raise AssertionError(f"{label}: table-sharded count {n} != {len(ref[0])}")
+            inner = ts._inner if ts._inner is not None else ts
+            tables, allocations = row_shards(inner, mode)
+            if allocations != N_SHARDS or tables[0].n_model != N_SHARDS:
+                raise AssertionError(f"{label}: {allocations} allocations for {N_SHARDS} shards")
+            return (f"{n} matches on {len(full_text)} units == single-device; layout "
+                    f"{ts.layout}, {N_SHARDS} shards of {tables[0].rows_per} rows x "
+                    f"{tables[0].stride} classes, {allocations} allocations")
+        run_path(f"TableShardedScanner {label}", expected, drive)
+
+    tp_kind_path("AhoCorasickSet", big, text, ac_ref, "planes", "planes")
+    tp_kind_path("LongestMatchSet", matchers["LongestMatchSet"], text,
+                 kind_ref["LongestMatchSet"], "planes", "planes")
+    tp_kind_path("WholeWordMatchSet", matchers["WholeWordMatchSet"], text,
+                 kind_ref["WholeWordMatchSet"], "planes", "planes")
+    tp_kind_path("ShortestMatchSet", matchers["ShortestMatchSet"], text,
+                 kind_ref["ShortestMatchSet"], "shortest", "planes")
+    # The raw plane stays on the card and is swept there.
+    tp_wwl_kernels = tp_kernel + ("wwl_sweep_all",)
+    tp_kind_path("WholeWordLongestMatchSet", big_wwl, text, wwl_triples["scan route"], "wwl",
+                 "raw", tp_wwl_kernels)
+    tp_kind_path("WholeWordLongestMatchSet mixed", mixed, text7, wwl_triples["mixed route"],
+                 "wwl", "raw", tp_wwl_kernels)
+
+    def tp_mesh2_path():
+        out = []
+        for shape in ((2, 4), (4, 2)):
+            ts = sharding.TableShardedScanner(big, sharding.dp_tp_mesh(mesh, shape))
+            got = timed(f"TableShardedScanner AhoCorasickSet match_triples, {shape} mesh",
+                        lambda: ts.match_triples(text))
+            same_triples(f"TableShardedScanner {shape}", got, ac_ref)
+            n = ts.count(text)
+            tables, allocations = row_shards(ts, "planes")
+            if n != len(ac_ref[0]) or len(tables) != shape[0] or allocations != shape[1]:
+                raise AssertionError(f"{shape} mesh: count {n}, {len(tables)} model groups, "
+                                     f"{allocations} allocations")
+            out.append(f"{shape}: count {n} == triples == single-device, {len(tables)} model "
+                       f"groups x {shape[1]} row shards ({allocations} allocations shared)")
+        table, halo, sb = tp_scanners["AhoCorasickSet"]._table, pd.halo, pd.state_bits
+        n = timed(f"sharded_table_count, {N_SHARDS} row shards, upload included",
+                  lambda: sharding.sharded_table_count(table, cls, halo, sb, mesh))
+        if n != len(ac_ref[0]):
+            raise AssertionError(f"sharded_table_count {n} != {len(ac_ref[0])}")
+        # The process-group form has no kernel: on the card it raises.
+        try:
+            sharding.sharded_table_count(table, cls, halo, sb, group=object(), device=dev)
+        except NotImplementedError:
+            pass
+        else:
+            raise AssertionError("the group form of the table-sharded scan ran on the card")
+        return "; ".join(out) + f"; sharded_table_count {n} == count; group= on the card raises"
+
+    run_path("TableShardedScanner data x model meshes, sharded_table_count", tp_kernel,
+             tp_mesh2_path)
+
+    def tp_1m_path():
+        ts = sharding.TableShardedScanner(ac1m, mesh)
+        tp_scanners["1M"] = ts
+        if ts.layout != "hotstate":
+            raise AssertionError(f"1M dictionary: layout {ts.layout}, expected hotstate")
+        n = timed("TableShardedScanner 1M count, upload included", lambda: ts.count(text1m))
+        if n != ONE_M["ac_count"]:
+            raise AssertionError(f"table-sharded 1M count {n} != {ONE_M['ac_count']}")
+        got = timed("TableShardedScanner 1M match_triples", lambda: ts.match_triples(text1m))
+        same_triples("TableShardedScanner 1M", got, ac1m.match_triples(text1m))
+        tables, allocations = row_shards(ts, "hotstate")
+        nbytes = sum(t.nbytes for t in tables[0].shards)
+        if allocations != N_SHARDS or ts._built["count_packed"][0] is not tables or \
+                nbytes < c1m.num_states * c1m.num_classes * 4:
+            raise AssertionError(f"1M dictionary: {allocations} allocations, {nbytes} B")
+        lm = sharding.TableShardedScanner(huge_matchers["LongestMatchSet"], mesh)
+        nl = lm.count(text1m)
+        if nl != ONE_M["longest_count"] or lm.layout != "hotstate":
+            raise AssertionError(f"table-sharded 1M longest count {nl} != "
+                                 f"{ONE_M['longest_count']}")
+        return (f"count {n} == pinned (count_packed mode), triples == the single-device "
+                f"facade's (hotstate mode), Longest {nl} == pinned, on {len(text1m)} units; "
+                f"{c1m.num_states} x {c1m.num_classes} table in {N_SHARDS} allocations of "
+                f"{tables[0].rows_per} rows, {nbytes} B")
+
+    run_path("TableShardedScanner 1M keywords", tp_kernel, tp_1m_path)
+
+    def tp_stream_path():
+        def feed_arrays(st, pieces):
+            parts, i = [], 0
+            for k in pieces:
+                parts.append(st.feed(text[i: i + k], i + k >= len(text)))
+                i += k
+            return [np.concatenate([p[j] for p in parts]) for j in range(3)]
+
+        ts = tp_scanners["AhoCorasickSet"]
+        got = timed(f"TableShardedScanner stream AhoCorasickSet, {len(sizes)} feeds",
+                    lambda: feed_arrays(ts.stream(), sizes))
+        same_triples("TableShardedScanner stream", got, ac_ref)
+        return f"{len(got[0])} matches over {len(sizes)} feeds == match_triples"
+
+    run_path("TableShardedScanner stream AhoCorasickSet", tp_kernel, tp_stream_path)
+
+    def corpus_path():
+        crng = np.random.default_rng(SEED + 11)
+        docs = []
+        for _ in range(CORPUS_DOCS):
+            a = int(crng.integers(0, BASE_UNITS - 4096))
+            docs.append(small[a: a + int(crng.integers(0, 4097))])
+        docs += [text[: 1 << 18], ""]  # one document over the device threshold, one empty
+        m = port.AhoCorasickSet(keywords, engine="device", device=dev)
+        seen = []
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        results, stats = corpus.scan_corpus(m, docs, on_result=lambda i, ms: seen.append(i))
+        sharded_times["scan_corpus"] = time.perf_counter() - t
+        want = [m.match(d) for d in docs]
+        if results != want or seen != list(range(len(docs))) or stats.retries or \
+                stats.gold_fallbacks or stats.documents != len(docs) or \
+                stats.units != sum(map(len, docs)) or \
+                stats.matches != sum(map(len, want)) or stats.matches <= 0:
+            raise AssertionError(f"scan_corpus != match per document: {stats}")
+        # A failing matcher on the card gets its retries and then its own
+        # error, not an answer from the gold engine on the host.
+        calls = []
+
+        def broken(doc, listener=None):
+            calls.append(doc)
+            raise RuntimeError("launch failed")
+
+        m.match = broken
+        try:
+            corpus.scan_corpus(m, docs[:1], max_retries=2)
+        except RuntimeError as e:
+            if str(e) != "launch failed" or len(calls) != 3:
+                raise AssertionError(f"scan_corpus on a failing card matcher: {e!r}, {calls}")
+        else:
+            raise AssertionError("scan_corpus answered from the host for a matcher on the card")
+        del m.match
+        return (f"{stats.documents} documents, {stats.units} units, {stats.matches} matches == "
+                f"match per document, {stats.seconds} s ({stats.gbps} GB/s)")
+
+    run_path("scan_corpus", ("packed_scan_planes",), corpus_path)
     print("time sharded facades (host clock, one call each): "
           + "; ".join(f"{k} {v} s" for k, v in sharded_times.items()) + f" [{smi}]")
     counts = {k: sum(c[k] for c in path_launches.values()) for k in KERNELS}
@@ -1514,6 +1780,29 @@ def main() -> int:
               f"count-packed, {dfa1m.nbytes + emit1m.nbytes} B split): kernel {t_kernel} ms "
               f"({gbps(t_kernel)} GB/s), plain twin {t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
 
+    # The row-sharded scan beside the single-table kernels on the same
+    # windows: the 10k table (every mode; the payload is an emit mask, so
+    # count_packed and hotstate read it as a number), then the 1M table.
+    tp_ms = {mode: cuda_ms((lambda md: lambda: ktp.table_sharded_scan(
+        st10k, w_full, pd.halo, pd.state_bits, md))(mode), 20) for mode in ktp.MODES}
+    tp_plain = {mode: cuda_ms((lambda md: lambda: ktp.table_sharded_scan_plain(
+        st10k, w_full, pd.halo, pd.state_bits, md))(mode), 1) for mode in ("count", "planes")}
+    ms["table_sharded_scan"] = (tp_ms["planes"], tp_plain["planes"])
+    print(f"time table_sharded_scan at {tuple(w_full.shape)} windows, 10k table "
+          f"{tuple(table10k.shape)} in {N_SHARDS} shards of {st10k.rows_per} rows: "
+          + ", ".join(f"{k} {v} ms ({gbps(v)} GB/s)" for k, v in tp_ms.items())
+          + f"; plain twin count {tp_plain['count']} ms, planes {tp_plain['planes']} ms; beside "
+          f"packed_scan_count {ms['packed_scan_count'][0]} ms and packed_scan_planes "
+          f"{ms['packed_scan_planes'][0]} ms in this run [{smi}]")
+    tp1m_ms = {mode: cuda_ms((lambda md: lambda: ktp.table_sharded_scan(
+        st1m, w1m, halo1m_host, sb1m_host, md))(mode), 20) for mode in ("count_packed", "hotstate")}
+    print(f"time table_sharded_scan at {tuple(w1m.shape)} windows, 1M table "
+          f"{tuple(table1m.shape)} ({table1m.nbytes} B) in {N_SHARDS} shards of {st1m.rows_per} "
+          f"rows: " + ", ".join(f"{k} {v} ms ({gbps(v)} GB/s)" for k, v in tp1m_ms.items())
+          + f"; beside packedcount_count {ms['packedcount_count'][0]} ms and "
+          f"packedcount_hotstate_plane {ms['packedcount_hotstate_plane'][0]} ms in this run "
+          f"[{smi}]")
+
     def host_s(fn, reps):
         fn()
         out = []
@@ -1541,6 +1830,15 @@ def main() -> int:
                (f"ShardedScanner AhoCorasickSet match_triples, {N_SHARDS} shards",
                 lambda: sc8.match_triples(text)),
                (f"make_sharded_planes fn(cls), {N_SHARDS} shards", lambda: planes8(cls))]
+    ts10, ts1m = tp_scanners["AhoCorasickSet"], tp_scanners["1M"]
+    facade += [(f"TableShardedScanner AhoCorasickSet count, {N_SHARDS} row shards",
+                lambda: ts10.count(text)),
+               (f"TableShardedScanner AhoCorasickSet match_triples, {N_SHARDS} row shards",
+                lambda: ts10.match_triples(text)),
+               (f"TableShardedScanner 1M AhoCorasickSet count, {N_SHARDS} row shards",
+                lambda: ts1m.count(text5)),
+               (f"TableShardedScanner 1M AhoCorasickSet match_triples, {N_SHARDS} row shards",
+                lambda: ts1m.match_triples(text5))]
     for label, fn in facade:
         runs = host_s(fn, 3)
         med = sorted(runs)[1]
@@ -1592,6 +1890,36 @@ def main() -> int:
         raise AssertionError(f"staged sharded count {n8} != {len(ac_ref[0])}")
     print(f"sharded count stages on {len(text)} units, {N_SHARDS} shards of "
           f"{ordered[0].shape[0]} units: "
+          + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
+
+    # The table-sharded AC match's stages on the 10k dictionary (host windows,
+    # one upload, the row-sharded kernel), then the whole-word-longest
+    # table-sharded path, whose die sweep runs on the card over the raw plane.
+    stages = {}
+    c = stage("classes (UTF-16 encode + charmap)", lambda: big._classes(text))
+    w = stage("windows (chunk_classes)", lambda: scan_batched.chunk_classes(
+        c, 512, pd.halo, table10k.shape[1]))
+    wd = stage("upload", lambda: scan_batched.classes_to_device(w, table10k.shape[1], dev))
+    stage("count kernel + scalar download", lambda: int(ktp.table_sharded_scan(
+        st10k, wd, pd.halo, pd.state_bits, "count")))
+    bits = stage("planes kernel", lambda: ktp.table_sharded_scan(
+        st10k, wd, pd.halo, pd.state_bits, "planes"))
+    stage("extraction (ac_matches_batched: compaction, download, native extract)",
+          lambda: scan_batched.ac_matches_batched(big.compiled, c, bits))
+    print(f"table-sharded stages on {len(text)} units, {N_SHARDS} row shards: "
+          + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
+    stages = {}
+    tsw = tp_scanners["WholeWordLongestMatchSet"]
+    c = stage("classes", lambda: big_wwl._classes(text))
+    cls_pw = np.pad(c, (0, tsw._wwl.halo + 1))
+    raw = stage("raw scan (windows, upload, kernel)", lambda: tsw._scan(cls_pw, "raw")[0])
+    outs_d = stage("die sweep on the card (walks_from_raw)", lambda: scan_wwl.walks_from_raw(
+        tsw._wwl, *tsw._sweep_tables(raw.device), raw, cls_pw, len(c)))
+    outs = stage("download of the outcomes", lambda: [x.cpu().numpy() for x in outs_d])
+    ws_w = stage("word_starts", lambda: word_starts(
+        np.asarray(big_wwl.compiled.class_is_word)[c]))
+    stage("follow_chain", lambda: follow_chain(*outs[:5], ws_w, len(c)))
+    print(f"table-sharded wwl stages on {len(text)} units, {N_SHARDS} row shards: "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
 
     # The whole-word-longest facade's stages: the scan route on the 10k
@@ -1752,6 +2080,9 @@ def main() -> int:
         # a chain of C dependent loads: latency, not bytes
         "entry_fold": (8 * sigma8.shape[0], sigma8.shape[0]),
         "rescan": (8 * K10 + 4, 2 * K10),
+        # the planes mode: windows in, one word per body position out, and the
+        # shard pointers; a division and a pointer load more than the packed scan
+        "table_sharded_scan": (nbytes(w_full, planes_full) + 8 * N_SHARDS, 6 * chars10),
     }
     bounds = {}
     for k, (b, ops) in work.items():

@@ -572,3 +572,90 @@ def test_missing_library_keeps_the_numpy_paths(monkeypatch):
     monkeypatch.delenv("AHOCORASICK_TPU_NO_NATIVE")
     assert port_native.available()
     _same_compiled(got, jax_compiler.compile_matcher(kws, "longest", True))
+
+
+# ------------------------------------- the table-sharded scanner's host needs
+
+
+@pytest.mark.parametrize("name", ["dense", "quirk", "fullnode", "quotient", "mixed",
+                                  "mixed_quotient"])
+def test_walks_from_raw_equal(name):
+    """The sweep of a table-sharded raw plane (``walks_from_raw``) against
+    the JAX package's host sweep of the same plane and against the port's
+    single-table scan with its every-position sweep: pure, mixed and quotient
+    tables, 1-axis and 2-axis meshes."""
+    import torch
+
+    from ahocorasick_tpu.ops import scan_wwl as jax_wwl
+    from ahocorasick_tpu_torch.ops import scan_batched as port_sb
+    from ahocorasick_tpu_torch.ops import scan_wwl as port_wwl
+    from ahocorasick_tpu_torch.parallel import sharding as port_sh
+    from test_torch_wwl import _build, _dictionary
+
+    m, text = _dictionary(name)
+    jsc, psc = _build(jax_wwl, m), _build(port_wwl, carry(m))
+    assert psc.quotient == (name in ("fullnode", "quotient", "mixed_quotient"))
+    assert psc.has_cross == name.startswith("mixed")
+    d = psc.halo
+    cls = m.charmap[jax_chartables.to_utf16_units(text)][:1500]
+    n = len(cls)
+    cls_p = np.pad(cls, (0, d + 1))
+    table = psc.table if psc.row_layout else psc.table.reshape(-1, psc.num_classes)
+    dev = convert.wwl_scan_from_numpy(psc, "cpu")
+    for mesh in (["cpu"] * 3, port_sh.dp_tp_mesh(["cpu"] * 4)):
+        # An even number of windows for the two model groups of the 2-axis mesh.
+        scanned = cls_p if len(mesh) == 3 else np.pad(cls, (0, 2048 - n))
+        raw = port_sh._table_sharded_run(table, scanned, d, psc.id_bits, mesh, 512, "raw")[0]
+        want = jax_wwl.host_walks_from_raw(jsc, port_sb.to_host(raw), cls_p, n)
+        got = port_wwl.walks_from_raw(psc, dev.rows_flat, dev.outrows, raw, cls_p, n)
+        assert len(got) == len(want) == (6 if psc.has_cross else 5)
+        for g, w in zip(got, want):
+            assert g.numpy().dtype == w.dtype and len(g) == n
+            np.testing.assert_array_equal(g.numpy(), w)
+        assert got[1].any()
+    # The single-table form of the same outcomes, on the same windows.
+    windows = port_sb.chunk_classes(cls_p, 512, d, psc.num_classes)
+    n_keep = windows.shape[0] * 512 - (d + 1)
+    every = port_wwl.wwl_scan_walks_all(
+        dev.table, dev.rows_flat, dev.outrows, port_sb.classes_to_device(
+            windows, psc.num_classes, torch.device("cpu")),
+        halo=d, id_bits=psc.id_bits, depth_bits=psc.depth_bits, num_classes=psc.num_classes,
+        d=d, row_layout=psc.row_layout, quotient=psc.quotient, n_keep=n_keep,
+        cross=psc.has_cross)
+    assert n_keep >= n
+    for g, e in zip(got, every):
+        assert torch.equal(g, e[:n])
+
+
+@pytest.mark.parametrize("kws, mixed", [(["a", "ab", "ba", "aab"], False),
+                                        (["new york", "new", "york"], True)])
+def test_wwl_scan_host_is_the_device_tables_numpy(kws, mixed):
+    """One build serves both cache entries, the host copy alone uploads
+    nothing and equals the JAX package's; the device bytes do not count it."""
+    import torch
+
+    import ahocorasick_tpu as act
+    import ahocorasick_tpu_torch as port
+
+    jm = act.WholeWordLongestMatchSet(kws)
+    pm = port.WholeWordLongestMatchSet(kws, device="cpu")
+    name = "wwl_scan_mixed" if mixed else "wwl_scan"
+    host = getattr(pm.dev, name + "_host")
+    assert list(pm.dev._host) == [name] and not pm.dev._cache
+    dev = getattr(pm.dev, name)
+    want = getattr(jm.dev, name + "_host")
+    assert getattr(pm.dev, name + "_host") is host and getattr(pm.dev, name) is dev
+    assert list(pm.dev._cache) == list(pm.dev._host) == [name]
+    for field in host._fields:
+        h, d, w = getattr(host, field), getattr(dev, field), getattr(want, field)
+        if isinstance(h, np.ndarray):
+            assert h.dtype == w.dtype
+            np.testing.assert_array_equal(h, w)
+            np.testing.assert_array_equal(
+                h, d.view(torch.int32).numpy().view(np.uint32) if h.dtype == np.uint32
+                else d.numpy())
+        else:
+            assert h == d == w
+    assert pm.dev.device_bytes() == sum(
+        getattr(dev, f).nbytes for f in ("table", "outrows")) + (
+            dev.rows_flat.nbytes if dev.rows_flat is not None else 0)

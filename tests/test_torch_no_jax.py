@@ -170,6 +170,45 @@ def test_sharded_scanner_and_stitch_run_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_table_sharded_scanner_launch_and_corpus_run_without_loading_jax():
+    code = (
+        "import sys\n"
+        "import torch\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "from ahocorasick_tpu_torch.kernels import table_sharded\n"
+        "from ahocorasick_tpu_torch.ops import scan_batched\n"
+        "from ahocorasick_tpu_torch.parallel import corpus, launch, sharding\n"
+        "cpu = torch.device('cpu')\n"
+        "t = 'ushers and she said hers at new york ' * 40\n"
+        "kw = dict(engine='device', device='cpu')\n"
+        "m = P.AhoCorasickSet(['he', 'she', 'hers'], **kw)\n"
+        "for mesh in ([cpu] * 8, sharding.dp_tp_mesh([cpu] * 8), sharding.model_mesh(['cpu'] * 3)):\n"
+        "    ts = sharding.TableShardedScanner(m, mesh)\n"
+        "    assert ts.count(t) == m.count(t) == 280, ts.count(t)\n"
+        "    assert [x.tolist() for x in ts.match_triples(t)] == [x.tolist() for x in m.match_triples(t)]\n"
+        "    s, e, _ = ts.stream().feed(t, True)\n"
+        "    assert list(zip(s.tolist(), e.tolist())) == m.match(t)\n"
+        "pd = scan_batched.build_packed(m.compiled)\n"
+        "assert sharding.sharded_table_count(pd.table, m._classes(t), pd.halo, pd.state_bits, [cpu] * 4) == 280\n"
+        "for name in ('LongestMatchSet', 'ShortestMatchSet', 'WholeWordMatchSet', 'WholeWordLongestMatchSet'):\n"
+        "    k = getattr(P, name)(['she', 'said', 'hers', 'new'], **kw)\n"
+        "    s, e, _ = sharding.TableShardedScanner(k, [cpu] * 8).match_triples(t)\n"
+        "    assert list(zip(s.tolist(), e.tolist())) == k.match(t), name\n"
+        "deep = P.AhoCorasickSet(['a' * i for i in range(1, 40)] + ['the'], **kw)\n"
+        "th = sharding.TableShardedScanner(deep, [cpu] * 8)\n"
+        "assert th.layout == 'hotstate' and th.count('aaaa the') == 11\n"
+        "assert launch.initialize() is False\n"
+        "shards, off = launch.prepare_process_local(m._classes(t), [cpu] * 2, 2048, num_classes=m.compiled.num_classes)\n"
+        "assert off == 0 and sharding.make_sharded_counter(m, [cpu] * 2)[1](shards) == 280\n"
+        "res, stats = corpus.scan_corpus(m, [t, 'x', 'she'])\n"
+        "assert res == [m.match(t), [], [(0, 3), (1, 3)]] and stats.documents == 3 and stats.matches == 282\n"
+        + _CLEAN
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|ahocorasick_tpu)(?![\w])", re.M)
 
 
@@ -193,7 +232,8 @@ def test_port_sources_never_import_jax():
     sources.append(ROOT / "tests" / "test_torch_sharding_dist.py")
     assert len(sources) > 8
     for name in ("parallel/sharding.py", "parallel/__init__.py", "ops/stitch.py",
-                 "kernels/stitch.py", "resolve/parallel.py", "graft_entry.py"):
+                 "kernels/stitch.py", "resolve/parallel.py", "graft_entry.py",
+                 "kernels/table_sharded.py", "parallel/launch.py", "parallel/corpus.py"):
         assert ROOT / "ahocorasick_tpu_torch" / name in sources, name
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
