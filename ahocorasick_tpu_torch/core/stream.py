@@ -155,9 +155,15 @@ def expand_state_emits(
 
 
 # Feed sizes at/above this ride the parallel planes kernels; below it the
-# sequential scan.  The JAX package's value, carried over like the matchers'
-# _AUTO_DEVICE_MIN_UNITS until both are measured on the card (ROADMAP.md A8).
-_STREAM_DEVICE_MIN = 1 << 14
+# sequential scan.  chip_smoke.py's threshold sweep timed one feed both ways
+# on an NVIDIA H100 80GB HBM3 at 700 W (PERF.md, two runs): the planes
+# path is never slower from 4 Ki units on the 100-, 1,000-, 10k- and
+# 1M-keyword dictionaries (from 1-2 Ki on some), so one constant serves every
+# dictionary.  (The JAX package's is 16 Ki, from TPU costs.)
+_STREAM_DEVICE_MIN = 1 << 12
+# Read size of a device-capable scanner given no chunk_units: the JAX
+# package's, so that both packages chunk a stream alike.
+_STREAM_READ_UNITS = 1 << 14
 _STREAM_CHUNK = 512  # batched-engine chunk length (matchers._BATCH_CHUNK)
 
 
@@ -931,10 +937,9 @@ class StreamScanner:
         default = default_chunk_units(max(m.max_depth, 1))
         if chunk_units is None and dev is not None and engine != "gold":
             # The reference's 4096-unit buffer rule predates the device
-            # engines: feeds below _STREAM_DEVICE_MIN never engage them, so
-            # device-capable scanners default to device-sized reads (the
-            # caller can still pass any chunk_units explicitly).
-            default = max(default, _STREAM_DEVICE_MIN)
+            # engines: device-capable scanners default to device-sized reads
+            # (the caller can still pass any chunk_units explicitly).
+            default = max(default, _STREAM_READ_UNITS)
         self.chunk_units = chunk_units or default
         self.cursor = make_cursor(m, device, dev, engine, ac)
 

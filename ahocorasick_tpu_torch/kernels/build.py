@@ -29,7 +29,8 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
     for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
-                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu", "table_sharded.cu")
+                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu", "table_sharded.cu",
+                 "rowdfa2_scan.cu")
 )
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
@@ -55,6 +56,8 @@ launches = {
     "entry_fold": 0,
     "rescan": 0,
     "table_sharded_scan": 0,
+    "rowdfa2_count": 0,
+    "rowdfa2_planes": 0,
 }
 
 
@@ -75,6 +78,8 @@ ARGTYPES = {
     "packed_scan_planes": _SCAN_ARGS,
     "packedcount_count": _SCAN_ARGS,
     "packedcount_hotstate_plane": _SCAN_ARGS,
+    "rowdfa2_count": _SCAN_ARGS,
+    "rowdfa2_planes": _SCAN_ARGS,
     "split_count": _SPLIT_ARGS,
     "split_emit_planes": _SPLIT_ARGS,
     "compact_tile": [],

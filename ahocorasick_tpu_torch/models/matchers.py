@@ -58,15 +58,21 @@ from ahocorasick_tpu_torch.core.compiler import (
     compile_matcher,
     shortest_survivors,
 )
-from ahocorasick_tpu_torch.ops import dispatch, emit, scan_batched, scan_dfa, scan_wwl
+from ahocorasick_tpu_torch.ops import dispatch, emit, scan_batched, scan_dfa, scan_rowdfa, scan_wwl
 from ahocorasick_tpu_torch.resolve.wholeword import boundary_filter, follow_chain
 from ahocorasick_tpu_torch.utils import chartables
 from ahocorasick_tpu_torch.utils.stats import ScanStats, timed
 
-# Input size (UTF-16 units) from which "auto" takes the device.  The JAX
-# package derives it per engine from TPU costs; this port uses one constant
-# until it is measured on the card (ROADMAP.md A8).
-_AUTO_DEVICE_MIN_UNITS = 1 << 14
+# Input size (UTF-16 units) from which "auto" takes the device: one constant
+# for every dictionary, set from warm calls.  chip_smoke.py's threshold sweep
+# (NVIDIA H100 80GB HBM3, 700 W; PERF.md) timed engine="gold" against a
+# device matcher on 2**8 to 2**20 units over 100-, 1,000-, 10k- and
+# 1M-keyword dictionaries: warm calls are never slower from 0.5-2 Ki units on
+# all four.  A matcher's first device call also builds and uploads its table
+# (break-even there 2 Ki units for 100 keywords, 32 Ki for 10k, 1 Mi for 1M),
+# a cost paid once and not again, so the threshold does not charge it to
+# every call.  The JAX package's thresholds are TPU costs and are not used.
+_AUTO_DEVICE_MIN_UNITS = 1 << 11
 
 # Window body length: B = N / C lanes each scan C steps after the halo.
 _BATCH_CHUNK = 512
@@ -138,6 +144,16 @@ class _DeviceTables:
             self._cache["packed_dfa"] = convert.packed_from_numpy(
                 pd.table, pd.state_bits, pd.halo, self._m.num_classes, self.device)
         return self._cache["packed_dfa"]
+
+    @property
+    def row_dfa(self) -> scan_rowdfa.RowDfa:
+        """The stride-2 row table ``uint32[S*A, A+1]`` (quotient rows for
+        row-compressed matchers) for the stride-2 kernels."""
+        if "row_dfa" not in self._cache:
+            rd = scan_rowdfa.build_rowdfa(self._m)
+            self._cache["row_dfa"] = rd._replace(
+                table=convert._uint32_tensor(rd.table, self.device))
+        return self._cache["row_dfa"]
 
     @property
     def count_packed_dfa(self) -> Tuple[torch.Tensor, int, int]:
@@ -562,20 +578,25 @@ class _PfacEngine(_Matcher):
     a huge dictionary) from the kernel ``ops/dispatch.planes_plan`` picks,
     hot positions compacted on the device, native extraction.
 
-    ``device_engine`` keeps the JAX package's knob for its callers:
-    ``"rowdfa"`` (the default), ``"batched"``, ``"batched2"`` and ``"pfac2"``
-    are accepted and select nothing, since the port has one kernel family
-    and every name gives the same output; any other value raises at scan
-    time."""
+    ``device_engine`` keeps the JAX package's cross-check knob, mapped to the
+    dispatcher's ``force``: ``"rowdfa"`` (the default) and ``"batched"`` take
+    the picked engine (the packed-scan kernels for a dictionary that packs
+    inline), ``"batched2"`` the stride-2 kernels wherever their table fits
+    (``ops/scan_rowdfa.fits``), for counts and planes alike.  ``"pfac2"`` is
+    accepted and selects nothing: the JAX package's START-indexed cross-check
+    walk has no kernel in the port yet.  Every name gives the same output;
+    any other value raises at scan time."""
 
     device_engine = "rowdfa"
-    _DEVICE_ENGINES = ("rowdfa", "batched", "batched2", "pfac2")
+    _DEVICE_ENGINES = {"rowdfa": None, "batched": None, "batched2": "rowdfa2", "pfac2": None}
 
-    def _check_device_engine(self) -> None:
+    def _force(self):
+        """The dispatcher's ``force`` for ``device_engine``."""
         if self.device_engine not in self._DEVICE_ENGINES:
             raise ValueError(
                 f"unknown device_engine {self.device_engine!r}; expected one of "
-                f"{self._DEVICE_ENGINES}")
+                f"{tuple(self._DEVICE_ENGINES)}")
+        return self._DEVICE_ENGINES[self.device_engine]
 
     def _candidates(self, cls: np.ndarray):
         bits, layout = self._end_planes(cls)
@@ -586,8 +607,7 @@ class _PfacEngine(_Matcher):
         ``uint32[P, >=len(cls)]`` with layout ``"planes"``, or the packed
         (state, count) plane with layout ``"hotstate"`` (huge
         dictionaries)."""
-        self._check_device_engine()
-        plan = dispatch.planes_plan(self.compiled, self.dev)
+        plan = dispatch.planes_plan(self.compiled, self.dev, self._force())
         bits = plan.fn(plan.tables, self._windows(cls, plan.halo))
         return bits, ("hotstate" if plan.which == "hotstate" else "planes")
 
@@ -622,8 +642,7 @@ class AhoCorasickSet(_PfacEngine):
         return n
 
     def _device_count(self, cls: np.ndarray):
-        self._check_device_engine()
-        plan = dispatch.count_plan(self.compiled, self.dev)
+        plan = dispatch.count_plan(self.compiled, self.dev, self._force())
         return plan.fn(plan.tables, self._windows(cls, plan.halo))
 
 

@@ -3,14 +3,20 @@
 
 A plan bundles the device tables, the chunker halo and a kernel closure over
 ``chunk_classes``-layout windows, so the matcher's count and planes paths
-cannot drift apart.  The TPU chooser (``scan_rowdfa.pick_engine``: per-char
-cost constants, VMEM budgets, one-hot select, R-round permute) does not carry
-over: on the H100 every dictionary that packs inline, dense or quotient,
-takes the packed-scan kernel family (``which="packed"``).  Dense
-dictionaries whose emit masks do not fit beside the state take the JAX
-package's huge-dictionary layouts, with its ``which``: ``"packedcount"``
+cannot drift apart.  Dictionaries that pack inline take the packed-scan
+kernel family (``which="packed"``, the stride-1 row scan;
+``scan_rowdfa.pick_engine`` gives the H100 timings behind that choice).
+Dense dictionaries whose emit masks do not fit beside the state take the
+JAX package's huge-dictionary layouts, with its ``which``: ``"packedcount"``
 (counts) and ``"hotstate"`` (planes) over the count-packed table when the
-emit counts fit beside the state, else ``"split"`` for both.
+emit counts fit beside the state, else ``"split"`` for both.  The TPU chooser's block engine,
+stride-1 row gather and per-character cost constants do not carry over.
+
+``force`` is the matchers' ``device_engine`` cross-check knob: ``"rowdfa2"``
+(``"batched2"``) takes the stride-2 row kernels (``which="rowdfa2"``)
+wherever ``scan_rowdfa.fits`` holds, else the plan picked without it; the
+JAX package's ``(S*A*A, 2)`` stride-2 table is a TPU gather layout of the
+same words, so the stride-2 row table serves it.
 """
 
 from __future__ import annotations
@@ -18,12 +24,12 @@ from __future__ import annotations
 from typing import Callable, NamedTuple, Tuple
 
 from ahocorasick_tpu_torch.kernels import scan_batched as huge
-from ahocorasick_tpu_torch.kernels import scan_block
-from ahocorasick_tpu_torch.ops import scan_batched
+from ahocorasick_tpu_torch.kernels import scan_block, scan_rowdfa as rowdfa_kernels
+from ahocorasick_tpu_torch.ops import scan_batched, scan_rowdfa
 
 
 class EnginePlan(NamedTuple):
-    which: str  # packed | packedcount | hotstate | split
+    which: str  # rowdfa2 | packed | packedcount | hotstate | split
     halo: int  # left-halo length for chunk_classes
     tables: Tuple  # device tensors; pass back as fn(tables, windows)
     fn: Callable  # fn(tables, windows) -> int64 count | uint32[P, N] planes
@@ -33,6 +39,18 @@ def _packed_plan(dev, kernel) -> EnginePlan:
     pd = dev.packed_dfa
     fn = lambda tables, w: kernel(tables[0], w, pd.halo, pd.state_bits)
     return EnginePlan("packed", pd.halo, (pd.table,), fn)
+
+
+def _rowdfa2_plan(dev, kernel) -> EnginePlan:
+    rd = dev.row_dfa
+    fn = lambda tables, w: kernel(tables[0], w, rd.halo, rd.state_bits, rd.num_classes)
+    return EnginePlan("rowdfa2", rd.halo, (rd.table,), fn)
+
+
+def _stride2(compiled, force) -> bool:
+    if force not in (None, "rowdfa2"):
+        raise ValueError(f"unknown forced engine {force!r}")
+    return force == "rowdfa2" and scan_rowdfa.fits(compiled)
 
 
 def _count_packed_plan(compiled, dev, which, kernel) -> EnginePlan:
@@ -50,8 +68,10 @@ def _split_plan(compiled, dev, kernel) -> EnginePlan:
     return EnginePlan("split", halo, (dfa_flat, emit_tab), fn)
 
 
-def count_plan(compiled, dev) -> EnginePlan:
+def count_plan(compiled, dev, force=None) -> EnginePlan:
     """Plan for the fused count kernels (match count summed on the device)."""
+    if _stride2(compiled, force):
+        return _rowdfa2_plan(dev, rowdfa_kernels.rowdfa2_count)
     if scan_batched.inline_packable(compiled):
         return _packed_plan(dev, scan_block.packed_scan_count)
     if scan_batched.count_packable(compiled):
@@ -61,11 +81,13 @@ def count_plan(compiled, dev) -> EnginePlan:
     return _split_plan(compiled, dev, huge.split_count)
 
 
-def planes_plan(compiled, dev) -> EnginePlan:
+def planes_plan(compiled, dev, force=None) -> EnginePlan:
     """Plan for the END-indexed planes kernels: emit planes ``uint32[P, N]``
-    (``"packed"``, ``"split"``), or the packed (state, count) plane
+    (``"rowdfa2"``, ``"packed"``, ``"split"``), or the packed (state, count) plane
     ``uint32[1, N]`` (``"hotstate"``, decoded by
     ``scan_batched.hotstate_sparse``)."""
+    if _stride2(compiled, force):
+        return _rowdfa2_plan(dev, rowdfa_kernels.rowdfa2_planes)
     if scan_batched.inline_packable(compiled):
         return _packed_plan(dev, scan_block.packed_scan_planes)
     if scan_batched.hotstate_layout(compiled):

@@ -2,15 +2,16 @@
 
 The reference's only observability is test-side ``System.out.println`` of
 nanotimes (``SetTest.java:147-189``).  Here every matcher records a
-:class:`ScanStats` for its last run (``matcher.last_stats``).  The JAX
-module's ``trace()`` wraps ``jax.profiler`` and has no counterpart here yet
-(a ``torch.profiler`` wrapper is ROADMAP.md A10).
+:class:`ScanStats` for its last run (``matcher.last_stats``), and
+:func:`trace` captures a ``torch.profiler`` trace of a block (the JAX
+module's wraps ``jax.profiler``).
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import os
 import time
 from typing import Optional
 
@@ -50,3 +51,24 @@ def timed(stats: ScanStats):
         yield stats
     finally:
         stats.seconds = time.perf_counter() - t0
+
+
+@contextlib.contextmanager
+def trace(log_dir: str = "/tmp/ahocorasick_tpu_torch_trace"):
+    """Capture a ``torch.profiler`` trace of the block: host activity always,
+    the CUDA kernels too when a card is present.  On exit a Chrome trace
+    (view with Perfetto or ``chrome://tracing``) is written under
+    ``log_dir`` as ``trace-<pid>-<ns>.json``."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    with profile(activities=activities) as prof:
+        yield log_dir
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()  # the block's kernels end inside the trace
+    prof.export_chrome_trace(
+        os.path.join(log_dir, f"trace-{os.getpid()}-{time.time_ns()}.json"))

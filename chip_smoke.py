@@ -16,10 +16,11 @@ scan at the same sizes; and the data-parallel ``ShardedScanner`` /
 the table-sharded ``TableShardedScanner`` with the table's rows in eight
 separate allocations on the one card (1-axis and 2-axis meshes, its stream,
 ``sharded_table_count``, the 1M dictionary's 470 MB table), then
-``parallel.corpus.scan_corpus``.  It
-imports the port only: the dictionary and text
-generators of ``bench.py`` and of the JAX package's bench suite are copied
-here.  Phases, each raising on failure:
+``parallel.corpus.scan_corpus``; and the benchmark entry points of
+``ahocorasick_tpu_torch.bench`` (the BASELINE.json suite, the headline, the
+scaling record, a profiled run) with the stride-2 row scan.  It imports the
+port only, the dictionary and text generators included (``bench.headline``,
+``bench.__main__``).  Phases, each raising on failure:
 
 1. the card: ``torch.cuda.get_device_name`` and nvidia-smi's name and power
    limit;
@@ -52,6 +53,11 @@ here.  Phases, each raising on failure:
    five modes on fuzz tables cut into 1, 3 and 8 shards (one with more shards
    than rows), the 10k table at 65,536 x 524 windows, a whole-word-longest
    table in row and flat layout, and the 1M count-packed table in 8 shards;
+   the stride-2 count and planes against their twins and against the packed
+   kernels on the fuzz, demo, uint16, quotient, halo-rounding, one-window,
+   odd-length and state_bits + depth = 32 dictionaries, and on the 100-,
+   1,000- and 10k-keyword dictionaries at 65,536 x 524 windows (timed beside
+   the packed kernels);
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -97,7 +103,12 @@ here.  Phases, each raising on failure:
    dictionary (layout ``hotstate``; count 1,282,185, triples == the
    single-device facade's), ``stream()`` over the same uneven pieces, and
    ``scan_corpus`` over 300 seeded documents == ``match`` per document; every
-   kernel of a path was launched;
+   AC-family kind through ``device_engine="batched2"`` == the default
+   engine's triples, with its ``run_config`` record; ``bench.baseline_suite``
+   (configs 1-4, 6, 7) with the count and planes kernel of each AC-family
+   config; the headline's JSON line (its count == the facade's); the scaling
+   record on the one card; ``--profile`` (the trace's events); every kernel
+   of a path was launched;
 5. times on the card with CUDA events (kernels) and the host clock
    (facade calls and stages), as GB/s = 2 x units / s, the ``bench.py``
    definition; the 1M dictionary's kernels and facade calls on 32 Mi units
@@ -106,7 +117,12 @@ here.  Phases, each raising on failure:
    stop; the sharded facades and the sharded count's stages; the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
    and their stages; the stitched
-   scan beside the sequential scan at the same length; each kernel's bound (bytes over 3.35 TB/s or operations over
+   scan beside the sequential scan at the same length; the ``"auto"``
+   threshold sweep (gold against the device, first and warm calls of
+   ``count`` and ``match_triples``, and the
+   sequential-scan feed against the planes feed, 2**8 to 2**18 units on the
+   100-, 1,000-, 10k- and 1M-keyword dictionaries, with each break-even);
+   each kernel's bound (bytes over 3.35 TB/s or operations over
    67 T/s, whichever is larger) and the compaction's library-call time.
 
 It prints one JSON line of kernel records, then as its last line
@@ -128,8 +144,8 @@ import time
 
 import numpy as np
 
-SEED = 20260817  # bench.SEED
-N_KEYWORDS = 10_000  # bench.N_KEYWORDS
+SEED = 20260817  # bench.headline.SEED
+N_KEYWORDS = 10_000  # bench.headline.N_KEYWORDS
 BASE_UNITS = 1 << 20
 TEXT_UNITS = 1 << 25  # 32 Mi units = 64 MiB of UTF-16
 DEMO = [  # the 20-keyword demo dictionary of __graft_entry__._demo_matcher
@@ -172,6 +188,10 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                "ahocorasick_tpu/ops/stitch.py:68"),
     "table_sharded_scan": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
                            "ahocorasick_tpu/parallel/sharding.py:321"),
+    "rowdfa2_count": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
+                      "ahocorasick_tpu/ops/scan_rowdfa.py:248"),
+    "rowdfa2_planes": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
+                       "ahocorasick_tpu/ops/scan_rowdfa.py:286"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate,
 # and the 32-bit rate outside the tensor cores, taken for these kernels'
@@ -231,51 +251,6 @@ def word_soup(keywords, rng, n_units: int) -> str:
     return text[:n_units]
 
 
-def make_dictionary(rng: np.random.Generator, n: int) -> list:
-    """``bench.make_dictionary``: ``n`` sorted distinct letter-frequency-weighted
-    lowercase keywords of 3-12 letters (the headline dictionary; copied so
-    that the same seed gives the same 10k dictionary)."""
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    freqs = np.array([8.2, 1.5, 2.8, 4.3, 12.7, 2.2, 2.0, 6.1, 7.0, 0.2, 0.8, 4.0,
-                      2.4, 6.7, 7.5, 1.9, 0.1, 6.0, 6.3, 9.1, 2.8, 1.0, 2.4, 0.2,
-                      2.0, 0.1])
-    p = freqs / freqs.sum()
-    words = set()
-    while len(words) < n:
-        length = int(rng.integers(3, 13))
-        words.add("".join(rng.choice(letters, size=length, p=p)))
-    return sorted(words)
-
-
-def english_like_keywords(rng: np.random.Generator, n: int, lo=3, hi=13) -> list:
-    """The generator of the JAX package's bench suite
-    (``ahocorasick_tpu/bench/__main__.py``), copied."""
-    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
-    out = set()
-    while len(out) < n:
-        out.add("".join(rng.choice(letters, size=int(rng.integers(lo, hi)))))
-    return sorted(out)
-
-
-def bench_word_soup(rng: np.random.Generator, keywords: list, n_units: int, hit_rate=0.1) -> str:
-    """The text generator of the JAX package's bench suite, copied: words of
-    the dictionary at ``hit_rate``, else random 3-10-letter words."""
-    pieces = []
-    total = 0
-    kw = list(rng.choice(keywords, size=min(512, len(keywords))))
-    letters = "abcdefghijklmnopqrstuvwxyz"
-    # total counts a trailing separator join never appends, so require one
-    # extra unit: the joined text is then always >= n_units long.
-    while total < n_units + 1:
-        if rng.random() < hit_rate:
-            w = kw[int(rng.integers(len(kw)))]
-        else:
-            w = "".join(rng.choice(list(letters), size=int(rng.integers(3, 11))))
-        pieces.append(w)
-        total += len(w) + 1
-    return " ".join(pieces)[:n_units]
-
-
 def stream_pieces(seed: int, n_units: int) -> list:
     """Seeded uneven feed sizes summing to ``n_units``: log-uniform from 1
     unit to 4 Mi, so that feeds fall on both sides of the streams' device
@@ -310,16 +285,23 @@ def main() -> int:
     from ahocorasick_tpu_torch.kernels import scan_batched as khuge
     from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
     from ahocorasick_tpu_torch.kernels import stitch as kstitch
+    from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow
     from ahocorasick_tpu_torch.kernels import table_sharded as ktp
     from ahocorasick_tpu_torch.native import build as native_build
     from ahocorasick_tpu_torch.native import lib as native_lib
-    from ahocorasick_tpu_torch import graft_entry
-    from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl, stitch
+    from ahocorasick_tpu_torch import bench, graft_entry
+    from ahocorasick_tpu_torch.bench import __main__ as bench_main
+    from ahocorasick_tpu_torch.bench import headline
+    from ahocorasick_tpu_torch.bench.__main__ import english_like_keywords
+    from ahocorasick_tpu_torch.bench.__main__ import word_soup as bench_word_soup
+    from ahocorasick_tpu_torch.bench.headline import make_dictionary
+    from ahocorasick_tpu_torch.ops import dispatch, scan_batched, scan_wwl, stitch
     from ahocorasick_tpu_torch.parallel import corpus, sharding
     from ahocorasick_tpu_torch.resolve.wholeword import follow_chain, word_starts
     from ahocorasick_tpu_torch.utils import chartables
 
     dev = torch.device("cuda")
+    t_start = time.perf_counter()
 
     # 1. The card.
     name = torch.cuda.get_device_name(0)
@@ -344,6 +326,17 @@ def main() -> int:
         for line in fh.read().splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print(f"  ptxas: {line.strip()}")
+
+    def cuda_ms(fn, reps):
+        fn()
+        torch.cuda.synchronize()
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(stop) / reps
 
     def windows(m, cls, chunk):
         pd = m.dev.packed_dfa
@@ -393,6 +386,60 @@ def main() -> int:
         if e_count or e_planes:
             raise AssertionError(f"{label}: kernel disagrees with its plain twin")
         check_compact(label, planes)
+        return kc
+
+    rowdfa_ms = {}  # dictionary label: kernel, twin and packed-kernel ms at the main shape
+
+    def check_rowdfa(label, m, cls, chunk, timed=False):
+        """The stride-2 kernels against their twins and against the packed
+        kernels on the same text, bit for bit; with ``timed``, ms per launch
+        of each beside the packed kernels in the same run."""
+        t_build = time.perf_counter()
+        rd = m.dev.row_dfa
+        torch.cuda.synchronize()
+        t_build = time.perf_counter() - t_build
+        pd = m.dev.packed_dfa
+        nc = m.compiled.num_classes
+        w2 = scan_batched.classes_to_device(
+            scan_batched.chunk_classes(cls, chunk, rd.halo, nc), nc, dev)
+        w1 = windows(m, cls, chunk)
+        a2 = (rd.table, w2, rd.halo, rd.state_bits, rd.num_classes)
+        a1 = (pd.table, w1, pd.halo, pd.state_bits)
+        kc, pc = int(krow.rowdfa2_count(*a2)), int(krow.rowdfa_count_plain(*a2))
+        packed_c = int(scan_block.packed_scan_count(*a1))
+        kp = widen(krow.rowdfa2_planes(*a2))
+        pp = widen(krow.rowdfa_emit_planes_plain(*a2))
+        packed_p = widen(scan_block.packed_scan_planes(*a1))
+        torch.cuda.synchronize()
+        e_count = max(abs(kc - pc), abs(kc - packed_c))
+        e_planes = max(int((kp - pp).abs().max()), int((kp - packed_p).abs().max()))
+        errs["rowdfa2_count"] = max(errs["rowdfa2_count"], e_count)
+        errs["rowdfa2_planes"] = max(errs["rowdfa2_planes"], e_planes)
+        print(f"  rowdfa2 {label}: table {tuple(rd.table.shape)} ({rd.table.nbytes} B), "
+              f"B={w2.shape[0]} W={w2.shape[1]} halo={rd.halo} (packed {pd.halo}) "
+              f"{str(w2.dtype).replace('torch.', '')} state_bits={rd.state_bits} depth "
+              f"{m.compiled.max_depth}; count={kc} twin={pc} packed={packed_c}; planes "
+              f"max_abs_err={e_planes} (twin and packed)")
+        if e_count or e_planes:
+            raise AssertionError(f"rowdfa2 {label}: kernel disagrees with its twin or the packed "
+                                 f"kernel")
+        if timed:
+            rowdfa_ms[label] = {
+                "rowdfa2_count": cuda_ms(lambda: krow.rowdfa2_count(*a2), 20),
+                "packed_scan_count": cuda_ms(lambda: scan_block.packed_scan_count(*a1), 20),
+                "rowdfa2_planes": cuda_ms(lambda: krow.rowdfa2_planes(*a2), 20),
+                "packed_scan_planes": cuda_ms(lambda: scan_block.packed_scan_planes(*a1), 20),
+                "rowdfa2_count twin": cuda_ms(lambda: krow.rowdfa_count_plain(*a2), 2),
+                "rowdfa2_planes twin": cuda_ms(lambda: krow.rowdfa_emit_planes_plain(*a2), 2),
+                "table_bytes": rd.table.nbytes, "shape": tuple(w2.shape), "args": a2}
+            t = rowdfa_ms[label]
+            print(f"  time rowdfa2 {label} at {tuple(w2.shape)} windows: count "
+                  f"{t['rowdfa2_count']} ms [packed_scan_count {t['packed_scan_count']} ms] = "
+                  f"{t['rowdfa2_count'] / t['packed_scan_count']} x; planes "
+                  f"{t['rowdfa2_planes']} ms [packed_scan_planes {t['packed_scan_planes']} ms] = "
+                  f"{t['rowdfa2_planes'] / t['packed_scan_planes']} x; twins "
+                  f"{t['rowdfa2_count twin']} / {t['rowdfa2_planes twin']} ms; the table's "
+                  f"host build and upload (first use) {t_build * 1e3} ms [{smi}]")
         return kc
 
     def check_shortest(label, tabs, cls):
@@ -540,6 +587,7 @@ def main() -> int:
         m = port.AhoCorasickSet(kws, engine="device", device=dev)
         text = "".join(r.choice(list("abcdefgh "), size=20_000 + 77 * seed))
         check(f"fuzz seed {seed}", m, m._classes(text), 512)
+        check_rowdfa(f"fuzz seed {seed}", m, m._classes(text), 512)
         sm = compile_matcher(kws[::3], "shortest", True)
         tabs = port.ShortestMatchSet.from_compiled(sm, device=dev).dev
         assert check_shortest(f"fuzz seed {seed}", tabs, sm.charmap[
@@ -547,11 +595,13 @@ def main() -> int:
     m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
     demo_text = word_soup(DEMO, rng, 50_000)
     assert check("demo 20 keywords", m, m._classes(demo_text), 512) > 0
+    check_rowdfa("demo 20 keywords", m, m._classes(demo_text), 512)
     wide_kws = [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)]
     m = port.AhoCorasickSet(wide_kws, engine="device", device=dev)
     assert m.compiled.num_classes > 256
     wide_text = "".join(chr(0x100 + int(c)) for c in rng.integers(0, 300, size=30_000))
     assert check(">256 classes (uint16)", m, m._classes(wide_text), 512) > 0
+    check_rowdfa(">256 classes (uint16)", m, m._classes(wide_text), 512)
     ws = port.ShortestMatchSet.from_compiled(
         compile_matcher(wide_kws, "shortest", True), device=dev)
     check_shortest(">256 classes (uint16)", ws.dev, ws._classes(wide_text[:2000]))
@@ -559,6 +609,19 @@ def main() -> int:
     abc_text = "".join(rng.choice(list("abc "), size=9_999))
     assert check("halo 11 > chunk 4", m, m._classes(abc_text), 4) > 0
     check("one window", m, m._classes(abc_text[:300]), 512)
+    check_rowdfa("depth 11 (halo rounded to 12) > chunk 4", m, m._classes(abc_text), 4)
+    check_rowdfa("one window, odd length", m, m._classes(abc_text[:301]), 512)
+    # state_bits + depth exactly 32 (12 + 20), and the stride-2 kernels on the
+    # dictionaries of the suite's configs 1 and 4 and the 10k one, at the main
+    # path's 65,536 x 524 windows, timed beside the packed kernels.
+    r32 = np.random.default_rng(5)
+    kws32 = sorted({"".join(r32.choice(list("abcdefgh"), size=int(r32.integers(3, 9))))
+                    for _ in range(700)}) + ["abcdefghabcdefghabcd"]
+    m = port.AhoCorasickSet(kws32, engine="device", device=dev)
+    if max(int(m.compiled.num_states - 1).bit_length(), 1) + m.compiled.max_depth != 32:
+        raise AssertionError("the boundary dictionary does not have state_bits + depth = 32")
+    check_rowdfa("state_bits + depth = 32", m, m._classes(
+        "".join(r32.choice(list("abcdefgh "), size=40_001)) + kws32[-1]), 512)
     # P = 2 with a ragged tile edge, from its own generator so that the main
     # path's text stays the one earlier runs measured.
     srng = np.random.default_rng(SEED + 1)
@@ -581,6 +644,16 @@ def main() -> int:
           f"{pd.table.nbytes} B), depth {big.compiled.max_depth}, "
           f"state_bits {pd.state_bits}")
     count10k = check("10k keywords x 32 Mi units", big, cls, 512)
+    suite_dicts = {"100 keywords (suite config 1)": english_like_keywords(np.random.default_rng(0), 100),
+                   "1,000 keywords (suite config 4's size)": english_like_keywords(
+                       np.random.default_rng(0), 1000)}
+    for label, kws_r in suite_dicts.items():
+        m = port.AhoCorasickSet(kws_r, engine="device", device=dev)
+        base_r = bench_word_soup(np.random.default_rng(SEED + 12), kws_r, BASE_UNITS)
+        check_rowdfa(f"{label} x 32 Mi units", m, m._classes(base_r * (TEXT_UNITS // BASE_UNITS)),
+                     512, timed=True)
+    if check_rowdfa("10k keywords x 32 Mi units", big, cls, 512, timed=True) != count10k:
+        raise AssertionError("rowdfa2 10k count != the packed count")
     short_compiled = compile_matcher(keywords, "shortest", True)
     restart = port.ShortestMatchSet.from_compiled(short_compiled, engine="device", device=dev)
     short_cls = restart._classes(text[:SHORTEST_TWIN_UNITS])
@@ -620,6 +693,9 @@ def main() -> int:
     rows_kws = fuzz_keywords(rows_rng, "abcdef", 200, 9)
     rows_m = port.AhoCorasickSet(rows_kws, engine="gold", device=dev, thresholder=NeverDense())
     rows_tab = rows_m.dev.seq_tables
+    rows_dev = port.AhoCorasickSet(rows_kws, engine="device", device=dev, thresholder=NeverDense())
+    check_rowdfa("fuzz quotient rows", rows_dev, rows_dev._classes(
+        "".join(rows_rng.choice(list("abcdefgh "), size=30_001))), 512)
     assert rows_m.compiled.is_row_compressed and rows_tab[1] is not None
     rows_cls = rows_m._classes("".join(rows_rng.choice(list("abcdefgh "), size=1 << 16)))
     s_mid = int(check_seq("fuzz RowTable, warm-up", *rows_tab, rows_cls[:1000], 0)[-1]) or 1
@@ -870,10 +946,11 @@ def main() -> int:
 
     def run_path(label, expected, fn):
         port.reset_launches()
+        t = time.perf_counter()
         detail = fn()
         counts = dict(port.launches)
         path_launches[label] = counts
-        print(f"path {label}: {detail}; launches "
+        print(f"path {label} ({time.perf_counter() - t:.1f} s): {detail}; launches "
               f"{ {k: v for k, v in counts.items() if v} }")
         missing = [k for k in expected if counts[k] < 1]
         if missing:
@@ -1618,6 +1695,123 @@ def main() -> int:
                 f"match per document, {stats.seconds} s ({stats.gbps} GB/s)")
 
     run_path("scan_corpus", ("packed_scan_planes",), corpus_path)
+
+    # The benchmark entry points (the port's bench package): every kind of
+    # the AC family through device_engine="batched2" (the stride-2 kernels on
+    # the 10k dictionary's 152 MB table), the BASELINE.json suite, the
+    # headline, the scaling record and a profiled run.
+    bench_out = {}
+
+    def batched2_path():
+        out = []
+        engines = port.models.matchers._PfacEngine
+        for name in ("AhoCorasickSet", "LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet",
+                     "LongestMatchMap"):
+            args = (keywords, [f"v{i}" for i in range(len(keywords))]) if name.endswith("Map") \
+                else (keywords,)
+            want = getattr(port, name)(*args, engine="device", device=dev).match_triples(small)
+            engines.device_engine = "batched2"
+            try:
+                m = getattr(port, name)(*args, engine="device", device=dev)
+                got = m.match_triples(small)
+                inner = m._ac if name.startswith("Shortest") else m
+                which = (dispatch.planes_plan(inner.compiled, inner.dev, inner._force()).which,
+                         dispatch.count_plan(inner.compiled, inner.dev, inner._force()).which)
+                rec = bench_main.run_config(
+                    f"batched2-{name}", kind=m.kind, is_map=m.is_map, keywords=keywords,
+                    case_sensitive=True, text=small, reps=1, device=dev)
+            finally:
+                engines.device_engine = "rowdfa"
+            for g, w in zip(got, want):
+                if not np.array_equal(g, w):
+                    raise AssertionError(f"{name} batched2 triples != the default engine's")
+            if which != ("rowdfa2", "rowdfa2") or rec["matches"] != len(want[0]) or \
+                    not len(want[0]):
+                raise AssertionError(f"{name} batched2: plans {which}, record {rec}, "
+                                     f"{len(want[0])} triples")
+            print(json.dumps(rec))
+            out.append(f"{name} {len(want[0])} (plans {which[0]}, {which[1]})")
+        return (f"device_engine=batched2 == the default engine on {len(small)} units: "
+                + ", ".join(out) + f"; the records above were measured on [{smi}]")
+
+    run_path("device_engine=batched2, every AC-family kind", ("rowdfa2_count", "rowdfa2_planes",
+                                                              "compact_planes"), batched2_path)
+
+    def suite_path():
+        picked = []
+        real = bench.ac_kernel_rate
+
+        def recording(m, *a, **k):
+            rate = real(m, *a, **k)
+            picked.append((m.compiled.num_states, rate[2], dispatch.planes_plan(
+                m.compiled, m.dev).which))
+            return rate
+
+        bench.ac_kernel_rate = recording
+        t = time.perf_counter()
+        try:
+            bench_main.baseline_suite(full=False, reps=2, seed=0, device=dev)
+        finally:
+            bench.ac_kernel_rate = real
+        bench_out["suite_s"] = time.perf_counter() - t
+        return (f"baseline_suite(full=False, reps=2, seed=0) in {bench_out['suite_s']} s; "
+                f"AC-family configs (states, count kernel, planes kernel) in order: {picked}; "
+                f"the records above were measured on [{smi}]")
+
+    run_path("bench baseline_suite", ("packed_scan_count", "packed_scan_planes", "compact_planes",
+                                      "wwl_scan_plane", "wwl_sweep_at"), suite_path)
+
+    def headline_path():
+        res = headline.measure(dev)
+        print(json.dumps(res["line"]))
+        rng_h = np.random.default_rng(headline.SEED)
+        kws_h = headline.make_dictionary(rng_h, headline.N_KEYWORDS)
+        base_h = headline.make_text_classes(big, kws_h, rng_h, headline.BASE_UNITS)
+        want = int(big._device_count(np.tile(base_h, TEXT_UNITS // headline.BASE_UNITS)))
+        if kws_h != keywords or res["total"] != want or res["which"] != headline.HEADLINE_ENGINE:
+            raise AssertionError(f"headline: total {res['total']} != {want} or engine "
+                                 f"{res['which']}")
+        bench_out["headline"] = res
+        return (f"{res['line']}; {res['which']} count over {res['shape']} windows == the "
+                f"facade's count ({want}); {res['seconds_per_scan'] * 1e3} ms per scan from "
+                f"reps lo/hi {res['reps']} [{smi}]")
+
+    run_path("bench.headline", ("packed_scan_count",), headline_path)
+
+    def scaling_path():
+        buf = io.StringIO()
+        real_stdout, sys.stdout = sys.stdout, buf
+        try:
+            bench_main.scaling_bench(10_000, 1 << 20, 4, 0)
+        finally:
+            sys.stdout = real_stdout
+        recs = [json.loads(line) for line in buf.getvalue().splitlines()]
+        for r in recs:
+            print(json.dumps(r))
+        if [r["devices"] for r in recs] != [1] or recs[0]["efficiency_vs_1"] != 1.0:
+            raise AssertionError(f"scaling_bench on one card: {recs}")
+        return f"{len(recs)} record on {torch.cuda.device_count()} card: {recs[0]} [{smi}]"
+
+    run_path("bench scaling_bench", ("packed_scan_count",), scaling_path)
+
+    def profile_path():
+        with tempfile.TemporaryDirectory() as tmp:
+            bench_main.main(["--kind", "ac", "--keywords", "1000", "--units", str(1 << 20),
+                             "--reps", "1", "--profile", tmp])
+            files = [os.path.join(tmp, f) for f in os.listdir(tmp)]
+            if len(files) != 1 or not os.path.getsize(files[0]):
+                raise AssertionError(f"--profile wrote {files}")
+            size = os.path.getsize(files[0])
+            with open(files[0]) as fh:
+                trace = json.load(fh)
+        events = trace.get("traceEvents", [])
+        device = sorted({e.get("name", "")[:60] for e in events
+                         if e.get("cat") == "kernel"})
+        launches_seen = sum("cudaLaunchKernel" in e.get("name", "") for e in events)
+        return (f"--profile wrote one Chrome trace of {size} B, {len(events)} events; "
+                f"{launches_seen} cudaLaunchKernel calls; device kernels in it: {device}")
+
+    run_path("bench --profile", ("packed_scan_count",), profile_path)
     print("time sharded facades (host clock, one call each): "
           + "; ".join(f"{k} {v} s" for k, v in sharded_times.items()) + f" [{smi}]")
     counts = {k: sum(c[k] for c in path_launches.values()) for k in KERNELS}
@@ -1626,17 +1820,6 @@ def main() -> int:
     w_full = windows(big, cls, 512)
     args = (pd.table, w_full, pd.halo, pd.state_bits)
     planes_full = scan_block.packed_scan_planes(*args)
-
-    def cuda_ms(fn, reps):
-        fn()
-        torch.cuda.synchronize()
-        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        for _ in range(reps):
-            fn()
-        stop.record()
-        torch.cuda.synchronize()
-        return start.elapsed_time(stop) / reps
 
     gbps = lambda ms: 2 * len(text) / (ms * 1e-3) / 1e9
     ms = {
@@ -2038,6 +2221,92 @@ def main() -> int:
           f"download, {len(idx)} hot positions, {len(starts)} matches): "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
 
+    # The "auto" thresholds: engine="gold" against engine="device" per input
+    # size: the device's first count and first match_triples (a fresh matcher
+    # over the same compiled automaton: table build and upload included) and
+    # warm counts; and for streams, one feed through the sequential-scan
+    # kernel against the planes kernel (core/stream._CandidateSource, warm).
+    # Break-even: the smallest size from which the device is never slower in
+    # the sweep.  The 1M dictionary's first calls (a 470 MB table build) are
+    # timed at three sizes, up to 1 Mi units.
+    sweep_sizes = [1 << k for k in range(8, 19)]
+    sweep_texts = [(f"{len(kws_r)} keywords", port.AhoCorasickSet(kws_r, engine="device", device=dev),
+                    bench_word_soup(np.random.default_rng(SEED + 13), kws_r, sweep_sizes[-1]))
+                   for kws_r in suite_dicts.values()]
+    sweep_texts += [("10k keywords", big, text[: sweep_sizes[-1]]),
+                    ("1M keywords", ac1m, text5[: 1 << 20])]
+    first_1m = (sweep_sizes[0], 1 << 18, 1 << 20)
+
+    def once(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t
+
+    def break_even(rows, fast, slow):
+        ok = [r[fast] is not None and r[fast] <= r[slow] for r in rows]
+        for i in range(len(rows)):
+            if all(ok[i:]):
+                return rows[i]["n"]
+        return None
+
+    sweep = {}
+    for label, m, t_sweep in sweep_texts:
+        gold_m = port.AhoCorasickSet.from_compiled(m.compiled, engine="gold", device=dev)
+        src_seq = stream_mod._CandidateSource(m.compiled, dev, m.dev, "gold")
+        src_dev = stream_mod._CandidateSource(m.compiled, dev, m.dev, "device")
+        cls_sweep = m._classes(t_sweep)
+        rows = []
+        for n in sweep_sizes + ([1 << 19, 1 << 20] if m is ac1m else []):
+            t_n, c_n = t_sweep[:n], cls_sweep[:n]
+            first = first_match = None
+            if m is not ac1m or n in first_1m:
+                fresh = port.AhoCorasickSet.from_compiled(m.compiled, engine="device", device=dev)
+                first = once(lambda: fresh.count(t_n))
+                fresh = port.AhoCorasickSet.from_compiled(m.compiled, engine="device", device=dev)
+                first_match = once(lambda: fresh.match_triples(t_n))
+            m.count(t_n)
+            src_seq.candidates(c_n, 0)
+            src_dev.candidates(c_n, 0)
+            m.match_triples(t_n)
+            rows.append({
+                "n": n, "gold": min(once(lambda: gold_m.count(t_n)) for _ in range(2)),
+                "gold_match": once(lambda: gold_m.match_triples(t_n)),
+                "first": first, "first_match": first_match,
+                "warm": min(once(lambda: m.count(t_n)) for _ in range(3)),
+                "warm_match": min(once(lambda: m.match_triples(t_n)) for _ in range(2)),
+                "seq": min(once(lambda: src_seq.candidates(c_n, 0)) for _ in range(3)),
+                "planes": min(once(lambda: src_dev.candidates(c_n, 0)) for _ in range(3))})
+            if m.last_stats.engine != "device" or gold_m.last_stats.engine != "gold":
+                raise AssertionError(f"threshold sweep {label}: engines {m.last_stats.engine}, "
+                                     f"{gold_m.last_stats.engine}")
+        firsts = [r for r in rows if r["first"] is not None]
+        sweep[label] = {"rows": rows, "warm": break_even(rows, "warm", "gold"),
+                        "warm_match": break_even(rows, "warm_match", "gold_match"),
+                        "first": break_even(firsts, "first", "gold"),
+                        "first_match": break_even(firsts, "first_match", "gold_match"),
+                        "stream": break_even(rows, "planes", "seq"),
+                        "plan": dispatch.count_plan(m.compiled, m.dev).which}
+        for r in rows:
+            firsts = ("not measured" if r["first"] is None else
+                      f"{r['first'] * 1e3} ms, match_triples {r['first_match'] * 1e3} ms")
+            print(f"sweep {label}, {r['n']} units: gold count {r['gold'] * 1e3} ms, "
+                  f"match_triples {r['gold_match'] * 1e3} ms; device first call count {firsts}; "
+                  f"device warm count {r['warm'] * 1e3} ms, match_triples "
+                  f"{r['warm_match'] * 1e3} ms; stream feed: "
+                  f"sequential scan "
+                  f"{r['seq'] * 1e3} ms, planes kernel {r['planes'] * 1e3} ms [{smi}]")
+        sw = sweep[label]
+        print(f"sweep {label} ({m.compiled.num_states} states, count plan {sw['plan']}): "
+              f"break-even warm {sw['warm']} units (count) and {sw['warm_match']} units "
+              f"(match_triples), first call {sw['first']} units (count) and "
+              f"{sw['first_match']} units (match_triples, planes plan "
+              f"{dispatch.planes_plan(m.compiled, m.dev).which}), stream "
+              f"feed {sw['stream']} units; _AUTO_DEVICE_MIN_UNITS "
+              f"{port.models.matchers._AUTO_DEVICE_MIN_UNITS}, _STREAM_DEVICE_MIN "
+              f"{stream_mod._STREAM_DEVICE_MIN} [{smi}]")
+
     # The least time the card could take for each kernel's timed call: the
     # bytes it must move (each streamed input read once, each output written
     # once, at this run's sizes) over the memory rate, or its operations over
@@ -2053,6 +2322,10 @@ def main() -> int:
         return total
 
     chars10, chars_w, chars5 = w_full.numel(), wd10.numel(), w5.numel()
+    row10 = rowdfa_ms["10k keywords x 32 Mi units"]
+    w_row = row10["args"][1]
+    for k in ("rowdfa2_count", "rowdfa2_planes"):
+        ms[k] = (row10[k], row10[k + " twin"])
     hot_out = compact.compact_planes(planes_full)
     n64 = len(short_cls)
     work = {  # name: (bytes, operations)
@@ -2083,6 +2356,11 @@ def main() -> int:
         # the planes mode: windows in, one word per body position out, and the
         # shard pointers; a division and a pointer load more than the packed scan
         "table_sharded_scan": (nbytes(w_full, planes_full) + 8 * N_SHARDS, 6 * chars10),
+        # windows in (a count out, or 4 B per body position), one lookup per
+        # pair but the same shifts and popcounts per position
+        "rowdfa2_count": (nbytes(w_row) + 8, 4 * w_row.numel()),
+        "rowdfa2_planes": (nbytes(w_row) + 4 * w_row.shape[0] * (w_row.shape[1] - row10["args"][2]),
+                           4 * w_row.numel()),
     }
     bounds = {}
     for k, (b, ops) in work.items():
@@ -2103,6 +2381,7 @@ def main() -> int:
     print(f"time library compact (torch.nonzero + gather, P = 1, {plane0.numel()} positions): "
           f"{library['compact_planes']} ms [{smi}]")
 
+    print(f"chip_smoke: {time.perf_counter() - t_start} s from the build to here [{smi}]")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
          "launches": counts[k], "max_abs_err": errs[k],

@@ -180,7 +180,10 @@ def test_expand_state_emits_equals_jax():
 
 
 def test_constants_and_chunk_rule_equal_jax():
-    assert port_stream._STREAM_DEVICE_MIN == jax_stream._STREAM_DEVICE_MIN == 1 << 14
+    # The device threshold is the card's own (PERF.md); the read size
+    # of a device-capable scanner is the JAX package's, so streams chunk alike.
+    assert port_stream._STREAM_READ_UNITS == jax_stream._STREAM_DEVICE_MIN == 1 << 14
+    assert port_stream._STREAM_DEVICE_MIN == 1 << 12
     assert port_stream._STREAM_CHUNK == jax_stream._STREAM_CHUNK == 512
     for d in (1, 7, 2048, 2049, 5000):
         assert port_stream.default_chunk_units(d) == jax_stream.default_chunk_units(d)

@@ -209,6 +209,44 @@ def test_table_sharded_scanner_launch_and_corpus_run_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_bench_and_stride2_scan_run_without_loading_jax():
+    code = (
+        "import io, os, sys, tempfile, contextlib\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "from ahocorasick_tpu_torch import bench\n"
+        "from ahocorasick_tpu_torch.bench import __main__ as bench_main, headline\n"
+        "from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow\n"
+        "from ahocorasick_tpu_torch.ops import dispatch, scan_batched, scan_rowdfa\n"
+        "from ahocorasick_tpu_torch.utils.stats import trace\n"
+        "m = P.AhoCorasickSet(['he', 'she', 'hers'], engine='device', device='cpu')\n"
+        "t = 'ushers and she said hers ' * 30\n"
+        "rd = scan_rowdfa.build_rowdfa(m.compiled)\n"
+        "assert rd.table.shape == (rd.table.shape[0], m.compiled.num_classes + 1)\n"
+        "assert dispatch.planes_plan(m.compiled, m.dev).which == 'packed'\n"
+        "m.device_engine = 'batched2'\n"
+        "assert dispatch.planes_plan(m.compiled, m.dev, m._force()).which == 'rowdfa2'\n"
+        "assert m.count(t) == 210 and m.match(t)[:3] == [(1, 4), (2, 4), (2, 6)]\n"
+        "assert bench.ac_kernel_rate(m, m._classes(t), reps=1, min_units=1)[1:] == (210, 'rowdfa2')\n"
+        "with tempfile.TemporaryDirectory() as d:\n"
+        "    with trace(d):\n"
+        "        m.count(t)\n"
+        "    assert [os.path.getsize(os.path.join(d, f)) > 0 for f in os.listdir(d)] == [True]\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    bench_main.main(['--platform', 'cpu', '--keywords', '20', '--units', '500', '--reps', '1'])\n"
+        "    os.environ['BENCH_TEXT_UNITS'] = '4096'; os.environ['BENCH_BUDGET_S'] = '1'\n"
+        "    headline.main('cpu')\n"
+        "lines = out.getvalue().splitlines()\n"
+        "assert len(lines) == 2 and '\"metric\": \"dfa_scan_throughput\"' in lines[1], lines\n"
+        + _CLEAN
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|ahocorasick_tpu)(?![\w])", re.M)
 
 
@@ -233,7 +271,9 @@ def test_port_sources_never_import_jax():
     assert len(sources) > 8
     for name in ("parallel/sharding.py", "parallel/__init__.py", "ops/stitch.py",
                  "kernels/stitch.py", "resolve/parallel.py", "graft_entry.py",
-                 "kernels/table_sharded.py", "parallel/launch.py", "parallel/corpus.py"):
+                 "kernels/table_sharded.py", "parallel/launch.py", "parallel/corpus.py",
+                 "bench/__init__.py", "bench/__main__.py", "bench/headline.py",
+                 "ops/scan_rowdfa.py", "kernels/scan_rowdfa.py", "utils/stats.py"):
         assert ROOT / "ahocorasick_tpu_torch" / name in sources, name
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []

@@ -530,7 +530,7 @@ def test_cursors_take_an_explicit_device():
     with pytest.raises(ValueError, match="table cache"):
         port_stream.make_cursor(p.compiled, "cpu", _Elsewhere())
     sc = p._stream_scanner(None)
-    assert sc.chunk_units == port_stream._STREAM_DEVICE_MIN  # device-sized reads
+    assert sc.chunk_units == port_stream._STREAM_READ_UNITS  # device-sized reads
     assert p._stream_scanner(5).chunk_units == 5
     g, _ = _pair("AhoCorasickSet", "gold")
     assert g._stream_scanner(None).chunk_units == 4096
