@@ -48,6 +48,20 @@ def _seconds_per_rep(run, reps: int, device: torch.device) -> float:
     return min(_elapsed(run, reps, device) for _ in range(3)) / reps
 
 
+def _best_pair(time_lo, time_hi, rounds: int = 3, stop=None):
+    """Paired differencing: ``(best lo, best hi)`` over ``rounds`` alternating
+    timings of a call doing ``hi`` units of work and one doing ``lo``; their
+    difference is the time of ``hi - lo`` units with each call's fixed cost
+    cancelled.  ``stop(seconds of the last pair)`` may end the rounds early."""
+    his, los = [], []
+    for _ in range(rounds):
+        his.append(time_hi())
+        los.append(time_lo())
+        if stop is not None and stop(his[-1] + los[-1]):
+            break
+    return min(los), min(his)
+
+
 def _reps_for(reps: int, min_units: int, n: int) -> int:
     """``reps``, raised so that a timed call scans at least ``min_units``."""
     return max(reps, -(-min_units // max(n, 1)))

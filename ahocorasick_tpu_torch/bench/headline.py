@@ -92,7 +92,7 @@ def measure(device=None) -> dict:
     fields under ``"line"``, and the measurement behind them (``which``, one
     scan's ``total``, ``seconds_per_scan``, ``reps`` lo and hi, the windows'
     ``shape``)."""
-    from ahocorasick_tpu_torch.bench import _elapsed
+    from ahocorasick_tpu_torch.bench import _best_pair, _elapsed
     from ahocorasick_tpu_torch.models.matchers import AhoCorasickSet
     from ahocorasick_tpu_torch.ops import dispatch, scan_batched
     from ahocorasick_tpu_torch.parallel import sharding
@@ -142,16 +142,13 @@ def measure(device=None) -> dict:
     per_rep_est = max(t_lo / lo, 1e-6)
     remaining = budget_s - (time.perf_counter() - t_start) - 15.0
     hi = lo + int(max(4, min(32, remaining / (3.5 * per_rep_est))))
-    t_his, t_los = [], []
-    for _ in range(3):
-        t_his.append(timed(hi))
-        t_los.append(timed(lo))
-        if time.perf_counter() - t_start > budget_s - 2.5 * (t_his[-1] + t_los[-1]):
-            break
     # The best hi with the best lo (standard differencing).
-    dt = (min(t_his) - min(t_los)) / (hi - lo)
+    t_lo, t_hi = _best_pair(
+        lambda: timed(lo), lambda: timed(hi),
+        stop=lambda pair: time.perf_counter() - t_start > budget_s - 2.5 * pair)
+    dt = (t_hi - t_lo) / (hi - lo)
     if dt <= 0:  # noise swamped the extra reps: the raw rate
-        dt = min(t_his) / hi
+        dt = t_hi / hi
 
     gbps = (text_units * 2) / dt / 1e9
     return {

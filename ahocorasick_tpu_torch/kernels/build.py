@@ -30,7 +30,7 @@ SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
     for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
                  "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu", "table_sharded.cu",
-                 "rowdfa2_scan.cu")
+                 "rowdfa2_scan.cu", "probes.cu", "pfac_scan.cu")
 )
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
@@ -58,6 +58,13 @@ launches = {
     "table_sharded_scan": 0,
     "rowdfa2_count": 0,
     "rowdfa2_planes": 0,
+    "chain_gather": 0,
+    "row_chain": 0,
+    "onehot_mma": 0,
+    "gather2d": 0,
+    "pfac2_planes": 0,
+    "pfac2_count": 0,
+    "pfac1_planes": 0,
 }
 
 
@@ -121,6 +128,22 @@ ARGTYPES = {
     #  windows, window_bytes, num_windows, width, halo, state_bits, mode, out,
     #  device, stream)
     "table_sharded_scan": [_P, _P, _I, _I64, _I, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P],
+    # (tab, T, idx, n, reps, op, placement, mod, sum_out, out, device, stream)
+    "chain_gather": [_P, _I64, _P, _I64, _I, _I, _I, _I64, _I, _P, _I, _P],
+    # (tab, rows, width, s0, n, reps, reduce, mod, out, device, stream)
+    "row_chain": [_P, _I64, _I, _P, _I64, _I, _I, _I64, _P, _I, _P],
+    # (fp16 tab transposed, T, ncols, idx, B, reps, out, device, stream)
+    "onehot_mma": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
+    # (tab, idx, tiles, reps, mask, mode, sum_out, out, device, stream)
+    "gather2d": [_P, _P, _I64, _I, _I64, _I, _I, _P, _I, _P],
+    # (trie, stride, prefix, threshold, dead, cls, cls_bytes, n, depth, k,
+    #  num_classes, num_planes, out, device, stream)
+    "pfac2_planes": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P],
+    # the same without num_planes; out is one int64 count
+    "pfac2_count": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _P, _I, _P],
+    # (trie, stride, is_match, dead, cls, cls_bytes, n, depth, num_planes,
+    #  out, device, stream)
+    "pfac1_planes": [_P, _I, _P, _I64, _P, _I, _I64, _I, _I, _P, _I, _P],
 }
 
 _lib = None

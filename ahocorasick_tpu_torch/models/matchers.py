@@ -58,9 +58,19 @@ from ahocorasick_tpu_torch.core.compiler import (
     compile_matcher,
     shortest_survivors,
 )
-from ahocorasick_tpu_torch.ops import dispatch, emit, scan_batched, scan_dfa, scan_rowdfa, scan_wwl
+from ahocorasick_tpu_torch.ops import (
+    dispatch,
+    emit,
+    scan_batched,
+    scan_dfa,
+    scan_pfac2,
+    scan_rowdfa,
+    scan_wwl,
+)
+from ahocorasick_tpu_torch.resolve.queue import resolve_longest, resolve_shortest
 from ahocorasick_tpu_torch.resolve.wholeword import boundary_filter, follow_chain
 from ahocorasick_tpu_torch.utils import chartables
+from ahocorasick_tpu_torch.utils.lanes import LANE_BUCKET, bucket_depth
 from ahocorasick_tpu_torch.utils.stats import ScanStats, timed
 
 # Input size (UTF-16 units) from which "auto" takes the device: one constant
@@ -76,6 +86,9 @@ _AUTO_DEVICE_MIN_UNITS = 1 << 11
 
 # Window body length: B = N / C lanes each scan C steps after the halo.
 _BATCH_CHUNK = 512
+
+# device_engine="pfac2": the START-indexed PFAC walk instead of a planes plan.
+_PFAC_WALK = "pfac_walk"
 
 
 def _resolve_device(device) -> torch.device:
@@ -154,6 +167,20 @@ class _DeviceTables:
             self._cache["row_dfa"] = rd._replace(
                 table=convert._uint32_tensor(rd.table, self.device))
         return self._cache["row_dfa"]
+
+    @property
+    def ranked(self) -> scan_pfac2.RankedTables:
+        """Ranked tables of the ``device_engine="pfac2"`` walk, as the JAX
+        package pads them: ``trie_next`` uint32[S_pad, A_pad] filled with
+        ``dead_state``, and the k-gram ``prefix`` table."""
+        if "ranked" not in self._cache:
+            rt = scan_pfac2.build_ranked(self._m)
+            trie = np.full((self._sp, self._ap), rt.dead_state, dtype=np.uint32)
+            trie[: rt.num_states, : self._m.num_classes] = rt.trie_next
+            self._cache["ranked"] = rt._replace(
+                trie_next=convert._uint32_tensor(trie, self.device),
+                prefix=convert._uint32_tensor(rt.prefix, self.device))
+        return self._cache["ranked"]
 
     @property
     def count_packed_dfa(self) -> Tuple[torch.Tensor, int, int]:
@@ -240,20 +267,38 @@ class _DeviceTables:
         return self._wwl_host("wwl_scan_mixed", scan_wwl.build_wwl_scan_mixed)
 
     @property
-    def wwl_walk(self) -> Tuple[torch.Tensor, ...]:
-        """The per-start walk's tables, padded as the JAX package pads them:
-        ``(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
-        class_is_word)``.  ``trie_next`` is int32[S_pad, A_pad] with the dead
-        state re-anchored to ``S_pad - 1``; the outcome arrays are
-        int32[S_pad], the ``_val`` ones padded with -1; ``class_is_word`` is
-        bool[A_pad]."""
-        if "wwl_walk" not in self._cache:
+    def trie_next(self) -> torch.Tensor:
+        """The pure trie int32[S_pad, A_pad] with the dead state re-anchored
+        to ``S_pad - 1``, an absorbing row (the JAX package's padding): the
+        table of the per-start walks and of the v1 PFAC walk."""
+        if "trie_next" not in self._cache:
             m = self._m
             dead = self._sp - 1
             trie = np.full((self._sp, self._ap), dead, dtype=np.int32)
             trie[: m.num_states + 1, : m.num_classes] = np.where(
                 m.trie_next == m.num_states, dead, m.trie_next)
-            arrays = [trie]
+            self._cache["trie_next"] = torch.from_numpy(trie).to(self.device)
+        return self._cache["trie_next"]
+
+    @property
+    def is_match(self) -> torch.Tensor:
+        """bool[S_pad]: the state ends a keyword (``own_len > 0``)."""
+        if "is_match" not in self._cache:
+            out = np.zeros(self._sp, dtype=bool)
+            out[: len(self._m.own_len)] = self._m.own_len > 0
+            self._cache["is_match"] = torch.from_numpy(out).to(self.device)
+        return self._cache["is_match"]
+
+    @property
+    def wwl_walk(self) -> Tuple[torch.Tensor, ...]:
+        """The per-start walk's tables, padded as the JAX package pads them:
+        ``(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
+        class_is_word)``.  ``trie_next`` is the property above; the outcome
+        arrays are int32[S_pad], the ``_val`` ones padded with -1;
+        ``class_is_word`` is bool[A_pad]."""
+        if "wwl_walk" not in self._cache:
+            m = self._m
+            arrays = []
             for name in ("own_len", "own_val", "fail_len", "fail_off", "fail_val"):
                 arr = getattr(m, name)
                 out = np.full(self._sp, -1 if name.endswith("_val") else 0, dtype=arr.dtype)
@@ -262,7 +307,8 @@ class _DeviceTables:
             word = np.zeros(self._ap, dtype=bool)
             word[: m.num_classes] = m.class_is_word
             arrays.append(word)
-            self._cache["wwl_walk"] = tuple(torch.from_numpy(a).to(self.device) for a in arrays)
+            self._cache["wwl_walk"] = (self.trie_next, *(torch.from_numpy(a).to(self.device)
+                                                         for a in arrays))
         return self._cache["wwl_walk"]
 
     @property
@@ -578,38 +624,71 @@ class _PfacEngine(_Matcher):
     a huge dictionary) from the kernel ``ops/dispatch.planes_plan`` picks,
     hot positions compacted on the device, native extraction.
 
-    ``device_engine`` keeps the JAX package's cross-check knob, mapped to the
-    dispatcher's ``force``: ``"rowdfa"`` (the default) and ``"batched"`` take
-    the picked engine (the packed-scan kernels for a dictionary that packs
-    inline), ``"batched2"`` the stride-2 kernels wherever their table fits
-    (``ops/scan_rowdfa.fits``), for counts and planes alike.  ``"pfac2"`` is
-    accepted and selects nothing: the JAX package's START-indexed cross-check
-    walk has no kernel in the port yet.  Every name gives the same output;
-    any other value raises at scan time."""
+    ``device_engine`` keeps the JAX package's cross-check knob: ``"rowdfa"``
+    (the default) and ``"batched"`` take the picked engine (the packed-scan
+    kernels for a dictionary that packs inline), ``"batched2"`` the stride-2
+    kernels wherever their table fits (``ops/scan_rowdfa.fits``), for counts
+    and planes alike (the dispatcher's ``force``; the benchmark harness
+    times the picked count kernel under ``"pfac2"``).  ``"pfac2"`` takes the
+    failureless trie walk over ranked tables (``ops/scan_pfac2.py``): its
+    START-indexed planes are extracted on the host (``emit.ac_matches``),
+    ``_end_planes`` answers None, Longest and Shortest resolve its
+    candidates, and ``AhoCorasickSet.count`` counts its triples, each as the
+    JAX package's branch does.  Every name gives the same output; any other
+    value raises at scan time."""
 
     device_engine = "rowdfa"
-    _DEVICE_ENGINES = {"rowdfa": None, "batched": None, "batched2": "rowdfa2", "pfac2": None}
+    # name -> the dispatcher's ``force``, or _PFAC_WALK: no planes plan at all
+    _DEVICE_ENGINES = {"rowdfa": None, "batched": None, "batched2": "rowdfa2",
+                       "pfac2": _PFAC_WALK}
 
-    def _force(self):
-        """The dispatcher's ``force`` for ``device_engine``."""
+    def _engine(self):
+        """``device_engine``'s entry of ``_DEVICE_ENGINES``."""
         if self.device_engine not in self._DEVICE_ENGINES:
             raise ValueError(
                 f"unknown device_engine {self.device_engine!r}; expected one of "
                 f"{tuple(self._DEVICE_ENGINES)}")
         return self._DEVICE_ENGINES[self.device_engine]
 
+    def _force(self):
+        """The dispatcher's ``force`` for ``device_engine``: the picked plan
+        under the PFAC walk (the one the benchmark harness times)."""
+        engine = self._engine()
+        return None if engine is _PFAC_WALK else engine
+
     def _candidates(self, cls: np.ndarray):
-        bits, layout = self._end_planes(cls)
+        planes = self._end_planes(cls)
+        if planes is None:
+            return self._candidates_pfac2(cls)
+        bits, layout = planes
         return scan_batched.ac_matches_batched(self.compiled, cls, bits, layout=layout)
 
     def _end_planes(self, cls: np.ndarray):
         """``(bits, layout)`` on the device: END-indexed emit planes
         ``uint32[P, >=len(cls)]`` with layout ``"planes"``, or the packed
-        (state, count) plane with layout ``"hotstate"`` (huge
-        dictionaries)."""
-        plan = dispatch.planes_plan(self.compiled, self.dev, self._force())
+        (state, count) plane with layout ``"hotstate"`` (huge dictionaries).
+        None under ``device_engine="pfac2"``, whose walk emits START-indexed
+        planes."""
+        force = self._engine()
+        if force is _PFAC_WALK:
+            return None
+        plan = dispatch.planes_plan(self.compiled, self.dev, force)
         bits = plan.fn(plan.tables, self._windows(cls, plan.halo))
         return bits, ("hotstate" if plan.which == "hotstate" else "planes")
+
+    def _candidates_pfac2(self, cls: np.ndarray):
+        """AC triples from the pfac2 walk: depth bucketed as the JAX
+        package's, lanes padded to ``LANE_BUCKET``, the planes extracted on
+        the host."""
+        m = self.compiled
+        rt = self.dev.ranked
+        d = bucket_depth(m.max_depth)
+        cls_p = scan_batched.classes_to_device(
+            scan_pfac2.pad_classes(cls, d, bucket=LANE_BUCKET), m.num_classes, self.device)
+        bits = scan_pfac2.pfac2_bitplanes(
+            rt.trie_next, rt.prefix, rt.match_threshold, cls_p, d, (d + 31) // 32, rt.prefix_k,
+            m.num_classes, rt.dead_state)
+        return emit.ac_matches(m, cls, scan_batched.to_host(bits))
 
     def _windows(self, cls: np.ndarray, halo: int) -> torch.Tensor:
         """``chunk_classes`` windows, uploaded narrow (uint8 or uint16)."""
@@ -633,7 +712,7 @@ class AhoCorasickSet(_PfacEngine):
         no extraction."""
         cls = self._classes(text)
         engine = self._pick_engine(len(cls))
-        if engine != "device" or len(cls) == 0:
+        if engine != "device" or len(cls) == 0 or self._engine() is _PFAC_WALK:
             return int(len(self._match_triples_impl(text, cls)[0]))
         self.last_stats = ScanStats(units=len(cls), engine=engine, kind=self.kind)
         with timed(self.last_stats):
@@ -661,7 +740,10 @@ class LongestMatchSet(_PfacEngine):
     kind = LONGEST
 
     def _device_triples(self, cls):
-        bits, layout = self._end_planes(cls)
+        planes = self._end_planes(cls)
+        if planes is None:
+            return resolve_longest(*self._candidates(cls))
+        bits, layout = planes
         return emit.resolve_end_planes(self.compiled, cls, bits, "longest", layout=layout)
 
 
@@ -810,7 +892,10 @@ class ShortestMatchSet(_Matcher):
         ac = self._ac
         if ac is not None:
             cls = self._ac_classes(cls)
-            bits, layout = ac._end_planes(cls)
+            planes = ac._end_planes(cls)
+            if planes is None:
+                return resolve_shortest(*ac._candidates(cls))
+            bits, layout = planes
             return emit.resolve_end_planes(ac.compiled, cls, bits, "shortest", layout=layout)
         return scan_dfa.shortest_triples(self.compiled, self.dev, cls)
 

@@ -4,12 +4,15 @@ port of ``ahocorasick_tpu/ops/emit.py``.
 ``resolve_end_planes`` serves the ``"planes"`` and ``"hotstate"`` layouts
 over the port's compaction (``ops/scan_batched.planes_to_sparse`` /
 ``hotstate_sparse``); ``walk_values``, ``sort_by_end_start`` and
-``states_to_shortest_matches`` are the JAX module's numpy helpers.  Its
-START-indexed ``bitplanes_to_matches`` / ``ac_matches`` serve only the pfac2
-cross-check engine, which has no counterpart here.
+``states_to_shortest_matches`` are the JAX module's numpy helpers, and so
+are the START-indexed ``bitplanes_to_matches`` / ``ac_matches`` of the
+``device_engine="pfac2"`` cross-check walk (``ops/scan_pfac2.py``), whose
+planes come back to the host whole, as in the JAX package.
 """
 
 from __future__ import annotations
+
+from typing import Tuple
 
 import numpy as np
 
@@ -17,6 +20,30 @@ from ahocorasick_tpu_torch.core.compiler import CompiledMatcher
 from ahocorasick_tpu_torch.native import lib as native_lib
 from ahocorasick_tpu_torch.ops import scan_batched
 from ahocorasick_tpu_torch.resolve.queue import resolve_longest, resolve_shortest
+
+
+def bitplanes_to_matches(bits: np.ndarray, max_depth: int) -> Tuple[np.ndarray, np.ndarray]:
+    """uint32[P, N] START-indexed planes -> (starts, lengths) int64 arrays,
+    unsorted."""
+    bits = np.asarray(bits)
+    planes, n = bits.shape
+    starts_all = []
+    lens_all = []
+    hot = np.nonzero(bits.any(axis=0))[0]
+    if len(hot):
+        sub = np.ascontiguousarray(bits[:, hot].T)  # (H, P)
+        # Expand to (H, P*32) bit bools, little-endian within each word.
+        b8 = sub.view(np.uint8).reshape(len(hot), planes * 4)
+        expanded = np.unpackbits(b8, axis=1, bitorder="little")  # (H, P*32)
+        rows, ks = np.nonzero(expanded)
+        starts_all.append(hot[rows])
+        lens_all.append(ks + 1)
+    if not starts_all:
+        return np.zeros(0, dtype=np.int64), np.zeros(0, dtype=np.int64)
+    starts = np.concatenate(starts_all).astype(np.int64)
+    lens = np.concatenate(lens_all).astype(np.int64)
+    keep = lens <= max_depth
+    return starts[keep], lens[keep]
 
 
 def walk_values(
@@ -48,6 +75,19 @@ def sort_by_end_start(starts: np.ndarray, lens: np.ndarray):
     ends = starts + lens
     order = np.lexsort((starts, ends))
     return starts[order], ends[order], order
+
+
+def ac_matches(m: CompiledMatcher, cls: np.ndarray, bits: np.ndarray):
+    """(starts, ends, vals) in reference emission order for the AC kinds,
+    from START-indexed planes."""
+    starts, lens = bitplanes_to_matches(bits, m.max_depth)
+    starts, ends, order = sort_by_end_start(starts, lens)
+    lens = ends - starts
+    if m.values is not None:
+        vals = walk_values(m, cls, starts, lens)
+    else:
+        vals = np.full(len(starts), -1, dtype=np.int64)
+    return starts, ends, vals
 
 
 def states_to_shortest_matches(m: CompiledMatcher, states: np.ndarray):

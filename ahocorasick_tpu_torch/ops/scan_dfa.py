@@ -16,18 +16,7 @@ import numpy as np
 
 from ahocorasick_tpu_torch.kernels import scan_dfa as kernels
 from ahocorasick_tpu_torch.ops import emit, scan_batched
-
-PAD_CLASS = 0
-
-
-def pad_classes(cls, max_depth: int, bucket: int = 1) -> np.ndarray:
-    """Right-pad a class array so every lane can read ``max_depth`` chars,
-    the lane count rounded up to ``bucket`` (the JAX package's
-    ``scan_pfac.pad_classes``)."""
-    cls = np.asarray(cls)
-    n = len(cls)
-    n_pad = -(-max(n, 1) // bucket) * bucket
-    return np.pad(cls, (0, n_pad - n + max_depth), constant_values=PAD_CLASS)
+from ahocorasick_tpu_torch.ops.scan_pfac import pad_classes
 
 
 def dfa_states(dfa_next, cls, s0: int = 0):

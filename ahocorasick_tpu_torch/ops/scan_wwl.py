@@ -42,7 +42,7 @@ from ahocorasick_tpu_torch.core.compiler import WHOLE_WORD_LONGEST, RowTable
 from ahocorasick_tpu_torch.utils.lanes import LANE_BUCKET, bucket_depth
 from ahocorasick_tpu_torch.kernels import scan_wwl as kernels
 from ahocorasick_tpu_torch.ops import scan_batched
-from ahocorasick_tpu_torch.ops.scan_dfa import pad_classes
+from ahocorasick_tpu_torch.ops.scan_pfac import pad_classes
 
 # Window body length of the scan (the JAX engine's 512).
 _CHUNK = 512

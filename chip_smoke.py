@@ -18,7 +18,10 @@ separate allocations on the one card (1-axis and 2-axis meshes, its stream,
 ``sharded_table_count``, the 1M dictionary's 470 MB table), then
 ``parallel.corpus.scan_corpus``; and the benchmark entry points of
 ``ahocorasick_tpu_torch.bench`` (the BASELINE.json suite, the headline, the
-scaling record, a profiled run) with the stride-2 row scan.  It imports the
+scaling record, a profiled run) with the stride-2 row scan; and the lookup
+probes (``python -m ahocorasick_tpu_torch.probes``: the four probe kernels and
+the residency sweep) and the PFAC cross-check walk
+(``device_engine="pfac2"``).  It imports the
 port only, the dictionary and text generators included (``bench.headline``,
 ``bench.__main__``).  Phases, each raising on failure:
 
@@ -57,7 +60,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    kernels on the fuzz, demo, uint16, quotient, halo-rounding, one-window,
    odd-length and state_bits + depth = 32 dictionaries, and on the 100-,
    1,000- and 10k-keyword dictionaries at 65,536 x 524 windows (timed beside
-   the packed kernels);
+   the packed kernels); the four probe kernels at every ``pl.pallas_call``
+   site of ``tools/probes/`` at the JAX probes' sizes, ``chain_gather`` in
+   every placement its table fits (warp registers, shared memory, global);
+   the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
+   fuzz, demo and the 10k dictionary at 1 Mi units;
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -104,7 +111,13 @@ port only, the dictionary and text generators included (``bench.headline``,
    single-device facade's), ``stream()`` over the same uneven pieces, and
    ``scan_corpus`` over 300 seeded documents == ``match`` per document; every
    AC-family kind through ``device_engine="batched2"`` == the default
-   engine's triples, with its ``run_config`` record; ``bench.baseline_suite``
+   engine's triples, with its ``run_config`` record; the probes' entry point
+   (every probe, then the residency sweep: 65,536 chains x 524 steps on
+   tables of 128 entries to 470 MB, each result == the twin's); every AC-family kind under
+   ``device_engine="pfac2"`` == the default engine's triples on 1 Mi units
+   (the packed kernels not launched); the JAX package's PFAC conformance
+   (v1 walk == v2 walk, count == popcount == the packed count) on 32 Mi
+   units; ``bench.baseline_suite``
    (configs 1-4, 6, 7) with the count and planes kernel of each AC-family
    config; the headline's JSON line (its count == the facade's); the scaling
    record on the one card; ``--profile`` (the trace's events); every kernel
@@ -122,8 +135,13 @@ port only, the dictionary and text generators included (``bench.headline``,
    ``count`` and ``match_triples``, and the
    sequential-scan feed against the planes feed, 2**8 to 2**18 units on the
    100-, 1,000-, 10k- and 1M-keyword dictionaries, with each break-even);
-   each kernel's bound (bytes over 3.35 TB/s or operations over
-   67 T/s, whichever is larger) and the compaction's library-call time.
+   the probe kernels and the PFAC walk (at the sweep's shape, the JAX sizes
+   and 32 Mi units) beside their twins, each result first held against the
+   twin's at that shape, and, for the probes, the same chain as
+   eager torch indexing; the ``device_engine="pfac2"`` facade beside the
+   default; B17's bound; each kernel's bound (bytes over 3.35 TB/s or
+   operations over 67 T/s, 989 T/s for the fp16 tensor cores, whichever is
+   larger) and the library-call times.
 
 It prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -192,12 +210,25 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                       "ahocorasick_tpu/ops/scan_rowdfa.py:248"),
     "rowdfa2_planes": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
                        "ahocorasick_tpu/ops/scan_rowdfa.py:286"),
+    # B19: each probe kernel also replaces the other sites its source note lists
+    "chain_gather": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:70"),
+    "row_chain": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:160"),
+    "onehot_mma": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:192"),
+    "gather2d": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe2.py:56"),
+    "pfac2_planes": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
+                     "ahocorasick_tpu/ops/scan_pfac2.py:163"),
+    "pfac2_count": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
+                    "ahocorasick_tpu/ops/scan_pfac2.py:201"),
+    "pfac1_planes": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
+                     "ahocorasick_tpu/ops/scan_pfac.py:74"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate,
-# and the 32-bit rate outside the tensor cores, taken for these kernels'
-# integer lookups, shifts and adds.
+# the 32-bit rate outside the tensor cores, taken for these kernels'
+# integer lookups, shifts and adds, and the dense fp16 tensor-core rate
+# (onehot_mma).
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_OPS_PER_S = 67e12
+PEAK_FP16_TENSOR_PER_S = 989e12
 DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # does not pack inline
 SHORTEST_TWIN_UNITS = 1 << 16
 N_SHARDS = 8  # the sharded scanner's mesh: eight shards on the one card
@@ -269,6 +300,131 @@ def fuzz_keywords(rng, alphabet: str, n: int, max_len: int):
                    for _ in range(n)})
 
 
+def check_probe_kernels(dev, errs, max_err):
+    """The four probe kernels against their plain twins on the card, bit for
+    bit: every ``pl.pallas_call`` site of ``tools/probes/`` at the JAX
+    probes' own sizes, ``chain_gather`` in every placement its table fits."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import probes as kp
+    from ahocorasick_tpu_torch.probes import tensor
+
+    rs = np.random.RandomState(SEED)
+
+    def draw(high, shape):
+        return tensor(rs.randint(0, high, shape, np.int32), dev)
+
+    def check(name, label, plain, runs):
+        want = plain()
+        for where, run in runs:
+            got = run()
+            torch.cuda.synchronize()
+            e = max_err((got,), (want,))
+            errs[name] = max(errs[name], e)
+            print(f"  {name} {label} [{where}]: max_abs_err={e}")
+            if e:
+                raise AssertionError(f"{name} {label} [{where}]: kernel disagrees with its twin")
+
+    def chain(label, tab, idx, reps, op, **kw):
+        T = tab.numel()
+        fits = [p for p in kp.PLACEMENTS
+                if not (p == "shfl" and T > 128) and not (p == "shared" and 4 * T > kp.SHARED_BYTES)]
+        check("chain_gather", label, lambda: kp.chain_gather_plain(tab, idx, reps, op, **kw),
+              [(p, lambda p=p: kp.chain_gather(tab, idx, reps, op, placement=p, **kw))
+               for p in fits])
+
+    chain("probe.py:70 T=128 B=512 reps=2048", draw(128, (8, 128))[0], draw(128, (512, 128)),
+          2048, "add")
+    chain("probe3.py:105 T=128 B=512 reps=2048, + r, summed", draw(128, (8, 128))[0],
+          draw(128, (512, 128)), 2048, "add_r", sum_out=True)
+    for T, reps, B in ((4096, 256, 256), (32768, 64, 128)):
+        chain(f"probe.py:103 T={T} B={B} reps={reps}", draw(T, (T,)), draw(T, (B, 128)), reps,
+              "add")
+    for S, K in ((4096, 8), (262144, 16)):
+        chain(f"probe.py:129 S={S} K={K} reps=4096", draw(S, (S,)), draw(S, (K,)), 4096, "load")
+    chain("probe.py:239 T=1 Mi B=512 reps=64", draw(1 << 20, (1 << 20,)),
+          draw(1 << 20, (512, 128)), 64, "add")
+    for T, reps in ((4096, 4096), (32768, 512), (131072, 128)):
+        chain(f"probe2.py:39 T={T} B=512 reps={reps}, + r", draw(T, (T,)), draw(T, (512, 128)),
+              reps, "add_r")
+    for T, B, reps in ((1024, 512, 1024), (4096, 512, 512), (16384, 256, 128)):
+        chain(f"probe3.py:77 T={T} B={B} reps={reps}, + r, summed", draw(T, (T,)),
+              draw(T, (B, 128)), reps, "add_r", sum_out=True)
+    S, A = 51200, 32  # probe6's uint32 table, flat and as rows
+    flat = tensor(rs.randint(0, S * A, S * A).astype(np.uint32), dev)
+    idx0 = draw(S, (8, 128))
+    chain("probe6.py:132/:142 S*A=1,638,400 uint32, 1,024 chains, 64 steps", flat, idx0, 64,
+          "load_mod", mod=S)
+    tab, s0 = draw(4096, (4096, 128)), draw(4096, (4,))
+    check("row_chain", "probe.py:160 (4096, 128) K=4 reps=2048",
+          lambda: kp.row_chain_plain(tab, s0, 2048, "max", 4096),
+          [("global", lambda: kp.row_chain(tab, s0, 2048, "max", 4096))])
+    rows = flat.reshape(S, A)
+    check("row_chain", "probe6.py:152 (51200, 32) uint32, 1,024 chains, 64 steps",
+          lambda: kp.row_chain_plain(rows, idx0, 64, "col0", S),
+          [("global", lambda: kp.row_chain(rows, idx0, 64, "col0", S))])
+    tabf = kp.onehot_table(tensor(rs.randint(0, 2048, (2048, 128)).astype(np.float32), dev))
+    idx = draw(2048, (1024, 128))
+    check("onehot_mma", "probe.py:192 T=2048 B=1024 reps=128",
+          lambda: kp.onehot_mma_plain(tabf, idx, 128),
+          [("shared, mma.sync", lambda: kp.onehot_mma(tabf, idx, 128))])
+    t8, i8 = draw(100, (8, 128)), draw(8, (8, 128))
+    check("gather2d", "probe2.py:56 sublane, once", lambda: kp.gather2d_plain(t8, i8, 1, "sublane"),
+          [("shared", lambda: kp.gather2d(t8, i8, 1, "sublane"))])
+    t8, ib = draw(1024, (8, 128)), draw(1024, (512, 128))
+    for mode, label, summed in (("gather2d_first", "probe2.py:86 first tile, B=512 reps=1024",
+                                 False),
+                                ("gather2d_all", "probe3.py:142 every tile, + r, summed, B=512 "
+                                 "reps=1024", True)):
+        check("gather2d", label,
+              lambda: kp.gather2d_plain(t8, ib, 1024, mode, mask=1023, sum_out=summed),
+              [("shared", lambda: kp.gather2d(t8, ib, 1024, mode, mask=1023, sum_out=summed))])
+    wide = tensor(rs.randint(0, S * A, (8, 128)).astype(np.uint32), dev)
+    check("gather2d", "probe6.py:162 sublane chain on a 128-column table, 64 steps",
+          lambda: kp.gather2d_plain(wide, idx0, 64, "sublane_chain"),
+          [("shared", lambda: kp.gather2d(wide, idx0, 64, "sublane_chain"))])
+
+
+def check_pfac_kernels(label, m, cls, dev, errs, max_err):
+    """The PFAC walk's three modes against their twins on the matcher's
+    tables over ``cls``, bit for bit, and the v1 planes == the v2 planes;
+    returns the match count."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpf
+    from ahocorasick_tpu_torch.ops import scan_batched, scan_pfac2
+    from ahocorasick_tpu_torch.utils.lanes import LANE_BUCKET, bucket_depth
+
+    c = m.compiled
+    rt = m.dev.ranked
+    d = bucket_depth(c.max_depth)
+    P = (d + 31) // 32
+    cp = scan_batched.classes_to_device(scan_pfac2.pad_classes(cls, d, bucket=LANE_BUCKET),
+                                        c.num_classes, dev)
+    v2 = (rt.trie_next, rt.prefix, rt.match_threshold, cp, d)
+    trie = m.dev.trie_next  # padded, the dead state last (as the JAX package's)
+    v1 = (trie, m.dev.is_match, cp, d, P)
+    got = (kpf.pfac2_planes(*v2, P, rt.prefix_k, c.num_classes, rt.dead_state),
+           kpf.pfac2_count(*v2, rt.prefix_k, c.num_classes, rt.dead_state),
+           kpf.pfac1_planes(*v1, trie.shape[0] - 1))
+    want = (kpf.pfac2_planes_plain(*v2, P, rt.prefix_k, c.num_classes),
+            kpf.pfac2_count_plain(*v2, rt.prefix_k, c.num_classes),
+            kpf.pfac1_planes_plain(*v1))
+    torch.cuda.synchronize()
+    for name, g, w in zip(("pfac2_planes", "pfac2_count", "pfac1_planes"), got, want):
+        e = max_err((g,), (w,))
+        if name == "pfac1_planes":
+            e = max(e, max_err((g,), (got[0],)))
+        errs[name] = max(errs[name], e)
+    print(f"  pfac {label}: {len(cls)} units, depth {d}, prefix_k {rt.prefix_k}, ranked table "
+          f"{tuple(rt.trie_next.shape)}, count {int(got[1])} (twin {int(want[1])}); max_abs_err "
+          f"planes v2 {errs['pfac2_planes']}, count {errs['pfac2_count']}, v1 (twin and v2) "
+          f"{errs['pfac1_planes']}")
+    if errs["pfac2_planes"] or errs["pfac2_count"] or errs["pfac1_planes"]:
+        raise AssertionError(f"pfac {label}: a walk kernel disagrees with its twin")
+    return int(got[1])
+
+
 def main() -> int:
     import torch
 
@@ -287,6 +443,9 @@ def main() -> int:
     from ahocorasick_tpu_torch.kernels import stitch as kstitch
     from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow
     from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+    from ahocorasick_tpu_torch.kernels import probes as kprobe
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpfac
+    from ahocorasick_tpu_torch.probes import __main__ as probes_main
     from ahocorasick_tpu_torch.native import build as native_build
     from ahocorasick_tpu_torch.native import lib as native_lib
     from ahocorasick_tpu_torch import bench, graft_entry
@@ -295,7 +454,9 @@ def main() -> int:
     from ahocorasick_tpu_torch.bench.__main__ import english_like_keywords
     from ahocorasick_tpu_torch.bench.__main__ import word_soup as bench_word_soup
     from ahocorasick_tpu_torch.bench.headline import make_dictionary
-    from ahocorasick_tpu_torch.ops import dispatch, scan_batched, scan_wwl, stitch
+    from ahocorasick_tpu_torch.ops import dispatch, scan_batched, scan_pfac, scan_pfac2
+    from ahocorasick_tpu_torch.ops import scan_wwl, stitch
+    from ahocorasick_tpu_torch.utils.lanes import LANE_BUCKET, bucket_depth
     from ahocorasick_tpu_torch.parallel import corpus, sharding
     from ahocorasick_tpu_torch.resolve.wholeword import follow_chain, word_starts
     from ahocorasick_tpu_torch.utils import chartables
@@ -938,6 +1099,20 @@ def main() -> int:
         raise AssertionError(f"row-sharded 1M table: count {got_tp1m['count_packed']} and "
                              f"{got_tp1m['hotstate']} hot positions != the single-table "
                              f"{count1m_32} and {hot1m_32}")
+
+    # The probe kernels (B19) at the JAX probes' sizes, and the PFAC walk
+    # (device_engine="pfac2") on fuzz, demo and the 10k dictionary at 1 Mi units.
+    check_probe_kernels(dev, errs, max_err)
+    prng = np.random.default_rng(SEED + 20)  # its own: the main path's texts stay as they were
+    fuzz_m = port.AhoCorasickSet(fuzz_keywords(prng, "abcdef", 60, 8), engine="device", device=dev)
+    demo_m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
+    for label, m, t in (("fuzz", fuzz_m, "".join(prng.choice(list("abcdefgh "), size=BASE_UNITS))),
+                        ("demo", demo_m, word_soup(DEMO, prng, BASE_UNITS)),
+                        ("10k keywords", big, text[:BASE_UNITS])):
+        n_walk = check_pfac_kernels(f"{label} x {BASE_UNITS} units", m, m._classes(t), dev, errs,
+                                    max_err)
+        if n_walk != m.count(t) or not n_walk:
+            raise AssertionError(f"pfac {label}: the walk counts {n_walk}, the facade {m.count(t)}")
 
     # 4. The paths through the public classes, counters zeroed just before
     # each and read just after it.
@@ -1737,6 +1912,100 @@ def main() -> int:
     run_path("device_engine=batched2, every AC-family kind", ("rowdfa2_count", "rowdfa2_planes",
                                                               "compact_planes"), batched2_path)
 
+    # The probes' entry point (B19): every probe of the four JAX files' main
+    # at their sizes, then the residency sweep.
+    probe_out = {}
+
+    def probes_path():
+        probe_out.update(probes_main.main([]))
+        fails = [k for k, v in probe_out["probe6"].items() if isinstance(v, Exception)]
+        if fails != ["sublane take_along_axis (8,128)"]:
+            raise AssertionError(f"probe6 formulations failing: {fails} (only the sublane "
+                                 f"gather of a 32-column table should)")
+        outs = [v[1] for mod in ("probe", "probe2") for v in probe_out[mod].values()]
+        if any(o.numel() == 0 or o.device.type != "cuda" for o in outs):
+            raise AssertionError("a probe returned no output on the card")
+        sweep = probe_out["sweep"]
+        # every sweep result against its twin, the 470 MB table's included
+        for r in sweep:
+            name = "row_chain" if r["placement"] == "row_chain" else "chain_gather"
+            e = r["max_abs_err"] if r["max_abs_err"] >= 0 else 1
+            if r["placement"] != "torch":
+                errs[name] = max(errs[name], e)
+            if e:
+                raise AssertionError(f"residency sweep {r['entries']} entries, "
+                                     f"{r['placement']}: max_abs_err {e} against the twin")
+        biggest = max(r["entries"] for r in sweep)
+        big_rows = [r["placement"] for r in sweep if r["entries"] == biggest]
+        if "global" not in big_rows or "row_chain" not in big_rows:
+            raise AssertionError(f"residency sweep: the {biggest}-entry table ran only {big_rows}")
+        return (f"{sum(len(v) for k, v in probe_out.items() if k != 'sweep')} probe lines, "
+                f"{len(sweep)} residency-sweep records over {len({r['entries'] for r in sweep})} "
+                f"table sizes [{smi}]")
+
+    run_path("probes (python -m ahocorasick_tpu_torch.probes)",
+             ("chain_gather", "row_chain", "onehot_mma", "gather2d"), probes_path)
+
+    # Every AC-family kind under device_engine="pfac2" (the PFAC walk) == the
+    # default engine's triples; the references are made before the path, so
+    # the packed planes kernel must not launch on it.
+    pfac_kinds = ("AhoCorasickSet", "AhoCorasickMap", "LongestMatchSet", "LongestMatchMap",
+                  "WholeWordMatchSet", "ShortestMatchSet")
+    pfac_args = {name: ((keywords, [f"v{i}" for i in range(len(keywords))])
+                        if name.endswith("Map") else (keywords,)) for name in pfac_kinds}
+    pfac_refs = {name: getattr(port, name)(*pfac_args[name], engine="device", device=dev)
+                 .match_triples(small) for name in pfac_kinds}
+
+    def pfac2_path():
+        out = []
+        engines = port.models.matchers._PfacEngine
+        engines.device_engine = "pfac2"
+        try:
+            for name in pfac_kinds:
+                m = getattr(port, name)(*pfac_args[name], engine="device", device=dev)
+                got = m.match_triples(small)
+                want = pfac_refs[name]
+                if any(not np.array_equal(g, w) for g, w in zip(got, want)) or not len(want[0]):
+                    raise AssertionError(f"{name} under pfac2: {len(got[0])} triples != the "
+                                         f"default engine's {len(want[0])}")
+                if name == "AhoCorasickSet" and m.count(small) != len(want[0]):
+                    raise AssertionError("AhoCorasickSet.count under pfac2 != its triples")
+                out.append(f"{name} {len(want[0])}")
+        finally:
+            engines.device_engine = "rowdfa"
+        if port.launches["packed_scan_planes"] or port.launches["packed_scan_count"]:
+            raise AssertionError(f"the packed kernels launched under pfac2: {dict(port.launches)}")
+        return (f"device_engine=pfac2 == the default engine on {len(small)} units: "
+                + ", ".join(out))
+
+    run_path("device_engine=pfac2, every AC-family kind", ("pfac2_planes",), pfac2_path)
+
+    # The JAX package's conformance reference (tests/test_pfac2.py) on the
+    # 10k dictionary at 32 Mi units: the v1 walk == the v2 walk, and the v2
+    # count == the planes' popcount == the packed count.
+    def pfac_conformance_path():
+        c = big.compiled
+        rt = big.dev.ranked
+        d = bucket_depth(c.max_depth)
+        cp = scan_batched.classes_to_device(scan_pfac2.pad_classes(cls, d, bucket=LANE_BUCKET),
+                                            c.num_classes, dev)
+        v2 = scan_pfac2.pfac2_bitplanes(rt.trie_next, rt.prefix, rt.match_threshold, cp, d,
+                                        (d + 31) // 32, rt.prefix_k, c.num_classes, rt.dead_state)
+        n2 = int(scan_pfac2.pfac2_count(rt.trie_next, rt.prefix, rt.match_threshold, cp, d,
+                                        rt.prefix_k, c.num_classes, rt.dead_state))
+        trie = big.dev.trie_next
+        v1 = scan_pfac.pfac_bitplanes(trie, big.dev.is_match, cp, d, (d + 31) // 32,
+                                      trie.shape[0] - 1)
+        pop = int(scan_block._popcount32(widen(v2)).sum())
+        same = torch.equal(v1.view(torch.int32), v2.view(torch.int32))
+        if not same or not n2 == pop == count10k:
+            raise AssertionError(f"PFAC conformance: v1 == v2 {same}, count {n2}, "
+                                 f"popcount {pop}, packed count {count10k}")
+        return f"v1 planes == v2 planes {tuple(v2.shape)}; count {n2} == popcount == packed count"
+
+    run_path("PFAC conformance (v1 walk == v2 walk), 10k x 32 Mi units",
+             ("pfac2_planes", "pfac2_count", "pfac1_planes"), pfac_conformance_path)
+
     def suite_path():
         picked = []
         real = bench.ac_kernel_rate
@@ -1997,8 +2266,12 @@ def main() -> int:
             out.append(time.perf_counter() - t)
         return out
 
+    pfac_big = port.AhoCorasickSet.from_compiled(big.compiled, engine="device", device=dev)
+    pfac_big.device_engine = "pfac2"
     facade = [("AhoCorasickSet count", lambda: big.count(text)),
-              ("AhoCorasickSet match_triples", lambda: big.match_triples(text))]
+              ("AhoCorasickSet match_triples", lambda: big.match_triples(text)),
+              ("AhoCorasickSet match_triples, device_engine=pfac2",
+               lambda: pfac_big.match_triples(text))]
     facade += [(f"{k} match_triples", (lambda m: lambda: m.match_triples(text))(matchers[k]))
                for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet")]
     facade += [("WholeWordLongestMatchSet match_triples", lambda: big_wwl.match_triples(text)),
@@ -2071,6 +2344,11 @@ def main() -> int:
     n8 = stage("reduce (scalar downloads + sum)", lambda: sum(int(t) for t in parts))
     if n8 != len(ac_ref[0]):
         raise AssertionError(f"staged sharded count {n8} != {len(ac_ref[0])}")
+    # B17's bound: the sum of the bounds of the count kernels one call launches.
+    b17 = sum(max((w8.nbytes + 8) / PEAK_BYTES_PER_S, 4 * w8.numel() / PEAK_OPS_PER_S)
+              for w8 in wins) * 1e3
+    print(f"bound B17, the sharded count ({N_SHARDS} packed_scan_count launches on windows "
+          f"{[tuple(w8.shape) for w8 in wins]}): {b17} ms [{smi}]")
     print(f"sharded count stages on {len(text)} units, {N_SHARDS} shards of "
           f"{ordered[0].shape[0]} units: "
           + "; ".join(f"{k} {v} s" for k, v in stages.items()) + f" [{smi}]")
@@ -2307,6 +2585,136 @@ def main() -> int:
               f"{port.models.matchers._AUTO_DEVICE_MIN_UNITS}, _STREAM_DEVICE_MIN "
               f"{stream_mod._STREAM_DEVICE_MIN} [{smi}]")
 
+    def timed_pair(name, kernel, plain, reps, plain_reps):
+        """(kernel ms, twin ms) at a timing shape, the kernel's result first
+        held against the twin's there (its error joins ``errs``)."""
+        e = max_err((kernel(),), (plain(),))
+        errs[name] = max(errs[name], e)
+        if e:
+            raise AssertionError(f"{name} at its timing shape: max_abs_err {e} against the twin")
+        return cuda_ms(kernel, reps), cuda_ms(plain, plain_reps)
+
+    # The probe kernels: chain_gather and row_chain at the residency sweep's
+    # shape on the 10k dictionary's table size (one load per step, global),
+    # onehot_mma at probe.py's P4, gather2d at probe3.py's 2-D gather; each
+    # beside its twin and the same chain as eager torch indexing (the library
+    # yardstick, which the port never calls).
+    probe_library = {}
+    gen = torch.Generator(device=dev).manual_seed(probes_main.SEED)
+    n_ref, steps = probes_main.SWEEP_SIZES[3], probes_main.SWEEP_STEPS
+    tab_ref = probes_main.cycle_table(n_ref, dev, gen)
+    start_ref = torch.randint(0, n_ref, (probes_main.SWEEP_CHAINS,), generator=gen, device=dev,
+                              dtype=torch.int32)
+    rows_ref = n_ref // probes_main.ROW_WORDS
+    row_ref = torch.zeros((rows_ref, probes_main.ROW_WORDS), dtype=torch.int32, device=dev)
+    row_ref[:, 0] = probes_main.cycle_table(rows_ref, dev, gen)
+    row_start = start_ref % rows_ref
+
+    def torch_chain():
+        s = start_ref.long()
+        for _ in range(steps):
+            s = tab_ref[s].long()
+        return s
+
+    def torch_rows():
+        s = row_start.long()
+        for _ in range(steps):
+            s = row_ref[s].max(dim=1).values.long() % rows_ref
+        return s
+
+    ms["chain_gather"] = timed_pair(
+        "chain_gather",
+        lambda: kprobe.chain_gather(tab_ref, start_ref, steps, "load", placement="global"),
+        lambda: kprobe.chain_gather_plain(tab_ref, start_ref, steps, "load"), 20, 1)
+    probe_library["chain_gather"] = cuda_ms(torch_chain, 2)
+    ms["row_chain"] = timed_pair(
+        "row_chain", lambda: kprobe.row_chain(row_ref, row_start, steps, "max", rows_ref),
+        lambda: kprobe.row_chain_plain(row_ref, row_start, steps, "max", rows_ref), 20, 1)
+    probe_library["row_chain"] = cuda_ms(torch_rows, 2)
+    rs = np.random.RandomState(SEED)
+    tab4 = torch.from_numpy(rs.randint(0, 2048, (2048, 128)).astype(np.float32)).to(dev)
+    tab4_h = kprobe.onehot_table(tab4)
+    idx4 = torch.from_numpy(rs.randint(0, 2048, (1024, 128), np.int32)).to(dev)
+
+    def torch_onehot():
+        i = idx4.long()
+        for _ in range(128):
+            oh = torch.nn.functional.one_hot(i[:, 0], 2048).to(torch.float32)
+            i = (i + (oh @ tab4).long()) & 2047
+        return i
+
+    ms["onehot_mma"] = timed_pair("onehot_mma", lambda: kprobe.onehot_mma(tab4_h, idx4, 128),
+                                  lambda: kprobe.onehot_mma_plain(tab4_h, idx4, 128), 20, 2)
+    probe_library["onehot_mma"] = cuda_ms(torch_onehot, 2)
+    tab8 = torch.from_numpy(rs.randint(0, 1024, (8, 128), np.int32)).to(dev)
+    idx8 = torch.from_numpy(rs.randint(0, 1024, (512, 128), np.int32)).to(dev)
+
+    def torch_gather2d():
+        x, t = idx8.long(), tab8.long()
+        for r in range(1024):
+            blk = x.reshape(-1, 8, 128)
+            lane = blk & 127
+            x = (x + t[(torch.gather(blk, 2, lane) >> 7) & 7, lane].reshape(-1, 128) + r) & 1023
+        return x.sum()
+
+    ms["gather2d"] = timed_pair(
+        "gather2d",
+        lambda: kprobe.gather2d(tab8, idx8, 1024, "gather2d_all", mask=1023, sum_out=True),
+        lambda: kprobe.gather2d_plain(tab8, idx8, 1024, "gather2d_all", mask=1023, sum_out=True),
+        20, 2)
+    probe_library["gather2d"] = cuda_ms(torch_gather2d, 2)
+    for k, shape in (("chain_gather", f"{n_ref} entries, {start_ref.numel()} chains x {steps}"),
+                     ("row_chain", f"{rows_ref} x {probes_main.ROW_WORDS} rows, "
+                                   f"{row_start.numel()} chains x {steps}"),
+                     ("onehot_mma", "T=2048, B=1024, 128 columns, 128 steps"),
+                     ("gather2d", "(8, 128) table, 512 x 128 indices, 1,024 steps")):
+        print(f"time {k} at {shape}: kernel {ms[k][0]} ms, plain twin {ms[k][1]} ms, eager "
+              f"torch {probe_library[k]} ms [{smi}]")
+
+    # The PFAC walk at the facade's 32 Mi units of the 10k dictionary, and the
+    # (lane, depth) steps this text makes it take before the dead state.
+    comp10 = big.compiled
+    rt10 = big.dev.ranked
+    d10p = bucket_depth(comp10.max_depth)
+    P10 = (d10p + 31) // 32
+    cp10 = scan_batched.classes_to_device(scan_pfac2.pad_classes(cls, d10p, bucket=LANE_BUCKET),
+                                          comp10.num_classes, dev)
+    n10 = cp10.numel() - d10p
+    trie10 = big.dev.trie_next
+    a2 = (rt10.trie_next, rt10.prefix, rt10.match_threshold, cp10, d10p)
+    a1 = (trie10, big.dev.is_match, cp10, d10p, P10)
+    ms["pfac2_planes"] = timed_pair(
+        "pfac2_planes",
+        lambda: kpfac.pfac2_planes(*a2, P10, rt10.prefix_k, comp10.num_classes, rt10.dead_state),
+        lambda: kpfac.pfac2_planes_plain(*a2, P10, rt10.prefix_k, comp10.num_classes), 20, 2)
+    ms["pfac2_count"] = timed_pair(
+        "pfac2_count",
+        lambda: kpfac.pfac2_count(*a2, rt10.prefix_k, comp10.num_classes, rt10.dead_state),
+        lambda: kpfac.pfac2_count_plain(*a2, rt10.prefix_k, comp10.num_classes), 20, 2)
+    ms["pfac1_planes"] = timed_pair(
+        "pfac1_planes", lambda: kpfac.pfac1_planes(*a1, trie10.shape[0] - 1),
+        lambda: kpfac.pfac1_planes_plain(*a1), 20, 2)
+    c64 = cp10.long()
+
+    def walked(st, table, first, dead):
+        """Table loads a lane makes from depth ``first`` until the dead state."""
+        flat, stride, total = table.view(torch.int32).long().reshape(-1), table.shape[1], 0
+        for kk in range(first, d10p):
+            alive = st != dead
+            total += int(alive.sum())
+            st = torch.where(alive, flat[st * stride + c64[kk: kk + n10]], st)
+        return total
+
+    gram = kpfac._gram_index(cp10, n10, rt10.prefix_k, comp10.num_classes)
+    first2 = rt10.prefix.view(torch.int32).long()[gram] & ((1 << kpfac.STATE_BITS) - 1)
+    steps2 = n10 + walked(first2, rt10.trie_next, rt10.prefix_k, rt10.dead_state)
+    first1 = trie10.long()[0][c64[:n10]]
+    steps1 = n10 + walked(first1, trie10, 1, trie10.shape[0] - 1)
+    for k in ("pfac2_planes", "pfac2_count", "pfac1_planes"):
+        print(f"time {k}, 10k dictionary, {n10} lanes, depth {d10p}: kernel {ms[k][0]} ms "
+              f"({gbps(ms[k][0])} GB/s), plain twin {ms[k][1]} ms; table loads: v2 {steps2} "
+              f"(prefix included), v1 {steps1} [{smi}]")
+
     # The least time the card could take for each kernel's timed call: the
     # bytes it must move (each streamed input read once, each output written
     # once, at this run's sizes) over the memory rate, or its operations over
@@ -2361,13 +2769,29 @@ def main() -> int:
         "rowdfa2_count": (nbytes(w_row) + 8, 4 * w_row.numel()),
         "rowdfa2_planes": (nbytes(w_row) + 4 * w_row.shape[0] * (w_row.shape[1] - row10["args"][2]),
                            4 * w_row.numel()),
+        # the chains in and out; a clamp and a load per step: a latency chain
+        "chain_gather": (2 * start_ref.nbytes, 2 * start_ref.numel() * steps),
+        # a 28-word max and a modulo per chain and step: a latency chain
+        "row_chain": (2 * row_start.nbytes, (probes_main.ROW_WORDS + 2) * row_start.numel() * steps),
+        # the dense one-hot product per step, on the fp16 tensor cores
+        "onehot_mma": (nbytes(tab4_h) + 2 * nbytes(idx4),
+                       2 * idx4.shape[0] * tab4.shape[0] * tab4.shape[1] * 128,
+                       PEAK_FP16_TENSOR_PER_S),
+        "gather2d": (nbytes(tab8, idx8) + 4, 6 * idx8.numel() * 1024),
+        # classes in, planes (or a count) out; a load and a compare per step
+        # this text makes before the dead state
+        "pfac2_planes": (nbytes(cp10) + 4 * P10 * n10, 2 * steps2),
+        "pfac2_count": (nbytes(cp10) + 8, 3 * steps2),
+        "pfac1_planes": (nbytes(cp10) + 4 * P10 * n10, 2 * steps1),
     }
     bounds = {}
-    for k, (b, ops) in work.items():
-        t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / PEAK_OPS_PER_S * 1e3
+    for k, (b, ops, *peak) in work.items():
+        peak = peak[0] if peak else PEAK_OPS_PER_S
+        t_bytes, t_ops = b / PEAK_BYTES_PER_S * 1e3, ops / peak * 1e3
         bounds[k] = (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
-        print(f"bound {k}: {b} B / 3.35 TB/s = {t_bytes} ms, {ops} operations / 67 T/s = "
-              f"{t_ops} ms; kernel {ms[k][0]} ms = {ms[k][0] / bounds[k][0]} x its bound [{smi}]")
+        print(f"bound {k}: {b} B / 3.35 TB/s = {t_bytes} ms, {ops} operations / "
+              f"{peak / 1e12} T/s = {t_ops} ms; kernel {ms[k][0]} ms = "
+              f"{ms[k][0] / bounds[k][0]} x its bound [{smi}]")
     # One PyTorch call chain that computes the compaction (P = 1): nonzero,
     # then a gather.  Timed here as the yardstick; the port never calls it.
     plane0 = planes_full.view(torch.int32)[0]
@@ -2377,6 +2801,7 @@ def main() -> int:
         return idx, plane0[idx]
 
     library = dict.fromkeys(KERNELS)
+    library.update(probe_library)
     library["compact_planes"] = cuda_ms(library_compact, 20)
     print(f"time library compact (torch.nonzero + gather, P = 1, {plane0.numel()} positions): "
           f"{library['compact_planes']} ms [{smi}]")

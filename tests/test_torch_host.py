@@ -15,6 +15,8 @@ from ahocorasick_tpu.core import compiler as jax_compiler
 from ahocorasick_tpu.core import gold as jax_gold
 from ahocorasick_tpu.native import lib as jax_native
 from ahocorasick_tpu.ops import emit as jax_emit
+from ahocorasick_tpu.ops import scan_pfac as jax_scan_pfac
+from ahocorasick_tpu.ops import scan_pfac2 as jax_scan_pfac2
 from ahocorasick_tpu.resolve import parallel as jax_parallel
 from ahocorasick_tpu.resolve import queue as jax_queue
 from ahocorasick_tpu.resolve import wholeword as jax_wholeword
@@ -30,6 +32,9 @@ from ahocorasick_tpu_torch.core import gold as port_gold
 from ahocorasick_tpu_torch.native import build as port_native_build
 from ahocorasick_tpu_torch.native import lib as port_native
 from ahocorasick_tpu_torch.ops import emit as port_emit
+from ahocorasick_tpu_torch.ops import scan_dfa as port_scan_dfa
+from ahocorasick_tpu_torch.ops import scan_pfac as port_scan_pfac
+from ahocorasick_tpu_torch.ops import scan_pfac2 as port_scan_pfac2
 from ahocorasick_tpu_torch.resolve import parallel as port_parallel
 from ahocorasick_tpu_torch.resolve import queue as port_queue
 from ahocorasick_tpu_torch.resolve import wholeword as port_wholeword
@@ -504,6 +509,51 @@ def test_emit_helpers_equal():
                     jax_emit.states_to_shortest_matches(sm, states)):
         assert g.dtype == w.dtype
         np.testing.assert_array_equal(g, w)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_pfac_host_copies_equal(seed):
+    """``rank_states``, ``build_ranked`` (also with a prefix cap that forces
+    k = 1), ``pad_classes`` and the START-indexed ``bitplanes_to_matches`` /
+    ``ac_matches`` of the pfac2 cross-check engine."""
+    kws = _keywords("ac", seed=seed)
+    ref = jax_compiler.compile_matcher(kws, "ac", True, values=list(range(len(kws))))
+    mine = carry(ref)
+    np.testing.assert_array_equal(port_scan_pfac2.rank_states(mine),
+                                  jax_scan_pfac2.rank_states(ref))
+    for cap in (1 << 20, 64):
+        got, want = port_scan_pfac2.build_ranked(mine, cap), jax_scan_pfac2.build_ranked(ref, cap)
+        assert got._fields == want._fields
+        for g, w in zip(got, want):
+            if isinstance(w, np.ndarray):
+                assert g.dtype == w.dtype and g.tobytes() == w.tobytes()
+            else:
+                assert g == w
+    text = _text(seed)
+    cls = ref.charmap[jax_chartables.to_utf16_units(text)]
+    assert port_scan_dfa.pad_classes is port_scan_pfac.pad_classes
+    assert port_scan_pfac.PAD_CLASS == port_scan_pfac2.PAD_CLASS == jax_scan_pfac.PAD_CLASS == 0
+    for d, bucket in ((0, 1), (7, 1), (5, 4096)):
+        want = jax_scan_pfac.pad_classes(cls, d, bucket)
+        for fn in (port_scan_pfac.pad_classes, port_scan_pfac2.pad_classes):
+            got = fn(cls, d, bucket)
+            assert got.dtype == want.dtype
+            np.testing.assert_array_equal(got, want)
+    trip = jax_gold.gold_match(ref, text)
+    starts = np.array([t[0] for t in trip], dtype=np.int64)
+    lens = np.array([t[1] - t[0] for t in trip], dtype=np.int64)
+    bits = np.zeros(((ref.max_depth + 31) // 32, len(cls) + 64), dtype=np.uint32)
+    np.bitwise_or.at(bits, ((lens - 1) // 32, starts), np.uint32(1) << ((lens - 1) % 32).astype(
+        np.uint32))
+    for g, w in zip(port_emit.bitplanes_to_matches(bits, ref.max_depth),
+                    jax_emit.bitplanes_to_matches(bits, ref.max_depth)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    got = port_emit.ac_matches(mine, cls, bits)
+    for g, w in zip(got, jax_emit.ac_matches(ref, cls, bits)):
+        assert g.dtype == w.dtype
+        np.testing.assert_array_equal(g, w)
+    assert [tuple(map(int, t)) for t in zip(*got)] == [tuple(t) for t in trip]
 
 
 # --------------------------------------------------------------------- native

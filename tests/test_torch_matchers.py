@@ -223,13 +223,21 @@ def test_default_device_is_cuda():
 
 @pytest.mark.parametrize("name", ["rowdfa", "batched", "batched2", "pfac2", "rowdfa3"])
 @pytest.mark.parametrize("klass", ["AhoCorasickMap", "LongestMatchSet", "WholeWordMatchSet"])
-def test_device_engine_knob(klass, name):
+def test_device_engine_knob(klass, name, monkeypatch):
     """The JAX package's ``device_engine`` names are accepted and give the
-    JAX matcher's triples under the same knob; any other name raises."""
+    JAX matcher's triples under the same knob; any other name raises.
+    ``"pfac2"`` takes the PFAC walk (``_candidates_pfac2``), never a planes
+    plan; the others never take the walk."""
     kws, text = _fuzz(11, n_text=900)
     args = (kws, list(range(len(kws)))) if klass.endswith("Map") else (kws,)
     p = getattr(port, klass)(*args, engine="device", device="cpu")
     assert p.device_engine == getattr(jax_pkg, klass).device_engine == "rowdfa"
+    walks, plans = [], []
+    real_walk, real_plan = port_matchers._PfacEngine._candidates_pfac2, port_matchers.dispatch.planes_plan
+    monkeypatch.setattr(port_matchers._PfacEngine, "_candidates_pfac2",
+                        lambda self, cls: walks.append(1) or real_walk(self, cls))
+    monkeypatch.setattr(port_matchers.dispatch, "planes_plan",
+                        lambda *a, **k: plans.append(1) or real_plan(*a, **k))
     p.device_engine = name
     if name == "rowdfa3":
         with pytest.raises(ValueError, match="unknown device_engine 'rowdfa3'"):
@@ -245,6 +253,8 @@ def test_device_engine_knob(klass, name):
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g, np.asarray(w))
     assert p.count(text) == j.count(text) == len(got[0])
+    assert (len(walks) > 0, len(plans) > 0) == ((True, False) if name == "pfac2" else
+                                                (False, True))
 
 
 def test_version_is_the_jax_packages():

@@ -247,6 +247,37 @@ def test_bench_and_stride2_scan_run_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_probes_and_pfac_walk_run_without_loading_jax():
+    code = (
+        "import contextlib, io, sys\n"
+        "import numpy as np\n"
+        "import torch\n"
+        "import ahocorasick_tpu_torch as P\n"
+        "from ahocorasick_tpu_torch.kernels import probes as kp, scan_pfac as kpf\n"
+        "from ahocorasick_tpu_torch.ops import emit, scan_pfac, scan_pfac2\n"
+        "from ahocorasick_tpu_torch.probes import __main__ as probes_main, probe, probe6\n"
+        "t = torch.tensor([1, 2, 3, 0], dtype=torch.int32)\n"
+        "assert kp.chain_gather(t, torch.tensor([0], dtype=torch.int32), 5, 'load').tolist() == [1]\n"
+        "assert probe.probe_lane_gather(reps=2, B=8, device='cpu')[1].shape == (8, 128)\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    probes_main.main(['--platform', 'cpu', '--no-sweep'])\n"
+        "m = P.AhoCorasickSet(['he', 'she', 'hers'], engine='device', device='cpu')\n"
+        "t = 'ushers and she said hers ' * 30\n"
+        "want = m.match(t)\n"
+        "m.device_engine = 'pfac2'\n"
+        "assert m.match(t) == want and m.count(t) == len(want) == 210\n"
+        "rt = m.dev.ranked\n"
+        "assert rt.trie_next.dtype == torch.uint32 and rt.prefix_k >= 1\n"
+        "l = P.LongestMatchSet(['he', 'she', 'hers'], engine='device', device='cpu')\n"
+        "l.device_engine = 'pfac2'\n"
+        "assert l.match('ushers') == [(1, 4)]\n"
+        + _CLEAN
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|ahocorasick_tpu)(?![\w])", re.M)
 
 
@@ -273,7 +304,15 @@ def test_port_sources_never_import_jax():
                  "kernels/stitch.py", "resolve/parallel.py", "graft_entry.py",
                  "kernels/table_sharded.py", "parallel/launch.py", "parallel/corpus.py",
                  "bench/__init__.py", "bench/__main__.py", "bench/headline.py",
-                 "ops/scan_rowdfa.py", "kernels/scan_rowdfa.py", "utils/stats.py"):
+                 "ops/scan_rowdfa.py", "kernels/scan_rowdfa.py", "utils/stats.py",
+                 "kernels/probes.py", "kernels/scan_pfac.py", "ops/scan_pfac.py",
+                 "ops/scan_pfac2.py", "ops/emit.py", "probes/__init__.py", "probes/probe.py",
+                 "probes/probe2.py", "probes/probe3.py", "probes/probe6.py",
+                 "probes/__main__.py"):
         assert ROOT / "ahocorasick_tpu_torch" / name in sources, name
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []
+    # Nor the JAX probes of tools/probes/ (importable as top-level modules).
+    tools = re.compile(r"^\s*(?:import|from)\s+(?:tools|probe\d*)(?![\w])", re.M)
+    assert tools.search("import probe as jprobe") and tools.search("from tools.probes import x")
+    assert [str(p) for p in sources if tools.search(p.read_text())] == []
