@@ -11,29 +11,67 @@
 //
 // What it computes.  Table entry s*A + c is  next | emit << state_bits
 // (uint32), where bit L-1 of emit means "a keyword of length L ends here"
-// (suffix chain included).  Thread b scans window b: it starts at the root
-// (state 0), warms up over the `halo` left-context classes (the automaton
-// is halo-synchronizing, so the state converges to the sequential one), then
-// steps over the body.  The count kernel sums popcount(emit); the planes
-// kernel writes emit for body position j of window b to out[b*C + j],
-// C = W - halo, which is flat text order.
+// (suffix chain included).  A window of W classes is `halo` left-context
+// classes and C = W - halo body classes; the count kernel sums
+// popcount(emit) over the body, the planes kernel writes emit for body
+// position j of window b to out[b*C + j], which is flat text order.
+//
+// Why lanes may start anywhere.  The automaton is halo-synchronizing
+// (halo = max_depth, ops/scan_batched.py build_packed): its state after any
+// `halo` classes read from the root equals the sequential state, because
+// that state is the longest suffix of the text read that is a keyword
+// prefix, at most max_depth long.  The count kernel runs one lane per
+// window (warm up over the window's halo, then its body).  The planes
+// kernel runs K lanes per window: segment k covers body positions
+// [k*L, min((k+1)*L, C)) and is warmed from the root over the `halo`
+// classes just before it in the same row (the row's own halo for k = 0, body
+// classes for k > 0).  The wrapper fixes K and L (kernels/scan_block.py
+// segments): K = 4, 2 or 1, the largest that keeps B*K within 65,536 lanes
+// and whose segments are at least four halos and 32 steps long, L a
+// multiple of 4; K = 1 when halo = 0, where nothing synchronizes.  The plain
+// twin takes the same decomposition.
 //
 // What bounds it on the H100.  Every character is one table load whose
 // address depends on the previous load (s -> s*A + c): a lane is a chain of
 // dependent loads.  The main path's table (10k keywords: 50,352 states x 32
 // classes x 4 B = 6.4 MB) is too big for a block's 227 KB of shared memory
-// and stays resident in the 50 MB L2, so each step costs one L2 round trip.
-// Throughput comes only from lanes in flight.  At the main path's shape
-// (65,536 windows of 12 + 512 classes) there are 65,536 threads, about a
-// quarter of the 132 SMs x 2,048 resident threads, so the card is
-// latency-bound and under-occupied.  What this design does about it: the
-// state lives in a register, the table is read through the read-only path
-// (__ldg), the flat index is 64-bit, counts are reduced in-warp and
-// in-block with one 64-bit atomic per block, and each emit mask is written
-// once.  Left for later work: staging small tables in shared memory,
-// coalescing the window loads (thread b reads row b at a stride of W
-// elements here) and the plane stores, and more lanes per thread to hide
-// the load latency.
+// and is read through L1 and the 50 MB L2; the scans run faster than a
+// random chase of a table that size (python -m ahocorasick_tpu_torch.probes),
+// so their hot states are few
+// and the L1 hit rate decides the pace.  The byte bound (windows in, 4 B per
+// body position out) at the main path's 65,536 windows of 12 + 512 classes
+// is 0.050 ms.  The planes kernel (0.764 ms in its first, one-lane-per-window
+// form) was held back by its memory traffic per step: thread b wrote
+// out[b*C + j], so the 32 lanes of a warp stored 4 bytes each 2 KiB apart
+// and every store opened its own 32-byte sector, and each lane loaded one
+// class a step from its own row.  What this design does about it:
+//   * Coalesced stores through shared memory.  Each lane writes the emit
+//     words of a tile of kTileSteps = 16 body steps into its own row of a
+//     shared-memory tile, padded to 17 words so the 32 lanes' writes of one
+//     step fall in 32 banks (17 words, 68 B a lane: 2,048 lanes fit an SM;
+//     a 32-step tile's 132 B allow 1,536 and ran slower).  After a
+//     __syncwarp the warp stores each lane's contiguous 64-byte run with
+//     16-byte stores, 4 lanes per run, so every sector is full.  Where C or
+//     L is not a multiple of 4 (a run would not be 16-byte aligned) the runs
+//     go out as 4-byte stores, 16 lanes per run, still whole sectors.  (A
+//     TMA bulk store of each lane's run, committed while the next tile is
+//     scanned, measured no faster: bench/planes_stores.cu keeps it.)
+//   * Classes read a word at a time.  A lane loads the aligned 32-bit words
+//     that hold its tile's classes (4 uint8 or 2 uint16 classes a load) and
+//     funnel-shifts them into place, so its window stays in registers and
+//     leaves L1 to the table's hot rows.
+//   * More lanes where lanes are few.  Below 65,536 windows the segments
+//     raise the lanes in flight up to that count (four lanes per window run
+//     about 3x faster than one at 8,192 windows).  At the main path's
+//     65,536 windows K = 1: more lanes there only crowd L1 and ran slower.
+// The state lives in a register, the table is read through the read-only
+// path (__ldg), the flat index is 64-bit, and the count kernel reduces
+// in-warp and in-block with one 64-bit atomic per block.  Left for later
+// work: the count kernel keeps its byte loads and one lane per window, and
+// the sibling planes kernels (wwl_scan.cu wwl_scan_plane, table_sharded.cu's
+// planes mode, huge_scan.cu's hotstate and split planes, rowdfa2_scan.cu's
+// planes) still store 4 bytes per lane at the row stride and load a class a
+// step; small tables are not staged in shared memory.
 
 #include <cstdint>
 
@@ -91,26 +129,97 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTileSteps = 16;          // body steps per store tile
+constexpr int kPitch = kTileSteps + 1;  // words per lane row: 17, an odd bank stride
+constexpr int kChunks = kTileSteps / 4;  // 16-byte chunks per run
+
+// The warp's tile holds lane r's `count` emit words in tile[r*kPitch ...];
+// they go to out[start_r ...].  Lanes pass their start and count by shuffle.
+__device__ __forceinline__ void store_tile(const uint32_t* __restrict__ tile, int lane,
+                                           long long start, int count, bool vec,
+                                           uint32_t* __restrict__ out) {
+  if (vec) {  // 16-byte stores: kChunks lanes per run, 32 / kChunks runs a round
+#pragma unroll
+    for (int q = 0; q < kChunks; ++q) {
+      const int r = q * (32 / kChunks) + lane / kChunks;
+      const int w = 4 * (lane % kChunks);
+      const long long dst = __shfl_sync(kFull, start, r);
+      const int n = __shfl_sync(kFull, count, r);
+      if (w < n) {
+        const uint32_t* src = tile + r * kPitch + w;
+        *reinterpret_cast<uint4*>(out + dst + w) = make_uint4(src[0], src[1], src[2], src[3]);
+      }
+    }
+  } else {  // 4-byte stores: 32 / kTileSteps runs a round
+#pragma unroll 4
+    for (int q = 0; q < kTileSteps; ++q) {
+      const int r = q * (32 / kTileSteps) + lane / kTileSteps;
+      const int w = lane % kTileSteps;
+      const long long dst = __shfl_sync(kFull, start, r);
+      const int n = __shfl_sync(kFull, count, r);
+      if (w < n) out[dst + w] = tile[r * kPitch + w];
+    }
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     planes_kernel(const uint32_t* __restrict__ table, const T* __restrict__ windows,
                   int64_t num_windows, int width, int halo, uint32_t num_classes,
-                  int state_bits, uint32_t* __restrict__ out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (b >= num_windows) return;
-  const T* row = windows + b * width;
+                  int state_bits, int segments, int seg_len, bool vec,
+                  uint32_t* __restrict__ out) {
+  constexpr int kPer = 4 / sizeof(T);  // classes per 32-bit word
+  constexpr int kWords = kTileSteps / kPer;
+  constexpr uint32_t kClassMask = (1u << (8 * sizeof(T))) - 1u;
+  __shared__ uint32_t tile[kThreads * kPitch];
+  const int lane = threadIdx.x & 31;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t b = g / segments;  // window
+  const int start = static_cast<int>(g - b * segments) * seg_len;  // first body position
+  const int body = width - halo;
+  const int len = b < num_windows ? min(seg_len, body - start) : 0;
   const uint32_t smask = (1u << state_bits) - 1u;
-  uint32_t s = warm_up(table, row, halo, num_classes, smask);
-  uint32_t* dst = out + b * (width - halo);
-  for (int t = halo; t < width; ++t) {
-    const uint32_t v = lookup(table, s, row[t], num_classes);
-    dst[t - halo] = v >> state_bits;
-    s = v & smask;
+  // The segment's warm-up classes are row[start, start + halo), its body
+  // classes follow them.
+  const T* seg = windows + b * width + start;
+  uint32_t s = len > 0 ? warm_up(table, seg, halo, num_classes, smask) : 0u;
+  seg += halo;
+  uint32_t* row = tile + threadIdx.x * kPitch;
+  const uint32_t* warp_tile = tile + (threadIdx.x - lane) * kPitch;
+  const long long dst = b * body + start;
+  const int steps = __reduce_max_sync(kFull, len);
+  for (int t0 = 0; t0 < steps; t0 += kTileSteps) {
+    const int n = min(kTileSteps, len - t0);  // <= 0 once this lane is done
+    // The tile's classes as the aligned 32-bit words that hold them (a load
+    // per kPer classes; none past the word of the last class, none for a lane
+    // that is done), funnel-shifted into place below.
+    const uintptr_t a = reinterpret_cast<uintptr_t>(seg + t0);
+    const uint32_t* words = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
+    const uint32_t shift = static_cast<uint32_t>(a & 3u) * 8u;
+    const int num_words =
+        n > 0 ? (static_cast<int>(a & 3u) + n * static_cast<int>(sizeof(T)) + 3) / 4 : 0;
+    uint32_t raw[kWords + 1];
+#pragma unroll
+    for (int k = 0; k <= kWords; ++k) raw[k] = k < num_words ? __ldg(words + k) : 0u;
+#pragma unroll
+    for (int t = 0; t < kTileSteps; ++t) {
+      if (t < n) {
+        const uint32_t word = __funnelshift_r(raw[t / kPer], raw[t / kPer + 1], shift);
+        const uint32_t c = (word >> (8 * sizeof(T) * (t % kPer))) & kClassMask;
+        const uint32_t v = lookup(table, s, c, num_classes);
+        row[t] = v >> state_bits;
+        s = v & smask;
+      }
+    }
+    __syncwarp();
+    store_tile(warp_tile, lane, dst + t0, n, vec, out);
+    __syncwarp();  // the rows are rewritten by the next tile
   }
 }
 
-unsigned grid_for(int64_t num_windows) {
-  return static_cast<unsigned>((num_windows + kThreads - 1) / kThreads);
+unsigned grid_for(int64_t lanes) {
+  return static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
 }
 
 }  // namespace
@@ -143,24 +252,36 @@ extern "C" int packed_scan_count(const void* table, const void* windows,
   return static_cast<int>(cudaGetLastError());
 }
 
+// `segments` lanes per window, `seg_len` body positions each (the last one
+// shorter): 1 and width - halo, or, when halo >= 1, segments in 2..4 and
+// seg_len a multiple of 4 with (segments - 1) * seg_len < width - halo.
 extern "C" int packed_scan_planes(const void* table, const void* windows,
                                   int window_bytes, int64_t num_windows, int width,
-                                  int halo, int num_classes, int state_bits,
-                                  void* out, int device, void* stream) {
+                                  int halo, int num_classes, int state_bits, int segments,
+                                  int seg_len, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int body = width - halo;
+  const bool one = segments == 1 && seg_len == body;
+  const bool split = segments >= 2 && segments <= 4 && halo >= 1 && seg_len % 4 == 0 &&
+                     (segments - 1) * seg_len < body && segments * seg_len >= body;
+  if (!one && !split) return static_cast<int>(cudaErrorInvalidValue);
   const auto* tab = static_cast<const uint32_t*>(table);
   auto* planes = static_cast<uint32_t*>(out);
+  // Runs start at b*C + k*L + a multiple of 32: 16-byte aligned when C and
+  // L are multiples of 4 and `out` is.
+  const bool vec = body % 4 == 0 && seg_len % 4 == 0 &&
+                   reinterpret_cast<uintptr_t>(planes) % 16 == 0;
   auto st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(num_windows);
+  const unsigned grid = grid_for(num_windows * segments);
   if (window_bytes == 1) {
     planes_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
         tab, static_cast<const uint8_t*>(windows), num_windows, width, halo,
-        static_cast<uint32_t>(num_classes), state_bits, planes);
+        static_cast<uint32_t>(num_classes), state_bits, segments, seg_len, vec, planes);
   } else if (window_bytes == 2) {
     planes_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
         tab, static_cast<const uint16_t*>(windows), num_windows, width, halo,
-        static_cast<uint32_t>(num_classes), state_bits, planes);
+        static_cast<uint32_t>(num_classes), state_bits, segments, seg_len, vec, planes);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

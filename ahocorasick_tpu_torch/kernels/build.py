@@ -82,7 +82,8 @@ _SCAN_ARGS = [_P, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P]
 _SPLIT_ARGS = [_P, *_SCAN_ARGS]
 ARGTYPES = {
     "packed_scan_count": _SCAN_ARGS,
-    "packed_scan_planes": _SCAN_ARGS,
+    # _SCAN_ARGS with (segments, seg_len) before out
+    "packed_scan_planes": [*_SCAN_ARGS[:8], _I, _I, *_SCAN_ARGS[8:]],
     "packedcount_count": _SCAN_ARGS,
     "packedcount_hotstate_plane": _SCAN_ARGS,
     "rowdfa2_count": _SCAN_ARGS,
@@ -90,10 +91,8 @@ ARGTYPES = {
     "split_count": _SPLIT_ARGS,
     "split_emit_planes": _SPLIT_ARGS,
     "compact_tile": [],
-    # (bits, planes, n, block_counts, offsets, total, device, stream)
-    "compact_count": [_P, _I, _I64, _P, _P, _P, _I, _P],
-    # (bits, planes, n, offsets, idx, masks, device, stream)
-    "compact_write": [_P, _I, _I64, _P, _P, _P, _I, _P],
+    # (bits, planes, n, cap, desc, idx, masks, device, stream)
+    "compact_planes": [_P, _I, _I64, _I64, _P, _P, _P, _I, _P],
     # (dfa_next, match_len, cls, cls_bytes, n, num_classes, out, device, stream)
     "shortest_states": [_P, _P, _P, _I, _I64, _I, _P, _I, _P],
     # (table, windows, class_bytes, num_windows, width, halo, stride,
@@ -160,32 +159,32 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
 
 
-def library_path() -> str:
+def library_path(sources=SOURCES, stem: str = "libac_kernels") -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in SOURCES:
+    for src in sources:
         with open(src, "rb") as fh:
             h.update(fh.read())
-    return os.path.join(BUILD_DIR, f"libac_kernels-{h.hexdigest()[:16]}.so")
+    return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")
 
 
-def build() -> str:
-    """Compile the kernels unless a build of these exact sources exists;
-    returns the library path."""
-    out = library_path()
+def build(sources=SOURCES, stem: str = "libac_kernels") -> str:
+    """Compile ``sources`` into one library unless a build of these exact
+    sources exists; returns the library path."""
+    out = library_path(sources, stem)
     if os.path.exists(out):
         return out
     os.makedirs(BUILD_DIR, exist_ok=True)
     nvcc = _nvcc()
     tmp = f"{out}.tmp.{os.getpid()}"
-    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in SOURCES]
+    objs = [f"{tmp}.{os.path.basename(src)}.o" for src in sources]
     procs = [
         subprocess.Popen([nvcc, *FLAGS, "-c", "-o", obj, src],
                          stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
-        for src, obj in zip(SOURCES, objs)
+        for src, obj in zip(sources, objs)
     ]
     logs = []
     try:
-        for src, proc in zip(SOURCES, procs):
+        for src, proc in zip(sources, procs):
             stdout, stderr = proc.communicate()
             if proc.returncode != 0:
                 raise RuntimeError(

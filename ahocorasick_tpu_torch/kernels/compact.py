@@ -10,10 +10,13 @@ dense planes instead.
 
 The kernel (``csrc/compact.cu``) replaces the JAX package's
 ``ops/scan_batched.py`` ``_compact_planes`` (``jnp.nonzero`` under XLA).  It
-counts hot positions per block, scans the block counts into offsets, reads
-the total on the host (the one synchronisation, which sizes the outputs and
-applies ``limit``) and then writes each block's hot positions at its offset,
-so the order is ascending by construction.
+is one launch of a single-pass scan with decoupled look-back: each tile of
+positions reads its planes once, learns the hot positions of the tiles
+before it from their published descriptors, and writes its own hot
+positions at their ranks, so the order is ascending by construction.  The
+wrapper sizes the outputs for ``min(limit, N)`` hot positions (``N`` when
+``limit`` is None) before the launch and reads the total once after it (the
+one synchronisation, as ``planes_to_sparse`` has in the JAX package).
 
 A wrapper runs the plain twin for tensors on the CPU, and launches the
 kernel for tensors on a CUDA device: there is no fallback from one to the
@@ -48,23 +51,21 @@ def compact_planes(bits: torch.Tensor, limit: Optional[int] = None):
     if bits.device.type == "cpu":
         return compact_planes_plain(bits, limit)
     dev = bits.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    num_blocks = -(-N // build.library().compact_tile())
-    block_counts = torch.empty(num_blocks, dtype=torch.int32, device=dev)
-    offsets = torch.empty(num_blocks, dtype=torch.int64, device=dev)
-    total = torch.empty(1, dtype=torch.int64, device=dev)
-    build.call("compact_count", bits.data_ptr(), P, N, block_counts.data_ptr(),
-               offsets.data_ptr(), total.data_ptr(), dev.index, stream)
+    cap = N if limit is None else max(0, min(limit, N))
+    num_tiles = max(1, -(-N // build.library().compact_tile()))
+    # The tiles' descriptors, the tile counter and the total; the launcher
+    # zeroes the first two.
+    desc = torch.empty(num_tiles + 2, dtype=torch.int64, device=dev)
+    idx = torch.empty(cap, dtype=torch.int64, device=dev)
+    masks = torch.empty((cap, P), dtype=torch.uint32, device=dev)
+    build.call("compact_planes", bits.data_ptr(), P, N, cap, desc.data_ptr(), idx.data_ptr(),
+               masks.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
     launches["compact_planes"] += 1
-    count = int(total.item())  # the host read that sizes the outputs
+    total = desc[-1]
+    count = int(total.item())  # the one host read
     if limit is not None and count > limit:
         return None
-    idx = torch.empty(count, dtype=torch.int64, device=dev)
-    masks = torch.empty((count, P), dtype=torch.uint32, device=dev)
-    if count:
-        build.call("compact_write", bits.data_ptr(), P, N, offsets.data_ptr(),
-                   idx.data_ptr(), masks.data_ptr(), dev.index, stream)
-    return total[0], idx, masks
+    return total, idx[:count], masks[:count]
 
 
 def compact_planes_plain(bits: torch.Tensor, limit: Optional[int] = None):

@@ -59,15 +59,44 @@ def _check(table: torch.Tensor, windows: torch.Tensor, halo: int, state_bits: in
     return _check_windows(windows, halo, table)
 
 
-def _launch(name: str, table, windows, halo, state_bits, out) -> None:
+def _launch(name: str, table, windows, halo, state_bits, out, *lanes) -> None:
     B, W = windows.shape
     dev = windows.device
     build.call(
         name, table.data_ptr(), windows.data_ptr(), _WINDOW_BYTES[windows.dtype],
-        B, W, halo, table.shape[1], state_bits, out.data_ptr(),
+        B, W, halo, table.shape[1], state_bits, *lanes, out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     launches[name] += 1
+
+
+# The planes kernel splits windows into segments only while the lanes stay at
+# most this many: at the main path's 65,536 windows of 512 body classes one
+# lane per window is fastest and more lanes only crowd the SMs' caches, while
+# at 8,192 windows or fewer four lanes per window run about 3x faster than
+# one (NVIDIA H100 80GB HBM3, 700 W; python -m
+# ahocorasick_tpu_torch.bench.planes_stores times both).
+MAX_LANES = 65_536
+
+
+def segments(num_windows: int, body: int, halo: int) -> tuple:
+    """``(K, L)``: the planes kernel's lanes per window and body positions per
+    lane (the last lane of a window takes the rest, ``C - (K-1)*L``).
+
+    K = 4, else 2, else 1: the largest that keeps ``num_windows * K`` within
+    ``MAX_LANES`` and whose segments are at least four halos and 32 steps
+    long, with L = ceil(C / K) rounded up to a multiple of 4 (16-byte stores)
+    and the last segment not empty (C = ``body``).  Each lane is warmed from
+    the root over the ``halo`` classes before its segment, which is exact
+    because the automaton is ``halo``-synchronizing; with ``halo = 0``
+    nothing synchronizes, so K = 1."""
+    if halo >= 1:
+        for k in (4, 2):
+            seg = -(-body // (4 * k)) * 4
+            if (num_windows * k <= MAX_LANES and seg >= max(4 * halo, 32)
+                    and (k - 1) * seg < body):
+                return k, seg
+    return 1, body
 
 
 def packed_scan_count(table: torch.Tensor, windows: torch.Tensor, halo: int,
@@ -89,7 +118,8 @@ def packed_scan_planes(table: torch.Tensor, windows: torch.Tensor, halo: int,
     if windows.device.type == "cpu":
         return packed_scan_planes_plain(table, windows, halo, state_bits)
     out = torch.empty((1, B * (W - halo)), dtype=torch.uint32, device=windows.device)
-    _launch("packed_scan_planes", table, windows, halo, state_bits, out)
+    _launch("packed_scan_planes", table, windows, halo, state_bits, out,
+            *segments(B, W - halo, halo))
     return out
 
 
@@ -143,13 +173,33 @@ def packed_scan_count_plain(table, windows, halo, state_bits) -> torch.Tensor:
     return pop.sum()
 
 
-def packed_scan_planes_plain(table, windows, halo, state_bits) -> torch.Tensor:
+def _segment_lanes(windows: torch.Tensor, halo: int, K: int, L: int) -> torch.Tensor:
+    """``windows[B, halo + C]`` -> ``lanes[B*K, halo + L]``: lane ``b*K + k``
+    holds row b's classes ``[k*L, k*L + halo + L)``, zero past the row."""
     B, W = windows.shape
-    out = torch.empty((B, W - halo), dtype=torch.int64, device=windows.device)
+    if K == 1:
+        return windows
+    # uint16 has no slicing copy on every build: move the same bits as int16.
+    bits = windows.view(torch.int16) if windows.dtype == torch.uint16 else windows
+    padded = torch.zeros((B, halo + K * L), dtype=bits.dtype, device=bits.device)
+    padded[:, :W] = bits
+    lanes = padded.unfold(1, halo + L, L).reshape(B * K, halo + L)
+    return lanes.view(windows.dtype) if windows.dtype == torch.uint16 else lanes
+
+
+def packed_scan_planes_plain(table, windows, halo, state_bits) -> torch.Tensor:
+    """The kernel's lane decomposition (``segments``): K lanes per window,
+    each warmed over the ``halo`` classes before its segment."""
+    B, W = windows.shape
+    C = W - halo
+    K, L = segments(B, C, halo)
+    lanes = _segment_lanes(windows, halo, K, L)
+    out = torch.empty((B * K, L), dtype=torch.int64, device=windows.device)
 
     def emit(j, e):
         out[:, j] = e
 
-    _scan_plain(table, windows, halo, state_bits, emit)
-    # Emit masks are < 2**31 (state_bits >= 1), so int32 holds them exactly.
-    return out.reshape(1, -1).to(torch.int32).view(torch.uint32)
+    _scan_plain(table, lanes, halo, state_bits, emit)
+    # Emit masks are < 2**31 (state_bits >= 1), so int32 holds them exactly;
+    # the last segment's columns past C are padding.
+    return out.reshape(B, K * L)[:, :C].reshape(1, -1).to(torch.int32).view(torch.uint32)

@@ -33,7 +33,12 @@ port only, the dictionary and text generators included (``bench.headline``,
 3. every kernel against its plain PyTorch twin on the card, bit for bit, on
    seeded dictionaries and shapes: the scans up to the main path's
    65,536 x 524 windows, the compaction on every planes tensor they make and
-   on synthetic ones, the shortest restart scan on fuzz dictionaries and on
+   on synthetic ones; the one-pass compaction and the segmented planes scan
+   at their edge shapes (no hot position, the hot count at ``limit`` and one
+   past it, no limit, P = 1, 2, 3 and 5 with N past a tile, more than 16 Ki
+   tiles twice in a row; C < 128, C not a multiple of the lanes per window,
+   halo 0, uint16 windows, a keyword of length halo across every segment
+   boundary, ``a``..``a * 12``); the shortest restart scan on fuzz dictionaries and on
    the 10k dictionary over 64 Ki units; the whole-word-longest scan plane
    and die sweep on fuzz (row and flat layouts), the full-node quotient
    dictionary (uint16 classes), a separator-spanning dictionary (crossing
@@ -141,7 +146,8 @@ port only, the dictionary and text generators included (``bench.headline``,
    eager torch indexing; the ``device_engine="pfac2"`` facade beside the
    default; B17's bound; each kernel's bound (bytes over 3.35 TB/s or
    operations over 67 T/s, 989 T/s for the fp16 tensor cores, whichever is
-   larger) and the library-call times.
+   larger), the library-call times, and the kernels ranked by launches x
+   (ms - bound).
 
 It prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -298,6 +304,118 @@ def stream_pieces(seed: int, n_units: int) -> list:
 def fuzz_keywords(rng, alphabet: str, n: int, max_len: int):
     return sorted({"".join(rng.choice(list(alphabet), size=int(rng.integers(1, max_len + 1))))
                    for _ in range(n)})
+
+
+def check_redesign_edges(port, dev, errs):
+    """The two kernels redesigned for this card (the one-pass compaction and
+    the segmented, coalesced planes scan) against their twins, bit for bit,
+    at their edge shapes."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import compact, scan_block
+    from ahocorasick_tpu_torch.ops import scan_batched
+
+    def words(t):
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    def compact_pair(label, bits, limit):
+        got = compact.compact_planes(bits, limit)
+        want = compact.compact_planes_plain(bits, limit)
+        torch.cuda.synchronize()
+        if (got is None) != (want is None):
+            e = 1
+        elif got is None:
+            e = 0
+        elif got[1].shape != want[1].shape or got[2].shape != want[2].shape:
+            e = 1
+        else:
+            e = abs(int(got[0]) - int(want[0]))
+            if len(want[1]):
+                e = max(e, int((got[1] - want[1]).abs().max()),
+                        int((words(got[2]) - words(want[2])).abs().max()))
+        errs["compact_planes"] = max(errs["compact_planes"], e)
+        P, N = bits.shape
+        print(f"  compact edge {label}: P={P} N={N} tiles={-(-N // 4096)} limit={limit} "
+              f"-> {'None' if want is None else int(want[0])} max_abs_err={e}")
+        if e:
+            raise AssertionError(f"compact edge {label}: kernel disagrees with its twin")
+        return want
+
+    rng = np.random.default_rng(SEED + 10)
+
+    def sparse(P, N, hot):
+        bits = torch.zeros((P, N), dtype=torch.int32, device=dev)
+        pos = torch.from_numpy(rng.choice(N, size=hot, replace=False)).to(dev)
+        plane = torch.from_numpy(rng.integers(0, P, size=hot)).to(dev)
+        vals = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, size=hot, dtype=np.int64)
+                                .astype(np.int32)).to(dev)
+        bits[plane, pos] = torch.where(vals == 0, torch.ones_like(vals), vals)
+        return bits.view(torch.uint32)
+
+    compact_pair("count 0", torch.zeros((1, 1 << 20), dtype=torch.uint32, device=dev), 1 << 18)
+    bits = sparse(1, 1 << 22, 50_000)
+    k = int((bits.view(torch.int32) != 0).sum())
+    compact_pair("count == limit", bits, k)
+    compact_pair("count == limit + 1", bits, k - 1)
+    compact_pair("limit None", bits, None)
+    compact_pair("all hot", sparse(1, 70_001, 70_001), None)
+    for P in (1, 2, 3, 5):  # P = 5: more planes than the kernel holds in registers
+        compact_pair(f"P = {P}, N past the tile", sparse(P, 3 * 4096 + 1_234 + P, 2_000), None)
+    many = sparse(1, 16_384 * 4096 + 4_099, 200_000)
+    compact_pair("more than 16 Ki tiles", many, None)
+    compact_pair("more than 16 Ki tiles, again (descriptors reset)", many, None)
+    del many
+
+    def planes_pair(label, m, text, chunk, halo=None, want_k=None):
+        pd = m.dev.packed_dfa
+        halo = pd.halo if halo is None else halo
+        cls = m._classes(text)
+        w = scan_batched.classes_to_device(
+            scan_batched.chunk_classes(cls, chunk, halo, m.compiled.num_classes),
+            m.compiled.num_classes, dev)
+        args = (pd.table, w, halo, pd.state_bits)
+        K, L = scan_block.segments(w.shape[0], w.shape[1] - halo, halo)
+        got = words(scan_block.packed_scan_planes(*args))
+        want = words(scan_block.packed_scan_planes_plain(*args))
+        count = int(scan_block.packed_scan_count(*args))
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        pop = int(sum(bin(x).count("1") for x in want[want != 0].tolist()))
+        errs["packed_scan_planes"] = max(errs["packed_scan_planes"], e)
+        print(f"  planes edge {label}: B={w.shape[0]} W={w.shape[1]} halo={halo} K={K} L={L} "
+              f"{str(w.dtype).replace('torch.', '')} bits={pop} count kernel={count} "
+              f"max_abs_err={e}")
+        if e or pop != count:
+            raise AssertionError(f"planes edge {label}: kernel disagrees with its twin")
+        if want_k is not None and K != want_k:
+            raise AssertionError(f"planes edge {label}: K = {K}, not {want_k}")
+
+    fr = np.random.default_rng(SEED + 11)
+    kws = fuzz_keywords(fr, "abcd", 40, 6)
+    m = port.AhoCorasickSet(kws, engine="device", device=dev)
+    text = "".join(fr.choice(list("abcd "), size=300_001))
+    planes_pair("C = 100 < 128", m, text, 100, want_k=2)
+    planes_pair("C = 514, not a multiple of K (4-byte stores)", m, text, 514, want_k=4)
+    planes_pair("C = 127, last segment 31", m, text, 127, want_k=4)
+    planes_pair("halo 0", m, text, 512, halo=0, want_k=1)
+    wide_kws = [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)]
+    m = port.AhoCorasickSet(wide_kws, engine="device", device=dev)
+    wide = "".join(chr(0x100 + int(c)) for c in fr.integers(0, 300, size=200_000))
+    planes_pair("uint16 windows", m, wide, 512, want_k=4)
+    kw = "abcdefghi"  # length 9 = halo, across every segment boundary
+    m = port.AhoCorasickSet([kw, "bcd", "hia", "ia", "x"], engine="device", device=dev)
+    chunk, seg = 144, 36
+    chars = list(fr.choice(list("xyz"), size=1_000 * chunk))
+    for wi in range(1_000):
+        for k in range(1, 4):
+            at = wi * chunk + k * seg - wi % len(kw)
+            chars[at: at + len(kw)] = kw
+    planes_pair("keyword of length halo across segment boundaries", m, "".join(chars), chunk,
+                want_k=4)
+    m = port.AhoCorasickSet(["a" * i for i in range(1, 13)], engine="device", device=dev)
+    runs = fr.integers(1, 30, size=20_000)
+    planes_pair("depth 12, a..a*12", m, "".join("a" * int(r) + "b" for r in runs), 512,
+                want_k=4)
 
 
 def check_probe_kernels(dev, errs, max_err):
@@ -793,6 +911,7 @@ def main() -> int:
     synth_t = torch.from_numpy(synth.view(np.int32)).to(dev).view(torch.uint32)
     assert check_compact("synthetic P=2", synth_t) == 40_000
     assert check_compact("no bits set", torch.zeros_like(synth_t[:1])) == 0
+    check_redesign_edges(port, dev, errs)
 
     keywords = make_dictionary(np.random.default_rng(SEED), N_KEYWORDS)
     big = port.AhoCorasickSet(keywords, engine="device", device=dev)
@@ -2806,6 +2925,10 @@ def main() -> int:
     print(f"time library compact (torch.nonzero + gather, P = 1, {plane0.numel()} positions): "
           f"{library['compact_planes']} ms [{smi}]")
 
+    # Where the main path loses most to the bounds: launches x (ms - bound).
+    gap = sorted(((counts[k] * (ms[k][0] - bounds[k][0]), k) for k in KERNELS), reverse=True)
+    print("launches x gap to bound (ms): " + "; ".join(
+        f"{k} {counts[k]} x ({ms[k][0]} - {bounds[k][0]}) = {g}" for g, k in gap) + f" [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - t_start} s from the build to here [{smi}]")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],

@@ -89,6 +89,40 @@ def test_compaction_limit_means_dense_download():
     assert int(compact.compact_planes(_tensor(bits), limit=k)[0]) == k
 
 
+def _contract_planes(name):
+    """(planes, limit) of the compaction kernel's edge cases: the hot count
+    at the limit and one past it, no limit, three planes, and N past a
+    multiple of the kernel's 4,096-position tile."""
+    rng = np.random.default_rng(len(name) + 11)
+    P, N = (3, 3 * 4096 + 5) if name in ("p3", "ragged_tile") else (1, 2 * 4096)
+    bits = np.zeros((P, N), dtype=np.uint32)
+    hot = rng.choice(N, size=N // 50, replace=False)
+    bits[rng.integers(0, P, size=hot.size), hot] = rng.integers(
+        1, 1 << 32, size=hot.size, dtype=np.uint64).astype(np.uint32)
+    if name == "ragged_tile":
+        bits[:, -1] = [0, 7, 0]  # the very last position, in the partial tile
+    k = int((bits != 0).any(axis=0).sum())
+    return bits, {"at_limit": k, "over_limit": k - 1}.get(name)
+
+
+@pytest.mark.parametrize("name", ["at_limit", "over_limit", "no_limit", "p3", "ragged_tile"])
+def test_compaction_contract_equals_jax(name):
+    bits, limit = _contract_planes(name)
+    P, N = bits.shape
+    want_cnt, want_idx, want_masks = jax_sb._compact_planes(jnp.asarray(bits), cap=N)
+    k = int(want_cnt)
+    out = compact.compact_planes(_tensor(bits), limit=limit)
+    if name == "over_limit":
+        assert k == limit + 1 and out is None
+        return
+    count, idx, masks = out
+    assert int(count) == k == len(idx) and masks.shape == (k, P)
+    np.testing.assert_array_equal(idx.numpy(), np.asarray(want_idx)[:k])
+    np.testing.assert_array_equal(_u32(masks), np.asarray(want_masks)[:k])
+    if name == "ragged_tile":
+        assert idx[-1] == N - 1
+
+
 @pytest.mark.parametrize("bad", ["int32", "one_dim", "strided", "no_planes"])
 def test_compaction_rejects_what_the_kernel_does_not_take(bad):
     t = _tensor(_planes("p2_sparse")[0])
