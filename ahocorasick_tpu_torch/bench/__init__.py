@@ -91,12 +91,13 @@ def ac_kernel_rate(m, cls: np.ndarray, reps: int = 8, chunk: int = 512,
 
 def wwl_kernel_rate(m, cls: np.ndarray, reps: int = 8, min_units: int = None) -> float:
     """Device walk rate (GB/s of text) of the whole-word-longest route the
-    facade takes: the scan plane and the die sweep at the chain's starts
-    (``scan_wwl.wwl_scan_walks``) where a scan table applies, else the
-    per-start trie walk (``wwl_walks_at``).  The lanes come from the
-    facade's own setup (``scan_wwl.compact_lanes``), uploaded once; ``reps``
-    scales to ``min_units`` per timed call (by default 64 Mi units for the
-    scan route and 16 Mi for the walk, as in the JAX package)."""
+    facade takes: where a scan table applies, the engine ``scan_walks_auto``
+    picks (the fused scan, or the scan plane and the die sweep) at the
+    chain's starts, else the per-start trie walk (``wwl_walks_at``).  The
+    lanes come from the facade's own setup (``scan_wwl.compact_lanes``), and
+    the picked engine's windows are uploaded once (``scan_wwl.scan_windows``);
+    ``reps`` scales to ``min_units`` per timed call (by default 64 Mi units
+    for the scan route and 16 Mi for the walk, as in the JAX package)."""
     from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
 
     comp = m.compiled
@@ -106,14 +107,10 @@ def wwl_kernel_rate(m, cls: np.ndarray, reps: int = 8, min_units: int = None) ->
     if pure or scan_wwl.mixed_scan_applicable(comp):
         reps = _reps_for(reps, (64 << 20) if min_units is None else min_units, len(cls))
         sc = m.dev.wwl_scan if pure else m.dev.wwl_scan_mixed
-        windows = scan_batched.classes_to_device(
-            scan_batched.chunk_classes(cls_p, 512, d, sc.num_classes), sc.num_classes, m.device)
+        fused, windows = scan_wwl.scan_windows(sc, cls_p, d)
 
         def run():
-            return scan_wwl.wwl_scan_walks(
-                sc.table, sc.rows_flat, sc.outrows, windows, starts_d, halo=d,
-                id_bits=sc.id_bits, depth_bits=sc.depth_bits, num_classes=sc.num_classes, d=d,
-                row_layout=sc.row_layout, quotient=sc.quotient, cross=sc.has_cross)
+            return scan_wwl.scan_walks_on(sc, fused, windows, starts_d, d, sc.has_cross)
     else:
         reps = _reps_for(reps, (16 << 20) if min_units is None else min_units, len(cls))
         tables = m.dev.wwl_walk

@@ -68,14 +68,17 @@
 // path (__ldg), the flat index is 64-bit, and the count kernel reduces
 // in-warp and in-block with one 64-bit atomic per block.  Left for later
 // work: the count kernel keeps its byte loads and one lane per window, and
-// the sibling planes kernels (wwl_scan.cu wwl_scan_plane, table_sharded.cu's
-// planes mode, huge_scan.cu's hotstate and split planes, rowdfa2_scan.cu's
-// planes) still store 4 bytes per lane at the row stride and load a class a
-// step; small tables are not staged in shared memory.
+// the sibling planes kernels (table_sharded.cu's planes mode, huge_scan.cu's
+// hotstate and split planes, rowdfa2_scan.cu's planes) still store 4 bytes
+// per lane at the row stride and load a class a step; small tables are not
+// staged in shared memory.  The word loads and the store tile live in
+// tile.cuh, which wwl_scan.cu's plane kernel shares.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
+
+#include "tile.cuh"
 
 namespace {
 
@@ -129,50 +132,16 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-constexpr unsigned kFull = 0xffffffffu;
-constexpr int kTileSteps = 16;          // body steps per store tile
-constexpr int kPitch = kTileSteps + 1;  // words per lane row: 17, an odd bank stride
-constexpr int kChunks = kTileSteps / 4;  // 16-byte chunks per run
-
-// The warp's tile holds lane r's `count` emit words in tile[r*kPitch ...];
-// they go to out[start_r ...].  Lanes pass their start and count by shuffle.
-__device__ __forceinline__ void store_tile(const uint32_t* __restrict__ tile, int lane,
-                                           long long start, int count, bool vec,
-                                           uint32_t* __restrict__ out) {
-  if (vec) {  // 16-byte stores: kChunks lanes per run, 32 / kChunks runs a round
-#pragma unroll
-    for (int q = 0; q < kChunks; ++q) {
-      const int r = q * (32 / kChunks) + lane / kChunks;
-      const int w = 4 * (lane % kChunks);
-      const long long dst = __shfl_sync(kFull, start, r);
-      const int n = __shfl_sync(kFull, count, r);
-      if (w < n) {
-        const uint32_t* src = tile + r * kPitch + w;
-        *reinterpret_cast<uint4*>(out + dst + w) = make_uint4(src[0], src[1], src[2], src[3]);
-      }
-    }
-  } else {  // 4-byte stores: 32 / kTileSteps runs a round
-#pragma unroll 4
-    for (int q = 0; q < kTileSteps; ++q) {
-      const int r = q * (32 / kTileSteps) + lane / kTileSteps;
-      const int w = lane % kTileSteps;
-      const long long dst = __shfl_sync(kFull, start, r);
-      const int n = __shfl_sync(kFull, count, r);
-      if (w < n) out[dst + w] = tile[r * kPitch + w];
-    }
-  }
-}
-
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     planes_kernel(const uint32_t* __restrict__ table, const T* __restrict__ windows,
                   int64_t num_windows, int width, int halo, uint32_t num_classes,
                   int state_bits, int segments, int seg_len, bool vec,
                   uint32_t* __restrict__ out) {
-  constexpr int kPer = 4 / sizeof(T);  // classes per 32-bit word
-  constexpr int kWords = kTileSteps / kPer;
-  constexpr uint32_t kClassMask = (1u << (8 * sizeof(T))) - 1u;
-  __shared__ uint32_t tile[kThreads * kPitch];
+  using tile::kFull;
+  using tile::kPitch;
+  using tile::kTileSteps;
+  __shared__ uint32_t tiles[kThreads * kPitch];
   const int lane = threadIdx.x & 31;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
   const int64_t b = g / segments;  // window
@@ -185,35 +154,24 @@ __global__ void __launch_bounds__(kThreads)
   const T* seg = windows + b * width + start;
   uint32_t s = len > 0 ? warm_up(table, seg, halo, num_classes, smask) : 0u;
   seg += halo;
-  uint32_t* row = tile + threadIdx.x * kPitch;
-  const uint32_t* warp_tile = tile + (threadIdx.x - lane) * kPitch;
+  uint32_t* row = tiles + threadIdx.x * kPitch;
+  const uint32_t* warp_tile = tiles + (threadIdx.x - lane) * kPitch;
   const long long dst = b * body + start;
   const int steps = __reduce_max_sync(kFull, len);
   for (int t0 = 0; t0 < steps; t0 += kTileSteps) {
     const int n = min(kTileSteps, len - t0);  // <= 0 once this lane is done
-    // The tile's classes as the aligned 32-bit words that hold them (a load
-    // per kPer classes; none past the word of the last class, none for a lane
-    // that is done), funnel-shifted into place below.
-    const uintptr_t a = reinterpret_cast<uintptr_t>(seg + t0);
-    const uint32_t* words = reinterpret_cast<const uint32_t*>(a & ~uintptr_t{3});
-    const uint32_t shift = static_cast<uint32_t>(a & 3u) * 8u;
-    const int num_words =
-        n > 0 ? (static_cast<int>(a & 3u) + n * static_cast<int>(sizeof(T)) + 3) / 4 : 0;
-    uint32_t raw[kWords + 1];
-#pragma unroll
-    for (int k = 0; k <= kWords; ++k) raw[k] = k < num_words ? __ldg(words + k) : 0u;
+    tile::ClassWords<T> cls;
+    cls.load(seg + t0, n);
 #pragma unroll
     for (int t = 0; t < kTileSteps; ++t) {
       if (t < n) {
-        const uint32_t word = __funnelshift_r(raw[t / kPer], raw[t / kPer + 1], shift);
-        const uint32_t c = (word >> (8 * sizeof(T) * (t % kPer))) & kClassMask;
-        const uint32_t v = lookup(table, s, c, num_classes);
+        const uint32_t v = lookup(table, s, cls.at(t), num_classes);
         row[t] = v >> state_bits;
         s = v & smask;
       }
     }
     __syncwarp();
-    store_tile(warp_tile, lane, dst + t0, n, vec, out);
+    tile::store_tile(warp_tile, lane, dst + t0, n, vec, out);
     __syncwarp();  // the rows are rewritten by the next tile
   }
 }

@@ -7,7 +7,8 @@ and flags, so an edited kernel is never served from a stale build.  Each
 source compiles to an object in its own nvcc process, all started together,
 and one more nvcc call links the objects.  A temporary file plus
 ``os.replace`` keeps concurrent build processes from loading a half-written
-library.  Building needs ``nvcc`` (``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
+library.  The headers the sources include (``HEADERS``) count in the hash.
+Building needs ``nvcc`` (``$CUDA_HOME/bin``, ``/usr/local/cuda/bin``
 or ``PATH``); the ptxas report (registers, shared memory, spills) is kept
 beside the library as ``<name>.log``.
 
@@ -32,6 +33,8 @@ SOURCES = tuple(
                  "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu", "table_sharded.cu",
                  "rowdfa2_scan.cu", "probes.cu", "pfac_scan.cu")
 )
+# Included by the sources; hashed with them, so an edited header rebuilds too.
+HEADERS = (os.path.join(_PKG, "csrc", "tile.cuh"),)
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -65,6 +68,7 @@ launches = {
     "pfac2_planes": 0,
     "pfac2_count": 0,
     "pfac1_planes": 0,
+    "wwl_scan_fused": 0,
 }
 
 
@@ -96,8 +100,13 @@ ARGTYPES = {
     # (dfa_next, match_len, cls, cls_bytes, n, num_classes, out, device, stream)
     "shortest_states": [_P, _P, _P, _I, _I64, _I, _P, _I, _P],
     # (table, windows, class_bytes, num_windows, width, halo, stride,
-    #  num_classes, id_bits, plane, entry, device, stream)
-    "wwl_scan_plane": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    #  num_classes, id_bits, segments, seg_len, plane, entry, device, stream)
+    "wwl_scan_plane": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
+    # (table, windows, class_bytes, num_windows, width, halo, stride, d,
+    #  id_bits, depth_bits, cross, segments, seg_len, starts, num_starts,
+    #  outrows, meta, die_pos, has, m_start, m_end, m_val, cont, device, stream)
+    "wwl_scan_fused": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I64,
+                       _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # (plane, entry, rows_flat, outrows, starts, num_starts, live, d, id_bits,
     #  depth_bits, cross, die_pos, has, m_start, m_end, m_val, cont, device,
     #  stream)
@@ -161,7 +170,7 @@ def _nvcc() -> str:
 
 def library_path(sources=SOURCES, stem: str = "libac_kernels") -> str:
     h = hashlib.sha256(" ".join(FLAGS).encode())
-    for src in sources:
+    for src in (*sources, *HEADERS):
         with open(src, "rb") as fh:
             h.update(fh.read())
     return os.path.join(BUILD_DIR, f"{stem}-{h.hexdigest()[:16]}.so")

@@ -1,14 +1,15 @@
 """Whole-word-longest walk outcomes: the Hopper kernels and their plain
 PyTorch twins.
 
-Four kernels (``csrc/wwl_scan.cu``, ``csrc/wwl_walk.cu``):
+Five kernels (``csrc/wwl_scan.cu``, ``csrc/wwl_walk.cu``):
 
 * ``wwl_scan_plane(table, windows, halo, id_bits, num_classes, quotient)``
   scans ``chunk_classes`` windows over the packed
   ``id | depth << id_bits | word << (id_bits + depth_bits) [| cross << ...]``
   table and returns the packed entry at every body position, ``uint32[B*C]``
   in flat text order, and for quotient tables the flat entry index
-  ``s * num_classes + c`` that produced it (``int32[B*C]``, else None);
+  ``s * num_classes + c`` that produced it (``int32[B*C]``, else None); it
+  runs ``scan_block.segments`` lanes per window, and so does its twin;
 * ``wwl_sweep_at(plane, entry, rows_flat, outrows, starts, ...)`` runs the
   die sweep ``k_die(w) = min{k >= 0 : depth[w + k] <= k}`` at each start and
   applies the outcome rules to the pre-die state's ``outrows`` row;
@@ -18,11 +19,15 @@ Four kernels (``csrc/wwl_scan.cu``, ``csrc/wwl_walk.cu``):
 * ``wwl_walks_at(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
   class_is_word, cls_padded, starts, max_depth)`` walks the trie from each
   start for at most ``max_depth + 1`` steps (dead = ``trie_next.shape[0] -
-  1``) and applies the same rules.
+  1``) and applies the same rules;
+* ``wwl_scan_fused(table, outrows, windows, starts, ...)`` finds each walk's
+  die position inside the scan of ``chunk_classes_overlap`` windows (a
+  cursor over the sorted starts, no plane) and applies the same rules; its
+  twin follows the JAX kernel's ring of ``d + 1`` slots instead.
 
 Together they replace the JAX package's ``ops/scan_wwl.py`` ``wwl_scan_walks``
-(with ``_wwl_core``), ``wwl_scan_walks_all`` and ``wwl_walks_at`` /
-``wwl_walks``.  The outputs are
+(with ``_wwl_core``), ``wwl_scan_walks_all``, ``wwl_walks_at`` /
+``wwl_walks`` and ``wwl_scan_walks_fused``.  The outputs are
 the JAX contract: ``(die_pos, has, m_start, m_end, m_val)``, int32 with
 ``has`` bool, plus ``cont`` (bool) from the sweep when ``cross``.  A start at
 or past ``L = B*C - (d + 1)`` reads a zero sweep word (``k_die = 0``, a
@@ -36,13 +41,14 @@ other.  ``launches`` (``kernels/build.py``) counts kernel launches only.
 
 from __future__ import annotations
 
+import weakref
 from typing import Optional
 
 import torch
 
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
-from ahocorasick_tpu_torch.kernels.scan_block import _widen
+from ahocorasick_tpu_torch.kernels.scan_block import _segment_lanes, _widen, segments
 
 _CLASS_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
 
@@ -96,6 +102,12 @@ def _outcomes(own, ownv, fl, fo, fv, die_pos, die_word):
     return i32(die_pos), has_own | has_fail, i32(end - length), i32(end), i32(val)
 
 
+def _check_aligned(outrows: torch.Tensor) -> None:
+    """The kernels read an outrows row as one 16-byte and one 4-byte load."""
+    if outrows.data_ptr() % 16:
+        raise ValueError("outrows must start on a 16-byte boundary")
+
+
 def _empty_outcomes(w: int, dev, cross: bool):
     i32 = lambda: torch.empty(w, dtype=torch.int32, device=dev)
     outs = (i32(), torch.empty(w, dtype=torch.bool, device=dev), i32(), i32(), i32())
@@ -134,32 +146,41 @@ def wwl_scan_plane(table: torch.Tensor, windows: torch.Tensor, halo: int, id_bit
     entry = torch.empty(B * (W - halo), dtype=torch.int32, device=dev) if quotient else None
     build.call("wwl_scan_plane", table.data_ptr(), windows.data_ptr(),
                _CLASS_BYTES[windows.dtype], B, W, halo, stride, num_classes, id_bits,
-               plane.data_ptr(), entry.data_ptr() if quotient else None, dev.index, _stream(dev))
+               *segments(B, W - halo, halo), plane.data_ptr(),
+               entry.data_ptr() if quotient else None, dev.index, _stream(dev))
     launches["wwl_scan_plane"] += 1
     return plane, entry
 
 
 def wwl_scan_plane_plain(table, windows, halo, id_bits, num_classes, quotient):
-    """The plain twin: a Python loop over the window columns, one batched
-    gather over the B lanes per column."""
+    """The plain twin: the kernel's lanes (``segments``: K per window, each
+    warmed over the ``halo`` classes before its segment), a Python loop over
+    their columns with one batched gather over the lanes per column."""
     B, W = windows.shape
+    C = W - halo
+    K, L = segments(B, C, halo)
+    lanes = _segment_lanes(windows, halo, K, L)
     stride = table.shape[1] if table.dim() == 2 else num_classes
     tf = _widen(table.reshape(-1))
     idmask = (1 << id_bits) - 1
-    s = torch.zeros(B, dtype=torch.int64, device=windows.device)
+    s = torch.zeros(B * K, dtype=torch.int64, device=windows.device)
     for t in range(halo):
-        s = tf[s * stride + _index(windows[:, t])] & idmask
-    plane = torch.empty((B, W - halo), dtype=torch.int64, device=windows.device)
-    entry = torch.empty((B, W - halo), dtype=torch.int64, device=windows.device) if quotient else None
-    for t in range(halo, W):
-        c = _index(windows[:, t])
+        s = tf[s * stride + _index(lanes[:, t])] & idmask
+    plane = torch.empty((B * K, L), dtype=torch.int64, device=windows.device)
+    entry = torch.empty((B * K, L), dtype=torch.int64, device=windows.device) if quotient else None
+    for t in range(halo, halo + L):
+        c = _index(lanes[:, t])
         v = tf[s * stride + c]
         plane[:, t - halo] = v
         if quotient:
             entry[:, t - halo] = s * num_classes + c
         s = v & idmask
-    plane = _to_uint32(plane.reshape(-1))
-    return plane, entry.reshape(-1).to(torch.int32) if quotient else None
+
+    def flat(x):  # the last segment's columns past C are padding
+        return x.reshape(B, K * L)[:, :C].reshape(-1)
+
+    plane = _to_uint32(flat(plane))
+    return plane, flat(entry).to(torch.int32) if quotient else None
 
 
 # ------------------------------------------------------------- die sweep (B11)
@@ -193,6 +214,7 @@ def wwl_sweep_at(plane: torch.Tensor, entry: Optional[torch.Tensor],
     if dev.type == "cpu":
         return wwl_sweep_at_plain(plane, entry, rows_flat, outrows, starts, d=d, id_bits=id_bits,
                                   depth_bits=depth_bits, cross=cross)
+    _check_aligned(outrows)
     W = starts.shape[0]
     outs = _empty_outcomes(W, dev, cross)
     if W == 0:
@@ -258,6 +280,7 @@ def wwl_sweep_all(plane: torch.Tensor, entry: Optional[torch.Tensor],
     if dev.type == "cpu":
         return wwl_sweep_all_plain(plane, entry, rows_flat, outrows, n_keep, d=d,
                                    id_bits=id_bits, depth_bits=depth_bits, cross=cross)
+    _check_aligned(outrows)
     outs = _empty_outcomes(n_keep, dev, cross)
     if n_keep == 0:
         return outs
@@ -344,3 +367,137 @@ def wwl_walks_at_plain(trie_next, own_len, own_val, fail_len, fail_off, fail_val
     g = lambda t: t.to(torch.int64)[s_last]
     return _outcomes(g(own_len), g(own_val), g(fail_len), g(fail_off), g(fail_val), die_pos,
                      die_word)
+
+
+# ------------------------------------------------------------ fused scan (B1)
+
+
+def _kd_bits(d: int) -> int:
+    return max(int(d).bit_length(), 1)
+
+
+def _check_fused_args(table, outrows, windows, starts, halo, id_bits, depth_bits, num_classes,
+                      d, cross, quotient):
+    if quotient:
+        raise ValueError("the fused scan takes dense tables only: a quotient table's pre-die "
+                         "state needs the flat entry index (use the plane and the sweep)")
+    B, W, stride = _check_plane_args(table, windows, halo, id_bits, num_classes)
+    if d < 0 or W - halo - (d + 1) < 1:
+        raise ValueError(f"windows of {W} classes hold no body past halo={halo} and d + 1 = "
+                         f"{d + 1} classes of right overlap")
+    if B * (W - halo) >= 1 << 31:
+        raise ValueError(f"{B} windows hold 2**31 positions or more (positions are int32)")
+    if (depth_bits < 1 or id_bits + depth_bits + 1 + cross > 32
+            or 1 + _kd_bits(d) + (2 if cross else 1) + id_bits > 32):
+        raise ValueError(f"the fused record does not fit 32 bits: d={d}, id_bits={id_bits}, "
+                         f"depth_bits={depth_bits}, cross={cross}")
+    _check_int32("outrows", outrows, None)
+    if outrows.dim() != 2 or outrows.shape[1] != 8 or outrows.shape[0] < 1 << id_bits:
+        raise TypeError(f"outrows must be int32[S, 8] with S >= 2**id_bits, got "
+                        f"{tuple(outrows.shape)}")
+    _check_int32("starts", starts, None)
+    if starts.dim() != 1:
+        raise TypeError(f"starts must be int32[W], got {tuple(starts.shape)}")
+    _same_device(table, outrows, windows, starts)
+    return B, W, stride
+
+
+# Starts found sorted: id -> (a weak reference, the version counter then).  A
+# tensor is read again only once it changed, so repeated calls on the same
+# starts (the timing loops) do not wait on the card for the check; an entry
+# leaves with its tensor.
+_SORTED: dict = {}
+
+
+def _check_sorted(starts: torch.Tensor) -> None:
+    key = id(starts)
+    seen = _SORTED.get(key)
+    if seen is not None and seen[0]() is starts and seen[1] == starts._version:
+        return
+    if starts.shape[0] > 1 and bool((starts[1:] < starts[:-1]).any()):
+        raise ValueError("starts must be sorted ascending")
+    _SORTED[key] = (weakref.ref(starts, lambda _ref: _SORTED.pop(key, None)), starts._version)
+
+
+def wwl_scan_fused(table: torch.Tensor, outrows: torch.Tensor, windows: torch.Tensor,
+                   starts: torch.Tensor, *, halo: int, id_bits: int, depth_bits: int,
+                   num_classes: int, d: int, cross: bool, quotient: bool = False):
+    """Walk outcomes at the sorted ``starts`` from one scan of
+    ``chunk_classes_overlap`` windows (``halo + C + d + 1`` classes a row) of
+    a dense table, with no plane: ``(die_pos, has, m_start, m_end, m_val)``,
+    each ``[W]``, plus ``cont`` with ``cross``, the values ``wwl_sweep_at``
+    gives for the same starts over the plane of the same text.  Raises on a
+    quotient table and on starts that are not sorted ascending."""
+    B, W, stride = _check_fused_args(table, outrows, windows, starts, halo, id_bits, depth_bits,
+                                     num_classes, d, cross, quotient)
+    _check_sorted(starts)
+    n = starts.shape[0]
+    dev = windows.device
+    if dev.type == "cpu":
+        return wwl_scan_fused_plain(table, outrows, windows, starts, halo=halo, id_bits=id_bits,
+                                    depth_bits=depth_bits, num_classes=num_classes, d=d,
+                                    cross=cross)
+    _check_aligned(outrows)
+    outs = _empty_outcomes(n, dev, cross)
+    if n == 0:
+        return outs
+    meta = torch.empty(n, dtype=torch.int32, device=dev)  # one record per start
+    build.call("wwl_scan_fused", table.data_ptr(), windows.data_ptr(),
+               _CLASS_BYTES[windows.dtype], B, W, halo, stride, d, id_bits, depth_bits,
+               int(cross), *segments(B, W - halo - (d + 1), halo), starts.data_ptr(), n,
+               outrows.data_ptr(), meta.data_ptr(), *(t.data_ptr() for t in outs[:5]),
+               outs[5].data_ptr() if cross else None, dev.index, _stream(dev))
+    launches["wwl_scan_fused"] += 1
+    return outs
+
+
+def wwl_scan_fused_plain(table, outrows, windows, starts, *, halo, id_bits, depth_bits,
+                         num_classes, d, cross):
+    """The plain twin, by the JAX kernel's algorithm, not the cursor's: every
+    lane carries a ring of ``d + 1`` records over the window columns (slot
+    ``t mod (d+1)`` tracks the walk started at body step t; at each step
+    every live slot tests ``depth <= age``; the slot of age d is complete and
+    emits ``k | word << kd_bits [| cross << (kd_bits + 1)] | s_pre << (kd_bits +
+    nflag)``), then the records are taken at the starts (zero outside
+    ``[0, B*C - (d+1))``, as the sweep's zero word) and resolved by the
+    outcome rules.  int64 throughout."""
+    B, W = windows.shape
+    C = W - halo - (d + 1)
+    dev = windows.device
+    stride = table.shape[1] if table.dim() == 2 else num_classes
+    tf = _widen(table.reshape(-1))
+    idmask, dmask = (1 << id_bits) - 1, (1 << depth_bits) - 1
+    kd_bits = _kd_bits(d)
+    nflag = 2 if cross else 1
+    s = torch.zeros(B, dtype=torch.int64, device=dev)
+    for t in range(halo):
+        s = tf[s * stride + _index(windows[:, t])] & idmask
+    slots = torch.arange(d + 1, dtype=torch.int64, device=dev)
+    ring = torch.ones((B, d + 1), dtype=torch.int64, device=dev)  # died, k = 0
+    meta = torch.empty((B, C), dtype=torch.int64, device=dev)
+    for t in range(C + d + 1):
+        v = tf[s * stride + _index(windows[:, halo + t])]
+        depth = (v >> id_bits) & dmask
+        word = (v >> (id_bits + depth_bits)) & 1
+        age = (t - slots) % (d + 1)
+        ring = torch.where(age == 0, 0, ring)  # a fresh walk starts in slot t mod (d+1)
+        newly = ((ring & 1) == 0) & (depth[:, None] <= age)
+        rec = 1 | (age << 1) | (word[:, None] << (1 + kd_bits))
+        if cross:  # age 0 cannot cross
+            cx = (v >> (id_bits + depth_bits + 1)) & 1
+            rec = rec | (torch.where(age > 0, cx[:, None], 0) << (2 + kd_bits))
+        rec = rec | (s[:, None] << (1 + kd_bits + nflag))
+        ring = torch.where(newly, rec, ring)
+        if d <= t < d + C:  # the slot of age d holds the walk from body step t - d
+            meta[:, t - d] = ring[:, (t - d) % (d + 1)] >> 1
+        s = v & idmask
+    meta = meta.reshape(-1)
+    w = starts.to(torch.int64)
+    valid = (w >= 0) & (w < B * C - (d + 1))
+    mg = torch.where(valid, meta[torch.where(valid, w, 0)], 0)
+    kd = mg & ((1 << kd_bits) - 1)
+    s_last = torch.where(kd > 0, (mg >> (kd_bits + nflag)) & idmask, 0)
+    o = outrows.to(torch.int64)[s_last]
+    outs = _outcomes(o[:, 0], o[:, 1], o[:, 2], o[:, 3], o[:, 4], w + kd,
+                     ((mg >> kd_bits) & 1).bool())
+    return outs + (((mg >> (kd_bits + 1)) & 1).bool(),) if cross else outs

@@ -941,7 +941,7 @@ class WholeWordLongestMatchSet(_Matcher):
 
     def _scan_triples(self, sc, compact, n: int):
         """The scan route over ``sc`` (``ops/scan_wwl.scan_lane_outcomes``)."""
-        arrays = scan_wwl.scan_lane_outcomes(self.compiled, sc, compact, self.device)
+        arrays = scan_wwl.scan_lane_outcomes(self.compiled, sc, compact)
         return self._chain_from_lanes(arrays, compact[2], compact[3], n)
 
     def _walk_triples(self, compact, n: int):

@@ -13,21 +13,26 @@ any, else the carried fail match; a word die char emits only the fail match;
 the end of input behaves as a non-word die char, because the pad class 0 is
 a non-word dead end.
 
-Two device engines, each a pair of kernels in ``kernels/scan_wwl.py``:
+Three device engines, on the kernels of ``kernels/scan_wwl.py``:
 
-* the scan (``wwl_scan_walks``): one packed DFA lookup per char whose entry
-  is ``id | depth << id_bits | word << (id_bits + depth_bits)`` (plus a
-  crossing bit for the truncated closure of separator-spanning
-  dictionaries), then a die sweep per start,
+* the scan and sweep (``wwl_scan_walks``): one packed DFA lookup per char
+  whose entry is ``id | depth << id_bits | word << (id_bits + depth_bits)``
+  (plus a crossing bit for the truncated closure of separator-spanning
+  dictionaries) written as a plane, then a die sweep per start,
   ``k_die(w) = min{k >= 0 : depth[w + k] <= k}``;
+* the fused scan (``wwl_scan_walks_fused``, dense tables whose record fits
+  32 bits: ``fused_applicable``): the same lookups over windows with a right
+  overlap of ``d + 1`` classes (``chunk_classes_overlap``), with the die
+  sweep inside the scan, so no plane is written;
 * the per-start trie walk (``wwl_walks_at``), for dictionaries that neither
   scan table packs.
 
-The numpy table-building functions are the port's own copies of that
-module's; they stay byte-identical to it
-(``tests/test_torch_wwl.py``).  The JAX module's fused ring variant is not
-ported (it lost the v5e A/B, ``FUSED_DEFAULT = False``), nor are its v5e
-gather tricks (``_plane_take``, the meta-word packing): a GPU thread reads
+``scan_walks_auto`` picks between the first two (``FUSED_DEFAULT``, set by
+an A/B on the card) for the matcher, the stream cursor and the bench
+harness alike.  The numpy table-building functions are the port's own
+copies of the JAX module's; they stay byte-identical to it
+(``tests/test_torch_wwl.py``).  The JAX module's v5e gather tricks
+(``_plane_take``, the meta-word packing) are not ported: a GPU thread reads
 ``plane[w + k]`` directly.
 """
 
@@ -543,16 +548,93 @@ def walks_from_raw(sc: WwlScan, rows_flat, outrows, raw: torch.Tensor, cls_p: np
                                  cross=sc.has_cross)
 
 
-def scan_walks(sc: WwlScan, cls_p: np.ndarray, starts: np.ndarray, d: int, device):
-    """The scan engine for the given starts: windows of ``cls_p`` with a
-    ``d``-unit halo uploaded narrow, then ``wwl_scan_walks``."""
-    w = scan_batched.chunk_classes(cls_p, _CHUNK, d, sc.num_classes)
-    return wwl_scan_walks(
-        sc.table, sc.rows_flat, sc.outrows,
-        scan_batched.classes_to_device(w, sc.num_classes, device),
-        torch.from_numpy(np.ascontiguousarray(starts, dtype=np.int32)).to(device),
-        halo=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits, num_classes=sc.num_classes,
-        d=d, row_layout=sc.row_layout, quotient=sc.quotient, cross=sc.has_cross)
+def chunk_classes_overlap(cls: np.ndarray, chunk: int, halo: int, right: int,
+                          num_classes: Optional[int] = None) -> np.ndarray:
+    """``(B, halo + chunk + right)`` windows: ``chunk_classes`` plus a right
+    overlap of ``right`` units read from the next chunk (``PAD_CLASS`` past
+    the text), so the fused scan finishes every body walk in its window.
+    int32, or the narrow ``class_dtype`` with ``num_classes``, as the JAX
+    function."""
+    n = len(cls)
+    B = -(-max(n, 1) // chunk)
+    dt = np.int32 if num_classes is None else scan_batched.class_dtype(num_classes)
+    p = np.pad(np.asarray(cls).astype(dt, copy=False), (halo, B * chunk - n + right),
+               constant_values=scan_batched.PAD_CLASS)
+    view = np.lib.stride_tricks.as_strided(
+        p, shape=(B, halo + chunk + right), strides=(chunk * p.itemsize, p.itemsize),
+        writeable=False)
+    return view.copy()
+
+
+def fused_applicable(sc: WwlScan, d: int) -> bool:
+    """The fused scan applies: dense ids (a quotient table's pre-die state
+    needs the flat entry index) and the JAX record ``died | k | word
+    [| cross] | prev`` fits one uint32, the JAX package's rule, so that both
+    packages send the same dictionaries down the same route."""
+    kd_bits = max(int(d).bit_length(), 1)
+    nflag = 2 if sc.has_cross else 1
+    return not sc.quotient and 1 + kd_bits + nflag + sc.id_bits <= 32
+
+
+# Engine default for the fused scan, set by the A/B of
+# ``python -m ahocorasick_tpu_torch.probes.probe_wwl_fused`` (``chip_smoke.py``
+# runs the same A/B).  The rule: True only if the fused route's card time is
+# below the plane and the sweep's at both baseline-4 (1,003 keywords, 1 Mi
+# units) and the 10k cell (10,000 keywords, 32 Mi units, 5,242,880 start
+# slots).  On an NVIDIA H100 80GB HBM3 at 700.00 W the fused route took
+# 0.0689 ms against 0.0413 ms at baseline-4 and 0.385 ms against 0.283 ms at
+# the 10k cell (the per-start walk 0.0080 and 0.100 ms): finding each walk's
+# death inside the scan costs about what the plane's stores cost, and its
+# resolve launch about what the sweep costs.  So False.
+FUSED_DEFAULT = False
+
+
+def wwl_scan_walks_fused(table, outrows, windows, starts, *, halo: int, id_bits: int,
+                         depth_bits: int, num_classes: int, d: int, row_layout: bool,
+                         cross: bool = False):
+    """``wwl_scan_walks`` with the die sweep inside the scan: walk outcomes at
+    the sorted ``starts`` from ``chunk_classes_overlap`` windows of a dense
+    table (``fused_applicable``), ``(die_pos, has, m_start, m_end, m_val)``
+    plus ``cont`` with ``cross``.  The JAX ``wwl_scan_walks_fused`` contract;
+    equal to ``wwl_scan_walks`` at every start."""
+    if row_layout != (table.dim() == 2):
+        raise ValueError(f"row_layout={row_layout} but the table has shape {tuple(table.shape)}")
+    return kernels.wwl_scan_fused(table, outrows, windows, starts, halo=halo, id_bits=id_bits,
+                                  depth_bits=depth_bits, num_classes=num_classes, d=d,
+                                  cross=cross)
+
+
+def scan_windows(sc: WwlScan, cls_p: np.ndarray, d: int):
+    """``(fused, windows)``: the production pick (``FUSED_DEFAULT`` where
+    ``fused_applicable``) and its windows of ``cls_p`` with a ``d``-unit halo,
+    uploaded narrow to the tables' device."""
+    fused = FUSED_DEFAULT and fused_applicable(sc, d)
+    if fused:
+        w = chunk_classes_overlap(cls_p, _CHUNK, d, d + 1, sc.num_classes)
+    else:
+        w = scan_batched.chunk_classes(cls_p, _CHUNK, d, sc.num_classes)
+    return fused, scan_batched.classes_to_device(w, sc.num_classes, sc.outrows.device)
+
+
+def scan_walks_on(sc: WwlScan, fused: bool, windows, starts, d: int, cross: bool):
+    """The picked scan engine over ``scan_windows``' windows at the starts
+    (a tensor beside them)."""
+    kw = dict(halo=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits, num_classes=sc.num_classes,
+              d=d, row_layout=sc.row_layout, cross=cross)
+    if fused:
+        return wwl_scan_walks_fused(sc.table, sc.outrows, windows, starts, **kw)
+    return wwl_scan_walks(sc.table, sc.rows_flat, sc.outrows, windows, starts,
+                          quotient=sc.quotient, **kw)
+
+
+def scan_walks_auto(sc: WwlScan, cls_p: np.ndarray, starts, d: int, cross: bool):
+    """The scan engine for the given starts: the fused scan where
+    ``FUSED_DEFAULT`` and ``fused_applicable``, else the plane and the sweep.
+    The one chooser that the matcher, the stream cursor and the bench
+    harness share, as in the JAX package."""
+    fused, windows = scan_windows(sc, cls_p, d)
+    st = torch.from_numpy(np.ascontiguousarray(starts, dtype=np.int32)).to(windows.device)
+    return scan_walks_on(sc, fused, windows, st, d, cross)
 
 
 wwl_walks_at = kernels.wwl_walks_at
@@ -571,13 +653,13 @@ def wwl_walks(trie_next, own_len, own_val, fail_len, fail_off, fail_val, class_i
 # ------------------------------------------------- outcomes for chain lanes
 
 
-def scan_lane_outcomes(m, sc: WwlScan, compact, device):
-    """The scan route over ``sc`` for the lanes of ``compact``
-    (``compact_lanes``): host arrays ``[die, has, m_start, m_end, m_val]``,
+def scan_lane_outcomes(m, sc: WwlScan, compact):
+    """The scan route over ``sc`` (``scan_walks_auto``) for the lanes of
+    ``compact`` (``compact_lanes``): host arrays ``[die, has, m_start, m_end, m_val]``,
     one entry per lane.  With crossing bits, the flagged walks are re-run on
     the host over the full trie."""
     cls_p, starts, lanes, _ws, d = compact
-    outs = scan_walks(sc, cls_p, starts, d, device)
+    outs = scan_walks_auto(sc, cls_p, starts, d, sc.has_cross)
     arrays = [x[: len(lanes)].cpu().numpy() for x in outs[:5]]
     if sc.has_cross:
         cont = np.nonzero(outs[5][: len(lanes)].cpu().numpy())[0]
@@ -602,7 +684,7 @@ def lane_outcomes(m, dev, compact):
     (separator-spanning ones), else the per-start trie walk.  ``dev`` is the
     matcher's ``_DeviceTables``."""
     if scan_applicable(m):
-        return scan_lane_outcomes(m, dev.wwl_scan, compact, dev.device)
+        return scan_lane_outcomes(m, dev.wwl_scan, compact)
     if mixed_scan_applicable(m):
-        return scan_lane_outcomes(m, dev.wwl_scan_mixed, compact, dev.device)
+        return scan_lane_outcomes(m, dev.wwl_scan_mixed, compact)
     return walk_lane_outcomes(m, dev.wwl_walk, compact, dev.device)

@@ -38,11 +38,19 @@ port only, the dictionary and text generators included (``bench.headline``,
    past it, no limit, P = 1, 2, 3 and 5 with N past a tile, more than 16 Ki
    tiles twice in a row; C < 128, C not a multiple of the lanes per window,
    halo 0, uint16 windows, a keyword of length halo across every segment
-   boundary, ``a``..``a * 12``); the shortest restart scan on fuzz dictionaries and on
-   the 10k dictionary over 64 Ki units; the whole-word-longest scan plane
-   and die sweep on fuzz (row and flat layouts), the full-node quotient
-   dictionary (uint16 classes), a separator-spanning dictionary (crossing
-   bits) and the 10k dictionary over 32 Mi units, and the per-start walk on
+   boundary, ``a``..``a * 12``); the fused whole-word-longest scan and the
+   segmented WWL scan plane at theirs (walk depths 4, 12 and 32, > 256
+   classes, separators as keywords, crossing bits, row and flat layouts,
+   narrow and int32 windows, texts of 0, 3, 511, 4097 and 40,000 units,
+   starts negative, duplicated, at and past L; the plane at chunks that
+   split windows into 2 or 4 lanes, halo 0, quotient entry planes; the fused
+   scan refusing a quotient table); the shortest restart scan on fuzz
+   dictionaries and on the 10k dictionary over 64 Ki units; the
+   whole-word-longest scan plane and die sweep, and the fused scan against
+   its twin and the sweep's outcomes, on fuzz (row and flat layouts), the
+   full-node quotient dictionary (uint16 classes; no fused scan), a
+   separator-spanning dictionary (crossing bits) and the 10k dictionary
+   over 32 Mi units, and the per-start walk on
    fuzz and on the 10k dictionary's chain lanes over 32 Mi units; the
    count-packed count, hotstate plane and split count and planes on a deep
    dictionary (P = 2), ``a``..``a * 100`` (split, P = 4, against gold as
@@ -79,7 +87,9 @@ port only, the dictionary and text generators included (``bench.headline``,
    loaded without its internal AC (the restart-scan kernel), == gold;
    whole-word-longest: the scan route on 32 Mi units (== gold on 1 Mi), the
    mixed route on BASELINE config #7's shape (10k keywords and 500 two-word
-   phrases, apostrophe a word char; == gold on 1 Mi), config #4's Unicode
+   phrases, apostrophe a word char; == gold on 1 Mi), each on the engine
+   ``scan_walks_auto`` picks and again under the other ``FUSED_DEFAULT``
+   (the same triples, == gold), config #4's Unicode
    map case-folded (== gold on 1 Mi), and the walk route == the scan
    route's triples on 32 Mi units; the 1M dictionary: ``AhoCorasickSet``
    count on the pinned 1 Mi-unit text == 1,282,185 and ``match`` on its
@@ -135,7 +145,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    stop; the sharded facades and the sharded count's stages; the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
    and their stages; the stitched
-   scan beside the sequential scan at the same length; the ``"auto"``
+   scan beside the sequential scan at the same length; the fused WWL scan
+   against the plane and the sweep, the per-start walk beside them, at
+   baseline-4 and the 10k cell (``probes.probe_wwl_fused``: card time with
+   the calls queued ahead, and back to back), and the rule that sets
+   ``FUSED_DEFAULT``; the ``"auto"``
    threshold sweep (gold against the device, first and warm calls of
    ``count`` and ``match_triples``, and the
    sequential-scan feed against the planes feed, 2**8 to 2**18 units on the
@@ -227,6 +241,8 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                     "ahocorasick_tpu/ops/scan_pfac2.py:201"),
     "pfac1_planes": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
                      "ahocorasick_tpu/ops/scan_pfac.py:74"),
+    "wwl_scan_fused": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
+                       "ahocorasick_tpu/ops/scan_wwl.py:866"),
 }
 # The card's published peaks (NVIDIA H100 SXM data sheet): device memory rate,
 # the 32-bit rate outside the tensor cores, taken for these kernels'
@@ -418,6 +434,170 @@ def check_redesign_edges(port, dev, errs):
                 want_k=4)
 
 
+def check_wwl_edges(port, dev, errs):
+    """The fused whole-word-longest scan (``wwl_scan_fused``) against its
+    plain twin (the JAX ring) and against the sweep kernel's outcomes, and
+    the redesigned scan plane against its twin, bit for bit, at their edge
+    shapes: walk depths d = 4, 12 and 32, a dense dictionary of > 256 classes
+    (uint16 windows), separators kept as keywords, a separator-spanning one
+    (crossing bits), row and flat layouts, narrow and int32 windows, empty
+    and tiny texts and lengths off the 512-unit chunk (int32 windows at one
+    length), starts negative,
+    duplicated, at and past L; the plane at chunks that split windows into
+    2 or 4 segments of lengths not a multiple of 4, with halo 0, and with a
+    quotient table's entry plane.  Returns the cases driven."""
+    import torch
+
+    from ahocorasick_tpu_torch import convert
+    from ahocorasick_tpu_torch.core.compiler import compile_matcher
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+    from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
+
+    def err(got, want):
+        e = 0
+        for g, w in zip(got, want):
+            if (g is None) != (w is None):
+                return 1
+            if g is None:
+                continue
+            if g.shape != w.shape:
+                return 1
+            if g.numel():
+                to64 = ((lambda t: t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF)
+                        if g.dtype == torch.uint32 else (lambda t: t.to(torch.int64)))
+                e = max(e, int((to64(g) - to64(w)).abs().max()))
+        return e if len(got) == len(want) else max(e, 1)
+
+    def up(a, narrow_classes):
+        if narrow_classes is None:
+            return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+        return scan_batched.classes_to_device(a, narrow_classes, dev)
+
+    fr = np.random.default_rng(SEED + 12)
+    wwl = "whole_word_longest"
+    dicts = {
+        "d = 4": fuzz_keywords(fr, "abcehl", 30, 4),
+        "d = 12": fuzz_keywords(fr, "abce", 40, 12),
+        "d = 32 (a..a*29)": ["a" * i for i in range(1, 30)] + ["abc", "bca"],
+        "> 256 classes": [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)],
+        "separators as keywords": [" ", "!!", "abc", ",,", "ab"],
+    }
+    words = fuzz_keywords(fr, "abcde", 30, 4)
+    dicts["separator-spanning"] = words + [f"{a} {b}" for a, b in zip(words[:8], words[8:16])]
+    alphabets = {"d = 32 (a..a*29)": "abc !", "> 256 classes": None,
+                 "separators as keywords": "abc ,!", "separator-spanning": "abcde ,"}
+    cases = 0
+    for label, kws in dicts.items():
+        m = compile_matcher(kws, wwl, True)
+        alpha = alphabets.get(label, "abcehl ,;")
+        if alpha is None:
+            text = "".join(chr(0x100 + int(c)) if c < 300 else " "
+                           for c in fr.integers(0, 340, size=40_000))
+        else:
+            text = "".join(fr.choice(list(alpha), size=40_000))
+        cls_all = m.charmap[np.frombuffer(text.encode("utf-16-le"), dtype=np.uint16)]
+        saved = scan_wwl._ROW_MAX_BYTES
+        for flat in (False, True):
+            scan_wwl._ROW_MAX_BYTES = 0 if flat else saved
+            try:
+                build = (scan_wwl.build_wwl_scan if scan_wwl.scan_applicable(m)
+                         else scan_wwl.build_wwl_scan_mixed)
+                sc = convert.wwl_scan_from_numpy(build(m), dev)
+            finally:
+                scan_wwl._ROW_MAX_BYTES = saved
+            for n in (0, 3, 511, 4097, 40_000):
+                cls = cls_all[:n]
+                cls_p, starts, lanes, _, d = scan_wwl.compact_lanes(m, cls)
+                if not scan_wwl.fused_applicable(sc, d):
+                    raise AssertionError(f"wwl edge {label}: the fused scan does not apply")
+                B = -(-len(cls_p) // 512)
+                L = B * 512 - (d + 1)
+                odd = np.array(sorted([-3, 0, 0, 2, 2, 2, L - 1, L, L, L + 5, B * 512 + 9]),
+                               dtype=np.int32)
+                for st_np in (starts, odd):
+                    st = torch.from_numpy(st_np).to(dev)
+                    # int32 windows once a layout, at 4097 units and the lanes' starts
+                    int32_too = n == 4097 and st_np is starts
+                    for narrow in (sc.num_classes, None) if int32_too else (sc.num_classes,):
+                        wf = up(scan_wwl.chunk_classes_overlap(cls_p, 512, d, d + 1, narrow),
+                                narrow and sc.num_classes)
+                        ws = up(scan_batched.chunk_classes(cls_p, 512, d, narrow),
+                                narrow and sc.num_classes)
+                        kw = dict(halo=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits,
+                                  num_classes=sc.num_classes, d=d, cross=sc.has_cross)
+                        got = kwwl.wwl_scan_fused(sc.table, sc.outrows, wf, st, **kw)
+                        twin = kwwl.wwl_scan_fused_plain(sc.table, sc.outrows, wf, st, **kw)
+                        pargs = (sc.table, ws, d, sc.id_bits, sc.num_classes, False)
+                        plane = kwwl.wwl_scan_plane(*pargs)
+                        plane_twin = kwwl.wwl_scan_plane_plain(*pargs)
+                        sweep = kwwl.wwl_sweep_at(plane[0], None, None, sc.outrows, st, d=d,
+                                                  id_bits=sc.id_bits, depth_bits=sc.depth_bits,
+                                                  cross=sc.has_cross)
+                        torch.cuda.synchronize()
+                        e_f = max(err(got, twin), err(got, sweep))
+                        e_p = err(plane, plane_twin)
+                        errs["wwl_scan_fused"] = max(errs["wwl_scan_fused"], e_f)
+                        errs["wwl_scan_plane"] = max(errs["wwl_scan_plane"], e_p)
+                        cases += 1
+                        if e_f or e_p:
+                            raise AssertionError(
+                                f"wwl edge {label}, {'flat' if flat else 'row'}, n={n}, "
+                                f"{'odd' if st_np is odd else 'lane'} starts, "
+                                f"{str(wf.dtype).replace('torch.', '')}: fused max_abs_err={e_f} "
+                                f"plane max_abs_err={e_p}")
+        print(f"  wwl edge {label}: d={d}, {m.num_classes} classes, row and flat, n = 0, 3, "
+              f"511, 4097, 40,000, lane and odd starts, narrow windows (and int32 at 4097): "
+              f"fused == twin == sweep, plane == twin")
+
+    # The plane kernel's segments: chunks that split windows into 2 or 4 lanes
+    # with lengths off a multiple of 4, halo 0, and quotient entry planes.
+    full = compile_matcher([chr(c) for c in range(32, 0xD800)], wwl, True)
+    quot = compile_matcher([chr(c) + chr(c + 1) for c in range(0x3000, 0x3400, 3)], wwl, True,
+                           thresholder=_NeverDense())
+    m12 = compile_matcher(dicts["d = 12"], wwl, True)
+    for label, m, alpha in (("d = 12", m12, None), ("full-node quotient", full, (32, 0xD800)),
+                            ("quotient rows", quot, (0x3000, 0x3400))):
+        sc = convert.wwl_scan_from_numpy(scan_wwl.build_wwl_scan(m), dev)
+        if alpha is None:
+            text = "".join(fr.choice(list("abce ,"), size=60_000))
+        else:
+            text = "".join(chr(int(c)) for c in fr.integers(*alpha, size=60_000))
+        cls = m.charmap[np.frombuffer(text.encode("utf-16-le"), dtype=np.uint16)]
+        d = scan_wwl.bucket_depth(m.max_depth)
+        for chunk, halo in ((100, d), (127, d), (514, d), (512, d), (512, 0)):
+            w = up(scan_batched.chunk_classes(cls, chunk, halo, sc.num_classes), sc.num_classes)
+            pargs = (sc.table, w, halo, sc.id_bits, sc.num_classes, sc.quotient)
+            got, want = kwwl.wwl_scan_plane(*pargs), kwwl.wwl_scan_plane_plain(*pargs)
+            torch.cuda.synchronize()
+            e = err(got, want)
+            errs["wwl_scan_plane"] = max(errs["wwl_scan_plane"], e)
+            cases += 1
+            if e:
+                raise AssertionError(f"wwl plane edge {label}, chunk {chunk}, halo {halo}: "
+                                     f"max_abs_err={e}")
+        if sc.quotient:
+            try:
+                kwwl.wwl_scan_fused(sc.table, sc.outrows, w, torch.zeros(1, dtype=torch.int32,
+                                                                         device=dev),
+                                    halo=0, id_bits=sc.id_bits, depth_bits=sc.depth_bits,
+                                    num_classes=sc.num_classes, d=0, cross=False, quotient=True)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError("the fused scan ran on a quotient table")
+        print(f"  wwl plane edge {label}: {m.num_classes} classes, "
+              f"{'quotient (entry plane)' if sc.quotient else 'dense'}, chunks 100, 127, 514, "
+              f"512 with halo {d} and 512 with halo 0: plane == twin")
+    return cases
+
+
+class _NeverDense:
+    """A thresholder that keeps every row compressed (the quotient layout)."""
+
+    def is_over_threshold(self, size, lo, hi):
+        return False
+
+
 def check_probe_kernels(dev, errs, max_err):
     """The four probe kernels against their plain twins on the card, bit for
     bit: every ``pl.pallas_call`` site of ``tools/probes/`` at the JAX
@@ -564,6 +744,7 @@ def main() -> int:
     from ahocorasick_tpu_torch.kernels import probes as kprobe
     from ahocorasick_tpu_torch.kernels import scan_pfac as kpfac
     from ahocorasick_tpu_torch.probes import __main__ as probes_main
+    from ahocorasick_tpu_torch.probes import probe_wwl_fused
     from ahocorasick_tpu_torch.native import build as native_build
     from ahocorasick_tpu_torch.native import lib as native_lib
     from ahocorasick_tpu_torch import bench, graft_entry
@@ -758,7 +939,7 @@ def main() -> int:
                 torch.from_numpy(starts).to(dev), cls_p, lanes, d)
 
     def check_wwl_scan(label, m, cls, sc):
-        wd, st, _, lanes, d = wwl_inputs(m, cls, sc.num_classes)
+        wd, st, cls_p, lanes, d = wwl_inputs(m, cls, sc.num_classes)
         pargs = (sc.table, wd, d, sc.id_bits, sc.num_classes, sc.quotient)
         plane = kwwl.wwl_scan_plane(*pargs)
         plane_twin = kwwl.wwl_scan_plane_plain(*pargs)
@@ -769,6 +950,22 @@ def main() -> int:
         n_keep = plane[0].shape[0] - (d + 1)  # every position a walk can start at
         every = kwwl.wwl_sweep_all(*sargs[:4], n_keep, **skw)
         every_twin = kwwl.wwl_sweep_all_plain(*sargs[:4], n_keep, **skw)
+        # The fused scan over the overlap windows of the same classes, against
+        # its twin (the JAX ring) and the sweep's outcomes at every start slot.
+        fused_note = "fused scan: not applicable (quotient)"
+        e_fused = 0
+        if scan_wwl.fused_applicable(sc, d):
+            wf = scan_batched.classes_to_device(scan_wwl.chunk_classes_overlap(
+                cls_p, 512, d, d + 1, sc.num_classes), sc.num_classes, dev)
+            fkw = dict(halo=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits,
+                       num_classes=sc.num_classes, d=d, cross=sc.has_cross)
+            fused = kwwl.wwl_scan_fused(sc.table, sc.outrows, wf, st, **fkw)
+            fused_twin = kwwl.wwl_scan_fused_plain(sc.table, sc.outrows, wf, st, **fkw)
+            torch.cuda.synchronize()
+            e_fused = max(max_err(fused, fused_twin), max_err(fused, outs_twin))
+            errs["wwl_scan_fused"] = max(errs["wwl_scan_fused"], e_fused)
+            fused_note = (f"fused scan over {tuple(wf.shape)} windows max_abs_err={e_fused} "
+                          f"(twin and sweep)")
         torch.cuda.synchronize()
         e_plane, e_sweep = max_err(plane, plane_twin), max_err(outs, outs_twin)
         e_all = max_err(every, every_twin)
@@ -778,13 +975,15 @@ def main() -> int:
         n = len(lanes)
         has = int(outs_twin[1][:n].sum())
         cont = int(outs_twin[5][:n].sum()) if sc.has_cross else 0
-        print(f"  wwl scan {label}: B={wd.shape[0]} W={wd.shape[1]} "
+        K, L = scan_block.segments(wd.shape[0], 512, d)
+        print(f"  wwl scan {label}: B={wd.shape[0]} W={wd.shape[1]} K={K} L={L} "
               f"{str(wd.dtype).replace('torch.', '')} "
               f"{'row' if sc.row_layout else 'flat'}{' quotient' if sc.quotient else ''} "
               f"table {tuple(sc.table.shape)}, {n} lanes, {has} with a match, {cont} crossing; "
               f"plane max_abs_err={e_plane} sweep max_abs_err={e_sweep}; sweep at all "
-              f"{n_keep} positions ({int(every_twin[1].sum())} with a match) max_abs_err={e_all}")
-        if e_plane or e_sweep or e_all:
+              f"{n_keep} positions ({int(every_twin[1].sum())} with a match) max_abs_err={e_all}; "
+              f"{fused_note}")
+        if e_plane or e_sweep or e_all or e_fused:
             raise AssertionError(f"wwl scan {label}: kernel disagrees with its plain twin")
         return has, cont
 
@@ -912,6 +1111,7 @@ def main() -> int:
     assert check_compact("synthetic P=2", synth_t) == 40_000
     assert check_compact("no bits set", torch.zeros_like(synth_t[:1])) == 0
     check_redesign_edges(port, dev, errs)
+    check_wwl_edges(port, dev, errs)
 
     keywords = make_dictionary(np.random.default_rng(SEED), N_KEYWORDS)
     big = port.AhoCorasickSet(keywords, engine="device", device=dev)
@@ -1330,12 +1530,53 @@ def main() -> int:
 
     run_path("ShortestMatchSet npz / from_compiled", ("packed_scan_planes", "compact_planes",
                                                       "shortest_states"), shortest_artifacts)
-    # Whole-word-longest: each route, and the auto repair.
-    wwl_kernels = ("wwl_scan_plane", "wwl_sweep_at")
+    # Whole-word-longest: each route, and the auto repair.  The scan routes
+    # run the engine scan_walks_auto picks (the fused scan where
+    # FUSED_DEFAULT and fused_applicable, else the plane and the sweep):
+    # each path runs under the package's FUSED_DEFAULT, and the scan and
+    # mixed routes once more under the other value, held to the same triples
+    # and to gold.
+    fused_default = scan_wwl.FUSED_DEFAULT
+    sweep_route = ("wwl_scan_plane", "wwl_sweep_at")
+
+    def wwl_kernels(m, fused=None):
+        """The kernels the scan route of ``m`` launches under ``FUSED_DEFAULT``
+        (the package's value unless ``fused`` says otherwise)."""
+        sc = m.dev.wwl_scan if scan_wwl.scan_applicable(m.compiled) else m.dev.wwl_scan_mixed
+        fused = scan_wwl.FUSED_DEFAULT if fused is None else fused
+        if fused and scan_wwl.fused_applicable(sc, bucket_depth(m.compiled.max_depth)):
+            return ("wwl_scan_fused",)
+        return sweep_route
+
+    def other_default_path(label, m, full_text, gold_m, probe):
+        """The scan route of ``m`` under the other ``FUSED_DEFAULT``: the same
+        triples as under the package's value, and ``match`` == gold."""
+        scan_wwl.FUSED_DEFAULT = not fused_default
+        try:
+            s, e, v = m.match_triples(full_text)
+            got, want = m.match(probe), gold_m.match(probe)
+        finally:
+            scan_wwl.FUSED_DEFAULT = fused_default
+        ref = wwl_triples[label]
+        if not all(np.array_equal(a, b) for a, b in zip((s, e, v), ref)):
+            raise AssertionError(f"{label}: FUSED_DEFAULT={not fused_default} gives other "
+                                 f"triples ({len(s)} vs {len(ref[0])})")
+        if got != want or not want:
+            raise AssertionError(f"{label}: FUSED_DEFAULT={not fused_default}: match != gold")
+        return (f"FUSED_DEFAULT={not fused_default}: {len(s)} triples == those under "
+                f"{fused_default} on {len(full_text)} units; match == gold on {len(probe)} "
+                f"units ({len(want)} matches)")
+
     wwl_triples = {}
-    run_path("WholeWordLongestMatchSet", wwl_kernels, lambda: resolved_ok(
-        "scan route", big_wwl, text, port.WholeWordLongestMatchSet(
-            keywords, engine="gold", device=dev), small, keep=wwl_triples))
+    wwl_gold = port.WholeWordLongestMatchSet(keywords, engine="gold", device=dev)
+    if not scan_wwl.fused_applicable(big_wwl.dev.wwl_scan, bucket_depth(
+            big_wwl.compiled.max_depth)):
+        raise AssertionError("the fused scan does not apply to the 10k dictionary")
+    run_path("WholeWordLongestMatchSet", wwl_kernels(big_wwl), lambda: resolved_ok(
+        "scan route", big_wwl, text, wwl_gold, small, keep=wwl_triples))
+    run_path(f"WholeWordLongestMatchSet, FUSED_DEFAULT={not fused_default}",
+             wwl_kernels(big_wwl, not fused_default),
+             lambda: other_default_path("scan route", big_wwl, text, wwl_gold, small))
 
     word_chars = chartables.default_word_chars().copy()
     word_chars[ord("'")] = True  # BASELINE configs #4 and #7: apostrophe is a word char
@@ -1372,7 +1613,11 @@ def main() -> int:
         return (f"{detail}; host-continued lanes per call {continued}; "
                 f"{spans} of the first 20,000 matches span a separator")
 
-    run_path("WholeWordLongestMatchSet mixed (BASELINE #7 shape)", wwl_kernels, mixed_path)
+    run_path("WholeWordLongestMatchSet mixed (BASELINE #7 shape)", wwl_kernels(mixed), mixed_path)
+    run_path(f"WholeWordLongestMatchSet mixed, FUSED_DEFAULT={not fused_default}",
+             wwl_kernels(mixed, not fused_default),
+             lambda: other_default_path("mixed route", mixed, text7, port.WholeWordLongestMatchSet(
+                 kws7, word_chars=word_chars, engine="gold", device=dev), text7[:BASE_UNITS]))
 
     def unicode_map_path():
         rng4 = np.random.default_rng(SEED + 4)
@@ -1393,7 +1638,7 @@ def main() -> int:
             raise AssertionError(f"the Unicode keywords did not all match: {special}")
         return f"case-folded Unicode map == gold on {len(text4)} units ({len(want)} matches)"
 
-    run_path("WholeWordLongestMatchMap Unicode (BASELINE #4 shape)", wwl_kernels,
+    run_path("WholeWordLongestMatchMap Unicode (BASELINE #4 shape)", wwl_kernels(big_wwl),
              unicode_map_path)
 
     def walk_path():
@@ -1566,7 +1811,7 @@ def main() -> int:
                     kind_ref[k], planes_stream)
     stream_path("WholeWordLongestMatchSet",
                 lambda: port.WholeWordLongestMatchSet(keywords, device=dev),
-                wwl_triples["scan route"], wwl_kernels)
+                wwl_triples["scan route"], wwl_kernels(big_wwl))
 
     def stream_1m_path():
         torch.cuda.synchronize()
@@ -2147,7 +2392,7 @@ def main() -> int:
                 f"the records above were measured on [{smi}]")
 
     run_path("bench baseline_suite", ("packed_scan_count", "packed_scan_planes", "compact_planes",
-                                      "wwl_scan_plane", "wwl_sweep_at"), suite_path)
+                                      *wwl_kernels(big_wwl)), suite_path)
 
     def headline_path():
         res = headline.measure(dev)
@@ -2270,11 +2515,38 @@ def main() -> int:
                           cuda_ms(lambda: kwwl.wwl_sweep_at_plain(*sargs, **skw), 3))
     ms["wwl_walks_at"] = (cuda_ms(lambda: kwwl.wwl_walks_at(*walk_args), 20),
                           cuda_ms(lambda: kwwl.wwl_walks_at_plain(*walk_args), 3))
-    for k in ("wwl_scan_plane", "wwl_sweep_at", "wwl_walks_at"):
+    wf10 = scan_batched.classes_to_device(scan_wwl.chunk_classes_overlap(
+        cls_p10, 512, d10, d10 + 1, sc10.num_classes), sc10.num_classes, dev)
+    fargs = (sc10.table, sc10.outrows, wf10, st10)
+    fkw = dict(halo=d10, id_bits=sc10.id_bits, depth_bits=sc10.depth_bits,
+               num_classes=sc10.num_classes, d=d10, cross=False)
+    ms["wwl_scan_fused"] = (cuda_ms(lambda: kwwl.wwl_scan_fused(*fargs, **fkw), 20),
+                            cuda_ms(lambda: kwwl.wwl_scan_fused_plain(*fargs, **fkw), 2))
+    for k in ("wwl_scan_plane", "wwl_sweep_at", "wwl_walks_at", "wwl_scan_fused"):
         t_kernel, t_plain = ms[k]
-        print(f"time {k} at {tuple(wd10.shape)} windows, {st10.shape[0]} start slots "
+        shape = tuple((wf10 if k == "wwl_scan_fused" else wd10).shape)
+        print(f"time {k} at {shape} windows, {st10.shape[0]} start slots "
               f"({len(lanes10)} lanes): kernel {t_kernel} ms ({gbps(t_kernel)} GB/s), plain twin "
               f"{t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
+
+    # The A/B that sets FUSED_DEFAULT (python -m ahocorasick_tpu_torch.probes.
+    # probe_wwl_fused): the fused scan against the plane and the sweep, the
+    # per-start walk beside them, at baseline-4 and at this run's 10k cell.
+    ab_ms = {}
+    for config, make in (("baseline-4", lambda: probe_wwl_fused.baseline4(dev)),
+                         ("10k", lambda: (big_wwl, cls_w))):
+        ab_info, ab_best = probe_wwl_fused.ab(*make())
+        print(f"ab wwl {config}: " + json.dumps({**ab_info, **ab_best}) + f" [{smi}]")
+        if ab_info["max_abs_err"]:
+            raise AssertionError(f"ab wwl {config}: the fused outcomes differ from the sweep's")
+        ab_ms[config] = ab_best
+    fused_wins = all(b["fused"]["device_ms"] < b["sweep"]["device_ms"] for b in ab_ms.values())
+    print(f"ab wwl: the fused scan's card time is below the plane and the sweep's in "
+          f"{'both cases' if fused_wins else 'not both cases'} ("
+          + "; ".join(f"{c} {b['fused']['device_ms']} vs {b['sweep']['device_ms']} ms, walk "
+                      f"{b['walk']['device_ms']} ms" for c, b in ab_ms.items())
+          + f"): the rule gives FUSED_DEFAULT = {fused_wins}; the package has "
+          f"{fused_default} [{smi}]")
 
     # The every-position sweep on one shard of the sharded WWL scan (4 Mi
     # positions and the 512-word right halo), and the stitch kernels at the
@@ -2508,15 +2780,27 @@ def main() -> int:
     c = stage("classes", lambda: big_wwl._classes(text))
     cls_p, starts, lanes, ws, d = stage("compact_lanes", lambda: scan_wwl.compact_lanes(
         big_wwl.compiled, c))
-    w = stage("windows (chunk_classes)", lambda: scan_batched.chunk_classes(
-        cls_p, 512, d, sc10.num_classes))
+    if fused_default:  # the engine scan_walks_auto picks
+        w = stage("windows (chunk_classes_overlap)", lambda: scan_wwl.chunk_classes_overlap(
+            cls_p, 512, d, d + 1, sc10.num_classes))
+    else:
+        w = stage("windows (chunk_classes)", lambda: scan_batched.chunk_classes(
+            cls_p, 512, d, sc10.num_classes))
     wd, st = stage("upload (windows + starts)", lambda: (
         scan_batched.classes_to_device(w, sc10.num_classes, dev), torch.from_numpy(starts).to(dev)))
-    plane = stage("plane kernel", lambda: kwwl.wwl_scan_plane(
-        sc10.table, wd, d, sc10.id_bits, sc10.num_classes, False))
-    outs = stage("sweep kernel", lambda: kwwl.wwl_sweep_at(
-        plane[0], None, None, sc10.outrows, st, d=d, id_bits=sc10.id_bits,
-        depth_bits=sc10.depth_bits, cross=False))
+    if fused_default:
+        outs = stage("fused kernel (its first call on these starts checks their order)",
+                     lambda: kwwl.wwl_scan_fused(sc10.table, sc10.outrows, wd, st, halo=d,
+                                                 id_bits=sc10.id_bits,
+                                                 depth_bits=sc10.depth_bits,
+                                                 num_classes=sc10.num_classes, d=d,
+                                                 cross=False))
+    else:
+        plane = stage("plane kernel", lambda: kwwl.wwl_scan_plane(
+            sc10.table, wd, d, sc10.id_bits, sc10.num_classes, False))
+        outs = stage("sweep kernel", lambda: kwwl.wwl_sweep_at(
+            plane[0], None, None, sc10.outrows, st, d=d, id_bits=sc10.id_bits,
+            depth_bits=sc10.depth_bits, cross=False))
     arrays = stage("download of lane outcomes", lambda: [
         x[: len(lanes)].cpu().numpy() for x in outs])
     def scatter():
@@ -2531,7 +2815,7 @@ def main() -> int:
     stage("triples list -> arrays", lambda: np.asarray(trip, dtype=np.int64))
     c7 = mixed._classes(text7)
     cls_p7, starts7, lanes7, _, d7 = scan_wwl.compact_lanes(mixed.compiled, c7)
-    outs7 = scan_wwl.scan_walks(mixed.dev.wwl_scan_mixed, cls_p7, starts7, d7, dev)
+    outs7 = scan_wwl.scan_walks_auto(mixed.dev.wwl_scan_mixed, cls_p7, starts7, d7, True)
     arrays7 = [x[: len(lanes7)].cpu().numpy() for x in outs7[:5]]
     cont7 = np.nonzero(outs7[5][: len(lanes7)].cpu().numpy())[0]
     stage("host continuations (mixed)", lambda: scan_wwl.apply_crossing_fixes(
@@ -2866,6 +3150,10 @@ def main() -> int:
                          6 * len(lanes10)),
         "wwl_walks_at": (nbytes(walk_args[-3], st10, kwwl.wwl_walks_at(*walk_args)),
                          6 * len(lanes10)),
+        # the overlap windows and the starts in, 17 B of outcomes per slot out;
+        # a lookup, a depth, a difference and a compare per class
+        "wwl_scan_fused": (nbytes(wf10, st10, kwwl.wwl_scan_fused(*fargs, **fkw)),
+                           4 * wf10.numel()),
         "packedcount_count": (nbytes(w5) + 8, 4 * chars5),
         "packedcount_hotstate_plane": (nbytes(w5, khuge.packedcount_hotstate_plane(*cargs)),
                                        4 * chars5),

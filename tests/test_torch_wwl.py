@@ -235,7 +235,7 @@ def test_scan_walks_twin_equals_jax(name, layout):
             assert _np(g).dtype == np.asarray(w).dtype
             np.testing.assert_array_equal(_np(g), np.asarray(w), err_msg=f"n={n}")
         # The narrow upload the matcher uses gives the same outcomes.
-        narrow = port_wwl.scan_walks(sc, cls_p, starts, d, "cpu")
+        narrow = port_wwl.scan_walks_auto(sc, cls_p, starts, d, cross)
         for w, g in zip(want, narrow):
             np.testing.assert_array_equal(_np(g), np.asarray(w))
     assert launches == before  # the twins count no launches
