@@ -422,15 +422,7 @@ __global__ void __launch_bounds__(kThreads)
 
 unsigned grid_for(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
 
-// K lanes per window of `body` positions, `seg_len` each (the last one
-// shorter): 1 and body, or, when halo >= 1, K in 2..4 and seg_len a multiple
-// of 4 with (K - 1) * seg_len < body <= K * seg_len.
-bool valid_segments(int segments, int seg_len, int body, int halo) {
-  const bool one = segments == 1 && seg_len == body;
-  const bool split = segments >= 2 && segments <= 4 && halo >= 1 && seg_len % 4 == 0 &&
-                     (segments - 1) * seg_len < body && segments * seg_len >= body;
-  return one || split;
-}
+using tile::valid_segments;
 
 template <typename T>
 void launch_plane(const uint32_t* tab, const void* windows, int64_t num_windows, int width,
@@ -472,9 +464,7 @@ extern "C" int wwl_scan_plane(const void* table, const void* windows, int class_
   auto* ent = static_cast<uint32_t*>(entry);
   // Runs start at b*C + k*L + a multiple of 16: 16-byte aligned when C and
   // L are multiples of 4 and the planes are.
-  const bool vec = body % 4 == 0 && seg_len % 4 == 0 &&
-                   reinterpret_cast<uintptr_t>(out) % 16 == 0 &&
-                   reinterpret_cast<uintptr_t>(ent) % 16 == 0;
+  const bool vec = tile::vec_runs(body, seg_len, out) && tile::vec_runs(body, seg_len, ent);
   const uint32_t idmask = (1u << id_bits) - 1u;
   auto st = static_cast<cudaStream_t>(stream);
   const auto s = static_cast<uint32_t>(stride);

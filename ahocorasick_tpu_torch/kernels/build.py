@@ -84,12 +84,13 @@ _SCAN_ARGS = [_P, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P]
 # (dfa_flat, emit_tab, windows, window_bytes, num_windows, width, halo,
 #  num_classes, num_planes, out, device, stream)
 _SPLIT_ARGS = [_P, *_SCAN_ARGS]
+# _SCAN_ARGS with (segments, seg_len) before out
+_SEGMENTED_ARGS = [*_SCAN_ARGS[:8], _I, _I, *_SCAN_ARGS[8:]]
 ARGTYPES = {
-    "packed_scan_count": _SCAN_ARGS,
-    # _SCAN_ARGS with (segments, seg_len) before out
-    "packed_scan_planes": [*_SCAN_ARGS[:8], _I, _I, *_SCAN_ARGS[8:]],
+    "packed_scan_count": _SEGMENTED_ARGS,
+    "packed_scan_planes": _SEGMENTED_ARGS,
     "packedcount_count": _SCAN_ARGS,
-    "packedcount_hotstate_plane": _SCAN_ARGS,
+    "packedcount_hotstate_plane": _SEGMENTED_ARGS,
     "rowdfa2_count": _SCAN_ARGS,
     "rowdfa2_planes": _SCAN_ARGS,
     "split_count": _SPLIT_ARGS,

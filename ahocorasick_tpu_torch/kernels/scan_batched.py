@@ -34,11 +34,15 @@ import torch
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
 from ahocorasick_tpu_torch.kernels.scan_block import (
+    MAX_LANES,
     _WINDOW_BYTES,
     _check_windows,
     _lane_scan_plain,
     _popcount32,
+    _segmented_planes_plain,
+    _to_uint32,
     _widen,
+    segments,
 )
 
 
@@ -87,6 +91,17 @@ def packedcount_count(table_flat: torch.Tensor, windows: torch.Tensor, halo: int
     return out[0]
 
 
+# The hotstate kernel's cap on lanes (``scan_block.segments``): the planes
+# kernel's.  On the 1M dictionary's 470 MB count-packed table, K = 1, 2, 4
+# lanes per window ran 0.427 / 0.423, 0.418 / 0.428, 0.463 / 0.457 ms at
+# 65,536 windows of 512 body classes (two runs: K = 1 and 2 tie), 0.294,
+# 0.220, 0.223 / 0.226 ms at 32,768 and 0.274, 0.146, 0.082 ms at 8,192
+# (NVIDIA H100 80GB HBM3, 700 W; python -m
+# ahocorasick_tpu_torch.bench.scan_variants), so the best K at each is the
+# one that keeps the lanes within 65,536.
+HOTSTATE_MAX_LANES = MAX_LANES
+
+
 def packedcount_hotstate_plane(table_flat: torch.Tensor, windows: torch.Tensor, halo: int,
                                state_bits: int, num_classes: int) -> torch.Tensor:
     """``uint32[1, B*C]``: the packed entry where a keyword ends, else 0."""
@@ -98,7 +113,8 @@ def packedcount_hotstate_plane(table_flat: torch.Tensor, windows: torch.Tensor, 
     out = torch.empty((1, B * (W - halo)), dtype=torch.uint32, device=dev)
     build.call("packedcount_hotstate_plane", table_flat.data_ptr(), windows.data_ptr(),
                _WINDOW_BYTES[windows.dtype], B, W, halo, num_classes, state_bits,
-               out.data_ptr(), dev.index, _stream(dev))
+               *segments(B, W - halo, halo, HOTSTATE_MAX_LANES), out.data_ptr(), dev.index,
+               _stream(dev))
     launches["packedcount_hotstate_plane"] += 1
     return out
 
@@ -142,11 +158,6 @@ def split_emit_planes(dfa_flat: torch.Tensor, emit_tab: torch.Tensor, windows: t
 # and windows (torch has no uint32 shift or popcount).
 
 
-def _to_uint32(x: torch.Tensor) -> torch.Tensor:
-    """int64 holding values in [0, 2**32) -> uint32, the same bits."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).view(torch.uint32)
-
-
 def packedcount_count_plain(table_flat, windows, halo, state_bits, num_classes) -> torch.Tensor:
     total = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
 
@@ -159,14 +170,13 @@ def packedcount_count_plain(table_flat, windows, halo, state_bits, num_classes) 
 
 def packedcount_hotstate_plane_plain(table_flat, windows, halo, state_bits,
                                      num_classes) -> torch.Tensor:
+    """The kernel's lane decomposition (``segments`` under
+    ``HOTSTATE_MAX_LANES``)."""
     B, W = windows.shape
-    out = torch.empty((B, W - halo), dtype=torch.int64, device=windows.device)
-
-    def emit(j, v):
-        out[:, j] = torch.where((v >> state_bits) != 0, v, 0)
-
-    _lane_scan_plain(table_flat, windows, halo, num_classes, (1 << state_bits) - 1, emit)
-    return _to_uint32(out.reshape(1, -1))
+    K, L = segments(B, W - halo, halo, HOTSTATE_MAX_LANES)
+    return _segmented_planes_plain(table_flat, windows, halo, num_classes,
+                                   (1 << state_bits) - 1, K, L,
+                                   lambda v: torch.where((v >> state_bits) != 0, v, 0))
 
 
 def _split_plain(dfa_flat, emit_tab, windows, halo, num_classes, num_planes, emit):

@@ -77,23 +77,33 @@ def _launch(name: str, table, windows, halo, state_bits, out, *lanes) -> None:
 # one (NVIDIA H100 80GB HBM3, 700 W; python -m
 # ahocorasick_tpu_torch.bench.planes_stores times both).
 MAX_LANES = 65_536
+# The count kernel (no store tile) splits windows while the lanes stay at most
+# this many.  Its lanes are chains of dependent lookups that wait on L2, so
+# more lanes help until the caches' rate binds: K = 1, 2, 4 lanes per window
+# ran 0.105, 0.073 / 0.076, 0.093 / 0.095 ms at 65,536 windows of 512 body
+# classes, 0.099, 0.058, 0.045 ms at 32,768 and 0.099, 0.055, 0.032 / 0.045
+# ms at 8,192 (two runs where they differ); two chains a thread instead of
+# two lanes ran slower (0.078 / 0.081 ms at 65,536 windows).  NVIDIA H100
+# 80GB HBM3, 700 W; python -m ahocorasick_tpu_torch.bench.scan_variants.
+COUNT_MAX_LANES = 131_072
 
 
-def segments(num_windows: int, body: int, halo: int) -> tuple:
-    """``(K, L)``: the planes kernel's lanes per window and body positions per
-    lane (the last lane of a window takes the rest, ``C - (K-1)*L``).
+def segments(num_windows: int, body: int, halo: int, max_lanes: int = MAX_LANES) -> tuple:
+    """``(K, L)``: a segmented kernel's lanes per window and body positions
+    per lane (the last lane of a window takes the rest, ``C - (K-1)*L``).
 
     K = 4, else 2, else 1: the largest that keeps ``num_windows * K`` within
-    ``MAX_LANES`` and whose segments are at least four halos and 32 steps
-    long, with L = ceil(C / K) rounded up to a multiple of 4 (16-byte stores)
-    and the last segment not empty (C = ``body``).  Each lane is warmed from
-    the root over the ``halo`` classes before its segment, which is exact
-    because the automaton is ``halo``-synchronizing; with ``halo = 0``
-    nothing synchronizes, so K = 1."""
+    ``max_lanes`` (the planes kernels' ``MAX_LANES`` unless a kernel measured
+    its own) and whose segments are at least four halos and 32 steps long,
+    with L = ceil(C / K) rounded up to a multiple of 4 (16-byte stores) and
+    the last segment not empty (C = ``body``).  Each lane is warmed from the
+    root over the ``halo`` classes before its segment, which is exact because
+    the automaton is ``halo``-synchronizing; with ``halo = 0`` nothing
+    synchronizes, so K = 1."""
     if halo >= 1:
         for k in (4, 2):
             seg = -(-body // (4 * k)) * 4
-            if (num_windows * k <= MAX_LANES and seg >= max(4 * halo, 32)
+            if (num_windows * k <= max_lanes and seg >= max(4 * halo, 32)
                     and (k - 1) * seg < body):
                 return k, seg
     return 1, body
@@ -103,11 +113,12 @@ def packed_scan_count(table: torch.Tensor, windows: torch.Tensor, halo: int,
                       state_bits: int) -> torch.Tensor:
     """Total match count over the body positions, as an int64 scalar tensor
     on the windows' device."""
-    _check(table, windows, halo, state_bits)
+    B, W = _check(table, windows, halo, state_bits)
     if windows.device.type == "cpu":
         return packed_scan_count_plain(table, windows, halo, state_bits)
     out = torch.zeros(1, dtype=torch.int64, device=windows.device)
-    _launch("packed_scan_count", table, windows, halo, state_bits, out)
+    _launch("packed_scan_count", table, windows, halo, state_bits, out,
+            *segments(B, W - halo, halo, COUNT_MAX_LANES))
     return out[0]
 
 
@@ -163,14 +174,9 @@ def _scan_plain(table, windows, halo, state_bits, emit):
                      lambda j, v: emit(j, v >> state_bits))
 
 
-def packed_scan_count_plain(table, windows, halo, state_bits) -> torch.Tensor:
-    pop = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
-
-    def emit(_j, e):
-        pop.add_(_popcount32(e))
-
-    _scan_plain(table, windows, halo, state_bits, emit)
-    return pop.sum()
+def _to_uint32(x: torch.Tensor) -> torch.Tensor:
+    """int64 holding values in [0, 2**32) -> uint32, the same bits."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).view(torch.uint32)
 
 
 def _segment_lanes(windows: torch.Tensor, halo: int, K: int, L: int) -> torch.Tensor:
@@ -187,19 +193,43 @@ def _segment_lanes(windows: torch.Tensor, halo: int, K: int, L: int) -> torch.Te
     return lanes.view(windows.dtype) if windows.dtype == torch.uint16 else lanes
 
 
-def packed_scan_planes_plain(table, windows, halo, state_bits) -> torch.Tensor:
-    """The kernel's lane decomposition (``segments``): K lanes per window,
-    each warmed over the ``halo`` classes before its segment."""
+def _segmented_planes_plain(table_flat, windows, halo, num_classes, smask, K, L, value):
+    """``uint32[1, B*C]`` holding ``value(v)`` (int64 in [0, 2**32)) of the
+    entry read at every body position, scanned in a segmented kernel's lane
+    decomposition: K lanes per window, each warmed over the ``halo`` classes
+    before its segment."""
     B, W = windows.shape
-    C = W - halo
-    K, L = segments(B, C, halo)
-    lanes = _segment_lanes(windows, halo, K, L)
     out = torch.empty((B * K, L), dtype=torch.int64, device=windows.device)
 
-    def emit(j, e):
-        out[:, j] = e
+    def emit(j, v):
+        out[:, j] = value(v)
 
-    _scan_plain(table, lanes, halo, state_bits, emit)
-    # Emit masks are < 2**31 (state_bits >= 1), so int32 holds them exactly;
-    # the last segment's columns past C are padding.
-    return out.reshape(B, K * L)[:, :C].reshape(1, -1).to(torch.int32).view(torch.uint32)
+    _lane_scan_plain(table_flat, _segment_lanes(windows, halo, K, L), halo, num_classes, smask,
+                     emit)
+    # The last segment's columns past C are padding.
+    return _to_uint32(out.reshape(B, K * L)[:, : W - halo].reshape(1, -1))
+
+
+def packed_scan_count_plain(table, windows, halo, state_bits) -> torch.Tensor:
+    """The kernel's lane decomposition (``segments`` under
+    ``COUNT_MAX_LANES``); a lane's padding past its row counts nothing."""
+    B, W = windows.shape
+    C = W - halo
+    K, L = segments(B, C, halo, COUNT_MAX_LANES)
+    # Body positions each lane holds: L, the last lane of a window the rest.
+    limit = (C - torch.arange(K, device=windows.device) * L).clamp(max=L).repeat(B)
+    pop = torch.zeros(B * K, dtype=torch.int64, device=windows.device)
+
+    def emit(j, e):
+        pop.add_(torch.where(j < limit, _popcount32(e), 0))
+
+    _scan_plain(table, _segment_lanes(windows, halo, K, L), halo, state_bits, emit)
+    return pop.sum()
+
+
+def packed_scan_planes_plain(table, windows, halo, state_bits) -> torch.Tensor:
+    """The kernel's lane decomposition (``segments``)."""
+    B, W = windows.shape
+    K, L = segments(B, W - halo, halo)
+    return _segmented_planes_plain(table.reshape(-1), windows, halo, table.shape[1],
+                                   (1 << state_bits) - 1, K, L, lambda v: v >> state_bits)

@@ -48,7 +48,7 @@ import torch
 
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
-from ahocorasick_tpu_torch.kernels.scan_block import _segment_lanes, _widen, segments
+from ahocorasick_tpu_torch.kernels.scan_block import _segment_lanes, _to_uint32, _widen, segments
 
 _CLASS_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
 
@@ -83,11 +83,6 @@ def _check_int32(name: str, t: torch.Tensor, shape) -> None:
 def _index(t: torch.Tensor) -> torch.Tensor:
     """Class ids or table words as int64 (unsigned reading)."""
     return t.to(torch.int64) if t.dtype == torch.int32 else _widen(t)
-
-
-def _to_uint32(x: torch.Tensor) -> torch.Tensor:
-    """int64 values in [0, 2**32) -> uint32 (same bits, through int32)."""
-    return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).view(torch.uint32)
 
 
 def _outcomes(own, ownv, fl, fo, fv, die_pos, die_word):

@@ -29,16 +29,21 @@ port only, the dictionary and text generators included (``bench.headline``,
    limit;
 2. build the CUDA kernels from ``ahocorasick_tpu_torch/csrc`` with nvcc, and
    the port's native host library from ``ahocorasick_tpu_torch/native/src``
-   with g++ (a failed build raises: nothing carries on in numpy);
+   with g++, and in a thread beside them the designs of
+   ``bench/scan_variants.cu`` (a failed build raises: nothing carries on in
+   numpy);
 3. every kernel against its plain PyTorch twin on the card, bit for bit, on
    seeded dictionaries and shapes: the scans up to the main path's
    65,536 x 524 windows, the compaction on every planes tensor they make and
-   on synthetic ones; the one-pass compaction and the segmented planes scan
-   at their edge shapes (no hot position, the hot count at ``limit`` and one
-   past it, no limit, P = 1, 2, 3 and 5 with N past a tile, more than 16 Ki
-   tiles twice in a row; C < 128, C not a multiple of the lanes per window,
-   halo 0, uint16 windows, a keyword of length halo across every segment
-   boundary, ``a``..``a * 12``); the fused whole-word-longest scan and the
+   on synthetic ones; the one-pass compaction, the segmented planes scan
+   and count and the segmented hotstate plane at their edge shapes (no hot
+   position, the hot count at ``limit`` and one past it, no limit, P = 1,
+   2, 3 and 5 with N past a tile, more than 16 Ki tiles twice in a row;
+   C < 128, C not a multiple of the lanes per window or of 4, halo 0, one
+   window, uint16 windows, a keyword of length halo across every segment
+   boundary, ``a``..``a * 12``, K = 1, 2 and 4 lanes per window for the
+   count and the hotstate plane, the latter on depth-39 and depth-30 uint16
+   dictionaries); the fused whole-word-longest scan and the
    segmented WWL scan plane at theirs (walk depths 4, 12 and 32, > 256
    classes, separators as keywords, crossing bits, row and flat layouts,
    narrow and int32 windows, texts of 0, 3, 511, 4097 and 40,000 units,
@@ -154,6 +159,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    ``count`` and ``match_triples``, and the
    sequential-scan feed against the planes feed, 2**8 to 2**18 units on the
    100-, 1,000-, 10k- and 1M-keyword dictionaries, with each break-even);
+   the redesigned count and hotstate plane held against their twins at
+   their timed shapes, then the A/B of their designs
+   (``bench.scan_variants.run``: byte or word loads, one or two chains a
+   thread, strided or tiled stores, K = 1, 2 and 4 at 8,192, 32,768 and
+   65,536 windows, each checked bit for bit, one JSON line);
    the probe kernels and the PFAC walk (at the sweep's shape, the JAX sizes
    and 32 Mi units) beside their twins, each result first held against the
    twin's at that shape, and, for the probes, the same chain as
@@ -172,6 +182,7 @@ result.
 
 from __future__ import annotations
 
+import concurrent.futures
 import io
 import json
 import os
@@ -207,9 +218,9 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
     "wwl_walks_at": ("ahocorasick_tpu_torch/csrc/wwl_walk.cu",
                      "ahocorasick_tpu/ops/scan_wwl.py:137"),
     "packedcount_count": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
-                          "ahocorasick_tpu/ops/scan_batched.py:189"),
+                          "ahocorasick_tpu/ops/scan_batched.py:190"),
     "packedcount_hotstate_plane": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
-                                   "ahocorasick_tpu/ops/scan_batched.py:236"),
+                                   "ahocorasick_tpu/ops/scan_batched.py:237"),
     "split_count": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
                     "ahocorasick_tpu/ops/scan_batched.py:459"),
     "split_emit_planes": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
@@ -263,20 +274,6 @@ ONE_M = {"candidates": 1_100_000, "keywords": 995_169, "states": 4_356_756,
          "window": (300_000, 1 << 17)}
 
 
-def one_m_keywords(n_cand: int):
-    """The seed-77 generator of ``tests/test_full_random_1m.py``: sorted
-    distinct random lowercase keywords of 3-12 letters, the first million;
-    returns the generator too, for the text that follows it."""
-    rng = np.random.default_rng(77)
-    lens = rng.integers(3, 13, size=n_cand)
-    flat = rng.integers(0, 26, size=int(lens.sum()))
-    letters = np.frombuffer(b"abcdefghijklmnopqrstuvwxyz", dtype=np.uint8)
-    chars = letters[flat].tobytes().decode()
-    offs = np.concatenate([[0], np.cumsum(lens)])
-    kws = {chars[offs[i]: offs[i + 1]] for i in range(n_cand)}
-    return sorted(kws)[:1_000_000], rng, letters
-
-
 def one_m_text(rng, letters, kws, n_units: int) -> str:
     """The test's pinned text: random letters with 2,000 planted keywords."""
     text = list(letters[rng.integers(0, 26, size=n_units)].tobytes().decode())
@@ -323,9 +320,12 @@ def fuzz_keywords(rng, alphabet: str, n: int, max_len: int):
 
 
 def check_redesign_edges(port, dev, errs):
-    """The two kernels redesigned for this card (the one-pass compaction and
-    the segmented, coalesced planes scan) against their twins, bit for bit,
-    at their edge shapes."""
+    """The kernels redesigned for this card (the one-pass compaction, the
+    segmented, coalesced planes scan, the segmented count with word loads,
+    the hotstate plane on the planes lane) against their twins, bit for bit,
+    at their edge shapes: K = 1, 2 and 4 lanes per window, halo 0, uint16
+    windows, C not a multiple of 4, one window, a last block that is not
+    full."""
     import torch
 
     from ahocorasick_tpu_torch.kernels import compact, scan_block
@@ -382,7 +382,7 @@ def check_redesign_edges(port, dev, errs):
     compact_pair("more than 16 Ki tiles, again (descriptors reset)", many, None)
     del many
 
-    def planes_pair(label, m, text, chunk, halo=None, want_k=None):
+    def planes_pair(label, m, text, chunk, halo=None, want_k=None, want_count_k=None):
         pd = m.dev.packed_dfa
         halo = pd.halo if halo is None else halo
         cls = m._classes(text)
@@ -390,30 +390,40 @@ def check_redesign_edges(port, dev, errs):
             scan_batched.chunk_classes(cls, chunk, halo, m.compiled.num_classes),
             m.compiled.num_classes, dev)
         args = (pd.table, w, halo, pd.state_bits)
-        K, L = scan_block.segments(w.shape[0], w.shape[1] - halo, halo)
+        B, C = w.shape[0], w.shape[1] - halo
+        K, L = scan_block.segments(B, C, halo)
+        Kc, Lc = scan_block.segments(B, C, halo, scan_block.COUNT_MAX_LANES)
         got = words(scan_block.packed_scan_planes(*args))
         want = words(scan_block.packed_scan_planes_plain(*args))
         count = int(scan_block.packed_scan_count(*args))
+        count_twin = int(scan_block.packed_scan_count_plain(*args))
         torch.cuda.synchronize()
         e = int((got - want).abs().max())
+        e_count = abs(count - count_twin)
         pop = int(sum(bin(x).count("1") for x in want[want != 0].tolist()))
         errs["packed_scan_planes"] = max(errs["packed_scan_planes"], e)
-        print(f"  planes edge {label}: B={w.shape[0]} W={w.shape[1]} halo={halo} K={K} L={L} "
-              f"{str(w.dtype).replace('torch.', '')} bits={pop} count kernel={count} "
-              f"max_abs_err={e}")
-        if e or pop != count:
+        errs["packed_scan_count"] = max(errs["packed_scan_count"], e_count)
+        print(f"  planes edge {label}: B={B} W={w.shape[1]} halo={halo} K={K} L={L} "
+              f"{str(w.dtype).replace('torch.', '')} bits={pop} max_abs_err={e}; count K={Kc} "
+              f"L={Lc} lanes={B * Kc} kernel={count} twin={count_twin} max_abs_err={e_count}")
+        if e or e_count or pop != count:
             raise AssertionError(f"planes edge {label}: kernel disagrees with its twin")
         if want_k is not None and K != want_k:
             raise AssertionError(f"planes edge {label}: K = {K}, not {want_k}")
+        if want_count_k is not None and Kc != want_count_k:
+            raise AssertionError(f"planes edge {label}: count K = {Kc}, not {want_count_k}")
+        return Kc
 
     fr = np.random.default_rng(SEED + 11)
     kws = fuzz_keywords(fr, "abcd", 40, 6)
     m = port.AhoCorasickSet(kws, engine="device", device=dev)
     text = "".join(fr.choice(list("abcd "), size=300_001))
-    planes_pair("C = 100 < 128", m, text, 100, want_k=2)
-    planes_pair("C = 514, not a multiple of K (4-byte stores)", m, text, 514, want_k=4)
-    planes_pair("C = 127, last segment 31", m, text, 127, want_k=4)
-    planes_pair("halo 0", m, text, 512, halo=0, want_k=1)
+    count_ks = {planes_pair("C = 100 < 128", m, text, 100, want_k=2),
+                planes_pair("C = 514, not a multiple of K (4-byte stores)", m, text, 514,
+                            want_k=4),
+                planes_pair("C = 127, last segment 31", m, text, 127, want_k=4),
+                planes_pair("halo 0", m, text, 512, halo=0, want_k=1, want_count_k=1),
+                planes_pair("one window", m, text[:600], 512)}
     wide_kws = [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)]
     m = port.AhoCorasickSet(wide_kws, engine="device", device=dev)
     wide = "".join(chr(0x100 + int(c)) for c in fr.integers(0, 300, size=200_000))
@@ -432,6 +442,51 @@ def check_redesign_edges(port, dev, errs):
     runs = fr.integers(1, 30, size=20_000)
     planes_pair("depth 12, a..a*12", m, "".join("a" * int(r) + "b" for r in runs), 512,
                 want_k=4)
+    if not {1, 2, 4} <= count_ks:
+        raise AssertionError(f"count edges ran K in {sorted(count_ks)}, not 1, 2 and 4")
+
+    # The hotstate plane (the planes lane over a count-packed table) on
+    # dictionaries whose state bits plus depth exceed 32.
+    from ahocorasick_tpu_torch.kernels import scan_batched as khuge
+
+    def hot_pair(label, m, text, chunk, halo=None):
+        flat, sb, table_halo = m.dev.count_packed_dfa
+        halo = table_halo if halo is None else halo
+        A = m.compiled.num_classes
+        w = scan_batched.classes_to_device(
+            scan_batched.chunk_classes(m._classes(text), chunk, halo, A), A, dev)
+        args = (flat, w, halo, sb, A)
+        B, C = w.shape[0], w.shape[1] - halo
+        K, L = scan_block.segments(B, C, halo, khuge.HOTSTATE_MAX_LANES)
+        got = words(khuge.packedcount_hotstate_plane(*args))
+        want = words(khuge.packedcount_hotstate_plane_plain(*args))
+        count = int(khuge.packedcount_count_plain(*args))
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        hot = int((want != 0).sum())
+        errs["packedcount_hotstate_plane"] = max(errs["packedcount_hotstate_plane"], e)
+        print(f"  hotstate edge {label}: B={B} W={w.shape[1]} halo={halo} K={K} L={L} "
+              f"lanes={B * K} {str(w.dtype).replace('torch.', '')} hot={hot} count={count} "
+              f"max_abs_err={e}")
+        if e or not hot or int((want >> sb).sum()) != count:
+            raise AssertionError(f"hotstate edge {label}: kernel disagrees with its twin")
+        return K
+
+    m = port.AhoCorasickSet(DEEP, engine="device", device=dev)
+    runs = fr.integers(1, 45, size=8_000)
+    deep = "".join("a" * int(r) + str(fr.choice(["b", " the ", "x"])) for r in runs)[:200_001]
+    hot_ks = {hot_pair("depth 39, C = 1024", m, deep, 1024),
+              hot_pair("depth 39, C = 512", m, deep, 512),
+              hot_pair("depth 39, C = 1023, 4-byte stores", m, deep, 1023),
+              hot_pair("depth 39, C = 128", m, deep, 128),
+              hot_pair("halo 0", m, deep, 512, halo=0),
+              hot_pair("one window", m, deep[:700], 1024)}
+    wide_deep = wide_kws + ["".join(chr(0x100 + (11 * i) % 300) for i in range(30))]
+    m = port.AhoCorasickSet(wide_deep, engine="device", device=dev)
+    hot_ks.add(hot_pair("uint16 windows, depth 30", m, wide + wide_deep[-1] + wide[:5000]
+                        + wide_deep[-1], 512))
+    if not {1, 2, 4} <= hot_ks:
+        raise AssertionError(f"hotstate edges ran K in {sorted(hot_ks)}, not 1, 2 and 4")
 
 
 def check_wwl_edges(port, dev, errs):
@@ -749,7 +804,8 @@ def main() -> int:
     from ahocorasick_tpu_torch.native import lib as native_lib
     from ahocorasick_tpu_torch import bench, graft_entry
     from ahocorasick_tpu_torch.bench import __main__ as bench_main
-    from ahocorasick_tpu_torch.bench import headline
+    from ahocorasick_tpu_torch.bench import headline, scan_variants
+    from ahocorasick_tpu_torch.bench.scan_variants import one_m_keywords
     from ahocorasick_tpu_torch.bench.__main__ import english_like_keywords
     from ahocorasick_tpu_torch.bench.__main__ import word_soup as bench_word_soup
     from ahocorasick_tpu_torch.bench.headline import make_dictionary
@@ -772,8 +828,11 @@ def main() -> int:
     print(f"device: {name}; torch {torch.__version__}, CUDA {torch.version.cuda}")
     print(smi)
 
-    # 2. Build.
+    # 2. Build (the A/B harness's variants in a thread beside the package's
+    # kernels: both are nvcc processes).
     t0 = time.perf_counter()
+    variants_build = concurrent.futures.ThreadPoolExecutor(1).submit(
+        build.build, (scan_variants.SOURCE,), scan_variants.STEM)
     path = build.build()
     build.library()
     print(f"build: {time.perf_counter() - t0:.2f} s ({path})")
@@ -782,10 +841,12 @@ def main() -> int:
     if not native_lib.available():
         raise RuntimeError("the port's native host library did not load")
     print(f"native build: {time.perf_counter() - t0:.2f} s ({native_path})")
-    with open(path[: -len(".so")] + ".log") as fh:
-        for line in fh.read().splitlines():
-            if "Compiling entry" in line or "registers" in line or "spill" in line:
-                print(f"  ptxas: {line.strip()}")
+    variants_path = variants_build.result()  # raises if nvcc failed
+    for lib_path in (path, variants_path):
+        with open(lib_path[: -len(".so")] + ".log") as fh:
+            for line in fh.read().splitlines():
+                if "Compiling entry" in line or "registers" in line or "spill" in line:
+                    print(f"  ptxas: {line.strip()}")
 
     def cuda_ms(fn, reps):
         fn()
@@ -2622,6 +2683,27 @@ def main() -> int:
         print(f"time {k} at {tuple(w5.shape)} windows, 1M dictionary ({flat1m.nbytes} B "
               f"count-packed, {dfa1m.nbytes + emit1m.nbytes} B split): kernel {t_kernel} ms "
               f"({gbps(t_kernel)} GB/s), plain twin {t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
+
+    # The two kernels redesigned in this round, held against their twins at
+    # the timed shapes, then the A/B of their designs (bench/scan_variants.py).
+    kc = int(scan_block.packed_scan_count(*args))
+    pc = int(scan_block.packed_scan_count_plain(*args))
+    e_hot = max_err((khuge.packedcount_hotstate_plane(*cargs),),
+                    (khuge.packedcount_hotstate_plane_plain(*cargs),))
+    torch.cuda.synchronize()
+    errs["packed_scan_count"] = max(errs["packed_scan_count"], abs(kc - pc))
+    errs["packedcount_hotstate_plane"] = max(errs["packedcount_hotstate_plane"], e_hot)
+    k_count = scan_block.segments(w_full.shape[0], w_full.shape[1] - pd.halo, pd.halo,
+                                  scan_block.COUNT_MAX_LANES)[0]
+    k_hot = scan_block.segments(w5.shape[0], w5.shape[1] - halo1m, halo1m,
+                                khuge.HOTSTATE_MAX_LANES)[0]
+    print(f"  timed shapes: packed_scan_count at {tuple(w_full.shape)}, K={k_count}: kernel={kc} "
+          f"twin={pc}; packedcount_hotstate_plane at {tuple(w5.shape)}, K={k_hot}: "
+          f"max_abs_err={e_hot}")
+    if kc != pc or e_hot:
+        raise AssertionError("a redesigned kernel disagrees with its twin at its timed shape")
+    ab = scan_variants.run(args, cargs, scan_variants.library())
+    print(f"ab scan_variants {json.dumps({'card': smi, **ab})}")
 
     # The row-sharded scan beside the single-table kernels on the same
     # windows: the 10k table (every mode; the payload is an emit mask, so

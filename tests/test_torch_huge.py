@@ -22,6 +22,7 @@ from ahocorasick_tpu.ops import dispatch as jax_dispatch
 from ahocorasick_tpu.ops import scan_batched as jax_sb
 from ahocorasick_tpu_torch import convert
 from ahocorasick_tpu_torch.kernels import scan_batched as huge
+from ahocorasick_tpu_torch.kernels.scan_block import segments
 from ahocorasick_tpu_torch.models import matchers as port_matchers
 from ahocorasick_tpu_torch.ops import dispatch as port_dispatch
 from ahocorasick_tpu_torch.ops import scan_batched as port_sb
@@ -224,6 +225,31 @@ def test_packedcount_twins_equal_jax(name):
     plane = huge.packedcount_hotstate_plane(*args_p)
     want = np.asarray(jax_sb.packedcount_hotstate_plane(*args_j))
     assert plane.dtype == torch.uint32 and tuple(plane.shape) == want.shape
+    np.testing.assert_array_equal(_u32(plane), want)
+    assert (want != 0).sum() > 0
+
+
+@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("ragged", [False, True], ids=["C%4==0", "C%4==3"])
+@pytest.mark.parametrize("name", NAMES)
+def test_hotstate_twin_in_lane_decomposition_equals_jax(name, ragged, K, monkeypatch):
+    """The hotstate twin takes the kernel's K lanes per window (each warmed
+    over the halo before its segment): bit for bit the JAX plane, with C a
+    multiple of 4 (the kernel's 16-byte stores) or not (4-byte stores), on
+    a few windows (lanes not a multiple of the 256-thread block)."""
+    m = _compiled(name)
+    flat, state_bits, halo = jax_sb.build_count_packed(m)
+    chunk = 16 * halo + (3 if ragged else 8)  # segments of at least four halos at K = 4
+    text = _text(name, 3 * chunk + 77, 0.4, seed=9)
+    cls, w, wt = _windows(m, text, halo, chunk)
+    B = wt.shape[0]
+    monkeypatch.setattr(huge, "HOTSTATE_MAX_LANES", K * B)
+    assert segments(B, chunk, halo, huge.HOTSTATE_MAX_LANES)[0] == K and (B * K) % 256
+    table, _, _ = convert.count_packed_from_numpy(flat, state_bits, halo, "cpu")
+    plane = huge.packedcount_hotstate_plane(table, wt, halo, state_bits, m.num_classes)
+    want = np.asarray(jax_sb.packedcount_hotstate_plane(
+        jnp.asarray(flat), jnp.asarray(w), halo, state_bits, m.num_classes))
+    assert plane.dtype == torch.uint32 and tuple(plane.shape) == want.shape == (1, B * chunk)
     np.testing.assert_array_equal(_u32(plane), want)
     assert (want != 0).sum() > 0
 

@@ -74,6 +74,12 @@ def _case(name):
         m = compile_matcher(kws, "ac", True)
         text = "".join(chr(0x100 + int(c)) for c in rng.integers(0, 300, size=700))
         chunk = 128
+    elif name == "few_windows":  # B = 3 windows: few lanes, K up to 4 by the caps
+        kws = sorted({"".join(rng.choice(list("abcd"), size=int(rng.integers(1, 7))))
+                      for _ in range(30)})
+        m = compile_matcher(kws, "ac", True)
+        text = "".join(rng.choice(list("abcd "), size=1300))
+        chunk = 512
     elif name in ("short_chunk", "ragged", "halo0"):  # C < 128; C % K != 0; halo 0
         kws = sorted({"".join(rng.choice(list("abcd"), size=int(rng.integers(1, 7))))
                       for _ in range(30)})
@@ -213,3 +219,51 @@ def test_planes_segments_rule(num_windows, body, halo, want):
     assert (K, L) == want
     assert num_windows * K <= max(scan_block.MAX_LANES, num_windows)
     assert (K - 1) * L < body <= K * L and (K == 1 or L % 4 == 0)
+
+
+@pytest.mark.parametrize("num_windows, body, halo, want", [
+    (65_536, 512, 12, (2, 256)),  # the main path: two lanes per window
+    (131_072, 512, 12, (1, 512)),
+    (32_768, 512, 12, (4, 128)),  # four lanes per window keep 131,072 lanes
+    (8_192, 512, 12, (4, 128)),
+    (8, 514, 12, (4, 132)),
+    (8, 100, 3, (2, 52)),  # C < 128: four lanes would be under 32 steps
+    (8, 64, 12, (1, 64)),  # segments under four halos
+    (8, 512, 0, (1, 512)),  # halo 0: nothing synchronizes
+])
+def test_count_segments_rule(num_windows, body, halo, want):
+    K, L = scan_block.segments(num_windows, body, halo, scan_block.COUNT_MAX_LANES)
+    assert (K, L) == want
+    assert num_windows * K <= max(scan_block.COUNT_MAX_LANES, num_windows)
+    assert (K - 1) * L < body <= K * L and (K == 1 or L % 4 == 0)
+
+
+# The count's lanes per window under caps of B, 2B and 4B lanes: every K that
+# the segments allow at these windows.
+_COUNT_KS = {"ragged": {1, 2, 4}, "halo0": {1}, "wide_segments": {1, 2, 4},
+             "short_chunk": {1, 2}, "wide": {1}, "few_windows": {1, 2, 4}}
+
+
+@pytest.mark.parametrize(
+    "name, engine",
+    [(name, engine) for name in _COUNT_KS for engine in ("block", "rowdfa1", "batched")
+     if (name, engine) not in (("wide", "block"), ("wide_segments", "block"))],
+)
+def test_count_twin_in_lane_decomposition_equals_jax(name, engine, monkeypatch):
+    """The count twin takes the kernel's K lanes per window (each warmed over
+    the halo before its segment, the last one's padding counting nothing):
+    at K = 1, 2 and 4 on the same windows it equals the JAX count."""
+    m, cls, chunk = _case(name)
+    halo = _HALO.get(name)
+    want, _ = _jax_scan(engine, m, cls, chunk, halo)
+    pd = port_matchers._DeviceTables(carry(m), "cpu").packed_dfa
+    halo = pd.halo if halo is None else halo
+    w = port_sb.classes_to_device(port_sb.chunk_classes(cls, chunk, halo, m.num_classes),
+                                  m.num_classes, "cpu")
+    B, C = w.shape[0], w.shape[1] - halo
+    ks = set()
+    for cap in (B, 2 * B, 4 * B):
+        monkeypatch.setattr(scan_block, "COUNT_MAX_LANES", cap)
+        ks.add(scan_block.segments(B, C, halo, cap)[0])
+        assert int(scan_block.packed_scan_count(pd.table, w, halo, pd.state_bits)) == want > 0
+    assert ks == _COUNT_KS[name]
