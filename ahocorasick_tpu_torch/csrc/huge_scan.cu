@@ -9,12 +9,15 @@
 // packedcount_hotstate_plane (:237), split_emit_planes (:417) and split_count
 // (:460).  Each entry point keeps the name of the loop it replaces.
 //
-// What it computes.  Thread b scans window b of `width` classes: a warm-up
-// from the root (state 0) over the `halo` left-context classes, then the
-// body, C = width - halo positions (the automaton is halo-synchronizing, so
-// the body sees the sequential automaton's states).  The hotstate plane runs
-// K lanes per window instead, each warmed over the halo classes before its
-// segment, as packed_scan.cu's planes kernel does.
+// What it computes.  A window of `width` classes is `halo` left-context
+// classes and C = width - halo body classes.  The count-packed count, the
+// hotstate plane and the split planes run K lanes per window, as
+// packed_scan.cu's kernels do: segment k covers body positions [k*L,
+// min((k+1)*L, C)) and is warmed from the root (state 0) over the `halo`
+// classes just before it, which is exact because the automaton is
+// halo-synchronizing (the wrapper fixes K and L, kernels/scan_block.py
+// segments, each kernel under its own cap on lanes; the plain twins take the
+// same decomposition).  The split count runs one lane per window.
 // - Count-packed table, flat uint32[S*A]: entry s*A + c is
 //   next | emit_count(next) << state_bits.  packedcount_count sums
 //   emit_count (the number of keywords ending there, not a popcount) over
@@ -31,30 +34,49 @@
 // address depends on the previous load (s -> s*A + c), plus P emit loads on
 // the split path.  These tables are large by construction: the 1M-keyword
 // dictionary's count-packed table is 4,356,756 states x 27 classes x 4 B,
-// about 470 MB, far beyond the 50 MB L2.  Only the sectors of the states a
-// text keeps visiting can stay in L2; every other step of a lane is a
-// dependent load that waits on device memory.  At 32 Mi units in 512-class
-// windows there are 65,536 windows, and one lane per window fills about a
-// quarter of the 132 SMs x 2,048 resident threads: the scans are
-// latency-bound.  The state lives in a register, the tables are read through
-// the read-only path (__ldg), the flat index is 64-bit (S*A of the 1M
-// dictionary is about 118 M entries, and the split tables may be larger),
-// counts accumulate in 64-bit registers and are reduced in-warp and in-block
-// with one 64-bit atomic per block, and each output word is written once.
-// The hotstate plane is packed_scan.cu's planes lane (tile.cuh planes_lane)
-// with the whole entry as its value: its first form, one lane per window
-// storing 4 bytes a step at its own row of the output (the 32 lanes of a
-// warp 2 KiB apart, a sector opened per store) and loading a class a step,
-// took 0.855 ms at the 1M cell, the count-packed count over the same
-// windows without stores about 0.45 ms.  Through the 16-byte store tile it
-// took 0.536 ms and with word loads of the classes 0.427 ms; K = 2 lanes
-// per window tied with K = 1 there, won at 32,768 windows, and K = 4 at
-// 8,192, so the wrapper keeps the lanes within 65,536, the planes kernel's
-// cap (python -m ahocorasick_tpu_torch.bench.scan_variants, NVIDIA H100
-// 80GB HBM3, 700 W).
-// Left for later work: the count-packed count and the split scans still run
-// one lane per window with a class load a step, and the split planes store
-// 4 bytes a lane at the row stride; a staged cache of the hot states.
+// about 470 MB (its split tables the same plus 17 MB of emit planes), far
+// beyond the 50 MB L2.  Only the sectors of the states a text keeps
+// visiting can stay in L2; every other step of a lane is a dependent load
+// that waits on device memory.  The byte bound (windows in; a count, or 4 B
+// per body position and plane out) at the main path's 65,536 windows of
+// 12 + 512 classes is 0.010 ms for the counts and 0.050 ms a plane: the
+// kernels are latency chains, about 800 ns a step with one lane a window.
+// The state lives in a register, the tables are read through the read-only
+// path (__ldg), the flat index is 64-bit (S*A of the 1M dictionary is about
+// 118 M entries, and the split tables may be larger), counts accumulate in
+// 64-bit registers and are reduced in-warp and in-block with one 64-bit
+// atomic per block, and each output word is written once.  What the design
+// does about the chains (tile.cuh):
+//   * No class load in the chain.  The count-packed count is the count lane
+//     (tile.cuh count_lane, packed_scan.cu's count with the emit count as
+//     its value): a lane reads its classes a 32-bit word at a time into a
+//     32-step register tile.  The planes kernels read a 16-step tile the
+//     same way.  Its first form, one lane per window loading a byte a step,
+//     took 0.452 ms at the 1M cell; the hotstate plane, the same walk with
+//     word loads and stores besides, 0.427 ms.
+//   * Coalesced stores through shared memory.  The hotstate plane and the
+//     split planes are the planes lane (tile.cuh planes_lane): each lane
+//     writes a 16-step tile of values into its own shared-memory row, and
+//     the warp stores each lane's run as whole sectors.  Their first forms
+//     stored 4 bytes a lane a step at the lane's own row of the output (the
+//     32 lanes of a warp 2 KiB apart, a sector opened per store): the
+//     hotstate plane took 0.855 ms that way and 0.427 ms through the tile;
+//     the split planes 1.156 ms.
+//   * The split planes' emit loads out of the chain.  A lane keeps its
+//     tile's 16 states in registers and loads their planes after the
+//     tile's lookups, 16 independent loads at a time, so no lookup waits on
+//     an emit load.  A block holds the tiles of up to 13 planes (17,408 B
+//     each at 256 threads; 227 KB of dynamic shared memory); deeper
+//     dictionaries run further groups of 13 planes as more blocks, each
+//     rescanning its segment.
+//   * K lanes per window where windows are few, so each chain is shorter.
+//     At 65,536 windows one lane per window fills about a quarter of the
+//     132 SMs x 2,048 resident threads; the caps on lanes are the A/B's
+//     (python -m ahocorasick_tpu_torch.bench.scan_variants, beside the caps
+//     in kernels/scan_batched.py).
+// Left for later work: the split count still runs one lane per window with
+// a class load a step (the count lane with the value sum over p of
+// popcount(emit_tab[s*P + p]) applies); a staged cache of the hot states.
 
 #include <cstdint>
 
@@ -65,34 +87,42 @@
 namespace {
 
 constexpr int kThreads = 256;
+// The split planes' tiles of one plane, and the planes a block holds: the
+// card's 227 KB (232,448 B) of shared memory a block over one plane's
+// 256 x 17 words.
+constexpr int kPlaneTileBytes = kThreads * tile::kPitch * 4;
+constexpr int kMaxGroupPlanes = 232448 / kPlaneTileBytes;  // 13
+constexpr int kStaticSharedBytes = 48 * 1024;  // beyond it, opt in per kernel
 
 using tile::lookup;
 using tile::warm_up;
+
+// The number of keywords that end at an entry, the count-packed count's
+// value.  It may take all 32 - state_bits bits, so the lane adds it in 64.
+struct EmitCount {
+  int state_bits;
+  __device__ __forceinline__ unsigned long long operator()(uint32_t v) const {
+    return v >> state_bits;
+  }
+};
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     packedcount_count_kernel(const uint32_t* __restrict__ table,
                              const T* __restrict__ windows, int64_t num_windows,
                              int width, int halo, uint32_t num_classes,
-                             int state_bits, unsigned long long* __restrict__ out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  unsigned long long total = 0;
-  if (b < num_windows) {
-    const T* row = windows + b * width;
-    const uint32_t smask = (1u << state_bits) - 1u;
-    uint32_t s = warm_up(table, row, halo, num_classes, smask);
-    for (int t = halo; t < width; ++t) {
-      const uint32_t v = lookup(table, s, row[t], num_classes);
-      total += v >> state_bits;
-      s = v & smask;
-    }
-  }
-  tile::block_add<kThreads>(total, out);  // lanes past num_windows add 0
+                             int state_bits, int segments, int seg_len,
+                             unsigned long long* __restrict__ out) {
+  const unsigned long long total = tile::count_lane<unsigned long long>(
+      table, windows, num_windows, width, halo, num_classes, (1u << state_bits) - 1u, segments,
+      seg_len, EmitCount{state_bits});
+  tile::block_add<kThreads>(total, out);  // lanes past the last window add 0
 }
 
 // The whole entry where a keyword ends, else 0: the hotstate plane's value
 // per body position.
 struct HotEntry {
+  static constexpr bool kGather = false;
   int state_bits;
   __device__ __forceinline__ uint32_t operator()(uint32_t v) const {
     return (v >> state_bits) != 0u ? v : 0u;
@@ -133,37 +163,49 @@ __global__ void __launch_bounds__(kThreads)
   tile::block_add<kThreads>(total, out);
 }
 
+// Planes first .. first + count - 1 of a state's emit_tab row, the split
+// planes' values (loads, so the lane gathers them after a tile's lookups).
+struct EmitPlanes {
+  static constexpr bool kGather = true;
+  const uint32_t* emit;
+  int num_planes, first, count;
+  __device__ __forceinline__ int planes() const { return count; }
+  __device__ __forceinline__ uint32_t operator()(uint32_t s, int p) const {
+    return __ldg(emit + static_cast<uint64_t>(s) * num_planes + first + p);
+  }
+};
+
+// Block (x, y) scans lanes x*kThreads.. for planes y*group .. y*group +
+// group - 1 (fewer in the last group); its dynamic shared memory holds
+// `group` plane tiles.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     split_planes_kernel(const uint32_t* __restrict__ dfa,
                         const uint32_t* __restrict__ emit,
                         const T* __restrict__ windows, int64_t num_windows,
                         int width, int halo, uint32_t num_classes, int num_planes,
+                        int group, int segments, int seg_len, bool vec,
                         uint32_t* __restrict__ out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (b >= num_windows) return;
-  const T* row = windows + b * width;
-  const int64_t body = width - halo;
-  const int64_t plane_stride = num_windows * body;  // B*C
-  uint32_t s = warm_up(dfa, row, halo, num_classes, 0xffffffffu);
-  uint32_t* dst = out + b * body;
-  for (int t = halo; t < width; ++t) {
-    s = lookup(dfa, s, row[t], num_classes);
-    const uint32_t* e = emit + static_cast<uint64_t>(s) * num_planes;
-    for (int p = 0; p < num_planes; ++p) dst[p * plane_stride + (t - halo)] = __ldg(e + p);
-  }
+  extern __shared__ uint32_t tiles[];
+  const int first = static_cast<int>(blockIdx.y) * group;
+  const int64_t plane_stride = num_windows * (width - halo);
+  tile::planes_lane<tile::ClassWords<T>>(
+      dfa, windows, num_windows, width, halo, num_classes, 0xffffffffu, segments, seg_len, vec,
+      tiles, out + first * plane_stride,
+      EmitPlanes{emit, num_planes, first, min(group, num_planes - first)});
 }
 
-unsigned grid_for(int64_t num_windows) {
-  return static_cast<unsigned>((num_windows + kThreads - 1) / kThreads);
+unsigned grid_for(int64_t lanes) {
+  return static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
 }
 
 // Every entry point returns cudaGetLastError() after the launch (0 = the
-// launch was accepted).  The caller validates shapes and types; window_bytes
-// selects the uint8 or uint16 window instantiation.  `out` is one zeroed
-// uint64 for a count, uint32[num_windows * (width - halo)] for the hotstate
-// plane and uint32[num_planes * num_windows * (width - halo)] for the split
-// planes.
+// launch was accepted), or the error of a refused shared-memory opt-in.  The
+// caller validates shapes and types; window_bytes selects the uint8 or
+// uint16 window instantiation.  `segments` lanes per window, `seg_len` body
+// positions each (tile::valid_segments).  `out` is one zeroed uint64 for a
+// count, uint32[num_windows * (width - halo)] for the hotstate plane and
+// uint32[num_planes * num_windows * (width - halo)] for the split planes.
 
 template <typename T>
 void launch_packedcount(bool count, const void* table, const void* windows,
@@ -173,35 +215,36 @@ void launch_packedcount(bool count, const void* table, const void* windows,
   const auto* tab = static_cast<const uint32_t*>(table);
   const auto* win = static_cast<const T*>(windows);
   const auto a = static_cast<uint32_t>(num_classes);
+  const unsigned grid = grid_for(num_windows * segments);
   if (count) {
-    packedcount_count_kernel<T><<<grid_for(num_windows), kThreads, 0, st>>>(
-        tab, win, num_windows, width, halo, a, state_bits,
+    packedcount_count_kernel<T><<<grid, kThreads, 0, st>>>(
+        tab, win, num_windows, width, halo, a, state_bits, segments, seg_len,
         static_cast<unsigned long long*>(out));
   } else {
     auto* plane = static_cast<uint32_t*>(out);
-    packedcount_hotstate_kernel<T><<<grid_for(num_windows * segments), kThreads, 0, st>>>(
+    packedcount_hotstate_kernel<T><<<grid, kThreads, 0, st>>>(
         tab, win, num_windows, width, halo, a, state_bits, segments, seg_len,
         tile::vec_runs(width - halo, seg_len, plane), plane);
   }
 }
 
 template <typename T>
-void launch_split(bool count, const void* dfa_flat, const void* emit_tab,
-                  const void* windows, int64_t num_windows, int width, int halo,
-                  int num_classes, int num_planes, void* out, cudaStream_t st) {
-  const auto* dfa = static_cast<const uint32_t*>(dfa_flat);
-  const auto* emit = static_cast<const uint32_t*>(emit_tab);
-  const auto* win = static_cast<const T*>(windows);
-  const auto a = static_cast<uint32_t>(num_classes);
-  if (count) {
-    split_count_kernel<T><<<grid_for(num_windows), kThreads, 0, st>>>(
-        dfa, emit, win, num_windows, width, halo, a, num_planes,
-        static_cast<unsigned long long*>(out));
-  } else {
-    split_planes_kernel<T><<<grid_for(num_windows), kThreads, 0, st>>>(
-        dfa, emit, win, num_windows, width, halo, a, num_planes,
-        static_cast<uint32_t*>(out));
+cudaError_t launch_split_planes(const uint32_t* dfa, const uint32_t* emit, const void* windows,
+                                int64_t num_windows, int width, int halo, uint32_t a,
+                                int num_planes, int segments, int seg_len, uint32_t* out,
+                                cudaStream_t st) {
+  const int group = min(num_planes, kMaxGroupPlanes);
+  const int groups = (num_planes + group - 1) / group;
+  const int smem = group * kPlaneTileBytes;
+  if (smem > kStaticSharedBytes) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        split_planes_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return err;
   }
+  split_planes_kernel<T><<<dim3(grid_for(num_windows * segments), groups), kThreads, smem, st>>>(
+      dfa, emit, static_cast<const T*>(windows), num_windows, width, halo, a, num_planes, group,
+      segments, seg_len, tile::vec_runs(width - halo, seg_len, out), out);
+  return cudaSuccess;
 }
 
 int packedcount_entry(bool count, const void* table, const void* windows,
@@ -225,38 +268,16 @@ int packedcount_entry(bool count, const void* table, const void* windows,
   return static_cast<int>(cudaGetLastError());
 }
 
-int split_entry(bool count, const void* dfa_flat, const void* emit_tab,
-                const void* windows, int window_bytes, int64_t num_windows,
-                int width, int halo, int num_classes, int num_planes, void* out,
-                int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (window_bytes == 1) {
-    launch_split<uint8_t>(count, dfa_flat, emit_tab, windows, num_windows, width,
-                          halo, num_classes, num_planes, out, st);
-  } else if (window_bytes == 2) {
-    launch_split<uint16_t>(count, dfa_flat, emit_tab, windows, num_windows, width,
-                           halo, num_classes, num_planes, out, st);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
 extern "C" int packedcount_count(const void* table, const void* windows,
                                  int window_bytes, int64_t num_windows, int width,
-                                 int halo, int num_classes, int state_bits,
-                                 void* out, int device, void* stream) {
-  const int body = width - halo;
-  return packedcount_entry(true, table, windows, window_bytes, num_windows, width,
-                           halo, num_classes, state_bits, 1, body, out, device, stream);
+                                 int halo, int num_classes, int state_bits, int segments,
+                                 int seg_len, void* out, int device, void* stream) {
+  return packedcount_entry(true, table, windows, window_bytes, num_windows, width, halo,
+                           num_classes, state_bits, segments, seg_len, out, device, stream);
 }
 
-// `segments` lanes per window, `seg_len` body positions each
-// (tile::valid_segments).
 extern "C" int packedcount_hotstate_plane(const void* table, const void* windows,
                                           int window_bytes, int64_t num_windows,
                                           int width, int halo, int num_classes,
@@ -272,15 +293,51 @@ extern "C" int split_count(const void* dfa_flat, const void* emit_tab,
                            int64_t num_windows, int width, int halo,
                            int num_classes, int num_planes, void* out, int device,
                            void* stream) {
-  return split_entry(true, dfa_flat, emit_tab, windows, window_bytes, num_windows,
-                     width, halo, num_classes, num_planes, out, device, stream);
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const auto* dfa = static_cast<const uint32_t*>(dfa_flat);
+  const auto* emit = static_cast<const uint32_t*>(emit_tab);
+  const auto a = static_cast<uint32_t>(num_classes);
+  auto* total = static_cast<unsigned long long*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(num_windows);
+  if (window_bytes == 1) {
+    split_count_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
+        dfa, emit, static_cast<const uint8_t*>(windows), num_windows, width, halo, a,
+        num_planes, total);
+  } else if (window_bytes == 2) {
+    split_count_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
+        dfa, emit, static_cast<const uint16_t*>(windows), num_windows, width, halo, a,
+        num_planes, total);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 extern "C" int split_emit_planes(const void* dfa_flat, const void* emit_tab,
                                  const void* windows, int window_bytes,
                                  int64_t num_windows, int width, int halo,
-                                 int num_classes, int num_planes, void* out,
-                                 int device, void* stream) {
-  return split_entry(false, dfa_flat, emit_tab, windows, window_bytes, num_windows,
-                     width, halo, num_classes, num_planes, out, device, stream);
+                                 int num_classes, int num_planes, int segments, int seg_len,
+                                 void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_planes < 1 || !tile::valid_segments(segments, seg_len, width - halo, halo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* dfa = static_cast<const uint32_t*>(dfa_flat);
+  const auto* emit = static_cast<const uint32_t*>(emit_tab);
+  const auto a = static_cast<uint32_t>(num_classes);
+  auto* planes = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (window_bytes == 1) {
+    err = launch_split_planes<uint8_t>(dfa, emit, windows, num_windows, width, halo, a,
+                                       num_planes, segments, seg_len, planes, st);
+  } else if (window_bytes == 2) {
+    err = launch_split_planes<uint16_t>(dfa, emit, windows, num_windows, width, halo, a,
+                                        num_planes, segments, seg_len, planes, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaGetLastError());
 }

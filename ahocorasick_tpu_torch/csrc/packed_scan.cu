@@ -71,13 +71,15 @@
 //     faster: bench/planes_stores.cu keeps it.)
 // The state lives in a register, the table is read through the read-only
 // path (__ldg), the flat index is 64-bit, and the count reduces in-warp and
-// in-block with one 64-bit atomic per block.  The lane loop of the planes
-// kernel, the word loads and the store tile live in tile.cuh, which
-// huge_scan.cu's hotstate plane and wwl_scan.cu's plane kernel share.  Left
-// for later work: the sibling planes kernels that still store 4 bytes per
-// lane at the row stride and load a class a step (huge_scan.cu's split
-// planes, rowdfa2_scan.cu's stride-2 planes, table_sharded.cu's row-sharded
-// planes); small tables are not staged in shared memory.
+// in-block with one 64-bit atomic per block.  The lane loops of both kernels
+// (tile.cuh count_lane and planes_lane), the word loads and the store tile
+// live in tile.cuh: huge_scan.cu's count-packed count runs the count lane,
+// its hotstate plane and split emit planes the planes lane, and wwl_scan.cu's
+// plane kernel the word loads and the store tile.  Left for later work: the
+// sibling planes kernels that still store 4 bytes per lane at the row stride
+// and load a class a step (rowdfa2_scan.cu's stride-2 planes,
+// table_sharded.cu's row-sharded planes); small tables are not staged in
+// shared memory.
 
 #include <cstdint>
 
@@ -88,12 +90,20 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kCountSteps = 32;  // the count's register tile of classes
 
 // The emit mask of an entry, the planes kernel's value per body position.
 struct EmitMask {
+  static constexpr bool kGather = false;
   int state_bits;
   __device__ __forceinline__ uint32_t operator()(uint32_t v) const { return v >> state_bits; }
+};
+
+// The number of keywords that end at an entry, the count's value.
+struct EmitPopcount {
+  int state_bits;
+  __device__ __forceinline__ uint32_t operator()(uint32_t v) const {
+    return __popc(v >> state_bits);
+  }
 };
 
 template <typename T>
@@ -102,27 +112,10 @@ __global__ void __launch_bounds__(kThreads)
                  int64_t num_windows, int width, int halo, uint32_t num_classes,
                  int state_bits, int segments, int seg_len,
                  unsigned long long* __restrict__ out) {
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const tile::Segment sg = tile::segment_of(g, num_windows, width, halo, segments, seg_len);
-  const uint32_t smask = (1u << state_bits) - 1u;
-  const T* seg = windows + sg.b * width + sg.start;
-  uint32_t s = sg.len > 0 ? tile::warm_up(table, seg, halo, num_classes, smask) : 0u;
-  seg += halo;
-  uint32_t pop = 0;
-  // No stores and no shuffles in the loop: each lane runs its own length.
-  for (int t0 = 0; t0 < sg.len; t0 += kCountSteps) {
-    const int n = min(kCountSteps, sg.len - t0);
-    tile::ClassWords<T, kCountSteps> cls;
-    cls.load(seg + t0, n);
-#pragma unroll
-    for (int t = 0; t < kCountSteps; ++t) {
-      if (t < n) {
-        const uint32_t v = tile::lookup(table, s, cls.at(t), num_classes);
-        pop += __popc(v >> state_bits);
-        s = v & smask;
-      }
-    }
-  }
+  // A tile's sum is at most 32 x 32 popcounts: 32 bits hold it.
+  const unsigned long long pop = tile::count_lane<uint32_t>(
+      table, windows, num_windows, width, halo, num_classes, (1u << state_bits) - 1u, segments,
+      seg_len, EmitPopcount{state_bits});
   tile::block_add<kThreads>(pop, out);  // lanes past the last window add 0
 }
 

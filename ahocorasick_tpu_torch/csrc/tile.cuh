@@ -3,8 +3,10 @@
 // the table lookup and the warm-up from the root, a block's sum of its
 // lanes' counts, the segment of a window a lane scans, a lane's classes read
 // a 32-bit word at a time, a warp's 16-step store tile in shared memory that
-// leaves as whole sectors, and the lane loop of the planes kernels built
-// from them.
+// leaves as whole sectors, and the two lane loops built from them: the count
+// lane (packed_scan.cu's count and huge_scan.cu's count-packed count) and the
+// planes lane (packed_scan.cu's planes, huge_scan.cu's hotstate plane and
+// split emit planes).
 
 #pragma once
 
@@ -18,6 +20,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kTileSteps = 16;           // body steps per store tile
 constexpr int kPitch = kTileSteps + 1;   // words per lane row: 17, an odd bank stride
 constexpr int kChunks = kTileSteps / 4;  // 16-byte chunks per run
+constexpr int kCountSteps = 32;          // a count lane's register tile of classes
 
 template <typename T>
 __device__ __forceinline__ uint32_t lookup(const uint32_t* __restrict__ table, uint32_t s, T c,
@@ -112,6 +115,41 @@ struct ClassWords {
   }
 };
 
+// One lane of a count kernel: lane g (the thread's global index) scans its
+// segment (segment_of) and returns the sum of value(v) over the entries v it
+// reads at its body positions; smask is all ones where the table holds bare
+// states.  No stores and no shuffles in the loop, so each lane runs its own
+// length.  A 32-step tile's values add up in Sum, the lane's total in 64
+// bits: Sum may be 32 bits where 32 values cannot overflow it.
+template <typename Sum, typename T, typename Value>
+__device__ __forceinline__ unsigned long long count_lane(
+    const uint32_t* __restrict__ table, const T* __restrict__ windows, int64_t num_windows,
+    int width, int halo, uint32_t num_classes, uint32_t smask, int segments, int seg_len,
+    Value value) {
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  const Segment sg = segment_of(g, num_windows, width, halo, segments, seg_len);
+  const T* seg = windows + sg.b * width + sg.start;
+  uint32_t s = sg.len > 0 ? warm_up(table, seg, halo, num_classes, smask) : 0u;
+  seg += halo;
+  unsigned long long total = 0;
+  for (int t0 = 0; t0 < sg.len; t0 += kCountSteps) {
+    const int n = min(kCountSteps, sg.len - t0);
+    ClassWords<T, kCountSteps> cls;
+    cls.load(seg + t0, n);
+    Sum sum = 0;
+#pragma unroll
+    for (int t = 0; t < kCountSteps; ++t) {
+      if (t < n) {
+        const uint32_t v = lookup(table, s, cls.at(t), num_classes);
+        sum += value(v);
+        s = v & smask;
+      }
+    }
+    total += sum;
+  }
+  return total;
+}
+
 // The warp's tile holds lane r's `count` words in tile[r*kPitch ...]; they go
 // to out[start_r ...].  Lanes pass their start and count by shuffle.  With
 // `vec`, 16-byte stores (kChunks lanes per run, so every sector is full; the
@@ -143,13 +181,22 @@ __device__ __forceinline__ void store_tile(const uint32_t* __restrict__ tile, in
   }
 }
 
-// One lane of a planes kernel over a table whose entries are
-// next | payload << state_bits: lane g (the thread's global index) scans its
-// segment (segment_of) and writes value(v) of the entry v read at body
-// position j of window b to out[b*C + j], flat text order, through the
-// warp's store tile.  `tiles` is the block's blockDim.x * kPitch shared
-// words.  Every lane of the warp must call it (the stores are warp-wide).
-// Classes is ClassWords<T> or a type with the same load() and at().
+// One lane of a planes kernel: lane g (the thread's global index) scans its
+// segment (segment_of) and writes, for the entry v read at body position j of
+// window b, plane p's value to out[p*B*C + b*C + j] (B*C = num_windows *
+// (width - halo); flat text order within a plane) through the warp's store
+// tile of that plane.  `tiles` is the block's planes * blockDim.x * kPitch
+// shared words, plane-major.  Every lane of the warp must call it (the stores
+// are warp-wide).  Classes is ClassWords<T> or a type with the same load()
+// and at().  The value takes one of two forms:
+//   * Value::kGather false: one plane, value(v), computed from the entry as
+//     it is read (smask keeps the next state of v);
+//   * Value::kGather true: value.planes() planes, value(s, p) of the state s
+//     = v & smask.  These are loads (the split layout's emit table): the
+//     lane keeps its tile's states in registers and loads them after the
+//     tile's lookups, all at once, so that no such load sits in the chain.
+// Where out is 16-byte aligned and B*C a multiple of 4 (vec_runs), every
+// plane's base is too.
 template <typename Classes, typename T, typename Value>
 __device__ __forceinline__ void planes_lane(const uint32_t* __restrict__ table,
                                             const T* __restrict__ windows,
@@ -172,16 +219,35 @@ __device__ __forceinline__ void planes_lane(const uint32_t* __restrict__ table,
     const int n = min(kTileSteps, sg.len - t0);  // <= 0 once this lane is done
     Classes cls;
     cls.load(seg + t0, n);
+    if constexpr (!Value::kGather) {
 #pragma unroll
-    for (int t = 0; t < kTileSteps; ++t) {
-      if (t < n) {
-        const uint32_t v = lookup(table, s, cls.at(t), num_classes);
-        row[t] = value(v);
-        s = v & smask;
+      for (int t = 0; t < kTileSteps; ++t) {
+        if (t < n) {
+          const uint32_t v = lookup(table, s, cls.at(t), num_classes);
+          row[t] = value(v);
+          s = v & smask;
+        }
       }
+      __syncwarp();
+      store_tile(warp_tile, lane, dst + t0, n, vec, out);
+    } else {
+      uint32_t state[kTileSteps];  // state 0 past the lane's steps: a valid load
+#pragma unroll
+      for (int t = 0; t < kTileSteps; ++t) {
+        if (t < n) s = lookup(table, s, cls.at(t), num_classes) & smask;
+        state[t] = t < n ? s : 0u;
+      }
+      const int planes = value.planes();
+      const int plane_words = blockDim.x * kPitch;
+      const long long plane_stride = num_windows * (width - halo);
+      for (int p = 0; p < planes; ++p) {
+#pragma unroll
+        for (int t = 0; t < kTileSteps; ++t) row[p * plane_words + t] = value(state[t], p);
+      }
+      __syncwarp();
+      for (int p = 0; p < planes; ++p)
+        store_tile(warp_tile + p * plane_words, lane, dst + p * plane_stride + t0, n, vec, out);
     }
-    __syncwarp();
-    store_tile(warp_tile, lane, dst + t0, n, vec, out);
     __syncwarp();  // the rows are rewritten by the next tile
   }
 }

@@ -86,15 +86,17 @@ _SCAN_ARGS = [_P, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P]
 _SPLIT_ARGS = [_P, *_SCAN_ARGS]
 # _SCAN_ARGS with (segments, seg_len) before out
 _SEGMENTED_ARGS = [*_SCAN_ARGS[:8], _I, _I, *_SCAN_ARGS[8:]]
+# _SPLIT_ARGS with (segments, seg_len) before out
+_SPLIT_SEGMENTED_ARGS = [_P, *_SEGMENTED_ARGS]
 ARGTYPES = {
     "packed_scan_count": _SEGMENTED_ARGS,
     "packed_scan_planes": _SEGMENTED_ARGS,
-    "packedcount_count": _SCAN_ARGS,
+    "packedcount_count": _SEGMENTED_ARGS,
     "packedcount_hotstate_plane": _SEGMENTED_ARGS,
     "rowdfa2_count": _SCAN_ARGS,
     "rowdfa2_planes": _SCAN_ARGS,
     "split_count": _SPLIT_ARGS,
-    "split_emit_planes": _SPLIT_ARGS,
+    "split_emit_planes": _SPLIT_SEGMENTED_ARGS,
     "compact_tile": [],
     # (bits, planes, n, cap, desc, idx, masks, device, stream)
     "compact_planes": [_P, _I, _I64, _I64, _P, _P, _P, _I, _P],

@@ -40,8 +40,7 @@ import torch
 
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
-from ahocorasick_tpu_torch.kernels.scan_batched import _to_uint32
-from ahocorasick_tpu_torch.kernels.scan_block import _widen
+from ahocorasick_tpu_torch.kernels.scan_block import _to_uint32, _widen
 
 OPS = ("add", "add_r", "load", "load_mod")
 PLACEMENTS = ("shfl", "shared", "global")

@@ -3,7 +3,8 @@ twins.
 
 Four entry points (``csrc/huge_scan.cu``), each named after the JAX device
 loop of ``ahocorasick_tpu/ops/scan_batched.py`` it replaces and taking its
-arguments in the same order:
+arguments in the same order (all but ``split_count`` run K lanes per window,
+``scan_block.segments`` under a cap of their own below):
 
 * ``packedcount_count(table_flat, windows, halo, state_bits, num_classes)``
   — the sum over every body position of the emit count ``v >> state_bits``
@@ -34,13 +35,14 @@ import torch
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
 from ahocorasick_tpu_torch.kernels.scan_block import (
+    COUNT_MAX_LANES,
     MAX_LANES,
     _WINDOW_BYTES,
     _check_windows,
     _lane_scan_plain,
     _popcount32,
+    _segmented_count_plain,
     _segmented_planes_plain,
-    _to_uint32,
     _widen,
     segments,
 )
@@ -75,6 +77,18 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+# The count-packed count's cap on lanes (``scan_block.segments``): the count
+# lane's, as for the packed count.  On the 1M dictionary's 470 MB count-packed
+# table, K = 1, 2, 4 lanes per window ran 0.374 / 0.370, 0.369 / 0.365,
+# 0.414 / 0.405 ms at 65,536 windows of 512 body classes (two runs: K = 2
+# ahead by about 1.5% in both), 0.247 / 0.246, 0.193 / 0.191, 0.203 / 0.192
+# ms at 32,768 and 0.246 / 0.244, 0.126 / 0.125, 0.069 / 0.069 ms at 8,192;
+# one lane per window with byte loads, the kernel's first form, 0.403 /
+# 0.400 ms at 65,536 (NVIDIA H100 80GB HBM3, 700 W; python -m
+# ahocorasick_tpu_torch.bench.scan_variants).
+PACKEDCOUNT_MAX_LANES = COUNT_MAX_LANES
+
+
 def packedcount_count(table_flat: torch.Tensor, windows: torch.Tensor, halo: int,
                       state_bits: int, num_classes: int) -> torch.Tensor:
     """Total emit count over the body positions, as an int64 scalar tensor
@@ -86,7 +100,8 @@ def packedcount_count(table_flat: torch.Tensor, windows: torch.Tensor, halo: int
     out = torch.zeros(1, dtype=torch.int64, device=dev)
     build.call("packedcount_count", table_flat.data_ptr(), windows.data_ptr(),
                _WINDOW_BYTES[windows.dtype], B, W, halo, num_classes, state_bits,
-               out.data_ptr(), dev.index, _stream(dev))
+               *segments(B, W - halo, halo, PACKEDCOUNT_MAX_LANES), out.data_ptr(), dev.index,
+               _stream(dev))
     launches["packedcount_count"] += 1
     return out[0]
 
@@ -135,6 +150,17 @@ def split_count(dfa_flat: torch.Tensor, emit_tab: torch.Tensor, windows: torch.T
     return out[0]
 
 
+# The split planes' cap on lanes (``scan_block.segments``): the planes
+# kernel's.  On the 1M dictionary's split tables (P = 1), K = 1, 2, 4 lanes
+# per window ran 0.556 / 0.548, 0.618 / 0.611, 0.663 / 0.661 ms at 65,536
+# windows of 512 body classes (two runs), 0.361 / 0.359, 0.299 / 0.293, 0.336
+# / 0.331 ms at 32,768 and 0.341 / 0.338, 0.182 / 0.181, 0.104 / 0.104 ms at
+# 8,192; the kernel's first form (one lane per window, byte loads, the emit
+# load in the chain, 4-byte row stores) 1.150 / 1.086 ms at 65,536 (NVIDIA
+# H100 80GB HBM3, 700 W; python -m ahocorasick_tpu_torch.bench.scan_variants).
+SPLIT_PLANES_MAX_LANES = MAX_LANES
+
+
 def split_emit_planes(dfa_flat: torch.Tensor, emit_tab: torch.Tensor, windows: torch.Tensor,
                       halo: int, num_classes: int, num_planes: int) -> torch.Tensor:
     """END-indexed emit planes ``uint32[P, B*C]``, plane-major."""
@@ -146,7 +172,8 @@ def split_emit_planes(dfa_flat: torch.Tensor, emit_tab: torch.Tensor, windows: t
     out = torch.empty((num_planes, B * (W - halo)), dtype=torch.uint32, device=dev)
     build.call("split_emit_planes", dfa_flat.data_ptr(), emit_tab.data_ptr(),
                windows.data_ptr(), _WINDOW_BYTES[windows.dtype], B, W, halo, num_classes,
-               num_planes, out.data_ptr(), dev.index, _stream(dev))
+               num_planes, *segments(B, W - halo, halo, SPLIT_PLANES_MAX_LANES),
+               out.data_ptr(), dev.index, _stream(dev))
     launches["split_emit_planes"] += 1
     return out
 
@@ -159,13 +186,12 @@ def split_emit_planes(dfa_flat: torch.Tensor, emit_tab: torch.Tensor, windows: t
 
 
 def packedcount_count_plain(table_flat, windows, halo, state_bits, num_classes) -> torch.Tensor:
-    total = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
-
-    def emit(_j, v):
-        total.add_(v >> state_bits)
-
-    _lane_scan_plain(table_flat, windows, halo, num_classes, (1 << state_bits) - 1, emit)
-    return total.sum()
+    """The kernel's lane decomposition (``segments`` under
+    ``PACKEDCOUNT_MAX_LANES``)."""
+    B, W = windows.shape
+    K, L = segments(B, W - halo, halo, PACKEDCOUNT_MAX_LANES)
+    return _segmented_count_plain(table_flat, windows, halo, num_classes,
+                                  (1 << state_bits) - 1, K, L, lambda v: v >> state_bits)
 
 
 def packedcount_hotstate_plane_plain(table_flat, windows, halo, state_bits,
@@ -179,35 +205,26 @@ def packedcount_hotstate_plane_plain(table_flat, windows, halo, state_bits,
                                    lambda v: torch.where((v >> state_bits) != 0, v, 0))
 
 
-def _split_plain(dfa_flat, emit_tab, windows, halo, num_classes, num_planes, emit):
-    et = _widen(emit_tab.reshape(-1))
-
-    def step(j, s):
-        emit(j, [et[s * num_planes + p] for p in range(num_planes)])
-
-    _lane_scan_plain(dfa_flat, windows, halo, num_classes, 0xFFFFFFFF, step)
-
-
 def split_count_plain(dfa_flat, emit_tab, windows, halo, num_classes,
                       num_planes) -> torch.Tensor:
+    et = _widen(emit_tab.reshape(-1))
     total = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
 
-    def emit(_j, planes):
-        for e in planes:
-            total.add_(_popcount32(e))
+    def emit(_j, s):
+        for p in range(num_planes):
+            total.add_(_popcount32(et[s * num_planes + p]))
 
-    _split_plain(dfa_flat, emit_tab, windows, halo, num_classes, num_planes, emit)
+    _lane_scan_plain(dfa_flat, windows, halo, num_classes, 0xFFFFFFFF, emit)
     return total.sum()
 
 
 def split_emit_planes_plain(dfa_flat, emit_tab, windows, halo, num_classes,
                             num_planes) -> torch.Tensor:
+    """The kernel's lane decomposition (``segments`` under
+    ``SPLIT_PLANES_MAX_LANES``)."""
     B, W = windows.shape
-    out = torch.empty((num_planes, B, W - halo), dtype=torch.int64, device=windows.device)
-
-    def emit(j, planes):
-        for p, e in enumerate(planes):
-            out[p, :, j] = e
-
-    _split_plain(dfa_flat, emit_tab, windows, halo, num_classes, num_planes, emit)
-    return _to_uint32(out.reshape(num_planes, -1))
+    K, L = segments(B, W - halo, halo, SPLIT_PLANES_MAX_LANES)
+    et = _widen(emit_tab.reshape(-1))
+    p = torch.arange(num_planes, device=windows.device)[:, None]
+    return _segmented_planes_plain(dfa_flat, windows, halo, num_classes, 0xFFFFFFFF, K, L,
+                                   lambda s: et[s[None, :] * num_planes + p], num_planes)

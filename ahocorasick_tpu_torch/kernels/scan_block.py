@@ -169,11 +169,6 @@ def _lane_scan_plain(table_flat, windows, halo, num_classes, smask, emit):
         s = v & smask
 
 
-def _scan_plain(table, windows, halo, state_bits, emit):
-    _lane_scan_plain(table.reshape(-1), windows, halo, table.shape[1], (1 << state_bits) - 1,
-                     lambda j, v: emit(j, v >> state_bits))
-
-
 def _to_uint32(x: torch.Tensor) -> torch.Tensor:
     """int64 holding values in [0, 2**32) -> uint32, the same bits."""
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).view(torch.uint32)
@@ -193,38 +188,52 @@ def _segment_lanes(windows: torch.Tensor, halo: int, K: int, L: int) -> torch.Te
     return lanes.view(windows.dtype) if windows.dtype == torch.uint16 else lanes
 
 
-def _segmented_planes_plain(table_flat, windows, halo, num_classes, smask, K, L, value):
-    """``uint32[1, B*C]`` holding ``value(v)`` (int64 in [0, 2**32)) of the
-    entry read at every body position, scanned in a segmented kernel's lane
-    decomposition: K lanes per window, each warmed over the ``halo`` classes
-    before its segment."""
+def _segmented_count_plain(table_flat, windows, halo, num_classes, smask, K, L, value):
+    """The sum of ``value(v)`` (int64) of the entry read at every body
+    position, scanned in a segmented kernel's lane decomposition (tile.cuh
+    ``count_lane``): K lanes per window, each warmed over the ``halo``
+    classes before its segment; a lane's padding past its row counts
+    nothing."""
     B, W = windows.shape
-    out = torch.empty((B * K, L), dtype=torch.int64, device=windows.device)
+    # Body positions each lane holds: L, the last lane of a window the rest.
+    limit = (W - halo - torch.arange(K, device=windows.device) * L).clamp(max=L).repeat(B)
+    total = torch.zeros(B * K, dtype=torch.int64, device=windows.device)
 
     def emit(j, v):
-        out[:, j] = value(v)
+        total.add_(torch.where(j < limit, value(v), 0))
+
+    _lane_scan_plain(table_flat, _segment_lanes(windows, halo, K, L), halo, num_classes, smask,
+                     emit)
+    return total.sum()
+
+
+def _segmented_planes_plain(table_flat, windows, halo, num_classes, smask, K, L, value,
+                            planes: int = 1):
+    """``uint32[planes, B*C]`` holding ``value(v)`` (int64 in [0, 2**32):
+    ``[lanes]`` for one plane, ``[planes, lanes]`` for more) of the entry
+    read at every body position, scanned in a segmented kernel's lane
+    decomposition (tile.cuh ``planes_lane``): K lanes per window, each warmed
+    over the ``halo`` classes before its segment."""
+    B, W = windows.shape
+    out = torch.empty((planes, B * K, L), dtype=torch.int64, device=windows.device)
+
+    def emit(j, v):
+        out[:, :, j] = value(v)
 
     _lane_scan_plain(table_flat, _segment_lanes(windows, halo, K, L), halo, num_classes, smask,
                      emit)
     # The last segment's columns past C are padding.
-    return _to_uint32(out.reshape(B, K * L)[:, : W - halo].reshape(1, -1))
+    return _to_uint32(out.reshape(planes, B, K * L)[:, :, : W - halo].reshape(planes, -1))
 
 
 def packed_scan_count_plain(table, windows, halo, state_bits) -> torch.Tensor:
     """The kernel's lane decomposition (``segments`` under
-    ``COUNT_MAX_LANES``); a lane's padding past its row counts nothing."""
+    ``COUNT_MAX_LANES``)."""
     B, W = windows.shape
-    C = W - halo
-    K, L = segments(B, C, halo, COUNT_MAX_LANES)
-    # Body positions each lane holds: L, the last lane of a window the rest.
-    limit = (C - torch.arange(K, device=windows.device) * L).clamp(max=L).repeat(B)
-    pop = torch.zeros(B * K, dtype=torch.int64, device=windows.device)
-
-    def emit(j, e):
-        pop.add_(torch.where(j < limit, _popcount32(e), 0))
-
-    _scan_plain(table, _segment_lanes(windows, halo, K, L), halo, state_bits, emit)
-    return pop.sum()
+    K, L = segments(B, W - halo, halo, COUNT_MAX_LANES)
+    return _segmented_count_plain(table.reshape(-1), windows, halo, table.shape[1],
+                                  (1 << state_bits) - 1, K, L,
+                                  lambda v: _popcount32(v >> state_bits))
 
 
 def packed_scan_planes_plain(table, windows, halo, state_bits) -> torch.Tensor:

@@ -33,8 +33,7 @@ import torch
 
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
-from ahocorasick_tpu_torch.kernels.scan_batched import _to_uint32
-from ahocorasick_tpu_torch.kernels.scan_block import _popcount32, _widen
+from ahocorasick_tpu_torch.kernels.scan_block import _popcount32, _to_uint32, _widen
 from ahocorasick_tpu_torch.kernels.scan_wwl import _index
 
 STATE_BITS = 28  # ops/scan_pfac2._STATE_BITS: packed prefix entries

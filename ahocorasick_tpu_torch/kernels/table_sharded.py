@@ -44,8 +44,7 @@ import torch
 
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
-from ahocorasick_tpu_torch.kernels.scan_batched import _to_uint32
-from ahocorasick_tpu_torch.kernels.scan_block import _popcount32, _widen
+from ahocorasick_tpu_torch.kernels.scan_block import _popcount32, _to_uint32, _widen
 
 MODES = ("count", "count_packed", "planes", "hotstate", "raw")
 _WINDOW_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}

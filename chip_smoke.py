@@ -36,14 +36,17 @@ port only, the dictionary and text generators included (``bench.headline``,
    seeded dictionaries and shapes: the scans up to the main path's
    65,536 x 524 windows, the compaction on every planes tensor they make and
    on synthetic ones; the one-pass compaction, the segmented planes scan
-   and count and the segmented hotstate plane at their edge shapes (no hot
-   position, the hot count at ``limit`` and one past it, no limit, P = 1,
-   2, 3 and 5 with N past a tile, more than 16 Ki tiles twice in a row;
-   C < 128, C not a multiple of the lanes per window or of 4, halo 0, one
-   window, uint16 windows, a keyword of length halo across every segment
-   boundary, ``a``..``a * 12``, K = 1, 2 and 4 lanes per window for the
-   count and the hotstate plane, the latter on depth-39 and depth-30 uint16
-   dictionaries); the fused whole-word-longest scan and the
+   and count, the segmented hotstate plane and count-packed count and the
+   segmented split planes at their edge shapes (no hot position, the hot
+   count at ``limit`` and one past it, no limit, P = 1, 2, 3 and 5 with N
+   past a tile, more than 16 Ki tiles twice in a row; C < 128, C not a
+   multiple of the lanes per window or of 4, halo 0, one window, uint16
+   windows, a keyword of length halo across every segment boundary,
+   ``a``..``a * 12``, K = 1, 2 and 4 lanes per window for the counts, the
+   hotstate plane and the split planes, the latter three on depth-39 and
+   depth-30 uint16 dictionaries, the split planes also at P = 4, 13 and 14
+   on ``a``..``a * 100`` / ``* 400`` / ``* 420``, ragged K > 1 segments);
+   the fused whole-word-longest scan and the
    segmented WWL scan plane at theirs (walk depths 4, 12 and 32, > 256
    classes, separators as keywords, crossing bits, row and flat layouts,
    narrow and int32 windows, texts of 0, 3, 511, 4097 and 40,000 units,
@@ -159,11 +162,13 @@ port only, the dictionary and text generators included (``bench.headline``,
    ``count`` and ``match_triples``, and the
    sequential-scan feed against the planes feed, 2**8 to 2**18 units on the
    100-, 1,000-, 10k- and 1M-keyword dictionaries, with each break-even);
-   the redesigned count and hotstate plane held against their twins at
-   their timed shapes, then the A/B of their designs
-   (``bench.scan_variants.run``: byte or word loads, one or two chains a
-   thread, strided or tiled stores, K = 1, 2 and 4 at 8,192, 32,768 and
-   65,536 windows, each checked bit for bit, one JSON line);
+   the redesigned count, hotstate plane, count-packed count and split
+   planes held against their twins at their timed shapes, then the A/B of
+   their designs (``bench.scan_variants.run``: byte or word loads, one or
+   two chains a thread, strided or tiled stores, the split planes' emit
+   loads in the chain, after the tile or during the next one, K = 1, 2 and
+   4 at 8,192, 32,768 and 65,536 windows, each checked bit for bit, one
+   JSON line);
    the probe kernels and the PFAC walk (at the sweep's shape, the JAX sizes
    and 32 Mi units) beside their twins, each result first held against the
    twin's at that shape, and, for the probes, the same chain as
@@ -222,9 +227,9 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
     "packedcount_hotstate_plane": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
                                    "ahocorasick_tpu/ops/scan_batched.py:237"),
     "split_count": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
-                    "ahocorasick_tpu/ops/scan_batched.py:459"),
+                    "ahocorasick_tpu/ops/scan_batched.py:460"),
     "split_emit_planes": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
-                          "ahocorasick_tpu/ops/scan_batched.py:416"),
+                          "ahocorasick_tpu/ops/scan_batched.py:417"),
     "seq_states": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                    "ahocorasick_tpu/core/stream.py:96"),
     "wwl_sweep_all": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
@@ -321,11 +326,11 @@ def fuzz_keywords(rng, alphabet: str, n: int, max_len: int):
 
 def check_redesign_edges(port, dev, errs):
     """The kernels redesigned for this card (the one-pass compaction, the
-    segmented, coalesced planes scan, the segmented count with word loads,
-    the hotstate plane on the planes lane) against their twins, bit for bit,
-    at their edge shapes: K = 1, 2 and 4 lanes per window, halo 0, uint16
-    windows, C not a multiple of 4, one window, a last block that is not
-    full."""
+    segmented, coalesced planes scan, the counts on the count lane, the
+    hotstate plane and the split planes on the planes lane) against their
+    twins, bit for bit, at their edge shapes: K = 1, 2 and 4 lanes per
+    window, halo 0, uint16 windows, C not a multiple of 4, one window, a
+    last block that is not full, P = 1 to 14 split planes."""
     import torch
 
     from ahocorasick_tpu_torch.kernels import compact, scan_block
@@ -445,8 +450,9 @@ def check_redesign_edges(port, dev, errs):
     if not {1, 2, 4} <= count_ks:
         raise AssertionError(f"count edges ran K in {sorted(count_ks)}, not 1, 2 and 4")
 
-    # The hotstate plane (the planes lane over a count-packed table) on
-    # dictionaries whose state bits plus depth exceed 32.
+    # The hotstate plane (the planes lane over a count-packed table) and the
+    # count-packed count (the count lane) on dictionaries whose state bits
+    # plus depth exceed 32.
     from ahocorasick_tpu_torch.kernels import scan_batched as khuge
 
     def hot_pair(label, m, text, chunk, halo=None):
@@ -458,35 +464,87 @@ def check_redesign_edges(port, dev, errs):
         args = (flat, w, halo, sb, A)
         B, C = w.shape[0], w.shape[1] - halo
         K, L = scan_block.segments(B, C, halo, khuge.HOTSTATE_MAX_LANES)
+        Kc, Lc = scan_block.segments(B, C, halo, khuge.PACKEDCOUNT_MAX_LANES)
         got = words(khuge.packedcount_hotstate_plane(*args))
         want = words(khuge.packedcount_hotstate_plane_plain(*args))
-        count = int(khuge.packedcount_count_plain(*args))
+        count = int(khuge.packedcount_count(*args))
+        count_twin = int(khuge.packedcount_count_plain(*args))
         torch.cuda.synchronize()
         e = int((got - want).abs().max())
+        e_count = abs(count - count_twin)
         hot = int((want != 0).sum())
         errs["packedcount_hotstate_plane"] = max(errs["packedcount_hotstate_plane"], e)
+        errs["packedcount_count"] = max(errs["packedcount_count"], e_count)
         print(f"  hotstate edge {label}: B={B} W={w.shape[1]} halo={halo} K={K} L={L} "
-              f"lanes={B * K} {str(w.dtype).replace('torch.', '')} hot={hot} count={count} "
-              f"max_abs_err={e}")
-        if e or not hot or int((want >> sb).sum()) != count:
+              f"lanes={B * K} {str(w.dtype).replace('torch.', '')} hot={hot} max_abs_err={e}; "
+              f"count K={Kc} L={Lc} kernel={count} twin={count_twin} max_abs_err={e_count}")
+        if e or e_count or not hot or int((want >> sb).sum()) != count:
             raise AssertionError(f"hotstate edge {label}: kernel disagrees with its twin")
-        return K
+        return K, Kc
 
     m = port.AhoCorasickSet(DEEP, engine="device", device=dev)
     runs = fr.integers(1, 45, size=8_000)
     deep = "".join("a" * int(r) + str(fr.choice(["b", " the ", "x"])) for r in runs)[:200_001]
-    hot_ks = {hot_pair("depth 39, C = 1024", m, deep, 1024),
-              hot_pair("depth 39, C = 512", m, deep, 512),
-              hot_pair("depth 39, C = 1023, 4-byte stores", m, deep, 1023),
-              hot_pair("depth 39, C = 128", m, deep, 128),
-              hot_pair("halo 0", m, deep, 512, halo=0),
-              hot_pair("one window", m, deep[:700], 1024)}
+    ks = [hot_pair("depth 39, C = 1024", m, deep, 1024),
+          hot_pair("depth 39, C = 512", m, deep, 512),
+          hot_pair("depth 39, C = 1023, 4-byte stores", m, deep, 1023),
+          hot_pair("depth 39, C = 128", m, deep, 128),
+          hot_pair("halo 0", m, deep, 512, halo=0),
+          hot_pair("one window", m, deep[:700], 1024)]
     wide_deep = wide_kws + ["".join(chr(0x100 + (11 * i) % 300) for i in range(30))]
-    m = port.AhoCorasickSet(wide_deep, engine="device", device=dev)
-    hot_ks.add(hot_pair("uint16 windows, depth 30", m, wide + wide_deep[-1] + wide[:5000]
-                        + wide_deep[-1], 512))
-    if not {1, 2, 4} <= hot_ks:
-        raise AssertionError(f"hotstate edges ran K in {sorted(hot_ks)}, not 1, 2 and 4")
+    m_wide = port.AhoCorasickSet(wide_deep, engine="device", device=dev)
+    wide_text = wide + wide_deep[-1] + wide[:5000] + wide_deep[-1]
+    ks.append(hot_pair("uint16 windows, depth 30", m_wide, wide_text, 512))
+    for i, name in enumerate(("hotstate", "count-packed count")):
+        if not {1, 2, 4} <= {k[i] for k in ks}:
+            raise AssertionError(f"{name} edges ran K in {sorted({k[i] for k in ks})}, "
+                                 f"not 1, 2 and 4")
+
+    # The split planes (the planes lane with the emit loads gathered after
+    # each tile, P planes a step): P = 1, 2, 4, 13 (one block holds the 13
+    # plane tiles: 226,304 B of dynamic shared memory) and 14 (two groups of
+    # planes, each rescanning), ragged K > 1 segments.
+    def split_pair(label, m, text, chunk, halo=None):
+        dfa, emit, table_halo = m.dev.split_dfa
+        halo = table_halo if halo is None else halo
+        A, P = m.compiled.num_classes, emit.shape[1]
+        w = scan_batched.classes_to_device(
+            scan_batched.chunk_classes(m._classes(text), chunk, halo, A), A, dev)
+        args = (dfa, emit, w, halo, A, P)
+        B, C = w.shape[0], w.shape[1] - halo
+        K, L = scan_block.segments(B, C, halo, khuge.SPLIT_PLANES_MAX_LANES)
+        got = words(khuge.split_emit_planes(*args))
+        want = words(khuge.split_emit_planes_plain(*args))
+        count = int(khuge.split_count(*args))
+        torch.cuda.synchronize()
+        e = int((got - want).abs().max())
+        pop = int(scan_block._popcount32(want).sum())
+        errs["split_emit_planes"] = max(errs["split_emit_planes"], e)
+        errs["split_count"] = max(errs["split_count"], abs(count - pop))
+        print(f"  split edge {label}: B={B} W={w.shape[1]} halo={halo} P={P} K={K} L={L} "
+              f"{str(w.dtype).replace('torch.', '')} bits={pop} split_count={count} "
+              f"max_abs_err={e}")
+        if e or count != pop or not int((want[-1] != 0).sum()):
+            raise AssertionError(f"split edge {label}: kernel disagrees with its twin")
+        return P, K
+
+    runs = fr.integers(1, 460, size=1_500)
+    a_runs = "".join("a" * int(r) + "b" for r in runs)
+    pk = [split_pair("depth 39, C = 1024", m, deep, 1024),
+          split_pair("depth 39, C = 1023, ragged", m, deep, 1023),
+          split_pair("depth 39, C = 512", m, deep, 512),
+          split_pair("depth 39, C = 128", m, deep, 128),
+          split_pair("halo 0", m, deep, 512, halo=0),
+          split_pair("one window", m, deep[:700], 1024),
+          split_pair("uint16 windows, depth 30", m_wide, wide_text, 512)]
+    for depth, chunks in ((100, (1602, 1026, 512)), (400, (3302, 512)), (420, (3402, 2048))):
+        m_a = port.AhoCorasickSet(["a" * i for i in range(1, depth + 1)], engine="device",
+                                  device=dev)
+        pk += [split_pair(f"a..a*{depth}, C = {c}", m_a, a_runs, c) for c in chunks]
+    planes = {P for P, _ in pk}
+    if not ({1, 2, 4, 13, 14} <= planes and {1, 2, 4} <= {K for _, K in pk}
+            and {K for P, K in pk if P > 2} - {1}):
+        raise AssertionError(f"split edges ran (P, K) in {sorted(set(pk))}")
 
 
 def check_wwl_edges(port, dev, errs):
@@ -2684,25 +2742,35 @@ def main() -> int:
               f"count-packed, {dfa1m.nbytes + emit1m.nbytes} B split): kernel {t_kernel} ms "
               f"({gbps(t_kernel)} GB/s), plain twin {t_plain} ms ({gbps(t_plain)} GB/s) [{smi}]")
 
-    # The two kernels redesigned in this round, held against their twins at
-    # the timed shapes, then the A/B of their designs (bench/scan_variants.py).
+    # The kernels redesigned for this card, held against their twins at the
+    # timed shapes, then the A/B of their designs (bench/scan_variants.py).
     kc = int(scan_block.packed_scan_count(*args))
     pc = int(scan_block.packed_scan_count_plain(*args))
     e_hot = max_err((khuge.packedcount_hotstate_plane(*cargs),),
                     (khuge.packedcount_hotstate_plane_plain(*cargs),))
+    kpc = int(khuge.packedcount_count(*cargs))
+    ppc = int(khuge.packedcount_count_plain(*cargs))
+    e_split = max_err((khuge.split_emit_planes(*sargs1m),),
+                      (khuge.split_emit_planes_plain(*sargs1m),))
     torch.cuda.synchronize()
     errs["packed_scan_count"] = max(errs["packed_scan_count"], abs(kc - pc))
     errs["packedcount_hotstate_plane"] = max(errs["packedcount_hotstate_plane"], e_hot)
+    errs["packedcount_count"] = max(errs["packedcount_count"], abs(kpc - ppc))
+    errs["split_emit_planes"] = max(errs["split_emit_planes"], e_split)
     k_count = scan_block.segments(w_full.shape[0], w_full.shape[1] - pd.halo, pd.halo,
                                   scan_block.COUNT_MAX_LANES)[0]
-    k_hot = scan_block.segments(w5.shape[0], w5.shape[1] - halo1m, halo1m,
-                                khuge.HOTSTATE_MAX_LANES)[0]
+    k_hot, k_pc, k_split = (scan_block.segments(w.shape[0], w.shape[1] - h, h, cap)[0]
+                            for w, h, cap in ((w5, halo1m, khuge.HOTSTATE_MAX_LANES),
+                                              (w5, halo1m, khuge.PACKEDCOUNT_MAX_LANES),
+                                              (w5s, halo_s, khuge.SPLIT_PLANES_MAX_LANES)))
     print(f"  timed shapes: packed_scan_count at {tuple(w_full.shape)}, K={k_count}: kernel={kc} "
           f"twin={pc}; packedcount_hotstate_plane at {tuple(w5.shape)}, K={k_hot}: "
-          f"max_abs_err={e_hot}")
-    if kc != pc or e_hot:
+          f"max_abs_err={e_hot}; packedcount_count, K={k_pc}: kernel={kpc} twin={ppc}; "
+          f"split_emit_planes at {tuple(w5s.shape)}, P={sargs1m[-1]}, K={k_split}: "
+          f"max_abs_err={e_split}")
+    if kc != pc or e_hot or kpc != ppc or e_split:
         raise AssertionError("a redesigned kernel disagrees with its twin at its timed shape")
-    ab = scan_variants.run(args, cargs, scan_variants.library())
+    ab = scan_variants.run(args, cargs, sargs1m, scan_variants.library())
     print(f"ab scan_variants {json.dumps({'card': smi, **ab})}")
 
     # The row-sharded scan beside the single-table kernels on the same
