@@ -31,6 +31,9 @@
 //   * split_pipelined: the same lane (P = 1) with the gather of a tile's
 //     planes issued before the next tile's lookups and stored after them, so
 //     that its latency hides behind the next tile's chain.
+//   * rowdfa2_count_bytes: the stride-2 count (csrc/rowdfa2_scan.cu) with
+//     one lane per window and a class load a step (the stride-2 count before
+//     its redesign).
 
 #include <cstdint>
 
@@ -409,3 +412,65 @@ int split_entry(int which, const void* dfa_flat, const void* emit_tab, const voi
 SPLIT_VARIANT(split_rows, 0)
 SPLIT_VARIANT(split_inline, 1)
 SPLIT_VARIANT(split_pipelined, 2)
+
+namespace {
+
+// The word of row (s, c0), column col of the stride-2 table.
+__device__ __forceinline__ uint64_t row2(uint32_t s, uint32_t c0, uint32_t num_classes) {
+  return (static_cast<uint64_t>(s) * num_classes + c0) * (num_classes + 1u);
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rowdfa2_count_bytes_kernel(const uint32_t* __restrict__ table, const T* __restrict__ windows,
+                               int64_t num_windows, int width, int halo, uint32_t num_classes,
+                               int state_bits, unsigned long long* __restrict__ out) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  uint32_t pop = 0;
+  if (b < num_windows) {
+    const T* row = windows + b * width;
+    const uint32_t smask = (1u << state_bits) - 1u;
+    uint32_t s = 0;
+    for (int t = 0; t < halo; t += 2) {
+      s = __ldg(table + row2(s, row[t], num_classes) + row[t + 1]) & smask;
+    }
+    for (int t = halo; t < width; t += 2) {
+      const uint32_t* r = table + row2(s, row[t], num_classes);
+      const uint32_t w = __ldg(r + row[t + 1]);
+      const uint32_t e1 = __ldg(r + num_classes);
+      pop += __popc(w >> state_bits) + __popc(e1);
+      s = w & smask;
+    }
+  }
+  tile::block_add<kThreads>(pop, out);
+}
+
+}  // namespace
+
+// The arguments of rowdfa2_count (segments must be 1: one lane per window).
+extern "C" int rowdfa2_count_bytes(const void* table, const void* windows, int window_bytes,
+                                   int64_t num_windows, int width, int halo, int num_classes,
+                                   int state_bits, int segments, int seg_len, void* out,
+                                   int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (segments != 1 || seg_len != width - halo || halo % 2 != 0 || seg_len % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* tab = static_cast<const uint32_t*>(table);
+  const auto a = static_cast<uint32_t>(num_classes);
+  auto* count = static_cast<unsigned long long*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(num_windows);
+  if (window_bytes == 1) {
+    rowdfa2_count_bytes_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
+        tab, static_cast<const uint8_t*>(windows), num_windows, width, halo, a, state_bits,
+        count);
+  } else if (window_bytes == 2) {
+    rowdfa2_count_bytes_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
+        tab, static_cast<const uint16_t*>(windows), num_windows, width, halo, a, state_bits,
+        count);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

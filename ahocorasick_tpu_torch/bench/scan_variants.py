@@ -1,4 +1,4 @@
-"""The designs of four scan kernels, timed side by side on the card.
+"""The designs of six scan kernels, timed side by side on the card.
 
     python -m ahocorasick_tpu_torch.bench.scan_variants
 
@@ -31,6 +31,17 @@ best of 3 timings of 20 launches after a warm-up; each window count's
 variants timed in order, then in reverse, and the lower of the two kept),
 the K that the package's rules pick, and the card's name and power limit.
 The package never launches these designs.
+
+Two more A/Bs run on the package's own entry points.  ``rowdfa2_ab``: the
+stride-2 count (``csrc/rowdfa2_scan.cu``, the count lane with a pair a
+step) at K = 1, 2 and 4 beside its first design (one lane per window, a
+class load a step; ``rowdfa2_count_bytes`` here) on the first 8,192, 32,768
+and 65,536 windows of the 10k dictionary's stride-2 table (152 MB).
+``seq_ab``: the sequential scan's serial walk (``seq_states``, up to 64 Ki
+units) beside its lane scan (``seq_states_sync``) at several lane lengths L,
+on 1 Ki, 4 Ki, 64 Ki and 32 Mi units of the 10k dense table and of a
+55,040-class RowTable (``wide_soup`` over the demo dictionary of
+``graft_entry``), each checked against the wrapper.
 """
 
 from __future__ import annotations
@@ -51,6 +62,9 @@ VARIANTS = ("count_bytes", "count_chains2", "hotstate_rows", "hotstate_tile_byte
             "packedcount_bytes")
 SPLIT_VARIANTS = ("split_rows", "split_inline", "split_pipelined")
 SWEEP_WINDOWS = (8_192, 32_768, 65_536)
+SEQ_UNITS = (1 << 10, 1 << 12, 1 << 16, 1 << 25)
+SEQ_SERIAL_MAX = 1 << 16  # the serial walk takes about 70 ns a unit
+SEQ_LANE_LENS = (16, 64, 256, 1024)  # beside the rule's L and the least, d rounded to 4
 ONE_M_SEED = 77  # tests/test_full_random_1m.py
 ONE_M_CANDIDATES = 1_100_000
 
@@ -81,6 +95,8 @@ def library() -> ctypes.CDLL:
     for name in SPLIT_VARIANTS:
         getattr(lib, name).argtypes = build.ARGTYPES["split_emit_planes"]
         getattr(lib, name).restype = ctypes.c_int
+    lib.rowdfa2_count_bytes.argtypes = build.ARGTYPES["rowdfa2_count"]
+    lib.rowdfa2_count_bytes.restype = ctypes.c_int
     return lib
 
 
@@ -258,10 +274,88 @@ def run(count_cell: tuple, hot_cell: tuple, split_cell: tuple, lib=None) -> dict
     }
 
 
+def rowdfa2_ab(cell: tuple, lib=None) -> dict:
+    """The stride-2 count's A/B.  ``cell``: ``(table, windows, halo,
+    state_bits, num_classes)`` of ``rowdfa2_count`` on the card, at least
+    65,536 windows."""
+    from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow
+
+    lib = library() if lib is None else lib
+    package = build.library()
+    table, w, halo, sb, A = cell
+    mid = (A, sb)
+
+    def runs(b, out):
+        out_runs = {"bytes K=1": _launcher(lib.rowdfa2_count_bytes, (table,), w, b, halo, mid, 1,
+                                           out)}
+        out_runs.update({f"lane K={k}": _launcher(package.rowdfa2_count, (table,), w, b, halo,
+                                                   mid, k, out) for k in (1, 2, 4)})
+        return out_runs
+
+    ms = _count_ab("rowdfa2", w, lambda b: krow.rowdfa2_count(table, w[:b], halo, sb, A), runs)
+    return {"rowdfa2_cell": {"windows": list(w.shape), "halo": halo, "table_bytes": table.nbytes,
+                             "rule_K": _rule_k(w.shape[1] - halo, halo,
+                                               krow.ROWDFA2_COUNT_MAX_LANES)},
+            "rowdfa2_count_ms": ms}
+
+
+def seq_ab(cells: dict) -> dict:
+    """The sequential scan's A/B.  ``cells``: ``{label: (table, row_id,
+    classes, depth)}`` on the card, the classes ``int32[N]`` with N at least
+    32 Mi, ``depth`` the table's synchronizing depth.  Returns ``{label:
+    {"N=n": {run: ms}}}`` and the rule's L per cell and N."""
+    from ahocorasick_tpu_torch.kernels import scan_dfa
+
+    package = build.library()
+    record, rule = {}, {}
+    for label, (table, row_id, cls, depth) in cells.items():
+        dev = cls.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rid = None if row_id is None else row_id.data_ptr()
+        out = torch.empty(max(SEQ_UNITS), dtype=torch.int32, device=dev)
+        record[label], rule[label] = {}, {}
+        for n in SEQ_UNITS:
+            c = cls[:n]
+            want = scan_dfa.seq_states(table, row_id, c, 0, depth)
+
+            def serial(c=c, n=n):
+                rc = package.seq_states(table.data_ptr(), rid, c.data_ptr(), n, table.shape[1],
+                                        0, out.data_ptr(), dev.index or 0, stream)
+                if rc != 0:
+                    raise RuntimeError(f"seq_states launch failed: CUDA error {rc}")
+
+            def sync(L, c=c, n=n):
+                def launch():
+                    rc = package.seq_states_sync(table.data_ptr(), rid, c.data_ptr(), n,
+                                                 table.shape[1], 0, depth, L, out.data_ptr(),
+                                                 dev.index or 0, stream)
+                    if rc != 0:
+                        raise RuntimeError(f"seq_states_sync launch failed: CUDA error {rc}")
+                return launch
+
+            least = -(-depth // 4) * 4
+            lens = sorted({least, scan_dfa.sync_lane_len(n, depth),
+                           *(L for L in SEQ_LANE_LENS if L > least)})
+            runs = {"serial": serial} if n <= SEQ_SERIAL_MAX else {}
+            runs.update({f"sync L={L}": sync(L) for L in lens})
+
+            def check(name, launch, n=n, want=want):
+                out.fill_(-1)
+                launch()
+                if not torch.equal(out[:n], want):
+                    raise AssertionError(f"seq {label} N={n} {name}: states differ from the "
+                                         f"wrapper's")
+
+            record[label][f"N={n}"] = _sweep(runs, check)
+            rule[label][f"N={n}"] = scan_dfa.sync_lane_len(n, depth)
+    return {"seq_ms": record, "seq_rule_L": rule}
+
+
 def main() -> None:
     from ahocorasick_tpu_torch.bench.__main__ import word_soup
     from ahocorasick_tpu_torch.bench.headline import (
         BASE_UNITS, CHUNK, N_KEYWORDS, SEED, TEXT_UNITS, make_dictionary, make_text_classes)
+    from ahocorasick_tpu_torch.graft_entry import _KEYWORDS as DEMO_KEYWORDS
     from ahocorasick_tpu_torch.models.matchers import AhoCorasickSet
     from ahocorasick_tpu_torch.ops import scan_batched
 
@@ -291,7 +385,37 @@ def main() -> None:
         scan_batched.chunk_classes(cls, CHUNK, shalo, A), A, dev)
     record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),
                  (dfa, emit, ws, shalo, A, emit.shape[1]), lib)
+    rd = m.dev.row_dfa
+    w2 = w if rd.halo == pd.halo else scan_batched.classes_to_device(
+        scan_batched.chunk_classes(np.tile(base, TEXT_UNITS // BASE_UNITS), CHUNK, rd.halo,
+                                   m.compiled.num_classes), m.compiled.num_classes, dev)
+    record.update(rowdfa2_ab((rd.table, w2, rd.halo, rd.state_bits, rd.num_classes), lib))
+    wide = AhoCorasickSet([chr(c) for c in range(0x100, 0xD800)], engine="gold", device=dev)
+    wide_cls = wide._classes(wide_soup(np.random.default_rng(SEED + 9), DEMO_KEYWORDS,
+                                       BASE_UNITS))
+    record.update(seq_ab({
+        "10k dense": (*m.dev.seq_tables, _int32_classes(
+            np.tile(base, TEXT_UNITS // BASE_UNITS), dev), max(m.compiled.max_depth, 1)),
+        "wide RowTable": (*wide.dev.seq_tables, _int32_classes(
+            np.tile(wide_cls, TEXT_UNITS // BASE_UNITS), dev), max(wide.compiled.max_depth, 1)),
+    }))
     print(json.dumps({"card": smi, **record}))
+
+
+def _int32_classes(cls: np.ndarray, dev) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(cls, dtype=np.int32)).to(dev)
+
+
+def wide_soup(rng, words, n_units: int) -> str:
+    """ASCII word soup over ``words`` with about 1% of its units drawn from
+    U+0100..U+D7FF (the wide-alphabet dictionary's keywords)."""
+    from ahocorasick_tpu_torch.bench.__main__ import word_soup
+
+    units = np.frombuffer(word_soup(rng, words, n_units).encode("utf-16-le"),
+                          dtype=np.uint16).copy()
+    hits = rng.random(n_units) < 0.01
+    units[hits] = rng.integers(0x100, 0xD800, size=int(hits.sum()))
+    return units.tobytes().decode("utf-16-le")
 
 
 if __name__ == "__main__":

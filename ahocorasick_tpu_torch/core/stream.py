@@ -109,12 +109,16 @@ def seq_tensors(table, device: torch.device):
 
 class _SeqScan:
     """Sequential DFA runner on one device: the table is uploaded at the
-    first scan (or handed over already uploaded, ``tensors``)."""
+    first scan (or handed over already uploaded, ``tensors``).
+    ``sync_depth``: the depth d at which the table synchronizes (a goto
+    closure: the lane scan of ``kernels.seq_states``), or None for a table
+    that does not (the shortest restart table: the serial walk)."""
 
-    def __init__(self, table, device: torch.device, tensors=None):
+    def __init__(self, table, device: torch.device, tensors=None, sync_depth=None):
         self._table = table
         self.device = torch.device(device)
         self._tensors = tensors
+        self.sync_depth = sync_depth
 
     def states(self, cls: np.ndarray, s0: int) -> Tuple[np.ndarray, int]:
         """Arrival states for ``cls`` starting from ``s0``; returns carry."""
@@ -125,7 +129,7 @@ class _SeqScan:
             self._tensors = seq_tensors(self._table, self.device)
         table, row_id = self._tensors
         cls_d = torch.from_numpy(np.ascontiguousarray(cls, dtype=np.int32)).to(self.device)
-        states = kernels.seq_states(table, row_id, cls_d, s0).cpu().numpy()
+        states = kernels.seq_states(table, row_id, cls_d, s0, self.sync_depth).cpu().numpy()
         return states, int(states[-1])
 
 
@@ -178,7 +182,8 @@ class _CandidateSource:
     warmup for the feed's first lane is the real tail instead of PAD, and
     candidates ending in the tail region (already delivered last feed) are
     dropped.  Small feeds use the sequential-scan kernel over tail+feed from
-    the root, which is exact by the same argument.  (Reference invariant source: ``AhoCorasickMap.java:208-275``
+    the root, which is exact by the same argument, and for the same reason
+    take its lane form (``sync_depth`` = the halo).  (Reference invariant source: ``AhoCorasickMap.java:208-275``
     carries one node across buffer refills.)
     """
 
@@ -194,10 +199,11 @@ class _CandidateSource:
 
     def seq_scan(self) -> _SeqScan:
         """The sequential runner over the goto closure, on the matcher's
-        cached upload of it when there is one."""
+        cached upload of it when there is one: the lane scan, since the goto
+        closure synchronizes at the halo."""
         if self._seq is None:
             tensors = self._tables.seq_tables if self._tables is not None else None
-            self._seq = _SeqScan(self.m.dfa_next, self.device, tensors)
+            self._seq = _SeqScan(self.m.dfa_next, self.device, tensors, self.halo)
         return self._seq
 
     def _device_ok(self) -> bool:

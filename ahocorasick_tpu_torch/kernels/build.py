@@ -54,6 +54,7 @@ launches = {
     "split_count": 0,
     "split_emit_planes": 0,
     "seq_states": 0,
+    "seq_states_serial": 0,
     "wwl_sweep_all": 0,
     "state_maps": 0,
     "entry_fold": 0,
@@ -72,9 +73,15 @@ launches = {
 }
 
 
+# The units that the sequential scan's launches scanned, by kernel: the lane
+# scan ("seq_states") and the serial walk ("seq_states_serial").
+seq_units = {"seq_states": 0, "seq_states_serial": 0}
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, seq_units):
+        for name in counts:
+            counts[name] = 0
 
 
 _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
@@ -93,7 +100,7 @@ ARGTYPES = {
     "packed_scan_planes": _SEGMENTED_ARGS,
     "packedcount_count": _SEGMENTED_ARGS,
     "packedcount_hotstate_plane": _SEGMENTED_ARGS,
-    "rowdfa2_count": _SCAN_ARGS,
+    "rowdfa2_count": _SEGMENTED_ARGS,
     "rowdfa2_planes": _SCAN_ARGS,
     "split_count": _SPLIT_ARGS,
     "split_emit_planes": _SPLIT_SEGMENTED_ARGS,
@@ -123,6 +130,9 @@ ARGTYPES = {
                      _P, _P, _P, _P, _P, _I, _P],
     # (table, row_id or null, cls, n, num_classes, s0, out, device, stream)
     "seq_states": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    # (table, row_id or null, cls, n, num_classes, s0, depth, lane_len, out,
+    #  device, stream)
+    "seq_states_sync": [_P, _P, _P, _I64, _I, _I, _I, _I, _P, _I, _P],
     # (plane, entry, rows_flat, outrows, n_keep, live, d, id_bits, depth_bits,
     #  cross, die_pos, has, m_start, m_end, m_val, cont, device, stream)
     "wwl_sweep_all": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,

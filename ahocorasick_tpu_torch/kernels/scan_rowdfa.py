@@ -7,7 +7,8 @@ and taking their arguments in the same order:
 
 * ``rowdfa2_count(table, windows, halo, state_bits, num_classes)`` — total
   match count, ``popcount(emit1) + popcount(emit2)`` summed over the body's
-  pairs;
+  pairs, K lanes per window (``scan_block.segments`` under
+  ``ROWDFA2_COUNT_MAX_LANES``);
 * ``rowdfa2_planes(...)`` — END-indexed emit planes ``uint32[1, B*C]`` in flat
   text order, the layout of ``scan_block.packed_scan_planes``.
 
@@ -28,10 +29,13 @@ import torch
 from ahocorasick_tpu_torch.kernels import build
 from ahocorasick_tpu_torch.kernels.build import launches
 from ahocorasick_tpu_torch.kernels.scan_block import (
+    COUNT_MAX_LANES,
     _WINDOW_BYTES,
     _check_windows,
     _popcount32,
+    _segment_lanes,
     _widen,
+    segments,
 )
 
 
@@ -49,26 +53,39 @@ def _check(table, windows, halo, state_bits, num_classes):
     return B, W
 
 
-def _launch(name: str, table, windows, halo, state_bits, num_classes, out) -> None:
+def _launch(name: str, table, windows, halo, state_bits, num_classes, out, *lanes) -> None:
     B, W = windows.shape
     dev = windows.device
     build.call(
         name, table.data_ptr(), windows.data_ptr(), _WINDOW_BYTES[windows.dtype],
-        B, W, halo, num_classes, state_bits, out.data_ptr(),
+        B, W, halo, num_classes, state_bits, *lanes, out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     launches[name] += 1
+
+
+# The stride-2 count splits windows into K lanes while B*K stays within this
+# many, as the packed count does (its lanes wait on the table each step, so
+# shorter chains win until the caches' rate binds).  On the 10k dictionary's
+# 152 MB table K = 1, 2, 4 lanes per window ran 0.1505, 0.1462, 0.1752 ms at
+# 65,536 windows of 512 body classes, 0.0800, 0.0795, 0.0773 ms at 32,768
+# and 0.0704, 0.0384, 0.0254 ms at 8,192 (the first design, one lane per
+# window with a class load a step: 0.1965, 0.0865, 0.0705 ms).  NVIDIA H100
+# 80GB HBM3, 700 W; python -m ahocorasick_tpu_torch.bench.scan_variants
+# (rowdfa2_ab).
+ROWDFA2_COUNT_MAX_LANES = COUNT_MAX_LANES
 
 
 def rowdfa2_count(table: torch.Tensor, windows: torch.Tensor, halo: int, state_bits: int,
                   num_classes: int) -> torch.Tensor:
     """Total match count over the body positions, as an int64 scalar tensor
     on the windows' device."""
-    _check(table, windows, halo, state_bits, num_classes)
+    B, W = _check(table, windows, halo, state_bits, num_classes)
     if windows.device.type == "cpu":
         return rowdfa_count_plain(table, windows, halo, state_bits, num_classes)
     out = torch.zeros(1, dtype=torch.int64, device=windows.device)
-    _launch("rowdfa2_count", table, windows, halo, state_bits, num_classes, out)
+    _launch("rowdfa2_count", table, windows, halo, state_bits, num_classes, out,
+            *segments(B, W - halo, halo, ROWDFA2_COUNT_MAX_LANES))
     return out[0]
 
 
@@ -105,12 +122,21 @@ def _pair_scan_plain(table, windows, halo, state_bits, num_classes, emit):
 
 
 def rowdfa_count_plain(table, windows, halo, state_bits, num_classes) -> torch.Tensor:
-    pop = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
+    """The kernel's lane decomposition (``segments`` under
+    ``ROWDFA2_COUNT_MAX_LANES``): K lanes per window, each warmed over the
+    halo before its segment; a lane's padding past its row counts
+    nothing."""
+    B, W = windows.shape
+    K, L = segments(B, W - halo, halo, ROWDFA2_COUNT_MAX_LANES)
+    # Body positions each lane holds: L, the last lane of a window the rest.
+    limit = (W - halo - torch.arange(K, device=windows.device) * L).clamp(max=L).repeat(B)
+    pop = torch.zeros(B * K, dtype=torch.int64, device=windows.device)
 
-    def emit(_t, e1, e2):
-        pop.add_(_popcount32(e1) + _popcount32(e2))
+    def emit(t, e1, e2):
+        pop.add_(torch.where(2 * t < limit, _popcount32(e1) + _popcount32(e2), 0))
 
-    _pair_scan_plain(table, windows, halo, state_bits, num_classes, emit)
+    _pair_scan_plain(table, _segment_lanes(windows, halo, K, L), halo, state_bits, num_classes,
+                     emit)
     return pop.sum()
 
 

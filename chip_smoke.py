@@ -65,10 +65,14 @@ port only, the dictionary and text generators included (``bench.headline``,
    ``tests/test_split.py`` drives it), a deep dictionary of > 256 classes
    (uint16 windows, P = 1) and the 1M dictionary at 65,536 x 524 windows
    (count-packed and hotstate, and split on its split tables); the
-   sequential scan from an entry state on the 10k dictionary's dense table
-   (1 to 64 Ki units, entry state 0 and not 0), on RowTables (a fuzz
-   dictionary kept row-compressed, and a 55,040-class alphabet) and on the
-   10k shortest restart table; the every-position sweep beside the sweep at
+   sequential scan from an entry state, the serial walk and the lane scan
+   of the goto closure (``sync_depth`` = d), on the 10k dictionary's dense
+   table (1 unit to 32 Mi: around the lane boundaries, ragged, the timed
+   shapes 1 Ki, 4 Ki, 64 Ki and 32 Mi, lanes of exactly d; entry state 0 and
+   not 0), on RowTables (a fuzz dictionary kept row-compressed, and a
+   55,040-class alphabet up to 32 Mi units), on the depth-39 dictionary
+   dense and row-compressed (from its deepest state) and, serial only, on
+   the 10k shortest restart table; the every-position sweep beside the sweep at
    starts on each of those whole-word-longest planes; the sigma maps, the
    entry fold and the rescan on the demo dictionary (1, 8 and 4,096 chunks,
    ragged lengths, entry state 0 and not 0), on the 10k dense table (64
@@ -81,7 +85,8 @@ port only, the dictionary and text generators included (``bench.headline``,
    kernels on the fuzz, demo, uint16, quotient, halo-rounding, one-window,
    odd-length and state_bits + depth = 32 dictionaries, and on the 100-,
    1,000- and 10k-keyword dictionaries at 65,536 x 524 windows (timed beside
-   the packed kernels); the four probe kernels at every ``pl.pallas_call``
+   the packed kernels), the count also at K = 1, 2 and 4 lanes a window on
+   ragged 10k windows (an odd and an even number of pairs); the four probe kernels at every ``pl.pallas_call``
    site of ``tools/probes/`` at the JAX probes' sizes, ``chain_gather`` in
    every placement its table fits (warp registers, shared memory, global);
    the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
@@ -114,8 +119,15 @@ port only, the dictionary and text generators included (``bench.headline``,
    mid-stream, through JSON, into a fresh matcher's stream == the unbroken
    stream; the 1M dictionary's ``match_stream`` == 1,282,185 matches; a
    row-compressed 55,040-class dictionary through the gold branch on 32 Mi
-   units (one cursor feed over the RowTable scan) == its device engine and,
-   on a prefix, the per-character gold loop; ``match(text, listener)`` with
+   units (one cursor feed over the RowTable lane scan) == its device engine
+   and, on a prefix, the per-character gold loop, and a row-compressed
+   ``ShortestMatchSet`` through the same branch (the serial walk of its
+   restart table) == the gold loop; a stream resumed from a pre-tail
+   ``{"state", "off"}`` point (the lane scan from that state) ==
+   ``match_triples`` past it; each of these paths held to the sequential
+   scan its tables allow (``seq_states``, the lane scan, or
+   ``seq_states_serial``, the serial walk) and the units that form scanned
+   counted; ``match(text, listener)`` with
    ``False`` on the first match scans 16 Ki of the 32 Mi units;
    ``match_readable`` over a real file; the data-parallel sharded scanner on
    a mesh that names the card eight times (``ShardedScanner``): each of the
@@ -123,8 +135,8 @@ port only, the dictionary and text generators included (``bench.headline``,
    and triples (AC also on 1 and 3 shards, uneven cuts), the mixed-route
    dictionary, the walk branch (the scan tables forced off), the 1M
    dictionary's pinned counts and triples, ``sharded_arrival_states`` ==
-   the sequential scan (the demo dictionary on 32 Mi units, the 10k table on
-   256 Ki), ``ShardedStream`` over the same uneven pieces and a resume in a
+   the serial walk == the lane scan (the demo dictionary on 32 Mi units, the
+   10k table on 256 Ki; the two references made outside the path's counts), ``ShardedStream`` over the same uneven pieces and a resume in a
    fresh scanner, ``graft_entry.dryrun_multigpu(8)`` and ``entry()``; the
    table-sharded scanner on the same mesh read as a model mesh (eight row
    shards, each an allocation of its own): each of the five kinds and the
@@ -149,8 +161,10 @@ port only, the dictionary and text generators included (``bench.headline``,
    (facade calls and stages), as GB/s = 2 x units / s, the ``bench.py``
    definition; the 1M dictionary's kernels and facade calls on 32 Mi units
    of BASELINE config #5's word soup, and its stages; the sequential scan per
-   launch and per unit, each streamed kind, the gold branch and the early
-   stop; the sharded facades and the sharded count's stages; the row-sharded
+   launch and per unit (the lane scan at 1 Ki, 4 Ki, 64 Ki and 32 Mi units,
+   the serial walk at 64 Ki), each streamed kind, the gold branch (and its
+   stages: classes, upload, lane scan, download, emit expansion, triples)
+   and the early stop; the sharded facades and the sharded count's stages; the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
    and their stages; the stitched
    scan beside the sequential scan at the same length; the fused WWL scan
@@ -168,7 +182,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    two chains a thread, strided or tiled stores, the split planes' emit
    loads in the chain, after the tile or during the next one, K = 1, 2 and
    4 at 8,192, 32,768 and 65,536 windows, each checked bit for bit, one
-   JSON line);
+   JSON line), the stride-2 count's (``rowdfa2_ab``: its first design
+   against the count lane at K = 1, 2 and 4) and the sequential scan's
+   (``seq_ab``: the serial walk against the lane scan at several lane
+   lengths, 1 Ki to 32 Mi units, the 10k dense table and the wide
+   RowTable);
    the probe kernels and the PFAC walk (at the sweep's shape, the JAX sizes
    and 32 Mi units) beside their twins, each result first held against the
    twin's at that shape, and, for the probes, the same chain as
@@ -176,7 +194,8 @@ port only, the dictionary and text generators included (``bench.headline``,
    default; B17's bound; each kernel's bound (bytes over 3.35 TB/s or
    operations over 67 T/s, 989 T/s for the fp16 tensor cores, whichever is
    larger), the library-call times, and the kernels ranked by launches x
-   (ms - bound).
+   (ms - bound), the two sequential scans by the units their launches
+   scanned.
 
 It prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -232,6 +251,8 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                           "ahocorasick_tpu/ops/scan_batched.py:417"),
     "seq_states": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                    "ahocorasick_tpu/core/stream.py:96"),
+    "seq_states_serial": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
+                          "ahocorasick_tpu/ops/scan_dfa.py:26"),
     "wwl_sweep_all": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
                       "ahocorasick_tpu/ops/scan_wwl.py:1117"),
     "state_maps": ("ahocorasick_tpu_torch/csrc/stitch.cu",
@@ -1253,22 +1274,57 @@ def main() -> int:
                      512, timed=True)
     if check_rowdfa("10k keywords x 32 Mi units", big, cls, 512, timed=True) != count10k:
         raise AssertionError("rowdfa2 10k count != the packed count")
+    # The stride-2 count at K = 1, 2 and 4 lanes a window (the cap patched)
+    # on ragged windows, bodies of an odd and an even number of pairs.
+    rd10, nc10 = big.dev.row_dfa, big.compiled.num_classes
+    row_cap = krow.ROWDFA2_COUNT_MAX_LANES
+    try:
+        for body in (16 * max(rd10.halo, 8) + 6, 16 * max(rd10.halo, 8) + 8):
+            c_k = cls[: 40 * body + 77]
+            w_k = scan_batched.classes_to_device(
+                scan_batched.chunk_classes(c_k, body, rd10.halo, nc10), nc10, dev)
+            a_k = (rd10.table, w_k, rd10.halo, rd10.state_bits, rd10.num_classes)
+            packed_k = int(scan_block.packed_scan_count(pd.table, windows(big, c_k, body),
+                                                        pd.halo, pd.state_bits))
+            for K in (1, 2, 4):
+                krow.ROWDFA2_COUNT_MAX_LANES = K * w_k.shape[0]
+                if scan_block.segments(w_k.shape[0], body, rd10.halo,
+                                       krow.ROWDFA2_COUNT_MAX_LANES)[0] != K:
+                    raise AssertionError(f"rowdfa2 count: the cap does not give K = {K}")
+                kc, pc = int(krow.rowdfa2_count(*a_k)), int(krow.rowdfa_count_plain(*a_k))
+                e = max(abs(kc - pc), abs(kc - packed_k))
+                errs["rowdfa2_count"] = max(errs["rowdfa2_count"], e)
+                print(f"  rowdfa2_count K={K}, {tuple(w_k.shape)} windows, body {body} "
+                      f"({body // 2} pairs): count={kc} twin={pc} packed={packed_k}")
+                if e:
+                    raise AssertionError(f"rowdfa2_count K={K}: kernel disagrees with its twin "
+                                         f"or the packed count")
+    finally:
+        krow.ROWDFA2_COUNT_MAX_LANES = row_cap
     short_compiled = compile_matcher(keywords, "shortest", True)
     restart = port.ShortestMatchSet.from_compiled(short_compiled, engine="device", device=dev)
     short_cls = restart._classes(text[:SHORTEST_TWIN_UNITS])
     check_shortest("10k keywords x 64 Ki units", restart.dev, short_cls)
 
+    def int32_classes(arr):
+        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(dev)
+
     # The sequential scan from an entry state: dense, RowTable, restart table.
-    def check_seq(label, table, row_id, cls_np, s0):
+    def check_seq(label, table, row_id, cls_np, s0, sync=None):
+        """The serial walk (``sync`` None) or the lane scan (``sync`` = d)
+        against its twin."""
         c = torch.from_numpy(np.ascontiguousarray(cls_np, dtype=np.int32)).to(dev)
-        got = scan_dfa.seq_states(table, row_id, c, s0)
+        got = scan_dfa.seq_states(table, row_id, c, s0, sync)
         t = time.perf_counter()
-        want = scan_dfa.seq_states_plain(table, row_id, c, s0)
+        want = scan_dfa.seq_states_plain(table, row_id, c, s0, sync)
         torch.cuda.synchronize()
         t_twin = time.perf_counter() - t
         e = max_err((got,), (want,))
-        errs["seq_states"] = max(errs["seq_states"], e)
-        print(f"  seq {label}: N={len(cls_np)} s0={s0} "
+        k = "seq_states_serial" if sync is None else "seq_states"
+        errs[k] = max(errs[k], e)
+        form = "serial" if sync is None else (
+            f"lanes d={sync} L={scan_dfa.sync_lane_len(len(cls_np), sync)}")
+        print(f"  seq {label}, {form}: N={len(cls_np)} s0={s0} "
               f"{'rows ' + str(tuple(table.shape)) + ' row_id ' + str(tuple(row_id.shape)) if row_id is not None else 'dense ' + str(tuple(table.shape))} "
               f"last state={int(want[-1])} max_abs_err={e} (twin {t_twin:.2f} s)")
         if e:
@@ -1281,6 +1337,24 @@ def main() -> int:
     for n_seq in (1, 2, 2047, 2048, 2049, 1 << 16):
         for s0 in (0, s_mid_10k):
             check_seq("10k dense", *dense_tab, cls[5000: 5000 + n_seq], s0)
+    # The lane scan of the goto closure (d-synchronizing): lengths around the
+    # lane boundaries and ragged, entry states 0 and not 0, then the timed
+    # shapes; then lanes of exactly d (sync_lane_len patched: scalar stores
+    # where d is not a multiple of 4).
+    d_seq = max(big.compiled.max_depth, 1)
+    L_seq = scan_dfa.sync_lane_len(1 << 16, d_seq)
+    for n_seq in (1, d_seq - 1, d_seq, L_seq - 1, L_seq, L_seq + 1, 5 * L_seq + 3, 2049):
+        for s0 in (0, s_mid_10k):
+            check_seq("10k dense", *dense_tab, cls[5000: 5000 + n_seq], s0, d_seq)
+    for n_seq in (1 << 10, 1 << 12, 1 << 16, TEXT_UNITS):
+        check_seq("10k dense, timed shape", *dense_tab, cls[:n_seq], 0, d_seq)
+    lane_rule = scan_dfa.sync_lane_len
+    scan_dfa.sync_lane_len = lambda n, depth: depth
+    try:
+        for n_seq in (d_seq + 1, 4099, 1 << 16):
+            check_seq("10k dense, L = d", *dense_tab, cls[777: 777 + n_seq], s_mid_10k, d_seq)
+    finally:
+        scan_dfa.sync_lane_len = lane_rule
 
     class NeverDense:
         """A thresholder that keeps every table row-compressed."""
@@ -1298,28 +1372,47 @@ def main() -> int:
     assert rows_m.compiled.is_row_compressed and rows_tab[1] is not None
     rows_cls = rows_m._classes("".join(rows_rng.choice(list("abcdefgh "), size=1 << 16)))
     s_mid = int(check_seq("fuzz RowTable, warm-up", *rows_tab, rows_cls[:1000], 0)[-1]) or 1
+    d_rows = max(rows_m.compiled.max_depth, 1)
     for n_seq in (1, 2049, 1 << 16):
         for s0 in (0, s_mid):
             check_seq("fuzz RowTable", *rows_tab, rows_cls[:n_seq], s0)
+            check_seq("fuzz RowTable", *rows_tab, rows_cls[:n_seq], s0, d_rows)
+    # d = 39: the deep dictionary, dense and kept row-compressed, from the
+    # root and from its deepest state, over runs of "a" up to past 39.
+    drng = np.random.default_rng(SEED + 10)
+    deep_text = "".join("a" * int(r) + str(drng.choice(list(" the")))
+                        for r in drng.integers(1, 50, size=4000))
+    for thr, form in ((None, "dense"), (NeverDense(), "RowTable")):
+        deep_m = port.AhoCorasickSet(DEEP, engine="gold", device=dev, thresholder=thr)
+        deep_tab = deep_m.dev.seq_tables
+        d_deep = max(deep_m.compiled.max_depth, 1)
+        if d_deep != 39 or (deep_tab[1] is not None) != (thr is not None):
+            raise AssertionError(f"deep {form}: depth {d_deep}, row_id {deep_tab[1] is not None}")
+        s_deep = int(np.argmax(deep_m.compiled.depth[: deep_m.compiled.num_states]))
+        deep_cls = deep_m._classes(deep_text)
+        L_deep = scan_dfa.sync_lane_len(1 << 16, d_deep)
+        for n_seq in (1, d_deep - 1, d_deep, L_deep + 1, 5 * L_deep + 3, 1 << 16):
+            for s0 in (0, s_deep):
+                check_seq(f"deep {form}", *deep_tab, deep_cls[:n_seq], s0, d_deep)
+        scan_dfa.sync_lane_len = lambda n, depth: depth
+        try:
+            check_seq(f"deep {form}, L = d", *deep_tab, deep_cls[:4097], s_deep, d_deep)
+        finally:
+            scan_dfa.sync_lane_len = lane_rule
     # A wide alphabet (55,040 classes): the compiler row-compresses it itself.
     wide_ac_kws = [chr(c) for c in range(0x100, 0xD800)]
     wide_gold = port.AhoCorasickSet(wide_ac_kws, engine="gold", device=dev)
     assert wide_gold.compiled.is_row_compressed
     wrng = np.random.default_rng(SEED + 9)
 
-    def wide_soup(n_units):
-        """ASCII word soup with about 1% dictionary characters."""
-        units = np.frombuffer(bench_word_soup(wrng, DEMO, n_units).encode("utf-16-le"),
-                              dtype=np.uint16).copy()
-        hits = wrng.random(n_units) < 0.01
-        units[hits] = wrng.integers(0x100, 0xD800, size=int(hits.sum()))
-        return units.tobytes().decode("utf-16-le")
-
-    wide_base = wide_soup(BASE_UNITS)
+    wide_base = scan_variants.wide_soup(wrng, DEMO, BASE_UNITS)
     wide_tab = wide_gold.dev.seq_tables
     wide_cls = wide_gold._classes(wide_base[: 1 << 16])
     for s0 in (0, int(wide_cls[wide_cls > 0][0])):
         check_seq("wide alphabet RowTable", *wide_tab, wide_cls, s0)
+        check_seq("wide alphabet RowTable", *wide_tab, wide_cls[:4097], s0, 1)
+    wide_cls32 = np.tile(wide_gold._classes(wide_base), TEXT_UNITS // BASE_UNITS)
+    check_seq("wide alphabet RowTable, timed shape", *wide_tab, wide_cls32, 0, 1)
     restart_tab = stream_mod.seq_tensors(
         stream_mod._ShortestCursor._restart_table(short_compiled), dev)
     got = check_seq("10k shortest restart table", *restart_tab, short_cls, 0)
@@ -1556,18 +1649,26 @@ def main() -> int:
     # each and read just after it.
     small = text[:BASE_UNITS]
     path_launches = {}
+    path_seq = {}  # label: the units the path's sequential scans scanned
 
-    def run_path(label, expected, fn):
+    def run_path(label, expected, fn, absent=()):
+        """``expected``: kernels the path must launch; ``absent``: kernels
+        it must not."""
         port.reset_launches()
         t = time.perf_counter()
         detail = fn()
         counts = dict(port.launches)
+        seq = dict(build.seq_units)
         path_launches[label] = counts
+        path_seq[label] = seq
         print(f"path {label} ({time.perf_counter() - t:.1f} s): {detail}; launches "
-              f"{ {k: v for k, v in counts.items() if v} }")
+              f"{ {k: v for k, v in counts.items() if v} }"
+              + (f"; sequential scan units {seq}" if any(seq.values()) else ""))
         missing = [k for k in expected if counts[k] < 1]
+        missing += [f"no {k}" for k in absent if counts[k] > 0]
         if missing:
-            raise AssertionError(f"path {label}: {missing} never launched: {counts}")
+            raise AssertionError(f"path {label}: {missing} never launched (or launched when it "
+                                 f"must not): {counts}, {seq}")
 
     def resolved_ok(label, m, full_text, gold_m, probe, keep=None):
         s, e, v = m.match_triples(full_text)
@@ -1977,7 +2078,40 @@ def main() -> int:
                 f"{gold_times['facade']} s ({gold_times['facade'] * 1e9 / len(wide_text32)} ns/unit); "
                 f"== gold loop on {len(probe)} units; fuzz RowTable == gold loop [{smi}]")
 
-    run_path("row-compressed AhoCorasickSet, gold branch", ("seq_states",), rows_gold_path)
+    run_path("row-compressed AhoCorasickSet, gold branch", ("seq_states",), rows_gold_path,
+             absent=("seq_states_serial",))
+
+    def rows_shortest_path():
+        fuzz_text = "".join(rows_rng.choice(list("abcdefgh "), size=200_000))
+        sm = port.ShortestMatchSet(rows_kws, engine="gold", device=dev, thresholder=NeverDense())
+        want = [(a, b) for a, b, _ in gold.gold_match(sm.compiled, fuzz_text)]
+        if not sm.compiled.is_row_compressed or sm.match(fuzz_text) != want or not want:
+            raise AssertionError("row-compressed ShortestMatchSet: gold branch != gold loop")
+        return f"{len(want)} matches on {len(fuzz_text)} units == the gold loop"
+
+    run_path("row-compressed ShortestMatchSet, gold branch (restart table)",
+             ("seq_states_serial",), rows_shortest_path, absent=("seq_states",))
+
+    # A resume point of the pre-tail format ({"state", "off"}): the cursor
+    # scans from the carried state until the tail determines it.
+    legacy_off = 1 << 20
+    legacy_state = int(scan_dfa.seq_states(
+        *dense_tab, int32_classes(cls[:legacy_off]), 0, d_seq)[-1])
+
+    def legacy_path():
+        st = port.AhoCorasickSet(keywords, device=dev).stream()
+        st.load_state_dict({"state": legacy_state, "off": legacy_off})
+        got = feed_all(st, [3000, 1 << 20], legacy_off, legacy_off + 3000 + (1 << 20))
+        s, e, _ = big.match_triples(text[: legacy_off + 3000 + (1 << 20)])
+        keep = e > legacy_off
+        want = np.stack([s[keep], e[keep]], axis=1)
+        if not np.array_equal(np.asarray(got, dtype=np.int64).reshape(-1, 2), want):
+            raise AssertionError(f"legacy resume: {len(got)} matches != {len(want)}")
+        return (f"resumed from state {legacy_state} at unit {legacy_off}: {len(got)} matches == "
+                f"match_triples past it")
+
+    run_path("AhoCorasickSet stream, legacy resume", ("seq_states",), legacy_path,
+             absent=("seq_states_serial",))
 
     # match(text, listener): False on the first match stops the scan.
     early = {}
@@ -2128,26 +2262,39 @@ def main() -> int:
     run_path("ShardedScanner 1M keywords", ("packedcount_count", "packedcount_hotstate_plane"),
              sharded_1m_path)
 
-    def int32_classes(arr):
-        return torch.from_numpy(np.ascontiguousarray(arr, dtype=np.int32)).to(dev)
-
     demo32 = demo_m._classes((demo_text * (TEXT_UNITS // len(demo_text) + 1))[:TEXT_UNITS])
+
+    # The references, made before the path so that its counts hold only the
+    # stitched scan: the serial walk, and the lane scan held to it far past
+    # the lengths phase 3 holds it to the serial twin.
+    arrival_cases = []
+    for label, table, c, d in (
+            ("demo dictionary", demo_tab, demo32, max(demo_m.compiled.max_depth, 1)),
+            ("10k dictionary", dense_tab[0], cls[:ARRIVAL_UNITS_10K], d_seq)):
+        c_d = int32_classes(c)
+        want = timed(f"seq_states_serial, {label}, {len(c)} units",
+                     lambda: scan_dfa.seq_states(table, None, c_d, 0).cpu().numpy())
+        lanes = timed(f"seq_states (lane scan, d = {d}), {label}, {len(c)} units",
+                      lambda: scan_dfa.seq_states(table, None, c_d, 0, d).cpu().numpy())
+        if not np.array_equal(lanes, want):
+            raise AssertionError(f"lane scan != seq_states_serial ({label})")
+        print(f"  arrival reference {label}, table {tuple(table.shape)}, {len(c)} units: "
+              f"the lane scan (d = {d}) == seq_states_serial")
+        arrival_cases.append((label, table, c, want))
 
     def arrival_path():
         out = []
-        for label, table, c in (("demo dictionary", demo_tab, demo32),
-                                ("10k dictionary", dense_tab[0], cls[:ARRIVAL_UNITS_10K])):
+        for label, table, c, want in arrival_cases:
             got = timed(f"sharded_arrival_states, {label}, {len(c)} units",
                         lambda: sharding.sharded_arrival_states(table, c, mesh))
-            want = timed(f"seq_states, {label}, {len(c)} units",
-                         lambda: scan_dfa.seq_states(table, None, int32_classes(c), 0).cpu().numpy())
             if not np.array_equal(got, want):
-                raise AssertionError(f"sharded arrival states != seq_states ({label})")
-            out.append(f"{label}, table {tuple(table.shape)}, {len(c)} units: == seq_states "
-                       f"(last state {int(got[-1])})")
+                raise AssertionError(f"sharded arrival states != seq_states_serial ({label})")
+            out.append(f"{label}, table {tuple(table.shape)}, {len(c)} units: == "
+                       f"seq_states_serial (last state {int(got[-1])})")
         return "; ".join(out)
 
-    run_path("sharded_arrival_states", ("state_maps", "entry_fold", "rescan"), arrival_path)
+    run_path("sharded_arrival_states", ("state_maps", "entry_fold", "rescan"), arrival_path,
+             absent=("seq_states", "seq_states_serial"))
 
     def sharded_stream_path():
         def feed_arrays(st, pieces, start):
@@ -2188,8 +2335,8 @@ def main() -> int:
                 f"{tuple(example[1].shape)} windows, {int((widen(got) != 0).sum())} hot positions")
 
     run_path("graft_entry", ("packed_scan_count", "packed_scan_planes", "wwl_scan_plane",
-                             "wwl_sweep_all", "state_maps", "entry_fold", "rescan", "seq_states",
-                             "table_sharded_scan"),
+                             "wwl_sweep_all", "state_maps", "entry_fold", "rescan",
+                             "seq_states_serial", "table_sharded_scan"),
              graft_path)
 
     # The table-sharded scanner: the same mesh read as a model mesh, the
@@ -2598,21 +2745,35 @@ def main() -> int:
           f"({t_s1m * 1e6 / len(small)} ns/unit); plain twin {t_p64} ms on {len(short_cls)} "
           f"units ({t_p64 * 1e6 / len(short_cls)} ns/unit) [{smi}]")
 
-    q16, q64 = int32_classes(cls[: 1 << 14]), int32_classes(cls[: 1 << 16])
+    q64 = int32_classes(cls[: 1 << 16])
+    q32 = int32_classes(cls)
     q_short = int32_classes(short_cls)
     q_wide = int32_classes(wide_gold._classes(wide_base))
-    t_q16 = cuda_ms(lambda: scan_dfa.seq_states(*dense_tab, q16, 0), 5)
+    q_wide32 = int32_classes(wide_cls32)
+    # The lane scan (sync_depth = d) at the timed shapes, each held against
+    # its twin in phase 3; the serial walk on the dense and restart tables.
+    t_sync = {n: cuda_ms(lambda n=n: scan_dfa.seq_states(*dense_tab, q32[:n], 0, d_seq), 20)
+              for n in (1 << 10, 1 << 12, 1 << 16, TEXT_UNITS)}
+    t_sync_wide = cuda_ms(lambda: scan_dfa.seq_states(*wide_tab, q_wide32, 0, 1), 20)
     t_q64 = cuda_ms(lambda: scan_dfa.seq_states(*dense_tab, q64, 0), 3)
     t_qr = cuda_ms(lambda: scan_dfa.seq_states(*restart_tab, q_short, 0), 3)
     t_qw = cuda_ms(lambda: scan_dfa.seq_states(*wide_tab, q_wide, 0), 1)
-    t_qp = cuda_ms(lambda: scan_dfa.seq_states_plain(*dense_tab, q64, 0), 1)
-    ms["seq_states"] = (t_q64, t_qp)
-    print(f"time seq_states: dense 10k table {t_q16} ms on {len(q16)} units "
-          f"({t_q16 * 1e6 / len(q16)} ns/unit), {t_q64} ms on {len(q64)} units "
+    t_qp = cuda_ms(lambda: scan_dfa.seq_states_plain(*dense_tab, q64, 0, d_seq), 2)
+    t_qps = cuda_ms(lambda: scan_dfa.seq_states_plain(*dense_tab, q64, 0), 1)
+    ms["seq_states"] = (t_sync[1 << 16], t_qp)
+    ms["seq_states_serial"] = (t_q64, t_qps)
+    print("time seq_states, lane scan (d = " + str(d_seq) + "): dense 10k table " + "; ".join(
+        f"{t} ms on {n} units ({t * 1e6 / n} ns/unit, L = {scan_dfa.sync_lane_len(n, d_seq)})"
+        for n, t in t_sync.items())
+          + f"; wide-alphabet RowTable (d = 1) {t_sync_wide} ms on {len(q_wide32)} units "
+          f"({t_sync_wide * 1e6 / len(q_wide32)} ns/unit, L = "
+          f"{scan_dfa.sync_lane_len(len(q_wide32), 1)}); plain twin {t_qp} ms on {len(q64)} "
+          f"units [{smi}]")
+    print(f"time seq_states, serial walk: dense 10k table {t_q64} ms on {len(q64)} units "
           f"({t_q64 * 1e6 / len(q64)} ns/unit); 10k shortest restart table {t_qr} ms on "
           f"{len(q_short)} units ({t_qr * 1e6 / len(q_short)} ns/unit); wide-alphabet RowTable "
           f"{t_qw} ms on {len(q_wide)} units ({t_qw * 1e6 / len(q_wide)} ns/unit); plain twin "
-          f"{t_qp} ms on {len(q64)} units ({t_qp * 1e6 / len(q64)} ns/unit) [{smi}]")
+          f"{t_qps} ms on {len(q64)} units [{smi}]")
     print(f"time streams on {len(text)} units in {len(sizes)} uneven feeds: "
           + "; ".join(f"{k} {v} s ({2 * len(text) / v / 1e9} GB/s)"
                       for k, v in stream_times.items())
@@ -2770,8 +2931,14 @@ def main() -> int:
           f"max_abs_err={e_split}")
     if kc != pc or e_hot or kpc != ppc or e_split:
         raise AssertionError("a redesigned kernel disagrees with its twin at its timed shape")
-    ab = scan_variants.run(args, cargs, sargs1m, scan_variants.library())
+    variants_lib = scan_variants.library()
+    ab = scan_variants.run(args, cargs, sargs1m, variants_lib)
     print(f"ab scan_variants {json.dumps({'card': smi, **ab})}")
+    ab = scan_variants.rowdfa2_ab(rowdfa_ms["10k keywords x 32 Mi units"]["args"], variants_lib)
+    print(f"ab rowdfa2 {json.dumps({'card': smi, **ab})}")
+    ab = scan_variants.seq_ab({"10k dense": (*dense_tab, q32, d_seq),
+                               "wide RowTable": (*wide_tab, q_wide32, 1)})
+    print(f"ab seq {json.dumps({'card': smi, **ab})}")
 
     # The row-sharded scan beside the single-table kernels on the same
     # windows: the 10k table (every mode; the payload is an emit mask, so
@@ -3020,6 +3187,23 @@ def main() -> int:
 
     timed_stream("AhoCorasickSet")
     timed_stream("LongestMatchSet")
+
+    # The row-compressed gold branch (one cursor feed over the RowTable form
+    # of the lane scan), stage by stage, beside the facade's median.
+    stages = {}
+    gold_runs = host_s(lambda: wide_gold.match_triples(wide_text32), 3)
+    c = stage("classes", lambda: wide_gold._classes(wide_text32))
+    cd = stage("upload (int32 classes)", lambda: int32_classes(c))
+    st = stage("lane scan kernel", lambda: scan_dfa.seq_states(*wide_tab, cd, 0, 1))
+    sh = stage("download of states", lambda: st.cpu().numpy())
+    trip = stage("expand_state_emits", lambda: stream_mod.expand_state_emits(
+        wide_gold.compiled, sh, 0))
+    stage("triples: tuple list, then arrays", lambda: np.asarray(
+        list(zip(*(x.tolist() for x in trip))), dtype=np.int64))
+    print(f"gold branch stages on {len(wide_text32)} units, wide-alphabet RowTable "
+          f"({len(trip[0])} matches): facade match_triples median {sorted(gold_runs)[1]} s "
+          f"(runs {gold_runs}); " + "; ".join(f"{k} {v} s" for k, v in stages.items())
+          + f" [{smi}]")
 
     # The 1M dictionary's match path, stage by stage (hotstate layout).
     stages = {}
@@ -3309,7 +3493,9 @@ def main() -> int:
                                        4 * chars5),
         "split_count": (nbytes(w5s) + 8, 6 * chars5),
         "split_emit_planes": (nbytes(w5s, khuge.split_emit_planes(*sargs1m)), 6 * chars5),
+        # classes in, states out; a lookup and an index per unit
         "seq_states": (8 * len(q64), 2 * len(q64)),
+        "seq_states_serial": (8 * len(q64), 2 * len(q64)),
         # the plane once, four int32 and one bool plane out
         "wwl_sweep_all": (4 * (per_w + d10 + 1)
                           + nbytes(kwwl.wwl_sweep_all(*all_args, **skw)), 6 * per_w),
@@ -3364,9 +3550,33 @@ def main() -> int:
           f"{library['compact_planes']} ms [{smi}]")
 
     # Where the main path loses most to the bounds: launches x (ms - bound).
-    gap = sorted(((counts[k] * (ms[k][0] - bounds[k][0]), k) for k in KERNELS), reverse=True)
-    print("launches x gap to bound (ms): " + "; ".join(
-        f"{k} {counts[k]} x ({ms[k][0]} - {bounds[k][0]}) = {g}" for g, k in gap) + f" [{smi}]")
+    # The sequential scans' launches scan from 1 unit to 32 Mi, so their gaps
+    # are taken over the units they scanned: the lane scan's time as a cost a
+    # launch plus a cost a unit (fitted to its 1 Ki and 32 Mi timings), the
+    # serial walk's as a cost a unit (at 64 Ki), each less the bytes bound of
+    # its units.
+    seq_u = {k: sum(c[k] for c in path_seq.values()) for k in build.seq_units}
+    per_unit_sync = (t_sync[TEXT_UNITS] - t_sync[1 << 10]) / (TEXT_UNITS - (1 << 10))
+    fixed_sync = t_sync[1 << 10] - (1 << 10) * per_unit_sync
+    per_unit_serial = t_q64 / len(q64)
+    seq_time = {"seq_states": counts["seq_states"] * fixed_sync
+                + seq_u["seq_states"] * per_unit_sync,
+                "seq_states_serial": seq_u["seq_states_serial"] * per_unit_serial}
+    seq_bound = {k: 8 * u / PEAK_BYTES_PER_S * 1e3 for k, u in seq_u.items()}
+    gaps = {k: counts[k] * (ms[k][0] - bounds[k][0]) for k in KERNELS}
+    gaps.update({k: seq_time[k] - seq_bound[k] for k in seq_time})
+    print(f"sequential scans on the paths: {counts['seq_states']} lane scans over "
+          f"{seq_u['seq_states']} units, modelled {seq_time['seq_states']} ms = "
+          f"{counts['seq_states']} x {fixed_sync} ms + {seq_u['seq_states']} x {per_unit_sync} "
+          f"ms, bound {seq_bound['seq_states']} ms; {counts['seq_states_serial']} serial walks "
+          f"over {seq_u['seq_states_serial']} units, modelled {seq_time['seq_states_serial']} "
+          f"ms = {seq_u['seq_states_serial']} x {per_unit_serial} ms, bound "
+          f"{seq_bound['seq_states_serial']} ms [{smi}]")
+    gap = sorted(((g, k) for k, g in gaps.items()), reverse=True)
+    print("launches x gap to bound (ms; the sequential scans over their units): " + "; ".join(
+        f"{k} {counts[k]} x ({ms[k][0]} - {bounds[k][0]}) = {g}" if k not in seq_time else
+        f"{k} {seq_u[k]} units: {seq_time[k]} - {seq_bound[k]} = {g}" for g, k in gap)
+          + f" [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - t_start} s from the build to here [{smi}]")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": KERNELS[k][0], "replaces": KERNELS[k][1],
