@@ -1,9 +1,9 @@
-// Designs of the count kernel, the hotstate plane, the count-packed count and
-// the split emit planes that the package does not use, kept so that
+// Designs of the count kernel, the hotstate plane, the count-packed count,
+// the split emit planes, the stride-2 count, the row-sharded scan and the
+// whole-word-longest die sweep that the package does not use, kept so that
 // python -m ahocorasick_tpu_torch.bench.scan_variants can time them beside
-// csrc/packed_scan.cu's packed_scan_count and csrc/huge_scan.cu's
-// packedcount_hotstate_plane, packedcount_count and split_emit_planes on the
-// card.
+// the package's kernels (csrc/packed_scan.cu, huge_scan.cu, rowdfa2_scan.cu,
+// table_sharded.cu, wwl_scan.cu) on the card.
 //
 // Each computes exactly the package's function (the same table contract; see
 // the source notes of those files) and differs in how a lane reads its
@@ -34,11 +34,23 @@
 //   * rowdfa2_count_bytes: the stride-2 count (csrc/rowdfa2_scan.cu) with
 //     one lane per window and a class load a step (the stride-2 count before
 //     its redesign).
+//   * table_sharded_first: the row-sharded scan (csrc/table_sharded.cu) in
+//     its first design, one lane per window with a class load a step, the
+//     owner's index by an integer division and its base pointer by a global
+//     load in the chain, the planes modes storing 4 bytes a step at the
+//     lane's own row.
+//   * sweep_variant: the whole-word-longest die sweep (csrc/wwl_scan.cu
+//     wwl_sweep_at and wwl_sweep_all) in its first design, a plane load only
+//     after the test on the one before and the pre-die word read again
+//     (group 0), and csrc/sweep.cuh's grouped sweep at G = 1, 2, 4, 8 and 16
+//     loads a group, read from the plane or from a warp's span of the plane
+//     staged in shared memory.
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "../csrc/sweep.cuh"
 #include "../csrc/tile.cuh"
 
 namespace {
@@ -158,9 +170,9 @@ __global__ void __launch_bounds__(kThreads)
                                int halo, uint32_t num_classes, int state_bits, int segments,
                                int seg_len, bool vec, uint32_t* __restrict__ out) {
   __shared__ uint32_t tiles[kThreads * tile::kPitch];
-  tile::planes_lane<ClassBytes<T>>(table, windows, num_windows, width, halo, num_classes,
-                                   (1u << state_bits) - 1u, segments, seg_len, vec, tiles, out,
-                                   HotEntry{state_bits});
+  tile::planes_lane<ClassBytes<T>>(tile::Dense{table, num_classes}, windows, num_windows, width,
+                                   halo, (1u << state_bits) - 1u, segments, seg_len, vec, tiles,
+                                   out, HotEntry{state_bits});
 }
 
 template <typename T>
@@ -216,9 +228,9 @@ __global__ void __launch_bounds__(kThreads)
                         uint32_t num_classes, int segments, int seg_len, bool vec,
                         uint32_t* __restrict__ out) {
   __shared__ uint32_t tiles[kThreads * tile::kPitch];
-  tile::planes_lane<tile::ClassWords<T>>(dfa, windows, num_windows, width, halo, num_classes,
-                                         0xffffffffu, segments, seg_len, vec, tiles, out,
-                                         EmitInline{emit});
+  tile::planes_lane<tile::ClassWords<T>>(tile::Dense{dfa, num_classes}, windows, num_windows,
+                                         width, halo, 0xffffffffu, segments, seg_len, vec, tiles,
+                                         out, EmitInline{emit});
 }
 
 template <typename T>
@@ -472,5 +484,319 @@ extern "C" int rowdfa2_count_bytes(const void* table, const void* windows, int w
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The row-sharded scan's first design (csrc/table_sharded.cu before it ran on
+// the lane loops): one thread a window, a class load a step, the owner found
+// by an integer division and its base pointer by a global load in the chain,
+// and the planes modes storing 4 bytes a step at the lane's own row.
+
+namespace {
+
+struct FirstShards {
+  const uint32_t* const* base;  // a device array of n_model pointers
+  uint32_t n_model;
+  uint32_t rows_per;
+  uint32_t stride;
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t first_lookup(const FirstShards& t, uint32_t s, T c) {
+  const uint32_t k = s / t.rows_per;
+  if (k >= t.n_model) return 0u;
+  const uint32_t rel = s - k * t.rows_per;
+  const auto* shard = reinterpret_cast<const uint32_t*>(
+      __ldg(reinterpret_cast<const unsigned long long*>(t.base) + k));
+  return __ldg(shard + (static_cast<uint64_t>(rel) * t.stride + static_cast<uint32_t>(c)));
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    tp_first_count_kernel(FirstShards t, const T* __restrict__ windows, int64_t num_windows,
+                          int width, int halo, int state_bits,
+                          unsigned long long* __restrict__ out) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  unsigned long long total = 0;
+  if (b < num_windows) {
+    const T* row = windows + b * width;
+    const uint32_t smask = (1u << state_bits) - 1u;
+    uint32_t s = 0;
+    for (int i = 0; i < halo; ++i) s = first_lookup(t, s, row[i]) & smask;
+    for (int i = halo; i < width; ++i) {
+      const uint32_t v = first_lookup(t, s, row[i]);
+      const uint32_t hi = v >> state_bits;
+      total += MODE == 0 ? static_cast<uint32_t>(__popc(hi)) : hi;
+      s = v & smask;
+    }
+  }
+  tile::block_add<kThreads>(total, out);
+}
+
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    tp_first_plane_kernel(FirstShards t, const T* __restrict__ windows, int64_t num_windows,
+                          int width, int halo, int state_bits, uint32_t* __restrict__ out) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (b >= num_windows) return;
+  const T* row = windows + b * width;
+  const uint32_t smask = (1u << state_bits) - 1u;
+  uint32_t s = 0;
+  for (int i = 0; i < halo; ++i) s = first_lookup(t, s, row[i]) & smask;
+  uint32_t* dst = out + b * (width - halo);
+  for (int i = halo; i < width; ++i) {
+    const uint32_t v = first_lookup(t, s, row[i]);
+    const uint32_t hi = v >> state_bits;
+    dst[i - halo] = MODE == 2 ? hi : MODE == 3 ? (hi != 0u ? v : 0u) : v;
+    s = v & smask;
+  }
+}
+
+template <typename T>
+void tp_first_launch(const FirstShards& t, const void* windows, int64_t num_windows, int width,
+                     int halo, int state_bits, int mode, void* out, cudaStream_t st) {
+  const auto* w = static_cast<const T*>(windows);
+  const unsigned grid = grid_for(num_windows);
+  auto* total = static_cast<unsigned long long*>(out);
+  auto* plane = static_cast<uint32_t*>(out);
+  switch (mode) {
+    case 0:
+      tp_first_count_kernel<T, 0><<<grid, kThreads, 0, st>>>(t, w, num_windows, width, halo,
+                                                             state_bits, total);
+      break;
+    case 1:
+      tp_first_count_kernel<T, 1><<<grid, kThreads, 0, st>>>(t, w, num_windows, width, halo,
+                                                             state_bits, total);
+      break;
+    case 2:
+      tp_first_plane_kernel<T, 2><<<grid, kThreads, 0, st>>>(t, w, num_windows, width, halo,
+                                                             state_bits, plane);
+      break;
+    case 3:
+      tp_first_plane_kernel<T, 3><<<grid, kThreads, 0, st>>>(t, w, num_windows, width, halo,
+                                                             state_bits, plane);
+      break;
+    default:
+      tp_first_plane_kernel<T, 4><<<grid, kThreads, 0, st>>>(t, w, num_windows, width, halo,
+                                                             state_bits, plane);
+      break;
+  }
+}
+
+}  // namespace
+
+// The arguments of table_sharded_scan, segments included (they must be 1:
+// one lane per window; the division constants are not used).  The shards
+// must lie on `device`.
+extern "C" int table_sharded_first(const void* shards, const int* owners, int n_model,
+                                   int64_t rows_per, int stride, int64_t magic, int64_t add,
+                                   int shift, const void* windows, int window_bytes,
+                                   int64_t num_windows, int width, int halo, int state_bits,
+                                   int mode, int segments, int seg_len, void* out, int device,
+                                   void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n_model < 1 || rows_per < 1 || rows_per > 0xffffffffLL || stride < 1 || mode < 0 ||
+      mode > 4 || segments != 1 || seg_len != width - halo)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const FirstShards t{static_cast<const uint32_t* const*>(shards),
+                      static_cast<uint32_t>(n_model), static_cast<uint32_t>(rows_per),
+                      static_cast<uint32_t>(stride)};
+  auto st = static_cast<cudaStream_t>(stream);
+  if (window_bytes == 1) {
+    tp_first_launch<uint8_t>(t, windows, num_windows, width, halo, state_bits, mode, out, st);
+  } else if (window_bytes == 2) {
+    tp_first_launch<uint16_t>(t, windows, num_windows, width, halo, state_bits, mode, out, st);
+  } else if (window_bytes == 4) {
+    tp_first_launch<int32_t>(t, windows, num_windows, width, halo, state_bits, mode, out, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// The whole-word-longest die sweep: its first design (a plane load only after
+// the test on the one before, the pre-die word read again), and the grouped
+// sweep of csrc/sweep.cuh at other groups G and with the staging on or off.
+
+namespace {
+
+__device__ __forceinline__ void first_sweep_one(
+    const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
+    const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows, int64_t i,
+    int32_t w, int64_t live, int d, int id_bits, int depth_bits, int cross,
+    int32_t* __restrict__ die_pos, bool* __restrict__ has, int32_t* __restrict__ m_start,
+    int32_t* __restrict__ m_end, int32_t* __restrict__ m_val, bool* __restrict__ cont) {
+  const uint32_t idmask = (1u << id_bits) - 1u;
+  const uint32_t dmask = (1u << depth_bits) - 1u;
+  int32_t kd = 0;
+  bool die_word = false, crossed = false;
+  int32_t s_last = 0;
+  if (w >= 0 && w < live) {
+    kd = -1;
+    for (int k = 0; k <= d; ++k) {
+      const uint32_t v = __ldg(plane + (static_cast<int64_t>(w) + k));
+      if (((v >> id_bits) & dmask) <= static_cast<uint32_t>(k)) {
+        kd = k;
+        die_word = (v >> (id_bits + depth_bits)) & 1u;
+        crossed = cross && k > 0 && ((v >> (id_bits + depth_bits + 1)) & 1u);
+        break;
+      }
+    }
+    if (kd > 0) {
+      const int64_t p = static_cast<int64_t>(w) + kd - 1;
+      s_last = entry != nullptr ? __ldg(rows_flat + __ldg(entry + p))
+                                : static_cast<int32_t>(__ldg(plane + p) & idmask);
+    }
+  }
+  sweep::write_outcome(outrows, i, w, kd, die_word, crossed, s_last, die_pos, has, m_start,
+                       m_end, m_val, cont);
+}
+
+// starts null: the sweep at every position 0 .. num_starts-1.
+__global__ void __launch_bounds__(kThreads)
+    first_sweep_kernel(const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
+                       const int32_t* __restrict__ rows_flat,
+                       const int32_t* __restrict__ outrows, const int32_t* __restrict__ starts,
+                       int64_t num_starts, int64_t live, int d, int id_bits, int depth_bits,
+                       int cross, int32_t* __restrict__ die_pos, bool* __restrict__ has,
+                       int32_t* __restrict__ m_start, int32_t* __restrict__ m_end,
+                       int32_t* __restrict__ m_val, bool* __restrict__ cont) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= num_starts) return;
+  first_sweep_one(plane, entry, rows_flat, outrows, i,
+                  starts != nullptr ? starts[i] : static_cast<int32_t>(i), live, d, id_bits,
+                  depth_bits, cross, die_pos, has, m_start, m_end, m_val, cont);
+}
+
+constexpr int kStageWords = 256;  // a warp's staged span of the plane
+
+// The grouped sweep with a warp's span of the plane staged in shared memory:
+// the warp copies [min w, max w + d] over its lanes' walking starts with
+// coalesced loads (the sorted starts of compact_lanes lie within a few
+// hundred positions; at every position the span is 32 + d), and its walks
+// read their groups from there; a warp whose span is longer than
+// kStageWords reads from the plane.  `starts` null: slot i starts at i.
+template <int G>
+__global__ void __launch_bounds__(kThreads)
+    staged_sweep_kernel(const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
+                        const int32_t* __restrict__ rows_flat,
+                        const int32_t* __restrict__ outrows, const int32_t* __restrict__ starts,
+                        int64_t n, int64_t live, int d, int id_bits, int depth_bits, int cross,
+                        int32_t* __restrict__ die_pos, bool* __restrict__ has,
+                        int32_t* __restrict__ m_start, int32_t* __restrict__ m_end,
+                        int32_t* __restrict__ m_val, bool* __restrict__ cont) {
+  __shared__ uint32_t stage[kThreads / 32][kStageWords];
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const bool in = i < n;
+  const int32_t w = !in ? -1 : starts != nullptr ? __ldg(starts + i) : static_cast<int32_t>(i);
+  const bool walk = in && w >= 0 && w < live;
+  const int lane = threadIdx.x & 31;
+  uint32_t* mine = stage[threadIdx.x >> 5];
+  const uint32_t lo =
+      __reduce_min_sync(0xffffffffu, walk ? static_cast<uint32_t>(w) : 0xffffffffu);
+  const uint32_t hi = __reduce_max_sync(0xffffffffu, walk ? static_cast<uint32_t>(w) : 0u);
+  const bool staged = lo <= hi && hi - lo + static_cast<uint32_t>(d) < kStageWords;
+  if (staged) {
+    const int span = static_cast<int>(hi - lo) + d + 1;
+    for (int k = lane; k < span; k += 32) mine[k] = __ldg(plane + lo + k);
+    __syncwarp();
+  }
+  sweep::Die r{0, false, false, 0u};
+  if (walk) {
+    r = staged ? sweep::die_of<G>(mine + (w - lo), false, d, id_bits, depth_bits, cross)
+               : sweep::die_of<G>(plane + w, true, d, id_bits, depth_bits, cross);
+  }
+  if (in) {
+    sweep::finish_slot(entry, rows_flat, outrows, i, w, r, id_bits, die_pos, has, m_start, m_end,
+                       m_val, cont);
+  }
+}
+
+template <int G, bool kStaged>
+void grouped_sweep(const uint32_t* plane, const int32_t* entry, const int32_t* rows_flat,
+                   const int32_t* outrows, const int32_t* starts, int64_t n, int64_t live, int d,
+                   int id_bits, int depth_bits, int cross, int32_t* die_pos, bool* has,
+                   int32_t* m_start, int32_t* m_end, int32_t* m_val, bool* cont,
+                   cudaStream_t st) {
+  if (kStaged) {
+    staged_sweep_kernel<G><<<grid_for(n), kThreads, 0, st>>>(
+        plane, entry, rows_flat, outrows, starts, n, live, d, id_bits, depth_bits, cross, die_pos,
+        has, m_start, m_end, m_val, cont);
+  } else if (starts != nullptr) {
+    sweep::sweep_kernel<G><<<grid_for(n), kThreads, 0, st>>>(
+        plane, entry, rows_flat, outrows, starts, n, live, d, id_bits, depth_bits, cross, die_pos,
+        has, m_start, m_end, m_val, cont);
+  } else {
+    sweep::sweep_all_kernel<G><<<grid_for(n), kThreads, 0, st>>>(
+        plane, entry, rows_flat, outrows, n, live, d, id_bits, depth_bits, cross, die_pos, has,
+        m_start, m_end, m_val, cont);
+  }
+}
+
+template <bool kStaged>
+bool grouped_sweep_g(int group, const uint32_t* plane, const int32_t* entry,
+                     const int32_t* rows_flat, const int32_t* outrows, const int32_t* starts,
+                     int64_t n, int64_t live, int d, int id_bits, int depth_bits, int cross,
+                     int32_t* die_pos, bool* has, int32_t* m_start, int32_t* m_end,
+                     int32_t* m_val, bool* cont, cudaStream_t st) {
+#define GROUP(g)                                                                            \
+  case g:                                                                                   \
+    grouped_sweep<g, kStaged>(plane, entry, rows_flat, outrows, starts, n, live, d, id_bits, \
+                              depth_bits, cross, die_pos, has, m_start, m_end, m_val, cont,  \
+                              st);                                                           \
+    return true;
+  switch (group) {
+    GROUP(1)
+    GROUP(2)
+    GROUP(4)
+    GROUP(8)
+    GROUP(16)
+    default:
+      return false;
+  }
+#undef GROUP
+}
+
+}  // namespace
+
+// The arguments of wwl_sweep_at with `starts` (null: wwl_sweep_all's sweep at
+// every position 0 .. num_starts-1), and the design: group 0 is the first
+// design; G = 1, 2, 4, 8 or 16 the grouped sweep, staged or not.
+extern "C" int sweep_variant(int group, int staged, const void* plane, const void* entry,
+                             const void* rows_flat, const void* outrows, const void* starts,
+                             int64_t num_starts, int64_t live, int d, int id_bits, int depth_bits,
+                             int cross, void* die_pos, void* has, void* m_start, void* m_end,
+                             void* m_val, void* cont, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_starts < 1 || d < 0 || (entry == nullptr) != (rows_flat == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* p = static_cast<const uint32_t*>(plane);
+  const auto* e = static_cast<const int32_t*>(entry);
+  const auto* rf = static_cast<const int32_t*>(rows_flat);
+  const auto* o = static_cast<const int32_t*>(outrows);
+  const auto* s = static_cast<const int32_t*>(starts);
+  auto* dp = static_cast<int32_t*>(die_pos);
+  auto* h = static_cast<bool*>(has);
+  auto* ms = static_cast<int32_t*>(m_start);
+  auto* me = static_cast<int32_t*>(m_end);
+  auto* mv = static_cast<int32_t*>(m_val);
+  auto* c = static_cast<bool*>(cont);
+  auto st = static_cast<cudaStream_t>(stream);
+  bool ok = true;
+  if (group == 0) {
+    first_sweep_kernel<<<grid_for(num_starts), kThreads, 0, st>>>(
+        p, e, rf, o, s, num_starts, live, d, id_bits, depth_bits, cross, dp, h, ms, me, mv, c);
+  } else if (staged) {
+    ok = grouped_sweep_g<true>(group, p, e, rf, o, s, num_starts, live, d, id_bits, depth_bits,
+                               cross, dp, h, ms, me, mv, c, st);
+  } else {
+    ok = grouped_sweep_g<false>(group, p, e, rf, o, s, num_starts, live, d, id_bits, depth_bits,
+                                cross, dp, h, ms, me, mv, c, st);
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
   return static_cast<int>(cudaGetLastError());
 }

@@ -1,4 +1,4 @@
-"""The designs of six scan kernels, timed side by side on the card.
+"""The designs of the scan kernels, timed side by side on the card.
 
     python -m ahocorasick_tpu_torch.bench.scan_variants
 
@@ -41,7 +41,23 @@ and 65,536 windows of the 10k dictionary's stride-2 table (152 MB).
 units) beside its lane scan (``seq_states_sync``) at several lane lengths L,
 on 1 Ki, 4 Ki, 64 Ki and 32 Mi units of the 10k dense table and of a
 55,040-class RowTable (``wide_soup`` over the demo dictionary of
-``graft_entry``), each checked against the wrapper.
+``graft_entry``), each checked against the wrapper.  ``tp_ab``: the
+row-sharded scan (``csrc/table_sharded.cu``, the lane loops over row shards)
+at K = 1, 2 and 4 beside its first design (``table_sharded_first`` here) on
+the first 8,192, 32,768 and 65,536 windows of the 10k table in 8 shards.
+``sweep_ab``: the whole-word-longest die sweep (``csrc/sweep.cuh``) at
+several loads a group, staged in shared memory and not, beside its first
+design, at the 10k cell's start slots and at every position of 4 Mi.
+
+    python -m ahocorasick_tpu_torch.bench.scan_variants --against DIR
+
+times instead the kernels on ``csrc/tile.cuh``'s lane loops
+(``packed_scan_count``, ``packed_scan_planes``, ``packedcount_count``,
+``packedcount_hotstate_plane``, ``split_emit_planes``) built from this
+checkout and from the ``csrc/`` of another checkout at ``DIR`` (the parent
+commit, unpacked with ``git archive``), in one process on the same cells at
+the rule's K: each pair's outputs equal bit for bit, then other, this, this,
+other.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -97,6 +113,10 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     lib.rowdfa2_count_bytes.argtypes = build.ARGTYPES["rowdfa2_count"]
     lib.rowdfa2_count_bytes.restype = ctypes.c_int
+    lib.table_sharded_first.argtypes = build.ARGTYPES["table_sharded_scan"]
+    lib.table_sharded_first.restype = ctypes.c_int
+    lib.sweep_variant.argtypes = [ctypes.c_int, ctypes.c_int, *build.ARGTYPES["wwl_sweep_at"]]
+    lib.sweep_variant.restype = ctypes.c_int
     return lib
 
 
@@ -299,6 +319,119 @@ def rowdfa2_ab(cell: tuple, lib=None) -> dict:
             "rowdfa2_count_ms": ms}
 
 
+def tp_ab(cell: tuple, lib=None, modes=("count", "planes", "hotstate")) -> dict:
+    """The row-sharded scan's A/B.  ``cell``: ``(ShardedTable, windows, halo,
+    state_bits)`` of ``table_sharded_scan`` on the card, at least 65,536
+    windows.  Its first design (one lane per window, ``table_sharded_first``
+    here) beside the package's kernel at K = 1, 2 and 4, in each of
+    ``modes``, on the first 8,192, 32,768 and 65,536 windows."""
+    import ctypes as ct
+
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    lib = library() if lib is None else lib
+    package = build.library()
+    st, w, halo, sb = cell
+    dev = w.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = st.pointers(dev)
+    owners = (ct.c_int * st.n_model)(*[t.device.index or 0 for t in st.shards])
+    W = w.shape[1]
+    C = W - halo
+    record = {}
+    for mode in modes:
+        counting = mode in ("count", "count_packed")
+
+        def launcher(fn, b, k, out):
+            def launch():
+                rc = fn(ptrs.data_ptr(), owners, st.n_model, st.rows_per, st.stride, *st.divisor,
+                        w.data_ptr(), ktp._WINDOW_BYTES[w.dtype], b, W, halo, sb,
+                        ktp.MODES.index(mode), k, _seg_len(C, k), out.data_ptr(),
+                        dev.index or 0, stream)
+                if rc != 0:
+                    raise RuntimeError(f"row-sharded launch failed: CUDA error {rc}")
+            return launch
+
+        def runs(b, out):
+            out_runs = {"first K=1": launcher(lib.table_sharded_first, b, 1, out)}
+            out_runs.update({f"lane K={k}": launcher(package.table_sharded_scan, b, k, out)
+                             for k in (1, 2, 4)})
+            return out_runs
+
+        if counting:
+            record[mode] = _count_ab(
+                f"row-sharded {mode}", w,
+                lambda b: ktp.table_sharded_scan(st, w[:b], halo, sb, mode), runs)
+        else:
+            record[mode] = _planes_ab(f"row-sharded {mode}", w, halo, 1,
+                                      ktp.table_sharded_scan(st, w, halo, sb, mode), runs)
+    torch.cuda.synchronize()
+    return {"tp_cell": {"windows": list(w.shape), "halo": halo, "shards": st.n_model,
+                        "rows_per": st.rows_per,
+                        "rule_K": {mode: {f"B={b}": ktp.lane_segments(b, C, halo, mode)[0]
+                                          for b in SWEEP_WINDOWS} for mode in modes}},
+            "tp_ms": record}
+
+
+SWEEP_GROUPS = (1, 2, 4, 8, 16)
+
+
+def sweep_launch(lib, group: int, staged: bool, cell: tuple, outs: tuple):
+    """A launch of design ``(group, staged)`` of ``sweep_variant`` (group 0:
+    the first design) on ``cell`` (``sweep_ab``'s tuple), writing ``outs``
+    (``kernels.scan_wwl._empty_outcomes``)."""
+    plane, entry, rows_flat, outrows, starts, n, d, id_bits, depth_bits, cross = cell
+    dev = plane.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptr = lambda t: None if t is None else t.data_ptr()
+
+    def launch():
+        rc = lib.sweep_variant(group, int(staged), plane.data_ptr(), ptr(entry), ptr(rows_flat),
+                               outrows.data_ptr(), ptr(starts), n, plane.shape[0] - (d + 1), d,
+                               id_bits, depth_bits, int(cross), *(t.data_ptr() for t in outs[:5]),
+                               ptr(outs[5] if cross else None), dev.index or 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"sweep variant launch failed: CUDA error {rc}")
+    return launch
+
+
+def sweep_ab(cells: dict, lib=None) -> dict:
+    """The die sweep's A/B.  ``cells``: ``{label: (plane, entry, rows_flat,
+    outrows, starts or None, n, d, id_bits, depth_bits, cross)}`` on the
+    card, ``starts`` None for the sweep at every position 0 .. n-1
+    (``wwl_sweep_all``).  Its first design (group 0) beside the grouped
+    sweep at each of ``SWEEP_GROUPS``, staged and not, each checked against
+    the package's wrapper first."""
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+
+    lib = library() if lib is None else lib
+    record = {}
+    for label, cell in cells.items():
+        plane, entry, rows_flat, outrows, starts, n, d, id_bits, depth_bits, cross = cell
+        kw = dict(d=d, id_bits=id_bits, depth_bits=depth_bits, cross=cross)
+        if starts is None:
+            want = kwwl.wwl_sweep_all(plane, entry, rows_flat, outrows, n, **kw)
+        else:
+            want = kwwl.wwl_sweep_at(plane, entry, rows_flat, outrows, starts, **kw)
+        outs = kwwl._empty_outcomes(n, plane.device, cross)
+        runs = {"first": sweep_launch(lib, 0, False, cell, outs)}
+        for g in SWEEP_GROUPS:
+            runs[f"G={g}"] = sweep_launch(lib, g, False, cell, outs)
+            runs[f"G={g} staged"] = sweep_launch(lib, g, True, cell, outs)
+
+        def check(name, launch):
+            for t in outs:
+                t.zero_()
+            launch()
+            for g, x in zip(outs, want):
+                if not torch.equal(g, x):
+                    raise AssertionError(f"sweep {label} {name}: outcomes differ from the "
+                                         f"wrapper's")
+
+        record[label] = {"slots": n, "d": d, "ms": _sweep(runs, check)}
+    return {"sweep_ms": record}
+
+
 def seq_ab(cells: dict) -> dict:
     """The sequential scan's A/B.  ``cells``: ``{label: (table, row_id,
     classes, depth)}`` on the card, the classes ``int32[N]`` with N at least
@@ -351,7 +484,67 @@ def seq_ab(cells: dict) -> dict:
     return {"seq_ms": record, "seq_rule_L": rule}
 
 
-def main() -> None:
+AGAINST_KERNELS = ("packed_scan_count", "packed_scan_planes", "packedcount_count",
+                   "packedcount_hotstate_plane", "split_emit_planes")
+
+
+def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tuple) -> dict:
+    """The lane-loop kernels of this checkout and of ``other_root``'s
+    ``csrc/`` on the cells of ``run``: ``{kernel: {"K", "other_ms",
+    "this_ms", "this_over_other"}}`` (each ms list in the order timed)."""
+    import glob
+
+    from ahocorasick_tpu_torch.bench import _seconds_per_rep
+    from ahocorasick_tpu_torch.kernels import scan_batched as khuge
+    from ahocorasick_tpu_torch.kernels import scan_block
+
+    sources = tuple(sorted(glob.glob(os.path.join(other_root, "ahocorasick_tpu_torch", "csrc",
+                                                  "*.cu"))))
+    if not sources:
+        raise FileNotFoundError(f"no ahocorasick_tpu_torch/csrc/*.cu under {other_root}")
+    libs = {"other": ctypes.CDLL(build.build(sources, "libac_kernels_other")),
+            "this": build.library()}
+    for name in AGAINST_KERNELS:
+        getattr(libs["other"], name).argtypes = build.ARGTYPES[name]
+        getattr(libs["other"], name).restype = ctypes.c_int
+    table, w, halo, sb = count_cell
+    flat, wh, hhalo, hsb, hA = hot_cell
+    dfa, emit, ws, shalo, sA, P = split_cell
+    cells = {  # tables, windows, halo, (A, state_bits or P), cap, planes out (0: a count)
+        "packed_scan_count": ((table,), w, halo, (table.shape[1], sb),
+                              scan_block.COUNT_MAX_LANES, 0),
+        "packed_scan_planes": ((table,), w, halo, (table.shape[1], sb), scan_block.MAX_LANES, 1),
+        "packedcount_count": ((flat,), wh, hhalo, (hA, hsb), khuge.PACKEDCOUNT_MAX_LANES, 0),
+        "packedcount_hotstate_plane": ((flat,), wh, hhalo, (hA, hsb), khuge.HOTSTATE_MAX_LANES,
+                                       1),
+        "split_emit_planes": ((dfa, emit), ws, shalo, (sA, P), khuge.SPLIT_PLANES_MAX_LANES, P),
+    }
+    record = {}
+    for name, (tables, win, h, mid, cap, planes) in cells.items():
+        b, W = win.shape
+        k = scan_block.segments(b, W - h, h, cap)[0]
+        outs, runs = {}, {}
+        for tree, lib in libs.items():
+            outs[tree] = (torch.zeros(1, dtype=torch.int64, device=win.device) if not planes
+                          else torch.empty((planes, b * (W - h)), dtype=torch.int32,
+                                           device=win.device))
+            runs[tree] = _launcher(getattr(lib, name), tables, win, b, h, mid, k, outs[tree])
+        for tree in libs:
+            outs[tree].zero_()
+            runs[tree]()
+        if not torch.equal(outs["other"], outs["this"]):
+            raise AssertionError(f"{name}: the two checkouts' kernels differ")
+        ms = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            ms[tree].append(_seconds_per_rep(runs[tree], 20, win.device) * 1e3)
+        record[name] = {"K": k, "other_ms": ms["other"], "this_ms": ms["this"],
+                        "this_over_other": min(ms["this"]) / min(ms["other"])}
+    return record
+
+
+def main(argv=None) -> None:
+    import argparse
+
     from ahocorasick_tpu_torch.bench.__main__ import word_soup
     from ahocorasick_tpu_torch.bench.headline import (
         BASE_UNITS, CHUNK, N_KEYWORDS, SEED, TEXT_UNITS, make_dictionary, make_text_classes)
@@ -359,12 +552,16 @@ def main() -> None:
     from ahocorasick_tpu_torch.models.matchers import AhoCorasickSet
     from ahocorasick_tpu_torch.ops import scan_batched
 
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument("--against", metavar="DIR",
+                        help="time the lane-loop kernels against another checkout's csrc/")
+    opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_variants: needs a CUDA device")
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    lib = library()
+    lib = None if opts.against else library()
     rng = np.random.default_rng(SEED)
     keywords = make_dictionary(rng, N_KEYWORDS)
     m = AhoCorasickSet(keywords, engine="device", device=dev)
@@ -383,6 +580,11 @@ def main() -> None:
     dfa, emit, shalo = m1.dev.split_dfa
     ws = wh if shalo == halo else scan_batched.classes_to_device(
         scan_batched.chunk_classes(cls, CHUNK, shalo, A), A, dev)
+    if opts.against:
+        record = against(opts.against, (pd.table, w, pd.halo, pd.state_bits),
+                         (flat, wh, halo, sb, A), (dfa, emit, ws, shalo, A, emit.shape[1]))
+        print(json.dumps({"card": smi, "against": opts.against, **record}))
+        return
     record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),
                  (dfa, emit, ws, shalo, A, emit.shape[1]), lib)
     rd = m.dev.row_dfa
@@ -399,7 +601,54 @@ def main() -> None:
         "wide RowTable": (*wide.dev.seq_tables, _int32_classes(
             np.tile(wide_cls, TEXT_UNITS // BASE_UNITS), dev), max(wide.compiled.max_depth, 1)),
     }))
+    record.update(tp_ab(ten_k_shards(m, dev, w)))
+    record.update(sweep_ab(ten_k_sweep_cells(keywords, dev)))
     print(json.dumps({"card": smi, **record}))
+
+
+TP_SHARDS = 8  # the row-sharded cell: the 10k table in 8 shards on the one card
+
+
+def ten_k_shards(m, dev, w) -> tuple:
+    """``tp_ab``'s cell: ``m``'s packed table in ``TP_SHARDS`` row shards (each
+    an allocation of its own on ``dev``), over the packed windows ``w``."""
+    from ahocorasick_tpu_torch.ops import scan_batched
+    from ahocorasick_tpu_torch.parallel import sharding
+
+    pd = m.dev.packed_dfa
+    table = scan_batched.build_packed(m.compiled).table
+    tables, _, _ = sharding._table_sharded_build(table, pd.halo, pd.state_bits,
+                                                 [dev] * TP_SHARDS, "count")
+    return tables[0], w, pd.halo, pd.state_bits
+
+
+def ten_k_sweep_cells(keywords, dev) -> dict:
+    """``sweep_ab``'s cells: the whole-word-longest scan plane of ``keywords``
+    over 32 Mi units of ``bench.py``'s word soup (a 1 Mi base tiled), the
+    walks at its start slots, and at every position of its first 4 Mi units
+    (one shard of eight)."""
+    from ahocorasick_tpu_torch.bench.__main__ import word_soup
+    from ahocorasick_tpu_torch.bench.headline import BASE_UNITS, SEED, TEXT_UNITS
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+    from ahocorasick_tpu_torch.models.matchers import WholeWordLongestMatchSet
+    from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
+
+    m = WholeWordLongestMatchSet(keywords, engine="device", device=dev)
+    sc = m.dev.wwl_scan
+    text = word_soup(np.random.default_rng(SEED), keywords, BASE_UNITS)
+    cls = np.tile(m._classes(text), TEXT_UNITS // BASE_UNITS)
+    cls_p, starts, _, _, d = scan_wwl.compact_lanes(m.compiled, cls)
+    w = scan_batched.classes_to_device(
+        scan_batched.chunk_classes(cls_p, 512, d, sc.num_classes), sc.num_classes, dev)
+    plane = kwwl.wwl_scan_plane(sc.table, w, d, sc.id_bits, sc.num_classes, False)[0]
+    per_w = TEXT_UNITS // TP_SHARDS
+    cell = (sc.outrows,)
+    return {
+        "at 10k starts": (plane, None, None, *cell, torch.from_numpy(starts).to(dev),
+                          len(starts), d, sc.id_bits, sc.depth_bits, False),
+        "all 4 Mi": (plane[: per_w + 512].contiguous(), None, None, *cell, None, per_w, d,
+                     sc.id_bits, sc.depth_bits, False),
+    }
 
 
 def _int32_classes(cls: np.ndarray, dev) -> torch.Tensor:

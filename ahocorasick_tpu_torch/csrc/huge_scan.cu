@@ -114,8 +114,8 @@ __global__ void __launch_bounds__(kThreads)
                              int state_bits, int segments, int seg_len,
                              unsigned long long* __restrict__ out) {
   const unsigned long long total = tile::count_lane<unsigned long long>(
-      table, windows, num_windows, width, halo, num_classes, (1u << state_bits) - 1u, segments,
-      seg_len, EmitCount{state_bits});
+      tile::Dense{table, num_classes}, windows, num_windows, width, halo,
+      (1u << state_bits) - 1u, segments, seg_len, EmitCount{state_bits});
   tile::block_add<kThreads>(total, out);  // lanes past the last window add 0
 }
 
@@ -137,9 +137,9 @@ __global__ void __launch_bounds__(kThreads)
                                 int state_bits, int segments, int seg_len, bool vec,
                                 uint32_t* __restrict__ out) {
   __shared__ uint32_t tiles[kThreads * tile::kPitch];
-  tile::planes_lane<tile::ClassWords<T>>(table, windows, num_windows, width, halo,
-                                         num_classes, (1u << state_bits) - 1u, segments,
-                                         seg_len, vec, tiles, out, HotEntry{state_bits});
+  tile::planes_lane<tile::ClassWords<T>>(tile::Dense{table, num_classes}, windows, num_windows,
+                                         width, halo, (1u << state_bits) - 1u, segments, seg_len,
+                                         vec, tiles, out, HotEntry{state_bits});
 }
 
 template <typename T>
@@ -190,8 +190,8 @@ __global__ void __launch_bounds__(kThreads)
   const int first = static_cast<int>(blockIdx.y) * group;
   const int64_t plane_stride = num_windows * (width - halo);
   tile::planes_lane<tile::ClassWords<T>>(
-      dfa, windows, num_windows, width, halo, num_classes, 0xffffffffu, segments, seg_len, vec,
-      tiles, out + first * plane_stride,
+      tile::Dense{dfa, num_classes}, windows, num_windows, width, halo, 0xffffffffu, segments,
+      seg_len, vec, tiles, out + first * plane_stride,
       EmitPlanes{emit, num_planes, first, min(group, num_planes - first)});
 }
 

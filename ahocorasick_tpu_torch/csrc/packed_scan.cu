@@ -76,9 +76,8 @@
 // live in tile.cuh: huge_scan.cu's count-packed count runs the count lane,
 // its hotstate plane and split emit planes the planes lane, and wwl_scan.cu's
 // plane kernel the word loads and the store tile.  Left for later work: the
-// sibling planes kernels that still store 4 bytes per lane at the row stride
-// and load a class a step (rowdfa2_scan.cu's stride-2 planes,
-// table_sharded.cu's row-sharded planes); small tables are not staged in
+// sibling planes kernel that still stores 4 bytes per lane at the row stride
+// and loads a class a step (rowdfa2_scan.cu's stride-2 planes); small tables are not staged in
 // shared memory.
 
 #include <cstdint>
@@ -114,8 +113,8 @@ __global__ void __launch_bounds__(kThreads)
                  unsigned long long* __restrict__ out) {
   // A tile's sum is at most 32 x 32 popcounts: 32 bits hold it.
   const unsigned long long pop = tile::count_lane<uint32_t>(
-      table, windows, num_windows, width, halo, num_classes, (1u << state_bits) - 1u, segments,
-      seg_len, EmitPopcount{state_bits});
+      tile::Dense{table, num_classes}, windows, num_windows, width, halo,
+      (1u << state_bits) - 1u, segments, seg_len, EmitPopcount{state_bits});
   tile::block_add<kThreads>(pop, out);  // lanes past the last window add 0
 }
 
@@ -126,9 +125,9 @@ __global__ void __launch_bounds__(kThreads)
                   int state_bits, int segments, int seg_len, bool vec,
                   uint32_t* __restrict__ out) {
   __shared__ uint32_t tiles[kThreads * tile::kPitch];
-  tile::planes_lane<tile::ClassWords<T>>(table, windows, num_windows, width, halo,
-                                         num_classes, (1u << state_bits) - 1u, segments,
-                                         seg_len, vec, tiles, out, EmitMask{state_bits});
+  tile::planes_lane<tile::ClassWords<T>>(tile::Dense{table, num_classes}, windows, num_windows,
+                                         width, halo, (1u << state_bits) - 1u, segments, seg_len,
+                                         vec, tiles, out, EmitMask{state_bits});
 }
 
 unsigned grid_for(int64_t lanes) {

@@ -1,12 +1,15 @@
 // The lane-scan building blocks shared by the scans of packed_scan.cu,
-// huge_scan.cu and wwl_scan.cu (their source notes say why each is there):
-// the table lookup and the warm-up from the root, a block's sum of its
-// lanes' counts, the segment of a window a lane scans, a lane's classes read
-// a 32-bit word at a time, a warp's 16-step store tile in shared memory that
-// leaves as whole sectors, and the two lane loops built from them: the count
-// lane (packed_scan.cu's count and huge_scan.cu's count-packed count) and the
-// planes lane (packed_scan.cu's planes, huge_scan.cu's hotstate plane and
-// split emit planes).
+// huge_scan.cu, table_sharded.cu and wwl_scan.cu (their source notes say why
+// each is there): the table lookup and the warm-up from the root, a block's
+// sum of its lanes' counts, the segment of a window a lane scans, a lane's
+// classes read a 32-bit word at a time, a warp's 16-step store tile in shared
+// memory that leaves as whole sectors, and the two lane loops built from
+// them: the count lane (packed_scan.cu's count, huge_scan.cu's count-packed
+// count and table_sharded.cu's counts) and the planes lane (packed_scan.cu's
+// planes, huge_scan.cu's hotstate plane and split emit planes,
+// table_sharded.cu's planes).  The lane loops take the table as a type with
+// a lookup(s, c): Dense here for one flat table, table_sharded.cu's Shards
+// for row shards in separate allocations.
 
 #pragma once
 
@@ -36,6 +39,26 @@ __device__ __forceinline__ uint32_t warm_up(const uint32_t* __restrict__ table,
                                             uint32_t num_classes, uint32_t smask) {
   uint32_t s = 0;
   for (int t = 0; t < halo; ++t) s = lookup(table, s, row[t], num_classes) & smask;
+  return s;
+}
+
+// One flat table uint32[S * A], the lane loops' table type for a table in one
+// allocation: entry s*A + c is state s's word for class c.
+struct Dense {
+  const uint32_t* table;
+  uint32_t num_classes;
+  template <typename T>
+  __device__ __forceinline__ uint32_t lookup(uint32_t s, T c) const {
+    return tile::lookup(table, s, c, num_classes);
+  }
+};
+
+// warm_up over any table type with a lookup(s, c).
+template <typename Table, typename T>
+__device__ __forceinline__ uint32_t warm_up(const Table& table, const T* __restrict__ row,
+                                            int halo, uint32_t smask) {
+  uint32_t s = 0;
+  for (int t = 0; t < halo; ++t) s = table.lookup(s, row[t]) & smask;
   return s;
 }
 
@@ -116,20 +139,20 @@ struct ClassWords {
 };
 
 // One lane of a count kernel: lane g (the thread's global index) scans its
-// segment (segment_of) and returns the sum of value(v) over the entries v it
-// reads at its body positions; smask is all ones where the table holds bare
-// states.  No stores and no shuffles in the loop, so each lane runs its own
-// length.  A 32-step tile's values add up in Sum, the lane's total in 64
-// bits: Sum may be 32 bits where 32 values cannot overflow it.
-template <typename Sum, typename T, typename Value>
+// segment (segment_of) of `table` (Dense or any type with a lookup(s, c))
+// and returns the sum of value(v) over the entries v it reads at its body
+// positions; smask is all ones where the table holds bare states.  No
+// stores and no shuffles in the loop, so each lane runs its own length.  A
+// 32-step tile's values add up in Sum, the lane's total in 64 bits: Sum may
+// be 32 bits where 32 values cannot overflow it.
+template <typename Sum, typename Table, typename T, typename Value>
 __device__ __forceinline__ unsigned long long count_lane(
-    const uint32_t* __restrict__ table, const T* __restrict__ windows, int64_t num_windows,
-    int width, int halo, uint32_t num_classes, uint32_t smask, int segments, int seg_len,
-    Value value) {
+    const Table& table, const T* __restrict__ windows, int64_t num_windows, int width, int halo,
+    uint32_t smask, int segments, int seg_len, Value value) {
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const Segment sg = segment_of(g, num_windows, width, halo, segments, seg_len);
   const T* seg = windows + sg.b * width + sg.start;
-  uint32_t s = sg.len > 0 ? warm_up(table, seg, halo, num_classes, smask) : 0u;
+  uint32_t s = sg.len > 0 ? warm_up(table, seg, halo, smask) : 0u;
   seg += halo;
   unsigned long long total = 0;
   for (int t0 = 0; t0 < sg.len; t0 += kCountSteps) {
@@ -140,7 +163,7 @@ __device__ __forceinline__ unsigned long long count_lane(
 #pragma unroll
     for (int t = 0; t < kCountSteps; ++t) {
       if (t < n) {
-        const uint32_t v = lookup(table, s, cls.at(t), num_classes);
+        const uint32_t v = table.lookup(s, cls.at(t));
         sum += value(v);
         s = v & smask;
       }
@@ -182,13 +205,14 @@ __device__ __forceinline__ void store_tile(const uint32_t* __restrict__ tile, in
 }
 
 // One lane of a planes kernel: lane g (the thread's global index) scans its
-// segment (segment_of) and writes, for the entry v read at body position j of
-// window b, plane p's value to out[p*B*C + b*C + j] (B*C = num_windows *
-// (width - halo); flat text order within a plane) through the warp's store
-// tile of that plane.  `tiles` is the block's planes * blockDim.x * kPitch
-// shared words, plane-major.  Every lane of the warp must call it (the stores
-// are warp-wide).  Classes is ClassWords<T> or a type with the same load()
-// and at().  The value takes one of two forms:
+// segment (segment_of) of `table` (as count_lane's) and writes, for the
+// entry v read at body position j of window b, plane p's value to
+// out[p*B*C + b*C + j] (B*C = num_windows * (width - halo); flat text order
+// within a plane) through the warp's store tile of that plane.  `tiles` is
+// the block's planes * blockDim.x * kPitch shared words, plane-major.  Every
+// lane of the warp must call it (the stores are warp-wide).  Classes is
+// ClassWords<T> or a type with the same load() and at().  The value takes
+// one of two forms:
 //   * Value::kGather false: one plane, value(v), computed from the entry as
 //     it is read (smask keeps the next state of v);
 //   * Value::kGather true: value.planes() planes, value(s, p) of the state s
@@ -197,19 +221,17 @@ __device__ __forceinline__ void store_tile(const uint32_t* __restrict__ tile, in
 //     tile's lookups, all at once, so that no such load sits in the chain.
 // Where out is 16-byte aligned and B*C a multiple of 4 (vec_runs), every
 // plane's base is too.
-template <typename Classes, typename T, typename Value>
-__device__ __forceinline__ void planes_lane(const uint32_t* __restrict__ table,
-                                            const T* __restrict__ windows,
+template <typename Classes, typename Table, typename T, typename Value>
+__device__ __forceinline__ void planes_lane(const Table& table, const T* __restrict__ windows,
                                             int64_t num_windows, int width, int halo,
-                                            uint32_t num_classes, uint32_t smask,
-                                            int segments, int seg_len, bool vec,
+                                            uint32_t smask, int segments, int seg_len, bool vec,
                                             uint32_t* __restrict__ tiles,
                                             uint32_t* __restrict__ out, Value value) {
   const int lane = threadIdx.x & 31;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
   const Segment sg = segment_of(g, num_windows, width, halo, segments, seg_len);
   const T* seg = windows + sg.b * width + sg.start;
-  uint32_t s = sg.len > 0 ? warm_up(table, seg, halo, num_classes, smask) : 0u;
+  uint32_t s = sg.len > 0 ? warm_up(table, seg, halo, smask) : 0u;
   seg += halo;
   uint32_t* row = tiles + threadIdx.x * kPitch;
   const uint32_t* warp_tile = tiles + (threadIdx.x - lane) * kPitch;
@@ -223,7 +245,7 @@ __device__ __forceinline__ void planes_lane(const uint32_t* __restrict__ table,
 #pragma unroll
       for (int t = 0; t < kTileSteps; ++t) {
         if (t < n) {
-          const uint32_t v = lookup(table, s, cls.at(t), num_classes);
+          const uint32_t v = table.lookup(s, cls.at(t));
           row[t] = value(v);
           s = v & smask;
         }
@@ -234,7 +256,7 @@ __device__ __forceinline__ void planes_lane(const uint32_t* __restrict__ table,
       uint32_t state[kTileSteps];  // state 0 past the lane's steps: a valid load
 #pragma unroll
       for (int t = 0; t < kTileSteps; ++t) {
-        if (t < n) s = lookup(table, s, cls.at(t), num_classes) & smask;
+        if (t < n) s = table.lookup(s, cls.at(t)) & smask;
         state[t] = t < n ? s : 0u;
       }
       const int planes = value.planes();

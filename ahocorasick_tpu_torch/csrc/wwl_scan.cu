@@ -90,13 +90,24 @@
 // and a 16-step shared-memory store tile with an odd pitch, left with
 // 16-byte stores where the runs are aligned and 4-byte full-sector runs
 // where not; a quotient table's entry plane leaves through the same tile
-// after the plane.  The sweep issues up to d+1 plane reads per start, each
-// one waiting on the test of the one before, then one or two dependent loads
-// (rows_flat, the outrows row).  The every-position sweep is bound by bytes:
-// it reads the plane once (neighbouring threads read neighbouring words,
-// and the d+1 words of a walk overlap its neighbours', so they come from
-// L1) and writes four int32 and one or two bool planes.  The fused scan is
-// the same chain as the plane kernel, with no plane: its bytes are the
+// after the plane.  The sweeps (sweep.cuh) load a walk's plane words in
+// groups of kSweepGroup, every load of a group issued before any test, and
+// keep the pre-die word in registers, where the first design issued a load
+// only after the test on the one before and read the pre-die word again;
+// then one or two dependent loads (rows_flat for quotient tables, the
+// outrows row).  What bounds them is bytes, not that chain: walks start at
+// the words of the text and read through them, so together they read almost
+// every 32-byte sector of the plane, which at the 10k cell (134 MB) lies
+// past the 50 MB L2 and comes from device memory once, besides the starts
+// and four int32 and one or two bool planes written: at the 10k cell its
+// walks touch 4,128,321 of the plane's 4,194,368 sectors, 242 MB in all with
+// the starts and the outcomes, 0.072 ms at 3.35 TB/s (chip_smoke.py's "sweep
+// plane sectors" line).  The grouped loads took the every-position sweep of
+// a 4 Mi shard (a 16.8 MB plane) from 0.0510 to 0.0413 ms and the sweep at
+// the 10k cell's start slots from 0.0906 to 0.0876 ms, about 2.8 TB/s of
+// those bytes; a warp's span staged in shared memory was slower
+// (bench/scan_variants.cu).  The fused scan is the same chain as the plane
+// kernel, with no plane: its bytes are the
 // windows, the starts and the outcomes, at the 10k cell 65,537 x 537 B +
 // 4 B x 5,242,880 + 17 B x 5,242,880, about 145 MB or 0.043 ms at 3.35 TB/s,
 // against the plane-plus-sweep route's 0.088 ms.  Its record per start
@@ -118,11 +129,20 @@
 
 #include <cuda_runtime.h>
 
+#include "sweep.cuh"
 #include "tile.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
+// The die sweep's loads a group (sweep.cuh), from the A/B of
+// bench/scan_variants.py sweep_ab (chip_smoke.py's "ab sweep" line; NVIDIA
+// H100 80GB HBM3, 700 W; the 10k cell, d = 12): at 5,242,880 start slots the
+// first design took 0.0906 ms, G = 1, 2, 4, 8, 16 0.0904, 0.0890, 0.0876,
+// 0.0902, 0.1021 ms, each 12-20% slower with a warp's span staged in shared
+// memory; at every position of 4 Mi the first design 0.0510 ms, G = 1, 2, 4,
+// 8, 16 0.0498, 0.0451, 0.0413, 0.0450, 0.0657 ms, staged 0.0502 at best.
+constexpr int kSweepGroup = 4;
 
 template <typename T, bool kEntry>
 __global__ void __launch_bounds__(kThreads)
@@ -185,91 +205,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-// The outcome rules over the pre-die state's outrows row (16-byte aligned:
-// the wrappers check), written to slot `i` of the outputs: a walk from `w`
-// that died k_die chars later.
-__device__ __forceinline__ void write_outcome(
-    const int32_t* __restrict__ outrows, int64_t i, int32_t w, int32_t kd, bool die_word,
-    bool crossed, int32_t s_last, int32_t* __restrict__ die_pos, bool* __restrict__ has,
-    int32_t* __restrict__ m_start, int32_t* __restrict__ m_end, int32_t* __restrict__ m_val,
-    bool* __restrict__ cont) {
-  const int32_t* o = outrows + static_cast<int64_t>(s_last) * 8;  // a 32-byte row
-  const int4 q = __ldg(reinterpret_cast<const int4*>(o));
-  const int32_t own = q.x, own_v = q.y, fail_l = q.z, fail_o = q.w, fail_v = __ldg(o + 4);
-  const int32_t dp = w + kd;
-  const bool has_own = own > 0 && !die_word;
-  const bool has_fail = fail_l > 0 && (die_word || own == 0);
-  const int32_t end = has_own ? dp : dp - fail_o;
-  die_pos[i] = dp;
-  has[i] = has_own || has_fail;
-  m_start[i] = end - (has_own ? own : fail_l);
-  m_end[i] = end;
-  m_val[i] = has_own ? own_v : fail_v;
-  if (cont != nullptr) cont[i] = crossed;
-}
-
-// One walk: the die sweep from start `w`, the pre-die state and the outcome
-// rules, written to slot `i` of the outputs.
-__device__ __forceinline__ void sweep_one(
-    const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
-    const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows, int64_t i,
-    int32_t w, int64_t live, int d, int id_bits, int depth_bits, int cross,
-    int32_t* __restrict__ die_pos, bool* __restrict__ has, int32_t* __restrict__ m_start,
-    int32_t* __restrict__ m_end, int32_t* __restrict__ m_val, bool* __restrict__ cont) {
-  const uint32_t idmask = (1u << id_bits) - 1u;
-  const uint32_t dmask = (1u << depth_bits) - 1u;
-  int32_t kd = 0;
-  bool die_word = false, crossed = false;
-  int32_t s_last = 0;
-  if (w >= 0 && w < live) {
-    kd = -1;
-    for (int k = 0; k <= d; ++k) {
-      const uint32_t v = __ldg(plane + (static_cast<int64_t>(w) + k));
-      if (((v >> id_bits) & dmask) <= static_cast<uint32_t>(k)) {
-        kd = k;
-        die_word = (v >> (id_bits + depth_bits)) & 1u;
-        crossed = cross && k > 0 && ((v >> (id_bits + depth_bits + 1)) & 1u);
-        break;
-      }
-    }
-    if (kd > 0) {
-      const int64_t p = static_cast<int64_t>(w) + kd - 1;
-      s_last = entry != nullptr ? __ldg(rows_flat + __ldg(entry + p))
-                                : static_cast<int32_t>(__ldg(plane + p) & idmask);
-    }
-  }
-  write_outcome(outrows, i, w, kd, die_word, crossed, s_last, die_pos, has, m_start, m_end,
-                m_val, cont);
-}
-
-__global__ void __launch_bounds__(kThreads)
-    sweep_kernel(const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
-                 const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows,
-                 const int32_t* __restrict__ starts, int64_t num_starts, int64_t live, int d,
-                 int id_bits, int depth_bits, int cross, int32_t* __restrict__ die_pos,
-                 bool* __restrict__ has, int32_t* __restrict__ m_start,
-                 int32_t* __restrict__ m_end, int32_t* __restrict__ m_val,
-                 bool* __restrict__ cont) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= num_starts) return;
-  sweep_one(plane, entry, rows_flat, outrows, i, starts[i], live, d, id_bits, depth_bits, cross,
-            die_pos, has, m_start, m_end, m_val, cont);
-}
-
-// The sweep at every position 0 .. n_keep-1: a thread's start is its own
-// index, so no starts array is read.
-__global__ void __launch_bounds__(kThreads)
-    sweep_all_kernel(const uint32_t* __restrict__ plane, const int32_t* __restrict__ entry,
-                     const int32_t* __restrict__ rows_flat, const int32_t* __restrict__ outrows,
-                     int64_t n_keep, int64_t live, int d, int id_bits, int depth_bits, int cross,
-                     int32_t* __restrict__ die_pos, bool* __restrict__ has,
-                     int32_t* __restrict__ m_start, int32_t* __restrict__ m_end,
-                     int32_t* __restrict__ m_val, bool* __restrict__ cont) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n_keep) return;
-  sweep_one(plane, entry, rows_flat, outrows, i, static_cast<int32_t>(i), live, d, id_bits,
-            depth_bits, cross, die_pos, has, m_start, m_end, m_val, cont);
-}
+using sweep::write_outcome;
 
 __device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
 
@@ -495,7 +431,8 @@ extern "C" int wwl_sweep_at(const void* plane, const void* entry, const void* ro
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_starts < 1 || d < 0 || (entry == nullptr) != (rows_flat == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  sweep_kernel<<<grid_for(num_starts), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sweep::sweep_kernel<kSweepGroup>
+      <<<grid_for(num_starts), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(plane), static_cast<const int32_t*>(entry),
       static_cast<const int32_t*>(rows_flat), static_cast<const int32_t*>(outrows),
       static_cast<const int32_t*>(starts), num_starts, live, d, id_bits, depth_bits, cross,
@@ -516,7 +453,8 @@ extern "C" int wwl_sweep_all(const void* plane, const void* entry, const void* r
   if (n_keep < 1 || n_keep > live || live > 2147483647 || d < 0 ||
       (entry == nullptr) != (rows_flat == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  sweep_all_kernel<<<grid_for(n_keep), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+  sweep::sweep_all_kernel<kSweepGroup>
+      <<<grid_for(n_keep), kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const uint32_t*>(plane), static_cast<const int32_t*>(entry),
       static_cast<const int32_t*>(rows_flat), static_cast<const int32_t*>(outrows), n_keep, live,
       d, id_bits, depth_bits, cross, static_cast<int32_t*>(die_pos), static_cast<bool*>(has),

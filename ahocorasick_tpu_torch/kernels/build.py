@@ -34,7 +34,7 @@ SOURCES = tuple(
                  "rowdfa2_scan.cu", "probes.cu", "pfac_scan.cu")
 )
 # Included by the sources; hashed with them, so an edited header rebuilds too.
-HEADERS = (os.path.join(_PKG, "csrc", "tile.cuh"),)
+HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in ("tile.cuh", "sweep.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -146,9 +146,10 @@ ARGTYPES = {
     #  stream)
     "rescan": [_P, _P, _P, _I64, _I64, _I, _P, _I, _P],
     # (shard pointers, owners (host int array), n_model, rows_per, stride,
-    #  windows, window_bytes, num_windows, width, halo, state_bits, mode, out,
-    #  device, stream)
-    "table_sharded_scan": [_P, _P, _I, _I64, _I, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P],
+    #  magic, add, shift, windows, window_bytes, num_windows, width, halo,
+    #  state_bits, mode, segments, seg_len, out, device, stream)
+    "table_sharded_scan": [_P, _P, _I, _I64, _I, _I64, _I64, _I, _P, _I, _I64, _I, _I, _I, _I,
+                           _I, _I, _P, _I, _P],
     # (tab, T, idx, n, reps, op, placement, mod, sum_out, out, device, stream)
     "chain_gather": [_P, _I64, _P, _I64, _I, _I, _I, _I64, _I, _P, _I, _P],
     # (tab, rows, width, s0, n, reps, reduce, mod, out, device, stream)

@@ -81,6 +81,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    five modes on fuzz tables cut into 1, 3 and 8 shards (one with more shards
    than rows), the 10k table at 65,536 x 524 windows, a whole-word-longest
    table in row and flat layout, and the 1M count-packed table in 8 shards;
+   the row-sharded scan on the lane loops at its edge shapes (every mode, K
+   = 1, 2 and 4 with the lane caps patched, C off a multiple of 4 K, uint8,
+   uint16 and int32 windows, 1, 3 and 8 shards, halo 0, next states past the
+   last shard); the grouped die sweeps, and every design of their A/B, on
+   seeded planes (d = 0, 1, 12 and 39, dense and quotient, crossing bits on
+   and off, sorted, unsorted, repeated, negative and past-L starts);
    the stride-2 count and planes against their twins and against the packed
    kernels on the fuzz, demo, uint16, quotient, halo-rounding, one-window,
    odd-length and state_bits + depth = 32 dictionaries, and on the 100-,
@@ -186,7 +192,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    against the count lane at K = 1, 2 and 4) and the sequential scan's
    (``seq_ab``: the serial walk against the lane scan at several lane
    lengths, 1 Ki to 32 Mi units, the 10k dense table and the wide
-   RowTable);
+   RowTable), the row-sharded scan's (``tp_ab``: its first design against
+   the lane loops at K = 1, 2 and 4 in the count, planes and hotstate modes)
+   and the die sweep's (``sweep_ab``: its first design against G = 1, 2, 4,
+   8 and 16 loads a group, staged in shared memory and not, at the 10k
+   cell's start slots and at every position of a 4 Mi shard), and the plane
+   sectors the sweep's walks touch;
    the probe kernels and the PFAC walk (at the sweep's shape, the JAX sizes
    and 32 Mi units) beside their twins, each result first held against the
    twin's at that shape, and, for the probes, the same chain as
@@ -725,6 +736,167 @@ def check_wwl_edges(port, dev, errs):
     return cases
 
 
+def check_tp_lane_edges(port, dev, errs):
+    """The row-sharded scan on the lane loops (``csrc/table_sharded.cu``)
+    against its twin, bit for bit, at its edge shapes: every mode, K = 1, 2
+    and 4 lanes per window (the caps patched), uint8, uint16 and int32
+    windows, 1, 3 and 8 shards, ragged bodies, halo 0 (K = 1), and a table
+    whose next states reach past the last shard.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import scan_block
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+    from ahocorasick_tpu_torch.ops import scan_batched
+    from ahocorasick_tpu_torch.parallel import sharding
+
+    def words(t):
+        return t.view(torch.int32).to(torch.int64) & 0xFFFFFFFF if t.dim() else t
+
+    def shards(table, n_model):
+        return sharding._table_sharded_build(table, 1, 8, [dev] * n_model, "count")[0][0]
+
+    def pair(label, st, w, halo, sb, modes=ktp.MODES, want_k=None):
+        B, C = w.shape[0], w.shape[1] - halo
+        seen = set()
+        for mode in modes:
+            K, L = ktp.lane_segments(B, C, halo, mode)
+            got = ktp.table_sharded_scan(st, w, halo, sb, mode)
+            want = ktp.table_sharded_scan_plain(st, w, halo, sb, mode)
+            torch.cuda.synchronize()
+            e = int((words(got) - words(want)).abs().max()) if got.shape == want.shape else 1
+            errs["table_sharded_scan"] = max(errs["table_sharded_scan"], e)
+            seen.add(K)
+            if e:
+                raise AssertionError(f"row-sharded lane edge {label}, mode {mode}, K={K} "
+                                     f"L={L}: kernel disagrees with its twin ({e})")
+        if want_k is not None and seen != {want_k}:
+            raise AssertionError(f"row-sharded lane edge {label}: K in {sorted(seen)}, not "
+                                 f"{want_k}")
+        print(f"  row-sharded lane edge {label}: {st.n_model} shards of {st.rows_per} rows, "
+              f"B={B} W={w.shape[1]} halo={halo} {str(w.dtype).replace('torch.', '')} K in "
+              f"{sorted(seen)}, {len(modes)} modes: kernel == twin")
+        return len(modes)
+
+    fr = np.random.default_rng(SEED + 13)
+    fuzz = port.AhoCorasickSet(fuzz_keywords(fr, "abcdef", 60, 8), engine="device", device=dev)
+    pd_f = scan_batched.build_packed(fuzz.compiled)
+    cls_f = fuzz._classes("".join(fr.choice(list("abcdefgh "), size=60_001)))
+    A = fuzz.compiled.num_classes
+    cases = 0
+    saved = (scan_block.MAX_LANES, scan_block.COUNT_MAX_LANES)
+    try:
+        for n_model in (1, 3, 8):
+            st = shards(pd_f.table, n_model)
+            for chunk in (512, 514, 130):  # ragged: C not a multiple of 4 K
+                w = scan_batched.classes_to_device(
+                    scan_batched.chunk_classes(cls_f, chunk, pd_f.halo, A), A, dev)
+                B = w.shape[0]
+                for k, cap in ((4, 1 << 30), (2, 2 * B), (1, B)):
+                    scan_block.MAX_LANES = scan_block.COUNT_MAX_LANES = cap
+                    cases += pair(f"fuzz, C = {chunk}, caps {cap}", st, w, pd_f.halo,
+                                  pd_f.state_bits, want_k=k)
+                scan_block.MAX_LANES, scan_block.COUNT_MAX_LANES = saved
+            w32 = torch.from_numpy(scan_batched.chunk_classes(cls_f, 512, pd_f.halo)).to(dev)
+            cases += pair("fuzz, int32 windows", st, w32, pd_f.halo, pd_f.state_bits)
+            w0 = scan_batched.classes_to_device(scan_batched.chunk_classes(cls_f, 512, 0, A),
+                                                A, dev)
+            cases += pair("fuzz, halo 0", st, w0, 0, pd_f.state_bits, want_k=1)
+    finally:
+        scan_block.MAX_LANES, scan_block.COUNT_MAX_LANES = saved
+    wide_kws = [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)]
+    wide = port.AhoCorasickSet(wide_kws, engine="device", device=dev)
+    pd_w = scan_batched.build_packed(wide.compiled)
+    Aw = wide.compiled.num_classes
+    cls_w = wide._classes("".join(chr(0x100 + int(c)) for c in fr.integers(0, 300, size=50_000)))
+    ww = scan_batched.classes_to_device(scan_batched.chunk_classes(cls_w, 512, pd_w.halo, Aw),
+                                        Aw, dev)
+    if ww.dtype != torch.uint16:
+        raise AssertionError("the wide dictionary's windows are not uint16")
+    cases += pair("> 256 classes, uint16 windows", shards(pd_w.table, 3), ww, pd_w.halo,
+                  pd_w.state_bits)
+    # Next states up to 3 x S, past the last shard: every shard reads 0 there.
+    S, A_r, sb = 97, 7, 9
+    nxt = fr.integers(0, 3 * S, size=(S, A_r))
+    table = (nxt | (fr.integers(0, 1 << 20, size=(S, A_r)) << sb)).astype(np.uint32)
+    wr = torch.from_numpy(fr.integers(0, A_r, size=(600, 8 + 300)).astype(np.uint8)).to(dev)
+    for n_model in (1, 3, 8):
+        cases += pair(f"states past the last shard ({3 * S} of {S})", shards(table, n_model),
+                      wr, 8, sb)
+    return cases
+
+
+def check_sweep_edges(dev, errs, variants_lib=None):
+    """The grouped die sweeps (``wwl_sweep_at``, ``wwl_sweep_all``) against
+    their twins, bit for bit, on seeded planes: d = 0, 1, 12 and 39 (walks
+    that die at k = 0, inside and past a group, and not at all), the dense
+    and the quotient form, crossing bits on and off, starts sorted, unsorted,
+    repeated, negative, at and past L, and slot counts off a warp.  With
+    ``variants_lib`` (``bench/scan_variants.py``), every design of the A/B
+    too.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.bench import scan_variants
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+
+    rng = np.random.default_rng(SEED + 14)
+    id_bits, depth_bits, S = 10, 6, 1000
+    to64 = lambda t: t.to(torch.int64)
+    cases = 0
+    for d in (0, 1, 12, 39):
+        for quotient in (False, True):
+            for cross in (False, True):
+                n = 5_000 + 37 * d
+                depth = rng.integers(0, d + 3, size=n)
+                v = (rng.integers(0, S, size=n) | depth << id_bits
+                     | rng.integers(0, 2, size=n) << (id_bits + depth_bits)
+                     | rng.integers(0, 2, size=n) << (id_bits + depth_bits + 1))
+                plane = torch.from_numpy(v.astype(np.uint32).view(np.int32)).to(dev).view(
+                    torch.uint32)
+                outrows = torch.from_numpy(rng.integers(0, 6, size=(S, 8)).astype(np.int32)).to(
+                    dev)
+                entry = rows_flat = None
+                if quotient:
+                    entry = torch.from_numpy(rng.integers(0, 3 * S, size=n).astype(np.int32)).to(
+                        dev)
+                    rows_flat = torch.from_numpy(rng.integers(0, S, size=3 * S).astype(
+                        np.int32)).to(dev)
+                live = n - (d + 1)
+                srt = np.sort(rng.integers(0, live, size=3_001))
+                odd = np.concatenate([rng.permutation(srt), srt[:40], [-7, -1, live - 1, live,
+                                                                        live + 3, n + 100]])
+                kw = dict(d=d, id_bits=id_bits, depth_bits=depth_bits, cross=cross)
+                for label, st_np in (("sorted", srt), ("unsorted, repeated, outside", odd)):
+                    st = torch.from_numpy(st_np.astype(np.int32)).to(dev)
+                    args = (plane, entry, rows_flat, outrows, st)
+                    want = kwwl.wwl_sweep_at_plain(*args, **kw)
+                    got = [kwwl.wwl_sweep_at(*args, **kw)]
+                    every = kwwl.wwl_sweep_all(*args[:4], live, **kw)
+                    every_twin = kwwl.wwl_sweep_all_plain(*args[:4], live, **kw)
+                    if variants_lib is not None:
+                        cell = (*args, len(st_np), d, id_bits, depth_bits, cross)
+                        for g in (0, *scan_variants.SWEEP_GROUPS):
+                            for staged in (False,) if g == 0 else (False, True):
+                                got.append(kwwl._empty_outcomes(len(st_np), dev, cross))
+                                scan_variants.sweep_launch(variants_lib, g, staged, cell,
+                                                           got[-1])()
+                    torch.cuda.synchronize()
+                    e = max(max(int((to64(a) - to64(b)).abs().max()) for a, b in zip(g, want))
+                            for g in got)
+                    e_all = max(int((to64(a) - to64(b)).abs().max())
+                                for a, b in zip(every, every_twin))
+                    errs["wwl_sweep_at"] = max(errs["wwl_sweep_at"], e)
+                    errs["wwl_sweep_all"] = max(errs["wwl_sweep_all"], e_all)
+                    cases += 1
+                    if e or e_all:
+                        raise AssertionError(
+                            f"sweep edge d={d} {'quotient' if quotient else 'dense'} cross={cross}"
+                            f" {label}: max_abs_err={e}, every position {e_all}")
+        print(f"  sweep edge d={d}: dense and quotient, cross on and off, sorted and unsorted / "
+              f"repeated / outside starts, every position: kernel == twin"
+              + (f" ({len(got) - 1} A/B designs too)" if variants_lib is not None else ""))
+    return cases
+
+
 class _NeverDense:
     """A thresholder that keeps every row compressed (the quotient layout)."""
 
@@ -1252,6 +1424,10 @@ def main() -> int:
     assert check_compact("no bits set", torch.zeros_like(synth_t[:1])) == 0
     check_redesign_edges(port, dev, errs)
     check_wwl_edges(port, dev, errs)
+    print(f"  row-sharded lane edges: {check_tp_lane_edges(port, dev, errs)} cases, kernel == "
+          f"twin")
+    print(f"  sweep edges: {check_sweep_edges(dev, errs, scan_variants.library())} cases, "
+          f"kernel and every A/B design == twin")
 
     keywords = make_dictionary(np.random.default_rng(SEED), N_KEYWORDS)
     big = port.AhoCorasickSet(keywords, engine="device", device=dev)
@@ -2939,6 +3115,30 @@ def main() -> int:
     ab = scan_variants.seq_ab({"10k dense": (*dense_tab, q32, d_seq),
                                "wide RowTable": (*wide_tab, q_wide32, 1)})
     print(f"ab seq {json.dumps({'card': smi, **ab})}")
+    ab = scan_variants.tp_ab((st10k, w_full, pd.halo, pd.state_bits), variants_lib)
+    print(f"ab table_sharded {json.dumps({'card': smi, **ab})}")
+    ab = scan_variants.sweep_ab({
+        "at 10k starts": (*sargs, st10.shape[0], d10, sc10.id_bits, sc10.depth_bits, False),
+        "all 4 Mi": (*all_args[:4], None, per_w, d10, sc10.id_bits, sc10.depth_bits, False)},
+        variants_lib)
+    print(f"ab sweep {json.dumps({'card': smi, **ab})}")
+    # The plane the sweep at the 10k starts reads: the 32-byte sectors its
+    # walks touch (words w .. w + k_die of each walk in [0, L)).
+    outs10 = kwwl.wwl_sweep_at(*sargs, **skw)
+    die = outs10[0].to(torch.int64)
+    w64 = st10.to(torch.int64)
+    walks = (w64 >= 0) & (w64 < plane10.shape[0] - (d10 + 1))
+    first, last = w64[walks] // 8, die[walks] // 8
+    touched = torch.zeros(plane10.shape[0] // 8 + 1, dtype=torch.bool, device=dev)
+    for step in range(-(-(d10 + 1) // 8) + 1):
+        touched[torch.minimum(first + step, last)] = True
+    sectors = int(touched.sum())
+    sweep_bytes = sectors * 32 + st10.nbytes + sum(t.nbytes for t in outs10)
+    print(f"sweep plane sectors: the {int(walks.sum())} walks at the 10k cell's {st10.shape[0]} "
+          f"start slots touch {sectors} of the plane's {plane10.shape[0] // 8} 32-byte sectors "
+          f"({sectors * 32} B of {plane10.nbytes} B); with the starts and the outcomes "
+          f"{sweep_bytes} B, {sweep_bytes / PEAK_BYTES_PER_S * 1e3} ms at "
+          f"{PEAK_BYTES_PER_S / 1e12} TB/s; the sweep took {ms['wwl_sweep_at'][0]} ms [{smi}]")
 
     # The row-sharded scan beside the single-table kernels on the same
     # windows: the 10k table (every mode; the payload is an emit mask, so
