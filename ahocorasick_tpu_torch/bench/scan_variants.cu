@@ -1,6 +1,7 @@
 // Designs of the count kernel, the hotstate plane, the count-packed count,
-// the split emit planes, the stride-2 count, the row-sharded scan and the
-// whole-word-longest die sweep that the package does not use, kept so that
+// the split emit planes and count, the stride-2 count and planes, the
+// row-sharded scan and the whole-word-longest die sweep that the package does
+// not use, kept so that
 // python -m ahocorasick_tpu_torch.bench.scan_variants can time them beside
 // the package's kernels (csrc/packed_scan.cu, huge_scan.cu, rowdfa2_scan.cu,
 // table_sharded.cu, wwl_scan.cu) on the card.
@@ -34,6 +35,15 @@
 //   * rowdfa2_count_bytes: the stride-2 count (csrc/rowdfa2_scan.cu) with
 //     one lane per window and a class load a step (the stride-2 count before
 //     its redesign).
+//   * rowdfa2_planes_first: the stride-2 planes with one lane per window, a
+//     class load a step and each pair stored as an 8-byte word at the lane's
+//     own row (the stride-2 planes before their redesign).
+//   * split_count_first: the split count with one lane per window, a class
+//     load a step and the P emit loads of a step in the chain (the split
+//     count before its redesign).
+//   * split_count_gather32: the package's split count (the count lane, K
+//     lanes per window) with the emit loads of all 32 steps of a tile
+//     gathered at once instead of 16.
 //   * table_sharded_first: the row-sharded scan (csrc/table_sharded.cu) in
 //     its first design, one lane per window with a class load a step, the
 //     owner's index by an integer division and its base pointer by a global
@@ -486,6 +496,172 @@ extern "C" int rowdfa2_count_bytes(const void* table, const void* windows, int w
   }
   return static_cast<int>(cudaGetLastError());
 }
+
+namespace {
+
+// The stride-2 planes' first design (csrc/rowdfa2_scan.cu before it ran on
+// the planes lane): one lane per window, a class load a step, each pair
+// stored as one 8-byte word at the lane's own row (the 32 lanes of a warp
+// 4*C bytes apart).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    rowdfa2_planes_first_kernel(const uint32_t* __restrict__ table,
+                                const T* __restrict__ windows, int64_t num_windows, int width,
+                                int halo, uint32_t num_classes, int state_bits,
+                                uint32_t* __restrict__ out) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (b >= num_windows) return;
+  const T* row = windows + b * width;
+  const uint32_t smask = (1u << state_bits) - 1u;
+  uint32_t s = 0;
+  for (int t = 0; t < halo; t += 2) {
+    s = __ldg(table + row2(s, row[t], num_classes) + row[t + 1]) & smask;
+  }
+  // C and the body offset are even, so each pair is an aligned 8-byte word.
+  uint2* dst = reinterpret_cast<uint2*>(out + b * (width - halo));
+  for (int t = halo; t < width; t += 2) {
+    const uint32_t* r = table + row2(s, row[t], num_classes);
+    const uint32_t w = __ldg(r + row[t + 1]);
+    const uint32_t e1 = __ldg(r + num_classes);
+    dst[(t - halo) >> 1] = make_uint2(e1, w >> state_bits);
+    s = w & smask;
+  }
+}
+
+// The split count's first design (csrc/huge_scan.cu before it ran on the
+// count lane): one lane per window, a class load a step, and the P emit
+// loads of a step in the chain.
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    split_count_first_kernel(const uint32_t* __restrict__ dfa,
+                             const uint32_t* __restrict__ emit, const T* __restrict__ windows,
+                             int64_t num_windows, int width, int halo, uint32_t num_classes,
+                             int num_planes, unsigned long long* __restrict__ out) {
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  unsigned long long total = 0;
+  if (b < num_windows) {
+    const T* row = windows + b * width;
+    uint32_t s = tile::warm_up(dfa, row, halo, num_classes, 0xffffffffu);
+    for (int t = halo; t < width; ++t) {
+      s = tile::lookup(dfa, s, row[t], num_classes);
+      const uint32_t* e = emit + static_cast<uint64_t>(s) * num_planes;
+      for (int p = 0; p < num_planes; ++p) total += __popc(__ldg(e + p));
+    }
+  }
+  tile::block_add<kThreads>(total, out);
+}
+
+// The package's split count (the count lane, emit loads gathered) with the
+// states of all 32 steps of a tile gathered at once instead of 16.
+struct EmitPopcounts32 {
+  static constexpr bool kGather = true;
+  static constexpr int kGatherSteps = tile::kCountSteps;
+  const uint32_t* emit;
+  int num_planes;
+  __device__ __forceinline__ int planes() const { return num_planes; }
+  __device__ __forceinline__ uint32_t operator()(uint32_t s, int p) const {
+    return __popc(__ldg(emit + static_cast<uint64_t>(s) * num_planes + p));
+  }
+};
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    split_count_gather32_kernel(const uint32_t* __restrict__ dfa,
+                                const uint32_t* __restrict__ emit,
+                                const T* __restrict__ windows, int64_t num_windows, int width,
+                                int halo, uint32_t num_classes, int num_planes, int segments,
+                                int seg_len, unsigned long long* __restrict__ out) {
+  const unsigned long long total = tile::count_lane<uint32_t>(
+      tile::Dense{dfa, num_classes}, windows, num_windows, width, halo, 0xffffffffu, segments,
+      seg_len, EmitPopcounts32{emit, num_planes});
+  tile::block_add<kThreads>(total, out);
+}
+
+// `which` 0 is split_count_first (segments must be 1), 1 split_count_gather32.
+template <typename T>
+void launch_split_count(int which, const uint32_t* dfa, const uint32_t* emit,
+                        const void* windows, int64_t num_windows, int width, int halo,
+                        uint32_t a, int num_planes, int segments, int seg_len,
+                        unsigned long long* out, cudaStream_t st) {
+  const auto* w = static_cast<const T*>(windows);
+  if (which == 0) {
+    split_count_first_kernel<T><<<grid_for(num_windows), kThreads, 0, st>>>(
+        dfa, emit, w, num_windows, width, halo, a, num_planes, out);
+  } else {
+    split_count_gather32_kernel<T><<<grid_for(num_windows * segments), kThreads, 0, st>>>(
+        dfa, emit, w, num_windows, width, halo, a, num_planes, segments, seg_len, out);
+  }
+}
+
+int split_count_entry(int which, const void* dfa_flat, const void* emit_tab,
+                      const void* windows, int window_bytes, int64_t num_windows, int width,
+                      int halo, int num_classes, int num_planes, int segments, int seg_len,
+                      void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_planes < 1 || !tile::valid_segments(segments, seg_len, width - halo, halo) ||
+      (which == 0 && segments != 1))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* dfa = static_cast<const uint32_t*>(dfa_flat);
+  const auto* emit = static_cast<const uint32_t*>(emit_tab);
+  const auto a = static_cast<uint32_t>(num_classes);
+  auto* count = static_cast<unsigned long long*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (window_bytes == 1) {
+    launch_split_count<uint8_t>(which, dfa, emit, windows, num_windows, width, halo, a,
+                                num_planes, segments, seg_len, count, st);
+  } else if (window_bytes == 2) {
+    launch_split_count<uint16_t>(which, dfa, emit, windows, num_windows, width, halo, a,
+                                 num_planes, segments, seg_len, count, st);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// The arguments of rowdfa2_planes (segments must be 1: one lane per window).
+extern "C" int rowdfa2_planes_first(const void* table, const void* windows, int window_bytes,
+                                    int64_t num_windows, int width, int halo, int num_classes,
+                                    int state_bits, int segments, int seg_len, void* out,
+                                    int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (segments != 1 || seg_len != width - halo || halo % 2 != 0 || seg_len % 2 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const auto* tab = static_cast<const uint32_t*>(table);
+  const auto a = static_cast<uint32_t>(num_classes);
+  auto* planes = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const unsigned grid = grid_for(num_windows);
+  if (window_bytes == 1) {
+    rowdfa2_planes_first_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
+        tab, static_cast<const uint8_t*>(windows), num_windows, width, halo, a, state_bits,
+        planes);
+  } else if (window_bytes == 2) {
+    rowdfa2_planes_first_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
+        tab, static_cast<const uint16_t*>(windows), num_windows, width, halo, a, state_bits,
+        planes);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The arguments of split_count, segments included.
+#define SPLIT_COUNT_VARIANT(name, which)                                                  \
+  extern "C" int name(const void* dfa_flat, const void* emit_tab, const void* windows,     \
+                      int window_bytes, int64_t num_windows, int width, int halo,          \
+                      int num_classes, int num_planes, int segments, int seg_len,          \
+                      void* out, int device, void* stream) {                               \
+    return split_count_entry(which, dfa_flat, emit_tab, windows, window_bytes, num_windows, \
+                             width, halo, num_classes, num_planes, segments, seg_len, out,   \
+                             device, stream);                                                \
+  }
+
+SPLIT_COUNT_VARIANT(split_count_first, 0)
+SPLIT_COUNT_VARIANT(split_count_gather32, 1)
 
 // ---------------------------------------------------------------------------
 // The row-sharded scan's first design (csrc/table_sharded.cu before it ran on

@@ -3,21 +3,26 @@
     python -m ahocorasick_tpu_torch.bench.scan_variants
 
 ``csrc/packed_scan.cu``'s ``packed_scan_count`` and ``csrc/huge_scan.cu``'s
-``packedcount_count`` run the count lane (``tile.cuh`` ``count_lane``: the
-classes read a 32-bit word at a time into a 32-step register tile, K lanes
-per window); ``csrc/huge_scan.cu``'s ``packedcount_hotstate_plane`` and
-``split_emit_planes`` run the planes lane (``tile.cuh`` ``planes_lane``: word
-loads, the 16-step shared-memory store tile, K lanes per window; the split
-planes' emit loads after each tile's lookups).  This script builds the other
+``packedcount_count`` and ``split_count`` run the count lane (``tile.cuh``
+``count_lane``: the classes read a 32-bit word at a time into a 32-step
+register tile, K lanes per window; the split count's emit loads after each
+16 of a tile's lookups); ``csrc/huge_scan.cu``'s
+``packedcount_hotstate_plane`` and ``split_emit_planes`` run the planes lane
+(``tile.cuh`` ``planes_lane``: word loads, the 16-step shared-memory store
+tile, K lanes per window; the split planes' emit loads after each tile's
+lookups).  This script builds the other
 designs measured for those choices from ``scan_variants.cu`` beside it (the
 count with one class load a step and one lane per window, the count with two
 chains a thread, the hotstate plane with one class load a step and a 4-byte
 store per lane at its own row, the same plane through the store tile with
 one class load a step, the count-packed count with one class load a step
 and one lane per window, the split planes with one class load a step, the
-emit loads in the chain and 4-byte row stores, and the split planes on the
+emit loads in the chain and 4-byte row stores, the split planes on the
 planes lane with one plane loaded in the chain, or gathered during the next
-tile's lookups), and times them with the
+tile's lookups, the split count with one class load a step, one lane per
+window and its emit loads in the chain, and the split count on the count
+lane gathering the emit loads of 32 steps at once instead of 16), and times
+them with the
 package's kernels at K = 1, 2 and 4 lanes per window on the first 8,192,
 32,768 and 65,536 windows of two cells: the count on the 10k headline
 dictionary (65,536 x 524 uint8 windows of class-space word soup,
@@ -33,10 +38,12 @@ the K that the package's rules pick, and the card's name and power limit.
 The package never launches these designs.
 
 Two more A/Bs run on the package's own entry points.  ``rowdfa2_ab``: the
-stride-2 count (``csrc/rowdfa2_scan.cu``, the count lane with a pair a
-step) at K = 1, 2 and 4 beside its first design (one lane per window, a
-class load a step; ``rowdfa2_count_bytes`` here) on the first 8,192, 32,768
-and 65,536 windows of the 10k dictionary's stride-2 table (152 MB).
+stride-2 count and planes (``csrc/rowdfa2_scan.cu``, the count and planes
+lanes with a pair a step) at K = 1, 2 and 4 beside their first designs (one
+lane per window, a class load a step, the planes' pairs stored at the lane's
+own row; ``rowdfa2_count_bytes`` and ``rowdfa2_planes_first`` here) on the
+first 8,192, 32,768 and 65,536 windows of the 10k dictionary's stride-2
+table (152 MB).
 ``seq_ab``: the sequential scan's serial walk (``seq_states``, up to 64 Ki
 units) beside its lane scan (``seq_states_sync``) at several lane lengths L,
 on 1 Ki, 4 Ki, 64 Ki and 32 Mi units of the 10k dense table and of a
@@ -51,13 +58,14 @@ design, at the 10k cell's start slots and at every position of 4 Mi.
 
     python -m ahocorasick_tpu_torch.bench.scan_variants --against DIR
 
-times instead the kernels on ``csrc/tile.cuh``'s lane loops
-(``packed_scan_count``, ``packed_scan_planes``, ``packedcount_count``,
-``packedcount_hotstate_plane``, ``split_emit_planes``) built from this
-checkout and from the ``csrc/`` of another checkout at ``DIR`` (the parent
-commit, unpacked with ``git archive``), in one process on the same cells at
-the rule's K: each pair's outputs equal bit for bit, then other, this, this,
-other.  Prints one JSON line.
+times instead the kernels on ``csrc/tile.cuh``'s lane loops whose entry
+points two checkouts share (``packed_scan_count``, ``packed_scan_planes``,
+``packedcount_count``, ``packedcount_hotstate_plane``, ``split_emit_planes``,
+``rowdfa2_count``, and ``table_sharded_scan`` in its count and planes modes)
+built from this checkout and from the ``csrc/`` of another checkout at
+``DIR`` (the parent commit, unpacked with ``git archive``), in one process on
+the same cells at the rule's K: each pair's outputs equal bit for bit, then
+other, this, this, other.  Prints one JSON line.
 """
 
 from __future__ import annotations
@@ -77,6 +85,7 @@ STEM = "libscan_variants"
 VARIANTS = ("count_bytes", "count_chains2", "hotstate_rows", "hotstate_tile_bytes",
             "packedcount_bytes")
 SPLIT_VARIANTS = ("split_rows", "split_inline", "split_pipelined")
+SPLIT_COUNT_VARIANTS = ("split_count_first", "split_count_gather32")
 SWEEP_WINDOWS = (8_192, 32_768, 65_536)
 SEQ_UNITS = (1 << 10, 1 << 12, 1 << 16, 1 << 25)
 SEQ_SERIAL_MAX = 1 << 16  # the serial walk takes about 70 ns a unit
@@ -113,6 +122,11 @@ def library() -> ctypes.CDLL:
         getattr(lib, name).restype = ctypes.c_int
     lib.rowdfa2_count_bytes.argtypes = build.ARGTYPES["rowdfa2_count"]
     lib.rowdfa2_count_bytes.restype = ctypes.c_int
+    lib.rowdfa2_planes_first.argtypes = build.ARGTYPES["rowdfa2_planes"]
+    lib.rowdfa2_planes_first.restype = ctypes.c_int
+    for name in SPLIT_COUNT_VARIANTS:
+        getattr(lib, name).argtypes = build.ARGTYPES["split_count"]
+        getattr(lib, name).restype = ctypes.c_int
     lib.table_sharded_first.argtypes = build.ARGTYPES["table_sharded_scan"]
     lib.table_sharded_first.restype = ctypes.c_int
     lib.sweep_variant.argtypes = [ctypes.c_int, ctypes.c_int, *build.ARGTYPES["wwl_sweep_at"]]
@@ -275,6 +289,19 @@ def run(count_cell: tuple, hot_cell: tuple, split_cell: tuple, lib=None) -> dict
         return runs
 
     split = _planes_ab("split", ws, shalo, P, khuge.split_emit_planes(*split_cell), split_runs)
+
+    def split_count_runs(b, out):
+        runs = {"first K=1": _launcher(lib.split_count_first, (dfa, emit), ws, b, shalo, smid, 1,
+                                       out)}
+        runs.update({f"lane K={k}": _launcher(package.split_count, (dfa, emit), ws, b, shalo,
+                                               smid, k, out) for k in ks})
+        runs.update({f"gather32 K={k}": _launcher(lib.split_count_gather32, (dfa, emit), ws, b,
+                                                   shalo, smid, k, out) for k in ks})
+        return runs
+
+    split_count = _count_ab("split count", ws,
+                            lambda b: khuge.split_count(dfa, emit, ws[:b], shalo, sA, P),
+                            split_count_runs)
     torch.cuda.synchronize()
     C, hC, sC = w.shape[1] - halo, wh.shape[1] - hhalo, ws.shape[1] - shalo
     return {
@@ -289,15 +316,17 @@ def run(count_cell: tuple, hot_cell: tuple, split_cell: tuple, lib=None) -> dict
         "packedcount_ms": packedcount,
         "split_cell": {"windows": list(ws.shape), "halo": shalo, "planes": P,
                        "table_bytes": dfa.nbytes + emit.nbytes,
-                       "rule_K": _rule_k(sC, shalo, khuge.SPLIT_PLANES_MAX_LANES)},
+                       "rule_K": _rule_k(sC, shalo, khuge.SPLIT_PLANES_MAX_LANES),
+                       "count_rule_K": _rule_k(sC, shalo, khuge.SPLIT_COUNT_MAX_LANES)},
         "split_ms": split,
+        "split_count_ms": split_count,
     }
 
 
 def rowdfa2_ab(cell: tuple, lib=None) -> dict:
-    """The stride-2 count's A/B.  ``cell``: ``(table, windows, halo,
-    state_bits, num_classes)`` of ``rowdfa2_count`` on the card, at least
-    65,536 windows."""
+    """The stride-2 count's and planes' A/B.  ``cell``: ``(table, windows,
+    halo, state_bits, num_classes)`` of ``rowdfa2_count`` on the card, at
+    least 65,536 windows."""
     from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow
 
     lib = library() if lib is None else lib
@@ -313,10 +342,46 @@ def rowdfa2_ab(cell: tuple, lib=None) -> dict:
         return out_runs
 
     ms = _count_ab("rowdfa2", w, lambda b: krow.rowdfa2_count(table, w[:b], halo, sb, A), runs)
+
+    def planes_runs(b, out):
+        out_runs = {"first K=1": _launcher(lib.rowdfa2_planes_first, (table,), w, b, halo, mid, 1,
+                                           out)}
+        out_runs.update({f"lane K={k}": _launcher(package.rowdfa2_planes, (table,), w, b, halo,
+                                                   mid, k, out) for k in (1, 2, 4)})
+        return out_runs
+
+    planes_ms = _planes_ab("rowdfa2 planes", w, halo, 1, krow.rowdfa2_planes(*cell), planes_runs)
+    torch.cuda.synchronize()
+    C = w.shape[1] - halo
     return {"rowdfa2_cell": {"windows": list(w.shape), "halo": halo, "table_bytes": table.nbytes,
-                             "rule_K": _rule_k(w.shape[1] - halo, halo,
-                                               krow.ROWDFA2_COUNT_MAX_LANES)},
-            "rowdfa2_count_ms": ms}
+                             "rule_K": _rule_k(C, halo, krow.ROWDFA2_COUNT_MAX_LANES),
+                             "planes_rule_K": _rule_k(C, halo, krow.ROWDFA2_PLANES_MAX_LANES)},
+            "rowdfa2_count_ms": ms, "rowdfa2_planes_ms": planes_ms}
+
+
+def _tp_launcher(fn, cell: tuple, mode: str, b: int, k: int, out):
+    """A launch of ``fn`` (``table_sharded_scan``'s arguments) on ``cell``
+    (``tp_ab``'s tuple) in ``mode``, on the first ``b`` windows, K lanes
+    each."""
+    import ctypes as ct
+
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    st, w, halo, sb = cell
+    dev = w.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ptrs = st.pointers(dev)
+    owners = (ct.c_int * st.n_model)(*[t.device.index or 0 for t in st.shards])
+    W = w.shape[1]
+
+    def launch():
+        rc = fn(ptrs.data_ptr(), owners, st.n_model, st.rows_per, st.stride, *st.divisor,
+                w.data_ptr(), ktp._WINDOW_BYTES[w.dtype], b, W, halo, sb,
+                ktp.MODES.index(mode), k, _seg_len(W - halo, k), out.data_ptr(),
+                dev.index or 0, stream)
+        if rc != 0:
+            raise RuntimeError(f"row-sharded launch failed: CUDA error {rc}")
+    return launch
 
 
 def tp_ab(cell: tuple, lib=None, modes=("count", "planes", "hotstate")) -> dict:
@@ -325,37 +390,20 @@ def tp_ab(cell: tuple, lib=None, modes=("count", "planes", "hotstate")) -> dict:
     windows.  Its first design (one lane per window, ``table_sharded_first``
     here) beside the package's kernel at K = 1, 2 and 4, in each of
     ``modes``, on the first 8,192, 32,768 and 65,536 windows."""
-    import ctypes as ct
-
     from ahocorasick_tpu_torch.kernels import table_sharded as ktp
 
     lib = library() if lib is None else lib
     package = build.library()
     st, w, halo, sb = cell
-    dev = w.device
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    ptrs = st.pointers(dev)
-    owners = (ct.c_int * st.n_model)(*[t.device.index or 0 for t in st.shards])
-    W = w.shape[1]
-    C = W - halo
+    C = w.shape[1] - halo
     record = {}
     for mode in modes:
         counting = mode in ("count", "count_packed")
 
-        def launcher(fn, b, k, out):
-            def launch():
-                rc = fn(ptrs.data_ptr(), owners, st.n_model, st.rows_per, st.stride, *st.divisor,
-                        w.data_ptr(), ktp._WINDOW_BYTES[w.dtype], b, W, halo, sb,
-                        ktp.MODES.index(mode), k, _seg_len(C, k), out.data_ptr(),
-                        dev.index or 0, stream)
-                if rc != 0:
-                    raise RuntimeError(f"row-sharded launch failed: CUDA error {rc}")
-            return launch
-
-        def runs(b, out):
-            out_runs = {"first K=1": launcher(lib.table_sharded_first, b, 1, out)}
-            out_runs.update({f"lane K={k}": launcher(package.table_sharded_scan, b, k, out)
-                             for k in (1, 2, 4)})
+        def runs(b, out, mode=mode):
+            out_runs = {"first K=1": _tp_launcher(lib.table_sharded_first, cell, mode, b, 1, out)}
+            out_runs.update({f"lane K={k}": _tp_launcher(package.table_sharded_scan, cell, mode,
+                                                         b, k, out) for k in (1, 2, 4)})
             return out_runs
 
         if counting:
@@ -485,18 +533,24 @@ def seq_ab(cells: dict) -> dict:
 
 
 AGAINST_KERNELS = ("packed_scan_count", "packed_scan_planes", "packedcount_count",
-                   "packedcount_hotstate_plane", "split_emit_planes")
+                   "packedcount_hotstate_plane", "split_emit_planes", "rowdfa2_count",
+                   "table_sharded_scan")
 
 
-def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tuple) -> dict:
+def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tuple,
+            row_cell: tuple, tp_cell: tuple) -> dict:
     """The lane-loop kernels of this checkout and of ``other_root``'s
-    ``csrc/`` on the cells of ``run``: ``{kernel: {"K", "other_ms",
-    "this_ms", "this_over_other"}}`` (each ms list in the order timed)."""
+    ``csrc/`` on the cells of ``run``, ``rowdfa2_ab`` (``row_cell``) and
+    ``tp_ab`` (``tp_cell``; the count and planes modes): ``{kernel: {"K",
+    "other_ms", "this_ms", "this_over_other"}}`` (each ms list in the order
+    timed)."""
     import glob
 
     from ahocorasick_tpu_torch.bench import _seconds_per_rep
     from ahocorasick_tpu_torch.kernels import scan_batched as khuge
     from ahocorasick_tpu_torch.kernels import scan_block
+    from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
 
     sources = tuple(sorted(glob.glob(os.path.join(other_root, "ahocorasick_tpu_torch", "csrc",
                                                   "*.cu"))))
@@ -510,6 +564,7 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
     table, w, halo, sb = count_cell
     flat, wh, hhalo, hsb, hA = hot_cell
     dfa, emit, ws, shalo, sA, P = split_cell
+    rtable, wr, rhalo, rsb, rA = row_cell
     cells = {  # tables, windows, halo, (A, state_bits or P), cap, planes out (0: a count)
         "packed_scan_count": ((table,), w, halo, (table.shape[1], sb),
                               scan_block.COUNT_MAX_LANES, 0),
@@ -518,17 +573,24 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
         "packedcount_hotstate_plane": ((flat,), wh, hhalo, (hA, hsb), khuge.HOTSTATE_MAX_LANES,
                                        1),
         "split_emit_planes": ((dfa, emit), ws, shalo, (sA, P), khuge.SPLIT_PLANES_MAX_LANES, P),
+        "rowdfa2_count": ((rtable,), wr, rhalo, (rA, rsb), krow.ROWDFA2_COUNT_MAX_LANES, 0),
+        "table_sharded_scan count": ((), tp_cell[1], tp_cell[2], "count", None, 0),
+        "table_sharded_scan planes": ((), tp_cell[1], tp_cell[2], "planes", None, 1),
     }
     record = {}
     for name, (tables, win, h, mid, cap, planes) in cells.items():
         b, W = win.shape
-        k = scan_block.segments(b, W - h, h, cap)[0]
+        fn_name = name.split()[0]
+        k = (scan_block.segments(b, W - h, h, cap)[0] if cap is not None
+             else ktp.lane_segments(b, W - h, h, mid)[0])
         outs, runs = {}, {}
         for tree, lib in libs.items():
             outs[tree] = (torch.zeros(1, dtype=torch.int64, device=win.device) if not planes
                           else torch.empty((planes, b * (W - h)), dtype=torch.int32,
                                            device=win.device))
-            runs[tree] = _launcher(getattr(lib, name), tables, win, b, h, mid, k, outs[tree])
+            fn = getattr(lib, fn_name)
+            runs[tree] = (_launcher(fn, tables, win, b, h, mid, k, outs[tree]) if cap is not None
+                          else _tp_launcher(fn, tp_cell, mid, b, k, outs[tree]))
         for tree in libs:
             outs[tree].zero_()
             runs[tree]()
@@ -580,18 +642,20 @@ def main(argv=None) -> None:
     dfa, emit, shalo = m1.dev.split_dfa
     ws = wh if shalo == halo else scan_batched.classes_to_device(
         scan_batched.chunk_classes(cls, CHUNK, shalo, A), A, dev)
-    if opts.against:
-        record = against(opts.against, (pd.table, w, pd.halo, pd.state_bits),
-                         (flat, wh, halo, sb, A), (dfa, emit, ws, shalo, A, emit.shape[1]))
-        print(json.dumps({"card": smi, "against": opts.against, **record}))
-        return
-    record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),
-                 (dfa, emit, ws, shalo, A, emit.shape[1]), lib)
     rd = m.dev.row_dfa
     w2 = w if rd.halo == pd.halo else scan_batched.classes_to_device(
         scan_batched.chunk_classes(np.tile(base, TEXT_UNITS // BASE_UNITS), CHUNK, rd.halo,
                                    m.compiled.num_classes), m.compiled.num_classes, dev)
-    record.update(rowdfa2_ab((rd.table, w2, rd.halo, rd.state_bits, rd.num_classes), lib))
+    row_cell = (rd.table, w2, rd.halo, rd.state_bits, rd.num_classes)
+    if opts.against:
+        record = against(opts.against, (pd.table, w, pd.halo, pd.state_bits),
+                         (flat, wh, halo, sb, A), (dfa, emit, ws, shalo, A, emit.shape[1]),
+                         row_cell, ten_k_shards(m, dev, w))
+        print(json.dumps({"card": smi, "against": opts.against, **record}))
+        return
+    record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),
+                 (dfa, emit, ws, shalo, A, emit.shape[1]), lib)
+    record.update(rowdfa2_ab(row_cell, lib))
     wide = AhoCorasickSet([chr(c) for c in range(0x100, 0xD800)], engine="gold", device=dev)
     wide_cls = wide._classes(wide_soup(np.random.default_rng(SEED + 9), DEMO_KEYWORDS,
                                        BASE_UNITS))

@@ -10,14 +10,13 @@
 // (:460).  Each entry point keeps the name of the loop it replaces.
 //
 // What it computes.  A window of `width` classes is `halo` left-context
-// classes and C = width - halo body classes.  The count-packed count, the
-// hotstate plane and the split planes run K lanes per window, as
-// packed_scan.cu's kernels do: segment k covers body positions [k*L,
-// min((k+1)*L, C)) and is warmed from the root (state 0) over the `halo`
-// classes just before it, which is exact because the automaton is
-// halo-synchronizing (the wrapper fixes K and L, kernels/scan_block.py
-// segments, each kernel under its own cap on lanes; the plain twins take the
-// same decomposition).  The split count runs one lane per window.
+// classes and C = width - halo body classes.  Every kernel here runs K lanes
+// per window, as packed_scan.cu's kernels do: segment k covers body
+// positions [k*L, min((k+1)*L, C)) and is warmed from the root (state 0)
+// over the `halo` classes just before it, which is exact because the
+// automaton is halo-synchronizing (the wrapper fixes K and L,
+// kernels/scan_block.py segments, each kernel under its own cap on lanes;
+// the plain twins take the same decomposition).
 // - Count-packed table, flat uint32[S*A]: entry s*A + c is
 //   next | emit_count(next) << state_bits.  packedcount_count sums
 //   emit_count (the number of keywords ending there, not a popcount) over
@@ -47,13 +46,14 @@
 // 64-bit registers and are reduced in-warp and in-block with one 64-bit
 // atomic per block, and each output word is written once.  What the design
 // does about the chains (tile.cuh):
-//   * No class load in the chain.  The count-packed count is the count lane
-//     (tile.cuh count_lane, packed_scan.cu's count with the emit count as
-//     its value): a lane reads its classes a 32-bit word at a time into a
-//     32-step register tile.  The planes kernels read a 16-step tile the
-//     same way.  Its first form, one lane per window loading a byte a step,
-//     took 0.452 ms at the 1M cell; the hotstate plane, the same walk with
-//     word loads and stores besides, 0.427 ms.
+//   * No class load in the chain.  The counts are the count lane (tile.cuh
+//     count_lane, packed_scan.cu's count with the emit count, or the emit
+//     planes' popcounts, as its value): a lane reads its classes a 32-bit
+//     word at a time into a 32-step register tile.  The planes kernels read
+//     a 16-step tile the same way.  The count-packed count's first form,
+//     one lane per window loading a byte a step, took 0.452 ms at the 1M
+//     cell; the hotstate plane, the same walk with word loads and stores
+//     besides, 0.427 ms.
 //   * Coalesced stores through shared memory.  The hotstate plane and the
 //     split planes are the planes lane (tile.cuh planes_lane): each lane
 //     writes a 16-step tile of values into its own shared-memory row, and
@@ -62,21 +62,23 @@
 //     32 lanes of a warp 2 KiB apart, a sector opened per store): the
 //     hotstate plane took 0.855 ms that way and 0.427 ms through the tile;
 //     the split planes 1.156 ms.
-//   * The split planes' emit loads out of the chain.  A lane keeps its
-//     tile's 16 states in registers and loads their planes after the
+//   * The split layout's emit loads out of the chain.  A planes lane keeps
+//     its tile's 16 states in registers and loads their planes after the
 //     tile's lookups, 16 independent loads at a time, so no lookup waits on
-//     an emit load.  A block holds the tiles of up to 13 planes (17,408 B
-//     each at 256 threads; 227 KB of dynamic shared memory); deeper
-//     dictionaries run further groups of 13 planes as more blocks, each
-//     rescanning its segment.
+//     an emit load; the split count's lane does the same with each half of
+//     its 32-step tile, then adds the popcounts (its first form, one lane
+//     per window loading a byte and, in the chain, the P emit words a step,
+//     took 0.571-0.578 ms at the 1M cell; the count lane 0.468-0.495).  A
+//     planes block holds the tiles of up to 13 planes (17,408 B each at 256
+//     threads; 227 KB of dynamic shared memory); deeper dictionaries run
+//     further groups of 13 planes as more blocks, each rescanning its
+//     segment.  The count holds no tile and takes every plane in one lane.
 //   * K lanes per window where windows are few, so each chain is shorter.
 //     At 65,536 windows one lane per window fills about a quarter of the
 //     132 SMs x 2,048 resident threads; the caps on lanes are the A/B's
 //     (python -m ahocorasick_tpu_torch.bench.scan_variants, beside the caps
 //     in kernels/scan_batched.py).
-// Left for later work: the split count still runs one lane per window with
-// a class load a step (the count lane with the value sum over p of
-// popcount(emit_tab[s*P + p]) applies); a staged cache of the hot states.
+// Left for later work: a staged cache of the hot states.
 
 #include <cstdint>
 
@@ -94,12 +96,10 @@ constexpr int kPlaneTileBytes = kThreads * tile::kPitch * 4;
 constexpr int kMaxGroupPlanes = 232448 / kPlaneTileBytes;  // 13
 constexpr int kStaticSharedBytes = 48 * 1024;  // beyond it, opt in per kernel
 
-using tile::lookup;
-using tile::warm_up;
-
 // The number of keywords that end at an entry, the count-packed count's
 // value.  It may take all 32 - state_bits bits, so the lane adds it in 64.
 struct EmitCount {
+  static constexpr bool kGather = false;
   int state_bits;
   __device__ __forceinline__ unsigned long long operator()(uint32_t v) const {
     return v >> state_bits;
@@ -142,25 +142,34 @@ __global__ void __launch_bounds__(kThreads)
                                          vec, tiles, out, HotEntry{state_bits});
 }
 
+// The popcount of plane p of a state's emit_tab row, the split count's value
+// (loads, so the count lane gathers them after a tile's lookups).
+struct EmitPopcounts {
+  static constexpr bool kGather = true;
+  // Half a tile's states at a time: 80 registers a thread against 99 for all
+  // 32, and 0.468 against 0.489 ms at the 1M cell (equal at 8,192 and 32,768
+  // windows; bench/scan_variants.py, split_count_gather32).
+  static constexpr int kGatherSteps = 16;
+  const uint32_t* emit;
+  int num_planes;
+  __device__ __forceinline__ int planes() const { return num_planes; }
+  __device__ __forceinline__ uint32_t operator()(uint32_t s, int p) const {
+    return __popc(__ldg(emit + static_cast<uint64_t>(s) * num_planes + p));
+  }
+};
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
     split_count_kernel(const uint32_t* __restrict__ dfa,
                        const uint32_t* __restrict__ emit,
                        const T* __restrict__ windows, int64_t num_windows,
                        int width, int halo, uint32_t num_classes, int num_planes,
-                       unsigned long long* __restrict__ out) {
-  const int64_t b = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  unsigned long long total = 0;
-  if (b < num_windows) {
-    const T* row = windows + b * width;
-    uint32_t s = warm_up(dfa, row, halo, num_classes, 0xffffffffu);
-    for (int t = halo; t < width; ++t) {
-      s = lookup(dfa, s, row[t], num_classes);
-      const uint32_t* e = emit + static_cast<uint64_t>(s) * num_planes;
-      for (int p = 0; p < num_planes; ++p) total += __popc(__ldg(e + p));
-    }
-  }
-  tile::block_add<kThreads>(total, out);
+                       int segments, int seg_len, unsigned long long* __restrict__ out) {
+  // A tile's sum is at most 32 x P x 32 popcounts: 32 bits hold it.
+  const unsigned long long total = tile::count_lane<uint32_t>(
+      tile::Dense{dfa, num_classes}, windows, num_windows, width, halo, 0xffffffffu, segments,
+      seg_len, EmitPopcounts{emit, num_planes});
+  tile::block_add<kThreads>(total, out);  // lanes past the last window add 0
 }
 
 // Planes first .. first + count - 1 of a state's emit_tab row, the split
@@ -206,6 +215,7 @@ unsigned grid_for(int64_t lanes) {
 // positions each (tile::valid_segments).  `out` is one zeroed uint64 for a
 // count, uint32[num_windows * (width - halo)] for the hotstate plane and
 // uint32[num_planes * num_windows * (width - halo)] for the split planes.
+// The split entry points take num_planes >= 1.
 
 template <typename T>
 void launch_packedcount(bool count, const void* table, const void* windows,
@@ -291,24 +301,26 @@ extern "C" int packedcount_hotstate_plane(const void* table, const void* windows
 extern "C" int split_count(const void* dfa_flat, const void* emit_tab,
                            const void* windows, int window_bytes,
                            int64_t num_windows, int width, int halo,
-                           int num_classes, int num_planes, void* out, int device,
-                           void* stream) {
+                           int num_classes, int num_planes, int segments, int seg_len,
+                           void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_planes < 1 || !tile::valid_segments(segments, seg_len, width - halo, halo))
+    return static_cast<int>(cudaErrorInvalidValue);
   const auto* dfa = static_cast<const uint32_t*>(dfa_flat);
   const auto* emit = static_cast<const uint32_t*>(emit_tab);
   const auto a = static_cast<uint32_t>(num_classes);
   auto* total = static_cast<unsigned long long*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const unsigned grid = grid_for(num_windows);
+  const unsigned grid = grid_for(num_windows * segments);
   if (window_bytes == 1) {
     split_count_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
         dfa, emit, static_cast<const uint8_t*>(windows), num_windows, width, halo, a,
-        num_planes, total);
+        num_planes, segments, seg_len, total);
   } else if (window_bytes == 2) {
     split_count_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
         dfa, emit, static_cast<const uint16_t*>(windows), num_windows, width, halo, a,
-        num_planes, total);
+        num_planes, segments, seg_len, total);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

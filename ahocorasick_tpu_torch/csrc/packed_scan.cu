@@ -99,6 +99,7 @@ struct EmitMask {
 
 // The number of keywords that end at an entry, the count's value.
 struct EmitPopcount {
+  static constexpr bool kGather = false;
   int state_bits;
   __device__ __forceinline__ uint32_t operator()(uint32_t v) const {
     return __popc(v >> state_bits);

@@ -103,6 +103,7 @@ constexpr int kMaxShards = (48 * 1024 - kTileBytes) / 8;  // 3,968
 // Row shards: the lane loops' table type.  `base` is the block's
 // shared-memory copy of the n_model shard base pointers.
 struct Shards {
+  static constexpr int kStride = 1;
   const uint32_t* const* base;
   uint32_t n_model;
   uint32_t rows_per;
@@ -132,6 +133,7 @@ __device__ __forceinline__ void stage_shards(Shards& t, const uint32_t* const* s
 
 // The lane values of the five modes, by the payload v >> sb.
 struct PayloadPopcount {
+  static constexpr bool kGather = false;
   int sb;
   __device__ __forceinline__ uint32_t operator()(uint32_t v) const { return __popc(v >> sb); }
 };

@@ -1,15 +1,18 @@
 // The lane-scan building blocks shared by the scans of packed_scan.cu,
-// huge_scan.cu, table_sharded.cu and wwl_scan.cu (their source notes say why
-// each is there): the table lookup and the warm-up from the root, a block's
-// sum of its lanes' counts, the segment of a window a lane scans, a lane's
-// classes read a 32-bit word at a time, a warp's 16-step store tile in shared
-// memory that leaves as whole sectors, and the two lane loops built from
-// them: the count lane (packed_scan.cu's count, huge_scan.cu's count-packed
-// count and table_sharded.cu's counts) and the planes lane (packed_scan.cu's
-// planes, huge_scan.cu's hotstate plane and split emit planes,
-// table_sharded.cu's planes).  The lane loops take the table as a type with
-// a lookup(s, c): Dense here for one flat table, table_sharded.cu's Shards
-// for row shards in separate allocations.
+// huge_scan.cu, rowdfa2_scan.cu, table_sharded.cu and wwl_scan.cu (their
+// source notes say why each is there): the table lookup and the warm-up from
+// the root, a block's sum of its lanes' counts, the segment of a window a lane
+// scans, a lane's classes read a 32-bit word at a time, a warp's 16-step store
+// tile in shared memory that leaves as whole sectors, and the two lane loops
+// built from them: the count lane (packed_scan.cu's count, huge_scan.cu's
+// count-packed and split counts, rowdfa2_scan.cu's count and table_sharded.cu's
+// counts) and the planes lane (packed_scan.cu's planes, huge_scan.cu's
+// hotstate plane and split emit planes, rowdfa2_scan.cu's planes,
+// table_sharded.cu's planes).  The lane loops take the table as a type that
+// says how many classes a step consumes (kStride) and reads a step's entry:
+// Dense here for one flat table and Stride2 for the stride-2 row table (a pair
+// of classes a step, two words), table_sharded.cu's Shards for row shards in
+// separate allocations.
 
 #pragma once
 
@@ -43,8 +46,10 @@ __device__ __forceinline__ uint32_t warm_up(const uint32_t* __restrict__ table,
 }
 
 // One flat table uint32[S * A], the lane loops' table type for a table in one
-// allocation: entry s*A + c is state s's word for class c.
+// allocation: entry s*A + c is state s's word for class c.  A step consumes
+// one class and reads one word (kStride 1: lookup(s, c)).
 struct Dense {
+  static constexpr int kStride = 1;
   const uint32_t* table;
   uint32_t num_classes;
   template <typename T>
@@ -53,12 +58,66 @@ struct Dense {
   }
 };
 
-// warm_up over any table type with a lookup(s, c).
+// A stride-2 step's two words: w = state2 | emit2 << state_bits (the state
+// and emit mask after both classes) and e1 (the emit mask after the first).
+struct Pair {
+  uint32_t w;
+  uint32_t e1;
+};
+
+// The stride-2 row table uint32[S*A, A+1] (rowdfa2_scan.cu): row (s, c0)
+// holds w in column c1 < A and e1 in column A.  A step consumes a pair of
+// classes (kStride 2: step(s, c0, c1)) and reads both words of row (s, c0),
+// two independent loads issued together; next(s, c0, c1) reads w alone (the
+// warm-up).  Halo, segment starts and lengths, and so every tile's length,
+// are even.
+struct Stride2 {
+  static constexpr int kStride = 2;
+  const uint32_t* table;
+  uint32_t num_classes;
+  template <typename T>
+  __device__ __forceinline__ const uint32_t* row(uint32_t s, T c0) const {
+    return table + (static_cast<uint64_t>(s) * num_classes + c0) * (num_classes + 1u);
+  }
+  template <typename T>
+  __device__ __forceinline__ uint32_t next(uint32_t s, T c0, T c1) const {
+    return __ldg(row(s, c0) + c1);
+  }
+  template <typename T>
+  __device__ __forceinline__ Pair step(uint32_t s, T c0, T c1) const {
+    const uint32_t* r = row(s, c0);
+    return {__ldg(r + c1), __ldg(r + num_classes)};
+  }
+};
+
+// The entry a lane reads at step t of its classes (anything with an at(t)):
+// a word, or a Pair for a stride-2 table; word_of gives the word whose low
+// bits are the next state.
+template <typename Table, typename Classes>
+__device__ __forceinline__ auto step_at(const Table& table, uint32_t s, const Classes& cls,
+                                        int t) {
+  if constexpr (Table::kStride == 1) {
+    return table.lookup(s, cls.at(t));
+  } else {
+    return table.step(s, cls.at(t), cls.at(t + 1));
+  }
+}
+__device__ __forceinline__ uint32_t word_of(uint32_t v) { return v; }
+__device__ __forceinline__ uint32_t word_of(Pair p) { return p.w; }
+
+// warm_up over any table type, kStride classes a step (the halo a multiple
+// of it).
 template <typename Table, typename T>
 __device__ __forceinline__ uint32_t warm_up(const Table& table, const T* __restrict__ row,
                                             int halo, uint32_t smask) {
   uint32_t s = 0;
-  for (int t = 0; t < halo; ++t) s = table.lookup(s, row[t]) & smask;
+  for (int t = 0; t < halo; t += Table::kStride) {
+    if constexpr (Table::kStride == 1) {
+      s = table.lookup(s, row[t]) & smask;
+    } else {
+      s = table.next(s, row[t], row[t + 1]) & smask;
+    }
+  }
   return s;
 }
 
@@ -139,12 +198,22 @@ struct ClassWords {
 };
 
 // One lane of a count kernel: lane g (the thread's global index) scans its
-// segment (segment_of) of `table` (Dense or any type with a lookup(s, c))
-// and returns the sum of value(v) over the entries v it reads at its body
-// positions; smask is all ones where the table holds bare states.  No
-// stores and no shuffles in the loop, so each lane runs its own length.  A
-// 32-step tile's values add up in Sum, the lane's total in 64 bits: Sum may
-// be 32 bits where 32 values cannot overflow it.
+// segment (segment_of) of `table` (a table type: Dense, Stride2, Shards) and
+// returns the sum of the values of the entries it reads at its body
+// positions; smask is all ones where the table holds bare states.  No stores
+// and no shuffles in the loop, so each lane runs its own length.  A 32-class
+// tile's values add up in Sum, the lane's total in 64 bits: Sum may be 32
+// bits where a tile's values cannot overflow it.  The value takes one of two
+// forms:
+//   * Value::kGather false: value(v) of the entry v of a step (a word, or a
+//     Pair for a stride-2 table), computed as it is read;
+//   * Value::kGather true (one class a step): the sum over p <
+//     value.planes() of value(s, p) of the state s = v & smask.  These are
+//     loads (the split layout's emit table): the lane keeps the states of
+//     Value::kGatherSteps steps of its tile (all 32, or 16) in registers and
+//     issues their loads after those steps' lookups, all at once, so that no
+//     such load sits in the chain.  A step past the lane's length keeps
+//     state 0, a valid load, and adds nothing.
 template <typename Sum, typename Table, typename T, typename Value>
 __device__ __forceinline__ unsigned long long count_lane(
     const Table& table, const T* __restrict__ windows, int64_t num_windows, int width, int halo,
@@ -160,12 +229,35 @@ __device__ __forceinline__ unsigned long long count_lane(
     ClassWords<T, kCountSteps> cls;
     cls.load(seg + t0, n);
     Sum sum = 0;
+    if constexpr (!Value::kGather) {
 #pragma unroll
-    for (int t = 0; t < kCountSteps; ++t) {
-      if (t < n) {
-        const uint32_t v = table.lookup(s, cls.at(t));
-        sum += value(v);
-        s = v & smask;
+      for (int t = 0; t < kCountSteps; t += Table::kStride) {
+        if (t < n) {
+          const auto v = step_at(table, s, cls, t);
+          sum += value(v);
+          s = word_of(v) & smask;
+        }
+      }
+    } else {
+      static_assert(Table::kStride == 1, "the gathered form reads one class a step");
+      constexpr int kGroup = Value::kGatherSteps;  // states gathered at once
+      static_assert(kCountSteps % kGroup == 0, "the groups cover the tile");
+#pragma unroll
+      for (int g0 = 0; g0 < kCountSteps; g0 += kGroup) {
+        uint32_t state[kGroup];
+#pragma unroll
+        for (int t = g0; t < g0 + kGroup; ++t) {
+          if (t < n) s = table.lookup(s, cls.at(t)) & smask;
+          state[t - g0] = t < n ? s : 0u;
+        }
+        const int planes = value.planes();
+        for (int p = 0; p < planes; ++p) {
+#pragma unroll
+          for (int t = g0; t < g0 + kGroup; ++t) {
+            const Sum x = value(state[t - g0], p);
+            sum += t < n ? x : Sum{0};
+          }
+        }
       }
     }
     total += sum;
@@ -205,20 +297,22 @@ __device__ __forceinline__ void store_tile(const uint32_t* __restrict__ tile, in
 }
 
 // One lane of a planes kernel: lane g (the thread's global index) scans its
-// segment (segment_of) of `table` (as count_lane's) and writes, for the
-// entry v read at body position j of window b, plane p's value to
-// out[p*B*C + b*C + j] (B*C = num_windows * (width - halo); flat text order
-// within a plane) through the warp's store tile of that plane.  `tiles` is
-// the block's planes * blockDim.x * kPitch shared words, plane-major.  Every
-// lane of the warp must call it (the stores are warp-wide).  Classes is
-// ClassWords<T> or a type with the same load() and at().  The value takes
-// one of two forms:
-//   * Value::kGather false: one plane, value(v), computed from the entry as
-//     it is read (smask keeps the next state of v);
-//   * Value::kGather true: value.planes() planes, value(s, p) of the state s
-//     = v & smask.  These are loads (the split layout's emit table): the
-//     lane keeps its tile's states in registers and loads them after the
-//     tile's lookups, all at once, so that no such load sits in the chain.
+// segment (segment_of) of `table` (as count_lane's) and writes, for body
+// position j of window b, plane p's value to out[p*B*C + b*C + j] (B*C =
+// num_windows * (width - halo); flat text order within a plane) through the
+// warp's store tile of that plane.  `tiles` is the block's planes *
+// blockDim.x * kPitch shared words, plane-major.  Every lane of the warp must
+// call it (the stores are warp-wide).  Classes is ClassWords<T> or a type
+// with the same load() and at().  The value takes one of two forms:
+//   * Value::kGather false: one plane, computed from the entry of a step as
+//     it is read (smask keeps the next state): value(v) of a word, or, for a
+//     stride-2 table, value(pair, 0) and value(pair, 1), the words of the
+//     step's two positions;
+//   * Value::kGather true (one class a step): value.planes() planes,
+//     value(s, p) of the state s = v & smask.  These are loads (the split
+//     layout's emit table): the lane keeps its tile's states in registers
+//     and loads them after the tile's lookups, all at once, so that no such
+//     load sits in the chain.
 // Where out is 16-byte aligned and B*C a multiple of 4 (vec_runs), every
 // plane's base is too.
 template <typename Classes, typename Table, typename T, typename Value>
@@ -243,16 +337,22 @@ __device__ __forceinline__ void planes_lane(const Table& table, const T* __restr
     cls.load(seg + t0, n);
     if constexpr (!Value::kGather) {
 #pragma unroll
-      for (int t = 0; t < kTileSteps; ++t) {
+      for (int t = 0; t < kTileSteps; t += Table::kStride) {
         if (t < n) {
-          const uint32_t v = table.lookup(s, cls.at(t));
-          row[t] = value(v);
-          s = v & smask;
+          const auto v = step_at(table, s, cls, t);
+          if constexpr (Table::kStride == 1) {
+            row[t] = value(v);
+          } else {
+            row[t] = value(v, 0);
+            row[t + 1] = value(v, 1);
+          }
+          s = word_of(v) & smask;
         }
       }
       __syncwarp();
       store_tile(warp_tile, lane, dst + t0, n, vec, out);
     } else {
+      static_assert(Table::kStride == 1, "the gathered form reads one class a step");
       uint32_t state[kTileSteps];  // state 0 past the lane's steps: a valid load
 #pragma unroll
       for (int t = 0; t < kTileSteps; ++t) {

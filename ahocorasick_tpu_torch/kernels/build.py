@@ -88,12 +88,10 @@ _P, _I, _I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 # (table, windows, window_bytes, num_windows, width, halo, num_classes,
 #  state_bits, out, device, stream)
 _SCAN_ARGS = [_P, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P]
-# (dfa_flat, emit_tab, windows, window_bytes, num_windows, width, halo,
-#  num_classes, num_planes, out, device, stream)
-_SPLIT_ARGS = [_P, *_SCAN_ARGS]
 # _SCAN_ARGS with (segments, seg_len) before out
 _SEGMENTED_ARGS = [*_SCAN_ARGS[:8], _I, _I, *_SCAN_ARGS[8:]]
-# _SPLIT_ARGS with (segments, seg_len) before out
+# (dfa_flat, emit_tab, windows, window_bytes, num_windows, width, halo,
+#  num_classes, num_planes, segments, seg_len, out, device, stream)
 _SPLIT_SEGMENTED_ARGS = [_P, *_SEGMENTED_ARGS]
 ARGTYPES = {
     "packed_scan_count": _SEGMENTED_ARGS,
@@ -101,8 +99,8 @@ ARGTYPES = {
     "packedcount_count": _SEGMENTED_ARGS,
     "packedcount_hotstate_plane": _SEGMENTED_ARGS,
     "rowdfa2_count": _SEGMENTED_ARGS,
-    "rowdfa2_planes": _SCAN_ARGS,
-    "split_count": _SPLIT_ARGS,
+    "rowdfa2_planes": _SEGMENTED_ARGS,
+    "split_count": _SPLIT_SEGMENTED_ARGS,
     "split_emit_planes": _SPLIT_SEGMENTED_ARGS,
     "compact_tile": [],
     # (bits, planes, n, cap, desc, idx, masks, device, stream)

@@ -3,8 +3,8 @@ twins.
 
 Four entry points (``csrc/huge_scan.cu``), each named after the JAX device
 loop of ``ahocorasick_tpu/ops/scan_batched.py`` it replaces and taking its
-arguments in the same order (all but ``split_count`` run K lanes per window,
-``scan_block.segments`` under a cap of their own below):
+arguments in the same order (each runs K lanes per window,
+``scan_block.segments`` under a cap of its own below):
 
 * ``packedcount_count(table_flat, windows, halo, state_bits, num_classes)``
   — the sum over every body position of the emit count ``v >> state_bits``
@@ -39,7 +39,6 @@ from ahocorasick_tpu_torch.kernels.scan_block import (
     MAX_LANES,
     _WINDOW_BYTES,
     _check_windows,
-    _lane_scan_plain,
     _popcount32,
     _segmented_count_plain,
     _segmented_planes_plain,
@@ -134,6 +133,16 @@ def packedcount_hotstate_plane(table_flat: torch.Tensor, windows: torch.Tensor, 
     return out
 
 
+# The split count's cap on lanes (``scan_block.segments``): the planes
+# kernels', not the other counts'.  On the 1M dictionary's split tables (P =
+# 1), K = 1, 2, 4 lanes per window ran 0.484, 0.500, 0.522 ms at 65,536
+# windows of 512 body classes, 0.283, 0.256, 0.270 ms at 32,768 and 0.281,
+# 0.146, 0.089 ms at 8,192; the kernel's first form (one lane per window,
+# byte loads, the emit loads in the chain) 0.571 ms at 65,536 (NVIDIA H100
+# 80GB HBM3, 700 W; python -m ahocorasick_tpu_torch.bench.scan_variants).
+SPLIT_COUNT_MAX_LANES = MAX_LANES
+
+
 def split_count(dfa_flat: torch.Tensor, emit_tab: torch.Tensor, windows: torch.Tensor,
                 halo: int, num_classes: int, num_planes: int) -> torch.Tensor:
     """Total match count (emit-plane popcounts) over the body positions, as
@@ -145,7 +154,8 @@ def split_count(dfa_flat: torch.Tensor, emit_tab: torch.Tensor, windows: torch.T
     out = torch.zeros(1, dtype=torch.int64, device=dev)
     build.call("split_count", dfa_flat.data_ptr(), emit_tab.data_ptr(), windows.data_ptr(),
                _WINDOW_BYTES[windows.dtype], B, W, halo, num_classes, num_planes,
-               out.data_ptr(), dev.index, _stream(dev))
+               *segments(B, W - halo, halo, SPLIT_COUNT_MAX_LANES), out.data_ptr(), dev.index,
+               _stream(dev))
     launches["split_count"] += 1
     return out[0]
 
@@ -207,15 +217,13 @@ def packedcount_hotstate_plane_plain(table_flat, windows, halo, state_bits,
 
 def split_count_plain(dfa_flat, emit_tab, windows, halo, num_classes,
                       num_planes) -> torch.Tensor:
-    et = _widen(emit_tab.reshape(-1))
-    total = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
-
-    def emit(_j, s):
-        for p in range(num_planes):
-            total.add_(_popcount32(et[s * num_planes + p]))
-
-    _lane_scan_plain(dfa_flat, windows, halo, num_classes, 0xFFFFFFFF, emit)
-    return total.sum()
+    """The kernel's lane decomposition (``segments`` under
+    ``SPLIT_COUNT_MAX_LANES``)."""
+    B, W = windows.shape
+    K, L = segments(B, W - halo, halo, SPLIT_COUNT_MAX_LANES)
+    et = _widen(emit_tab)
+    return _segmented_count_plain(dfa_flat, windows, halo, num_classes, 0xFFFFFFFF, K, L,
+                                  lambda s: _popcount32(et[s]).sum(1))
 
 
 def split_emit_planes_plain(dfa_flat, emit_tab, windows, halo, num_classes,

@@ -1,14 +1,15 @@
 """Stride-2 row-DFA lane scan: the Hopper kernels and their plain PyTorch
 twins.
 
-Two entry points (``csrc/rowdfa2_scan.cu``), replacing the JAX package's
+Two entry points (``csrc/rowdfa2_scan.cu``: ``tile.cuh``'s lane loops over
+its stride-2 table type), replacing the JAX package's
 ``ahocorasick_tpu/ops/scan_rowdfa.py`` ``rowdfa_count`` / ``rowdfa_emit_planes``
-and taking their arguments in the same order:
+and taking their arguments in the same order, each K lanes per window
+(``scan_block.segments`` under a cap of its own below):
 
 * ``rowdfa2_count(table, windows, halo, state_bits, num_classes)`` — total
   match count, ``popcount(emit1) + popcount(emit2)`` summed over the body's
-  pairs, K lanes per window (``scan_block.segments`` under
-  ``ROWDFA2_COUNT_MAX_LANES``);
+  pairs;
 * ``rowdfa2_planes(...)`` — END-indexed emit planes ``uint32[1, B*C]`` in flat
   text order, the layout of ``scan_block.packed_scan_planes``.
 
@@ -53,12 +54,15 @@ def _check(table, windows, halo, state_bits, num_classes):
     return B, W
 
 
-def _launch(name: str, table, windows, halo, state_bits, num_classes, out, *lanes) -> None:
+def _launch(name: str, table, windows, halo, state_bits, num_classes, out, cap) -> None:
     B, W = windows.shape
+    K, L = segments(B, W - halo, halo, cap)
+    # Every segment starts on a pair of the one-lane scan and holds whole pairs.
+    assert halo % 2 == 0 and L % 2 == 0 and (W - halo - (K - 1) * L) % 2 == 0
     dev = windows.device
     build.call(
         name, table.data_ptr(), windows.data_ptr(), _WINDOW_BYTES[windows.dtype],
-        B, W, halo, num_classes, state_bits, *lanes, out.data_ptr(),
+        B, W, halo, num_classes, state_bits, K, L, out.data_ptr(),
         dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     launches[name] += 1
@@ -80,13 +84,24 @@ def rowdfa2_count(table: torch.Tensor, windows: torch.Tensor, halo: int, state_b
                   num_classes: int) -> torch.Tensor:
     """Total match count over the body positions, as an int64 scalar tensor
     on the windows' device."""
-    B, W = _check(table, windows, halo, state_bits, num_classes)
+    _check(table, windows, halo, state_bits, num_classes)
     if windows.device.type == "cpu":
         return rowdfa_count_plain(table, windows, halo, state_bits, num_classes)
     out = torch.zeros(1, dtype=torch.int64, device=windows.device)
     _launch("rowdfa2_count", table, windows, halo, state_bits, num_classes, out,
-            *segments(B, W - halo, halo, ROWDFA2_COUNT_MAX_LANES))
+            ROWDFA2_COUNT_MAX_LANES)
     return out[0]
+
+
+# The stride-2 planes split windows into K lanes while B*K stays within this
+# many, half the other planes kernels' cap.  On the 10k dictionary's 152 MB
+# table K = 1, 2, 4 lanes per window ran 0.291, 0.299, 0.342 ms at 65,536
+# windows of 512 body classes, 0.145, 0.150, 0.154 ms at 32,768 and 0.084,
+# 0.046, 0.039 ms at 8,192 (the first design, one lane per window with a
+# class load a step and 8-byte stores at the lane's own row: 0.504, 0.219,
+# 0.133 ms).  NVIDIA H100 80GB HBM3, 700 W; python -m
+# ahocorasick_tpu_torch.bench.scan_variants (rowdfa2_ab).
+ROWDFA2_PLANES_MAX_LANES = 32_768
 
 
 def rowdfa2_planes(table: torch.Tensor, windows: torch.Tensor, halo: int, state_bits: int,
@@ -96,7 +111,8 @@ def rowdfa2_planes(table: torch.Tensor, windows: torch.Tensor, halo: int, state_
     if windows.device.type == "cpu":
         return rowdfa_emit_planes_plain(table, windows, halo, state_bits, num_classes)
     out = torch.empty((1, B * (W - halo)), dtype=torch.uint32, device=windows.device)
-    _launch("rowdfa2_planes", table, windows, halo, state_bits, num_classes, out)
+    _launch("rowdfa2_planes", table, windows, halo, state_bits, num_classes, out,
+            ROWDFA2_PLANES_MAX_LANES)
     return out
 
 
@@ -141,13 +157,20 @@ def rowdfa_count_plain(table, windows, halo, state_bits, num_classes) -> torch.T
 
 
 def rowdfa_emit_planes_plain(table, windows, halo, state_bits, num_classes) -> torch.Tensor:
+    """The kernel's lane decomposition (``segments`` under
+    ``ROWDFA2_PLANES_MAX_LANES``): K lanes per window, each warmed over the
+    halo before its segment; the last lane's columns past the row are
+    padding."""
     B, W = windows.shape
-    out = torch.empty((B, (W - halo) // 2, 2), dtype=torch.int64, device=windows.device)
+    K, L = segments(B, W - halo, halo, ROWDFA2_PLANES_MAX_LANES)
+    out = torch.empty((B * K, L // 2, 2), dtype=torch.int64, device=windows.device)
 
     def emit(t, e1, e2):
         out[:, t, 0] = e1
         out[:, t, 1] = e2
 
-    _pair_scan_plain(table, windows, halo, state_bits, num_classes, emit)
+    _pair_scan_plain(table, _segment_lanes(windows, halo, K, L), halo, state_bits, num_classes,
+                     emit)
     # Emit masks are < 2**31 (state_bits >= 1), so int32 holds them exactly.
-    return out.reshape(1, -1).to(torch.int32).view(torch.uint32)
+    planes = out.reshape(B, K * L)[:, : W - halo]
+    return planes.reshape(1, -1).to(torch.int32).view(torch.uint32)

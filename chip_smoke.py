@@ -45,7 +45,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    ``a``..``a * 12``, K = 1, 2 and 4 lanes per window for the counts, the
    hotstate plane and the split planes, the latter three on depth-39 and
    depth-30 uint16 dictionaries, the split planes also at P = 4, 13 and 14
-   on ``a``..``a * 100`` / ``* 400`` / ``* 420``, ragged K > 1 segments);
+   on ``a``..``a * 100`` / ``* 400`` / ``* 420``, ragged K > 1 segments; the
+   split count at K = 1, 2 and 4 on each of those and on every dictionary of
+   the huge-dictionary phase, 13 and 14 planes and uint16 windows included;
+   the stride-2 count and planes at K = 1, 2 and 4 on ragged uint8 and uint16
+   windows);
    the fused whole-word-longest scan and the
    segmented WWL scan plane at theirs (walk depths 4, 12 and 32, > 256
    classes, separators as keywords, crossing bits, row and flat layouts,
@@ -182,14 +186,16 @@ port only, the dictionary and text generators included (``bench.headline``,
    ``count`` and ``match_triples``, and the
    sequential-scan feed against the planes feed, 2**8 to 2**18 units on the
    100-, 1,000-, 10k- and 1M-keyword dictionaries, with each break-even);
-   the redesigned count, hotstate plane, count-packed count and split
-   planes held against their twins at their timed shapes, then the A/B of
-   their designs (``bench.scan_variants.run``: byte or word loads, one or
-   two chains a thread, strided or tiled stores, the split planes' emit
-   loads in the chain, after the tile or during the next one, K = 1, 2 and
-   4 at 8,192, 32,768 and 65,536 windows, each checked bit for bit, one
-   JSON line), the stride-2 count's (``rowdfa2_ab``: its first design
-   against the count lane at K = 1, 2 and 4) and the sequential scan's
+   the redesigned count, hotstate plane, count-packed count, split planes
+   and split count held against their twins at their timed shapes, then
+   the A/B of their designs (``bench.scan_variants.run``: byte or word
+   loads, one or two chains a thread, strided or tiled stores, the split
+   planes' emit loads in the chain, after the tile or during the next one,
+   the split count's first design and its emit loads gathered 16 or 32 at
+   a time, K = 1, 2 and 4 at 8,192, 32,768 and 65,536 windows, each checked
+   bit for bit, one JSON line), the stride-2 count's and planes'
+   (``rowdfa2_ab``: their first designs against the lane loops at K = 1, 2
+   and 4) and the sequential scan's
    (``seq_ab``: the serial walk against the lane scan at several lane
    lengths, 1 Ki to 32 Mi units, the 10k dense table and the wide
    RowTable), the row-sharded scan's (``tp_ab``: its first design against
@@ -256,6 +262,7 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                           "ahocorasick_tpu/ops/scan_batched.py:190"),
     "packedcount_hotstate_plane": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
                                    "ahocorasick_tpu/ops/scan_batched.py:237"),
+    # redesigned: the count lane, K lanes a window, the emit loads gathered
     "split_count": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
                     "ahocorasick_tpu/ops/scan_batched.py:460"),
     "split_emit_planes": ("ahocorasick_tpu_torch/csrc/huge_scan.cu",
@@ -274,6 +281,7 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                "ahocorasick_tpu/ops/stitch.py:68"),
     "table_sharded_scan": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
                            "ahocorasick_tpu/parallel/sharding.py:321"),
+    # redesigned, both: tile.cuh's lane loops over tile::Stride2, a pair a step
     "rowdfa2_count": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
                       "ahocorasick_tpu/ops/scan_rowdfa.py:248"),
     "rowdfa2_planes": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
@@ -354,6 +362,89 @@ def stream_pieces(seed: int, n_units: int) -> list:
 def fuzz_keywords(rng, alphabet: str, n: int, max_len: int):
     return sorted({"".join(rng.choice(list(alphabet), size=int(rng.integers(1, max_len + 1))))
                    for _ in range(n)})
+
+
+def check_split_count_ks(label, args, errs, want=None):
+    """The split count at K = 1, 2 and 4 lanes a window (its cap patched)
+    against its twin in the same lanes and, where given, ``want``; ``args``
+    are ``split_count``'s.  Returns the Ks that ran (K = 1 alone where the
+    halo or the body allows no more) and the count."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import scan_batched as khuge
+    from ahocorasick_tpu_torch.kernels import scan_block
+
+    w, halo = args[2], args[3]
+    B, C = w.shape[0], w.shape[1] - halo
+    cap, ran, count = khuge.SPLIT_COUNT_MAX_LANES, [], None
+    try:
+        for K in (1, 2, 4):
+            khuge.SPLIT_COUNT_MAX_LANES = K * B
+            if scan_block.segments(B, C, halo, khuge.SPLIT_COUNT_MAX_LANES)[0] != K:
+                continue
+            kc = int(khuge.split_count(*args))
+            pc = int(khuge.split_count_plain(*args))
+            torch.cuda.synchronize()
+            e = max(abs(kc - pc), abs(kc - want) if want is not None else 0)
+            errs["split_count"] = max(errs["split_count"], e)
+            if e or (count is not None and kc != count):
+                raise AssertionError(f"split_count {label} K={K}: kernel {kc}, twin {pc}, "
+                                     f"want {want}")
+            ran.append(K)
+            count = kc
+    finally:
+        khuge.SPLIT_COUNT_MAX_LANES = cap
+    print(f"  split_count {label}: B={B} W={w.shape[1]} halo={halo} P={args[-1]} "
+          f"{str(w.dtype).replace('torch.', '')} K in {ran}: count={count} == twin")
+    return ran, count
+
+
+def check_rowdfa_ks(label, m, cls, body, dev, errs):
+    """The stride-2 count and planes at K = 1, 2 and 4 lanes a window (their
+    caps patched) on ``cls`` in ``body``-class windows, against their twins
+    in the same lanes and the packed kernels on the same text.  Returns the
+    Ks that ran."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import scan_block
+    from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow
+    from ahocorasick_tpu_torch.ops import scan_batched
+
+    rd, pd, nc = m.dev.row_dfa, m.dev.packed_dfa, m.compiled.num_classes
+    w = scan_batched.classes_to_device(scan_batched.chunk_classes(cls, body, rd.halo, nc), nc,
+                                       dev)
+    wp = scan_batched.classes_to_device(scan_batched.chunk_classes(cls, body, pd.halo, nc), nc,
+                                        dev)
+    args = (rd.table, w, rd.halo, rd.state_bits, rd.num_classes)
+    packed_c = int(scan_block.packed_scan_count(pd.table, wp, pd.halo, pd.state_bits))
+    packed_p = scan_block.packed_scan_planes(pd.table, wp, pd.halo, pd.state_bits)
+    caps = krow.ROWDFA2_COUNT_MAX_LANES, krow.ROWDFA2_PLANES_MAX_LANES
+    B, ran = w.shape[0], []
+    try:
+        for K in (1, 2, 4):
+            krow.ROWDFA2_COUNT_MAX_LANES = krow.ROWDFA2_PLANES_MAX_LANES = K * B
+            if scan_block.segments(B, body, rd.halo, K * B)[0] != K:
+                continue
+            kc, pc = int(krow.rowdfa2_count(*args)), int(krow.rowdfa_count_plain(*args))
+            kp = krow.rowdfa2_planes(*args)
+            pp = krow.rowdfa_emit_planes_plain(*args)
+            torch.cuda.synchronize()
+            e_count = max(abs(kc - pc), abs(kc - packed_c))
+            e_planes = int(max((kp.view(torch.int32) != pp.view(torch.int32)).sum(),
+                               (kp.view(torch.int32) != packed_p.view(torch.int32)).sum()))
+            errs["rowdfa2_count"] = max(errs["rowdfa2_count"], e_count)
+            errs["rowdfa2_planes"] = max(errs["rowdfa2_planes"], e_planes)
+            print(f"  rowdfa2 K={K} {label}: {tuple(w.shape)} "
+                  f"{str(w.dtype).replace('torch.', '')} windows, body {body} ({body // 2} "
+                  f"pairs): count={kc} twin={pc} packed={packed_c}; planes words differing "
+                  f"from the twin's or the packed kernel's: {e_planes}")
+            if e_count or e_planes:
+                raise AssertionError(f"rowdfa2 K={K} {label}: kernel disagrees with its twin "
+                                     f"or the packed kernel")
+            ran.append(K)
+    finally:
+        krow.ROWDFA2_COUNT_MAX_LANES, krow.ROWDFA2_PLANES_MAX_LANES = caps
+    return ran
 
 
 def check_redesign_edges(port, dev, errs):
@@ -547,18 +638,16 @@ def check_redesign_edges(port, dev, errs):
         K, L = scan_block.segments(B, C, halo, khuge.SPLIT_PLANES_MAX_LANES)
         got = words(khuge.split_emit_planes(*args))
         want = words(khuge.split_emit_planes_plain(*args))
-        count = int(khuge.split_count(*args))
         torch.cuda.synchronize()
         e = int((got - want).abs().max())
         pop = int(scan_block._popcount32(want).sum())
         errs["split_emit_planes"] = max(errs["split_emit_planes"], e)
-        errs["split_count"] = max(errs["split_count"], abs(count - pop))
         print(f"  split edge {label}: B={B} W={w.shape[1]} halo={halo} P={P} K={K} L={L} "
-              f"{str(w.dtype).replace('torch.', '')} bits={pop} split_count={count} "
-              f"max_abs_err={e}")
-        if e or count != pop or not int((want[-1] != 0).sum()):
+              f"{str(w.dtype).replace('torch.', '')} bits={pop} max_abs_err={e}")
+        if e or not int((want[-1] != 0).sum()):
             raise AssertionError(f"split edge {label}: kernel disagrees with its twin")
-        return P, K
+        count_ks, _ = check_split_count_ks(f"edge {label}", args, errs, want=pop)
+        return P, K, tuple(count_ks)
 
     runs = fr.integers(1, 460, size=1_500)
     a_runs = "".join("a" * int(r) + "b" for r in runs)
@@ -569,14 +658,21 @@ def check_redesign_edges(port, dev, errs):
           split_pair("halo 0", m, deep, 512, halo=0),
           split_pair("one window", m, deep[:700], 1024),
           split_pair("uint16 windows, depth 30", m_wide, wide_text, 512)]
-    for depth, chunks in ((100, (1602, 1026, 512)), (400, (3302, 512)), (420, (3402, 2048))):
+    for depth, chunks in ((100, (1602, 1026, 512)), (400, (3302, 512, 6402)),
+                          (420, (3402, 2048, 6722))):
         m_a = port.AhoCorasickSet(["a" * i for i in range(1, depth + 1)], engine="device",
                                   device=dev)
         pk += [split_pair(f"a..a*{depth}, C = {c}", m_a, a_runs, c) for c in chunks]
-    planes = {P for P, _ in pk}
-    if not ({1, 2, 4, 13, 14} <= planes and {1, 2, 4} <= {K for _, K in pk}
-            and {K for P, K in pk if P > 2} - {1}):
-        raise AssertionError(f"split edges ran (P, K) in {sorted(set(pk))}")
+    planes = {P for P, _, _ in pk}
+    if not ({1, 2, 4, 13, 14} <= planes and {1, 2, 4} <= {K for _, K, _ in pk}
+            and {K for P, K, _ in pk if P > 2} - {1}):
+        raise AssertionError(f"split edges ran (P, K) in {sorted({p[:2] for p in pk})}")
+    # The split count ran K = 1, 2 and 4 on ragged (C % 4 == 3 and 2), uint16,
+    # 13-plane and 14-plane windows.
+    count_ks = {P: {k for p, _, ks in pk if p == P for k in ks} for P in planes}
+    if not ({1, 2, 4} <= count_ks[13] and {1, 2, 4} <= count_ks[14]
+            and {1, 2, 4} <= set(pk[1][2]) and {1, 2, 4} <= set(pk[6][2])):
+        raise AssertionError(f"split count edges ran (P, K, count Ks) in {sorted(set(pk))}")
 
 
 def check_wwl_edges(port, dev, errs):
@@ -1362,6 +1458,7 @@ def main() -> int:
         torch.cuda.synchronize()
         report("split", ("split_count", "split_emit_planes"), got, want,
                f"B={w.shape[0]} W={w.shape[1]} {str(w.dtype).replace('torch.', '')} P={P}", "")
+        check_split_count_ks(label, args, errs, want=int(want[0]))
         out["split_count"], out["split_planes"] = int(got[0]), got[1]
         return out
 
@@ -1392,6 +1489,7 @@ def main() -> int:
     wide_text = "".join(chr(0x100 + int(c)) for c in rng.integers(0, 300, size=30_000))
     assert check(">256 classes (uint16)", m, m._classes(wide_text), 512) > 0
     check_rowdfa(">256 classes (uint16)", m, m._classes(wide_text), 512)
+    wide_m = m
     ws = port.ShortestMatchSet.from_compiled(
         compile_matcher(wide_kws, "shortest", True), device=dev)
     check_shortest(">256 classes (uint16)", ws.dev, ws._classes(wide_text[:2000]))
@@ -1450,33 +1548,15 @@ def main() -> int:
                      512, timed=True)
     if check_rowdfa("10k keywords x 32 Mi units", big, cls, 512, timed=True) != count10k:
         raise AssertionError("rowdfa2 10k count != the packed count")
-    # The stride-2 count at K = 1, 2 and 4 lanes a window (the cap patched)
-    # on ragged windows, bodies of an odd and an even number of pairs.
-    rd10, nc10 = big.dev.row_dfa, big.compiled.num_classes
-    row_cap = krow.ROWDFA2_COUNT_MAX_LANES
-    try:
-        for body in (16 * max(rd10.halo, 8) + 6, 16 * max(rd10.halo, 8) + 8):
-            c_k = cls[: 40 * body + 77]
-            w_k = scan_batched.classes_to_device(
-                scan_batched.chunk_classes(c_k, body, rd10.halo, nc10), nc10, dev)
-            a_k = (rd10.table, w_k, rd10.halo, rd10.state_bits, rd10.num_classes)
-            packed_k = int(scan_block.packed_scan_count(pd.table, windows(big, c_k, body),
-                                                        pd.halo, pd.state_bits))
-            for K in (1, 2, 4):
-                krow.ROWDFA2_COUNT_MAX_LANES = K * w_k.shape[0]
-                if scan_block.segments(w_k.shape[0], body, rd10.halo,
-                                       krow.ROWDFA2_COUNT_MAX_LANES)[0] != K:
-                    raise AssertionError(f"rowdfa2 count: the cap does not give K = {K}")
-                kc, pc = int(krow.rowdfa2_count(*a_k)), int(krow.rowdfa_count_plain(*a_k))
-                e = max(abs(kc - pc), abs(kc - packed_k))
-                errs["rowdfa2_count"] = max(errs["rowdfa2_count"], e)
-                print(f"  rowdfa2_count K={K}, {tuple(w_k.shape)} windows, body {body} "
-                      f"({body // 2} pairs): count={kc} twin={pc} packed={packed_k}")
-                if e:
-                    raise AssertionError(f"rowdfa2_count K={K}: kernel disagrees with its twin "
-                                         f"or the packed count")
-    finally:
-        krow.ROWDFA2_COUNT_MAX_LANES = row_cap
+    # The stride-2 count and planes at K = 1, 2 and 4 lanes a window (the caps
+    # patched) on ragged windows, bodies of an odd and an even number of
+    # pairs, uint8 and uint16.
+    for label, m_k, c_k in (("10k", big, cls), ("> 256 classes", wide_m,
+                                                 wide_m._classes(wide_text))):
+        halo_k = m_k.dev.row_dfa.halo
+        for body in (16 * max(halo_k, 8) + 6, 16 * max(halo_k, 8) + 8):
+            if check_rowdfa_ks(label, m_k, c_k[: 40 * body + 77], body, dev, errs) != [1, 2, 4]:
+                raise AssertionError(f"rowdfa2 {label}: the caps did not give K = 1, 2 and 4")
     short_compiled = compile_matcher(keywords, "shortest", True)
     restart = port.ShortestMatchSet.from_compiled(short_compiled, engine="device", device=dev)
     short_cls = restart._classes(text[:SHORTEST_TWIN_UNITS])
@@ -3089,23 +3169,28 @@ def main() -> int:
     ppc = int(khuge.packedcount_count_plain(*cargs))
     e_split = max_err((khuge.split_emit_planes(*sargs1m),),
                       (khuge.split_emit_planes_plain(*sargs1m),))
+    ksc = int(khuge.split_count(*sargs1m))
+    psc = int(khuge.split_count_plain(*sargs1m))
     torch.cuda.synchronize()
     errs["packed_scan_count"] = max(errs["packed_scan_count"], abs(kc - pc))
     errs["packedcount_hotstate_plane"] = max(errs["packedcount_hotstate_plane"], e_hot)
     errs["packedcount_count"] = max(errs["packedcount_count"], abs(kpc - ppc))
     errs["split_emit_planes"] = max(errs["split_emit_planes"], e_split)
+    errs["split_count"] = max(errs["split_count"], abs(ksc - psc))
     k_count = scan_block.segments(w_full.shape[0], w_full.shape[1] - pd.halo, pd.halo,
                                   scan_block.COUNT_MAX_LANES)[0]
-    k_hot, k_pc, k_split = (scan_block.segments(w.shape[0], w.shape[1] - h, h, cap)[0]
-                            for w, h, cap in ((w5, halo1m, khuge.HOTSTATE_MAX_LANES),
-                                              (w5, halo1m, khuge.PACKEDCOUNT_MAX_LANES),
-                                              (w5s, halo_s, khuge.SPLIT_PLANES_MAX_LANES)))
+    k_hot, k_pc, k_split, k_sc = (
+        scan_block.segments(w.shape[0], w.shape[1] - h, h, cap)[0]
+        for w, h, cap in ((w5, halo1m, khuge.HOTSTATE_MAX_LANES),
+                          (w5, halo1m, khuge.PACKEDCOUNT_MAX_LANES),
+                          (w5s, halo_s, khuge.SPLIT_PLANES_MAX_LANES),
+                          (w5s, halo_s, khuge.SPLIT_COUNT_MAX_LANES)))
     print(f"  timed shapes: packed_scan_count at {tuple(w_full.shape)}, K={k_count}: kernel={kc} "
           f"twin={pc}; packedcount_hotstate_plane at {tuple(w5.shape)}, K={k_hot}: "
           f"max_abs_err={e_hot}; packedcount_count, K={k_pc}: kernel={kpc} twin={ppc}; "
           f"split_emit_planes at {tuple(w5s.shape)}, P={sargs1m[-1]}, K={k_split}: "
-          f"max_abs_err={e_split}")
-    if kc != pc or e_hot or kpc != ppc or e_split:
+          f"max_abs_err={e_split}; split_count, K={k_sc}: kernel={ksc} twin={psc}")
+    if kc != pc or e_hot or kpc != ppc or e_split or ksc != psc:
         raise AssertionError("a redesigned kernel disagrees with its twin at its timed shape")
     variants_lib = scan_variants.library()
     ab = scan_variants.run(args, cargs, sargs1m, variants_lib)
