@@ -61,8 +61,9 @@ design, at the 10k cell's start slots and at every position of 4 Mi.
 times instead the kernels on ``csrc/tile.cuh``'s lane loops whose entry
 points two checkouts share (``packed_scan_count``, ``packed_scan_planes``,
 ``packedcount_count``, ``packedcount_hotstate_plane``, ``split_emit_planes``,
-``rowdfa2_count``, and ``table_sharded_scan`` in its count and planes modes)
-built from this checkout and from the ``csrc/`` of another checkout at
+``rowdfa2_count``, ``table_sharded_scan`` in its count and planes modes, and
+the lane scan ``seq_states_sync`` at 64 Ki and 32 Mi units of the 10k dense
+table) built from this checkout and from the ``csrc/`` of another checkout at
 ``DIR`` (the parent commit, unpacked with ``git archive``), in one process on
 the same cells at the rule's K: each pair's outputs equal bit for bit, then
 other, this, this, other.  Prints one JSON line.
@@ -534,14 +535,17 @@ def seq_ab(cells: dict) -> dict:
 
 AGAINST_KERNELS = ("packed_scan_count", "packed_scan_planes", "packedcount_count",
                    "packedcount_hotstate_plane", "split_emit_planes", "rowdfa2_count",
-                   "table_sharded_scan")
+                   "table_sharded_scan", "seq_states_sync")
+AGAINST_SEQ_UNITS = (1 << 16, 1 << 25)  # the lane scan's N in the comparison
 
 
 def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tuple,
-            row_cell: tuple, tp_cell: tuple) -> dict:
+            row_cell: tuple, tp_cell: tuple, seq_cell: tuple) -> dict:
     """The lane-loop kernels of this checkout and of ``other_root``'s
     ``csrc/`` on the cells of ``run``, ``rowdfa2_ab`` (``row_cell``) and
-    ``tp_ab`` (``tp_cell``; the count and planes modes): ``{kernel: {"K",
+    ``tp_ab`` (``tp_cell``; the count and planes modes), and the lane scan
+    of ``seq_states`` (``seq_cell``: dense table, ``int32[N]`` classes, d) at
+    ``AGAINST_SEQ_UNITS`` with the rule's L: ``{kernel: {"K" or "L",
     "other_ms", "this_ms", "this_over_other"}}`` (each ms list in the order
     timed)."""
     import glob
@@ -601,6 +605,31 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
             ms[tree].append(_seconds_per_rep(runs[tree], 20, win.device) * 1e3)
         record[name] = {"K": k, "other_ms": ms["other"], "this_ms": ms["this"],
                         "this_over_other": min(ms["this"]) / min(ms["other"])}
+    from ahocorasick_tpu_torch.kernels import scan_dfa
+
+    table, cls, depth = seq_cell
+    stream = torch.cuda.current_stream(cls.device).cuda_stream
+    for n in AGAINST_SEQ_UNITS:
+        L = scan_dfa.sync_lane_len(n, depth)
+        outs, runs = {}, {}
+        for tree, lib in libs.items():
+            outs[tree] = torch.empty(n, dtype=torch.int32, device=cls.device)
+
+            def launch(lib=lib, out=outs[tree]):
+                rc = lib.seq_states_sync(table.data_ptr(), None, cls.data_ptr(), n,
+                                         table.shape[1], 0, depth, L, out.data_ptr(),
+                                         cls.device.index or 0, stream)
+                if rc != 0:
+                    raise RuntimeError(f"seq_states_sync launch failed: CUDA error {rc}")
+            runs[tree] = launch
+            launch()
+        if not torch.equal(outs["other"], outs["this"]):
+            raise AssertionError(f"seq_states N={n}: the two checkouts' lane scans differ")
+        ms = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            ms[tree].append(_seconds_per_rep(runs[tree], 20, cls.device) * 1e3)
+        record[f"seq_states N={n}"] = {"L": L, "other_ms": ms["other"], "this_ms": ms["this"],
+                                       "this_over_other": min(ms["this"]) / min(ms["other"])}
     return record
 
 
@@ -650,7 +679,10 @@ def main(argv=None) -> None:
     if opts.against:
         record = against(opts.against, (pd.table, w, pd.halo, pd.state_bits),
                          (flat, wh, halo, sb, A), (dfa, emit, ws, shalo, A, emit.shape[1]),
-                         row_cell, ten_k_shards(m, dev, w))
+                         row_cell, ten_k_shards(m, dev, w),
+                         (m.dev.seq_tables[0], _int32_classes(
+                             np.tile(base, TEXT_UNITS // BASE_UNITS), dev),
+                          max(m.compiled.max_depth, 1)))
         print(json.dumps({"card": smi, "against": opts.against, **record}))
         return
     record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),

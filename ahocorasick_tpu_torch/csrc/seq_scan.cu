@@ -46,6 +46,16 @@
 //     sectors (16-byte stores where L, N and `out` allow).  A RowTable step
 //     is two dependent loads; the row_id load of a state is issued as soon
 //     as the state is known.
+// The lane scan takes rows: `rescan`, the chunk stitch's rescan in its
+// synchronized form (kernels/stitch.py; it replaces
+// ahocorasick_tpu/ops/stitch.py stitched_states, :68), scans C chunks of K
+// classes as C rows, lane 0 of row c from the chunk's entry state and every
+// other lane of the row warmed inside it, so no lane crosses a chunk; a chunk
+// shorter than L is one lane, the serial walk of that chunk: 0.0076 ms of
+// card time at C = 1, K = 32 Ki of the 10k table (NVIDIA H100 80GB HBM3,
+// 700.00 W), where the serial rescan takes 2.27.  seq_states_sync is the
+// one-row case whose entry is s0.  16-byte stores need K % 4 == 0 as well,
+// since rows start at c*K.
 // Indices are 64-bit.
 
 #include <cstdint>
@@ -96,23 +106,34 @@ seq_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ row_id
   }
 }
 
-// Lane g = the thread's global index scans [g*L, min((g+1)*L, n)).  Every
-// thread of a warp runs the tile loop as often as its longest lane (the
-// stores are warp-wide); a lane past n loads nothing and stores nothing.
+// The lane scan over `rows` rows of `row_len` classes each, every row cut
+// into lanes_per_row lanes of lane_len positions: lane g (the thread's global
+// index) is lane j = g % lanes_per_row of row r = g / lanes_per_row and scans
+// [j*L, min((j+1)*L, row_len)) of its row.  Lane 0 of row r starts from
+// entry[r] (s0 where `entry` is null: the one-row scan), every other lane
+// from the root warmed over the d classes before its segment, which lie in
+// the same row (j*L >= L >= d).  Every thread of a warp runs the tile loop
+// as often as its longest lane (the stores are warp-wide); a lane past the
+// last row loads nothing and stores nothing.
 template <bool kRows>
 __global__ void __launch_bounds__(kThreads)
 sync_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row_id,
-            const uint32_t* __restrict__ cls, int64_t n, uint32_t num_classes, uint32_t s0,
-            int depth, int lane_len, bool vec, uint32_t* __restrict__ out) {
+            const uint32_t* __restrict__ cls, int64_t rows, int64_t row_len,
+            int64_t lanes_per_row, const uint32_t* __restrict__ entry, uint32_t s0,
+            uint32_t num_classes, int depth, int lane_len, bool vec,
+            uint32_t* __restrict__ out) {
   __shared__ uint32_t tiles[kThreads * tile::kPitch];
   const int lane = threadIdx.x & 31;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  const int64_t start = g * lane_len;
-  const int len =
-      start >= n ? 0 : (n - start < lane_len ? static_cast<int>(n - start) : lane_len);
-  uint32_t s = s0;
-  if (g > 0 && len > 0) {  // warm up from the root over the d classes before the segment
-    s = 0;
+  const int64_t r = g / lanes_per_row;
+  const int64_t in_row = (g - r * lanes_per_row) * lane_len;
+  const int64_t start = r * row_len + in_row;
+  const int len = r >= rows ? 0
+                  : (row_len - in_row < lane_len ? static_cast<int>(row_len - in_row) : lane_len);
+  uint32_t s = 0;
+  if (len > 0 && in_row == 0) {
+    s = entry != nullptr ? __ldg(entry + r) : s0;
+  } else if (len > 0) {  // warm up from the root over the d classes before the segment
     for (int t0 = 0; t0 < depth; t0 += tile::kTileSteps) {
       const int k = min(tile::kTileSteps, depth - t0);
       tile::ClassWords<uint32_t> c;
@@ -141,6 +162,26 @@ sync_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row
     tile::store_tile(warp_tile, lane, start + t0, k, vec, out);
     __syncwarp();  // the rows are rewritten by the next tile
   }
+}
+
+// Launches the lane scan of `rows` rows; false where the grid is too large.
+template <bool kRows>
+bool launch_sync(const uint32_t* table, const uint32_t* row_id, const uint32_t* cls,
+                 int64_t rows, int64_t row_len, const uint32_t* entry, uint32_t s0,
+                 uint32_t num_classes, int depth, int lane_len, uint32_t* out,
+                 cudaStream_t stream) {
+  const int64_t per_row = (row_len + lane_len - 1) / lane_len;
+  if (per_row > (int64_t{1} << 62) / rows) return false;
+  const int64_t blocks = (rows * per_row + kThreads - 1) / kThreads;
+  if (blocks > 2147483647) return false;
+  // Every run (a lane's tile, at r*row_len + j*L + a multiple of 16) is
+  // 16-byte aligned and a multiple of 4 words long where L and row_len are
+  // multiples of 4.
+  const bool vec = row_len % 4 == 0 && tile::vec_runs(4, lane_len, out);
+  sync_kernel<kRows><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
+      table, row_id, cls, rows, row_len, per_row, entry, s0, num_classes, depth, lane_len, vec,
+      out);
+  return true;
 }
 
 }  // namespace
@@ -182,19 +223,32 @@ extern "C" int seq_states_sync(const void* table, const void* row_id, const void
   const auto* c = static_cast<const uint32_t*>(cls);
   auto* states = static_cast<uint32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
-  const int64_t lanes = (n + lane_len - 1) / lane_len;
-  const auto grid = static_cast<unsigned>((lanes + kThreads - 1) / kThreads);
-  // Every run (a lane's tile, at g*L + a multiple of 16) is 16-byte aligned
-  // and a multiple of 4 words long where L and n are multiples of 4.
-  const bool vec = n % 4 == 0 && tile::vec_runs(4, lane_len, out);
   const auto a = static_cast<uint32_t>(num_classes);
   const auto e = static_cast<uint32_t>(s0);
-  if (rid != nullptr) {
-    sync_kernel<true><<<grid, kThreads, 0, st>>>(tab, rid, c, n, a, e, depth, lane_len, vec,
-                                                  states);
-  } else {
-    sync_kernel<false><<<grid, kThreads, 0, st>>>(tab, rid, c, n, a, e, depth, lane_len, vec,
-                                                   states);
-  }
-  return static_cast<int>(cudaGetLastError());
+  const bool ok =
+      rid != nullptr
+          ? launch_sync<true>(tab, rid, c, 1, n, nullptr, e, a, depth, lane_len, states, st)
+          : launch_sync<false>(tab, rid, c, 1, n, nullptr, e, a, depth, lane_len, states, st);
+  return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The rescan of the chunk stitch (kernels/stitch.py rescan, sync_depth set):
+// out int32[num_chunks, chunk_len], chunk c walked from entry[c] over the
+// dense `depth`-synchronizing table int32[S, num_classes], as num_chunks rows
+// of the lane scan with lanes of lane_len >= depth positions.  Returns
+// cudaGetLastError() after the launch, or cudaErrorInvalidValue for
+// arguments it does not take.
+extern "C" int rescan(const void* table, const void* cls, const void* entry, int64_t num_chunks,
+                      int64_t chunk_len, int num_classes, int depth, int lane_len, void* out,
+                      int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks < 1 || chunk_len < 1 || num_classes < 1 || depth < 1 || lane_len < depth)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const bool ok = launch_sync<false>(
+      static_cast<const uint32_t*>(table), nullptr, static_cast<const uint32_t*>(cls),
+      num_chunks, chunk_len, static_cast<const uint32_t*>(entry), 0,
+      static_cast<uint32_t>(num_classes), depth, lane_len, static_cast<uint32_t*>(out),
+      static_cast<cudaStream_t>(stream));
+  return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }

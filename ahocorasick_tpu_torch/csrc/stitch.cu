@@ -1,8 +1,10 @@
 // Chunk stitching by state maps for Hopper (sm_90a): the sigma map of every
-// chunk, the fold of the maps into each chunk's entry state, and the rescan
-// of every chunk from its entry state, behind a plain C interface loaded with
-// ctypes (ahocorasick_tpu_torch/kernels/build.py builds it, kernels/stitch.py
-// binds it).
+// chunk, in two forms, the fold of the maps into each chunk's entry state,
+// and the first design of the rescan of every chunk from its entry state,
+// behind a plain C interface loaded with ctypes
+// (ahocorasick_tpu_torch/kernels/build.py builds it, kernels/stitch.py binds
+// it).  The rescan's synchronized form is seq_scan.cu's lane scan, one row a
+// chunk (its entry point `rescan` there).
 //
 // What it replaces.  ahocorasick_tpu/ops/stitch.py: chunk_state_maps (:33, a
 // lax.scan over the chunk columns carrying a (C, S) lane matrix), entry_states
@@ -20,24 +22,51 @@
 // so that rescan(table, cls, entry_fold(state_maps(table, cls), s0)) equals
 // the one sequential scan of the flattened classes from s0, bit for bit.
 //
-// What bounds them on the H100.  state_maps by operations: C*K*S dependent
-// table lookups (S lanes of work per character), each an L1/L2 round trip;
-// its bytes (4*C*K classes in, 4*C*S states out) are small beside that.  The
-// design: one thread per (chunk, entry state) lane with the state in a
-// register; a block's lanes belong to one chunk, whose classes go through
-// shared memory in tiles with coalesced loads, so every lane of the block
-// reads one class per step from shared memory and only the table lookup is on
-// the chain.  A d-synchronizing table brings all lanes of a chunk to one
-// state after d characters, and from there a warp's 32 lookups are one
-// address.  entry_fold is a latency chain of C dependent loads (4*C bytes
-// out): one thread walks it.  The JAX code composes whole maps in log depth
-// because a TPU has no cheap serial chain; the contract is only the entry
-// vector, and a log-depth composition is later speed work.  rescan is the
-// sequential-scan kernel's loop (seq_scan.cu) once per chunk: bytes are
-// 8*C*K, but each chunk is one dependent chain, so one block per chunk stages
-// tiles as seq_kernel does and its thread 0 walks; throughput comes only from
-// chunks in flight.  All flat indices are 64-bit: C*S and S*A pass 2**31 at
-// the 1M-keyword dictionary.
+// The two forms of the sigma map.
+//   * state_maps_all, the first design, for any table (the shortest
+//     matcher's restart table does not synchronize): one thread per (chunk,
+//     entry state) lane with the state in a register; a block's lanes belong
+//     to one chunk, whose classes go through shared memory in tiles with
+//     coalesced loads, so only the table lookup is on the chain.  It is
+//     bound by its C*K*S dependent lookups, a K-long chain a lane: 2.24 ms at
+//     C = 1, K = 32 Ki, S = 65,536 on the 10k table (NVIDIA H100 80GB HBM3,
+//     700.00 W).
+//   * state_maps, the synchronized form, for a table declared
+//     d-synchronizing from every state reachable from the root (a goto
+//     closure, d = max_depth: after any d classes the state is the longest
+//     suffix of them that is a keyword prefix, whatever state they were read
+//     from).  Phase 1 (agree_kernel) walks all S lanes of each chunk over its
+//     first t = min(K, d + 1) classes and folds each warp's least and
+//     greatest state (__reduce_min_sync / __reduce_max_sync) into the chunk's
+//     pair with one atomicMin / atomicMax a warp; the entry point sets the
+//     pairs with cudaMemsetAsync on the stream first.  Phase 2
+//     (settle_kernel, the next launch on the same stream: no host
+//     synchronization) reads the pair.  Where least == greatest == v, every
+//     lane holds v after t classes, so sigma[c, s] = walk(v, cls[t:K]) for
+//     every s and any table; v was reached from the root's lane, so the
+//     declaration gives walk(v, cls[t:K]) = walk(v, cls[K-d:K]) once
+//     K - t >= d, and the block walks v over [max(t, K - d), K) (at most d
+//     dependent loads, the same for every thread) and stores the one value,
+//     16 bytes a store where S % 4 == 0.  Where they differ (a padding row
+//     that never converges, a sink), every lane walks its own chunk as the
+//     first design does, from its entry state (phase 1 stores nothing, so
+//     the common case writes sigma once): exact for any table.  A live row
+//     agrees after d classes and a zero-filled padding row (every class to
+//     the root) one class later, hence t = d + 1.  The work falls from C*K*S
+//     lookups to S*(d + 1) + d lookups a chunk and 4*C*S bytes out: two
+//     launches, two short chains and the stores, 0.016 ms of card time at the
+//     shape above (0.043 ms through the wrapper, whose host time is most of a
+//     call).  At many short chunks the S*(d + 1) lookups a chunk dominate:
+//     2.78 ms at C = 1,024, K = 256 (same card).
+// entry_fold is a latency chain of C dependent loads (4*C bytes out): one
+// thread walks it.  The JAX code composes whole maps in log depth because a
+// TPU has no cheap serial chain; the contract is only the entry vector.
+// rescan_serial, the rescan's first design, is the serial walk once per
+// chunk: one block per chunk stages tiles and its thread 0 walks, one L2
+// round trip a class while the block's other threads wait (2.29 ms at C = 1,
+// K = 32 Ki on the 10k table, same card); throughput comes only from chunks
+// in flight.  All flat indices are 64-bit: C*S and S*A pass 2**31 at the
+// 1M-keyword dictionary.
 
 #include <cstdint>
 
@@ -50,28 +79,91 @@ constexpr int kMapTile = 1024;
 constexpr int kScanThreads = 128;
 constexpr int kScanTile = 1024;
 
-__global__ void __launch_bounds__(kMapThreads)
-maps_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
-            int64_t chunk_len, int64_t num_states, int64_t num_classes,
-            int64_t blocks_per_chunk, int32_t* __restrict__ sigma) {
-  __shared__ int32_t tile[kMapTile];
-  const int64_t block = blockIdx.x;
-  const int64_t chunk = block / blocks_per_chunk;
-  const int64_t lane = (block % blocks_per_chunk) * kMapThreads + threadIdx.x;
-  const int32_t* row = cls + chunk * chunk_len;
-  const bool live = lane < num_states;
-  int32_t s = live ? static_cast<int32_t>(lane) : 0;
-  for (int64_t base = 0; base < chunk_len; base += kMapTile) {
-    const int len = static_cast<int>(chunk_len - base < kMapTile ? chunk_len - base : kMapTile);
+// Every thread of the block walks its state s over the classes row[begin,
+// end); the classes go through `tile` kMapTile at a time with coalesced
+// loads.  Threads with `active` false only help stage.  All threads of the
+// block must call it (it synchronizes).
+__device__ __forceinline__ int32_t walk(const int32_t* __restrict__ table,
+                                        const int32_t* __restrict__ row, int64_t begin,
+                                        int64_t end, int64_t num_classes, int32_t s, bool active,
+                                        int32_t* __restrict__ tile) {
+  for (int64_t base = begin; base < end; base += kMapTile) {
+    const int len = static_cast<int>(end - base < kMapTile ? end - base : kMapTile);
     for (int i = threadIdx.x; i < len; i += kMapThreads) tile[i] = row[base + i];
     __syncthreads();
-    if (live) {
+    if (active) {
       for (int i = 0; i < len; ++i)
         s = __ldg(table + (static_cast<int64_t>(s) * num_classes + tile[i]));
     }
     __syncthreads();  // the next tile's loads overwrite `tile`
   }
+  return s;
+}
+
+__global__ void __launch_bounds__(kMapThreads)
+maps_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
+            int64_t chunk_len, int64_t num_states, int64_t num_classes,
+            int64_t blocks_per_chunk, int32_t* __restrict__ sigma) {
+  __shared__ int32_t tile[kMapTile];
+  const int64_t chunk = blockIdx.x / blocks_per_chunk;
+  const int64_t lane = (blockIdx.x % blocks_per_chunk) * kMapThreads + threadIdx.x;
+  const bool live = lane < num_states;
+  const int32_t s = walk(table, cls + chunk * chunk_len, 0, chunk_len, num_classes,
+                         live ? static_cast<int32_t>(lane) : 0, live, tile);
   if (live) sigma[chunk * num_states + lane] = s;
+}
+
+// Phase 1: the lanes over the first t classes; each warp's least and
+// greatest state into the chunk's (lo, hi).
+__global__ void __launch_bounds__(kMapThreads)
+agree_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
+             int64_t chunk_len, int64_t num_states, int64_t num_classes,
+             int64_t blocks_per_chunk, int64_t t, int32_t* __restrict__ lo,
+             int32_t* __restrict__ hi) {
+  __shared__ int32_t tile[kMapTile];
+  const int64_t chunk = blockIdx.x / blocks_per_chunk;
+  const int64_t lane = (blockIdx.x % blocks_per_chunk) * kMapThreads + threadIdx.x;
+  const bool live = lane < num_states;
+  const int32_t s = walk(table, cls + chunk * chunk_len, 0, t, num_classes,
+                         live ? static_cast<int32_t>(lane) : 0, live, tile);
+  const int least = __reduce_min_sync(0xffffffffu, live ? s : INT32_MAX);
+  const int most = __reduce_max_sync(0xffffffffu, live ? s : -1);
+  if ((threadIdx.x & 31) == 0) {
+    atomicMin(lo + chunk, least);
+    atomicMax(hi + chunk, most);
+  }
+}
+
+// Phase 2: the tail of one agreed state, or every lane's own walk.
+__global__ void __launch_bounds__(kMapThreads)
+settle_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
+              int64_t chunk_len, int64_t num_states, int64_t num_classes,
+              int64_t blocks_per_chunk, int64_t t, int64_t depth,
+              const int32_t* __restrict__ lo, const int32_t* __restrict__ hi, bool vec,
+              int32_t* __restrict__ sigma) {
+  __shared__ int32_t tile[kMapTile];
+  const int64_t chunk = blockIdx.x / blocks_per_chunk;
+  const int64_t first = (blockIdx.x % blocks_per_chunk) * kMapThreads;
+  const int64_t lane = first + threadIdx.x;
+  const bool live = lane < num_states;
+  const int32_t* row = cls + chunk * chunk_len;
+  int32_t* out = sigma + chunk * num_states;
+  const int32_t v = lo[chunk];
+  if (v == hi[chunk]) {  // the same for the whole block
+    const int64_t tail = chunk_len - depth > t ? chunk_len - depth : t;
+    const int32_t w = walk(table, row, tail, chunk_len, num_classes, v, true, tile);
+    if (vec) {  // S % 4 == 0: the block's lanes as whole 16-byte words
+      const int64_t at = first + 4 * static_cast<int64_t>(threadIdx.x);
+      if (threadIdx.x < kMapThreads / 4 && at < num_states)
+        *reinterpret_cast<int4*>(out + at) = make_int4(w, w, w, w);
+    } else if (live) {
+      out[lane] = w;
+    }
+  } else {
+    const int32_t s = walk(table, row, 0, chunk_len, num_classes,
+                           live ? static_cast<int32_t>(lane) : 0, live, tile);
+    if (live) out[lane] = s;
+  }
 }
 
 __global__ void fold_kernel(const int32_t* __restrict__ sigma, int64_t num_chunks,
@@ -111,28 +203,68 @@ rescan_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls
 
 constexpr int64_t kMaxGrid = 2147483647;  // blocks along x
 
+// Blocks per chunk of the sigma kernels, or -1 past the grid's limit.
+int64_t map_blocks(int64_t num_chunks, int64_t num_states) {
+  const int64_t per = (num_states + kMapThreads - 1) / kMapThreads;
+  return per > kMaxGrid / num_chunks ? -1 : per;
+}
+
 }  // namespace
 
 // Every entry point returns cudaGetLastError() after the launch (0 = the
 // launch was accepted).  The caller validates shapes and types and launches
-// only non-empty work (num_chunks >= 1; chunk_len may be 0).
+// only non-empty work (num_chunks >= 1; chunk_len may be 0 for the maps).
 
-// sigma int32[num_chunks, num_states].  `table` is int32[num_states,
-// num_classes] (the row stride is num_classes), `cls` int32[num_chunks,
-// chunk_len].
-extern "C" int state_maps(const void* table, const void* cls, int64_t num_chunks,
-                          int64_t chunk_len, int64_t num_states, int num_classes, void* sigma,
-                          int device, void* stream) {
+// sigma int32[num_chunks, num_states], the first design.  `table` is
+// int32[num_states, num_classes] (the row stride is num_classes), `cls`
+// int32[num_chunks, chunk_len].
+extern "C" int state_maps_all(const void* table, const void* cls, int64_t num_chunks,
+                              int64_t chunk_len, int64_t num_states, int num_classes,
+                              void* sigma, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_chunks < 1 || chunk_len < 0 || num_states < 1 || num_classes < 1)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t per = (num_states + kMapThreads - 1) / kMapThreads;
-  if (per > kMaxGrid / num_chunks) return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per = map_blocks(num_chunks, num_states);
+  if (per < 0) return static_cast<int>(cudaErrorInvalidValue);
   maps_kernel<<<static_cast<unsigned>(per * num_chunks), kMapThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(cls), chunk_len,
       num_states, num_classes, per, static_cast<int32_t*>(sigma));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The synchronized form: the same arguments and output, plus the
+// synchronizing depth d >= 1 and `agree`, int32[2 * num_chunks] of scratch
+// (the chunks' least states, then their greatest), set here.
+extern "C" int state_maps(const void* table, const void* cls, int64_t num_chunks,
+                          int64_t chunk_len, int64_t num_states, int num_classes, int depth,
+                          void* agree, void* sigma, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks < 1 || chunk_len < 0 || num_states < 1 || num_states >= 0x7f7f7f7f ||
+      num_classes < 1 || depth < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per = map_blocks(num_chunks, num_states);
+  if (per < 0) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  auto* lo = static_cast<int32_t*>(agree);
+  auto* hi = lo + num_chunks;
+  // lo = 0x7f7f7f7f, above every state; hi = -1, below every state.
+  err = cudaMemsetAsync(lo, 0x7f, 4 * num_chunks, st);
+  if (err == cudaSuccess) err = cudaMemsetAsync(hi, 0xff, 4 * num_chunks, st);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t t = chunk_len < depth + 1 ? chunk_len : depth + 1;
+  const auto* tab = static_cast<const int32_t*>(table);
+  const auto* c = static_cast<const int32_t*>(cls);
+  const auto grid = static_cast<unsigned>(per * num_chunks);
+  agree_kernel<<<grid, kMapThreads, 0, st>>>(tab, c, chunk_len, num_states, num_classes, per, t,
+                                             lo, hi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const bool vec = num_states % 4 == 0 && reinterpret_cast<uintptr_t>(sigma) % 16 == 0;
+  settle_kernel<<<grid, kMapThreads, 0, st>>>(tab, c, chunk_len, num_states, num_classes, per, t,
+                                              depth, lo, hi, vec, static_cast<int32_t*>(sigma));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -149,9 +281,10 @@ extern "C" int entry_fold(const void* sigma, int64_t num_chunks, int64_t num_sta
   return static_cast<int>(cudaGetLastError());
 }
 
-// out int32[num_chunks, chunk_len]: chunk c walked from entry[c].
-extern "C" int rescan(const void* table, const void* cls, const void* entry, int64_t num_chunks,
-                      int64_t chunk_len, int num_classes, void* out, int device, void* stream) {
+// out int32[num_chunks, chunk_len]: chunk c walked from entry[c], serially.
+extern "C" int rescan_serial(const void* table, const void* cls, const void* entry,
+                             int64_t num_chunks, int64_t chunk_len, int num_classes, void* out,
+                             int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (num_chunks < 1 || num_chunks > kMaxGrid || chunk_len < 1 || num_classes < 1)

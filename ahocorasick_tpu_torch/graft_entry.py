@@ -126,11 +126,13 @@ def dryrun_multigpu(n_shards: int, devices=None) -> None:
     _check(total == expected, (total, expected))
 
     # Sequence-parallel path: sigma-stitching of the dense DFA over
-    # per-shard chunks of one stream.
+    # per-shard chunks of one stream.  The goto closure synchronizes at its
+    # depth, so the stitch runs its synchronized kernels.
     cls = m._classes(text)
     n = len(cls) - (len(cls) % n_shards)
     flat_cls = torch.from_numpy(cls[:n].astype(np.int32)).to(first)
-    states = stitch.stitched_scan(m.dev.dfa_next, flat_cls.reshape(n_shards, -1))
+    states = stitch.stitched_scan(m.dev.dfa_next, flat_cls.reshape(n_shards, -1),
+                                  sync_depth=max(m.compiled.max_depth, 1))
 
     # And the exactness of the stitch vs one flat sequential scan.
     flat = scan_dfa.dfa_states(m.dev.dfa_next, flat_cls)

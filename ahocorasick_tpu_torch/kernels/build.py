@@ -13,7 +13,9 @@ or ``PATH``); the ptxas report (registers, shared memory, spills) is kept
 beside the library as ``<name>.log``.
 
 ``launches`` counts kernel launches by wrapper name; each wrapper adds one
-where it launches its kernel, and nowhere else.
+where it launches its kernel, and nowhere else.  A wrapper whose call makes
+more than one launch (the synchronized ``state_maps``: two kernels) still
+adds one a call, so that launches x time stays per call.
 
     python -m ahocorasick_tpu_torch.kernels.build
 """
@@ -57,8 +59,10 @@ launches = {
     "seq_states_serial": 0,
     "wwl_sweep_all": 0,
     "state_maps": 0,
+    "state_maps_all": 0,
     "entry_fold": 0,
     "rescan": 0,
+    "rescan_serial": 0,
     "table_sharded_scan": 0,
     "rowdfa2_count": 0,
     "rowdfa2_planes": 0,
@@ -137,12 +141,16 @@ ARGTYPES = {
                       _P, _P, _P, _P, _P, _P, _I, _P],
     # (table, cls, num_chunks, chunk_len, num_states, num_classes, sigma,
     #  device, stream)
-    "state_maps": [_P, _P, _I64, _I64, _I64, _I, _P, _I, _P],
+    "state_maps_all": [_P, _P, _I64, _I64, _I64, _I, _P, _I, _P],
+    # the same with (depth, agree) before sigma
+    "state_maps": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P],
     # (sigma, num_chunks, num_states, s0, entry, device, stream)
     "entry_fold": [_P, _I64, _I64, _I, _P, _I, _P],
     # (table, cls, entry, num_chunks, chunk_len, num_classes, out, device,
     #  stream)
-    "rescan": [_P, _P, _P, _I64, _I64, _I, _P, _I, _P],
+    "rescan_serial": [_P, _P, _P, _I64, _I64, _I, _P, _I, _P],
+    # the same with (depth, lane_len) before out
+    "rescan": [_P, _P, _P, _I64, _I64, _I, _I, _I, _P, _I, _P],
     # (shard pointers, owners (host int array), n_model, rows_per, stride,
     #  magic, add, shift, windows, window_bytes, num_windows, width, halo,
     #  state_bits, mode, segments, seg_len, out, device, stream)

@@ -4,18 +4,24 @@ The reference's stream mode proves that automaton state across a buffer
 boundary is a single node pointer (``AhoCorasickMap.java:208-275``).  Split
 the text into C chunks, compute for every chunk the state map
 ``sigma_c : S -> S`` ("entered in state s, this chunk leaves in
-``sigma_c[s]``") by scanning all S lanes at once, fold the maps into each
-chunk's true entry state, and re-scan every chunk from its entry state: the
-arrival states equal the one sequential scan's bit for bit.
+``sigma_c[s]``"), fold the maps into each chunk's true entry state, and
+re-scan every chunk from its entry state: the arrival states equal the one
+sequential scan's bit for bit.
 
 The JAX module composes whole maps with ``associative_scan`` to get the entry
 states in log depth; the contract is only the entry vector, which the port's
 ``entry_fold`` kernel walks as one serial chain (``kernels/stitch.py``).
 
-Cost: the map pass does S lanes of work per character, so this suits small
-automata or validation.  It works for any total transition function over a
-dense ``int32[S, A]`` table, the shortest matcher's padded ``dfa_next``
-included.
+Cost.  ``sync_depth=None`` runs the first designs, which work for any total
+transition function over a dense ``int32[S, A]`` table, the shortest
+matcher's padded restart table included: the map pass does S lanes of work
+per character and the rescan walks each chunk serially, so they suit small
+automata or validation.  ``sync_depth=d`` declares the table d-synchronizing
+from every state reachable from the root (a goto closure, d =
+``max(max_depth, 1)``; ``s0`` reachable or a zero-filled padding row): the
+maps then cost S·(d + 1) + d lookups a chunk, since every lane agrees after
+d + 1 characters, and the rescan is the lane scan of ``seq_states`` with one
+row a chunk.  The outputs are the same either way.
 """
 
 from __future__ import annotations
@@ -25,9 +31,10 @@ import torch
 from ahocorasick_tpu_torch.kernels import stitch as kernels
 
 
-def chunk_state_maps(dfa_next: torch.Tensor, cls_chunks: torch.Tensor) -> torch.Tensor:
+def chunk_state_maps(dfa_next: torch.Tensor, cls_chunks: torch.Tensor,
+                     sync_depth=None) -> torch.Tensor:
     """sigma maps for each chunk: (C, K) classes -> (C, S) exit states."""
-    return kernels.state_maps(dfa_next, cls_chunks)
+    return kernels.state_maps(dfa_next, cls_chunks, sync_depth)
 
 
 def entry_states(sigma: torch.Tensor, s0: int = 0) -> torch.Tensor:
@@ -39,15 +46,16 @@ def entry_states(sigma: torch.Tensor, s0: int = 0) -> torch.Tensor:
 
 
 def stitched_states(dfa_next: torch.Tensor, cls_chunks: torch.Tensor,
-                    entry: torch.Tensor) -> torch.Tensor:
+                    entry: torch.Tensor, sync_depth=None) -> torch.Tensor:
     """Re-scan each chunk from its true entry state: (C, K) arrival states."""
-    return kernels.rescan(dfa_next, cls_chunks, entry)
+    return kernels.rescan(dfa_next, cls_chunks, entry, sync_depth)
 
 
-def stitched_scan(dfa_next: torch.Tensor, cls_chunks: torch.Tensor, s0: int = 0) -> torch.Tensor:
+def stitched_scan(dfa_next: torch.Tensor, cls_chunks: torch.Tensor, s0: int = 0,
+                  sync_depth=None) -> torch.Tensor:
     """Full pipeline: chunked classes (C, K) -> exact arrival states (C, K)."""
     if cls_chunks.shape[0] == 0:
         return torch.zeros_like(cls_chunks, dtype=torch.int32)
-    sigma = chunk_state_maps(dfa_next, cls_chunks)
+    sigma = chunk_state_maps(dfa_next, cls_chunks, sync_depth)
     entry = entry_states(sigma, s0)
-    return stitched_states(dfa_next, cls_chunks, entry)
+    return stitched_states(dfa_next, cls_chunks, entry, sync_depth)

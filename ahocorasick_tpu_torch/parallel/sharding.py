@@ -343,16 +343,21 @@ def _gather_outcomes(sh: _Shards, parts: dict, n: int):
 
 
 def sharded_arrival_states(table: torch.Tensor, cls: np.ndarray, mesh=None, *,
-                           group=None) -> np.ndarray:
+                           group=None, sync_depth=None) -> np.ndarray:
     """Exact sequential arrival states across the mesh via sigma-stitching.
 
-    Each shard scans its classes once carrying all S entry-state lanes (the
-    sigma map), the (D, S) sigma set is gathered, the maps are folded into
-    each shard's true entry state, and each shard rescans from it.  Exactly
-    the stream-mode state-carry invariant (``AhoCorasickMap.java:208-275``)
-    parallelized; suits small-to-medium S.  ``table`` is a dense total
-    transition function ``int32[S(+pad), A]``.  Returns int32[len(cls)]
-    arrival states (s_1..s_N of the flat scan)."""
+    Each shard computes its sigma map (the state it leaves in, for every
+    state it could be entered in), the (D, S) sigma set is gathered, the
+    maps are folded into each shard's true entry state, and each shard
+    rescans from it.  Exactly the stream-mode state-carry invariant
+    (``AhoCorasickMap.java:208-275``) parallelized.  ``table`` is a dense
+    total transition function ``int32[S(+pad), A]``.  ``sync_depth=None``
+    runs the stitch kernels' first designs, correct for any table (S lanes
+    of work per class, a serial rescan: small S); ``sync_depth=d`` declares
+    the table d-synchronizing from the root (a goto closure, d =
+    ``max(max_depth, 1)``) and runs their synchronized forms
+    (``kernels/stitch.py``), S·(d + 1) lookups a map and a lane scan a shard.
+    Returns int32[len(cls)] arrival states (s_1..s_N of the flat scan)."""
     sh = _Shards(mesh, group, table.device)
     n = len(cls)
     chunk = -(-max(n, 1) // sh.world)
@@ -364,7 +369,7 @@ def sharded_arrival_states(table: torch.Tensor, cls: np.ndarray, mesh=None, *,
         dev = sh.devices[r]
         if dev not in tables:
             tables[dev] = table if _indexed(table.device) == dev else table.to(dev)
-    sigma = {r: stitch_kernels.state_maps(tables[sh.devices[r]], shards[r][None])
+    sigma = {r: stitch_kernels.state_maps(tables[sh.devices[r]], shards[r][None], sync_depth)
              for r in sh.ranks}
     gathered = sh.gather(sigma)
     sigmas = torch.cat([s.to(gathered[0].device) for s in gathered])  # (D, S)
@@ -373,7 +378,7 @@ def sharded_arrival_states(table: torch.Tensor, cls: np.ndarray, mesh=None, *,
     for r in sh.ranks:
         dev = sh.devices[r]
         states[r] = stitch_kernels.rescan(tables[dev], shards[r][None],
-                                          entry[r : r + 1].to(dev))[0]
+                                          entry[r : r + 1].to(dev), sync_depth)[0]
     return sh.gather_host(states)[:n]
 
 

@@ -78,10 +78,17 @@ port only, the dictionary and text generators included (``bench.headline``,
    dense and row-compressed (from its deepest state) and, serial only, on
    the 10k shortest restart table; the every-position sweep beside the sweep at
    starts on each of those whole-word-longest planes; the sigma maps, the
-   entry fold and the rescan on the demo dictionary (1, 8 and 4,096 chunks,
-   ragged lengths, entry state 0 and not 0), on the 10k dense table (64
-   chunks of 1 Ki units) and on the 10k shortest restart table, and the
-   stitched scan == the sequential scan on each; the row-sharded scan in all
+   entry fold and the rescan, each map and rescan in its first design
+   (``state_maps_all``, ``rescan_serial``) and, on the goto closures, in its
+   synchronized form (``state_maps``, ``rescan``: ``sync_depth`` = d, the two
+   forms' maps equal), on the demo dictionary (1, 8 and 4,096 chunks, ragged
+   lengths, entry state 0 and not 0), on the 10k dense table (64 chunks of 1
+   Ki units), at the synchronized forms' edges on both (d = 12 and 8: K = 1,
+   d, d + 1, d + 2, L - 1, L, L + 1 and 5L + 3; 1, 3 and 64 chunks; entry
+   states live and in a zero-filled padding row), on a copy of the 10k table
+   whose padding rows are sinks (the maps' continuation), and, first designs
+   only, on the 10k shortest restart table, and the stitched scan == the
+   sequential scan on each; the row-sharded scan in all
    five modes on fuzz tables cut into 1, 3 and 8 shards (one with more shards
    than rows), the 10k table at 65,536 x 524 windows, a whole-word-longest
    table in row and flat layout, and the 1M count-packed table in 8 shards;
@@ -144,10 +151,15 @@ port only, the dictionary and text generators included (``bench.headline``,
    five kinds and a map on 32 Mi units == the single-device matcher's count
    and triples (AC also on 1 and 3 shards, uneven cuts), the mixed-route
    dictionary, the walk branch (the scan tables forced off), the 1M
-   dictionary's pinned counts and triples, ``sharded_arrival_states`` ==
-   the serial walk == the lane scan (the demo dictionary on 32 Mi units, the
-   10k table on 256 Ki; the two references made outside the path's counts), ``ShardedStream`` over the same uneven pieces and a resume in a
-   fresh scanner, ``graft_entry.dryrun_multigpu(8)`` and ``entry()``; the
+   dictionary's pinned counts and triples, ``sharded_arrival_states`` with
+   ``sync_depth`` == the serial walk == the lane scan (the demo dictionary
+   and the 10k table on 32 Mi units; the two references made outside the
+   path's counts; the synchronized stitch kernels launched, not the first
+   designs), ``stitched_scan`` of the 10k shortest restart table without
+   ``sync_depth`` (the first designs, not the synchronized ones),
+   ``ShardedStream`` over the same uneven pieces and a resume in a
+   fresh scanner, ``graft_entry.dryrun_multigpu(8)`` (the synchronized
+   stitch) and ``entry()``; the
    table-sharded scanner on the same mesh read as a model mesh (eight row
    shards, each an allocation of its own): each of the five kinds and the
    mixed-route dictionary on 32 Mi units == the single-device triples, AC on
@@ -176,8 +188,10 @@ port only, the dictionary and text generators included (``bench.headline``,
    stages: classes, upload, lane scan, download, emit expansion, triples)
    and the early stop; the sharded facades and the sharded count's stages; the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
-   and their stages; the stitched
-   scan beside the sequential scan at the same length; the fused WWL scan
+   and their stages; both forms of the maps and the rescan at C = 1, K = 32
+   Ki, S = 65,536 (each held to its twin there), and the stitched scan of
+   each form beside the serial walk and the lane scan at the same length
+   (the synchronized forms also at 8 chunks of 4 Mi units of the 10k table); the fused WWL scan
    against the plane and the sweep, the per-start walk beside them, at
    baseline-4 and the 10k cell (``probes.probe_wwl_fused``: card time with
    the calls queued ahead, and back to back), and the rule that sets
@@ -273,12 +287,18 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                           "ahocorasick_tpu/ops/scan_dfa.py:26"),
     "wwl_sweep_all": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
                       "ahocorasick_tpu/ops/scan_wwl.py:1117"),
+    # the stitch's maps and rescan in two forms each: synchronized
+    # (sync_depth = d) and the first design
     "state_maps": ("ahocorasick_tpu_torch/csrc/stitch.cu",
                    "ahocorasick_tpu/ops/stitch.py:33"),
+    "state_maps_all": ("ahocorasick_tpu_torch/csrc/stitch.cu",
+                       "ahocorasick_tpu/ops/stitch.py:33"),
     "entry_fold": ("ahocorasick_tpu_torch/csrc/stitch.cu",
                    "ahocorasick_tpu/ops/stitch.py:48"),
-    "rescan": ("ahocorasick_tpu_torch/csrc/stitch.cu",
+    "rescan": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                "ahocorasick_tpu/ops/stitch.py:68"),
+    "rescan_serial": ("ahocorasick_tpu_torch/csrc/stitch.cu",
+                      "ahocorasick_tpu/ops/stitch.py:68"),
     "table_sharded_scan": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
                            "ahocorasick_tpu/parallel/sharding.py:321"),
     # redesigned, both: tile.cuh's lane loops over tile::Stride2, a pair a step
@@ -1195,10 +1215,15 @@ def main() -> int:
                 if "Compiling entry" in line or "registers" in line or "spill" in line:
                     print(f"  ptxas: {line.strip()}")
 
-    def cuda_ms(fn, reps):
+    def cuda_ms(fn, reps, queued=False):
+        """ms per call of ``reps`` calls back to back; ``queued``: the calls
+        queued behind a sleep long enough for the host to enqueue them all
+        (about 0.2 ms a call at 2 GHz), so the card's time alone."""
         fn()
         torch.cuda.synchronize()
         start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        if queued:
+            torch.cuda._sleep(400_000 * reps)
         start.record()
         for _ in range(reps):
             fn()
@@ -1679,44 +1704,89 @@ def main() -> int:
         raise AssertionError("restart-table scan != the lagged-restart kernel's states")
 
     # Chunk stitching: sigma maps, entry fold and rescan against their twins,
-    # and the stitched scan against the one sequential scan.
-    def check_stitch(label, table, cls_np, chunks, s0):
-        K = len(cls_np) // chunks
+    # each map and rescan in its first design and, on a table declared
+    # d-synchronizing (``d``), in its synchronized form too, and the stitched
+    # scan of each form against the one sequential scan.
+    def check_stitch(label, table, cls_np, chunks, s0, d=None, K=None, first=True):
+        """``first`` False: the synchronized forms only."""
+        K = len(cls_np) // chunks if K is None else K
         flat = torch.from_numpy(np.ascontiguousarray(cls_np[: chunks * K], dtype=np.int32)).to(dev)
         c = flat.reshape(chunks, K)
-        sigma, sigma_twin = kstitch.state_maps(table, c), kstitch.state_maps_plain(table, c)
-        entry, entry_twin = kstitch.entry_fold(sigma, s0), kstitch.entry_fold_plain(sigma, s0)
-        states, states_twin = kstitch.rescan(table, c, entry), kstitch.rescan_plain(table, c, entry)
-        whole = stitch.stitched_scan(table, c, s0)
         seq = scan_dfa.seq_states(table, None, flat, s0)
-        torch.cuda.synchronize()
-        e = {"state_maps": max_err((sigma,), (sigma_twin,)),
-             "entry_fold": max_err((entry,), (entry_twin,)),
-             "rescan": max_err((states,), (states_twin,))}
+        e = {}
+        sigma_all = None
+        forms = (((None, "state_maps_all", "rescan_serial"),) if first else ()) + (
+            ((d, "state_maps", "rescan"),) if d is not None else ())
+        for depth, maps_k, rescan_k in forms:
+            sigma = kstitch.state_maps(table, c, depth)
+            sigma_twin = kstitch.state_maps_plain(table, c, depth)
+            entry, entry_twin = kstitch.entry_fold(sigma, s0), kstitch.entry_fold_plain(sigma, s0)
+            states = kstitch.rescan(table, c, entry, depth)
+            states_twin = kstitch.rescan_plain(table, c, entry, depth)
+            whole = stitch.stitched_scan(table, c, s0, depth)
+            torch.cuda.synchronize()
+            e[maps_k] = max_err((sigma,), (sigma_twin,))
+            e["entry_fold"] = max(e.get("entry_fold", 0), max_err((entry,), (entry_twin,)))
+            e[rescan_k] = max_err((states,), (states_twin,))
+            same = torch.equal(whole.reshape(-1), seq) and torch.equal(whole, states)
+            if depth is None:
+                sigma_all = sigma
+            elif sigma_all is not None and not torch.equal(sigma, sigma_all):
+                same = False
+            if not same:
+                e[rescan_k] = max(e[rescan_k], 1)
         for k, v in e.items():
             errs[k] = max(errs[k], v)
-        same = torch.equal(whole.reshape(-1), seq) and torch.equal(whole, states)
-        print(f"  stitch {label}: C={chunks} K={K} table {tuple(table.shape)} s0={s0} "
+        print(f"  stitch {label}: C={chunks} K={K} table {tuple(table.shape)} s0={s0} d={d} "
               f"entry states {entry[:4].tolist()}..{entry[-1:].tolist()} max_abs_err {e}; "
-              f"stitched_scan == seq_states: {same}")
-        if any(e.values()) or not same:
-            raise AssertionError(f"stitch {label}: a kernel disagrees with its plain twin, or "
-                                 f"the stitched scan with the sequential one")
+              f"stitched_scan == seq_states (and both forms' sigma equal): "
+              f"{not any(e.values())}")
+        if any(e.values()):
+            raise AssertionError(f"stitch {label}: a kernel disagrees with its plain twin, a "
+                                 f"stitched scan with the sequential one, or the two forms' "
+                                 f"maps with each other")
         return int(seq[-1]) if len(seq) else s0
 
+    t_stitch = time.perf_counter()
     demo_m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
     demo_cls = demo_m._classes(demo_text * 84)  # 4.2 M units
     demo_tab = demo_m.dev.dfa_next
-    s_demo = check_stitch("demo, warm-up", demo_tab, demo_cls[:999], 3, 0) or 1
+    d_demo = max(demo_m.compiled.max_depth, 1)
+    s_demo = check_stitch("demo, warm-up", demo_tab, demo_cls[:999], 3, 0, d_demo) or 1
     for chunks, units in ((1, 20_001), (8, 8 * 6_251), (4096, 4096 * 1_025), (4096, 4096 * 37)):
         for s0 in (0, s_demo):
-            check_stitch("demo 20 keywords", demo_tab, demo_cls[:units], chunks, s0)
-    check_stitch("10k dense table", dense_tab[0], cls[:SHORTEST_TWIN_UNITS], 64, 0)
+            check_stitch("demo 20 keywords", demo_tab, demo_cls[:units], chunks, s0, d_demo)
+    check_stitch("10k dense table", dense_tab[0], cls[:SHORTEST_TWIN_UNITS], 64, 0, d_seq)
     check_stitch("10k dense table", dense_tab[0], cls[5000: 5000 + SHORTEST_TWIN_UNITS], 64,
-                 s_mid_10k)
+                 s_mid_10k, d_seq)
+    # The synchronized forms' edges: K around d + 1 and the lane boundaries,
+    # 1, 3 and 64 chunks, entry states live and in a zero-filled padding row.
+    for label, table, m_e, tcls, d in (("10k dense table", dense_tab[0], big, cls, d_seq),
+                                       ("demo 20 keywords", demo_tab, demo_m, demo_cls, d_demo)):
+        L = scan_dfa.sync_lane_len(64 * 1024, d)
+        live = m_e.compiled.num_states
+        entries = (0, s_mid_10k if m_e is big else s_demo) + (
+            (live,) if table.shape[0] > live else ())
+        for chunks in (1, 3, 64):
+            for K in sorted({1, d, d + 1, d + 2, L - 1, L, L + 1, 5 * L + 3}):
+                for s0 in entries:
+                    check_stitch(f"{label}, edge", table, tcls[7: 7 + chunks * K], chunks, s0, d,
+                                 K, first=False)
+    # Padding rows that are sinks (each maps to itself): phase 1 does not
+    # converge and the continuation runs; no sink is reachable from the root,
+    # so the declaration still holds.
+    live10k = big.compiled.num_states
+    sink_tab = dense_tab[0].clone()
+    sink_tab[live10k:] = torch.arange(live10k, sink_tab.shape[0], dtype=torch.int32,
+                                      device=dev)[:, None]
+    for chunks, K in ((1, d_seq + 1), (3, 1024), (64, 5 * L_seq + 3)):
+        for s0 in (0, s_mid_10k):
+            check_stitch("10k table, sink padding", sink_tab, cls[11: 11 + chunks * K], chunks,
+                         s0, d_seq, K, first=False)
     if restart_tab[1] is not None:
         raise AssertionError("the 10k shortest restart table is not dense")
     check_stitch("10k shortest restart table", restart_tab[0], short_cls, 64, 0)
+    print(f"  stitch checks: {time.perf_counter() - t_stitch:.1f} s")
 
     wwl_rng = np.random.default_rng(SEED + 3)
     for seed in range(3):
@@ -2526,7 +2596,7 @@ def main() -> int:
     arrival_cases = []
     for label, table, c, d in (
             ("demo dictionary", demo_tab, demo32, max(demo_m.compiled.max_depth, 1)),
-            ("10k dictionary", dense_tab[0], cls[:ARRIVAL_UNITS_10K], d_seq)):
+            ("10k dictionary", dense_tab[0], cls[:TEXT_UNITS], d_seq)):
         c_d = int32_classes(c)
         want = timed(f"seq_states_serial, {label}, {len(c)} units",
                      lambda: scan_dfa.seq_states(table, None, c_d, 0).cpu().numpy())
@@ -2536,13 +2606,15 @@ def main() -> int:
             raise AssertionError(f"lane scan != seq_states_serial ({label})")
         print(f"  arrival reference {label}, table {tuple(table.shape)}, {len(c)} units: "
               f"the lane scan (d = {d}) == seq_states_serial")
-        arrival_cases.append((label, table, c, want))
+        arrival_cases.append((label, table, c, want, d))
 
+    # Each caller held to its stitch forms: the goto closures' arrival states
+    # declare their depth (the synchronized kernels) ...
     def arrival_path():
         out = []
-        for label, table, c, want in arrival_cases:
-            got = timed(f"sharded_arrival_states, {label}, {len(c)} units",
-                        lambda: sharding.sharded_arrival_states(table, c, mesh))
+        for label, table, c, want, d in arrival_cases:
+            got = timed(f"sharded_arrival_states, {label}, {len(c)} units, sync_depth {d}",
+                        lambda: sharding.sharded_arrival_states(table, c, mesh, sync_depth=d))
             if not np.array_equal(got, want):
                 raise AssertionError(f"sharded arrival states != seq_states_serial ({label})")
             out.append(f"{label}, table {tuple(table.shape)}, {len(c)} units: == "
@@ -2550,7 +2622,22 @@ def main() -> int:
         return "; ".join(out)
 
     run_path("sharded_arrival_states", ("state_maps", "entry_fold", "rescan"), arrival_path,
-             absent=("seq_states", "seq_states_serial"))
+             absent=("seq_states", "seq_states_serial", "state_maps_all", "rescan_serial"))
+
+    # ... and the shortest restart table, which does not synchronize, takes
+    # the first designs.
+    restart_flat = int32_classes(short_cls)
+    restart_want = scan_dfa.seq_states(restart_tab[0], None, restart_flat, 0)
+
+    def restart_stitch_path():
+        got = stitch.stitched_scan(restart_tab[0], restart_flat.reshape(N_SHARDS, -1))
+        if not torch.equal(got.reshape(-1), restart_want):
+            raise AssertionError("stitched_scan of the restart table != seq_states_serial")
+        return (f"stitched_scan, 10k shortest restart table {tuple(restart_tab[0].shape)}, "
+                f"{N_SHARDS} x {len(short_cls) // N_SHARDS} units == seq_states_serial")
+
+    run_path("stitched_scan restart table", ("state_maps_all", "entry_fold", "rescan_serial"),
+             restart_stitch_path, absent=("state_maps", "rescan"))
 
     def sharded_stream_path():
         def feed_arrays(st, pieces, start):
@@ -2593,7 +2680,7 @@ def main() -> int:
     run_path("graft_entry", ("packed_scan_count", "packed_scan_planes", "wwl_scan_plane",
                              "wwl_sweep_all", "state_maps", "entry_fold", "rescan",
                              "seq_states_serial", "table_sharded_scan"),
-             graft_path)
+             graft_path, absent=("state_maps_all", "rescan_serial"))
 
     # The table-sharded scanner: the same mesh read as a model mesh, the
     # table's rows in eight separate allocations on the one card, held against
@@ -3096,42 +3183,84 @@ def main() -> int:
     tab10 = dense_tab[0]
     K10 = ARRIVAL_UNITS_10K // N_SHARDS
     c10 = [int32_classes(cls[r * K10: (r + 1) * K10]).reshape(1, K10) for r in range(N_SHARDS)]
-    sigma8 = torch.cat([kstitch.state_maps(tab10, c) for c in c10])
+    sigma8 = torch.cat([kstitch.state_maps(tab10, c, d_seq) for c in c10])
     entry8 = kstitch.entry_fold(sigma8, 0)
-    ms["state_maps"] = (cuda_ms(lambda: kstitch.state_maps(tab10, c10[0]), 5),
-                        cuda_ms(lambda: kstitch.state_maps_plain(tab10, c10[0]), 1))
-    ms["entry_fold"] = (cuda_ms(lambda: kstitch.entry_fold(sigma8, 0), 20),
-                        cuda_ms(lambda: kstitch.entry_fold_plain(sigma8, 0), 3))
-    ms["rescan"] = (cuda_ms(lambda: kstitch.rescan(tab10, c10[1], entry8[1:2]), 5),
-                    cuda_ms(lambda: kstitch.rescan_plain(tab10, c10[1], entry8[1:2]), 1))
-    for k, shape in (("state_maps", f"C=1 K={K10} S={tab10.shape[0]}"),
-                     ("entry_fold", f"sigma {tuple(sigma8.shape)}"), ("rescan", f"C=1 K={K10}")):
-        print(f"time {k}, 10k dense table {tuple(tab10.shape)}, {shape}: kernel {ms[k][0]} ms, "
-              f"plain twin {ms[k][1]} ms [{smi}]")
+
+    def timed_twin(k, kernel, plain, reps):
+        """``ms[k]``: the kernel's and its twin's times at one shape, their
+        outputs first held equal."""
+        box = {}
+        ms[k] = (cuda_ms(lambda: box.__setitem__("got", kernel()), reps),
+                 cuda_ms(lambda: box.__setitem__("want", plain()), 1))
+        e = max_err((box["got"],), (box["want"],))
+        errs[k] = max(errs[k], e)
+        if e:
+            raise AssertionError(f"{k}: the timed call disagrees with its twin")
+
+    # Both forms of the maps and the rescan at the arrival path's per-shard
+    # shape (C = 1), where the first designs have always been timed.
+    for k, depth in (("state_maps", d_seq), ("state_maps_all", None)):
+        timed_twin(k, lambda: kstitch.state_maps(tab10, c10[0], depth),
+                   lambda: kstitch.state_maps_plain(tab10, c10[0], depth), 20 if depth else 5)
+    timed_twin("entry_fold", lambda: kstitch.entry_fold(sigma8, 0),
+               lambda: kstitch.entry_fold_plain(sigma8, 0), 20)
+    for k, depth in (("rescan", d_seq), ("rescan_serial", None)):
+        timed_twin(k, lambda: kstitch.rescan(tab10, c10[1], entry8[1:2], depth),
+                   lambda: kstitch.rescan_plain(tab10, c10[1], entry8[1:2], depth),
+                   20 if depth else 5)
+    # The card's time alone beside ms[k], which is through the wrapper.
+    stitch_card = {
+        "state_maps": cuda_ms(lambda: kstitch.state_maps(tab10, c10[0], d_seq), 20, True),
+        "state_maps_all": cuda_ms(lambda: kstitch.state_maps(tab10, c10[0]), 5, True),
+        "entry_fold": cuda_ms(lambda: kstitch.entry_fold(sigma8, 0), 20, True),
+        "rescan": cuda_ms(lambda: kstitch.rescan(tab10, c10[1], entry8[1:2], d_seq), 20, True),
+        "rescan_serial": cuda_ms(lambda: kstitch.rescan(tab10, c10[1], entry8[1:2]), 5, True)}
+    for k, shape in (("state_maps", f"C=1 K={K10} S={tab10.shape[0]} d={d_seq}"),
+                     ("state_maps_all", f"C=1 K={K10} S={tab10.shape[0]}"),
+                     ("entry_fold", f"sigma {tuple(sigma8.shape)}"),
+                     ("rescan", f"C=1 K={K10} d={d_seq}"), ("rescan_serial", f"C=1 K={K10}")):
+        print(f"time {k}, 10k dense table {tuple(tab10.shape)}, {shape}: kernel {ms[k][0]} ms "
+              f"(card time, the calls queued: {stitch_card[k]} ms), plain twin {ms[k][1]} ms "
+              f"[{smi}]")
 
     # The stitched scan beside the one sequential scan at the same N: a small
-    # automaton (the demo dictionary) on 32 Mi units, and the 10k table.
+    # automaton (the demo dictionary) on 32 Mi units, and the 10k table; the
+    # synchronized forms at every shape, the first designs (``first``) at
+    # the shapes they have always been timed at, the serial walk at those N.
     demo_flat = int32_classes(demo32)
-    for label, table, flat, shapes in (
-            ("demo dictionary", demo_tab, demo_flat, ((N_SHARDS, TEXT_UNITS // N_SHARDS),
-                                                      (4096, TEXT_UNITS // 4096))),
-            ("10k dictionary", tab10, int32_classes(cls[:ARRIVAL_UNITS_10K]),
-             ((N_SHARDS, K10), (64, ARRIVAL_UNITS_10K // 64),
-              (1024, ARRIVAL_UNITS_10K // 1024)))):
-        t_seq = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0), 1)
-        for chunks, K in shapes:
+    for label, table, flat, d, shapes in (
+            ("demo dictionary", demo_tab, demo_flat, d_demo,
+             ((N_SHARDS, TEXT_UNITS // N_SHARDS, True), (4096, TEXT_UNITS // 4096, True))),
+            ("10k dictionary", tab10, int32_classes(cls[:ARRIVAL_UNITS_10K]), d_seq,
+             ((N_SHARDS, K10, True), (64, ARRIVAL_UNITS_10K // 64, True),
+              (1024, ARRIVAL_UNITS_10K // 1024, True))),
+            ("10k dictionary", tab10, int32_classes(cls[:TEXT_UNITS]), d_seq,
+             ((N_SHARDS, TEXT_UNITS // N_SHARDS, False),))):
+        first_any = any(f for _, _, f in shapes)
+        t_seq = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0), 1) if first_any else None
+        t_lane = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0, d), 5)
+        ref = scan_dfa.seq_states(table, None, flat, 0, d)
+        for chunks, K, first in shapes:
             c = flat.reshape(chunks, K)
-            sig = kstitch.state_maps(table, c)
-            ent = kstitch.entry_fold(sig, 0)
-            reps = 1 if chunks == N_SHARDS else 3
-            parts = (cuda_ms(lambda: kstitch.state_maps(table, c), reps),
-                     cuda_ms(lambda: kstitch.entry_fold(sig, 0), reps),
-                     cuda_ms(lambda: kstitch.rescan(table, c, ent), reps))
-            t_all = cuda_ms(lambda: stitch.stitched_scan(table, c, 0), reps)
-            print(f"time stitched_scan, {label}, table {tuple(table.shape)}, N={flat.shape[0]} "
-                  f"C={chunks} K={K}: {t_all} ms (state_maps {parts[0]}, entry_fold {parts[1]}, "
-                  f"rescan {parts[2]}) against seq_states {t_seq} ms = "
-                  f"{t_seq / t_all} x [{smi}]")
+            for depth in (d, None) if first else (d,):
+                sig = kstitch.state_maps(table, c, depth)
+                ent = kstitch.entry_fold(sig, 0)
+                whole = stitch.stitched_scan(table, c, 0, depth)
+                if not torch.equal(whole.reshape(-1), ref):
+                    raise AssertionError(f"stitched_scan {label} C={chunks} sync_depth={depth} "
+                                         f"!= the sequential scan")
+                reps = 1 if chunks == N_SHARDS and depth is None else 3
+                parts = (cuda_ms(lambda: kstitch.state_maps(table, c, depth), reps),
+                         cuda_ms(lambda: kstitch.entry_fold(sig, 0), reps),
+                         cuda_ms(lambda: kstitch.rescan(table, c, ent, depth), reps))
+                t_all = cuda_ms(lambda: stitch.stitched_scan(table, c, 0, depth), reps)
+                names = ("state_maps", "rescan") if depth else ("state_maps_all", "rescan_serial")
+                print(f"time stitched_scan, {label}, table {tuple(table.shape)}, "
+                      f"N={flat.shape[0]} C={chunks} K={K} sync_depth={depth}: {t_all} ms "
+                      f"({names[0]} {parts[0]}, entry_fold {parts[1]}, {names[1]} {parts[2]}) "
+                      f"against seq_states_serial {t_seq} ms"
+                      + (f" = {t_seq / t_all} x" if t_seq else " (not timed at this N)")
+                      + f", seq_states (lane scan, d = {d}) {t_lane} ms [{smi}]")
 
     # The huge-dictionary kernels on the 1M dictionary, BASELINE #5's text.
     flat1m, sb1m, halo1m = ac1m.dev.count_packed_dfa
@@ -3784,11 +3913,17 @@ def main() -> int:
         # the plane once, four int32 and one bool plane out
         "wwl_sweep_all": (4 * (per_w + d10 + 1)
                           + nbytes(kwwl.wwl_sweep_all(*all_args, **skw)), 6 * per_w),
-        # S lanes of work per class: C * K * S lookups
-        "state_maps": (nbytes(c10[0]) + 4 * tab10.shape[0], K10 * tab10.shape[0]),
+        # the synchronized maps: the first t = min(K, d + 1) classes and at
+        # most d of the tail in, sigma out; S * t lookups and a d-long tail
+        "state_maps": (4 * (min(K10, d_seq + 1) + d_seq) + 4 * tab10.shape[0],
+                       tab10.shape[0] * min(K10, d_seq + 1) + d_seq),
+        # the first design, S lanes of work per class: C * K * S lookups
+        "state_maps_all": (nbytes(c10[0]) + 4 * tab10.shape[0], K10 * tab10.shape[0]),
         # a chain of C dependent loads: latency, not bytes
         "entry_fold": (8 * sigma8.shape[0], sigma8.shape[0]),
+        # classes and the entry state in, states out; a lookup and an index a unit
         "rescan": (8 * K10 + 4, 2 * K10),
+        "rescan_serial": (8 * K10 + 4, 2 * K10),
         # the planes mode: windows in, one word per body position out, and the
         # shard pointers; a division and a pointer load more than the packed scan
         "table_sharded_scan": (nbytes(w_full, planes_full) + 8 * N_SHARDS, 6 * chars10),

@@ -1,7 +1,8 @@
 """The port's sharded scan functions under a ``torch.distributed`` process group
 (gloo, one rank per process, CPU tensors) vs their device-list form on the
 same inputs: counts, planes, whole-word-longest walks on both branches,
-arrival states, the table-sharded scan (one rank per row shard, an
+arrival states (the stitch's first designs, and its synchronized forms with
+``sync_depth``), the table-sharded scan (one rank per row shard, an
 ``all_reduce`` per character) and the launch glue's per-process shards.  One
 spawn per world size runs every case; each rank writes
 what it got to a file and the parent compares.  Everything compared is an
@@ -22,7 +23,7 @@ import torch.distributed
 
 CPU = torch.device("cpu")
 CASES = ("count_packed", "count_packedcount", "count_reps", "planes_packed", "planes_hotstate",
-         "wwl_scan", "wwl_mixed", "wwl_walk", "arrival", "arrival_empty",
+         "wwl_scan", "wwl_mixed", "wwl_walk", "arrival", "arrival_empty", "arrival_sync",
          "tp_count", "tp_run_count_packed", "tp_run_planes", "tp_run_hotstate", "tp_run_raw",
          "tp_ac", "tp_ac_stream", "tp_hotstate", "tp_longest", "tp_shortest", "tp_wwl_mixed",
          "launch_count")
@@ -87,6 +88,10 @@ def _run_cases(mesh=None, group=None):
     cls = small._classes(_text(0, 301, "abcx"))
     out["arrival"] = sharding.sharded_arrival_states(small.dev.dfa_next, cls, **form)
     out["arrival_empty"] = sharding.sharded_arrival_states(small.dev.dfa_next, cls[:0], **form)
+    # The goto closure synchronizes at its depth: the synchronized stitch.
+    out["arrival_sync"] = sharding.sharded_arrival_states(
+        small.dev.dfa_next, cls, sync_depth=max(small.compiled.max_depth, 1), **form)
+    assert np.array_equal(out["arrival_sync"], out["arrival"])
 
     # The table-sharded scan: under a group each rank holds one row shard.
     pd = scan_batched.build_packed(small.compiled)
