@@ -55,6 +55,14 @@
 //     (group 0), and csrc/sweep.cuh's grouped sweep at G = 1, 2, 4, 8 and 16
 //     loads a group, read from the plane or from a warp's span of the plane
 //     staged in shared memory.
+//   * seq_serial_first, shortest_first: the sequential scans' one-thread
+//     walks (csrc/seq_scan.cu seq_states_spec computes both): the serial walk
+//     of the dense or RowTable form in one block whose threads stage a tile
+//     of 2,048 int32 classes in shared memory and store it back while thread
+//     0 walks it (the first seq_states), and the leftmost-shortest restart
+//     scan in one thread, two dependent loads a class (match_len[s], then
+//     dfa_next[row * A + c]) and its classes read from global memory in the
+//     chain (the first shortest_states).
 
 #include <cstdint>
 
@@ -974,5 +982,103 @@ extern "C" int sweep_variant(int group, int staged, const void* plane, const voi
                                 cross, dp, h, ms, me, mv, c, st);
   }
   if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+constexpr int kSerialTile = 2048;
+
+template <bool kRows>
+__global__ void __launch_bounds__(kThreads)
+seq_serial_first_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ row_id,
+                        const int32_t* __restrict__ cls, int64_t n, int64_t num_classes,
+                        int32_t s0, int32_t* __restrict__ out) {
+  __shared__ int32_t tile[kSerialTile];
+  __shared__ int32_t carry;
+  if (threadIdx.x == 0) carry = s0;
+  for (int64_t base = 0; base < n; base += kSerialTile) {
+    const int len = static_cast<int>(n - base < kSerialTile ? n - base : kSerialTile);
+    for (int i = threadIdx.x; i < len; i += kThreads) tile[i] = cls[base + i];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      int32_t s = carry;
+      for (int i = 0; i < len; ++i) {
+        const int64_t row = kRows ? __ldg(row_id + s) : s;
+        s = __ldg(table + (row * num_classes + tile[i]));
+        tile[i] = s;
+      }
+      carry = s;
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += kThreads) out[base + i] = tile[i];
+    __syncthreads();  // the next tile's loads overwrite `tile`
+  }
+}
+
+template <typename T>
+__global__ void shortest_first_kernel(const int32_t* __restrict__ dfa_next,
+                                      const int32_t* __restrict__ match_len,
+                                      const T* __restrict__ cls, int64_t n, int64_t num_classes,
+                                      int32_t* __restrict__ out) {
+  int32_t s = 0;  // the root
+  for (int64_t i = 0; i < n; ++i) {
+    const int32_t row = __ldg(match_len + s) > 0 ? 0 : s;
+    s = __ldg(dfa_next + (static_cast<int64_t>(row) * num_classes + cls[i]));
+    out[i] = s;
+  }
+}
+
+}  // namespace
+
+// The serial walk's first design: out int32[n] from s0 over `table` (row_id
+// null: dense int32[S, A]; otherwise the distinct rows and row_id int32[S])
+// and int32 classes.
+extern "C" int seq_serial_first(const void* table, const void* row_id, const void* cls,
+                                int64_t n, int num_classes, int s0, void* out, int device,
+                                void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 0 || num_classes < 1 || s0 < 0) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* tab = static_cast<const int32_t*>(table);
+  const auto* rid = static_cast<const int32_t*>(row_id);
+  const auto* c = static_cast<const int32_t*>(cls);
+  auto* states = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (rid != nullptr) {
+    seq_serial_first_kernel<true><<<1, kThreads, 0, st>>>(tab, rid, c, n, num_classes, s0,
+                                                          states);
+  } else {
+    seq_serial_first_kernel<false><<<1, kThreads, 0, st>>>(tab, rid, c, n, num_classes, s0,
+                                                           states);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shortest restart scan's first design: out int32[n] from the root over
+// the padded dfa_next int32[S, A] and match_len int32[S], classes of
+// cls_bytes bytes (1, 2 or 4).
+extern "C" int shortest_first(const void* dfa_next, const void* match_len, const void* cls,
+                              int cls_bytes, int64_t n, int num_classes, void* out, int device,
+                              void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 0 || num_classes < 1) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* next = static_cast<const int32_t*>(dfa_next);
+  const auto* lens = static_cast<const int32_t*>(match_len);
+  auto* states = static_cast<int32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (cls_bytes == 1) {
+    shortest_first_kernel<uint8_t><<<1, 1, 0, st>>>(next, lens, static_cast<const uint8_t*>(cls),
+                                                    n, num_classes, states);
+  } else if (cls_bytes == 2) {
+    shortest_first_kernel<uint16_t><<<1, 1, 0, st>>>(
+        next, lens, static_cast<const uint16_t*>(cls), n, num_classes, states);
+  } else if (cls_bytes == 4) {
+    shortest_first_kernel<int32_t><<<1, 1, 0, st>>>(next, lens, static_cast<const int32_t*>(cls),
+                                                    n, num_classes, states);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   return static_cast<int>(cudaGetLastError());
 }

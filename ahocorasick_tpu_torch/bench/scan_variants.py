@@ -44,11 +44,21 @@ lane per window, a class load a step, the planes' pairs stored at the lane's
 own row; ``rowdfa2_count_bytes`` and ``rowdfa2_planes_first`` here) on the
 first 8,192, 32,768 and 65,536 windows of the 10k dictionary's stride-2
 table (152 MB).
-``seq_ab``: the sequential scan's serial walk (``seq_states``, up to 64 Ki
-units) beside its lane scan (``seq_states_sync``) at several lane lengths L,
-on 1 Ki, 4 Ki, 64 Ki and 32 Mi units of the 10k dense table and of a
-55,040-class RowTable (``wide_soup`` over the demo dictionary of
-``graft_entry``), each checked against the wrapper.  ``tp_ab``: the
+``seq_ab``: the sequential scan's first serial walk (``seq_serial_first``
+here, up to 64 Ki units) beside its lane scan (``seq_states_sync``) at
+several lane lengths L, on 1 Ki, 4 Ki, 64 Ki and 32 Mi units of the 10k
+dense table and of a 55,040-class RowTable (``wide_soup`` over the demo
+dictionary of ``graft_entry``), each checked against the wrapper.
+``spec_ab``: the one-thread walks (``seq_serial_first``, ``shortest_first``
+here: the serial walk and the shortest restart scan before speculate and
+repair) beside speculate and repair (``seq_states_spec``) at the rule's
+chunk length K and at K / 4, K / 2, 2 K and 4 K, on 64 Ki, 1 Mi and 32 Mi
+units of the 10k shortest restart table (its ``shortest_states`` form over
+the restart rows and uint8 classes, and its dense table), the 10k dense
+table and the wide RowTable; every run held bit for bit against the
+one-thread walk at every N, which is timed only up to 1 Mi; with each K's
+repair statistics (chunks, mean and largest repair, chunks repaired to
+their end).  Its best K sets ``kernels.scan_dfa.SPEC_REPAIR``.  ``tp_ab``: the
 row-sharded scan (``csrc/table_sharded.cu``, the lane loops over row shards)
 at K = 1, 2 and 4 beside its first design (``table_sharded_first`` here) on
 the first 8,192, 32,768 and 65,536 windows of the 10k table in 8 shards.
@@ -63,7 +73,9 @@ points two checkouts share (``packed_scan_count``, ``packed_scan_planes``,
 ``packedcount_count``, ``packedcount_hotstate_plane``, ``split_emit_planes``,
 ``rowdfa2_count``, ``table_sharded_scan`` in its count and planes modes, and
 the lane scan ``seq_states_sync`` at 64 Ki and 32 Mi units of the 10k dense
-table) built from this checkout and from the ``csrc/`` of another checkout at
+table, and the stitch's ``rescan`` on the same 32 Mi units as 8 chunks and
+as one chunk of 32 Ki) built from this checkout and from the ``csrc/`` of
+another checkout at
 ``DIR`` (the parent commit, unpacked with ``git archive``), in one process on
 the same cells at the rule's K: each pair's outputs equal bit for bit, then
 other, this, this, other.  Prints one JSON line.
@@ -90,6 +102,9 @@ SPLIT_COUNT_VARIANTS = ("split_count_first", "split_count_gather32")
 SWEEP_WINDOWS = (8_192, 32_768, 65_536)
 SEQ_UNITS = (1 << 10, 1 << 12, 1 << 16, 1 << 25)
 SEQ_SERIAL_MAX = 1 << 16  # the serial walk takes about 70 ns a unit
+SPEC_UNITS = (1 << 16, 1 << 20, 1 << 25)
+SPEC_FIRST_MAX = 1 << 20  # the one-thread walks are timed up to here
+SPEC_K_SHIFTS = (-2, -1, 0, 1, 2)  # K at the rule's times 2**shift
 SEQ_LANE_LENS = (16, 64, 256, 1024)  # beside the rule's L and the least, d rounded to 4
 ONE_M_SEED = 77  # tests/test_full_random_1m.py
 ONE_M_CANDIDATES = 1_100_000
@@ -132,6 +147,12 @@ def library() -> ctypes.CDLL:
     lib.table_sharded_first.restype = ctypes.c_int
     lib.sweep_variant.argtypes = [ctypes.c_int, ctypes.c_int, *build.ARGTYPES["wwl_sweep_at"]]
     lib.sweep_variant.restype = ctypes.c_int
+    P, I, I64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    # (table, row_id or null, cls, n, num_classes, s0, out, device, stream)
+    lib.seq_serial_first.argtypes = [P, P, P, I64, I, I, P, I, P]
+    # (dfa_next, match_len, cls, cls_bytes, n, num_classes, out, device, stream)
+    lib.shortest_first.argtypes = [P, P, P, I, I64, I, P, I, P]
+    lib.seq_serial_first.restype = lib.shortest_first.restype = ctypes.c_int
     return lib
 
 
@@ -481,11 +502,12 @@ def sweep_ab(cells: dict, lib=None) -> dict:
     return {"sweep_ms": record}
 
 
-def seq_ab(cells: dict) -> dict:
+def seq_ab(cells: dict, lib) -> dict:
     """The sequential scan's A/B.  ``cells``: ``{label: (table, row_id,
     classes, depth)}`` on the card, the classes ``int32[N]`` with N at least
-    32 Mi, ``depth`` the table's synchronizing depth.  Returns ``{label:
-    {"N=n": {run: ms}}}`` and the rule's L per cell and N."""
+    32 Mi, ``depth`` the table's synchronizing depth; ``lib`` this file's
+    library.  Returns ``{label: {"N=n": {run: ms}}}`` and the rule's L per
+    cell and N."""
     from ahocorasick_tpu_torch.kernels import scan_dfa
 
     package = build.library()
@@ -501,10 +523,11 @@ def seq_ab(cells: dict) -> dict:
             want = scan_dfa.seq_states(table, row_id, c, 0, depth)
 
             def serial(c=c, n=n):
-                rc = package.seq_states(table.data_ptr(), rid, c.data_ptr(), n, table.shape[1],
-                                        0, out.data_ptr(), dev.index or 0, stream)
+                rc = lib.seq_serial_first(table.data_ptr(), rid, c.data_ptr(), n,
+                                          table.shape[1], 0, out.data_ptr(), dev.index or 0,
+                                          stream)
                 if rc != 0:
-                    raise RuntimeError(f"seq_states launch failed: CUDA error {rc}")
+                    raise RuntimeError(f"seq_serial_first launch failed: CUDA error {rc}")
 
             def sync(L, c=c, n=n):
                 def launch():
@@ -533,9 +556,90 @@ def seq_ab(cells: dict) -> dict:
     return {"seq_ms": record, "seq_rule_L": rule}
 
 
+def spec_ab(cells: dict, lib) -> dict:
+    """Speculate and repair's A/B.  ``cells``: ``{label: (table, row_id,
+    classes, match_len)}`` on the card, with at least 32 Mi classes;
+    ``match_len`` None for the sequential scan's form (``int32`` classes,
+    the one-thread arm ``seq_serial_first``), else the shortest scan's
+    (``table`` the padded dfa_next, ``row_id`` its restart rows, the arm
+    ``shortest_first``); ``lib`` this file's library.  Returns ``{"spec_ms":
+    {label: {"N=n": {run: ms}}}, "spec_repair": {label: {"N=n": {"K=k":
+    stats}}}, "spec_rule_K": {label: {"N=n": K}}}``."""
+    from ahocorasick_tpu_torch.bench import _seconds_per_rep
+    from ahocorasick_tpu_torch.kernels import scan_dfa
+
+    package = build.library()
+    times, repairs, rule = {}, {}, {}
+    for label, (table, row_id, cls, match_len) in cells.items():
+        dev = cls.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rid = None if row_id is None else row_id.data_ptr()
+        cls_bytes = scan_dfa._CLASS_BYTES[cls.dtype]
+        A = table.shape[1]
+        out = torch.empty(max(SPEC_UNITS), dtype=torch.int32, device=dev)
+        times[label], repairs[label], rule[label] = {}, {}, {}
+        for n in SPEC_UNITS:
+            c = cls[:n]
+
+            def first(c=c, n=n):
+                if match_len is None:
+                    rc = lib.seq_serial_first(table.data_ptr(), rid, c.data_ptr(), n, A, 0,
+                                              out.data_ptr(), dev.index or 0, stream)
+                else:
+                    rc = lib.shortest_first(table.data_ptr(), match_len.data_ptr(), c.data_ptr(),
+                                            cls_bytes, n, A, out.data_ptr(), dev.index or 0,
+                                            stream)
+                if rc != 0:
+                    raise RuntimeError(f"one-thread walk failed: CUDA error {rc}")
+
+            def spec(K, repair=None, c=c, n=n):
+                def launch():
+                    rc = package.seq_states_spec(
+                        table.data_ptr(), rid, c.data_ptr(), cls_bytes, n, A, 0, K,
+                        out.data_ptr(), None if repair is None else repair.data_ptr(),
+                        dev.index or 0, stream)
+                    if rc != 0:
+                        raise RuntimeError(f"seq_states_spec launch failed: CUDA error {rc}")
+                return launch
+
+            first()
+            want = out[:n].clone()
+            K0 = scan_dfa.spec_chunk_len(n)
+            ks = sorted({min(max(K0 << s if s >= 0 else K0 >> -s, 1), n)
+                         for s in SPEC_K_SHIFTS})
+            runs = {"one thread": first} if n <= SPEC_FIRST_MAX else {}
+            runs.update({f"spec K={K}": spec(K) for K in ks})
+            repairs[label][f"N={n}"] = {}
+            for K in ks:
+                chunks = -(-n // K)
+                repair = torch.zeros(chunks, dtype=torch.int32, device=dev)
+                out.fill_(-1)
+                spec(K, repair)()
+                if not torch.equal(out[:n], want):
+                    raise AssertionError(f"spec {label} N={n} K={K}: states differ from the "
+                                         f"one-thread walk's")
+                r = repair.to(torch.int64)
+                lens = torch.clamp(n - K * torch.arange(chunks, device=dev), max=K)
+                repairs[label][f"N={n}"][f"K={K}"] = {
+                    "chunks": chunks, "mean": float(r.float().mean()), "max": int(r.max()),
+                    "to_end": int(((r == lens) & (r > 0)).sum()), "total": int(r.sum())}
+                if K == K0:  # chunks by repair length, the last bin 64 or more
+                    repairs[label][f"N={n}"][f"K={K}"]["histogram"] = torch.bincount(
+                        torch.clamp(r, max=64)).tolist()
+            ms = {}
+            for name in [*runs, *reversed(runs)]:
+                reps = 1 if name == "one thread" else 5
+                t = _seconds_per_rep(runs[name], reps, dev) * 1e3
+                ms[name] = min(ms.get(name, t), t)
+            times[label][f"N={n}"] = ms
+            rule[label][f"N={n}"] = K0
+    return {"spec_ms": times, "spec_repair": repairs, "spec_rule_K": rule}
+
+
 AGAINST_KERNELS = ("packed_scan_count", "packed_scan_planes", "packedcount_count",
                    "packedcount_hotstate_plane", "split_emit_planes", "rowdfa2_count",
-                   "table_sharded_scan", "seq_states_sync")
+                   "table_sharded_scan", "seq_states_sync", "rescan")
+AGAINST_RESCAN = ((8, 1 << 22), (1, 1 << 15))  # the rescan's (C, K) in the comparison
 AGAINST_SEQ_UNITS = (1 << 16, 1 << 25)  # the lane scan's N in the comparison
 
 
@@ -630,6 +734,29 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
             ms[tree].append(_seconds_per_rep(runs[tree], 20, cls.device) * 1e3)
         record[f"seq_states N={n}"] = {"L": L, "other_ms": ms["other"], "this_ms": ms["this"],
                                        "this_over_other": min(ms["this"]) / min(ms["other"])}
+    for chunks, K in AGAINST_RESCAN:
+        L = scan_dfa.sync_lane_len(chunks * K, depth)
+        entry = torch.zeros(chunks, dtype=torch.int32, device=cls.device)
+        outs, runs = {}, {}
+        for tree, lib in libs.items():
+            outs[tree] = torch.empty(chunks * K, dtype=torch.int32, device=cls.device)
+
+            def launch(lib=lib, out=outs[tree]):
+                rc = lib.rescan(table.data_ptr(), cls.data_ptr(), entry.data_ptr(), chunks, K,
+                                table.shape[1], depth, L, out.data_ptr(), cls.device.index or 0,
+                                stream)
+                if rc != 0:
+                    raise RuntimeError(f"rescan launch failed: CUDA error {rc}")
+            runs[tree] = launch
+            launch()
+        if not torch.equal(outs["other"], outs["this"]):
+            raise AssertionError(f"rescan C={chunks} K={K}: the two checkouts' rescans differ")
+        ms = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            ms[tree].append(_seconds_per_rep(runs[tree], 20, cls.device) * 1e3)
+        record[f"rescan C={chunks} K={K}"] = {
+            "L": L, "other_ms": ms["other"], "this_ms": ms["this"],
+            "this_over_other": min(ms["this"]) / min(ms["other"])}
     return record
 
 
@@ -691,12 +818,15 @@ def main(argv=None) -> None:
     wide = AhoCorasickSet([chr(c) for c in range(0x100, 0xD800)], engine="gold", device=dev)
     wide_cls = wide._classes(wide_soup(np.random.default_rng(SEED + 9), DEMO_KEYWORDS,
                                        BASE_UNITS))
+    cls32 = _int32_classes(np.tile(base, TEXT_UNITS // BASE_UNITS), dev)
+    wide32 = _int32_classes(np.tile(wide_cls, TEXT_UNITS // BASE_UNITS), dev)
     record.update(seq_ab({
-        "10k dense": (*m.dev.seq_tables, _int32_classes(
-            np.tile(base, TEXT_UNITS // BASE_UNITS), dev), max(m.compiled.max_depth, 1)),
-        "wide RowTable": (*wide.dev.seq_tables, _int32_classes(
-            np.tile(wide_cls, TEXT_UNITS // BASE_UNITS), dev), max(wide.compiled.max_depth, 1)),
-    }))
+        "10k dense": (*m.dev.seq_tables, cls32, max(m.compiled.max_depth, 1)),
+        "wide RowTable": (*wide.dev.seq_tables, wide32, max(wide.compiled.max_depth, 1)),
+    }, lib))
+    record.update(spec_ab({**ten_k_restart_cells(keywords, dev),
+                           "10k dense": (*m.dev.seq_tables, cls32, None),
+                           "wide RowTable": (*wide.dev.seq_tables, wide32, None)}, lib))
     record.update(tp_ab(ten_k_shards(m, dev, w)))
     record.update(sweep_ab(ten_k_sweep_cells(keywords, dev)))
     print(json.dumps({"card": smi, **record}))
@@ -744,6 +874,32 @@ def ten_k_sweep_cells(keywords, dev) -> dict:
                           len(starts), d, sc.id_bits, sc.depth_bits, False),
         "all 4 Mi": (plane[: per_w + 512].contiguous(), None, None, *cell, None, per_w, d,
                      sc.id_bits, sc.depth_bits, False),
+    }
+
+
+def ten_k_restart_cells(keywords, dev) -> dict:
+    """``spec_ab``'s restart-table cells: the shortest matcher of
+    ``keywords`` over 32 Mi units of ``bench.py``'s word soup (a 1 Mi base
+    tiled), in the ``shortest_states`` form (the padded dfa_next, its
+    restart rows and match_len, uint8 classes) and as the cursor's dense
+    restart table (int32 classes)."""
+    from ahocorasick_tpu_torch.bench.__main__ import word_soup
+    from ahocorasick_tpu_torch.bench.headline import BASE_UNITS, SEED, TEXT_UNITS
+    from ahocorasick_tpu_torch.core import stream
+    from ahocorasick_tpu_torch.core.compiler import compile_matcher
+    from ahocorasick_tpu_torch.models.matchers import ShortestMatchSet
+    from ahocorasick_tpu_torch.ops import scan_batched
+
+    m = ShortestMatchSet.from_compiled(compile_matcher(keywords, "shortest", True),
+                                       engine="device", device=dev)
+    cls = np.tile(m._classes(word_soup(np.random.default_rng(SEED), keywords, BASE_UNITS)),
+                  TEXT_UNITS // BASE_UNITS)
+    restart = stream.seq_tensors(stream._ShortestCursor._restart_table(m.compiled), dev)
+    return {
+        "10k shortest_states": (m.dev.dfa_next, m.dev.restart_row_id,
+                                scan_batched.classes_to_device(cls, m.compiled.num_classes, dev),
+                                m.dev.match_len),
+        "10k restart table": (*restart, _int32_classes(cls, dev), None),
     }
 
 

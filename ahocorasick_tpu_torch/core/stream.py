@@ -112,7 +112,7 @@ class _SeqScan:
     first scan (or handed over already uploaded, ``tensors``).
     ``sync_depth``: the depth d at which the table synchronizes (a goto
     closure: the lane scan of ``kernels.seq_states``), or None for a table
-    that does not (the shortest restart table: the serial walk)."""
+    that does not (the shortest restart table: speculate and repair)."""
 
     def __init__(self, table, device: torch.device, tensors=None, sync_depth=None):
         self._table = table

@@ -5,26 +5,51 @@
 // What it replaces.  ahocorasick_tpu/core/stream.py _seqscan_jit `run`
 // (:96-141), the lax.scan behind the stream cursors' small feeds, legacy
 // resumes, the shortest cursor's restart scan and the row-compressed gold
-// branch, in both of its forms (dense table, RowTable); and
-// ahocorasick_tpu/ops/scan_dfa.py dfa_states (:26-34), the dense form again.
+// branch, in both of its forms (dense table, RowTable);
+// ahocorasick_tpu/ops/scan_dfa.py dfa_states (:26-34), the dense form again;
+// and ahocorasick_tpu/ops/scan_dfa.py shortest_states (:37-58), the lagged
+// restart of the leftmost-shortest matcher, which is the RowTable form over
+// the padded dfa_next with row_id[s] = match_len[s] > 0 ? 0 : s (the wrapper
+// builds that map once per table).
 //
 // What it computes.  Arrival states s_1 .. s_N from the entry state s_0:
 //     dense:     s_i = table[s_{i-1} * A + c_i]
 //     RowTable:  s_i = rows[row_id[s_{i-1}] * A + c_i]
-// over int32 tables with row stride A and int32 classes.  The carry to the
-// next feed is s_N.
+// over int32 tables with row stride A and uint8, uint16 or int32 classes
+// (the kernels are templated on the class width: six instantiations of each,
+// no widening pass).  The carry to the next feed is s_N.
 //
 // Two forms, one per kind of table.
-//   * seq_states: the serial walk, the only correct form for a table that
-//     does not synchronize (the shortest matcher's restart table, where the
-//     state depends on where earlier matches ended).  One block; all threads
-//     stage a tile of classes into shared memory with coalesced loads,
-//     thread 0 walks the tile keeping the state in a register and
-//     overwriting each class with its arrival state, and all threads store
-//     the tile coalesced, so the chain never waits on the class stream or
-//     the output stream.  Bound: one dependent load a character (two for a
-//     RowTable), an L2 round trip when the table exceeds L1: about 70 ns a
-//     unit on the 10k table.
+//   * seq_states_spec: speculate and repair, for any table, and the only
+//     correct form for one that does not synchronize (the shortest
+//     matcher's restart table, where the state depends on where earlier
+//     matches ended).  Pass 1 cuts the N classes into C = ceil(N/K) chunks of
+//     K (the last one shorter) and walks each chunk in a lane of its own:
+//     chunk 0 from s_0, so it is exact, every other chunk from the root, a
+//     guess.  It is the lane scan below with one lane a row.  Pass 2, one
+//     warp launched behind it on the same stream, walks the chunks in order:
+//     chunk c's true entry e is the state before it (out[cK - 1], read after
+//     chunk c - 1 was repaired); if e is the root the chunk is right,
+//     otherwise lane 0 walks it from e, overwriting out, up to the first
+//     position where the new state equals the recorded one: from there on
+//     the recorded states are the run from that state, so they are exact.
+//     A walk that never meets them runs to the chunk's end, and the next
+//     chunk's entry is its last state.  Exactness follows from determinism
+//     alone.  Runs that enter a chunk in different states usually meet soon
+//     (on a goto closure within d classes; on the restart table a few
+//     classes past the next match), so the time is about K + sum of the
+//     repairs dependent lookups, against N for one thread; a text that keeps
+//     the runs apart (keywords "ab", "ba" over "abab..." at an odd K) costs
+//     the serial walk plus pass 1, and stays exact.  The repair warp stages
+//     the heads of 32 chunks at a time (kHead classes and recorded states
+//     each) into shared memory with coalesced loads, issued for the next 32
+//     chunks before lane 0 walks these, and a longer repair's further
+//     classes and states a tile of kRepairTile at a time, so lane 0's chain
+//     waits only on the table.  It writes each chunk's repair length (the
+//     states it overwrote) to an int32[C] side output when one is given.
+//     Where N <= K there is one chunk and no repair launch: one lane walks
+//     the whole text.  The wrapper picks K (kernels/scan_dfa.py
+//     spec_chunk_len).
 //   * seq_states_sync: the lane scan, for a table that is d-synchronizing
 //     (every goto closure, d = max_depth: the state after any d classes read
 //     from any state is the longest suffix of those d classes that is a
@@ -40,7 +65,7 @@
 //     64 Ki units.  The wrapper picks L (kernels/scan_dfa.py sync_lane_len): d,
 //     rounded up to a multiple of 4, until the lanes reach SEQ_MAX_LANES
 //     (the A/B of bench/scan_variants.py seq_ab sets it).  The lane
-//     loop is tile.cuh's planes lane with the state as its value: int32
+//     loop is tile.cuh's planes lane with the state as its value: the
 //     classes read into a 16-step register tile (ClassWords), the states
 //     written into the warp's shared-memory store tile and stored as whole
 //     sectors (16-byte stores where L, N and `out` allow).  A RowTable step
@@ -54,8 +79,9 @@
 // shorter than L is one lane, the serial walk of that chunk: 0.0076 ms of
 // card time at C = 1, K = 32 Ki of the 10k table (NVIDIA H100 80GB HBM3,
 // 700.00 W), where the serial rescan takes 2.27.  seq_states_sync is the
-// one-row case whose entry is s0.  16-byte stores need K % 4 == 0 as well,
-// since rows start at c*K.
+// one-row case whose entry is s0, and pass 1 of seq_states_spec the case of
+// one lane a row, whose entries are s0 and then the root.  16-byte stores
+// need K % 4 == 0 and N % 4 == 0 as well, since rows start at c*K.
 // Indices are 64-bit.
 
 #include <cstdint>
@@ -66,11 +92,16 @@
 
 namespace {
 
-constexpr int kTile = 2048;
 constexpr int kThreads = 256;
+// Pass 1's block: one warp, so that its few lanes (one a chunk) spread over
+// the SMs instead of sharing the L1 and L2 bandwidth of a few.
+constexpr int kSpecBlock = 32;
+constexpr int kRepairChunks = 32;  // chunks whose heads the repair warp stages at once
+constexpr int kHead = 32;          // classes and states of a chunk's head: one a lane
+constexpr int kRepairTile = 256;   // positions staged at a time past a head
 
-// One step of the lane scan: the row of s (issued as soon as s is known),
-// then the entry of class c in it.
+// One step of a scan: the row of s (issued as soon as s is known), then the
+// entry of class c in it.
 template <bool kRows>
 __device__ __forceinline__ uint32_t step(const uint32_t* __restrict__ table,
                                          const uint32_t* __restrict__ row_id, uint32_t s,
@@ -79,46 +110,22 @@ __device__ __forceinline__ uint32_t step(const uint32_t* __restrict__ table,
   return __ldg(table + (static_cast<uint64_t>(row) * num_classes + c));
 }
 
-template <bool kRows>
-__global__ void __launch_bounds__(kThreads)
-seq_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ row_id,
-           const int32_t* __restrict__ cls, int64_t n, int64_t num_classes, int32_t s0,
-           int32_t* __restrict__ out) {
-  __shared__ int32_t tile[kTile];
-  __shared__ int32_t carry;
-  if (threadIdx.x == 0) carry = s0;
-  for (int64_t base = 0; base < n; base += kTile) {
-    const int len = static_cast<int>(n - base < kTile ? n - base : kTile);
-    for (int i = threadIdx.x; i < len; i += kThreads) tile[i] = cls[base + i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      int32_t s = carry;
-      for (int i = 0; i < len; ++i) {
-        const int64_t row = kRows ? __ldg(row_id + s) : s;
-        s = __ldg(table + (row * num_classes + tile[i]));
-        tile[i] = s;
-      }
-      carry = s;
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < len; i += kThreads) out[base + i] = tile[i];
-    __syncthreads();  // the next tile's loads overwrite `tile`
-  }
-}
+__device__ __forceinline__ int64_t lmin(int64_t a, int64_t b) { return a < b ? a : b; }
 
-// The lane scan over `rows` rows of `row_len` classes each, every row cut
-// into lanes_per_row lanes of lane_len positions: lane g (the thread's global
-// index) is lane j = g % lanes_per_row of row r = g / lanes_per_row and scans
-// [j*L, min((j+1)*L, row_len)) of its row.  Lane 0 of row r starts from
-// entry[r] (s0 where `entry` is null: the one-row scan), every other lane
-// from the root warmed over the d classes before its segment, which lie in
-// the same row (j*L >= L >= d).  Every thread of a warp runs the tile loop
-// as often as its longest lane (the stores are warp-wide); a lane past the
-// last row loads nothing and stores nothing.
-template <bool kRows>
+// The lane scan over `rows` rows of `row_len` classes each (the last row
+// ends at n), every row cut into lanes_per_row lanes of lane_len positions:
+// lane g (the thread's global index) is lane j = g % lanes_per_row of row r =
+// g / lanes_per_row and scans [j*L, min((j+1)*L, row_len)) of its row.  Lane
+// 0 of row r starts from entry[r] (where `entry` is null: s0 for row 0 and
+// the root for every other row), every other lane from the root warmed over
+// the d classes before its segment, which lie in the same row (j*L >= L >=
+// d).  Every thread of a warp runs the tile loop as often as its longest lane
+// (the stores are warp-wide); a lane past the end loads nothing and stores
+// nothing.
+template <bool kRows, typename T>
 __global__ void __launch_bounds__(kThreads)
 sync_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row_id,
-            const uint32_t* __restrict__ cls, int64_t rows, int64_t row_len,
+            const T* __restrict__ cls, int64_t n, int64_t rows, int64_t row_len,
             int64_t lanes_per_row, const uint32_t* __restrict__ entry, uint32_t s0,
             uint32_t num_classes, int depth, int lane_len, bool vec,
             uint32_t* __restrict__ out) {
@@ -128,15 +135,16 @@ sync_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row
   const int64_t r = g / lanes_per_row;
   const int64_t in_row = (g - r * lanes_per_row) * lane_len;
   const int64_t start = r * row_len + in_row;
-  const int len = r >= rows ? 0
-                  : (row_len - in_row < lane_len ? static_cast<int>(row_len - in_row) : lane_len);
+  const int64_t avail = lmin(row_len - in_row, n - start);
+  const int len = r >= rows || avail <= 0 ? 0
+                  : (avail < lane_len ? static_cast<int>(avail) : lane_len);
   uint32_t s = 0;
   if (len > 0 && in_row == 0) {
-    s = entry != nullptr ? __ldg(entry + r) : s0;
+    s = entry != nullptr ? __ldg(entry + r) : (r == 0 ? s0 : 0u);
   } else if (len > 0) {  // warm up from the root over the d classes before the segment
     for (int t0 = 0; t0 < depth; t0 += tile::kTileSteps) {
       const int k = min(tile::kTileSteps, depth - t0);
-      tile::ClassWords<uint32_t> c;
+      tile::ClassWords<T> c;
       c.load(cls + start - depth + t0, k);
 #pragma unroll
       for (int t = 0; t < tile::kTileSteps; ++t) {
@@ -149,7 +157,7 @@ sync_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row
   const int steps = __reduce_max_sync(tile::kFull, len);
   for (int t0 = 0; t0 < steps; t0 += tile::kTileSteps) {
     const int k = min(tile::kTileSteps, len - t0);  // <= 0 once this lane is done
-    tile::ClassWords<uint32_t> c;
+    tile::ClassWords<T> c;
     c.load(cls + start + t0, k);
 #pragma unroll
     for (int t = 0; t < tile::kTileSteps; ++t) {
@@ -164,53 +172,223 @@ sync_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row
   }
 }
 
-// Launches the lane scan of `rows` rows; false where the grid is too large.
-template <bool kRows>
-bool launch_sync(const uint32_t* table, const uint32_t* row_id, const uint32_t* cls,
+// Launches the lane scan of `rows` rows over n classes in blocks of `block`
+// <= kThreads threads (a multiple of 32); false where the grid is too large.
+template <bool kRows, typename T>
+bool launch_sync(const uint32_t* table, const uint32_t* row_id, const T* cls, int64_t n,
                  int64_t rows, int64_t row_len, const uint32_t* entry, uint32_t s0,
                  uint32_t num_classes, int depth, int lane_len, uint32_t* out,
-                 cudaStream_t stream) {
+                 cudaStream_t stream, int block = kThreads) {
   const int64_t per_row = (row_len + lane_len - 1) / lane_len;
   if (per_row > (int64_t{1} << 62) / rows) return false;
-  const int64_t blocks = (rows * per_row + kThreads - 1) / kThreads;
+  const int64_t blocks = (rows * per_row + block - 1) / block;
   if (blocks > 2147483647) return false;
   // Every run (a lane's tile, at r*row_len + j*L + a multiple of 16) is
-  // 16-byte aligned and a multiple of 4 words long where L and row_len are
+  // 16-byte aligned and a multiple of 4 words long where L, row_len and n are
   // multiples of 4.
-  const bool vec = row_len % 4 == 0 && tile::vec_runs(4, lane_len, out);
-  sync_kernel<kRows><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      table, row_id, cls, rows, row_len, per_row, entry, s0, num_classes, depth, lane_len, vec,
-      out);
+  const bool vec = row_len % 4 == 0 && n % 4 == 0 && tile::vec_runs(4, lane_len, out);
+  sync_kernel<kRows, T><<<static_cast<unsigned>(blocks), block, 0, stream>>>(
+      table, row_id, cls, n, rows, row_len, per_row, entry, s0, num_classes, depth, lane_len,
+      vec, out);
   return true;
 }
 
-}  // namespace
+// The repair warp's loads of the heads of chunks c0 .. c0 + 31 (kHead
+// positions each; lane t takes position t) and of the recorded state before
+// each of them (lane t: before chunk c0 + t), into registers.
+template <typename T>
+__device__ __forceinline__ void fetch_heads(const T* __restrict__ cls, const uint32_t* out,
+                                            int64_t n, int64_t chunk_len, int64_t chunks,
+                                            int64_t c0, int lane,
+                                            uint32_t (&head_cls)[kRepairChunks],
+                                            uint32_t (&head_rec)[kRepairChunks],
+                                            uint32_t& entry) {
+#pragma unroll
+  for (int j = 0; j < kRepairChunks; ++j) {
+    const int64_t p = (c0 + j) * chunk_len + lane;
+    const bool ok = c0 + j < chunks && lane < chunk_len && p < n;
+    head_cls[j] = ok ? static_cast<uint32_t>(__ldg(cls + p)) : 0u;
+    head_rec[j] = ok ? out[p] : 0u;
+  }
+  entry = c0 + lane < chunks ? out[(c0 + lane) * chunk_len - 1] : 0u;
+}
 
-// out int32[n].  `row_id` null selects the dense form (`table` int32[S, A]);
-// otherwise `table` is the distinct rows int32[R, A] and `row_id` int32[S].
-// Returns cudaGetLastError() after the launch.
-extern "C" int seq_states(const void* table, const void* row_id, const void* cls, int64_t n,
-                          int num_classes, int s0, void* out, int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n < 0 || num_classes < 1 || s0 < 0) return static_cast<int>(cudaErrorInvalidValue);
-  const auto* tab = static_cast<const int32_t*>(table);
-  const auto* rid = static_cast<const int32_t*>(row_id);
-  const auto* c = static_cast<const int32_t*>(cls);
-  auto* states = static_cast<int32_t*>(out);
-  auto st = static_cast<cudaStream_t>(stream);
-  if (rid != nullptr) {
-    seq_kernel<true><<<1, kThreads, 0, st>>>(tab, rid, c, n, num_classes, s0, states);
-  } else {
-    seq_kernel<false><<<1, kThreads, 0, st>>>(tab, rid, c, n, num_classes, s0, states);
+// Lane 0's walk position, whether it met the recorded states, and its state,
+// to every lane.
+__device__ __forceinline__ void broadcast(int64_t& t, bool& met, uint32_t& s) {
+  t = __shfl_sync(tile::kFull, static_cast<long long>(t), 0);
+  met = __shfl_sync(tile::kFull, static_cast<int>(met), 0) != 0;
+  s = __shfl_sync(tile::kFull, s, 0);
+}
+
+// Pass 2 of seq_states_spec, one warp: chunks 1 .. C-1 of `out` (pass 1's
+// states, chunk c walked from the root) repaired in order, as the source
+// note says.  repair (null: not wanted) gets each chunk's repair length.
+// Control flow is warp-uniform: lane 0 walks, and the warp learns where it
+// stopped by shuffles.
+template <bool kRows, typename T>
+__global__ void __launch_bounds__(32)
+repair_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row_id,
+              const T* __restrict__ cls, int64_t n, int64_t chunk_len, uint32_t num_classes,
+              uint32_t* out, int32_t* repair) {
+  __shared__ uint32_t head_cls[kRepairChunks][kHead];
+  __shared__ uint32_t head_rec[kRepairChunks][kHead];
+  __shared__ uint32_t entry_rec[kRepairChunks];
+  __shared__ uint32_t tile_cls[kRepairTile];
+  __shared__ uint32_t tile_rec[kRepairTile];
+  const int lane = threadIdx.x;
+  const int64_t chunks = (n + chunk_len - 1) / chunk_len;
+  if (lane == 0 && repair != nullptr) repair[0] = 0;
+  // Lane t holds position t of each head of the next 32 chunks, and the
+  // recorded state before chunk c0 + t: loads issued one group ahead, so
+  // that they complete while lane 0 walks this group.
+  uint32_t next_cls[kRepairChunks], next_rec[kRepairChunks], next_entry = 0;
+  uint32_t carry = 0;    // the last state of a chunk repaired to its end
+  bool carried = false;  // whether the chunk before this one was
+  for (int64_t c0 = 1 - kRepairChunks; c0 < chunks; c0 += kRepairChunks) {
+    if (c0 >= 1) {
+      __syncwarp();  // the last group's walks are done with the shared heads
+#pragma unroll
+      for (int j = 0; j < kRepairChunks; ++j) {
+        head_cls[j][lane] = next_cls[j];
+        head_rec[j][lane] = next_rec[j];
+      }
+      entry_rec[lane] = next_entry;
+      __syncwarp();
+    }
+    if (c0 + kRepairChunks < chunks)
+      fetch_heads(cls, out, n, chunk_len, chunks, c0 + kRepairChunks, lane, next_cls, next_rec,
+                  next_entry);
+    if (c0 < 1) continue;
+    const int group = static_cast<int>(lmin(kRepairChunks, chunks - c0));
+    for (int j = 0; j < group; ++j) {
+      const int64_t base = (c0 + j) * chunk_len;
+      const int64_t len = lmin(chunk_len, n - base);
+      uint32_t s = carried ? carry : entry_rec[j];
+      int64_t t = 0;  // positions overwritten
+      bool met = s == 0u;  // entered at the root: pass 1 walked it right
+      if (!met) {
+        const int head = static_cast<int>(lmin(kHead, len));
+        if (lane == 0) {
+          for (; t < head; ++t) {
+            s = step<kRows>(table, row_id, s, head_cls[j][t], num_classes);
+            if (s == head_rec[j][t]) {
+              met = true;
+              break;
+            }
+            out[base + t] = s;
+          }
+        }
+        broadcast(t, met, s);
+        while (!met && t < len) {  // past the head: a staged tile at a time
+          const int m = static_cast<int>(lmin(kRepairTile, len - t));
+#pragma unroll
+          for (int q = 0; q < kRepairTile / 32; ++q) {
+            const int i = q * 32 + lane;
+            const bool ok = i < m;
+            const uint32_t c = ok ? static_cast<uint32_t>(__ldg(cls + base + t + i)) : 0u;
+            const uint32_t rec = ok ? out[base + t + i] : 0u;
+            tile_cls[i] = c;
+            tile_rec[i] = rec;
+          }
+          __syncwarp();
+          if (lane == 0) {
+            int i = 0;
+            for (; i < m; ++i) {
+              s = step<kRows>(table, row_id, s, tile_cls[i], num_classes);
+              if (s == tile_rec[i]) {
+                met = true;
+                break;
+              }
+              out[base + t + i] = s;
+            }
+            t += i;
+          }
+          broadcast(t, met, s);
+          __syncwarp();  // the tile is restaged for the next one
+        }
+      }
+      carried = !met;
+      carry = s;
+      if (lane == 0 && repair != nullptr) repair[c0 + j] = static_cast<int32_t>(t);
+    }
+  }
+}
+
+template <bool kRows, typename T>
+int launch_spec(const uint32_t* table, const uint32_t* row_id, const void* cls, int64_t n,
+                uint32_t num_classes, uint32_t s0, int64_t chunk_len, uint32_t* out,
+                int32_t* repair, cudaStream_t stream) {
+  const auto* c = static_cast<const T*>(cls);
+  const int64_t chunks = (n + chunk_len - 1) / chunk_len;
+  if (!launch_sync<kRows, T>(table, row_id, c, n, chunks, chunk_len, nullptr, s0, num_classes,
+                             1, static_cast<int>(chunk_len), out, stream, kSpecBlock))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (chunks > 1) {
+    repair_kernel<kRows, T><<<1, 32, 0, stream>>>(table, row_id, c, n, chunk_len, num_classes,
+                                                  out, repair);
+  } else if (repair != nullptr) {
+    cudaError_t err = cudaMemsetAsync(repair, 0, sizeof(int32_t), stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-// The lane scan of a `depth`-synchronizing table: the same arguments and
-// output as seq_states, plus the synchronizing depth d >= 1 and the lane
-// length L >= d.  Returns cudaGetLastError() after the launch, or
+template <typename T>
+int launch_spec_form(const uint32_t* table, const uint32_t* row_id, const void* cls, int64_t n,
+                     uint32_t num_classes, uint32_t s0, int64_t chunk_len, uint32_t* out,
+                     int32_t* repair, cudaStream_t stream) {
+  return row_id != nullptr
+             ? launch_spec<true, T>(table, row_id, cls, n, num_classes, s0, chunk_len, out,
+                                    repair, stream)
+             : launch_spec<false, T>(table, row_id, cls, n, num_classes, s0, chunk_len, out,
+                                     repair, stream);
+}
+
+}  // namespace
+
+// Speculate and repair: out int32[n] from the entry state s0, over `table`
+// (row_id null: dense int32[S, A]; otherwise the distinct rows int32[R, A]
+// and row_id int32[S]) and classes of cls_bytes bytes (1, 2 or 4), in
+// chunks of chunk_len >= 1 (one chunk where chunk_len >= n); repair int32[C]
+// (C = ceil(n / min(chunk_len, n))) receives each chunk's repair length, or
+// is null.  Two launches (one where C = 1) on `stream`, no host
+// synchronization.  Returns cudaGetLastError() after the launches, or
 // cudaErrorInvalidValue for arguments it does not take.
+extern "C" int seq_states_spec(const void* table, const void* row_id, const void* cls,
+                               int cls_bytes, int64_t n, int num_classes, int s0,
+                               int64_t chunk_len, void* out, void* repair, int device,
+                               void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1 || num_classes < 1 || s0 < 0 || chunk_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t k = chunk_len < n ? chunk_len : n;
+  if (k > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
+  const auto* tab = static_cast<const uint32_t*>(table);
+  const auto* rid = static_cast<const uint32_t*>(row_id);
+  auto* states = static_cast<uint32_t*>(out);
+  auto* rep = static_cast<int32_t*>(repair);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto a = static_cast<uint32_t>(num_classes);
+  const auto e = static_cast<uint32_t>(s0);
+  switch (cls_bytes) {
+    case 1:
+      return launch_spec_form<uint8_t>(tab, rid, cls, n, a, e, k, states, rep, st);
+    case 2:
+      return launch_spec_form<uint16_t>(tab, rid, cls, n, a, e, k, states, rep, st);
+    case 4:
+      return launch_spec_form<uint32_t>(tab, rid, cls, n, a, e, k, states, rep, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// The lane scan of a `depth`-synchronizing table: out int32[n] from s0 over
+// `table` (row_id null: dense; otherwise a RowTable, as seq_states_spec) and
+// int32 classes, with the synchronizing depth d >= 1 and the lane length L >=
+// d.  Returns cudaGetLastError() after the launch, or cudaErrorInvalidValue
+// for arguments it does not take.
 extern "C" int seq_states_sync(const void* table, const void* row_id, const void* cls,
                                int64_t n, int num_classes, int s0, int depth, int lane_len,
                                void* out, int device, void* stream) {
@@ -227,8 +405,8 @@ extern "C" int seq_states_sync(const void* table, const void* row_id, const void
   const auto e = static_cast<uint32_t>(s0);
   const bool ok =
       rid != nullptr
-          ? launch_sync<true>(tab, rid, c, 1, n, nullptr, e, a, depth, lane_len, states, st)
-          : launch_sync<false>(tab, rid, c, 1, n, nullptr, e, a, depth, lane_len, states, st);
+          ? launch_sync<true>(tab, rid, c, n, 1, n, nullptr, e, a, depth, lane_len, states, st)
+          : launch_sync<false>(tab, rid, c, n, 1, n, nullptr, e, a, depth, lane_len, states, st);
   return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -247,7 +425,7 @@ extern "C" int rescan(const void* table, const void* cls, const void* entry, int
     return static_cast<int>(cudaErrorInvalidValue);
   const bool ok = launch_sync<false>(
       static_cast<const uint32_t*>(table), nullptr, static_cast<const uint32_t*>(cls),
-      num_chunks, chunk_len, static_cast<const uint32_t*>(entry), 0,
+      num_chunks * chunk_len, num_chunks, chunk_len, static_cast<const uint32_t*>(entry), 0,
       static_cast<uint32_t>(num_classes), depth, lane_len, static_cast<uint32_t*>(out),
       static_cast<cudaStream_t>(stream));
   return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);

@@ -15,7 +15,10 @@ beside the library as ``<name>.log``.
 ``launches`` counts kernel launches by wrapper name; each wrapper adds one
 where it launches its kernel, and nowhere else.  A wrapper whose call makes
 more than one launch (the synchronized ``state_maps``: two kernels) still
-adds one a call, so that launches x time stays per call.
+adds one a call, so that launches x time stays per call.  The sequential
+scan's speculate-and-repair kernels (``seq_states_spec``: a lane a chunk,
+then the repair warp) count under the wrapper that called them:
+``seq_states_serial`` or ``shortest_states``.
 
     python -m ahocorasick_tpu_torch.kernels.build
 """
@@ -31,9 +34,9 @@ import subprocess
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
-    for name in ("packed_scan.cu", "compact.cu", "shortest_scan.cu", "wwl_scan.cu",
-                 "wwl_walk.cu", "huge_scan.cu", "seq_scan.cu", "stitch.cu", "table_sharded.cu",
-                 "rowdfa2_scan.cu", "probes.cu", "pfac_scan.cu")
+    for name in ("packed_scan.cu", "compact.cu", "wwl_scan.cu", "wwl_walk.cu", "huge_scan.cu",
+                 "seq_scan.cu", "stitch.cu", "table_sharded.cu", "rowdfa2_scan.cu", "probes.cu",
+                 "pfac_scan.cu")
 )
 # Included by the sources; hashed with them, so an edited header rebuilds too.
 HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in ("tile.cuh", "sweep.cuh"))
@@ -78,7 +81,7 @@ launches = {
 
 
 # The units that the sequential scan's launches scanned, by kernel: the lane
-# scan ("seq_states") and the serial walk ("seq_states_serial").
+# scan ("seq_states") and the speculate-and-repair form ("seq_states_serial").
 seq_units = {"seq_states": 0, "seq_states_serial": 0}
 
 
@@ -109,8 +112,6 @@ ARGTYPES = {
     "compact_tile": [],
     # (bits, planes, n, cap, desc, idx, masks, device, stream)
     "compact_planes": [_P, _I, _I64, _I64, _P, _P, _P, _I, _P],
-    # (dfa_next, match_len, cls, cls_bytes, n, num_classes, out, device, stream)
-    "shortest_states": [_P, _P, _P, _I, _I64, _I, _P, _I, _P],
     # (table, windows, class_bytes, num_windows, width, halo, stride,
     #  num_classes, id_bits, segments, seg_len, plane, entry, device, stream)
     "wwl_scan_plane": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
@@ -130,8 +131,9 @@ ARGTYPES = {
     #  stream)
     "wwl_walks_at": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I64, _P, _I64, _I,
                      _P, _P, _P, _P, _P, _I, _P],
-    # (table, row_id or null, cls, n, num_classes, s0, out, device, stream)
-    "seq_states": [_P, _P, _P, _I64, _I, _I, _P, _I, _P],
+    # (table, row_id or null, cls, cls_bytes, n, num_classes, s0, chunk_len,
+    #  out, repair or null, device, stream)
+    "seq_states_spec": [_P, _P, _P, _I, _I64, _I, _I, _I64, _P, _P, _I, _P],
     # (table, row_id or null, cls, n, num_classes, s0, depth, lane_len, out,
     #  device, stream)
     "seq_states_sync": [_P, _P, _P, _I64, _I, _I, _I, _I, _P, _I, _P],

@@ -5,36 +5,50 @@ states ``int32[N]`` of ``s = table[s, c]`` from the entry state ``s0``, over a
 dense ``int32[S, A]`` table (``row_id=None``) or a row-deduplicated one
 (``s = rows[row_id[s], c]``: ``table`` is ``rows int32[R, A]``, ``row_id``
 ``int32[S]``), with ``int32[N]`` classes; the carry to the next feed is
-``states[-1]``.  ``sync_depth=None`` walks the chain serially, the only
-correct form for a table that does not synchronize (the shortest matcher's
-restart table); ``sync_depth=d`` declares the table d-synchronizing (a goto
-closure, d = ``max(max_depth, 1)``) and runs the lane scan: lanes of
-``sync_lane_len(N, d)`` positions, lane 0 from ``s0``, every other lane from
-the root warmed over the d classes before it.  Both give the same states.
-The kernels (``csrc/seq_scan.cu``) replace the JAX package's
-``core/stream.py`` ``_seqscan_jit`` runner (both table forms) and
-``ops/scan_dfa.py`` ``dfa_states`` (the dense form).
+``states[-1]``.  Two forms, the same states:
+
+* ``sync_depth=d`` declares the table d-synchronizing (a goto closure, d =
+  ``max(max_depth, 1)``) and runs the lane scan: lanes of
+  ``sync_lane_len(N, d)`` positions, lane 0 from ``s0``, every other lane
+  from the root warmed over the d classes before it.
+* ``sync_depth=None`` runs the form for a table that does not synchronize
+  (the shortest matcher's restart table): speculate and repair.  The N
+  classes are cut into chunks of ``K = spec_chunk_len(N)`` (the last one
+  shorter); chunk 0 is walked from ``s0`` and every other chunk from the
+  root, one lane a chunk; then the chunks are repaired in order: a chunk
+  whose true entry (the state before it) is not the root is walked again
+  from it until the new states meet the recorded ones, after which the
+  recorded ones are exact.  Where ``N <= K`` it is one walk.  Its launch
+  record keeps the name ``seq_states_serial``: "serial" names the form for
+  tables that do not synchronize, no longer a single thread.
 
 ``shortest_states(dfa_next, match_len, cls)`` returns the arrival states
 ``int32[N]`` of ``s = dfa_next[match_len[s] > 0 ? 0 : s, c]`` from the root,
 over tables padded as the JAX package pads them (``dfa_next`` int32[S_pad,
 A_pad], ``match_len`` int32[S_pad]) and classes ``uint8``, ``uint16`` or
-``int32[N]``.
+``int32[N]``.  That is the RowTable step over ``rows = dfa_next`` with
+``row_id = restart_row_id(match_len)``, so it runs the same
+speculate-and-repair kernels; the matcher's table cache builds that map
+once per table (``_DeviceTables.restart_row_id``) and passes it.
 
-That kernel (``csrc/shortest_scan.cu``) replaces the JAX package's
-``ops/scan_dfa.py`` ``shortest_states`` (one ``lax.scan``).  Its restart
-recurrence does not synchronize, so it is one thread walking the chain, as
-is the serial ``seq_states``; the source notes say what that costs.
+The kernels (``csrc/seq_scan.cu``) replace the JAX package's
+``core/stream.py`` ``_seqscan_jit`` runner (both table forms),
+``ops/scan_dfa.py`` ``dfa_states`` (the dense form) and ``ops/scan_dfa.py``
+``shortest_states``, each one ``lax.scan``.
 
 A wrapper runs the plain twin for tensors on the CPU, and launches the
-kernel for tensors on a CUDA device: there is no fallback from one to the
+kernels for tensors on a CUDA device: there is no fallback from one to the
 other.  ``launches["seq_states"]`` (the lane scan),
-``launches["seq_states_serial"]`` (the serial walk) and
-``launches["shortest_states"]`` count kernel launches only;
-``build.seq_units`` adds up the units the first two scanned.
+``launches["seq_states_serial"]`` and ``launches["shortest_states"]`` (the
+speculate-and-repair kernels, two launches a call where there is more than
+one chunk) count wrapper calls that launched; ``build.seq_units`` adds up
+the units the first two scanned.  ``spec_states`` and ``spec_states_plain``
+return the repair length of every chunk too.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -64,37 +78,34 @@ def _check(dfa_next: torch.Tensor, match_len: torch.Tensor, cls: torch.Tensor):
         raise ValueError(f"unsupported device {cls.device}")
 
 
-def shortest_states(dfa_next: torch.Tensor, match_len: torch.Tensor,
-                    cls: torch.Tensor) -> torch.Tensor:
-    """Arrival states ``int32[N]`` of the shortest matcher's restart loop."""
+def restart_row_id(match_len: torch.Tensor) -> torch.Tensor:
+    """``int32[S]``: the restart table's row of each state, 0 (the root's)
+    for a match state and the state's own otherwise."""
+    own = torch.arange(match_len.shape[0], dtype=torch.int32, device=match_len.device)
+    return torch.where(match_len > 0, torch.zeros_like(own), own)
+
+
+def shortest_states(dfa_next: torch.Tensor, match_len: torch.Tensor, cls: torch.Tensor,
+                    row_id=None) -> torch.Tensor:
+    """Arrival states ``int32[N]`` of the shortest matcher's restart loop;
+    ``row_id`` is ``restart_row_id(match_len)``, built here when not given."""
     _check(dfa_next, match_len, cls)
+    if row_id is None:
+        row_id = restart_row_id(match_len)
+    elif row_id.dtype != torch.int32 or row_id.shape != match_len.shape or (
+            row_id.device != cls.device or not row_id.is_contiguous()):
+        raise ValueError(f"row_id must be a contiguous int32[{match_len.shape[0]}] on "
+                         f"{cls.device}, got {row_id.dtype}{tuple(row_id.shape)} on "
+                         f"{row_id.device}")
     if cls.device.type == "cpu":
-        return shortest_states_plain(dfa_next, match_len, cls)
-    dev = cls.device
-    out = torch.empty(cls.shape[0], dtype=torch.int32, device=dev)
-    if cls.shape[0] == 0:
-        return out
-    build.call(
-        "shortest_states", dfa_next.data_ptr(), match_len.data_ptr(), cls.data_ptr(),
-        _CLASS_BYTES[cls.dtype], cls.shape[0], dfa_next.shape[1], out.data_ptr(),
-        dev.index, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    launches["shortest_states"] += 1
-    return out
+        return spec_states_plain(dfa_next, row_id, cls, 0)[0]
+    return _spec_launch("shortest_states", dfa_next, row_id, cls, 0, None)
 
 
 def shortest_states_plain(dfa_next, match_len, cls) -> torch.Tensor:
-    """The plain twin: a Python loop of torch indexing, one step per class."""
-    flat = dfa_next.reshape(-1).to(torch.int64)
-    A = dfa_next.shape[1]
-    c = cls.to(torch.int64) if cls.dtype == torch.int32 else _widen(cls)
-    out = torch.empty(cls.shape[0], dtype=torch.int64, device=cls.device)
-    s = torch.zeros((), dtype=torch.int64, device=cls.device)
-    for i in range(cls.shape[0]):
-        row = torch.where(match_len[s] > 0, 0, s)
-        s = flat[row * A + c[i]]
-        out[i] = s
-    return out.to(torch.int32)
+    """The plain twin: the speculate-and-repair decomposition over the
+    restart rows (``spec_states_plain``)."""
+    return spec_states_plain(dfa_next, restart_row_id(match_len), cls, 0)[0]
 
 
 def _check_seq(table: torch.Tensor, row_id, cls: torch.Tensor, s0: int):
@@ -135,12 +146,39 @@ def sync_lane_len(n: int, depth: int) -> int:
     return -(-L // 4) * 4
 
 
+# Speculate and repair takes about a K + b C: pass 1's longest lane of K
+# dependent lookups, then the repair warp's C = N / K chunks, one after
+# another (a mean repair of about one class, its loads and the warp's
+# bookkeeping); least at K = sqrt(N * b / a).  The wrapper takes the power of
+# two at or above sqrt(N * SPEC_REPAIR), SPEC_REPAIR standing for b / a.  On
+# 64 Ki, 1 Mi and 32 Mi units of the 10k restart table the fastest of K / 4
+# .. 4 K around the rule's with SPEC_REPAIR = 1 were K = 512, 2,048 and
+# 8,192 (0.182, 0.707 and 4.030 ms; the 10k dense table the same K), which
+# SPEC_REPAIR = 2 picks; the mean repair was 0.66-1.17 classes a chunk, the
+# largest 11.  NVIDIA H100 80GB HBM3, 700 W; python -m
+# ahocorasick_tpu_torch.bench.scan_variants (spec_ab).  SPEC_CHUNK_LEN, where
+# set, is K itself whatever N (the tests' and the A/B's edges).
+SPEC_REPAIR = 2
+SPEC_CHUNK_LEN = None
+
+
+def spec_chunk_len(n: int) -> int:
+    """Speculate and repair's chunk length K for ``n`` units (``n <= K``:
+    one chunk, one walk)."""
+    if SPEC_CHUNK_LEN is not None:
+        return int(SPEC_CHUNK_LEN)
+    target = max(n * SPEC_REPAIR, 1)
+    root = math.isqrt(target)
+    root += root * root < target
+    return min(1 << (root - 1).bit_length(), 1 << 30)
+
+
 def seq_states(table: torch.Tensor, row_id, cls: torch.Tensor, s0: int = 0,
                sync_depth=None) -> torch.Tensor:
     """Arrival states ``int32[N]`` of the scan from ``s0``; ``row_id`` None
     for a dense table, else the state -> row map of a row-deduplicated one;
-    ``sync_depth`` None for the serial walk, else the depth d >= 1 at which
-    the table synchronizes (the lane scan)."""
+    ``sync_depth`` None for speculate and repair, else the depth d >= 1 at
+    which the table synchronizes (the lane scan)."""
     s0 = int(s0)
     _check_seq(table, row_id, cls, s0)
     if sync_depth is not None:
@@ -149,44 +187,121 @@ def seq_states(table: torch.Tensor, row_id, cls: torch.Tensor, s0: int = 0,
             raise ValueError(f"sync_depth must be >= 1, got {sync_depth}")
     if cls.device.type == "cpu":
         return seq_states_plain(table, row_id, cls, s0, sync_depth)
+    if sync_depth is None:
+        return _spec_launch("seq_states_serial", table, row_id, cls, s0, None)
     dev = cls.device
     n = cls.shape[0]
     out = torch.empty(n, dtype=torch.int32, device=dev)
     if n == 0:
         return out
     rid = None if row_id is None else row_id.data_ptr()
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    if sync_depth is None:
-        build.call("seq_states", table.data_ptr(), rid, cls.data_ptr(), n, table.shape[1], s0,
-                   out.data_ptr(), dev.index, stream)
-        name = "seq_states_serial"
-    else:
-        build.call("seq_states_sync", table.data_ptr(), rid, cls.data_ptr(), n, table.shape[1],
-                   s0, sync_depth, sync_lane_len(n, sync_depth), out.data_ptr(), dev.index,
-                   stream)
-        name = "seq_states"
-    launches[name] += 1
-    seq_units[name] += n
+    build.call("seq_states_sync", table.data_ptr(), rid, cls.data_ptr(), n, table.shape[1], s0,
+               sync_depth, sync_lane_len(n, sync_depth), out.data_ptr(), dev.index,
+               torch.cuda.current_stream(dev).cuda_stream)
+    launches["seq_states"] += 1
+    seq_units["seq_states"] += n
     return out
 
 
+def _spec_launch(name: str, table, row_id, cls, s0: int, repair) -> torch.Tensor:
+    """Speculate and repair on the card, counted as ``name``; ``repair``
+    int32[C] receives the repair lengths, or is None."""
+    dev = cls.device
+    n = cls.shape[0]
+    out = torch.empty(n, dtype=torch.int32, device=dev)
+    if n == 0:
+        return out
+    build.call("seq_states_spec", table.data_ptr(),
+               None if row_id is None else row_id.data_ptr(), cls.data_ptr(),
+               _CLASS_BYTES[cls.dtype], n, table.shape[1], s0, spec_chunk_len(n), out.data_ptr(),
+               None if repair is None else repair.data_ptr(), dev.index,
+               torch.cuda.current_stream(dev).cuda_stream)
+    launches[name] += 1
+    if name in seq_units:
+        seq_units[name] += n
+    return out
+
+
+def spec_states(table: torch.Tensor, row_id, cls: torch.Tensor, s0: int = 0):
+    """``(states int32[N], repair int32[C])``: speculate and repair with the
+    repair length of each of its C chunks (``spec_chunk_len(N)`` classes
+    each; 0 for chunk 0 and for a chunk entered at the root; the chunk's
+    length where the walk never met the recorded states).  Classes uint8,
+    uint16 or int32.  The twin on the CPU; on the card the kernels, counted
+    as ``seq_states_serial``."""
+    s0 = int(s0)
+    if cls.dtype not in _CLASS_BYTES:
+        raise TypeError(f"classes must be uint8, uint16 or int32, got {cls.dtype}")
+    if cls.device.type == "cpu":
+        return spec_states_plain(table, row_id, cls, s0)
+    n = cls.shape[0]
+    repair = torch.zeros(-(-n // min(spec_chunk_len(n), max(n, 1))), dtype=torch.int32,
+                         device=cls.device)
+    return _spec_launch("seq_states_serial", table, row_id, cls, s0, repair), repair
+
+
 def seq_states_plain(table, row_id, cls, s0: int = 0, sync_depth=None) -> torch.Tensor:
-    """The plain twin.  Serial (``sync_depth`` None): a Python loop of
-    ``table[s, c]`` (``rows[row_id[s], c]``), one indexing step per class.
-    Synchronized: the kernel's decomposition, every lane stepped together,
-    one batched indexing step per warm-up class and per position of a
-    segment."""
+    """The plain twin: the kernels' decomposition, speculate and repair
+    (``sync_depth`` None) or the lane scan."""
     if sync_depth is not None:
         return _sync_states_plain(table, row_id, cls, s0, sync_depth)
-    flat = table.reshape(-1)
+    return spec_states_plain(table, row_id, cls, s0)[0]
+
+
+def walk_rows(flat, rid, A: int, s: torch.Tensor, body: torch.Tensor) -> torch.Tensor:
+    """The states ``int64[lanes, L]`` of every lane of ``s int64[lanes]``
+    stepped together over its row of ``body int64[lanes, L]``, over the flat
+    ``int64`` table ``flat`` of row stride ``A`` (``rid`` None: dense, else
+    the ``int64`` state -> row map): one batched indexing step a position.
+    The twins' loop (this module's and ``kernels/stitch.py``'s)."""
+    out = torch.empty(body.shape, dtype=torch.int64, device=body.device)
+    for t in range(body.shape[1]):
+        s = flat[(s if rid is None else rid[s]) * A + body[:, t]]
+        out[:, t] = s
+    return out
+
+
+def _flat(table, row_id, cls):
+    c = cls.to(torch.int64) if cls.dtype == torch.int32 else _widen(cls)
+    return (table.reshape(-1).to(torch.int64),
+            None if row_id is None else row_id.to(torch.int64), c)
+
+
+def spec_states_plain(table, row_id, cls, s0: int = 0, chunk_len=None):
+    """The twin of ``spec_states``, in the kernels' decomposition: pass 1 as
+    one batched indexing step per position over all C chunks (chunk 0 from
+    ``s0``, the others from the root; the last chunk padded with class 0 and
+    trimmed), then the repair loop over the chunks in order.  ``chunk_len``
+    None: ``spec_chunk_len(N)``."""
+    n = cls.shape[0]
+    dev = cls.device
+    if n == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.zeros(0, dtype=torch.int32, device=dev))
+    K = min(spec_chunk_len(n) if chunk_len is None else int(chunk_len), n)
+    C = -(-n // K)
+    flat, rid, c = _flat(table, row_id, cls)
     A = table.shape[1]
-    s = int(s0)
-    out = []
-    for c in cls.tolist():
-        row = s if row_id is None else int(row_id[s])
-        s = int(flat[row * A + c])
-        out.append(s)
-    return torch.tensor(out, dtype=torch.int32, device=cls.device)
+    body = torch.zeros(C * K, dtype=torch.int64, device=dev)
+    body[:n] = c
+    s = torch.zeros(C, dtype=torch.int64, device=dev)
+    s[0] = s0
+    states = walk_rows(flat, rid, A, s, body.reshape(C, K)).reshape(-1)[:n].tolist()
+    classes = c.tolist()
+    repair = [0] * C
+    for chunk in range(1, C):
+        base = chunk * K
+        s = states[base - 1]
+        if s == 0:  # entered at the root, as pass 1 walked it
+            continue
+        for i in range(base, min(base + K, n)):
+            s = int(flat[(s if rid is None else int(rid[s])) * A + classes[i]])
+            if s == states[i]:
+                break
+            states[i] = s
+            repair[chunk] += 1
+    return (torch.tensor(states, dtype=torch.int32, device=dev),
+            torch.tensor(repair, dtype=torch.int32, device=dev))
 
 
 def _sync_states_plain(table, row_id, cls, s0: int, depth: int) -> torch.Tensor:
@@ -195,23 +310,15 @@ def _sync_states_plain(table, row_id, cls, s0: int, depth: int) -> torch.Tensor:
         return torch.empty(0, dtype=torch.int32, device=cls.device)
     L = sync_lane_len(n, depth)
     lanes = -(-n // L)
-    flat = table.reshape(-1).to(torch.int64)
-    rid = None if row_id is None else row_id.to(torch.int64)
+    flat, rid, cls64 = _flat(table, row_id, cls)
     A = table.shape[1]
     c = torch.zeros(lanes * L, dtype=torch.int64, device=cls.device)
-    c[:n] = cls.to(torch.int64)
-
-    def step(s, col):
-        return flat[(s if rid is None else rid[s]) * A + col]
-
+    c[:n] = cls64
     s = torch.zeros(lanes, dtype=torch.int64, device=cls.device)
     s[0] = s0
     starts = torch.arange(1, lanes, device=cls.device) * L
     for t in range(depth):  # lanes 1.. warm up over the d classes before them
-        s[1:] = step(s[1:], c[starts - depth + t])
-    out = torch.empty((lanes, L), dtype=torch.int64, device=cls.device)
-    body = c.reshape(lanes, L)
-    for t in range(L):  # the last lane's steps past n read class 0 and are cut
-        s = step(s, body[:, t])
-        out[:, t] = s
-    return out.reshape(-1)[:n].to(torch.int32)
+        w = s[1:]
+        s[1:] = flat[(w if rid is None else rid[w]) * A + c[starts - depth + t]]
+    # the last lane's steps past n read class 0 and are cut
+    return walk_rows(flat, rid, A, s, c.reshape(lanes, L)).reshape(-1)[:n].to(torch.int32)

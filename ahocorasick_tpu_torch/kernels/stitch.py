@@ -232,7 +232,7 @@ def rescan_plain(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor,
     flat = table.reshape(-1).to(torch.int64)
     c = cls.to(torch.int64)
     if sync_depth is None or C == 0 or K == 0:
-        return _walk_columns(flat, A, entry.to(torch.int64), c)
+        return scan_dfa.walk_rows(flat, None, A, entry.to(torch.int64), c).to(torch.int32)
     L = scan_dfa.sync_lane_len(C * K, sync_depth)
     per = -(-K // L)
     body = torch.zeros((C, per * L), dtype=torch.int64, device=cls.device)
@@ -242,19 +242,6 @@ def rescan_plain(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor,
     starts = torch.arange(1, per, device=cls.device) * L
     for t in range(sync_depth):  # lanes 1.. of each chunk warm up inside it
         s[:, 1:] = flat[s[:, 1:] * A + body[:, starts - sync_depth + t]]
-    out = torch.empty((C, per, L), dtype=torch.int64, device=cls.device)
-    body = body.reshape(C, per, L)
-    for t in range(L):  # a chunk's last lane's steps past K read class 0 and are cut
-        s = flat[s * A + body[:, :, t]]
-        out[:, :, t] = s
+    # a chunk's last lane's steps past K read class 0 and are cut
+    out = scan_dfa.walk_rows(flat, None, A, s.reshape(-1), body.reshape(C * per, L))
     return out.reshape(C, per * L)[:, :K].to(torch.int32)
-
-
-def _walk_columns(flat: torch.Tensor, A: int, s: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """The arrival states ``int32[C, K]`` of ``s int64[C]`` over the columns
-    of ``c int64[C, K]``."""
-    out = torch.empty(c.shape, dtype=torch.int32, device=c.device)
-    for k in range(c.shape[1]):
-        s = flat[s * A + c[:, k]]
-        out[:, k] = s
-    return out

@@ -58,6 +58,7 @@ from ahocorasick_tpu_torch.core.compiler import (
     compile_matcher,
     shortest_survivors,
 )
+from ahocorasick_tpu_torch.kernels.scan_dfa import restart_row_id
 from ahocorasick_tpu_torch.ops import (
     dispatch,
     emit,
@@ -319,6 +320,15 @@ class _DeviceTables:
             arr[: len(self._m.match_len)] = self._m.match_len
             self._cache["match_len"] = torch.from_numpy(arr).to(self.device)
         return self._cache["match_len"]
+
+    @property
+    def restart_row_id(self) -> torch.Tensor:
+        """``int32[S_pad]``: the restart scan's row of each state over the
+        padded ``dfa_next`` (0 for a match state, else the state's own), the
+        map ``kernels.scan_dfa.shortest_states`` takes."""
+        if "restart_row_id" not in self._cache:
+            self._cache["restart_row_id"] = restart_row_id(self.match_len)
+        return self._cache["restart_row_id"]
 
     def device_bytes(self) -> int:
         """Bytes of the device tables built so far."""

@@ -4,10 +4,12 @@
 leftmost-shortest matcher.
 
 The reference's lagged restart (``ShortestMatchSet.java:182-260``) makes the
-state depend on where earlier matches ended, so the scan is one sequential
-walk (``kernels/scan_dfa.shortest_states``).  The shortest matcher runs it
-only for artifacts loaded without their internal AC automaton; with one, it
-takes the parallel planes scan and a host resolve instead.
+state depend on where earlier matches ended, so the table does not
+synchronize and the scan speculates and repairs
+(``kernels/scan_dfa.shortest_states`` over the cached restart rows,
+``dev.restart_row_id``).  The shortest matcher runs it only for artifacts
+loaded without their internal AC automaton; with one, it takes the parallel
+planes scan and a host resolve instead.
 """
 
 from __future__ import annotations
@@ -30,5 +32,5 @@ def shortest_triples(m, dev, cls: np.ndarray):
     states of the restart-loop scan over ``dev``'s padded tables."""
     n = len(cls)
     cls_d = scan_batched.classes_to_device(pad_classes(cls, 0), m.num_classes, dev.device)
-    states = kernels.shortest_states(dev.dfa_next, dev.match_len, cls_d)
+    states = kernels.shortest_states(dev.dfa_next, dev.match_len, cls_d, dev.restart_row_id)
     return emit.states_to_shortest_matches(m, states[:n].cpu().numpy())

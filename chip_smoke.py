@@ -69,14 +69,20 @@ port only, the dictionary and text generators included (``bench.headline``,
    ``tests/test_split.py`` drives it), a deep dictionary of > 256 classes
    (uint16 windows, P = 1) and the 1M dictionary at 65,536 x 524 windows
    (count-packed and hotstate, and split on its split tables); the
-   sequential scan from an entry state, the serial walk and the lane scan
+   sequential scan from an entry state, speculate and repair (the form for
+   tables that do not synchronize) and the lane scan
    of the goto closure (``sync_depth`` = d), on the 10k dictionary's dense
    table (1 unit to 32 Mi: around the lane boundaries, ragged, the timed
    shapes 1 Ki, 4 Ki, 64 Ki and 32 Mi, lanes of exactly d; entry state 0 and
    not 0), on RowTables (a fuzz dictionary kept row-compressed, and a
    55,040-class alphabet up to 32 Mi units), on the depth-39 dictionary
-   dense and row-compressed (from its deepest state) and, serial only, on
-   the 10k shortest restart table; the every-position sweep beside the sweep at
+   dense and row-compressed (from its deepest state) and, speculate and
+   repair only, on the 10k shortest restart table; speculate and repair
+   and the shortest restart scan at their edges (``check_spec_edges``: K =
+   1, 2, 7, d, d + 1, 64 and K >= N forced, N = 0, 1, K - 1, K, K + 1 and
+   many chunks, entry states root, live and padding, dense and RowTable,
+   uint8, uint16 and int32 classes, the periodic ``ab``/``ba`` text whose
+   every second chunk repairs to its end); the every-position sweep beside the sweep at
    starts on each of those whole-word-longest planes; the sigma maps, the
    entry fold and the rescan, each map and rescan in its first design
    (``state_maps_all``, ``rescan_serial``) and, on the goto closures, in its
@@ -138,12 +144,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    row-compressed 55,040-class dictionary through the gold branch on 32 Mi
    units (one cursor feed over the RowTable lane scan) == its device engine
    and, on a prefix, the per-character gold loop, and a row-compressed
-   ``ShortestMatchSet`` through the same branch (the serial walk of its
+   ``ShortestMatchSet`` through the same branch (speculate and repair over its
    restart table) == the gold loop; a stream resumed from a pre-tail
    ``{"state", "off"}`` point (the lane scan from that state) ==
    ``match_triples`` past it; each of these paths held to the sequential
    scan its tables allow (``seq_states``, the lane scan, or
-   ``seq_states_serial``, the serial walk) and the units that form scanned
+   ``seq_states_serial``, speculate and repair) and the units that form scanned
    counted; ``match(text, listener)`` with
    ``False`` on the first match scans 16 Ki of the 32 Mi units;
    ``match_readable`` over a real file; the data-parallel sharded scanner on
@@ -152,7 +158,7 @@ port only, the dictionary and text generators included (``bench.headline``,
    and triples (AC also on 1 and 3 shards, uneven cuts), the mixed-route
    dictionary, the walk branch (the scan tables forced off), the 1M
    dictionary's pinned counts and triples, ``sharded_arrival_states`` with
-   ``sync_depth`` == the serial walk == the lane scan (the demo dictionary
+   ``sync_depth`` == speculate and repair == the lane scan (the demo dictionary
    and the 10k table on 32 Mi units; the two references made outside the
    path's counts; the synchronized stitch kernels launched, not the first
    designs), ``stitched_scan`` of the 10k shortest restart table without
@@ -184,13 +190,15 @@ port only, the dictionary and text generators included (``bench.headline``,
    definition; the 1M dictionary's kernels and facade calls on 32 Mi units
    of BASELINE config #5's word soup, and its stages; the sequential scan per
    launch and per unit (the lane scan at 1 Ki, 4 Ki, 64 Ki and 32 Mi units,
-   the serial walk at 64 Ki), each streamed kind, the gold branch (and its
+   speculate and repair and the shortest restart scan at 64 Ki, 1 Mi and
+   32 Mi, with one line of repair statistics), each streamed kind, the gold
+   branch (and its
    stages: classes, upload, lane scan, download, emit expansion, triples)
    and the early stop; the sharded facades and the sharded count's stages; the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
    and their stages; both forms of the maps and the rescan at C = 1, K = 32
    Ki, S = 65,536 (each held to its twin there), and the stitched scan of
-   each form beside the serial walk and the lane scan at the same length
+   each form beside speculate and repair and the lane scan at the same length
    (the synchronized forms also at 8 chunks of 4 Mi units of the 10k table); the fused WWL scan
    against the plane and the sweep, the per-start walk beside them, at
    baseline-4 and the 10k cell (``probes.probe_wwl_fused``: card time with
@@ -210,9 +218,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    bit for bit, one JSON line), the stride-2 count's and planes'
    (``rowdfa2_ab``: their first designs against the lane loops at K = 1, 2
    and 4) and the sequential scan's
-   (``seq_ab``: the serial walk against the lane scan at several lane
+   (``seq_ab``: the first serial walk against the lane scan at several lane
    lengths, 1 Ki to 32 Mi units, the 10k dense table and the wide
-   RowTable), the row-sharded scan's (``tp_ab``: its first design against
+   RowTable; ``spec_ab``: the one-thread walks against speculate and repair
+   at five chunk lengths, 64 Ki to 32 Mi units, on the 10k restart table
+   in both forms, the 10k dense table and the wide RowTable, every run held
+   bit for bit against the one-thread walk), the row-sharded scan's (``tp_ab``: its first design against
    the lane loops at K = 1, 2 and 4 in the count, planes and hotstate modes)
    and the die sweep's (``sweep_ab``: its first design against G = 1, 2, 4,
    8 and 16 loads a group, staged in shared memory and not, at the 10k
@@ -226,7 +237,7 @@ port only, the dictionary and text generators included (``bench.headline``,
    operations over 67 T/s, 989 T/s for the fp16 tensor cores, whichever is
    larger), the library-call times, and the kernels ranked by launches x
    (ms - bound), the two sequential scans by the units their launches
-   scanned.
+   scanned (each modelled as a cost a launch plus a cost a unit).
 
 It prints one JSON line of kernel records, then as its last line
 ``{"ok": true, "device": {...}}``.  Without CUDA it exits 1 and prints no
@@ -264,7 +275,8 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                            "ahocorasick_tpu/kernels/scan_block.py:209"),
     "compact_planes": ("ahocorasick_tpu_torch/csrc/compact.cu",
                        "ahocorasick_tpu/ops/scan_batched.py:500"),
-    "shortest_states": ("ahocorasick_tpu_torch/csrc/shortest_scan.cu",
+    # speculate and repair over the restart rows, the kernels of seq_states_serial
+    "shortest_states": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                         "ahocorasick_tpu/ops/scan_dfa.py:37"),
     "wwl_scan_plane": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
                        "ahocorasick_tpu/ops/scan_wwl.py:747"),
@@ -283,6 +295,7 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                           "ahocorasick_tpu/ops/scan_batched.py:417"),
     "seq_states": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                    "ahocorasick_tpu/core/stream.py:96"),
+    # the form for tables that do not synchronize: speculate and repair
     "seq_states_serial": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                           "ahocorasick_tpu/ops/scan_dfa.py:26"),
     "wwl_sweep_all": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
@@ -941,6 +954,101 @@ def check_tp_lane_edges(port, dev, errs):
     return cases
 
 
+def check_spec_edges(dev, errs):
+    """Speculate and repair against its twins, states and repair lengths bit
+    for bit: ``seq_states_serial`` (``scan_dfa.spec_states`` and the
+    ``seq_states`` wrapper) on the shortest restart table, dense and
+    RowTable, padded with zero rows, from the root, a live state and a
+    padding row; ``shortest_states`` on uint8 or uint16 and int32 classes
+    over the cached restart rows; each at the forced chunk lengths K = 1, 2,
+    7, d, d + 1, 64 and K >= N and at N = 0, 1, K - 1, K, K + 1 and many
+    chunks, on the ``aa``/``aaa`` restart table, two fuzz dictionaries (one
+    of > 256 classes) and ``ab``/``ba`` over ``abab...``, where every chunk
+    that starts on a ``b`` must repair to its end.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.core import stream
+    from ahocorasick_tpu_torch.core.compiler import compile_matcher
+    from ahocorasick_tpu_torch.kernels import scan_dfa
+    from ahocorasick_tpu_torch.models.matchers import _DeviceTables
+    from ahocorasick_tpu_torch.ops import scan_batched
+
+    rng = np.random.default_rng(SEED + 18)
+    wide = [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)]
+    dicts = {
+        "aa/aaa": (["aa", "aaa"], "".join(rng.choice(list("ab"), size=2000, p=[.8, .2]))),
+        "fuzz abcd": (fuzz_keywords(rng, "abcd", 40, 6),
+                      "".join(rng.choice(list("abcd "), size=2000))),
+        "fuzz > 256 classes": (wide, "".join(rng.choice(wide + ["x"], size=1000))),
+        "periodic ab/ba": (["ab", "ba"], "ab" * 1000),
+    }
+    to64 = lambda t: t.to(torch.int64)
+    rule, cases = scan_dfa.SPEC_CHUNK_LEN, 0
+    try:
+        for label, (kws, text) in dicts.items():
+            m = compile_matcher(kws, "shortest", True)
+            units = np.frombuffer(text.encode("utf-16-le"), dtype=np.uint16)
+            cls = m.charmap[units].astype(np.int32)
+            dense = stream._ShortestCursor._restart_table(m)
+            dense = np.vstack([dense, np.zeros((3, dense.shape[1]), dtype=dense.dtype)])
+            rows, row_id = np.unique(dense, axis=0, return_inverse=True)
+            up = lambda a: torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(dev)
+            forms = {"dense": (up(dense), None), "RowTable": (up(rows), up(row_id.reshape(-1)))}
+            tabs = _DeviceTables(m, dev)
+            d = max(m.max_depth, 1)
+            live = int(np.argmax(m.depth[: m.num_states]))
+            c32 = up(cls)
+            narrow = scan_batched.classes_to_device(cls, m.num_classes, dev)
+            e_seq = e_short = 0
+            for K in (1, 2, 7, d, d + 1, 64, None):
+                k_len = 40 if K is None else K
+                scan_dfa.SPEC_CHUNK_LEN = len(cls) + 1 if K is None else K
+                for n in sorted({0, 1, k_len - 1, k_len, k_len + 1, max(600, 9 * k_len + 5)}):
+                    if n > len(cls):
+                        continue
+                    for tab, rid in forms.values():
+                        for s0 in (0, live, m.num_states):
+                            got, rep = scan_dfa.spec_states(tab, rid, c32[:n], s0)
+                            wrapped = scan_dfa.seq_states(tab, rid, c32[:n], s0)
+                            want, rep_w = scan_dfa.spec_states_plain(tab, rid, c32[:n], s0)
+                            torch.cuda.synchronize()
+                            if n:
+                                e_seq = max(e_seq, int((to64(got) - to64(want)).abs().max()),
+                                            int((to64(rep) - to64(rep_w)).abs().max()),
+                                            int((to64(wrapped) - to64(want)).abs().max()))
+                            cases += 1
+                    for c in (narrow[:n], c32[:n]):
+                        got = scan_dfa.shortest_states(tabs.dfa_next, tabs.match_len, c,
+                                                       tabs.restart_row_id)
+                        want = scan_dfa.shortest_states_plain(tabs.dfa_next, tabs.match_len, c)
+                        torch.cuda.synchronize()
+                        if n:
+                            e_short = max(e_short, int((to64(got) - to64(want)).abs().max()))
+                        cases += 1
+                if label.startswith("periodic") and K is not None and K % 2:
+                    scan_dfa.SPEC_CHUNK_LEN = K
+                    _, rep = scan_dfa.spec_states(*forms["RowTable"], c32, 0)
+                    C = rep.shape[0]
+                    lens = np.minimum(K, len(cls) - K * np.arange(C))
+                    odd = (K * np.arange(C)) % 2 == 1
+                    r = rep.cpu().numpy()
+                    if not ((r[odd] == lens[odd]).all() and (r[~odd] == 0).all()):
+                        e_seq = max(e_seq, 1)
+                        print(f"  spec {label} K={K}: repairs {r.tolist()[:12]}.. are not "
+                              f"every second chunk to its end")
+            errs["seq_states_serial"] = max(errs["seq_states_serial"], e_seq)
+            errs["shortest_states"] = max(errs["shortest_states"], e_short)
+            print(f"  spec edges {label}: d={d}, {m.num_classes} classes "
+                  f"({str(narrow.dtype).replace('torch.', '')}), K in 1, 2, 7, d, d + 1, 64, "
+                  f">= N; max_abs_err seq_states_serial {e_seq}, shortest_states {e_short}")
+            if e_seq or e_short:
+                raise AssertionError(f"speculate and repair, {label}: a kernel disagrees with "
+                                     f"its twin")
+    finally:
+        scan_dfa.SPEC_CHUNK_LEN = rule
+    return cases
+
+
 def check_sweep_edges(dev, errs, variants_lib=None):
     """The grouped die sweeps (``wwl_sweep_at``, ``wwl_sweep_all``) against
     their twins, bit for bit, on seeded planes: d = 0, 1, 12 and 39 (walks
@@ -1592,8 +1700,8 @@ def main() -> int:
 
     # The sequential scan from an entry state: dense, RowTable, restart table.
     def check_seq(label, table, row_id, cls_np, s0, sync=None):
-        """The serial walk (``sync`` None) or the lane scan (``sync`` = d)
-        against its twin."""
+        """Speculate and repair (``sync`` None) or the lane scan (``sync`` =
+        d) against its twin."""
         c = torch.from_numpy(np.ascontiguousarray(cls_np, dtype=np.int32)).to(dev)
         got = scan_dfa.seq_states(table, row_id, c, s0, sync)
         t = time.perf_counter()
@@ -1603,7 +1711,7 @@ def main() -> int:
         e = max_err((got,), (want,))
         k = "seq_states_serial" if sync is None else "seq_states"
         errs[k] = max(errs[k], e)
-        form = "serial" if sync is None else (
+        form = f"spec K={scan_dfa.spec_chunk_len(len(cls_np))}" if sync is None else (
             f"lanes d={sync} L={scan_dfa.sync_lane_len(len(cls_np), sync)}")
         print(f"  seq {label}, {form}: N={len(cls_np)} s0={s0} "
               f"{'rows ' + str(tuple(table.shape)) + ' row_id ' + str(tuple(row_id.shape)) if row_id is not None else 'dense ' + str(tuple(table.shape))} "
@@ -1702,6 +1810,9 @@ def main() -> int:
                                         short_cls, short_compiled.num_classes, dev))
     if not torch.equal(got, same):
         raise AssertionError("restart-table scan != the lagged-restart kernel's states")
+    t0 = time.perf_counter()
+    print(f"  spec edges: {check_spec_edges(dev, errs)} cases, each == its twin "
+          f"({time.perf_counter() - t0:.2f} s)")
 
     # Chunk stitching: sigma maps, entry fold and rescan against their twins,
     # each map and rescan in its first design and, on a table declared
@@ -3076,31 +3187,40 @@ def main() -> int:
         print(f"time {k} at {tuple(w_full.shape)} windows / {tuple(planes_full.shape)} planes: "
               f"kernel {t_kernel} ms ({gbps(t_kernel)} GB/s), plain twin {t_plain} ms "
               f"({gbps(t_plain)} GB/s) [{smi}]")
+    # Speculate and repair at 64 Ki, 1 Mi and 32 Mi units, through the
+    # wrappers at the rule's K: the shortest restart scan over the cached
+    # restart rows (uint8 classes), and seq_states without sync_depth on the
+    # dense 10k table, the 10k restart table and the wide RowTable; then the
+    # repair lengths at 32 Mi.
     rdev = restart.dev
+    short32 = restart._classes(text)
     c_twin = scan_batched.classes_to_device(short_cls, short_compiled.num_classes, dev)
-    c_mi = scan_batched.classes_to_device(restart._classes(small), short_compiled.num_classes, dev)
-    t_s64 = cuda_ms(lambda: scan_dfa.shortest_states(rdev.dfa_next, rdev.match_len, c_twin), 3)
-    t_s1m = cuda_ms(lambda: scan_dfa.shortest_states(rdev.dfa_next, rdev.match_len, c_mi), 2)
+    c_32 = scan_batched.classes_to_device(short32, short_compiled.num_classes, dev)
+    spec_n = (1 << 16, 1 << 20, TEXT_UNITS)
+    t_s = {n: cuda_ms(lambda n=n: scan_dfa.shortest_states(
+        rdev.dfa_next, rdev.match_len, c_32[:n], rdev.restart_row_id), 5) for n in spec_n}
+    t_s64 = t_s[1 << 16]
     t_p64 = cuda_ms(lambda: scan_dfa.shortest_states_plain(rdev.dfa_next, rdev.match_len, c_twin), 1)
     ms["shortest_states"] = (t_s64, t_p64)
-    print(f"time shortest_states: kernel {t_s64} ms on {len(short_cls)} units "
-          f"({t_s64 * 1e6 / len(short_cls)} ns/unit), {t_s1m} ms on {len(small)} units "
-          f"({t_s1m * 1e6 / len(small)} ns/unit); plain twin {t_p64} ms on {len(short_cls)} "
-          f"units ({t_p64 * 1e6 / len(short_cls)} ns/unit) [{smi}]")
+    print("time shortest_states (speculate and repair): " + "; ".join(
+        f"{t} ms on {n} units ({t * 1e6 / n} ns/unit, K = {scan_dfa.spec_chunk_len(n)})"
+        for n, t in t_s.items()) + f"; plain twin {t_p64} ms on {len(short_cls)} units [{smi}]")
 
     q64 = int32_classes(cls[: 1 << 16])
     q32 = int32_classes(cls)
-    q_short = int32_classes(short_cls)
-    q_wide = int32_classes(wide_gold._classes(wide_base))
+    q_short32 = int32_classes(short32)
     q_wide32 = int32_classes(wide_cls32)
     # The lane scan (sync_depth = d) at the timed shapes, each held against
-    # its twin in phase 3; the serial walk on the dense and restart tables.
+    # its twin in phase 3.
     t_sync = {n: cuda_ms(lambda n=n: scan_dfa.seq_states(*dense_tab, q32[:n], 0, d_seq), 20)
               for n in (1 << 10, 1 << 12, 1 << 16, TEXT_UNITS)}
     t_sync_wide = cuda_ms(lambda: scan_dfa.seq_states(*wide_tab, q_wide32, 0, 1), 20)
-    t_q64 = cuda_ms(lambda: scan_dfa.seq_states(*dense_tab, q64, 0), 3)
-    t_qr = cuda_ms(lambda: scan_dfa.seq_states(*restart_tab, q_short, 0), 3)
-    t_qw = cuda_ms(lambda: scan_dfa.seq_states(*wide_tab, q_wide, 0), 1)
+    spec_cells = (("dense 10k table", dense_tab, q32),
+                  ("10k shortest restart table", restart_tab, q_short32),
+                  ("wide-alphabet RowTable", wide_tab, q_wide32))
+    t_spec = {(label, n): cuda_ms(lambda tab=tab, q=q, n=n: scan_dfa.seq_states(*tab, q[:n], 0), 5)
+              for label, tab, q in spec_cells for n in spec_n}
+    t_q64 = t_spec["dense 10k table", 1 << 16]
     t_qp = cuda_ms(lambda: scan_dfa.seq_states_plain(*dense_tab, q64, 0, d_seq), 2)
     t_qps = cuda_ms(lambda: scan_dfa.seq_states_plain(*dense_tab, q64, 0), 1)
     ms["seq_states"] = (t_sync[1 << 16], t_qp)
@@ -3112,11 +3232,23 @@ def main() -> int:
           f"({t_sync_wide * 1e6 / len(q_wide32)} ns/unit, L = "
           f"{scan_dfa.sync_lane_len(len(q_wide32), 1)}); plain twin {t_qp} ms on {len(q64)} "
           f"units [{smi}]")
-    print(f"time seq_states, serial walk: dense 10k table {t_q64} ms on {len(q64)} units "
-          f"({t_q64 * 1e6 / len(q64)} ns/unit); 10k shortest restart table {t_qr} ms on "
-          f"{len(q_short)} units ({t_qr * 1e6 / len(q_short)} ns/unit); wide-alphabet RowTable "
-          f"{t_qw} ms on {len(q_wide)} units ({t_qw * 1e6 / len(q_wide)} ns/unit); plain twin "
-          f"{t_qps} ms on {len(q64)} units [{smi}]")
+    print("time seq_states, speculate and repair: " + "; ".join(
+        f"{label} {t} ms on {n} units ({t * 1e6 / n} ns/unit, K = {scan_dfa.spec_chunk_len(n)})"
+        for (label, n), t in t_spec.items())
+          + f"; plain twin {t_qps} ms on {len(q64)} units [{smi}]")
+    stats = []
+    for label, tab, q in (("10k shortest_states", (rdev.dfa_next, rdev.restart_row_id), c_32),
+                          *spec_cells):
+        _, rep = scan_dfa.spec_states(*tab, q, 0)
+        r = rep.to(torch.int64)
+        K = scan_dfa.spec_chunk_len(len(q))
+        lens = torch.clamp(len(q) - K * torch.arange(len(r), device=dev), max=K)
+        hist = torch.bincount(torch.clamp(r, max=64)).tolist()
+        stats.append(f"{label}: {len(r)} chunks of K = {K}, repair mean {float(r.float().mean())} "
+                     f"max {int(r.max())}, {int((r > 0).sum())} repaired, "
+                     f"{int(((r == lens) & (r > 0)).sum())} to their end; chunks by repair "
+                     f"length 0..63, 64+: {hist}")
+    print(f"spec repairs at {TEXT_UNITS} units: " + "; ".join(stats) + f" [{smi}]")
     print(f"time streams on {len(text)} units in {len(sizes)} uneven feeds: "
           + "; ".join(f"{k} {v} s ({2 * len(text) / v / 1e9} GB/s)"
                       for k, v in stream_times.items())
@@ -3327,8 +3459,16 @@ def main() -> int:
     ab = scan_variants.rowdfa2_ab(rowdfa_ms["10k keywords x 32 Mi units"]["args"], variants_lib)
     print(f"ab rowdfa2 {json.dumps({'card': smi, **ab})}")
     ab = scan_variants.seq_ab({"10k dense": (*dense_tab, q32, d_seq),
-                               "wide RowTable": (*wide_tab, q_wide32, 1)})
+                               "wide RowTable": (*wide_tab, q_wide32, 1)}, variants_lib)
     print(f"ab seq {json.dumps({'card': smi, **ab})}")
+    # Speculate and repair against the one-thread walks, every run held bit
+    # for bit against them up to 32 Mi units (timed up to 1 Mi).
+    ab = scan_variants.spec_ab({
+        "10k shortest_states": (rdev.dfa_next, rdev.restart_row_id, c_32, rdev.match_len),
+        "10k restart table": (*restart_tab, q_short32, None),
+        "10k dense": (*dense_tab, q32, None),
+        "wide RowTable": (*wide_tab, q_wide32, None)}, variants_lib)
+    print(f"ab spec {json.dumps({'card': smi, **ab})}")
     ab = scan_variants.tp_ab((st10k, w_full, pd.halo, pd.state_bits), variants_lib)
     print(f"ab table_sharded {json.dumps({'card': smi, **ab})}")
     ab = scan_variants.sweep_ab({
@@ -3893,9 +4033,10 @@ def main() -> int:
         "compact_planes": (nbytes(planes_full, hot_out[1], hot_out[2]) + 8, planes_full.numel()),
         "shortest_states": (nbytes(c_twin) + 4 * n64, 4 * n64),
         "wwl_scan_plane": (nbytes(wd10, kwwl.wwl_scan_plane(*pargs)), 4 * chars_w),
-        # at least one plane word per live lane, then its outcome row
-        "wwl_sweep_at": (nbytes(st10, kwwl.wwl_sweep_at(*sargs, **skw)) + 4 * len(lanes10),
-                         6 * len(lanes10)),
+        # the 32-byte plane sectors its walks touch, the starts and the
+        # outcomes ("sweep plane sectors"; one plane word a live lane gives
+        # the old yardstick, printed below)
+        "wwl_sweep_at": (sweep_bytes, 6 * len(lanes10)),
         "wwl_walks_at": (nbytes(walk_args[-3], st10, kwwl.wwl_walks_at(*walk_args)),
                          6 * len(lanes10)),
         # the overlap windows and the starts in, 17 B of outcomes per slot out;
@@ -3947,6 +4088,10 @@ def main() -> int:
         "pfac2_count": (nbytes(cp10) + 8, 3 * steps2),
         "pfac1_planes": (nbytes(cp10) + 4 * P10 * n10, 2 * steps1),
     }
+    sweep_words = nbytes(st10, kwwl.wwl_sweep_at(*sargs, **skw)) + 4 * len(lanes10)
+    print(f"bound wwl_sweep_at, one plane word a live lane (the yardstick before the "
+          f"touched sectors): {sweep_words} B / 3.35 TB/s = "
+          f"{sweep_words / PEAK_BYTES_PER_S * 1e3} ms [{smi}]")
     bounds = {}
     for k, (b, ops, *peak) in work.items():
         peak = peak[0] if peak else PEAK_OPS_PER_S
@@ -3971,26 +4116,30 @@ def main() -> int:
 
     # Where the main path loses most to the bounds: launches x (ms - bound).
     # The sequential scans' launches scan from 1 unit to 32 Mi, so their gaps
-    # are taken over the units they scanned: the lane scan's time as a cost a
-    # launch plus a cost a unit (fitted to its 1 Ki and 32 Mi timings), the
-    # serial walk's as a cost a unit (at 64 Ki), each less the bytes bound of
-    # its units.
+    # are taken over the units they scanned: each one's time as a cost a
+    # launch plus a cost a unit, fitted to the lane scan's 1 Ki and 32 Mi
+    # timings and to speculate and repair's 64 Ki and 32 Mi on the 10k
+    # restart table, each less the bytes bound of its units.
     seq_u = {k: sum(c[k] for c in path_seq.values()) for k in build.seq_units}
     per_unit_sync = (t_sync[TEXT_UNITS] - t_sync[1 << 10]) / (TEXT_UNITS - (1 << 10))
     fixed_sync = t_sync[1 << 10] - (1 << 10) * per_unit_sync
-    per_unit_serial = t_q64 / len(q64)
+    t_r64, t_r32 = (t_spec["10k shortest restart table", n] for n in (1 << 16, TEXT_UNITS))
+    per_unit_spec = (t_r32 - t_r64) / (TEXT_UNITS - (1 << 16))
+    fixed_spec = t_r64 - (1 << 16) * per_unit_spec
     seq_time = {"seq_states": counts["seq_states"] * fixed_sync
                 + seq_u["seq_states"] * per_unit_sync,
-                "seq_states_serial": seq_u["seq_states_serial"] * per_unit_serial}
+                "seq_states_serial": counts["seq_states_serial"] * fixed_spec
+                + seq_u["seq_states_serial"] * per_unit_spec}
     seq_bound = {k: 8 * u / PEAK_BYTES_PER_S * 1e3 for k, u in seq_u.items()}
     gaps = {k: counts[k] * (ms[k][0] - bounds[k][0]) for k in KERNELS}
     gaps.update({k: seq_time[k] - seq_bound[k] for k in seq_time})
     print(f"sequential scans on the paths: {counts['seq_states']} lane scans over "
           f"{seq_u['seq_states']} units, modelled {seq_time['seq_states']} ms = "
           f"{counts['seq_states']} x {fixed_sync} ms + {seq_u['seq_states']} x {per_unit_sync} "
-          f"ms, bound {seq_bound['seq_states']} ms; {counts['seq_states_serial']} serial walks "
-          f"over {seq_u['seq_states_serial']} units, modelled {seq_time['seq_states_serial']} "
-          f"ms = {seq_u['seq_states_serial']} x {per_unit_serial} ms, bound "
+          f"ms, bound {seq_bound['seq_states']} ms; {counts['seq_states_serial']} speculate-and-"
+          f"repair scans over {seq_u['seq_states_serial']} units, modelled "
+          f"{seq_time['seq_states_serial']} ms = {counts['seq_states_serial']} x {fixed_spec} ms "
+          f"+ {seq_u['seq_states_serial']} x {per_unit_spec} ms, bound "
           f"{seq_bound['seq_states_serial']} ms [{smi}]")
     gap = sorted(((g, k) for k, g in gaps.items()), reverse=True)
     print("launches x gap to bound (ms; the sequential scans over their units): " + "; ".join(

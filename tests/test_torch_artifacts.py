@@ -114,9 +114,10 @@ def test_shortest_from_compiled_without_ac_takes_the_restart_scan(is_map):
     assert p._ac is None
     assert p.match(TEXT) == j.match(TEXT) == _gold(p, TEXT)
     assert p.last_stats.engine == "device"
-    # The restart scan's tables, padded as the JAX package pads them.
-    assert p.device_table_bytes() == j.device_table_bytes() > 0
-    assert set(p.dev._cache) == {"dfa_next", "match_len"}
+    # The restart scan's tables, padded as the JAX package pads them, and
+    # the map from each state to its restart row, built once.
+    assert p.device_table_bytes() == j.device_table_bytes() + p.dev.restart_row_id.nbytes > 0
+    assert set(p.dev._cache) == {"dfa_next", "match_len", "restart_row_id"}
 
 
 def test_row_compressed_shortest_artifact_has_no_device_path(tmp_path):
