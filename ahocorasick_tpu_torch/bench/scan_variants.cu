@@ -63,6 +63,12 @@
 //     scan in one thread, two dependent loads a class (match_len[s], then
 //     dfa_next[row * A + c]) and its classes read from global memory in the
 //     chain (the first shortest_states).
+//   * maps_first, rescan_first: the chunk stitch's first designs for tables
+//     that do not synchronize (csrc/stitch.cu state_maps_all and
+//     csrc/seq_scan.cu rescan_serial compute them): every (chunk, entry
+//     state) lane walking its whole chunk, the classes staged in shared
+//     memory, and each chunk's rescan walked by thread 0 of a block while
+//     the others stage tiles.
 
 #include <cstdint>
 
@@ -1080,5 +1086,104 @@ extern "C" int shortest_first(const void* dfa_next, const void* match_len, const
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+constexpr int kFirstMapThreads = 256;
+constexpr int kFirstMapTile = 1024;
+constexpr int kFirstScanThreads = 128;
+constexpr int kFirstScanTile = 1024;
+
+// The sigma maps' first design: one thread per (chunk, entry state) lane
+// walks the whole chunk, the chunk's classes staged kFirstMapTile at a time.
+__global__ void __launch_bounds__(kFirstMapThreads)
+maps_first_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
+                  int64_t chunk_len, int64_t num_states, int64_t num_classes,
+                  int64_t blocks_per_chunk, int32_t* __restrict__ sigma) {
+  __shared__ int32_t tile[kFirstMapTile];
+  const int64_t chunk = blockIdx.x / blocks_per_chunk;
+  const int64_t lane = (blockIdx.x % blocks_per_chunk) * kFirstMapThreads + threadIdx.x;
+  const bool live = lane < num_states;
+  const int32_t* row = cls + chunk * chunk_len;
+  int32_t s = live ? static_cast<int32_t>(lane) : 0;
+  for (int64_t base = 0; base < chunk_len; base += kFirstMapTile) {
+    const int len =
+        static_cast<int>(chunk_len - base < kFirstMapTile ? chunk_len - base : kFirstMapTile);
+    for (int i = threadIdx.x; i < len; i += kFirstMapThreads) tile[i] = row[base + i];
+    __syncthreads();
+    if (live) {
+      for (int i = 0; i < len; ++i)
+        s = __ldg(table + (static_cast<int64_t>(s) * num_classes + tile[i]));
+    }
+    __syncthreads();  // the next tile's loads overwrite `tile`
+  }
+  if (live) sigma[chunk * num_states + lane] = s;
+}
+
+// The rescan's first design: one block per chunk stages tiles and its
+// thread 0 walks them.
+__global__ void __launch_bounds__(kFirstScanThreads)
+rescan_first_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
+                    const int32_t* __restrict__ entry, int64_t chunk_len, int64_t num_classes,
+                    int32_t* __restrict__ out) {
+  __shared__ int32_t tile[kFirstScanTile];
+  const int64_t chunk = blockIdx.x;
+  const int32_t* row = cls + chunk * chunk_len;
+  int32_t* orow = out + chunk * chunk_len;
+  int32_t s = entry[chunk];  // thread 0 carries it across the tiles
+  for (int64_t base = 0; base < chunk_len; base += kFirstScanTile) {
+    const int len =
+        static_cast<int>(chunk_len - base < kFirstScanTile ? chunk_len - base : kFirstScanTile);
+    for (int i = threadIdx.x; i < len; i += kFirstScanThreads) tile[i] = row[base + i];
+    __syncthreads();
+    if (threadIdx.x == 0) {
+      for (int i = 0; i < len; ++i) {
+        s = __ldg(table + (static_cast<int64_t>(s) * num_classes + tile[i]));
+        tile[i] = s;
+      }
+    }
+    __syncthreads();
+    for (int i = threadIdx.x; i < len; i += kFirstScanThreads) orow[base + i] = tile[i];
+    __syncthreads();  // the next tile's loads overwrite `tile`
+  }
+}
+
+}  // namespace
+
+// The sigma maps' first design (csrc/stitch.cu state_maps_all until it met a
+// reference run): sigma int32[num_chunks, num_states] from the dense table
+// int32[num_states, num_classes] and int32[num_chunks, chunk_len] classes.
+extern "C" int maps_first(const void* table, const void* cls, int64_t num_chunks,
+                          int64_t chunk_len, int64_t num_states, int num_classes, void* sigma,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks < 1 || chunk_len < 0 || num_states < 1 || num_classes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t per = (num_states + kFirstMapThreads - 1) / kFirstMapThreads;
+  if (per > 2147483647 / num_chunks) return static_cast<int>(cudaErrorInvalidValue);
+  maps_first_kernel<<<static_cast<unsigned>(per * num_chunks), kFirstMapThreads, 0,
+                      static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(cls), chunk_len,
+      num_states, num_classes, per, static_cast<int32_t*>(sigma));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The rescan's first design (csrc/stitch.cu rescan_serial until it became
+// speculate and repair by rows): out int32[num_chunks, chunk_len], chunk c
+// walked from entry[c] by one thread.
+extern "C" int rescan_first(const void* table, const void* cls, const void* entry,
+                            int64_t num_chunks, int64_t chunk_len, int num_classes, void* out,
+                            int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks < 1 || num_chunks > 2147483647 || chunk_len < 1 || num_classes < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  rescan_first_kernel<<<static_cast<unsigned>(num_chunks), kFirstScanThreads, 0,
+                        static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(cls),
+      static_cast<const int32_t*>(entry), chunk_len, num_classes, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -58,7 +58,16 @@ the restart rows and uint8 classes, and its dense table), the 10k dense
 table and the wide RowTable; every run held bit for bit against the
 one-thread walk at every N, which is timed only up to 1 Mi; with each K's
 repair statistics (chunks, mean and largest repair, chunks repaired to
-their end).  Its best K sets ``kernels.scan_dfa.SPEC_REPAIR``.  ``tp_ab``: the
+their end).  Its best K sets ``kernels.scan_dfa.SPEC_REPAIR``.
+``meet_ab``: the chunk stitch's first designs for tables that do not
+synchronize (``maps_first``, ``rescan_first`` here: every lane over its
+whole chunk, one thread a chunk's rescan) beside the package's forms for
+any table (``state_maps_all``: the reference runs, then the lanes until
+they meet them; ``rescan_serial``: speculate and repair by rows) and, on
+the goto closures, the synchronized forms, at C x K = 1 x 32 Ki, 8 x 4 Ki,
+8 x 32 Ki, 64 x 4 Ki and 1,024 x 256 on the 10k restart table, the 10k
+closure and the demo dictionary, each launch held bit for bit against the
+first design, with the meet positions and the repair lengths.  ``tp_ab``: the
 row-sharded scan (``csrc/table_sharded.cu``, the lane loops over row shards)
 at K = 1, 2 and 4 beside its first design (``table_sharded_first`` here) on
 the first 8,192, 32,768 and 65,536 windows of the 10k table in 8 shards.
@@ -74,7 +83,10 @@ points two checkouts share (``packed_scan_count``, ``packed_scan_planes``,
 ``rowdfa2_count``, ``table_sharded_scan`` in its count and planes modes, and
 the lane scan ``seq_states_sync`` at 64 Ki and 32 Mi units of the 10k dense
 table, and the stitch's ``rescan`` on the same 32 Mi units as 8 chunks and
-as one chunk of 32 Ki) built from this checkout and from the ``csrc/`` of
+as one chunk of 32 Ki; and speculate and repair's one-row form
+``seq_states_spec`` at 64 Ki, 1 Mi and 32 Mi units of the 10k restart
+table, dense and as ``shortest_states``' restart rows) built from this
+checkout and from the ``csrc/`` of
 another checkout at
 ``DIR`` (the parent commit, unpacked with ``git archive``), in one process on
 the same cells at the rule's K: each pair's outputs equal bit for bit, then
@@ -153,6 +165,13 @@ def library() -> ctypes.CDLL:
     # (dfa_next, match_len, cls, cls_bytes, n, num_classes, out, device, stream)
     lib.shortest_first.argtypes = [P, P, P, I, I64, I, P, I, P]
     lib.seq_serial_first.restype = lib.shortest_first.restype = ctypes.c_int
+    # (table, cls, num_chunks, chunk_len, num_states, num_classes, sigma,
+    #  device, stream)
+    lib.maps_first.argtypes = [P, P, I64, I64, I64, I, P, I, P]
+    # (table, cls, entry, num_chunks, chunk_len, num_classes, out, device,
+    #  stream)
+    lib.rescan_first.argtypes = [P, P, P, I64, I64, I, P, I, P]
+    lib.maps_first.restype = lib.rescan_first.restype = ctypes.c_int
     return lib
 
 
@@ -636,20 +655,137 @@ def spec_ab(cells: dict, lib) -> dict:
     return {"spec_ms": times, "spec_repair": repairs, "spec_rule_K": rule}
 
 
+MEET_SHAPES = ((1, 1 << 15), (8, 1 << 12), (8, 1 << 15), (64, 1 << 12), (1024, 256))
+
+
+def meet_ab(cells: dict, lib) -> dict:
+    """The chunk stitch's A/B for tables that do not synchronize.
+    ``cells``: ``{label: (table, classes, depth)}`` on the card, a dense
+    table, ``int32`` classes of at least 256 Ki units and the table's
+    synchronizing depth or None; ``lib`` this file's library.  At each C x K
+    of ``MEET_SHAPES`` it times the first designs (``maps_first``,
+    ``rescan_first``) against the package's forms for any table (the maps
+    meeting a reference run, the rescan by speculate and repair by rows)
+    and, where ``depth`` is given, the synchronized forms, each launch held
+    bit for bit against the first design; with the meet positions (mean,
+    largest, lanes that never met) and the rescan's repair lengths.
+    Returns ``{"meet_ms": {label: {"C x K": {run: ms}}}, "meet_stats": ...}``."""
+    from ahocorasick_tpu_torch.bench import _seconds_per_rep
+    from ahocorasick_tpu_torch.kernels import scan_dfa
+    from ahocorasick_tpu_torch.kernels import stitch as kstitch
+
+    package = build.library()
+    times, stats = {}, {}
+    for label, (table, cls, depth) in cells.items():
+        dev = cls.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        S, A = table.shape
+        times[label], stats[label] = {}, {}
+        for C, K in MEET_SHAPES:
+            c = cls[: C * K].reshape(C, K)
+            sigma = torch.empty((C, S), dtype=torch.int32, device=dev)
+            run = torch.empty((C, K), dtype=torch.int32, device=dev)
+            meet = torch.empty((C, S), dtype=torch.int32, device=dev)
+            agree = torch.empty(2 * C, dtype=torch.int32, device=dev)
+            states = torch.empty((C, K), dtype=torch.int32, device=dev)
+            repair = torch.zeros((C, -(-K // scan_dfa.spec_chunk_len(K))), dtype=torch.int32,
+                                 device=dev)
+
+            def checked(rc, name):
+                if rc != 0:
+                    raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+            def maps_first():
+                checked(lib.maps_first(table.data_ptr(), c.data_ptr(), C, K, S, A,
+                                       sigma.data_ptr(), dev.index or 0, stream), "maps_first")
+
+            def maps_meet(with_meet=False):
+                checked(package.state_maps_all(
+                    table.data_ptr(), c.data_ptr(), C, K, S, A, scan_dfa.spec_chunk_len(K),
+                    run.data_ptr(), sigma.data_ptr(), meet.data_ptr() if with_meet else None,
+                    dev.index or 0, stream), "state_maps_all")
+
+            def maps_sync():
+                checked(package.state_maps(table.data_ptr(), c.data_ptr(), C, K, S, A, depth,
+                                           agree.data_ptr(), sigma.data_ptr(), dev.index or 0,
+                                           stream), "state_maps")
+
+            maps_first()
+            want = sigma.clone()
+            entry = kstitch.entry_fold(want, 0)
+
+            def rescan_first():
+                checked(lib.rescan_first(table.data_ptr(), c.data_ptr(), entry.data_ptr(), C, K,
+                                         A, states.data_ptr(), dev.index or 0, stream),
+                        "rescan_first")
+
+            def rescan_spec(with_repair=False):
+                checked(package.rescan_serial(
+                    table.data_ptr(), c.data_ptr(), entry.data_ptr(), C, K, A,
+                    scan_dfa.spec_chunk_len(K), states.data_ptr(),
+                    repair.data_ptr() if with_repair else None, dev.index or 0, stream),
+                    "rescan_serial")
+
+            def rescan_sync():
+                checked(package.rescan(table.data_ptr(), c.data_ptr(), entry.data_ptr(), C, K, A,
+                                       depth, scan_dfa.sync_lane_len(C * K, depth),
+                                       states.data_ptr(), dev.index or 0, stream), "rescan")
+
+            rescan_first()
+            want_states = states.clone()
+            maps = {"maps first": maps_first, "maps meet": maps_meet}
+            rescans = {"rescan first": rescan_first, "rescan spec": rescan_spec}
+            if depth is not None:
+                maps["maps sync"] = maps_sync
+                rescans["rescan sync"] = rescan_sync
+            for name, launch in (*maps.items(), ("maps meet + meet", lambda: maps_meet(True))):
+                sigma.fill_(-1)
+                launch()
+                if not torch.equal(sigma, want):
+                    raise AssertionError(f"meet {label} C={C} K={K} {name}: sigma differs from "
+                                         f"the first design's")
+            for name, launch in (*rescans.items(),
+                                 ("rescan spec + repair", lambda: rescan_spec(True))):
+                states.fill_(-1)
+                launch()
+                if not torch.equal(states, want_states):
+                    raise AssertionError(f"meet {label} C={C} K={K} {name}: states differ from "
+                                         f"the first design's")
+            m64, r64 = meet.to(torch.int64), repair.to(torch.int64)
+            stats[label][f"{C} x {K}"] = {
+                "meet_mean": float(m64.double().mean()), "meet_max": int(m64.max()),
+                "never_met": int((m64 == K).sum()), "lanes": m64.numel(),
+                "repair_mean": float(r64.double().mean()), "repair_max": int(r64.max()),
+                "sub_chunk": scan_dfa.spec_chunk_len(K)}
+            runs = {**maps, **rescans}
+            ms = {}
+            for name in [*runs, *reversed(runs)]:
+                reps = 1 if name.endswith("first") else 5
+                t = _seconds_per_rep(runs[name], reps, dev) * 1e3
+                ms[name] = min(ms.get(name, t), t)
+            times[label][f"{C} x {K}"] = ms
+    return {"meet_ms": times, "meet_stats": stats}
+
+
 AGAINST_KERNELS = ("packed_scan_count", "packed_scan_planes", "packedcount_count",
                    "packedcount_hotstate_plane", "split_emit_planes", "rowdfa2_count",
-                   "table_sharded_scan", "seq_states_sync", "rescan")
+                   "table_sharded_scan", "seq_states_sync", "rescan", "seq_states_spec")
 AGAINST_RESCAN = ((8, 1 << 22), (1, 1 << 15))  # the rescan's (C, K) in the comparison
 AGAINST_SEQ_UNITS = (1 << 16, 1 << 25)  # the lane scan's N in the comparison
+AGAINST_SPEC_UNITS = (1 << 16, 1 << 20, 1 << 25)  # speculate and repair's N (one row)
 
 
 def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tuple,
-            row_cell: tuple, tp_cell: tuple, seq_cell: tuple) -> dict:
+            row_cell: tuple, tp_cell: tuple, seq_cell: tuple, spec_cell: tuple) -> dict:
     """The lane-loop kernels of this checkout and of ``other_root``'s
     ``csrc/`` on the cells of ``run``, ``rowdfa2_ab`` (``row_cell``) and
-    ``tp_ab`` (``tp_cell``; the count and planes modes), and the lane scan
-    of ``seq_states`` (``seq_cell``: dense table, ``int32[N]`` classes, d) at
-    ``AGAINST_SEQ_UNITS`` with the rule's L: ``{kernel: {"K" or "L",
+    ``tp_ab`` (``tp_cell``; the count and planes modes), the lane scan of
+    ``seq_states`` (``seq_cell``: dense table, ``int32[N]`` classes, d) at
+    ``AGAINST_SEQ_UNITS`` with the rule's L, and speculate and repair in its
+    one-row form (``seq_states_spec``; ``spec_cell``: ``{label: (table,
+    row_id or None, classes)}``, each with at least 32 Mi classes: the
+    dense restart table and ``shortest_states``' restart rows) at
+    ``AGAINST_SPEC_UNITS`` with the rule's K: ``{kernel: {"K" or "L",
     "other_ms", "this_ms", "this_over_other"}}`` (each ms list in the order
     timed)."""
     import glob
@@ -757,6 +893,32 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
         record[f"rescan C={chunks} K={K}"] = {
             "L": L, "other_ms": ms["other"], "this_ms": ms["this"],
             "this_over_other": min(ms["this"]) / min(ms["other"])}
+    for label, (table, row_id, cls) in spec_cell.items():
+        rid = None if row_id is None else row_id.data_ptr()
+        for n in AGAINST_SPEC_UNITS:
+            K = scan_dfa.spec_chunk_len(n)
+            outs, runs = {}, {}
+            for tree, lib in libs.items():
+                outs[tree] = torch.empty(n, dtype=torch.int32, device=cls.device)
+
+                def launch(lib=lib, out=outs[tree]):
+                    rc = lib.seq_states_spec(table.data_ptr(), rid, cls.data_ptr(),
+                                             scan_dfa._CLASS_BYTES[cls.dtype], n, table.shape[1],
+                                             0, K, out.data_ptr(), None, cls.device.index or 0,
+                                             stream)
+                    if rc != 0:
+                        raise RuntimeError(f"seq_states_spec launch failed: CUDA error {rc}")
+                runs[tree] = launch
+                launch()
+            if not torch.equal(outs["other"], outs["this"]):
+                raise AssertionError(f"seq_states_spec {label} N={n}: the two checkouts' scans "
+                                     f"differ")
+            ms = {"other": [], "this": []}
+            for tree in ("other", "this", "this", "other"):
+                ms[tree].append(_seconds_per_rep(runs[tree], 5, cls.device) * 1e3)
+            record[f"seq_states_spec {label} N={n}"] = {
+                "K": K, "other_ms": ms["other"], "this_ms": ms["this"],
+                "this_over_other": min(ms["this"]) / min(ms["other"])}
     return record
 
 
@@ -809,7 +971,8 @@ def main(argv=None) -> None:
                          row_cell, ten_k_shards(m, dev, w),
                          (m.dev.seq_tables[0], _int32_classes(
                              np.tile(base, TEXT_UNITS // BASE_UNITS), dev),
-                          max(m.compiled.max_depth, 1)))
+                          max(m.compiled.max_depth, 1)),
+                         _restart_spec_cells(keywords, dev))
         print(json.dumps({"card": smi, "against": opts.against, **record}))
         return
     record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),
@@ -824,9 +987,19 @@ def main(argv=None) -> None:
         "10k dense": (*m.dev.seq_tables, cls32, max(m.compiled.max_depth, 1)),
         "wide RowTable": (*wide.dev.seq_tables, wide32, max(wide.compiled.max_depth, 1)),
     }, lib))
-    record.update(spec_ab({**ten_k_restart_cells(keywords, dev),
+    restart_cells = ten_k_restart_cells(keywords, dev)
+    record.update(spec_ab({**restart_cells,
                            "10k dense": (*m.dev.seq_tables, cls32, None),
                            "wide RowTable": (*wide.dev.seq_tables, wide32, None)}, lib))
+    demo = AhoCorasickSet(DEMO_KEYWORDS, engine="device", device=dev)
+    demo_cls = _int32_classes(demo._classes(word_soup(np.random.default_rng(SEED + 10),
+                                                      DEMO_KEYWORDS, 1 << 18)), dev)
+    record.update(meet_ab({
+        "10k restart table": (restart_cells["10k restart table"][0],
+                              restart_cells["10k restart table"][2], None),
+        "10k closure": (m.dev.seq_tables[0], cls32, max(m.compiled.max_depth, 1)),
+        "demo dictionary": (demo.dev.dfa_next, demo_cls, max(demo.compiled.max_depth, 1))},
+        lib))
     record.update(tp_ab(ten_k_shards(m, dev, w)))
     record.update(sweep_ab(ten_k_sweep_cells(keywords, dev)))
     print(json.dumps({"card": smi, **record}))
@@ -901,6 +1074,13 @@ def ten_k_restart_cells(keywords, dev) -> dict:
                                 m.dev.match_len),
         "10k restart table": (*restart, _int32_classes(cls, dev), None),
     }
+
+
+def _restart_spec_cells(keywords, dev) -> dict:
+    """``{label: (table, row_id, classes)}``: ``ten_k_restart_cells`` for
+    ``against``, the cursor's dense restart table (int32 classes) and
+    ``shortest_states``' restart rows (uint8 classes)."""
+    return {label: cell[:3] for label, cell in ten_k_restart_cells(keywords, dev).items()}
 
 
 def _int32_classes(cls: np.ndarray, dev) -> torch.Tensor:

@@ -26,7 +26,8 @@
 //     matches ended).  Pass 1 cuts the N classes into C = ceil(N/K) chunks of
 //     K (the last one shorter) and walks each chunk in a lane of its own:
 //     chunk 0 from s_0, so it is exact, every other chunk from the root, a
-//     guess.  It is the lane scan below with one lane a row.  Pass 2, one
+//     guess.  It is the lane scan below with lanes of K and no warm-up
+//     (d = 0).  Pass 2, one
 //     warp launched behind it on the same stream, walks the chunks in order:
 //     chunk c's true entry e is the state before it (out[cK - 1], read after
 //     chunk c - 1 was repaired); if e is the root the chunk is right,
@@ -49,7 +50,17 @@
 //     states it overwrote) to an int32[C] side output when one is given.
 //     Where N <= K there is one chunk and no repair launch: one lane walks
 //     the whole text.  The wrapper picks K (kernels/scan_dfa.py
-//     spec_chunk_len).
+//     spec_chunk_len).  Speculate and repair takes rows: `rescan_serial`,
+//     the chunk stitch's rescan for a table that does not synchronize
+//     (kernels/stitch.py; it replaces ahocorasick_tpu/ops/stitch.py
+//     stitched_states, :68), cuts each of R rows of L classes (the stitch's
+//     chunks) into sub-chunks of K, lane 0 of row r from entry[r] and every
+//     other lane from the root, and launches one repair warp a row (a grid
+//     of R one-warp blocks), so the rows repair in parallel; a row of at
+//     most K classes is one lane and needs no repair.  The stitch's sigma
+//     maps (stitch.cu state_maps_all) take their reference runs from it,
+//     every entry the root.  Its repair lengths are int32[R, ceil(L / K)];
+//     seq_states_spec is the one-row case, entered in s0.
 //   * seq_states_sync: the lane scan, for a table that is d-synchronizing
 //     (every goto closure, d = max_depth: the state after any d classes read
 //     from any state is the longest suffix of those d classes that is a
@@ -79,8 +90,9 @@
 // shorter than L is one lane, the serial walk of that chunk: 0.0076 ms of
 // card time at C = 1, K = 32 Ki of the 10k table (NVIDIA H100 80GB HBM3,
 // 700.00 W), where the serial rescan takes 2.27.  seq_states_sync is the
-// one-row case whose entry is s0, and pass 1 of seq_states_spec the case of
-// one lane a row, whose entries are s0 and then the root.  16-byte stores
+// one-row case whose entry is s0, and pass 1 of speculate and repair the
+// case of d = 0: lanes of K, no warm-up, every lane past a row's first from
+// the root.  16-byte stores
 // need K % 4 == 0 and N % 4 == 0 as well, since rows start at c*K.
 // Indices are 64-bit.
 
@@ -93,7 +105,7 @@
 namespace {
 
 constexpr int kThreads = 256;
-// Pass 1's block: one warp, so that its few lanes (one a chunk) spread over
+// Pass 1's block: one warp, so that its few lanes (one a sub-chunk) spread over
 // the SMs instead of sharing the L1 and L2 bandwidth of a few.
 constexpr int kSpecBlock = 32;
 constexpr int kRepairChunks = 32;  // chunks whose heads the repair warp stages at once
@@ -221,12 +233,17 @@ __device__ __forceinline__ void broadcast(int64_t& t, bool& met, uint32_t& s) {
   s = __shfl_sync(tile::kFull, s, 0);
 }
 
-// Pass 2 of seq_states_spec, one warp: chunks 1 .. C-1 of `out` (pass 1's
-// states, chunk c walked from the root) repaired in order, as the source
-// note says.  repair (null: not wanted) gets each chunk's repair length.
+// Pass 2 of speculate and repair, one warp a row (block r repairs row r of
+// n classes, at r*n): chunks 1 .. C-1 of the row's `out` (pass 1's states,
+// chunk c walked from the root) repaired in order, as the source note says.
+// repair (null: not wanted) gets each chunk's repair length, C a row.
 // Control flow is warp-uniform: lane 0 walks, and the warp learns where it
-// stopped by shuffles.
-template <bool kRows, typename T>
+// stopped by shuffles.  kOne: one row, at the pointers as given.  With the
+// row offsets nvcc keeps the walk's pointers in uniform registers, and the
+// repair of one row of 32 Mi units of the 10k restart table took 2.093 ms of
+// card time where it took 1.854 without them (NVIDIA H100 80GB HBM3, 700 W;
+// torch.profiler), so a one-row launch takes the instantiation without.
+template <bool kRows, typename T, bool kOne>
 __global__ void __launch_bounds__(32)
 repair_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ row_id,
               const T* __restrict__ cls, int64_t n, int64_t chunk_len, uint32_t num_classes,
@@ -238,6 +255,12 @@ repair_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ r
   __shared__ uint32_t tile_rec[kRepairTile];
   const int lane = threadIdx.x;
   const int64_t chunks = (n + chunk_len - 1) / chunk_len;
+  if (!kOne) {
+    const int64_t r = blockIdx.x;
+    cls += r * n;
+    out += r * n;
+    if (repair != nullptr) repair += r * chunks;
+  }
   if (lane == 0 && repair != nullptr) repair[0] = 0;
   // Lane t holds position t of each head of the next 32 chunks, and the
   // recorded state before chunk c0 + t: loads issued one group ahead, so
@@ -315,20 +338,31 @@ repair_kernel(const uint32_t* __restrict__ table, const uint32_t* __restrict__ r
   }
 }
 
+// Speculate and repair over `rows` rows of row_len classes (n = rows *
+// row_len), sub-chunks of chunk_len <= row_len: pass 1 is the lane scan with
+// one lane a sub-chunk and no warm-up (lane 0 of row r from entry[r], or s0
+// and then the root where `entry` is null; every other lane from the root),
+// pass 2 one repair warp a row behind it on the same stream.
 template <bool kRows, typename T>
-int launch_spec(const uint32_t* table, const uint32_t* row_id, const void* cls, int64_t n,
-                uint32_t num_classes, uint32_t s0, int64_t chunk_len, uint32_t* out,
-                int32_t* repair, cudaStream_t stream) {
+int launch_spec(const uint32_t* table, const uint32_t* row_id, const void* cls, int64_t rows,
+                int64_t row_len, const uint32_t* entry, uint32_t s0, uint32_t num_classes,
+                int64_t chunk_len, uint32_t* out, int32_t* repair, cudaStream_t stream) {
   const auto* c = static_cast<const T*>(cls);
-  const int64_t chunks = (n + chunk_len - 1) / chunk_len;
-  if (!launch_sync<kRows, T>(table, row_id, c, n, chunks, chunk_len, nullptr, s0, num_classes,
-                             1, static_cast<int>(chunk_len), out, stream, kSpecBlock))
+  if (rows > 2147483647 || !launch_sync<kRows, T>(table, row_id, c, rows * row_len, rows,
+                                                   row_len, entry, s0, num_classes, 0,
+                                                   static_cast<int>(chunk_len), out, stream,
+                                                   kSpecBlock))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (chunks > 1) {
-    repair_kernel<kRows, T><<<1, 32, 0, stream>>>(table, row_id, c, n, chunk_len, num_classes,
-                                                  out, repair);
+  if (chunk_len < row_len) {
+    if (rows == 1) {
+      repair_kernel<kRows, T, true><<<1, 32, 0, stream>>>(table, row_id, c, row_len, chunk_len,
+                                                          num_classes, out, repair);
+    } else {
+      repair_kernel<kRows, T, false><<<static_cast<unsigned>(rows), 32, 0, stream>>>(
+          table, row_id, c, row_len, chunk_len, num_classes, out, repair);
+    }
   } else if (repair != nullptr) {
-    cudaError_t err = cudaMemsetAsync(repair, 0, sizeof(int32_t), stream);
+    cudaError_t err = cudaMemsetAsync(repair, 0, sizeof(int32_t) * rows, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaGetLastError());
@@ -339,10 +373,10 @@ int launch_spec_form(const uint32_t* table, const uint32_t* row_id, const void* 
                      uint32_t num_classes, uint32_t s0, int64_t chunk_len, uint32_t* out,
                      int32_t* repair, cudaStream_t stream) {
   return row_id != nullptr
-             ? launch_spec<true, T>(table, row_id, cls, n, num_classes, s0, chunk_len, out,
-                                    repair, stream)
-             : launch_spec<false, T>(table, row_id, cls, n, num_classes, s0, chunk_len, out,
-                                     repair, stream);
+             ? launch_spec<true, T>(table, row_id, cls, 1, n, nullptr, s0, num_classes,
+                                    chunk_len, out, repair, stream)
+             : launch_spec<false, T>(table, row_id, cls, 1, n, nullptr, s0, num_classes,
+                                     chunk_len, out, repair, stream);
 }
 
 }  // namespace
@@ -429,4 +463,30 @@ extern "C" int rescan(const void* table, const void* cls, const void* entry, int
       static_cast<uint32_t>(num_classes), depth, lane_len, static_cast<uint32_t*>(out),
       static_cast<cudaStream_t>(stream));
   return ok ? static_cast<int>(cudaGetLastError()) : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// The rescan of the chunk stitch for any table (kernels/stitch.py rescan,
+// no sync_depth), speculate and repair by rows: out int32[num_chunks,
+// chunk_len], chunk c walked from entry[c] (entry null: every chunk from the
+// root, the sigma maps' reference runs) over the dense table int32[S,
+// num_classes], in sub-chunks of min(sub_len, chunk_len) classes; repair
+// int32[num_chunks, ceil(chunk_len / that)] receives each sub-chunk's repair
+// length, or is null.  Two launches (one where a chunk is one sub-chunk) on
+// `stream`, no host synchronization.  Returns cudaGetLastError() after the
+// launches, or cudaErrorInvalidValue for arguments it does not take.
+extern "C" int rescan_serial(const void* table, const void* cls, const void* entry,
+                             int64_t num_chunks, int64_t chunk_len, int num_classes,
+                             int64_t sub_len, void* out, void* repair, int device,
+                             void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks < 1 || chunk_len < 1 || num_classes < 1 || sub_len < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t k = sub_len < chunk_len ? sub_len : chunk_len;
+  if (k > 2147483647) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_spec<false, uint32_t>(
+      static_cast<const uint32_t*>(table), nullptr, cls, num_chunks, chunk_len,
+      static_cast<const uint32_t*>(entry), 0u, static_cast<uint32_t>(num_classes), k,
+      static_cast<uint32_t*>(out), static_cast<int32_t*>(repair),
+      static_cast<cudaStream_t>(stream));
 }

@@ -1,10 +1,10 @@
 // Chunk stitching by state maps for Hopper (sm_90a): the sigma map of every
-// chunk, in two forms, the fold of the maps into each chunk's entry state,
-// and the first design of the rescan of every chunk from its entry state,
-// behind a plain C interface loaded with ctypes
+// chunk, in two forms, and the fold of the maps into each chunk's entry
+// state, behind a plain C interface loaded with ctypes
 // (ahocorasick_tpu_torch/kernels/build.py builds it, kernels/stitch.py binds
-// it).  The rescan's synchronized form is seq_scan.cu's lane scan, one row a
-// chunk (its entry point `rescan` there).
+// it).  The rescan of every chunk from its entry state is seq_scan.cu's, in
+// two forms too: the lane scan with one row a chunk (`rescan`) and speculate
+// and repair by rows (`rescan_serial`).
 //
 // What it replaces.  ahocorasick_tpu/ops/stitch.py: chunk_state_maps (:33, a
 // lax.scan over the chunk columns carrying a (C, S) lane matrix), entry_states
@@ -23,14 +23,33 @@
 // the one sequential scan of the flattened classes from s0, bit for bit.
 //
 // The two forms of the sigma map.
-//   * state_maps_all, the first design, for any table (the shortest
-//     matcher's restart table does not synchronize): one thread per (chunk,
-//     entry state) lane with the state in a register; a block's lanes belong
-//     to one chunk, whose classes go through shared memory in tiles with
-//     coalesced loads, so only the table lookup is on the chain.  It is
-//     bound by its C*K*S dependent lookups, a K-long chain a lane: 2.24 ms at
-//     C = 1, K = 32 Ki, S = 65,536 on the 10k table (NVIDIA H100 80GB HBM3,
-//     700.00 W).
+//   * state_maps_all, for any table (the shortest matcher's restart table
+//     does not synchronize), by meeting a reference run.  Let R be chunk c's
+//     run from the root.  A lane entered in state s that holds R[i] after
+//     class i follows R from there (the walk is deterministic), so
+//     sigma[c, s] = R[K - 1]; only the lanes that have not met R yet need a
+//     walk.  Launch 1 and 2 (seq_scan.cu rescan_serial, entry null) write R
+//     for every chunk into scratch int32[C, K], speculate and repair by
+//     rows.  Launch 3 (meet_kernel, on the same stream: no host
+//     synchronization) runs one thread per (chunk, entry state) lane, a
+//     block's lanes from one chunk, whose classes and R go through shared
+//     memory kMeetTile at a time with coalesced loads; the root's lane is R
+//     and done at once, every other lane steps from its own state and
+//     compares it with R after each class, and the first equality ends it.
+//     A block stages no further tile once __syncthreads_or finds no live
+//     lane.  A lane that reaches K unmet (a sink, or runs kept apart such as
+//     "ab", "ba" over "abab...") stores its own state: exact for any table,
+//     as the first design (C*K*S dependent lookups, one K-long chain a lane:
+//     2.22 ms at C = 1, K = 32 Ki, S = 65,536 on the 10k table, NVIDIA H100
+//     80GB HBM3, 700.00 W; now an A/B arm, bench/scan_variants.cu
+//     maps_first) was.  On a goto closure every live lane meets R within d
+//     classes and a zero-filled padding row within d + 1; on the restart
+//     table a few classes past the next keyword end, where its state starts
+//     to depend only on where that match ended.  The side output `meet`
+//     (null: not wanted) gets each lane's meet position: the first i with
+//     the lane's state after class i equal to R[i] (0 for the root's lane),
+//     K where it never met.  sigma leaves as 16-byte stores from a staged
+//     block where S % 4 == 0.
 //   * state_maps, the synchronized form, for a table declared
 //     d-synchronizing from every state reachable from the root (a goto
 //     closure, d = max_depth: after any d classes the state is the longest
@@ -48,8 +67,8 @@
 //     K - t >= d, and the block walks v over [max(t, K - d), K) (at most d
 //     dependent loads, the same for every thread) and stores the one value,
 //     16 bytes a store where S % 4 == 0.  Where they differ (a padding row
-//     that never converges, a sink), every lane walks its own chunk as the
-//     first design does, from its entry state (phase 1 stores nothing, so
+//     that never converges, a sink), every lane walks its whole chunk from
+//     its entry state, as the first design did (phase 1 stores nothing, so
 //     the common case writes sigma once): exact for any table.  A live row
 //     agrees after d classes and a zero-filled padding row (every class to
 //     the root) one class later, hence t = d + 1.  The work falls from C*K*S
@@ -61,11 +80,7 @@
 // entry_fold is a latency chain of C dependent loads (4*C bytes out): one
 // thread walks it.  The JAX code composes whole maps in log depth because a
 // TPU has no cheap serial chain; the contract is only the entry vector.
-// rescan_serial, the rescan's first design, is the serial walk once per
-// chunk: one block per chunk stages tiles and its thread 0 walks, one L2
-// round trip a class while the block's other threads wait (2.29 ms at C = 1,
-// K = 32 Ki on the 10k table, same card); throughput comes only from chunks
-// in flight.  All flat indices are 64-bit: C*S and S*A pass 2**31 at the
+// All flat indices are 64-bit: C*S and S*A pass 2**31 at the
 // 1M-keyword dictionary.
 
 #include <cstdint>
@@ -76,8 +91,7 @@ namespace {
 
 constexpr int kMapThreads = 256;
 constexpr int kMapTile = 1024;
-constexpr int kScanThreads = 128;
-constexpr int kScanTile = 1024;
+constexpr int kMeetTile = 256;  // classes and reference states staged at a time
 
 // Every thread of the block walks its state s over the classes row[begin,
 // end); the classes go through `tile` kMapTile at a time with coalesced
@@ -100,17 +114,61 @@ __device__ __forceinline__ int32_t walk(const int32_t* __restrict__ table,
   return s;
 }
 
+// Launch 3 of state_maps_all: lane s of chunk c walks from s until its
+// state equals the chunk's reference run `run` (R, from the root) at the
+// same position, as the source note says; sigma[c, s] is R[K - 1] for a lane
+// that met, its own state for one that did not.
 __global__ void __launch_bounds__(kMapThreads)
-maps_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
-            int64_t chunk_len, int64_t num_states, int64_t num_classes,
-            int64_t blocks_per_chunk, int32_t* __restrict__ sigma) {
-  __shared__ int32_t tile[kMapTile];
+meet_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
+            const int32_t* __restrict__ run, int64_t chunk_len, int64_t num_states,
+            int64_t num_classes, int64_t blocks_per_chunk, bool vec,
+            int32_t* __restrict__ sigma, int32_t* __restrict__ meet) {
+  __shared__ int32_t tile_cls[kMeetTile];
+  __shared__ int32_t tile_run[kMeetTile];
+  __shared__ __align__(16) int32_t staged[kMapThreads];
   const int64_t chunk = blockIdx.x / blocks_per_chunk;
-  const int64_t lane = (blockIdx.x % blocks_per_chunk) * kMapThreads + threadIdx.x;
-  const bool live = lane < num_states;
-  const int32_t s = walk(table, cls + chunk * chunk_len, 0, chunk_len, num_classes,
-                         live ? static_cast<int32_t>(lane) : 0, live, tile);
-  if (live) sigma[chunk * num_states + lane] = s;
+  const int64_t first = (blockIdx.x % blocks_per_chunk) * kMapThreads;
+  const int64_t lane = first + threadIdx.x;
+  const bool in = lane < num_states;
+  const int32_t* row = cls + chunk * chunk_len;
+  const int32_t* ref = run + chunk * chunk_len;
+  int32_t s = in ? static_cast<int32_t>(lane) : 0;
+  // The root's lane is R itself: it meets at position 0.
+  int64_t at = in && lane == 0 ? 0 : chunk_len;
+  bool live = in && lane != 0 && chunk_len > 0;
+  for (int64_t base = 0; base < chunk_len; base += kMeetTile) {
+    // The same answer in every thread, and the barrier before the tiles
+    // are overwritten.
+    if (!__syncthreads_or(live)) break;
+    const int len = static_cast<int>(chunk_len - base < kMeetTile ? chunk_len - base : kMeetTile);
+    for (int i = threadIdx.x; i < len; i += kMapThreads) {
+      tile_cls[i] = row[base + i];
+      tile_run[i] = ref[base + i];
+    }
+    __syncthreads();
+    if (live) {
+      for (int i = 0; i < len; ++i) {
+        s = __ldg(table + (static_cast<int64_t>(s) * num_classes + tile_cls[i]));
+        if (s == tile_run[i]) {
+          live = false;
+          at = base + i;
+          break;
+        }
+      }
+    }
+  }
+  const int32_t w = at < chunk_len ? __ldg(ref + chunk_len - 1) : s;
+  int32_t* out = sigma + chunk * num_states;
+  if (vec) {  // S % 4 == 0: the block's lanes as whole 16-byte words
+    staged[threadIdx.x] = w;
+    __syncthreads();
+    const int64_t at4 = first + 4 * static_cast<int64_t>(threadIdx.x);
+    if (threadIdx.x < kMapThreads / 4 && at4 < num_states)
+      *reinterpret_cast<int4*>(out + at4) = *reinterpret_cast<const int4*>(staged + 4 * threadIdx.x);
+  } else if (in) {
+    out[lane] = w;
+  }
+  if (meet != nullptr && in) meet[chunk * num_states + lane] = static_cast<int32_t>(at);
 }
 
 // Phase 1: the lanes over the first t classes; each warp's least and
@@ -176,31 +234,6 @@ __global__ void fold_kernel(const int32_t* __restrict__ sigma, int64_t num_chunk
   }
 }
 
-__global__ void __launch_bounds__(kScanThreads)
-rescan_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls,
-              const int32_t* __restrict__ entry, int64_t chunk_len, int64_t num_classes,
-              int32_t* __restrict__ out) {
-  __shared__ int32_t tile[kScanTile];
-  const int64_t chunk = blockIdx.x;
-  const int32_t* row = cls + chunk * chunk_len;
-  int32_t* orow = out + chunk * chunk_len;
-  int32_t s = entry[chunk];  // thread 0 carries it across the tiles
-  for (int64_t base = 0; base < chunk_len; base += kScanTile) {
-    const int len = static_cast<int>(chunk_len - base < kScanTile ? chunk_len - base : kScanTile);
-    for (int i = threadIdx.x; i < len; i += kScanThreads) tile[i] = row[base + i];
-    __syncthreads();
-    if (threadIdx.x == 0) {
-      for (int i = 0; i < len; ++i) {
-        s = __ldg(table + (static_cast<int64_t>(s) * num_classes + tile[i]));
-        tile[i] = s;
-      }
-    }
-    __syncthreads();
-    for (int i = threadIdx.x; i < len; i += kScanThreads) orow[base + i] = tile[i];
-    __syncthreads();  // the next tile's loads overwrite `tile`
-  }
-}
-
 constexpr int64_t kMaxGrid = 2147483647;  // blocks along x
 
 // Blocks per chunk of the sigma kernels, or -1 past the grid's limit.
@@ -215,28 +248,49 @@ int64_t map_blocks(int64_t num_chunks, int64_t num_states) {
 // launch was accepted).  The caller validates shapes and types and launches
 // only non-empty work (num_chunks >= 1; chunk_len may be 0 for the maps).
 
-// sigma int32[num_chunks, num_states], the first design.  `table` is
-// int32[num_states, num_classes] (the row stride is num_classes), `cls`
-// int32[num_chunks, chunk_len].
+// seq_scan.cu: the rescan by speculate and repair (entry null: from the root).
+extern "C" int rescan_serial(const void* table, const void* cls, const void* entry,
+                             int64_t num_chunks, int64_t chunk_len, int num_classes,
+                             int64_t sub_len, void* out, void* repair, int device,
+                             void* stream);
+
+// sigma int32[num_chunks, num_states] for any table, by meeting the
+// reference runs.  `table` is int32[num_states, num_classes] (the row stride
+// is num_classes), `cls` int32[num_chunks, chunk_len]; `run` is scratch
+// int32[num_chunks, chunk_len] (unused where chunk_len is 0) for the
+// reference runs, walked by speculate and repair in sub-chunks of sub_len;
+// meet int32[num_chunks, num_states] receives each lane's meet position, or
+// is null.  Three launches (one where chunk_len is 0 or a chunk is one
+// sub-chunk: two) on `stream`, no host synchronization.
 extern "C" int state_maps_all(const void* table, const void* cls, int64_t num_chunks,
                               int64_t chunk_len, int64_t num_states, int num_classes,
-                              void* sigma, int device, void* stream) {
+                              int64_t sub_len, void* run, void* sigma, void* meet, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_chunks < 1 || chunk_len < 0 || num_states < 1 || num_classes < 1)
+  if (num_chunks < 1 || chunk_len < 0 || chunk_len > 2147483647 || num_states < 1 ||
+      num_states > 2147483647 || num_classes < 1 || sub_len < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const int64_t per = map_blocks(num_chunks, num_states);
   if (per < 0) return static_cast<int>(cudaErrorInvalidValue);
-  maps_kernel<<<static_cast<unsigned>(per * num_chunks), kMapThreads, 0,
+  if (chunk_len > 0) {
+    const int rc = rescan_serial(table, cls, nullptr, num_chunks, chunk_len, num_classes,
+                                 sub_len, run, nullptr, device, stream);
+    if (rc != 0) return rc;
+  }
+  const bool vec = num_states % 4 == 0 && reinterpret_cast<uintptr_t>(sigma) % 16 == 0;
+  meet_kernel<<<static_cast<unsigned>(per * num_chunks), kMapThreads, 0,
                 static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(cls), chunk_len,
-      num_states, num_classes, per, static_cast<int32_t*>(sigma));
+      static_cast<const int32_t*>(table), static_cast<const int32_t*>(cls),
+      static_cast<const int32_t*>(run), chunk_len, num_states, num_classes, per, vec,
+      static_cast<int32_t*>(sigma), static_cast<int32_t*>(meet));
   return static_cast<int>(cudaGetLastError());
 }
 
-// The synchronized form: the same arguments and output, plus the
-// synchronizing depth d >= 1 and `agree`, int32[2 * num_chunks] of scratch
-// (the chunks' least states, then their greatest), set here.
+// The synchronized form: sigma as state_maps_all's from the same table and
+// classes, given the synchronizing depth d >= 1 and `agree`, int32[2 *
+// num_chunks] of scratch (the chunks' least states, then their greatest),
+// set here.
 extern "C" int state_maps(const void* table, const void* cls, int64_t num_chunks,
                           int64_t chunk_len, int64_t num_states, int num_classes, int depth,
                           void* agree, void* sigma, int device, void* stream) {
@@ -278,20 +332,5 @@ extern "C" int entry_fold(const void* sigma, int64_t num_chunks, int64_t num_sta
   fold_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int32_t*>(sigma), num_chunks, num_states, s0,
       static_cast<int32_t*>(entry));
-  return static_cast<int>(cudaGetLastError());
-}
-
-// out int32[num_chunks, chunk_len]: chunk c walked from entry[c], serially.
-extern "C" int rescan_serial(const void* table, const void* cls, const void* entry,
-                             int64_t num_chunks, int64_t chunk_len, int num_classes, void* out,
-                             int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_chunks < 1 || num_chunks > kMaxGrid || chunk_len < 1 || num_classes < 1)
-    return static_cast<int>(cudaErrorInvalidValue);
-  rescan_kernel<<<static_cast<unsigned>(num_chunks), kScanThreads, 0,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(table), static_cast<const int32_t*>(cls),
-      static_cast<const int32_t*>(entry), chunk_len, num_classes, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
 }

@@ -16,9 +16,11 @@ beside the library as ``<name>.log``.
 where it launches its kernel, and nowhere else.  A wrapper whose call makes
 more than one launch (the synchronized ``state_maps``: two kernels) still
 adds one a call, so that launches x time stays per call.  The sequential
-scan's speculate-and-repair kernels (``seq_states_spec``: a lane a chunk,
-then the repair warp) count under the wrapper that called them:
-``seq_states_serial`` or ``shortest_states``.
+scan's speculate-and-repair kernels (a lane a chunk, then the repair warps)
+count under the wrapper that called them: ``seq_states_serial`` or
+``shortest_states`` (``seq_states_spec``, one row), ``rescan_serial`` (one
+row a stitch chunk) and ``state_maps_all`` (the reference runs, then the
+meet kernel: three launches a call).
 
     python -m ahocorasick_tpu_torch.kernels.build
 """
@@ -141,17 +143,19 @@ ARGTYPES = {
     #  cross, die_pos, has, m_start, m_end, m_val, cont, device, stream)
     "wwl_sweep_all": [_P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
                       _P, _P, _P, _P, _P, _P, _I, _P],
-    # (table, cls, num_chunks, chunk_len, num_states, num_classes, sigma,
-    #  device, stream)
-    "state_maps_all": [_P, _P, _I64, _I64, _I64, _I, _P, _I, _P],
-    # the same with (depth, agree) before sigma
+    # (table, cls, num_chunks, chunk_len, num_states, num_classes, sub_len,
+    #  run scratch, sigma, meet or null, device, stream)
+    "state_maps_all": [_P, _P, _I64, _I64, _I64, _I, _I64, _P, _P, _P, _I, _P],
+    # (table, cls, num_chunks, chunk_len, num_states, num_classes, depth,
+    #  agree, sigma, device, stream)
     "state_maps": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P],
     # (sigma, num_chunks, num_states, s0, entry, device, stream)
     "entry_fold": [_P, _I64, _I64, _I, _P, _I, _P],
-    # (table, cls, entry, num_chunks, chunk_len, num_classes, out, device,
-    #  stream)
-    "rescan_serial": [_P, _P, _P, _I64, _I64, _I, _P, _I, _P],
-    # the same with (depth, lane_len) before out
+    # (table, cls, entry or null, num_chunks, chunk_len, num_classes, sub_len,
+    #  out, repair or null, device, stream)
+    "rescan_serial": [_P, _P, _P, _I64, _I64, _I, _I64, _P, _P, _I, _P],
+    # (table, cls, entry, num_chunks, chunk_len, num_classes, depth, lane_len,
+    #  out, device, stream)
     "rescan": [_P, _P, _P, _I64, _I64, _I, _I, _I, _P, _I, _P],
     # (shard pointers, owners (host int array), n_model, rows_per, stride,
     #  magic, add, shift, windows, window_bytes, num_windows, width, halo,

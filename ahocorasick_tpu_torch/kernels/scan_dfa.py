@@ -268,39 +268,63 @@ def _flat(table, row_id, cls):
 
 
 def spec_states_plain(table, row_id, cls, s0: int = 0, chunk_len=None):
-    """The twin of ``spec_states``, in the kernels' decomposition: pass 1 as
-    one batched indexing step per position over all C chunks (chunk 0 from
-    ``s0``, the others from the root; the last chunk padded with class 0 and
-    trimmed), then the repair loop over the chunks in order.  ``chunk_len``
-    None: ``spec_chunk_len(N)``."""
+    """The twin of ``spec_states``: ``spec_rows_plain`` with one row entered
+    in ``s0``.  ``chunk_len`` None: ``spec_chunk_len(N)``."""
     n = cls.shape[0]
     dev = cls.device
     if n == 0:
         return (torch.empty(0, dtype=torch.int32, device=dev),
                 torch.zeros(0, dtype=torch.int32, device=dev))
-    K = min(spec_chunk_len(n) if chunk_len is None else int(chunk_len), n)
-    C = -(-n // K)
+    K = spec_chunk_len(n) if chunk_len is None else int(chunk_len)
     flat, rid, c = _flat(table, row_id, cls)
-    A = table.shape[1]
-    body = torch.zeros(C * K, dtype=torch.int64, device=dev)
-    body[:n] = c
-    s = torch.zeros(C, dtype=torch.int64, device=dev)
-    s[0] = s0
-    states = walk_rows(flat, rid, A, s, body.reshape(C, K)).reshape(-1)[:n].tolist()
-    classes = c.tolist()
-    repair = [0] * C
-    for chunk in range(1, C):
-        base = chunk * K
-        s = states[base - 1]
-        if s == 0:  # entered at the root, as pass 1 walked it
-            continue
-        for i in range(base, min(base + K, n)):
-            s = int(flat[(s if rid is None else int(rid[s])) * A + classes[i]])
-            if s == states[i]:
-                break
-            states[i] = s
-            repair[chunk] += 1
-    return (torch.tensor(states, dtype=torch.int32, device=dev),
+    states, repair = spec_rows_plain(flat, rid, table.shape[1],
+                                     torch.tensor([s0], dtype=torch.int64, device=dev),
+                                     c.reshape(1, n), K)
+    return states[0].to(torch.int32), repair[0]
+
+
+def spec_rows_plain(flat, rid, A: int, entry: torch.Tensor, body: torch.Tensor, K: int):
+    """Speculate and repair by rows, in the kernels' decomposition:
+    ``(states int64[R, L], repair int32[R, P])`` of the rows of ``body
+    int64[R, L]``, row ``r`` entered in ``entry[r]`` (``int64[R]``), over the
+    flat ``int64`` table ``flat`` of row stride ``A`` (``rid`` None: dense,
+    else the state -> row map).  Each row is cut into P = ceil(L / K')
+    sub-chunks of K' = min(K, L) classes.  Pass 1 is one batched indexing
+    step per position over all R·P sub-chunks (sub-chunk 0 of a row from
+    its entry, the others from the root; a row's last one padded with class
+    0 and trimmed); then the repair loop over each row's sub-chunks in
+    order, which rewalks one whose true entry is not the root until it
+    meets the recorded states.  ``repair`` holds the positions each
+    rewrote."""
+    R, L = body.shape
+    dev = body.device
+    K = min(int(K), L)
+    P = -(-L // K) if L else 0
+    if R == 0 or L == 0:
+        return (torch.empty((R, L), dtype=torch.int64, device=dev),
+                torch.zeros((R, P), dtype=torch.int32, device=dev))
+    padded = torch.zeros((R, P * K), dtype=torch.int64, device=dev)
+    padded[:, :L] = body
+    s = torch.zeros((R, P), dtype=torch.int64, device=dev)
+    s[:, 0] = entry
+    states = walk_rows(flat, rid, A, s.reshape(-1), padded.reshape(R * P, K))
+    states = states.reshape(R, P * K)[:, :L].tolist()
+    classes = body.tolist()
+    repair = [[0] * P for _ in range(R)]
+    for r in range(R):
+        row, cls_r = states[r], classes[r]
+        for chunk in range(1, P):
+            base = chunk * K
+            s = row[base - 1]
+            if s == 0:  # entered at the root, as pass 1 walked it
+                continue
+            for i in range(base, min(base + K, L)):
+                s = int(flat[(s if rid is None else int(rid[s])) * A + cls_r[i]])
+                if s == row[i]:
+                    break
+                row[i] = s
+                repair[r][chunk] += 1
+    return (torch.tensor(states, dtype=torch.int64, device=dev),
             torch.tensor(repair, dtype=torch.int32, device=dev))
 
 

@@ -12,10 +12,22 @@ chunked classes:
 * ``rescan(table, cls, entry, sync_depth)`` returns ``states int32[C, K]``:
   chunk ``c`` walked from ``entry[c]``.
 
-``sync_depth=None`` runs the first designs (``csrc/stitch.cu``
-``state_maps_all``: S lanes of work per class; ``rescan_serial``: one serial
-walk a chunk), the only correct forms for a table that does not synchronize
-(the shortest matcher's restart table).  ``sync_depth=d`` (an int >= 1)
+``sync_depth=None`` runs the forms for any table, the only correct ones
+for a table that does not synchronize (the shortest matcher's restart
+table).  ``rescan`` is speculate and repair by rows (``csrc/seq_scan.cu``
+``rescan_serial``): each chunk cut into sub-chunks of
+``scan_dfa.spec_chunk_len(K)`` classes, the first walked from the chunk's
+entry state and every other from the root, one lane each, then each chunk's
+sub-chunks repaired in order, the chunks in parallel, a sub-chunk whose true
+entry is not the root rewalked until it meets the recorded states.
+``state_maps`` meets a reference run (``csrc/stitch.cu``
+``state_maps_all``): R, each chunk's run from the root, is that rescan with
+every entry the root; then each lane (chunk, s) walks from s until its state
+equals R at the same position, where it follows R, so ``sigma[c, s] = R[c,
+K - 1]``; a lane that never meets R walks to the chunk's end.  The cost is
+about that of the rescan plus the lanes' walks until they meet: within d + 1
+classes on a goto closure, a few classes past the next keyword end on the
+restart table, the whole chunk for a sink.  ``sync_depth=d`` (an int >= 1)
 declares the table d-synchronizing from every state reachable from the root
 (a goto closure, d = ``max(max_depth, 1)``; the entry state ``s0`` reachable
 or a zero-filled padding row) and runs the synchronized forms:
@@ -26,7 +38,9 @@ the whole chunk, so sigma is exact for any table; ``rescan`` is
 ``csrc/seq_scan.cu``'s lane scan with one row a chunk (lanes of
 ``scan_dfa.sync_lane_len(C * K, d)`` positions inside a chunk, lane 0 from
 the entry state, every other lane from the root warmed over the d classes
-before it).  Both forms give the same outputs.
+before it).  Both forms give the same outputs.  ``meet_maps`` and
+``spec_rescan`` return the forms for any table with their side outputs: each
+lane's meet position and each sub-chunk's repair length.
 
 Together they replace the JAX package's ``ops/stitch.py``
 (``chunk_state_maps``, ``entry_states``, ``stitched_states``) and the same
@@ -41,7 +55,8 @@ launches the kernel of its form for tensors on a CUDA device: there is no
 fallback from one to the other, nor from one form to the other.
 ``launches`` (``kernels/build.py``) counts wrapper calls that launched, one
 record per form: ``state_maps`` / ``state_maps_all``, ``entry_fold``,
-``rescan`` / ``rescan_serial``.
+``rescan`` / ``rescan_serial`` (names kept from the first designs:
+"serial" and "all" name the forms for tables that do not synchronize).
 """
 
 from __future__ import annotations
@@ -100,44 +115,73 @@ def _walk(flat: torch.Tensor, A: int, v: torch.Tensor, cols: torch.Tensor) -> to
 
 def state_maps(table: torch.Tensor, cls: torch.Tensor, sync_depth=None) -> torch.Tensor:
     """``sigma int32[C, S]`` of the chunks ``cls int32[C, K]``; ``sync_depth``
-    None for the first design, else the depth d >= 1 at which the table
-    synchronizes (the synchronized form)."""
+    None for any table (the lanes meet a reference run), else the depth d >=
+    1 at which the table synchronizes (the synchronized form)."""
     _check_table(table)
     _check("cls", cls, 2)
     sync_depth = _depth(sync_depth)
     dev = _one_device(table, cls)
     if dev.type == "cpu":
         return state_maps_plain(table, cls, sync_depth)
+    if sync_depth is None:
+        return _meet_launch(table, cls, None)
     C, K = cls.shape
     S, A = table.shape
     sigma = torch.empty((C, S), dtype=torch.int32, device=dev)
     if C == 0:
         return sigma
-    if sync_depth is None:
-        build.call("state_maps_all", table.data_ptr(), cls.data_ptr(), C, K, S, A,
-                   sigma.data_ptr(), dev.index, _stream(dev))
-        launches["state_maps_all"] += 1
-    else:
-        agree = torch.empty(2 * C, dtype=torch.int32, device=dev)  # set by the entry point
-        build.call("state_maps", table.data_ptr(), cls.data_ptr(), C, K, S, A, sync_depth,
-                   agree.data_ptr(), sigma.data_ptr(), dev.index, _stream(dev))
-        launches["state_maps"] += 1
+    agree = torch.empty(2 * C, dtype=torch.int32, device=dev)  # set by the entry point
+    build.call("state_maps", table.data_ptr(), cls.data_ptr(), C, K, S, A, sync_depth,
+               agree.data_ptr(), sigma.data_ptr(), dev.index, _stream(dev))
+    launches["state_maps"] += 1
+    return sigma
+
+
+def meet_maps(table: torch.Tensor, cls: torch.Tensor):
+    """``(sigma int32[C, S], meet int32[C, S])``: the maps for any table and
+    each lane's meet position, the first position i at which the lane's
+    state equals the chunk's run from the root (0 for the root's lane), K
+    where it never does.  The twin on the CPU; on the card the kernels,
+    counted as ``state_maps_all``."""
+    _check_table(table)
+    _check("cls", cls, 2)
+    dev = _one_device(table, cls)
+    if dev.type == "cpu":
+        return meet_maps_plain(table, cls)
+    meet = torch.empty((cls.shape[0], table.shape[0]), dtype=torch.int32, device=dev)
+    return _meet_launch(table, cls, meet), meet
+
+
+def _meet_launch(table, cls, meet) -> torch.Tensor:
+    """The maps for any table on the card; ``meet`` receives the meet
+    positions, or is None."""
+    dev = cls.device
+    C, K = cls.shape
+    S, A = table.shape
+    sigma = torch.empty((C, S), dtype=torch.int32, device=dev)
+    if C == 0:
+        return sigma
+    run = torch.empty((C, K), dtype=torch.int32, device=dev)  # the reference runs
+    build.call("state_maps_all", table.data_ptr(), cls.data_ptr(), C, K, S, A,
+               scan_dfa.spec_chunk_len(K), run.data_ptr(), sigma.data_ptr(),
+               None if meet is None else meet.data_ptr(), dev.index, _stream(dev))
+    launches["state_maps_all"] += 1
     return sigma
 
 
 def state_maps_plain(table: torch.Tensor, cls: torch.Tensor, sync_depth=None) -> torch.Tensor:
-    """The plain twin.  First design: a Python loop over the K columns, one
-    batched gather over the ``[C, S]`` lanes per column.  Synchronized: the
-    kernels' decomposition, phase 1 over the first ``min(K, d + 1)`` columns,
-    the agreement test per chunk, then the agreed state over the last (at
-    most d) columns, or every lane of a chunk that disagrees over all K."""
+    """The plain twin.  For any table: ``meet_maps_plain``.  Synchronized:
+    the kernels' decomposition, phase 1 over the first ``min(K, d + 1)``
+    columns, the agreement test per chunk, then the agreed state over the
+    last (at most d) columns, or every lane of a chunk that disagrees over
+    all K."""
+    if sync_depth is None:
+        return meet_maps_plain(table, cls)[0]
     C, K = cls.shape
     S, A = table.shape
     flat = table.reshape(-1).to(torch.int64)
     lanes = torch.arange(S, dtype=torch.int64, device=cls.device).repeat(C, 1)
     c = cls.to(torch.int64)
-    if sync_depth is None:
-        return _walk(flat, A, lanes, c).to(torch.int32)
     t = min(K, sync_depth + 1)
     v = _walk(flat, A, lanes, c[:, :t])
     lo, hi = v.min(dim=1).values, v.max(dim=1).values
@@ -150,6 +194,38 @@ def state_maps_plain(table: torch.Tensor, cls: torch.Tensor, sync_depth=None) ->
     if rows.numel():
         sigma[rows] = _walk(flat, A, lanes[rows], c[rows])
     return sigma.to(torch.int32)
+
+
+def meet_maps_plain(table: torch.Tensor, cls: torch.Tensor):
+    """The twin of ``meet_maps``, in the kernels' decomposition: R, each
+    chunk's run from the root, by ``scan_dfa.spec_rows_plain``; then every
+    lane but the root's stepped column by column, one batched gather over
+    the lanes still live, a lane leaving at its first equality with R."""
+    C, K = cls.shape
+    S, A = table.shape
+    dev = cls.device
+    v = torch.arange(S, dtype=torch.int64, device=dev).repeat(C, 1)
+    meet = torch.full((C, S), K, dtype=torch.int64, device=dev)
+    if C == 0 or K == 0:
+        return v.to(torch.int32), meet.to(torch.int32)
+    flat = table.reshape(-1).to(torch.int64)
+    c = cls.to(torch.int64)
+    run, _ = scan_dfa.spec_rows_plain(flat, None, A, torch.zeros(C, dtype=torch.int64,
+                                                                 device=dev),
+                                      c, scan_dfa.spec_chunk_len(K))
+    meet[:, 0] = 0  # the root's lane is R
+    live = v != 0
+    for i in range(K):
+        rows, cols = live.nonzero(as_tuple=True)
+        if rows.numel() == 0:
+            break
+        step = flat[v[rows, cols] * A + c[rows, i]]
+        v[rows, cols] = step
+        hit = step == run[rows, i]
+        meet[rows[hit], cols[hit]] = i
+        live[rows[hit], cols[hit]] = False
+    sigma = torch.where(meet < K, run[:, K - 1 :], v)
+    return sigma.to(torch.int32), meet.to(torch.int32)
 
 
 # ------------------------------------------------------------ entry fold (B15)
@@ -192,9 +268,9 @@ def entry_fold_plain(sigma: torch.Tensor, s0: int = 0) -> torch.Tensor:
 def rescan(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor,
            sync_depth=None) -> torch.Tensor:
     """``states int32[C, K]``: the arrival states of each chunk of ``cls``
-    walked from its ``entry`` state; ``sync_depth`` None for the serial walk
-    of each chunk, else the depth d >= 1 at which the table synchronizes
-    (the lane scan, one row a chunk)."""
+    walked from its ``entry`` state; ``sync_depth`` None for any table
+    (speculate and repair, one row a chunk), else the depth d >= 1 at which
+    the table synchronizes (the lane scan, one row a chunk)."""
     _check_table(table)
     _check("cls", cls, 2)
     _check("entry", entry, 1)
@@ -205,34 +281,67 @@ def rescan(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor,
     dev = _one_device(table, cls, entry)
     if dev.type == "cpu":
         return rescan_plain(table, cls, entry, sync_depth)
+    if sync_depth is None:
+        return _spec_rescan_launch(table, cls, entry, None)
     out = torch.empty((C, K), dtype=torch.int32, device=dev)
     if C == 0 or K == 0:
         return out
-    A = table.shape[1]
-    if sync_depth is None:
-        build.call("rescan_serial", table.data_ptr(), cls.data_ptr(), entry.data_ptr(), C, K, A,
-                   out.data_ptr(), dev.index, _stream(dev))
-        launches["rescan_serial"] += 1
-    else:
-        build.call("rescan", table.data_ptr(), cls.data_ptr(), entry.data_ptr(), C, K, A,
-                   sync_depth, scan_dfa.sync_lane_len(C * K, sync_depth), out.data_ptr(),
-                   dev.index, _stream(dev))
-        launches["rescan"] += 1
+    build.call("rescan", table.data_ptr(), cls.data_ptr(), entry.data_ptr(), C, K,
+               table.shape[1], sync_depth, scan_dfa.sync_lane_len(C * K, sync_depth),
+               out.data_ptr(), dev.index, _stream(dev))
+    launches["rescan"] += 1
+    return out
+
+
+def spec_rescan(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor):
+    """``(states int32[C, K], repair int32[C, P])``: the rescan for any table
+    and the repair length of each of a chunk's P sub-chunks of
+    ``scan_dfa.spec_chunk_len(K)`` classes (0 for the first and for one
+    entered at the root; its length where the walk never met the recorded
+    states).  The twin on the CPU; on the card the kernels, counted as
+    ``rescan_serial``."""
+    _check_table(table)
+    _check("cls", cls, 2)
+    _check("entry", entry, 1)
+    C, K = cls.shape
+    if entry.shape[0] != C:
+        raise ValueError(f"{entry.shape[0]} entry states for {C} chunks")
+    dev = _one_device(table, cls, entry)
+    if dev.type == "cpu":
+        return spec_rescan_plain(table, cls, entry)
+    P = -(-K // min(scan_dfa.spec_chunk_len(K), K)) if K else 0
+    repair = torch.zeros((C, P), dtype=torch.int32, device=dev)
+    return _spec_rescan_launch(table, cls, entry, repair), repair
+
+
+def _spec_rescan_launch(table, cls, entry, repair) -> torch.Tensor:
+    """The rescan for any table on the card; ``repair`` receives the repair
+    lengths, or is None."""
+    dev = cls.device
+    C, K = cls.shape
+    out = torch.empty((C, K), dtype=torch.int32, device=dev)
+    if C == 0 or K == 0:
+        return out
+    build.call("rescan_serial", table.data_ptr(), cls.data_ptr(), entry.data_ptr(), C, K,
+               table.shape[1], scan_dfa.spec_chunk_len(K), out.data_ptr(),
+               None if repair is None else repair.data_ptr(), dev.index, _stream(dev))
+    launches["rescan_serial"] += 1
     return out
 
 
 def rescan_plain(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor,
                  sync_depth=None) -> torch.Tensor:
-    """The plain twin.  Serial: a Python loop over the K columns, one gather
-    over the C chunks per column.  Synchronized: the kernel's
-    decomposition, every lane of every chunk stepped together, one batched
-    gather per warm-up class and per position of a lane."""
+    """The plain twin.  For any table: ``spec_rescan_plain``.  Synchronized:
+    the kernel's decomposition, every lane of every chunk stepped together,
+    one batched gather per warm-up class and per position of a lane."""
+    if sync_depth is None:
+        return spec_rescan_plain(table, cls, entry)[0]
     C, K = cls.shape
+    if C == 0 or K == 0:
+        return torch.empty((C, K), dtype=torch.int32, device=cls.device)
     A = table.shape[1]
     flat = table.reshape(-1).to(torch.int64)
     c = cls.to(torch.int64)
-    if sync_depth is None or C == 0 or K == 0:
-        return scan_dfa.walk_rows(flat, None, A, entry.to(torch.int64), c).to(torch.int32)
     L = scan_dfa.sync_lane_len(C * K, sync_depth)
     per = -(-K // L)
     body = torch.zeros((C, per * L), dtype=torch.int64, device=cls.device)
@@ -245,3 +354,13 @@ def rescan_plain(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor,
     # a chunk's last lane's steps past K read class 0 and are cut
     out = scan_dfa.walk_rows(flat, None, A, s.reshape(-1), body.reshape(C * per, L))
     return out.reshape(C, per * L)[:, :K].to(torch.int32)
+
+
+def spec_rescan_plain(table: torch.Tensor, cls: torch.Tensor, entry: torch.Tensor):
+    """The twin of ``spec_rescan``: ``scan_dfa.spec_rows_plain`` with one row
+    a chunk."""
+    K = cls.shape[1]
+    states, repair = scan_dfa.spec_rows_plain(
+        table.reshape(-1).to(torch.int64), None, table.shape[1], entry.to(torch.int64),
+        cls.to(torch.int64), scan_dfa.spec_chunk_len(K))
+    return states.to(torch.int32), repair

@@ -12,16 +12,21 @@ The JAX module composes whole maps with ``associative_scan`` to get the entry
 states in log depth; the contract is only the entry vector, which the port's
 ``entry_fold`` kernel walks as one serial chain (``kernels/stitch.py``).
 
-Cost.  ``sync_depth=None`` runs the first designs, which work for any total
-transition function over a dense ``int32[S, A]`` table, the shortest
-matcher's padded restart table included: the map pass does S lanes of work
-per character and the rescan walks each chunk serially, so they suit small
-automata or validation.  ``sync_depth=d`` declares the table d-synchronizing
-from every state reachable from the root (a goto closure, d =
-``max(max_depth, 1)``; ``s0`` reachable or a zero-filled padding row): the
-maps then cost S·(d + 1) + d lookups a chunk, since every lane agrees after
-d + 1 characters, and the rescan is the lane scan of ``seq_states`` with one
-row a chunk.  The outputs are the same either way.
+Cost.  ``sync_depth=None`` runs the forms for any total transition function
+over a dense ``int32[S, A]`` table, the shortest matcher's padded restart
+table included: the rescan is speculate and repair with one row a chunk
+(each chunk's sub-chunks walked in parallel, then repaired in order where
+their true entry differs), and the map pass walks each chunk's run from the
+root the same way and then each of the S lanes only until it meets that
+run, after which it leaves as the run does: on a goto closure within d + 1
+characters, on the restart table a few characters past the next match, the
+whole chunk only for a lane that never meets it (a sink).  ``sync_depth=d``
+declares the table d-synchronizing from every state reachable from the root
+(a goto closure, d = ``max(max_depth, 1)``; ``s0`` reachable or a
+zero-filled padding row): the maps then cost S·(d + 1) + d lookups a chunk,
+since every lane agrees after d + 1 characters, and the rescan is the lane
+scan of ``seq_states`` with one row a chunk.  The outputs are the same
+either way.
 """
 
 from __future__ import annotations

@@ -352,11 +352,12 @@ def sharded_arrival_states(table: torch.Tensor, cls: np.ndarray, mesh=None, *,
     rescans from it.  Exactly the stream-mode state-carry invariant
     (``AhoCorasickMap.java:208-275``) parallelized.  ``table`` is a dense
     total transition function ``int32[S(+pad), A]``.  ``sync_depth=None``
-    runs the stitch kernels' first designs, correct for any table (S lanes
-    of work per class, a serial rescan: small S); ``sync_depth=d`` declares
-    the table d-synchronizing from the root (a goto closure, d =
-    ``max(max_depth, 1)``) and runs their synchronized forms
-    (``kernels/stitch.py``), S·(d + 1) lookups a map and a lane scan a shard.
+    runs the stitch kernels' forms for any table (``kernels/stitch.py``): a
+    map is the shard's run from the root plus each lane's walk until it
+    meets that run, the rescan speculate and repair a shard; ``sync_depth=d``
+    declares the table d-synchronizing from the root (a goto closure, d =
+    ``max(max_depth, 1)``) and runs their synchronized forms, S·(d + 1)
+    lookups a map and a lane scan a shard.
     Returns int32[len(cls)] arrival states (s_1..s_N of the flat scan)."""
     sh = _Shards(mesh, group, table.device)
     n = len(cls)

@@ -82,9 +82,15 @@ port only, the dictionary and text generators included (``bench.headline``,
    1, 2, 7, d, d + 1, 64 and K >= N forced, N = 0, 1, K - 1, K, K + 1 and
    many chunks, entry states root, live and padding, dense and RowTable,
    uint8, uint16 and int32 classes, the periodic ``ab``/``ba`` text whose
-   every second chunk repairs to its end); the every-position sweep beside the sweep at
+   every second chunk repairs to its end); the stitch's forms for any table
+   at their edges (``check_meet_edges``: the maps meeting a reference run
+   and the rescan by speculate and repair by rows, meet positions and repair
+   lengths included, on restart tables, goto closures passed no depth, sink
+   padding rows and ``ab``/``ba`` over ``abab...``, K = 0, 1, 2, 6, 7, 8, 68
+   and 300, C = 1, 3 and 64, entry states root, live and padding); the
+   every-position sweep beside the sweep at
    starts on each of those whole-word-longest planes; the sigma maps, the
-   entry fold and the rescan, each map and rescan in its first design
+   entry fold and the rescan, each map and rescan in its form for any table
    (``state_maps_all``, ``rescan_serial``) and, on the goto closures, in its
    synchronized form (``state_maps``, ``rescan``: ``sync_depth`` = d, the two
    forms' maps equal), on the demo dictionary (1, 8 and 4,096 chunks, ragged
@@ -92,8 +98,8 @@ port only, the dictionary and text generators included (``bench.headline``,
    Ki units), at the synchronized forms' edges on both (d = 12 and 8: K = 1,
    d, d + 1, d + 2, L - 1, L, L + 1 and 5L + 3; 1, 3 and 64 chunks; entry
    states live and in a zero-filled padding row), on a copy of the 10k table
-   whose padding rows are sinks (the maps' continuation), and, first designs
-   only, on the 10k shortest restart table, and the stitched scan == the
+   whose padding rows are sinks (the maps' continuation), and, the forms for
+   any table only, on the 10k shortest restart table, and the stitched scan == the
    sequential scan on each; the row-sharded scan in all
    five modes on fuzz tables cut into 1, 3 and 8 shards (one with more shards
    than rows), the 10k table at 65,536 x 524 windows, a whole-word-longest
@@ -162,7 +168,10 @@ port only, the dictionary and text generators included (``bench.headline``,
    and the 10k table on 32 Mi units; the two references made outside the
    path's counts; the synchronized stitch kernels launched, not the first
    designs), ``stitched_scan`` of the 10k shortest restart table without
-   ``sync_depth`` (the first designs, not the synchronized ones),
+   ``sync_depth`` (the forms for any table, not the synchronized ones),
+   ``sharded_arrival_states`` without ``sync_depth`` == speculate and repair
+   on the demo dictionary, the 10k table and the 10k restart table (the forms
+   for any table),
    ``ShardedStream`` over the same uneven pieces and a resume in a
    fresh scanner, ``graft_entry.dryrun_multigpu(8)`` (the synchronized
    stitch) and ``entry()``; the
@@ -197,9 +206,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    and the early stop; the sharded facades and the sharded count's stages; the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
    and their stages; both forms of the maps and the rescan at C = 1, K = 32
-   Ki, S = 65,536 (each held to its twin there), and the stitched scan of
-   each form beside speculate and repair and the lane scan at the same length
-   (the synchronized forms also at 8 chunks of 4 Mi units of the 10k table); the fused WWL scan
+   Ki, S = 65,536 (each held to its twin there), the forms for any table on
+   the 10k restart table there, the meet positions (mean, largest, lanes
+   that never met) on the 10k closure, the restart table and the demo
+   dictionary, and the stitched scan of each form beside speculate and
+   repair and the lane scan at the same length (also at 8 chunks of 4 Mi
+   units of the 10k table, and on the restart table); the fused WWL scan
    against the plane and the sweep, the per-start walk beside them, at
    baseline-4 and the 10k cell (``probes.probe_wwl_fused``: card time with
    the calls queued ahead, and back to back), and the rule that sets
@@ -223,7 +235,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    RowTable; ``spec_ab``: the one-thread walks against speculate and repair
    at five chunk lengths, 64 Ki to 32 Mi units, on the 10k restart table
    in both forms, the 10k dense table and the wide RowTable, every run held
-   bit for bit against the one-thread walk), the row-sharded scan's (``tp_ab``: its first design against
+   bit for bit against the one-thread walk), the stitch's (``meet_ab``:
+   the first designs of the maps and the rescan for any table against the
+   forms that meet a reference run and repair by rows, and the synchronized
+   forms, at five C x K on the 10k restart table, the 10k closure and the
+   demo dictionary), the row-sharded scan's (``tp_ab``: its first design against
    the lane loops at K = 1, 2 and 4 in the count, planes and hotstate modes)
    and the die sweep's (``sweep_ab``: its first design against G = 1, 2, 4,
    8 and 16 loads a group, staged in shared memory and not, at the 10k
@@ -301,7 +317,9 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
     "wwl_sweep_all": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
                       "ahocorasick_tpu/ops/scan_wwl.py:1117"),
     # the stitch's maps and rescan in two forms each: synchronized
-    # (sync_depth = d) and the first design
+    # (sync_depth = d) and for any table (the maps meeting a reference run
+    # that seq_scan.cu's rows of speculate and repair walk; the rescan as
+    # those rows)
     "state_maps": ("ahocorasick_tpu_torch/csrc/stitch.cu",
                    "ahocorasick_tpu/ops/stitch.py:33"),
     "state_maps_all": ("ahocorasick_tpu_torch/csrc/stitch.cu",
@@ -310,7 +328,7 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                    "ahocorasick_tpu/ops/stitch.py:48"),
     "rescan": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                "ahocorasick_tpu/ops/stitch.py:68"),
-    "rescan_serial": ("ahocorasick_tpu_torch/csrc/stitch.cu",
+    "rescan_serial": ("ahocorasick_tpu_torch/csrc/seq_scan.cu",
                       "ahocorasick_tpu/ops/stitch.py:68"),
     "table_sharded_scan": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
                            "ahocorasick_tpu/parallel/sharding.py:321"),
@@ -1044,6 +1062,133 @@ def check_spec_edges(dev, errs):
             if e_seq or e_short:
                 raise AssertionError(f"speculate and repair, {label}: a kernel disagrees with "
                                      f"its twin")
+    finally:
+        scan_dfa.SPEC_CHUNK_LEN = rule
+    return cases
+
+
+def check_meet_edges(dev, errs):
+    """The stitch's forms for any table against their twins (run on CPU
+    copies), bit for bit, side outputs included: ``state_maps_all`` (the
+    reference runs by speculate and repair by rows, then the meet kernel;
+    ``stitch.meet_maps``: sigma and each lane's meet position, and the
+    ``state_maps`` wrapper) and ``rescan_serial`` (``stitch.spec_rescan``:
+    states and each sub-chunk's repair length, and the ``rescan`` wrapper);
+    the stitched scan == the sequential scan.  On the shortest restart
+    tables of ``aa``/``aaa`` and of a fuzz dictionary, goto closures of depth
+    6 and 39 passed with no depth (each lane must meet within d classes and
+    each repair be at most d long), a copy of the first whose padding rows
+    are sinks, and ``ab``/``ba`` over ``abab...`` (the lane of ``b`` never
+    meets in a chunk that starts on an ``a``); every table padded with
+    zero-filled rows; K = 0, 1, 2, 6, 7, 8 and 68 with sub-chunks of 7
+    forced, and K = 300 under the rule; C = 1, 3 and 64; entry states the
+    root, a live state and a padding row, and a vector cycling through them.
+    Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.core import stream
+    from ahocorasick_tpu_torch.core.compiler import compile_matcher
+    from ahocorasick_tpu_torch.kernels import scan_dfa
+    from ahocorasick_tpu_torch.kernels import stitch as kstitch
+    from ahocorasick_tpu_torch.ops import stitch
+
+    rng = np.random.default_rng(SEED + 19)
+    fuzz = fuzz_keywords(rng, "abcd", 40, 6)
+    deep = ["a" * i for i in range(1, 40)] + ["the", "abc", "ba", "tat"]
+
+    def padded(t, sinks=False):
+        t = np.vstack([t, np.zeros((3, t.shape[1]), dtype=t.dtype)]).astype(np.int32)
+        if sinks:
+            t[-3:] = np.arange(t.shape[0] - 3, t.shape[0], dtype=np.int32)[:, None]
+        return t
+
+    tables = {}
+    for label, kws, kind, text in (
+            ("restart aa/aaa", ["aa", "aaa"], "shortest",
+             "".join(rng.choice(list("ab"), size=20_000, p=[.8, .2]))),
+            ("restart fuzz a-j", [w for w in fuzz_keywords(rng, "abcdefghij", 80, 6)
+                                  if len(w) > 2], "shortest",
+             "".join(rng.choice(list("abcdefghij "), size=20_000))),
+            ("goto fuzz abcd", fuzz, "ac", "".join(rng.choice(list("abcd"), size=20_000))),
+            ("goto deep", deep, "ac", "".join(rng.choice(list("aaaaaaaaabt"), size=20_000))),
+            ("goto fuzz abcd, sink padding", fuzz, "ac", "".join(rng.choice(list("abcd"),
+                                                                           size=20_000))),
+            ("restart ab/ba", ["ab", "ba"], "shortest", "ab" * 10_000)):
+        m = compile_matcher(kws, kind, True)
+        units = np.frombuffer(text.encode("utf-16-le"), dtype=np.uint16)
+        t = stream._ShortestCursor._restart_table(m) if kind == "shortest" else m.dfa_next
+        live = int(np.argmax(m.depth[: m.num_states]))
+        d = max(m.max_depth, 1) if kind == "ac" and "sink" not in label else None
+        tables[label] = (padded(t, "sink" in label), m.charmap[units].astype(np.int32),
+                         (0, live, m.num_states), d, m)
+    to64 = lambda t: t.to(torch.int64)
+
+    def diff(got, want):
+        if got.shape != want.shape:
+            return 1
+        return int((to64(got.cpu()) - to64(want.cpu())).abs().max()) if got.numel() else 0
+
+    rule, cases = scan_dfa.SPEC_CHUNK_LEN, 0
+    try:
+        for label, (table, cls, entries, d, m) in tables.items():
+            tab, tab_cpu = torch.from_numpy(table).to(dev), torch.from_numpy(table)
+            e_maps = e_rescan = 0
+            worst_meet = worst_repair = 0
+            all_meet, never = [], 0
+            for K in (0, 1, 2, 6, 7, 8, 68, 300):
+                scan_dfa.SPEC_CHUNK_LEN = None if K == 300 else 7
+                for C in (1, 3, 64):
+                    c_cpu = torch.from_numpy(np.ascontiguousarray(cls[: C * K].reshape(C, K)))
+                    c = c_cpu.to(dev)
+                    sigma, meet = kstitch.meet_maps(tab, c)
+                    wrapped = kstitch.state_maps(tab, c)
+                    sigma_w, meet_w = kstitch.meet_maps_plain(tab_cpu, c_cpu)
+                    mixed = torch.tensor(np.resize(np.asarray(entries), C), dtype=torch.int32)
+                    states, repair = kstitch.spec_rescan(tab, c, mixed.to(dev))
+                    states_w, repair_w = kstitch.spec_rescan_plain(tab_cpu, c_cpu, mixed)
+                    torch.cuda.synchronize()
+                    e_maps = max(e_maps, diff(sigma, sigma_w), diff(meet, meet_w),
+                                 diff(wrapped, sigma_w))
+                    e_rescan = max(e_rescan, diff(states, states_w), diff(repair, repair_w))
+                    for s0 in entries:
+                        entry = kstitch.entry_fold(sigma, s0)
+                        got = kstitch.rescan(tab, c, entry)
+                        whole = stitch.stitched_scan(tab, c, s0)
+                        seq = scan_dfa.seq_states(tab, None, c.reshape(-1), s0)
+                        want = kstitch.rescan_plain(tab_cpu, c_cpu, entry.cpu())
+                        torch.cuda.synchronize()
+                        e_rescan = max(e_rescan, diff(got, want), diff(whole.reshape(-1), seq),
+                                       diff(whole, want))
+                        cases += 1
+                    if K:
+                        all_meet.append(meet.reshape(-1).cpu())
+                        never += int((meet == K).sum())
+                        worst_meet = max(worst_meet, int(meet.max()))
+                        worst_repair = max(worst_repair, int(repair.max()))
+                        if d is not None and (int(meet.max()) > min(d, K)
+                                              or int(repair.max()) > d):
+                            e_maps = max(e_maps, 1)
+                            print(f"  meet edges {label} K={K} C={C}: a lane met past d = {d} "
+                                  f"or a repair ran past it")
+                    if label.startswith("restart ab/ba") and K:
+                        a, b = (int(table[0, m.charmap[ord(ch)]]) for ch in "ab")
+                        starts = K * np.arange(C)
+                        apart = torch.from_numpy(np.where(starts % 2 == 0, b, a))
+                        if not bool((meet.cpu()[torch.arange(C), apart] == K).all()):
+                            e_maps = max(e_maps, 1)
+                            print(f"  meet edges {label} K={K}: a lane of the other phase met")
+            scan_dfa.SPEC_CHUNK_LEN = rule
+            errs["state_maps_all"] = max(errs["state_maps_all"], e_maps)
+            errs["rescan_serial"] = max(errs["rescan_serial"], e_rescan)
+            flat_meet = torch.cat(all_meet).to(torch.float64)
+            print(f"  meet edges {label}: table {table.shape}, d={d}, K in 0, 1, 2, 6, 7, 8, 68 "
+                  f"(sub-chunks of 7) and 300 (the rule), C in 1, 3, 64; meet positions: mean "
+                  f"{float(flat_meet.mean())}, largest {worst_meet}, {never} of "
+                  f"{flat_meet.numel()} lanes never met; largest repair {worst_repair}; "
+                  f"max_abs_err state_maps_all {e_maps}, rescan_serial {e_rescan}")
+            if e_maps or e_rescan:
+                raise AssertionError(f"stitch for any table, {label}: a kernel disagrees with "
+                                     f"its twin, or the stitched scan with the sequential one")
     finally:
         scan_dfa.SPEC_CHUNK_LEN = rule
     return cases
@@ -1813,20 +1958,23 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"  spec edges: {check_spec_edges(dev, errs)} cases, each == its twin "
           f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    print(f"  meet edges: {check_meet_edges(dev, errs)} cases, each == its twin "
+          f"({time.perf_counter() - t0:.2f} s)")
 
     # Chunk stitching: sigma maps, entry fold and rescan against their twins,
-    # each map and rescan in its first design and, on a table declared
+    # each map and rescan in its form for any table and, on a table declared
     # d-synchronizing (``d``), in its synchronized form too, and the stitched
     # scan of each form against the one sequential scan.
-    def check_stitch(label, table, cls_np, chunks, s0, d=None, K=None, first=True):
-        """``first`` False: the synchronized forms only."""
+    def check_stitch(label, table, cls_np, chunks, s0, d=None, K=None, general=True):
+        """``general`` False: the synchronized forms only."""
         K = len(cls_np) // chunks if K is None else K
         flat = torch.from_numpy(np.ascontiguousarray(cls_np[: chunks * K], dtype=np.int32)).to(dev)
         c = flat.reshape(chunks, K)
         seq = scan_dfa.seq_states(table, None, flat, s0)
         e = {}
         sigma_all = None
-        forms = (((None, "state_maps_all", "rescan_serial"),) if first else ()) + (
+        forms = (((None, "state_maps_all", "rescan_serial"),) if general else ()) + (
             ((d, "state_maps", "rescan"),) if d is not None else ())
         for depth, maps_k, rescan_k in forms:
             sigma = kstitch.state_maps(table, c, depth)
@@ -1882,7 +2030,7 @@ def main() -> int:
             for K in sorted({1, d, d + 1, d + 2, L - 1, L, L + 1, 5 * L + 3}):
                 for s0 in entries:
                     check_stitch(f"{label}, edge", table, tcls[7: 7 + chunks * K], chunks, s0, d,
-                                 K, first=False)
+                                 K, general=False)
     # Padding rows that are sinks (each maps to itself): phase 1 does not
     # converge and the continuation runs; no sink is reachable from the root,
     # so the declaration still holds.
@@ -1893,7 +2041,7 @@ def main() -> int:
     for chunks, K in ((1, d_seq + 1), (3, 1024), (64, 5 * L_seq + 3)):
         for s0 in (0, s_mid_10k):
             check_stitch("10k table, sink padding", sink_tab, cls[11: 11 + chunks * K], chunks,
-                         s0, d_seq, K, first=False)
+                         s0, d_seq, K, general=False)
     if restart_tab[1] is not None:
         raise AssertionError("the 10k shortest restart table is not dense")
     check_stitch("10k shortest restart table", restart_tab[0], short_cls, 64, 0)
@@ -2736,7 +2884,7 @@ def main() -> int:
              absent=("seq_states", "seq_states_serial", "state_maps_all", "rescan_serial"))
 
     # ... and the shortest restart table, which does not synchronize, takes
-    # the first designs.
+    # the forms for any table, as does a caller that declares no depth.
     restart_flat = int32_classes(short_cls)
     restart_want = scan_dfa.seq_states(restart_tab[0], None, restart_flat, 0)
 
@@ -2749,6 +2897,24 @@ def main() -> int:
 
     run_path("stitched_scan restart table", ("state_maps_all", "entry_fold", "rescan_serial"),
              restart_stitch_path, absent=("state_maps", "rescan"))
+
+    def arrival_any_path():
+        out = []
+        for label, table, c, want, _ in (
+                *arrival_cases, ("10k shortest restart table", restart_tab[0], short_cls,
+                                 restart_want.cpu().numpy(), None)):
+            got = timed(f"sharded_arrival_states, {label}, {len(c)} units, no sync_depth",
+                        lambda: sharding.sharded_arrival_states(table, c, mesh))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"sharded arrival states without a depth != "
+                                     f"seq_states_serial ({label})")
+            out.append(f"{label}, table {tuple(table.shape)}, {len(c)} units: == "
+                       f"seq_states_serial")
+        return "; ".join(out)
+
+    run_path("sharded_arrival_states, no sync_depth",
+             ("state_maps_all", "entry_fold", "rescan_serial"), arrival_any_path,
+             absent=("seq_states", "seq_states_serial", "state_maps", "rescan"))
 
     def sharded_stream_path():
         def feed_arrays(st, pieces, start):
@@ -3330,23 +3496,22 @@ def main() -> int:
             raise AssertionError(f"{k}: the timed call disagrees with its twin")
 
     # Both forms of the maps and the rescan at the arrival path's per-shard
-    # shape (C = 1), where the first designs have always been timed.
+    # shape (C = 1), where the first designs were timed.
     for k, depth in (("state_maps", d_seq), ("state_maps_all", None)):
         timed_twin(k, lambda: kstitch.state_maps(tab10, c10[0], depth),
-                   lambda: kstitch.state_maps_plain(tab10, c10[0], depth), 20 if depth else 5)
+                   lambda: kstitch.state_maps_plain(tab10, c10[0], depth), 20)
     timed_twin("entry_fold", lambda: kstitch.entry_fold(sigma8, 0),
                lambda: kstitch.entry_fold_plain(sigma8, 0), 20)
     for k, depth in (("rescan", d_seq), ("rescan_serial", None)):
         timed_twin(k, lambda: kstitch.rescan(tab10, c10[1], entry8[1:2], depth),
-                   lambda: kstitch.rescan_plain(tab10, c10[1], entry8[1:2], depth),
-                   20 if depth else 5)
+                   lambda: kstitch.rescan_plain(tab10, c10[1], entry8[1:2], depth), 20)
     # The card's time alone beside ms[k], which is through the wrapper.
     stitch_card = {
         "state_maps": cuda_ms(lambda: kstitch.state_maps(tab10, c10[0], d_seq), 20, True),
-        "state_maps_all": cuda_ms(lambda: kstitch.state_maps(tab10, c10[0]), 5, True),
+        "state_maps_all": cuda_ms(lambda: kstitch.state_maps(tab10, c10[0]), 20, True),
         "entry_fold": cuda_ms(lambda: kstitch.entry_fold(sigma8, 0), 20, True),
         "rescan": cuda_ms(lambda: kstitch.rescan(tab10, c10[1], entry8[1:2], d_seq), 20, True),
-        "rescan_serial": cuda_ms(lambda: kstitch.rescan(tab10, c10[1], entry8[1:2]), 5, True)}
+        "rescan_serial": cuda_ms(lambda: kstitch.rescan(tab10, c10[1], entry8[1:2]), 20, True)}
     for k, shape in (("state_maps", f"C=1 K={K10} S={tab10.shape[0]} d={d_seq}"),
                      ("state_maps_all", f"C=1 K={K10} S={tab10.shape[0]}"),
                      ("entry_fold", f"sigma {tuple(sigma8.shape)}"),
@@ -3354,45 +3519,75 @@ def main() -> int:
         print(f"time {k}, 10k dense table {tuple(tab10.shape)}, {shape}: kernel {ms[k][0]} ms "
               f"(card time, the calls queued: {stitch_card[k]} ms), plain twin {ms[k][1]} ms "
               f"[{smi}]")
+    # The forms for any table on the 10k restart table at the same shape, and
+    # each table's meet positions there, held to the twin.
+    restart_c = int32_classes(short_cls[:K10]).reshape(1, K10)
+    restart_entry = torch.zeros(1, dtype=torch.int32, device=dev)
+    print(f"time state_maps_all / rescan_serial, 10k shortest restart table "
+          f"{tuple(restart_tab[0].shape)}, C=1 K={K10}: "
+          f"{cuda_ms(lambda: kstitch.state_maps(restart_tab[0], restart_c), 20)} / "
+          f"{cuda_ms(lambda: kstitch.rescan(restart_tab[0], restart_c, restart_entry), 20)} ms "
+          f"[{smi}]")
+    meet_line = {}
+    meet_lookups = None
+    for label, table, c in (
+            ("10k closure", tab10, c10[0]), ("10k shortest restart table", restart_tab[0],
+                                             restart_c),
+            ("demo dictionary", demo_tab,
+             int32_classes(demo32[: N_SHARDS * K10]).reshape(N_SHARDS, K10))):
+        sig, meet = kstitch.meet_maps(table, c)
+        e = max_err((sig, meet), kstitch.meet_maps_plain(table, c))
+        errs["state_maps_all"] = max(errs["state_maps_all"], e)
+        if e:
+            raise AssertionError(f"meet positions, {label}: the kernel disagrees with its twin")
+        mm = meet.to(torch.int64)
+        if meet_lookups is None:  # the timed call's: R, then each lane until it met
+            meet_lookups = c.shape[1] + int(torch.clamp(mm[:, 1:] + 1, max=c.shape[1]).sum())
+        meet_line[label] = {"C": c.shape[0], "K": c.shape[1], "S": table.shape[0],
+                            "mean": float(mm.double().mean()), "largest": int(mm.max()),
+                            "never_met": int((mm == c.shape[1]).sum()), "lanes": mm.numel()}
+    print(f"meet positions (state_maps_all: the first position at which a lane's state equals "
+          f"its chunk's run from the root, K where it never does): {json.dumps(meet_line)} "
+          f"[{smi}]")
 
     # The stitched scan beside the one sequential scan at the same N: a small
-    # automaton (the demo dictionary) on 32 Mi units, and the 10k table; the
-    # synchronized forms at every shape, the first designs (``first``) at
-    # the shapes they have always been timed at, the serial walk at those N.
+    # automaton (the demo dictionary) on 32 Mi units, the 10k table and the
+    # 10k restart table (which does not synchronize); the synchronized forms
+    # where a depth is declared and the forms for any table at every shape.
     demo_flat = int32_classes(demo32)
     for label, table, flat, d, shapes in (
             ("demo dictionary", demo_tab, demo_flat, d_demo,
-             ((N_SHARDS, TEXT_UNITS // N_SHARDS, True), (4096, TEXT_UNITS // 4096, True))),
+             ((N_SHARDS, TEXT_UNITS // N_SHARDS), (4096, TEXT_UNITS // 4096))),
             ("10k dictionary", tab10, int32_classes(cls[:ARRIVAL_UNITS_10K]), d_seq,
-             ((N_SHARDS, K10, True), (64, ARRIVAL_UNITS_10K // 64, True),
-              (1024, ARRIVAL_UNITS_10K // 1024, True))),
+             ((N_SHARDS, K10), (64, ARRIVAL_UNITS_10K // 64),
+              (1024, ARRIVAL_UNITS_10K // 1024))),
             ("10k dictionary", tab10, int32_classes(cls[:TEXT_UNITS]), d_seq,
-             ((N_SHARDS, TEXT_UNITS // N_SHARDS, False),))):
-        first_any = any(f for _, _, f in shapes)
-        t_seq = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0), 1) if first_any else None
-        t_lane = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0, d), 5)
+             ((N_SHARDS, TEXT_UNITS // N_SHARDS),)),
+            ("10k shortest restart table", restart_tab[0], restart_flat, None,
+             ((N_SHARDS, restart_flat.shape[0] // N_SHARDS),))):
+        t_seq = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0), 3)
+        t_lane = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0, d), 5) if d else None
         ref = scan_dfa.seq_states(table, None, flat, 0, d)
-        for chunks, K, first in shapes:
+        for chunks, K in shapes:
             c = flat.reshape(chunks, K)
-            for depth in (d, None) if first else (d,):
+            for depth in (d, None) if d else (None,):
                 sig = kstitch.state_maps(table, c, depth)
                 ent = kstitch.entry_fold(sig, 0)
                 whole = stitch.stitched_scan(table, c, 0, depth)
                 if not torch.equal(whole.reshape(-1), ref):
                     raise AssertionError(f"stitched_scan {label} C={chunks} sync_depth={depth} "
                                          f"!= the sequential scan")
-                reps = 1 if chunks == N_SHARDS and depth is None else 3
-                parts = (cuda_ms(lambda: kstitch.state_maps(table, c, depth), reps),
-                         cuda_ms(lambda: kstitch.entry_fold(sig, 0), reps),
-                         cuda_ms(lambda: kstitch.rescan(table, c, ent, depth), reps))
-                t_all = cuda_ms(lambda: stitch.stitched_scan(table, c, 0, depth), reps)
+                parts = (cuda_ms(lambda: kstitch.state_maps(table, c, depth), 3),
+                         cuda_ms(lambda: kstitch.entry_fold(sig, 0), 3),
+                         cuda_ms(lambda: kstitch.rescan(table, c, ent, depth), 3))
+                t_all = cuda_ms(lambda: stitch.stitched_scan(table, c, 0, depth), 3)
                 names = ("state_maps", "rescan") if depth else ("state_maps_all", "rescan_serial")
                 print(f"time stitched_scan, {label}, table {tuple(table.shape)}, "
                       f"N={flat.shape[0]} C={chunks} K={K} sync_depth={depth}: {t_all} ms "
                       f"({names[0]} {parts[0]}, entry_fold {parts[1]}, {names[1]} {parts[2]}) "
-                      f"against seq_states_serial {t_seq} ms"
-                      + (f" = {t_seq / t_all} x" if t_seq else " (not timed at this N)")
-                      + f", seq_states (lane scan, d = {d}) {t_lane} ms [{smi}]")
+                      f"against seq_states_serial {t_seq} ms = {t_seq / t_all} x"
+                      + (f", seq_states (lane scan, d = {d}) {t_lane} ms" if d else "")
+                      + f" [{smi}]")
 
     # The huge-dictionary kernels on the 1M dictionary, BASELINE #5's text.
     flat1m, sb1m, halo1m = ac1m.dev.count_packed_dfa
@@ -3469,6 +3664,14 @@ def main() -> int:
         "10k dense": (*dense_tab, q32, None),
         "wide RowTable": (*wide_tab, q_wide32, None)}, variants_lib)
     print(f"ab spec {json.dumps({'card': smi, **ab})}")
+    # The stitch's forms for any table against its first designs (and the
+    # synchronized forms on the goto closures), each launch held bit for bit
+    # against the first design.
+    ab = scan_variants.meet_ab({
+        "10k restart table": (restart_tab[0], q_short32, None),
+        "10k closure": (dense_tab[0], q32, d_seq),
+        "demo dictionary": (demo_tab, demo_flat, d_demo)}, variants_lib)
+    print(f"ab meet {json.dumps({'card': smi, **ab})}")
     ab = scan_variants.tp_ab((st10k, w_full, pd.halo, pd.state_bits), variants_lib)
     print(f"ab table_sharded {json.dumps({'card': smi, **ab})}")
     ab = scan_variants.sweep_ab({
@@ -4058,8 +4261,10 @@ def main() -> int:
         # most d of the tail in, sigma out; S * t lookups and a d-long tail
         "state_maps": (4 * (min(K10, d_seq + 1) + d_seq) + 4 * tab10.shape[0],
                        tab10.shape[0] * min(K10, d_seq + 1) + d_seq),
-        # the first design, S lanes of work per class: C * K * S lookups
-        "state_maps_all": (nbytes(c10[0]) + 4 * tab10.shape[0], K10 * tab10.shape[0]),
+        # classes in, sigma out; the lookups this run's data needs: the
+        # reference run, then each lane until it met it (the first design's
+        # yardstick, C * K * S lookups, printed below)
+        "state_maps_all": (nbytes(c10[0]) + 4 * tab10.shape[0], meet_lookups),
         # a chain of C dependent loads: latency, not bytes
         "entry_fold": (8 * sigma8.shape[0], sigma8.shape[0]),
         # classes and the entry state in, states out; a lookup and an index a unit
@@ -4089,6 +4294,11 @@ def main() -> int:
         "pfac1_planes": (nbytes(cp10) + 4 * P10 * n10, 2 * steps1),
     }
     sweep_words = nbytes(st10, kwwl.wwl_sweep_at(*sargs, **skw)) + 4 * len(lanes10)
+    first_maps = K10 * tab10.shape[0] / PEAK_OPS_PER_S * 1e3
+    print(f"bound state_maps_all, the first design's C*K*S lookups (the yardstick before the "
+          f"meet): {K10 * tab10.shape[0]} operations / {PEAK_OPS_PER_S / 1e12} T/s = "
+          f"{first_maps} ms; kernel {ms['state_maps_all'][0]} ms = "
+          f"{ms['state_maps_all'][0] / first_maps} x [{smi}]")
     print(f"bound wwl_sweep_at, one plane word a live lane (the yardstick before the "
           f"touched sectors): {sweep_words} B / 3.35 TB/s = "
           f"{sweep_words / PEAK_BYTES_PER_S * 1e3} ms [{smi}]")

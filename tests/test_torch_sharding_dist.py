@@ -1,8 +1,8 @@
 """The port's sharded scan functions under a ``torch.distributed`` process group
 (gloo, one rank per process, CPU tensors) vs their device-list form on the
 same inputs: counts, planes, whole-word-longest walks on both branches,
-arrival states (the stitch's first designs, and its synchronized forms with
-``sync_depth``), the table-sharded scan (one rank per row shard, an
+arrival states (the stitch's forms for any table, and its synchronized
+forms with ``sync_depth``), the table-sharded scan (one rank per row shard, an
 ``all_reduce`` per character) and the launch glue's per-process shards.  One
 spawn per world size runs every case; each rank writes
 what it got to a file and the parent compares.  Everything compared is an

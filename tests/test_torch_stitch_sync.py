@@ -9,9 +9,9 @@ padded with zero-filled rows and a zero-filled column, as the matchers pad
 d + 1 (where every lane of a map agrees) and around the lane boundaries of
 the rescan; entry states are the root, a live state and a padding row.  A
 copy whose padding rows are sinks (each maps to itself) keeps phase 1 from
-agreeing, so the maps' continuation runs.  The first designs stay the form
-for the shortest restart table, and a spy shows which form each caller
-takes.  Everything compared is an integer: exact equality.
+agreeing, so the maps' continuation runs.  The forms for any table (no
+``sync_depth``) stay the form for the shortest restart table, and a spy shows
+which form each caller takes.  Everything compared is an integer: exact equality.
 """
 
 import functools
@@ -97,7 +97,7 @@ def _check_against_jax(table, cls, d, s0s):
                                       want_states)
         got_scan = port_stitch.stitched_scan(pt, pc, s0, d)
         np.testing.assert_array_equal(got_scan.numpy(), want_states)
-        # ... the first designs agree, and so does the one sequential scan.
+        # ... the forms for any table agree, and so does the one sequential scan.
         np.testing.assert_array_equal(port_stitch.stitched_scan(pt, pc, s0).numpy(),
                                       want_states)
         flat = port_scan_dfa.seq_states(pt, None, pc.reshape(-1), s0)
