@@ -1,10 +1,10 @@
 // Designs of the count kernel, the hotstate plane, the count-packed count,
 // the split emit planes and count, the stride-2 count and planes, the
-// row-sharded scan and the whole-word-longest die sweep that the package does
-// not use, kept so that
+// row-sharded scan, the whole-word-longest die sweep and the PFAC v2 walk
+// that the package does not use, kept so that
 // python -m ahocorasick_tpu_torch.bench.scan_variants can time them beside
 // the package's kernels (csrc/packed_scan.cu, huge_scan.cu, rowdfa2_scan.cu,
-// table_sharded.cu, wwl_scan.cu) on the card.
+// table_sharded.cu, wwl_scan.cu, pfac_scan.cu) on the card.
 //
 // Each computes exactly the package's function (the same table contract; see
 // the source notes of those files) and differs in how a lane reads its
@@ -69,11 +69,23 @@
 //     state) lane walking its whole chunk, the classes staged in shared
 //     memory, and each chunk's rescan walked by thread 0 of a block while
 //     the others stage tiles.
+//   * pfac_first: the PFAC v2 walk (csrc/pfac_scan.cu pfac2_planes and
+//     pfac2_count) in its first design, one thread a start over a grid of
+//     256-thread blocks, its classes and the prefix table read from global
+//     memory, the count one 64-bit atomic add a block; and that count with
+//     each block's sum stored to its own slot instead of the atomic.
+//   * pfac_tiles: the v2 walk over tiles of starts with block barriers
+//     (persistent blocks, each tile's classes and planes staged in shared
+//     memory), with refills from the tile's shared counter, or one or two
+//     walks a thread without; each tile waits for its longest walk.
+//   * pfac_queue: csrc/pfac_walk.cuh's walk at other block and prefix-pass
+//     widths than the package's (uint8 classes).
 
 #include <cstdint>
 
 #include <cuda_runtime.h>
 
+#include "../csrc/pfac_walk.cuh"
 #include "../csrc/sweep.cuh"
 #include "../csrc/tile.cuh"
 
@@ -1186,4 +1198,550 @@ extern "C" int rescan_first(const void* table, const void* cls, const void* entr
       static_cast<const int32_t*>(table), static_cast<const int32_t*>(cls),
       static_cast<const int32_t*>(entry), chunk_len, num_classes, static_cast<int32_t*>(out));
   return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+constexpr int kPfacFirstThreads = 256;
+constexpr uint32_t kPfacStateMask = (1u << 28) - 1u;
+
+enum PfacFirstMode { kFirstPlanes = 0, kFirstCount = 1, kFirstCountSlots = 2 };
+
+// The v2 walk's first design: thread i walks start i to its end; the warp
+// runs as long as its longest walk.
+template <typename C, int kMode>
+__global__ void __launch_bounds__(kPfacFirstThreads)
+    pfac_first_kernel(const uint32_t* __restrict__ trie, int stride,
+                      const uint32_t* __restrict__ prefix, uint32_t threshold, uint32_t dead,
+                      const C* __restrict__ cls, int64_t n, int depth, int k,
+                      uint32_t num_classes, int num_planes, uint32_t* __restrict__ planes,
+                      unsigned long long* __restrict__ count) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kPfacFirstThreads + threadIdx.x;
+  uint32_t pop = 0;
+  if (i < n) {
+    const C* c = cls + i;
+    uint32_t word = 0;
+    uint32_t gram = c[0];
+    for (int j = 1; j < k; ++j) gram = gram * num_classes + c[j];
+    const uint32_t packed = __ldg(prefix + gram);
+    uint32_t st = packed & kPfacStateMask;
+    const uint32_t hist = packed >> 28;
+    for (int d = 1; d <= k; ++d) word |= ((hist >> (k - d)) & 1u) << (d - 1);
+    int plane = 0;
+    for (int kk = k; kk < depth && st != dead; ++kk) {
+      if ((kk >> 5) != plane) {
+        if (kMode == kFirstPlanes) {
+          planes[static_cast<int64_t>(plane) * n + i] = word;
+        } else {
+          pop += __popc(word);
+        }
+        word = 0;
+        plane = kk >> 5;
+      }
+      st = __ldg(trie + static_cast<uint64_t>(st) * stride + static_cast<uint32_t>(c[kk]));
+      word |= static_cast<uint32_t>(st >= threshold) << (kk & 31);
+    }
+    if (kMode == kFirstPlanes) {
+      planes[static_cast<int64_t>(plane) * n + i] = word;
+      for (int p = plane + 1; p < num_planes; ++p) planes[static_cast<int64_t>(p) * n + i] = 0u;
+    } else {
+      pop += __popc(word);
+    }
+  }
+  if (kMode != kFirstPlanes) {
+    for (int off = 16; off > 0; off >>= 1) pop += __shfl_down_sync(0xffffffffu, pop, off);
+    __shared__ uint32_t warp_sums[kPfacFirstThreads / 32];
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) warp_sums[warp] = pop;
+    __syncthreads();
+    if (warp == 0) {
+      pop = lane < kPfacFirstThreads / 32 ? warp_sums[lane] : 0u;
+      for (int off = 16; off > 0; off >>= 1) pop += __shfl_down_sync(0xffffffffu, pop, off);
+      if (lane == 0) {
+        if (kMode == kFirstCount) {
+          if (pop != 0u) atomicAdd(count, static_cast<unsigned long long>(pop));
+        } else {
+          count[blockIdx.x] = pop;
+        }
+      }
+    }
+  }
+}
+
+template <typename C, int kMode>
+void pfac_first_launch(unsigned grid, cudaStream_t st, const uint32_t* trie, int stride,
+                       const uint32_t* prefix, uint32_t threshold, uint32_t dead, const void* cls,
+                       int64_t n, int depth, int k, uint32_t a, int num_planes, void* out) {
+  pfac_first_kernel<C, kMode><<<grid, kPfacFirstThreads, 0, st>>>(
+      trie, stride, prefix, threshold, dead, static_cast<const C*>(cls), n, depth, k, a,
+      num_planes, static_cast<uint32_t*>(out), static_cast<unsigned long long*>(out));
+}
+
+template <int kMode>
+void pfac_first_mode(int cls_bytes, unsigned grid, cudaStream_t st, const uint32_t* trie,
+                     int stride, const uint32_t* prefix, uint32_t threshold, uint32_t dead,
+                     const void* cls, int64_t n, int depth, int k, uint32_t a, int num_planes,
+                     void* out) {
+  if (cls_bytes == 1) {
+    pfac_first_launch<uint8_t, kMode>(grid, st, trie, stride, prefix, threshold, dead, cls, n,
+                                      depth, k, a, num_planes, out);
+  } else if (cls_bytes == 2) {
+    pfac_first_launch<uint16_t, kMode>(grid, st, trie, stride, prefix, threshold, dead, cls, n,
+                                       depth, k, a, num_planes, out);
+  } else {
+    pfac_first_launch<int32_t, kMode>(grid, st, trie, stride, prefix, threshold, dead, cls, n,
+                                      depth, k, a, num_planes, out);
+  }
+}
+
+}  // namespace
+
+// The v2 walk's first design (csrc/pfac_scan.cu until its persistent
+// walk).  mode 0: planes, out uint32[num_planes, n]; 1: the count, out
+// uint64[1] zeroed; 2: the count without the atomic, out uint64[ceil(n /
+// 256)], one block's sum a slot.  The other arguments as pfac2_planes'.
+extern "C" int pfac_first(int mode, const void* trie, int stride, const void* prefix,
+                          int64_t threshold, int64_t dead, const void* cls, int cls_bytes,
+                          int64_t n, int depth, int k, int num_classes, int num_planes, void* out,
+                          int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (n < 1 || stride < 1 || depth < 1 || num_planes < (depth + 31) / 32 || k < 1 ||
+      k > depth || mode < 0 || mode > 2 ||
+      (cls_bytes != 1 && cls_bytes != 2 && cls_bytes != 4))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>((n + kPfacFirstThreads - 1) / kPfacFirstThreads);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const uint32_t*>(trie);
+  const auto* p = static_cast<const uint32_t*>(prefix);
+  const auto thr = static_cast<uint32_t>(threshold);
+  const auto dd = static_cast<uint32_t>(dead);
+  const auto a = static_cast<uint32_t>(num_classes);
+  if (mode == kFirstPlanes) {
+    pfac_first_mode<kFirstPlanes>(cls_bytes, grid, st, t, stride, p, thr, dd, cls, n, depth, k,
+                                  a, num_planes, out);
+  } else if (mode == kFirstCount) {
+    pfac_first_mode<kFirstCount>(cls_bytes, grid, st, t, stride, p, thr, dd, cls, n, depth, k, a,
+                                 num_planes, out);
+  } else {
+    pfac_first_mode<kFirstCountSlots>(cls_bytes, grid, st, t, stride, p, thr, dd, cls, n, depth,
+                                      k, a, num_planes, out);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The v2 walk over tiles of starts with block barriers (the design this
+// repository tried before csrc/pfac_walk.cuh's warp spans): a block loops
+// over tiles of `tile` starts, stages each tile's classes and keeps a planes
+// tile in shared memory, and between two barriers walks the tile's starts
+// (kRefill: idle lanes take the tile's next start from a shared counter, up
+// to fill_rounds times before each step; kStatic / kStatic2: one or two
+// walks a thread, thread-strided, no refills); each tile waits for its
+// longest walk before the planes tile leaves with 16-byte stores.
+namespace tiled {
+
+constexpr int kStateBits = 28;  // ops/scan_pfac2._STATE_BITS
+constexpr uint32_t kStateMask = (1u << kStateBits) - 1u;
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxSmem = 232448;  // 227 KB: a block's dynamic shared memory on the H100
+
+enum Arm { kRefill = 0, kStatic = 1, kStatic2 = 2 };
+
+// Everything a launch needs; the launch shape (tile, stage_len,
+// staged_planes, grid) comes from kernels/scan_pfac.launch_shape.
+struct Walk {
+  const uint32_t* trie;  // uint32[S, stride], ranked
+  const uint32_t* prefix;  // uint32[prefix_entries] = A^k packed entries
+  const void* cls;  // n + depth padded classes of C
+  uint32_t* planes;  // uint32[num_planes, n] (planes mode)
+  unsigned long long* count;  // the total (count mode)
+  int64_t n;
+  int stride;
+  uint32_t threshold, dead, num_classes;
+  int depth, k, num_planes;
+  int tile, stage_len, staged_planes, fill_rounds;
+  int prefix_entries;
+};
+
+__host__ __device__ inline int round16(int bytes) { return (bytes + 15) & ~15; }
+
+// Shared-memory bytes of a launch: the prefix table (if staged), the
+// classes window, the planes tile.
+inline int smem_bytes(const Walk& w, int cls_bytes, bool prefix_shared, bool count_mode) {
+  return (prefix_shared ? round16(4 * w.prefix_entries) : 0) + round16(w.stage_len * cls_bytes) +
+         (count_mode ? 0 : 4 * w.staged_planes * w.tile);
+}
+
+// count elements from src (global) to dst (shared, 16-byte aligned): 16-byte
+// loads where src is aligned, element loads for the rest.
+template <typename T, int kThreads>
+__device__ __forceinline__ void stage(T* dst, const T* src, int count) {
+  int done = 0;
+  if ((reinterpret_cast<uintptr_t>(src) & 15u) == 0u) {
+    const int vecs = static_cast<int>(count * sizeof(T)) >> 4;
+    const uint4* s = reinterpret_cast<const uint4*>(src);
+    uint4* d = reinterpret_cast<uint4*>(dst);
+    for (int i = threadIdx.x; i < vecs; i += kThreads) d[i] = __ldg(s + i);
+    done = static_cast<int>((vecs << 4) / sizeof(T));
+  }
+  for (int i = done + threadIdx.x; i < count; i += kThreads) dst[i] = src[i];
+}
+
+// One tile's view: the staged classes, the planes tile and their global rows.
+template <typename C, bool kCount, bool kPrefixShared>
+struct TileWalk {
+  const Walk w;
+  const uint32_t* prefix;  // shared memory or global
+  const C* s_cls;  // classes [base, base + avail)
+  const C* g_cls;  // cls + base
+  uint32_t* s_out;  // staged_planes x tile words
+  uint32_t* g_out;  // planes + base
+  int avail;
+  unsigned long long pop;
+
+  __device__ __forceinline__ uint32_t prefix_at(uint32_t gram) const {
+    return kPrefixShared ? prefix[gram] : __ldg(prefix + gram);
+  }
+
+  // The prefix jump of start `local`: st, the matches of depths 1..k as
+  // bits 0..k-1 of word, and whether the walk goes on.
+  __device__ __forceinline__ bool start(int local, uint32_t& st, uint32_t& word, int& kk) const {
+    uint32_t gram = s_cls[local];
+    for (int j = 1; j < w.k; ++j) gram = gram * w.num_classes + s_cls[local + j];
+    const uint32_t packed = prefix_at(gram);
+    st = packed & kStateMask;
+    word = __brev(packed >> kStateBits) >> (32 - w.k);  // bit k - d of the history -> bit d - 1
+    kk = w.k;
+    return kk < w.depth && st != w.dead;
+  }
+
+  // Plane p's word of start `local`.
+  __device__ __forceinline__ void put(int local, int p, uint32_t word) {
+    if (kCount) {
+      pop += __popc(word);
+    } else if (p < w.staged_planes) {
+      s_out[p * w.tile + local] = word;
+    } else {
+      g_out[static_cast<int64_t>(p) * w.n + local] = word;
+    }
+  }
+
+  // The last word, in plane p, and the zeros of the planes after it that the
+  // flush does not write.
+  __device__ __forceinline__ void finish(int local, int p, uint32_t word) {
+    put(local, p, word);
+    if (!kCount) {
+      for (int q = max(p + 1, w.staged_planes); q < w.num_planes; ++q)
+        g_out[static_cast<int64_t>(q) * w.n + local] = 0u;
+    }
+  }
+
+  // One trie load at depth kk; false when the walk ends there (and finish
+  // has taken its last word).
+  __device__ __forceinline__ bool step(int local, uint32_t& st, uint32_t& word, int& kk) {
+    if ((kk & 31) == 0) {  // depths rise by one: plane by plane, in order
+      put(local, (kk >> 5) - 1, word);
+      word = 0u;
+    }
+    const int j = local + kk;
+    const uint32_t c = static_cast<uint32_t>(j < avail ? s_cls[j] : g_cls[j]);
+    st = __ldg(w.trie + (static_cast<uint64_t>(st) * static_cast<uint32_t>(w.stride) + c));
+    word |= static_cast<uint32_t>(st >= w.threshold) << (kk & 31);
+    ++kk;
+    if (kk < w.depth && st != w.dead) return true;
+    finish(local, (kk - 1) >> 5, word);
+    return false;
+  }
+};
+
+// kRefill: the warp hands out the tile's starts (s_next, shared by the
+// block's warps) to its idle lanes.
+template <typename TW>
+__device__ __forceinline__ void walk_refill(TW& t, int cnt, int* s_next) {
+  const unsigned lane = threadIdx.x & 31u;
+  const unsigned below = (1u << lane) - 1u;
+  bool live = false;
+  bool more = true;  // warp-uniform: the tile may have starts left
+  uint32_t st = 0u, word = 0u;
+  int kk = 0, local = 0;
+  while (true) {
+    for (int r = 0; r < t.w.fill_rounds && more; ++r) {
+      const unsigned idle = __ballot_sync(kFull, !live);
+      if (idle == 0u) break;
+      const int leader = __ffs(idle) - 1;
+      int first = 0;
+      if (static_cast<int>(lane) == leader) first = atomicAdd(s_next, __popc(idle));
+      first = __shfl_sync(kFull, first, leader);
+      more = first + __popc(idle) < cnt;
+      if (!live) {
+        local = first + __popc(idle & below);
+        if (local < cnt) {
+          live = t.start(local, st, word, kk);
+          if (!live) t.finish(local, 0, word);  // ended at the prefix (k < 32)
+        }
+      }
+    }
+    if (!__any_sync(kFull, live)) {
+      if (more) continue;
+      break;
+    }
+    if (live) live = t.step(local, st, word, kk);
+  }
+}
+
+// kStatic / kStatic2: thread-strided starts, kWalks interleaved a thread.
+template <int kWalks, int kThreads, typename TW>
+__device__ __forceinline__ void walk_static(TW& t, int cnt) {
+  for (int l0 = threadIdx.x; l0 < cnt; l0 += kThreads * kWalks) {
+    uint32_t st[kWalks], word[kWalks];
+    int kk[kWalks];
+    bool live[kWalks];
+#pragma unroll
+    for (int i = 0; i < kWalks; ++i) {
+      const int local = l0 + i * kThreads;
+      live[i] = false;
+      if (local < cnt) {
+        live[i] = t.start(local, st[i], word[i], kk[i]);
+        if (!live[i]) t.finish(local, 0, word[i]);
+      }
+    }
+    bool any = true;
+    while (any) {
+      any = false;
+#pragma unroll
+      for (int i = 0; i < kWalks; ++i) {
+        if (live[i]) live[i] = t.step(l0 + i * kThreads, st[i], word[i], kk[i]);
+        any |= live[i];
+      }
+    }
+  }
+}
+
+template <typename C, bool kCount, bool kPrefixShared, int kThreads, int kArm>
+__global__ void __launch_bounds__(kThreads, 2048 / kThreads) walk_kernel(const Walk w) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ int s_next;
+  __shared__ unsigned long long s_sums[kThreads / 32];
+  const int prefix_bytes = kPrefixShared ? round16(4 * w.prefix_entries) : 0;
+  if (kPrefixShared) stage<uint32_t, kThreads>(reinterpret_cast<uint32_t*>(smem), w.prefix,
+                                               w.prefix_entries);
+  C* s_cls = reinterpret_cast<C*>(smem + prefix_bytes);
+  uint32_t* s_out =
+      reinterpret_cast<uint32_t*>(smem + prefix_bytes + round16(w.stage_len * sizeof(C)));
+  if (!kCount) {
+    for (int i = threadIdx.x; i < w.staged_planes * w.tile; i += kThreads) s_out[i] = 0u;
+  }
+  const C* cls = static_cast<const C*>(w.cls);
+  const int64_t total = w.n + w.depth;
+  const int64_t tiles = (w.n + w.tile - 1) / w.tile;
+  TileWalk<C, kCount, kPrefixShared> t{
+      w, kPrefixShared ? reinterpret_cast<const uint32_t*>(smem) : w.prefix, s_cls, cls, s_out,
+      w.planes, 0, 0ull};
+  for (int64_t tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int64_t base = tile * w.tile;
+    const int cnt = static_cast<int>(min(static_cast<int64_t>(w.tile), w.n - base));
+    t.avail = static_cast<int>(min(static_cast<int64_t>(w.stage_len), total - base));
+    t.g_cls = cls + base;
+    t.g_out = w.planes + base;
+    stage<C, kThreads>(s_cls, t.g_cls, t.avail);
+    if (threadIdx.x == 0) s_next = 0;
+    __syncthreads();  // the classes (and the prefix, the zeroed tile) are in
+    if (kArm == kRefill) {
+      walk_refill(t, cnt, &s_next);
+    } else {
+      walk_static<kArm == kStatic2 ? 2 : 1, kThreads>(t, cnt);
+    }
+    __syncthreads();  // every walk of the tile has ended
+    if (!kCount) {
+      // Each thread stores and zeroes its own words: the next tile's walks
+      // write the tile only after the next barrier.
+      for (int p = 0; p < w.staged_planes; ++p) {
+        uint32_t* row = s_out + p * w.tile;
+        uint32_t* g = t.g_out + static_cast<int64_t>(p) * w.n;
+        int done = 0;
+        if ((reinterpret_cast<uintptr_t>(g) & 15u) == 0u) {
+          const int vecs = cnt >> 2;
+          uint4* r4 = reinterpret_cast<uint4*>(row);
+          uint4* g4 = reinterpret_cast<uint4*>(g);
+          for (int i = threadIdx.x; i < vecs; i += kThreads) {
+            g4[i] = r4[i];
+            r4[i] = make_uint4(0u, 0u, 0u, 0u);
+          }
+          done = vecs << 2;
+        }
+        for (int i = done + threadIdx.x; i < cnt; i += kThreads) {
+          g[i] = row[i];
+          row[i] = 0u;
+        }
+      }
+    }
+  }
+  if (kCount) {
+    unsigned long long pop = t.pop;
+    for (int off = 16; off > 0; off >>= 1) pop += __shfl_down_sync(kFull, pop, off);
+    const int lane = threadIdx.x & 31;
+    const int warp = threadIdx.x >> 5;
+    if (lane == 0) s_sums[warp] = pop;
+    __syncthreads();
+    if (warp == 0) {
+      pop = lane < kThreads / 32 ? s_sums[lane] : 0ull;
+      for (int off = 16; off > 0; off >>= 1) pop += __shfl_down_sync(kFull, pop, off);
+      if (lane == 0 && pop != 0ull) atomicAdd(w.count, pop);
+    }
+  }
+}
+
+// Checks the launch shape, sets the kernel's shared-memory limit, launches.
+template <typename C, bool kCount, bool kPrefixShared, int kThreads, int kArm>
+int launch_typed(const Walk& w, unsigned grid, cudaStream_t stream) {
+  const int smem = smem_bytes(w, sizeof(C), kPrefixShared, kCount);
+  auto kernel = walk_kernel<C, kCount, kPrefixShared, kThreads, kArm>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  kernel<<<grid, kThreads, smem, stream>>>(w);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The shape checks every arm shares: tiles a multiple of 16 starts, the
+// classes window at least the tile plus the k-gram and at most tile +
+// depth, the staged planes within the planes, the shared memory within a
+// block's.
+inline bool valid(const Walk& w, int cls_bytes, bool prefix_shared, bool count_mode,
+                  unsigned grid) {
+  if (w.n < 1 || w.stride < 1 || w.depth < 1 || w.k < 1 || w.k > w.depth || w.k > 3 ||
+      w.num_planes < (w.depth + 31) / 32 || w.prefix_entries < 1 || w.fill_rounds < 1 ||
+      grid < 1u)
+    return false;
+  if (w.tile < 16 || w.tile % 16 != 0 || w.stage_len < w.tile + w.k ||
+      w.stage_len > w.tile + w.depth || w.staged_planes < 0 || w.staged_planes > w.num_planes)
+    return false;
+  if (count_mode && w.staged_planes != 0) return false;
+  return smem_bytes(w, cls_bytes, prefix_shared, count_mode) <= kMaxSmem;
+}
+
+template <bool kCount, int kThreads, int kArm>
+int launch(const Walk& w, int cls_bytes, bool prefix_shared, unsigned grid,
+           cudaStream_t stream) {
+  if (!valid(w, cls_bytes, prefix_shared, kCount, grid))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (cls_bytes == 1) {
+    return prefix_shared ? launch_typed<uint8_t, kCount, true, kThreads, kArm>(w, grid, stream)
+                         : launch_typed<uint8_t, kCount, false, kThreads, kArm>(w, grid, stream);
+  }
+  if (cls_bytes == 2) {
+    return prefix_shared ? launch_typed<uint16_t, kCount, true, kThreads, kArm>(w, grid, stream)
+                         : launch_typed<uint16_t, kCount, false, kThreads, kArm>(w, grid, stream);
+  }
+  if (cls_bytes == 4) {
+    return prefix_shared ? launch_typed<int32_t, kCount, true, kThreads, kArm>(w, grid, stream)
+                         : launch_typed<int32_t, kCount, false, kThreads, kArm>(w, grid, stream);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace tiled
+
+// pfac_tiles' walk, uint8 classes: arm 0 the refills, 1 one walk a thread, 2
+// two interleaved; count_mode 0 planes (out uint32[num_planes, n]) or 1 the
+// count (out uint64[1] zeroed).  stage_len: the classes staged a tile (tile
+// + k up to tile + depth); staged_planes: the planes in the planes tile.
+extern "C" int pfac_tiles(int arm, int count_mode, const void* trie, int stride,
+                          const void* prefix, int64_t threshold, int64_t dead, const void* cls,
+                          int cls_bytes, int64_t n, int depth, int k, int num_classes,
+                          int num_planes, int grid, int tile, int stage_len, int staged_planes,
+                          int prefix_shared, int fill_rounds, void* out, int device,
+                          void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cls_bytes != 1 || arm < 0 || arm > 2) return static_cast<int>(cudaErrorInvalidValue);
+  tiled::Walk w{};
+  w.trie = static_cast<const uint32_t*>(trie);
+  w.prefix = static_cast<const uint32_t*>(prefix);
+  w.cls = cls;
+  w.n = n;
+  w.stride = stride;
+  w.threshold = static_cast<uint32_t>(threshold);
+  w.dead = static_cast<uint32_t>(dead);
+  w.num_classes = static_cast<uint32_t>(num_classes);
+  w.depth = depth;
+  w.k = k;
+  w.num_planes = num_planes;
+  w.tile = tile;
+  w.stage_len = stage_len;
+  w.staged_planes = count_mode ? 0 : staged_planes;
+  w.fill_rounds = fill_rounds;
+  int64_t entries = 1;
+  for (int j = 0; j < k; ++j) entries *= num_classes;
+  w.prefix_entries = static_cast<int>(entries);
+  w.planes = static_cast<uint32_t*>(out);
+  w.count = static_cast<unsigned long long*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool shared = prefix_shared != 0;
+  const auto g = static_cast<unsigned>(grid);
+  using tiled::launch;
+  if (count_mode) {
+    return arm == 0   ? launch<true, 1024, tiled::kRefill>(w, 1, shared, g, st)
+           : arm == 1 ? launch<true, 1024, tiled::kStatic>(w, 1, shared, g, st)
+                      : launch<true, 1024, tiled::kStatic2>(w, 1, shared, g, st);
+  }
+  return arm == 0   ? launch<false, 1024, tiled::kRefill>(w, 1, shared, g, st)
+         : arm == 1 ? launch<false, 1024, tiled::kStatic>(w, 1, shared, g, st)
+                    : launch<false, 1024, tiled::kStatic2>(w, 1, shared, g, st);
+}
+
+namespace {
+
+template <bool kCount, int kThreads, int kPerLane, int kBlocks>
+int pfac_queue_launch(const pfac::Walk& w, bool shared, unsigned grid, cudaStream_t st) {
+  if (!pfac::valid<kThreads, kPerLane>(w, grid)) return static_cast<int>(cudaErrorInvalidValue);
+  return shared
+             ? pfac::launch_typed<uint8_t, kCount, true, kThreads, kPerLane, kBlocks>(w, grid, st)
+             : pfac::launch_typed<uint8_t, kCount, false, kThreads, kPerLane, kBlocks>(w, grid,
+                                                                                     st);
+}
+
+// The widths of PFAC_WIDTHS in bench/scan_variants.py: (threads, starts a
+// lane, blocks an SM).
+template <bool kCount>
+int pfac_queue_mode(int threads, int per_lane, int blocks, const pfac::Walk& w, bool shared,
+                    unsigned grid, cudaStream_t st) {
+  if (threads == 1024 && per_lane == 4 && blocks == 1)
+    return pfac_queue_launch<kCount, 1024, 4, 1>(w, shared, grid, st);
+  if (threads == 1024 && per_lane == 4 && blocks == 2)
+    return pfac_queue_launch<kCount, 1024, 4, 2>(w, shared, grid, st);
+  if (threads == 512 && per_lane == 4 && blocks == 2)
+    return pfac_queue_launch<kCount, 512, 4, 2>(w, shared, grid, st);
+  if (threads == 512 && per_lane == 8 && blocks == 2)
+    return pfac_queue_launch<kCount, 512, 8, 2>(w, shared, grid, st);
+  if (threads == 256 && per_lane == 4 && blocks == 4)
+    return pfac_queue_launch<kCount, 256, 4, 4>(w, shared, grid, st);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+}  // namespace
+
+// csrc/pfac_walk.cuh's walk at other widths than the package's: threads a
+// block, per_lane starts a lane in a prefix pass, blocks an SM (the
+// register budget); uint8 classes; count_mode and out as pfac_tiles'; grid,
+// span and prefix_shared as kernels/scan_pfac.launch_shape gives them for
+// these widths.
+extern "C" int pfac_queue(int threads, int per_lane, int blocks, int count_mode,
+                          const void* trie, int stride, const void* prefix, int64_t threshold,
+                          int64_t dead, const void* cls, int cls_bytes, int64_t n, int depth,
+                          int k, int num_classes, int num_planes, int grid, int64_t span,
+                          int prefix_shared, void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (cls_bytes != 1) return static_cast<int>(cudaErrorInvalidValue);
+  const pfac::Walk w = pfac::make_walk(trie, stride, prefix, threshold, dead, cls, n, depth, k,
+                                       num_classes, num_planes, span, out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto g = static_cast<unsigned>(grid);
+  const bool shared = prefix_shared != 0;
+  return count_mode ? pfac_queue_mode<true>(threads, per_lane, blocks, w, shared, g, st)
+                    : pfac_queue_mode<false>(threads, per_lane, blocks, w, shared, g, st);
 }

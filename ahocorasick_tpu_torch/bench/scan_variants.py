@@ -74,6 +74,15 @@ the first 8,192, 32,768 and 65,536 windows of the 10k table in 8 shards.
 ``sweep_ab``: the whole-word-longest die sweep (``csrc/sweep.cuh``) at
 several loads a group, staged in shared memory and not, beside its first
 design, at the 10k cell's start slots and at every position of 4 Mi.
+``pfac_ab``: the PFAC v2 walk (``csrc/pfac_walk.cuh``: persistent blocks
+whose warps take spans of starts, a prefix pass over staged classes and the
+staged prefix table, a warp queue of the walks that go on with lanes that
+refill) with the prefix read with ``__ldg``, at other block and pass widths
+(``pfac_queue`` here), beside the walk over tiles with block barriers
+(``pfac_tiles`` here: refills from the tile, one walk a thread, two
+interleaved) and its first design (``pfac_first`` here: planes, the count,
+and the count with each block's sum stored instead of its atomic add) on the
+10k dictionary's 32 Mi lanes (``--pfac`` runs only this one).
 
     python -m ahocorasick_tpu_torch.bench.scan_variants --against DIR
 
@@ -85,7 +94,8 @@ the lane scan ``seq_states_sync`` at 64 Ki and 32 Mi units of the 10k dense
 table, and the stitch's ``rescan`` on the same 32 Mi units as 8 chunks and
 as one chunk of 32 Ki; and speculate and repair's one-row form
 ``seq_states_spec`` at 64 Ki, 1 Mi and 32 Mi units of the 10k restart
-table, dense and as ``shortest_states``' restart rows) built from this
+table, dense and as ``shortest_states``' restart rows; and the PFAC v1 walk
+``pfac1_planes`` on the 10k dictionary's 32 Mi lanes) built from this
 checkout and from the ``csrc/`` of
 another checkout at
 ``DIR`` (the parent commit, unpacked with ``git archive``), in one process on
@@ -172,6 +182,16 @@ def library() -> ctypes.CDLL:
     #  stream)
     lib.rescan_first.argtypes = [P, P, P, I64, I64, I, P, I, P]
     lib.maps_first.restype = lib.rescan_first.restype = ctypes.c_int
+    # (mode, then pfac2_planes' arguments up to num_planes, out, device, stream)
+    head = build.ARGTYPES["pfac2_planes"][:12]
+    lib.pfac_first.argtypes = [I, *head, P, I, P]
+    # (arm, count_mode, *head, grid, tile, stage_len, staged_planes,
+    #  prefix_shared, fill_rounds, out, device, stream)
+    lib.pfac_tiles.argtypes = [I, I, *head, I, I, I, I, I, I, P, I, P]
+    # (threads, per_lane, blocks, count_mode, *head, grid, span,
+    #  prefix_shared, out, device, stream)
+    lib.pfac_queue.argtypes = [I, I, I, I, *head, I, I64, I, P, I, P]
+    lib.pfac_first.restype = lib.pfac_tiles.restype = lib.pfac_queue.restype = ctypes.c_int
     return lib
 
 
@@ -767,16 +787,137 @@ def meet_ab(cells: dict, lib) -> dict:
     return {"meet_ms": times, "meet_stats": stats}
 
 
+# (threads, per_lane, blocks) of pfac_queue: threads a block, starts a lane
+# in a prefix pass, blocks an SM (the register budget: 64 or 32 a thread)
+PFAC_WIDTHS = ((1024, 4, 1), (1024, 4, 2), (512, 4, 2), (512, 8, 2), (256, 4, 4))
+PFAC_TILE = 4096  # pfac_tiles' planes tile (its count takes 16 Ki)
+PFAC_TILE_COUNT = 16384
+
+
+def pfac_ab(cell: tuple, lib, grid: bool = True) -> dict:
+    """The PFAC v2 walk's A/B on one cell: ``cell`` ``(ranked, classes,
+    depth, num_classes)`` on the card (``RankedTables`` as
+    ``_DeviceTables.ranked`` holds them, the ``pad_classes``-padded uint8
+    classes).  Times, in one process, the first design (``pfac_first``: its
+    planes, its count, and its count with each block's sum stored instead of
+    the atomic add), the package's walk (``csrc/pfac_walk.cuh``) at its
+    shape and with the prefix table in the other placement, and with
+    ``grid``: the same walk at each (threads, per_lane) of ``PFAC_WIDTHS``
+    and both placements (``pfac_queue``), and the tiled walk with block
+    barriers (``pfac_tiles``: refills, one walk a thread, two interleaved);
+    each launch held bit for bit against the package's wrapper first; ms per
+    launch (the wrappers' allocations outside the timing)."""
+    from ahocorasick_tpu_torch.bench import _seconds_per_rep
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpf
+    from ahocorasick_tpu_torch.kernels.scan_block import _popcount32, _widen
+
+    rt, cls, depth, A = cell
+    dev = cls.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    n, P, k = cls.numel() - depth, -(-depth // 32), rt.prefix_k
+    cb = kpf._CLASS_BYTES[cls.dtype]
+    E = rt.prefix.numel()
+    package = build.library()
+    want = kpf.pfac2_planes(rt.trie_next, rt.prefix, rt.match_threshold, cls, depth, P, k, A,
+                            rt.dead_state)
+    want_count = int(kpf.pfac2_count(rt.trie_next, rt.prefix, rt.match_threshold, cls, depth, k,
+                                     A, rt.dead_state))
+    pop = int(_popcount32(_widen(want)).sum())
+    if pop != want_count:
+        raise AssertionError(f"pfac A/B: the count {want_count} != the planes' {pop} bits")
+    head = (rt.trie_next.data_ptr(), rt.trie_next.shape[1], rt.prefix.data_ptr(),
+            rt.match_threshold, rt.dead_state, cls.data_ptr(), cb, n, depth, k, A, P)
+    planes = torch.empty((P, n), dtype=torch.int32, device=dev)
+    count = torch.zeros(1, dtype=torch.int64, device=dev)
+    slots = torch.zeros(-(-n // 256), dtype=torch.int64, device=dev)
+    sms = kpf.sm_count(dev)
+    tail = (dev.index or 0, stream)
+
+    def checked(rc, name):
+        if rc != 0:
+            raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+    def out(count_mode):
+        return (count if count_mode else planes).data_ptr()
+
+    def first(mode, buf):
+        return lambda: checked(lib.pfac_first(mode, *head, buf.data_ptr(), *tail), "pfac_first")
+
+    def package_walk(count_mode, shared=None):
+        sh = kpf.launch_shape(n, cb, E, sms)
+        sh_p = int(sh.prefix_shared if shared is None else shared)
+        if count_mode:
+            return lambda: checked(package.pfac2_count(*head[:-1], sh.grid, sh.span, sh_p,
+                                                       out(True), *tail), "pfac2_count")
+        return lambda: checked(package.pfac2_planes(*head, sh.grid, sh.span, sh_p, out(False),
+                                                    *tail), "pfac2_planes")
+
+    def queue(count_mode, threads, per_lane, blocks, shared):
+        sh = kpf.launch_shape(n, cb, E, sms, threads=threads, per_lane=per_lane, blocks=blocks)
+        return lambda: checked(lib.pfac_queue(threads, per_lane, blocks, int(count_mode), *head,
+                                              sh.grid, sh.span, int(shared), out(count_mode),
+                                              *tail), "pfac_queue")
+
+    def tiles(count_mode, arm):
+        tile = PFAC_TILE_COUNT if count_mode else PFAC_TILE
+        g = min(-(-n // tile), 2 * sms)
+        return lambda: checked(lib.pfac_tiles(arm, int(count_mode), *head, g, tile, tile + depth,
+                                              0 if count_mode else P, 1, 2, out(count_mode),
+                                              *tail), "pfac_tiles")
+
+    shared = kpf.launch_shape(n, cb, E, sms).prefix_shared
+    other = "ldg" if shared else "shared"
+    runs = {"planes first": (first(0, planes), "planes"),
+            "count first": (first(1, count), "count"),
+            "count first, no atomic": (first(2, slots), "slots"),
+            "planes": (package_walk(False), "planes"),
+            "count": (package_walk(True), "count"),
+            f"planes, prefix {other}": (package_walk(False, not shared), "planes"),
+            f"count, prefix {other}": (package_walk(True, not shared), "count")}
+    if grid and cb == 1:
+        for threads, per_lane, blocks in PFAC_WIDTHS:
+            fits = kpf.launch_shape(n, cb, E, sms, threads=threads, per_lane=per_lane,
+                                    blocks=blocks).prefix_shared
+            for placed in (True, False) if fits else (False,):
+                label = (f"{threads} threads, {per_lane} a lane, {blocks} a SM, prefix "
+                         f"{'shared' if placed else 'ldg'}")
+                runs[f"planes {label}"] = (queue(False, threads, per_lane, blocks, placed),
+                                           "planes")
+                runs[f"count {label}"] = (queue(True, threads, per_lane, blocks, placed), "count")
+        for arm, label in ((0, "refills"), (1, "one walk a thread"), (2, "two interleaved")):
+            runs[f"planes tiles, {label}"] = (tiles(False, arm), "planes")
+            runs[f"count tiles, {label}"] = (tiles(True, arm), "count")
+    want32 = want.view(torch.int32)
+    for label, (launch, kind) in runs.items():
+        planes.fill_(-1)
+        count.zero_()
+        slots.fill_(-1)
+        launch()
+        got = (torch.equal(planes, want32) if kind == "planes" else
+               int(count[0]) == want_count if kind == "count" else
+               int(slots.sum()) == want_count)
+        if not got:
+            raise AssertionError(f"pfac A/B {label}: differs from the package's wrapper")
+    ms = {}
+    for label in [*runs, *reversed(runs)]:
+        t = _seconds_per_rep(runs[label][0], 20, dev) * 1e3
+        ms[label] = min(ms.get(label, t), t)
+    return {"pfac_ms": ms, "pfac_count": want_count, "pfac_lanes": n,
+            "pfac_shape": kpf.launch_shape(n, cb, E, sms)._asdict(), "pfac_sm_count": sms}
+
+
 AGAINST_KERNELS = ("packed_scan_count", "packed_scan_planes", "packedcount_count",
                    "packedcount_hotstate_plane", "split_emit_planes", "rowdfa2_count",
-                   "table_sharded_scan", "seq_states_sync", "rescan", "seq_states_spec")
+                   "table_sharded_scan", "seq_states_sync", "rescan", "seq_states_spec",
+                   "pfac1_planes")
 AGAINST_RESCAN = ((8, 1 << 22), (1, 1 << 15))  # the rescan's (C, K) in the comparison
 AGAINST_SEQ_UNITS = (1 << 16, 1 << 25)  # the lane scan's N in the comparison
 AGAINST_SPEC_UNITS = (1 << 16, 1 << 20, 1 << 25)  # speculate and repair's N (one row)
 
 
 def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tuple,
-            row_cell: tuple, tp_cell: tuple, seq_cell: tuple, spec_cell: tuple) -> dict:
+            row_cell: tuple, tp_cell: tuple, seq_cell: tuple, spec_cell: tuple,
+            pfac_cell: tuple) -> dict:
     """The lane-loop kernels of this checkout and of ``other_root``'s
     ``csrc/`` on the cells of ``run``, ``rowdfa2_ab`` (``row_cell``) and
     ``tp_ab`` (``tp_cell``; the count and planes modes), the lane scan of
@@ -785,7 +926,9 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
     one-row form (``seq_states_spec``; ``spec_cell``: ``{label: (table,
     row_id or None, classes)}``, each with at least 32 Mi classes: the
     dense restart table and ``shortest_states``' restart rows) at
-    ``AGAINST_SPEC_UNITS`` with the rule's K: ``{kernel: {"K" or "L",
+    ``AGAINST_SPEC_UNITS`` with the rule's K, and the PFAC v1 walk
+    (``pfac1_planes``; ``pfac_cell``: ``(trie, is_match, classes, depth)``, the
+    padded v1 trie whose last row is the dead state): ``{kernel: {"K" or "L",
     "other_ms", "this_ms", "this_over_other"}}`` (each ms list in the order
     timed)."""
     import glob
@@ -919,6 +1062,27 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
             record[f"seq_states_spec {label} N={n}"] = {
                 "K": K, "other_ms": ms["other"], "this_ms": ms["this"],
                 "this_over_other": min(ms["this"]) / min(ms["other"])}
+    trie, is_match, cls, depth = pfac_cell
+    n, P = cls.numel() - depth, -(-depth // 32)
+    outs, runs = {}, {}
+    for tree, lib in libs.items():
+        outs[tree] = torch.empty((P, n), dtype=torch.int32, device=cls.device)
+
+        def launch(lib=lib, out=outs[tree]):
+            rc = lib.pfac1_planes(trie.data_ptr(), trie.shape[1], is_match.data_ptr(),
+                                  trie.shape[0] - 1, cls.data_ptr(), cls.element_size(), n,
+                                  depth, P, out.data_ptr(), cls.device.index or 0, stream)
+            if rc != 0:
+                raise RuntimeError(f"pfac1_planes launch failed: CUDA error {rc}")
+        runs[tree] = launch
+        launch()
+    if not torch.equal(outs["other"], outs["this"]):
+        raise AssertionError("pfac1_planes: the two checkouts' walks differ")
+    ms = {"other": [], "this": []}
+    for tree in ("other", "this", "this", "other"):
+        ms[tree].append(_seconds_per_rep(runs[tree], 20, cls.device) * 1e3)
+    record["pfac1_planes"] = {"other_ms": ms["other"], "this_ms": ms["this"],
+                              "this_over_other": min(ms["this"]) / min(ms["other"])}
     return record
 
 
@@ -935,6 +1099,8 @@ def main(argv=None) -> None:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument("--against", metavar="DIR",
                         help="time the lane-loop kernels against another checkout's csrc/")
+    parser.add_argument("--pfac", action="store_true",
+                        help="only the PFAC v2 walk's A/B (pfac_ab) on the 10k cell")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_variants: needs a CUDA device")
@@ -947,6 +1113,9 @@ def main(argv=None) -> None:
     m = AhoCorasickSet(keywords, engine="device", device=dev)
     pd = m.dev.packed_dfa
     base = make_text_classes(m, keywords, rng, BASE_UNITS)
+    if opts.pfac:
+        print(json.dumps({"card": smi, **pfac_ab(ten_k_pfac_cell(m, base, dev)[0], lib)}))
+        return
     w = scan_batched.classes_to_device(
         scan_batched.chunk_classes(np.tile(base, TEXT_UNITS // BASE_UNITS), CHUNK, pd.halo,
                                    m.compiled.num_classes), m.compiled.num_classes, dev)
@@ -972,7 +1141,7 @@ def main(argv=None) -> None:
                          (m.dev.seq_tables[0], _int32_classes(
                              np.tile(base, TEXT_UNITS // BASE_UNITS), dev),
                           max(m.compiled.max_depth, 1)),
-                         _restart_spec_cells(keywords, dev))
+                         _restart_spec_cells(keywords, dev), ten_k_pfac_cell(m, base, dev)[1])
         print(json.dumps({"card": smi, "against": opts.against, **record}))
         return
     record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),
@@ -1002,7 +1171,25 @@ def main(argv=None) -> None:
         lib))
     record.update(tp_ab(ten_k_shards(m, dev, w)))
     record.update(sweep_ab(ten_k_sweep_cells(keywords, dev)))
+    record.update(pfac_ab(ten_k_pfac_cell(m, base, dev)[0], lib))
     print(json.dumps({"card": smi, **record}))
+
+
+def ten_k_pfac_cell(m, base, dev) -> tuple:
+    """The PFAC walk's cells on the 10k matcher ``m`` over ``base`` tiled to
+    32 Mi units: ``pfac_ab``'s (the ranked tables, the padded classes, the
+    depth, the classes' count) and ``against``'s v1 cell (the padded trie,
+    is_match, the classes, the depth)."""
+    from ahocorasick_tpu_torch.bench.headline import BASE_UNITS, TEXT_UNITS
+    from ahocorasick_tpu_torch.ops import scan_batched, scan_pfac
+    from ahocorasick_tpu_torch.utils.lanes import LANE_BUCKET, bucket_depth
+
+    c = m.compiled
+    d = bucket_depth(c.max_depth)
+    cp = scan_batched.classes_to_device(
+        scan_pfac.pad_classes(np.tile(base, TEXT_UNITS // BASE_UNITS), d, bucket=LANE_BUCKET),
+        c.num_classes, dev)
+    return (m.dev.ranked, cp, d, c.num_classes), (m.dev.trie_next, m.dev.is_match, cp, d)
 
 
 TP_SHARDS = 8  # the row-sharded cell: the 10k table in 8 shards on the one card

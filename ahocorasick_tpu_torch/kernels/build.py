@@ -41,7 +41,8 @@ SOURCES = tuple(
                  "pfac_scan.cu")
 )
 # Included by the sources; hashed with them, so an edited header rebuilds too.
-HEADERS = tuple(os.path.join(_PKG, "csrc", name) for name in ("tile.cuh", "sweep.cuh"))
+HEADERS = tuple(os.path.join(_PKG, "csrc", name)
+                for name in ("tile.cuh", "sweep.cuh", "pfac_walk.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -171,10 +172,12 @@ ARGTYPES = {
     # (tab, idx, tiles, reps, mask, mode, sum_out, out, device, stream)
     "gather2d": [_P, _P, _I64, _I, _I64, _I, _I, _P, _I, _P],
     # (trie, stride, prefix, threshold, dead, cls, cls_bytes, n, depth, k,
-    #  num_classes, num_planes, out, device, stream)
-    "pfac2_planes": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P],
+    #  num_classes, num_planes, grid, span, prefix_shared, out, device, stream)
+    "pfac2_planes": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _I, _I, _I64, _I, _P,
+                     _I, _P],
     # the same without num_planes; out is one int64 count
-    "pfac2_count": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _P, _I, _P],
+    "pfac2_count": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _I, _I64, _I, _P, _I,
+                    _P],
     # (trie, stride, is_match, dead, cls, cls_bytes, n, depth, num_planes,
     #  out, device, stream)
     "pfac1_planes": [_P, _I, _P, _I64, _P, _I, _I64, _I, _I, _P, _I, _P],

@@ -22,12 +22,20 @@ which must absorb and emit nothing, as the ranked tables' dead state
 (``RankedTables.dead_state``) and the padded trie's last row do.  The source
 note in the ``.cu`` file says what bounds the kernel on the H100.
 
+The v2 kernels (``csrc/pfac_walk.cuh``) run persistent blocks whose warps
+each take a span of starts: a prefix pass over classes staged in shared
+memory (the k-gram prefix table there too where it fits), then a warp queue
+of the walks that go on; ``launch_shape`` is their rule for the grid, the
+span and where the prefix table lives.
+
 A wrapper runs the plain twin for tensors on the CPU, and launches the
 kernel for tensors on a CUDA device: there is no fallback from one to the
 other.  ``launches`` (``kernels/build.py``) counts kernel launches only.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -38,6 +46,87 @@ from ahocorasick_tpu_torch.kernels.scan_wwl import _index
 
 STATE_BITS = 28  # ops/scan_pfac2._STATE_BITS: packed prefix entries
 _CLASS_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}
+
+# The v2 walk's launch (csrc/pfac_walk.cuh).  bench/scan_variants.py pfac_ab
+# set them on an H100 80GB HBM3 at 700 W, 10k dictionary, 32 Mi lanes (ms,
+# planes / count): 1,024 threads, 8 starts a lane, 1 block an SM (64
+# registers), the prefix table staged 0.1467 / 0.1037; 4 a lane 0.1853 /
+# 0.1643; 512 threads, 2 blocks an SM 0.1931 / 0.1838; 2 blocks of 1,024
+# (32 registers, spilling; the prefix read with __ldg) 0.4441 / 0.3818; the
+# package's widths with the prefix read with __ldg 0.2886 / 0.1210.
+THREADS = 1024  # threads a block: csrc/pfac_scan.cu kWalkThreads
+PER_LANE = 8  # starts a lane takes in a prefix pass: csrc/pfac_scan.cu kWalkPerLane
+BLOCKS_PER_SM = 1  # blocks an SM holds (registers: kWalkBlocks); a block's smem share
+SM_SMEM = 233_472  # bytes of shared memory an H100 SM has for blocks (228 KB)
+BLOCK_SMEM_MAX = 232_448  # a block's most dynamic shared memory (227 KB)
+BLOCK_SMEM_RESERVED = 1024 + 256  # the CUDA runtime's 1 KB a block and the kernel's own sums
+MAX_K = 3  # ops/scan_pfac2.build_ranked's largest prefix_k
+
+
+class Shape(NamedTuple):
+    """A v2 launch: ``grid`` persistent blocks of ``threads``; warp g takes
+    starts ``[g * span, (g + 1) * span)``; the prefix table in shared memory
+    (``prefix_shared``) or read with ``__ldg``; ``smem`` dynamic bytes;
+    ``blocks_per_sm`` the blocks an SM holds at that size."""
+
+    grid: int
+    span: int
+    prefix_shared: bool
+    smem: int
+    blocks_per_sm: int
+
+
+def _round16(nbytes: int) -> int:
+    return -(-nbytes // 16) * 16
+
+
+def warp_bytes(cls_bytes: int, per_lane: int) -> int:
+    """A warp's shared memory (``pfac_walk.cuh`` ``WarpArea``): the stage of
+    a prefix pass's classes and the queue of ``32 + 32 * per_lane`` walks,
+    8 bytes each."""
+    batch = 32 * per_lane
+    return _round16((batch + MAX_K - 1) * cls_bytes) + 8 * (32 + batch)
+
+
+def launch_shape(n: int, cls_bytes: int, prefix_entries: int, sm_count: int,
+                 threads: int = None, per_lane: int = None, blocks: int = None) -> Shape:
+    """The v2 launch for ``n`` starts with ``threads`` a block, ``per_lane``
+    starts a lane in a prefix pass and ``blocks`` an SM (the kernel's
+    register budget).  A block's shared-memory budget is an SM's over
+    ``blocks``; the warps' areas take their share and the prefix table
+    (``4 * prefix_entries`` bytes) is staged where it fits the rest.  The
+    grid is as many blocks as fit on ``sm_count`` SMs, each warp a span of a
+    multiple of 16 starts, and no more blocks than the starts need."""
+    threads = THREADS if threads is None else threads
+    per_lane = PER_LANE if per_lane is None else per_lane
+    blocks = BLOCKS_PER_SM if blocks is None else blocks
+    warps = threads // 32
+    areas = warps * warp_bytes(cls_bytes, per_lane)
+    prefix_bytes = _round16(4 * prefix_entries)
+    budget = min(SM_SMEM // blocks - BLOCK_SMEM_RESERVED, BLOCK_SMEM_MAX)
+    prefix_shared = prefix_bytes + areas <= budget
+    smem = areas + (prefix_bytes if prefix_shared else 0)
+    blocks_per_sm = max(1, min(blocks, SM_SMEM // (smem + BLOCK_SMEM_RESERVED)))
+    span = -(-max(1, -(-n // (blocks_per_sm * sm_count * warps))) // 16) * 16
+    grid = -(-(-(-n // span)) // warps)
+    return Shape(grid, span, prefix_shared, smem, blocks_per_sm)
+
+
+_SM_COUNT = {}
+
+
+def sm_count(dev: torch.device) -> int:
+    """The card's streaming multiprocessors (cached a device)."""
+    index = torch.cuda.current_device() if dev.index is None else dev.index
+    if index not in _SM_COUNT:
+        _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
+    return _SM_COUNT[index]
+
+
+def v2_shape(cls, depth: int, prefix) -> Shape:
+    """``launch_shape`` of a v2 call on ``cls`` (a CUDA tensor)."""
+    return launch_shape(cls.numel() - depth, _CLASS_BYTES[cls.dtype], prefix.numel(),
+                        sm_count(cls.device))
 
 
 def _check(name, trie, cls, depth, num_planes, *tables):
@@ -86,9 +175,11 @@ def pfac2_planes(trie, prefix, threshold: int, cls, depth: int, num_planes: int,
         return pfac2_planes_plain(trie, prefix, threshold, cls, depth, num_planes, prefix_k,
                                   num_classes)
     out = torch.empty((num_planes, n), dtype=torch.uint32, device=cls.device)
+    sh = v2_shape(cls, depth, prefix)
     build.call("pfac2_planes", trie.data_ptr(), trie.shape[1], prefix.data_ptr(), threshold,
                int(dead_state), cls.data_ptr(), _CLASS_BYTES[cls.dtype], n, depth, prefix_k,
-               num_classes, num_planes, out.data_ptr(), *_stream(cls.device))
+               num_classes, num_planes, sh.grid, sh.span, int(sh.prefix_shared),
+               out.data_ptr(), *_stream(cls.device))
     launches["pfac2_planes"] += 1
     return out
 
@@ -100,9 +191,11 @@ def pfac2_count(trie, prefix, threshold: int, cls, depth: int, prefix_k: int, nu
     if cls.device.type == "cpu":
         return pfac2_count_plain(trie, prefix, threshold, cls, depth, prefix_k, num_classes)
     out = torch.zeros(1, dtype=torch.int64, device=cls.device)
+    sh = v2_shape(cls, depth, prefix)
     build.call("pfac2_count", trie.data_ptr(), trie.shape[1], prefix.data_ptr(), threshold,
                int(dead_state), cls.data_ptr(), _CLASS_BYTES[cls.dtype], cls.numel() - depth,
-               depth, prefix_k, num_classes, out.data_ptr(), *_stream(cls.device))
+               depth, prefix_k, num_classes, sh.grid, sh.span, int(sh.prefix_shared),
+               out.data_ptr(), *_stream(cls.device))
     launches["pfac2_count"] += 1
     return out[0]
 

@@ -119,7 +119,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    site of ``tools/probes/`` at the JAX probes' sizes, ``chain_gather`` in
    every placement its table fits (warp registers, shared memory, global);
    the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
-   fuzz, demo and the 10k dictionary at 1 Mi units;
+   fuzz, demo and the 10k dictionary at 1 Mi units, and the v2 walk at its
+   edges (``check_pfac_edges``: text lengths around a warp's prefix pass
+   and, on one SM, around a warp's span; depths 31, 32, 33, 64, 65 and
+   equal to prefix_k; every walk live to the depth; every walk dead; uint8,
+   uint16 and int32 classes, classes off a 16-byte boundary; the prefix
+   table staged and read with ``__ldg``; count == the planes' popcount);
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -248,7 +253,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    the probe kernels and the PFAC walk (at the sweep's shape, the JAX sizes
    and 32 Mi units) beside their twins, each result first held against the
    twin's at that shape, and, for the probes, the same chain as
-   eager torch indexing; the ``device_engine="pfac2"`` facade beside the
+   eager torch indexing; the PFAC v2 walk's table loads a lane (mean,
+   largest, a warp's longest) and the G loads/s of each mode, and its A/B
+   (``ab pfac``: the first design's planes, count and count without the
+   atomic add, the package's walk, its prefix table in the other
+   placement); the ``device_engine="pfac2"`` facade beside the
    default; B17's bound; each kernel's bound (bytes over 3.35 TB/s or
    operations over 67 T/s, 989 T/s for the fp16 tensor cores, whichever is
    larger), the library-call times, and the kernels ranked by launches x
@@ -342,6 +351,7 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
     "row_chain": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:160"),
     "onehot_mma": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:192"),
     "gather2d": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe2.py:56"),
+    # redesigned, both: csrc/pfac_walk.cuh's warp spans, prefix pass and queue
     "pfac2_planes": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
                      "ahocorasick_tpu/ops/scan_pfac2.py:163"),
     "pfac2_count": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
@@ -1398,6 +1408,125 @@ def check_pfac_kernels(label, m, cls, dev, errs, max_err):
     return int(got[1])
 
 
+def pfac_edge_cases(rng):
+    """The PFAC v2 walk's edge cases (``tests/test_torch_pfac_lanes.py``
+    holds the same against the JAX package on the CPU): ``(label, keywords,
+    text, depth or None (the bucketed max depth), class dtype, the classes
+    offset by one element (unaligned), patches of kernels.scan_pfac)``.
+    Text lengths around a prefix pass (B - 1, B, B + 1, B + d) and around a
+    warp's span on one SM (``sm_count`` patched to 1: many passes a warp,
+    the queue's ring wrapping); depths 31, 32, 33, 64, 65 and equal to
+    prefix_k; every lane live to the full depth (the queue full); every lane
+    dead at once; uint8, uint16 and int32 classes; classes that start off a
+    16-byte boundary; a 61-class alphabet whose 4 A^k bytes do not fit
+    beside the warps' areas (the __ldg branch), and a small one with
+    ``SM_SMEM`` patched down to the same end; widths (threads, starts a
+    lane) as the package instantiates them."""
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpf
+
+    B = 32 * kpf.PER_LANE
+    one_sm = {"sm_count": lambda dev: 1}
+    fuzz = fuzz_keywords(rng, "abcdef", 60, 8)
+    soup = lambda n, alpha="abcdefg ": "".join(rng.choice(list(alpha), size=n))
+    cases = []
+    for n in (B - 1, B, B + 1, B + 8):  # d = 8: the bucketed depth
+        cases.append((f"fuzz n={n} (B={B})", fuzz, soup(n), None, "uint8", False, {}))
+    span = kpf.launch_shape(300_000, 1, 7 ** 3, 1).span
+    for n in (span - 1, span, span + 1, span + 8, 300_000):
+        cases.append((f"fuzz n={n} on one SM (span {span})", fuzz, soup(n), None, "uint8",
+                      False, one_sm))
+    for d in (31, 32, 33, 64, 65):
+        kws = ["a" * i for i in range(1, d + 1)]
+        cases.append((f"a..a^{d} over a * 5,000 (every lane live)", kws, "a" * 5000, d, "uint8",
+                      False, one_sm))
+        cases.append((f"a..a^{d} + fuzz over mixed text, int32", kws + fuzz,
+                      soup(4001, "aaaaaaab "), d, "int32", False, {}))
+    cases.append(("depth == prefix_k (2)", ["ab", "b", "ba"], soup(5000, "ab"), 2, "uint16",
+                  False, {}))
+    cases.append(("depth == prefix_k (3)", ["abc", "ab", "c"], soup(5000, "abc"), 3, "uint8",
+                  False, {}))
+    cases.append(("every lane dead", fuzz, "zzzz " * 2000, None, "uint8", False, {}))
+    cases.append(("fuzz, uint16, unaligned classes", fuzz, soup(9001), None, "uint16", True,
+                  one_sm))
+    cases.append(("fuzz, uint8, unaligned classes", fuzz, soup(9003), None, "uint8", True, {}))
+    big = [chr(0x4E00 + i) for i in range(60)]
+    big_kws = sorted(set(big) | {"".join(rng.choice(big, size=int(rng.integers(2, 5))))
+                                 for _ in range(300)})
+    cases.append(("61 classes, the prefix read with __ldg", big_kws,
+                  "".join(rng.choice(big + [" "], size=9000)), None, "uint8", False, one_sm))
+    cases.append(("fuzz, SM_SMEM 60,000 (the prefix read with __ldg)", fuzz, soup(9000), None,
+                  "uint8", False, {"SM_SMEM": 60_000}))
+    deep = ["a" * i for i in range(1, 70)] + ["ab", "ba"]
+    cases.append(("a..a^69 + ab, ba, three planes", deep, "a" * 3000 + "ab" * 800, None,
+                  "uint8", False, one_sm))
+    return cases
+
+
+def check_pfac_edges(dev, errs):
+    """The PFAC v2 kernels (``pfac2_planes``, ``pfac2_count``) against their
+    twins on CPU copies, bit for bit, at ``pfac_edge_cases``; the count ==
+    the popcount of the planes.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.core.compiler import compile_matcher
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpf
+    from ahocorasick_tpu_torch.kernels.scan_block import _popcount32, _widen
+    from ahocorasick_tpu_torch.models import matchers
+    from ahocorasick_tpu_torch.ops import scan_pfac
+    from ahocorasick_tpu_torch.utils.lanes import bucket_depth
+
+    cases = pfac_edge_cases(np.random.default_rng(SEED + 21))
+    for label, kws, text, depth, dtype, shifted, patch in cases:
+        m = compile_matcher(kws, "ac", True)
+        rt = matchers._DeviceTables(m, dev).ranked
+        rt_cpu = rt._replace(trie_next=rt.trie_next.cpu(), prefix=rt.prefix.cpu())
+        d = bucket_depth(m.max_depth) if depth is None else depth
+        P = (d + 31) // 32
+        units = np.frombuffer(text.encode("utf-16-le"), dtype=np.uint16)
+        arr = scan_pfac.pad_classes(m.charmap[units], d).astype(dtype)
+        c_cpu = (torch.from_numpy(arr.view(np.int16)).view(torch.uint16) if dtype == "uint16"
+                 else torch.from_numpy(arr))
+        if shifted:  # the same classes one element past a 16-byte boundary
+            c = torch.empty(c_cpu.numel() + 1, dtype=c_cpu.dtype, device=dev)[1:]
+            c.copy_(c_cpu.to(dev))
+        else:
+            c = c_cpu.to(dev)
+        v2 = (rt.match_threshold, c, d)
+        saved = {k: getattr(kpf, k) for k in patch}
+        try:
+            for k, v in patch.items():
+                setattr(kpf, k, v)
+            shape = kpf.launch_shape(c.numel() - d, c.element_size(), rt.prefix.numel(),
+                                     kpf.sm_count(dev) if dev.type == "cuda" else 132)
+            planes = kpf.pfac2_planes(rt.trie_next, rt.prefix, *v2, P, rt.prefix_k,
+                                      m.num_classes, rt.dead_state)
+            count = kpf.pfac2_count(rt.trie_next, rt.prefix, *v2, rt.prefix_k, m.num_classes,
+                                    rt.dead_state)
+            torch.cuda.synchronize()
+        finally:
+            for k, v in saved.items():
+                setattr(kpf, k, v)
+        want = kpf.pfac2_planes_plain(rt_cpu.trie_next, rt_cpu.prefix, rt.match_threshold,
+                                      c_cpu, d, P, rt.prefix_k, m.num_classes)
+        want_count = int(kpf.pfac2_count_plain(rt_cpu.trie_next, rt_cpu.prefix,
+                                               rt.match_threshold, c_cpu, d, rt.prefix_k,
+                                               m.num_classes))
+        got = planes.cpu()
+        e_planes = (int((_widen(got) - _widen(want)).abs().max())
+                    if got.shape == want.shape else 1)
+        pop = int(_popcount32(_widen(got)).sum())
+        e_count = max(abs(int(count) - want_count), abs(pop - want_count))
+        errs["pfac2_planes"] = max(errs["pfac2_planes"], e_planes)
+        errs["pfac2_count"] = max(errs["pfac2_count"], e_count)
+        print(f"  pfac edge {label}: n={c.numel() - d}, depth {d}, k {rt.prefix_k}, "
+              f"{m.num_classes} classes, {dtype}; shape {tuple(shape)}; count {int(count)} "
+              f"(twin {want_count}, popcount {pop}); max_abs_err planes {e_planes}, count "
+              f"{e_count}")
+        if e_planes or e_count:
+            raise AssertionError(f"pfac edge {label}: a v2 kernel disagrees with its twin")
+    return len(cases)
+
+
 def main() -> int:
     import torch
 
@@ -2229,6 +2358,9 @@ def main() -> int:
                                     max_err)
         if n_walk != m.count(t) or not n_walk:
             raise AssertionError(f"pfac {label}: the walk counts {n_walk}, the facade {m.count(t)}")
+    t0 = time.perf_counter()
+    print(f"  pfac edges: {check_pfac_edges(dev, errs)} cases, v2 planes and count == their "
+          f"twins ({time.perf_counter() - t0:.2f} s)")
 
     # 4. The paths through the public classes, counters zeroed just before
     # each and read just after it.
@@ -4191,23 +4323,42 @@ def main() -> int:
     c64 = cp10.long()
 
     def walked(st, table, first, dead):
-        """Table loads a lane makes from depth ``first`` until the dead state."""
-        flat, stride, total = table.view(torch.int32).long().reshape(-1), table.shape[1], 0
+        """Table loads each lane makes from depth ``first`` until the dead
+        state (int32[n10])."""
+        flat, stride = table.view(torch.int32).long().reshape(-1), table.shape[1]
+        loads = torch.zeros(n10, dtype=torch.int32, device=dev)
         for kk in range(first, d10p):
             alive = st != dead
-            total += int(alive.sum())
+            loads += alive
             st = torch.where(alive, flat[st * stride + c64[kk: kk + n10]], st)
-        return total
+        return loads
 
     gram = kpfac._gram_index(cp10, n10, rt10.prefix_k, comp10.num_classes)
     first2 = rt10.prefix.view(torch.int32).long()[gram] & ((1 << kpfac.STATE_BITS) - 1)
-    steps2 = n10 + walked(first2, rt10.trie_next, rt10.prefix_k, rt10.dead_state)
+    lane2 = 1 + walked(first2, rt10.trie_next, rt10.prefix_k, rt10.dead_state)  # the prefix too
+    steps2 = int(lane2.sum())
     first1 = trie10.long()[0][c64[:n10]]
-    steps1 = n10 + walked(first1, trie10, 1, trie10.shape[0] - 1)
+    steps1 = n10 + int(walked(first1, trie10, 1, trie10.shape[0] - 1).sum())
     for k in ("pfac2_planes", "pfac2_count", "pfac1_planes"):
         print(f"time {k}, 10k dictionary, {n10} lanes, depth {d10p}: kernel {ms[k][0]} ms "
               f"({gbps(ms[k][0])} GB/s), plain twin {ms[k][1]} ms; table loads: v2 {steps2} "
               f"(prefix included), v1 {steps1} [{smi}]")
+    # The v2 walk's loads a lane (the prefix load and the trie loads) and the
+    # rate each mode reached, to set beside the residency sweep's dependent
+    # chain rate at an L2-resident table ("sweep" lines).
+    w32 = lane2[: n10 // 32 * 32].reshape(-1, 32)
+    print(f"pfac walk loads, 10k dictionary, {n10} lanes: {steps2} loads, a lane mean "
+          f"{steps2 / n10} max {int(lane2.max())}; a warp of 32 consecutive starts: the longest "
+          f"walk's loads mean {float(w32.max(dim=1).values.double().mean())}; trie loads "
+          f"{steps2 - n10}; rate " + ", ".join(
+              f"{k} {steps2 / (ms[k][0] * 1e-3) / 1e9} G loads/s"
+              for k in ("pfac2_planes", "pfac2_count")) + f" [{smi}]")
+    # The walk's designs in one process: the first design (planes, count, the
+    # count without its atomic add), the package's, the prefix read with
+    # __ldg, no refills (scan_variants.pfac_ab).
+    ab = scan_variants.pfac_ab((rt10, cp10, d10p, comp10.num_classes), variants_lib,
+                               grid=False)
+    print(f"ab pfac {json.dumps({'card': smi, **ab})}")
 
     # The least time the card could take for each kernel's timed call: the
     # bytes it must move (each streamed input read once, each output written
