@@ -113,11 +113,11 @@ def wwl_kernel_rate(m, cls: np.ndarray, reps: int = 8, min_units: int = None) ->
             return scan_wwl.scan_walks_on(sc, fused, windows, starts_d, d, sc.has_cross)
     else:
         reps = _reps_for(reps, (16 << 20) if min_units is None else min_units, len(cls))
-        tables = m.dev.wwl_walk
+        tables, derived = m.dev.wwl_walk, m.dev.wwl_walk_derived
         cls_d = scan_batched.classes_to_device(cls_p, comp.num_classes, m.device)
 
         def run():
-            return scan_wwl.wwl_walks_at(*tables, cls_d, starts_d, d)
+            return scan_wwl.wwl_walks_at(*tables, cls_d, starts_d, d, walk_tables=derived)
 
     dt = _seconds_per_rep(run, reps, starts_d.device)
     return (len(cls) * 2) / dt / 1e9

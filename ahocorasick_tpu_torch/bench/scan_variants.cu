@@ -80,6 +80,11 @@
 //     walks a thread without; each tile waits for its longest walk.
 //   * pfac_queue: csrc/pfac_walk.cuh's walk at other block and prefix-pass
 //     widths than the package's (uint8 classes).
+//   * wwl_fused_first: the whole-word-longest fused scan (csrc/wwl_scan.cu
+//     wwl_scan_fused) in its first design, a cursor over the sorted starts in
+//     each lane's chain, records, and a resolve launch a thread a slot.
+//   * wwl_walk_first: the per-start trie walk (csrc/wwl_walk.cu
+//     wwl_walks_at) in its first design, one thread a start.
 
 #include <cstdint>
 
@@ -1744,4 +1749,310 @@ extern "C" int pfac_queue(int threads, int per_lane, int blocks, int count_mode,
   const bool shared = prefix_shared != 0;
   return count_mode ? pfac_queue_mode<true>(threads, per_lane, blocks, w, shared, g, st)
                     : pfac_queue_mode<false>(threads, per_lane, blocks, w, shared, g, st);
+}
+
+// The whole-word-longest walks' first designs: the fused scan's lanes with a
+// cursor over the sorted starts in the chain and a resolve launch
+// (wwl_fused_first), and the per-start walk one thread a start
+// (wwl_walk_first).
+namespace wwl_first {
+
+using sweep::write_outcome;
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+
+// First index in [lo, hi) whose start is >= value (> value with `after`),
+// or hi.
+__device__ __forceinline__ int64_t search(const int32_t* __restrict__ starts, int64_t lo,
+                                          int64_t hi, int64_t value, bool after) {
+  while (lo < hi) {
+    const int64_t mid = lo + (hi - lo) / 2;
+    const int64_t s = __ldg(starts + mid);
+    if (s < value || (after && s == value)) {
+      lo = mid + 1;
+    } else {
+      hi = mid;
+    }
+  }
+  return lo;
+}
+
+// The first slot past a run of equal starts: called only at a duplicate, so
+// kept out of line (the scan's unrolled loop holds sixteen call sites).
+__device__ __noinline__ int32_t past_equal(const int32_t* __restrict__ starts, int32_t lo,
+                                           int32_t hi, int32_t value) {
+  return static_cast<int32_t>(search(starts, lo, hi, value, true));
+}
+
+// The fused scan's lanes: each writes the record of every distinct start of
+// its segment that lies in [0, live).  Positions and slots are 32-bit (the
+// wrapper keeps B*C below 2**31).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    fused_kernel(const uint32_t* __restrict__ table, const T* __restrict__ windows,
+                 int64_t num_windows, int width, int halo, int body, uint32_t stride, int d,
+                 int id_bits, int depth_bits, int kd_bits, int cross, int segments,
+                 int seg_len, const int32_t* __restrict__ starts, int64_t num_starts,
+                 int64_t live, uint32_t* __restrict__ meta) {
+  using tile::kTileSteps;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int64_t b = g / segments;  // window
+  if (b >= num_windows) return;
+  const int col0 = static_cast<int>(g - b * segments) * seg_len;  // the segment's first column
+  const int32_t base = static_cast<int32_t>(b * body);  // text position of body column 0
+  const int32_t lo = base + col0;
+  const int32_t hi = static_cast<int32_t>(
+      min64(min64(static_cast<int64_t>(lo) + seg_len, static_cast<int64_t>(base) + body), live));
+  if (lo >= hi) return;
+  const uint32_t idmask = (1u << id_bits) - 1u;
+  const uint32_t dmask = (1u << depth_bits) - 1u;
+  const T* row = windows + b * width;
+  // Three chains of dependent loads at once: the warm-up from the root over
+  // the halo classes before the segment, and the binary searches for the
+  // segment's first start slot and for the first slot past the segment.
+  uint32_t s = 0;
+  int32_t a0 = 0, a1 = static_cast<int32_t>(num_starts);
+  int32_t e0 = 0, e1 = a1;
+  for (int t = 0; t < halo || a0 < a1 || e0 < e1; ++t) {
+    if (t < halo) {
+      const uint32_t c = static_cast<uint32_t>(row[col0 + t]);
+      s = __ldg(table + (static_cast<uint64_t>(s) * stride + c)) & idmask;
+    }
+    if (a0 < a1) {
+      const int32_t mid = a0 + (a1 - a0) / 2;
+      if (__ldg(starts + mid) < lo) a0 = mid + 1; else a1 = mid;
+    }
+    if (e0 < e1) {
+      const int32_t mid = e0 + (e1 - e0) / 2;
+      if (__ldg(starts + mid) < hi) e0 = mid + 1; else e1 = mid;
+    }
+  }
+  int32_t j = a0;
+  const int32_t jend = e0;
+  if (j >= jend) return;
+  const int nflag = cross ? 2 : 1;
+  int32_t sj = __ldg(starts + j);  // the next walk to die, then the one after it
+  const int32_t s_last = __ldg(starts + jend - 1);
+  if (sj < lo || s_last < sj) return;  // unsorted starts (the wrapper raises): read nothing
+  int32_t sn = j + 1 < jend ? __ldg(starts + j + 1) : INT32_MAX;
+  // The last body column a walk of this lane may need (within the row).
+  const int steps = min(s_last - base + d, width - halo - 1) - col0 + 1;
+  const T* body_cls = row + halo + col0;
+  int32_t p = lo;  // text position of the tile's first char
+  for (int t0 = 0; t0 < steps && j < jend; t0 += kTileSteps) {
+    const int n = min(kTileSteps, steps - t0);
+    tile::ClassWords<T> cls;
+    cls.load(body_cls + t0, n);
+    // The tile's lookups, a chain of dependent loads with nothing between
+    // them, then its deaths found in a burst.
+    uint32_t v[kTileSteps];
+    uint32_t sp = s;  // the state before char t
+#pragma unroll
+    for (int t = 0; t < kTileSteps; ++t) {
+      if (t < n) {
+        v[t] = __ldg(table + (static_cast<uint64_t>(s) * stride + cls.at(t)));
+        s = v[t] & idmask;
+      }
+    }
+#pragma unroll
+    for (int t = 0; t < kTileSteps; ++t) {
+      if (t < n) {
+        const int32_t gp = p + t - static_cast<int32_t>((v[t] >> id_bits) & dmask);
+        while (sj <= gp) {  // the walk from sj died at p + t
+          const uint32_t kd = static_cast<uint32_t>(p + t - sj);
+          uint32_t rec = kd | (((v[t] >> (id_bits + depth_bits)) & 1u) << kd_bits);
+          if (kd > 0) {
+            if (cross) rec |= ((v[t] >> (id_bits + depth_bits + 1)) & 1u) << (kd_bits + 1);
+            rec |= sp << (kd_bits + nflag);
+          }
+          meta[j] = rec;
+          int32_t nj = j + 1;
+          if (sn == sj) {  // equal starts: the resolve launch copies this record
+            nj = past_equal(starts, nj, jend, sj);
+            sn = nj < jend ? __ldg(starts + nj) : INT32_MAX;
+          }
+          j = nj;
+          sj = sn;
+          sn = j + 1 < jend ? __ldg(starts + j + 1) : INT32_MAX;
+        }
+        sp = v[t] & idmask;
+      }
+    }
+    p += n;
+  }
+}
+
+// A thread per start slot: the outcome from the record of its start.
+__global__ void __launch_bounds__(kThreads)
+    resolve_kernel(const int32_t* __restrict__ starts, const uint32_t* __restrict__ meta,
+                   const int32_t* __restrict__ outrows, int64_t num_starts, int64_t live,
+                   int id_bits, int kd_bits, int cross, int32_t* __restrict__ die_pos,
+                   bool* __restrict__ has, int32_t* __restrict__ m_start,
+                   int32_t* __restrict__ m_end, int32_t* __restrict__ m_val,
+                   bool* __restrict__ cont) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= num_starts) return;
+  const int32_t w = starts[i];
+  int32_t kd = 0, s_last = 0;
+  bool die_word = false, crossed = false;
+  if (w >= 0 && w < live) {
+    const int64_t src = i > 0 && starts[i - 1] == w ? search(starts, 0, i, w, false) : i;
+    const uint32_t rec = meta[src];
+    const int nflag = cross ? 2 : 1;
+    kd = static_cast<int32_t>(rec & ((1u << kd_bits) - 1u));
+    die_word = (rec >> kd_bits) & 1u;
+    crossed = cross && ((rec >> (kd_bits + 1)) & 1u);
+    s_last = static_cast<int32_t>((rec >> (kd_bits + nflag)) & ((1u << id_bits) - 1u));
+  }
+  write_outcome(outrows, i, w, kd, die_word, crossed, s_last, die_pos, has, m_start, m_end,
+                m_val, cont);
+}
+
+
+template <typename T>
+__device__ __forceinline__ int64_t class_at(const T* __restrict__ cls, int64_t n, int64_t j) {
+  return (j >= 0 && j < n) ? static_cast<int64_t>(__ldg(cls + j)) : 0;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    walks_kernel(const int32_t* __restrict__ trie_next, const int32_t* __restrict__ own_len,
+                 const int32_t* __restrict__ own_val, const int32_t* __restrict__ fail_len,
+                 const int32_t* __restrict__ fail_off, const int32_t* __restrict__ fail_val,
+                 const bool* __restrict__ class_is_word, int32_t dead, int64_t stride,
+                 const T* __restrict__ cls, int64_t num_cls, const int32_t* __restrict__ starts,
+                 int64_t num_starts, int max_depth, int32_t* __restrict__ die_pos,
+                 bool* __restrict__ has, int32_t* __restrict__ m_start,
+                 int32_t* __restrict__ m_end, int32_t* __restrict__ m_val) {
+  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  if (i >= num_starts) return;
+  const int32_t w = starts[i];
+  int32_t s = 0, s_last = 0, kd = -1;
+  for (int k = 0; k <= max_depth; ++k) {
+    const int32_t nxt = __ldg(trie_next + (s * stride + class_at(cls, num_cls, int64_t{w} + k)));
+    if (nxt == dead) {
+      kd = k;
+      s_last = s;
+      break;
+    }
+    s = nxt;
+  }
+  const int32_t dp = w + kd;
+  const bool die_word = class_is_word[class_at(cls, num_cls, dp)];
+  const int32_t own = __ldg(own_len + s_last), fail_l = __ldg(fail_len + s_last);
+  const bool has_own = own > 0 && !die_word;
+  const bool has_fail = fail_l > 0 && (die_word || own == 0);
+  const int32_t end = has_own ? dp : dp - __ldg(fail_off + s_last);
+  die_pos[i] = dp;
+  has[i] = has_own || has_fail;
+  m_start[i] = end - (has_own ? own : fail_l);
+  m_end[i] = end;
+  m_val[i] = has_own ? __ldg(own_val + s_last) : __ldg(fail_val + s_last);
+}
+
+
+}  // namespace wwl_first
+
+// The fused scan's first design (csrc/wwl_scan.cu wwl_scan_fused computes the
+// same): each lane binary-searches the sorted starts for its first slot and
+// for the first slot past its segment (three chains with the warm-up),
+// carries the next start in registers and writes one record a distinct start
+// in the chain, a __noinline__ search past equal starts; a second launch, a
+// thread a slot, resolves each slot from its start's record and its outrows
+// row.  K <= 4 lanes a window (tile::valid_segments); meta is uint32[num_starts]
+// scratch.
+extern "C" int wwl_fused_first(const void* table, const void* windows, int class_bytes,
+                               int64_t num_windows, int width, int halo, int stride, int d,
+                               int id_bits, int depth_bits, int cross, int segments, int seg_len,
+                               const void* starts, int64_t num_starts, const void* outrows,
+                               void* meta, void* die_pos, void* has, void* m_start, void* m_end,
+                               void* m_val, void* cont, int device, void* stream) {
+  using namespace wwl_first;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  int kd_bits = 1;
+  while ((1 << kd_bits) <= d) ++kd_bits;
+  const int body = width - halo - (d + 1);
+  if (num_windows < 1 || num_starts < 1 || d < 0 || halo < 0 || body < 1 || id_bits < 1 ||
+      depth_bits < 1 || 1 + kd_bits + (cross ? 2 : 1) + id_bits > 32 ||
+      !tile::valid_segments(segments, seg_len, body, halo) || (cross != 0) != (cont != nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const int64_t live = num_windows * body - (d + 1);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* tab = static_cast<const uint32_t*>(table);
+  const auto* s = static_cast<const int32_t*>(starts);
+  auto* rec = static_cast<uint32_t*>(meta);
+  const unsigned grid = static_cast<unsigned>((num_windows * segments + kThreads - 1) / kThreads);
+  const auto str = static_cast<uint32_t>(stride);
+  if (class_bytes == 1) {
+    fused_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
+        tab, static_cast<const uint8_t*>(windows), num_windows, width, halo, body, str, d, id_bits,
+        depth_bits, kd_bits, cross, segments, seg_len, s, num_starts, live, rec);
+  } else if (class_bytes == 2) {
+    fused_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
+        tab, static_cast<const uint16_t*>(windows), num_windows, width, halo, body, str, d, id_bits,
+        depth_bits, kd_bits, cross, segments, seg_len, s, num_starts, live, rec);
+  } else if (class_bytes == 4) {
+    fused_kernel<int32_t><<<grid, kThreads, 0, st>>>(
+        tab, static_cast<const int32_t*>(windows), num_windows, width, halo, body, str, d, id_bits,
+        depth_bits, kd_bits, cross, segments, seg_len, s, num_starts, live, rec);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  resolve_kernel<<<static_cast<unsigned>((num_starts + kThreads - 1) / kThreads), kThreads, 0,
+                   st>>>(
+      s, rec, static_cast<const int32_t*>(outrows), num_starts, live, id_bits, kd_bits, cross,
+      static_cast<int32_t*>(die_pos), static_cast<bool*>(has), static_cast<int32_t*>(m_start),
+      static_cast<int32_t*>(m_end), static_cast<int32_t*>(m_val), static_cast<bool*>(cont));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The per-start walk's first design (csrc/wwl_walk.cu wwl_walks_at computes
+// the same): one thread a start in 256-thread blocks, the walk's trie loads
+// and class loads with __ldg, the outcome from the five int32 arrays at the
+// pre-die state and class_is_word at the die char.
+extern "C" int wwl_walk_first(const void* trie_next, const void* own_len, const void* own_val,
+                              const void* fail_len, const void* fail_off, const void* fail_val,
+                              const void* class_is_word, int num_states, int stride,
+                              const void* cls, int cls_bytes, int64_t num_cls, const void* starts,
+                              int64_t num_starts, int max_depth, void* die_pos, void* has,
+                              void* m_start, void* m_end, void* m_val, int device, void* stream) {
+  using namespace wwl_first;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_starts < 1 || num_states < 1 || stride < 1 || max_depth < 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>((num_starts + kThreads - 1) / kThreads);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto* t = static_cast<const int32_t*>(trie_next);
+  const auto* ol = static_cast<const int32_t*>(own_len);
+  const auto* ov = static_cast<const int32_t*>(own_val);
+  const auto* fl = static_cast<const int32_t*>(fail_len);
+  const auto* fo = static_cast<const int32_t*>(fail_off);
+  const auto* fv = static_cast<const int32_t*>(fail_val);
+  const auto* cw = static_cast<const bool*>(class_is_word);
+  const auto* s = static_cast<const int32_t*>(starts);
+  auto* dp = static_cast<int32_t*>(die_pos);
+  auto* h = static_cast<bool*>(has);
+  auto* ms = static_cast<int32_t*>(m_start);
+  auto* me = static_cast<int32_t*>(m_end);
+  auto* mv = static_cast<int32_t*>(m_val);
+  if (cls_bytes == 1) {
+    walks_kernel<uint8_t><<<grid, kThreads, 0, st>>>(t, ol, ov, fl, fo, fv, cw, num_states - 1,
+        stride, static_cast<const uint8_t*>(cls), num_cls, s, num_starts, max_depth, dp, h, ms,
+        me, mv);
+  } else if (cls_bytes == 2) {
+    walks_kernel<uint16_t><<<grid, kThreads, 0, st>>>(t, ol, ov, fl, fo, fv, cw, num_states - 1,
+        stride, static_cast<const uint16_t*>(cls), num_cls, s, num_starts, max_depth, dp, h, ms,
+        me, mv);
+  } else if (cls_bytes == 4) {
+    walks_kernel<int32_t><<<grid, kThreads, 0, st>>>(t, ol, ov, fl, fo, fv, cw, num_states - 1,
+        stride, static_cast<const int32_t*>(cls), num_cls, s, num_starts, max_depth, dp, h, ms,
+        me, mv);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }

@@ -83,6 +83,16 @@ refill) with the prefix read with ``__ldg``, at other block and pass widths
 interleaved) and its first design (``pfac_first`` here: planes, the count,
 and the count with each block's sum stored instead of its atomic add) on the
 10k dictionary's 32 Mi lanes (``--pfac`` runs only this one).
+``wwl_fused_ab``: the whole-word-longest fused scan (``csrc/wwl_scan.cu``:
+each lane counts its next starts' deaths over a tile of entries in
+registers, a record a start, and a resolve launch) at K = 1, 2, 4 and 8
+lanes a window beside its first design (``wwl_fused_first`` here: a cursor
+over the sorted starts in the chain); ``wwl_walk_ab``: the per-start walk
+(``csrc/wwl_walk.cu``: a thread a start with a k-gram prefix lookup and one
+outcome row a state) beside its first design (``wwl_walk_first`` here: the
+bare trie and five outcome arrays), with each design's table loads a walk;
+both at baseline-4 and the 10k cell of ``probes.probe_wwl_fused`` (``--wwl``
+runs only these two).
 
     python -m ahocorasick_tpu_torch.bench.scan_variants --against DIR
 
@@ -192,6 +202,18 @@ def library() -> ctypes.CDLL:
     #  prefix_shared, out, device, stream)
     lib.pfac_queue.argtypes = [I, I, I, I, *head, I, I64, I, P, I, P]
     lib.pfac_first.restype = lib.pfac_tiles.restype = lib.pfac_queue.restype = ctypes.c_int
+    # the fused scan's arguments before this design's lane slots, then
+    # (outrows, meta scratch, die_pos, has, m_start, m_end, m_val, cont, device,
+    # stream)
+    lib.wwl_fused_first.argtypes = [*build.ARGTYPES["wwl_scan_fused"][:15], P, P, P, P, P, P, P,
+                                    P, I, P]
+    # (trie_next, own_len, own_val, fail_len, fail_off, fail_val,
+    #  class_is_word, num_states, stride, cls, cls_bytes, num_cls, starts,
+    #  num_starts, max_depth, die_pos, has, m_start, m_end, m_val, device,
+    #  stream)
+    lib.wwl_walk_first.argtypes = [P, P, P, P, P, P, P, I, I, P, I, I64, P, I64, I, P, P, P, P,
+                                   P, I, P]
+    lib.wwl_fused_first.restype = lib.wwl_walk_first.restype = ctypes.c_int
     return lib
 
 
@@ -906,6 +928,173 @@ def pfac_ab(cell: tuple, lib, grid: bool = True) -> dict:
             "pfac_shape": kpf.launch_shape(n, cb, E, sms)._asdict(), "pfac_sm_count": sms}
 
 
+FUSED_KS = (1, 2, 4, 8)  # the fused scan's lanes a window in its A/B
+
+
+def _checked(rc, name):
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc}")
+
+
+def _same_outcomes(label, got, want) -> None:
+    for k, (g, w) in enumerate(zip(got, want)):
+        if not torch.equal(g, w):
+            raise AssertionError(f"{label}: output {k} differs")
+
+
+def wwl_fused_ab(cells: dict, lib) -> dict:
+    """The fused whole-word-longest scan's A/B.  ``cells``: ``{label: (sc,
+    windows, starts, d)}`` on the card (``sc`` a dense ``WwlScan``, the
+    ``chunk_classes_overlap`` windows, the sorted start slots).  Times, in
+    one process, the first design (``wwl_fused_first``: the cursor in the
+    chain and the resolve launch, at the planes' segments rule) and the
+    package's kernel at each K of ``FUSED_KS`` that the segments rule's
+    lengths allow (the package's K among them), each launch held bit for bit
+    against the package's wrapper first, and the wrapper against its twin;
+    ms per launch (the outputs allocated outside the timing)."""
+    from ahocorasick_tpu_torch.kernels import scan_block
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+
+    package = build.library()
+    record = {}
+    for label, (sc, wf, st, d) in cells.items():
+        dev = wf.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        B, W = wf.shape
+        C = W - d - (d + 1)
+        cross = sc.has_cross
+        kw = dict(halo=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits,
+                  num_classes=sc.num_classes, d=d, cross=cross)
+        want = kwwl.wwl_scan_fused(sc.table, sc.outrows, wf, st, **kw)
+        _same_outcomes(f"wwl_fused {label}: the wrapper vs its twin", want,
+                       kwwl.wwl_scan_fused_plain(sc.table, sc.outrows, wf, st, **kw))
+        n = st.shape[0]
+        slots = kwwl.lane_slots(st)
+        stride = sc.table.shape[1] if sc.table.dim() == 2 else sc.num_classes
+        head = (sc.table.data_ptr(), wf.data_ptr(), kwwl._CLASS_BYTES[wf.dtype], B, W, d, stride,
+                d, sc.id_bits, sc.depth_bits, int(cross))
+        outs = kwwl._empty_outcomes(n, dev, cross)
+        ptrs = (*(t.data_ptr() for t in outs[:5]), outs[5].data_ptr() if cross else None)
+        meta = torch.empty(n, dtype=torch.int32, device=dev)
+        k_first, l_first = scan_block.segments(B, C, d)
+        runs = {f"first K={k_first}": lambda: _checked(lib.wwl_fused_first(
+            *head, k_first, l_first, st.data_ptr(), n, sc.outrows.data_ptr(), meta.data_ptr(),
+            *ptrs, dev.index or 0, stream), "wwl_fused_first")}
+        k_pkg = kwwl.fused_segments(B, C, d)[0]
+        for k in FUSED_KS:
+            kk, seg = scan_block.segments(B, C, d, 1 << 40, k)
+            if kk != k:
+                continue
+            runs[f"K={k}"] = (lambda kk=kk, seg=seg: _checked(package.wwl_scan_fused(
+                *head, kk, seg, st.data_ptr(), n, slots, sc.outrows.data_ptr(), meta.data_ptr(),
+                *ptrs, dev.index or 0, stream), "wwl_scan_fused"))
+
+        def check(name, launch):
+            for t in outs:
+                t.zero_()
+            launch()
+            _same_outcomes(f"wwl_fused {label} {name}", outs, want)
+
+        record[label] = {"windows": [B, W], "slots": n, "lane_slots": slots, "d": d,
+                         "package_K": k_pkg, "ms": _sweep(runs, check)}
+    return {"wwl_fused_ms": record}
+
+
+def walk_loads(tabs, derived, cls, starts, d) -> dict:
+    """The table loads each walk makes: the first design's ``k_die + 1``
+    trie loads (``d + 1`` for a walk that lives through every step), the
+    package's one prefix load and ``k_die + 1 - k`` trie loads past the
+    prefix; their sums, means and maxima over the start slots."""
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+
+    trie = tabs[0]
+    A, dead = trie.shape[1], trie.shape[0] - 1
+    flat = trie.reshape(-1).to(torch.int64)
+    cls_at = kwwl._class_reader(cls)
+    w = starts.to(torch.int64)
+    state = torch.zeros_like(w)
+    steps = torch.full_like(w, d + 1)
+    for k in range(d + 1):
+        nxt = flat[state * A + cls_at(w + k)]
+        steps = torch.where((steps > d) & (nxt == dead), k + 1, steps)
+        state = nxt
+    pk = derived.prefix_k
+    first = steps
+    package = 1 + (steps - pk).clamp(min=0)
+    out = {}
+    for name, x in (("first", first), ("package", package)):
+        out[name] = {"loads": int(x.sum()), "mean": float(x.double().mean()), "max": int(x.max())}
+    out["prefix_k"] = pk
+    out["died_in_prefix"] = int((steps <= pk).sum())
+    return out
+
+
+def wwl_walk_ab(cells: dict, lib) -> dict:
+    """The per-start walk's A/B.  ``cells``: ``{label: (tabs, derived,
+    classes, starts, d)}`` on the card (``_DeviceTables.wwl_walk`` and
+    ``wwl_walk_derived``, the padded classes, the start slots).  Times, in
+    one process, the first design (``wwl_walk_first``: one thread a start
+    over the bare trie and the five outcome arrays) and the package's walk
+    (a thread a start with the k-gram prefix and the outcome rows), each
+    launch held bit for bit against the twin first; ms per launch, and each
+    design's table loads a walk (``walk_loads``) and their rate."""
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+
+    package = build.library()
+    record = {}
+    for label, (tabs, derived, cls, st, d) in cells.items():
+        dev = cls.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        S, A = tabs[0].shape
+        n = st.shape[0]
+        want = kwwl.wwl_walks_at_plain(*tabs, cls, st, d)
+        _same_outcomes(f"wwl_walk {label}: the wrapper vs its twin",
+                       kwwl.wwl_walks_at(*tabs, cls, st, d, walk_tables=derived), want)
+        outs = kwwl._empty_outcomes(n, dev, False)
+        ptrs = tuple(t.data_ptr() for t in outs)
+        cb = kwwl._CLASS_BYTES[cls.dtype]
+        tail = (dev.index or 0, stream)
+        runs = {"first": lambda: _checked(lib.wwl_walk_first(
+            *(t.data_ptr() for t in tabs), S, A, cls.data_ptr(), cb, cls.shape[0],
+            st.data_ptr(), n, d, *ptrs, *tail), "wwl_walk_first"),
+            f"package, k={derived.prefix_k}": lambda: _checked(package.wwl_walks_at(
+                tabs[0].data_ptr(), derived.prefix.data_ptr(), derived.rows.data_ptr(),
+                tabs[6].data_ptr(), S, A, derived.prefix_k, cls.data_ptr(), cb, cls.shape[0],
+                st.data_ptr(), n, d, *ptrs, *tail), "wwl_walks_at")}
+
+        def check(name, launch):
+            for t in outs:
+                t.zero_()
+            launch()
+            _same_outcomes(f"wwl_walk {label} {name}", outs, want)
+
+        ms = _sweep(runs, check)
+        loads = walk_loads(tabs, derived, cls, st, d)
+        rate = {name: loads["first" if name == "first" else "package"]["loads"] / (t * 1e-3) / 1e9
+                for name, t in ms.items()}
+        record[label] = {"slots": n, "d": d, "ms": ms, "loads": loads, "g_loads_per_s": rate}
+    return {"wwl_walk_ms": record}
+
+
+def wwl_cells(m, cls) -> tuple:
+    """``wwl_fused_ab``'s and ``wwl_walk_ab``'s cells of one matcher and
+    text: the facade's start slots (``compact_lanes``) over the fused
+    scan's windows and the walk's padded classes."""
+    from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
+
+    comp = m.compiled
+    sc = m.dev.wwl_scan
+    cls_p, starts, _lanes, _ws, d = scan_wwl.compact_lanes(comp, cls)
+    dev = sc.outrows.device
+    st = torch.from_numpy(starts).to(dev)
+    wf = scan_batched.classes_to_device(
+        scan_wwl.chunk_classes_overlap(cls_p, scan_wwl._CHUNK, d, d + 1, sc.num_classes),
+        sc.num_classes, dev)
+    walk_cls = scan_batched.classes_to_device(cls_p, comp.num_classes, dev)
+    tabs = m.dev.wwl_walk
+    return ((sc, wf, st, d), (tabs, scan_wwl.build_walk_tables(*tabs[:6], d), walk_cls, st, d))
+
+
 AGAINST_KERNELS = ("packed_scan_count", "packed_scan_planes", "packedcount_count",
                    "packedcount_hotstate_plane", "split_emit_planes", "rowdfa2_count",
                    "table_sharded_scan", "seq_states_sync", "rescan", "seq_states_spec",
@@ -1101,6 +1290,9 @@ def main(argv=None) -> None:
                         help="time the lane-loop kernels against another checkout's csrc/")
     parser.add_argument("--pfac", action="store_true",
                         help="only the PFAC v2 walk's A/B (pfac_ab) on the 10k cell")
+    parser.add_argument("--wwl", action="store_true",
+                        help="only the whole-word-longest walks' A/Bs (wwl_fused_ab, "
+                             "wwl_walk_ab) at baseline-4 and the 10k cell")
     opts = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("scan_variants: needs a CUDA device")
@@ -1108,6 +1300,9 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     lib = None if opts.against else library()
+    if opts.wwl:
+        print(json.dumps({"card": smi, **wwl_ab(dev, lib)}))
+        return
     rng = np.random.default_rng(SEED)
     keywords = make_dictionary(rng, N_KEYWORDS)
     m = AhoCorasickSet(keywords, engine="device", device=dev)
@@ -1172,7 +1367,20 @@ def main(argv=None) -> None:
     record.update(tp_ab(ten_k_shards(m, dev, w)))
     record.update(sweep_ab(ten_k_sweep_cells(keywords, dev)))
     record.update(pfac_ab(ten_k_pfac_cell(m, base, dev)[0], lib))
+    record.update(wwl_ab(dev, lib))
     print(json.dumps({"card": smi, **record}))
+
+
+def wwl_ab(dev, lib) -> dict:
+    """``wwl_fused_ab`` and ``wwl_walk_ab`` at baseline-4 and the 10k cell
+    (``probes.probe_wwl_fused``'s cases)."""
+    from ahocorasick_tpu_torch.probes import probe_wwl_fused
+
+    fused, walk = {}, {}
+    for label, make in (("baseline-4", probe_wwl_fused.baseline4),
+                        ("10k", probe_wwl_fused.cell_10k)):
+        fused[label], walk[label] = wwl_cells(*make(dev))
+    return {**wwl_fused_ab(fused, lib), **wwl_walk_ab(walk, lib)}
 
 
 def ten_k_pfac_cell(m, base, dev) -> tuple:

@@ -51,31 +51,42 @@
 // g(p) = p - depth(plane[p]) never decreases along the text, and the sweep's
 // k_die(w) = min{k : depth(plane[w+k]) <= k} is the first p with g(p) >= w,
 // minus w.  Starts are sorted (compact_lanes pads with len(cls)), so walks
-// die in start order, and one forward cursor per lane replaces the JAX
-// kernel's ring: at each position p with entry v, while
-// p - depth(v) >= starts[j], walk j died at p, with k_die = p - starts[j],
-// the word and crossing bits of v, and the pre-die state (the state before
-// p; the root when k_die = 0).  That is no d+1 compare-and-select a char and
-// no per-char record; a lane carries its state, its position and the next
-// two starts in registers.  (tests/test_torch_wwl_fused.py asserts the depth
-// property on every dense table those tests build, pure and mixed.  The
-// JAX formulation, the ring, is the plain twin's, so the cursor is held
-// against an independent algorithm.)  Lanes are the plane kernel's segments.
-// A lane warms from the root over the `halo` classes before its segment
-// while it binary-searches `starts` for its first slot and for the first
-// slot past it (three chains of dependent loads in flight together; about
-// 23 steps each at 5 Mi slots), scans its tiles of 16 chars as a chain of
-// lookups with nothing between them, then finds the tile's deaths in a
-// burst, and stops when its last start has died: it reads no class past
-// the d classes after its segment.  It writes one record per distinct
-// start, k_die | word << kd_bits [| cross << (kd_bits + 1)] | s_pre <<
-// (kd_bits + nflag), the JAX record without its `died` bit;
-// fused_applicable's bit budget is what lets it fit.  A second launch, a
-// thread per start slot, gives each slot its outcome from that record and
-// its outrows row, as the sweep does from the plane: a start outside [0, L)
-// takes the sweep's zero word, and a start equal to the one before it takes
-// the record of the first slot that holds that start (the padded slots are
-// all equal, and one lane writing them all would serialize).
+// die in start order: the walks that die in a stretch of chars are one run
+// of slots, those whose start is at most g at the stretch's last char.
+// (tests/test_torch_wwl_fused.py asserts the depth property on every dense
+// table those tests build, pure and mixed.  The JAX formulation, the ring,
+// is the plain twin's, so the kernel is held against an independent
+// algorithm.)
+//
+// The lanes.  Lane g takes segment g % K of window g / K (fused_segments:
+// up to K = 8 lanes a window, set by the A/B below), warms from the root over
+// the `halo` classes before it, and takes the slots [J(g), J(g + 1)) whose
+// starts lie in its positions.  Those bounds come before the first char
+// with no prepass and no search a lane from the whole array: lanes 0-15 and
+// 16-31 of a warp find J of the warp's first lane and of the lane after its
+// last by a 16-ary search (a ballot a step, about 7 steps at 5 Mi slots),
+// then each lane binary-searches its own bound between them (about 9 steps
+// at K = 8), while the warm-up's lookups run.  The lane then scans 16 chars
+// a tile, the tile's entries kept in registers, with its next kAhead = 8
+// starts read ahead (loads issued after the tile before, in flight during
+// the lookups).  Between the lookups, which wait on each other, each char
+// adds to below[j] whether its g is below next[j]: compares that wait on no
+// load.  At the tile's end the starts at most g at its last char died in the
+// tile, the die char of next[j] being char below[j]; the lane picks that
+// entry and the one before it from its registers and writes the walk's
+// record, k_die | word << kd_bits [| cross << (kd_bits + 1)] | s_pre <<
+// (kd_bits + nflag), the JAX record without its `died` bit
+// (fused_applicable's bit budget is what lets it fit).  More than kAhead
+// deaths in a tile take a count each against the tile's entries.  At the
+// row's last char every walk left ends (none do when d bounds the depth, as
+// the callers' d does): a walk that did not die within d + 1 chars takes
+// the zero record, as the ring's slot does.  A second launch, a thread a
+// slot, gives each slot its outcome from its start's record and its
+// outrows row, as the sweep does from the plane: a start outside [0, L)
+// takes the sweep's zero word, and the slots of a trailing run of equal
+// starts (compact_lanes' padding; kernels/scan_wwl.lane_slots finds it with
+// the sortedness check) take the record of the run's first slot, which the
+// lanes wrote once.
 //
 // What bounds it on the H100.  The plane kernel is the packed-scan kernel's
 // chain: one table load per char whose address depends on the previous one,
@@ -107,23 +118,31 @@
 // the 10k cell's start slots from 0.0906 to 0.0876 ms, about 2.8 TB/s of
 // those bytes; a warp's span staged in shared memory was slower
 // (bench/scan_variants.cu).  The fused scan is the same chain as the plane
-// kernel, with no plane: its bytes are the
-// windows, the starts and the outcomes, at the 10k cell 65,537 x 537 B +
-// 4 B x 5,242,880 + 17 B x 5,242,880, about 145 MB or 0.043 ms at 3.35 TB/s,
-// against the plane-plus-sweep route's 0.088 ms.  Its record per start
-// (4 B, written in slot order by each lane) and the second launch's reads
-// of it are traffic above that bound; they keep the outrows loads and the
-// 17 B of outcomes off the scan's chain.  What it costs instead of the
-// plane's stores is the work of finding the deaths: a compare a char and,
-// at about one char in six a lane, a record, a store and the next start's
-// load, which a warp's lanes take at different chars, so the warp runs
-// that path at almost every char.  On the card (probes/probe_wwl_fused.py,
-// PERF.md) that work costs about what the plane's stores cost, and the
-// resolve launch about what the sweep costs, so the fused route is no
-// faster than the plane and the sweep; FUSED_DEFAULT says which runs.
-// The state lives in a register, tables are read through the read-only path
-// (__ldg), flat table indices are 64-bit.  Staging the table in shared
-// memory is later work.
+// kernel, with no plane: its bytes are the windows, the starts and the
+// outcomes, at the 10k cell 65,537 x 537 B + 4 B x 5,242,880 + 17 B x
+// 5,242,880, about 145 MB or 0.043 ms at 3.35 TB/s, against the
+// plane-plus-sweep route's 0.088 ms.  The records (4 B a slot) and the
+// resolve launch's reads of them are traffic above that bound.  What bounds
+// it is the chain: the lanes' lookups alone, over the same segments and d
+// chars past them, took 0.146 ms at K = 1 and 0.174 ms at K = 8 on the 10k
+// cell, and the whole scan 0.254 ms at K = 8 with its resolve launch (0.053
+// ms alone; NVIDIA H100 80GB HBM3, 700 W; PERF.md), so the fused route now
+// runs below the plane and the sweep (0.2404 against 0.2757 ms at the 10k
+// cell, 0.0350 against 0.0404 at baseline-4, probes/probe_wwl_fused.py) and
+// FUSED_DEFAULT is True.  Its first design took 0.396 ms: a cursor over the
+// sorted starts inside the chain, whose death path (a record, a store and
+// the next start's load at about one char in six a lane) each warp ran at
+// almost every char, three binary searches a lane before the first char,
+// and a search a repeated start in its resolve launch
+// (bench/scan_variants.cu wwl_fused_first).  Designs that lost their A/B:
+// the tile's entries in a shared-memory row (0.302 ms at K = 8; the chain
+// alone ran 0.192 ms with that row declared, 0.174 without), the deaths
+// taken by the warp as a queue with shuffles (0.301 ms), the outcomes
+// written by the scan itself instead of a record and a resolve launch
+// (0.38-1.25 ms: the outrows gather waits in the lane), the warp's starts
+// staged in shared memory (0.331 ms) and the next tile's classes read a
+// tile ahead (0.304 ms).  The state lives in a register, tables are read
+// through the read-only path (__ldg), flat table indices are 64-bit.
 
 #include <cstdint>
 
@@ -207,153 +226,219 @@ __global__ void __launch_bounds__(kThreads)
 
 using sweep::write_outcome;
 
-__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) { return a < b ? a : b; }
+// The fused scan's launch: the lanes' segments, the starts they take (slots
+// [0, lane_slots), sorted), the records and the outputs.  Positions and
+// slots are 32-bit (the wrapper keeps B*C below 2**31).
+struct Fused {
+  const uint32_t* table;
+  const void* windows;
+  const int32_t* starts;
+  const int32_t* outrows;
+  uint32_t* meta;  // a record a start: uint32[lane_slots]
+  int32_t* die_pos;
+  bool* has;
+  int32_t* m_start;
+  int32_t* m_end;
+  int32_t* m_val;
+  bool* cont;  // null unless cross
+  int64_t num_windows;
+  int width, halo, body, d, id_bits, depth_bits, cross, segments, seg_len, kd_bits;
+  uint32_t stride;
+  int32_t lane_slots;  // the slots the lanes take
+  int32_t live;        // a start at or past live (or below 0) reads the zero sweep word
+};
 
-// First index in [lo, hi) whose start is >= value (> value with `after`),
-// or hi.
-__device__ __forceinline__ int64_t search(const int32_t* __restrict__ starts, int64_t lo,
-                                          int64_t hi, int64_t value, bool after) {
-  while (lo < hi) {
-    const int64_t mid = lo + (hi - lo) / 2;
-    const int64_t s = __ldg(starts + mid);
-    if (s < value || (after && s == value)) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
+// The first text position of lane `lane` (a window's K lanes in order, the
+// windows in order), or live past the last lane: the lanes' positions are
+// consecutive, so lane g's slots are [J(g), J(g + 1)) with J(g) the first
+// slot whose start is at or past first_pos(g).
+__device__ __forceinline__ int32_t first_pos(const Fused& f, int64_t lane) {
+  if (lane >= f.num_windows * f.segments) return f.live;
+  const int64_t b = lane / f.segments;
+  const int64_t pos = b * f.body + (lane - b * f.segments) * static_cast<int64_t>(f.seg_len);
+  return static_cast<int32_t>(pos < f.live ? pos : f.live);
+}
+
+// Starts read ahead of the lane's next death: kAhead loads issued together
+// after a tile's deaths, in flight during the next tile's lookups.
+constexpr int kAhead = 8;
+
+__device__ __forceinline__ void read_ahead(const int32_t* __restrict__ starts, int32_t j,
+                                           int32_t end, int32_t (&next)[kAhead]) {
+#pragma unroll
+  for (int i = 0; i < kAhead; ++i) next[i] = j + i < end ? __ldg(starts + j + i) : INT32_MAX;
+}
+
+// The record of the walk from w at slot `slot` that died at char t of the
+// lane's tile (v its entries, s_in the state before it, p its first
+// position), k_die | word << kd_bits [| cross << (kd_bits + 1)] | s_pre <<
+// (kd_bits + nflag): t = n (no char of the tile) or a death past d + 1 chars
+// takes the zero record, as the ring's slot does.
+__device__ __forceinline__ void write_record(const Fused& f,
+                                             const uint32_t (&v)[tile::kTileSteps],
+                                             uint32_t s_in, int32_t slot, int32_t w, int t, int n,
+                                             int32_t p) {
+  uint32_t die = 0u, pre = s_in;  // the die entry and the entry before it
+#pragma unroll
+  for (int k = 0; k < tile::kTileSteps; ++k) {
+    if (k == t) die = v[k];
+    if (k + 1 == t) pre = v[k];
+  }
+  uint32_t rec = 0u;
+  if (t < n && p + t - w <= f.d) {
+    const uint32_t kd = static_cast<uint32_t>(p + t - w);
+    rec = kd | ((die >> (f.id_bits + f.depth_bits)) & 1u) << f.kd_bits;
+    if (kd > 0) {
+      const uint32_t crossed = f.cross ? (die >> (f.id_bits + f.depth_bits + 1)) & 1u : 0u;
+      rec |= crossed << (f.kd_bits + 1) |
+             (pre & ((1u << f.id_bits) - 1u)) << (f.kd_bits + (f.cross ? 2 : 1));
     }
   }
-  return lo;
+  f.meta[slot] = rec;
 }
 
-// The first slot past a run of equal starts: called only at a duplicate, so
-// kept out of line (the scan's unrolled loop holds sixteen call sites).
-__device__ __noinline__ int32_t past_equal(const int32_t* __restrict__ starts, int32_t lo,
-                                           int32_t hi, int32_t value) {
-  return static_cast<int32_t>(search(starts, lo, hi, value, true));
-}
-
-// The fused scan's lanes: each writes the record of every distinct start of
-// its segment that lies in [0, live).  Positions and slots are 32-bit (the
-// wrapper keeps B*C below 2**31).
+// The fused scan's lanes: lane g scans its segment of window g / K (warmed
+// over the halo) 16 chars a tile, the tile's entries in registers, and
+// counts, for each of its next kAhead starts, the tile's chars whose g is
+// below that start (compares that wait on no load, between the chain's
+// lookups).  A start at most g at the tile's last char died in the tile, at
+// the char its count names: the lane writes its record.
 template <typename T>
-__global__ void __launch_bounds__(kThreads)
-    fused_kernel(const uint32_t* __restrict__ table, const T* __restrict__ windows,
-                 int64_t num_windows, int width, int halo, int body, uint32_t stride, int d,
-                 int id_bits, int depth_bits, int kd_bits, int cross, int segments,
-                 int seg_len, const int32_t* __restrict__ starts, int64_t num_starts,
-                 int64_t live, uint32_t* __restrict__ meta) {
+__global__ void __launch_bounds__(kThreads) fused_kernel(const Fused f) {
+  using tile::kFull;
   using tile::kTileSteps;
+  const int lane = threadIdx.x & 31;
   const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  const int64_t b = g / segments;  // window
-  if (b >= num_windows) return;
-  const int col0 = static_cast<int>(g - b * segments) * seg_len;  // the segment's first column
-  const int32_t base = static_cast<int32_t>(b * body);  // text position of body column 0
-  const int32_t lo = base + col0;
-  const int32_t hi = static_cast<int32_t>(
-      min64(min64(static_cast<int64_t>(lo) + seg_len, static_cast<int64_t>(base) + body), live));
-  if (lo >= hi) return;
-  const uint32_t idmask = (1u << id_bits) - 1u;
-  const uint32_t dmask = (1u << depth_bits) - 1u;
-  const T* row = windows + b * width;
-  // Three chains of dependent loads at once: the warm-up from the root over
-  // the halo classes before the segment, and the binary searches for the
-  // segment's first start slot and for the first slot past the segment.
+  const int64_t g0 = g - lane;  // the warp's first lane
+  const int64_t num_lanes = f.num_windows * f.segments;
+  if (g0 >= num_lanes) return;  // the whole warp: no lane of it scans
+  const bool active = g < num_lanes;
+  const int64_t b = active ? g / f.segments : 0;
+  const int col0 = active ? static_cast<int>(g - b * f.segments) * f.seg_len : 0;
+  const int32_t lo = first_pos(f, g);
+  const T* row = static_cast<const T*>(f.windows) + b * f.width;
+  const uint32_t idmask = (1u << f.id_bits) - 1u;
+  const uint32_t dmask = (1u << f.depth_bits) - 1u;
+  // The warp's slot bounds, J(g0) by lanes 0-15 and J(g0 + 32) by lanes
+  // 16-31, each a 16-ary search; the lanes warm up from the root meanwhile.
+  const int half = lane >> 4, r = lane & 15;
+  const int32_t x = first_pos(f, half ? g0 + 32 : g0);
+  int32_t blo = 0, bhi = f.lane_slots;
   uint32_t s = 0;
-  int32_t a0 = 0, a1 = static_cast<int32_t>(num_starts);
-  int32_t e0 = 0, e1 = a1;
-  for (int t = 0; t < halo || a0 < a1 || e0 < e1; ++t) {
-    if (t < halo) {
-      const uint32_t c = static_cast<uint32_t>(row[col0 + t]);
-      s = __ldg(table + (static_cast<uint64_t>(s) * stride + c)) & idmask;
+  int t = 0;  // warm-up steps taken
+  while (__any_sync(kFull, blo < bhi)) {
+    if (active && t < f.halo) {
+      s = __ldg(f.table + (static_cast<uint64_t>(s) * f.stride +
+                           static_cast<uint32_t>(row[col0 + t]))) & idmask;
     }
+    ++t;
+    const int32_t span = bhi - blo;
+    const int valid = span < 16 ? span : 16;
+    const auto pivot = [&](int i) {
+      return span <= 16 ? blo + i : blo + static_cast<int32_t>(int64_t{span} * (i + 1) / 17);
+    };
+    const bool less = r < valid && __ldg(f.starts + pivot(r)) < x;
+    const int c = __popc((__ballot_sync(kFull, less) >> (16 * half)) & 0xffffu);
+    const int32_t nlo = c > 0 ? pivot(c - 1) + 1 : blo;
+    bhi = c < valid ? pivot(c) : bhi;
+    blo = nlo;
+  }
+  const int32_t j_first = __shfl_sync(kFull, blo, 0);
+  const int32_t j_last = __shfl_sync(kFull, blo, 16);
+  // Each lane's own bound in [J(g0), J(g0 + 32)], a binary search.
+  int32_t a0 = j_first, a1 = lane == 0 ? j_first : j_last;
+  while (a0 < a1 || t < f.halo) {
+    if (active && t < f.halo) {
+      s = __ldg(f.table + (static_cast<uint64_t>(s) * f.stride +
+                           static_cast<uint32_t>(row[col0 + t]))) & idmask;
+    }
+    ++t;
     if (a0 < a1) {
       const int32_t mid = a0 + (a1 - a0) / 2;
-      if (__ldg(starts + mid) < lo) a0 = mid + 1; else a1 = mid;
-    }
-    if (e0 < e1) {
-      const int32_t mid = e0 + (e1 - e0) / 2;
-      if (__ldg(starts + mid) < hi) e0 = mid + 1; else e1 = mid;
+      if (__ldg(f.starts + mid) < lo) a0 = mid + 1; else a1 = mid;
     }
   }
-  int32_t j = a0;
-  const int32_t jend = e0;
-  if (j >= jend) return;
-  const int nflag = cross ? 2 : 1;
-  int32_t sj = __ldg(starts + j);  // the next walk to die, then the one after it
-  const int32_t s_last = __ldg(starts + jend - 1);
-  if (sj < lo || s_last < sj) return;  // unsorted starts (the wrapper raises): read nothing
-  int32_t sn = j + 1 < jend ? __ldg(starts + j + 1) : INT32_MAX;
-  // The last body column a walk of this lane may need (within the row).
-  const int steps = min(s_last - base + d, width - halo - 1) - col0 + 1;
-  const T* body_cls = row + halo + col0;
-  int32_t p = lo;  // text position of the tile's first char
-  for (int t0 = 0; t0 < steps && j < jend; t0 += kTileSteps) {
-    const int n = min(kTileSteps, steps - t0);
+  int32_t jc = a0;
+  int32_t je = __shfl_down_sync(kFull, a0, 1);
+  if (lane == 31) je = j_last;
+  if (!active) return;  // (the starts outside [0, live) are the resolve launch's)
+  const int last_col = f.body + f.d;  // the row's last body column
+  const T* body_cls = row + f.halo;
+  int col = col0;  // the body column of the tile's first char
+  int32_t p = lo;  // its text position
+  int32_t next[kAhead];
+  read_ahead(f.starts, jc, je, next);
+  while (jc < je) {
+    const int n = min(kTileSteps, last_col + 1 - col);
     tile::ClassWords<T> cls;
-    cls.load(body_cls + t0, n);
-    // The tile's lookups, a chain of dependent loads with nothing between
-    // them, then its deaths found in a burst.
+    cls.load(body_cls + col, n);
+    int below[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) below[j] = 0;
+    const uint32_t s_in = s;
+    int32_t gmax = INT32_MIN;
     uint32_t v[kTileSteps];
-    uint32_t sp = s;  // the state before char t
 #pragma unroll
-    for (int t = 0; t < kTileSteps; ++t) {
-      if (t < n) {
-        v[t] = __ldg(table + (static_cast<uint64_t>(s) * stride + cls.at(t)));
-        s = v[t] & idmask;
+    for (int k = 0; k < kTileSteps; ++k) {
+      v[k] = 0u;
+      if (k < n) {
+        v[k] = __ldg(f.table + (static_cast<uint64_t>(s) * f.stride + cls.at(k)));
+        s = v[k] & idmask;
+        gmax = p + k - static_cast<int32_t>((v[k] >> f.id_bits) & dmask);
+#pragma unroll
+        for (int j = 0; j < kAhead; ++j) below[j] += gmax < next[j];
       }
     }
+    // At the row's last char every walk left ends: those that did not die
+    // within d + 1 chars take the zero record.
+    if (col + n - 1 == last_col) gmax = INT32_MAX;
+    int c = 0;
 #pragma unroll
-    for (int t = 0; t < kTileSteps; ++t) {
-      if (t < n) {
-        const int32_t gp = p + t - static_cast<int32_t>((v[t] >> id_bits) & dmask);
-        while (sj <= gp) {  // the walk from sj died at p + t
-          const uint32_t kd = static_cast<uint32_t>(p + t - sj);
-          uint32_t rec = kd | (((v[t] >> (id_bits + depth_bits)) & 1u) << kd_bits);
-          if (kd > 0) {
-            if (cross) rec |= ((v[t] >> (id_bits + depth_bits + 1)) & 1u) << (kd_bits + 1);
-            rec |= sp << (kd_bits + nflag);
-          }
-          meta[j] = rec;
-          int32_t nj = j + 1;
-          if (sn == sj) {  // equal starts: the resolve launch copies this record
-            nj = past_equal(starts, nj, jend, sj);
-            sn = nj < jend ? __ldg(starts + nj) : INT32_MAX;
-          }
-          j = nj;
-          sj = sn;
-          sn = j + 1 < jend ? __ldg(starts + j + 1) : INT32_MAX;
+    for (int j = 0; j < kAhead; ++j) c += jc + j < je && next[j] <= gmax;
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (j < c) write_record(f, v, s_in, jc + j, next[j], below[j], n, p);
+    }
+    if (c == kAhead) {  // more deaths than were read ahead: a count each
+      int32_t j2 = jc + kAhead;
+      for (; j2 < je; ++j2) {
+        const int32_t w = __ldg(f.starts + j2);
+        if (w > gmax) break;
+        int a = 0;
+#pragma unroll
+        for (int k = 0; k < kTileSteps; ++k) {
+          a += k < n && p + k - static_cast<int32_t>((v[k] >> f.id_bits) & dmask) < w;
         }
-        sp = v[t] & idmask;
+        write_record(f, v, s_in, j2, w, a, n, p);
       }
+      c = j2 - jc;
     }
+    jc += c;
     p += n;
+    col += n;
+    read_ahead(f.starts, jc, je, next);
   }
 }
 
-// A thread per start slot: the outcome from the record of its start.
-__global__ void __launch_bounds__(kThreads)
-    resolve_kernel(const int32_t* __restrict__ starts, const uint32_t* __restrict__ meta,
-                   const int32_t* __restrict__ outrows, int64_t num_starts, int64_t live,
-                   int id_bits, int kd_bits, int cross, int32_t* __restrict__ die_pos,
-                   bool* __restrict__ has, int32_t* __restrict__ m_start,
-                   int32_t* __restrict__ m_end, int32_t* __restrict__ m_val,
-                   bool* __restrict__ cont) {
+// A thread a slot: the outcome from its start's record (the trailing run's
+// slots from the run's first slot's; a start outside [0, live) from the zero
+// sweep word) and the pre-die state's outrows row.
+__global__ void __launch_bounds__(kThreads) resolve_kernel(const Fused f, int64_t n) {
   const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= num_starts) return;
-  const int32_t w = starts[i];
+  if (i >= n) return;
+  const int32_t w = __ldg(f.starts + i);
   int32_t kd = 0, s_last = 0;
-  bool die_word = false, crossed = false;
-  if (w >= 0 && w < live) {
-    const int64_t src = i > 0 && starts[i - 1] == w ? search(starts, 0, i, w, false) : i;
-    const uint32_t rec = meta[src];
-    const int nflag = cross ? 2 : 1;
-    kd = static_cast<int32_t>(rec & ((1u << kd_bits) - 1u));
-    die_word = (rec >> kd_bits) & 1u;
-    crossed = cross && ((rec >> (kd_bits + 1)) & 1u);
-    s_last = static_cast<int32_t>((rec >> (kd_bits + nflag)) & ((1u << id_bits) - 1u));
+  bool word = false, crossed = false;
+  if (w >= 0 && w < f.live) {
+    const uint32_t rec = __ldg(f.meta + (i < f.lane_slots ? i : f.lane_slots - 1));
+    kd = static_cast<int32_t>(rec & ((1u << f.kd_bits) - 1u));
+    word = (rec >> f.kd_bits) & 1u;
+    crossed = f.cross && ((rec >> (f.kd_bits + 1)) & 1u);
+    s_last = static_cast<int32_t>((rec >> (f.kd_bits + (f.cross ? 2 : 1))) &
+                                  ((1u << f.id_bits) - 1u));
   }
-  write_outcome(outrows, i, w, kd, die_word, crossed, s_last, die_pos, has, m_start, m_end,
-                m_val, cont);
+  write_outcome(f.outrows, i, w, kd, word, crossed, s_last, f.die_pos, f.has, f.m_start,
+                f.m_end, f.m_val, f.cont);
 }
 
 unsigned grid_for(int64_t n) { return static_cast<unsigned>((n + kThreads - 1) / kThreads); }
@@ -463,52 +548,87 @@ extern "C" int wwl_sweep_all(const void* plane, const void* entry, const void* r
   return static_cast<int>(cudaGetLastError());
 }
 
+namespace {
+
+// The fused scan's lanes: K in 1..kMaxFusedLanes a window, the segments
+// rule of kernels/scan_block.py (L a multiple of 4; K = 1 and L = body, or K
+// >= 2 with a halo to warm over).
+constexpr int kMaxFusedLanes = 8;
+
+bool fused_segments_ok(int segments, int seg_len, int body, int halo) {
+  const bool one = segments == 1 && seg_len == body;
+  const bool split = segments >= 2 && segments <= kMaxFusedLanes && halo >= 1 &&
+                     seg_len % 4 == 0 && (segments - 1) * seg_len < body &&
+                     segments * seg_len >= body;
+  return one || split;
+}
+
+}  // namespace
+
 // The fused scan over chunk_classes_overlap windows (width = halo + C + d +
 // 1) of a dense table, at sorted `starts`: two launches on `stream`, the
-// lanes (records into `meta`, uint32[num_starts] scratch) and the outcomes.
-// `cont` is null unless `cross`.
+// lanes (a record into `meta`, uint32[lane_slots] scratch, for each of the
+// slots [0, lane_slots) whose start lies in [0, live)) and the outcomes of
+// every slot (slots [lane_slots, num_starts), a trailing run of starts equal
+// to slot lane_slots - 1's, take its record).  `cont` is null unless
+// `cross`.
 extern "C" int wwl_scan_fused(const void* table, const void* windows, int class_bytes,
                               int64_t num_windows, int width, int halo, int stride, int d,
                               int id_bits, int depth_bits, int cross, int segments, int seg_len,
-                              const void* starts, int64_t num_starts, const void* outrows,
-                              void* meta, void* die_pos, void* has, void* m_start, void* m_end,
-                              void* m_val, void* cont, int device, void* stream) {
+                              const void* starts, int64_t num_starts, int64_t lane_slots,
+                              const void* outrows, void* meta, void* die_pos, void* has,
+                              void* m_start, void* m_end, void* m_val, void* cont, int device,
+                              void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
+  const int body = width - halo - (d + 1);
   int kd_bits = 1;
   while ((1 << kd_bits) <= d) ++kd_bits;
-  const int body = width - halo - (d + 1);
-  if (num_windows < 1 || num_starts < 1 || d < 0 || halo < 0 || body < 1 || id_bits < 1 ||
-      depth_bits < 1 || 1 + kd_bits + (cross ? 2 : 1) + id_bits > 32 ||
-      !valid_segments(segments, seg_len, body, halo) || (cross != 0) != (cont != nullptr))
+  if (num_windows < 1 || num_starts < 1 || num_starts > 2147483647 || lane_slots < 1 ||
+      lane_slots > num_starts || d < 0 || halo < 0 || body < 1 || id_bits < 1 ||
+      depth_bits < 1 || id_bits + depth_bits + 1 + (cross ? 1 : 0) > 32 ||
+      kd_bits + (cross ? 2 : 1) + id_bits > 32 || num_windows * body >= (int64_t{1} << 31) ||
+      !fused_segments_ok(segments, seg_len, body, halo) || (cross != 0) != (cont != nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const int64_t live = num_windows * body - (d + 1);
+  Fused f{};
+  f.table = static_cast<const uint32_t*>(table);
+  f.windows = windows;
+  f.starts = static_cast<const int32_t*>(starts);
+  f.outrows = static_cast<const int32_t*>(outrows);
+  f.meta = static_cast<uint32_t*>(meta);
+  f.die_pos = static_cast<int32_t*>(die_pos);
+  f.has = static_cast<bool*>(has);
+  f.m_start = static_cast<int32_t*>(m_start);
+  f.m_end = static_cast<int32_t*>(m_end);
+  f.m_val = static_cast<int32_t*>(m_val);
+  f.cont = static_cast<bool*>(cont);
+  f.num_windows = num_windows;
+  f.width = width;
+  f.halo = halo;
+  f.body = body;
+  f.d = d;
+  f.id_bits = id_bits;
+  f.depth_bits = depth_bits;
+  f.cross = cross;
+  f.segments = segments;
+  f.seg_len = seg_len;
+  f.kd_bits = kd_bits;
+  f.stride = static_cast<uint32_t>(stride);
+  f.lane_slots = static_cast<int32_t>(lane_slots);
+  f.live = static_cast<int32_t>(num_windows * body - (d + 1));
   auto st = static_cast<cudaStream_t>(stream);
-  const auto* tab = static_cast<const uint32_t*>(table);
-  const auto* s = static_cast<const int32_t*>(starts);
-  auto* rec = static_cast<uint32_t*>(meta);
   const unsigned grid = grid_for(num_windows * segments);
-  const auto str = static_cast<uint32_t>(stride);
   if (class_bytes == 1) {
-    fused_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
-        tab, static_cast<const uint8_t*>(windows), num_windows, width, halo, body, str, d, id_bits,
-        depth_bits, kd_bits, cross, segments, seg_len, s, num_starts, live, rec);
+    fused_kernel<uint8_t><<<grid, kThreads, 0, st>>>(f);
   } else if (class_bytes == 2) {
-    fused_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
-        tab, static_cast<const uint16_t*>(windows), num_windows, width, halo, body, str, d, id_bits,
-        depth_bits, kd_bits, cross, segments, seg_len, s, num_starts, live, rec);
+    fused_kernel<uint16_t><<<grid, kThreads, 0, st>>>(f);
   } else if (class_bytes == 4) {
-    fused_kernel<int32_t><<<grid, kThreads, 0, st>>>(
-        tab, static_cast<const int32_t*>(windows), num_windows, width, halo, body, str, d, id_bits,
-        depth_bits, kd_bits, cross, segments, seg_len, s, num_starts, live, rec);
+    fused_kernel<int32_t><<<grid, kThreads, 0, st>>>(f);
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  resolve_kernel<<<grid_for(num_starts), kThreads, 0, st>>>(
-      s, rec, static_cast<const int32_t*>(outrows), num_starts, live, id_bits, kd_bits, cross,
-      static_cast<int32_t*>(die_pos), static_cast<bool*>(has), static_cast<int32_t*>(m_start),
-      static_cast<int32_t*>(m_end), static_cast<int32_t*>(m_val), static_cast<bool*>(cont));
+  resolve_kernel<<<grid_for(num_starts), kThreads, 0, st>>>(f, num_starts);
   return static_cast<int>(cudaGetLastError());
 }

@@ -120,19 +120,19 @@ ARGTYPES = {
     "wwl_scan_plane": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P, _I, _P],
     # (table, windows, class_bytes, num_windows, width, halo, stride, d,
     #  id_bits, depth_bits, cross, segments, seg_len, starts, num_starts,
-    #  outrows, meta, die_pos, has, m_start, m_end, m_val, cont, device, stream)
-    "wwl_scan_fused": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I64,
+    #  lane_slots, outrows, meta, die_pos, has, m_start, m_end, m_val, cont,
+    #  device, stream)
+    "wwl_scan_fused": [_P, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P, _I64, _I64,
                        _P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # (plane, entry, rows_flat, outrows, starts, num_starts, live, d, id_bits,
     #  depth_bits, cross, die_pos, has, m_start, m_end, m_val, cont, device,
     #  stream)
     "wwl_sweep_at": [_P, _P, _P, _P, _P, _I64, _I64, _I, _I, _I, _I,
                      _P, _P, _P, _P, _P, _P, _I, _P],
-    # (trie_next, own_len, own_val, fail_len, fail_off, fail_val,
-    #  class_is_word, num_states, stride, cls, cls_bytes, num_cls, starts,
-    #  num_starts, max_depth, die_pos, has, m_start, m_end, m_val, device,
-    #  stream)
-    "wwl_walks_at": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _P, _I, _I64, _P, _I64, _I,
+    # (trie_next, prefix, rows, class_is_word, num_states, stride, prefix_k,
+    #  cls, cls_bytes, num_cls, starts, num_starts, max_depth, die_pos, has,
+    #  m_start, m_end, m_val, device, stream)
+    "wwl_walks_at": [_P, _P, _P, _P, _I, _I, _I, _P, _I, _I64, _P, _I64, _I,
                      _P, _P, _P, _P, _P, _I, _P],
     # (table, row_id or null, cls, cls_bytes, n, num_classes, s0, chunk_len,
     #  out, repair or null, device, stream)

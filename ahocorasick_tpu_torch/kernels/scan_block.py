@@ -88,20 +88,22 @@ MAX_LANES = 65_536
 COUNT_MAX_LANES = 131_072
 
 
-def segments(num_windows: int, body: int, halo: int, max_lanes: int = MAX_LANES) -> tuple:
+def segments(num_windows: int, body: int, halo: int, max_lanes: int = MAX_LANES,
+             max_k: int = 4) -> tuple:
     """``(K, L)``: a segmented kernel's lanes per window and body positions
     per lane (the last lane of a window takes the rest, ``C - (K-1)*L``).
 
-    K = 4, else 2, else 1: the largest that keeps ``num_windows * K`` within
-    ``max_lanes`` (the planes kernels' ``MAX_LANES`` unless a kernel measured
-    its own) and whose segments are at least four halos and 32 steps long,
+    K = 8 (where ``max_k`` allows it: the fused WWL scan), else 4, else 2,
+    else 1: the largest that keeps ``num_windows * K`` within ``max_lanes``
+    (the planes kernels' ``MAX_LANES`` unless a kernel measured its own) and
+    whose segments are at least four halos and 32 steps long,
     with L = ceil(C / K) rounded up to a multiple of 4 (16-byte stores) and
     the last segment not empty (C = ``body``).  Each lane is warmed from the
     root over the ``halo`` classes before its segment, which is exact because
     the automaton is ``halo``-synchronizing; with ``halo = 0`` nothing
     synchronizes, so K = 1."""
     if halo >= 1:
-        for k in (4, 2):
+        for k in (k for k in (8, 4, 2) if k <= max_k):
             seg = -(-body // (4 * k)) * 4
             if (num_windows * k <= max_lanes and seg >= max(4 * halo, 32)
                     and (k - 1) * seg < body):
@@ -174,17 +176,19 @@ def _to_uint32(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= 1 << 31, x - (1 << 32), x).to(torch.int32).view(torch.uint32)
 
 
-def _segment_lanes(windows: torch.Tensor, halo: int, K: int, L: int) -> torch.Tensor:
-    """``windows[B, halo + C]`` -> ``lanes[B*K, halo + L]``: lane ``b*K + k``
-    holds row b's classes ``[k*L, k*L + halo + L)``, zero past the row."""
+def _segment_lanes(windows: torch.Tensor, halo: int, K: int, L: int,
+                   right: int = 0) -> torch.Tensor:
+    """``windows[B, halo + C + right]`` -> ``lanes[B*K, halo + L + right]``:
+    lane ``b*K + k`` holds row b's classes ``[k*L, k*L + halo + L + right)``,
+    zero past the row."""
     B, W = windows.shape
     if K == 1:
         return windows
     # uint16 has no slicing copy on every build: move the same bits as int16.
     bits = windows.view(torch.int16) if windows.dtype == torch.uint16 else windows
-    padded = torch.zeros((B, halo + K * L), dtype=bits.dtype, device=bits.device)
+    padded = torch.zeros((B, halo + K * L + right), dtype=bits.dtype, device=bits.device)
     padded[:, :W] = bits
-    lanes = padded.unfold(1, halo + L, L).reshape(B * K, halo + L)
+    lanes = padded.unfold(1, halo + L + right, L).reshape(B * K, halo + L + right)
     return lanes.view(windows.dtype) if windows.dtype == torch.uint16 else lanes
 
 

@@ -19,11 +19,15 @@ Five kernels (``csrc/wwl_scan.cu``, ``csrc/wwl_walk.cu``):
 * ``wwl_walks_at(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
   class_is_word, cls_padded, starts, max_depth)`` walks the trie from each
   start for at most ``max_depth + 1`` steps (dead = ``trie_next.shape[0] -
-  1``) and applies the same rules;
+  1``) and applies the same rules; on the card it reads two tables derived
+  from these (``WalkTables``: a k-gram prefix table and one outcome row a
+  state);
 * ``wwl_scan_fused(table, outrows, windows, starts, ...)`` finds each walk's
-  die position inside the scan of ``chunk_classes_overlap`` windows (a
-  cursor over the sorted starts, no plane) and applies the same rules; its
-  twin follows the JAX kernel's ring of ``d + 1`` slots instead.
+  die position inside the scan of ``chunk_classes_overlap`` windows (no
+  plane: each lane counts its next starts' deaths over a tile of entries in
+  registers and writes a record a start, which a second launch resolves)
+  and applies the same rules; its twin follows the JAX kernel's ring of ``d
+  + 1`` slots instead, over the same lanes (``fused_segments``).
 
 Together they replace the JAX package's ``ops/scan_wwl.py`` ``wwl_scan_walks``
 (with ``_wwl_core``), ``wwl_scan_walks_all``, ``wwl_walks_at`` /
@@ -42,7 +46,7 @@ other.  ``launches`` (``kernels/build.py``) counts kernel launches only.
 from __future__ import annotations
 
 import weakref
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -104,9 +108,12 @@ def _check_aligned(outrows: torch.Tensor) -> None:
 
 
 def _empty_outcomes(w: int, dev, cross: bool):
-    i32 = lambda: torch.empty(w, dtype=torch.int32, device=dev)
-    outs = (i32(), torch.empty(w, dtype=torch.bool, device=dev), i32(), i32(), i32())
-    return outs + (torch.empty(w, dtype=torch.bool, device=dev),) if cross else outs
+    """``(die_pos, has, m_start, m_end, m_val[, cont])`` of ``w`` slots, rows
+    of two allocations (one int32, one bool)."""
+    ints = torch.empty((4, w), dtype=torch.int32, device=dev)
+    bools = torch.empty((2 if cross else 1, w), dtype=torch.bool, device=dev)
+    outs = (ints[0], bools[0], ints[1], ints[2], ints[3])
+    return outs + (bools[1],) if cross else outs
 
 
 # ------------------------------------------------------------ scan plane (B11)
@@ -298,14 +305,72 @@ def wwl_sweep_all_plain(plane, entry, rows_flat, outrows, n_keep, *, d, id_bits,
 
 # ------------------------------------------------------ per-start walk (B13)
 
+# The per-start walk's derived tables (csrc/wwl_walk.cu).
+WALK_MAX_K = 3  # kMaxK
+WALK_STATE_BITS = 28  # kStateBits: a prefix entry's state field
+WALK_DIED = 1 << 31  # kDied: a prefix entry's flag, the walk died within the k-gram
+WALK_MAX_PREFIX_ENTRIES = 1 << 20  # the largest k-gram table (4 MB), as ops/scan_pfac2's
+
+
+class WalkTables(NamedTuple):
+    """The per-start walk's derived tables (``ops/scan_wwl.build_walk_tables``):
+    ``prefix`` uint32[A^k] over the trie's padded classes A (the state after
+    a k-gram, or ``WALK_DIED | step << WALK_STATE_BITS | the state before the
+    step`` where the walk died within it), its ``prefix_k``, and ``rows``
+    int32[S, 8], each state's outcome row (own_len, own_val, fail_len,
+    fail_off, fail_val, 0, 0, 0)."""
+
+    prefix: torch.Tensor
+    prefix_k: int
+    rows: torch.Tensor
+
+
+def walk_prefix_k(stride: int, max_depth: int) -> int:
+    """The k-gram length: the largest k <= ``WALK_MAX_K`` and <= ``max_depth +
+    1`` (a walk takes ``max_depth + 1`` steps) whose ``stride^k`` entries stay
+    within ``WALK_MAX_PREFIX_ENTRIES``; at least 1."""
+    k = 1
+    while (k < min(WALK_MAX_K, max_depth + 1)
+           and stride ** (k + 1) <= WALK_MAX_PREFIX_ENTRIES):
+        k += 1
+    return k
+
+
+# Tables derived by the wrapper itself, where the caller hands none:
+# (id of trie_next, the outcome arrays' ids, k) -> (a weak reference to
+# trie_next, the arrays' version counters then, the tables).  An entry leaves
+# with its trie_next.
+_DERIVED: dict = {}
+
+
+def _derived_tables(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
+                    max_depth) -> WalkTables:
+    from ahocorasick_tpu_torch.ops import scan_wwl as ops_wwl
+
+    arrays = (trie_next, own_len, own_val, fail_len, fail_off, fail_val)
+    k = walk_prefix_k(trie_next.shape[1], max_depth)
+    key = (*(id(t) for t in arrays), k)
+    versions = tuple(t._version for t in arrays)
+    seen = _DERIVED.get(key)
+    if seen is not None and seen[0]() is trie_next and seen[1] == versions:
+        return seen[2]
+    tables = ops_wwl.build_walk_tables(*arrays, max_depth)
+    _DERIVED[key] = (weakref.ref(trie_next, lambda _ref: _DERIVED.pop(key, None)), versions,
+                     tables)
+    return tables
+
 
 def wwl_walks_at(trie_next: torch.Tensor, own_len: torch.Tensor, own_val: torch.Tensor,
                  fail_len: torch.Tensor, fail_off: torch.Tensor, fail_val: torch.Tensor,
                  class_is_word: torch.Tensor, cls_padded: torch.Tensor, starts: torch.Tensor,
-                 max_depth: int):
+                 max_depth: int, *, walk_tables: Optional[WalkTables] = None):
     """Walk outcomes for the given start positions (the JAX ``wwl_walks_at``
     contract); ``cls_padded`` extends ``max_depth + 1`` units past every
-    start (reads beyond it are the pad class 0)."""
+    start (reads beyond it are the pad class 0).  On the card the kernel
+    reads the derived tables ``walk_tables`` (``ops/scan_wwl
+    .build_walk_tables`` of these arrays), derived here and cached a
+    ``trie_next`` where none are handed in; it raises where the states do not
+    fit a prefix entry's ``WALK_STATE_BITS``."""
     if trie_next.dtype != torch.int32 or trie_next.dim() != 2:
         raise TypeError(f"trie_next must be int32[S, A], got {trie_next.dtype}{tuple(trie_next.shape)}")
     S, A = trie_next.shape
@@ -328,11 +393,33 @@ def wwl_walks_at(trie_next: torch.Tensor, own_len: torch.Tensor, own_val: torch.
     outs = _empty_outcomes(W, dev, False)
     if W == 0:
         return outs
-    build.call("wwl_walks_at", *(t.data_ptr() for t in tables), S, A, cls_padded.data_ptr(),
+    wt = (walk_tables if walk_tables is not None
+          else _derived_tables(*tables[:6], max_depth))
+    _check_walk_tables(wt, S, A, max_depth, dev)
+    build.call("wwl_walks_at", trie_next.data_ptr(), wt.prefix.data_ptr(), wt.rows.data_ptr(),
+               class_is_word.data_ptr(), S, A, wt.prefix_k, cls_padded.data_ptr(),
                _CLASS_BYTES[cls_padded.dtype], cls_padded.shape[0], starts.data_ptr(), W,
                max_depth, *(t.data_ptr() for t in outs), dev.index, _stream(dev))
     launches["wwl_walks_at"] += 1
     return outs
+
+
+def _check_walk_tables(wt: WalkTables, S: int, A: int, max_depth: int, dev) -> None:
+    if S > 1 << WALK_STATE_BITS:
+        raise ValueError(f"{S} states do not fit the walk's {WALK_STATE_BITS}-bit prefix entries")
+    if not 1 <= wt.prefix_k <= min(WALK_MAX_K, max_depth + 1):
+        raise ValueError(f"prefix_k {wt.prefix_k} outside [1, min({WALK_MAX_K}, max_depth + 1 "
+                         f"= {max_depth + 1})]")
+    if (wt.prefix.dtype != torch.uint32 or wt.prefix.dim() != 1
+            or wt.prefix.numel() != A ** wt.prefix_k):
+        raise TypeError(f"prefix must be uint32[{A}^{wt.prefix_k}], got "
+                        f"{wt.prefix.dtype}{tuple(wt.prefix.shape)}")
+    _check_int32("rows", wt.rows, (S, 8))
+    if wt.prefix.device != dev or wt.rows.device != dev:
+        raise ValueError(f"walk tables on {wt.prefix.device}, classes on {dev}")
+    if not (wt.prefix.is_contiguous() and wt.rows.is_contiguous()):
+        raise ValueError("walk tables must be contiguous")
+    _check_aligned(wt.rows)
 
 
 def wwl_walks_at_plain(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
@@ -341,12 +428,7 @@ def wwl_walks_at_plain(trie_next, own_len, own_val, fail_len, fail_off, fail_val
     A = trie_next.shape[1]
     dead = trie_next.shape[0] - 1
     tf = trie_next.reshape(-1).to(torch.int64)
-    M = cls_padded.shape[0]
-    c_ext = torch.cat([_index(cls_padded), torch.zeros(1, dtype=torch.int64, device=cls_padded.device)])
-
-    def cls_at(i):  # reads outside cls_padded are the pad class 0 (c_ext[M])
-        return c_ext[torch.where((i >= 0) & (i < M), i, M)]
-
+    cls_at = _class_reader(cls_padded)
     w = starts.to(torch.int64)
     state = torch.zeros_like(w)
     kd = torch.full_like(w, -1)
@@ -362,6 +444,49 @@ def wwl_walks_at_plain(trie_next, own_len, own_val, fail_len, fail_off, fail_val
     g = lambda t: t.to(torch.int64)[s_last]
     return _outcomes(g(own_len), g(own_val), g(fail_len), g(fail_off), g(fail_val), die_pos,
                      die_word)
+
+
+def _class_reader(cls_padded):
+    """``cls_at(i)``: the classes at int64 positions i, the pad class 0
+    outside ``cls_padded``."""
+    M = cls_padded.shape[0]
+    c_ext = torch.cat([_index(cls_padded), torch.zeros(1, dtype=torch.int64, device=cls_padded.device)])
+    return lambda i: c_ext[torch.where((i >= 0) & (i < M), i, M)]
+
+
+def wwl_walks_prefix(trie_next, class_is_word, cls_padded, starts, max_depth,
+                     walk_tables: WalkTables):
+    """The kernel's decomposition in plain PyTorch: one prefix lookup a
+    start (the walk's death within the k-gram, or its state after it), then
+    the trie steps ``k .. max_depth`` of the walks that go on, and the
+    outcome from the pre-die state's row of ``walk_tables.rows``.  Equal to
+    ``wwl_walks_at_plain`` of the tables ``walk_tables`` was derived from."""
+    A = trie_next.shape[1]
+    dead = trie_next.shape[0] - 1
+    k = walk_tables.prefix_k
+    cls_at = _class_reader(cls_padded)
+    w = starts.to(torch.int64)
+    gram = torch.zeros_like(w)
+    for j in range(k):
+        gram = gram * A + cls_at(w + j)
+    e = _widen(walk_tables.prefix)[gram]
+    died = (e & WALK_DIED) != 0
+    mask = (1 << WALK_STATE_BITS) - 1
+    kd = torch.where(died, (e >> WALK_STATE_BITS) & 3, -1)
+    s_last = torch.where(died, e & mask, 0)
+    state = torch.where(died, dead, e & mask)
+    tf = trie_next.reshape(-1).to(torch.int64)
+    for step in range(k, max_depth + 1):
+        go = (kd < 0) & (state != dead)
+        nxt = tf[torch.where(go, state, 0) * A + cls_at(w + step)]
+        newly = go & (nxt == dead)
+        kd = torch.where(newly, step, kd)
+        s_last = torch.where(newly, state, s_last)
+        state = torch.where(go, nxt, state)
+    die_pos = w + kd
+    die_word = class_is_word[cls_at(die_pos)]
+    r = walk_tables.rows.to(torch.int64)[s_last]
+    return _outcomes(r[:, 0], r[:, 1], r[:, 2], r[:, 3], r[:, 4], die_pos, die_word)
 
 
 # ------------------------------------------------------------ fused scan (B1)
@@ -397,21 +522,78 @@ def _check_fused_args(table, outrows, windows, starts, halo, id_bits, depth_bits
     return B, W, stride
 
 
-# Starts found sorted: id -> (a weak reference, the version counter then).  A
-# tensor is read again only once it changed, so repeated calls on the same
-# starts (the timing loops) do not wait on the card for the check; an entry
-# leaves with its tensor.
+# The fused scan splits windows while its lanes stay at most this many, up
+# to FUSED_MAX_K lanes a window (scan_block.segments: segments of at least
+# four halos and 32 steps).  Its lanes are chains of dependent lookups with no
+# store tile, so it takes the count kernel's view that lanes in flight help
+# until the caches bind, not the planes kernels' cap.
+FUSED_MAX_LANES = 1 << 20
+FUSED_MAX_K = 8
+
+
+def fused_segments(num_windows: int, body: int, halo: int) -> tuple:
+    """``(K, L)`` of the fused scan over ``num_windows`` windows of ``body``
+    positions: ``scan_block.segments`` under ``FUSED_MAX_LANES`` and
+    ``FUSED_MAX_K``; K = 1 where ``halo = 0``.  Its twin takes the same."""
+    return segments(num_windows, body, halo, FUSED_MAX_LANES, FUSED_MAX_K)
+
+
+def fused_lane_slots(starts: torch.Tensor, num_windows: int, body: int, d: int, K: int,
+                     L: int, lane_slots: int) -> torch.Tensor:
+    """``int64[num_windows * K + 1]``: entry g is the first of the slots
+    ``[0, lane_slots)`` whose start lies at or past lane g's first position
+    (live past the last lane), the slot range ``[J(g), J(g + 1))`` that the
+    fused kernel's lane g takes; ``J(0)`` slots below 0 and the slots from
+    ``J(num_windows * K)`` (starts at or past live) take the zero sweep
+    word.  One pass a slot, as a prepass would make it: each slot's lane
+    from arithmetic on its start (window ``w // C``, lane ``(w - b*C) //
+    L``), and each lane's first slot where a new lane's run begins; a lane
+    without starts takes the next lane's."""
+    lanes = num_windows * K
+    live = num_windows * body - (d + 1)
+    w = starts[:lane_slots].to(torch.int64)
+    b = torch.div(w.clamp(0, max(live - 1, 0)), body, rounding_mode="floor")
+    key = b * K + torch.div(w.clamp(min=0) - b * body, L, rounding_mode="floor")
+    key = torch.where(w < 0, -1, torch.where(w >= live, lanes, key))
+    first = torch.full((lanes + 2,), lane_slots, dtype=torch.int64, device=starts.device)
+    new = torch.ones_like(key, dtype=torch.bool)
+    new[1:] = key[1:] != key[:-1]
+    first.scatter_reduce_(0, (key + 1)[new], torch.nonzero(new).reshape(-1), "amin")
+    # A lane without starts begins where the next lane with starts does.
+    first = torch.flip(torch.cummin(torch.flip(first, [0]), 0).values, [0])
+    return first[1:]
+
+
+# Starts found sorted: id -> (a weak reference, the version counter then, the
+# slots the lanes take).  A tensor is read again only once it changed, so
+# repeated calls on the same starts (the timing loops) do not wait on the card
+# for the check; an entry leaves with its tensor.
 _SORTED: dict = {}
 
 
-def _check_sorted(starts: torch.Tensor) -> None:
+def lane_slots(starts: torch.Tensor) -> int:
+    """The slots of sorted ``starts`` that the fused kernel's lanes take:
+    all but a trailing run of equal starts after its first slot (the padded
+    slots of ``compact_lanes``), whose outcome the rest of the run copies.
+    Raises on starts that are not sorted ascending."""
     key = id(starts)
     seen = _SORTED.get(key)
     if seen is not None and seen[0]() is starts and seen[1] == starts._version:
-        return
-    if starts.shape[0] > 1 and bool((starts[1:] < starts[:-1]).any()):
-        raise ValueError("starts must be sorted ascending")
-    _SORTED[key] = (weakref.ref(starts, lambda _ref: _SORTED.pop(key, None)), starts._version)
+        return seen[2]
+    n = starts.shape[0]
+    slots = n
+    if n > 1:
+        down = (starts[1:] < starts[:-1]).any()
+        step = torch.nonzero(starts[1:] != starts[:-1])
+        last = step[-1, 0] + 1 if step.shape[0] else torch.zeros((), dtype=torch.int64,
+                                                                  device=starts.device)
+        bad, run = torch.stack([down.to(torch.int64), last.to(torch.int64)]).tolist()
+        if bad:
+            raise ValueError("starts must be sorted ascending")
+        slots = run + 1
+    _SORTED[key] = (weakref.ref(starts, lambda _ref: _SORTED.pop(key, None)), starts._version,
+                    slots)
+    return slots
 
 
 def wwl_scan_fused(table: torch.Tensor, outrows: torch.Tensor, windows: torch.Tensor,
@@ -425,7 +607,7 @@ def wwl_scan_fused(table: torch.Tensor, outrows: torch.Tensor, windows: torch.Te
     quotient table and on starts that are not sorted ascending."""
     B, W, stride = _check_fused_args(table, outrows, windows, starts, halo, id_bits, depth_bits,
                                      num_classes, d, cross, quotient)
-    _check_sorted(starts)
+    slots = lane_slots(starts)
     n = starts.shape[0]
     dev = windows.device
     if dev.type == "cpu":
@@ -436,11 +618,11 @@ def wwl_scan_fused(table: torch.Tensor, outrows: torch.Tensor, windows: torch.Te
     outs = _empty_outcomes(n, dev, cross)
     if n == 0:
         return outs
-    meta = torch.empty(n, dtype=torch.int32, device=dev)  # one record per start
+    meta = torch.empty(slots, dtype=torch.int32, device=dev)  # a record a start
     build.call("wwl_scan_fused", table.data_ptr(), windows.data_ptr(),
                _CLASS_BYTES[windows.dtype], B, W, halo, stride, d, id_bits, depth_bits,
-               int(cross), *segments(B, W - halo - (d + 1), halo), starts.data_ptr(), n,
-               outrows.data_ptr(), meta.data_ptr(), *(t.data_ptr() for t in outs[:5]),
+               int(cross), *fused_segments(B, W - halo - (d + 1), halo), starts.data_ptr(), n,
+               slots, outrows.data_ptr(), meta.data_ptr(), *(t.data_ptr() for t in outs[:5]),
                outs[5].data_ptr() if cross else None, dev.index, _stream(dev))
     launches["wwl_scan_fused"] += 1
     return outs
@@ -448,30 +630,34 @@ def wwl_scan_fused(table: torch.Tensor, outrows: torch.Tensor, windows: torch.Te
 
 def wwl_scan_fused_plain(table, outrows, windows, starts, *, halo, id_bits, depth_bits,
                          num_classes, d, cross):
-    """The plain twin, by the JAX kernel's algorithm, not the cursor's: every
-    lane carries a ring of ``d + 1`` records over the window columns (slot
-    ``t mod (d+1)`` tracks the walk started at body step t; at each step
-    every live slot tests ``depth <= age``; the slot of age d is complete and
-    emits ``k | word << kd_bits [| cross << (kd_bits + 1)] | s_pre << (kd_bits +
-    nflag)``), then the records are taken at the starts (zero outside
-    ``[0, B*C - (d+1))``, as the sweep's zero word) and resolved by the
-    outcome rules.  int64 throughout."""
+    """The plain twin, by the JAX kernel's algorithm, not the kernel's: every
+    lane (``fused_segments``, each warmed over the ``halo`` classes before its
+    segment and reading ``d + 1`` classes past it) carries a ring of ``d +
+    1`` records over its columns (slot ``t mod (d+1)`` tracks the walk
+    started at body step t; at each step every live slot tests ``depth <=
+    age``; the slot of age d is complete and emits ``k | word << kd_bits [|
+    cross << (kd_bits + 1)] | s_pre << (kd_bits + nflag)``), then the records
+    are taken at the starts (zero outside ``[0, B*C - (d+1))``, as the
+    sweep's zero word) and resolved by the outcome rules.  int64
+    throughout."""
     B, W = windows.shape
     C = W - halo - (d + 1)
+    K, L = fused_segments(B, C, halo)
+    lanes = _segment_lanes(windows, halo, K, L, d + 1)
     dev = windows.device
     stride = table.shape[1] if table.dim() == 2 else num_classes
     tf = _widen(table.reshape(-1))
     idmask, dmask = (1 << id_bits) - 1, (1 << depth_bits) - 1
     kd_bits = _kd_bits(d)
     nflag = 2 if cross else 1
-    s = torch.zeros(B, dtype=torch.int64, device=dev)
+    s = torch.zeros(B * K, dtype=torch.int64, device=dev)
     for t in range(halo):
-        s = tf[s * stride + _index(windows[:, t])] & idmask
+        s = tf[s * stride + _index(lanes[:, t])] & idmask
     slots = torch.arange(d + 1, dtype=torch.int64, device=dev)
-    ring = torch.ones((B, d + 1), dtype=torch.int64, device=dev)  # died, k = 0
-    meta = torch.empty((B, C), dtype=torch.int64, device=dev)
-    for t in range(C + d + 1):
-        v = tf[s * stride + _index(windows[:, halo + t])]
+    ring = torch.ones((B * K, d + 1), dtype=torch.int64, device=dev)  # died, k = 0
+    meta = torch.empty((B * K, L), dtype=torch.int64, device=dev)
+    for t in range(L + d + 1):
+        v = tf[s * stride + _index(lanes[:, halo + t])]
         depth = (v >> id_bits) & dmask
         word = (v >> (id_bits + depth_bits)) & 1
         age = (t - slots) % (d + 1)
@@ -483,10 +669,10 @@ def wwl_scan_fused_plain(table, outrows, windows, starts, *, halo, id_bits, dept
             rec = rec | (torch.where(age > 0, cx[:, None], 0) << (2 + kd_bits))
         rec = rec | (s[:, None] << (1 + kd_bits + nflag))
         ring = torch.where(newly, rec, ring)
-        if d <= t < d + C:  # the slot of age d holds the walk from body step t - d
+        if d <= t < d + L:  # the slot of age d holds the walk from body step t - d
             meta[:, t - d] = ring[:, (t - d) % (d + 1)] >> 1
         s = v & idmask
-    meta = meta.reshape(-1)
+    meta = meta.reshape(B, K * L)[:, :C].reshape(-1)  # the last lane's columns past C: padding
     w = starts.to(torch.int64)
     valid = (w >= 0) & (w < B * C - (d + 1))
     mg = torch.where(valid, meta[torch.where(valid, w, 0)], 0)

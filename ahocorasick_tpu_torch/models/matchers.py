@@ -313,6 +313,20 @@ class _DeviceTables:
         return self._cache["wwl_walk"]
 
     @property
+    def wwl_walk_derived(self):
+        """The per-start walk kernel's derived tables of ``wwl_walk``
+        (``ops/scan_wwl.build_walk_tables`` at the matcher's bucketed walk
+        depth): the k-gram prefix table and one outcome row a state.  None on
+        the CPU, whose plain twin walks the trie and reads the outcome arrays
+        itself."""
+        if torch.device(self.device).type == "cpu":
+            return None
+        if "wwl_walk_derived" not in self._cache:
+            self._cache["wwl_walk_derived"] = scan_wwl.build_walk_tables(
+                *self.wwl_walk[:6], bucket_depth(self._m.max_depth))
+        return self._cache["wwl_walk_derived"]
+
+    @property
     def match_len(self) -> torch.Tensor:
         """Shortest-match length per state ``int32[S_pad]``, 0-padded."""
         if "match_len" not in self._cache:
@@ -957,7 +971,7 @@ class WholeWordLongestMatchSet(_Matcher):
     def _walk_triples(self, compact, n: int):
         """The per-start trie walk route (any dense dictionary)."""
         arrays = scan_wwl.walk_lane_outcomes(self.compiled, self.dev.wwl_walk, compact,
-                                             self.device)
+                                             self.device, self.dev.wwl_walk_derived)
         return self._chain_from_lanes(arrays, compact[2], compact[3], n)
 
     @staticmethod

@@ -581,12 +581,14 @@ def fused_applicable(sc: WwlScan, d: int) -> bool:
 # runs the same A/B).  The rule: True only if the fused route's card time is
 # below the plane and the sweep's at both baseline-4 (1,003 keywords, 1 Mi
 # units) and the 10k cell (10,000 keywords, 32 Mi units, 5,242,880 start
-# slots).  On an NVIDIA H100 80GB HBM3 at 700.00 W the fused route took
-# 0.0689 ms against 0.0413 ms at baseline-4 and 0.385 ms against 0.283 ms at
-# the 10k cell (the per-start walk 0.0080 and 0.100 ms): finding each walk's
-# death inside the scan costs about what the plane's stores cost, and its
-# resolve launch about what the sweep costs.  So False.
-FUSED_DEFAULT = False
+# slots), in both of a redesign's full chip runs.  On an NVIDIA H100 80GB
+# HBM3 at 700.00 W the fused route took 0.0350 ms against 0.0404 ms at
+# baseline-4 and 0.2404 ms against 0.2757 ms at the 10k cell (the per-start
+# walk 0.0066 and 0.0871 ms; the lanes counting their deaths over register
+# tiles, records and a resolve launch, csrc/wwl_scan.cu).  It had lost in
+# its first design (0.0689 against 0.0413 ms, 0.385 against 0.283 ms).  So
+# True.
+FUSED_DEFAULT = True
 
 
 def wwl_scan_walks_fused(table, outrows, windows, starts, *, halo: int, id_bits: int,
@@ -640,14 +642,55 @@ def scan_walks_auto(sc: WwlScan, cls_p: np.ndarray, starts, d: int, cross: bool)
 wwl_walks_at = kernels.wwl_walks_at
 
 
+def build_walk_tables(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
+                      max_depth: int) -> "kernels.WalkTables":
+    """The per-start walk's derived tables on ``trie_next``'s device
+    (``kernels.scan_wwl.WalkTables``): the k-gram prefix table of the pure
+    trie (k = ``kernels.walk_prefix_k(A, max_depth)``; entry for classes
+    c_0..c_{k-1} the state after them, or ``WALK_DIED | j << WALK_STATE_BITS
+    | s`` where step j from state s reached the dead state, the last row)
+    and the outcome rows ``[own_len, own_val, fail_len, fail_off, fail_val,
+    0, 0, 0]`` of each state.  Built on the host, once a matcher
+    (``_DeviceTables.wwl_walk_derived``).  Raises where the states do not
+    fit a prefix entry's ``WALK_STATE_BITS``."""
+    S, A = trie_next.shape
+    if S > 1 << kernels.WALK_STATE_BITS:
+        raise ValueError(f"{S} states do not fit the walk's {kernels.WALK_STATE_BITS}-bit "
+                         f"prefix entries")
+    k = kernels.walk_prefix_k(A, max_depth)
+    nxt = trie_next.cpu().numpy().astype(np.int64)
+    dead = S - 1
+    grams = np.arange(A ** k, dtype=np.int64)
+    state = np.zeros(len(grams), dtype=np.int64)
+    entry = np.zeros(len(grams), dtype=np.uint32)
+    done = np.zeros(len(grams), dtype=bool)
+    for j in range(k):
+        c = (grams // A ** (k - 1 - j)) % A
+        step = nxt[state, c]
+        died = ~done & (step == dead)
+        entry[died] = (np.uint32(kernels.WALK_DIED) | np.uint32(j << kernels.WALK_STATE_BITS)
+                       | state[died].astype(np.uint32))
+        done |= died
+        state = np.where(done, state, step)
+    entry[~done] = state[~done].astype(np.uint32)
+    rows = np.zeros((S, 8), dtype=np.int32)
+    for col, arr in enumerate((own_len, own_val, fail_len, fail_off, fail_val)):
+        rows[:, col] = arr.cpu().numpy()
+    dev = trie_next.device
+    return kernels.WalkTables(torch.from_numpy(entry).to(dev), k,
+                              torch.from_numpy(rows).to(dev))
+
+
 def wwl_walks(trie_next, own_len, own_val, fail_len, fail_off, fail_val, class_is_word,
-              cls_padded, max_depth: int):
+              cls_padded, max_depth: int, walk_tables=None):
     """Walk outcomes at every position ``0 .. len(cls_padded) - max_depth - 2``
-    (the JAX ``wwl_walks`` contract): ``wwl_walks_at`` over all of them."""
+    (the JAX ``wwl_walks`` contract): ``wwl_walks_at`` over all of them
+    (``walk_tables`` as it takes them)."""
     n = cls_padded.shape[0] - max_depth - 1
     starts = torch.arange(max(n, 0), dtype=torch.int32, device=cls_padded.device)
     return kernels.wwl_walks_at(trie_next, own_len, own_val, fail_len, fail_off, fail_val,
-                                class_is_word, cls_padded, starts, max_depth)
+                                class_is_word, cls_padded, starts, max_depth,
+                                walk_tables=walk_tables)
 
 
 # ------------------------------------------------- outcomes for chain lanes
@@ -667,13 +710,14 @@ def scan_lane_outcomes(m, sc: WwlScan, compact):
     return arrays
 
 
-def walk_lane_outcomes(m, walk_tables, compact, device):
+def walk_lane_outcomes(m, walk_tables, compact, device, derived=None):
     """The per-start trie walk route (any dense dictionary) for the lanes of
-    ``compact``, over ``_DeviceTables.wwl_walk``; arrays as above."""
+    ``compact``, over ``_DeviceTables.wwl_walk`` and its ``derived`` tables
+    (``_DeviceTables.wwl_walk_derived``); arrays as above."""
     cls_p, starts, lanes, _ws, d = compact
     cls_d = scan_batched.classes_to_device(cls_p, m.num_classes, device)
     starts_d = torch.from_numpy(starts).to(device)
-    outs = wwl_walks_at(*walk_tables, cls_d, starts_d, d)
+    outs = wwl_walks_at(*walk_tables, cls_d, starts_d, d, walk_tables=derived)
     return [x[: len(lanes)].cpu().numpy() for x in outs]
 
 
@@ -687,4 +731,4 @@ def lane_outcomes(m, dev, compact):
         return scan_lane_outcomes(m, dev.wwl_scan, compact)
     if mixed_scan_applicable(m):
         return scan_lane_outcomes(m, dev.wwl_scan_mixed, compact)
-    return walk_lane_outcomes(m, dev.wwl_walk, compact, dev.device)
+    return walk_lane_outcomes(m, dev.wwl_walk, compact, dev.device, dev.wwl_walk_derived)

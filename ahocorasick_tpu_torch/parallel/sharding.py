@@ -322,7 +322,8 @@ def sharded_wwl_walks(matcher, cls: np.ndarray, mesh=None, *, group=None):
     parts = {}
     for r in sh.ranks:
         local = _cat([shards[r], halos[r][1]])
-        outs = scan_wwl.wwl_walks(*_tables_on(matcher, sh.devices[r]).wwl_walk, local, d)
+        tabs = _tables_on(matcher, sh.devices[r])
+        outs = scan_wwl.wwl_walks(*tabs.wwl_walk, local, d, tabs.wwl_walk_derived)
         parts[r] = _globalize(outs, r * chunk)
     return _gather_outcomes(sh, parts, n) + (None,)
 

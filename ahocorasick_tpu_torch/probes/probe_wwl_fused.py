@@ -22,9 +22,9 @@ them all, then timed with CUDA events, so no host time falls between them;
 ``call_ms`` is the same calls back to back without the sleep (CUDA events:
 host time between calls included when the host is the slower).  Each is the
 best of three rounds taken in turns (fused, sweep, walk, then the reverse
-order).  Before timing, the fused outcomes are held against the sweep's at
-every start slot.  ``scan_wwl.FUSED_DEFAULT`` is set from the ``device_ms``
-of the first two modes in both cases.
+order).  Before timing, the fused and the walk's outcomes are held against
+the sweep's at every start slot.  ``scan_wwl.FUSED_DEFAULT`` is set from the
+``device_ms`` of the first two modes in both cases.
 
 ``--platform cpu`` runs the kernels' plain twins on texts cut to 8 Ki units
 and reports ``host_ms`` only (no device figures).
@@ -105,7 +105,8 @@ def routes(m, cls):
         "fused": lambda: scan_wwl.wwl_scan_walks_fused(sc.table, sc.outrows, wf, st, **kw),
         "sweep": lambda: scan_wwl.wwl_scan_walks(sc.table, sc.rows_flat, sc.outrows, ws, st,
                                                  quotient=sc.quotient, **kw),
-        "walk": lambda: scan_wwl.wwl_walks_at(*walk_tables, walk_cls, st, d),
+        "walk": lambda: scan_wwl.wwl_walks_at(*walk_tables, walk_cls, st, d,
+                                              walk_tables=m.dev.wwl_walk_derived),
     }
     info = {"units": int(len(cls)), "start_slots": int(len(starts)), "lanes": int(len(lanes)),
             "d": int(d), "id_bits": sc.id_bits, "classes": A, "states": comp.num_states,
@@ -114,9 +115,10 @@ def routes(m, cls):
     return calls, info
 
 
-def check(calls) -> int:
-    """Largest |fused - sweep| over the outcome arrays at every start slot."""
-    got, want = calls["fused"](), calls["sweep"]()
+def check(calls, mode: str = "fused") -> int:
+    """Largest |mode - sweep| over the outcome arrays (the walk has no
+    ``cont``) at every start slot."""
+    got, want = calls[mode](), calls["sweep"]()
     return max(int((g.to(torch.int64) - w.to(torch.int64)).abs().max()) if g.numel() else 0
                for g, w in zip(got, want))
 
@@ -146,9 +148,11 @@ def ab(m, cls, reps: int = 20) -> tuple:
     """``(info, {mode: record})`` for one case; on the card a record holds
     ``device_ms``, ``call_ms`` and ``gbps`` (2 x units over ``device_ms``), on
     the CPU only ``host_ms`` (the twins).  ``info["max_abs_err"]`` is the
-    fused outcomes against the sweep's."""
+    fused outcomes against the sweep's, ``info["walk_max_abs_err"]`` the
+    walk's."""
     calls, info = routes(m, cls)
     info["max_abs_err"] = check(calls)
+    info["walk_max_abs_err"] = check(calls, "walk")
     dev = m.dev.wwl_scan.outrows.device
     on_card = dev.type == "cuda"
     keys = (("device_ms", True), ("call_ms", False)) if on_card else (("host_ms", False),)
@@ -189,8 +193,9 @@ def main(argv=None) -> list:
         line = {"probe": "wwl_fused_ab", "config": config, "device": where, **info}
         print(json.dumps(line), flush=True)
         lines.append(line)
-        if info["max_abs_err"]:
-            raise AssertionError(f"{config}: the fused outcomes differ from the sweep's")
+        if info["max_abs_err"] or info["walk_max_abs_err"]:
+            raise AssertionError(f"{config}: the fused or the walk's outcomes differ from the "
+                                 f"sweep's")
         for mode in MODES:
             rec = {"config": config, "mode": mode, **best[mode]}
             print(json.dumps(rec), flush=True)

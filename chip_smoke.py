@@ -736,6 +736,115 @@ def check_redesign_edges(port, dev, errs):
         raise AssertionError(f"split count edges ran (P, K, count Ks) in {sorted(set(pk))}")
 
 
+def fused_every_k(kwwl, sc, wf, st, kw) -> dict:
+    """``{K: outcomes}``: the fused scan's kernel with its lanes a window
+    forced to each K of 1, 2, 4 and 8 that the segments rule's lengths allow
+    (``FUSED_MAX_K`` and ``FUSED_MAX_LANES`` patched)."""
+    saved = kwwl.FUSED_MAX_K, kwwl.FUSED_MAX_LANES
+    out = {}
+    B, W = wf.shape
+    try:
+        for k in (1, 2, 4, 8):
+            kwwl.FUSED_MAX_K, kwwl.FUSED_MAX_LANES = k, 1 << 40
+            kk = kwwl.fused_segments(B, W - kw["halo"] - (kw["d"] + 1), kw["halo"])[0]
+            if kk == k:
+                out[k] = kwwl.wwl_scan_fused(sc.table, sc.outrows, wf, st, **kw)
+    finally:
+        kwwl.FUSED_MAX_K, kwwl.FUSED_MAX_LANES = saved
+    return out
+
+
+def walk_edge_cases(rng):
+    """The per-start walk's edge cases: ``(label, keywords, text, max_depth or
+    None for the matcher's, class dtype, starts rule)``.  Dictionaries whose
+    walks die at every step 0..k-1 of the k-gram prefix or live past it,
+    deep walks (a..a*29), > 256 classes, max_depth 0, 1 and 2 (k cut to
+    max_depth + 1), starts at 0, at len(cls) (the pad slots), within d + 1 of
+    the end, repeated, negative and past the classes, and every position;
+    uint8, uint16 and int32 classes."""
+    words = fuzz_keywords(rng, "abcde", 40, 6)
+    deep = ["a" * i for i in range(1, 30)] + ["abc", "bca"]
+    wide = [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)]
+    wide_text = "".join(chr(0x100 + int(c)) if c < 300 else " "
+                        for c in rng.integers(0, 340, size=3000))
+    soup = " ".join(rng.choice(words + ["zz", "a,"], size=600))
+    cases = []
+    for dtype in ("uint8", "uint16", "int32"):
+        cases.append((f"word soup, {dtype}", words, soup, None, dtype, "lanes"))
+        cases.append((f"word soup, every position, {dtype}", words, soup[:2000], None, dtype,
+                      "every"))
+        cases.append((f"word soup, odd starts, {dtype}", words, soup, None, dtype, "odd"))
+    for md in (0, 1, 2):
+        cases.append((f"max_depth {md}", words, soup, md, "uint8", "odd"))
+    cases.append(("a..a*29, every position", deep, "".join(rng.choice(list("ab !"), size=3000)),
+                  None, "uint8", "every"))
+    cases.append(("a..a*29, lanes", deep, "a" * 40 + " " + "".join(rng.choice(list("ab !"),
+                                                                              size=3000)),
+                  None, "uint16", "lanes"))
+    cases.append(("> 256 classes", wide, wide_text, None, "uint16", "lanes"))
+    cases.append(("> 256 classes, odd starts", wide, wide_text, None, "int32", "odd"))
+    cases.append(("empty text", words, "", None, "uint8", "odd"))
+    return cases
+
+
+def check_walk_edges(port, dev, errs):
+    """The per-start walk (``wwl_walks_at``) against its twin and the
+    kernel's prefix decomposition in plain PyTorch, bit for bit, at
+    ``walk_edge_cases``.  Returns the cases driven."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import scan_wwl as kwwl
+    from ahocorasick_tpu_torch.ops import scan_wwl
+
+    cases = 0
+    for label, kws, text, md, dtype, rule in walk_edge_cases(np.random.default_rng(SEED + 22)):
+        m = port.WholeWordLongestMatchSet(kws, True, engine="device", device=dev)
+        tabs = m.dev.wwl_walk
+        cls_p, starts, lanes, _, d = scan_wwl.compact_lanes(m.compiled, m._classes(text))
+        d = d if md is None else md
+        n = len(cls_p)
+        if rule == "every":
+            st_np = np.arange(max(n - d - 1, 0), dtype=np.int32)
+        elif rule == "odd":
+            st_np = np.sort(np.array([-3, 0, 0, 1, 1, 1, n - d - 1, n - 2, n - 1, n, n, n + 7]
+                                     + list(starts[: len(lanes)][:50]), dtype=np.int64)).astype(
+                np.int32)
+        else:
+            st_np = starts
+        host = cls_p.astype(np.int32)
+        c = {"uint8": torch.from_numpy(host.astype(np.uint8)),
+             "uint16": torch.from_numpy(host.astype(np.uint16).view(np.int16)).view(torch.uint16),
+             "int32": torch.from_numpy(host)}[dtype].to(dev)
+        st = torch.from_numpy(st_np).to(dev)
+        derived = scan_wwl.build_walk_tables(*tabs[:6], d)
+        want = kwwl.wwl_walks_at_plain(*tabs, c, st, d)
+        split = kwwl.wwl_walks_prefix(tabs[0], tabs[6], c, st, d, derived)
+        got = kwwl.wwl_walks_at(*tabs, c, st, d, walk_tables=derived)
+        torch.cuda.synchronize()
+        e = max(max_abs(split, want), max_abs(got, want))
+        errs["wwl_walks_at"] = max(errs["wwl_walks_at"], e)
+        cases += 1
+        print(f"  walk edge {label}: {len(st_np)} starts, d={d}, k={derived.prefix_k}, "
+              f"{tabs[0].shape[1]} padded classes; max_abs_err={e} (twin and prefix "
+              f"decomposition)")
+        if e:
+            raise AssertionError(f"walk edge {label}: the kernel disagrees with its twin")
+    return cases
+
+
+def max_abs(got, want) -> int:
+    """The largest |got - want| over outcome tuples (1 on a shape mismatch)."""
+    import torch
+
+    e = 0
+    for g, w in zip(got, want):
+        if g.shape != w.shape:
+            return 1
+        if g.numel():
+            e = max(e, int((g.cpu().to(torch.int64) - w.cpu().to(torch.int64)).abs().max()))
+    return e if len(got) == len(want) else max(e, 1)
+
+
 def check_wwl_edges(port, dev, errs):
     """The fused whole-word-longest scan (``wwl_scan_fused``) against its
     plain twin (the JAX ring) and against the sweep kernel's outcomes, and
@@ -827,8 +936,8 @@ def check_wwl_edges(port, dev, errs):
                                 narrow and sc.num_classes)
                         kw = dict(halo=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits,
                                   num_classes=sc.num_classes, d=d, cross=sc.has_cross)
-                        got = kwwl.wwl_scan_fused(sc.table, sc.outrows, wf, st, **kw)
                         twin = kwwl.wwl_scan_fused_plain(sc.table, sc.outrows, wf, st, **kw)
+                        got = fused_every_k(kwwl, sc, wf, st, kw)
                         pargs = (sc.table, ws, d, sc.id_bits, sc.num_classes, False)
                         plane = kwwl.wwl_scan_plane(*pargs)
                         plane_twin = kwwl.wwl_scan_plane_plain(*pargs)
@@ -836,7 +945,8 @@ def check_wwl_edges(port, dev, errs):
                                                   id_bits=sc.id_bits, depth_bits=sc.depth_bits,
                                                   cross=sc.has_cross)
                         torch.cuda.synchronize()
-                        e_f = max(err(got, twin), err(got, sweep))
+                        e_f = max(max(err(g, twin) for g in got.values()),
+                                  max(err(g, sweep) for g in got.values()))
                         e_p = err(plane, plane_twin)
                         errs["wwl_scan_fused"] = max(errs["wwl_scan_fused"], e_f)
                         errs["wwl_scan_plane"] = max(errs["wwl_scan_plane"], e_p)
@@ -846,10 +956,10 @@ def check_wwl_edges(port, dev, errs):
                                 f"wwl edge {label}, {'flat' if flat else 'row'}, n={n}, "
                                 f"{'odd' if st_np is odd else 'lane'} starts, "
                                 f"{str(wf.dtype).replace('torch.', '')}: fused max_abs_err={e_f} "
-                                f"plane max_abs_err={e_p}")
+                                f"(K = {sorted(got)}) plane max_abs_err={e_p}")
         print(f"  wwl edge {label}: d={d}, {m.num_classes} classes, row and flat, n = 0, 3, "
               f"511, 4097, 40,000, lane and odd starts, narrow windows (and int32 at 4097): "
-              f"fused == twin == sweep, plane == twin")
+              f"fused (K = 1, 2, 4, 8 where the segments allow) == twin == sweep, plane == twin")
 
     # The plane kernel's segments: chunks that split windows into 2 or 4 lanes
     # with lengths off a multiple of 4, halo 0, and quotient entry planes.
@@ -1774,13 +1884,15 @@ def main() -> int:
                 cls_p, 512, d, d + 1, sc.num_classes), sc.num_classes, dev)
             fkw = dict(halo=d, id_bits=sc.id_bits, depth_bits=sc.depth_bits,
                        num_classes=sc.num_classes, d=d, cross=sc.has_cross)
-            fused = kwwl.wwl_scan_fused(sc.table, sc.outrows, wf, st, **fkw)
+            fused = fused_every_k(kwwl, sc, wf, st, fkw)
             fused_twin = kwwl.wwl_scan_fused_plain(sc.table, sc.outrows, wf, st, **fkw)
             torch.cuda.synchronize()
-            e_fused = max(max_err(fused, fused_twin), max_err(fused, outs_twin))
+            e_fused = max(max(max_err(f, fused_twin), max_err(f, outs_twin))
+                          for f in fused.values())
             errs["wwl_scan_fused"] = max(errs["wwl_scan_fused"], e_fused)
-            fused_note = (f"fused scan over {tuple(wf.shape)} windows max_abs_err={e_fused} "
-                          f"(twin and sweep)")
+            fused_note = (f"fused scan over {tuple(wf.shape)} windows at K = {sorted(fused)} "
+                          f"(the package's {kwwl.fused_segments(wf.shape[0], 512, d)[0]}) "
+                          f"max_abs_err={e_fused} (twin and sweep)")
         torch.cuda.synchronize()
         e_plane, e_sweep = max_err(plane, plane_twin), max_err(outs, outs_twin)
         e_all = max_err(every, every_twin)
@@ -1808,15 +1920,17 @@ def main() -> int:
         tabs = m.dev.wwl_walk
         e = 0
         narrow = scan_batched.classes_to_device(cls_p, m.compiled.num_classes, dev)
+        derived = m.dev.wwl_walk_derived
         for c in (narrow, torch.from_numpy(cls_p.astype(np.int32)).to(dev)):
-            got = kwwl.wwl_walks_at(*tabs, c, st, d)
+            got = kwwl.wwl_walks_at(*tabs, c, st, d, walk_tables=derived)
             want = kwwl.wwl_walks_at_plain(*tabs, c, st, d)
             torch.cuda.synchronize()
             e = max(e, max_err(got, want))
         errs["wwl_walks_at"] = max(errs["wwl_walks_at"], e)
         has = int(want[1][: len(lanes)].sum())
         print(f"  wwl walk {label}: {len(cls_p)} classes ({str(narrow.dtype).replace('torch.', '')} "
-              f"and int32), {len(lanes)} lanes, {has} with a match, max_abs_err={e}")
+              f"and int32), {len(lanes)} lanes, {has} with a match, prefix k={derived.prefix_k}, "
+              f"max_abs_err={e}")
         if e:
             raise AssertionError(f"wwl walk {label}: kernel disagrees with its plain twin")
         return has
@@ -1928,7 +2042,11 @@ def main() -> int:
     assert check_compact("synthetic P=2", synth_t) == 40_000
     assert check_compact("no bits set", torch.zeros_like(synth_t[:1])) == 0
     check_redesign_edges(port, dev, errs)
+    t_edges = time.perf_counter()
     check_wwl_edges(port, dev, errs)
+    t_walk = time.perf_counter()
+    print(f"  wwl edges: {t_walk - t_edges} s; walk edges: {check_walk_edges(port, dev, errs)} "
+          f"cases, kernel == twin == prefix decomposition, {time.perf_counter() - t_walk} s")
     print(f"  row-sharded lane edges: {check_tp_lane_edges(port, dev, errs)} cases, kernel == "
           f"twin")
     print(f"  sweep edges: {check_sweep_edges(dev, errs, scan_variants.library())} cases, "
@@ -3562,11 +3680,12 @@ def main() -> int:
     walk_args = (*big_wwl.dev.wwl_walk,
                  scan_batched.classes_to_device(cls_p10, big_wwl.compiled.num_classes, dev),
                  st10, d10)
+    walk_kw = dict(walk_tables=big_wwl.dev.wwl_walk_derived)  # as the matcher's route passes
     ms["wwl_scan_plane"] = (cuda_ms(lambda: kwwl.wwl_scan_plane(*pargs), 20),
                             cuda_ms(lambda: kwwl.wwl_scan_plane_plain(*pargs), 3))
     ms["wwl_sweep_at"] = (cuda_ms(lambda: kwwl.wwl_sweep_at(*sargs, **skw), 20),
                           cuda_ms(lambda: kwwl.wwl_sweep_at_plain(*sargs, **skw), 3))
-    ms["wwl_walks_at"] = (cuda_ms(lambda: kwwl.wwl_walks_at(*walk_args), 20),
+    ms["wwl_walks_at"] = (cuda_ms(lambda: kwwl.wwl_walks_at(*walk_args, **walk_kw), 20),
                           cuda_ms(lambda: kwwl.wwl_walks_at_plain(*walk_args), 3))
     wf10 = scan_batched.classes_to_device(scan_wwl.chunk_classes_overlap(
         cls_p10, 512, d10, d10 + 1, sc10.num_classes), sc10.num_classes, dev)
@@ -3585,13 +3704,15 @@ def main() -> int:
     # The A/B that sets FUSED_DEFAULT (python -m ahocorasick_tpu_torch.probes.
     # probe_wwl_fused): the fused scan against the plane and the sweep, the
     # per-start walk beside them, at baseline-4 and at this run's 10k cell.
-    ab_ms = {}
+    ab_ms, ab_cases = {}, {}
     for config, make in (("baseline-4", lambda: probe_wwl_fused.baseline4(dev)),
                          ("10k", lambda: (big_wwl, cls_w))):
-        ab_info, ab_best = probe_wwl_fused.ab(*make())
+        ab_cases[config] = make()
+        ab_info, ab_best = probe_wwl_fused.ab(*ab_cases[config])
         print(f"ab wwl {config}: " + json.dumps({**ab_info, **ab_best}) + f" [{smi}]")
-        if ab_info["max_abs_err"]:
-            raise AssertionError(f"ab wwl {config}: the fused outcomes differ from the sweep's")
+        if ab_info["max_abs_err"] or ab_info["walk_max_abs_err"]:
+            raise AssertionError(f"ab wwl {config}: the fused or the walk's outcomes differ from "
+                                 f"the sweep's")
         ab_ms[config] = ab_best
     fused_wins = all(b["fused"]["device_ms"] < b["sweep"]["device_ms"] for b in ab_ms.values())
     print(f"ab wwl: the fused scan's card time is below the plane and the sweep's in "
@@ -3811,6 +3932,25 @@ def main() -> int:
         "all 4 Mi": (*all_args[:4], None, per_w, d10, sc10.id_bits, sc10.depth_bits, False)},
         variants_lib)
     print(f"ab sweep {json.dumps({'card': smi, **ab})}")
+    # The whole-word-longest walks' designs at baseline-4 and the 10k cell:
+    # the fused scan's first design and its K, the walk's first design and
+    # its prefix placements, each launch held bit for bit against the twin.
+    t_ab = time.perf_counter()
+    wwl_ab_cells = {c: scan_variants.wwl_cells(*mc) for c, mc in ab_cases.items()}
+    ab = scan_variants.wwl_fused_ab({c: v[0] for c, v in wwl_ab_cells.items()}, variants_lib)
+    print(f"ab wwl_fused {json.dumps({'card': smi, **ab})}")
+    ab = scan_variants.wwl_walk_ab({c: v[1] for c, v in wwl_ab_cells.items()}, variants_lib)
+    print(f"ab wwl_walk {json.dumps({'card': smi, **ab})}")
+    for c, rec in ab["wwl_walk_ms"].items():
+        ld = rec["loads"]
+        print(f"wwl walk loads, {c}, {rec['slots']} start slots, d={rec['d']}: first design "
+              f"{ld['first']['loads']} trie loads, a walk mean {ld['first']['mean']} max "
+              f"{ld['first']['max']}; package (one k={ld['prefix_k']} prefix load, then the trie) "
+              f"{ld['package']['loads']}, a walk mean {ld['package']['mean']} max "
+              f"{ld['package']['max']}, {ld['died_in_prefix']} walks decided by the prefix; rate "
+              + ", ".join(f"{k} {v} G loads/s" for k, v in rec["g_loads_per_s"].items())
+              + f" [{smi}]")
+    print(f"  the WWL walks' A/Bs took {time.perf_counter() - t_ab} s")
     # The plane the sweep at the 10k starts reads: the 32-byte sectors its
     # walks touch (words w .. w + k_die of each walk in [0, L)).
     outs10 = kwwl.wwl_sweep_at(*sargs, **skw)
@@ -4391,7 +4531,7 @@ def main() -> int:
         # outcomes ("sweep plane sectors"; one plane word a live lane gives
         # the old yardstick, printed below)
         "wwl_sweep_at": (sweep_bytes, 6 * len(lanes10)),
-        "wwl_walks_at": (nbytes(walk_args[-3], st10, kwwl.wwl_walks_at(*walk_args)),
+        "wwl_walks_at": (nbytes(walk_args[-3], st10, kwwl.wwl_walks_at(*walk_args, **walk_kw)),
                          6 * len(lanes10)),
         # the overlap windows and the starts in, 17 B of outcomes per slot out;
         # a lookup, a depth, a difference and a compare per class

@@ -162,7 +162,7 @@ def test_wwl_kernel_rate_runs_the_facade_route(route, monkeypatch):
         monkeypatch.setattr(scan_wwl, "scan_applicable", lambda m: False)
         monkeypatch.setattr(scan_wwl, "mixed_scan_applicable", lambda m: False)
     calls = []
-    for name in ("wwl_scan_walks", "wwl_walks_at"):
+    for name in ("wwl_scan_walks", "wwl_scan_walks_fused", "wwl_walks_at"):
         real = getattr(scan_wwl, name)
         monkeypatch.setattr(scan_wwl, name,
                             (lambda f, n: lambda *a, **k: calls.append(n) or f(*a, **k))(real, name))
@@ -170,7 +170,13 @@ def test_wwl_kernel_rate_runs_the_facade_route(route, monkeypatch):
                                                device="cpu")
     text = "she said hers and he said she " * 60
     assert port_bench.wwl_kernel_rate(m, m._classes(text), reps=1, min_units=2 * len(text)) > 0
-    assert set(calls) == {"wwl_scan_walks" if route == "scan" else "wwl_walks_at"}
+    want = "wwl_walks_at"
+    if route == "scan":  # scan_walks_auto's pick
+        sc = m.dev.wwl_scan if scan_wwl.scan_applicable(m.compiled) else m.dev.wwl_scan_mixed
+        fused = scan_wwl.FUSED_DEFAULT and scan_wwl.fused_applicable(
+            sc, scan_wwl.bucket_depth(m.compiled.max_depth))
+        want = "wwl_scan_walks_fused" if fused else "wwl_scan_walks"
+    assert set(calls) == {want}
     assert len(calls) == 1 + 3 * 2  # a warm-up, then best of 3 calls of 2 reps
 
 
