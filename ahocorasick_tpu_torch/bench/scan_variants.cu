@@ -1,10 +1,11 @@
 // Designs of the count kernel, the hotstate plane, the count-packed count,
 // the split emit planes and count, the stride-2 count and planes, the
-// row-sharded scan, the whole-word-longest die sweep and the PFAC v2 walk
-// that the package does not use, kept so that
-// python -m ahocorasick_tpu_torch.bench.scan_variants can time them beside
-// the package's kernels (csrc/packed_scan.cu, huge_scan.cu, rowdfa2_scan.cu,
-// table_sharded.cu, wwl_scan.cu, pfac_scan.cu) on the card.
+// row-sharded scan, the whole-word-longest die sweep, the PFAC v2 walk, the
+// probes' row read and the stitch's fold that the package does not use, kept
+// so that python -m ahocorasick_tpu_torch.bench.scan_variants can time them
+// beside the package's kernels (csrc/packed_scan.cu, huge_scan.cu,
+// rowdfa2_scan.cu, table_sharded.cu, wwl_scan.cu, pfac_scan.cu, probes.cu,
+// stitch.cu) on the card.
 //
 // Each computes exactly the package's function (the same table contract; see
 // the source notes of those files) and differs in how a lane reads its
@@ -85,6 +86,10 @@
 //     each lane's chain, records, and a resolve launch a thread a slot.
 //   * wwl_walk_first: the per-start trie walk (csrc/wwl_walk.cu
 //     wwl_walks_at) in its first design, one thread a start.
+//   * row_chain_first: the probes' row read (csrc/probes.cu row_chain) in
+//     its first design, a warp a chain.
+//   * entry_fold_first: the stitch's fold (csrc/stitch.cu entry_fold) in its
+//     first design, one thread walking the chain.
 
 #include <cstdint>
 
@@ -2054,5 +2059,94 @@ extern "C" int wwl_walk_first(const void* trie_next, const void* own_len, const 
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// row_chain_first, entry_fold_first: the probes' row read (csrc/probes.cu
+// row_chain) and the stitch's fold (csrc/stitch.cu entry_fold) in their
+// first designs.
+
+namespace probe_first {
+
+constexpr int kRowThreads = 512;
+
+template <bool kMax>
+__global__ void __launch_bounds__(kRowThreads)
+    row_first_kernel(const uint32_t* __restrict__ tab, int64_t rows, int width,
+                     const uint32_t* __restrict__ s0, int64_t n, int reps, uint32_t mod,
+                     uint32_t* __restrict__ out) {
+  const int64_t chain = (static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
+  if (chain >= n) return;  // a whole warp leaves together
+  const uint64_t last = static_cast<uint64_t>(rows) - 1u;
+  uint32_t s = s0[chain];
+  for (int r = 0; r < reps; ++r) {
+    const uint32_t* row = tab + min(static_cast<uint64_t>(s), last) * width;
+    uint32_t v = 0u;
+    if (kMax) {
+      for (int c = lane; c < width; c += 32) v = max(v, __ldg(row + c));
+      v = __reduce_max_sync(0xffffffffu, v);
+    } else {
+      if (lane == 0) v = __ldg(row);
+      v = __shfl_sync(0xffffffffu, v, 0);
+    }
+    s = v % mod;
+  }
+  if (lane == 0) out[chain] = s;
+}
+
+__global__ void fold_first_kernel(const int32_t* __restrict__ sigma, int64_t num_chunks,
+                                  int64_t num_states, int32_t s0, int32_t* __restrict__ entry) {
+  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+  int32_t s = s0;
+  for (int64_t c = 0; c < num_chunks; ++c) {
+    entry[c] = s;
+    if (c + 1 < num_chunks) s = __ldg(sigma + (c * num_states + s));
+  }
+}
+
+}  // namespace probe_first
+
+// The row read's first design: a warp a chain, lane c reading words c,
+// c + 32, ... of the row as 4-byte words, the warp's max by
+// __reduce_max_sync.  tab: uint32[rows][width]; s0, out: uint32[n]; reduce
+// 0 = max, 1 = column 0.
+extern "C" int row_chain_first(const void* tab, int64_t rows, int width, const void* s0,
+                               int64_t n, int reps, int reduce, int64_t mod, void* out,
+                               int device, void* stream) {
+  using namespace probe_first;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows < 1 || width < 1 || n < 1 || reps < 0 || mod < 1 || mod > 0xffffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = static_cast<unsigned>((n * 32 + kRowThreads - 1) / kRowThreads);
+  const auto* t = static_cast<const uint32_t*>(tab);
+  const auto* s = static_cast<const uint32_t*>(s0);
+  auto* o = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto m = static_cast<uint32_t>(mod);
+  if (reduce == 0) {
+    row_first_kernel<true><<<grid, kRowThreads, 0, st>>>(t, rows, width, s, n, reps, m, o);
+  } else if (reduce == 1) {
+    row_first_kernel<false><<<grid, kRowThreads, 0, st>>>(t, rows, width, s, n, reps, m, o);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fold's first design: one thread walks the C dependent loads.  entry
+// int32[num_chunks] from sigma int32[num_chunks, num_states].
+extern "C" int entry_fold_first(const void* sigma, int64_t num_chunks, int64_t num_states, int s0,
+                                void* entry, int device, void* stream) {
+  using namespace probe_first;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (num_chunks < 1 || num_states < 1 || s0 < 0 || s0 >= num_states)
+    return static_cast<int>(cudaErrorInvalidValue);
+  fold_first_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(sigma), num_chunks, num_states, s0,
+      static_cast<int32_t*>(entry));
   return static_cast<int>(cudaGetLastError());
 }

@@ -214,6 +214,11 @@ def library() -> ctypes.CDLL:
     lib.wwl_walk_first.argtypes = [P, P, P, P, P, P, P, I, I, P, I, I64, P, I64, I, P, P, P, P,
                                    P, I, P]
     lib.wwl_fused_first.restype = lib.wwl_walk_first.restype = ctypes.c_int
+    # (tab, rows, width, s0, n, reps, reduce, mod, out, device, stream)
+    lib.row_chain_first.argtypes = [P, I64, I, P, I64, I, I, I64, P, I, P]
+    # (sigma, num_chunks, num_states, s0, entry, device, stream)
+    lib.entry_fold_first.argtypes = [P, I64, I64, I, P, I, P]
+    lib.row_chain_first.restype = lib.entry_fold_first.restype = ctypes.c_int
     return lib
 
 
@@ -1275,6 +1280,197 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
     return record
 
 
+CARD_THREADS = 132 * 2048  # threads the H100 holds at once
+LATENCY_CHAINS = 32  # chains of the step-latency runs: one warp's worth
+
+
+def _card_ms(run, reps: int, dev) -> float:
+    """The card's ms a call: best of 3 timings of ``reps`` calls queued
+    behind a sleep (``probes.probe_wwl_fused``'s timer), after a warm-up."""
+    from ahocorasick_tpu_torch.probes.probe_wwl_fused import _time_calls
+
+    run()
+    return min(_time_calls(run, reps, dev, True) for _ in range(3))
+
+
+def row_cells(dev, seed: int = 0, sizes=None) -> dict:
+    """The row read's A/B cells: ``{label: (tab, s0, reps, mod)}``, the
+    residency sweep's chain shape (65,536 chains x 524 steps) on the sweep's
+    row table at the 10k dictionary's size (57,546 rows of 28 words: a
+    stride-2 row) and on ``probe.py:160``'s 4,096 x 128 table; or, given
+    ``sizes`` (entries), on the sweep's row table of each size (rows of 28
+    words).  Each table is zero but for one random cycle through its rows in
+    column 0, as the sweep's, so that no chain settles in a cache."""
+    from ahocorasick_tpu_torch.probes import __main__ as probes_main
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    words = probes_main.ROW_WORDS
+    shapes = ([(max(n // words, 1), words) for n in sizes] if sizes is not None
+              else [(probes_main.SWEEP_SIZES[3] // words, words), (4096, 128)])
+    cells = {}
+    for rows, width in shapes:
+        tab = torch.zeros((rows, width), dtype=torch.int32, device=dev)
+        tab[:, 0] = probes_main.cycle_table(rows, dev, gen)
+        s0 = torch.randint(0, rows, (probes_main.SWEEP_CHAINS,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        cells[f"{rows} x {width}"] = (tab, s0, probes_main.SWEEP_STEPS, rows)
+    return cells
+
+
+def row_ab(cells: dict, lib, every_group: bool = True) -> dict:
+    """The row read's A/B (``csrc/probes.cu`` ``row_chain``, max form): its
+    first design (``row_chain_first`` here, a warp a chain) and the package's
+    kernel at each group size of ``kernels.probes.ROW_GROUPS``, each launch
+    held bit for bit against the first design, timed in turns (the card's
+    time, queued); and each one's step latency on an otherwise idle card:
+    the same kernel on the first ``LATENCY_CHAINS`` chains, (time at 2 reps -
+    time at reps) / reps, so that the launch cancels.  The latency floor of a
+    call is reps x that latency x the waves its chains need, ceil(n G /
+    ``CARD_THREADS``) (n for the first design's warps: ceil(32 n / ...)).
+    ``cells``: ``row_cells``; ``every_group`` False: the first design and the
+    rule's group only.  Returns ``{"row_ms", "row_step_us",
+    "row_floor_ms", "row_rule"}``, each by cell label."""
+    from ahocorasick_tpu_torch.kernels import probes as kp
+
+    times, steps, floors, rule = {}, {}, {}, {}
+    for label, (tab, s0, reps, mod) in cells.items():
+        dev = s0.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        rows, width = tab.shape
+        out = torch.empty_like(s0)
+
+        def launcher(group, chains, r, out=out):
+            if group is None:
+                def run():
+                    _checked(lib.row_chain_first(tab.data_ptr(), rows, width, s0.data_ptr(),
+                                                 chains, r, 0, mod, out.data_ptr(),
+                                                 dev.index or 0, stream), "row_chain_first")
+            else:
+                def run():
+                    build.call("row_chain", tab.data_ptr(), rows, width, s0.data_ptr(), chains,
+                               r, 0, mod, group, out.data_ptr(), dev.index or 0, stream)
+            return run
+
+        groups = kp.ROW_GROUPS if every_group else (kp.row_group(width),)
+        arms = {"first": None, **{f"G={g}": g for g in groups}}
+        launcher(None, s0.numel(), reps)()
+        want = out.clone()
+        for name, group in arms.items():
+            out.fill_(-1)
+            launcher(group, s0.numel(), reps)()
+            if not torch.equal(out, want):
+                raise AssertionError(f"row_chain {label} {name}: differs from the first design")
+        ms = {}
+        for name in [*arms, *reversed(arms)]:
+            t = _card_ms(launcher(arms[name], s0.numel(), reps), 3, dev)
+            ms[name] = min(ms.get(name, t), t)
+        times[label], steps[label], floors[label] = ms, {}, {}
+        for name, group in arms.items():
+            t1 = _card_ms(launcher(group, LATENCY_CHAINS, reps), 3, dev)
+            t2 = _card_ms(launcher(group, LATENCY_CHAINS, 2 * reps), 3, dev)
+            step_ms = (t2 - t1) / reps
+            lanes = 32 if group is None else group
+            steps[label][name] = step_ms * 1e3
+            floors[label][name] = reps * step_ms * -(-s0.numel() * lanes // CARD_THREADS)
+        rule[label] = kp.row_group(width)
+    return {"row_ms": times, "row_step_us": steps, "row_floor_ms": floors, "row_rule": rule}
+
+
+def random_sigma(C: int, S: int, dev, seed: int = 0) -> torch.Tensor:
+    """int32[C, S] of seeded uniform states: no map is constant, so every
+    guess of the fold is wrong."""
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(0, S, (C, S), dtype=np.int32)).to(dev)
+
+
+def fold_cells(dev) -> dict:
+    """The fold's A/B cells: the demo dictionary's sigma at C = 4,096 chunks
+    of 32 Mi units of its word soup, the 10k dictionary's at C = 8 chunks of
+    32 Ki units (the sharded arrival path's shape, S = 65,536 padded states)
+    and ``random_sigma`` at 4,096 x 1,024, each map made with the
+    synchronized ``state_maps`` where the table is a goto closure."""
+    from ahocorasick_tpu_torch.bench.__main__ import word_soup
+    from ahocorasick_tpu_torch.bench.headline import (
+        BASE_UNITS, N_KEYWORDS, SEED, TEXT_UNITS, make_dictionary, make_text_classes)
+    from ahocorasick_tpu_torch.graft_entry import _KEYWORDS as DEMO_KEYWORDS
+    from ahocorasick_tpu_torch.kernels import stitch as kstitch
+    from ahocorasick_tpu_torch.models.matchers import AhoCorasickSet
+
+    demo = AhoCorasickSet(DEMO_KEYWORDS, engine="device", device=dev)
+    demo_cls = np.tile(demo._classes(word_soup(np.random.default_rng(SEED + 10), DEMO_KEYWORDS,
+                                               BASE_UNITS)), TEXT_UNITS // BASE_UNITS)
+    rng = np.random.default_rng(SEED)
+    keywords = make_dictionary(rng, N_KEYWORDS)
+    m = AhoCorasickSet(keywords, engine="device", device=dev)
+    ten = make_text_classes(m, keywords, rng, BASE_UNITS)[: 8 << 15]
+    return {
+        "demo C=4096": kstitch.state_maps(demo.dev.dfa_next,
+                                          _int32_classes(demo_cls, dev).reshape(4096, -1),
+                                          max(demo.compiled.max_depth, 1)),
+        "10k C=8": kstitch.state_maps(m.dev.seq_tables[0], _int32_classes(ten, dev).reshape(8, -1),
+                                      max(m.compiled.max_depth, 1)),
+        "random 4096 x 1024": random_sigma(4096, 1024, dev)}
+
+
+FOLD_LANES_AB = (32, 128, 256, 512, 1024)  # the fold's lanes at most, in its A/B
+
+
+def fold_ab(cells: dict, lib) -> dict:
+    """The fold's A/B (``csrc/stitch.cu`` ``entry_fold``): its first design
+    (``entry_fold_first`` here, one thread) and the package's kernel, with
+    and without its repair lengths and at each lane count of
+    ``FOLD_LANES_AB``, each launch held bit for bit against the
+    first design, the card's time (queued) taken in turns; with each cell's
+    lanes, the lanes repaired and the longest repair.  The latency floor: a
+    launch (the kernel on one chunk) plus a sigma load's latency x
+    (``per`` + the longest repair), the latency from the first design's
+    chain, (its time - a launch) / (C - 1).  ``cells``: ``{label: sigma}``
+    on the card.  Returns ``{"fold_ms", "fold_repairs", "fold_floor_ms"}``."""
+    from ahocorasick_tpu_torch.kernels import stitch as kstitch
+
+    times, stats, floors = {}, {}, {}
+    for label, sigma in cells.items():
+        dev = sigma.device
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        C, S = sigma.shape
+        per, lanes = kstitch.fold_shape(C)
+        entry = torch.empty(C, dtype=torch.int32, device=dev)
+        repair = torch.empty(lanes, dtype=torch.int32, device=dev)
+
+        def first(c=C):
+            _checked(lib.entry_fold_first(sigma.data_ptr(), c, S, 0, entry.data_ptr(),
+                                          dev.index or 0, stream), "entry_fold_first")
+
+        def spec(with_repair=False, c=C, lanes=None):
+            build.call("entry_fold", sigma.data_ptr(), c, S, 0, lanes or kstitch.FOLD_LANES,
+                       entry.data_ptr(), repair.data_ptr() if with_repair else None,
+                       dev.index or 0, stream)
+
+        first()
+        want = entry.clone()
+        runs = {"first": first, "spec": spec, "spec + repair": lambda: spec(True),
+                **{f"P={p}": lambda p=p: spec(lanes=p) for p in FOLD_LANES_AB}}
+        for name, run in runs.items():
+            entry.fill_(-1)
+            run()
+            if not torch.equal(entry, want):
+                raise AssertionError(f"entry_fold {label} {name}: differs from the first design")
+        r64 = repair.to(torch.int64)
+        stats[label] = {"C": C, "S": S, "per": per, "lanes": lanes,
+                        "repaired": int((r64 > 0).sum()), "repair_max": int(r64.max()),
+                        "repair_sum": int(r64.sum())}
+        ms = {}
+        for name in [*runs, *reversed(runs)]:
+            t = _card_ms(runs[name], 20, dev)
+            ms[name] = min(ms.get(name, t), t)
+        times[label] = ms
+        launch = _card_ms(lambda: spec(c=1), 20, dev)
+        load = (ms["first"] - _card_ms(lambda: first(c=1), 20, dev)) / max(C - 1, 1)
+        floors[label] = {"launch_ms": launch, "sigma_load_ns": load * 1e6,
+                         "floor_ms": launch + load * (per + stats[label]["repair_max"])}
+    return {"fold_ms": times, "fold_repairs": stats, "fold_floor_ms": floors}
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -1290,6 +1486,9 @@ def main(argv=None) -> None:
                         help="time the lane-loop kernels against another checkout's csrc/")
     parser.add_argument("--pfac", action="store_true",
                         help="only the PFAC v2 walk's A/B (pfac_ab) on the 10k cell")
+    parser.add_argument("--rows", action="store_true",
+                        help="only the probes' row read's and the stitch's fold's A/Bs "
+                             "(row_ab, fold_ab)")
     parser.add_argument("--wwl", action="store_true",
                         help="only the whole-word-longest walks' A/Bs (wwl_fused_ab, "
                              "wwl_walk_ab) at baseline-4 and the 10k cell")
@@ -1302,6 +1501,10 @@ def main(argv=None) -> None:
     lib = None if opts.against else library()
     if opts.wwl:
         print(json.dumps({"card": smi, **wwl_ab(dev, lib)}))
+        return
+    if opts.rows:
+        print(json.dumps({"card": smi, **row_ab(row_cells(dev), lib),
+                          **fold_ab(fold_cells(dev), lib)}))
         return
     rng = np.random.default_rng(SEED)
     keywords = make_dictionary(rng, N_KEYWORDS)

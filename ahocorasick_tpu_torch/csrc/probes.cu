@@ -17,9 +17,18 @@
 //   staged in dynamic shared memory (T * 4 B <= 227 KB), or read with __ldg
 //   through L1 / L2 / device memory.  Out: the final chain values, or their
 //   sum modulo 2^32 (probe3's (1, 1) SMEM scalar, an int32 sum).
-// * row_chain: K chains, one warp each; a step reads row s of W words,
-//   coalesced (lane c reads words c, c + 32, ...), and reduces it: the warp
-//   max (probe.py:160) or column 0 (probe6.py:120 k_row), then % mod.
+// * row_chain: K chains, a group of G lanes each (G = 1, 2, 4 or 8, the
+//   wrapper's rule by the width); a step reads row s of W words and reduces
+//   it: the max (probe.py:160) or column 0 (probe6.py:120 k_row), then
+//   % mod.  In the max form lane g of a group reads words g, g + G, ... as
+//   16-byte words where the row is 16-byte aligned (W % 4 == 0 and the
+//   table's base aligned), else as 4-byte words, issues all its loads of a
+//   batch (up to 16 words) before it uses any, keeps its own max, and the
+//   group reduces with xor shuffles; the column-0 form is one lane and one
+//   load a step.  The first design ran a warp a chain, 28 of its lanes
+//   loading one 4-byte word each, so the card held 64 warps x 132 SMs =
+//   8,448 chains at once (13% of the sweep's 65,536, in 7.76 waves); a
+//   group of G lanes holds 270,336 / G, every chain of the sweep for G <= 4.
 // * onehot_mma: g = onehot(idx[:, 0]) (B x T) @ tab (T x ncols), then
 //   idx <- (idx + int(g)) & (T-1) (probe.py:192), on the tensor cores with
 //   mma.sync m16n8k16, fp16 x fp16 -> f32.  Integers below 2048 are exact
@@ -40,10 +49,13 @@
 //
 // What bounds them on the H100.  Each chain is a run of dependent loads:
 // the time of a step is the latency of the placement (a shuffle, a shared
-// load, an L1 / L2 / device-memory load) over the chains in flight, not the
-// bytes, which are a few words per chain.  That is the measurement: the
-// lookup rate of each placement at each table size, the ceiling of the scan
-// kernels' one dependent load per character.  onehot_mma is bound by its
+// load, an L1 / L2 / device-memory load), and a call takes at least
+// reps x that latency x the waves its chains need; the bytes are a few
+// words per chain, except where a table past the 50 MB L2 sends every
+// step's sectors to device memory.  That is the measurement: the lookup
+// rate of each placement at each table size, for a chain that keeps the
+// card full; a scan kernel's lane adds its class loads and its output to
+// the same dependent load a character.  onehot_mma is bound by its
 // tensor-core operations (2 * B * T * ncols per step), gather2d by the two
 // barriers per step.  Indices are clamped (load ops) or masked (add ops) to
 // the table, as XLA clamps a gather, so no input reads out of bounds.
@@ -166,29 +178,107 @@ cudaError_t launch_chain_op(int placement, const uint32_t* tab, uint32_t T, cons
 
 // ------------------------------------------------------------- row_chain
 
-template <bool kMax>
-__global__ void __launch_bounds__(kThreads)
+constexpr int kRowThreads = 256;
+constexpr int kRowMaxBatch = 16;  // words a lane holds before it reduces them (64 registers
+                                  // of 16-byte words)
+
+// The max of the words this lane reads of a row of `words` words (16-byte
+// words where kVec, else 4-byte ones): words g, g + G, g + 2G, ... , kB of
+// them loaded before any is used, then reduced as a tree.  Words past the
+// row read as 0, which no max can lose to.
+template <int G, int kB, bool kVec>
+__device__ __forceinline__ uint32_t lane_max(const uint32_t* __restrict__ row, int words, int g) {
+  uint32_t v = 0u;
+  for (int base = g; base < words; base += G * kB) {
+    uint32_t m[kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int c = base + j * G;
+      if (kVec) {
+        const uint4 x = c < words ? __ldg(reinterpret_cast<const uint4*>(row) + c)
+                                  : make_uint4(0u, 0u, 0u, 0u);
+        m[j] = max(max(x.x, x.y), max(x.z, x.w));
+      } else {
+        m[j] = c < words ? __ldg(row + c) : 0u;
+      }
+    }
+#pragma unroll
+    for (int step = 1; step < kB; step <<= 1) {
+#pragma unroll
+      for (int j = 0; j + step < kB; j += 2 * step) m[j] = max(m[j], m[j + step]);
+    }
+    v = max(v, m[0]);
+  }
+  return v;
+}
+
+// Chain i on lanes [i G, (i + 1) G) of the grid: each step reads row
+// min(s, rows - 1) and reduces it (kMax: the max of its words, each lane its
+// own words and then the group by xor shuffles within its G lanes; else
+// column 0, G = 1), then takes it modulo mod.
+template <int G, int kB, bool kVec, bool kMax>
+__global__ void __launch_bounds__(kRowThreads)
     row_kernel(const uint32_t* __restrict__ tab, int64_t rows, int width,
                const uint32_t* __restrict__ s0, int64_t n, int reps, uint32_t mod,
                uint32_t* __restrict__ out) {
-  const int64_t chain = (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  const int64_t chain = t / G;
+  if (chain >= n) return;  // a whole group leaves together
+  const int g = static_cast<int>(t % G);
   const int lane = threadIdx.x & 31;
-  if (chain >= n) return;  // a whole warp leaves together
+  const uint32_t group_mask = ((1u << G) - 1u) << (lane & ~(G - 1));  // G <= 8
+  const int words = kVec ? width >> 2 : width;
   const uint64_t last = static_cast<uint64_t>(rows) - 1u;
   uint32_t s = s0[chain];
   for (int r = 0; r < reps; ++r) {
     const uint32_t* row = tab + min(static_cast<uint64_t>(s), last) * width;
-    uint32_t v = 0u;
+    uint32_t v;
     if (kMax) {
-      for (int c = lane; c < width; c += 32) v = max(v, __ldg(row + c));
-      v = __reduce_max_sync(0xffffffffu, v);
+      v = lane_max<G, kB, kVec>(row, words, g);
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1)
+        v = max(v, __shfl_xor_sync(group_mask, v, off, G));
     } else {
-      if (lane == 0) v = __ldg(row);
-      v = __shfl_sync(0xffffffffu, v, 0);
+      v = __ldg(row);
     }
     s = v % mod;
   }
-  if (lane == 0) out[chain] = s;
+  if (g == 0) out[chain] = s;
+}
+
+template <int G, int kB, bool kVec>
+cudaError_t launch_rows_b(const uint32_t* t, int64_t rows, int width, const uint32_t* s, int64_t n,
+                          int reps, uint32_t m, uint32_t* o, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>((n * G + kRowThreads - 1) / kRowThreads);
+  row_kernel<G, kB, kVec, true><<<grid, kRowThreads, 0, st>>>(t, rows, width, s, n, reps, m, o);
+  return cudaGetLastError();
+}
+
+// kB: the words a lane reads of a row, rounded up to a power of two, at most
+// kRowMaxBatch (a wider row takes more than one batch).
+template <int G, bool kVec>
+cudaError_t launch_rows_g(int per_lane, const uint32_t* t, int64_t rows, int width,
+                          const uint32_t* s, int64_t n, int reps, uint32_t m, uint32_t* o,
+                          cudaStream_t st) {
+  if (per_lane <= 1) return launch_rows_b<G, 1, kVec>(t, rows, width, s, n, reps, m, o, st);
+  if (per_lane <= 2) return launch_rows_b<G, 2, kVec>(t, rows, width, s, n, reps, m, o, st);
+  if (per_lane <= 4) return launch_rows_b<G, 4, kVec>(t, rows, width, s, n, reps, m, o, st);
+  if (per_lane <= 8) return launch_rows_b<G, 8, kVec>(t, rows, width, s, n, reps, m, o, st);
+  return launch_rows_b<G, kRowMaxBatch, kVec>(t, rows, width, s, n, reps, m, o, st);
+}
+
+template <bool kVec>
+cudaError_t launch_rows(int group, const uint32_t* t, int64_t rows, int width, const uint32_t* s,
+                        int64_t n, int reps, uint32_t m, uint32_t* o, cudaStream_t st) {
+  const int words = kVec ? width >> 2 : width;
+  const int per_lane = (words + group - 1) / group;
+  switch (group) {
+    case 1: return launch_rows_g<1, kVec>(per_lane, t, rows, width, s, n, reps, m, o, st);
+    case 2: return launch_rows_g<2, kVec>(per_lane, t, rows, width, s, n, reps, m, o, st);
+    case 4: return launch_rows_g<4, kVec>(per_lane, t, rows, width, s, n, reps, m, o, st);
+    case 8: return launch_rows_g<8, kVec>(per_lane, t, rows, width, s, n, reps, m, o, st);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 // ------------------------------------------------------------ onehot_mma
@@ -359,28 +449,34 @@ int chain_gather(const void* tab, int64_t T, const void* idx, int64_t n, int rep
   return static_cast<int>(err);
 }
 
-// tab: uint32[rows][width]; s0, out: uint32[n]; reduce 0 = max, 1 = column 0.
+// tab: uint32[rows][width]; s0, out: uint32[n]; reduce 0 = max, 1 = column 0;
+// group: the lanes a chain of the max form, 1, 2, 4 or 8 (the column-0 form
+// runs one lane a chain and takes group 1).
 int row_chain(const void* tab, int64_t rows, int width, const void* s0, int64_t n, int reps,
-              int reduce, int64_t mod, void* out, int device, void* stream) {
+              int reduce, int64_t mod, int group, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (rows < 1 || width < 1 || n < 1 || reps < 0 || mod < 1 || mod > 0xffffffffLL) {
+  if (rows < 1 || width < 1 || n < 1 || reps < 0 || mod < 1 || mod > 0xffffffffLL ||
+      (reduce == 1 && group != 1)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const unsigned grid = static_cast<unsigned>((n * 32 + kThreads - 1) / kThreads);
   const auto* t = static_cast<const uint32_t*>(tab);
   const auto* s = static_cast<const uint32_t*>(s0);
   auto* o = static_cast<uint32_t*>(out);
   auto st = static_cast<cudaStream_t>(stream);
   const auto m = static_cast<uint32_t>(mod);
   if (reduce == 0) {
-    row_kernel<true><<<grid, kThreads, 0, st>>>(t, rows, width, s, n, reps, m, o);
+    const bool vec = width % 4 == 0 && reinterpret_cast<uintptr_t>(tab) % 16 == 0;
+    err = vec ? launch_rows<true>(group, t, rows, width, s, n, reps, m, o, st)
+              : launch_rows<false>(group, t, rows, width, s, n, reps, m, o, st);
   } else if (reduce == 1) {
-    row_kernel<false><<<grid, kThreads, 0, st>>>(t, rows, width, s, n, reps, m, o);
+    const unsigned grid = static_cast<unsigned>((n + kRowThreads - 1) / kRowThreads);
+    row_kernel<1, 1, false, false><<<grid, kRowThreads, 0, st>>>(t, rows, width, s, n, reps, m, o);
+    err = cudaGetLastError();
   } else {
-    return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaErrorInvalidValue;
   }
-  return static_cast<int>(cudaGetLastError());
+  return static_cast<int>(err);
 }
 
 // tabT: fp16[ncols][T] (integers < 2048); idx, out: uint32[B][ncols].

@@ -77,9 +77,29 @@
 //     shape above (0.043 ms through the wrapper, whose host time is most of a
 //     call).  At many short chunks the S*(d + 1) lookups a chunk dominate:
 //     2.78 ms at C = 1,024, K = 256 (same card).
-// entry_fold is a latency chain of C dependent loads (4*C bytes out): one
-// thread walks it.  The JAX code composes whole maps in log depth because a
-// TPU has no cheap serial chain; the contract is only the entry vector.
+// The fold, entry_fold, is a chain of C dependent loads (4*C bytes out),
+// bound by the latency of a sigma load; the JAX code composes whole maps in
+// log depth (C*S*log2 C lookups) because a TPU has no cheap serial chain,
+// and the contract is only the entry vector.  Its first design walked the
+// chain in one thread (0.640 ms at C = 4,096 of the demo dictionary's 32 Mi
+// units, 156 ns a chunk).  Now one block speculates and repairs: lane p of
+// P <= 1,024 lanes owns chunks [p per, (p + 1) per), per = ceil(C / P).
+// Pass 1: lane 0 folds its chunks from s0 and lane p > 0 from the guess
+// sigma_{p per - 1}[s0], recording the entry of each chunk, so per + 1
+// dependent loads.  The guess is right whenever that map is constant on the
+// states that reach it: every map of a d-synchronizing table over a chunk
+// longer than d is constant, and most maps of the restart table are.  Pass
+// 2, warp 0 in lane order: lane q's true entry is lane q - 1's exit; where it
+// differs from q's guess (a ballot of the lanes' tests, searched a word a
+// lane), lane 0 of the warp re-folds q from it until its state equals the
+// recorded entry of a chunk, from where the records are the fold of that
+// state; a re-fold that leaves q's run unmet has given q a new exit and goes
+// on into q + 1, stopping at its first chunk where q + 1's guess was right.
+// Each chunk's record is loaded beside its sigma load, so a re-fold costs
+// one dependent load a chunk.  Exact for any maps; where none is constant
+// (random sigma) it walks about C + per dependent loads in all, as the first
+// design walked C.  `repair` (null: not wanted) gets each lane's re-folded
+// length.
 // All flat indices are 64-bit: C*S and S*A pass 2**31 at the
 // 1M-keyword dictionary.
 
@@ -92,6 +112,7 @@ namespace {
 constexpr int kMapThreads = 256;
 constexpr int kMapTile = 1024;
 constexpr int kMeetTile = 256;  // classes and reference states staged at a time
+constexpr int kFoldThreads = 1024;  // the fold's lanes: one block
 
 // Every thread of the block walks its state s over the classes row[begin,
 // end); the classes go through `tile` kMapTile at a time with coalesced
@@ -224,13 +245,82 @@ settle_kernel(const int32_t* __restrict__ table, const int32_t* __restrict__ cls
   }
 }
 
-__global__ void fold_kernel(const int32_t* __restrict__ sigma, int64_t num_chunks,
-                            int64_t num_states, int32_t s0, int32_t* __restrict__ entry) {
-  if (blockIdx.x != 0 || threadIdx.x != 0) return;
+// The first set bit at or after `from` of the lanes' wrong-guess mask
+// (`words` words of 32 lanes), or INT32_MAX: one word a lane of warp 0.
+__device__ __forceinline__ int next_wrong(const uint32_t* wrong, int words, int from) {
+  const int lane = threadIdx.x & 31;
+  const int at = from >> 5;
+  uint32_t w = lane < words && lane >= at ? wrong[lane] : 0u;
+  if (lane == at) w &= ~0u << (from & 31);
+  const uint32_t any = __ballot_sync(0xffffffffu, w != 0u);
+  if (any == 0u) return INT32_MAX;
+  const int word = __ffs(static_cast<int>(any)) - 1;
+  const uint32_t bits = __shfl_sync(0xffffffffu, w, word);
+  return (word << 5) + __ffs(static_cast<int>(bits)) - 1;
+}
+
+// The fold by speculate and repair, as the source note says: lane p of one
+// block folds chunks [p per, (p + 1) per) from its guess, then warp 0
+// repairs the lanes whose guess was wrong, in lane order.
+__global__ void __launch_bounds__(kFoldThreads)
+fold_kernel(const int32_t* __restrict__ sigma, int64_t num_chunks, int64_t num_states,
+            int32_t s0, int64_t per, int lanes, int32_t* entry, int32_t* repair) {
+  __shared__ int32_t guess_s[kFoldThreads];
+  __shared__ int32_t exit_s[kFoldThreads];
+  __shared__ uint32_t wrong_s[kFoldThreads / 32];
+  const int p = threadIdx.x;
+  const int64_t first = p * per;
+  const int64_t end = first + per < num_chunks ? first + per : num_chunks;
+  // Pass 1: lane p > 0 guesses that sigma_{first - 1} is constant, so that
+  // it maps the true entry as it maps s0.
   int32_t s = s0;
-  for (int64_t c = 0; c < num_chunks; ++c) {
+  if (p > 0 && first < num_chunks) s = __ldg(sigma + ((first - 1) * num_states + s0));
+  const int32_t guess = s;
+  for (int64_t c = first; c < end; ++c) {
     entry[c] = s;
     if (c + 1 < num_chunks) s = __ldg(sigma + (c * num_states + s));
+  }
+  guess_s[p] = guess;
+  exit_s[p] = s;
+  if (repair != nullptr && p < lanes) repair[p] = 0;
+  __syncthreads();
+  const bool wrong = p > 0 && p < lanes && guess != exit_s[p - 1];
+  const uint32_t bits = __ballot_sync(0xffffffffu, wrong);
+  if ((p & 31) == 0) wrong_s[p >> 5] = bits;
+  __syncthreads();
+  if (p >= 32) return;
+  // Pass 2, warp 0: lane q's true entry is lane q - 1's exit, final by now.
+  // Lane 0 of the warp re-folds from it until a state equals the entry that
+  // pass 1 recorded for its chunk (from there on the records are the fold of
+  // that state).  A re-fold that passes the end of q's run unmet has given q
+  // a new exit and goes on into q + 1, whose guess is that chunk's record: it
+  // stops there if q + 1's guess was right.  The lanes it ended in or before
+  // are settled; the next wrong lane is searched after them.
+  const int words = (blockDim.x + 31) >> 5;
+  for (int q = next_wrong(wrong_s, words, 1); q < lanes;) {
+    int settled = 0;
+    if (p == 0) {
+      const int64_t from = q * per;
+      int32_t t = exit_s[q - 1];
+      int32_t rec = guess_s[q];  // the record of chunk `from`
+      int64_t c = from;
+      for (; c < num_chunks && rec != t; ++c) {
+        // The next record's load goes out beside the sigma load: one
+        // dependent load a chunk, as in pass 1.
+        const int32_t next = c + 1 < num_chunks ? entry[c + 1] : 0;
+        entry[c] = t;
+        if (c + 1 < num_chunks) t = __ldg(sigma + (c * num_states + t));
+        rec = next;
+      }
+      settled = static_cast<int>(c / per);  // the lane of the chunk that met, or `lanes`
+      if (repair != nullptr) {
+        for (int l = q; l <= settled && l < lanes; ++l) {
+          const int64_t end = (l + 1) * per < c ? (l + 1) * per : c;
+          repair[l] = static_cast<int32_t>(end - l * per);
+        }
+      }
+    }
+    q = next_wrong(wrong_s, words, __shfl_sync(0xffffffffu, settled, 0) + 1);
   }
 }
 
@@ -322,15 +412,22 @@ extern "C" int state_maps(const void* table, const void* cls, int64_t num_chunks
   return static_cast<int>(cudaGetLastError());
 }
 
-// entry int32[num_chunks] from sigma int32[num_chunks, num_states].
+// entry int32[num_chunks] from sigma int32[num_chunks, num_states], by
+// speculate and repair over at most `lanes` (1 .. 1024) lanes of
+// ceil(num_chunks / lanes) chunks; repair int32[ceil(num_chunks / per)]
+// receives each lane's re-folded length (0 where its guess was right), or is
+// null.  One launch.
 extern "C" int entry_fold(const void* sigma, int64_t num_chunks, int64_t num_states, int s0,
-                          void* entry, int device, void* stream) {
+                          int lanes, void* entry, void* repair, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (num_chunks < 1 || num_states < 1 || s0 < 0 || s0 >= num_states)
+  if (num_chunks < 1 || num_states < 1 || s0 < 0 || s0 >= num_states || lanes < 1 ||
+      lanes > kFoldThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  fold_kernel<<<1, 32, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const int32_t*>(sigma), num_chunks, num_states, s0,
-      static_cast<int32_t*>(entry));
+  const int64_t per = (num_chunks + lanes - 1) / lanes;
+  const int used = static_cast<int>((num_chunks + per - 1) / per);
+  fold_kernel<<<1, (used + 31) / 32 * 32, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const int32_t*>(sigma), num_chunks, num_states, s0, per, used,
+      static_cast<int32_t*>(entry), static_cast<int32_t*>(repair));
   return static_cast<int>(cudaGetLastError());
 }

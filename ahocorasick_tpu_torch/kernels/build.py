@@ -150,8 +150,9 @@ ARGTYPES = {
     # (table, cls, num_chunks, chunk_len, num_states, num_classes, depth,
     #  agree, sigma, device, stream)
     "state_maps": [_P, _P, _I64, _I64, _I64, _I, _I, _P, _P, _I, _P],
-    # (sigma, num_chunks, num_states, s0, entry, device, stream)
-    "entry_fold": [_P, _I64, _I64, _I, _P, _I, _P],
+    # (sigma, num_chunks, num_states, s0, lanes, entry, repair or null, device,
+    #  stream)
+    "entry_fold": [_P, _I64, _I64, _I, _I, _P, _P, _I, _P],
     # (table, cls, entry or null, num_chunks, chunk_len, num_classes, sub_len,
     #  out, repair or null, device, stream)
     "rescan_serial": [_P, _P, _P, _I64, _I64, _I, _I64, _P, _P, _I, _P],
@@ -165,8 +166,8 @@ ARGTYPES = {
                            _I, _I, _P, _I, _P],
     # (tab, T, idx, n, reps, op, placement, mod, sum_out, out, device, stream)
     "chain_gather": [_P, _I64, _P, _I64, _I, _I, _I, _I64, _I, _P, _I, _P],
-    # (tab, rows, width, s0, n, reps, reduce, mod, out, device, stream)
-    "row_chain": [_P, _I64, _I, _P, _I64, _I, _I, _I64, _P, _I, _P],
+    # (tab, rows, width, s0, n, reps, reduce, mod, group, out, device, stream)
+    "row_chain": [_P, _I64, _I, _P, _I64, _I, _I, _I64, _I, _P, _I, _P],
     # (fp16 tab transposed, T, ncols, idx, B, reps, out, device, stream)
     "onehot_mma": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
     # (tab, idx, tiles, reps, mask, mode, sum_out, out, device, stream)

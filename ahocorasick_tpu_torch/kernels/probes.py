@@ -11,7 +11,9 @@ probes of ``tools/probes/`` (the source note in the ``.cu`` file lists every
   the table in ``placement`` ``"shfl"`` (T <= 128, warp registers),
   ``"shared"`` (T * 4 B within 227 KB) or ``"global"``;
 * ``row_chain(tab, s0, reps, reduce, mod)`` — ``s <- reduce(tab[s, :]) % mod``
-  with ``reduce`` ``"max"`` or ``"col0"``;
+  with ``reduce`` ``"max"`` or ``"col0"``; in the max form a chain runs on
+  ``row_group(width)`` lanes, each reading 16-byte words of the row where it
+  is 16-byte aligned;
 * ``onehot_mma(onehot_table(tab), idx, reps)`` — ``g = onehot(idx[:, 0]) @
   tab`` on the tensor cores, ``idx <- (idx + int(g)) & (T-1)``; ``tab``
   float32 holding integers in [0, 2048), exact in fp16 (``onehot_table``
@@ -45,6 +47,7 @@ from ahocorasick_tpu_torch.kernels.scan_block import _to_uint32, _widen
 OPS = ("add", "add_r", "load", "load_mod")
 PLACEMENTS = ("shfl", "shared", "global")
 REDUCES = ("max", "col0")
+ROW_GROUPS = (1, 2, 4, 8)  # lanes a chain of row_chain's max form
 G2_MODES = ("sublane", "sublane_chain", "gather2d_first", "gather2d_all")
 SHARED_BYTES = 232448  # the shared memory one block can use on sm_90 (227 KB)
 MMA_EXACT = 2048  # integers below this are exact in fp16
@@ -154,9 +157,26 @@ def chain_gather_plain(tab, idx, reps, op, *, mod=None, sum_out=False) -> torch.
 # ---------------------------------------------------------------- row_chain
 
 
-def row_chain(tab: torch.Tensor, s0: torch.Tensor, reps: int, reduce: str, mod: int) -> torch.Tensor:
+def row_group(width: int) -> int:
+    """The lanes a chain of ``row_chain``'s max form takes for rows of
+    ``width`` words: at most two 16-byte words a lane, at most 8 lanes.  Set
+    from the A/B of every group size (``bench/scan_variants.row_ab``, 65,536
+    chains x 524 steps; ms, NVIDIA H100 80GB HBM3, 700 W): at width 28, G = 1,
+    2, 4, 8 took 1.006, 0.787, 0.538, 0.911 (the first design, a warp a
+    chain, 2.613); at width 128, 4.458, 3.427, 1.941, 1.588 (first 4.064)."""
+    words = -(-width // 4)
+    g = 1
+    while g < 8 and g * 2 < words:
+        g *= 2
+    return g
+
+
+def row_chain(tab: torch.Tensor, s0: torch.Tensor, reps: int, reduce: str, mod: int, *,
+              group: int = None) -> torch.Tensor:
     """K chains ``s <- reduce(tab[s, :]) % mod``, one per element of ``s0``:
-    the final states, int32 of ``s0``'s shape."""
+    the final states, int32 of ``s0``'s shape.  ``group``: the lanes a chain
+    of the max form (``ROW_GROUPS``; ``row_group(width)`` when None); the
+    column-0 form runs one lane a chain."""
     _check_words("row_chain", tab=tab, s0=s0)
     dev = _check("row_chain", tab, s0)
     if tab.dim() != 2 or tab.numel() < 1 or s0.numel() < 1 or reps < 0:
@@ -166,11 +186,18 @@ def row_chain(tab: torch.Tensor, s0: torch.Tensor, reps: int, reduce: str, mod: 
         raise ValueError(f"row_chain: reduce {reduce!r} is not one of {REDUCES}")
     if not 1 <= mod < 1 << 32:
         raise ValueError(f"row_chain: mod must lie in [1, 2**32), got {mod}")
+    if reduce == "col0":
+        group = 1 if group is None else group
+        if group != 1:
+            raise ValueError(f"row_chain: the column-0 form runs one lane a chain, not {group}")
+    group = row_group(tab.shape[1]) if group is None else group
+    if group not in ROW_GROUPS:
+        raise ValueError(f"row_chain: group {group} is not one of {ROW_GROUPS}")
     if dev.type == "cpu":
         return row_chain_plain(tab, s0, reps, reduce, mod)
     out = torch.empty_like(s0, dtype=torch.int32)
     _launch("row_chain", dev, tab.data_ptr(), tab.shape[0], tab.shape[1], s0.data_ptr(),
-            s0.numel(), reps, REDUCES.index(reduce), mod, out.data_ptr())
+            s0.numel(), reps, REDUCES.index(reduce), mod, group, out.data_ptr())
     return out
 
 

@@ -8,7 +8,14 @@ chunked classes:
   ``sigma[c, s]`` is the state reached from ``s`` over chunk ``c``;
 * ``entry_fold(sigma, s0)`` returns ``entry int32[C]``: ``entry[0] = s0``,
   ``entry[c] = sigma[c - 1][entry[c - 1]]``, the state in which the one
-  sequential scan enters each chunk;
+  sequential scan enters each chunk; on the card by speculate and repair in
+  one block (``csrc/stitch.cu`` ``entry_fold``): L lanes of ``per`` chunks
+  (``fold_shape``, at most ``FOLD_LANES``), lane p folding its chunks from
+  the guess ``sigma[p per - 1][s0]``, right wherever that map is constant
+  (every map of a d-synchronizing table over a chunk longer than d), then
+  the lanes whose guess was wrong re-folded in lane order from the exit
+  of the lane before, each up to the first chunk whose recorded entry it
+  meets;
 * ``rescan(table, cls, entry, sync_depth)`` returns ``states int32[C, K]``:
   chunk ``c`` walked from ``entry[c]``.
 
@@ -40,7 +47,8 @@ the whole chunk, so sigma is exact for any table; ``rescan`` is
 the entry state, every other lane from the root warmed over the d classes
 before it).  Both forms give the same outputs.  ``meet_maps`` and
 ``spec_rescan`` return the forms for any table with their side outputs: each
-lane's meet position and each sub-chunk's repair length.
+lane's meet position and each sub-chunk's repair length; ``spec_fold``
+returns the fold with each lane's re-folded length.
 
 Together they replace the JAX package's ``ops/stitch.py``
 (``chunk_state_maps``, ``entry_states``, ``stitched_states``) and the same
@@ -230,23 +238,58 @@ def meet_maps_plain(table: torch.Tensor, cls: torch.Tensor):
 
 # ------------------------------------------------------------ entry fold (B15)
 
+# The fold's lanes at most, one block of the card: the best of 32 to 1,024
+# in bench/scan_variants.fold_ab at the demo dictionary's 4,096 chunks.
+FOLD_LANES = 1024
+
+
+def fold_shape(C: int) -> tuple:
+    """``(per, L)``: the fold's chunks a lane and its lanes for C chunks."""
+    if C == 0:
+        return 0, 0
+    per = -(-C // FOLD_LANES)
+    return per, -(-C // per)
+
+
+def _check_fold(sigma: torch.Tensor, s0) -> int:
+    s0 = int(s0)
+    _check("sigma", sigma, 2)
+    if not 0 <= s0 < max(sigma.shape[1], 1):
+        raise ValueError(f"entry state {s0} outside [0, {sigma.shape[1]})")
+    return s0
+
 
 def entry_fold(sigma: torch.Tensor, s0: int = 0) -> torch.Tensor:
     """``entry int32[C]``: the state entering each chunk when chunk 0 is
     entered in ``s0``."""
-    s0 = int(s0)
-    _check("sigma", sigma, 2)
-    C, S = sigma.shape
-    if not 0 <= s0 < max(S, 1):
-        raise ValueError(f"entry state {s0} outside [0, {S})")
+    s0 = _check_fold(sigma, s0)
     dev = _one_device(sigma)
     if dev.type == "cpu":
         return entry_fold_plain(sigma, s0)
+    return _fold_launch(sigma, s0, None)
+
+
+def spec_fold(sigma: torch.Tensor, s0: int = 0):
+    """``(entry int32[C], repair int32[L])``: the fold and each of the
+    kernel's L lanes' re-folded length (``fold_shape``; 0 where the lane's
+    guess was right).  The twin on the CPU; on the card the kernel, counted
+    as ``entry_fold``."""
+    s0 = _check_fold(sigma, s0)
+    dev = _one_device(sigma)
+    if dev.type == "cpu":
+        return spec_fold_plain(sigma, s0)
+    repair = torch.empty(fold_shape(sigma.shape[0])[1], dtype=torch.int32, device=dev)
+    return _fold_launch(sigma, s0, repair), repair
+
+
+def _fold_launch(sigma, s0, repair) -> torch.Tensor:
+    dev = sigma.device
+    C, S = sigma.shape
     entry = torch.empty(C, dtype=torch.int32, device=dev)
     if C == 0:
         return entry
-    build.call("entry_fold", sigma.data_ptr(), C, S, s0, entry.data_ptr(), dev.index,
-               _stream(dev))
+    build.call("entry_fold", sigma.data_ptr(), C, S, s0, FOLD_LANES, entry.data_ptr(),
+               None if repair is None else repair.data_ptr(), dev.index, _stream(dev))
     launches["entry_fold"] += 1
     return entry
 
@@ -260,6 +303,51 @@ def entry_fold_plain(sigma: torch.Tensor, s0: int = 0) -> torch.Tensor:
         if c + 1 < sigma.shape[0]:
             s = int(sigma[c, s])
     return torch.tensor(out, dtype=torch.int32, device=sigma.device)
+
+
+def spec_fold_plain(sigma: torch.Tensor, s0: int = 0):
+    """The twin of ``spec_fold``, in the kernel's lanes: pass 1 folds every
+    lane's chunks from its guess (lane 0 from ``s0``, lane p from
+    ``sigma[p per - 1, s0]``) in one batched gather a step; pass 2 takes the
+    lanes in order and re-folds each whose true entry, the exit of the lane
+    before it, differs from its guess, up to the first chunk whose recorded
+    entry equals the re-folded state."""
+    C = sigma.shape[0]
+    per, L = fold_shape(C)
+    dev = sigma.device
+    if C == 0:
+        return (torch.empty(0, dtype=torch.int32, device=dev),
+                torch.empty(0, dtype=torch.int32, device=dev))
+    sig = sigma.to(torch.int64)
+    first = torch.arange(L, device=dev) * per
+    s = torch.full((L,), int(s0), dtype=torch.int64, device=dev)
+    s[1:] = sig[first[1:] - 1, int(s0)]
+    guess = s.clone()
+    entry = torch.empty(C, dtype=torch.int64, device=dev)
+    for j in range(per):
+        c = first + j
+        on = c < C
+        entry[c[on]] = s[on]
+        step = c + 1 < C
+        s[step] = sig[c[step], s[step]]
+    exits, guess = s.tolist(), guess.tolist()
+    rec = entry.tolist()
+    repair = [0] * L
+    for q in range(1, L):
+        t = exits[q - 1]
+        if t == guess[q]:
+            continue
+        c, to = q * per, min((q + 1) * per, C)
+        while c < to and rec[c] != t:
+            rec[c] = t
+            if c + 1 < C:
+                t = int(sig[c, t])
+            c += 1
+        repair[q] = c - q * per
+        if c == to:
+            exits[q] = t
+    return (torch.tensor(rec, dtype=torch.int32, device=dev),
+            torch.tensor(repair, dtype=torch.int32, device=dev))
 
 
 # ---------------------------------------------------------------- rescan (B15)

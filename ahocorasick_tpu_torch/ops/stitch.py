@@ -10,7 +10,10 @@ sequential scan's bit for bit.
 
 The JAX module composes whole maps with ``associative_scan`` to get the entry
 states in log depth; the contract is only the entry vector, which the port's
-``entry_fold`` kernel walks as one serial chain (``kernels/stitch.py``).
+``entry_fold`` kernel folds by speculate and repair in one block
+(``kernels/stitch.py``): each lane folds a run of chunks from the guess that
+the map before it is constant, then the lanes whose guess was wrong are
+re-folded in order until they meet their records.
 
 Cost.  ``sync_depth=None`` runs the forms for any total transition function
 over a dense ``int32[S, A]`` table, the shortest matcher's padded restart

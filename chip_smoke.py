@@ -118,6 +118,13 @@ port only, the dictionary and text generators included (``bench.headline``,
    ragged 10k windows (an odd and an even number of pairs); the four probe kernels at every ``pl.pallas_call``
    site of ``tools/probes/`` at the JAX probes' sizes, ``chain_gather`` in
    every placement its table fits (warp registers, shared memory, global);
+   the row read at its edges (``check_row_edges``: both reduce forms at
+   every residency-sweep size, widths 1, 27, 28, 33 and 128 at every group
+   size, 16-byte aligned and not, int32 and uint32 words, starts past the
+   rows, mod 1, the rows and 2**32 - 1); the fold at its edges
+   (``check_fold_edges``: C = 1, 2, 31, 32, 33, P - 1, P, P + 1, 4,096 and
+   4,097, constant, identity, random and mixed maps, s0 = 0 and S - 1, the
+   repair lengths too);
    the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
    fuzz, demo and the 10k dictionary at 1 Mi units, and the v2 walk at its
    edges (``check_pfac_edges``: text lengths around a warp's prefix pass
@@ -215,8 +222,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    the 10k restart table there, the meet positions (mean, largest, lanes
    that never met) on the 10k closure, the restart table and the demo
    dictionary, and the stitched scan of each form beside speculate and
-   repair and the lane scan at the same length (also at 8 chunks of 4 Mi
-   units of the 10k table, and on the restart table); the fused WWL scan
+   repair and the lane scan at the same length (also at 8 and 4,096 chunks
+   of 32 Mi units of the 10k table, and on the restart table); the fold's
+   first design against speculate and repair (``fold_ab``: the demo
+   dictionary's sigma at C = 4,096, the 10k table's at C = 8, random maps at
+   4,096 x 1,024) with its repairs and latency floor; the fused WWL scan
    against the plane and the sweep, the per-start walk beside them, at
    baseline-4 and the 10k cell (``probes.probe_wwl_fused``: card time with
    the calls queued ahead, and back to back), and the rule that sets
@@ -253,7 +263,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    the probe kernels and the PFAC walk (at the sweep's shape, the JAX sizes
    and 32 Mi units) beside their twins, each result first held against the
    twin's at that shape, and, for the probes, the same chain as
-   eager torch indexing; the PFAC v2 walk's table loads a lane (mean,
+   eager torch indexing; the row read's first design against its group
+   sizes at widths 28 and 128 (``row_ab``), and the latency floors of the
+   row read and of ``chain_gather`` (reps x the step latency of 32 chains on
+   the idle card x the waves their chains need); the PFAC v2 walk's table
+   loads a lane (mean,
    largest, a warp's longest) and the G loads/s of each mode, and its A/B
    (``ab pfac``: the first design's planes, count and count without the
    atomic add, the package's walk, its prefix table in the other
@@ -261,7 +275,8 @@ port only, the dictionary and text generators included (``bench.headline``,
    default; B17's bound; each kernel's bound (bytes over 3.35 TB/s or
    operations over 67 T/s, 989 T/s for the fp16 tensor cores, whichever is
    larger), the library-call times, and the kernels ranked by launches x
-   (ms - bound), the two sequential scans by the units their launches
+   (ms - bound), the latency chains' bound their latency floor where it is
+   the larger, the two sequential scans by the units their launches
    scanned (each modelled as a cost a launch plus a cost a unit).
 
 It prints one JSON line of kernel records, then as its last line
@@ -1478,6 +1493,130 @@ def check_probe_kernels(dev, errs, max_err):
           [("shared", lambda: kp.gather2d(wide, idx0, 64, "sublane_chain"))])
 
 
+def check_row_edges(dev, errs):
+    """``row_chain`` against its twin, bit for bit, in both reduce forms: at
+    every residency-sweep size (the sweep's tables and chain shape, 65,536
+    chains x 524 steps; the max form at the rule's group, the column-0 form
+    one lane a chain); and at widths 1, 27, 28, 33 and 128 at every group
+    size, on full-range words (0xFFFFFFFF included) read as int32 and as
+    uint32, with the table's base 16-byte aligned and one word off (the
+    4-byte path for any width), starts up to twice the rows (the clamp), mod
+    1, the rows and 2**32 - 1.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import probes as kp
+    from ahocorasick_tpu_torch.probes import __main__ as probes_main
+
+    def diff(got, want):
+        if got.shape != want.shape:
+            return 1
+        return int((got.to(torch.int64) - want.to(torch.int64)).abs().max())
+
+    cases, e_all = 0, 0
+    gen = torch.Generator(device=dev).manual_seed(probes_main.SEED + 1)
+    steps, words = probes_main.SWEEP_STEPS, probes_main.ROW_WORDS
+    for n in probes_main.SWEEP_SIZES:
+        rows = max(n // words, 1)
+        tab = torch.zeros((rows, words), dtype=torch.int32, device=dev)
+        tab[:, 0] = probes_main.cycle_table(rows, dev, gen)
+        s0 = torch.randint(0, rows, (probes_main.SWEEP_CHAINS,), generator=gen, device=dev,
+                           dtype=torch.int32)
+        for reduce in kp.REDUCES:
+            got = kp.row_chain(tab, s0, steps, reduce, rows)
+            e = diff(got, kp.row_chain_plain(tab, s0, steps, reduce, rows))
+            e_all, cases = max(e_all, e), cases + 1
+        del tab
+    rng = np.random.default_rng(SEED + 22)
+    for width in (1, 27, 28, 33, 128):
+        rows = 1000
+        w = rng.integers(0, 1 << 32, rows * width + 4, dtype=np.uint64).astype(np.uint32)
+        w[::97] = 0xFFFFFFFF
+        buf = torch.from_numpy(w.view(np.int32)).to(dev)
+        s0 = torch.from_numpy(rng.integers(0, 2 * rows, 777).astype(np.int32)).to(dev)
+        for offset in (0, 1):
+            for as_uint in (False, True):
+                tab = buf[offset: offset + rows * width].view(rows, width)
+                tab = tab.view(torch.uint32) if as_uint else tab
+                for mod in (1, rows, (1 << 32) - 1):
+                    for reduce, groups in (("max", kp.ROW_GROUPS), ("col0", (1,))):
+                        want = kp.row_chain_plain(tab, s0, 37, reduce, mod)
+                        for g in groups:
+                            e = diff(kp.row_chain(tab, s0, 37, reduce, mod, group=g), want)
+                            e_all, cases = max(e_all, e), cases + 1
+                            if e:
+                                print(f"  row edges: width {width}, offset {offset} words, "
+                                      f"{'uint32' if as_uint else 'int32'}, mod {mod}, {reduce}, "
+                                      f"group {g}: max_abs_err {e}")
+    torch.cuda.synchronize()
+    errs["row_chain"] = max(errs["row_chain"], e_all)
+    if e_all:
+        raise AssertionError("row_chain: a kernel result disagrees with its twin at its edges")
+    return cases
+
+
+def check_fold_edges(dev, errs):
+    """``entry_fold`` (speculate and repair) against its twins, bit for bit:
+    the wrapper against ``entry_fold_plain``, and ``spec_fold`` (entries and
+    each lane's re-folded length) against ``spec_fold_plain``, at C = 1, 2,
+    31, 32, 33, P - 1, P, P + 1, 4,096 and 4,097 (P = ``FOLD_LANES``), S = 97
+    and 1,024, on constant maps (no lane may be repaired), identity maps,
+    uniform random maps (every guess wrong) and a mix of constant, identity,
+    random and permutation maps, entered in s0 = 0 and S - 1.  Returns
+    ``(cases, {kind: [lanes repaired, lanes, longest repair]})``."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import stitch as kstitch
+
+    P = kstitch.FOLD_LANES
+    rng = np.random.default_rng(SEED + 23)
+
+    def maps(kind, C, S):
+        if kind == "constant":
+            return np.repeat(rng.integers(0, S, (C, 1)), S, axis=1)
+        if kind == "identity":
+            return np.tile(np.arange(S), (C, 1))
+        if kind == "random":
+            return rng.integers(0, S, (C, S))
+        pick = rng.integers(0, 4, C)
+        out = rng.integers(0, S, (C, S))
+        out[pick == 0] = rng.integers(0, S, (int((pick == 0).sum()), 1))
+        out[pick == 1] = np.arange(S)
+        for c in np.flatnonzero(pick == 2):
+            out[c] = rng.permutation(S)
+        return out
+
+    cases, e_all, stats = 0, 0, {}
+    for S in (97, 1024):
+        for C in sorted({1, 2, 31, 32, 33, P - 1, P, P + 1, 4096, 4097}):
+            for kind in ("constant", "identity", "random", "mixed"):
+                sig_cpu = torch.from_numpy(maps(kind, C, S).astype(np.int32))
+                sig = sig_cpu.to(dev)
+                for s0 in (0, S - 1):
+                    entry, repair = kstitch.spec_fold(sig, s0)
+                    plain = kstitch.entry_fold(sig, s0)
+                    want, want_repair = kstitch.spec_fold_plain(sig_cpu, s0)
+                    twin = kstitch.entry_fold_plain(sig_cpu, s0)
+                    torch.cuda.synchronize()
+                    e = 0 if (torch.equal(entry.cpu(), twin) and torch.equal(plain.cpu(), twin)
+                              and torch.equal(want, twin)
+                              and torch.equal(repair.cpu(), want_repair)) else 1
+                    if kind == "constant" and int(repair.max()):
+                        e = 1
+                    if e:
+                        print(f"  fold edges: C={C} S={S} {kind} s0={s0}: the kernel disagrees "
+                              f"with its twins (repairs {repair.tolist()[:8]}.. against "
+                              f"{want_repair.tolist()[:8]}..)")
+                    e_all, cases = max(e_all, e), cases + 1
+                    st = stats.setdefault(kind, [0, 0, 0])
+                    st[0] += int((repair > 0).sum())
+                    st[1] += repair.numel()
+                    st[2] = max(st[2], int(repair.max()))
+    errs["entry_fold"] = max(errs["entry_fold"], e_all)
+    if e_all:
+        raise AssertionError("entry_fold: the kernel disagrees with its twins at its edges")
+    return cases, stats
+
+
 def check_pfac_kernels(label, m, cls, dev, errs, max_err):
     """The PFAC walk's three modes against their twins on the matcher's
     tables over ``cls``, bit for bit, and the v1 planes == the v2 planes;
@@ -2208,6 +2347,10 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"  meet edges: {check_meet_edges(dev, errs)} cases, each == its twin "
           f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    fold_cases, fold_stats = check_fold_edges(dev, errs)
+    print(f"  fold edges: {fold_cases} cases, each == its twins; lanes repaired, lanes, longest "
+          f"repair by map kind: {json.dumps(fold_stats)} ({time.perf_counter() - t0:.2f} s)")
 
     # Chunk stitching: sigma maps, entry fold and rescan against their twins,
     # each map and rescan in its form for any table and, on a table declared
@@ -2466,6 +2609,9 @@ def main() -> int:
     # The probe kernels (B19) at the JAX probes' sizes, and the PFAC walk
     # (device_engine="pfac2") on fuzz, demo and the 10k dictionary at 1 Mi units.
     check_probe_kernels(dev, errs, max_err)
+    t0 = time.perf_counter()
+    print(f"  row edges: {check_row_edges(dev, errs)} cases, each == its twin "
+          f"({time.perf_counter() - t0:.2f} s)")
     prng = np.random.default_rng(SEED + 20)  # its own: the main path's texts stay as they were
     fuzz_m = port.AhoCorasickSet(fuzz_keywords(prng, "abcdef", 60, 8), engine="device", device=dev)
     demo_m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
@@ -3815,7 +3961,7 @@ def main() -> int:
              ((N_SHARDS, K10), (64, ARRIVAL_UNITS_10K // 64),
               (1024, ARRIVAL_UNITS_10K // 1024))),
             ("10k dictionary", tab10, int32_classes(cls[:TEXT_UNITS]), d_seq,
-             ((N_SHARDS, TEXT_UNITS // N_SHARDS),)),
+             ((N_SHARDS, TEXT_UNITS // N_SHARDS), (4096, TEXT_UNITS // 4096))),
             ("10k shortest restart table", restart_tab[0], restart_flat, None,
              ((N_SHARDS, restart_flat.shape[0] // N_SHARDS),))):
         t_seq = cuda_ms(lambda: scan_dfa.seq_states(table, None, flat, 0), 3)
@@ -3925,6 +4071,26 @@ def main() -> int:
         "10k closure": (dense_tab[0], q32, d_seq),
         "demo dictionary": (demo_tab, demo_flat, d_demo)}, variants_lib)
     print(f"ab meet {json.dumps({'card': smi, **ab})}")
+    # The fold's first design against speculate and repair, each launch held
+    # bit for bit against the first design: the demo dictionary's sigma at C
+    # = 4,096 (its 32 Mi units), the 10k table's at the arrival path's 8
+    # chunks, and random maps (every guess wrong); with the latency floors.
+    fold_cells = {
+        "demo C=4096": kstitch.state_maps(demo_tab, demo_flat.reshape(4096, -1), d_demo),
+        "10k C=8": sigma8,
+        "random 4096 x 1024": scan_variants.random_sigma(4096, 1024, dev, SEED)}
+    ab_fold = scan_variants.fold_ab(fold_cells, variants_lib)
+    print(f"ab entry_fold {json.dumps({'card': smi, **ab_fold})}")
+    # The latency chains' floors (the timed call's shape), which the ranking
+    # below takes where they lie above the bytes and operations bound.
+    latency_floor = {"entry_fold": ab_fold["fold_floor_ms"]["10k C=8"]["floor_ms"]}
+    for label, fl in ab_fold["fold_floor_ms"].items():
+        t_fold = ab_fold["fold_ms"][label]
+        print(f"latency floor entry_fold, {label}: a launch {fl['launch_ms']} ms + a sigma load "
+              f"{fl['sigma_load_ns']} ns x (per {ab_fold['fold_repairs'][label]['per']} + the "
+              f"longest repair {ab_fold['fold_repairs'][label]['repair_max']}) = "
+              f"{fl['floor_ms']} ms; kernel {t_fold['spec']} ms = {t_fold['spec'] / fl['floor_ms']}"
+              f" x; first design {t_fold['first']} ms [{smi}]")
     ab = scan_variants.tp_ab((st10k, w_full, pd.halo, pd.state_bits), variants_lib)
     print(f"ab table_sharded {json.dumps({'card': smi, **ab})}")
     ab = scan_variants.sweep_ab({
@@ -4397,6 +4563,40 @@ def main() -> int:
         "row_chain", lambda: kprobe.row_chain(row_ref, row_start, steps, "max", rows_ref),
         lambda: kprobe.row_chain_plain(row_ref, row_start, steps, "max", rows_ref), 20, 1)
     probe_library["row_chain"] = cuda_ms(torch_rows, 2)
+    # The row read's first design against the group sizes at widths 28 (this
+    # table) and 128 (probe.py's 4,096 x 128), each launch held bit for bit
+    # against the first design, and each one's latency floor: reps x the step
+    # latency of 32 chains on the idle card x the waves its chains need.
+    ab_rows = scan_variants.row_ab(scan_variants.row_cells(dev), variants_lib)
+    print(f"ab row_chain {json.dumps({'card': smi, **ab_rows})}")
+    # and the first design against the rule's group at every residency-sweep
+    # size (rows of 28 words, 512 B to 470 MB)
+    ab = scan_variants.row_ab(scan_variants.row_cells(dev, sizes=probes_main.SWEEP_SIZES),
+                              variants_lib, every_group=False)
+    print(f"ab row_chain sweep {json.dumps({'card': smi, **ab})}")
+    slower = [c for c, t in ab["row_ms"].items()
+              if t[f"G={kprobe.row_group(probes_main.ROW_WORDS)}"] > t["first"]]
+    print(f"ab row_chain sweep: the rule's group is slower than the first design at "
+          f"{slower or 'no size'} [{smi}]")
+    # chain_gather's floor the same way: 32 chains of the timed table, a
+    # thread each, so one wave for its 65,536 chains.
+    lat_ms = [scan_variants._card_ms(
+        lambda r=r: kprobe.chain_gather(tab_ref, start_ref[:32], r, "load", placement="global"),
+        3, dev) for r in (steps, 2 * steps)]
+    gather_floor = (lat_ms[1] - lat_ms[0]) * -(-start_ref.numel() // scan_variants.CARD_THREADS)
+    row_label = f"{rows_ref} x {probes_main.ROW_WORDS}"
+    row_group = kprobe.row_group(probes_main.ROW_WORDS)
+    latency_floor.update({"chain_gather": gather_floor,
+                          "row_chain": ab_rows["row_floor_ms"][row_label][f"G={row_group}"]})
+    print(f"latency floor chain_gather: {steps} steps x {(lat_ms[1] - lat_ms[0]) / steps * 1e3} "
+          f"us a step (32 chains) x 1 wave = {gather_floor} ms; kernel {ms['chain_gather'][0]} "
+          f"ms = {ms['chain_gather'][0] / gather_floor} x its floor [{smi}]")
+    print(f"latency floor row_chain, {row_label}, G = {row_group} (the rule): "
+          f"{latency_floor['row_chain']} ms ({ab_rows['row_step_us'][row_label][f'G={row_group}']}"
+          f" us a step); kernel {ms['row_chain'][0]} ms = "
+          f"{ms['row_chain'][0] / latency_floor['row_chain']} x its floor; first design "
+          f"{ab_rows['row_ms'][row_label]['first']} ms, its floor "
+          f"{ab_rows['row_floor_ms'][row_label]['first']} ms [{smi}]")
     rs = np.random.RandomState(SEED)
     tab4 = torch.from_numpy(rs.randint(0, 2048, (2048, 128)).astype(np.float32)).to(dev)
     tab4_h = kprobe.onehot_table(tab4)
@@ -4632,7 +4832,8 @@ def main() -> int:
                 "seq_states_serial": counts["seq_states_serial"] * fixed_spec
                 + seq_u["seq_states_serial"] * per_unit_spec}
     seq_bound = {k: 8 * u / PEAK_BYTES_PER_S * 1e3 for k, u in seq_u.items()}
-    gaps = {k: counts[k] * (ms[k][0] - bounds[k][0]) for k in KERNELS}
+    yardstick = {k: max(bounds[k][0], latency_floor.get(k, 0.0)) for k in KERNELS}
+    gaps = {k: counts[k] * (ms[k][0] - yardstick[k]) for k in KERNELS}
     gaps.update({k: seq_time[k] - seq_bound[k] for k in seq_time})
     print(f"sequential scans on the paths: {counts['seq_states']} lane scans over "
           f"{seq_u['seq_states']} units, modelled {seq_time['seq_states']} ms = "
@@ -4643,8 +4844,9 @@ def main() -> int:
           f"+ {seq_u['seq_states_serial']} x {per_unit_spec} ms, bound "
           f"{seq_bound['seq_states_serial']} ms [{smi}]")
     gap = sorted(((g, k) for k, g in gaps.items()), reverse=True)
-    print("launches x gap to bound (ms; the sequential scans over their units): " + "; ".join(
-        f"{k} {counts[k]} x ({ms[k][0]} - {bounds[k][0]}) = {g}" if k not in seq_time else
+    print("launches x gap to bound (ms; the sequential scans over their units; the latency "
+          f"chains {sorted(latency_floor)} to their latency floors): " + "; ".join(
+        f"{k} {counts[k]} x ({ms[k][0]} - {yardstick[k]}) = {g}" if k not in seq_time else
         f"{k} {seq_u[k]} units: {seq_time[k]} - {seq_bound[k]} = {g}" for g, k in gap)
           + f" [{smi}]")
     print(f"chip_smoke: {time.perf_counter() - t_start} s from the build to here [{smi}]")
