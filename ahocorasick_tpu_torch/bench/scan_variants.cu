@@ -90,6 +90,13 @@
 //     its first design, a warp a chain.
 //   * entry_fold_first: the stitch's fold (csrc/stitch.cu entry_fold) in its
 //     first design, one thread walking the chain.
+//   * chain_independent, chain_arm: measurement arms of the probes' lookup
+//     chain (csrc/probes.cu chain_gather, global placement, the load op):
+//     the same number of loads from the same table at addresses that do not
+//     depend on the loaded values (the card's rate of random requests), and
+//     the chain with __ldcg instead of __ldg, with the L1 carve-out at its
+//     largest, with 2 or 4 chains a thread issued back to back, or on a grid
+//     of exactly one block an SM with the chains split evenly.
 
 #include <cstdint>
 
@@ -2149,4 +2156,149 @@ extern "C" int entry_fold_first(const void* sigma, int64_t num_chunks, int64_t n
       static_cast<const int32_t*>(sigma), num_chunks, num_states, s0,
       static_cast<int32_t*>(entry));
   return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------------------
+// chain_independent, chain_arm: the lookup chain's measurement arms.
+
+namespace probe_arms {
+
+constexpr int kArmThreads = 512;
+
+// A 32-bit mix of (chain, step): the independent arm's addresses.
+__device__ __forceinline__ uint32_t mix(uint32_t c, uint32_t r) {
+  uint32_t h = c * 0x9E3779B1u + r * 0x85EBCA77u;
+  h ^= h >> 15;
+  h *= 0x2C1B3C6Du;
+  h ^= h >> 12;
+  return h;
+}
+
+__global__ void __launch_bounds__(kArmThreads)
+    independent_kernel(const uint32_t* __restrict__ tab, uint32_t T, int64_t n, int reps,
+                       uint32_t* __restrict__ out) {
+  const int64_t c = static_cast<int64_t>(blockIdx.x) * kArmThreads + threadIdx.x;
+  if (c >= n) return;
+  uint32_t sum = 0u;
+#pragma unroll 8
+  for (int r = 0; r < reps; ++r) {
+    sum += __ldg(tab + __umulhi(mix(static_cast<uint32_t>(c), static_cast<uint32_t>(r)), T));
+  }
+  out[c] = sum;
+}
+
+// The load op's chain, kChains a thread: slot t of m runs chains t, t + m,
+// ...; `even`: gridDim.x blocks split the m slots evenly.
+template <int kChains, bool kCg>
+__global__ void __launch_bounds__(1024)
+    chain_kernel(const uint32_t* __restrict__ tab, uint32_t T, const uint32_t* __restrict__ idx,
+                 int64_t n, int reps, int64_t m, int even, uint32_t* __restrict__ out) {
+  int64_t t;
+  if (even) {
+    const int64_t lo = m * blockIdx.x / gridDim.x, hi = m * (blockIdx.x + 1) / gridDim.x;
+    t = lo + threadIdx.x;
+    if (t >= hi) return;
+  } else {
+    t = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+    if (t >= m) return;
+  }
+  const uint32_t last = T - 1u;
+  uint32_t i[kChains];
+#pragma unroll
+  for (int j = 0; j < kChains; ++j) i[j] = t + j * m < n ? idx[t + j * m] : 0u;
+  for (int r = 0; r < reps; ++r) {
+    uint32_t v[kChains];
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) {
+      v[j] = kCg ? __ldcg(tab + min(i[j], last)) : __ldg(tab + min(i[j], last));
+    }
+#pragma unroll
+    for (int j = 0; j < kChains; ++j) i[j] = v[j];
+  }
+#pragma unroll
+  for (int j = 0; j < kChains; ++j) {
+    if (t + j * m < n) out[t + j * m] = i[j];
+  }
+}
+
+template <int kChains, bool kCg>
+cudaError_t launch_arm(int carveout, int even, const uint32_t* tab, uint32_t T,
+                       const uint32_t* idx, int64_t n, int reps, uint32_t* out, cudaStream_t st) {
+  auto* kernel = chain_kernel<kChains, kCg>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributePreferredSharedMemoryCarveout,
+      carveout ? static_cast<int>(cudaSharedmemCarveoutMaxL1)
+               : static_cast<int>(cudaSharedmemCarveoutDefault));
+  if (err != cudaSuccess) return err;
+  const int64_t m = (n + kChains - 1) / kChains;
+  unsigned grid, block = kArmThreads;
+  if (even) {
+    int device, sms;
+    if ((err = cudaGetDevice(&device)) != cudaSuccess) return err;
+    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device)) !=
+        cudaSuccess) {
+      return err;
+    }
+    grid = static_cast<unsigned>(sms);
+    const int64_t per = (m + sms - 1) / sms;
+    if (per > 1024) return cudaErrorInvalidValue;
+    block = static_cast<unsigned>((per + 31) / 32 * 32);
+  } else {
+    grid = static_cast<unsigned>((m + kArmThreads - 1) / kArmThreads);
+  }
+  kernel<<<grid, block, 0, st>>>(tab, T, idx, n, reps, m, even, out);
+  return cudaGetLastError();
+}
+
+}  // namespace probe_arms
+
+// Arm (a) of the lookup chain: n x reps loads of tab (uint32[T]) at
+// addresses mix(chain, step) scaled to [0, T), each chain's sum in out
+// (uint32[n]), so that no load can be dropped.
+extern "C" int chain_independent(const void* tab, int64_t T, int64_t n, int reps, void* out,
+                                 int device, void* stream) {
+  using namespace probe_arms;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T < 1 || T > 0xffffffffLL || n < 1 || reps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const unsigned grid = static_cast<unsigned>((n + kArmThreads - 1) / kArmThreads);
+  independent_kernel<<<grid, kArmThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const uint32_t*>(tab), static_cast<uint32_t>(T), n, reps,
+      static_cast<uint32_t*>(out));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// Arms (c)-(e) of the lookup chain, the load op (chain_gather's result):
+// `chains` 1, 2 or 4 a thread; `cg` __ldcg instead of __ldg; `carveout` the
+// L1 carve-out at its largest; `even` one block an SM, the chains split
+// evenly.
+extern "C" int chain_arm(int chains, int cg, int carveout, int even, const void* tab, int64_t T,
+                         const void* idx, int64_t n, int reps, void* out, int device,
+                         void* stream) {
+  using namespace probe_arms;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (T < 1 || T > 0xffffffffLL || n < 1 || reps < 0) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const uint32_t*>(tab);
+  const auto* x = static_cast<const uint32_t*>(idx);
+  auto* o = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto tt = static_cast<uint32_t>(T);
+  if (cg) {
+    if (chains != 1) return static_cast<int>(cudaErrorInvalidValue);
+    err = launch_arm<1, true>(carveout, even, t, tt, x, n, reps, o, st);
+  } else if (chains == 1) {
+    err = launch_arm<1, false>(carveout, even, t, tt, x, n, reps, o, st);
+  } else if (chains == 2) {
+    err = launch_arm<2, false>(carveout, even, t, tt, x, n, reps, o, st);
+  } else if (chains == 4) {
+    err = launch_arm<4, false>(carveout, even, t, tt, x, n, reps, o, st);
+  } else {
+    err = cudaErrorInvalidValue;
+  }
+  return static_cast<int>(err);
 }

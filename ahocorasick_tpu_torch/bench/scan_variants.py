@@ -110,7 +110,16 @@ checkout and from the ``csrc/`` of
 another checkout at
 ``DIR`` (the parent commit, unpacked with ``git archive``), in one process on
 the same cells at the rule's K: each pair's outputs equal bit for bit, then
-other, this, this, other.  Prints one JSON line.
+other, this, this, other; then the probes' lookup chain ``chain_gather``
+(the load op at every residency-sweep size in every placement) and the
+one-hot product ``onehot_mma`` (``against_probes``).  Prints one JSON line.
+
+    python -m ahocorasick_tpu_torch.bench.scan_variants --probes [--against DIR]
+
+times the probes' arms: the lookup chain's in global memory (``chain_ab``:
+independent addresses, the random-request ceiling; the chains in flight;
+``__ldcg``, the L1 carve-out, 2 and 4 chains a thread, one block an SM);
+with ``--against``, only ``against_probes``.
 """
 
 from __future__ import annotations
@@ -219,6 +228,11 @@ def library() -> ctypes.CDLL:
     # (sigma, num_chunks, num_states, s0, entry, device, stream)
     lib.entry_fold_first.argtypes = [P, I64, I64, I, P, I, P]
     lib.row_chain_first.restype = lib.entry_fold_first.restype = ctypes.c_int
+    # (tab, T, n, reps, out, device, stream)
+    lib.chain_independent.argtypes = [P, I64, I64, I, P, I, P]
+    # (chains, cg, carveout, even, tab, T, idx, n, reps, out, device, stream)
+    lib.chain_arm.argtypes = [I, I, I, I, P, I64, P, I64, I, P, I, P]
+    lib.chain_independent.restype = lib.chain_arm.restype = ctypes.c_int
     return lib
 
 
@@ -1109,6 +1123,22 @@ AGAINST_SEQ_UNITS = (1 << 16, 1 << 25)  # the lane scan's N in the comparison
 AGAINST_SPEC_UNITS = (1 << 16, 1 << 20, 1 << 25)  # speculate and repair's N (one row)
 
 
+def _other_library(other_root: str, names) -> ctypes.CDLL:
+    """The ``csrc/*.cu`` of the checkout at ``other_root`` built into one
+    library, loaded, with the entry points ``names`` typed as the package's."""
+    import glob
+
+    sources = tuple(sorted(glob.glob(os.path.join(other_root, "ahocorasick_tpu_torch", "csrc",
+                                                  "*.cu"))))
+    if not sources:
+        raise FileNotFoundError(f"no ahocorasick_tpu_torch/csrc/*.cu under {other_root}")
+    lib = ctypes.CDLL(build.build(sources, "libac_kernels_other"))
+    for name in names:
+        getattr(lib, name).argtypes = build.ARGTYPES[name]
+        getattr(lib, name).restype = ctypes.c_int
+    return lib
+
+
 def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tuple,
             row_cell: tuple, tp_cell: tuple, seq_cell: tuple, spec_cell: tuple,
             pfac_cell: tuple) -> dict:
@@ -1125,23 +1155,13 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
     padded v1 trie whose last row is the dead state): ``{kernel: {"K" or "L",
     "other_ms", "this_ms", "this_over_other"}}`` (each ms list in the order
     timed)."""
-    import glob
-
     from ahocorasick_tpu_torch.bench import _seconds_per_rep
     from ahocorasick_tpu_torch.kernels import scan_batched as khuge
     from ahocorasick_tpu_torch.kernels import scan_block
     from ahocorasick_tpu_torch.kernels import scan_rowdfa as krow
     from ahocorasick_tpu_torch.kernels import table_sharded as ktp
 
-    sources = tuple(sorted(glob.glob(os.path.join(other_root, "ahocorasick_tpu_torch", "csrc",
-                                                  "*.cu"))))
-    if not sources:
-        raise FileNotFoundError(f"no ahocorasick_tpu_torch/csrc/*.cu under {other_root}")
-    libs = {"other": ctypes.CDLL(build.build(sources, "libac_kernels_other")),
-            "this": build.library()}
-    for name in AGAINST_KERNELS:
-        getattr(libs["other"], name).argtypes = build.ARGTYPES[name]
-        getattr(libs["other"], name).restype = ctypes.c_int
+    libs = {"other": _other_library(other_root, AGAINST_KERNELS), "this": build.library()}
     table, w, halo, sb = count_cell
     flat, wh, hhalo, hsb, hA = hot_cell
     dfa, emit, ws, shalo, sA, P = split_cell
@@ -1471,6 +1491,184 @@ def fold_ab(cells: dict, lib) -> dict:
     return {"fold_ms": times, "fold_repairs": stats, "fold_floor_ms": floors}
 
 
+CHAIN_CURVE = (1 << 13, 1 << 14, 1 << 15, 1 << 16, 1 << 17)  # chains in flight, arm (b)
+CHAIN_ARMS = {  # name: (chains a thread, __ldcg, L1 carve-out at its largest, even spread)
+    "ldg": (1, 0, 0, 0),
+    "ldcg": (1, 1, 0, 0),
+    "ldg, L1 carve-out max": (1, 0, 1, 0),
+    "2 chains a thread": (2, 0, 0, 0),
+    "4 chains a thread": (4, 0, 0, 0),
+    "even spread": (1, 0, 0, 1),
+}
+
+
+def independent_sums(tab: torch.Tensor, n: int, reps: int) -> torch.Tensor:
+    """What ``chain_independent`` (arm (a)) returns, in torch: for each of n
+    chains the sum modulo 2**32 of ``tab[mix(chain, step) * T >> 32]`` over
+    ``reps`` steps, ``mix`` the arm's 32-bit hash; int64[n]."""
+    M = 0xFFFFFFFF
+    T = tab.numel()
+    t = tab.to(torch.int64) & M
+    c = torch.arange(n, dtype=torch.int64, device=tab.device)
+    total = torch.zeros(n, dtype=torch.int64, device=tab.device)
+    for r in range(reps):
+        h = (c * 0x9E3779B1 + r * 0x85EBCA77) & M
+        h ^= h >> 15
+        h = (h * 0x2C1B3C6D) & M
+        h ^= h >> 12
+        total += t[(h * T) >> 32]
+    return total & M
+
+
+def chain_cell(dev, n: int = None, chains: int = None) -> tuple:
+    """The lookup chain's timed cell: ``(tab, starts, reps)``, the residency
+    sweep's cycle table of n entries (the 10k dictionary's size, 1,611,296,
+    by default) and ``chains`` random starts (``max(CHAIN_CURVE)`` by
+    default, of which the first 65,536 are the sweep's chains), 524 steps."""
+    from ahocorasick_tpu_torch.probes import __main__ as probes_main
+
+    gen = torch.Generator(device=dev).manual_seed(probes_main.SEED)
+    n = probes_main.SWEEP_SIZES[3] if n is None else n
+    tab = probes_main.cycle_table(n, dev, gen)
+    starts = torch.randint(0, n, (chains or max(CHAIN_CURVE),), generator=gen, device=dev,
+                           dtype=torch.int32)
+    return tab, starts, probes_main.SWEEP_STEPS
+
+
+def chain_ab(cell: tuple, lib) -> dict:
+    """The lookup chain's measurement arms in global memory (the load op of
+    ``csrc/probes.cu`` ``chain_gather``), each launch that computes the chain
+    held bit for bit against the package's kernel and arm (a) against
+    ``independent_sums``, the card's time (queued) taken in turns: (a)
+    ``chain_independent``, the same loads at addresses that do not depend on
+    the loaded values, whose rate is the card's random-request ceiling for
+    this table; (b) the package's kernel at each chain count of
+    ``CHAIN_CURVE``;
+    (c)-(e) ``chain_arm`` in each form of ``CHAIN_ARMS``.  ``cell``:
+    ``chain_cell``.  An arm beats the package's kernel where its time is
+    below the kernel's by more than the spread between repeats of one design
+    (the kernel's two turns and the two of the ``"ldg"`` arm, the same
+    code).
+    The throughput floor of the chain is its lookups over arm (a)'s rate,
+    that is arm (a)'s time.  Returns ``{"chain_ms", "chain_spread_ms",
+    "chain_beats", "chain_curve", "chain_rate", "independent_rate",
+    "throughput_floor_ms"}`` (rates in lookups/s)."""
+    tab, starts, reps = cell
+    dev = tab.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    T = tab.numel()
+    chains = 1 << 16  # the sweep's
+    idx = starts[:chains]
+    out = torch.empty(chains, dtype=torch.int32, device=dev)
+
+    def kernel(n=chains, o=out):
+        build.call("chain_gather", tab.data_ptr(), T, starts.data_ptr(), n, reps, 2, 2, 0, 0,
+                   o.data_ptr(), dev.index or 0, stream)
+
+    def arm(form):
+        def run():
+            _checked(lib.chain_arm(*form, tab.data_ptr(), T, idx.data_ptr(), chains, reps,
+                                   out.data_ptr(), dev.index or 0, stream), "chain_arm")
+        return run
+
+    def independent():
+        _checked(lib.chain_independent(tab.data_ptr(), T, chains, reps, out.data_ptr(),
+                                       dev.index or 0, stream), "chain_independent")
+
+    kernel()
+    want = out.clone()
+    runs = {"kernel": kernel, **{name: arm(form) for name, form in CHAIN_ARMS.items()}}
+    for name, run in runs.items():
+        out.fill_(-1)
+        run()
+        if not torch.equal(out, want):
+            raise AssertionError(f"chain_arm {name}: differs from the package's chain_gather")
+    independent()
+    if not torch.equal(out.to(torch.int64) & 0xFFFFFFFF, independent_sums(tab, chains, reps)):
+        raise AssertionError("chain_independent: its sums differ from independent_sums")
+    runs["(a) independent"] = independent
+    ms = {name: [] for name in runs}
+    for name in [*runs, *reversed(runs)]:
+        ms[name].append(_card_ms(runs[name], 3, dev))
+    # the spread between repeats of one design: the kernel's turns and those
+    # of the "ldg" arm, the same code built here
+    same = ms["kernel"] + ms["ldg"]
+    spread = max(same) - min(same)
+    beats = [name for name in CHAIN_ARMS
+             if name != "ldg" and min(same) - min(ms[name]) > spread]
+    lookups = chains * reps
+    curve_ms = {}
+    for n in CHAIN_CURVE:
+        o = torch.empty(n, dtype=torch.int32, device=dev)
+        t = _card_ms(lambda n=n, o=o: kernel(n, o), 3, dev)
+        curve_ms[n] = {"ms": t, "rate": n * reps / (t * 1e-3)}
+    floor = min(ms["(a) independent"])
+    return {"chain_ms": ms, "chain_spread_ms": spread, "chain_beats": beats,
+            "chain_curve": curve_ms, "chain_rate": lookups / (min(ms["kernel"]) * 1e-3),
+            "independent_rate": lookups / (floor * 1e-3), "throughput_floor_ms": floor}
+
+
+def onehot_cell(dev) -> tuple:
+    """The one-hot product's timed cell, probe.py's P4: ``(tab_h, idx,
+    reps)``, ``tab_h`` = ``onehot_table`` of a seeded float32[2048, 128] of
+    integers below 2,048, 1,024 rows, 128 steps."""
+    from ahocorasick_tpu_torch.kernels import probes as kp
+
+    rs = np.random.RandomState(0)
+    tab = torch.from_numpy(rs.randint(0, 2048, (2048, 128)).astype(np.float32)).to(dev)
+    idx = torch.from_numpy(rs.randint(0, 2048, (1024, 128), np.int32)).to(dev)
+    return kp.onehot_table(tab), idx, 128
+
+
+def against_probes(other_root: str, dev) -> dict:
+    """The probes' lookup chain (``chain_gather``, the load op, at every
+    residency-sweep size in every placement its table fits: 65,536 chains x
+    524 steps on the sweep's cycle tables) and the one-hot product
+    (``onehot_mma`` at ``onehot_cell``) of this checkout and of
+    ``other_root``'s ``csrc/``, each pair's outputs equal bit for bit, then
+    the card's time (queued) other, this, this, other: ``{label: {"other_ms",
+    "this_ms", "this_over_other"}}``."""
+    from ahocorasick_tpu_torch.kernels import probes as kp
+    from ahocorasick_tpu_torch.probes import __main__ as probes_main
+
+    libs = {"other": _other_library(other_root, ("chain_gather", "onehot_mma")),
+            "this": build.library()}
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    record = {}
+
+    def compare(label, outs, runs, reps):
+        for tree in libs:
+            outs[tree].fill_(-1)
+            runs[tree]()
+        if not torch.equal(outs["other"], outs["this"]):
+            raise AssertionError(f"{label}: the two checkouts' kernels differ")
+        ms = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            ms[tree].append(_card_ms(runs[tree], reps, dev))
+        record[label] = {"other_ms": ms["other"], "this_ms": ms["this"],
+                         "this_over_other": min(ms["this"]) / min(ms["other"])}
+
+    for n in probes_main.SWEEP_SIZES:
+        tab, start, steps = chain_cell(dev, n, probes_main.SWEEP_CHAINS)
+        for p in kp.PLACEMENTS:
+            if (p == "shfl" and n > 128) or (p == "shared" and 4 * n > kp.SHARED_BYTES):
+                continue
+            outs = {tree: torch.empty_like(start) for tree in libs}
+            runs = {tree: (lambda lib=lib, o=outs[tree], p=p: _checked(lib.chain_gather(
+                tab.data_ptr(), n, start.data_ptr(), start.numel(), steps, 2,
+                kp.PLACEMENTS.index(p), 0, 0, o.data_ptr(), dev.index or 0, stream),
+                "chain_gather")) for tree, lib in libs.items()}
+            compare(f"chain_gather {n} {p}", outs, runs, 3)
+        del tab
+    tab_h, idx, reps = onehot_cell(dev)
+    outs = {tree: torch.empty_like(idx) for tree in libs}
+    runs = {tree: (lambda lib=lib, o=outs[tree]: _checked(lib.onehot_mma(
+        tab_h.data_ptr(), tab_h.shape[1], tab_h.shape[0], idx.data_ptr(), idx.shape[0], reps,
+        o.data_ptr(), dev.index or 0, stream), "onehot_mma")) for tree, lib in libs.items()}
+    compare("onehot_mma T=2048 B=1024 ncols=128 reps=128", outs, runs, 5)
+    return record
+
+
 def main(argv=None) -> None:
     import argparse
 
@@ -1489,6 +1687,10 @@ def main(argv=None) -> None:
     parser.add_argument("--rows", action="store_true",
                         help="only the probes' row read's and the stitch's fold's A/Bs "
                              "(row_ab, fold_ab)")
+    parser.add_argument("--probes", action="store_true",
+                        help="only the probes' lookup chain arms (chain_ab); with --against, "
+                             "only the probes' chain_gather and onehot_mma against the other "
+                             "checkout's (against_probes)")
     parser.add_argument("--wwl", action="store_true",
                         help="only the whole-word-longest walks' A/Bs (wwl_fused_ab, "
                              "wwl_walk_ab) at baseline-4 and the 10k cell")
@@ -1499,6 +1701,11 @@ def main(argv=None) -> None:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
     lib = None if opts.against else library()
+    if opts.probes:
+        record = (against_probes(opts.against, dev) if opts.against else
+                  chain_ab(chain_cell(dev), lib))
+        print(json.dumps({"card": smi, "against": opts.against, **record}))
+        return
     if opts.wwl:
         print(json.dumps({"card": smi, **wwl_ab(dev, lib)}))
         return
@@ -1540,6 +1747,7 @@ def main(argv=None) -> None:
                              np.tile(base, TEXT_UNITS // BASE_UNITS), dev),
                           max(m.compiled.max_depth, 1)),
                          _restart_spec_cells(keywords, dev), ten_k_pfac_cell(m, base, dev)[1])
+        record.update(against_probes(opts.against, dev))
         print(json.dumps({"card": smi, "against": opts.against, **record}))
         return
     record = run((pd.table, w, pd.halo, pd.state_bits), (flat, wh, halo, sb, A),

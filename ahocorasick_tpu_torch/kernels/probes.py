@@ -8,16 +8,20 @@ probes of ``tools/probes/`` (the source note in the ``.cu`` file lists every
   independent chains, one per element of ``idx``: ``op="add"``
   ``i <- (i + tab[i & (T-1)]) & (T-1)``, ``"add_r"`` the same plus the step
   number, ``"load"`` ``i <- tab[i]``, ``"load_mod"`` ``i <- tab[i] % mod``;
-  the table in ``placement`` ``"shfl"`` (T <= 128, warp registers),
-  ``"shared"`` (T * 4 B within 227 KB) or ``"global"``;
+  the table in ``placement`` ``"shfl"`` (T <= 128, warp registers: lane l
+  holds the steering bytes of entries l, l + 32, l + 64, l + 96 in one
+  word, so a step is one shuffle), ``"shared"`` (T * 4 B within 227 KB:
+  ``shared_copies(T)`` interleaved copies, so a warp's loads spread over
+  the banks) or ``"global"``;
 * ``row_chain(tab, s0, reps, reduce, mod)`` — ``s <- reduce(tab[s, :]) % mod``
   with ``reduce`` ``"max"`` or ``"col0"``; in the max form a chain runs on
   ``row_group(width)`` lanes, each reading 16-byte words of the row where it
   is 16-byte aligned;
 * ``onehot_mma(onehot_table(tab), idx, reps)`` — ``g = onehot(idx[:, 0]) @
-  tab`` on the tensor cores, ``idx <- (idx + int(g)) & (T-1)``; ``tab``
-  float32 holding integers in [0, 2048), exact in fp16 (``onehot_table``
-  checks them and converts the table once);
+  tab`` on the tensor cores (``wgmma``, a warpgroup a 64-row tile over a
+  slab of 16 columns; ``onehot_slab(T, ncols, B)`` gives the launch),
+  ``idx <- (idx + int(g)) & (T-1)``; ``tab`` float32 holding integers in [0, 2048), exact in fp16
+  (``onehot_table`` checks them and converts the table once);
 * ``gather2d(tab, idx, reps, mode, mask=, sum_out=)`` — on an (8, 128)
   table: ``"sublane"`` ``tab[idx & 7, j]`` once, ``"sublane_chain"``
   ``s <- (tab[s & 7, j] + s) & 7``, and the sublane-then-lane gather
@@ -51,16 +55,51 @@ ROW_GROUPS = (1, 2, 4, 8)  # lanes a chain of row_chain's max form
 G2_MODES = ("sublane", "sublane_chain", "gather2d_first", "gather2d_all")
 SHARED_BYTES = 232448  # the shared memory one block can use on sm_90 (227 KB)
 MMA_EXACT = 2048  # integers below this are exact in fp16
-MMA_BLOCK_COLS = 32  # columns per block of onehot_mma
+MMA_COLS = 32  # onehot_mma takes a multiple of this many columns
+ONEHOT_SLAB = 16  # the columns of a onehot_mma block
 _WORDS = (torch.int32, torch.uint32)
 
 
 def default_placement(T: int) -> str:
-    """The fastest placement a T-entry table fits: warp registers, shared
-    memory, or global memory."""
-    if T <= 128:
-        return "shfl"
+    """The fastest placement a T-entry table fits: shared memory up to
+    ``SHARED_BYTES``, else global memory.  At the residency sweep's shape
+    (65,536 chains x 524 steps of the load op; card time, ``python -m
+    ahocorasick_tpu_torch.bench.scan_variants --against``; ms, NVIDIA H100
+    80GB HBM3, 700 W) at 128 entries: shared 0.0099, registers 0.0133,
+    global 0.0176; at 4,096: shared 0.0185, global 0.0448; at 57,344: shared
+    0.0237, global 0.0575.  Warp registers are never the fastest: a
+    shuffle's latency is above a conflict-free shared load's."""
     return "shared" if 4 * T <= SHARED_BYTES else "global"
+
+
+def shared_copies(T: int) -> int:
+    """The copies of a T-entry table that the shared placement stages,
+    interleaved (word ``x R + lane % R`` holds entry x): the largest power of
+    two up to 32 whose copies fit ``SHARED_BYTES``.  At R = 32 the lanes of a
+    warp read 32 banks (no conflict), up to 1,816 entries."""
+    r = 32
+    while r > 1 and r * 4 * T > SHARED_BYTES:
+        r //= 2
+    return r
+
+
+def onehot_shared(T: int, wgs: int) -> int:
+    """The shared memory of a ``onehot_mma`` block with ``wgs`` warpgroups:
+    its slab of ``ONEHOT_SLAB`` columns in fp16, column 0 of the table as T
+    words, and with two warpgroups two buffers of the second one's sums."""
+    return T * (2 * ONEHOT_SLAB + 4) + (512 * ONEHOT_SLAB if wgs == 2 else 0)
+
+
+def onehot_slab(T: int, ncols: int, B: int) -> tuple:
+    """``(warpgroups, group, blocks)`` of a ``onehot_mma`` launch: blocks of
+    64 rows over a slab of ``ONEHOT_SLAB`` columns, ``ceil(B / 64) x ncols /
+    16`` of them; two warpgroups splitting the T / 16 k-tiles wherever there
+    are two; a warpgroup's k-tiles issued 16 to a group where it has 16 or
+    more, else one at a time.  At T = 2,048, B = 1,024 and 128 columns: (2,
+    16, 128), so 128 of the 132 SMs are busy."""
+    wgs = 2 if T >= 32 else 1
+    group = 16 if T // 16 // wgs >= 16 else 1
+    return wgs, group, -(-B // 64) * (ncols // ONEHOT_SLAB)
 
 
 def _words(t: torch.Tensor) -> torch.Tensor:
@@ -242,12 +281,12 @@ def onehot_mma(tab_h: torch.Tensor, idx: torch.Tensor, reps: int) -> torch.Tenso
         raise ValueError(f"onehot_mma: idx {tuple(idx.shape)} does not match {ncols} columns")
     if T < 16 or T & (T - 1):
         raise ValueError(f"onehot_mma: T={T} must be a power of two of at least 16")
+    wgs = onehot_slab(T, ncols, idx.shape[0])[0]
+    if ncols % MMA_COLS or onehot_shared(T, wgs) > SHARED_BYTES:
+        raise ValueError(f"onehot_mma: the kernel takes a multiple of {MMA_COLS} columns and a T "
+                         f"whose 16-column slab fits shared memory; got T={T}, ncols={ncols}")
     if dev.type == "cpu":
         return onehot_mma_plain(tab_h, idx, reps)
-    tiles = MMA_BLOCK_COLS // 8 + (ncols > MMA_BLOCK_COLS)
-    if ncols % MMA_BLOCK_COLS or tiles * 8 * (T + 8) * 2 > SHARED_BYTES:
-        raise ValueError(f"onehot_mma: the kernel takes a multiple of {MMA_BLOCK_COLS} columns and "
-                         f"a T whose column tiles fit shared memory; got T={T}, ncols={ncols}")
     out = torch.empty_like(idx, dtype=torch.int32)
     _launch("onehot_mma", dev, tab_h.data_ptr(), T, ncols, idx.data_ptr(), idx.shape[0], reps,
             out.data_ptr())

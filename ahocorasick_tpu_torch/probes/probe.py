@@ -85,7 +85,7 @@ def probe_mxu_onehot(T=2048, reps=128, B=1024, *, rng=None, device=None):
     idx = tensor(draw(rng, 0, T, (B, 128), np.int32), dev)
     return _timeit(lambda t, i: kp.onehot_mma(t, i, reps), tab, idx,
                    label=f"P4 tensor-core one-hot T={T} (B={B}/step)",
-                   lookups_per_call=reps * B, placement="shared, mma.sync")
+                   lookups_per_call=reps * B, placement="shared, wgmma")
 
 
 def probe_torch_gather(S=65536, A=32, reps=64, B=4096, *, rng=None, device=None):

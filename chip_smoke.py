@@ -124,7 +124,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    rows, mod 1, the rows and 2**32 - 1); the fold at its edges
    (``check_fold_edges``: C = 1, 2, 31, 32, 33, P - 1, P, P + 1, 4,096 and
    4,097, constant, identity, random and mixed maps, s0 = 0 and S - 1, the
-   repair lengths too);
+   repair lengths too); the lookup chain at its edges (``check_chain_edges``:
+   every op in every placement at T = 1, 2, 127, 128 and 129 to 58,112,
+   n = 1, 31, 33 and 65,537, reps 0, 1 and 524, both ``sum_out``, entries
+   past 256 and past T, mod 1 and T); the one-hot product at its edges
+   (``check_onehot_edges``: T = 16, 64, 2,048, B = 1, 63, 65, 1,024,
+   32 to 160 columns, reps 0, 1 and 128);
    the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
    fuzz, demo and the 10k dictionary at 1 Mi units, and the v2 walk at its
    edges (``check_pfac_edges``: text lengths around a warp's prefix pass
@@ -266,7 +271,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    eager torch indexing; the row read's first design against its group
    sizes at widths 28 and 128 (``row_ab``), and the latency floors of the
    row read and of ``chain_gather`` (reps x the step latency of 32 chains on
-   the idle card x the waves their chains need); the PFAC v2 walk's table
+   the idle card x the waves their chains need); the lookup chain's arms in
+   global memory (``chain_ab``: independent addresses, whose time is its
+   throughput floor, the chains in flight, ``__ldcg``, the L1 carve-out, 2
+   and 4 chains a thread, one block an SM); the one-hot product's fp16 and
+   fp32 library chains;
+   the PFAC v2 walk's table
    loads a lane (mean,
    largest, a warp's longest) and the G loads/s of each mode, and its A/B
    (``ab pfac``: the first design's planes, count and count without the
@@ -276,7 +286,8 @@ port only, the dictionary and text generators included (``bench.headline``,
    operations over 67 T/s, 989 T/s for the fp16 tensor cores, whichever is
    larger), the library-call times, and the kernels ranked by launches x
    (ms - bound), the latency chains' bound their latency floor where it is
-   the larger, the two sequential scans by the units their launches
+   the larger (``chain_gather``'s the larger of its latency and throughput
+   floors), the two sequential scans by the units their launches
    scanned (each modelled as a cost a launch plus a cost a unit).
 
 It prints one JSON line of kernel records, then as its last line
@@ -1475,7 +1486,7 @@ def check_probe_kernels(dev, errs, max_err):
     idx = draw(2048, (1024, 128))
     check("onehot_mma", "probe.py:192 T=2048 B=1024 reps=128",
           lambda: kp.onehot_mma_plain(tabf, idx, 128),
-          [("shared, mma.sync", lambda: kp.onehot_mma(tabf, idx, 128))])
+          [("shared, wgmma", lambda: kp.onehot_mma(tabf, idx, 128))])
     t8, i8 = draw(100, (8, 128)), draw(8, (8, 128))
     check("gather2d", "probe2.py:56 sublane, once", lambda: kp.gather2d_plain(t8, i8, 1, "sublane"),
           [("shared", lambda: kp.gather2d(t8, i8, 1, "sublane"))])
@@ -1552,6 +1563,113 @@ def check_row_edges(dev, errs):
     if e_all:
         raise AssertionError("row_chain: a kernel result disagrees with its twin at its edges")
     return cases
+
+
+CHAIN_EDGE_T = {"shfl": (1, 2, 127, 128), "shared": (129, 1816, 1817, 4096, 57344, 58112)}
+CHAIN_EDGE_N = (1, 31, 33, 65537)
+CHAIN_EDGE_REPS = (0, 1, 524)
+
+
+def check_chain_edges(dev, errs):
+    """``chain_gather`` against its twin, bit for bit: every op in every
+    placement its table fits, at T = 1, 2, 127 and 128 (registers, shared,
+    global) and 129, 1,816, 1,817, 4,096, 57,344 and 58,112 (shared: 32, 16,
+    8 and 1 copies; global), the add ops at the powers of two among them,
+    ``load_mod`` with mod 1 and mod T; at n = 1, 31, 33 and 65,537 chains,
+    reps 0, 1 and 524, with and without ``sum_out``; on tables whose entries
+    are half below T and half any 32-bit word (values >= 256 and >= T: the
+    load op's clamp and its full last value), from starts below 2 T and of
+    any 32-bit word.  The chains are independent, so the twin runs once on
+    all 65,537 starts: the first n of its values are the twin of n chains,
+    and their sum modulo 2**32 its ``sum_out``.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import probes as kp
+
+    rng = np.random.default_rng(SEED + 23)
+    M = 0xFFFFFFFF
+    errs_at = []  # (case, max_abs_err on the card): one synchronisation at the end
+    for home, sizes in CHAIN_EDGE_T.items():
+        places = kp.PLACEMENTS[kp.PLACEMENTS.index(home):]
+        for T in sizes:
+            w = np.where(rng.random(T) < 0.5, rng.integers(0, T, T),
+                         rng.integers(0, 1 << 32, T)).astype(np.uint32)
+            tab = torch.from_numpy(w.view(np.int32)).to(dev)
+            x = np.where(rng.random(max(CHAIN_EDGE_N)) < 0.8,
+                         rng.integers(0, 2 * T, max(CHAIN_EDGE_N)),
+                         rng.integers(0, 1 << 32, max(CHAIN_EDGE_N))).astype(np.uint32)
+            starts = torch.from_numpy(x.view(np.int32)).to(dev)
+            ops = [("load", None), ("load_mod", 1), ("load_mod", T)]
+            if T & (T - 1) == 0:
+                ops = [("add", None), ("add_r", None), *ops]
+            for op, mod in ops:
+                for reps in CHAIN_EDGE_REPS:
+                    twin = kp.chain_gather_plain(tab, starts, reps, op, mod=mod).to(torch.int64) & M
+                    for n in CHAIN_EDGE_N:
+                        for summed in (False, True):
+                            want = (twin[:n].sum() & M).reshape(()) if summed else twin[:n]
+                            for p in places:
+                                got = kp.chain_gather(tab, starts[:n], reps, op, placement=p,
+                                                      mod=mod, sum_out=summed)
+                                e = ((got.to(torch.int64) & M) - want).abs().max() \
+                                    if got.shape == want.shape else torch.ones((), device=dev)
+                                errs_at.append(((T, op, mod, n, reps, summed, p), e))
+    e_case = torch.stack([e.to(torch.int64) for _, e in errs_at]).cpu().tolist()
+    e_all = max(e_case)
+    for (case, _), e in zip(errs_at, e_case):
+        if e:
+            print("  chain edges: T {}, {} mod {}, n {}, reps {}, sum_out {}, {}: max_abs_err "
+                  "{}".format(*case, e))
+    errs["chain_gather"] = max(errs["chain_gather"], e_all)
+    if e_all:
+        raise AssertionError("chain_gather: a kernel result disagrees with its twin at its edges")
+    return len(errs_at)
+
+
+ONEHOT_EDGES = {"T": (16, 64, 2048), "B": (1, 63, 65, 1024), "ncols": (32, 64, 128, 160),
+                "reps": (0, 1, 128)}
+
+
+def check_onehot_edges(dev, errs):
+    """``onehot_mma`` against its twin, bit for bit, at T = 16, 64 and
+    2,048 (every kernel instance ``onehot_slab`` picks: one warpgroup, and
+    two with groups of one and of 16 k-tiles), B = 1, 63, 65 and 1,024
+    rows, 32, 64, 128 and 160 columns and 0, 1 and 128 steps, on seeded
+    tables of integers below 2,048 (at 64 columns 4 bytes off 16-byte
+    alignment) and starts below 2 T (a first step whose column 0 lies past
+    the table adds nothing).  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import probes as kp
+
+    rng = np.random.default_rng(SEED + 24)
+    errs_at = []  # (case, max_abs_err on the card): one synchronisation at the end
+    for T in ONEHOT_EDGES["T"]:
+        for ncols in ONEHOT_EDGES["ncols"]:
+            tab_h = kp.onehot_table(torch.from_numpy(
+                rng.integers(0, 2048, (T, ncols)).astype(np.float32)).to(dev))
+            if ncols == 64:  # a table 4 bytes off 16-byte alignment: 2-byte staging loads
+                buf = torch.empty(tab_h.numel() + 8, dtype=torch.float16, device=dev)
+                buf[2: 2 + tab_h.numel()] = tab_h.reshape(-1)
+                tab_h = buf[2: 2 + tab_h.numel()].view(ncols, T)
+            for B in ONEHOT_EDGES["B"]:
+                idx = torch.from_numpy(rng.integers(0, 2 * T, (B, ncols)).astype(np.int32)).to(dev)
+                for reps in ONEHOT_EDGES["reps"]:
+                    got = kp.onehot_mma(tab_h, idx, reps)
+                    want = kp.onehot_mma_plain(tab_h, idx, reps)
+                    e = (got.to(torch.int64) - want.to(torch.int64)).abs().max() \
+                        if got.shape == want.shape else torch.ones((), device=dev)
+                    errs_at.append(((T, B, ncols, reps), e))
+    e_case = torch.stack([e.to(torch.int64) for _, e in errs_at]).cpu().tolist()
+    e_all = max(e_case)
+    for ((T, B, ncols, reps), _), e in zip(errs_at, e_case):
+        if e:
+            print(f"  onehot edges: T {T}, B {B}, ncols {ncols}, reps {reps}, launch "
+                  f"{kp.onehot_slab(T, ncols, B)}: max_abs_err {e}")
+    errs["onehot_mma"] = max(errs["onehot_mma"], e_all)
+    if e_all:
+        raise AssertionError("onehot_mma: a kernel result disagrees with its twin at its edges")
+    return len(errs_at)
 
 
 def check_fold_edges(dev, errs):
@@ -2611,6 +2729,12 @@ def main() -> int:
     check_probe_kernels(dev, errs, max_err)
     t0 = time.perf_counter()
     print(f"  row edges: {check_row_edges(dev, errs)} cases, each == its twin "
+          f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    print(f"  chain edges: {check_chain_edges(dev, errs)} cases, each == its twin "
+          f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    print(f"  onehot edges: {check_onehot_edges(dev, errs)} cases, each == its twin "
           f"({time.perf_counter() - t0:.2f} s)")
     prng = np.random.default_rng(SEED + 20)  # its own: the main path's texts stay as they were
     fuzz_m = port.AhoCorasickSet(fuzz_keywords(prng, "abcdef", 60, 8), engine="device", device=dev)
@@ -4591,6 +4715,25 @@ def main() -> int:
     print(f"latency floor chain_gather: {steps} steps x {(lat_ms[1] - lat_ms[0]) / steps * 1e3} "
           f"us a step (32 chains) x 1 wave = {gather_floor} ms; kernel {ms['chain_gather'][0]} "
           f"ms = {ms['chain_gather'][0] / gather_floor} x its floor [{smi}]")
+    # The chain's arms in global memory (bench/scan_variants.chain_ab): (a)
+    # the same loads at independent addresses, the card's random-request
+    # ceiling on this table, whose time is the chain's throughput floor; (b)
+    # the chains in flight; (c) __ldcg, the L1 carve-out; (d) 2 and 4 chains
+    # a thread; (e) one block an SM.
+    ab_chain = scan_variants.chain_ab(scan_variants.chain_cell(dev), variants_lib)
+    print(f"ab chain_gather {json.dumps({'card': smi, **ab_chain})}")
+    throughput_floor = {"chain_gather": ab_chain["throughput_floor_ms"]}
+    kind = "throughput" if throughput_floor["chain_gather"] > gather_floor else "latency"
+    print(f"throughput floor chain_gather: {start_ref.numel() * steps} lookups / "
+          f"{ab_chain['independent_rate'] / 1e9} G lookups/s (arm (a)) = "
+          f"{throughput_floor['chain_gather']} ms, beside its latency floor {gather_floor} ms: "
+          f"bound by {kind}; kernel {ms['chain_gather'][0]} ms = "
+          f"{ms['chain_gather'][0] / max(gather_floor, throughput_floor['chain_gather'])} x the "
+          f"larger; arms faster than the kernel by more than the spread of one design "
+          f"({ab_chain['chain_spread_ms']} ms): {ab_chain['chain_beats'] or 'none'} [{smi}]")
+    print("chains in flight chain_gather: " + "; ".join(
+        f"{n} chains {v['ms']} ms, {v['rate'] / 1e9} G lookups/s"
+        for n, v in ab_chain["chain_curve"].items()) + f" [{smi}]")
     print(f"latency floor row_chain, {row_label}, G = {row_group} (the rule): "
           f"{latency_floor['row_chain']} ms ({ab_rows['row_step_us'][row_label][f'G={row_group}']}"
           f" us a step); kernel {ms['row_chain'][0]} ms = "
@@ -4602,16 +4745,23 @@ def main() -> int:
     tab4_h = kprobe.onehot_table(tab4)
     idx4 = torch.from_numpy(rs.randint(0, 2048, (1024, 128), np.int32)).to(dev)
 
-    def torch_onehot():
+    def torch_onehot(half):
         i = idx4.long()
+        tab4_t = tab4_h.t()
         for _ in range(128):
-            oh = torch.nn.functional.one_hot(i[:, 0], 2048).to(torch.float32)
-            i = (i + (oh @ tab4).long()) & 2047
+            oh = torch.nn.functional.one_hot(i[:, 0], 2048)
+            g = oh.half() @ tab4_t if half else oh.to(torch.float32) @ tab4
+            i = (i + g.long()) & 2047
         return i
 
     ms["onehot_mma"] = timed_pair("onehot_mma", lambda: kprobe.onehot_mma(tab4_h, idx4, 128),
                                   lambda: kprobe.onehot_mma_plain(tab4_h, idx4, 128), 20, 2)
-    probe_library["onehot_mma"] = cuda_ms(torch_onehot, 2)
+    # the library yardstick: the fp16 one-hot product a step (the product the
+    # kernel computes); the fp32 one beside it
+    onehot_fp32_ms = cuda_ms(lambda: torch_onehot(False), 2)
+    probe_library["onehot_mma"] = cuda_ms(lambda: torch_onehot(True), 2)
+    print(f"time library onehot_mma: fp16 one-hot chain {probe_library['onehot_mma']} ms, fp32 "
+          f"{onehot_fp32_ms} ms [{smi}]")
     tab8 = torch.from_numpy(rs.randint(0, 1024, (8, 128), np.int32)).to(dev)
     idx8 = torch.from_numpy(rs.randint(0, 1024, (512, 128), np.int32)).to(dev)
 
@@ -4832,7 +4982,8 @@ def main() -> int:
                 "seq_states_serial": counts["seq_states_serial"] * fixed_spec
                 + seq_u["seq_states_serial"] * per_unit_spec}
     seq_bound = {k: 8 * u / PEAK_BYTES_PER_S * 1e3 for k, u in seq_u.items()}
-    yardstick = {k: max(bounds[k][0], latency_floor.get(k, 0.0)) for k in KERNELS}
+    yardstick = {k: max(bounds[k][0], latency_floor.get(k, 0.0), throughput_floor.get(k, 0.0))
+                 for k in KERNELS}
     gaps = {k: counts[k] * (ms[k][0] - yardstick[k]) for k in KERNELS}
     gaps.update({k: seq_time[k] - seq_bound[k] for k in seq_time})
     print(f"sequential scans on the paths: {counts['seq_states']} lane scans over "
@@ -4845,7 +4996,8 @@ def main() -> int:
           f"{seq_bound['seq_states_serial']} ms [{smi}]")
     gap = sorted(((g, k) for k, g in gaps.items()), reverse=True)
     print("launches x gap to bound (ms; the sequential scans over their units; the latency "
-          f"chains {sorted(latency_floor)} to their latency floors): " + "; ".join(
+          f"chains {sorted(latency_floor)} to their latency floors, chain_gather to the larger "
+          f"of its latency and throughput floors): " + "; ".join(
         f"{k} {counts[k]} x ({ms[k][0]} - {yardstick[k]}) = {g}" if k not in seq_time else
         f"{k} {seq_u[k]} units: {seq_time[k]} - {seq_bound[k]} = {g}" for g, k in gap)
           + f" [{smi}]")

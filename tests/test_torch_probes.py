@@ -230,7 +230,7 @@ def test_wrappers_refuse_what_the_kernels_cannot_take():
         kp.chain_gather(small, idx, 1, "load_mod", mod=129)
     with pytest.raises(ValueError, match="placement"):
         kp.chain_gather(small, idx, 1, "load", placement="vmem")
-    assert kp.default_placement(128) == "shfl"
+    assert kp.default_placement(128) == "shared"
     assert kp.default_placement(kp.SHARED_BYTES // 4) == "shared"
     assert kp.default_placement(kp.SHARED_BYTES // 4 + 1) == "global"
 
