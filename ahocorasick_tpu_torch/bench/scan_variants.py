@@ -111,8 +111,11 @@ another checkout at
 ``DIR`` (the parent commit, unpacked with ``git archive``), in one process on
 the same cells at the rule's K: each pair's outputs equal bit for bit, then
 other, this, this, other; then the probes' lookup chain ``chain_gather``
-(the load op at every residency-sweep size in every placement) and the
-one-hot product ``onehot_mma`` (``against_probes``).  Prints one JSON line.
+(the load op at every residency-sweep size in every placement), the
+one-hot product ``onehot_mma`` and the 2-D gather ``gather2d`` in every mode
+(``against_probes``).  A parent from before the redesigned v1 walk or the
+warp-row 2-D gather is called with its first design's arguments.  Prints one
+JSON line.
 
     python -m ahocorasick_tpu_torch.bench.scan_variants --probes [--against DIR]
 
@@ -1281,15 +1284,9 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
     outs, runs = {}, {}
     for tree, lib in libs.items():
         outs[tree] = torch.empty((P, n), dtype=torch.int32, device=cls.device)
-
-        def launch(lib=lib, out=outs[tree]):
-            rc = lib.pfac1_planes(trie.data_ptr(), trie.shape[1], is_match.data_ptr(),
-                                  trie.shape[0] - 1, cls.data_ptr(), cls.element_size(), n,
-                                  depth, P, out.data_ptr(), cls.device.index or 0, stream)
-            if rc != 0:
-                raise RuntimeError(f"pfac1_planes launch failed: CUDA error {rc}")
-        runs[tree] = launch
-        launch()
+        runs[tree] = pfac1_launcher(lib, _planned_v1(other_root) if tree == "other" else True,
+                                    pfac_cell, outs[tree])
+        runs[tree]()
     if not torch.equal(outs["other"], outs["this"]):
         raise AssertionError("pfac1_planes: the two checkouts' walks differ")
     ms = {"other": [], "this": []}
@@ -1620,11 +1617,118 @@ def onehot_cell(dev) -> tuple:
     return kp.onehot_table(tab), idx, 128
 
 
+def _planned_v1(root: str) -> bool:
+    """Whether the checkout at ``root`` has the redesigned v1 walk (its
+    ``pfac1_planes`` takes the launch plan); before it, the first design's
+    arguments."""
+    return os.path.exists(os.path.join(root, "ahocorasick_tpu_torch", "csrc", "pfac1_walk.cuh"))
+
+
+def _warp_rows(root: str) -> bool:
+    """Whether the checkout at ``root`` has the warp-row 2-D gather (its
+    ``gather2d`` takes rows and the launch shape); before it, 8-row tiles."""
+    return os.path.exists(os.path.join(root, "ahocorasick_tpu_torch", "csrc", "gather2d.cuh"))
+
+
+# The first designs' argument types, for a parent checkout that has them.
+_FIRST_ARGS = {
+    # (trie, stride, is_match, dead, cls, cls_bytes, n, depth, num_planes, out,
+    #  device, stream)
+    "pfac1_planes": [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_int, ctypes.c_int,
+                     ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    # (tab, idx, tiles, reps, mask, mode, sum_out, out, device, stream)
+    "gather2d": [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64, ctypes.c_int, ctypes.c_int64,
+                 ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+}
+
+
+def pfac1_launcher(lib, planned: bool, cell: tuple, out):
+    """A launch of ``lib``'s v1 walk on ``cell`` (``(trie, is_match, cls,
+    depth)``) into ``out``: with ``planned`` at the package's
+    ``kernels.scan_pfac.pfac1_plan``, else in the first design's
+    arguments."""
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpf
+
+    trie, is_match, cls, depth = cell
+    n, P = cls.numel() - depth, out.shape[0]
+    dev = cls.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (trie.data_ptr(), trie.shape[1])
+    tail = (is_match.data_ptr(), trie.shape[0] - 1, cls.data_ptr(), cls.element_size(), n, depth,
+            P)
+    if not planned:
+        fn = getattr(lib, "pfac1_planes")
+        fn.argtypes = _FIRST_ARGS["pfac1_planes"]
+        return lambda: _checked(fn(*head, *tail, out.data_ptr(), dev.index or 0, stream),
+                                "pfac1_planes")
+    plan = kpf.pfac1_plan(n, trie.shape[1], kpf.sm_count(dev))
+    fn = getattr(lib, "pfac1_planes")
+    fn.argtypes = build.ARGTYPES["pfac1_planes"]
+    args = (*head, trie.shape[0], *tail, plan.grid, int(plan.two_level), out.data_ptr(),
+            dev.index or 0, stream)
+    return lambda: _checked(fn(*args), "pfac1_planes")
+
+
+G2_REPS = 1024  # probe3.py:142's and probe2.py:86's steps
+
+
+def g2_cells(dev, seed: int = 0) -> dict:
+    """The 2-D gather's timed shapes, one a mode, as chip_smoke's
+    ``check_probe_kernels`` runs them: ``{label: (tab, idx, reps, mode,
+    mask, sum_out)}``, seeded."""
+    rs = np.random.RandomState(seed)
+
+    def words(a):
+        return torch.from_numpy(np.ascontiguousarray(a).astype(np.uint32).view(np.int32)).to(dev)
+
+    t100, i8 = words(rs.randint(0, 100, (8, 128))), words(rs.randint(0, 8, (8, 128)))
+    wide, i_wide = words(rs.randint(0, 1 << 32, (8, 128), np.int64)), words(
+        rs.randint(0, 51200, (8, 128)))
+    t1k, i1k = words(rs.randint(0, 1024, (8, 128))), words(rs.randint(0, 1024, (512, 128)))
+    return {"sublane B=8": (t100, i8, 1, "sublane", 0, False),
+            "sublane_chain B=8 reps=64": (wide, i_wide, 64, "sublane_chain", 0, False),
+            f"gather2d_first B=512 reps={G2_REPS}": (t1k, i1k, G2_REPS, "gather2d_first", 1023,
+                                                    False),
+            f"gather2d_all B=512 reps={G2_REPS}, summed": (t1k, i1k, G2_REPS, "gather2d_all",
+                                                           1023, True)}
+
+
+def gather2d_launcher(lib, warp_rows: bool, cell: tuple, out):
+    """A launch of ``lib``'s 2-D gather on ``cell`` (``g2_cells``) into
+    ``out`` (zeroed first where it is a sum): with ``warp_rows`` at
+    ``kernels.probes.gather2d_shape``, else in the first design's arguments
+    (8-row tiles)."""
+    from ahocorasick_tpu_torch.kernels import probes as kp
+
+    tab, idx, reps, mode, mask, summed = cell
+    rows = idx.shape[0]
+    dev = idx.device
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    head = (tab.data_ptr(), idx.data_ptr())
+    tail = (reps, mask, kp.G2_MODES.index(mode), int(summed))
+    fn = getattr(lib, "gather2d")
+    if warp_rows:
+        fn.argtypes = build.ARGTYPES["gather2d"]
+        args = (*head, rows, *tail, *kp.gather2d_shape(rows, mode), out.data_ptr(),
+                dev.index or 0, stream)
+    else:
+        fn.argtypes = _FIRST_ARGS["gather2d"]
+        args = (*head, rows // 8, *tail, out.data_ptr(), dev.index or 0, stream)
+
+    def run():
+        if summed:
+            out.zero_()
+        _checked(fn(*args), "gather2d")
+    return run
+
+
 def against_probes(other_root: str, dev) -> dict:
     """The probes' lookup chain (``chain_gather``, the load op, at every
     residency-sweep size in every placement its table fits: 65,536 chains x
-    524 steps on the sweep's cycle tables) and the one-hot product
-    (``onehot_mma`` at ``onehot_cell``) of this checkout and of
+    524 steps on the sweep's cycle tables), the one-hot product
+    (``onehot_mma`` at ``onehot_cell``) and the 2-D gather (``gather2d`` in
+    every mode at its timed shape, ``g2_cells``) of this checkout and of
     ``other_root``'s ``csrc/``, each pair's outputs equal bit for bit, then
     the card's time (queued) other, this, this, other: ``{label: {"other_ms",
     "this_ms", "this_over_other"}}``."""
@@ -1633,6 +1737,7 @@ def against_probes(other_root: str, dev) -> dict:
 
     libs = {"other": _other_library(other_root, ("chain_gather", "onehot_mma")),
             "this": build.library()}
+    rows_form = {"other": _warp_rows(other_root), "this": True}
     stream = torch.cuda.current_stream(dev).cuda_stream
     record = {}
 
@@ -1666,6 +1771,13 @@ def against_probes(other_root: str, dev) -> dict:
         tab_h.data_ptr(), tab_h.shape[1], tab_h.shape[0], idx.data_ptr(), idx.shape[0], reps,
         o.data_ptr(), dev.index or 0, stream), "onehot_mma")) for tree, lib in libs.items()}
     compare("onehot_mma T=2048 B=1024 ncols=128 reps=128", outs, runs, 5)
+    for label, cell in g2_cells(dev).items():
+        idx, summed = cell[1], cell[5]
+        outs = {tree: torch.zeros(1 if summed else idx.shape, dtype=torch.int32, device=dev)
+                for tree in libs}
+        runs = {tree: gather2d_launcher(lib, rows_form[tree], cell, outs[tree])
+                for tree, lib in libs.items()}
+        compare(f"gather2d {label}", outs, runs, 5)
     return record
 
 
@@ -1689,8 +1801,8 @@ def main(argv=None) -> None:
                              "(row_ab, fold_ab)")
     parser.add_argument("--probes", action="store_true",
                         help="only the probes' lookup chain arms (chain_ab); with --against, "
-                             "only the probes' chain_gather and onehot_mma against the other "
-                             "checkout's (against_probes)")
+                             "only the probes' chain_gather, onehot_mma and gather2d against "
+                             "the other checkout's (against_probes)")
     parser.add_argument("--wwl", action="store_true",
                         help="only the whole-word-longest walks' A/Bs (wwl_fused_ab, "
                              "wwl_walk_ab) at baseline-4 and the 10k cell")

@@ -3,11 +3,11 @@
 // ctypes (ahocorasick_tpu_torch/kernels/build.py builds it,
 // kernels/scan_pfac.py binds it).
 //
-// What it replaces.  The JAX package's cross-check walks, three lax loops:
+// What it replaces.  The JAX package's cross-check walks, two lax loops:
 // ahocorasick_tpu/ops/scan_pfac2.py pfac2_bitplanes (:163, the
-// device_engine="pfac2" engine) and pfac2_count (:201), and the v1 walk
-// ops/scan_pfac.py pfac_bitplanes (:74), the reference tests/test_pfac2.py
-// holds v2 against.
+// device_engine="pfac2" engine) and pfac2_count (:201).  The v1 walk
+// (ops/scan_pfac.py pfac_bitplanes, the reference tests/test_pfac2.py holds
+// v2 against) is csrc/pfac1_scan.cu, which shares nothing with this file.
 //
 // What it computes.  The walk of start i follows the pure trie (no fail
 // links) from the root over cls[i], cls[i + 1], ...: a keyword of length L matches at start
@@ -17,7 +17,6 @@
 // the state after k classes and the match bits of depths 1..k (bit
 // 28 + j = a match at depth k - j); then one trie_next load per depth,
 // a match being `state >= threshold` (own-match states are ranked last).
-// v1: trie_next from the root and an is_match lookup per depth, no prefix.
 // A lane stops at dead_state, which absorbs and emits nothing.
 //
 // What bounds it on the H100.  A walk is a chain of up to d - k dependent
@@ -32,11 +31,9 @@
 // classes staged in shared memory (and the prefix table there where it
 // fits), a warp queue of the walks that go on with lanes that refill from
 // it, 16-byte plane stores, and one atomic add a block for the count; the
-// launch shape comes from kernels/scan_pfac.launch_shape.  v1
-// (pfac1_planes, the independent walk the tests hold v2 against) keeps the
-// first design, one thread a start over the whole grid; the first v2 design
-// lives on as pfac_first in bench/scan_variants.cu.  The flat table index is
-// 64-bit.
+// launch shape comes from kernels/scan_pfac.launch_shape.  The first v2
+// design lives on as pfac_first in bench/scan_variants.cu.  The flat table
+// index is 64-bit.
 
 #include <cstdint>
 
@@ -46,44 +43,9 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // v1
 constexpr int kWalkThreads = 1024;  // v2: kernels/scan_pfac.THREADS
 constexpr int kWalkPerLane = 8;  // v2: kernels/scan_pfac.PER_LANE
 constexpr int kWalkBlocks = 1;  // v2: kernels/scan_pfac.BLOCKS_PER_SM
-
-// v1: one thread a start; each thread writes its own column word of each
-// plane, so neighbouring threads store to neighbouring words (coalesced).
-template <typename C>
-__global__ void __launch_bounds__(kThreads)
-    pfac1_kernel(const uint32_t* __restrict__ trie, int stride, const uint8_t* __restrict__ is_match,
-                 uint32_t dead, const C* __restrict__ cls, int64_t n, int depth, int num_planes,
-                 uint32_t* __restrict__ planes) {
-  const int64_t i = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (i >= n) return;
-  const C* c = cls + i;
-  uint32_t st = __ldg(trie + static_cast<uint32_t>(c[0]));  // row 0: the root
-  uint32_t word = is_match[st] ? 1u : 0u;
-  int plane = 0;
-  for (int kk = 1; kk < depth && st != dead; ++kk) {
-    if ((kk >> 5) != plane) {  // depths rise by one: plane by plane, in order
-      planes[static_cast<int64_t>(plane) * n + i] = word;
-      word = 0;
-      plane = kk >> 5;
-    }
-    st = __ldg(trie + static_cast<uint64_t>(st) * stride + static_cast<uint32_t>(c[kk]));
-    word |= static_cast<uint32_t>(is_match[st] != 0) << (kk & 31);
-  }
-  planes[static_cast<int64_t>(plane) * n + i] = word;
-  for (int p = plane + 1; p < num_planes; ++p) planes[static_cast<int64_t>(p) * n + i] = 0u;
-}
-
-template <typename C>
-void launch_v1(unsigned grid, cudaStream_t st, const uint32_t* trie, int stride,
-               const uint8_t* is_match, uint32_t dead, const void* cls, int64_t n, int depth,
-               int num_planes, uint32_t* out) {
-  pfac1_kernel<C><<<grid, kThreads, 0, st>>>(trie, stride, is_match, dead,
-                                            static_cast<const C*>(cls), n, depth, num_planes, out);
-}
 
 }  // namespace
 
@@ -119,32 +81,6 @@ int pfac2_count(const void* trie, int stride, const void* prefix, int64_t thresh
   return pfac::launch<true, kWalkThreads, kWalkPerLane, kWalkBlocks>(w, cls_bytes, prefix_shared != 0,
                                                         static_cast<unsigned>(grid),
                                                         static_cast<cudaStream_t>(stream));
-}
-
-// trie: uint32[S, stride]; is_match: uint8[S]; out: uint32[num_planes, n].
-int pfac1_planes(const void* trie, int stride, const void* is_match, int64_t dead,
-                 const void* cls, int cls_bytes, int64_t n, int depth, int num_planes, void* out,
-                 int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (n < 1 || stride < 1 || depth < 1 || num_planes < (depth + 31) / 32)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const unsigned grid = static_cast<unsigned>((n + kThreads - 1) / kThreads);
-  auto st = static_cast<cudaStream_t>(stream);
-  const auto* t = static_cast<const uint32_t*>(trie);
-  const auto* m = static_cast<const uint8_t*>(is_match);
-  const auto dd = static_cast<uint32_t>(dead);
-  auto* planes = static_cast<uint32_t*>(out);
-  if (cls_bytes == 1) {
-    launch_v1<uint8_t>(grid, st, t, stride, m, dd, cls, n, depth, num_planes, planes);
-  } else if (cls_bytes == 2) {
-    launch_v1<uint16_t>(grid, st, t, stride, m, dd, cls, n, depth, num_planes, planes);
-  } else if (cls_bytes == 4) {
-    launch_v1<int32_t>(grid, st, t, stride, m, dd, cls, n, depth, num_planes, planes);
-  } else {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -60,14 +60,16 @@
 //   load a row a step, so no block computes column 0's tile only to drive
 //   the one-hot; the block that owns column 0 computes that column by the
 //   product, and the card check holds the two equal.
-// * gather2d: on an (8, 128) table in shared memory, one block of 1,024
-//   threads per 8 x 128 tile of indices: the sublane gather
-//   out = tab[idx & 7, j] once (probe2.py:56) or chained with
-//   s <- (tab[s & 7, j] + s) & 7 (probe6.py:162), and the sublane-then-lane
-//   gather  idx <- (idx + tab[sub[i, L], L] [+ r]) & mask,
-//   L = idx[i, j] & 127, sub = (idx >> 7) & 7, which reads another thread's
-//   index of the same row through shared memory with a __syncthreads per
-//   step (probe2.py:86 on the first tile only, probe3.py:142 on every tile).
+// * gather2d: on an (8, 128) table, one warp a row of 128 indices, four a
+//   lane (gather2d.cuh): the sublane gather out = tab[idx & 7, j] once
+//   (probe2.py:56) or chained with s <- (tab[s & 7, j] + s) & 7
+//   (probe6.py:162), and the sublane-then-lane gather
+//   idx <- (idx + tab[sub[i, L], L] [+ r]) & mask, L = idx[i, j] & 127,
+//   sub = (idx >> 7) & 7, whose exchange never leaves row i: each lane
+//   computes the sublane gather for its own columns and the row's values
+//   cross the warp, with no block barrier in the loop (probe2.py:86 on the
+//   first tile only, probe3.py:142 on every tile).  The first design ran a
+//   block of 1,024 threads a tile with two block barriers a step.
 //
 // What bounds them on the H100.  Each chain is a run of dependent loads:
 // the time of a step is the latency of the placement (a shuffle, a shared
@@ -84,14 +86,16 @@
 // scan kernel's lane adds its class loads and its output to the same
 // dependent load a character.  onehot_mma is bound by its tensor-core
 // operations (2 * B * T * ncols per step) and by building its one-hot in
-// registers, gather2d by the two barriers per step.  Indices are clamped
-// (load ops) or masked (add ops) to the table, as XLA clamps a gather, so
-// no input reads out of bounds.
+// registers, gather2d by the latency of its step (its latency floor).
+// Indices are clamped (load ops) or masked (add ops) to the table, as XLA
+// clamps a gather, so no input reads out of bounds.
 
 #include <cstdint>
 
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include "gather2d.cuh"
 
 namespace {
 
@@ -602,49 +606,6 @@ cudaError_t launch_onehot(const __half* t, int T, int ncols, const uint32_t* idx
   return cudaGetLastError();
 }
 
-// -------------------------------------------------------------- gather2d
-
-enum G2Mode { kSublaneOnce = 0, kSublaneChain = 1, kGather2dFirst = 2, kGather2dAll = 3 };
-
-__global__ void __launch_bounds__(1024)
-    gather2d_kernel(const uint32_t* __restrict__ tab, const uint32_t* __restrict__ idx, int reps,
-                    uint32_t mask, int mode, int sum_out, uint32_t* __restrict__ out) {
-  __shared__ uint32_t tab_s[8][128];
-  __shared__ uint32_t idx_s[8][128];
-  __shared__ uint32_t warp_sums[32];
-  const int i = threadIdx.x >> 7;
-  const int j = threadIdx.x & 127;
-  const int64_t at = static_cast<int64_t>(blockIdx.x) * 1024 + threadIdx.x;
-  tab_s[i][j] = tab[threadIdx.x];
-  uint32_t x = idx[at];
-  __syncthreads();
-  if (mode == kSublaneOnce) {
-    x = tab_s[x & 7u][j];
-  } else if (mode == kSublaneChain) {
-    x &= 7u;
-    for (int r = 0; r < reps; ++r) x = (tab_s[x][j] + x) & 7u;
-  } else {
-    const bool gathers = mode == kGather2dAll || blockIdx.x == 0;  // uniform in the block
-    const uint32_t add_r = mode == kGather2dAll ? 1u : 0u;
-    for (int r = 0; r < reps; ++r) {
-      uint32_t v = 0u;
-      if (gathers) {
-        idx_s[i][j] = x;
-        __syncthreads();
-        const uint32_t lane = x & 127u;
-        v = tab_s[(idx_s[i][lane] >> 7) & 7u][lane];
-        __syncthreads();
-      }
-      x = (x + v + add_r * static_cast<uint32_t>(r)) & mask;
-    }
-  }
-  if (sum_out) {
-    block_sum(x, out, warp_sums);
-  } else {
-    out[at] = x;
-  }
-}
-
 }  // namespace
 
 extern "C" {
@@ -728,20 +689,18 @@ int onehot_mma(const void* tabT, int T, int ncols, const void* idx, int B, int r
                                        : launch_onehot<1, 2>(t, T, ncols, x, B, reps, o, st));
 }
 
-// tab: uint32[8][128]; idx: uint32[tiles * 8][128]; out like idx, or
-// uint32[1] (zeroed) with sum_out.
-int gather2d(const void* tab, const void* idx, int64_t tiles, int reps, int64_t mask, int mode,
-             int sum_out, void* out, int device, void* stream) {
+// tab: uint32[8][128]; idx: uint32[rows][128] (rows a multiple of 8); out
+// like idx, or uint32[1] (zeroed) with sum_out.  The launch, `blocks` blocks
+// of `warps` rows, is kernels/probes.gather2d_shape's.
+int gather2d(const void* tab, const void* idx, int64_t rows, int reps, int64_t mask, int mode,
+             int sum_out, int warps, int64_t blocks, void* out, int device, void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (tiles < 1 || reps < 0 || mode < kSublaneOnce || mode > kGather2dAll || mask < 0 ||
-      mask > 0xffffffffLL) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  gather2d_kernel<<<static_cast<unsigned>(tiles), 1024, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const uint32_t*>(tab), static_cast<const uint32_t*>(idx), reps,
-      static_cast<uint32_t>(mask), mode, sum_out, static_cast<uint32_t*>(out));
-  return static_cast<int>(cudaGetLastError());
+  if (mask < 0 || mask > 0xffffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(g2::launch(
+      static_cast<const uint32_t*>(tab), static_cast<const uint32_t*>(idx), rows, reps,
+      static_cast<uint32_t>(mask), mode, sum_out, warps, blocks, static_cast<uint32_t*>(out),
+      static_cast<cudaStream_t>(stream)));
 }
 
 }  // extern "C"

@@ -38,11 +38,12 @@ SOURCES = tuple(
     os.path.join(_PKG, "csrc", name)
     for name in ("packed_scan.cu", "compact.cu", "wwl_scan.cu", "wwl_walk.cu", "huge_scan.cu",
                  "seq_scan.cu", "stitch.cu", "table_sharded.cu", "rowdfa2_scan.cu", "probes.cu",
-                 "pfac_scan.cu")
+                 "pfac_scan.cu", "pfac1_scan.cu")
 )
 # Included by the sources; hashed with them, so an edited header rebuilds too.
 HEADERS = tuple(os.path.join(_PKG, "csrc", name)
-                for name in ("tile.cuh", "sweep.cuh", "pfac_walk.cuh"))
+                for name in ("tile.cuh", "sweep.cuh", "pfac_walk.cuh", "gather2d.cuh",
+                             "pfac1_walk.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -170,8 +171,9 @@ ARGTYPES = {
     "row_chain": [_P, _I64, _I, _P, _I64, _I, _I, _I64, _I, _P, _I, _P],
     # (fp16 tab transposed, T, ncols, idx, B, reps, out, device, stream)
     "onehot_mma": [_P, _I, _I, _P, _I, _I, _P, _I, _P],
-    # (tab, idx, tiles, reps, mask, mode, sum_out, out, device, stream)
-    "gather2d": [_P, _P, _I64, _I, _I64, _I, _I, _P, _I, _P],
+    # (tab, idx, rows, reps, mask, mode, sum_out, warps, blocks, out, device,
+    #  stream)
+    "gather2d": [_P, _P, _I64, _I, _I64, _I, _I, _I, _I64, _P, _I, _P],
     # (trie, stride, prefix, threshold, dead, cls, cls_bytes, n, depth, k,
     #  num_classes, num_planes, grid, span, prefix_shared, out, device, stream)
     "pfac2_planes": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _I, _I, _I64, _I, _P,
@@ -179,9 +181,9 @@ ARGTYPES = {
     # the same without num_planes; out is one int64 count
     "pfac2_count": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _I, _I64, _I, _P, _I,
                     _P],
-    # (trie, stride, is_match, dead, cls, cls_bytes, n, depth, num_planes,
-    #  out, device, stream)
-    "pfac1_planes": [_P, _I, _P, _I64, _P, _I, _I64, _I, _I, _P, _I, _P],
+    # (trie, stride, states, is_match, dead, cls, cls_bytes, n, depth,
+    #  num_planes, grid, two_level, out, device, stream)
+    "pfac1_planes": [_P, _I, _I64, _P, _I64, _P, _I, _I64, _I, _I, _I, _I, _P, _I, _P],
 }
 
 _lib = None

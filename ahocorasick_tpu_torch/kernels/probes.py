@@ -28,7 +28,8 @@ probes of ``tools/probes/`` (the source note in the ``.cu`` file lists every
   ``idx <- (idx + tab[sub[i, L], L] [+ r]) & mask`` (``L = idx & 127``,
   ``sub = (idx >> 7) & 7`` of the same row) on the first 8-row tile
   (``"gather2d_first"``, rows past it only masked) or on every tile with the
-  step number added (``"gather2d_all"``).
+  step number added (``"gather2d_all"``); one warp a row, four indices a
+  lane (``csrc/gather2d.cuh``; ``gather2d_shape(rows)`` gives the launch).
 
 Tables and indices are int32 or uint32 and read as unsigned words; the
 results are int32 (``sum_out``: their sum modulo 2**32, an int32 scalar), as
@@ -53,6 +54,8 @@ PLACEMENTS = ("shfl", "shared", "global")
 REDUCES = ("max", "col0")
 ROW_GROUPS = (1, 2, 4, 8)  # lanes a chain of row_chain's max form
 G2_MODES = ("sublane", "sublane_chain", "gather2d_first", "gather2d_all")
+G2_MAX_WARPS = 8  # rows a gather2d block: csrc/gather2d.cuh kMaxWarps
+SM_COUNT = 132  # the H100's SMs, which gather2d_shape fills
 SHARED_BYTES = 232448  # the shared memory one block can use on sm_90 (227 KB)
 MMA_EXACT = 2048  # integers below this are exact in fp16
 MMA_COLS = 32  # onehot_mma takes a multiple of this many columns
@@ -307,6 +310,21 @@ def onehot_mma_plain(tab_h, idx, reps) -> torch.Tensor:
 # ----------------------------------------------------------------- gather2d
 
 
+def gather2d_shape(rows: int, mode: str = "gather2d_all", sms: int = SM_COUNT) -> tuple:
+    """``(warps, blocks)`` of a ``gather2d`` launch over ``rows`` rows:
+    ``warps`` rows a block, a warp a row.  The single sublane gather runs a
+    thread an index, ``G2_MAX_WARPS`` rows a block, so that a block of
+    1,024 threads stages its shared copy of the table one word a thread;
+    the chains take the most rows a block (a power of two up to
+    ``G2_MAX_WARPS``) that still makes a block for each of the ``sms`` SMs,
+    one row a block where the rows are fewer than the SMs.  At 512 rows: 2
+    rows a block, 256 blocks."""
+    warps = G2_MAX_WARPS
+    while mode != "sublane" and warps > 1 and -(-rows // warps) < sms:
+        warps //= 2
+    return warps, -(-rows // warps)
+
+
 def gather2d(tab: torch.Tensor, idx: torch.Tensor, reps: int, mode: str, *, mask: int = 0,
              sum_out: bool = False) -> torch.Tensor:
     """The sublane and the sublane-then-lane gathers of an (8, 128) table
@@ -325,8 +343,8 @@ def gather2d(tab: torch.Tensor, idx: torch.Tensor, reps: int, mode: str, *, mask
     if dev.type == "cpu":
         return gather2d_plain(tab, idx, reps, mode, mask=mask, sum_out=sum_out)
     out = _sum_out(dev) if sum_out else torch.empty_like(idx, dtype=torch.int32)
-    _launch("gather2d", dev, tab.data_ptr(), idx.data_ptr(), idx.shape[0] // 8, reps, mask,
-            G2_MODES.index(mode), int(sum_out), out.data_ptr())
+    _launch("gather2d", dev, tab.data_ptr(), idx.data_ptr(), idx.shape[0], reps, mask,
+            G2_MODES.index(mode), int(sum_out), *gather2d_shape(idx.shape[0], mode), out.data_ptr())
     return out[0] if sum_out else out
 
 

@@ -13,7 +13,8 @@ package's cross-check loops ``ahocorasick_tpu/ops/scan_pfac2.py``
   at column i means a keyword of length L starts at i;
 * ``pfac2_count(...)`` — the total of those bits, an int64 scalar tensor;
 * ``pfac1_planes(trie, is_match, cls, depth, num_planes, dead_state)`` — the
-  same planes from the unranked trie and an ``is_match`` lookup per depth.
+  same planes from the unranked trie and an ``is_match`` lookup per depth
+  (``csrc/pfac1_scan.cu``, which shares nothing with v2).
 
 ``cls`` holds the ``pad_classes``-padded class ids (``uint8``, ``uint16`` or
 ``int32``): ``n = len(cls) - depth`` lanes, one per start.  ``trie`` is
@@ -26,7 +27,10 @@ The v2 kernels (``csrc/pfac_walk.cuh``) run persistent blocks whose warps
 each take a span of starts: a prefix pass over classes staged in shared
 memory (the k-gram prefix table there too where it fits), then a warp queue
 of the walks that go on; ``launch_shape`` is their rule for the grid, the
-span and where the prefix table lives.
+span and where the prefix table lives.  The v1 kernel
+(``csrc/pfac1_walk.cuh``) runs persistent blocks that stage the root row
+and the two-level table where they fit, then walk a start a thread,
+grid-stride; ``pfac1_plan`` is its rule.
 
 A wrapper runs the plain twin for tensors on the CPU, and launches the
 kernel for tensors on a CUDA device: there is no fallback from one to the
@@ -61,6 +65,17 @@ SM_SMEM = 233_472  # bytes of shared memory an H100 SM has for blocks (228 KB)
 BLOCK_SMEM_MAX = 232_448  # a block's most dynamic shared memory (227 KB)
 BLOCK_SMEM_RESERVED = 1024 + 256  # the CUDA runtime's 1 KB a block and the kernel's own sums
 MAX_K = 3  # ops/scan_pfac2.build_ranked's largest prefix_k
+
+# The v1 walk's launch (csrc/pfac1_walk.cuh): persistent blocks of
+# V1_THREADS, V1_BLOCKS_PER_SM an SM (the kernel's register budget), each
+# first staging the root row and the two-level table where the table fits
+# V1_TWO_LEVEL_MAX bytes, then walking a start a thread, grid-stride.  Set
+# by the A/B on an H100 80GB HBM3 at 700 W, 10k dictionary, 32 Mi lanes
+# (card time, ms): 0.2922 against nothing staged 0.3283 and the first
+# design 0.3293 (PERF.md, PR 24).
+V1_THREADS = 512  # csrc/pfac1_walk.cuh kThreads
+V1_BLOCKS_PER_SM = 4  # csrc/pfac1_walk.cuh kBlocks
+V1_TWO_LEVEL_MAX = 16_384
 
 
 class Shape(NamedTuple):
@@ -121,6 +136,37 @@ def sm_count(dev: torch.device) -> int:
     if index not in _SM_COUNT:
         _SM_COUNT[index] = torch.cuda.get_device_properties(index).multi_processor_count
     return _SM_COUNT[index]
+
+
+class Plan(NamedTuple):
+    """A v1 launch: ``grid`` persistent blocks; ``two_level``: the root row
+    and the two-level table ``trie[trie[0][c0]][c1]`` staged (else the root
+    read with ``__ldg``); ``smem`` their dynamic bytes."""
+
+    grid: int
+    two_level: bool
+    smem: int
+
+
+def pfac1_smem(stride: int, two_level: bool) -> int:
+    """A v1 block's shared memory (``pfac1_walk.cuh`` ``smem_bytes``): the
+    root row and the two-level table, each rounded to 16 bytes, or none."""
+    return _round16(4 * stride) + _round16(4 * stride * stride) if two_level else 0
+
+
+def pfac1_plan(n: int, stride: int, sm_count: int) -> Plan:
+    """The v1 launch for ``n`` starts over a trie of ``stride`` classes: the
+    root row and the two-level table (``stride**2`` words) staged where the
+    table fits ``V1_TWO_LEVEL_MAX`` bytes; as many blocks as the card
+    holds, and no more than the starts' runs of ``V1_THREADS`` need."""
+    two_level = 4 * stride * stride <= V1_TWO_LEVEL_MAX
+    grid = max(1, min(-(-n // V1_THREADS), V1_BLOCKS_PER_SM * sm_count))
+    return Plan(grid, two_level, pfac1_smem(stride, two_level))
+
+
+def v1_plan(trie, cls, depth: int) -> Plan:
+    """``pfac1_plan`` of a v1 call on ``cls`` (a CUDA tensor)."""
+    return pfac1_plan(cls.numel() - depth, trie.shape[1], sm_count(cls.device))
 
 
 def v2_shape(cls, depth: int, prefix) -> Shape:
@@ -209,10 +255,13 @@ def pfac1_planes(trie, is_match, cls, depth: int, num_planes: int,
     n = _check("pfac1_planes", trie, cls, depth, num_planes, is_match)
     if cls.device.type == "cpu":
         return pfac1_planes_plain(trie, is_match, cls, depth, num_planes)
+    if trie.shape[0] > 1 << 31:
+        raise ValueError(f"pfac1_planes: {trie.shape[0]} states; the kernel takes at most 2**31")
     out = torch.empty((num_planes, n), dtype=torch.uint32, device=cls.device)
-    build.call("pfac1_planes", trie.data_ptr(), trie.shape[1], is_match.data_ptr(),
+    plan = v1_plan(trie, cls, depth)
+    build.call("pfac1_planes", trie.data_ptr(), trie.shape[1], trie.shape[0], is_match.data_ptr(),
                int(dead_state), cls.data_ptr(), _CLASS_BYTES[cls.dtype], n, depth, num_planes,
-               out.data_ptr(), *_stream(cls.device))
+               plan.grid, int(plan.two_level), out.data_ptr(), *_stream(cls.device))
     launches["pfac1_planes"] += 1
     return out
 

@@ -129,7 +129,10 @@ port only, the dictionary and text generators included (``bench.headline``,
    n = 1, 31, 33 and 65,537, reps 0, 1 and 524, both ``sum_out``, entries
    past 256 and past T, mod 1 and T); the one-hot product at its edges
    (``check_onehot_edges``: T = 16, 64, 2,048, B = 1, 63, 65, 1,024,
-   32 to 160 columns, reps 0, 1 and 128);
+   32 to 160 columns, reps 0, 1 and 128); the 2-D gather at its edges
+   (``check_gather2d_edges``: every mode, B = 8, 16, 64 and 512, reps 0, 1,
+   2 and 1,024, masks 0, 1,023 and 2**32 - 1, both ``sum_out``, an index
+   tensor off a 16-byte boundary);
    the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
    fuzz, demo and the 10k dictionary at 1 Mi units, and the v2 walk at its
    edges (``check_pfac_edges``: text lengths around a warp's prefix pass
@@ -137,6 +140,10 @@ port only, the dictionary and text generators included (``bench.headline``,
    equal to prefix_k; every walk live to the depth; every walk dead; uint8,
    uint16 and int32 classes, classes off a 16-byte boundary; the prefix
    table staged and read with ``__ldg``; count == the planes' popcount);
+   and the v1 walk at its edges (``check_pfac1_edges``: synthetic tries with
+   an absorbing dead state at n = 1, 31, 33, a tile - 1, + 0, + 1 and 65,537,
+   depths 4 to 200, uint8, uint16 and int32 classes, each staged table;
+   dictionaries against v2 too);
 4. each path through the public classes, its launch counters zeroed just
    before it and read just after: AC count == number of triples; every kind
    ``match`` == its gold matcher on 1 Mi units; 32 Mi-unit triples
@@ -376,13 +383,16 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
     "chain_gather": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:70"),
     "row_chain": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:160"),
     "onehot_mma": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:192"),
+    # redesigned: csrc/gather2d.cuh's warp a row, no block barrier in the loop
     "gather2d": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe2.py:56"),
     # redesigned, both: csrc/pfac_walk.cuh's warp spans, prefix pass and queue
     "pfac2_planes": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
                      "ahocorasick_tpu/ops/scan_pfac2.py:163"),
     "pfac2_count": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
                     "ahocorasick_tpu/ops/scan_pfac2.py:201"),
-    "pfac1_planes": ("ahocorasick_tpu_torch/csrc/pfac_scan.cu",
+    # redesigned: csrc/pfac1_walk.cuh's persistent blocks, staged root and
+    # two-level tables, a start a thread, grid-stride
+    "pfac1_planes": ("ahocorasick_tpu_torch/csrc/pfac1_scan.cu",
                      "ahocorasick_tpu/ops/scan_pfac.py:74"),
     "wwl_scan_fused": ("ahocorasick_tpu_torch/csrc/wwl_scan.cu",
                        "ahocorasick_tpu/ops/scan_wwl.py:866"),
@@ -1626,6 +1636,198 @@ def check_chain_edges(dev, errs):
     return len(errs_at)
 
 
+V1_PASS = 528 * 512  # one pass of the v1 walk's grid on an H100 (132 SMs x 4 blocks of 512)
+G2_EDGES = {"B": (8, 16, 64, 512), "reps": (0, 1, 2, 1024), "mask": (0, 1023, 0xFFFFFFFF)}
+
+
+def check_gather2d_edges(dev, errs):
+    """``gather2d`` against its twin, bit for bit: every mode at B = 8, 16,
+    64 and 512 rows (``gather2d_shape``: 8 rows a block down to one), reps 0,
+    1, 2 and 1,024, masks 0, 1,023 and 2**32 - 1 (the sublane modes take no
+    mask), with and without ``sum_out``, and at 512 rows on an index tensor
+    4 bytes off a 16-byte boundary; a table half below 1,024 and half any
+    32-bit word, indices likewise.  Rows never exchange, so the twin runs
+    once on 512 rows: its first B rows are the twin of B rows, and their sum
+    modulo 2**32 its ``sum_out``.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import probes as kp
+
+    rng = np.random.default_rng(SEED + 24)
+    M = 0xFFFFFFFF
+    rows = max(G2_EDGES["B"])
+
+    def words(shape):
+        a = np.where(rng.random(shape) < 0.5, rng.integers(0, 1024, shape),
+                     rng.integers(0, 1 << 32, shape)).astype(np.uint32)
+        return torch.from_numpy(a.view(np.int32)).to(dev)
+
+    tab, idx = words((8, 128)), words((rows, 128))
+    shifted = torch.empty(rows * 128 + 1, dtype=torch.int32, device=dev)[1:].view(rows, 128)
+    shifted.copy_(idx)
+    errs_at = []  # (case, max_abs_err on the card): one synchronisation at the end
+    for mode in kp.G2_MODES:
+        masks = G2_EDGES["mask"] if mode.startswith("gather2d") else (0,)
+        for reps in G2_EDGES["reps"]:
+            for mask in masks:
+                twin = kp.gather2d_plain(tab, idx, reps, mode, mask=mask).to(torch.int64) & M
+                for B, x in [*((B, idx[:B]) for B in G2_EDGES["B"]), ("512, 4 B off", shifted)]:
+                    n = rows if isinstance(B, str) else B
+                    for summed in (False, True):
+                        want = (twin[:n].sum() & M).reshape(()) if summed else twin[:n]
+                        got = kp.gather2d(tab, x, reps, mode, mask=mask, sum_out=summed)
+                        e = ((got.to(torch.int64) & M) - want).abs().max() \
+                            if got.shape == want.shape else torch.ones((), device=dev)
+                        errs_at.append(((mode, B, reps, mask, summed), e))
+    e_case = torch.stack([e.to(torch.int64) for _, e in errs_at]).cpu().tolist()
+    e_all = max(e_case)
+    for (case, _), e in zip(errs_at, e_case):
+        if e:
+            print("  gather2d edges: {}, B {}, reps {}, mask {}, sum_out {}: max_abs_err "
+                  "{}".format(*case, e))
+    errs["gather2d"] = max(errs["gather2d"], e_all)
+    if e_all:
+        raise AssertionError("gather2d: a kernel result disagrees with its twin at its edges")
+    return len(errs_at)
+
+
+def synthetic_trie(rng, S: int, A: int, live: float, match: float) -> tuple:
+    """A seeded trie-like table ``(trie int32[S, A], is_match bool[S])``
+    whose last row is an absorbing dead state that emits nothing: each other
+    entry goes to a random live state with probability ``live`` (class 0,
+    ``PAD_CLASS``, never), else to the dead state; each live state matches
+    with probability ``match``."""
+    dead = S - 1
+    trie = np.where(rng.random((S, A)) < live, rng.integers(0, max(dead, 1), (S, A)), dead)
+    trie[:, 0] = dead
+    trie[dead] = dead
+    is_match = rng.random(S) < match
+    is_match[dead] = False
+    return trie.astype(np.int32), is_match
+
+
+def chain_trie(depth: int) -> tuple:
+    """The trie of ``a``, ``aa``, ..., ``a * depth`` (class 1; the odd
+    lengths match) with the dead state last: every walk over ``a``s runs
+    to the full depth."""
+    S = depth + 2
+    trie = np.full((S, 2), S - 1, dtype=np.int32)
+    trie[:depth, 1] = np.arange(1, depth + 1)
+    is_match = np.zeros(S, dtype=bool)
+    is_match[1::2] = True
+    is_match[S - 1] = False
+    return trie, is_match
+
+
+def pfac1_edge_cases(rng):
+    """The PFAC v1 walk's edges: ``(label, (trie, is_match) or keywords,
+    classes (int64) or text, depth, class dtype, classes off a 16-byte
+    boundary)``.  Synthetic tries (``synthetic_trie``, ``chain_trie``) run
+    every staged table without a dictionary build: n = 1, 31, 33, a
+    block's run of starts - 1, + 0 and + 1, 65,537, and one pass of the
+    grid + 1 (a second pass; ``V1_PASS`` starts); depths 4, 12, 32, 33 and
+    64 (one and two planes) and 200 (seven planes); uint8, uint16 and int32
+    classes; 32 classes (the two-level table), 128 and 5,000 (too many for
+    it: the root read with __ldg); 300,000 states.  Dictionary cases,
+    where the v2 walk's ranked table exists too: the fuzz dictionary,
+    ``a``..``a * 64`` with it over int32 classes, and uint16 classes off a
+    16-byte boundary."""
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpf
+
+    tile = kpf.V1_THREADS
+    small = synthetic_trie(rng, 4096, 32, 0.75, 0.3)
+    soup = lambda n, A: rng.integers(1, A, n)  # noqa: E731
+    cases = []
+    for n in (1, 31, 33, tile - 1, tile, tile + 1, 65537, V1_PASS + 1):
+        cases.append((f"32 classes, n={n}", small, soup(n, 32), 12, "uint8", False))
+    for d in (4, 12, 32, 33, 64):
+        cases.append((f"32 classes, depth {d}", synthetic_trie(rng, 4096, 32, 0.93, 0.3),
+                      soup(tile + 1, 32), d, "uint8", False))
+    cases.append(("a..a^200 over a * 9,000 (seven planes)", chain_trie(200),
+                  np.ones(9000, dtype=np.int64), 200, "uint8", False))
+    cases.append(("a..a^64 over a * 9,000, int32", chain_trie(64), np.ones(9000, dtype=np.int64),
+                  64, "int32", False))
+    cases.append(("32 classes, uint16, 4 B off", small, soup(20001, 32), 33, "uint16", True))
+    cases.append(("32 classes, int32, 4 B off", small, soup(20001, 32), 12, "int32", True))
+    cases.append(("128 classes (no two-level table)", synthetic_trie(rng, 4096, 128, 0.85, 0.3),
+                  soup(30000, 128), 33, "uint8", False))
+    cases.append(("5,000 classes (the root read with __ldg)", synthetic_trie(rng, 64, 5000, 0.8,
+                                                                             0.3),
+                  soup(30000, 5000), 12, "uint16", False))
+    cases.append(("300,000 states", synthetic_trie(rng, 300_000, 32, 0.9, 0.3),
+                  soup(65537, 32), 32, "uint8", False))
+    fuzz = fuzz_keywords(rng, "abcdef", 60, 8)
+    text = lambda n, alpha="abcdefg ": "".join(rng.choice(list(alpha), size=n))  # noqa: E731
+    cases.append(("fuzz dictionary", fuzz, text(tile * 3 + 5), None, "uint8", False))
+    cases.append(("a..a^64 + fuzz, int32", ["a" * i for i in range(1, 65)] + fuzz,
+                  text(20001, "aaaaaaab "), 64, "int32", False))
+    cases.append(("fuzz, uint16, 4 B off", fuzz, text(9001), None, "uint16", True))
+    return cases
+
+
+def check_pfac1_edges(dev, errs):
+    """The PFAC v1 kernel (``pfac1_planes``) against its twin, bit for bit,
+    at ``pfac1_edge_cases``, and against the v2 kernel's planes where the
+    case is a dictionary; prints each case's plan.  Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.core.compiler import compile_matcher
+    from ahocorasick_tpu_torch.kernels import scan_pfac as kpf
+    from ahocorasick_tpu_torch.models import matchers
+    from ahocorasick_tpu_torch.ops import scan_pfac
+    from ahocorasick_tpu_torch.utils.lanes import bucket_depth
+
+    M = 0xFFFFFFFF
+    errs_at, plans = [], set()
+    for label, table, cls, depth, dtype, shifted in pfac1_edge_cases(
+            np.random.default_rng(SEED + 25)):
+        v2 = None
+        if isinstance(table, list):  # a dictionary: its tables, as the matcher holds them
+            m = compile_matcher(table, "ac", True)
+            tabs = matchers._DeviceTables(m, dev)
+            depth = bucket_depth(m.max_depth) if depth is None else depth
+            units = np.frombuffer(cls.encode("utf-16-le"), dtype=np.uint16)
+            cls = m.charmap[units]
+            trie, is_match, v2 = tabs.trie_next, tabs.is_match, (tabs.ranked, m.num_classes)
+        else:
+            trie = torch.from_numpy(table[0]).to(dev)
+            is_match = torch.from_numpy(table[1]).to(dev)
+        P = (depth + 31) // 32
+        arr = scan_pfac.pad_classes(cls, depth).astype(dtype)
+        c_np = torch.from_numpy(arr.view(np.int16)).view(torch.uint16) if dtype == "uint16" \
+            else torch.from_numpy(arr)
+        if shifted:  # the same classes one element past a 16-byte boundary
+            c = torch.empty(c_np.numel() + 1, dtype=c_np.dtype, device=dev)[1:]
+            c.copy_(c_np.to(dev))
+        else:
+            c = c_np.to(dev)
+        dead = trie.shape[0] - 1
+        plan = kpf.pfac1_plan(c.numel() - depth, trie.shape[1],
+                              kpf.sm_count(dev) if dev.type == "cuda" else 132)
+        plans.add(plan.two_level)
+        got = kpf.pfac1_planes(trie, is_match, c, depth, P, dead)
+        want = kpf.pfac1_planes_plain(trie, is_match, c, depth, P)
+        e = ((got.view(torch.int32).to(torch.int64) & M)
+             - (want.view(torch.int32).to(torch.int64) & M)).abs().max()
+        if v2 is not None:
+            rt, A = v2
+            planes2 = kpf.pfac2_planes(rt.trie_next, rt.prefix, rt.match_threshold, c, depth, P,
+                                       rt.prefix_k, A, rt.dead_state)
+            e = torch.maximum(e, (got.view(torch.int32).to(torch.int64)
+                                  - planes2.view(torch.int32).to(torch.int64)).abs().max())
+        errs_at.append(((label, c.numel() - depth, depth, dtype, tuple(plan)), e))
+    e_case = torch.stack([e.to(torch.int64) for _, e in errs_at]).cpu().tolist()
+    for (case, _), e in zip(errs_at, e_case):
+        print("  pfac1 edge {}: n={}, depth {}, {}; plan {}: max_abs_err {}".format(*case, e))
+    e_all = max(e_case)
+    errs["pfac1_planes"] = max(errs["pfac1_planes"], e_all)
+    if e_all:
+        raise AssertionError("pfac1_planes: the kernel disagrees with its twin or v2 at its edges")
+    if plans != {False, True}:
+        raise AssertionError(f"pfac1 edges: the staged tables' forms {sorted(plans)} miss one")
+    return len(errs_at)
+
+
 ONEHOT_EDGES = {"T": (16, 64, 2048), "B": (1, 63, 65, 1024), "ncols": (32, 64, 128, 160),
                 "reps": (0, 1, 128)}
 
@@ -1773,6 +1975,16 @@ def check_pfac_kernels(label, m, cls, dev, errs, max_err):
     if errs["pfac2_planes"] or errs["pfac2_count"] or errs["pfac1_planes"]:
         raise AssertionError(f"pfac {label}: a walk kernel disagrees with its twin")
     return int(got[1])
+
+
+def v1_warp_efficiency(work) -> float:
+    """The work of a walk's starts (``work[i]``, start i, a thread a start)
+    over 32 x the sum over warps of 32 consecutive starts of each warp's
+    largest."""
+    import torch
+
+    w = torch.cat([work, work.new_zeros(-work.numel() % 32)]).to(torch.int64)
+    return float(w.sum()) / (32 * float(w.reshape(-1, 32).max(dim=1).values.sum()))
 
 
 def pfac_edge_cases(rng):
@@ -2736,6 +2948,9 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"  onehot edges: {check_onehot_edges(dev, errs)} cases, each == its twin "
           f"({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    print(f"  gather2d edges: {check_gather2d_edges(dev, errs)} cases, each == its twin "
+          f"({time.perf_counter() - t0:.2f} s)")
     prng = np.random.default_rng(SEED + 20)  # its own: the main path's texts stay as they were
     fuzz_m = port.AhoCorasickSet(fuzz_keywords(prng, "abcdef", 60, 8), engine="device", device=dev)
     demo_m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
@@ -2749,6 +2964,9 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"  pfac edges: {check_pfac_edges(dev, errs)} cases, v2 planes and count == their "
           f"twins ({time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    print(f"  pfac1 edges: {check_pfac1_edges(dev, errs)} cases, v1 planes == their twins "
+          f"(and v2's on dictionaries) ({time.perf_counter() - t0:.2f} s)")
 
     # 4. The paths through the public classes, counters zeroed just before
     # each and read just after it.
@@ -4779,6 +4997,22 @@ def main() -> int:
         lambda: kprobe.gather2d_plain(tab8, idx8, 1024, "gather2d_all", mask=1023, sum_out=True),
         20, 2)
     probe_library["gather2d"] = cuda_ms(torch_gather2d, 2)
+    # gather2d's latency floor, as row_chain's: 1,024 steps x the step of one
+    # warp on the idle card (the same call on the first 8 rows, each warp
+    # alone on an SM: (time at 2,048 steps - time at 1,024) / 1,024, so that
+    # the launch cancels) x the waves its 512 warps need (one); beside it
+    # the loaded step, the timed call over its steps.
+    g2_ms = [scan_variants._card_ms(
+        lambda r=r: kprobe.gather2d(tab8, idx8[:8], r, "gather2d_all", mask=1023, sum_out=True),
+        5, dev) for r in (1024, 2048)]
+    g2_step = (g2_ms[1] - g2_ms[0]) / 1024
+    g2_waves = -(-32 * idx8.shape[0] // scan_variants.CARD_THREADS)
+    latency_floor["gather2d"] = 1024 * g2_step * g2_waves
+    print(f"latency floor gather2d, 512 x 128 indices, gather2d_all: 1024 steps x "
+          f"{g2_step * 1e3} us a step (one warp a row, idle) x {g2_waves} wave = "
+          f"{latency_floor['gather2d']} ms; loaded step {ms['gather2d'][0] / 1024 * 1e3} us; "
+          f"kernel {ms['gather2d'][0]} ms = {ms['gather2d'][0] / latency_floor['gather2d']} x "
+          f"its floor [{smi}]")
     for k, shape in (("chain_gather", f"{n_ref} entries, {start_ref.numel()} chains x {steps}"),
                      ("row_chain", f"{rows_ref} x {probes_main.ROW_WORDS} rows, "
                                    f"{row_start.numel()} chains x {steps}"),
@@ -4828,7 +5062,8 @@ def main() -> int:
     lane2 = 1 + walked(first2, rt10.trie_next, rt10.prefix_k, rt10.dead_state)  # the prefix too
     steps2 = int(lane2.sum())
     first1 = trie10.long()[0][c64[:n10]]
-    steps1 = n10 + int(walked(first1, trie10, 1, trie10.shape[0] - 1).sum())
+    lane1 = 1 + walked(first1, trie10, 1, trie10.shape[0] - 1)  # the root too
+    steps1 = int(lane1.sum())
     for k in ("pfac2_planes", "pfac2_count", "pfac1_planes"):
         print(f"time {k}, 10k dictionary, {n10} lanes, depth {d10p}: kernel {ms[k][0]} ms "
               f"({gbps(ms[k][0])} GB/s), plain twin {ms[k][1]} ms; table loads: v2 {steps2} "
@@ -4843,6 +5078,23 @@ def main() -> int:
           f"{steps2 - n10}; rate " + ", ".join(
               f"{k} {steps2 / (ms[k][0] * 1e-3) / 1e9} G loads/s"
               for k in ("pfac2_planes", "pfac2_count")) + f" [{smi}]")
+    # The v1 walk's loads in its redesign (the trie loads past the staged
+    # levels, and those that build the staged tables in each block) against
+    # the first design's (every transition, the root's included), and each
+    # design's warp efficiency: the walks' work over 32 x the sum of each
+    # warp's largest lane (a lane a start: its loads; the redesign: a loop
+    # pass a load past the staged levels and one to end).
+    plan1 = kpfac.v1_plan(trie10, cp10, d10p)
+    stride1 = trie10.shape[1]
+    past1 = (lane1 - (2 if plan1.two_level else 0)).clamp(min=0)
+    build1 = plan1.grid * (stride1 + stride1 * stride1) if plan1.two_level else 0
+    loads1 = int(past1.sum()) + build1
+    print(f"pfac1 walk loads, 10k dictionary, {n10} lanes, depth {d10p}: first design {steps1} "
+          f"table loads, warp efficiency {v1_warp_efficiency(lane1)}; redesign (two-level "
+          f"table {plan1.two_level}, {plan1.grid} blocks) {loads1} trie loads "
+          f"({int(past1.sum())} past the staged levels, {build1} building them), "
+          f"{int((past1 == 0).sum())} walks within the staged levels, warp efficiency {v1_warp_efficiency(past1 + 1)}; kernel "
+          f"{loads1 / (ms['pfac1_planes'][0] * 1e-3) / 1e9} G trie loads/s [{smi}]")
     # The walk's designs in one process: the first design (planes, count, the
     # count without its atomic add), the package's, the prefix read with
     # __ldg, no refills (scan_variants.pfac_ab).
