@@ -83,6 +83,33 @@
 // take (0.389 and 0.432 ms against 0.391 and 0.432): the owner's lookup
 // costs the 10k table's L2-latency chain 14-32% and is lost in the 1M
 // table's device-memory latency.
+//
+// The step kernel (table_sharded_step) is the same scan as one rank of a
+// process group sees it, where each rank holds one row shard on its own
+// device and no rank can read another's rows: the JAX body's gather under
+// psum (sharding.py:377-387), one launch per character, with the psum an
+// all_reduce(SUM) of the lanes' words between launches, issued by the caller
+// through torch.distributed (NCCL on cards, gloo on CPU ranks; a collective
+// stays outside the kernel).  The lanes are the ones above (K per window,
+// each warmed over the halo), so a call takes halo + L steps, not W.  Launch
+// t, on lane g with v = words[g] (the sum the last all_reduce left there):
+//   * if position p = t - 1 is a body position of the lane (p >= halo, p -
+//     halo < the lane's length), v is that position's word: its payload is
+//     folded as in the modes above, the counts into the lane's own 64-bit
+//     accumulator acc[g] (no atomic per step), the planes stored at the
+//     position (a ragged last segment stores nothing past the body);
+//   * if t < halo + L: s = v & smask, c = the lane's class t (0 past the
+//     window's row), and words[g] = shard[(s - lo) * A + c] where this rank's
+//     rows [lo, lo + rows_per) hold s, else 0.  Exactly one rank owns a state
+//     below n_model * rows_per, so the sum is that rank's word; a state past
+//     the last shard reads 0 on every rank, as in the JAX body.
+// Launch t = halo + L folds the last position and, for the counts, adds the
+// lanes' accumulators into one uint64 (one atomic a block).  Each launch is a
+// lane's word in, its class, a word out and one table load: 13 bytes a lane
+// with uint8 windows (1.7 MB a step at the main path's 131,072 count lanes,
+// 0.5 us at 3.35 TB/s), so a step is bound by a launch's latency rather than
+// by its bytes.  Its times on the card: chip_smoke.py's "time
+// table_sharded_step" line and PERF.md.
 
 #include <cstdint>
 
@@ -252,6 +279,78 @@ cudaError_t map_peers(const int* owners, int n_model, int device) {
   return cudaSuccess;
 }
 
+// Launch t of the step loop (the note at the top): lane g of num_windows *
+// segments lanes folds the word v = words[g] of its position t - 1 and, for t
+// < halo + seg_len, writes the word of its step t from this rank's rows.
+// `out` is the lanes' accumulators uint64[lanes] for the counts, else the
+// plane uint32[num_windows * (width - halo)]; `total` one uint64 the last
+// launch adds the counts to.
+template <typename T, int MODE>
+__global__ void __launch_bounds__(kThreads)
+    step_kernel(const uint32_t* __restrict__ shard, uint32_t lo, uint32_t rows_per,
+                uint32_t stride, const T* __restrict__ windows, int64_t num_windows, int width,
+                int halo, int state_bits, int segments, int seg_len, int t,
+                uint32_t* __restrict__ words, void* __restrict__ out,
+                unsigned long long* __restrict__ total) {
+  constexpr bool kCounting = MODE == kCount || MODE == kCountPacked;
+  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const int steps = halo + seg_len;
+  unsigned long long sum = 0ull;
+  if (g < num_windows * segments) {
+    const tile::Segment seg = tile::segment_of(g, num_windows, width, halo, segments, seg_len);
+    const uint32_t v = words[g];
+    const int j = t - 1 - halo;  // the body position of v in the lane's segment
+    if (j >= 0) {
+      const uint32_t hi = v >> state_bits;
+      if constexpr (kCounting) {
+        auto* acc = static_cast<unsigned long long*>(out);
+        const uint32_t d = j < seg.len ? (MODE == kCount ? __popc(hi) : hi) : 0u;
+        unsigned long long a = t == steps ? acc[g] : 0ull;
+        if (d != 0u) {
+          a = acc[g] + d;
+          acc[g] = a;
+        }
+        sum = a;
+      } else if (j < seg.len) {
+        const uint32_t value = MODE == kPlanes ? hi : MODE == kHotstate ? (hi != 0u ? v : 0u) : v;
+        static_cast<uint32_t*>(out)[seg.b * (width - halo) + seg.start + j] = value;
+      }
+    }
+    if (t < steps) {
+      const uint32_t s = v & ((1u << state_bits) - 1u);
+      const int ci = seg.start + t;
+      const uint32_t c = ci < width ? static_cast<uint32_t>(windows[seg.b * width + ci]) : 0u;
+      const uint32_t rel = s - lo;  // wraps past rows_per where s < lo
+      words[g] = rel < rows_per ? __ldg(shard + (static_cast<uint64_t>(rel) * stride + c)) : 0u;
+    }
+  }
+  if constexpr (kCounting) {
+    if (t == steps) tile::block_add<kThreads>(sum, total);  // t is the same on every thread
+  }
+}
+
+template <typename T>
+int launch_step(const uint32_t* shard, uint32_t lo, uint32_t rows_per, uint32_t stride,
+                const void* windows, int64_t num_windows, int width, int halo, int state_bits,
+                int mode, int segments, int seg_len, int t, uint32_t* words, void* out,
+                unsigned long long* total, cudaStream_t st) {
+  const auto* win = static_cast<const T*>(windows);
+  const auto grid = static_cast<unsigned>((num_windows * segments + kThreads - 1) / kThreads);
+  void (*kernel)(const uint32_t*, uint32_t, uint32_t, uint32_t, const T*, int64_t, int, int, int,
+                 int, int, int, uint32_t*, void*, unsigned long long*);
+  switch (mode) {
+    case kCount: kernel = step_kernel<T, kCount>; break;
+    case kCountPacked: kernel = step_kernel<T, kCountPacked>; break;
+    case kPlanes: kernel = step_kernel<T, kPlanes>; break;
+    case kHotstate: kernel = step_kernel<T, kHotstate>; break;
+    case kRaw: kernel = step_kernel<T, kRaw>; break;
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+  kernel<<<grid, kThreads, 0, st>>>(shard, lo, rows_per, stride, win, num_windows, width, halo,
+                                    state_bits, segments, seg_len, t, words, out, total);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // Returns cudaGetLastError() after the launch (0 = the launch was accepted),
@@ -296,6 +395,46 @@ extern "C" int table_sharded_scan(const void* shards, const int* owners, int n_m
   if (window_bytes == 4) {
     return launch<int32_t>(t, ptrs, windows, num_windows, width, halo, state_bits, mode,
                            segments, seg_len, out, st);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// Launch t of the step loop of one rank (step_kernel); returns
+// cudaGetLastError() after the launch, or the error that kept it from
+// launching.  `shard` is this rank's uint32[rows_per * stride] rows, states
+// [lo, lo + rows_per); `words` uint32[num_windows * segments], zero before
+// launch 0; `out` and `total` as step_kernel's (total may be null outside
+// the counts).  0 <= t <= halo + seg_len.
+extern "C" int table_sharded_step(const void* shard, int64_t rows_per, int stride, int64_t lo,
+                                  const void* windows, int window_bytes, int64_t num_windows,
+                                  int width, int halo, int state_bits, int mode, int segments,
+                                  int seg_len, int t, void* words, void* out, void* total,
+                                  int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (rows_per < 1 || rows_per > 0xffffffffLL || lo < 0 || lo > 0xffffffffLL || stride < 1 ||
+      num_windows < 1 || state_bits < 1 || state_bits > 31 || t < 0 || t > halo + seg_len ||
+      ((mode == kCount || mode == kCountPacked) && total == nullptr) ||
+      !tile::valid_segments(segments, seg_len, width - halo, halo)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* rows = static_cast<const uint32_t*>(shard);
+  auto* w = static_cast<uint32_t*>(words);
+  auto* sum = static_cast<unsigned long long*>(total);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto lo32 = static_cast<uint32_t>(lo), rp = static_cast<uint32_t>(rows_per);
+  const auto a = static_cast<uint32_t>(stride);
+  if (window_bytes == 1) {
+    return launch_step<uint8_t>(rows, lo32, rp, a, windows, num_windows, width, halo, state_bits,
+                                mode, segments, seg_len, t, w, out, sum, st);
+  }
+  if (window_bytes == 2) {
+    return launch_step<uint16_t>(rows, lo32, rp, a, windows, num_windows, width, halo,
+                                 state_bits, mode, segments, seg_len, t, w, out, sum, st);
+  }
+  if (window_bytes == 4) {
+    return launch_step<int32_t>(rows, lo32, rp, a, windows, num_windows, width, halo, state_bits,
+                                mode, segments, seg_len, t, w, out, sum, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

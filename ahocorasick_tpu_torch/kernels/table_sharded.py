@@ -38,8 +38,16 @@ its segment (``kernels/scan_block.py`` ``segments``: the counts under
 ``COUNT_MAX_LANES``, the planes modes under ``MAX_LANES``; K = 1 where halo =
 0), and the plain twin scans the same segments.
 
-The wrapper runs the plain twin for tensors on the CPU, and launches the
-kernel for tensors on a CUDA device: there is no fallback from one to the
+Under a process group no rank can read another's rows, and the JAX body
+runs as written: ``group_scan`` drives one launch of ``table_sharded_step``
+(the same source) per character on this rank's own shard, and between
+launches the caller's reduction, an ``all_reduce(SUM)`` of the lanes' words
+over the model ranks, gives every rank the word of the one rank that owns
+the state.  The same lanes as above (``lane_segments``), so a call takes
+``halo + L`` steps, and one more launch folds the last position.
+
+The wrappers run the plain twins for tensors on the CPU, and launch the
+kernels for tensors on a CUDA device: there is no fallback from one to the
 other.  ``launches`` (``kernels/build.py``) counts kernel launches only.
 """
 
@@ -141,7 +149,7 @@ class ShardedTable:
         return self._pointers[key]
 
 
-def _check(table: ShardedTable, windows: torch.Tensor, halo: int, state_bits: int, mode: str):
+def _check_windows(windows: torch.Tensor, halo: int, state_bits: int, mode: str):
     if mode not in MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
     if windows.dtype not in _WINDOW_BYTES or windows.dim() != 2:
@@ -156,6 +164,11 @@ def _check(table: ShardedTable, windows: torch.Tensor, halo: int, state_bits: in
         raise ValueError(f"state_bits={state_bits} is not in 1..31")
     if windows.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {windows.device}")
+    return B, W
+
+
+def _check(table: ShardedTable, windows: torch.Tensor, halo: int, state_bits: int, mode: str):
+    B, W = _check_windows(windows, halo, state_bits, mode)
     if table.device_type != windows.device.type:
         raise ValueError(f"shards on {table.device_type}, windows on {windows.device}")
     if table.n_model > MAX_SHARDS:
@@ -191,9 +204,10 @@ def table_sharded_scan(table: ShardedTable, windows: torch.Tensor, halo: int, st
 #
 # The JAX body step by step: a Python loop over the window columns, each a
 # masked lookup per shard summed over the shards, on int64 copies of the
-# shards and windows (torch has no uint32 shift or popcount).  The twin scans
-# the kernel's lanes (``lane_segments``), so the kernel's one-owner read with
-# its multiply-add is held against the JAX formula on the same segments.
+# shards and windows (torch has no uint32 shift or popcount).  The twins scan
+# the kernels' lanes (``lane_segments``), so the kernel's one-owner read with
+# its multiply-add, and the step kernel's masked read of one shard, are held
+# against the JAX formula on the same segments.
 
 
 def shard_lookup(shard: torch.Tensor, k: int, rows_per: int, stride: int):
@@ -212,10 +226,10 @@ def shard_lookup(shard: torch.Tensor, k: int, rows_per: int, stride: int):
 
 
 def _scan_lanes(lookup: Callable, lanes: torch.Tensor, halo: int, state_bits: int, mode: str,
-                limit: Optional[torch.Tensor] = None) -> torch.Tensor:
+                limit: Optional[torch.Tensor]) -> torch.Tensor:
     """The column loop over ``lanes[N, halo + L]``: the count (body positions
-    ``j < limit[lane]`` only, where given) as an int64 scalar, or the lanes'
-    values ``int64[N, L]``."""
+    ``j < limit[lane]`` only) as an int64 scalar, or the lanes' values
+    ``int64[N, L]`` (``limit`` None: the planes modes keep every position)."""
     N, W = lanes.shape
     smask = (1 << state_bits) - 1
     counting = mode in ("count", "count_packed")
@@ -229,10 +243,9 @@ def _scan_lanes(lookup: Callable, lanes: torch.Tensor, halo: int, state_bits: in
         if t >= halo:
             hi = v >> state_bits
             if mode == "count":
-                acc.add_(_popcount32(hi) if limit is None
-                         else torch.where(t - halo < limit, _popcount32(hi), 0))
+                acc.add_(torch.where(t - halo < limit, _popcount32(hi), 0))
             elif mode == "count_packed":
-                acc.add_(hi if limit is None else torch.where(t - halo < limit, hi, 0))
+                acc.add_(torch.where(t - halo < limit, hi, 0))
             elif mode == "planes":
                 out[:, t - halo] = hi
             elif mode == "hotstate":
@@ -241,15 +254,6 @@ def _scan_lanes(lookup: Callable, lanes: torch.Tensor, halo: int, state_bits: in
                 out[:, t - halo] = v
         s = v & smask
     return acc.sum() if counting else out
-
-
-def scan_columns(lookup: Callable, windows: torch.Tensor, halo: int, state_bits: int,
-                 mode: str) -> torch.Tensor:
-    """The lane scan of the twin over any ``lookup(s, c) -> v`` (int64 lanes),
-    one lane per window: the sum over the shards here, one shard and an
-    ``all_reduce`` under a process group (``parallel/sharding.py``)."""
-    out = _scan_lanes(lookup, windows, halo, state_bits, mode)
-    return out if out.dim() == 0 else _to_uint32(out.reshape(1, -1))
 
 
 def table_sharded_scan_plain(table: ShardedTable, windows: torch.Tensor, halo: int,
@@ -276,5 +280,150 @@ def table_sharded_scan_plain(table: ShardedTable, windows: torch.Tensor, halo: i
         # Body positions each lane holds: L, the last lane of a window the rest.
         limit = (C - torch.arange(K, device=dev) * L).clamp(max=L).repeat(B)
         return _scan_lanes(lookup, lanes, halo, state_bits, mode, limit)
-    out = _scan_lanes(lookup, lanes, halo, state_bits, mode)
+    out = _scan_lanes(lookup, lanes, halo, state_bits, mode, None)
     return _to_uint32(out.reshape(B, K * L)[:, :C].reshape(1, -1))
+
+
+# ------------------------------------------------- the step loop of one rank
+
+
+def _check_step(shard: torch.Tensor, words: torch.Tensor, windows: torch.Tensor, t: int,
+                halo: int, state_bits: int, mode: str, segments: tuple, out: torch.Tensor,
+                total: Optional[torch.Tensor]) -> None:
+    B, W = _check_windows(windows, halo, state_bits, mode)
+    K, L = segments
+    C = W - halo
+    if not (K == 1 and L == C or 2 <= K <= 4 and halo >= 1 and L % 4 == 0
+            and (K - 1) * L < C <= K * L):
+        raise ValueError(f"segments {segments} do not cut a body of {C} (halo {halo})")
+    if not 0 <= t <= halo + L:
+        raise ValueError(f"step {t} is not in 0 .. halo + L = {halo + L}")
+    if shard.dtype != torch.uint32 or shard.dim() != 2 or not shard.is_contiguous() \
+            or min(shard.shape) < 1:
+        raise TypeError(f"the shard must be a contiguous uint32[rows_per, A], got "
+                        f"{shard.dtype}{tuple(shard.shape)}")
+    counting = mode in ("count", "count_packed")
+    want = {"words": (words, torch.uint32, (B * K,))}
+    if counting:
+        want["out"] = (out, torch.int64, (B * K,))
+        want["total"] = (total, torch.int64, (1,))
+    else:
+        want["out"] = (out, torch.uint32, (1, B * C))
+    for name, (x, dtype, shape) in want.items():
+        if x is None or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
+            raise TypeError(f"{name} must be a contiguous {dtype}{shape}, got "
+                            f"{None if x is None else (x.dtype, tuple(x.shape))}")
+    for x in (shard, words, out):
+        if x.device != windows.device:
+            raise ValueError(f"tensors on {x.device} and {windows.device}")
+
+
+def table_sharded_step(shard: torch.Tensor, k: int, words: torch.Tensor, windows: torch.Tensor,
+                       t: int, halo: int, state_bits: int, mode: str, segments: tuple,
+                       out: torch.Tensor, total: Optional[torch.Tensor] = None) -> None:
+    """Launch ``t`` of one rank's step loop, in place: ``shard`` is row shard
+    ``k`` (``uint32[rows_per, A]``, states ``[k * rows_per, (k + 1) *
+    rows_per)``); ``words`` (``uint32[B * K]``, ``segments = (K, L)``) holds
+    the lanes' words of position ``t - 1`` as the last ``all_reduce`` left
+    them.  The launch folds them into ``out`` (the lanes' ``int64[B * K]``
+    accumulators for the counts, else the ``uint32[1, B * C]`` plane) and,
+    for ``t < halo + L``, writes the lanes' words of step ``t`` from this
+    shard (0 where it does not own the state) into ``words``; launch ``t =
+    halo + L`` adds the accumulators to ``total`` (``int64[1]``, counts
+    only)."""
+    _check_step(shard, words, windows, t, halo, state_bits, mode, segments, out, total)
+    _step(shard, k, words, windows, t, halo, state_bits, mode, segments, out, total)
+
+
+def _step(shard: torch.Tensor, k: int, words: torch.Tensor, windows: torch.Tensor, t: int,
+          halo: int, state_bits: int, mode: str, segments: tuple, out: torch.Tensor,
+          total: Optional[torch.Tensor]) -> None:
+    """``table_sharded_step`` on buffers ``_check_step`` has passed."""
+    if windows.device.type == "cpu":
+        return table_sharded_step_plain(shard, k, words, windows, t, halo, state_bits, mode,
+                                        segments, out, total)
+    dev = windows.device
+    rows_per, stride = shard.shape
+    B, W = windows.shape
+    build.call("table_sharded_step", shard.data_ptr(), rows_per, stride, k * rows_per,
+               windows.data_ptr(), _WINDOW_BYTES[windows.dtype], B, W, halo, state_bits,
+               MODES.index(mode), *segments, t, words.data_ptr(), out.data_ptr(),
+               0 if total is None else total.data_ptr(), dev.index,
+               torch.cuda.current_stream(dev).cuda_stream)
+    launches["table_sharded_step"] += 1
+
+
+def table_sharded_step_plain(shard: torch.Tensor, k: int, words: torch.Tensor,
+                             windows: torch.Tensor, t: int, halo: int, state_bits: int, mode: str,
+                             segments: tuple, out: torch.Tensor,
+                             total: Optional[torch.Tensor] = None) -> None:
+    """The twin of ``table_sharded_step`` on the same buffers: ``shard_lookup``
+    of the one shard at the lanes' step-``t`` classes (0 past a window's
+    row, as ``_segment_lanes`` pads)."""
+    K, L = segments
+    B, W = windows.shape
+    C = W - halo
+    dev = windows.device
+    lane = torch.arange(B * K, device=dev)
+    b, start = lane // K, (lane % K) * L
+    v = _widen(words)
+    j = t - 1 - halo
+    if j >= 0:
+        hi = v >> state_bits
+        fold = j < (C - start).clamp(max=L)
+        if mode == "count":
+            out.add_(torch.where(fold, _popcount32(hi), 0))
+        elif mode == "count_packed":
+            out.add_(torch.where(fold, hi, 0))
+        else:
+            value = hi if mode == "planes" else torch.where(hi != 0, v, 0) if mode == "hotstate" \
+                else v
+            pos = (b * C + start + j)[fold]
+            out.view(torch.int32).view(-1)[pos] = _to_uint32(value[fold]).view(torch.int32)
+    if t < halo + L:
+        ci = start + t
+        bits = windows.view(torch.int16) if windows.dtype == torch.uint16 else windows
+        col = bits[b, ci.clamp(max=W - 1)]
+        col = col.to(torch.int64) if col.dtype == torch.int32 else _widen(col.view(windows.dtype))
+        col = torch.where(ci < W, col, 0)
+        lookup = shard_lookup(shard, k, shard.shape[0], shard.shape[1])
+        w = lookup(v & ((1 << state_bits) - 1), col)
+        words.view(torch.int32).copy_(_to_uint32(w).view(torch.int32))
+    elif mode in ("count", "count_packed"):
+        total.add_(out.sum())
+
+
+def group_scan(ranks: Sequence[tuple], windows: torch.Tensor, halo: int, state_bits: int,
+               mode: str, reduce: Callable) -> list:
+    """The table-sharded scan of ``windows`` as the ranks of a process group
+    run it: ``ranks`` holds ``(k, shard)`` of each rank this process drives
+    (this process's one rank under a group; every rank where a test
+    simulates them), each shard on the windows' device.  Per character one
+    ``table_sharded_step`` a rank, then ``reduce(words)``, which must leave
+    in each of the ranks' word buffers (``uint32[B * K]``) the sum of every
+    rank's: an ``all_reduce(SUM)`` over the model ranks (exact: at most one
+    rank's word is not 0).  No host sync inside the loop.  Returns each
+    driven rank's result: an int64 scalar tensor (the counts) or the
+    ``uint32[1, B * C]`` plane, as ``table_sharded_scan``.  The buffers are
+    checked once, before the loop."""
+    B, W = windows.shape
+    segs = lane_segments(B, W - halo, halo, mode)
+    K, L = segs
+    dev = windows.device
+    counting = mode in ("count", "count_packed")
+    lanes = []
+    for k, shard in ranks:
+        words = torch.zeros(B * K, dtype=torch.uint32, device=dev)
+        if counting:
+            out = torch.zeros(B * K, dtype=torch.int64, device=dev)
+            total = torch.zeros(1, dtype=torch.int64, device=dev)
+        else:  # every body position is written once
+            out, total = torch.empty((1, B * (W - halo)), dtype=torch.uint32, device=dev), None
+        _check_step(shard, words, windows, 0, halo, state_bits, mode, segs, out, total)
+        lanes.append((k, shard, words, out, total))
+    for t in range(halo + L + 1):
+        for k, shard, words, out, total in lanes:
+            _step(shard, k, words, windows, t, halo, state_bits, mode, segs, out, total)
+        if t < halo + L:
+            reduce([words for _, _, words, _, _ in lanes])
+    return [total[0] if counting else out for _, _, _, out, total in lanes]

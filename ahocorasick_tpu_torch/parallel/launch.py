@@ -21,8 +21,13 @@ the functions of ``parallel/sharding.py``.  This module is the bring-up glue:
   matches are shard-local once the halo fixes the entry states (the
   stream-mode invariant, ``AhoCorasickMap.java:208-275``).
 
-Only the gloo backend has been run (CPU ranks); NCCL at world > 1 is
-unverified.
+After ``initialize``, ``group=torch.distributed.group.WORLD`` (or its 2-axis
+layout, ``sharding.dp_tp_groups()``) drives both facades,
+``sharding.ShardedScanner`` and ``sharding.TableShardedScanner``, on CPU
+ranks and on CUDA ranks, each rank on its own device; the table-sharded one
+runs the step kernel of ``kernels/table_sharded.py`` with an ``all_reduce`` a
+character.  Run: gloo on CPU ranks, NCCL at world 1 and gloo with CUDA
+tensors at worlds 2 and 4 on one card; NCCL at world > 1 is unverified.
 """
 
 from __future__ import annotations

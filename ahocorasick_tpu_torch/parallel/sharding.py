@@ -29,7 +29,10 @@ function per rank over the existing kernels, in either of two forms:
   calls the same function with the same host classes, takes its own shard on
   its own device, fetches its halos with ``batch_isend_irecv`` and reduces
   with ``all_reduce`` / ``all_gather``; every rank returns the full result.
-  Only the gloo form has been run; NCCL at world > 1 is unverified.
+  The 2-axis group object of ``dp_tp_groups`` is taken as its parent group.
+  The gloo form has been run on CPU ranks and NCCL at world 1; NCCL at world
+  > 1 is unverified.  The halos' point-to-point sends need NCCL on CUDA
+  ranks (gloo carries them for CPU tensors only).
 
 **Table-sharded** (``TableShardedScanner``, ``sharded_table_count``), for
 dictionaries whose packed table exceeds one device's memory.  The packed table
@@ -50,11 +53,17 @@ under a mask and combines them with a ``psum`` per character).
 * Shards on GPUs other than the scanning one are reached by peer access.
   Only meshes that name one card have been run (one H100): the several-GPU
   form is unverified.
-* Under ``group=`` (one rank per model shard, 1-axis only) each rank holds
-  its row slice and the scan is the plain twin's column loop with one
-  ``all_reduce`` per character, as the JAX body.  That form has no kernel, so
-  it takes CPU ranks only (gloo; the words travel as int64) and raises for a
-  CUDA device: on cards the table-sharded scan takes a mesh.
+* Under ``group=`` each rank holds one row shard on its own device and no
+  rank reads another's rows: the scan is ``kernels/table_sharded.py``
+  ``group_scan``, one ``table_sharded_step`` launch a character on the rank's
+  shard and one ``all_reduce(SUM)`` of the lanes' words (int32) over the model
+  ranks between launches, as the JAX body's gather under ``psum``.  A process
+  group is a 1-axis layout, one rank per row shard; ``dp_tp_groups`` lays the
+  ranks out in 2 axes as ``dp_tp_mesh`` does devices: each model subgroup
+  scans its contiguous slice of the windows, counts are summed over the data
+  subgroup and planes gathered over it in text order, so every rank returns
+  the full result.  The collectives are ``all_reduce`` and ``all_gather``
+  only, which gloo carries for CUDA tensors too.
 """
 
 from __future__ import annotations
@@ -168,7 +177,7 @@ class _Shards:
     device-list mesh, or this process's one rank of a process group."""
 
     def __init__(self, mesh, group, device: torch.device):
-        self.group = group
+        self.group = group = _process_group(group)
         if group is not None:
             if mesh is not None:
                 raise ValueError("pass a mesh or a process group, not both")
@@ -237,14 +246,6 @@ class _Shards:
         t = counts[self.ranks[0]].reshape(1).to(torch.int64)
         dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
         return int(t[0])
-
-    def reduce(self, t: torch.Tensor) -> torch.Tensor:
-        """``t`` (int64) summed over the ranks of the process group, in
-        place."""
-        import torch.distributed as dist
-
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self.group)
-        return t
 
     def gather(self, parts: dict) -> List[torch.Tensor]:
         """The per-rank tensors (equal shapes) of every rank, in rank order;
@@ -495,13 +496,87 @@ def dp_tp_mesh(devices=None, shape: Optional[Tuple[int, int]] = None) -> List[Li
     a model group.  Default shape: ``(2, n // 2)`` for an even ``n >= 4``,
     else ``(1, n)``."""
     devices = data_mesh(devices)
-    n = len(devices)
+    n_data, n_model = _dp_tp_shape(len(devices), shape, "devices")
+    return [devices[i * n_model : (i + 1) * n_model] for i in range(n_data)]
+
+
+def _dp_tp_shape(n: int, shape: Optional[Tuple[int, int]], what: str) -> Tuple[int, int]:
+    """``(n_data, n_model)`` for ``n`` devices or ranks: ``shape``, by default
+    ``(2, n // 2)`` for an even ``n >= 4``, else ``(1, n)`` (the JAX
+    ``dp_tp_mesh`` rule)."""
     if shape is None:
         shape = (2, n // 2) if n >= 4 and n % 2 == 0 else (1, n)
     n_data, n_model = shape
     if n_data < 1 or n_model < 1 or n_data * n_model != n:
-        raise ValueError(f"mesh shape {tuple(shape)} does not hold {n} devices")
-    return [devices[i * n_model : (i + 1) * n_model] for i in range(n_data)]
+        raise ValueError(f"mesh shape {tuple(shape)} does not hold {n} {what}")
+    return int(n_data), int(n_model)
+
+
+class DpTpGroups:
+    """A process group's ranks laid out in 2 axes, (data, model): the
+    ``group=`` counterpart of ``dp_tp_mesh``, built by ``dp_tp_groups``.  Rank
+    ``r`` of ``parent`` sits at ``position = (r // n_model, r % n_model)``, as
+    device ``r`` in the JAX ``devices.reshape(shape)``; ``model`` is the
+    subgroup of its row (the ranks whose row shards make one table), ``data``
+    the subgroup of its column (the ranks that hold the same shard), None on
+    a 1-axis layout."""
+
+    def __init__(self, parent, shape: Tuple[int, int], model, data, position: Tuple[int, int]):
+        self.parent = parent
+        self.shape = shape
+        self.model = model
+        self.data = data
+        self.position = position
+
+
+def dp_tp_groups(shape: Optional[Tuple[int, int]] = None, group=None) -> DpTpGroups:
+    """The 2-axis layout of ``group``'s ranks (default the world): one model
+    subgroup per row of ``shape`` and one data subgroup per column, made with
+    ``torch.distributed.new_group``.  Every rank of the world must call it,
+    in the same order as its other ``new_group`` calls (ranks outside a
+    subgroup make its call too).  Default shape: ``(2, n // 2)`` for an even
+    ``n >= 4``, else ``(1, n)``."""
+    import torch.distributed as dist
+
+    parent = dist.group.WORLD if group is None else group
+    n = dist.get_world_size(parent)
+    n_data, n_model = _dp_tp_shape(n, shape, "ranks")
+    rank = dist.get_rank(parent)
+    if rank < 0:
+        raise ValueError("this process is not a rank of the group")
+    ranks = [dist.get_global_rank(parent, r) for r in range(n)]
+    backend = dist.get_backend(parent)
+    rows = [dist.new_group([ranks[i * n_model + k] for k in range(n_model)], backend=backend)
+            for i in range(n_data)]
+    cols = [dist.new_group([ranks[i * n_model + k] for i in range(n_data)], backend=backend)
+            for k in range(n_model)]
+    i, k = divmod(rank, n_model)
+    return DpTpGroups(parent, (n_data, n_model), rows[i], cols[k], (i, k))
+
+
+def _group_axes(group) -> DpTpGroups:
+    """``group`` as a 2-axis layout: a process group is one model row."""
+    if isinstance(group, DpTpGroups):
+        return group
+    import torch.distributed as dist
+
+    n = dist.get_world_size(group)
+    return DpTpGroups(group, (1, n), group, None, (0, dist.get_rank(group)))
+
+
+def _process_group(group):
+    """The process group the data-parallel functions shard over: a 2-axis
+    layout's parent, every rank a data shard."""
+    return group.parent if isinstance(group, DpTpGroups) else group
+
+
+def _rank_device(device) -> torch.device:
+    """This rank's device under ``group=``: ``device``, None meaning this
+    process's current CUDA device (raises without CUDA, before any
+    collective)."""
+    from ahocorasick_tpu_torch.models.matchers import _resolve_device
+
+    return _indexed(_resolve_device(device))
 
 
 def _model_groups(mesh) -> List[List[torch.device]]:
@@ -520,17 +595,6 @@ def _model_groups(mesh) -> List[List[torch.device]]:
     if len({len(g) for g in groups}) != 1:
         raise ValueError("the model groups of a 2-axis mesh must be equally long")
     return groups
-
-
-def _cpu_ranks_only(device) -> None:
-    """The process-group form of the table-sharded scan is the plain column
-    loop and has no kernel: raise unless ``device`` names the CPU (None means
-    CUDA), so that tensors on a card never run it."""
-    if device is None or torch.device(device).type != "cpu":
-        raise NotImplementedError(
-            "the process-group form of the table-sharded scan has no kernel and runs on "
-            f"CPU ranks only (device='cpu'), not on {device or 'cuda'}; on CUDA devices "
-            "pass a mesh of devices instead of group=")
 
 
 def _shard_tensor(rows: np.ndarray, device: torch.device) -> torch.Tensor:
@@ -562,7 +626,7 @@ def _table_sharded_run(packed_table: np.ndarray, cls: np.ndarray, halo: int, sta
                        (the contract of ``packedcount_hotstate_plane``).
     ``raw``          — returns the packed word at every position.
     Counts are ints; planes are tensors on the first model group's scanning
-    device."""
+    device (under ``group=``, on this rank's)."""
     tables, run, A = _table_sharded_build(packed_table, halo, state_bits, mesh, mode,
                                           group=group, device=device)
     return run(tables, scan_batched.chunk_classes(cls, chunk, halo, A))
@@ -586,9 +650,11 @@ def _table_sharded_build(packed_table: np.ndarray, halo: int, state_bits: int, m
     own left halo, so data shards need no halo exchange; the number of
     windows must be a multiple of the number of groups.  ``tables`` is one
     ``kernels.table_sharded.ShardedTable`` per model group (a shard that two
-    groups keep on one device is uploaded once).  Under ``group=`` it is this
-    rank's one shard, and ``run`` is the column loop with an ``all_reduce``
-    per character: ``device`` must be the CPU (``_cpu_ranks_only``)."""
+    groups keep on one device is uploaded once).  Under ``group=`` (a process
+    group, or a ``dp_tp_groups`` layout) ``tables`` is this rank's one shard
+    on ``device`` (None: this process's current CUDA device), and ``run`` is
+    ``group_scan`` over the rank's slice of the windows, padded with all-PAD
+    windows to a multiple of the data axis (the planes trimmed back)."""
     if mode not in table_sharded.MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {table_sharded.MODES}")
     packed_table = np.asarray(packed_table)
@@ -597,29 +663,11 @@ def _table_sharded_build(packed_table: np.ndarray, halo: int, state_bits: int, m
                         f"{packed_table.dtype}{packed_table.shape}")
     S, A = packed_table.shape
     counting = mode in ("count", "count_packed")
-
-    def shard_rows(k: int, rows_per: int) -> np.ndarray:
-        rows = packed_table[k * rows_per : (k + 1) * rows_per]
-        if len(rows) < rows_per:  # the last shards: zero rows past the table's end
-            rows = np.pad(rows, ((0, rows_per - len(rows)), (0, 0)))
-        return rows
-
     if group is not None:
-        _cpu_ranks_only(device)
-        sh = _Shards(mesh, group, torch.device("cpu"))
-        rank, dev = sh.ranks[0], sh.devices[sh.ranks[0]]
-        rows_per = -(-S // sh.world)
-        if tables is None:
-            tables = [_shard_tensor(shard_rows(rank, rows_per), dev)]
-        mine = table_sharded.shard_lookup(tables[0], rank, rows_per, A)
-
-        def run(tables, windows):
-            out = table_sharded.scan_columns(
-                lambda s, c: sh.reduce(mine(s, c)),
-                scan_batched.classes_to_device(windows, A, dev), halo, state_bits, mode)
-            return int(out) if counting else out
-
-        return tables, run, A
+        if mesh is not None:
+            raise ValueError("pass a mesh or a process group, not both")
+        return _table_sharded_group(packed_table, halo, state_bits, group,
+                                    _rank_device(device), mode, tables)
 
     groups = _model_groups(mesh)
     n_model = len(groups[0])
@@ -629,7 +677,7 @@ def _table_sharded_build(packed_table: np.ndarray, halo: int, state_bits: int, m
 
         def shard_on(k: int, dev: torch.device) -> torch.Tensor:
             if (k, dev) not in uploaded:
-                uploaded[k, dev] = _shard_tensor(shard_rows(k, rows_per), dev)
+                uploaded[k, dev] = _shard_tensor(_shard_rows(packed_table, k, rows_per), dev)
             return uploaded[k, dev]
 
         tables = [table_sharded.ShardedTable([shard_on(k, d) for k, d in enumerate(g)])
@@ -651,6 +699,59 @@ def _table_sharded_build(packed_table: np.ndarray, halo: int, state_bits: int, m
             return parts[0]
         home = parts[0].device
         return torch.cat([p.view(torch.int32).to(home) for p in parts], dim=1).view(torch.uint32)
+
+    return tables, run, A
+
+
+def _shard_rows(packed_table: np.ndarray, k: int, rows_per: int) -> np.ndarray:
+    """Rows ``[k * rows_per, (k + 1) * rows_per)`` of the table, zero rows past
+    its end (the last shards)."""
+    rows = packed_table[k * rows_per : (k + 1) * rows_per]
+    if len(rows) < rows_per:
+        rows = np.pad(rows, ((0, rows_per - len(rows)), (0, 0)))
+    return rows
+
+
+def _table_sharded_group(packed_table: np.ndarray, halo: int, state_bits: int, group,
+                         dev: torch.device, mode: str, tables):
+    """The group form of ``_table_sharded_build``: rank ``(i, k)`` of the
+    layout holds row shard k and scans data slice i of the windows."""
+    import torch.distributed as dist
+
+    axes = _group_axes(group)
+    n_data, n_model = axes.shape
+    i, k = axes.position
+    S, A = packed_table.shape
+    rows_per = -(-S // n_model)
+    if tables is None:
+        tables = [_shard_tensor(_shard_rows(packed_table, k, rows_per), dev)]
+
+    def reduce(words):
+        # Exact in int32: at most one model rank's word is not 0.
+        dist.all_reduce(words[0].view(torch.int32), op=dist.ReduceOp.SUM, group=axes.model)
+
+    def run(tables, windows):
+        windows = np.asarray(windows)
+        B = windows.shape[0]
+        per = -(-B // n_data)
+        if per * n_data != B:  # all-PAD windows scan class 0 from the root: no emits
+            windows = np.concatenate(
+                [windows, np.zeros((per * n_data - B, windows.shape[1]), windows.dtype)])
+        mine = scan_batched.classes_to_device(windows[i * per : (i + 1) * per], A, dev)
+        out = table_sharded.group_scan([(k, tables[0])], mine, halo, state_bits, mode, reduce)[0]
+        if mode in ("count", "count_packed"):
+            if n_data > 1:
+                out = out.reshape(1)
+                dist.all_reduce(out, op=dist.ReduceOp.SUM, group=axes.data)
+            return int(out.sum())
+        if n_data == 1:
+            return out
+        parts = [torch.empty_like(out) for _ in range(n_data)]
+        dist.all_gather([p.view(torch.int32) for p in parts], out.view(torch.int32),
+                        group=axes.data)
+        C = windows.shape[1] - halo
+        return torch.cat([p.view(torch.int32) for p in parts], dim=1)[:, : B * C].view(
+            torch.uint32)
 
     return tables, run, A
 
@@ -693,8 +794,8 @@ class TableShardedScanner:
 
     ``mesh``: a 1-axis model mesh (a list of devices; default every visible
     CUDA device) or a 2-axis one (a list of model groups, ``dp_tp_mesh``);
-    or ``group=``, one rank per model shard (CPU matchers only: that form has
-    no kernel and raises for a matcher on a CUDA device)."""
+    or ``group=``, a process group (one rank per row shard) or a
+    ``dp_tp_groups`` layout, each rank scanning on the matcher's device."""
 
     def __init__(self, matcher, mesh=None, chunk: int = 512, *, group=None):
         self.matcher = matcher
@@ -703,7 +804,7 @@ class TableShardedScanner:
         if group is not None:
             if mesh is not None:
                 raise ValueError("pass a mesh or a process group, not both")
-            _cpu_ranks_only(matcher.device)
+            _rank_device(matcher.device)  # raises without CUDA, before the group
             self.mesh = None
         else:
             self.mesh = _model_groups(mesh)
@@ -761,7 +862,7 @@ class TableShardedScanner:
                 device=self.matcher.device, tables=None if first is None else first[0])
         tables, run, A = self._built[mode]
         windows = scan_batched.chunk_classes(cls, self.chunk, self._halo, A)
-        n_data = 1 if self.mesh is None else len(self.mesh)
+        n_data = 1 if self.mesh is None else len(self.mesh)  # a group's run pads its own
         if windows.shape[0] % n_data:
             # Windows shard over the data axis: pad their number up to a
             # multiple of its size with all-PAD windows (they scan class 0
@@ -855,9 +956,11 @@ class ShardedScanner:
 
     ``count`` is an all-shard reduction; ``match_triples`` extracts exact
     global triples from shard-local planes.  ``mesh`` is a list of devices
-    (default: every visible CUDA device)."""
+    (default: every visible CUDA device); or ``group=``, a process group (or
+    a ``dp_tp_groups`` layout, taken as its parent), one shard a rank on the
+    matcher's device."""
 
-    def __init__(self, matcher, mesh=None):
+    def __init__(self, matcher, mesh=None, *, group=None):
         m = matcher.compiled
         if not _device_capable(m, m.kind):
             raise ValueError(
@@ -865,7 +968,14 @@ class ShardedScanner:
                 "device path for this kind; scan on the host path "
                 "(matcher.match)")
         self.matcher = matcher
-        self.mesh = data_mesh(mesh)
+        self.group = group
+        if group is not None:
+            if mesh is not None:
+                raise ValueError("pass a mesh or a process group, not both")
+            _rank_device(matcher.device)  # raises without CUDA, before the group
+            self.mesh = None
+        else:
+            self.mesh = data_mesh(mesh)
         self._inner = None  # shortest: lazy scanner over the internal AC
         self._counter = None  # lazy plan-driven sharded count closures
         self._planes = None  # lazy plan-driven sharded planes closures
@@ -873,7 +983,12 @@ class ShardedScanner:
     def _shard_boundaries(self, n: int, chunk: int = 512):
         """Per-shard cut positions in text coordinates (the same split
         ``make_sharded_planes`` uses): the resolve stitch points."""
-        n_dev = len(self.mesh)
+        if self.group is None:
+            n_dev = len(self.mesh)
+        else:
+            import torch.distributed as dist
+
+            n_dev = dist.get_world_size(_process_group(self.group))
         per = -(-max(n, 1) // (n_dev * chunk)) * chunk
         return [per * i for i in range(1, n_dev)]
 
@@ -881,7 +996,7 @@ class ShardedScanner:
         m = self.matcher.compiled
         if m.kind == "ac":
             if self._counter is None:
-                self._counter = make_sharded_counter(self.matcher, self.mesh)
+                self._counter = make_sharded_counter(self.matcher, self.mesh, group=self.group)
             prepare, count, _ = self._counter
             return int(count(prepare(self.matcher._classes(text)), reps=1))
         # Counting needs the resolved / filtered match set for the other
@@ -908,7 +1023,7 @@ class ShardedScanner:
             ac = getattr(self.matcher, "_ac", None)
             if ac is not None and _device_capable(ac.compiled, "ac"):
                 if self._inner is None:
-                    self._inner = ShardedScanner(ac, self.mesh)
+                    self._inner = ShardedScanner(ac, self.mesh, group=self.group)
                 # The internal AC sees the same UTF-16 unit count (classes
                 # differ, positions don't), so the shard cuts follow the
                 # INNER scanner's planes chunk.
@@ -922,7 +1037,8 @@ class ShardedScanner:
             cursor = core_stream.make_cursor(m, self.matcher.device, self.matcher.dev)
             return _triples_from_list(cursor.feed(cls, is_final=True))
         if m.kind == "whole_word_longest":
-            die, has, ms, me, mv, cont = sharded_wwl_walks(self.matcher, cls, self.mesh)
+            die, has, ms, me, mv, cont = sharded_wwl_walks(self.matcher, cls, self.mesh,
+                                                           group=self.group)
             ws = word_starts(np.asarray(m.class_is_word)[cls])
             if cont is not None:
                 # Mixed dictionary: re-run the walks whose die char crossed
@@ -935,7 +1051,7 @@ class ShardedScanner:
                     m, np.pad(cls, (0, d + 1)), d, (die, has, ms, me, mv), need, need)
             return _triples_from_list(follow_chain(die, has, ms, me, mv, ws, len(cls)))
         if self._planes is None:
-            self._planes = make_sharded_planes(self.matcher, self.mesh)
+            self._planes = make_sharded_planes(self.matcher, self.mesh, group=self.group)
         fn, which, planes_chunk = self._planes
         layout = "hotstate" if which == "hotstate" else "planes"
         triples = scan_batched.ac_matches_batched(m, cls, fn(cls), layout=layout)

@@ -107,7 +107,14 @@ port only, the dictionary and text generators included (``bench.headline``,
    the row-sharded scan on the lane loops at its edge shapes (every mode, K
    = 1, 2 and 4 with the lane caps patched, C off a multiple of 4 K, uint8,
    uint16 and int32 windows, 1, 3 and 8 shards, halo 0, next states past the
-   last shard); the grouped die sweeps, and every design of their A/B, on
+   last shard); the step kernel of the same scan under a process group
+   (``table_sharded_step``) with 1, 3 and 8 ranks simulated in this process,
+   the sum of their word buffers in place of the all_reduce: every launch's
+   buffers and every rank's result == the twin's, the loop ==
+   ``table_sharded_scan``, in every mode (``check_step_edges``: rows_per not a
+   power of two, more ranks than rows, states past the last shard, halo 0,
+   uint8, uint16 and int32 windows, K = 1, 2 and 4, ragged segments); the
+   grouped die sweeps, and every design of their A/B, on
    seeded planes (d = 0, 1, 12 and 39, dense and quotient, crossing bits on
    and off, sorted, unsorted, repeated, negative and past-L starts);
    the stride-2 count and planes against their twins and against the packed
@@ -205,7 +212,16 @@ port only, the dictionary and text generators included (``bench.headline``,
    (2, 4) and (4, 2) data x model meshes, ``sharded_table_count``, the 1M
    dictionary (layout ``hotstate``; count 1,282,185, triples == the
    single-device facade's), ``stream()`` over the same uneven pieces, and
-   ``scan_corpus`` over 300 seeded documents == ``match`` per document; every
+   ``scan_corpus`` over 300 seeded documents == ``match`` per document; the
+   group form under an NCCL process group of one rank in this process:
+   ``TableShardedScanner(m, group=WORLD)`` for each kind (AC also under
+   ``dp_tp_groups()``), its stream, ``sharded_table_count`` and the 1M count
+   (1,282,185) through ``table_sharded_step`` (``table_sharded_scan`` not
+   launched), and ``ShardedScanner(m, group=WORLD)`` for each kind and its
+   stream, each == the mesh form's triples; then 2 and 4 gloo ranks spawned
+   on the one card with CUDA tensors (``gloo_rank``): the 1-axis group form
+   at world 2 and the (2, 2) layout at world 4, every mode == the mesh form;
+   every
    AC-family kind through ``device_engine="batched2"`` == the default
    engine's triples, with its ``run_config`` record; the probes' entry point
    (every probe, then the residency sweep: 65,536 chains x 524 steps on
@@ -227,7 +243,11 @@ port only, the dictionary and text generators included (``bench.headline``,
    32 Mi, with one line of repair statistics), each streamed kind, the gold
    branch (and its
    stages: classes, upload, lane scan, download, emit expansion, triples)
-   and the early stop; the sharded facades and the sharded count's stages; the row-sharded
+   and the early stop; the sharded facades and the sharded count's stages; the step
+   kernel of the group form (alone, in card time, with its NCCL all_reduce at
+   world 1, one lane's launch, the whole loop beside ``table_sharded_scan``
+   on the same windows; the 10k table's planes and count, the 1M table's
+   count_packed); the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
    and their stages; both forms of the maps and the rescan at C = 1, K = 32
    Ki, S = 65,536 (each held to its twin there), the forms for any table on
@@ -310,6 +330,7 @@ import concurrent.futures
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -374,6 +395,10 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                       "ahocorasick_tpu/ops/stitch.py:68"),
     "table_sharded_scan": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
                            "ahocorasick_tpu/parallel/sharding.py:321"),
+    # under a process group: a launch a character on this rank's shard, the
+    # words summed by an all_reduce between launches
+    "table_sharded_step": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
+                           "ahocorasick_tpu/parallel/sharding.py:377"),
     # redesigned, both: tile.cuh's lane loops over tile::Stride2, a pair a step
     "rowdfa2_count": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
                       "ahocorasick_tpu/ops/scan_rowdfa.py:248"),
@@ -408,6 +433,7 @@ DEEP = ["a" * i for i in range(1, 40)] + ["the"]  # does not pack inline
 SHORTEST_TWIN_UNITS = 1 << 16
 N_SHARDS = 8  # the sharded scanner's mesh: eight shards on the one card
 CORPUS_DOCS = 300  # scan_corpus: seeded documents of 0 to 4 Ki units
+GLOO_JOIN_S = 300  # the gloo spawn's ranks: their collectives' and their join's timeout
 ARRIVAL_UNITS_10K = 1 << 18  # sigma-stitched arrival states on the 10k table
 # The 1M-keyword dictionary of tests/test_full_random_1m.py (seed 77) and its
 # pinned facts, for its 1 Mi-unit text and the 128 Ki window at 300,000.
@@ -1126,6 +1152,219 @@ def check_tp_lane_edges(port, dev, errs):
         cases += pair(f"states past the last shard ({3 * S} of {S})", shards(table, n_model),
                       wr, 8, sb)
     return cases
+
+
+def simulated_ranks(ranks, w, halo, sb, mode, record=None):
+    """``group_scan`` with the model ranks simulated in this process: the sum
+    of their word buffers replaces the all_reduce.  ``record`` (a list)
+    receives every launch's word buffers before the sum (int32[n_model, N] on
+    the host).  Returns the ranks' results."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    def reduce(bufs):
+        stack = torch.stack([b.view(torch.int32) for b in bufs])
+        if record is not None:
+            record.append(stack.cpu())
+        total = stack.sum(0, dtype=torch.int32)
+        for b in bufs:
+            b.view(torch.int32).copy_(total)
+
+    return ktp.group_scan(ranks, w, halo, sb, mode, reduce)
+
+
+def gloo_rank(rank, world, init_file, data, out_dir):
+    """One rank of the smoke's gloo spawn on the one card: the table-sharded
+    scan of the table and classes in ``data`` under ``group=`` (world 2: the
+    process group; world 4: its (2, 2) layout), every mode, saved to
+    ``out_dir/rank<r>.npz`` with the rank's launch counts."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from ahocorasick_tpu_torch.kernels import build
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+    from ahocorasick_tpu_torch.parallel import sharding
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=GLOO_JOIN_S))
+    try:
+        with np.load(data) as z:
+            table, cls = z["table"], z["cls"]
+            halo, sb = int(z["halo"]), int(z["state_bits"])
+        form = dist.group.WORLD if world == 2 else sharding.dp_tp_groups((2, 2))
+        build.reset_launches()
+        out = {}
+        for mode in ktp.MODES:
+            got = sharding._table_sharded_run(table, cls, halo, sb, None, 512, mode, group=form)
+            out[mode] = (np.asarray([got]) if isinstance(got, int)
+                         else got.view(torch.int32).cpu().numpy())
+        out["launches"] = np.asarray([build.launches["table_sharded_step"],
+                                      build.launches["table_sharded_scan"]])
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs):
+    """``table_sharded_step`` against its twin at a main path's shape, one
+    rank holding the whole table (``shard``): the whole loop, one launch and
+    one twin step a character on buffers of their own (at one rank the
+    all_reduce is the identity), every launch's words compared on the card;
+    the planes start apart (-1 and 0), so a position either leaves unwritten
+    differs.  Then the kernel's result == ``table_sharded_scan`` of
+    ``mesh_table``.  Raises on a difference."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    def widen(x):
+        return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+
+    t0 = time.perf_counter()
+    dev = w.device
+    B, W = w.shape
+    K, L = ktp.lane_segments(B, W - halo, halo, mode)
+    counting = mode in ("count", "count_packed")
+
+    def buffers():
+        out = (torch.zeros(B * K, dtype=torch.int64, device=dev) if counting
+               else torch.zeros((1, B * (W - halo)), dtype=torch.uint32, device=dev))
+        return (torch.zeros(B * K, dtype=torch.uint32, device=dev), out,
+                torch.zeros(1, dtype=torch.int64, device=dev) if counting else None)
+
+    kern, twin = buffers(), buffers()
+    if not counting:
+        kern[1].view(torch.int32).fill_(-1)
+    err = torch.zeros((), dtype=torch.int64, device=dev)
+    for t in range(halo + L + 1):
+        ktp.table_sharded_step(shard, 0, kern[0], w, t, halo, sb, mode, (K, L), kern[1], kern[2])
+        ktp.table_sharded_step_plain(shard, 0, twin[0], w, t, halo, sb, mode, (K, L), twin[1],
+                                     twin[2])
+        err = torch.maximum(err, (widen(kern[0]) - widen(twin[0])).abs().max())
+    results = [x[2] if counting else widen(x[1]) for x in (kern, twin)]
+    mesh = ktp.table_sharded_scan(mesh_table, w, halo, sb, mode)
+    results.append(mesh.reshape(1) if counting else widen(mesh))
+    err = max(int(err), int((results[0] - results[1]).abs().max()),
+              int((results[0] - results[2]).abs().max()))
+    errs["table_sharded_step"] = max(errs["table_sharded_step"], err)
+    if err:
+        raise AssertionError(f"table_sharded_step, {label}, {mode}: the loop of {halo + L + 1} "
+                             f"launches disagrees with its twin or the mesh form ({err})")
+    print(f"  step vs twin, {label}, {mode}: {halo + L + 1} launches of {B * K} lanes, every "
+          f"launch's words and the result == twin == table_sharded_scan "
+          f"({time.perf_counter() - t0} s)")
+
+
+def check_step_edges(port, dev, errs):
+    """The step kernel of the table-sharded scan under a process group
+    (``table_sharded_step``, ``csrc/table_sharded.cu``) against its twin, bit
+    for bit, with n_model = 1, 3 and 8 ranks simulated in one process: every
+    launch's word buffers (each rank's, before the sum that replaces the
+    all_reduce) and every rank's result; and the whole simulated loop ==
+    ``table_sharded_scan`` (the mesh form's kernel), all five modes.  Edges:
+    rows_per not a power of two, more shards than rows, next states past the
+    last shard, halo 0, uint8, uint16 and int32 windows, K = 1, 2 and 4 lanes
+    a window (the caps patched) and ragged last segments.  Returns the
+    cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import scan_block
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+    from ahocorasick_tpu_torch.ops import scan_batched
+    from ahocorasick_tpu_torch.parallel import sharding
+
+    def as_words(t):
+        return t.view(torch.int32).cpu().to(torch.int64) & 0xFFFFFFFF if t.dim() else t.cpu()
+
+    def pair(label, table, w, halo, sb, n_model, want_k=None):
+        st = sharding._table_sharded_build(table, halo, sb, [dev] * n_model, "count")[0][0]
+        on_card = list(enumerate(st.shards))
+        on_host = [(k, t.cpu()) for k, t in on_card]
+        B, C = w.shape[0], w.shape[1] - halo
+        seen = set()
+        for mode in ktp.MODES:
+            K, L = ktp.lane_segments(B, C, halo, mode)
+            seen.add(K)
+            got_words, want_words = [], []
+            got = simulated_ranks(on_card, w, halo, sb, mode, got_words)
+            want = simulated_ranks(on_host, w.cpu(), halo, sb, mode, want_words)
+            mesh = ktp.table_sharded_scan(st, w, halo, sb, mode)
+            torch.cuda.synchronize()
+            e = 0 if len(got_words) == len(want_words) == halo + L else 1
+            for g, x in zip(got_words, want_words):
+                e = max(e, int((g.to(torch.int64) - x.to(torch.int64)).abs().max()))
+            for g, x in zip(got, want):
+                e = max(e, int((as_words(g) - as_words(x)).abs().max()))
+                e = max(e, int((as_words(g) - as_words(mesh)).abs().max()))
+            errs["table_sharded_step"] = max(errs["table_sharded_step"], e)
+            if e:
+                raise AssertionError(f"step edge {label}, mode {mode}, K={K} L={L}: the kernel "
+                                     f"disagrees with its twin or the mesh form ({e})")
+        if want_k is not None and seen != {want_k}:
+            raise AssertionError(f"step edge {label}: K in {sorted(seen)}, not {want_k}")
+        print(f"  step edge {label}: {n_model} ranks of {st.rows_per} rows, B={B} "
+              f"W={w.shape[1]} halo={halo} {str(w.dtype).replace('torch.', '')} K in "
+              f"{sorted(seen)}: words a launch and results == twin == table_sharded_scan")
+        rows.append(st.rows_per)
+
+    fr = np.random.default_rng(SEED + 17)
+    fuzz = port.AhoCorasickSet(fuzz_keywords(fr, "abcdef", 60, 8), engine="device", device=dev)
+    pd_f = scan_batched.build_packed(fuzz.compiled)
+    A = fuzz.compiled.num_classes
+    cls_f = fuzz._classes("".join(fr.choice(list("abcdefgh "), size=12_001)))
+
+    def narrow(chunk, halo):
+        return scan_batched.classes_to_device(scan_batched.chunk_classes(cls_f, chunk, halo, A),
+                                              A, dev)
+
+    rows = []  # rows_per of every case
+    for n_model in (1, 3, 8):
+        pair("fuzz", pd_f.table, narrow(512, pd_f.halo), pd_f.halo, pd_f.state_bits, n_model)
+    saved = (scan_block.MAX_LANES, scan_block.COUNT_MAX_LANES)
+    try:
+        w = narrow(130, pd_f.halo)  # bodies of 130: ragged last segments
+        for k, cap in ((4, 1 << 30), (2, 2 * w.shape[0]), (1, w.shape[0])):
+            scan_block.MAX_LANES = scan_block.COUNT_MAX_LANES = cap
+            pair(f"fuzz, C = 130, caps {cap}", pd_f.table, w, pd_f.halo, pd_f.state_bits, 3,
+                 want_k=k)
+    finally:
+        scan_block.MAX_LANES, scan_block.COUNT_MAX_LANES = saved
+    w32 = torch.from_numpy(scan_batched.chunk_classes(cls_f, 512, pd_f.halo)).to(dev)
+    pair("fuzz, int32 windows", pd_f.table, w32, pd_f.halo, pd_f.state_bits, 3)
+    pair("fuzz, halo 0", pd_f.table, narrow(512, 0), 0, pd_f.state_bits, 3, want_k=1)
+    wide_kws = [chr(0x100 + i) + chr(0x100 + (7 * i) % 300) for i in range(300)]
+    wide = port.AhoCorasickSet(wide_kws, engine="device", device=dev)
+    pd_w = scan_batched.build_packed(wide.compiled)
+    Aw = wide.compiled.num_classes
+    cls_w = wide._classes("".join(chr(0x100 + int(c)) for c in fr.integers(0, 300, size=8_000)))
+    ww = scan_batched.classes_to_device(scan_batched.chunk_classes(cls_w, 512, pd_w.halo, Aw),
+                                        Aw, dev)
+    if ww.dtype != torch.uint16:
+        raise AssertionError("the wide dictionary's windows are not uint16")
+    pair("> 256 classes, uint16 windows", pd_w.table, ww, pd_w.halo, pd_w.state_bits, 3)
+    tiny = port.AhoCorasickSet(["x", "y"], engine="device", device=dev, thresholder=_NeverDense())
+    pd_t = scan_batched.build_packed(tiny.compiled)
+    if not pd_t.table.shape[0] < 8:
+        raise AssertionError("the tiny quotient table has as many rows as ranks")
+    At = tiny.compiled.num_classes
+    wt = scan_batched.classes_to_device(scan_batched.chunk_classes(
+        tiny._classes("xxyxy x!y" * 200), 64, pd_t.halo, At), At, dev)
+    pair("more ranks than rows", pd_t.table, wt, pd_t.halo, pd_t.state_bits, 8)
+    # Next states up to 3 x S, past the last shard: every rank reads 0 there.
+    S, A_r, sb = 97, 7, 9
+    nxt = fr.integers(0, 3 * S, size=(S, A_r))
+    table = (nxt | (fr.integers(0, 1 << 20, size=(S, A_r)) << sb)).astype(np.uint32)
+    wr = torch.from_numpy(fr.integers(0, A_r, size=(300, 8 + 300)).astype(np.uint8)).to(dev)
+    for n_model in (1, 3, 8):
+        pair(f"states past the last shard ({3 * S} of {S})", table, wr, 8, sb, n_model)
+    if all(r & (r - 1) == 0 for r in rows) or min(rows) != 1:
+        raise AssertionError(f"step edges: rows_per {sorted(set(rows))} lack a case that is "
+                             f"not a power of two or one of a row")
+    return len(rows) * len(ktp.MODES)
 
 
 def check_spec_edges(dev, errs):
@@ -2518,6 +2757,9 @@ def main() -> int:
           f"cases, kernel == twin == prefix decomposition, {time.perf_counter() - t_walk} s")
     print(f"  row-sharded lane edges: {check_tp_lane_edges(port, dev, errs)} cases, kernel == "
           f"twin")
+    t_step = time.perf_counter()
+    print(f"  step edges: {check_step_edges(port, dev, errs)} cases, kernel == twin == "
+          f"table_sharded_scan, {time.perf_counter() - t_step} s")
     print(f"  sweep edges: {check_sweep_edges(dev, errs, scan_variants.library())} cases, "
           f"kernel and every A/B design == twin")
 
@@ -3489,6 +3731,7 @@ def main() -> int:
     # matchers' output on the same text.
     mesh = [torch.device("cuda", 0)] * N_SHARDS
     sharded_times = {}
+    dp_triples = {}  # the mesh form's triples, for the group form below
 
     def same_triples(label, got, want):
         for g, w in zip(got, want):
@@ -3512,6 +3755,7 @@ def main() -> int:
             got = timed(f"AhoCorasickSet match_triples, {world} shards",
                         lambda: sc.match_triples(text))
             same_triples(f"AhoCorasickSet, {world} shards", got, ac_ref)
+            dp_triples.setdefault("AhoCorasickSet", got)
             if n != len(ac_ref[0]) or sc._counter[2] != "packed" or sc._planes[1] != "packed":
                 raise AssertionError(f"sharded count {n} != {len(ac_ref[0])} on {world} shards")
             out.append(f"{world} shards: count {n} == triples == single-device, cuts at "
@@ -3527,6 +3771,7 @@ def main() -> int:
             got = timed(f"{cls_name} match_triples, {N_SHARDS} shards",
                         lambda: sc.match_triples(text))
             same_triples(cls_name, got, ref)
+            dp_triples[cls_name] = got
             n = sc.count(text)
             if n != len(ref[0]):
                 raise AssertionError(f"{cls_name}: sharded count {n} != {len(ref[0])}")
@@ -3546,6 +3791,7 @@ def main() -> int:
         got = timed(f"{label} match_triples, {N_SHARDS} shards",
                     lambda: sc.match_triples(full_text))
         same_triples(label, got, ref)
+        dp_triples.setdefault(label, got)
         return f"{len(got[0])} matches on {len(full_text)} units == single-device"
 
     run_path("ShardedScanner WholeWordLongestMatchSet", sweep_kernels, lambda: sharded_wwl(
@@ -3666,6 +3912,7 @@ def main() -> int:
         got = timed(f"ShardedStream AhoCorasickSet, {len(sizes)} feeds",
                     lambda: feed_arrays(sc.stream(), sizes, 0))
         same_triples("ShardedStream", got, ac_ref)
+        dp_triples["stream"] = got
         half = len(sizes) // 2
         cut = sum(sizes[:half])
         s1 = sc.stream()
@@ -3702,6 +3949,7 @@ def main() -> int:
     # the single-device matchers' output on the same text.
     tp_kernel = ("table_sharded_scan",)
     tp_scanners = {}
+    tp_triples = {}  # the mesh form's triples, for the group form below
 
     def row_shards(ts, mode):
         """The scanner's shards for ``mode``: (tables, distinct allocations)."""
@@ -3717,6 +3965,7 @@ def main() -> int:
             got = timed(f"TableShardedScanner {label} match_triples, {N_SHARDS} row shards",
                         lambda: ts.match_triples(full_text))
             same_triples(f"TableShardedScanner {label}", got, ref)
+            tp_triples[label] = got
             n = timed(f"TableShardedScanner {label} count, {N_SHARDS} row shards",
                       lambda: ts.count(full_text))
             if n != len(ref[0]) or n <= 0:
@@ -3763,14 +4012,7 @@ def main() -> int:
                   lambda: sharding.sharded_table_count(table, cls, halo, sb, mesh))
         if n != len(ac_ref[0]):
             raise AssertionError(f"sharded_table_count {n} != {len(ac_ref[0])}")
-        # The process-group form has no kernel: on the card it raises.
-        try:
-            sharding.sharded_table_count(table, cls, halo, sb, group=object(), device=dev)
-        except NotImplementedError:
-            pass
-        else:
-            raise AssertionError("the group form of the table-sharded scan ran on the card")
-        return "; ".join(out) + f"; sharded_table_count {n} == count; group= on the card raises"
+        return "; ".join(out) + f"; sharded_table_count {n} == count"
 
     run_path("TableShardedScanner data x model meshes, sharded_table_count", tp_kernel,
              tp_mesh2_path)
@@ -3814,9 +4056,243 @@ def main() -> int:
         got = timed(f"TableShardedScanner stream AhoCorasickSet, {len(sizes)} feeds",
                     lambda: feed_arrays(ts.stream(), sizes))
         same_triples("TableShardedScanner stream", got, ac_ref)
+        tp_triples["stream"] = got
         return f"{len(got[0])} matches over {len(sizes)} feeds == match_triples"
 
     run_path("TableShardedScanner stream AhoCorasickSet", tp_kernel, tp_stream_path)
+
+    # The group form on the card: an NCCL process group of one rank in this
+    # process, on cuda:0.  The table-sharded facades scan with
+    # table_sharded_step and an all_reduce a character (the mesh form's
+    # kernel must not launch), the data-parallel ones with their plans'
+    # kernels; each == the mesh form's triples above.  Then the step's times.
+    import torch.distributed as dist
+
+    group_t0 = time.perf_counter()
+    torch.cuda.set_device(0)
+    group_dir = tempfile.mkdtemp(prefix="chip_smoke_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{group_dir}/store", rank=0,
+                            world_size=1)
+    try:
+        world = dist.group.WORLD
+        step_kernel = ("table_sharded_step",)
+
+        def tp_group_path(label, m, full_text, expected=step_kernel, form=world):
+            def drive():
+                ts = sharding.TableShardedScanner(m, group=form)
+                got = timed(f"TableShardedScanner {label} match_triples, group= (NCCL, world 1)",
+                            lambda: ts.match_triples(full_text))
+                same_triples(f"TableShardedScanner {label}, group=", got, tp_triples[label])
+                n = ts.count(full_text)
+                inner = ts._inner if ts._inner is not None else ts
+                tables = next(iter(inner._built.values()))[0]
+                if n != len(got[0]) or len(tables) != 1 or tables[0].device != dev_index:
+                    raise AssertionError(f"{label}, group=: count {n}, shards {len(tables)} on "
+                                         f"{tables[0].device}")
+                return (f"{n} matches on {len(full_text)} units == the mesh form's; layout "
+                        f"{ts.layout}, the whole table one shard on {tables[0].device}")
+            name = "WORLD" if form is world else f"dp_tp_groups() {form.shape}"
+            run_path(f"TableShardedScanner {label} group={name}", expected, drive,
+                     absent=("table_sharded_scan",))
+
+        dev_index = torch.device("cuda", torch.cuda.current_device())
+        tp_group_path("AhoCorasickSet", big, text)
+        tp_group_path("AhoCorasickSet", big, text, form=sharding.dp_tp_groups())
+        for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet"):
+            tp_group_path(k, matchers[k], text)
+        tp_group_path("WholeWordLongestMatchSet", big_wwl, text, step_kernel + ("wwl_sweep_all",))
+        tp_group_path("WholeWordLongestMatchSet mixed", mixed, text7,
+                      step_kernel + ("wwl_sweep_all",))
+
+        def tp_group_rest_path():
+            ts = sharding.TableShardedScanner(big, group=world)
+            parts, i = [], 0
+            st = ts.stream()
+            for k in sizes:
+                parts.append(st.feed(text[i: i + k], i + k >= len(text)))
+                i += k
+            same_triples("TableShardedScanner stream, group=",
+                         [np.concatenate([p[j] for p in parts]) for j in range(3)],
+                         tp_triples["stream"])
+            table, halo, sb = tp_scanners["AhoCorasickSet"]._table, pd.halo, pd.state_bits
+            n = timed("sharded_table_count, group= (NCCL, world 1)",
+                      lambda: sharding.sharded_table_count(table, cls, halo, sb, group=world))
+            n1m = timed("TableShardedScanner 1M count, group= (NCCL, world 1)",
+                        lambda: sharding.TableShardedScanner(ac1m, group=world).count(text1m))
+            if n != len(ac_ref[0]) or n1m != ONE_M["ac_count"]:
+                raise AssertionError(f"group=: sharded_table_count {n}, 1M count {n1m}")
+            return (f"stream over {len(sizes)} feeds == the mesh form's; sharded_table_count {n} "
+                    f"== count; 1M count {n1m} == pinned (count_packed mode, hotstate layout)")
+
+        run_path("TableShardedScanner stream, sharded_table_count, 1M count, group=", step_kernel,
+                 tp_group_rest_path, absent=("table_sharded_scan",))
+
+        def dp_group_path(label, m, full_text, expected):
+            def drive():
+                sc = sharding.ShardedScanner(m, group=world)
+                got = timed(f"ShardedScanner {label} match_triples, group= (NCCL, world 1)",
+                            lambda: sc.match_triples(full_text))
+                same_triples(f"ShardedScanner {label}, group=", got, dp_triples[label])
+                n = sc.count(full_text)
+                if n != len(got[0]):
+                    raise AssertionError(f"ShardedScanner {label}, group=: count {n}")
+                out = f"{n} matches on {len(full_text)} units == the mesh form's"
+                if label == "AhoCorasickSet":
+                    parts, i = [], 0
+                    st = sc.stream()
+                    for k in sizes:
+                        parts.append(st.feed(full_text[i: i + k], i + k >= len(full_text)))
+                        i += k
+                    same_triples("ShardedStream, group=",
+                                 [np.concatenate([p[j] for p in parts]) for j in range(3)],
+                                 dp_triples["stream"])
+                    out += f"; stream over {len(sizes)} feeds == the mesh form's"
+                return out
+            run_path(f"ShardedScanner {label} group=", expected, drive)
+
+        dp_group_path("AhoCorasickSet", big, text, ("packed_scan_count", "packed_scan_planes"))
+        for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet"):
+            dp_group_path(k, matchers[k], text, ("packed_scan_planes",))
+        dp_group_path("WholeWordLongestMatchSet", big_wwl, text, sweep_kernels)
+
+        # The step's times: alone, with its all_reduce, and the whole loop,
+        # beside the mesh form's table_sharded_scan on the same windows.
+        def step_times(label, table, w, halo, sb, mode, mesh_table):
+            shard = sharding._shard_tensor(table, dev_index)
+            B, W = w.shape
+            K, L = ktp.lane_segments(B, W - halo, halo, mode)
+            counting = mode in ("count", "count_packed")
+
+            def buffers(lanes, body):
+                out = (torch.zeros(lanes, dtype=torch.int64, device=dev) if counting
+                       else torch.empty((1, body), dtype=torch.uint32, device=dev))
+                return (torch.zeros(lanes, dtype=torch.uint32, device=dev), out,
+                        torch.zeros(1, dtype=torch.int64, device=dev) if counting else None)
+
+            words, out, total = buffers(B * K, B * (W - halo))
+            t = halo + 1  # folds a body position and looks the next one up
+            step = lambda: ktp.table_sharded_step(shard, 0, words, w, t, halo, sb, mode, (K, L),
+                                                  out, total)
+            reduce = lambda: dist.all_reduce(words.view(torch.int32), group=world)
+            # One lane of one window of halo + 4 classes: the launch's latency floor.
+            w1 = w[:1, : halo + 4].contiguous()
+            words1, out1, total1 = buffers(1, 4)
+            one = lambda: ktp.table_sharded_step(shard, 0, words1, w1, t, halo, sb, mode, (1, 4),
+                                                 out1, total1)
+            # The eager masked-index chain of the JAX body's gather at the
+            # lanes' states and step-t classes.
+            flat64 = shard.view(torch.int32).reshape(-1).to(torch.int64) & 0xFFFFFFFF
+            s64 = (words.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) & ((1 << sb) - 1)
+            lane = torch.arange(B * K, device=dev)
+            ci = (lane % K) * L + t
+            bits = w.view(torch.int16) if w.dtype == torch.uint16 else w
+            c64 = torch.where(ci < W, bits[lane // K, ci.clamp(max=W - 1)].to(torch.int64)
+                              & 0xFFFF, 0)
+
+            def library_chain():
+                mine = s64 < shard.shape[0]
+                return torch.where(mine, flat64[torch.where(mine, s64, 0) * shard.shape[1] + c64],
+                                   0)
+
+            step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs)
+            rec = {
+                "step": cuda_ms(step, 200), "card": cuda_ms(step, 200, queued=True),
+                "step_all_reduce": cuda_ms(lambda: (step(), reduce()), 200),
+                "floor": cuda_ms(one, 200, queued=True),
+                "loop": cuda_ms(lambda: ktp.group_scan(
+                    [(0, shard)], w, halo, sb, mode,
+                    lambda bufs: dist.all_reduce(bufs[0].view(torch.int32), group=world)), 3),
+                "mesh_scan": cuda_ms(lambda: ktp.table_sharded_scan(mesh_table, w, halo, sb, mode),
+                                     20),
+                "plain": cuda_ms(lambda: ktp.table_sharded_step_plain(
+                    shard, 0, words, w, t, halo, sb, mode, (K, L), out, total), 3),
+                "library": cuda_ms(library_chain, 20),
+                "lanes": B * K, "steps": halo + L, "window_bytes": w.element_size()}
+            print(f"time table_sharded_step, {label}, {mode} ({B} x {W} windows, K={K}, "
+                  f"{B * K} lanes, {halo + L} launches and all_reduces a call, NCCL world 1): "
+                  f"step through the wrapper {rec['step']} ms, card time {rec['card']} ms, step "
+                  f"+ all_reduce {rec['step_all_reduce']} ms, one-lane step (latency floor) "
+                  f"{rec['floor']} ms; the whole loop {rec['loop']} ms beside table_sharded_scan "
+                  f"({mesh_table.n_model} shards, the mesh form) {rec['mesh_scan']} ms; plain "
+                  f"twin {rec['plain']} ms, eager masked-index chain {rec['library']} ms [{smi}]")
+            return rec
+
+        print(f"group-form facades (NCCL world 1, with its set-up): "
+              f"{time.perf_counter() - group_t0} s")
+        A10 = table10k.shape[1]
+        w10 = scan_batched.classes_to_device(scan_batched.chunk_classes(cls, 512, pd.halo, A10),
+                                             A10, dev)
+        step_rec = {mode: step_times("10k keywords x 32 Mi units", table10k, w10, pd.halo,
+                                     pd.state_bits, mode, st10k) for mode in ("planes", "count")}
+        step_rec["1M"] = step_times("1M keywords x 32 Mi units (count-packed table)", table1m,
+                                    w1m, halo1m_host, sb1m_host, "count_packed", st1m)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(group_dir, ignore_errors=True)
+
+    # Two and four ranks on the one card (NCCL refuses two ranks on one GPU:
+    # gloo, which carries CUDA tensors for all_reduce and all_gather): the
+    # 1-axis group form at world 2 and the 2-axis (2, 2) form at world 4, on
+    # the kernel, == the mesh form.  The ranks load the table and classes
+    # from a file and build nothing: the library is the one built above.
+    def gloo_spawn():
+        import torch.multiprocessing as mp
+
+        spawn_dir = tempfile.mkdtemp(prefix="chip_smoke_gloo_")
+        try:
+            return spawn_in(spawn_dir, mp)
+        finally:
+            shutil.rmtree(spawn_dir, ignore_errors=True)
+
+    def spawn_in(spawn_dir, mp):
+        data = os.path.join(spawn_dir, "table.npz")
+        cls_g = cls[:BASE_UNITS]
+        np.savez(data, table=table10k, cls=cls_g, halo=pd.halo, state_bits=pd.state_bits)
+        out = []
+        for world_size, layout in ((2, [dev_index] * 2),
+                                   (4, sharding.dp_tp_mesh([dev_index] * 4, (2, 2)))):
+            want = {mode: sharding._table_sharded_run(table10k, cls_g, pd.halo, pd.state_bits,
+                                                      layout, 512, mode) for mode in ktp.MODES}
+            rank_dir = os.path.join(spawn_dir, f"world{world_size}")
+            os.makedirs(rank_dir)
+            t = time.perf_counter()
+            ctx = mp.spawn(gloo_rank, args=(world_size, os.path.join(rank_dir, "init"), data,
+                                            rank_dir), nprocs=world_size, join=False)
+            deadline = time.monotonic() + GLOO_JOIN_S
+            try:
+                while not ctx.join(timeout=5):
+                    if time.monotonic() > deadline:
+                        raise AssertionError(f"the {world_size} gloo ranks did not finish in "
+                                             f"{GLOO_JOIN_S} s")
+            finally:
+                for proc in ctx.processes:
+                    if proc.is_alive():
+                        proc.kill()
+                        proc.join(10)
+            seconds = time.perf_counter() - t
+            for r in range(world_size):
+                with np.load(os.path.join(rank_dir, f"rank{r}.npz")) as z:
+                    for mode, w in want.items():
+                        w = np.asarray([w]) if isinstance(w, int) else w.view(torch.int32).cpu(
+                            ).numpy()
+                        if not np.array_equal(z[mode], w):
+                            raise AssertionError(f"gloo world {world_size}, rank {r}, mode "
+                                                 f"{mode}: != the mesh form")
+                    steps, scans = z["launches"]
+                    if steps < len(ktp.MODES) or scans:
+                        raise AssertionError(f"gloo world {world_size}, rank {r}: launches "
+                                             f"table_sharded_step {steps}, table_sharded_scan "
+                                             f"{scans}")
+            out.append(f"world {world_size} ({'1-axis' if world_size == 2 else '(2, 2)'}): "
+                       f"every rank's five modes == the mesh form, {steps} step launches a rank, "
+                       f"{seconds} s with the spawn")
+        return "; ".join(out)
+
+    t = time.perf_counter()
+    print(f"gloo ranks on the card, 10k table over {BASE_UNITS} units: {gloo_spawn()} "
+          f"({time.perf_counter() - t} s) [{smi}]")
+    print(f"group-form phases (NCCL world 1: facades, step vs twin, step times; the gloo "
+          f"spawns): {time.perf_counter() - group_t0} s")
 
     def corpus_path():
         crng = np.random.default_rng(SEED + 11)
@@ -4425,7 +4901,9 @@ def main() -> int:
     print(f"ab entry_fold {json.dumps({'card': smi, **ab_fold})}")
     # The latency chains' floors (the timed call's shape), which the ranking
     # below takes where they lie above the bytes and operations bound.
-    latency_floor = {"entry_fold": ab_fold["fold_floor_ms"]["10k C=8"]["floor_ms"]}
+    latency_floor = {"entry_fold": ab_fold["fold_floor_ms"]["10k C=8"]["floor_ms"],
+                     # one lane's launch of the step kernel, card time
+                     "table_sharded_step": step_rec["planes"]["floor"]}
     for label, fl in ab_fold["fold_floor_ms"].items():
         t_fold = ab_fold["fold_ms"][label]
         print(f"latency floor entry_fold, {label}: a launch {fl['launch_ms']} ms + a sigma load "
@@ -4485,6 +4963,7 @@ def main() -> int:
     tp_plain = {mode: cuda_ms((lambda md: lambda: ktp.table_sharded_scan_plain(
         st10k, w_full, pd.halo, pd.state_bits, md))(mode), 1) for mode in ("count", "planes")}
     ms["table_sharded_scan"] = (tp_ms["planes"], tp_plain["planes"])
+    ms["table_sharded_step"] = (step_rec["planes"]["step"], step_rec["planes"]["plain"])
     print(f"time table_sharded_scan at {tuple(w_full.shape)} windows, 10k table "
           f"{tuple(table10k.shape)} in {N_SHARDS} shards of {st10k.rows_per} rows: "
           + ", ".join(f"{k} {v} ms ({gbps(v)} GB/s)" for k, v in tp_ms.items())
@@ -5166,6 +5645,12 @@ def main() -> int:
         # the planes mode: windows in, one word per body position out, and the
         # shard pointers; a division and a pointer load more than the packed scan
         "table_sharded_scan": (nbytes(w_full, planes_full) + 8 * N_SHARDS, 6 * chars10),
+        # one launch of the step loop, planes, at the 10k cell: a lane's word
+        # in, its class, its word out, one table word and one plane word out;
+        # a mask, a compare, an index and a shift or two a lane
+        "table_sharded_step": (step_rec["planes"]["lanes"]
+                               * (16 + step_rec["planes"]["window_bytes"]),
+                               8 * step_rec["planes"]["lanes"]),
         # windows in (a count out, or 4 B per body position), one lookup per
         # pair but the same shifts and popcounts per position
         "rowdfa2_count": (nbytes(w_row) + 8, 4 * w_row.numel()),
@@ -5214,6 +5699,7 @@ def main() -> int:
     library = dict.fromkeys(KERNELS)
     library.update(probe_library)
     library["compact_planes"] = cuda_ms(library_compact, 20)
+    library["table_sharded_step"] = step_rec["planes"]["library"]
     print(f"time library compact (torch.nonzero + gather, P = 1, {plane0.numel()} positions): "
           f"{library['compact_planes']} ms [{smi}]")
 

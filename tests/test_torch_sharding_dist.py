@@ -2,8 +2,11 @@
 (gloo, one rank per process, CPU tensors) vs their device-list form on the
 same inputs: counts, planes, whole-word-longest walks on both branches,
 arrival states (the stitch's forms for any table, and its synchronized
-forms with ``sync_depth``), the table-sharded scan (one rank per row shard, an
-``all_reduce`` per character) and the launch glue's per-process shards.  One
+forms with ``sync_depth``), the table-sharded scan (one rank per row shard,
+the step loop with an ``all_reduce`` per character; and the 2-axis
+``dp_tp_groups`` layout against ``dp_tp_mesh``), the data-parallel
+``ShardedScanner`` of every kind and its stream, and the launch glue's
+per-process shards.  One
 spawn per world size runs every case; each rank writes
 what it got to a file and the parent compares.  Everything compared is an
 integer, so every comparison is exact.
@@ -22,11 +25,15 @@ import torch
 import torch.distributed
 
 CPU = torch.device("cpu")
+MODES = ("count", "count_packed", "planes", "hotstate", "raw")
 CASES = ("count_packed", "count_packedcount", "count_reps", "planes_packed", "planes_hotstate",
          "wwl_scan", "wwl_mixed", "wwl_walk", "arrival", "arrival_empty", "arrival_sync",
          "tp_count", "tp_run_count_packed", "tp_run_planes", "tp_run_hotstate", "tp_run_raw",
          "tp_ac", "tp_ac_stream", "tp_hotstate", "tp_longest", "tp_shortest", "tp_wwl_mixed",
-         "launch_count")
+         *(f"tp_deep_{mode}" for mode in MODES),
+         "tp2_count", "tp2_run_planes", "tp2_ac", "tp2_longest", "tp2_wwl_mixed",
+         "dp_ac", "dp_ac_stream", "dp_ac_layout", "dp_longest", "dp_shortest", "dp_whole_word",
+         "dp_wwl", "launch_count")
 _INIT_TIMEOUT = datetime.timedelta(seconds=60)
 _JOIN_TIMEOUT = 150.0
 
@@ -130,6 +137,65 @@ def _run_cases(mesh=None, group=None):
                                       + " new york a b")
     assert ts._wwl.has_cross
 
+    # The step loop on the deep dictionary's count-packed table: a halo of
+    # 79 classes, one lane a window, every mode.
+    flat, dsb, dhalo = scan_batched.build_count_packed(deep.compiled)
+    dtab = flat.reshape(deep.compiled.num_states, deep.compiled.num_classes)
+    for mode in MODES:
+        got = sharding._table_sharded_run(dtab, deep._classes(deep_text[:2000]), dhalo, dsb,
+                                          form["mesh"], 128, mode, group=group, device="cpu")
+        out[f"tp_deep_{mode}"] = (np.asarray([got]) if isinstance(got, int)
+                                  else got.view(torch.int32).numpy())
+
+    # The 2-axis form at the default shape: (1, 2) at world 2, (2, 2) at 4.
+    # Every rank makes the same new_group calls in the same order.
+    layout = sharding.dp_tp_mesh(mesh) if group is None else sharding.dp_tp_groups(group=group)
+    two = dict(mesh=layout) if group is None else dict(group=layout, device="cpu")
+    out["tp2_count"] = np.asarray([
+        sharding.sharded_table_count(pd.table, cls, pd.halo, pd.state_bits, chunk=256, **two),
+        small.count(text)])
+    got = sharding._table_sharded_run(pd.table, cls[:1024], pd.halo, pd.state_bits,
+                                      two.get("mesh"), 256, "planes", group=two.get("group"),
+                                      device="cpu")
+    out["tp2_run_planes"] = got.view(torch.int32).numpy()
+
+    def triples2(m, t):  # 2,500 units: five windows, padded to the data axis
+        return np.stack(sharding.TableShardedScanner(m, two.get("mesh"), group=two.get("group"))
+                        .match_triples(t))
+
+    out["tp2_ac"] = triples2(small, text[:2500])
+    out["tp2_longest"] = triples2(port.LongestMatchSet(["ab", "abc", "bc", "c"], **kw),
+                                  _text(51, 2500, "abc"))
+    out["tp2_wwl_mixed"] = triples2(mixed, _text(58, 2400, ["new", "york", " ", "a", "b "]))
+
+    # The data-parallel facade: every kind and its stream.
+    def scanner(m, form=form):
+        return sharding.ShardedScanner(m, form["mesh"], group=form["group"])
+
+    def dp(m, t):
+        sc = scanner(m)
+        trip = np.stack(sc.match_triples(t))
+        assert sc.count(t) == trip.shape[1] > 0
+        return trip
+
+    out["dp_ac"] = dp(small, text[:3000])
+    st, parts = scanner(small).stream(), []
+    for a, b in ((0, 999), (999, 2100), (2100, 3000)):
+        parts.append(np.stack(st.feed(text[a:b], is_final=b == 3000)))
+    out["dp_ac_stream"] = np.concatenate(parts, axis=1)
+    assert np.array_equal(out["dp_ac_stream"][:2], out["dp_ac"][:2])
+    # A 2-axis layout is taken as its parent: every rank a data shard.
+    out["dp_ac_layout"] = np.stack(scanner(small, dict(mesh=mesh, group=None) if group is None
+                                           else dict(mesh=None, group=layout))
+                                   .match_triples(text[:3000]))
+    out["dp_longest"] = dp(port.LongestMatchSet(["ab", "abc", "bc", "c"], **kw),
+                           _text(52, 2500, "abc"))
+    out["dp_shortest"] = dp(port.ShortestMatchMap(["she", "he", "hers", "abab"], [1, 2, 3, 4],
+                                                  **kw), "ushers abababab heshe xx " * 13)
+    out["dp_whole_word"] = dp(port.WholeWordMatchSet(["ab", "a", "bab"], **kw),
+                              _text(53, 2500, "ab !"))
+    out["dp_wwl"] = dp(pure, _text(54, 2500, "ab !"))
+
     # The launch glue: every process hands in its own slice of the corpus.
     world = len(mesh) if group is None else torch.distributed.get_world_size(group)
     rank = 0 if group is None else torch.distributed.get_rank(group)
@@ -196,7 +262,7 @@ def test_group_form_equals_device_list_form(ranks_and_mesh, case):
     for got in ranks:  # every rank returns the full result
         assert got[case].dtype == want[case].dtype and got[case].shape == want[case].shape
         np.testing.assert_array_equal(got[case], want[case])
-    if case.startswith("count_p") or case == "tp_count":
+    if case.startswith("count_p") or case in ("tp_count", "tp2_count"):
         assert want[case][0] == want[case][1] > 0  # the single-device count
 
 

@@ -407,20 +407,25 @@ def test_table_sharded_constructor_refusals():
 
 @pytest.mark.parametrize("device", [None, "cuda", torch.device("cuda", 0)],
                          ids=["none", "cuda", "cuda0"])
-def test_group_form_refuses_a_cuda_device(device):
-    """The process-group form is the plain column loop: it raises for a CUDA
-    device (None means CUDA) before it touches the group, a backend or the
-    card, and never scans tensors on a card without the kernel."""
+def test_group_form_refuses_a_cuda_device(device, monkeypatch):
+    """On a machine without CUDA the process-group form refuses a CUDA device
+    (None means CUDA) with the port's "CUDA is not available" error, before
+    it touches the group (here an object that is none), a backend or the
+    card; it has a kernel, so it never raises ``NotImplementedError``."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     table = np.zeros((4, 3), dtype=np.uint32)
     cls = np.zeros(10, dtype=np.int32)
-    with pytest.raises(NotImplementedError, match="no kernel"):
-        port_sh.sharded_table_count(table, cls, 1, 4, group=object(), device=device)
-    with pytest.raises(NotImplementedError, match="no kernel"):
-        port_sh._table_sharded_build(table, 1, 4, None, "raw", group=object(), device=device)
+    calls = [lambda: port_sh.sharded_table_count(table, cls, 1, 4, group=object(), device=device),
+             lambda: port_sh._table_sharded_build(table, 1, 4, None, "raw", group=object(),
+                                                  device=device)]
     _, pm = _pair("AhoCorasickSet", ["ab"], engine="gold")
     pm.device = torch.device("cuda") if device is None else torch.device(device)
-    with pytest.raises(NotImplementedError, match="no kernel"):
-        port_sh.TableShardedScanner(pm, group=object())
+    calls += [lambda: port_sh.TableShardedScanner(pm, group=object()),
+              lambda: port_sh.ShardedScanner(pm, group=object())]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available") as info:
+            call()
+        assert not isinstance(info.value, NotImplementedError)
 
 
 def test_table_sharded_wwl_uploads_no_whole_table():
