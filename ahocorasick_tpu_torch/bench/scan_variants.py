@@ -117,6 +117,17 @@ one-hot product ``onehot_mma`` and the 2-D gather ``gather2d`` in every mode
 warp-row 2-D gather is called with its first design's arguments.  Prints one
 JSON line.
 
+    python -m ahocorasick_tpu_torch.bench.scan_variants --step [--against DIR]
+
+times the table-sharded scan's step loop under a process group
+(``csrc/table_sharded.cu`` ``table_sharded_step`` and its class-major prep
+``table_sharded_classes``) at the three main-path shapes (the 10k planes and
+count, the 1M count-packed count), one rank holding the whole table:
+``step_sweep``, K = 1 to 32 lanes a window, each K's step, captured NCCL
+all_reduce (world 1), prep, and whole loop replayed from its CUDA graph and
+run eagerly, every result held to ``table_sharded_scan``; with
+``--against``, ``step_against``, the loop against the other checkout's.
+
     python -m ahocorasick_tpu_torch.bench.scan_variants --probes [--against DIR]
 
 times the probes' arms: the lookup chain's in global memory (``chain_ab``:
@@ -1297,6 +1308,240 @@ def against(other_root: str, count_cell: tuple, hot_cell: tuple, split_cell: tup
     return record
 
 
+STEP_KS = (1, 2, 4, 8, 16, 32)  # the step loop's K sweep
+
+
+def step_cells(pd_table, w, halo, sb, table1m, w1m, halo1m, sb1m) -> dict:
+    """The step loop's three main-path shapes: ``{label: (shard, windows,
+    halo, state_bits, mode)}``, each table one shard (the whole table, as
+    one rank of a one-rank model axis would hold it) on the windows'
+    device: the 10k planes and count, the 1M count-packed count."""
+    from ahocorasick_tpu_torch.parallel import sharding
+
+    ten = sharding._shard_tensor(pd_table, w.device)
+    one_m = sharding._shard_tensor(table1m, w1m.device)
+    return {"10k planes": (ten, w, halo, sb, "planes"), "10k count": (ten, w, halo, sb, "count"),
+            "1M count_packed": (one_m, w1m, halo1m, sb1m, "count_packed")}
+
+
+def _forced_k(k: int):
+    """A context in which ``step_segments`` takes at most ``k`` lanes a
+    window in every mode, whatever the windows' number."""
+    import contextlib
+
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    @contextlib.contextmanager
+    def forced():
+        saved = ktp.STEP_MAX_K, ktp.STEP_MAX_LANES
+        ktp.STEP_MAX_K, ktp.STEP_MAX_LANES = dict.fromkeys(ktp.MODES, k), 1 << 40
+        try:
+            yield
+        finally:
+            ktp.STEP_MAX_K, ktp.STEP_MAX_LANES = saved
+
+    return forced()
+
+
+def _graph_ms(run, dev, reps: int = 5) -> float:
+    """The card's ms of one ``run`` captured as a CUDA graph (after one
+    eager run), best of 3 timings of ``reps`` replays."""
+    from ahocorasick_tpu_torch.bench import _seconds_per_rep
+
+    run()
+    torch.cuda.synchronize(dev)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        run()
+    return _seconds_per_rep(graph.replay, reps, dev) * 1e3
+
+
+def captured_all_reduce_ms(words: torch.Tensor, group, reps: int = 50) -> float:
+    """ms of one ``all_reduce(SUM)`` of ``words`` (viewed as int32) over
+    ``group``, captured: ``reps`` of them in one CUDA graph, replayed."""
+    import torch.distributed as dist
+
+    x = words.view(torch.int32)
+    return _graph_ms(lambda: [dist.all_reduce(x, group=group) for _ in range(reps)],
+                     words.device, 3) / reps
+
+
+def step_sweep(cells: dict, group, ks=STEP_KS) -> dict:
+    """The step loop of ``step_cells`` at K = ``ks`` lanes a window (at most:
+    ``step_segments`` with ``STEP_MAX_K`` forced), one rank holding the
+    whole table, its reduction an NCCL ``all_reduce`` over ``group`` (a
+    process group of one rank on this card): per cell and K the steps and
+    lanes, the step's card time (``t = halo + 1``, queued), the captured
+    all_reduce of the lanes' words, the model ``steps x (step +
+    all_reduce)``, the prep's card time, the whole loop as ``group_scan``
+    replays it from its CUDA graph (through the call, and the bare replay)
+    and eagerly, and the results' and the prep's max_abs_err against
+    ``table_sharded_scan`` and the prep's twin (all 0 or it raises)."""
+    import torch.distributed as dist
+
+    from ahocorasick_tpu_torch.bench import _seconds_per_rep
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    def reduce(bufs):
+        dist.all_reduce(bufs[0].view(torch.int32), group=group)
+
+    def widen(x):
+        return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF if x.dim() else x.reshape(1)
+
+    record = {}
+    for label, (shard, w, halo, sb, mode) in cells.items():
+        dev = w.device
+        B, W = w.shape
+        C = W - halo
+        mesh = widen(ktp.table_sharded_scan(ktp.ShardedTable([shard]), w, halo, sb, mode))
+        counting = mode in ("count", "count_packed")
+        rows = {}
+        for k in ks:
+            with _forced_k(k):
+                K, L = ktp.step_segments(B, C, halo, mode)
+                classes = ktp.step_classes(w, halo, (K, L))
+                err = int((classes.view(ktp._signed(w.dtype)).to(torch.int64)
+                           - ktp.step_classes_plain(w, halo, (K, L))
+                           .view(ktp._signed(w.dtype)).to(torch.int64)).abs().max())
+                words = torch.zeros(B * K, dtype=torch.uint32, device=dev)
+                out = (torch.zeros(B * K, dtype=torch.int64, device=dev) if counting
+                       else torch.empty((1, B * C), dtype=torch.uint32, device=dev))
+                total = torch.zeros(1, dtype=torch.int64, device=dev) if counting else None
+
+                def step(t=halo + 1):
+                    ktp.table_sharded_step(shard, 0, words, classes, t, halo, sb, mode, (K, L), C,
+                                           out, total)
+
+                step_ms = _card_ms(step, 50, dev)
+                ar_ms = captured_all_reduce_ms(words, group)
+                prep_ms = _card_ms(lambda: ktp.step_classes(w, halo, (K, L), classes), 20, dev)
+                del words, out, total, classes
+                graphs = ktp.StepGraphs()
+
+                def loop():
+                    return ktp.group_scan([(0, shard)], w, halo, sb, mode, reduce, graphs)
+
+                results = [loop()[0], loop()[0]]  # eager and captured, then a replay
+                results.append(ktp.group_scan([(0, shard)], w, halo, sb, mode, reduce)[0])
+                for got in results:
+                    err = max(err, int((widen(got) - mesh).abs().max()))
+                if err:
+                    raise AssertionError(f"step sweep {label}, K={K}: the loop or the prep "
+                                         f"differs from table_sharded_scan or the twin ({err})")
+                graph_ms = _seconds_per_rep(loop, 5, dev) * 1e3
+                (graph, *_), = graphs._graphs.values()
+                replay_ms = _seconds_per_rep(graph.replay, 5, dev) * 1e3
+                eager_ms = _seconds_per_rep(
+                    lambda: ktp.group_scan([(0, shard)], w, halo, sb, mode, reduce), 2, dev) * 1e3
+                del graphs, graph, results
+                rows[f"K={K}"] = {
+                    "K": K, "L": L, "steps": halo + L, "lanes": B * K, "step_ms": step_ms,
+                    "all_reduce_ms": ar_ms, "model_ms": (halo + L) * (step_ms + ar_ms),
+                    "prep_ms": prep_ms, "graph_ms": graph_ms, "replay_ms": replay_ms,
+                    "eager_ms": eager_ms, "max_abs_err": err}
+        record[label] = rows
+    return {"step_sweep": record}
+
+
+def _other_step(lib, shard, w, halo, sb, mode, segments, bufs):
+    """The parent's step loop (``table_sharded_step`` reading the windows,
+    its lanes ``lane_segments``'), one rank, no reduction."""
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    B, W = w.shape
+    K, L = segments
+    words, out, total = bufs
+
+    def run():
+        stream = torch.cuda.current_stream(w.device).cuda_stream  # the capture's, in a capture
+        words.view(torch.int32).zero_()
+        if total is not None:
+            out.zero_()
+            total.zero_()
+        for t in range(halo + L + 1):
+            rc = lib.table_sharded_step(shard.data_ptr(), shard.shape[0], shard.shape[1], 0,
+                                        w.data_ptr(), ktp._WINDOW_BYTES[w.dtype], B, W, halo, sb,
+                                        ktp.MODES.index(mode), K, L, t, words.data_ptr(),
+                                        out.data_ptr(), 0 if total is None else total.data_ptr(),
+                                        w.device.index or 0, stream)
+            if rc != 0:
+                raise RuntimeError(f"the parent's table_sharded_step failed: CUDA error {rc}")
+    return run
+
+
+def step_against(other_root: str, cells: dict) -> dict:
+    """The step loop of this checkout (the class-major prep, then the steps
+    at ``step_segments``' lanes) against ``other_root``'s (its
+    ``table_sharded_step`` reading the windows at ``lane_segments``' lanes),
+    one rank, no reduction, on ``step_cells``: the results equal bit for
+    bit, then each loop's card time captured as a CUDA graph, other, this,
+    this, other; and one step's card time each (``t = halo + 1``, queued),
+    this design also at the parent's K."""
+    from ahocorasick_tpu_torch.kernels import table_sharded as ktp
+
+    lib = _other_library(other_root, ("table_sharded_step",))
+    record = {}
+    for label, (shard, w, halo, sb, mode) in cells.items():
+        dev = w.device
+        B, W = w.shape
+        C = W - halo
+        counting = mode in ("count", "count_packed")
+        segs = {"other": ktp.lane_segments(B, C, halo, mode),
+                "this": ktp.step_segments(B, C, halo, mode)}
+
+        def bufs(K):
+            return (torch.zeros(B * K, dtype=torch.uint32, device=dev),
+                    torch.zeros(B * K, dtype=torch.int64, device=dev) if counting
+                    else torch.empty((1, B * C), dtype=torch.uint32, device=dev),
+                    torch.zeros(1, dtype=torch.int64, device=dev) if counting else None)
+
+        runs, outs = {}, {}
+        for tree in ("other", "this"):
+            K, L = segs[tree]
+            b = bufs(K)
+            outs[tree] = b
+            if tree == "other":
+                runs[tree] = _other_step(lib, shard, w, halo, sb, mode, (K, L), b)
+            else:
+                classes, loop_bufs = ktp._loop_buffers([(0, shard)], w, halo, sb, mode, (K, L))
+                outs[tree] = loop_bufs[0][2:]
+                runs[tree] = (lambda c=classes, lb=loop_bufs, s=(K, L):
+                              ktp._loop(lb, w, c, halo, sb, mode, s, lambda words: None))
+            runs[tree]()
+        got = [o[2] if counting else o[1].view(torch.int32) for o in (outs["other"],
+                                                                      outs["this"])]
+        if not torch.equal(*got):
+            raise AssertionError(f"step against {label}: the two checkouts' loops differ")
+        ms = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            ms[tree].append(_graph_ms(runs[tree], dev, 3))
+        step_ms = {}
+        for name, (K, L) in (("other", segs["other"]), ("this", segs["this"]),
+                             ("this at the other's K", segs["other"])):
+            words, out, total = bufs(K)
+            if name == "other":
+                def step(words=words, out=out, total=total, K=K, L=L):
+                    stream = torch.cuda.current_stream(dev).cuda_stream
+                    lib.table_sharded_step(shard.data_ptr(), shard.shape[0], shard.shape[1], 0,
+                                           w.data_ptr(), ktp._WINDOW_BYTES[w.dtype], B, W, halo,
+                                           sb, ktp.MODES.index(mode), K, L, halo + 1,
+                                           words.data_ptr(), out.data_ptr(),
+                                           0 if total is None else total.data_ptr(),
+                                           dev.index or 0, stream)
+            else:
+                classes = ktp.step_classes(w, halo, (K, L))
+
+                def step(words=words, out=out, total=total, K=K, L=L, classes=classes):
+                    ktp.table_sharded_step(shard, 0, words, classes, halo + 1, halo, sb, mode,
+                                           (K, L), C, out, total)
+            step_ms[name] = {"K": K, "L": L, "step_ms": _card_ms(step, 50, dev)}
+        record[label] = {"other_K": segs["other"][0], "this_K": segs["this"][0],
+                         "other_ms": ms["other"], "this_ms": ms["this"],
+                         "this_over_other": min(ms["this"]) / min(ms["other"]),
+                         "steps": step_ms}
+    return {"step_against": record}
+
+
 CARD_THREADS = 132 * 2048  # threads the H100 holds at once
 LATENCY_CHAINS = 32  # chains of the step-latency runs: one warp's worth
 
@@ -1803,6 +2048,10 @@ def main(argv=None) -> None:
                         help="only the probes' lookup chain arms (chain_ab); with --against, "
                              "only the probes' chain_gather, onehot_mma and gather2d against "
                              "the other checkout's (against_probes)")
+    parser.add_argument("--step", action="store_true",
+                        help="only the group form's step loop: its K sweep (step_sweep) under "
+                             "an NCCL process group of one rank; with --against, also the "
+                             "loop against the other checkout's (step_against)")
     parser.add_argument("--wwl", action="store_true",
                         help="only the whole-word-longest walks' A/Bs (wwl_fused_ab, "
                              "wwl_walk_ab) at baseline-4 and the 10k cell")
@@ -1812,7 +2061,7 @@ def main(argv=None) -> None:
     dev = torch.device("cuda")
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True, timeout=60).stdout.strip()
-    lib = None if opts.against else library()
+    lib = None if opts.against or opts.step else library()
     if opts.probes:
         record = (against_probes(opts.against, dev) if opts.against else
                   chain_ab(chain_cell(dev), lib))
@@ -1832,6 +2081,10 @@ def main(argv=None) -> None:
     base = make_text_classes(m, keywords, rng, BASE_UNITS)
     if opts.pfac:
         print(json.dumps({"card": smi, **pfac_ab(ten_k_pfac_cell(m, base, dev)[0], lib)}))
+        return
+    if opts.step:
+        print(json.dumps({"card": smi, "against": opts.against,
+                          **step_main(m, base, opts.against, dev)}))
         return
     w = scan_batched.classes_to_device(
         scan_batched.chunk_classes(np.tile(base, TEXT_UNITS // BASE_UNITS), CHUNK, pd.halo,
@@ -1892,6 +2145,49 @@ def main(argv=None) -> None:
     record.update(pfac_ab(ten_k_pfac_cell(m, base, dev)[0], lib))
     record.update(wwl_ab(dev, lib))
     print(json.dumps({"card": smi, **record}))
+
+
+def step_main(m, base, other_root, dev) -> dict:
+    """``--step``: ``step_cells`` on the 10k matcher ``m`` (``base`` tiled to
+    32 Mi units) and the 1M dictionary over BASELINE config #5's word soup,
+    then ``step_sweep`` under an NCCL process group of one rank made here,
+    and ``step_against`` where ``other_root`` is given."""
+    import shutil
+    import tempfile
+
+    import torch.distributed as dist
+
+    from ahocorasick_tpu_torch.bench.__main__ import word_soup
+    from ahocorasick_tpu_torch.bench.headline import BASE_UNITS, CHUNK, SEED, TEXT_UNITS
+    from ahocorasick_tpu_torch.models.matchers import AhoCorasickSet
+    from ahocorasick_tpu_torch.ops import scan_batched
+
+    A = m.compiled.num_classes
+    pd = scan_batched.build_packed(m.compiled)
+    w = scan_batched.classes_to_device(
+        scan_batched.chunk_classes(np.tile(base, TEXT_UNITS // BASE_UNITS), CHUNK, pd.halo, A),
+        A, dev)
+    kws1m, _, _ = one_m_keywords()
+    m1 = AhoCorasickSet(kws1m, engine="device", device=dev)
+    flat, sb1, halo1 = scan_batched.build_count_packed(m1.compiled)
+    A1 = m1.compiled.num_classes
+    cls1 = np.tile(m1._classes(word_soup(np.random.default_rng(SEED + 6), kws1m, BASE_UNITS)),
+                   TEXT_UNITS // BASE_UNITS)
+    w1 = scan_batched.classes_to_device(scan_batched.chunk_classes(cls1, CHUNK, halo1, A1), A1,
+                                        dev)
+    cells = step_cells(pd.table, w, pd.halo, pd.state_bits,
+                       flat.reshape(m1.compiled.num_states, A1), w1, halo1, sb1)
+    torch.cuda.set_device(dev if dev.index is not None else 0)
+    store = tempfile.mkdtemp(prefix="scan_variants_nccl_")
+    dist.init_process_group("nccl", init_method=f"file://{store}/store", rank=0, world_size=1)
+    try:
+        record = step_sweep(cells, dist.group.WORLD)
+    finally:
+        dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    if other_root:
+        record.update(step_against(other_root, cells))
+    return record
 
 
 def wwl_ab(dev, lib) -> dict:

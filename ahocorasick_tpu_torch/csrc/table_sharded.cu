@@ -90,26 +90,50 @@
 // psum (sharding.py:377-387), one launch per character, with the psum an
 // all_reduce(SUM) of the lanes' words between launches, issued by the caller
 // through torch.distributed (NCCL on cards, gloo on CPU ranks; a collective
-// stays outside the kernel).  The lanes are the ones above (K per window,
-// each warmed over the halo), so a call takes halo + L steps, not W.  Launch
-// t, on lane g with v = words[g] (the sum the last all_reduce left there):
+// stays outside the kernel).  A call takes halo + L launches and as many
+// all_reduces, plus one launch that folds the last position, and each of
+// them costs a nearly fixed time (a launch; a collective), so the loop's
+// cost is its number of steps.  Its lanes are therefore its own
+// (kernels/table_sharded.py step_segments, valid_step_segments here): K up
+// to kMaxStepSegments lanes a window, L = ceil(C / K) with (K - 1) * L < C,
+// each lane warmed over the halo as in the single launch, which is exact at
+// any K because the automaton is halo-synchronizing.  The single-launch
+// scan's split (K <= 4 under its lane caps) suits one long launch whose
+// lanes are L2 chains, and would cost the loop 524 steps at the 10k cell.
+// Launch t, on lane g with v = words[g] (the sum the last all_reduce left
+// there):
 //   * if position p = t - 1 is a body position of the lane (p >= halo, p -
 //     halo < the lane's length), v is that position's word: its payload is
 //     folded as in the modes above, the counts into the lane's own 64-bit
 //     accumulator acc[g] (no atomic per step), the planes stored at the
 //     position (a ragged last segment stores nothing past the body);
-//   * if t < halo + L: s = v & smask, c = the lane's class t (0 past the
-//     window's row), and words[g] = shard[(s - lo) * A + c] where this rank's
-//     rows [lo, lo + rows_per) hold s, else 0.  Exactly one rank owns a state
-//     below n_model * rows_per, so the sum is that rank's word; a state past
-//     the last shard reads 0 on every rank, as in the JAX body.
+//   * if t < halo + L: s = v & smask, c = the lane's class t, and words[g] =
+//     shard[(s - lo) * A + c] where this rank's rows [lo, lo + rows_per)
+//     hold s, else 0.  Exactly one rank owns a state below n_model *
+//     rows_per, so the sum is that rank's word; a state past the last shard
+//     reads 0 on every rank, as in the JAX body.
 // Launch t = halo + L folds the last position and, for the counts, adds the
-// lanes' accumulators into one uint64 (one atomic a block).  Each launch is a
-// lane's word in, its class, a word out and one table load: 13 bytes a lane
-// with uint8 windows (1.7 MB a step at the main path's 131,072 count lanes,
-// 0.5 us at 3.35 TB/s), so a step is bound by a launch's latency rather than
-// by its bytes.  Its times on the card: chip_smoke.py's "time
-// table_sharded_step" line and PERF.md.
+// lanes' accumulators into one uint64 (one atomic a block).
+//
+// The classes.  With wide lane splits the step's class loads become its main
+// traffic if each lane reads its window's row: lanes L apart in a row make a
+// warp's class load 32 separate sectors.  One prep launch a call
+// (classes_kernel, table_sharded_classes) lays them out class-major,
+// classes[t][g] = the class of lane g at step t (0 past its window's row),
+// uint8, uint16 or int32 as the windows, so step t reads one contiguous row:
+// a coalesced load of one class a lane.  The prep is a thread a lane, its
+// reads along its own segment of the row (the sectors stay in L1 for the
+// lane's next classes), its writes a row at a time, coalesced.  A step is
+// then a lane's word in, its class, a word out and one table load: 9 bytes a
+// lane with uint8 classes, 9.4 MB a step at the 10k cell's 1 Mi count lanes
+// (2.8 us at 3.35 TB/s), and one random L2 load a lane, which the card
+// serves at about 136 G requests a second (PERF.md, the probes' lookup
+// chain); at few lanes a launch's latency bounds it.  The planes modes also
+// store a word a lane at the lane's own position, L words from the next
+// lane's, and at 0.5-2 Mi lanes those scattered stores set the step (on an
+// H100 80GB HBM3 at 700 W, 0.061 ms at 2 Mi lanes against the count's 0.011
+// ms).  Its times on the card: chip_smoke.py's "step K sweep" and "time
+// table_sharded_step" lines and PERF.md.
 
 #include <cstdint>
 
@@ -279,47 +303,89 @@ cudaError_t map_peers(const int* owners, int n_model, int device) {
   return cudaSuccess;
 }
 
-// Launch t of the step loop (the note at the top): lane g of num_windows *
-// segments lanes folds the word v = words[g] of its position t - 1 and, for t
-// < halo + seg_len, writes the word of its step t from this rank's rows.
+// The step loop's lane split (the note at the top): 1 lane of the whole body,
+// or, when halo >= 1, K in 2..kMaxStepSegments lanes of L = ceil(body / K)
+// with (K - 1) * L < body.
+constexpr int kMaxStepSegments = 32;
+
+bool valid_step_segments(int segments, int seg_len, int body, int halo) {
+  if (segments == 1) return seg_len == body;
+  return segments >= 2 && segments <= kMaxStepSegments && halo >= 1 && body >= 1 &&
+         seg_len == (body + segments - 1) / segments &&
+         static_cast<int64_t>(segments - 1) * seg_len < body;
+}
+
+// The device of a launch: cudaSetDevice only where it differs from the
+// current one, so that a launch captured into a CUDA graph makes no call
+// beyond cudaGetDevice, the launch and cudaGetLastError.
+cudaError_t use_device(int device) {
+  int current = -1;
+  cudaError_t err = cudaGetDevice(&current);
+  if (err != cudaSuccess) return err;
+  return current == device ? cudaSuccess : cudaSetDevice(device);
+}
+
+// The class-major classes of the step loop: thread g (lane g of num_windows *
+// segments lanes) writes out[t * lanes + g] = its class t, 0 past its
+// window's row, for t in [0, halo + seg_len).
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+    classes_kernel(const T* __restrict__ windows, uint32_t lanes, int width, int halo,
+                   int segments, int seg_len, T* __restrict__ out) {
+  const uint32_t g = blockIdx.x * kThreads + threadIdx.x;
+  if (g >= lanes) return;
+  const uint32_t b = g / static_cast<uint32_t>(segments);
+  const int start = static_cast<int>(g - b * static_cast<uint32_t>(segments)) * seg_len;
+  const T* row = windows + static_cast<int64_t>(b) * width + start;
+  const int n = min(halo + seg_len, width - start);  // the classes inside the row
+  const int steps = halo + seg_len;
+  T* col = out + g;
+  for (int t = 0; t < steps; ++t, col += lanes) *col = t < n ? __ldg(row + t) : T(0);
+}
+
+// Launch t of the step loop (the note at the top): lane g of `lanes` =
+// num_windows * segments lanes folds the word v = words[g] of its position t
+// - 1 and, for t < halo + seg_len, writes the word of its step t from this
+// rank's rows, its class read from row t of the class-major `classes`.
 // `out` is the lanes' accumulators uint64[lanes] for the counts, else the
-// plane uint32[num_windows * (width - halo)]; `total` one uint64 the last
-// launch adds the counts to.
+// plane uint32[num_windows * body]; `total` one uint64 the last launch adds
+// the counts to.
 template <typename T, int MODE>
 __global__ void __launch_bounds__(kThreads)
     step_kernel(const uint32_t* __restrict__ shard, uint32_t lo, uint32_t rows_per,
-                uint32_t stride, const T* __restrict__ windows, int64_t num_windows, int width,
+                uint32_t stride, const T* __restrict__ classes, uint32_t lanes, int body,
                 int halo, int state_bits, int segments, int seg_len, int t,
                 uint32_t* __restrict__ words, void* __restrict__ out,
                 unsigned long long* __restrict__ total) {
   constexpr bool kCounting = MODE == kCount || MODE == kCountPacked;
-  const int64_t g = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
+  const uint32_t g = blockIdx.x * kThreads + threadIdx.x;
   const int steps = halo + seg_len;
   unsigned long long sum = 0ull;
-  if (g < num_windows * segments) {
-    const tile::Segment seg = tile::segment_of(g, num_windows, width, halo, segments, seg_len);
+  if (g < lanes) {
     const uint32_t v = words[g];
     const int j = t - 1 - halo;  // the body position of v in the lane's segment
     if (j >= 0) {
+      const uint32_t b = g / static_cast<uint32_t>(segments);
+      const int start = static_cast<int>(g - b * static_cast<uint32_t>(segments)) * seg_len;
+      const int len = min(seg_len, body - start);
       const uint32_t hi = v >> state_bits;
       if constexpr (kCounting) {
         auto* acc = static_cast<unsigned long long*>(out);
-        const uint32_t d = j < seg.len ? (MODE == kCount ? __popc(hi) : hi) : 0u;
+        const uint32_t d = j < len ? (MODE == kCount ? __popc(hi) : hi) : 0u;
         unsigned long long a = t == steps ? acc[g] : 0ull;
         if (d != 0u) {
           a = acc[g] + d;
           acc[g] = a;
         }
         sum = a;
-      } else if (j < seg.len) {
+      } else if (j < len) {
         const uint32_t value = MODE == kPlanes ? hi : MODE == kHotstate ? (hi != 0u ? v : 0u) : v;
-        static_cast<uint32_t*>(out)[seg.b * (width - halo) + seg.start + j] = value;
+        static_cast<uint32_t*>(out)[static_cast<int64_t>(b) * body + start + j] = value;
       }
     }
     if (t < steps) {
       const uint32_t s = v & ((1u << state_bits) - 1u);
-      const int ci = seg.start + t;
-      const uint32_t c = ci < width ? static_cast<uint32_t>(windows[seg.b * width + ci]) : 0u;
+      const auto c = static_cast<uint32_t>(classes[static_cast<int64_t>(t) * lanes + g]);
       const uint32_t rel = s - lo;  // wraps past rows_per where s < lo
       words[g] = rel < rows_per ? __ldg(shard + (static_cast<uint64_t>(rel) * stride + c)) : 0u;
     }
@@ -331,12 +397,12 @@ __global__ void __launch_bounds__(kThreads)
 
 template <typename T>
 int launch_step(const uint32_t* shard, uint32_t lo, uint32_t rows_per, uint32_t stride,
-                const void* windows, int64_t num_windows, int width, int halo, int state_bits,
+                const void* classes, uint32_t lanes, int body, int halo, int state_bits,
                 int mode, int segments, int seg_len, int t, uint32_t* words, void* out,
                 unsigned long long* total, cudaStream_t st) {
-  const auto* win = static_cast<const T*>(windows);
-  const auto grid = static_cast<unsigned>((num_windows * segments + kThreads - 1) / kThreads);
-  void (*kernel)(const uint32_t*, uint32_t, uint32_t, uint32_t, const T*, int64_t, int, int, int,
+  const auto* cls = static_cast<const T*>(classes);
+  const auto grid = (lanes + kThreads - 1) / kThreads;
+  void (*kernel)(const uint32_t*, uint32_t, uint32_t, uint32_t, const T*, uint32_t, int, int, int,
                  int, int, int, uint32_t*, void*, unsigned long long*);
   switch (mode) {
     case kCount: kernel = step_kernel<T, kCount>; break;
@@ -346,9 +412,15 @@ int launch_step(const uint32_t* shard, uint32_t lo, uint32_t rows_per, uint32_t 
     case kRaw: kernel = step_kernel<T, kRaw>; break;
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
-  kernel<<<grid, kThreads, 0, st>>>(shard, lo, rows_per, stride, win, num_windows, width, halo,
+  kernel<<<grid, kThreads, 0, st>>>(shard, lo, rows_per, stride, cls, lanes, body, halo,
                                     state_bits, segments, seg_len, t, words, out, total);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The lanes of the step loop fit 32-bit indices (words and classes hold
+// lanes entries each).
+bool valid_lanes(int64_t num_windows, int segments) {
+  return num_windows >= 1 && num_windows * segments <= 0x7fffffffLL;
 }
 
 }  // namespace
@@ -399,23 +471,63 @@ extern "C" int table_sharded_scan(const void* shards, const int* owners, int n_m
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// The class-major classes of the step loop (classes_kernel); returns
+// cudaGetLastError() after the launch, or the error that kept it from
+// launching.  `windows` uint8, uint16 or int32[num_windows, width]
+// (window_bytes); `out` the same type [halo + seg_len, num_windows *
+// segments]; (segments, seg_len) as valid_step_segments.
+extern "C" int table_sharded_classes(const void* windows, int window_bytes, int64_t num_windows,
+                                     int width, int halo, int segments, int seg_len, void* out,
+                                     int device, void* stream) {
+  cudaError_t err = use_device(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (!valid_lanes(num_windows, segments) || halo < 0 || halo >= width ||
+      !valid_step_segments(segments, seg_len, width - halo, halo)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto lanes = static_cast<uint32_t>(num_windows * segments);
+  const auto grid = (lanes + kThreads - 1) / kThreads;
+  auto st = static_cast<cudaStream_t>(stream);
+  if (window_bytes == 1) {
+    classes_kernel<uint8_t><<<grid, kThreads, 0, st>>>(
+        static_cast<const uint8_t*>(windows), lanes, width, halo, segments, seg_len,
+        static_cast<uint8_t*>(out));
+  } else if (window_bytes == 2) {
+    classes_kernel<uint16_t><<<grid, kThreads, 0, st>>>(
+        static_cast<const uint16_t*>(windows), lanes, width, halo, segments, seg_len,
+        static_cast<uint16_t*>(out));
+  } else if (window_bytes == 4) {
+    classes_kernel<int32_t><<<grid, kThreads, 0, st>>>(
+        static_cast<const int32_t*>(windows), lanes, width, halo, segments, seg_len,
+        static_cast<int32_t*>(out));
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 // Launch t of the step loop of one rank (step_kernel); returns
 // cudaGetLastError() after the launch, or the error that kept it from
 // launching.  `shard` is this rank's uint32[rows_per * stride] rows, states
-// [lo, lo + rows_per); `words` uint32[num_windows * segments], zero before
-// launch 0; `out` and `total` as step_kernel's (total may be null outside
-// the counts).  0 <= t <= halo + seg_len.
+// [lo, lo + rows_per); `classes` the class-major classes of windows of
+// `width` (table_sharded_classes; window_bytes their type); `words`
+// uint32[num_windows * segments], zero before launch 0; `out` and `total`
+// as step_kernel's (total may be null outside the counts).  0 <= t <= halo
+// + seg_len.  Nothing here but the launch and cudaGetDevice, cudaGetLastError
+// (and cudaSetDevice where the device differs), so a stream capture may hold
+// the launches.
 extern "C" int table_sharded_step(const void* shard, int64_t rows_per, int stride, int64_t lo,
-                                  const void* windows, int window_bytes, int64_t num_windows,
+                                  const void* classes, int window_bytes, int64_t num_windows,
                                   int width, int halo, int state_bits, int mode, int segments,
                                   int seg_len, int t, void* words, void* out, void* total,
                                   int device, void* stream) {
-  cudaError_t err = cudaSetDevice(device);
+  cudaError_t err = use_device(device);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (rows_per < 1 || rows_per > 0xffffffffLL || lo < 0 || lo > 0xffffffffLL || stride < 1 ||
-      num_windows < 1 || state_bits < 1 || state_bits > 31 || t < 0 || t > halo + seg_len ||
+      !valid_lanes(num_windows, segments) || halo < 0 || halo >= width || state_bits < 1 ||
+      state_bits > 31 || t < 0 || t > halo + seg_len ||
       ((mode == kCount || mode == kCountPacked) && total == nullptr) ||
-      !tile::valid_segments(segments, seg_len, width - halo, halo)) {
+      !valid_step_segments(segments, seg_len, width - halo, halo)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* rows = static_cast<const uint32_t*>(shard);
@@ -424,17 +536,19 @@ extern "C" int table_sharded_step(const void* shard, int64_t rows_per, int strid
   auto st = static_cast<cudaStream_t>(stream);
   const auto lo32 = static_cast<uint32_t>(lo), rp = static_cast<uint32_t>(rows_per);
   const auto a = static_cast<uint32_t>(stride);
+  const auto lanes = static_cast<uint32_t>(num_windows * segments);
+  const int body = width - halo;
   if (window_bytes == 1) {
-    return launch_step<uint8_t>(rows, lo32, rp, a, windows, num_windows, width, halo, state_bits,
-                                mode, segments, seg_len, t, w, out, sum, st);
+    return launch_step<uint8_t>(rows, lo32, rp, a, classes, lanes, body, halo, state_bits, mode,
+                                segments, seg_len, t, w, out, sum, st);
   }
   if (window_bytes == 2) {
-    return launch_step<uint16_t>(rows, lo32, rp, a, windows, num_windows, width, halo,
-                                 state_bits, mode, segments, seg_len, t, w, out, sum, st);
+    return launch_step<uint16_t>(rows, lo32, rp, a, classes, lanes, body, halo, state_bits, mode,
+                                 segments, seg_len, t, w, out, sum, st);
   }
   if (window_bytes == 4) {
-    return launch_step<int32_t>(rows, lo32, rp, a, windows, num_windows, width, halo, state_bits,
-                                mode, segments, seg_len, t, w, out, sum, st);
+    return launch_step<int32_t>(rows, lo32, rp, a, classes, lanes, body, halo, state_bits, mode,
+                                segments, seg_len, t, w, out, sum, st);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }

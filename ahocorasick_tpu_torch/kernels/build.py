@@ -72,6 +72,7 @@ launches = {
     "rescan_serial": 0,
     "table_sharded_scan": 0,
     "table_sharded_step": 0,
+    "table_sharded_classes": 0,
     "rowdfa2_count": 0,
     "rowdfa2_planes": 0,
     "chain_gather": 0,
@@ -166,11 +167,14 @@ ARGTYPES = {
     #  state_bits, mode, segments, seg_len, out, device, stream)
     "table_sharded_scan": [_P, _P, _I, _I64, _I, _I64, _I64, _I, _P, _I, _I64, _I, _I, _I, _I,
                            _I, _I, _P, _I, _P],
-    # (shard, rows_per, stride, lo, windows, window_bytes, num_windows, width,
-    #  halo, state_bits, mode, segments, seg_len, t, words, out, total or null,
-    #  device, stream)
+    # (shard, rows_per, stride, lo, classes (class-major), window_bytes,
+    #  num_windows, width, halo, state_bits, mode, segments, seg_len, t, words,
+    #  out, total or null, device, stream)
     "table_sharded_step": [_P, _I64, _I, _I64, _P, _I, _I64, _I, _I, _I, _I, _I, _I, _I, _P, _P,
                            _P, _I, _P],
+    # (windows, window_bytes, num_windows, width, halo, segments, seg_len,
+    #  out, device, stream)
+    "table_sharded_classes": [_P, _I, _I64, _I, _I, _I, _I, _P, _I, _P],
     # (tab, T, idx, n, reps, op, placement, mod, sum_out, out, device, stream)
     "chain_gather": [_P, _I64, _P, _I64, _I, _I, _I, _I64, _I, _P, _I, _P],
     # (tab, rows, width, s0, n, reps, reduce, mod, group, out, device, stream)

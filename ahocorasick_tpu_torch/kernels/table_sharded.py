@@ -43,8 +43,15 @@ runs as written: ``group_scan`` drives one launch of ``table_sharded_step``
 (the same source) per character on this rank's own shard, and between
 launches the caller's reduction, an ``all_reduce(SUM)`` of the lanes' words
 over the model ranks, gives every rank the word of the one rank that owns
-the state.  The same lanes as above (``lane_segments``), so a call takes
-``halo + L`` steps, and one more launch folds the last position.
+the state.  A step costs a launch and a collective, both nearly fixed, so
+the loop has lanes of its own, wider than the single launch's
+(``step_segments``: up to ``STEP_MAX_K[mode]`` a window), and a call takes ``halo
++ L`` steps, and one more launch folds the last position.  One prep launch a
+call, ``step_classes`` (``table_sharded_classes``), lays the lanes' classes
+out class-major, ``[halo + L, B * K]``, so that a step reads one contiguous
+row.  Where the caller hands ``group_scan`` a ``StepGraphs`` (an NCCL model
+axis of more than one rank), the loop is captured as a CUDA graph on a
+shape's second call and replayed from then on.
 
 The wrappers run the plain twins for tensors on the CPU, and launch the
 kernels for tensors on a CUDA device: there is no fallback from one to the
@@ -53,6 +60,7 @@ other.  ``launches`` (``kernels/build.py``) counts kernel launches only.
 
 from __future__ import annotations
 
+import collections
 import ctypes
 from typing import Callable, Optional, Sequence
 
@@ -285,17 +293,132 @@ def table_sharded_scan_plain(table: ShardedTable, windows: torch.Tensor, halo: i
 
 
 # ------------------------------------------------- the step loop of one rank
+#
+# Its lanes: K lanes a window of L = ceil(C / K) body positions (the last
+# one the rest), each warmed over the halo, as the single launch's, but with
+# K chosen for a loop whose every step costs a launch and a collective: the
+# number of steps, halo + L, falls with K while a step's lanes, B * K, rise.
+# STEP_MAX_K holds, by mode, the K that minimised the loop at the main
+# path's three shapes on an H100 (PERF.md; chip_smoke.py's "step K sweep"
+# lines: K = 1 to 32, each loop replayed from its CUDA graph with an NCCL
+# all_reduce at world 1): 16 for the counts (the 10k and 1M tables),
+# 32 for the planes modes, whose step also stores a word a lane at its own
+# position, L words from the next lane's.  A collective of more than one
+# rank costs more a step and would favour a larger K still.
+# STEP_MAX_LANES keeps the words and classes of a call within a few tens of
+# MB where windows are many.
+
+STEP_MAX_K = {"count": 16, "count_packed": 16, "planes": 32, "hotstate": 32, "raw": 32}
+STEP_MAX_LANES = 1 << 21
+STEP_MAX_SEGMENTS = 32  # csrc/table_sharded.cu kMaxStepSegments
 
 
-def _check_step(shard: torch.Tensor, words: torch.Tensor, windows: torch.Tensor, t: int,
-                halo: int, state_bits: int, mode: str, segments: tuple, out: torch.Tensor,
-                total: Optional[torch.Tensor]) -> None:
-    B, W = _check_windows(windows, halo, state_bits, mode)
+def step_segments(num_windows: int, body: int, halo: int, mode: str) -> tuple:
+    """``(K, L)`` of the step loop: the largest power of two K up to
+    ``STEP_MAX_K[mode]`` (both constants read at each call) with
+    ``num_windows * K`` within ``STEP_MAX_LANES``, then ``L = ceil(C / K)``
+    and K cut to ``ceil(C / L)`` so that the last lane is not empty; K = 1
+    where ``halo = 0`` (no warm-up synchronizes)."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    k = 1
+    if halo >= 1:
+        while (k * 2 <= min(STEP_MAX_K[mode], STEP_MAX_SEGMENTS)
+               and num_windows * k * 2 <= STEP_MAX_LANES):
+            k *= 2
+    L = -(-body // k)
+    K = -(-body // L)
+    return (K, L) if K > 1 else (1, body)
+
+
+def valid_step_segments(segments: tuple, body: int, halo: int) -> bool:
+    """The splits ``step_segments`` makes: ``(1, C)``, or, where ``halo >=
+    1``, K in 2 .. ``STEP_MAX_SEGMENTS`` and ``L = ceil(C / K)`` with ``(K -
+    1) * L < C`` (``csrc/table_sharded.cu`` ``valid_step_segments``)."""
     K, L = segments
-    C = W - halo
-    if not (K == 1 and L == C or 2 <= K <= 4 and halo >= 1 and L % 4 == 0
-            and (K - 1) * L < C <= K * L):
-        raise ValueError(f"segments {segments} do not cut a body of {C} (halo {halo})")
+    if K == 1:
+        return L == body
+    return (2 <= K <= STEP_MAX_SEGMENTS and halo >= 1 and body >= 1
+            and L == -(-body // K) and (K - 1) * L < body)
+
+
+def _check_segments(windows: torch.Tensor, halo: int, segments: tuple) -> None:
+    """Raises on windows or a split that the prep does not take."""
+    if windows.dtype not in _WINDOW_BYTES or windows.dim() != 2 or not windows.is_contiguous():
+        raise TypeError("windows must be contiguous uint8, uint16 or int32[B, W], got "
+                        f"{windows.dtype}{tuple(windows.shape)}")
+    if windows.shape[0] < 1 or not 0 <= halo < windows.shape[1]:
+        raise ValueError(f"need B >= 1 and 0 <= halo < W; got {tuple(windows.shape)}, "
+                         f"halo={halo}")
+    if not valid_step_segments(segments, windows.shape[1] - halo, halo):
+        raise ValueError(f"segments {segments} do not cut a body of "
+                         f"{windows.shape[1] - halo} (halo {halo}) as step_segments does")
+
+
+def step_classes(windows: torch.Tensor, halo: int, segments: tuple,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The step loop's classes, class-major: ``classes[t, b * K + k]`` is
+    lane ``b * K + k``'s class at step t, row b's class ``k * L + t`` (0 past
+    the row), ``[halo + L, B * K]`` of the windows' type, written into
+    ``out`` where given."""
+    B, W = windows.shape
+    K, L = segments
+    _check_segments(windows, halo, segments)
+    shape = (halo + L, B * K)
+    if out is None:
+        out = torch.empty(shape, dtype=windows.dtype, device=windows.device)
+    elif out.dtype != windows.dtype or tuple(out.shape) != shape or not out.is_contiguous() \
+            or out.device != windows.device:
+        raise TypeError(f"out must be a contiguous {windows.dtype}{shape} on {windows.device}, "
+                        f"got {out.dtype}{tuple(out.shape)} on {out.device}")
+    if windows.device.type == "cpu":
+        out.view(_signed(out.dtype)).copy_(step_classes_plain(windows, halo, segments)
+                                           .view(_signed(out.dtype)))
+        return out
+    dev = windows.device
+    build.call("table_sharded_classes", windows.data_ptr(), _WINDOW_BYTES[windows.dtype], B, W,
+               halo, K, L, out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream)
+    launches["table_sharded_classes"] += 1
+    return out
+
+
+def _signed(dtype: torch.dtype) -> torch.dtype:
+    """The type whose copies and transposes carry ``dtype``'s bits (uint16 has
+    no copy kernel on every build)."""
+    return torch.int16 if dtype == torch.uint16 else dtype
+
+
+def step_classes_plain(windows: torch.Tensor, halo: int, segments: tuple) -> torch.Tensor:
+    """The twin of ``step_classes``: ``_segment_lanes``' rows of the lanes,
+    transposed."""
+    K, L = segments
+    _check_segments(windows, halo, segments)
+    bits = windows.view(_signed(windows.dtype))
+    lanes = _segment_lanes(bits, halo, K, L)
+    return lanes.t().contiguous().view(windows.dtype)
+
+
+def _check_step(shard: torch.Tensor, words: torch.Tensor, classes: torch.Tensor, t: int,
+                halo: int, state_bits: int, mode: str, segments: tuple, body: int,
+                out: torch.Tensor, total: Optional[torch.Tensor]) -> tuple:
+    """Raises on buffers the step does not take; returns ``(B, W)`` of the
+    windows the classes came from."""
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; expected one of {MODES}")
+    K, L = segments
+    if classes.dtype not in _WINDOW_BYTES or classes.dim() != 2 or not classes.is_contiguous():
+        raise TypeError("classes must be a contiguous uint8, uint16 or int32[halo + L, B * K], "
+                        f"got {classes.dtype}{tuple(classes.shape)}")
+    if not 1 <= state_bits <= 31:
+        raise ValueError(f"state_bits={state_bits} is not in 1..31")
+    if halo < 0 or body < 1 or not valid_step_segments(segments, body, halo):
+        raise ValueError(f"segments {segments} do not cut a body of {body} (halo {halo}) as "
+                         f"step_segments does")
+    if classes.shape[1] % K or classes.shape[1] < K:
+        raise ValueError(f"classes of {classes.shape[1]} lanes are not B windows of {K} lanes")
+    B, W = classes.shape[1] // K, halo + body
+    if classes.shape[0] != halo + L:
+        raise ValueError(f"classes of {classes.shape[0]} steps, not halo + L = {halo + L}")
     if not 0 <= t <= halo + L:
         raise ValueError(f"step {t} is not in 0 .. halo + L = {halo + L}")
     if shard.dtype != torch.uint32 or shard.dim() != 2 or not shard.is_contiguous() \
@@ -308,45 +431,51 @@ def _check_step(shard: torch.Tensor, words: torch.Tensor, windows: torch.Tensor,
         want["out"] = (out, torch.int64, (B * K,))
         want["total"] = (total, torch.int64, (1,))
     else:
-        want["out"] = (out, torch.uint32, (1, B * C))
+        want["out"] = (out, torch.uint32, (1, B * body))
     for name, (x, dtype, shape) in want.items():
         if x is None or x.dtype != dtype or tuple(x.shape) != shape or not x.is_contiguous():
             raise TypeError(f"{name} must be a contiguous {dtype}{shape}, got "
                             f"{None if x is None else (x.dtype, tuple(x.shape))}")
     for x in (shard, words, out):
-        if x.device != windows.device:
-            raise ValueError(f"tensors on {x.device} and {windows.device}")
+        if x.device != classes.device:
+            raise ValueError(f"tensors on {x.device} and {classes.device}")
+    if classes.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {classes.device}")
+    return B, W
 
 
-def table_sharded_step(shard: torch.Tensor, k: int, words: torch.Tensor, windows: torch.Tensor,
-                       t: int, halo: int, state_bits: int, mode: str, segments: tuple,
+def table_sharded_step(shard: torch.Tensor, k: int, words: torch.Tensor, classes: torch.Tensor,
+                       t: int, halo: int, state_bits: int, mode: str, segments: tuple, body: int,
                        out: torch.Tensor, total: Optional[torch.Tensor] = None) -> None:
     """Launch ``t`` of one rank's step loop, in place: ``shard`` is row shard
     ``k`` (``uint32[rows_per, A]``, states ``[k * rows_per, (k + 1) *
-    rows_per)``); ``words`` (``uint32[B * K]``, ``segments = (K, L)``) holds
-    the lanes' words of position ``t - 1`` as the last ``all_reduce`` left
-    them.  The launch folds them into ``out`` (the lanes' ``int64[B * K]``
-    accumulators for the counts, else the ``uint32[1, B * C]`` plane) and,
-    for ``t < halo + L``, writes the lanes' words of step ``t`` from this
-    shard (0 where it does not own the state) into ``words``; launch ``t =
-    halo + L`` adds the accumulators to ``total`` (``int64[1]``, counts
-    only)."""
-    _check_step(shard, words, windows, t, halo, state_bits, mode, segments, out, total)
-    _step(shard, k, words, windows, t, halo, state_bits, mode, segments, out, total)
+    rows_per)``); ``classes`` the class-major classes of B windows of ``halo
+    + body`` (``step_classes``, ``segments = (K, L)`` as ``step_segments``
+    makes them); ``words`` (``uint32[B * K]``) holds the lanes' words of
+    position ``t - 1`` as the last ``all_reduce`` left them.  The launch
+    folds them into ``out`` (the lanes' ``int64[B * K]`` accumulators for the
+    counts, else the ``uint32[1, B * body]`` plane) and, for ``t < halo +
+    L``, writes the lanes' words of step ``t`` from this shard (0 where it
+    does not own the state) into ``words``; launch ``t = halo + L`` adds the
+    accumulators to ``total`` (``int64[1]``, counts only)."""
+    B, W = _check_step(shard, words, classes, t, halo, state_bits, mode, segments, body, out,
+                       total)
+    _step(shard, k, words, classes, (B, W), t, halo, state_bits, mode, segments, out, total)
 
 
-def _step(shard: torch.Tensor, k: int, words: torch.Tensor, windows: torch.Tensor, t: int,
-          halo: int, state_bits: int, mode: str, segments: tuple, out: torch.Tensor,
+def _step(shard: torch.Tensor, k: int, words: torch.Tensor, classes: torch.Tensor, shape: tuple,
+          t: int, halo: int, state_bits: int, mode: str, segments: tuple, out: torch.Tensor,
           total: Optional[torch.Tensor]) -> None:
-    """``table_sharded_step`` on buffers ``_check_step`` has passed."""
-    if windows.device.type == "cpu":
-        return table_sharded_step_plain(shard, k, words, windows, t, halo, state_bits, mode,
-                                        segments, out, total)
-    dev = windows.device
+    """``table_sharded_step`` on buffers ``_check_step`` has passed (``shape``
+    the windows' ``(B, W)``)."""
+    B, W = shape
+    if classes.device.type == "cpu":
+        return table_sharded_step_plain(shard, k, words, classes, t, halo, state_bits, mode,
+                                        segments, W - halo, out, total)
+    dev = classes.device
     rows_per, stride = shard.shape
-    B, W = windows.shape
     build.call("table_sharded_step", shard.data_ptr(), rows_per, stride, k * rows_per,
-               windows.data_ptr(), _WINDOW_BYTES[windows.dtype], B, W, halo, state_bits,
+               classes.data_ptr(), _WINDOW_BYTES[classes.dtype], B, W, halo, state_bits,
                MODES.index(mode), *segments, t, words.data_ptr(), out.data_ptr(),
                0 if total is None else total.data_ptr(), dev.index,
                torch.cuda.current_stream(dev).cuda_stream)
@@ -354,17 +483,16 @@ def _step(shard: torch.Tensor, k: int, words: torch.Tensor, windows: torch.Tenso
 
 
 def table_sharded_step_plain(shard: torch.Tensor, k: int, words: torch.Tensor,
-                             windows: torch.Tensor, t: int, halo: int, state_bits: int, mode: str,
-                             segments: tuple, out: torch.Tensor,
+                             classes: torch.Tensor, t: int, halo: int, state_bits: int, mode: str,
+                             segments: tuple, body: int, out: torch.Tensor,
                              total: Optional[torch.Tensor] = None) -> None:
-    """The twin of ``table_sharded_step`` on the same buffers: ``shard_lookup``
-    of the one shard at the lanes' step-``t`` classes (0 past a window's
-    row, as ``_segment_lanes`` pads)."""
+    """The twin of ``table_sharded_step`` on the same buffers:
+    ``shard_lookup`` of the one shard at row ``t`` of the class-major
+    classes."""
     K, L = segments
-    B, W = windows.shape
-    C = W - halo
-    dev = windows.device
-    lane = torch.arange(B * K, device=dev)
+    C = body
+    dev = classes.device
+    lane = torch.arange(classes.shape[1], device=dev)
     b, start = lane // K, (lane % K) * L
     v = _widen(words)
     j = t - 1 - halo
@@ -381,11 +509,8 @@ def table_sharded_step_plain(shard: torch.Tensor, k: int, words: torch.Tensor,
             pos = (b * C + start + j)[fold]
             out.view(torch.int32).view(-1)[pos] = _to_uint32(value[fold]).view(torch.int32)
     if t < halo + L:
-        ci = start + t
-        bits = windows.view(torch.int16) if windows.dtype == torch.uint16 else windows
-        col = bits[b, ci.clamp(max=W - 1)]
-        col = col.to(torch.int64) if col.dtype == torch.int32 else _widen(col.view(windows.dtype))
-        col = torch.where(ci < W, col, 0)
+        col = classes[t]
+        col = col.to(torch.int64) if col.dtype == torch.int32 else _widen(col)
         lookup = shard_lookup(shard, k, shard.shape[0], shard.shape[1])
         w = lookup(v & ((1 << state_bits) - 1), col)
         words.view(torch.int32).copy_(_to_uint32(w).view(torch.int32))
@@ -393,37 +518,150 @@ def table_sharded_step_plain(shard: torch.Tensor, k: int, words: torch.Tensor,
         total.add_(out.sum())
 
 
+def _loop_buffers(ranks: Sequence[tuple], windows: torch.Tensor, halo: int, state_bits: int,
+                  mode: str, segments: tuple) -> tuple:
+    """``(classes, bufs)``: the class-major classes and each driven rank's
+    ``(k, shard, words, out, total)``, checked once (``_check_step``); the
+    planes uninitialised (every body position is written once), the rest
+    zeroed by ``_loop``."""
+    B, W = windows.shape
+    K, L = segments
+    dev = windows.device
+    counting = mode in ("count", "count_packed")
+    classes = torch.empty((halo + L, B * K), dtype=windows.dtype, device=dev)
+    bufs = []
+    for k, shard in ranks:
+        words = torch.empty(B * K, dtype=torch.uint32, device=dev)
+        if counting:
+            out = torch.empty(B * K, dtype=torch.int64, device=dev)
+            total = torch.empty(1, dtype=torch.int64, device=dev)
+        else:
+            out, total = torch.empty((1, B * (W - halo)), dtype=torch.uint32, device=dev), None
+        _check_step(shard, words, classes, 0, halo, state_bits, mode, segments, W - halo, out,
+                    total)
+        bufs.append((k, shard, words, out, total))
+    return classes, bufs
+
+
+def _loop(bufs: list, windows: torch.Tensor, classes: torch.Tensor, halo: int, state_bits: int,
+          mode: str, segments: tuple, reduce: Callable) -> None:
+    """One call of the step loop on buffers that ``_check_step`` has passed:
+    the prep, the zeroed words and accumulators, ``halo + L + 1`` launches a
+    driven rank and ``halo + L`` reductions.  No host sync inside: a stream
+    capture can hold all of it."""
+    _, L = segments
+    step_classes(windows, halo, segments, classes)
+    for _, _, words, out, total in bufs:
+        words.view(torch.int32).zero_()
+        if total is not None:
+            out.zero_()
+            total.zero_()
+    shape = tuple(windows.shape)
+    for t in range(halo + L + 1):
+        for k, shard, words, out, total in bufs:
+            _step(shard, k, words, classes, shape, t, halo, state_bits, mode, segments, out, total)
+        if t < halo + L:
+            reduce([words for _, _, words, _, _ in bufs])
+
+
+def _results(bufs: list, clone: bool) -> list:
+    out = []
+    for _, _, _, plane, total in bufs:
+        x = total[0] if total is not None else plane
+        if clone:
+            x = x.clone() if total is not None else x.view(torch.int32).clone().view(torch.uint32)
+        out.append(x)
+    return out
+
+
+class StepGraphs:
+    """The step loops of one process group captured as CUDA graphs, at most
+    ``MAX_GRAPHS`` of them (the least recently used goes first), keyed by the
+    windows' shape and type, the mode, the halo, the state bits and the
+    driven ranks' shards.  A key's first call runs eagerly and its second
+    captures, so a shape seen once (a stream's feeds) costs no capture.  A
+    graph holds its buffers: the windows it reads, the class-major classes,
+    the words and the outputs (at the 10k cell's planes a 128 MiB plane and
+    about 58 MiB of classes).  For collectives a stream capture can hold
+    (NCCL; gloo's cannot)."""
+
+    MAX_GRAPHS = 2  # keys kept, captured and seen once alike
+
+    def __init__(self):
+        self._graphs = collections.OrderedDict()
+        self._seen = collections.OrderedDict()  # keys run once, eagerly
+
+    def __len__(self) -> int:
+        return len(self._graphs)
+
+    def scan(self, ranks: Sequence[tuple], windows: torch.Tensor, halo: int, state_bits: int,
+             mode: str, reduce: Callable, segments: tuple) -> list:
+        """``group_scan``'s result: the first call of a key runs the loop
+        eagerly (every kernel's first launch, and the collective's first call,
+        outside any capture); the second captures it; from then on a call
+        copies the windows into the captured buffer, replays and clones the
+        results out."""
+        key = (tuple(windows.shape), windows.dtype, mode, halo, state_bits,
+               tuple((k, shard.data_ptr()) for k, shard in ranks))
+        if key not in self._graphs:
+            if key not in self._seen:
+                _remember(self._seen, key, True, self.MAX_GRAPHS)
+                return _eager(ranks, windows, halo, state_bits, mode, reduce, segments)
+            del self._seen[key]
+            _remember(self._graphs, key, self._capture(ranks, windows, halo, state_bits, mode,
+                                                       reduce, segments), self.MAX_GRAPHS)
+        self._graphs.move_to_end(key)
+        graph, static, bufs, steps = self._graphs[key]
+        static.view(_signed(static.dtype)).copy_(windows.view(_signed(windows.dtype)))
+        graph.replay()
+        launches["table_sharded_classes"] += 1
+        launches["table_sharded_step"] += steps * len(bufs)
+        return _results(bufs, clone=True)
+
+    @staticmethod
+    def _capture(ranks, windows, halo, state_bits, mode, reduce, segments) -> tuple:
+        static = windows.view(_signed(windows.dtype)).clone().view(windows.dtype)
+        classes, bufs = _loop_buffers(ranks, static, halo, state_bits, mode, segments)
+        graph = torch.cuda.CUDAGraph()
+        counted = dict(launches)  # the capture launches nothing
+        try:
+            with torch.cuda.graph(graph):
+                _loop(bufs, static, classes, halo, state_bits, mode, segments, reduce)
+        finally:
+            launches.update(counted)
+        return graph, static, bufs, halo + segments[1] + 1
+
+
+def _remember(cache: collections.OrderedDict, key, value, bound: int) -> None:
+    cache[key] = value
+    while len(cache) > bound:
+        cache.popitem(last=False)
+
+
+def _eager(ranks, windows, halo, state_bits, mode, reduce, segments) -> list:
+    classes, bufs = _loop_buffers(ranks, windows, halo, state_bits, mode, segments)
+    _loop(bufs, windows, classes, halo, state_bits, mode, segments, reduce)
+    return _results(bufs, clone=False)
+
+
 def group_scan(ranks: Sequence[tuple], windows: torch.Tensor, halo: int, state_bits: int,
-               mode: str, reduce: Callable) -> list:
+               mode: str, reduce: Callable, graphs: Optional[StepGraphs] = None) -> list:
     """The table-sharded scan of ``windows`` as the ranks of a process group
     run it: ``ranks`` holds ``(k, shard)`` of each rank this process drives
     (this process's one rank under a group; every rank where a test
-    simulates them), each shard on the windows' device.  Per character one
-    ``table_sharded_step`` a rank, then ``reduce(words)``, which must leave
-    in each of the ranks' word buffers (``uint32[B * K]``) the sum of every
-    rank's: an ``all_reduce(SUM)`` over the model ranks (exact: at most one
-    rank's word is not 0).  No host sync inside the loop.  Returns each
-    driven rank's result: an int64 scalar tensor (the counts) or the
-    ``uint32[1, B * C]`` plane, as ``table_sharded_scan``.  The buffers are
-    checked once, before the loop."""
-    B, W = windows.shape
-    segs = lane_segments(B, W - halo, halo, mode)
-    K, L = segs
-    dev = windows.device
-    counting = mode in ("count", "count_packed")
-    lanes = []
-    for k, shard in ranks:
-        words = torch.zeros(B * K, dtype=torch.uint32, device=dev)
-        if counting:
-            out = torch.zeros(B * K, dtype=torch.int64, device=dev)
-            total = torch.zeros(1, dtype=torch.int64, device=dev)
-        else:  # every body position is written once
-            out, total = torch.empty((1, B * (W - halo)), dtype=torch.uint32, device=dev), None
-        _check_step(shard, words, windows, 0, halo, state_bits, mode, segs, out, total)
-        lanes.append((k, shard, words, out, total))
-    for t in range(halo + L + 1):
-        for k, shard, words, out, total in lanes:
-            _step(shard, k, words, windows, t, halo, state_bits, mode, segs, out, total)
-        if t < halo + L:
-            reduce([words for _, _, words, _, _ in lanes])
-    return [total[0] if counting else out for _, _, _, out, total in lanes]
+    simulates them), each shard on the windows' device.  One prep launch
+    (``step_classes``), then per step one ``table_sharded_step`` a rank and
+    ``reduce(words)``, which must leave in each of the ranks' word buffers
+    (``uint32[B * K]``) the sum of every rank's: an ``all_reduce(SUM)`` over
+    the model ranks (exact: at most one rank's word is not 0).  The lanes are
+    ``step_segments``'.  No host sync inside the loop.  With ``graphs`` and
+    CUDA windows the loop runs as a captured CUDA graph (``StepGraphs``:
+    ``reduce`` must be capturable).  Returns each driven rank's result: an
+    int64 scalar tensor (the counts) or the ``uint32[1, B * C]`` plane, as
+    ``table_sharded_scan``.  The buffers are checked once, before the
+    loop (a replay: when its graph was captured)."""
+    B, W = _check_windows(windows, halo, state_bits, mode)
+    segs = step_segments(B, W - halo, halo, mode)
+    if graphs is not None and windows.device.type == "cuda":
+        return graphs.scan(ranks, windows, halo, state_bits, mode, reduce, segs)
+    return _eager(ranks, windows, halo, state_bits, mode, reduce, segs)

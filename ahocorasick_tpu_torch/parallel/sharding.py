@@ -55,9 +55,12 @@ under a mask and combines them with a ``psum`` per character).
   form is unverified.
 * Under ``group=`` each rank holds one row shard on its own device and no
   rank reads another's rows: the scan is ``kernels/table_sharded.py``
-  ``group_scan``, one ``table_sharded_step`` launch a character on the rank's
+  ``group_scan``, one ``table_sharded_step`` launch a step on the rank's
   shard and one ``all_reduce(SUM)`` of the lanes' words (int32) over the model
-  ranks between launches, as the JAX body's gather under ``psum``.  A process
+  ranks between launches, as the JAX body's gather under ``psum``; eager on
+  gloo, a replayed CUDA graph on NCCL.  Where the model axis has one rank,
+  that rank holds the whole table and scans with one ``table_sharded_scan``
+  launch, with no all_reduce over the model axis.  A process
   group is a 1-axis layout, one rank per row shard; ``dp_tp_groups`` lays the
   ranks out in 2 axes as ``dp_tp_mesh`` does devices: each model subgroup
   scans its contiguous slice of the windows, counts are summed over the data
@@ -652,9 +655,10 @@ def _table_sharded_build(packed_table: np.ndarray, halo: int, state_bits: int, m
     ``kernels.table_sharded.ShardedTable`` per model group (a shard that two
     groups keep on one device is uploaded once).  Under ``group=`` (a process
     group, or a ``dp_tp_groups`` layout) ``tables`` is this rank's one shard
-    on ``device`` (None: this process's current CUDA device), and ``run`` is
-    ``group_scan`` over the rank's slice of the windows, padded with all-PAD
-    windows to a multiple of the data axis (the planes trimmed back)."""
+    on ``device`` (None: this process's current CUDA device), and ``run``
+    scans the rank's slice of the windows, padded with all-PAD windows to a
+    multiple of the data axis (the planes trimmed back): ``group_scan``, or
+    ``table_sharded_scan`` where the model axis has one rank."""
     if mode not in table_sharded.MODES:
         raise ValueError(f"unknown mode {mode!r}; expected one of {table_sharded.MODES}")
     packed_table = np.asarray(packed_table)
@@ -715,7 +719,14 @@ def _shard_rows(packed_table: np.ndarray, k: int, rows_per: int) -> np.ndarray:
 def _table_sharded_group(packed_table: np.ndarray, halo: int, state_bits: int, group,
                          dev: torch.device, mode: str, tables):
     """The group form of ``_table_sharded_build``: rank ``(i, k)`` of the
-    layout holds row shard k and scans data slice i of the windows."""
+    layout holds row shard k and scans data slice i of the windows.
+
+    Where the model axis has one rank, that rank holds the whole table and
+    the all_reduce over its model subgroup would be the identity: it scans
+    its slice with one ``table_sharded_scan`` over its one shard, as the
+    mesh form does.  Else it runs ``group_scan``'s step loop, an
+    ``all_reduce`` over the model axis a step: as a replayed CUDA graph
+    where that axis's backend is NCCL, eagerly elsewhere (gloo)."""
     import torch.distributed as dist
 
     axes = _group_axes(group)
@@ -725,10 +736,19 @@ def _table_sharded_group(packed_table: np.ndarray, halo: int, state_bits: int, g
     rows_per = -(-S // n_model)
     if tables is None:
         tables = [_shard_tensor(_shard_rows(packed_table, k, rows_per), dev)]
+    graphs = (table_sharded.StepGraphs()
+              if n_model > 1 and dist.get_backend(axes.model) == "nccl" else None)
 
     def reduce(words):
         # Exact in int32: at most one model rank's word is not 0.
         dist.all_reduce(words[0].view(torch.int32), op=dist.ReduceOp.SUM, group=axes.model)
+
+    def scan(tables, mine):
+        if n_model > 1:
+            return table_sharded.group_scan([(k, tables[0])], mine, halo, state_bits, mode,
+                                            reduce, graphs)[0]
+        return table_sharded.table_sharded_scan(table_sharded.ShardedTable(tables), mine, halo,
+                                                state_bits, mode)
 
     def run(tables, windows):
         windows = np.asarray(windows)
@@ -738,7 +758,7 @@ def _table_sharded_group(packed_table: np.ndarray, halo: int, state_bits: int, g
             windows = np.concatenate(
                 [windows, np.zeros((per * n_data - B, windows.shape[1]), windows.dtype)])
         mine = scan_batched.classes_to_device(windows[i * per : (i + 1) * per], A, dev)
-        out = table_sharded.group_scan([(k, tables[0])], mine, halo, state_bits, mode, reduce)[0]
+        out = scan(tables, mine)
         if mode in ("count", "count_packed"):
             if n_data > 1:
                 out = out.reshape(1)

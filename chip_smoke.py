@@ -108,12 +108,14 @@ port only, the dictionary and text generators included (``bench.headline``,
    = 1, 2 and 4 with the lane caps patched, C off a multiple of 4 K, uint8,
    uint16 and int32 windows, 1, 3 and 8 shards, halo 0, next states past the
    last shard); the step kernel of the same scan under a process group
-   (``table_sharded_step``) with 1, 3 and 8 ranks simulated in this process,
-   the sum of their word buffers in place of the all_reduce: every launch's
-   buffers and every rank's result == the twin's, the loop ==
-   ``table_sharded_scan``, in every mode (``check_step_edges``: rows_per not a
-   power of two, more ranks than rows, states past the last shard, halo 0,
-   uint8, uint16 and int32 windows, K = 1, 2 and 4, ragged segments); the
+   (``table_sharded_step``) and its class-major prep
+   (``table_sharded_classes``) with 1, 3 and 8 ranks simulated in this
+   process, the sum of their word buffers in place of the all_reduce: the
+   prep's classes, every launch's buffers and every rank's result == the
+   twins', the loop == ``table_sharded_scan``, in every mode
+   (``check_step_edges``: rows_per not a power of two, more ranks than rows,
+   states past the last shard, halo 0, uint8, uint16 and int32 windows,
+   ``step_segments``' K and K = 1 to 26 forced, ragged segments); the
    grouped die sweeps, and every design of their A/B, on
    seeded planes (d = 0, 1, 12 and 39, dense and quotient, crossing bits on
    and off, sorted, unsorted, repeated, negative and past-L starts);
@@ -216,11 +218,17 @@ port only, the dictionary and text generators included (``bench.headline``,
    group form under an NCCL process group of one rank in this process:
    ``TableShardedScanner(m, group=WORLD)`` for each kind (AC also under
    ``dp_tp_groups()``), its stream, ``sharded_table_count`` and the 1M count
-   (1,282,185) through ``table_sharded_step`` (``table_sharded_scan`` not
-   launched), and ``ShardedScanner(m, group=WORLD)`` for each kind and its
-   stream, each == the mesh form's triples; then 2 and 4 gloo ranks spawned
-   on the one card with CUDA tensors (``gloo_rank``): the 1-axis group form
-   at world 2 and the (2, 2) layout at world 4, every mode == the mesh form;
+   (1,282,185), its one-rank model axis through ``table_sharded_scan`` (the
+   step loop not launched), and ``ShardedScanner(m, group=WORLD)`` for each
+   kind and its stream, each == the mesh form's triples; the step loop
+   (``group_scan`` with NCCL's all_reduce) at the three main-path shapes (the
+   10k planes and count, the 1M count_packed): the step and its prep against
+   their twins launch by launch, then the eager loop and the loop as a CUDA
+   graph (captured, replayed on other windows, replayed again) == the twin
+   == ``table_sharded_scan``; then 2 and 4 gloo ranks spawned on the one
+   card with CUDA tensors (``gloo_rank``): the 1-axis group form at world 2
+   and the (2, 2) layout at world 4, the eager step loop with halo + L + 1
+   launches a mode, every mode == the mesh form;
    every
    AC-family kind through ``device_engine="batched2"`` == the default
    engine's triples, with its ``run_config`` record; the probes' entry point
@@ -244,10 +252,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    branch (and its
    stages: classes, upload, lane scan, download, emit expansion, triples)
    and the early stop; the sharded facades and the sharded count's stages; the step
-   kernel of the group form (alone, in card time, with its NCCL all_reduce at
-   world 1, one lane's launch, the whole loop beside ``table_sharded_scan``
-   on the same windows; the 10k table's planes and count, the 1M table's
-   count_packed); the row-sharded
+   loop of the group form at K = 1 to 32 lanes a window (``step_sweep``: each
+   K's step, captured all_reduce, prep and loops, eager and replayed), and
+   at ``step_segments``' K its step (alone, in card time, with its NCCL
+   all_reduce at world 1, one lane's launch), its prep, the eager loop and
+   the graph replay beside ``table_sharded_scan`` on the same windows (the
+   10k table's planes and count, the 1M table's count_packed); the row-sharded
    scan per mode beside the single-table kernels, the table-sharded facades
    and their stages; both forms of the maps and the rescan at C = 1, K = 32
    Ki, S = 65,536 (each held to its twin there), the forms for any table on
@@ -395,10 +405,14 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                       "ahocorasick_tpu/ops/stitch.py:68"),
     "table_sharded_scan": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
                            "ahocorasick_tpu/parallel/sharding.py:321"),
-    # under a process group: a launch a character on this rank's shard, the
-    # words summed by an all_reduce between launches
+    # under a process group: a launch a step on this rank's shard, the words
+    # summed by an all_reduce between launches; redesigned: lanes of its own
+    # (step_segments, up to 32 a window) over class-major classes, which one
+    # prep launch a call lays out; on NCCL a replayed CUDA graph
     "table_sharded_step": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
                            "ahocorasick_tpu/parallel/sharding.py:377"),
+    "table_sharded_classes": ("ahocorasick_tpu_torch/csrc/table_sharded.cu",
+                              "ahocorasick_tpu/parallel/sharding.py:377"),
     # redesigned, both: tile.cuh's lane loops over tile::Stride2, a pair a step
     "rowdfa2_count": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
                       "ahocorasick_tpu/ops/scan_rowdfa.py:248"),
@@ -1203,20 +1217,23 @@ def gloo_rank(rank, world, init_file, data, out_dir):
             out[mode] = (np.asarray([got]) if isinstance(got, int)
                          else got.view(torch.int32).cpu().numpy())
         out["launches"] = np.asarray([build.launches["table_sharded_step"],
-                                      build.launches["table_sharded_scan"]])
+                                      build.launches["table_sharded_scan"],
+                                      build.launches["table_sharded_classes"]])
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
     finally:
         dist.destroy_process_group()
 
 
 def step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs):
-    """``table_sharded_step`` against its twin at a main path's shape, one
-    rank holding the whole table (``shard``): the whole loop, one launch and
-    one twin step a character on buffers of their own (at one rank the
-    all_reduce is the identity), every launch's words compared on the card;
-    the planes start apart (-1 and 0), so a position either leaves unwritten
-    differs.  Then the kernel's result == ``table_sharded_scan`` of
-    ``mesh_table``.  Raises on a difference."""
+    """``table_sharded_step`` and its prep ``table_sharded_classes`` against
+    their twins at a main path's shape and ``step_segments``' K, one rank
+    holding the whole table (``shard``): the class-major classes compared
+    whole, then the whole loop, one launch and one twin step a step on
+    buffers of their own (at one rank the all_reduce is the identity), every
+    launch's words compared on the card; the planes start apart (-1 and 0),
+    so a position either leaves unwritten differs.  Then the kernel's result
+    == ``table_sharded_scan`` of ``mesh_table``.  Raises on a difference;
+    returns the twin's result (int64: the count, or the plane's words)."""
     import torch
 
     from ahocorasick_tpu_torch.kernels import table_sharded as ktp
@@ -1227,12 +1244,20 @@ def step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs):
     t0 = time.perf_counter()
     dev = w.device
     B, W = w.shape
-    K, L = ktp.lane_segments(B, W - halo, halo, mode)
+    C = W - halo
+    K, L = ktp.step_segments(B, C, halo, mode)
     counting = mode in ("count", "count_packed")
+    classes = ktp.step_classes(w, halo, (K, L))
+    signed = ktp._signed(w.dtype)
+    e = int((classes.view(signed).to(torch.int64)
+             - ktp.step_classes_plain(w, halo, (K, L)).view(signed).to(torch.int64)).abs().max())
+    errs["table_sharded_classes"] = max(errs["table_sharded_classes"], e)
+    if e:
+        raise AssertionError(f"table_sharded_classes, {label}, {mode}: != its twin ({e})")
 
     def buffers():
         out = (torch.zeros(B * K, dtype=torch.int64, device=dev) if counting
-               else torch.zeros((1, B * (W - halo)), dtype=torch.uint32, device=dev))
+               else torch.zeros((1, B * C), dtype=torch.uint32, device=dev))
         return (torch.zeros(B * K, dtype=torch.uint32, device=dev), out,
                 torch.zeros(1, dtype=torch.int64, device=dev) if counting else None)
 
@@ -1241,9 +1266,10 @@ def step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs):
         kern[1].view(torch.int32).fill_(-1)
     err = torch.zeros((), dtype=torch.int64, device=dev)
     for t in range(halo + L + 1):
-        ktp.table_sharded_step(shard, 0, kern[0], w, t, halo, sb, mode, (K, L), kern[1], kern[2])
-        ktp.table_sharded_step_plain(shard, 0, twin[0], w, t, halo, sb, mode, (K, L), twin[1],
-                                     twin[2])
+        ktp.table_sharded_step(shard, 0, kern[0], classes, t, halo, sb, mode, (K, L), C, kern[1],
+                               kern[2])
+        ktp.table_sharded_step_plain(shard, 0, twin[0], classes, t, halo, sb, mode, (K, L), C,
+                                     twin[1], twin[2])
         err = torch.maximum(err, (widen(kern[0]) - widen(twin[0])).abs().max())
     results = [x[2] if counting else widen(x[1]) for x in (kern, twin)]
     mesh = ktp.table_sharded_scan(mesh_table, w, halo, sb, mode)
@@ -1254,9 +1280,10 @@ def step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs):
     if err:
         raise AssertionError(f"table_sharded_step, {label}, {mode}: the loop of {halo + L + 1} "
                              f"launches disagrees with its twin or the mesh form ({err})")
-    print(f"  step vs twin, {label}, {mode}: {halo + L + 1} launches of {B * K} lanes, every "
-          f"launch's words and the result == twin == table_sharded_scan "
-          f"({time.perf_counter() - t0} s)")
+    print(f"  step vs twin, {label}, {mode}: the prep's {halo + L} x {B * K} classes == twin; "
+          f"{halo + L + 1} launches of {B * K} lanes (K={K}), every launch's words and the "
+          f"result == twin == table_sharded_scan ({time.perf_counter() - t0} s)")
+    return results[1]
 
 
 def check_step_edges(port, dev, errs):
@@ -1265,11 +1292,12 @@ def check_step_edges(port, dev, errs):
     for bit, with n_model = 1, 3 and 8 ranks simulated in one process: every
     launch's word buffers (each rank's, before the sum that replaces the
     all_reduce) and every rank's result; and the whole simulated loop ==
-    ``table_sharded_scan`` (the mesh form's kernel), all five modes.  Edges:
-    rows_per not a power of two, more shards than rows, next states past the
-    last shard, halo 0, uint8, uint16 and int32 windows, K = 1, 2 and 4 lanes
-    a window (the caps patched) and ragged last segments.  Returns the
-    cases."""
+    ``table_sharded_scan`` (the mesh form's kernel), all five modes; and its
+    prep ``table_sharded_classes`` == its twin in every case.  Edges: rows_per
+    not a power of two, more shards than rows, next states past the last
+    shard, halo 0, uint8, uint16 and int32 windows, ``step_segments``' K and K
+    = 1, 2, 4, 8, 15 and 26 lanes a window (``STEP_MAX_K`` patched to 1 .. 32
+    on bodies of 130) and ragged last segments.  Returns the cases."""
     import torch
 
     from ahocorasick_tpu_torch.kernels import scan_block
@@ -1280,15 +1308,26 @@ def check_step_edges(port, dev, errs):
     def as_words(t):
         return t.view(torch.int32).cpu().to(torch.int64) & 0xFFFFFFFF if t.dim() else t.cpu()
 
-    def pair(label, table, w, halo, sb, n_model, want_k=None):
+    def pair(label, table, w, halo, sb, n_model, want_k=None, synchronizing=True):
+        # A table that is not halo-synchronizing scans differently at every
+        # lane split: the mesh form's lanes are not the step loop's, so only
+        # the twin compares there.
         st = sharding._table_sharded_build(table, halo, sb, [dev] * n_model, "count")[0][0]
         on_card = list(enumerate(st.shards))
         on_host = [(k, t.cpu()) for k, t in on_card]
         B, C = w.shape[0], w.shape[1] - halo
         seen = set()
         for mode in ktp.MODES:
-            K, L = ktp.lane_segments(B, C, halo, mode)
+            K, L = ktp.step_segments(B, C, halo, mode)
             seen.add(K)
+            signed = ktp._signed(w.dtype)
+            e = int((ktp.step_classes(w, halo, (K, L)).view(signed).cpu().to(torch.int64)
+                     - ktp.step_classes_plain(w.cpu(), halo, (K, L)).view(signed).to(torch.int64)
+                     ).abs().max())
+            errs["table_sharded_classes"] = max(errs["table_sharded_classes"], e)
+            if e:
+                raise AssertionError(f"step edge {label}, mode {mode}, K={K} L={L}: the prep "
+                                     f"disagrees with its twin ({e})")
             got_words, want_words = [], []
             got = simulated_ranks(on_card, w, halo, sb, mode, got_words)
             want = simulated_ranks(on_host, w.cpu(), halo, sb, mode, want_words)
@@ -1299,7 +1338,8 @@ def check_step_edges(port, dev, errs):
                 e = max(e, int((g.to(torch.int64) - x.to(torch.int64)).abs().max()))
             for g, x in zip(got, want):
                 e = max(e, int((as_words(g) - as_words(x)).abs().max()))
-                e = max(e, int((as_words(g) - as_words(mesh)).abs().max()))
+                if synchronizing:
+                    e = max(e, int((as_words(g) - as_words(mesh)).abs().max()))
             errs["table_sharded_step"] = max(errs["table_sharded_step"], e)
             if e:
                 raise AssertionError(f"step edge {label}, mode {mode}, K={K} L={L}: the kernel "
@@ -1308,7 +1348,8 @@ def check_step_edges(port, dev, errs):
             raise AssertionError(f"step edge {label}: K in {sorted(seen)}, not {want_k}")
         print(f"  step edge {label}: {n_model} ranks of {st.rows_per} rows, B={B} "
               f"W={w.shape[1]} halo={halo} {str(w.dtype).replace('torch.', '')} K in "
-              f"{sorted(seen)}: words a launch and results == twin == table_sharded_scan")
+              f"{sorted(seen)}: classes, words a launch and results == twin"
+              + (" == table_sharded_scan" if synchronizing else ""))
         rows.append(st.rows_per)
 
     fr = np.random.default_rng(SEED + 17)
@@ -1324,15 +1365,15 @@ def check_step_edges(port, dev, errs):
     rows = []  # rows_per of every case
     for n_model in (1, 3, 8):
         pair("fuzz", pd_f.table, narrow(512, pd_f.halo), pd_f.halo, pd_f.state_bits, n_model)
-    saved = (scan_block.MAX_LANES, scan_block.COUNT_MAX_LANES)
+    saved = (ktp.STEP_MAX_K, ktp.STEP_MAX_LANES)
     try:
         w = narrow(130, pd_f.halo)  # bodies of 130: ragged last segments
-        for k, cap in ((4, 1 << 30), (2, 2 * w.shape[0]), (1, w.shape[0])):
-            scan_block.MAX_LANES = scan_block.COUNT_MAX_LANES = cap
-            pair(f"fuzz, C = 130, caps {cap}", pd_f.table, w, pd_f.halo, pd_f.state_bits, 3,
-                 want_k=k)
+        for cap, k in ((32, 26), (16, 15), (8, 8), (4, 4), (2, 2), (1, 1)):
+            ktp.STEP_MAX_K, ktp.STEP_MAX_LANES = dict.fromkeys(ktp.MODES, cap), 1 << 30
+            pair(f"fuzz, C = 130, STEP_MAX_K {cap}", pd_f.table, w, pd_f.halo, pd_f.state_bits,
+                 3, want_k=k)
     finally:
-        scan_block.MAX_LANES, scan_block.COUNT_MAX_LANES = saved
+        ktp.STEP_MAX_K, ktp.STEP_MAX_LANES = saved
     w32 = torch.from_numpy(scan_batched.chunk_classes(cls_f, 512, pd_f.halo)).to(dev)
     pair("fuzz, int32 windows", pd_f.table, w32, pd_f.halo, pd_f.state_bits, 3)
     pair("fuzz, halo 0", pd_f.table, narrow(512, 0), 0, pd_f.state_bits, 3, want_k=1)
@@ -1360,7 +1401,10 @@ def check_step_edges(port, dev, errs):
     table = (nxt | (fr.integers(0, 1 << 20, size=(S, A_r)) << sb)).astype(np.uint32)
     wr = torch.from_numpy(fr.integers(0, A_r, size=(300, 8 + 300)).astype(np.uint8)).to(dev)
     for n_model in (1, 3, 8):
-        pair(f"states past the last shard ({3 * S} of {S})", table, wr, 8, sb, n_model)
+        pair(f"states past the last shard ({3 * S} of {S}), halo 0", table, wr, 0, sb, n_model,
+             want_k=1)
+        pair(f"states past the last shard ({3 * S} of {S}), halo 8 (not synchronizing: == the "
+             f"twin only)", table, wr, 8, sb, n_model, synchronizing=False)
     if all(r & (r - 1) == 0 for r in rows) or min(rows) != 1:
         raise AssertionError(f"step edges: rows_per {sorted(set(rows))} lack a case that is "
                              f"not a power of two or one of a row")
@@ -4062,10 +4106,11 @@ def main() -> int:
     run_path("TableShardedScanner stream AhoCorasickSet", tp_kernel, tp_stream_path)
 
     # The group form on the card: an NCCL process group of one rank in this
-    # process, on cuda:0.  The table-sharded facades scan with
-    # table_sharded_step and an all_reduce a character (the mesh form's
-    # kernel must not launch), the data-parallel ones with their plans'
-    # kernels; each == the mesh form's triples above.  Then the step's times.
+    # process, on cuda:0.  Its model axis has one rank, so the table-sharded
+    # facades scan with table_sharded_scan's one launch (the step loop must
+    # not launch), the data-parallel ones with their plans' kernels; each ==
+    # the mesh form's triples above.  Then the step loop driven through
+    # group_scan with NCCL's all_reduce: eager and as a CUDA graph.
     import torch.distributed as dist
 
     group_t0 = time.perf_counter()
@@ -4075,9 +4120,10 @@ def main() -> int:
                             world_size=1)
     try:
         world = dist.group.WORLD
-        step_kernel = ("table_sharded_step",)
+        step_kernel = ("table_sharded_step", "table_sharded_classes")
+        one_launch = ("table_sharded_scan",)
 
-        def tp_group_path(label, m, full_text, expected=step_kernel, form=world):
+        def tp_group_path(label, m, full_text, expected=one_launch, form=world):
             def drive():
                 ts = sharding.TableShardedScanner(m, group=form)
                 got = timed(f"TableShardedScanner {label} match_triples, group= (NCCL, world 1)",
@@ -4093,16 +4139,16 @@ def main() -> int:
                         f"{ts.layout}, the whole table one shard on {tables[0].device}")
             name = "WORLD" if form is world else f"dp_tp_groups() {form.shape}"
             run_path(f"TableShardedScanner {label} group={name}", expected, drive,
-                     absent=("table_sharded_scan",))
+                     absent=step_kernel)
 
         dev_index = torch.device("cuda", torch.cuda.current_device())
         tp_group_path("AhoCorasickSet", big, text)
         tp_group_path("AhoCorasickSet", big, text, form=sharding.dp_tp_groups())
         for k in ("LongestMatchSet", "WholeWordMatchSet", "ShortestMatchSet"):
             tp_group_path(k, matchers[k], text)
-        tp_group_path("WholeWordLongestMatchSet", big_wwl, text, step_kernel + ("wwl_sweep_all",))
+        tp_group_path("WholeWordLongestMatchSet", big_wwl, text, one_launch + ("wwl_sweep_all",))
         tp_group_path("WholeWordLongestMatchSet mixed", mixed, text7,
-                      step_kernel + ("wwl_sweep_all",))
+                      one_launch + ("wwl_sweep_all",))
 
         def tp_group_rest_path():
             ts = sharding.TableShardedScanner(big, group=world)
@@ -4124,8 +4170,8 @@ def main() -> int:
             return (f"stream over {len(sizes)} feeds == the mesh form's; sharded_table_count {n} "
                     f"== count; 1M count {n1m} == pinned (count_packed mode, hotstate layout)")
 
-        run_path("TableShardedScanner stream, sharded_table_count, 1M count, group=", step_kernel,
-                 tp_group_rest_path, absent=("table_sharded_scan",))
+        run_path("TableShardedScanner stream, sharded_table_count, 1M count, group=", one_launch,
+                 tp_group_rest_path, absent=step_kernel)
 
         def dp_group_path(label, m, full_text, expected):
             def drive():
@@ -4155,12 +4201,83 @@ def main() -> int:
             dp_group_path(k, matchers[k], text, ("packed_scan_planes",))
         dp_group_path("WholeWordLongestMatchSet", big_wwl, text, sweep_kernels)
 
-        # The step's times: alone, with its all_reduce, and the whole loop,
-        # beside the mesh form's table_sharded_scan on the same windows.
-        def step_times(label, table, w, halo, sb, mode, mesh_table):
-            shard = sharding._shard_tensor(table, dev_index)
+        print(f"group-form facades (NCCL world 1, with its set-up): "
+              f"{time.perf_counter() - group_t0} s")
+        from ahocorasick_tpu_torch.bench import scan_variants
+
+        t_loop = time.perf_counter()
+        A10 = table10k.shape[1]
+        w10 = scan_batched.classes_to_device(scan_batched.chunk_classes(cls, 512, pd.halo, A10),
+                                             A10, dev)
+        # The step loop's three main-path shapes, one rank holding the whole
+        # table: the 10k planes and count, the 1M count-packed count.
+        cells = scan_variants.step_cells(table10k, w10, pd.halo, pd.state_bits, table1m, w1m,
+                                         halo1m_host, sb1m_host)
+        mesh_of = {"10k planes": st10k, "10k count": st10k, "1M count_packed": st1m}
+        # The step and its prep against their twins, launch by launch (not a path).
+        twins = {label: step_loop_vs_twin(label, *cell, mesh_of[label], errs)
+                 for label, cell in cells.items()}
+
+        def reduce(bufs):
+            dist.all_reduce(bufs[0].view(torch.int32), group=world)
+
+        def as_words(x):
+            return x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF if x.dim() else x.reshape(1)
+
+        loop_graphs = {}
+
+        def graph_path():
+            """group_scan with NCCL's all_reduce: eager, then with a
+            StepGraphs (its first call of the key runs eagerly, its second
+            captures and replays, here on other windows of the shape: each
+            window's classes reversed), then replayed on the first windows
+            again; each == the twin and table_sharded_scan."""
+            done = []
+            for label, (shard, w, halo, sb, mode) in cells.items():
+                graphs = ktp.StepGraphs()
+                other = w.flip(1).contiguous()  # every window's classes reversed
+                runs = [ktp.group_scan([(0, shard)], x, halo, sb, mode, reduce, g)[0]
+                        for x, g in ((w, None), (w, graphs), (other, graphs), (w, graphs))]
+                mesh = [as_words(ktp.table_sharded_scan(mesh_of[label], x, halo, sb, mode))
+                        for x in (w, other)]
+                want = (twins[label], mesh[0], mesh[1], mesh[0])
+                if len(graphs) != 1 or not torch.equal(twins[label], mesh[0]) or any(
+                        not torch.equal(as_words(g), x) for g, x in zip(runs, want)):
+                    raise AssertionError(f"group_scan {label}: the eager loop, the graph or its "
+                                         f"replays != the twin or table_sharded_scan")
+                if torch.equal(mesh[0], mesh[1]):
+                    raise AssertionError(f"group_scan {label}: the two windows scan the same")
+                loop_graphs[label] = graphs
+                done.append(f"{label}: eager == graph == twin == table_sharded_scan, "
+                            f"captured and replayed on other windows, replayed again ({halo} + "
+                            f"{ktp.step_segments(w.shape[0], w.shape[1] - halo, halo, mode)[1]} "
+                            f"steps)")
+            return "; ".join(done)
+
+        run_path("group_scan, NCCL world 1: eager and as a CUDA graph", step_kernel, graph_path)
+
+        # The step's times: the K sweep (each K's step, captured all_reduce,
+        # prep and loops), then, at step_segments' K, the step alone and with
+        # its all_reduce, one lane's launch, the eager loop, the graph replay
+        # and the mesh form's table_sharded_scan on the same windows.
+        sweep = scan_variants.step_sweep(cells, world)["step_sweep"]
+        print(f"step K sweep {json.dumps({'card': smi, **sweep})}")
+        for label, rows in sweep.items():
+            _, w_s, halo_s, _, mode_s = cells[label]
+            best = min(rows.values(), key=lambda r: r["model_ms"])
+            fastest = min(rows.values(), key=lambda r: r["replay_ms"])
+            print(f"step K sweep, {label}: " + "; ".join(
+                f"K={r['K']} {r['steps']} steps x ({r['step_ms']} + {r['all_reduce_ms']}) = "
+                f"{r['model_ms']} ms, graph {r['replay_ms']} ms, eager {r['eager_ms']} ms"
+                for r in rows.values()) + f"; least model: K={best['K']}, fastest replay: "
+                f"K={fastest['K']}; step_segments: K="
+                f"{ktp.step_segments(w_s.shape[0], w_s.shape[1] - halo_s, halo_s, mode_s)[0]} "
+                f"[{smi}]")
+
+        def step_times(label, shard, w, halo, sb, mode):
             B, W = w.shape
-            K, L = ktp.lane_segments(B, W - halo, halo, mode)
+            C = W - halo
+            K, L = ktp.step_segments(B, C, halo, mode)
             counting = mode in ("count", "count_packed")
 
             def buffers(lanes, body):
@@ -4169,63 +4286,76 @@ def main() -> int:
                 return (torch.zeros(lanes, dtype=torch.uint32, device=dev), out,
                         torch.zeros(1, dtype=torch.int64, device=dev) if counting else None)
 
-            words, out, total = buffers(B * K, B * (W - halo))
+            classes = ktp.step_classes(w, halo, (K, L))
+            words, out, total = buffers(B * K, B * C)
             t = halo + 1  # folds a body position and looks the next one up
-            step = lambda: ktp.table_sharded_step(shard, 0, words, w, t, halo, sb, mode, (K, L),
-                                                  out, total)
-            reduce = lambda: dist.all_reduce(words.view(torch.int32), group=world)
+            step = lambda: ktp.table_sharded_step(shard, 0, words, classes, t, halo, sb, mode,
+                                                  (K, L), C, out, total)
+            reduce_words = lambda: dist.all_reduce(words.view(torch.int32), group=world)
             # One lane of one window of halo + 4 classes: the launch's latency floor.
-            w1 = w[:1, : halo + 4].contiguous()
+            c1 = ktp.step_classes(w[:1, : halo + 4].contiguous(), halo, (1, 4))
             words1, out1, total1 = buffers(1, 4)
-            one = lambda: ktp.table_sharded_step(shard, 0, words1, w1, t, halo, sb, mode, (1, 4),
-                                                 out1, total1)
+            one = lambda: ktp.table_sharded_step(shard, 0, words1, c1, t, halo, sb, mode, (1, 4),
+                                                 4, out1, total1)
             # The eager masked-index chain of the JAX body's gather at the
             # lanes' states and step-t classes.
             flat64 = shard.view(torch.int32).reshape(-1).to(torch.int64) & 0xFFFFFFFF
             s64 = (words.view(torch.int32).to(torch.int64) & 0xFFFFFFFF) & ((1 << sb) - 1)
-            lane = torch.arange(B * K, device=dev)
-            ci = (lane % K) * L + t
-            bits = w.view(torch.int16) if w.dtype == torch.uint16 else w
-            c64 = torch.where(ci < W, bits[lane // K, ci.clamp(max=W - 1)].to(torch.int64)
-                              & 0xFFFF, 0)
+            c64 = classes[t].view(ktp._signed(classes.dtype)).to(torch.int64) & 0xFFFF
 
             def library_chain():
                 mine = s64 < shard.shape[0]
                 return torch.where(mine, flat64[torch.where(mine, s64, 0) * shard.shape[1] + c64],
                                    0)
 
-            step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs)
+            graphs = loop_graphs[label]
+            (graph, *_), = graphs._graphs.values()
             rec = {
                 "step": cuda_ms(step, 200), "card": cuda_ms(step, 200, queued=True),
-                "step_all_reduce": cuda_ms(lambda: (step(), reduce()), 200),
+                "step_all_reduce": cuda_ms(lambda: (step(), reduce_words()), 200),
+                "all_reduce_graph": sweep[label][f"K={K}"]["all_reduce_ms"],
                 "floor": cuda_ms(one, 200, queued=True),
-                "loop": cuda_ms(lambda: ktp.group_scan(
-                    [(0, shard)], w, halo, sb, mode,
-                    lambda bufs: dist.all_reduce(bufs[0].view(torch.int32), group=world)), 3),
-                "mesh_scan": cuda_ms(lambda: ktp.table_sharded_scan(mesh_table, w, halo, sb, mode),
-                                     20),
+                "loop": cuda_ms(lambda: ktp.group_scan([(0, shard)], w, halo, sb, mode, reduce),
+                                3),
+                "graph_call": cuda_ms(lambda: ktp.group_scan([(0, shard)], w, halo, sb, mode,
+                                                             reduce, graphs), 10),
+                "replay": cuda_ms(graph.replay, 10),
+                "mesh_scan": cuda_ms(lambda: ktp.table_sharded_scan(mesh_of[label], w, halo, sb,
+                                                                    mode), 20),
                 "plain": cuda_ms(lambda: ktp.table_sharded_step_plain(
-                    shard, 0, words, w, t, halo, sb, mode, (K, L), out, total), 3),
+                    shard, 0, words, classes, t, halo, sb, mode, (K, L), C, out, total), 3),
+                "prep": cuda_ms(lambda: ktp.step_classes(w, halo, (K, L), classes), 20),
+                "prep_card": cuda_ms(lambda: ktp.step_classes(w, halo, (K, L), classes), 20,
+                                     queued=True),
+                "prep_plain": cuda_ms(lambda: ktp.step_classes_plain(w, halo, (K, L)), 3),
                 "library": cuda_ms(library_chain, 20),
-                "lanes": B * K, "steps": halo + L, "window_bytes": w.element_size()}
-            print(f"time table_sharded_step, {label}, {mode} ({B} x {W} windows, K={K}, "
-                  f"{B * K} lanes, {halo + L} launches and all_reduces a call, NCCL world 1): "
-                  f"step through the wrapper {rec['step']} ms, card time {rec['card']} ms, step "
-                  f"+ all_reduce {rec['step_all_reduce']} ms, one-lane step (latency floor) "
-                  f"{rec['floor']} ms; the whole loop {rec['loop']} ms beside table_sharded_scan "
-                  f"({mesh_table.n_model} shards, the mesh form) {rec['mesh_scan']} ms; plain "
-                  f"twin {rec['plain']} ms, eager masked-index chain {rec['library']} ms [{smi}]")
+                # one PyTorch call for the prep where the lanes tile the body
+                # exactly: the windows' lane views, copied class-major
+                "prep_library": (cuda_ms(lambda: w.unfold(1, halo + L, L).permute(2, 0, 1)
+                                         .contiguous(), 20) if K * L == C else None),
+                "lanes": B * K, "steps": halo + L, "K": K, "window_bytes": w.element_size(),
+                "window_nbytes": w.numel() * w.element_size(),
+                "class_nbytes": classes.numel() * classes.element_size()}
+            print(f"time table_sharded_step, {label} ({B} x {W} windows, K={K}, {B * K} lanes, "
+                  f"{halo + L} launches and all_reduces a call, NCCL world 1): step through the "
+                  f"wrapper {rec['step']} ms, card time {rec['card']} ms, step + all_reduce "
+                  f"{rec['step_all_reduce']} ms, captured all_reduce {rec['all_reduce_graph']} "
+                  f"ms, one-lane step (latency floor) {rec['floor']} ms; the eager loop "
+                  f"{rec['loop']} ms, the graph through group_scan {rec['graph_call']} ms, its "
+                  f"bare replay {rec['replay']} ms, beside table_sharded_scan "
+                  f"({mesh_of[label].n_model} shards, the mesh form) {rec['mesh_scan']} ms; "
+                  f"plain twin {rec['plain']} ms, eager masked-index chain {rec['library']} ms; "
+                  f"the prep table_sharded_classes {rec['prep']} ms through the wrapper, "
+                  f"{rec['prep_card']} ms card time, twin {rec['prep_plain']} ms, the lane views "
+                  f"copied class-major (one PyTorch call) {rec['prep_library']} ms [{smi}]")
             return rec
 
-        print(f"group-form facades (NCCL world 1, with its set-up): "
-              f"{time.perf_counter() - group_t0} s")
-        A10 = table10k.shape[1]
-        w10 = scan_batched.classes_to_device(scan_batched.chunk_classes(cls, 512, pd.halo, A10),
-                                             A10, dev)
-        step_rec = {mode: step_times("10k keywords x 32 Mi units", table10k, w10, pd.halo,
-                                     pd.state_bits, mode, st10k) for mode in ("planes", "count")}
-        step_rec["1M"] = step_times("1M keywords x 32 Mi units (count-packed table)", table1m,
-                                    w1m, halo1m_host, sb1m_host, "count_packed", st1m)
+        step_rec = {{"10k planes": "planes", "10k count": "count",
+                     "1M count_packed": "1M"}[label]: step_times(label, *cell)
+                    for label, cell in cells.items()}
+        del loop_graphs
+        print(f"group_scan phases (NCCL world 1: step vs twin, the graph path, the K sweep, "
+              f"step times): {time.perf_counter() - t_loop} s")
     finally:
         dist.destroy_process_group()
         shutil.rmtree(group_dir, ignore_errors=True)
@@ -4249,6 +4379,13 @@ def main() -> int:
         cls_g = cls[:BASE_UNITS]
         np.savez(data, table=table10k, cls=cls_g, halo=pd.halo, state_bits=pd.state_bits)
         out = []
+        # The eager step loop's launches a rank, five modes: halo + L + 1 a
+        # mode at step_segments' lanes over the rank's windows (all of them
+        # at world 2, half at world 4's (2, 2)).
+        B_g = scan_batched.chunk_classes(cls_g, 512, pd.halo, table10k.shape[1]).shape[0]
+        want_steps = {world_size: sum(pd.halo + ktp.step_segments(
+            -(-B_g // n_data), 512, pd.halo, mode)[1] + 1 for mode in ktp.MODES)
+            for world_size, n_data in ((2, 1), (4, 2))}
         for world_size, layout in ((2, [dev_index] * 2),
                                    (4, sharding.dp_tp_mesh([dev_index] * 4, (2, 2)))):
             want = {mode: sharding._table_sharded_run(table10k, cls_g, pd.halo, pd.state_bits,
@@ -4278,13 +4415,15 @@ def main() -> int:
                         if not np.array_equal(z[mode], w):
                             raise AssertionError(f"gloo world {world_size}, rank {r}, mode "
                                                  f"{mode}: != the mesh form")
-                    steps, scans = z["launches"]
-                    if steps < len(ktp.MODES) or scans:
+                    steps, scans, preps = z["launches"]
+                    if steps != want_steps[world_size] or scans or preps != len(ktp.MODES):
                         raise AssertionError(f"gloo world {world_size}, rank {r}: launches "
-                                             f"table_sharded_step {steps}, table_sharded_scan "
-                                             f"{scans}")
+                                             f"table_sharded_step {steps} (want "
+                                             f"{want_steps[world_size]}), table_sharded_scan "
+                                             f"{scans}, table_sharded_classes {preps}")
             out.append(f"world {world_size} ({'1-axis' if world_size == 2 else '(2, 2)'}): "
-                       f"every rank's five modes == the mesh form, {steps} step launches a rank, "
+                       f"every rank's five modes == the mesh form, {steps} step launches a rank "
+                       f"(halo + L + 1 a mode), {preps} preps, "
                        f"{seconds} s with the spawn")
         return "; ".join(out)
 
@@ -4964,6 +5103,7 @@ def main() -> int:
         st10k, w_full, pd.halo, pd.state_bits, md))(mode), 1) for mode in ("count", "planes")}
     ms["table_sharded_scan"] = (tp_ms["planes"], tp_plain["planes"])
     ms["table_sharded_step"] = (step_rec["planes"]["step"], step_rec["planes"]["plain"])
+    ms["table_sharded_classes"] = (step_rec["planes"]["prep"], step_rec["planes"]["prep_plain"])
     print(f"time table_sharded_scan at {tuple(w_full.shape)} windows, 10k table "
           f"{tuple(table10k.shape)} in {N_SHARDS} shards of {st10k.rows_per} rows: "
           + ", ".join(f"{k} {v} ms ({gbps(v)} GB/s)" for k, v in tp_ms.items())
@@ -5651,6 +5791,11 @@ def main() -> int:
         "table_sharded_step": (step_rec["planes"]["lanes"]
                                * (16 + step_rec["planes"]["window_bytes"]),
                                8 * step_rec["planes"]["lanes"]),
+        # the step loop's prep at the 10k planes: the windows in, the
+        # class-major classes out; an index and a compare a class
+        "table_sharded_classes": (step_rec["planes"]["window_nbytes"]
+                                  + step_rec["planes"]["class_nbytes"],
+                                  2 * step_rec["planes"]["steps"] * step_rec["planes"]["lanes"]),
         # windows in (a count out, or 4 B per body position), one lookup per
         # pair but the same shifts and popcounts per position
         "rowdfa2_count": (nbytes(w_row) + 8, 4 * w_row.numel()),
@@ -5700,6 +5845,7 @@ def main() -> int:
     library.update(probe_library)
     library["compact_planes"] = cuda_ms(library_compact, 20)
     library["table_sharded_step"] = step_rec["planes"]["library"]
+    library["table_sharded_classes"] = step_rec["planes"]["prep_library"]
     print(f"time library compact (torch.nonzero + gather, P = 1, {plane0.numel()} positions): "
           f"{library['compact_planes']} ms [{smi}]")
 

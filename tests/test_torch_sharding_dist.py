@@ -3,8 +3,10 @@
 same inputs: counts, planes, whole-word-longest walks on both branches,
 arrival states (the stitch's forms for any table, and its synchronized
 forms with ``sync_depth``), the table-sharded scan (one rank per row shard,
-the step loop with an ``all_reduce`` per character; and the 2-axis
-``dp_tp_groups`` layout against ``dp_tp_mesh``), the data-parallel
+the step loop with an ``all_reduce`` per step; the 2-axis
+``dp_tp_groups`` layout against ``dp_tp_mesh``, and the ``(world, 1)``
+layout, whose one-rank model axis scans with ``table_sharded_scan`` and
+never the step loop), the data-parallel
 ``ShardedScanner`` of every kind and its stream, and the launch glue's
 per-process shards.  One
 spawn per world size runs every case; each rank writes
@@ -32,6 +34,7 @@ CASES = ("count_packed", "count_packedcount", "count_reps", "planes_packed", "pl
          "tp_ac", "tp_ac_stream", "tp_hotstate", "tp_longest", "tp_shortest", "tp_wwl_mixed",
          *(f"tp_deep_{mode}" for mode in MODES),
          "tp2_count", "tp2_run_planes", "tp2_ac", "tp2_longest", "tp2_wwl_mixed",
+         "tp1_count", "tp1_run_planes", "tp1_run_raw",
          "dp_ac", "dp_ac_stream", "dp_ac_layout", "dp_longest", "dp_shortest", "dp_whole_word",
          "dp_wwl", "launch_count")
 _INIT_TIMEOUT = datetime.timedelta(seconds=60)
@@ -168,6 +171,38 @@ def _run_cases(mesh=None, group=None):
                                   _text(51, 2500, "abc"))
     out["tp2_wwl_mixed"] = triples2(mixed, _text(58, 2400, ["new", "york", " ", "a", "b "]))
 
+    # A model axis of one rank, the (world, 1) layout: every rank holds the
+    # whole table and scans its data slice with table_sharded_scan (its twin
+    # on CPU ranks), never the step loop; a spy on both counts.
+    from ahocorasick_tpu_torch.kernels import table_sharded
+
+    n = len(mesh) if group is None else torch.distributed.get_world_size(group)
+    one = (dict(mesh=sharding.dp_tp_mesh(mesh, (n, 1))) if group is None
+           else dict(group=sharding.dp_tp_groups((n, 1), group=group), device="cpu"))
+    calls, saved = [], (table_sharded.group_scan, table_sharded.table_sharded_scan_plain)
+
+    def never(*args, **kwargs):
+        raise AssertionError("group_scan at a one-rank model axis")
+
+    def spy(table, *args):
+        calls.append(table.n_model)
+        return saved[1](table, *args)
+
+    table_sharded.group_scan, table_sharded.table_sharded_scan_plain = never, spy
+    try:
+        out["tp1_count"] = np.asarray([
+            sharding.sharded_table_count(pd.table, cls, pd.halo, pd.state_bits, chunk=256, **one),
+            small.count(text)])
+        for mode in ("planes", "raw"):
+            got = sharding._table_sharded_run(pd.table, cls[:1024], pd.halo, pd.state_bits,
+                                              one.get("mesh"), 256, mode,
+                                              group=one.get("group"), device="cpu")
+            out[f"tp1_run_{mode}"] = got.view(torch.int32).numpy()
+    finally:
+        table_sharded.group_scan, table_sharded.table_sharded_scan_plain = saved
+    # one scan a call: a rank's slice, or each of the mesh's n model groups
+    assert calls == [1] * (3 if group is not None else 3 * n), calls
+
     # The data-parallel facade: every kind and its stream.
     def scanner(m, form=form):
         return sharding.ShardedScanner(m, form["mesh"], group=form["group"])
@@ -262,7 +297,7 @@ def test_group_form_equals_device_list_form(ranks_and_mesh, case):
     for got in ranks:  # every rank returns the full result
         assert got[case].dtype == want[case].dtype and got[case].shape == want[case].shape
         np.testing.assert_array_equal(got[case], want[case])
-    if case.startswith("count_p") or case in ("tp_count", "tp2_count"):
+    if case.startswith("count_p") or case in ("tp_count", "tp2_count", "tp1_count"):
         assert want[case][0] == want[case][1] > 0  # the single-device count
 
 

@@ -1,13 +1,17 @@
 """The table-sharded scan as the ranks of a process group run it, in one
-process: ``kernels.table_sharded.group_scan`` over the twin of
-``table_sharded_step`` (CPU tensors), every rank of the model axis simulated
-and the per-character ``all_reduce`` replaced by the sum of their word
-buffers, vs the JAX package's ``_table_sharded_run`` on the 8-device CPU mesh
-of ``tests/conftest.py``: all five modes on the 1-axis mesh of 8 and the
-2-axis (2, 4) mesh, on the tables of ``tests/test_torch_table_sharded.py``.
-Then the 2-axis group layout's shape rule and refusals (a process group of
-one rank in this process), a state past the last shard and the ragged last
-segment.  Everything compared is an integer, so every comparison is exact."""
+process: ``kernels.table_sharded.group_scan`` over the twins of
+``table_sharded_step`` and its class-major prep ``step_classes`` (CPU
+tensors), every rank of the model axis simulated and the per-step
+``all_reduce`` replaced by the sum of their word buffers, vs the JAX
+package's ``_table_sharded_run`` on the 8-device CPU mesh of
+``tests/conftest.py``: all five modes on the 1-axis mesh of 8 and the 2-axis
+(2, 4) mesh, on the tables of ``tests/test_torch_table_sharded.py``, at the
+lanes of ``step_segments`` and at K = 8 and 16 forced.  Then the 2-axis
+group layout's shape rule and refusals (a process group of one rank in this
+process, whose one-rank model axis scans with ``table_sharded_scan`` and
+never the step loop), a state past the last shard, the ragged last segment,
+the prep's twin against direct indexing, and the step wrapper's refusals.
+Everything compared is an integer, so every comparison is exact."""
 
 import functools
 
@@ -79,14 +83,28 @@ def _jax_run_2d(name, mode):
                                                 mode))
 
 
+def _force_k(monkeypatch, k):
+    """``step_segments`` at most ``k`` lanes a window, whatever the windows'
+    number (None: the rule as it stands)."""
+    if k is not None:
+        monkeypatch.setattr(kernels, "STEP_MAX_K", dict.fromkeys(kernels.MODES, k))
+        monkeypatch.setattr(kernels, "STEP_MAX_LANES", 1 << 40)
+
+
+@pytest.mark.parametrize("k", [None, 8, 16], ids=["rule", "K8", "K16"])
 @pytest.mark.parametrize("shape", [(1, 8), (2, 4)], ids=["model8", "data2_model4"])
 @pytest.mark.parametrize("mode", MODES)
 @pytest.mark.parametrize("name", ["packed", "count_packed", "wwl"])
-def test_step_loop_equals_jax(name, mode, shape):
+def test_step_loop_equals_jax(name, mode, shape, k, monkeypatch):
     table, cls, halo, sb = _table(name)
     want = _jax_run(name, mode) if shape == (1, 8) else _jax_run_2d(name, mode)
+    _force_k(monkeypatch, k)
+    windows = _windows(table, cls, halo)
+    B, W = windows.shape
+    K, L = kernels.step_segments(B // shape[0], W - halo, halo, mode)
+    assert K == (1 if halo == 0 else k or kernels.STEP_MAX_K[mode]) and K * L == W - halo
     before = dict(launches)
-    got = _simulated(table, _windows(table, cls, halo), halo, sb, shape, mode)
+    got = _simulated(table, windows, halo, sb, shape, mode)
     assert launches == before  # the twin counts no launches
     if mode in ("count", "count_packed"):
         assert got == int(want)
@@ -158,20 +176,25 @@ def test_states_past_the_last_shard_read_zero_on_every_rank(n_model):
                        kernels.table_sharded_scan(st, w, 0, 3, "raw").view(torch.int32))
 
 
-@pytest.mark.parametrize("K", [1, 2, 4])
+@pytest.mark.parametrize("K", [1, 2, 4, 8, 16])
 def test_ragged_last_segment(K, monkeypatch):
-    """Bodies of 130 classes cut into K lanes of L (the last one shorter, 22
-    positions at K = 4): the step loop counts and stores nothing past a
-    window's body, uint8, uint16 and int32 windows alike, == the device-list
-    form's twin and the JAX 1-axis scan."""
+    """Bodies of 130 classes cut into K lanes of L = ceil(130 / K) (two of
+    65 at K = 2; the last one shorter at K = 4 and 8, 31 and 11 positions;
+    K = 16 gives 15 lanes of 9, the last of 4): the step loop counts and
+    stores nothing past a window's body, uint8, uint16 and int32 windows
+    alike, == the device-list form's twin (its own lanes, K <= 4, the caps
+    patched) and the JAX 1-axis scan."""
     table, cls, halo, sb = _table("packed")
     windows = _windows(table, cls, halo, chunk=130)
     B, W = windows.shape
     for cap in ("MAX_LANES", "COUNT_MAX_LANES"):
-        monkeypatch.setattr(scan_block, cap, B * K)
+        monkeypatch.setattr(scan_block, cap, B * min(K, 4))
+    _force_k(monkeypatch, K)
     for mode in MODES:
-        K_got, L = kernels.lane_segments(B, W - halo, halo, mode)
-        assert K_got == K and (K == 1 or (K - 1) * L < W - halo < K * L)
+        K_mesh, L_mesh = kernels.lane_segments(B, W - halo, halo, mode)
+        assert K_mesh == min(K, 4)
+        K_got, L = kernels.step_segments(B, W - halo, halo, mode)
+        assert K_got == {16: 15}.get(K, K) and (K == 1 or (K_got - 1) * L < W - halo <= K_got * L)
         want = np.asarray(jax_sh._table_sharded_run(table, cls, halo, sb, _jmesh(), 130, mode))
         st = kernels.ShardedTable([s for _, s in _shards(table, 3)])
         plain = kernels.table_sharded_scan_plain(st, windows, halo, sb, mode)
@@ -187,26 +210,129 @@ def test_ragged_last_segment(K, monkeypatch):
                 np.testing.assert_array_equal(_np(got), want)
 
 
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.uint16, torch.int32],
+                         ids=["uint8", "uint16", "int32"])
+@pytest.mark.parametrize("K", [1, 2, 3, 8, 16, 32])
+def test_step_classes_twin_equals_direct_indexing(K, dtype, monkeypatch):
+    """The prep's twin (``step_classes``, CPU: ``step_classes_plain``):
+    ``classes[t, b * K + k] == windows[b, k * L + t]`` where that lies in the
+    row, else 0, for a ragged body of 101 (the last lane shorter) and a
+    halo of 5; the values span the type (uint16 past 2**15, negative int32
+    never: classes are not negative)."""
+    rng = np.random.default_rng(K)
+    B, halo, C = 7, 5, 101
+    top = {torch.uint8: 256, torch.uint16: 1 << 16, torch.int32: 1 << 20}[dtype]
+    host = rng.integers(0, top, size=(B, halo + C))
+    w = torch.from_numpy(host.astype(np.int32))
+    w = w.to(torch.int16).view(torch.uint16) if dtype == torch.uint16 else w.to(dtype)
+    _force_k(monkeypatch, K)
+    K_got, L = kernels.step_segments(B, C, halo, "planes")
+    assert (K_got - 1) * L < C <= K_got * L and K_got <= K
+    got = kernels.step_classes(w, halo, (K_got, L))
+    assert got.dtype == dtype and tuple(got.shape) == (halo + L, B * K_got)
+    assert torch.equal(got.view(kernels._signed(dtype)),
+                       kernels.step_classes_plain(w, halo, (K_got, L)).view(kernels._signed(dtype)))
+    want = np.zeros((halo + L, B * K_got), dtype=np.int64)
+    for b in range(B):
+        for k in range(K_got):
+            for t in range(halo + L):
+                if k * L + t < halo + C:
+                    want[t, b * K_got + k] = host[b, k * L + t]
+    np.testing.assert_array_equal(_np(got).astype(np.int64) & (top - 1 if top < 1 << 20 else -1),
+                                  want)
+    out = torch.empty_like(got)
+    assert kernels.step_classes(w, halo, (K_got, L), out) is out and torch.equal(
+        out.view(kernels._signed(dtype)), got.view(kernels._signed(dtype)))
+
+
+def test_one_rank_model_axis_scans_in_one_launch(tmp_path, monkeypatch):
+    """A model axis of one rank (gloo world 1 here): the rank holds the whole
+    table and scans with ``table_sharded_scan`` (its twin on CPU ranks), in
+    every mode, never the step loop; == the device-list form."""
+    assert not dist.is_initialized()
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", rank=0,
+                            world_size=1)
+    try:
+        calls = []
+
+        def never(*args, **kwargs):
+            raise AssertionError("group_scan at a one-rank model axis")
+
+        def spy(table, *args):
+            calls.append(table.n_model)
+            return plain(table, *args)
+
+        plain = kernels.table_sharded_scan_plain
+        monkeypatch.setattr(kernels, "group_scan", never)
+        monkeypatch.setattr(kernels, "table_sharded_scan_plain", spy)
+        table, cls, halo, sb = _table("count_packed")
+        for form in (dist.group.WORLD, port_sh.dp_tp_groups((1, 1))):
+            for mode in MODES:
+                got = port_sh._table_sharded_run(table, cls, halo, sb, None, CHUNK, mode,
+                                                 group=form, device="cpu")
+                want = port_sh._table_sharded_run(table, cls, halo, sb, [CPU], CHUNK, mode)
+                assert (got == want if isinstance(want, int)
+                        else torch.equal(got.view(torch.int32), want.view(torch.int32)))
+        assert calls == [1] * 20  # the group form's and the device-list form's, every mode
+    finally:
+        dist.destroy_process_group()
+
+
+def test_step_graphs_leave_cpu_windows_eager():
+    """``group_scan`` with a ``StepGraphs`` on CPU windows runs the eager
+    loop (graphs are CUDA's) and captures nothing."""
+    table, cls, halo, sb = _table("packed")
+    windows = _windows(table, cls, halo)
+    graphs = kernels.StepGraphs()
+    ranks = _shards(table, 2)
+    for mode in ("count", "planes"):
+        got = kernels.group_scan(ranks, windows, halo, sb, mode, _sum_ranks, graphs)
+        want = kernels.group_scan(ranks, windows, halo, sb, mode, _sum_ranks)
+        for g, w in zip(got, want):
+            assert torch.equal(g.view(torch.int32), w.view(torch.int32)) if g.dim() else g == w
+    assert len(graphs) == 0
+
+
 def test_step_wrapper_refuses_bad_buffers():
     table, cls, halo, sb = _table("packed")
     windows = _windows(table, cls, halo)
     B, W = windows.shape
+    C = W - halo
     (k, shard), = _shards(table, 1)
-    K, L = kernels.lane_segments(B, W - halo, halo, "planes")
+    K, L = kernels.step_segments(B, C, halo, "planes")
+    classes = kernels.step_classes(windows, halo, (K, L))
     words = torch.zeros(B * K, dtype=torch.uint32)
-    plane = torch.empty((1, B * (W - halo)), dtype=torch.uint32)
-    step = functools.partial(kernels.table_sharded_step, shard, k, words, windows)
+    plane = torch.empty((1, B * C), dtype=torch.uint32)
+    step = functools.partial(kernels.table_sharded_step, shard, k, words, classes)
     with pytest.raises(ValueError, match="not in 0 .. halo"):
-        step(halo + L + 1, halo, sb, "planes", (K, L), plane)
-    with pytest.raises(ValueError, match="do not cut"):
-        step(0, halo, sb, "planes", (K, L - 4), plane)
+        step(halo + L + 1, halo, sb, "planes", (K, L), C, plane)
+    # Splits step_segments would not make: L off ceil(C / K), more than 32
+    # lanes, a split without a halo to warm over, an empty last lane.
+    for bad, h in (((K, L + 1), halo), ((33, -(-C // 33)), halo), ((2, C // 2), 0),
+                   ((2, C), halo)):
+        assert not kernels.valid_step_segments(bad, C, h)
+        with pytest.raises(ValueError, match="do not cut"):
+            kernels.table_sharded_step(shard, k, words, classes, 0, h, sb, "planes", bad, C,
+                                       plane)
+        with pytest.raises(ValueError, match="do not cut"):
+            kernels.step_classes(windows[:, halo - h:].contiguous(), h, bad)
+    with pytest.raises(ValueError, match="steps, not halo"):
+        kernels.table_sharded_step(shard, k, words, classes[1:], 0, halo, sb, "planes", (K, L),
+                                   C, plane)
     with pytest.raises(TypeError, match="total must be"):
-        step(0, halo, sb, "count", (K, L), torch.zeros(B * K, dtype=torch.int64))
+        step(0, halo, sb, "count", (K, L), C, torch.zeros(B * K, dtype=torch.int64))
     with pytest.raises(TypeError, match="words must be"):
-        kernels.table_sharded_step(shard, k, words[1:], windows, 0, halo, sb, "planes", (K, L),
-                                   plane)
+        kernels.table_sharded_step(shard, k, words[1:], classes, 0, halo, sb, "planes", (K, L),
+                                   C, plane)
     with pytest.raises(TypeError, match="the shard must be"):
-        kernels.table_sharded_step(shard.view(torch.int32), k, words, windows, 0, halo, sb,
-                                   "planes", (K, L), plane)
+        kernels.table_sharded_step(shard.view(torch.int32), k, words, classes, 0, halo, sb,
+                                   "planes", (K, L), C, plane)
+    with pytest.raises(TypeError, match="classes must be"):
+        kernels.table_sharded_step(shard, k, words, classes.t(), 0, halo, sb, "planes", (K, L),
+                                   C, plane)
     with pytest.raises(ValueError, match="unknown mode"):
-        step(0, halo, sb, "states", (K, L), plane)
+        step(0, halo, sb, "states", (K, L), C, plane)
+    with pytest.raises(ValueError, match="unknown mode"):
+        kernels.step_segments(B, C, halo, "states")
+    with pytest.raises(TypeError, match="windows must be"):
+        kernels.step_classes(windows.to(torch.int64), halo, (K, L))
