@@ -24,10 +24,14 @@ the functions of ``parallel/sharding.py``.  This module is the bring-up glue:
 After ``initialize``, ``group=torch.distributed.group.WORLD`` (or its 2-axis
 layout, ``sharding.dp_tp_groups()``) drives both facades,
 ``sharding.ShardedScanner`` and ``sharding.TableShardedScanner``, on CPU
-ranks and on CUDA ranks, each rank on its own device; the table-sharded one
-runs the step kernel of ``kernels/table_sharded.py`` with an ``all_reduce`` a
-character.  Run: gloo on CPU ranks, NCCL at world 1 and gloo with CUDA
-tensors at worlds 2 and 4 on one card; NCCL at world > 1 is unverified.
+ranks and on CUDA ranks, each rank on its own device.  The collectives by
+backend: the data-parallel functions fetch their halos by one ``all_gather``
+under gloo (CPU and CUDA tensors) and by ``batch_isend_irecv`` under NCCL,
+and reduce with ``all_reduce`` / ``all_gather``; the table-sharded one runs
+the step kernel of ``kernels/table_sharded.py`` with an ``all_reduce`` a
+character, and this module's capacity check is an ``all_gather``.  Run: gloo
+on CPU ranks, gloo with CUDA tensors at worlds 2 and 4 on one card (both
+facades) and NCCL at world 1; NCCL at world > 1 is unverified.
 """
 
 from __future__ import annotations
@@ -122,10 +126,12 @@ def prepare_process_local(
 
     A single-process job passes its ``mesh`` (a list of devices) and gets
     every shard at offset 0, so the same launch code runs everywhere.  A
-    multi-process job passes ``group=`` (and this rank's ``device``; None
-    means CUDA): rank r holds the units from ``r * local_units`` on, and the
-    ranks check that they were all given the same ``local_units``, since a
-    rank with another capacity would shift every later rank's offsets."""
+    multi-process job passes ``group=`` (a process group or a
+    ``sharding.dp_tp_groups`` layout, taken as its parent; and this rank's
+    ``device``, None meaning CUDA): rank r holds the units from ``r *
+    local_units`` on, and the ranks check that they were all given the same
+    ``local_units``, since a rank with another capacity would shift every
+    later rank's offsets."""
     from ahocorasick_tpu_torch.models.matchers import _resolve_device
 
     sh = sharding._Shards(mesh, group, None if group is None else _resolve_device(device))
@@ -134,7 +140,7 @@ def prepare_process_local(
 
         mine = torch.tensor([int(local_units)], dtype=torch.int64, device=sh.devices[sh.ranks[0]])
         every = [torch.zeros_like(mine) for _ in range(sh.world)]
-        dist.all_gather(every, mine, group=group)
+        dist.all_gather(every, mine, group=sh.group)
         if len({int(t) for t in every}) != 1:
             raise ValueError(
                 f"local_units differs between ranks ({[int(t) for t in every]}); "

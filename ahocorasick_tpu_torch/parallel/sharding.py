@@ -25,14 +25,19 @@ function per rank over the existing kernels, in either of two forms:
   counts and the gather a concatenation.  Tables are uploaded once per
   distinct device;
 * **a process group** (``group=``, one rank per process under
-  ``torch.distributed``: gloo on the CPU, NCCL over several GPUs): every rank
-  calls the same function with the same host classes, takes its own shard on
-  its own device, fetches its halos with ``batch_isend_irecv`` and reduces
-  with ``all_reduce`` / ``all_gather``; every rank returns the full result.
-  The 2-axis group object of ``dp_tp_groups`` is taken as its parent group.
-  The gloo form has been run on CPU ranks and NCCL at world 1; NCCL at world
-  > 1 is unverified.  The halos' point-to-point sends need NCCL on CUDA
-  ranks (gloo carries them for CPU tensors only).
+  ``torch.distributed``: gloo on the CPU or several ranks on one card, NCCL
+  over several GPUs): every rank calls the same function with the same host
+  classes, takes its own shard on its own device, fetches its halos from its
+  neighbours and reduces with ``all_reduce`` / ``all_gather``; every rank
+  returns the full result.  The 2-axis group object of ``dp_tp_groups`` is
+  taken as its parent group.
+  Which collective carries the halos depends on the backend: under gloo one
+  ``all_gather`` of a fixed-size record a rank (its tail and its head as
+  bytes), since gloo carries point-to-point sends of CPU tensors only but
+  ``all_gather`` of CPU and CUDA tensors alike; under NCCL
+  ``batch_isend_irecv`` to the two neighbours.  Run: gloo on CPU ranks, gloo
+  with CUDA tensors at worlds 2 and 4 on one card, NCCL at world 1 (where no
+  halo travels); NCCL at world > 1 is unverified.
 
 **Table-sharded** (``TableShardedScanner``, ``sharded_table_count``), for
 dictionaries whose packed table exceeds one device's memory.  The packed table
@@ -211,7 +216,9 @@ class _Shards:
 
     def halos(self, shards: dict, left: int, right: int) -> dict:
         """rank -> ``(left halo, right halo)`` of ``left`` / ``right``
-        classes on the rank's device."""
+        classes on the rank's device.  Under a gloo group the halos travel
+        by one ``all_gather`` (``_gloo_halos``), under any other backend by
+        point-to-point sends (``_p2p_halos``)."""
         if self.group is None:
             ordered = [shards[r] for r in range(self.world)]
             return {r: (_left_halo(ordered, r, left), _right_halo(ordered, r, right))
@@ -222,23 +229,57 @@ class _Shards:
         mine = shards[rank]
         lh = torch.zeros(left, dtype=mine.dtype, device=mine.device)
         rh = torch.zeros(right, dtype=mine.dtype, device=mine.device)
-        peer = lambda r: dist.get_global_rank(self.group, r)
         # Bytes travel: gloo carries neither uint16 nor uint32 tensors.
-        sends = [mine[mine.shape[0] - left :].contiguous().view(torch.uint8),
-                 mine[:right].contiguous().view(torch.uint8)]
+        tail = mine[mine.shape[0] - left :].contiguous().view(torch.uint8)
+        head = mine[:right].contiguous().view(torch.uint8)
+        gloo = dist.get_backend(self.group) == dist.Backend.GLOO
+        exchange = self._gloo_halos if gloo else self._p2p_halos
+        exchange(tail, head, lh.view(torch.uint8), rh.view(torch.uint8))
+        return {rank: (lh, rh)}
+
+    def _p2p_halos(self, tail, head, lh, rh) -> None:
+        """``halos`` under NCCL: ``tail`` to rank r + 1 and ``head`` to rank
+        r - 1 by ``batch_isend_irecv``, rank r - 1's tail into ``lh`` and
+        rank r + 1's head into ``rh``; the ends stay zeros (``PAD_CLASS``).
+        The tests run it on gloo CPU ranks, which carry point-to-point sends
+        of CPU tensors."""
+        import torch.distributed as dist
+
+        rank = self.ranks[0]
+        left, right = len(tail), len(head)
+        peer = lambda r: dist.get_global_rank(self.group, r)
         ops = []
         if rank + 1 < self.world and left:
-            ops.append(dist.P2POp(dist.isend, sends[0], peer(rank + 1), self.group))
+            ops.append(dist.P2POp(dist.isend, tail, peer(rank + 1), self.group))
         if rank > 0 and right:
-            ops.append(dist.P2POp(dist.isend, sends[1], peer(rank - 1), self.group))
+            ops.append(dist.P2POp(dist.isend, head, peer(rank - 1), self.group))
         if rank > 0 and left:
-            ops.append(dist.P2POp(dist.irecv, lh.view(torch.uint8), peer(rank - 1), self.group))
+            ops.append(dist.P2POp(dist.irecv, lh, peer(rank - 1), self.group))
         if rank + 1 < self.world and right:
-            ops.append(dist.P2POp(dist.irecv, rh.view(torch.uint8), peer(rank + 1), self.group))
+            ops.append(dist.P2POp(dist.irecv, rh, peer(rank + 1), self.group))
         if ops:
             for req in dist.batch_isend_irecv(ops):
                 req.wait()
-        return {rank: (lh, rh)}
+
+    def _gloo_halos(self, tail, head, lh, rh) -> None:
+        """``halos`` under gloo, which carries point-to-point sends of CPU
+        tensors only: every rank contributes one record of the same size,
+        its ``tail`` then its ``head`` bytes, to one ``all_gather`` (CPU and
+        CUDA tensors alike); rank r's left halo ``lh`` is filled from rank r
+        - 1's tail, its right halo ``rh`` from rank r + 1's head, and the
+        ends stay zeros (``PAD_CLASS``)."""
+        import torch.distributed as dist
+
+        if self.world == 1 or not (len(tail) or len(head)):
+            return
+        record = torch.cat([tail, head])
+        every = [torch.empty_like(record) for _ in range(self.world)]
+        dist.all_gather(every, record, group=self.group)
+        rank = self.ranks[0]
+        if rank > 0:
+            lh.copy_(every[rank - 1][: len(tail)])
+        if rank + 1 < self.world:
+            rh.copy_(every[rank + 1][len(tail) :])
 
     def total(self, counts: dict) -> int:
         """Sum of the per-rank counts (0-d int64 tensors) over all ranks."""

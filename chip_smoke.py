@@ -228,7 +228,25 @@ port only, the dictionary and text generators included (``bench.headline``,
    == ``table_sharded_scan``; then 2 and 4 gloo ranks spawned on the one
    card with CUDA tensors (``gloo_rank``): the 1-axis group form at world 2
    and the (2, 2) layout at world 4, the eager step loop with halo + L + 1
-   launches a mode, every mode == the mesh form;
+   launches a mode, every mode == the mesh form; then the data-parallel
+   group form in the same ranks (``gloo_dp_work``; the halos travel by one
+   ``all_gather``): each rank loads the 10k dictionary's five set kinds and
+   its AC map from npz artifacts the parent saved and runs, over the first
+   1 Mi units,
+   ``ShardedScanner(group=)`` ``count`` and ``match_triples`` of each, the
+   AC stream in seeded uneven pieces with a ``state_dict`` resume,
+   ``sharded_arrival_states`` without and with ``sync_depth``,
+   ``sharded_wwl_walks`` and ``launch.prepare_process_local`` (one slice a
+   rank) with the sharded count, under the process group at world 2 and its
+   (2, 2) layout at world 4: every result == the mesh form over ``[cuda:0]
+   * world`` (``dp_group_results`` in this process), each rank's paths
+   launch the mesh form's kernels (``DP_KERNELS`` among them), and a spy
+   shows ``batch_isend_irecv`` never called; then the randomized
+   differential soak (``ahocorasick_tpu_torch.soak``): ``SOAK_TRIALS``
+   seeded trials (every class, random dictionaries and texts, a drawn
+   ``device_engine``, now and then a long text streamed either side of the
+   device threshold, the sharded scanners on one trial in four) == gold,
+   each of ``SOAK_KERNELS`` launched;
    every
    AC-family kind through ``device_engine="batched2"`` == the default
    engine's triples, with its ``run_config`` record; the probes' entry point
@@ -448,6 +466,16 @@ SHORTEST_TWIN_UNITS = 1 << 16
 N_SHARDS = 8  # the sharded scanner's mesh: eight shards on the one card
 CORPUS_DOCS = 300  # scan_corpus: seeded documents of 0 to 4 Ki units
 GLOO_JOIN_S = 300  # the gloo spawn's ranks: their collectives' and their join's timeout
+SOAK_SEED = 27  # the soak phase: seeded trials of ahocorasick_tpu_torch.soak
+SOAK_TRIALS = 200  # 300 took 23.0-30.4 s on an H100 80GB HBM3 at 700 W
+# Kernels the soak phase's trials must each launch at least once: the
+# packed, count-packed / hotstate, stride-2 and PFAC scans, the compaction,
+# the WWL scans (fused, and plane + sweep under the sharded scanner), the
+# sequential and shortest restart scans, and the table-sharded scan.
+SOAK_KERNELS = ("packed_scan_count", "packed_scan_planes", "compact_planes",
+                "packedcount_count", "packedcount_hotstate_plane", "rowdfa2_count",
+                "rowdfa2_planes", "pfac2_planes", "wwl_scan_fused", "wwl_scan_plane",
+                "wwl_sweep_all", "seq_states", "shortest_states", "table_sharded_scan")
 ARRIVAL_UNITS_10K = 1 << 18  # sigma-stitched arrival states on the 10k table
 # The 1M-keyword dictionary of tests/test_full_random_1m.py (seed 77) and its
 # pinned facts, for its 1 Mi-unit text and the 128 Ki window at 300,000.
@@ -483,14 +511,14 @@ def word_soup(keywords, rng, n_units: int) -> str:
     return text[:n_units]
 
 
-def stream_pieces(seed: int, n_units: int) -> list:
+def stream_pieces(seed: int, n_units: int, max_log2: int = 22) -> list:
     """Seeded uneven feed sizes summing to ``n_units``: log-uniform from 1
-    unit to 4 Mi, so that feeds fall on both sides of the streams' device
-    threshold (16 Ki units)."""
+    unit to ``2 ** max_log2`` (4 Mi), so that feeds fall on both sides of the
+    streams' device threshold (16 Ki units)."""
     rng = np.random.default_rng(seed)
     out, left = [], n_units
     while left:
-        k = min(left, int(2 ** rng.uniform(0, 22)))
+        k = min(left, int(2 ** rng.uniform(0, max_log2)))
         out.append(k)
         left -= k
     return out
@@ -1188,11 +1216,13 @@ def simulated_ranks(ranks, w, halo, sb, mode, record=None):
     return ktp.group_scan(ranks, w, halo, sb, mode, reduce)
 
 
-def gloo_rank(rank, world, init_file, data, out_dir):
+def gloo_rank(rank, world, init_file, data, out_dir, dp_dir):
     """One rank of the smoke's gloo spawn on the one card: the table-sharded
     scan of the table and classes in ``data`` under ``group=`` (world 2: the
     process group; world 4: its (2, 2) layout), every mode, saved to
-    ``out_dir/rank<r>.npz`` with the rank's launch counts."""
+    ``out_dir/rank<r>.npz`` with the rank's launch counts; then, under the
+    same group, the data-parallel functions on the matchers and text in
+    ``dp_dir`` (``gloo_dp_work``)."""
     import datetime
 
     import torch
@@ -1220,8 +1250,227 @@ def gloo_rank(rank, world, init_file, data, out_dir):
                                       build.launches["table_sharded_scan"],
                                       build.launches["table_sharded_classes"]])
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **out)
+        gloo_dp_work(rank, form, dp_dir, out_dir, torch.device("cuda", 0))
     finally:
         dist.destroy_process_group()
+
+
+DP_PIECES_LOG2 = 18  # the group form's stream: pieces of 1 unit to 256 Ki
+DP_KINDS = ("AhoCorasickSet", "AhoCorasickMap", "LongestMatchSet", "WholeWordMatchSet",
+            "ShortestMatchSet", "WholeWordLongestMatchSet")
+# Kernels each path of dp_group_results must launch, on every rank and in the
+# mesh form (besides launching the same kernels in both forms).
+DP_KERNELS = {"AhoCorasickSet": ("packed_scan_count", "packed_scan_planes", "compact_planes"),
+              "AhoCorasickMap": ("packed_scan_planes", "compact_planes"),
+              "LongestMatchSet": ("packed_scan_planes", "compact_planes"),
+              "WholeWordMatchSet": ("packed_scan_planes", "compact_planes"),
+              "ShortestMatchSet": ("packed_scan_planes", "compact_planes"),
+              "WholeWordLongestMatchSet": ("wwl_scan_plane", "wwl_sweep_all"),
+              "ShardedStream": ("packed_scan_planes",),
+              "arrival_states": ("state_maps_all", "entry_fold", "rescan_serial"),
+              "arrival_states_sync": ("state_maps", "entry_fold", "rescan"),
+              "sharded_wwl_walks": ("wwl_scan_plane", "wwl_sweep_all"),
+              "prepare_process_local": ("packed_scan_count",)}
+
+
+def dp_group_results(kinds, text, mesh=None, group=None, device=None):
+    """The data-parallel functions over ``text`` in one form, a device list
+    (``mesh``) or a process group (``group=``, this rank's ``device``):
+    ``ShardedScanner`` ``match_triples`` and ``count`` of every matcher in
+    ``kinds``, the AC scanner's stream fed in seeded uneven pieces with a
+    ``state_dict`` resume in a fresh scanner, ``sharded_arrival_states``
+    without and with ``sync_depth``, ``sharded_wwl_walks``, and
+    ``launch.prepare_process_local`` (one slice a rank) then the sharded
+    count.  Returns ``(results, launches, seconds)``: name -> int64 array,
+    and per path the kernels it launched and its seconds."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import build
+    from ahocorasick_tpu_torch.parallel import launch, sharding
+
+    out, launches, seconds = {}, {}, {}
+    scanner = lambda m: sharding.ShardedScanner(m, mesh, group=group)  # noqa: E731
+    on_card = kinds["AhoCorasickSet"].device.type == "cuda"
+
+    def path(label, fn):
+        if on_card:
+            torch.cuda.synchronize()
+        before = dict(build.launches)
+        t = time.perf_counter()
+        fn()
+        if on_card:
+            torch.cuda.synchronize()
+        seconds[label] = time.perf_counter() - t
+        launches[label] = {k: v - before[k] for k, v in build.launches.items() if v > before[k]}
+
+    for name, m in kinds.items():
+        def drive(name=name, m=m):
+            sc = scanner(m)
+            out[f"{name}_triples"] = np.stack(sc.match_triples(text)).astype(np.int64)
+            out[f"{name}_count"] = np.asarray([sc.count(text)], dtype=np.int64)
+        path(name, drive)
+
+    ac = kinds["AhoCorasickSet"]
+    pieces = stream_pieces(SEED + 27, len(text), DP_PIECES_LOG2)
+
+    def stream():
+        half, parts, i = len(pieces) // 2, [], 0
+        st = scanner(ac).stream()
+        for n, k in enumerate(pieces):
+            if n == half:  # resume from the state alone, in a fresh scanner
+                state = json.loads(json.dumps(st.state_dict()))
+                st = scanner(ac).stream()
+                st.load_state_dict(state)
+            parts.append(st.feed(text[i: i + k], i + k >= len(text)))
+            i += k
+        out["stream"] = np.stack([np.concatenate([p[j] for p in parts]) for j in range(3)])
+
+    path("ShardedStream", stream)
+    cls = ac._classes(text)
+    table, d = ac.dev.dfa_next, max(ac.compiled.max_depth, 1)
+    path("arrival_states", lambda: out.__setitem__("arrival_states", np.asarray(
+        sharding.sharded_arrival_states(table, cls, mesh, group=group), dtype=np.int64)))
+    path("arrival_states_sync", lambda: out.__setitem__("arrival_states_sync", np.asarray(
+        sharding.sharded_arrival_states(table, cls, mesh, group=group, sync_depth=d),
+        dtype=np.int64)))
+    wwl = kinds["WholeWordLongestMatchSet"]
+
+    def walks():
+        outs = sharding.sharded_wwl_walks(wwl, wwl._classes(text), mesh, group=group)
+        out["wwl_walks"] = np.stack([np.asarray(o, dtype=np.int64) for o in outs
+                                     if o is not None])
+
+    path("sharded_wwl_walks", walks)
+
+    def local():
+        if group is None:
+            world, rank = len(mesh), 0
+        else:
+            import torch.distributed as dist
+
+            parent = sharding._process_group(group)
+            world, rank = dist.get_world_size(parent), dist.get_rank(parent)
+        per = -(-len(cls) // (world * 512)) * 512
+        nc = ac.compiled.num_classes
+        if group is None:
+            shards, offset = launch.prepare_process_local(cls, mesh, per * world, num_classes=nc)
+        else:
+            shards, offset = launch.prepare_process_local(
+                cls[rank * per: (rank + 1) * per], None, per, num_classes=nc, group=group,
+                device=device)
+        if offset != rank * per:
+            raise AssertionError(f"prepare_process_local: offset {offset} on rank {rank}")
+        count = sharding.make_sharded_counter(ac, mesh, group=group)[1]
+        out["prepare_process_local"] = np.asarray([count(shards)], dtype=np.int64)
+
+    path("prepare_process_local", local)
+    return out, launches, seconds
+
+
+def gloo_dp_work(rank, form, data_dir, out_dir, device):
+    """A gloo rank's data-parallel work: ``dp_group_results`` under
+    ``group=form`` (the process group, or its (2, 2) layout, taken as its
+    parent) on ``device`` over the matchers and text that the parent saved in
+    ``data_dir`` (``dp_gloo_prepare``), saved to ``out_dir/dp<r>.npz`` with
+    the launches and seconds of each path and the calls of
+    ``batch_isend_irecv`` (a spy: the gloo halos travel by all_gather)."""
+    import torch.distributed as dist
+
+    import ahocorasick_tpu_torch as port
+
+    calls, real = [], dist.batch_isend_irecv
+
+    def spy(ops):
+        calls.append(len(ops))
+        return real(ops)
+
+    dist.batch_isend_irecv = spy
+    try:
+        t = time.perf_counter()
+        kinds = {k: port.load_matcher(os.path.join(data_dir, f"{k}.npz"), engine="device",
+                                      device=device) for k in DP_KINDS}
+        with np.load(os.path.join(data_dir, "text.npz")) as z:
+            text = str(z["text"])
+        load_s = time.perf_counter() - t
+        out, launches, seconds = dp_group_results(kinds, text, group=form, device=device)
+    finally:
+        dist.batch_isend_irecv = real
+    np.savez(os.path.join(out_dir, f"dp{rank}.npz"), **out, p2p_calls=np.asarray([len(calls)]),
+             meta=np.asarray(json.dumps({"launches": launches, "seconds": seconds,
+                                         "load_s": load_s})))
+
+
+def join_spawn(ctx, what: str) -> None:
+    """Join ``torch.multiprocessing.spawn``'s ranks (``join=False``) within
+    ``GLOO_JOIN_S`` seconds (a rank's failure raises here); kill what is left
+    either way."""
+    deadline = time.monotonic() + GLOO_JOIN_S
+    try:
+        while not ctx.join(timeout=5):
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{what} did not finish in {GLOO_JOIN_S} s")
+    finally:
+        for proc in ctx.processes:
+            if proc.is_alive():
+                proc.kill()
+                proc.join(10)
+
+
+def dp_gloo_prepare(kinds, text, dev, data_dir) -> dict:
+    """The parent's half of the data-parallel group form on the gloo ranks:
+    the matchers of ``kinds`` saved as npz artifacts and ``text`` in
+    ``data_dir``, and the mesh form over ``[dev] * world`` at worlds 2 and 4
+    (``dp_group_results`` in this process): world -> (results, launches,
+    seconds, total seconds)."""
+    for k, m in kinds.items():
+        m.save(os.path.join(data_dir, f"{k}.npz"))
+    np.savez(os.path.join(data_dir, "text.npz"), text=np.asarray(text))
+    want = {}
+    for world in (2, 4):
+        t = time.perf_counter()
+        want[world] = (*dp_group_results(kinds, text, mesh=[dev] * world),
+                       time.perf_counter() - t)
+    return want
+
+
+def dp_gloo_check(want, rank_dir, world, dev, n_pieces):
+    """Every gloo rank's data-parallel results (``gloo_dp_work``) == the mesh
+    form's ``want`` (``dp_gloo_prepare``), each rank's paths launching the
+    mesh form's kernels (``DP_KERNELS`` among them) and ``batch_isend_irecv``
+    never called.  Returns a summary line and the slowest rank's seconds
+    (its loads and paths)."""
+    want, want_launches, want_s, t_mesh = want
+    metas = []
+    for r in range(world):
+        with np.load(os.path.join(rank_dir, f"dp{r}.npz")) as z:
+            got = {k: z[k] for k in z.files}
+        meta = json.loads(str(got.pop("meta")))
+        metas.append(meta)
+        if int(got.pop("p2p_calls")[0]):
+            raise AssertionError(f"gloo world {world}, rank {r}: batch_isend_irecv called")
+        if set(got) != set(want):
+            raise AssertionError(f"gloo world {world}, rank {r}: results {sorted(got)}")
+        for k, w in want.items():
+            if got[k].shape != w.shape or not np.array_equal(got[k], w):
+                raise AssertionError(f"gloo world {world}, rank {r}, {k}: != the mesh form "
+                                     f"over [{dev}] * {world}")
+        for label, expected in DP_KERNELS.items():
+            ran = meta["launches"][label]
+            if set(ran) != set(want_launches[label]) or any(k not in ran for k in expected):
+                raise AssertionError(f"gloo world {world}, rank {r}, {label}: launched {ran}, "
+                                     f"the mesh form {want_launches[label]}")
+    n = {k[: -len("_count")]: int(v[0]) for k, v in want.items() if k.endswith("_count")}
+    slowest = max(m["load_s"] + sum(m["seconds"].values()) for m in metas)
+    return (f"world {world} ({'process group' if world == 2 else '(2, 2) layout'}), data-"
+            f"parallel: every rank == the mesh form over [{dev}] * {world} (counts {n}; stream "
+            f"over {n_pieces} pieces with a resume, {want['stream'].shape[1]} matches; arrival "
+            f"states both forms; WWL walks; prepare_process_local count "
+            f"{int(want['prepare_process_local'][0])}), no batch_isend_irecv; rank 0 launches "
+            f"{metas[0]['launches']}; seconds a path, rank 0 "
+            f"{ {k: round(v, 4) for k, v in metas[0]['seconds'].items()} }, the slowest rank "
+            f"{max(sum(m['seconds'].values()) for m in metas)} s in all after loading "
+            f"{max(m['load_s'] for m in metas)} s; the mesh form "
+            f"{ {k: round(v, 4) for k, v in want_s.items()} }, {t_mesh} s"), slowest
 
 
 def step_loop_vs_twin(label, shard, w, halo, sb, mode, mesh_table, errs):
@@ -4360,11 +4609,35 @@ def main() -> int:
         dist.destroy_process_group()
         shutil.rmtree(group_dir, ignore_errors=True)
 
+    # The data-parallel group form on the same gloo ranks (halos by
+    # all_gather): the parent saves the matchers and text and computes the
+    # mesh form over [cuda:0] * 2 and * 4; the ranks' results must equal it.
+    t_dp = time.perf_counter()
+    ac_map = port.AhoCorasickMap(keywords, [f"v{i}" for i in range(len(keywords))],
+                                 engine="device", device=dev)
+    dp_kinds = {"AhoCorasickSet": big, "AhoCorasickMap": ac_map,
+                **{k: matchers[k] for k in ("LongestMatchSet", "WholeWordMatchSet",
+                                            "ShortestMatchSet")},
+                "WholeWordLongestMatchSet": big_wwl}
+    dp_want = {}
+    dp_rank_s = {}  # world: the slowest rank's data-parallel seconds, loads included
+
+    def dp_mesh_path():
+        dp_want.update(dp_gloo_prepare(dp_kinds, small, dev_index, dp_dir))
+        return (f"the mesh form over [{dev_index}] * 2 and * 4, {BASE_UNITS} units: "
+                f"{ {w: v[3] for w, v in dp_want.items()} } s")
+
+    dp_dir = tempfile.mkdtemp(prefix="chip_smoke_dp_")
+    run_path("ShardedScanner mesh form for the gloo ranks", sorted(
+        {k for v in DP_KERNELS.values() for k in v}), dp_mesh_path)
+    dp_prep_s = time.perf_counter() - t_dp
+
     # Two and four ranks on the one card (NCCL refuses two ranks on one GPU:
     # gloo, which carries CUDA tensors for all_reduce and all_gather): the
     # 1-axis group form at world 2 and the 2-axis (2, 2) form at world 4, on
-    # the kernel, == the mesh form.  The ranks load the table and classes
-    # from a file and build nothing: the library is the one built above.
+    # the kernel, == the mesh form; then the data-parallel functions under
+    # the same groups.  The ranks load the table, classes and matchers from
+    # files and build nothing: the library is the one built above.
     def gloo_spawn():
         import torch.multiprocessing as mp
 
@@ -4373,6 +4646,7 @@ def main() -> int:
             return spawn_in(spawn_dir, mp)
         finally:
             shutil.rmtree(spawn_dir, ignore_errors=True)
+            shutil.rmtree(dp_dir, ignore_errors=True)
 
     def spawn_in(spawn_dir, mp):
         data = os.path.join(spawn_dir, "table.npz")
@@ -4394,18 +4668,8 @@ def main() -> int:
             os.makedirs(rank_dir)
             t = time.perf_counter()
             ctx = mp.spawn(gloo_rank, args=(world_size, os.path.join(rank_dir, "init"), data,
-                                            rank_dir), nprocs=world_size, join=False)
-            deadline = time.monotonic() + GLOO_JOIN_S
-            try:
-                while not ctx.join(timeout=5):
-                    if time.monotonic() > deadline:
-                        raise AssertionError(f"the {world_size} gloo ranks did not finish in "
-                                             f"{GLOO_JOIN_S} s")
-            finally:
-                for proc in ctx.processes:
-                    if proc.is_alive():
-                        proc.kill()
-                        proc.join(10)
+                                            rank_dir, dp_dir), nprocs=world_size, join=False)
+            join_spawn(ctx, f"the {world_size} gloo ranks")
             seconds = time.perf_counter() - t
             for r in range(world_size):
                 with np.load(os.path.join(rank_dir, f"rank{r}.npz")) as z:
@@ -4421,17 +4685,44 @@ def main() -> int:
                                              f"table_sharded_step {steps} (want "
                                              f"{want_steps[world_size]}), table_sharded_scan "
                                              f"{scans}, table_sharded_classes {preps}")
+            dp_line, dp_rank_s[world_size] = dp_gloo_check(
+                dp_want[world_size], rank_dir, world_size, dev_index,
+                len(stream_pieces(SEED + 27, len(small), DP_PIECES_LOG2)))
             out.append(f"world {world_size} ({'1-axis' if world_size == 2 else '(2, 2)'}): "
                        f"every rank's five modes == the mesh form, {steps} step launches a rank "
-                       f"(halo + L + 1 a mode), {preps} preps, "
+                       f"(halo + L + 1 a mode), {preps} preps; {dp_line}; "
                        f"{seconds} s with the spawn")
         return "; ".join(out)
 
     t = time.perf_counter()
-    print(f"gloo ranks on the card, 10k table over {BASE_UNITS} units: {gloo_spawn()} "
-          f"({time.perf_counter() - t} s) [{smi}]")
+    print(f"gloo ranks on the card, 10k table and the data-parallel paths over {BASE_UNITS} "
+          f"units: {gloo_spawn()} ({time.perf_counter() - t} s) [{smi}]")
     print(f"group-form phases (NCCL world 1: facades, step vs twin, step times; the gloo "
           f"spawns): {time.perf_counter() - group_t0} s")
+    dp_s = dp_prep_s + sum(dp_rank_s.values())
+    print(f"data-parallel gloo phase: {dp_s} s ({dp_prep_s} s the parent's artifacts and mesh "
+          f"form, {dp_rank_s} s the slowest rank's data-parallel work in the shared spawns), "
+          f"{BASE_UNITS} units [{smi}]")
+
+    # The randomized differential soak on the card: seeded trials, the
+    # sharded scanners on one in four, every output == gold (a mismatch
+    # raises).  soak() zeroes the launch counts and reads them itself; they
+    # stay out of path_launches, whose ranking times the 10k and 1M shapes,
+    # not the soak's small dictionaries and texts.
+    from ahocorasick_tpu_torch import soak as soak_mod
+
+    t_soak = time.perf_counter()
+    res = soak_mod.soak(SOAK_SEED, trials=SOAK_TRIALS, mesh_every=4, device=dev)
+    print(f"soak: {res['trials']} trials of seed {SOAK_SEED} ({res['checked']} with keywords, "
+          f"{res['long']} with a long tail, the sharded scanners on one in 4) == gold, "
+          f"{res['seconds']} s, {res['trials'] / (res['seconds'] / 60)} trials a minute; "
+          f"launches {res['launches']}")
+    missing = [k for k in SOAK_KERNELS if res["launches"].get(k, 0) < 1]
+    if missing:
+        raise AssertionError(f"soak: {missing} never launched: {res['launches']}")
+    soak_s = time.perf_counter() - t_soak
+    print(f"soak phase: {soak_s} s; the data-parallel gloo and soak phases: {dp_s + soak_s} s "
+          f"[{smi}]")
 
     def corpus_path():
         crng = np.random.default_rng(SEED + 11)
@@ -4622,11 +4913,11 @@ def main() -> int:
         bench.ac_kernel_rate = recording
         t = time.perf_counter()
         try:
-            bench_main.baseline_suite(full=False, reps=2, seed=0, device=dev)
+            bench_main.baseline_suite(full=False, reps=1, seed=0, device=dev)
         finally:
             bench.ac_kernel_rate = real
         bench_out["suite_s"] = time.perf_counter() - t
-        return (f"baseline_suite(full=False, reps=2, seed=0) in {bench_out['suite_s']} s; "
+        return (f"baseline_suite(full=False, reps=1, seed=0) in {bench_out['suite_s']} s; "
                 f"AC-family configs (states, count kernel, planes kernel) in order: {picked}; "
                 f"the records above were measured on [{smi}]")
 

@@ -278,6 +278,24 @@ def test_probes_and_pfac_walk_run_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_soak_runs_as_a_command_without_loading_jax():
+    code = (
+        "import contextlib, io, runpy, sys\n"
+        "sys.argv = ['soak', '--trials', '3', '--device', 'cpu', '--seed', '4', '--mesh']\n"
+        "out = io.StringIO()\n"
+        "with contextlib.redirect_stdout(out):\n"
+        "    try:\n"
+        "        runpy.run_module('ahocorasick_tpu_torch.soak', run_name='__main__')\n"
+        "    except SystemExit as e:\n"
+        "        assert e.code == 0, (e.code, out.getvalue())\n"
+        "assert 'soak clean: 3 trials' in out.getvalue(), out.getvalue()\n"
+        + _CLEAN
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 _IMPORT = re.compile(r"^\s*(?:import|from)\s+(?:jax|ahocorasick_tpu)(?![\w])", re.M)
 
 
@@ -308,7 +326,7 @@ def test_port_sources_never_import_jax():
                  "kernels/probes.py", "kernels/scan_pfac.py", "ops/scan_pfac.py",
                  "ops/scan_pfac2.py", "ops/emit.py", "probes/__init__.py", "probes/probe.py",
                  "probes/probe2.py", "probes/probe3.py", "probes/probe6.py",
-                 "probes/__main__.py"):
+                 "probes/__main__.py", "soak.py"):
         assert ROOT / "ahocorasick_tpu_torch" / name in sources, name
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []

@@ -7,8 +7,11 @@ the step loop with an ``all_reduce`` per step; the 2-axis
 ``dp_tp_groups`` layout against ``dp_tp_mesh``, and the ``(world, 1)``
 layout, whose one-rank model axis scans with ``table_sharded_scan`` and
 never the step loop), the data-parallel
-``ShardedScanner`` of every kind and its stream, and the launch glue's
-per-process shards.  One
+``ShardedScanner`` of every kind and its stream, the launch glue's
+per-process shards (under the process group and under its 2-axis layout),
+and the halos themselves: under gloo they travel by one ``all_gather``, and
+a spy counts the ``batch_isend_irecv`` calls, which must be none; the
+point-to-point route of NCCL groups is run on the same ranks.  One
 spawn per world size runs every case; each rank writes
 what it got to a file and the parent compares.  Everything compared is an
 integer, so every comparison is exact.
@@ -36,7 +39,7 @@ CASES = ("count_packed", "count_packedcount", "count_reps", "planes_packed", "pl
          "tp2_count", "tp2_run_planes", "tp2_ac", "tp2_longest", "tp2_wwl_mixed",
          "tp1_count", "tp1_run_planes", "tp1_run_raw",
          "dp_ac", "dp_ac_stream", "dp_ac_layout", "dp_longest", "dp_shortest", "dp_whole_word",
-         "dp_wwl", "launch_count")
+         "dp_wwl", "launch_count", "launch_layout_count", "halos", "p2p_calls", "p2p_halos")
 _INIT_TIMEOUT = datetime.timedelta(seconds=60)
 _JOIN_TIMEOUT = 150.0
 
@@ -47,7 +50,70 @@ def _text(seed, n, alphabet):
 
 
 def _run_cases(mesh=None, group=None):
-    """Every case through one form of the functions: name -> numpy array."""
+    """Every case through one form of the functions: name -> numpy array.
+    ``p2p_calls`` counts the calls of ``batch_isend_irecv`` (a spy): the
+    gloo route fetches its halos by ``all_gather`` and never sends point to
+    point, and the device-list form sends nothing.  ``p2p_halos`` runs the
+    halos through the point-to-point route that NCCL groups take: the group
+    reports its backend as NCCL, and gloo carries the sends of CPU
+    tensors."""
+    import torch.distributed as dist
+
+    from ahocorasick_tpu_torch.parallel import sharding
+
+    calls, real = [], dist.batch_isend_irecv
+
+    def spy(ops):
+        calls.append(len(ops))
+        return real(ops)
+
+    dist.batch_isend_irecv = spy
+    try:
+        out = _cases(mesh, group)
+        out["p2p_calls"] = np.asarray([len(calls)])
+        backend = dist.get_backend
+        dist.get_backend = lambda g=None: dist.Backend.NCCL
+        try:
+            out["p2p_halos"] = _halo_rows(sharding._Shards(mesh, group, CPU),
+                                          np.random.default_rng(27))
+        finally:
+            dist.get_backend = backend
+    finally:
+        dist.batch_isend_irecv = real
+    assert (len(calls) > out["p2p_calls"][0]) == (group is not None)
+    assert set(out) == set(CASES)
+    return out
+
+
+def _halo_rows(sh, rng):
+    """Every rank's ``(left halo, right halo)`` from ``sh.halos``, gathered
+    in rank order as int64 rows: uint8, uint16 and int32 shards, halos of
+    0 to 513 classes on either side."""
+    import torch
+
+    from ahocorasick_tpu_torch.parallel import sharding
+
+    rows = []
+    per = 1024
+    for num_classes, left, right in ((27, 12, 0), (300, 5, 7), (None, 0, 9), (27, 64, 513),
+                                     (70000, 3, 3)):
+        top = 70000 if num_classes is None else num_classes
+        cls_p = rng.integers(0, top, size=per * sh.world).astype(np.int32)
+        shards = sh.scatter(cls_p, num_classes)
+        halos = sh.halos(shards, left, right)
+        mine = {}
+        for r in sh.ranks:
+            lh, rh = halos[r]
+            assert lh.dtype == rh.dtype == shards[r].dtype and lh.device == shards[r].device
+            assert (lh.shape[0], rh.shape[0]) == (left, right)
+            both = sharding._cat([lh, rh]) if left + right else lh
+            wide = sharding._signed(both).to(torch.int64)
+            mine[r] = wide & 0xFFFF if both.dtype == torch.uint16 else wide
+        rows.append(sh.gather_host(mine))
+    return np.concatenate(rows)
+
+
+def _cases(mesh, group):
     import ahocorasick_tpu_torch as port
     from ahocorasick_tpu_torch.ops import scan_batched, scan_wwl
     from ahocorasick_tpu_torch.parallel import launch, sharding
@@ -246,7 +312,20 @@ def _run_cases(mesh=None, group=None):
         assert list(shards) == [rank]
     assert offset == rank * 1024
     out["launch_count"] = np.asarray([count(shards)])
-    assert set(out) == set(CASES)
+    # Under a 2-axis layout (its parent group) the same slices, the same count.
+    if group is None:
+        out["launch_layout_count"] = out["launch_count"]
+    else:
+        shards, offset = launch.prepare_process_local(
+            corpus[rank * 1024: (rank + 1) * 1024], None, 1024,
+            num_classes=small.compiled.num_classes, group=layout, device="cpu")
+        assert offset == rank * 1024 and list(shards) == [rank]
+        _, count, _ = sharding.make_sharded_counter(small, group=layout)
+        out["launch_layout_count"] = np.asarray([count(shards)])
+
+    # The halo exchange itself: the gloo route (all_gather) against the
+    # device-list form's slices of the neighbours.
+    out["halos"] = _halo_rows(sharding._Shards(mesh, group, CPU), np.random.default_rng(27))
     return out
 
 
