@@ -1,4 +1,4 @@
-// Lookup-primitive probes for Hopper (sm_90a): four kernels behind a plain C
+// Lookup-primitive probes for Hopper (sm_90a): six kernels behind a plain C
 // interface loaded with ctypes (ahocorasick_tpu_torch/kernels/build.py builds
 // it, kernels/probes.py binds it, ahocorasick_tpu_torch/probes/ drives it).
 //
@@ -6,7 +6,8 @@
 // pl.pallas_call sites that time one transition primitive each: a chained
 // table lookup per step, repeated so that nothing can be hoisted.  They
 // compute what the Pallas bodies compute; VMEM, lane permutes and the MXU do
-// not carry over, so the placements below are this card's own.
+// not carry over, so the placements below are this card's own.  The last two
+// replace the XLA device loops of the same files (fori_loop / lax.scan).
 //
 // * chain_gather: independent chains  i <- (i + tab[i & (T-1)] [+ r]) & (T-1),
 //   i <- tab[i]  or  i <- tab[i] % mod  for `reps` steps, one thread per
@@ -70,6 +71,33 @@
 //   cross the warp, with no block barrier in the loop (probe2.py:86 on the
 //   first tile only, probe3.py:142 on every tile).  The first design ran a
 //   block of 1,024 threads a tile with two block barriers a step.
+// * row_select: B chains over a table [S][A] of int32 or uint32 words; step r
+//   reads row s whole and makes v, the chosen column cols[r % R][b] or the
+//   row's 32-bit sum, then s = (v [+ r]) mod `mod` with the JAX operators'
+//   semantics (floor modulo of the int32 value for an int32 table, unsigned
+//   for a uint32 one): the chained row step of probe4.py:41 (fori_loop;
+//   onehot, take and the sum control), probe5.py:56 (onehot and logtree,
+//   both row[c] after a whole-row gather) and probe6.py:65 / :97 (lax.scan,
+//   the row-width probes).  The question is what a whole row costs as it
+//   widens, so every word of the row is loaded (volatile loads, none sunk
+//   under the select) on row_chain's lane group, row_group(A) lanes a chain
+//   with 16-byte loads where the row is 16-byte aligned and as many batches
+//   as the row needs (32 passes of 8 lanes at 1,024 words, 2 batches of 16);
+//   the chosen column comes from the lane that loaded it by one shuffle, the
+//   sum by xor shuffles.  Bound: the step's latency, a row's loads plus the
+//   shuffle and the modulo, times reps and the waves of chains.
+// * window_chain: one chain a window from s = 0 over all the window's
+//   classes, s <- tab[s * stride + c] (uint32 table; flat, a 32-bit index
+//   clamped to the table, or by rows, the row and the column each clamped,
+//   as XLA clamps the two gathers), the int32 sum of the final states:
+//   probe7.py:152 (part_b, flat table[s*AP+c] and 2-D table[s, c], the same
+//   load on this card but for the clamp) and
+//   :183 (part_c), lax.scan.  The hashed tables do not synchronize, so only
+//   a serial walk a window gives the JAX answer: a thread a window (8,192
+//   chains at the probe's shape, 64 a block), its classes loaded as 4-byte
+//   words of its row (the next word in flight while this one's classes are
+//   walked) where the row is 4-byte aligned, else one load a class.  Bound:
+//   the latency of a dependent load from L2 or device memory, 524 a chain.
 //
 // What bounds them on the H100.  Each chain is a run of dependent loads:
 // the time of a step is the latency of the placement (a shuffle, a shared
@@ -382,6 +410,241 @@ cudaError_t launch_rows(int group, const uint32_t* t, int64_t rows, int width, c
   }
 }
 
+// ------------------------------------------------------------ row_select
+
+// Loads the select form keeps although it uses one word of them: volatile,
+// so that no load is sunk under the compare that picks the chosen word.
+__device__ __forceinline__ uint4 ld_row4(const uint32_t* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+__device__ __forceinline__ uint32_t ld_row(const uint32_t* p) {
+  uint32_t v;
+  asm volatile("ld.global.nc.u32 %0, [%1];" : "=r"(v) : "l"(p));
+  return v;
+}
+
+// What lane g of a group makes of a row of `words` words (16-byte words where
+// kVec): words g, g + G, ... , kB of them loaded before any is used.  kSum:
+// their 32-bit sum (wrapping); else the word `cw` if this lane reads it (the
+// chosen column's component `part` of it where kVec), else 0.
+template <int G, int kB, bool kVec, bool kSum>
+__device__ __forceinline__ uint32_t lane_row(const uint32_t* __restrict__ row, int words, int g,
+                                             int cw, uint32_t part) {
+  uint32_t acc = 0u;
+  uint4 keep = make_uint4(0u, 0u, 0u, 0u);
+  for (int base = g; base < words; base += G * kB) {
+    uint4 m[kB];
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      const int w = base + j * G;
+      if (kVec) {
+        m[j] = w < words ? ld_row4(row + 4 * w) : make_uint4(0u, 0u, 0u, 0u);
+      } else {
+        m[j] = make_uint4(w < words ? ld_row(row + w) : 0u, 0u, 0u, 0u);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < kB; ++j) {
+      if (kSum) {
+        acc += m[j].x + m[j].y + m[j].z + m[j].w;
+      } else if (base + j * G == cw) {
+        keep = m[j];
+      }
+    }
+  }
+  if (kSum) return acc;
+  if (!kVec) return keep.x;
+  return part == 0u ? keep.x : part == 1u ? keep.y : part == 2u ? keep.z : keep.w;
+}
+
+// Chain i on lanes [i G, (i + 1) G): each step reads row min(s, rows - 1)
+// whole and makes v, the chosen column cols[r % R][i] (clamped to the row,
+// from the lane that read it by one shuffle) or the row's sum (the group's
+// xor shuffles), then s = (v [+ r]) mod `mod`: floor modulo of the int32
+// value for an int32 table (kSigned), unsigned modulo for a uint32 one.
+template <int G, int kB, bool kVec, bool kSum>
+__global__ void __launch_bounds__(kRowThreads)
+    select_kernel(const uint32_t* __restrict__ tab, int64_t rows, int width,
+                  const uint32_t* __restrict__ s0, const uint32_t* __restrict__ cols, int R,
+                  int64_t n, int reps, uint32_t mod, int add_r, int is_signed,
+                  uint32_t* __restrict__ out) {
+  const int64_t t = static_cast<int64_t>(blockIdx.x) * kRowThreads + threadIdx.x;
+  const int64_t chain = t / G;
+  if (chain >= n) return;  // a whole group leaves together
+  const int g = static_cast<int>(t % G);
+  const int lane = threadIdx.x & 31;
+  const uint32_t group_mask = ((1u << G) - 1u) << (lane & ~(G - 1));  // G <= 8
+  const int words = kVec ? width >> 2 : width;
+  const uint64_t last = static_cast<uint64_t>(rows) - 1u;
+  const uint32_t last_col = static_cast<uint32_t>(width) - 1u;
+  uint32_t s = s0[chain];
+  int rr = 0;  // r % R
+  for (int r = 0; r < reps; ++r) {
+    const uint32_t* row = tab + min(static_cast<uint64_t>(s), last) * width;
+    uint32_t v;
+    if (kSum) {
+      v = lane_row<G, kB, kVec, true>(row, words, g, 0, 0u);
+#pragma unroll
+      for (int off = G / 2; off > 0; off >>= 1) v += __shfl_xor_sync(group_mask, v, off, G);
+    } else {
+      const uint32_t c = min(__ldg(cols + static_cast<int64_t>(rr) * n + chain), last_col);
+      const int cw = static_cast<int>(kVec ? c >> 2 : c);
+      v = lane_row<G, kB, kVec, false>(row, words, g, cw, c & 3u);
+      if (G > 1) v = __shfl_sync(group_mask, v, cw % G, G);
+      if (++rr == R) rr = 0;
+    }
+    const uint32_t x = v + (add_r ? static_cast<uint32_t>(r) : 0u);
+    if (is_signed) {
+      const int32_t m = static_cast<int32_t>(x) % static_cast<int32_t>(mod);
+      s = static_cast<uint32_t>(m < 0 ? m + static_cast<int32_t>(mod) : m);
+    } else {
+      s = x % mod;
+    }
+  }
+  if (g == 0) out[chain] = s;
+}
+
+struct SelectArgs {
+  const uint32_t* tab;
+  int64_t rows;
+  int width;
+  const uint32_t* s0;
+  const uint32_t* cols;
+  int R;
+  int64_t n;
+  int reps;
+  uint32_t mod;
+  int add_r;
+  int is_signed;
+  uint32_t* out;
+};
+
+template <int G, int kB, bool kVec, bool kSum>
+cudaError_t launch_select_b(const SelectArgs& a, cudaStream_t st) {
+  const unsigned grid = static_cast<unsigned>((a.n * G + kRowThreads - 1) / kRowThreads);
+  select_kernel<G, kB, kVec, kSum><<<grid, kRowThreads, 0, st>>>(
+      a.tab, a.rows, a.width, a.s0, a.cols, a.R, a.n, a.reps, a.mod, a.add_r, a.is_signed, a.out);
+  return cudaGetLastError();
+}
+
+// kB as in launch_rows_g: a lane's words of a row, rounded up to a power of
+// two, at most kRowMaxBatch (a wider row takes more than one batch).
+template <int G, bool kVec, bool kSum>
+cudaError_t launch_select_g(int per_lane, const SelectArgs& a, cudaStream_t st) {
+  if (per_lane <= 1) return launch_select_b<G, 1, kVec, kSum>(a, st);
+  if (per_lane <= 2) return launch_select_b<G, 2, kVec, kSum>(a, st);
+  if (per_lane <= 4) return launch_select_b<G, 4, kVec, kSum>(a, st);
+  if (per_lane <= 8) return launch_select_b<G, 8, kVec, kSum>(a, st);
+  return launch_select_b<G, kRowMaxBatch, kVec, kSum>(a, st);
+}
+
+template <bool kVec, bool kSum>
+cudaError_t launch_select(int group, const SelectArgs& a, cudaStream_t st) {
+  const int words = kVec ? a.width >> 2 : a.width;
+  const int per_lane = (words + group - 1) / group;
+  switch (group) {
+    case 1: return launch_select_g<1, kVec, kSum>(per_lane, a, st);
+    case 2: return launch_select_g<2, kVec, kSum>(per_lane, a, st);
+    case 4: return launch_select_g<4, kVec, kSum>(per_lane, a, st);
+    case 8: return launch_select_g<8, kVec, kSum>(per_lane, a, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+// ----------------------------------------------------------- window_chain
+
+constexpr int kWinThreads = 64;  // 8,192 windows: 128 blocks over the 132 SMs
+
+// The table word chain step s <- tab[at(s, c)] reads: flat (kRows false),
+// min(s * stride + c, last) in 32-bit arithmetic, as the JAX uint32 index
+// wraps and XLA clamps a gather; by rows (kRows), row min(s, rows_last) and
+// column min(c, stride - 1), as XLA clamps each index of table[s, c].
+template <bool kRows>
+__device__ __forceinline__ uint32_t chain_at(uint32_t s, uint32_t c, uint32_t stride,
+                                             uint32_t last, uint32_t rows_last) {
+  return kRows ? min(s, rows_last) * stride + min(c, stride - 1u) : min(s * stride + c, last);
+}
+
+// One chain a window, s = 0 then s <- tab[chain_at(s, c)] over every class
+// of the row; the block adds its chains' final states into out.  kCB: bytes
+// a class (1, 2 or 4).  Where `words` (the row's bytes a multiple of 4 and
+// the base 4-byte aligned), the classes come as 4-byte words of the row,
+// the next word loaded before the classes of this one are walked; else one
+// load a class.
+template <int kCB, bool kRows>
+__global__ void __launch_bounds__(kWinThreads)
+    window_kernel(const uint32_t* __restrict__ tab, uint32_t last, uint32_t rows_last,
+                  uint32_t stride, const uint8_t* __restrict__ windows, int width, int64_t n,
+                  int words, uint32_t* __restrict__ out) {
+  __shared__ uint32_t warp_sums[32];
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWinThreads + threadIdx.x;
+  uint32_t s = 0u;
+  if (b < n) {
+    const uint8_t* row = windows + b * static_cast<int64_t>(width) * kCB;
+    if (words) {
+      constexpr int kPer = 4 / kCB;  // classes a word
+      const uint32_t* wr = reinterpret_cast<const uint32_t*>(row);
+      const int nw = width / kPer;
+      uint32_t next = nw > 0 ? __ldg(wr) : 0u;
+      for (int k = 0; k < nw; ++k) {
+        const uint32_t word = next;
+        if (k + 1 < nw) next = __ldg(wr + k + 1);
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) {
+          uint32_t c;
+          if constexpr (kCB == 4) {
+            c = word;
+          } else {
+            c = (word >> (8 * kCB * q)) & ((1u << (8 * kCB)) - 1u);
+          }
+          s = __ldg(tab + chain_at<kRows>(s, c, stride, last, rows_last));
+        }
+      }
+    } else {
+      for (int t = 0; t < width; ++t) {
+        uint32_t c;
+        if constexpr (kCB == 1) {
+          c = __ldg(row + t);
+        } else if constexpr (kCB == 2) {
+          c = __ldg(reinterpret_cast<const uint16_t*>(row) + t);
+        } else {
+          c = __ldg(reinterpret_cast<const uint32_t*>(row) + t);
+        }
+        s = __ldg(tab + chain_at<kRows>(s, c, stride, last, rows_last));
+      }
+    }
+  }
+  block_sum(s, out, warp_sums);
+}
+
+template <int kCB, bool kRows>
+cudaError_t launch_window(const uint32_t* tab, uint32_t last, uint32_t rows_last, uint32_t stride,
+                          const uint8_t* w, int width, int64_t n, uint32_t* out, cudaStream_t st) {
+  const int words = (static_cast<int64_t>(width) * kCB) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  const unsigned grid = static_cast<unsigned>((n + kWinThreads - 1) / kWinThreads);
+  window_kernel<kCB, kRows><<<grid, kWinThreads, 0, st>>>(tab, last, rows_last, stride, w, width,
+                                                          n, words, out);
+  return cudaGetLastError();
+}
+
+template <bool kRows>
+cudaError_t launch_window_cb(int window_bytes, const uint32_t* tab, uint32_t last,
+                             uint32_t rows_last, uint32_t stride, const uint8_t* w, int width,
+                             int64_t n, uint32_t* out, cudaStream_t st) {
+  switch (window_bytes) {
+    case 1: return launch_window<1, kRows>(tab, last, rows_last, stride, w, width, n, out, st);
+    case 2: return launch_window<2, kRows>(tab, last, rows_last, stride, w, width, n, out, st);
+    case 4: return launch_window<4, kRows>(tab, last, rows_last, stride, w, width, n, out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 // ------------------------------------------------------------ onehot_mma
 
 constexpr int kSlab = 16;  // columns a block: (B / 64) x (ncols / 16) blocks, 128 at P4
@@ -665,6 +928,57 @@ int row_chain(const void* tab, int64_t rows, int width, const void* s0, int64_t 
   } else {
     err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// tab: uint32[rows][width] (int32 words where is_signed); s0, out: uint32[n];
+// cols: uint32[R][n] (read only by how 0 = select; how 1 = sum); group: the
+// lanes a chain, 1, 2, 4 or 8.
+int row_select(const void* tab, int64_t rows, int width, const void* s0, const void* cols, int R,
+               int64_t n, int reps, int how, int64_t mod, int add_r, int is_signed, int group,
+               void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t mod_max = is_signed ? 0x7fffffffLL : 0xffffffffLL;
+  if (rows < 1 || width < 1 || n < 1 || reps < 0 || R < 1 || mod < 1 || mod > mod_max ||
+      (how != 0 && how != 1)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const SelectArgs a{static_cast<const uint32_t*>(tab), rows, width,
+                     static_cast<const uint32_t*>(s0), static_cast<const uint32_t*>(cols), R, n,
+                     reps, static_cast<uint32_t>(mod), add_r, is_signed,
+                     static_cast<uint32_t*>(out)};
+  auto st = static_cast<cudaStream_t>(stream);
+  const bool vec = width % 4 == 0 && reinterpret_cast<uintptr_t>(tab) % 16 == 0;
+  if (how == 1) {
+    err = vec ? launch_select<true, true>(group, a, st) : launch_select<false, true>(group, a, st);
+  } else {
+    err = vec ? launch_select<true, false>(group, a, st)
+              : launch_select<false, false>(group, a, st);
+  }
+  return static_cast<int>(err);
+}
+
+// tab: uint32[numel], read flat (rows 0) or as rows of `stride` words;
+// windows: [n][width] classes of window_bytes (1, 2 or 4) bytes; out:
+// uint32[1], zeroed: the int32 sum of the chains' final states.
+int window_chain(const void* tab, int64_t numel, int64_t rows, int64_t stride, const void* windows,
+                 int window_bytes, int64_t n, int width, void* out, int device, void* stream) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (numel < 1 || numel > 0xffffffffLL || stride < 1 || stride > 0xffffffffLL || n < 1 ||
+      width < 0 || rows < 0 || (rows > 0 && rows * stride != numel)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const uint32_t*>(tab);
+  const auto* w = static_cast<const uint8_t*>(windows);
+  auto* o = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto last = static_cast<uint32_t>(numel - 1);
+  const auto sd = static_cast<uint32_t>(stride);
+  err = rows > 0 ? launch_window_cb<true>(window_bytes, t, last, static_cast<uint32_t>(rows - 1),
+                                          sd, w, width, n, o, st)
+                 : launch_window_cb<false>(window_bytes, t, last, 0u, sd, w, width, n, o, st);
   return static_cast<int>(err);
 }
 

@@ -79,6 +79,8 @@ launches = {
     "row_chain": 0,
     "onehot_mma": 0,
     "gather2d": 0,
+    "row_select": 0,
+    "window_chain": 0,
     "pfac2_planes": 0,
     "pfac2_count": 0,
     "pfac1_planes": 0,
@@ -184,6 +186,12 @@ ARGTYPES = {
     # (tab, idx, rows, reps, mask, mode, sum_out, warps, blocks, out, device,
     #  stream)
     "gather2d": [_P, _P, _I64, _I, _I64, _I, _I, _I, _I64, _P, _I, _P],
+    # (tab, rows, width, s0, cols, R, n, reps, how, mod, add_r, is_signed,
+    #  group, out, device, stream)
+    "row_select": [_P, _I64, _I, _P, _P, _I, _I64, _I, _I, _I64, _I, _I, _I, _P, _I, _P],
+    # (tab, numel, rows (0: flat), stride, windows, window_bytes, num_windows,
+    #  width, out, device, stream)
+    "window_chain": [_P, _I64, _I64, _I64, _P, _I, _I64, _I, _P, _I, _P],
     # (trie, stride, prefix, threshold, dead, cls, cls_bytes, n, depth, k,
     #  num_classes, num_planes, grid, span, prefix_shared, out, device, stream)
     "pfac2_planes": [_P, _I, _P, _I64, _I64, _P, _I, _I64, _I, _I, _I, _I, _I, _I64, _I, _P,

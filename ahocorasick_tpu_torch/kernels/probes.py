@@ -1,8 +1,9 @@
 """Lookup-primitive probes: the Hopper kernels and their plain PyTorch twins.
 
-Four entry points (``csrc/probes.cu``), the counterparts of the v5e Pallas
-probes of ``tools/probes/`` (the source note in the ``.cu`` file lists every
-``pl.pallas_call`` site each one replaces and what bounds it on the H100):
+Six entry points (``csrc/probes.cu``), the counterparts of the v5e Pallas
+probes of ``tools/probes/`` and of their XLA device loops (the source note in
+the ``.cu`` file lists every site each one replaces and what bounds it on the
+H100):
 
 * ``chain_gather(tab, idx, reps, op, placement=, mod=, sum_out=)`` —
   independent chains, one per element of ``idx``: ``op="add"``
@@ -31,6 +32,18 @@ probes of ``tools/probes/`` (the source note in the ``.cu`` file lists every
   step number added (``"gather2d_all"``); one warp a row, four indices a
   lane (``csrc/gather2d.cuh``; ``gather2d_shape(rows)`` gives the launch).
 
+* ``row_select(tab, s0, cols, reps, how, mod, add_r=)`` — B chains over the
+  table's rows: step r reads row s whole and makes ``v``, the chosen column
+  ``cols[r % R, b]`` (``how="select"``) or the row's 32-bit sum (``"sum"``),
+  then ``s <- (v [+ r]) % mod`` with the JAX operators' semantics (floor
+  modulo of the int32 value for an int32 table, int32 wrap of the sum and
+  the add; unsigned for a uint32 table); on ``row_group(A)`` lanes a chain,
+  every word of the row loaded;
+* ``window_chain(tab, windows, stride)`` — one chain a window from 0 over
+  its classes, ``s <- tab[s * stride + c]`` (a flat table, a 32-bit index)
+  or ``tab[s, c]`` (a 2-D one, each index clamped), the int32 sum of the
+  final states; a thread a window.
+
 Tables and indices are int32 or uint32 and read as unsigned words; the
 results are int32 (``sum_out``: their sum modulo 2**32, an int32 scalar), as
 the JAX probes return them.  The load ops clamp an index to the table and the
@@ -52,6 +65,8 @@ from ahocorasick_tpu_torch.kernels.scan_block import _to_uint32, _widen
 OPS = ("add", "add_r", "load", "load_mod")
 PLACEMENTS = ("shfl", "shared", "global")
 REDUCES = ("max", "col0")
+HOWS = ("select", "sum")  # row_select's forms
+_WINDOW_BYTES = {torch.uint8: 1, torch.uint16: 2, torch.int32: 4}  # window_chain's classes
 ROW_GROUPS = (1, 2, 4, 8)  # lanes a chain of row_chain's max form
 G2_MODES = ("sublane", "sublane_chain", "gather2d_first", "gather2d_all")
 G2_MAX_WARPS = 8  # rows a gather2d block: csrc/gather2d.cuh kMaxWarps
@@ -252,6 +267,115 @@ def row_chain_plain(tab, s0, reps, reduce, mod) -> torch.Tensor:
         v = rows.max(dim=1).values if reduce == "max" else rows[:, 0]
         s = v % mod
     return _as_int32(s).reshape(s0.shape)
+
+
+# --------------------------------------------------------------- row_select
+
+
+def row_select(tab: torch.Tensor, s0: torch.Tensor, cols, reps: int, how: str, mod: int, *,
+               add_r: bool = False, group: int = None) -> torch.Tensor:
+    """The chains' final states, int32 of ``s0``'s shape (B chains, B =
+    ``s0.numel()``).  ``cols``: int32 or uint32 ``[R, B]`` columns, step r
+    taking row ``r % R`` (clamped to the row's width); None for the sum form.
+    ``mod`` lies in [1, 2**31) for an int32 table, [1, 2**32) for a uint32
+    one.  ``group``: the lanes a chain (``ROW_GROUPS``; ``row_group(A)`` when
+    None)."""
+    _check_words("row_select", tab=tab, s0=s0)
+    if how not in HOWS:
+        raise ValueError(f"row_select: how {how!r} is not one of {HOWS}")
+    if cols is None:
+        if how == "select":
+            raise ValueError("row_select: the select form needs cols")
+        cols = s0.reshape(1, -1)  # not read by the sum form
+    _check_words("row_select", cols=cols)
+    dev = _check("row_select", tab, s0, cols)
+    n = s0.numel()
+    if tab.dim() != 2 or tab.numel() < 1 or n < 1 or not 0 <= reps < 1 << 31:
+        raise ValueError(f"row_select: need a 2-D table, chains and 0 <= reps < 2**31; got "
+                         f"{tuple(tab.shape)}, {tuple(s0.shape)}, reps={reps}")
+    if cols.dim() != 2 or cols.shape[0] < 1 or cols.shape[1] != n:
+        raise ValueError(f"row_select: cols must be [R, {n}], got {tuple(cols.shape)}")
+    signed = tab.dtype == torch.int32
+    if not 1 <= mod < (1 << 31 if signed else 1 << 32):
+        raise ValueError(f"row_select: mod must lie in [1, 2**{31 if signed else 32}) for a "
+                         f"{tab.dtype} table, got {mod}")
+    group = row_group(tab.shape[1]) if group is None else group
+    if group not in ROW_GROUPS:
+        raise ValueError(f"row_select: group {group} is not one of {ROW_GROUPS}")
+    if dev.type == "cpu":
+        return row_select_plain(tab, s0, cols, reps, how, mod, add_r=add_r)
+    out = torch.empty_like(s0, dtype=torch.int32)
+    _launch("row_select", dev, tab.data_ptr(), tab.shape[0], tab.shape[1], s0.data_ptr(),
+            cols.data_ptr(), cols.shape[0], n, reps, HOWS.index(how), mod, int(add_r),
+            int(signed), group, out.data_ptr())
+    return out
+
+
+def row_select_plain(tab, s0, cols, reps, how, mod, *, add_r=False) -> torch.Tensor:
+    tf = _words(tab)
+    S, A = tf.shape
+    s = _words(s0).reshape(-1)
+    if how == "select":
+        cw = _words(cols).clamp(max=A - 1)
+    for r in range(reps):
+        at = s.clamp(max=S - 1)
+        if how == "select":
+            v = tf[at, cw[r % cw.shape[0]]]
+        else:
+            v = tf[at].sum(dim=1)
+        x = (v + (r if add_r else 0)) & 0xFFFFFFFF
+        if tab.dtype == torch.int32:
+            x = torch.where(x >= 1 << 31, x - (1 << 32), x)
+        s = x % mod  # torch's % is floor modulo, as jnp's
+    return _as_int32(s).reshape(s0.shape)
+
+
+# ------------------------------------------------------------- window_chain
+
+
+def window_chain(tab: torch.Tensor, windows: torch.Tensor, stride: int = None) -> torch.Tensor:
+    """One chain a window (a row of ``windows``, uint8, uint16 or int32
+    classes) from 0 over its classes: the int32 sum of the final states (a
+    scalar tensor).  ``tab``: int32 or uint32, T < 2**32 words.  A 1-D table
+    is read flat, ``s <- tab[min((s * stride + c) mod 2**32, T - 1)]``; a
+    2-D one by rows, ``s <- tab[min(s, S - 1), min(c, A - 1)]`` (``stride``
+    its width), as XLA clamps each index of ``table[s, c]``."""
+    _check_words("window_chain", tab=tab)
+    if windows.dtype not in _WINDOW_BYTES or windows.dim() != 2:
+        raise TypeError(f"window_chain: windows must be uint8, uint16 or int32[B, W], got "
+                        f"{windows.dtype}{tuple(windows.shape)}")
+    dev = _check("window_chain", tab, windows)
+    if tab.dim() == 2:
+        if stride not in (None, tab.shape[1]):
+            raise ValueError(f"window_chain: a 2-D table's stride is its width {tab.shape[1]}, "
+                             f"not {stride}")
+        stride = tab.shape[1]
+    elif tab.dim() != 1 or stride is None:
+        raise ValueError(f"window_chain: a 1-D table with a stride, or a 2-D table; got "
+                         f"{tuple(tab.shape)}, stride={stride}")
+    if not 1 <= tab.numel() < 1 << 32 or windows.shape[0] < 1 or not 1 <= stride < 1 << 32:
+        raise ValueError(f"window_chain: need 1 <= T < 2**32, windows and 1 <= stride < 2**32; "
+                         f"got T={tab.numel()}, {tuple(windows.shape)}, stride={stride}")
+    if dev.type == "cpu":
+        return window_chain_plain(tab, windows, stride)
+    out = _sum_out(dev)
+    _launch("window_chain", dev, tab.data_ptr(), tab.numel(),
+            tab.shape[0] if tab.dim() == 2 else 0, stride, windows.data_ptr(),
+            _WINDOW_BYTES[windows.dtype], windows.shape[0], windows.shape[1], out.data_ptr())
+    return out[0]
+
+
+def window_chain_plain(tab, windows, stride=None) -> torch.Tensor:
+    tf = _words(tab).reshape(-1)
+    w = _words(windows) if windows.dtype == torch.int32 else _widen(windows)
+    s = torch.zeros(windows.shape[0], dtype=torch.int64, device=windows.device)
+    for t in range(windows.shape[1]):
+        if tab.dim() == 2:
+            at = s.clamp(max=tab.shape[0] - 1) * tab.shape[1] + w[:, t].clamp(max=tab.shape[1] - 1)
+        else:
+            at = ((s * stride + w[:, t]) & 0xFFFFFFFF).clamp(max=tf.numel() - 1)
+        s = tf[at]
+    return _as_int32(s.sum().reshape(1))[0]
 
 
 # --------------------------------------------------------------- onehot_mma

@@ -611,7 +611,7 @@ class StepGraphs:
             _remember(self._graphs, key, self._capture(ranks, windows, halo, state_bits, mode,
                                                        reduce, segments), self.MAX_GRAPHS)
         self._graphs.move_to_end(key)
-        graph, static, bufs, steps = self._graphs[key]
+        graph, static, _, bufs, steps = self._graphs[key]
         static.view(_signed(static.dtype)).copy_(windows.view(_signed(windows.dtype)))
         graph.replay()
         launches["table_sharded_classes"] += 1
@@ -629,7 +629,9 @@ class StepGraphs:
                 _loop(bufs, static, classes, halo, state_bits, mode, segments, reduce)
         finally:
             launches.update(counted)
-        return graph, static, bufs, halo + segments[1] + 1
+        # The graph's prep writes into ``classes`` at every replay: the entry
+        # holds it, or its memory would go back to the allocator.
+        return graph, static, classes, bufs, halo + segments[1] + 1
 
 
 def _remember(cache: collections.OrderedDict, key, value, bound: int) -> None:

@@ -1,6 +1,8 @@
-"""Run the lookup probes, then the residency sweep.
+"""Run the lookup probes, then the residency sweep; or probe6's row-width
+probes alone.
 
     python -m ahocorasick_tpu_torch.probes [--platform gpu|cpu] [--no-sweep]
+    python -m ahocorasick_tpu_torch.probes --widths [--platform gpu|cpu]
 
 Prints one line per probe of the four JAX files' ``main`` (``ms``, M lookups
 per second, the table's placement), then the residency sweep: the lookup
@@ -13,7 +15,9 @@ table (``row_chain``, 28 words: its 112-byte row); and the same chain as
 eager torch indexing, the library yardstick.  Every result of the sweep is
 held against the kernels' plain twins.  ``--platform cpu`` runs the
 kernels' plain twins at small sizes under the host clock (no device
-figures).
+figures).  ``--widths`` runs ``probe6.widths`` instead: the dependent row
+read against row width, from a 51,200-row table in cache (8-256 words) and
+a 470,000-row one in device memory (32-1,024 words).
 """
 
 from __future__ import annotations
@@ -105,9 +109,13 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(prog="python -m ahocorasick_tpu_torch.probes")
     ap.add_argument("--platform", choices=("gpu", "cpu"), default="gpu")
     ap.add_argument("--no-sweep", action="store_true", help="skip the residency sweep")
+    ap.add_argument("--widths", action="store_true",
+                    help="run probe6's two row-width probes instead")
     args = ap.parse_args(argv)
     device = _resolve_device("cpu" if args.platform == "cpu" else None)
     small = device.type == "cpu"
+    if args.widths:
+        return {"widths": probe6.widths(device, small=small)}
     out = {}
     for name, mod in (("probe", probe), ("probe2", probe2), ("probe3", probe3),
                       ("probe6", probe6)):

@@ -6,7 +6,9 @@ Each ``make_*`` returns ``mk(reps) -> (fn, args)``: ``fn(*args)`` runs
 indices (the JAX probes' (1, 1) SMEM output), drawing its inputs afresh for
 each ``mk`` call, as the JAX ``mk`` does.  ``timeit2`` times ``mk(lo)`` and
 ``mk(hi)`` on the same inputs and takes the rate from the difference
-(``bench._best_pair``), cancelling each call's fixed cost.  The JAX file's
+(``bench._best_pair``), cancelling each call's fixed cost: the card's time
+alone (``card_seconds``), since a call of few reps takes the host longer
+to launch than the card to run.  The JAX file's
 XLA gathers are the library yardstick here (``make_torch_*``).
 """
 
@@ -15,9 +17,9 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ahocorasick_tpu_torch.bench import _best_pair, _elapsed
+from ahocorasick_tpu_torch.bench import _best_pair
 from ahocorasick_tpu_torch.kernels import probes as kp
-from ahocorasick_tpu_torch.probes import draw, resolve, tensor
+from ahocorasick_tpu_torch.probes import card_seconds, draw, resolve, tensor
 from ahocorasick_tpu_torch.probes.probe import _placement
 
 
@@ -30,8 +32,8 @@ def timeit2(make_fn, label, lookups_per_rep, reps_lo, reps_hi) -> float:
     dev = next(a.device for a in args if isinstance(a, torch.Tensor))
     int(f_lo(*args))
     int(f_hi(*args))
-    t_lo, t_hi = _best_pair(lambda: _elapsed(lambda: f_lo(*args), 1, dev),
-                            lambda: _elapsed(lambda: f_hi(*args), 1, dev))
+    t_lo, t_hi = _best_pair(lambda: card_seconds(lambda: f_lo(*args), dev),
+                            lambda: card_seconds(lambda: f_hi(*args), dev))
     dt = t_hi - t_lo
     if dt <= 0:
         print(f"  {label}: degenerate timing lo={t_lo * 1e3}ms hi={t_hi * 1e3}ms [{dev}]")

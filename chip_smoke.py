@@ -20,7 +20,8 @@ separate allocations on the one card (1-axis and 2-axis meshes, its stream,
 ``ahocorasick_tpu_torch.bench`` (the BASELINE.json suite, the headline, the
 scaling record, a profiled run) with the stride-2 row scan; and the lookup
 probes (``python -m ahocorasick_tpu_torch.probes``: the four probe kernels and
-the residency sweep) and the PFAC cross-check walk
+the residency sweep), the last probes (probe4 to probe10_tp, the chained
+row step and the chain a window) and the PFAC cross-check walk
 (``device_engine="pfac2"``).  It imports the
 port only, the dictionary and text generators included (``bench.headline``,
 ``bench.__main__``).  Phases, each raising on failure:
@@ -141,7 +142,17 @@ port only, the dictionary and text generators included (``bench.headline``,
    32 to 160 columns, reps 0, 1 and 128); the 2-D gather at its edges
    (``check_gather2d_edges``: every mode, B = 8, 16, 64 and 512, reps 0, 1,
    2 and 1,024, masks 0, 1,023 and 2**32 - 1, both ``sum_out``, an index
-   tensor off a 16-byte boundary);
+   tensor off a 16-byte boundary); the chained row step at probe4's seven
+   cells, probe5's B list and probe6's width lists and at its edges
+   (``check_rowsel_kernels``: A = 1, 27, 28 and 1,024 at every group size,
+   S = 1, reps 0, 1 and 37, B = 1, 33 and 4,099, full-range int32 words and
+   uint32 words, mod 1, S and the largest, the step added or not, the table
+   off a 16-byte boundary); the chain a window at probe7's part B and C
+   tables (512 MB, every n, flat and as rows) and at its edges
+   (``check_window_kernels``: uint8, uint16 and int32 windows of 0, 1, 3 and
+   525 classes, 1, 65 and 8,192 windows, one class off a 4-byte boundary,
+   strides 1, 32 and 33, both clamps), and probe7's part A tables (8 and 96
+   MB) under the count kernel;
    the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
    fuzz, demo and the 10k dictionary at 1 Mi units, and the v2 walk at its
    edges (``check_pfac_edges``: text lengths around a warp's prefix pass
@@ -251,7 +262,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    AC-family kind through ``device_engine="batched2"`` == the default
    engine's triples, with its ``run_config`` record; the probes' entry point
    (every probe, then the residency sweep: 65,536 chains x 524 steps on
-   tables of 128 entries to 470 MB, each result == the twin's); every AC-family kind under
+   tables of 128 entries to 470 MB, each result == the twin's); the last
+   probes at the JAX files' sizes (probe4, probe5, probe6's row widths,
+   probe7's parts A-C, probe8_minimize's config 3 on the host,
+   probe9_scaling, probe10_tp; each holds its own counts, probe9 the scan
+   against the data-parallel counter, probe10 the table-sharded count
+   against the replicated one), each probe's seconds; every AC-family kind under
    ``device_engine="pfac2"`` == the default engine's triples on 1 Mi units
    (the packed kernels not launched); the JAX package's PFAC conformance
    (v1 walk == v2 walk, count == popcount == the packed count) on 32 Mi
@@ -330,7 +346,9 @@ port only, the dictionary and text generators included (``bench.headline``,
    global memory (``chain_ab``: independent addresses, whose time is its
    throughput floor, the chains in flight, ``__ldcg``, the L1 carve-out, 2
    and 4 chains a thread, one block an SM); the one-hot product's fp16 and
-   fp32 library chains;
+   fp32 library chains; the chained row step at probe4's 8 MB cell and the
+   chain a window on probe7's 512 MB table, each beside its twin, the eager
+   torch chain and its latency floor;
    the PFAC v2 walk's table
    loads a lane (mean,
    largest, a warp's longest) and the G loads/s of each mode, and its A/B
@@ -436,6 +454,10 @@ KERNELS = {  # name: (source, the TPU kernel or device loop it replaces)
                       "ahocorasick_tpu/ops/scan_rowdfa.py:248"),
     "rowdfa2_planes": ("ahocorasick_tpu_torch/csrc/rowdfa2_scan.cu",
                        "ahocorasick_tpu/ops/scan_rowdfa.py:286"),
+    # the probes' XLA device loops: the chained row step (also probe5.py:56,
+    # probe6.py:65, :97) and a chain a window (also probe7.py:183)
+    "row_select": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe4.py:41"),
+    "window_chain": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe7.py:152"),
     # B19: each probe kernel also replaces the other sites its source note lists
     "chain_gather": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:70"),
     "row_chain": ("ahocorasick_tpu_torch/csrc/probes.cu", "tools/probes/probe.py:160"),
@@ -2223,6 +2245,181 @@ def check_gather2d_edges(dev, errs):
     return len(errs_at)
 
 
+ROWSEL_EDGES = {"A": (1, 27, 28, 1024), "B": (1, 33, 4099), "reps": (0, 1, 37)}
+# probe6's two width probes: (label, S, B, T)
+ROWSEL_WIDTH_CELLS = (("cache", 51200, 65536, 64), ("device memory", 470_000, 65536, 16))
+
+
+def check_rowsel_kernels(dev, errs):
+    """``row_select`` against its twin, bit for bit: at the JAX probes' own
+    shapes (probe4's seven cells at their high reps, each consumer's form;
+    probe5's B list at its reps, onehot and logtree's bit-reversed columns;
+    probe6's two width lists, uint32 tables from state 0, 1.9 GB at 1,024
+    words), and at its edges: A = 1, 27, 28 and 1,024 at every group size;
+    S = 1; reps 0, 1 and 37; B = 1, 33 and 4,099 chains (off a multiple of
+    the group and of the warp); full-range int32 words (row sums that wrap,
+    negative values: floor modulo) and uint32 words; mod 1, S and the
+    largest; with and without the step added; starts past the last row and
+    columns past the row (the clamps); the table 4 bytes off a 16-byte
+    boundary (the 4-byte path).  Chains are independent, so an edge's twin
+    runs once on the most chains and its first B values are the twin of B.
+    Returns the cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import probes as kp
+    from ahocorasick_tpu_torch.probes import probe4, probe5, probe6
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 28)
+    M = 0xFFFFFFFF
+    errs_at = []  # (case, max_abs_err on the card): one synchronisation at the end
+
+    def rand(low, high, shape):
+        return torch.randint(low, high, shape, generator=gen, device=dev,
+                             dtype=torch.int64).to(torch.int32)
+
+    def case(label, tab, s0, cols, reps, how, mod, add_r, groups=(None,), chains=(None,)):
+        twin = kp.row_select_plain(tab, s0, cols, reps, how, mod, add_r=add_r).to(torch.int64) & M
+        for B in chains:
+            x, c = (s0, cols) if B is None else (s0[:B], cols[:, :B].contiguous())
+            for g in groups:
+                got = kp.row_select(tab, x, c, reps, how, mod, add_r=add_r, group=g)
+                e = ((got.to(torch.int64) & M) - twin[:x.numel()]).abs().max()
+                errs_at.append(((label, B, g), e))
+
+    for S, A, sel, B, text, _, hi in probe4.CELLS:
+        tab, cs, s0 = rand(0, S, (S, A)), rand(0, A, (8, B)), rand(0, S, (B,))
+        case(f"probe4 {text}, {sel}, reps {hi}", tab, s0, cs, hi, probe4.SELS[sel], S, True)
+        del tab
+    S = 65536
+    tab = rand(0, S, (S, 32))
+    for how in probe5.HOWS:
+        for B in probe5.BS:
+            cs, s0 = rand(0, 32, (8, B)), rand(0, S, (B,))
+            cols = cs if how == "onehot" else probe5.bitrev(cs, 32)
+            reps = max(512, (1 << 22) // B)
+            case(f"probe5 {how} B={B}, reps {reps}", tab, s0, cols, reps, "select", S, True)
+    for (label, S, B, T), widths in zip(ROWSEL_WIDTH_CELLS,
+                                        (probe6.WIDTHS_XLA, probe6.WIDTHS_HBM)):
+        s0 = torch.zeros(B, dtype=torch.int32, device=dev).view(torch.uint32)
+        for A in widths:
+            tab = rand(0, S, (S, A)).view(torch.uint32)
+            case(f"probe6 widths, {label}, A={A}", tab, s0, rand(0, A, (T, B)), T, "select", S,
+                 False)
+            del tab
+    n = max(ROWSEL_EDGES["B"])
+    for A in ROWSEL_EDGES["A"]:
+        for S in (1, 97):
+            words = rand(-(1 << 31), 1 << 31, (S * A + 1,))
+            s0, cols = rand(0, 2 * S, (n,)), rand(0, A + 3, (3, n))
+            for off in ((0, 1) if A % 4 == 0 else (0,)):
+                for signed in (True, False):
+                    tab = words[off: off + S * A].view(S, A)
+                    tab = tab if signed else tab.view(torch.uint32)
+                    for reps in ROWSEL_EDGES["reps"]:
+                        for how in kp.HOWS:
+                            for mod in (1, S, (1 << 31) - 1 if signed else M):
+                                for add_r in (False, True):
+                                    case(f"edge A={A} S={S} off {off} "
+                                         f"{'int32' if signed else 'uint32'} reps {reps} {how} "
+                                         f"mod {mod} add_r {add_r}", tab, s0, cols, reps, how, mod,
+                                         add_r, kp.ROW_GROUPS, ROWSEL_EDGES["B"])
+    e_case = torch.stack([e.to(torch.int64) for _, e in errs_at]).cpu().tolist()
+    e_all = max(e_case)
+    for (case_, _), e in zip(errs_at, e_case):
+        if e:
+            print("  rowsel check: {}, B {}, group {}: max_abs_err {}".format(*case_, e))
+    errs["row_select"] = max(errs["row_select"], e_all)
+    if e_all:
+        raise AssertionError("row_select: a kernel result disagrees with its twin")
+    return len(errs_at)
+
+
+WINDOW_EDGES = {"W": (0, 1, 3, 525), "B": (1, 65, 8192)}
+# probe7's tables: part B's rows, part C's, part A's MB
+WINDOW_TABLES = {"B": 1 << 22, "C": (262144, 1 << 20, 1 << 21), "A": (8, 96)}
+
+
+def check_window_kernels(dev, errs):
+    """``window_chain`` against its twin, bit for bit: at the JAX probe's own
+    tables (probe7's part B, 4,194,304 rows of 32 words with next states in
+    [0, n) for n = 1, 4,096, 65,536, 2**20 and the rows, flat and as rows;
+    part C, 262,144, 2**20 and 2**21 rows) over its windows (8,192 x 524
+    int32 classes); and at its edges: uint8, uint16 and int32 windows of 0,
+    1, 3 and 525 classes (the row words and the one-load-a-class path), 1,
+    65 and 8,192 windows, a window tensor one class off a 4-byte boundary,
+    strides 1, 32 and 33 on a flat table and a 2-D one, next states and
+    classes past the table (both clamps), full-range words.  Then part A's
+    hashed packed tables (8 and 96 MB) under ``packed_scan_count`` against
+    its twin at the probe's windows (K = 4 lanes a window).  Returns the
+    cases."""
+    import torch
+
+    from ahocorasick_tpu_torch.kernels import probes as kp
+    from ahocorasick_tpu_torch.kernels import scan_block
+    from ahocorasick_tpu_torch.probes import probe7
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 29)
+    M = 0xFFFFFFFF
+    errs_at = []
+
+    def case(label, tab, w, stride=None):
+        want = kp.window_chain_plain(tab, w, stride).to(torch.int64) & M
+        got = kp.window_chain(tab, w, stride).to(torch.int64) & M
+        errs_at.append((label, (got - want).abs()))
+
+    w7 = probe7._windows(7, dev)
+    rows = WINDOW_TABLES["B"]
+    for n in (1, 4096, 65536, 1 << 20, rows):
+        flat = probe7.chain_table(rows, n, dev)
+        case(f"probe7 part B flat n={n}", flat, w7, probe7.AP)
+        case(f"probe7 part B 2d n={n}", flat.view(rows, probe7.AP), w7)
+        del flat
+    for r in WINDOW_TABLES["C"]:
+        case(f"probe7 part C rows={r}", probe7.chain_table(r, r, dev), w7, probe7.AP)
+    full = torch.randint(-(1 << 31), 1 << 31, (600 * 33,), generator=gen, device=dev,
+                         dtype=torch.int64).to(torch.int32)
+    small = torch.randint(0, 700, (600 * 33,), generator=gen, device=dev,
+                          dtype=torch.int64).to(torch.int32)
+    for name, dt, high in (("uint8", torch.uint8, 40), ("uint16", torch.uint16, 40),
+                           ("int32", torch.int32, 40)):
+        for W in WINDOW_EDGES["W"]:
+            classes = torch.randint(0, high, (max(WINDOW_EDGES["B"]) * W + 1,), generator=gen,
+                                    device=dev, dtype=torch.int64)
+            raw = classes.to(torch.int32) if dt == torch.int32 else classes.to(
+                torch.int16 if dt == torch.uint16 else torch.uint8)
+            raw = raw.view(torch.uint16) if dt == torch.uint16 else raw
+            for off in (0, 1):
+                for B in WINDOW_EDGES["B"]:
+                    w = raw[off: off + B * W].view(B, W)
+                    for tname, words in (("full-range", full), ("below 700", small)):
+                        for stride in (1, 32, 33):
+                            case(f"edge {name} W={W} off {off} B={B} {tname} flat stride "
+                                 f"{stride}", words, w, stride)
+                        case(f"edge {name} W={W} off {off} B={B} {tname} 600 x 33",
+                             words.view(600, 33), w)
+    e_case = torch.stack([e.to(torch.int64) for _, e in errs_at]).cpu().tolist()
+    e_all = max(e_case)
+    for (label, _), e in zip(errs_at, e_case):
+        if e:
+            print(f"  window check: {label}: max_abs_err {e}")
+    errs["window_chain"] = max(errs["window_chain"], e_all)
+    if e_all:
+        raise AssertionError("window_chain: a kernel result disagrees with its twin")
+    w1 = probe7._windows(1, dev).to(torch.uint8)
+    for mb in WINDOW_TABLES["A"]:
+        table, S, sb = probe7.part_a_table(mb, 1, dev)
+        got = scan_block.packed_scan_count(table, w1, probe7.HALO, sb)
+        want = scan_block.packed_scan_count_plain(table, w1, probe7.HALO, sb)
+        e = abs(int(got) - int(want))
+        errs["packed_scan_count"] = max(errs["packed_scan_count"], e)
+        print(f"  probe7 part A {mb} MB (S={S}): packed_scan_count {int(got)}, twin {int(want)}")
+        if e:
+            raise AssertionError(f"probe7 part A {mb} MB: packed_scan_count disagrees with its "
+                                 f"twin")
+        del table
+    return len(errs_at) + 2
+
+
 def synthetic_trie(rng, S: int, A: int, live: float, match: float) -> tuple:
     """A seeded trie-like table ``(trie int32[S, A], is_match bool[S])``
     whose last row is an absorbing dead state that emits nothing: each other
@@ -3486,6 +3683,15 @@ def main() -> int:
     t0 = time.perf_counter()
     print(f"  gather2d edges: {check_gather2d_edges(dev, errs)} cases, each == its twin "
           f"({time.perf_counter() - t0:.2f} s)")
+    # The probes' device loops (probe4-probe7) at the JAX probes' shapes and
+    # at their edges.
+    t0 = time.perf_counter()
+    print(f"  row_select at probe4/5/6's shapes and its edges: {check_rowsel_kernels(dev, errs)} "
+          f"cases, each == its twin (phase {time.perf_counter() - t0:.2f} s)")
+    t0 = time.perf_counter()
+    print(f"  window_chain at probe7's tables and its edges, probe7's part A tables: "
+          f"{check_window_kernels(dev, errs)} cases, each == its twin (phase "
+          f"{time.perf_counter() - t0:.2f} s)")
     prng = np.random.default_rng(SEED + 20)  # its own: the main path's texts stay as they were
     fuzz_m = port.AhoCorasickSet(fuzz_keywords(prng, "abcdef", 60, 8), engine="device", device=dev)
     demo_m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
@@ -4840,6 +5046,51 @@ def main() -> int:
     run_path("probes (python -m ahocorasick_tpu_torch.probes)",
              ("chain_gather", "row_chain", "onehot_mma", "gather2d"), probes_path)
 
+    # The last probes of tools/probes/ at the JAX files' sizes: probe4 and
+    # probe5 (the chained row step), probe6's row widths, probe7 (part A's
+    # count kernel against table size, parts B and C's chains), probe8's
+    # minimization of config 3 (host numpy), probe9 (a scan and the
+    # data-parallel counter on one device) and probe10 (the table-sharded
+    # scan beside the replicated one).  Each probe raises where its own
+    # counts disagree.
+    from ahocorasick_tpu_torch.probes import probe4, probe5, probe7, probe8_minimize
+    from ahocorasick_tpu_torch.probes import probe9_scaling, probe10_tp
+
+    last_probes, last_secs = {}, {}
+
+    def last_probes_path():
+        for key, run in (("probe4", lambda: probe4.main(dev)),
+                         ("probe5", lambda: probe5.main(dev)),
+                         ("probe6 widths", lambda: probes_main.main(["--widths"])),
+                         ("probe7", lambda: probe7.main(["--part", "ABC"])),
+                         ("probe8 config 3", lambda: probe8_minimize.main(["--config", "3"])),
+                         ("probe9", lambda: probe9_scaling.main([])),
+                         ("probe10", lambda: probe10_tp.main(dev))):
+            t = time.perf_counter()
+            last_probes[key] = run()
+            last_secs[key] = time.perf_counter() - t
+        rates = [*last_probes["probe4"].values(), *last_probes["probe5"].values(),
+                 *(r for w in last_probes["probe6 widths"]["widths"].values()
+                   for r, _ in w.values())]
+        degenerate = [r["label"] for part in last_probes["probe7"].values() for r in part
+                      if "degenerate" in r]
+        if min(rates) <= 0 or degenerate:
+            print(f"  probes 4-10: timings swamped by noise: {sum(r <= 0 for r in rates)} row-step "
+                  f"rates, probe7 {degenerate}")
+        mins = last_probes["probe8 config 3"]
+        if not all(0 < r["min_states"] <= r["states"] for r in mins):
+            raise AssertionError(f"probe8: minimized states out of range: {mins}")
+        n7 = sum(map(len, last_probes["probe7"].values()))
+        return (f"{len(rates)} row-step records, probe7 {n7} records, probe8 min_states "
+                f"{[r['min_states'] for r in mins]}, probe9 count "
+                f"{last_probes['probe9']['scan_count']}, probe10 total "
+                f"{last_probes['probe10']['total']}; seconds {last_secs} [{smi}]")
+
+    run_path("probes 4-10 (probe4, probe5, probe6 --widths, probe7, probe8_minimize, "
+             "probe9_scaling, probe10_tp)",
+             ("row_select", "window_chain", "packed_scan_count", "table_sharded_scan"),
+             last_probes_path)
+
     # Every AC-family kind under device_engine="pfac2" (the PFAC walk) == the
     # default engine's triples; the references are made before the path, so
     # the packed planes kernel must not launch on it.
@@ -5931,6 +6182,68 @@ def main() -> int:
         print(f"time {k} at {shape}: kernel {ms[k][0]} ms, plain twin {ms[k][1]} ms, eager "
               f"torch {probe_library[k]} ms [{smi}]")
 
+    # The probes' device loops: row_select at probe4's 8 MB cell (65,536 x 32
+    # int32 rows, 4,096 chains, 512 steps, onehot), window_chain at probe7's
+    # 512 MB part B table (n = 2**22, flat) over its 8,192 x 524 windows;
+    # each beside its twin and the same chain as eager torch indexing, and
+    # each one's latency floor: its steps x the step of 32 chains on the idle
+    # card (the difference of two step counts, so that the launch cancels) x
+    # the waves its chains need.
+    rs4 = np.random.RandomState(SEED)
+    S4, R4 = 65536, 512
+    tab_rs = torch.from_numpy(rs4.randint(0, S4, (S4, 32), np.int32)).to(dev)
+    cs_rs = torch.from_numpy(rs4.randint(0, 32, (8, 4096), np.int32)).to(dev)
+    s0_rs = torch.from_numpy(rs4.randint(0, S4, 4096, np.int32)).to(dev)
+
+    def torch_rowsel():
+        s, cl = s0_rs.long(), cs_rs.long()
+        for r in range(R4):
+            s = (tab_rs[s].gather(1, cl[r % 8][:, None])[:, 0].long() + r) % S4
+        return s
+
+    ms["row_select"] = timed_pair(
+        "row_select", lambda: kprobe.row_select(tab_rs, s0_rs, cs_rs, R4, "select", S4, add_r=True),
+        lambda: kprobe.row_select_plain(tab_rs, s0_rs, cs_rs, R4, "select", S4, add_r=True), 20, 1)
+    probe_library["row_select"] = cuda_ms(torch_rowsel, 2)
+    rs_idle = [scan_variants._card_ms(
+        lambda r=r: kprobe.row_select(tab_rs, s0_rs[:32].contiguous(), cs_rs[:, :32].contiguous(),
+                                      r, "select", S4, add_r=True), 3, dev) for r in (R4, 2 * R4)]
+    rs_waves = -(-s0_rs.numel() * kprobe.row_group(32) // scan_variants.CARD_THREADS)
+    latency_floor["row_select"] = (rs_idle[1] - rs_idle[0]) * rs_waves
+    print(f"latency floor row_select, 65,536 x 32 rows, 4,096 chains, G = {kprobe.row_group(32)}: "
+          f"{R4} steps x {(rs_idle[1] - rs_idle[0]) / R4 * 1e3} us a step (32 chains, idle) x "
+          f"{rs_waves} wave = {latency_floor['row_select']} ms; kernel {ms['row_select'][0]} ms = "
+          f"{ms['row_select'][0] / latency_floor['row_select']} x its floor [{smi}]")
+    w_wc = probe7._windows(7, dev)
+    tab_wc = probe7.chain_table(1 << 22, 1 << 22, dev)
+
+    def torch_window():
+        s, tl, wl = torch.zeros(w_wc.shape[0], dtype=torch.int64, device=dev), \
+            tab_wc.view(torch.int32), w_wc.long()
+        for t in range(w_wc.shape[1]):
+            s = tl[s * probe7.AP + wl[:, t]].long()
+        return s.sum()
+
+    ms["window_chain"] = timed_pair(
+        "window_chain", lambda: kprobe.window_chain(tab_wc, w_wc, probe7.AP),
+        lambda: kprobe.window_chain_plain(tab_wc, w_wc, probe7.AP), 20, 1)
+    probe_library["window_chain"] = cuda_ms(torch_window, 2)
+    w32 = w_wc[:32].contiguous()
+    wc_idle = [scan_variants._card_ms(lambda x=x: kprobe.window_chain(tab_wc, x, probe7.AP), 3, dev)
+               for x in (w32, torch.cat([w32, w32], 1).contiguous())]
+    wc_waves = -(-w_wc.shape[0] // scan_variants.CARD_THREADS)
+    latency_floor["window_chain"] = (wc_idle[1] - wc_idle[0]) * wc_waves
+    print(f"latency floor window_chain, 512 MB table, 8,192 windows x {w_wc.shape[1]} classes: "
+          f"{w_wc.shape[1]} steps x {(wc_idle[1] - wc_idle[0]) / w_wc.shape[1] * 1e3} us a step "
+          f"(32 chains, idle) x {wc_waves} wave = {latency_floor['window_chain']} ms; kernel "
+          f"{ms['window_chain'][0]} ms = {ms['window_chain'][0] / latency_floor['window_chain']} "
+          f"x its floor [{smi}]")
+    for k, shape in (("row_select", f"65,536 x 32 rows, 4,096 chains x {R4} steps"),
+                     ("window_chain", f"512 MB table, {w_wc.shape[0]} x {w_wc.shape[1]} "
+                                      f"windows")):
+        print(f"time {k} at {shape}: kernel {ms[k][0]} ms, plain twin {ms[k][1]} ms, eager "
+              f"torch {probe_library[k]} ms [{smi}]")
+
     # The PFAC walk at the facade's 32 Mi units of the 10k dictionary, and the
     # (lane, depth) steps this text makes it take before the dead state.
     comp10 = big.compiled
@@ -6101,6 +6414,11 @@ def main() -> int:
                        2 * idx4.shape[0] * tab4.shape[0] * tab4.shape[1] * 128,
                        PEAK_FP16_TENSOR_PER_S),
         "gather2d": (nbytes(tab8, idx8) + 4, 6 * idx8.numel() * 1024),
+        # the chains and their columns in, the states out; a row's 32 words
+        # (a compare and a select each), a shuffle and a modulo a chain a step
+        "row_select": (2 * s0_rs.nbytes + cs_rs.nbytes, (2 * 32 + 4) * s0_rs.numel() * R4),
+        # the windows in, the sum out; an index, a clamp and a load a class
+        "window_chain": (w_wc.nbytes + 4, 3 * w_wc.numel()),
         # classes in, planes (or a count) out; a load and a compare per step
         # this text makes before the dead state
         "pfac2_planes": (nbytes(cp10) + 4 * P10 * n10, 2 * steps2),

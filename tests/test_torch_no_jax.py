@@ -278,6 +278,42 @@ def test_probes_and_pfac_walk_run_without_loading_jax():
     assert proc.returncode == 0, proc.stderr
 
 
+def test_last_probes_run_without_loading_jax():
+    """probe4 to probe10_tp and their two kernels' wrappers, at small sizes
+    on the CPU twins."""
+    code = (
+        "import contextlib, io, sys\n"
+        "import torch\n"
+        "from ahocorasick_tpu_torch.kernels import probes as kp\n"
+        "from ahocorasick_tpu_torch.probes import __main__ as probes_main\n"
+        "from ahocorasick_tpu_torch.probes import probe4, probe5, probe6, probe7\n"
+        "from ahocorasick_tpu_torch.probes import probe8_minimize, probe9_scaling, probe10_tp\n"
+        "t = torch.tensor([[1, 2], [0, 3]], dtype=torch.int32)\n"
+        "s = torch.tensor([0, 1], dtype=torch.int32)\n"
+        "c = torch.tensor([[1, 0]], dtype=torch.int32)\n"
+        "assert kp.row_select(t, s, c, 1, 'select', 2).tolist() == [0, 0]\n"
+        "assert kp.row_select(t, s, None, 1, 'sum', 2).tolist() == [1, 1]\n"
+        "w = torch.tensor([[1, 1], [0, 1]], dtype=torch.uint8)\n"
+        "assert int(kp.window_chain(t, w)) == 6\n"
+        "probe7.B_LANES, probe7.CHUNK = 16, 64\n"
+        "with contextlib.redirect_stdout(io.StringIO()):\n"
+        "    probe4.main('cpu', small=True)\n"
+        "    probe5.main('cpu', small=True)\n"
+        "    probes_main.main(['--platform', 'cpu', '--widths'])\n"
+        "    probe7.main(['--platform', 'cpu', '--part', 'ABC', '--mb', '1', '--rows', '512',\n"
+        "                 '--crows', '256'])\n"
+        "    assert probe8_minimize.run_config('5', 200)[0]['states'] > 200\n"
+        "    o9 = probe9_scaling.main(['--platform', 'cpu', '--keywords', '50',\n"
+        "                              '--units', '2048'])\n"
+        "    o10 = probe10_tp.main('cpu', 50, 2048, min_units=0)\n"
+        "assert o9['scan_count'] == o10['total'] > 0\n"
+        + _CLEAN
+    )
+    proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+
+
 def test_soak_runs_as_a_command_without_loading_jax():
     code = (
         "import contextlib, io, runpy, sys\n"
@@ -326,7 +362,9 @@ def test_port_sources_never_import_jax():
                  "kernels/probes.py", "kernels/scan_pfac.py", "ops/scan_pfac.py",
                  "ops/scan_pfac2.py", "ops/emit.py", "probes/__init__.py", "probes/probe.py",
                  "probes/probe2.py", "probes/probe3.py", "probes/probe6.py",
-                 "probes/__main__.py", "soak.py"):
+                 "probes/probe4.py", "probes/probe5.py", "probes/probe7.py",
+                 "probes/probe8_minimize.py", "probes/probe9_scaling.py",
+                 "probes/probe10_tp.py", "probes/__main__.py", "soak.py"):
         assert ROOT / "ahocorasick_tpu_torch" / name in sources, name
     offenders = [str(p) for p in sources if pattern.search(p.read_text())]
     assert offenders == []

@@ -293,6 +293,44 @@ def test_step_graphs_leave_cpu_windows_eager():
     assert len(graphs) == 0
 
 
+@pytest.mark.parametrize("mode", ["count", "planes"])
+def test_step_graphs_entry_holds_every_captured_buffer(monkeypatch, mode):
+    """A captured loop replays into the buffers it was captured on, so the
+    ``StepGraphs`` entry must hold each of them: the windows' copy, the
+    class-major classes the prep writes, and every rank's words and outputs.
+    A buffer the entry drops goes back to the allocator while each replay
+    still writes into its memory.  The capture runs on CPU tensors under a
+    stand-in graph that records the tensors ``_loop`` is handed."""
+    table, cls, halo, sb = _table("packed")
+    windows = _windows(table, cls, halo)
+    seen = []
+    real_loop = kernels._loop
+
+    def recording_loop(bufs, static, classes, *args):
+        seen.extend([static, classes, *(t for _, _, *ts in bufs for t in ts if t is not None)])
+        return real_loop(bufs, static, classes, *args)
+
+    class Graph:
+        def replay(self):
+            pass
+
+    monkeypatch.setattr(kernels, "_loop", recording_loop)
+    monkeypatch.setattr(torch.cuda, "CUDAGraph", Graph)
+    monkeypatch.setattr(torch.cuda, "graph", lambda g: __import__("contextlib").nullcontext())
+    segments = kernels.step_segments(windows.shape[0], windows.shape[1] - halo, halo, mode)
+    entry = kernels.StepGraphs._capture(_shards(table, 2), windows, halo, sb, mode, _sum_ranks,
+                                        segments)
+    held = set()
+    stack = list(entry)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, (tuple, list)):
+            stack.extend(x)
+        elif isinstance(x, torch.Tensor):
+            held.add(id(x))
+    assert len(seen) >= 4 and all(id(t) in held for t in seen)
+
+
 def test_step_wrapper_refuses_bad_buffers():
     table, cls, halo, sb = _table("packed")
     windows = _windows(table, cls, halo)
