@@ -90,6 +90,9 @@
 //     its first design, a warp a chain.
 //   * entry_fold_first: the stitch's fold (csrc/stitch.cu entry_fold) in its
 //     first design, one thread walking the chain.
+//   * window_chain_first: the probes' chain a window (csrc/probes.cu
+//     window_chain) in its first design, a thread a window reading its
+//     classes from its row in global memory, 64 windows a block.
 //   * chain_independent, chain_arm: measurement arms of the probes' lookup
 //     chain (csrc/probes.cu chain_gather, global placement, the load op):
 //     the same number of loads from the same table at addresses that do not
@@ -2300,5 +2303,123 @@ extern "C" int chain_arm(int chains, int cg, int carveout, int even, const void*
   } else {
     err = cudaErrorInvalidValue;
   }
+  return static_cast<int>(err);
+}
+
+// ---------------------------------------------------------------------------
+// window_chain_first: the probes' chain a window (csrc/probes.cu
+// window_chain) in its first design.
+
+namespace window_first {
+
+constexpr int kWinThreads = 64;
+
+template <bool kRows>
+__device__ __forceinline__ uint32_t chain_at(uint32_t s, uint32_t c, uint32_t stride,
+                                             uint32_t last, uint32_t rows_last) {
+  return kRows ? min(s, rows_last) * stride + min(c, stride - 1u) : min(s * stride + c, last);
+}
+
+template <int kCB, bool kRows>
+__global__ void __launch_bounds__(kWinThreads)
+    window_kernel(const uint32_t* __restrict__ tab, uint32_t last, uint32_t rows_last,
+                  uint32_t stride, const uint8_t* __restrict__ windows, int width, int64_t n,
+                  int words, uint32_t* __restrict__ out) {
+  __shared__ uint32_t warp_sums[32];
+  const int64_t b = static_cast<int64_t>(blockIdx.x) * kWinThreads + threadIdx.x;
+  uint32_t s = 0u;
+  if (b < n) {
+    const uint8_t* row = windows + b * static_cast<int64_t>(width) * kCB;
+    if (words) {
+      constexpr int kPer = 4 / kCB;
+      const uint32_t* wr = reinterpret_cast<const uint32_t*>(row);
+      const int nw = width / kPer;
+      uint32_t next = nw > 0 ? __ldg(wr) : 0u;
+      for (int k = 0; k < nw; ++k) {
+        const uint32_t word = next;
+        if (k + 1 < nw) next = __ldg(wr + k + 1);
+#pragma unroll
+        for (int q = 0; q < kPer; ++q) {
+          uint32_t c;
+          if constexpr (kCB == 4) {
+            c = word;
+          } else {
+            c = (word >> (8 * kCB * q)) & ((1u << (8 * kCB)) - 1u);
+          }
+          s = __ldg(tab + chain_at<kRows>(s, c, stride, last, rows_last));
+        }
+      }
+    } else {
+      for (int t = 0; t < width; ++t) {
+        uint32_t c;
+        if constexpr (kCB == 1) {
+          c = __ldg(row + t);
+        } else if constexpr (kCB == 2) {
+          c = __ldg(reinterpret_cast<const uint16_t*>(row) + t);
+        } else {
+          c = __ldg(reinterpret_cast<const uint32_t*>(row) + t);
+        }
+        s = __ldg(tab + chain_at<kRows>(s, c, stride, last, rows_last));
+      }
+    }
+  }
+  for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  if (lane == 0) warp_sums[warp] = s;
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = (blockDim.x + 31) >> 5;
+    s = lane < warps ? warp_sums[lane] : 0u;
+    for (int off = 16; off > 0; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);
+    if (lane == 0) atomicAdd(out, s);
+  }
+}
+
+template <int kCB, bool kRows>
+cudaError_t launch_first(const uint32_t* tab, uint32_t last, uint32_t rows_last, uint32_t stride,
+                         const uint8_t* w, int width, int64_t n, uint32_t* out, cudaStream_t st) {
+  const int words = (static_cast<int64_t>(width) * kCB) % 4 == 0 &&
+                    reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  const unsigned grid = static_cast<unsigned>((n + kWinThreads - 1) / kWinThreads);
+  window_kernel<kCB, kRows><<<grid, kWinThreads, 0, st>>>(tab, last, rows_last, stride, w, width,
+                                                          n, words, out);
+  return cudaGetLastError();
+}
+
+template <bool kRows>
+cudaError_t launch_first_cb(int window_bytes, const uint32_t* tab, uint32_t last,
+                            uint32_t rows_last, uint32_t stride, const uint8_t* w, int width,
+                            int64_t n, uint32_t* out, cudaStream_t st) {
+  switch (window_bytes) {
+    case 1: return launch_first<1, kRows>(tab, last, rows_last, stride, w, width, n, out, st);
+    case 2: return launch_first<2, kRows>(tab, last, rows_last, stride, w, width, n, out, st);
+    case 4: return launch_first<4, kRows>(tab, last, rows_last, stride, w, width, n, out, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace window_first
+
+// The first design, with the package's window_chain arguments.
+extern "C" int window_chain_first(const void* tab, int64_t numel, int64_t rows, int64_t stride,
+                                  const void* windows, int window_bytes, int64_t n, int width,
+                                  void* out, int device, void* stream) {
+  using namespace window_first;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (numel < 1 || numel > 0xffffffffLL || stride < 1 || stride > 0xffffffffLL || n < 1 ||
+      width < 0 || rows < 0 || (rows > 0 && rows * stride != numel)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const auto* t = static_cast<const uint32_t*>(tab);
+  const auto* w = static_cast<const uint8_t*>(windows);
+  auto* o = static_cast<uint32_t*>(out);
+  auto st = static_cast<cudaStream_t>(stream);
+  const auto last = static_cast<uint32_t>(numel - 1);
+  const auto sd = static_cast<uint32_t>(stride);
+  err = rows > 0 ? launch_first_cb<true>(window_bytes, t, last, static_cast<uint32_t>(rows - 1), sd,
+                                         w, width, n, o, st)
+                 : launch_first_cb<false>(window_bytes, t, last, 0u, sd, w, width, n, o, st);
   return static_cast<int>(err);
 }

@@ -112,7 +112,9 @@ another checkout at
 the same cells at the rule's K: each pair's outputs equal bit for bit, then
 other, this, this, other; then the probes' lookup chain ``chain_gather``
 (the load op at every residency-sweep size in every placement), the
-one-hot product ``onehot_mma`` and the 2-D gather ``gather2d`` in every mode
+one-hot product ``onehot_mma``, the 2-D gather ``gather2d`` in every mode
+and the chain a window ``window_chain`` at probe7's part B cells (n = 1,
+4,096, 65,536, 2**20, 2**22; flat and 2-D) and part C cells
 (``against_probes``).  A parent from before the redesigned v1 walk or the
 warp-row 2-D gather is called with its first design's arguments.  Prints one
 JSON line.
@@ -132,7 +134,11 @@ run eagerly, every result held to ``table_sharded_scan``; with
 
 times the probes' arms: the lookup chain's in global memory (``chain_ab``:
 independent addresses, the random-request ceiling; the chains in flight;
-``__ldcg``, the L1 carve-out, 2 and 4 chains a thread, one block an SM);
+``__ldcg``, the L1 carve-out, 2 and 4 chains a thread, one block an SM); and
+the chain a window (``csrc/window_chain.cuh``) against its first design
+(``window_chain_first`` here) at probe7's part B cells n = 1, 65,536 and
+2**22, each with its latency floor at the placement of its table's rows
+(L1, L2, device memory with the L2 flushed: ``window_ab``, ``window_floor``);
 with ``--against``, only ``against_probes``.
 """
 
@@ -247,6 +253,8 @@ def library() -> ctypes.CDLL:
     # (chains, cg, carveout, even, tab, T, idx, n, reps, out, device, stream)
     lib.chain_arm.argtypes = [I, I, I, I, P, I64, P, I64, I, P, I, P]
     lib.chain_independent.restype = lib.chain_arm.restype = ctypes.c_int
+    lib.window_chain_first.argtypes = build.ARGTYPES["window_chain"]
+    lib.window_chain_first.restype = ctypes.c_int
     return lib
 
 
@@ -1968,19 +1976,162 @@ def gather2d_launcher(lib, warp_rows: bool, cell: tuple, out):
     return run
 
 
+WINDOW_ROWS = 1 << 22  # probe7 part B's table: 4,194,304 rows of 32 words, 512 MB
+# probe7 part B's n at the three placements of the table the chains touch:
+# one row (L1), 8 MB of rows (L2), the whole 512 MB (device memory, cold)
+WINDOW_PLACEMENTS = {1: "L1", 1 << 16: "L2", WINDOW_ROWS: "device"}
+WINDOW_ROTATE = 8  # the 32-window slices a floor's calls take in turn
+FLUSH_BYTES = 256 << 20  # written between the cold calls: five times the L2
+FLUSH_HOLD_CYCLES = 4_000_000  # the spin the host enqueues a cold call behind
+
+
+def cold_card_ms(run, dev, trials: int = 5) -> float:
+    """The card's ms of one ``run()`` that finds the L2 cold: before each of
+    ``trials`` calls (the best kept) a scratch tensor of ``FLUSH_BYTES`` is
+    written, outside the CUDA events; the flush, the events and the call are
+    queued behind a spin, so that no host time falls between them."""
+    scratch = torch.empty(FLUSH_BYTES // 4, dtype=torch.int32, device=dev)
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    run()
+    best = float("inf")
+    for i in range(trials):
+        torch.cuda.synchronize(dev)
+        torch.cuda._sleep(FLUSH_HOLD_CYCLES)
+        scratch.fill_(i)
+        start.record()
+        run()
+        stop.record()
+        stop.synchronize()
+        best = min(best, start.elapsed_time(stop))
+    return best
+
+
+def window_call(fn, tab, w, stride, out):
+    """A launch of ``fn`` on ``(tab, w, stride)`` adding into ``out``
+    (int32[1], not zeroed): ``fn`` a ``window_chain`` entry point with the
+    package's arguments (this checkout's, another checkout's, or
+    ``window_chain_first`` here).  It holds pointers only: the caller keeps
+    the tensors."""
+    from ahocorasick_tpu_torch.kernels import probes as kp
+
+    dev = w.device
+    args = (tab.data_ptr(), tab.numel(), tab.shape[0] if tab.dim() == 2 else 0, stride,
+            w.data_ptr(), kp._WINDOW_BYTES[w.dtype], w.shape[0], w.shape[1], out.data_ptr(),
+            dev.index or 0, torch.cuda.current_stream(dev).cuda_stream)
+    return lambda: _checked(fn(*args), "window_chain")
+
+
+def window_designs(lib) -> dict:
+    """The chain a window's entry points: this checkout's kernel and its
+    first design (``window_chain_first`` in ``lib``)."""
+    return {"first": lib.window_chain_first, "this": build.library().window_chain}
+
+
+def window_floor(fn, tab, w, stride, cold: bool) -> dict:
+    """``fn``'s latency floor on ``(tab, w, stride)``: its step on the
+    idle card, ``LATENCY_CHAINS`` windows with their classes and the same
+    windows twice as long, (time at 2 W - time at W) / W, so that the
+    launch and the first tile cancel; each call on the next of
+    ``WINDOW_ROTATE`` slices of 32 windows, so that no call finds its chains
+    in L1 from the call before; ``cold``: each call after an L2 flush
+    (``cold_card_ms``), else warm (``_card_ms``).  The floor is W x the
+    step x the waves of ``w``'s windows."""
+    dev = w.device
+    W = w.shape[1]
+    out = torch.zeros(1, dtype=torch.int32, device=dev)
+    t = []
+    for twice in (False, True):
+        runs = []
+        for k in range(WINDOW_ROTATE):
+            x = w[LATENCY_CHAINS * k: LATENCY_CHAINS * (k + 1)].contiguous()
+            x = torch.cat([x, x], 1).contiguous() if twice else x
+            runs.append((x, window_call(fn, tab, x, stride, out)))
+        turn = iter(range(1 << 30))
+
+        def run(runs=runs, turn=turn):
+            runs[next(turn) % len(runs)][1]()
+        t.append(cold_card_ms(run, dev) if cold else _card_ms(run, 3, dev))
+    step = (t[1] - t[0]) / W
+    waves = -(-w.shape[0] // CARD_THREADS)
+    return {"step_us": step * 1e3, "floor_ms": W * step * waves, "call_ms": t}
+
+
+def window_ab_cell(n: int, tab, w, lib, stride: int = 32) -> dict:
+    """The chain a window at one of probe7 part B's cells (``tab`` its flat
+    table of next states in [0, ``n``), ``w`` its windows): this checkout's
+    kernel and its first design (``window_chain_first``), each one's sum
+    held bit for bit against the first design's, timed in turns (the card's
+    time, queued; first, this, this, first); and each one's latency floor at
+    the placement n gives (``WINDOW_PLACEMENTS``: the device-memory floor
+    cold)."""
+    dev = w.device
+    fns = window_designs(lib)
+    designs = list(fns)
+    outs = {d: torch.zeros(1, dtype=torch.int32, device=dev) for d in designs}
+    runs = {d: window_call(fns[d], tab, w, stride, outs[d]) for d in designs}
+    for d in designs:
+        runs[d]()
+    want = outs["first"].item()
+    for d in designs:
+        if outs[d].item() != want:
+            raise AssertionError(f"window_chain n={n} {d}: {outs[d].item()} against the first "
+                                 f"design's {want}")
+    ms = {}
+    for d in [*designs, *reversed(designs)]:
+        t = _card_ms(runs[d], 3, dev)
+        ms[d] = min(ms.get(d, t), t)
+    placement = WINDOW_PLACEMENTS[n]
+    floors = {d: window_floor(fns[d], tab, w, stride, cold=placement == "device")
+              for d in designs}
+    return {"placement": placement, "sum": want, "ms": ms, "floor": floors,
+            "over_floor": {d: ms[d] / floors[d]["floor_ms"] for d in ms}}
+
+
+def window_ab(dev, lib) -> dict:
+    """``window_ab_cell`` at each n of ``WINDOW_PLACEMENTS`` on probe7's
+    windows (8,192 x 524 int32 classes), flat: ``{"window_ab": {n: record}}``."""
+    from ahocorasick_tpu_torch.probes import probe7
+
+    w = probe7._windows(7, dev)
+    record = {}
+    for n in WINDOW_PLACEMENTS:
+        tab = probe7.chain_table(WINDOW_ROWS, n, dev)
+        record[n] = window_ab_cell(n, tab, w, lib)
+        del tab
+    return {"window_ab": record}
+
+
+def window_cells_against(dev):
+    """probe7's cells for ``against_probes``, one at a time: ``(label, tab,
+    windows, stride)`` at part B's five n, flat and as rows, and part C's
+    three tables."""
+    from ahocorasick_tpu_torch.probes import probe7
+
+    w = probe7._windows(7, dev)
+    for n in (1, 4096, 65536, 1 << 20, WINDOW_ROWS):
+        tab = probe7.chain_table(WINDOW_ROWS, n, dev)
+        yield f"window_chain B flat n={n}", tab, w, probe7.AP
+        yield f"window_chain B 2d n={n}", tab.view(WINDOW_ROWS, probe7.AP), w, probe7.AP
+        del tab
+    for rows in (262144, 1 << 20, 1 << 21):
+        yield f"window_chain C rows={rows}", probe7.chain_table(rows, rows, dev), w, probe7.AP
+
+
 def against_probes(other_root: str, dev) -> dict:
     """The probes' lookup chain (``chain_gather``, the load op, at every
     residency-sweep size in every placement its table fits: 65,536 chains x
     524 steps on the sweep's cycle tables), the one-hot product
-    (``onehot_mma`` at ``onehot_cell``) and the 2-D gather (``gather2d`` in
-    every mode at its timed shape, ``g2_cells``) of this checkout and of
+    (``onehot_mma`` at ``onehot_cell``), the 2-D gather (``gather2d`` in
+    every mode at its timed shape, ``g2_cells``) and the chain a window
+    (``window_chain`` at ``window_cells_against``) of this checkout and of
     ``other_root``'s ``csrc/``, each pair's outputs equal bit for bit, then
     the card's time (queued) other, this, this, other: ``{label: {"other_ms",
     "this_ms", "this_over_other"}}``."""
     from ahocorasick_tpu_torch.kernels import probes as kp
     from ahocorasick_tpu_torch.probes import __main__ as probes_main
 
-    libs = {"other": _other_library(other_root, ("chain_gather", "onehot_mma")),
+    libs = {"other": _other_library(other_root, ("chain_gather", "onehot_mma", "window_chain")),
             "this": build.library()}
     rows_form = {"other": _warp_rows(other_root), "this": True}
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -2023,6 +2174,22 @@ def against_probes(other_root: str, dev) -> dict:
         runs = {tree: gather2d_launcher(lib, rows_form[tree], cell, outs[tree])
                 for tree, lib in libs.items()}
         compare(f"gather2d {label}", outs, runs, 5)
+    # the chain a window: the sums compared from zero, then timed without
+    # the zeroing (the sum only accumulates)
+    for label, tab, w, stride in window_cells_against(dev):
+        outs = {tree: torch.zeros(1, dtype=torch.int32, device=dev) for tree in libs}
+        runs = {tree: window_call(lib.window_chain, tab, w, stride, outs[tree])
+                for tree, lib in libs.items()}
+        for tree in libs:
+            runs[tree]()
+        if not torch.equal(outs["other"], outs["this"]):
+            raise AssertionError(f"{label}: the two checkouts' kernels differ")
+        ms = {"other": [], "this": []}
+        for tree in ("other", "this", "this", "other"):
+            ms[tree].append(_card_ms(runs[tree], 3, dev))
+        record[label] = {"other_ms": ms["other"], "this_ms": ms["this"],
+                         "this_over_other": min(ms["this"]) / min(ms["other"])}
+        del tab
     return record
 
 
@@ -2045,9 +2212,11 @@ def main(argv=None) -> None:
                         help="only the probes' row read's and the stitch's fold's A/Bs "
                              "(row_ab, fold_ab)")
     parser.add_argument("--probes", action="store_true",
-                        help="only the probes' lookup chain arms (chain_ab); with --against, "
-                             "only the probes' chain_gather, onehot_mma and gather2d against "
-                             "the other checkout's (against_probes)")
+                        help="only the probes' lookup chain arms (chain_ab) and the chain a "
+                             "window against its first design with their latency floors "
+                             "(window_ab); with --against, only the probes' chain_gather, "
+                             "onehot_mma, gather2d and window_chain against the other "
+                             "checkout's (against_probes)")
     parser.add_argument("--step", action="store_true",
                         help="only the group form's step loop: its K sweep (step_sweep) under "
                              "an NCCL process group of one rank; with --against, also the "
@@ -2064,7 +2233,7 @@ def main(argv=None) -> None:
     lib = None if opts.against or opts.step else library()
     if opts.probes:
         record = (against_probes(opts.against, dev) if opts.against else
-                  chain_ab(chain_cell(dev), lib))
+                  {**chain_ab(chain_cell(dev), lib), **window_ab(dev, lib)})
         print(json.dumps({"card": smi, "against": opts.against, **record}))
         return
     if opts.wwl:

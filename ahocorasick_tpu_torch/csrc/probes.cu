@@ -94,10 +94,14 @@
 //   load on this card but for the clamp) and
 //   :183 (part_c), lax.scan.  The hashed tables do not synchronize, so only
 //   a serial walk a window gives the JAX answer: a thread a window (8,192
-//   chains at the probe's shape, 64 a block), its classes loaded as 4-byte
-//   words of its row (the next word in flight while this one's classes are
-//   walked) where the row is 4-byte aligned, else one load a class.  Bound:
-//   the latency of a dependent load from L2 or device memory, 524 a chain.
+//   chains at the probe's shape, 64 a block).  Where its row is 16-byte
+//   aligned (the probe's 524 int32 classes are), each warp stages its 32
+//   windows' classes in shared memory in tiles of 256 bytes of a row, two
+//   buffers, copied by cp.async while the walk runs, and a step's only global load is
+//   the table's (window_chain.cuh); else the first design's direct loads,
+//   4-byte words of the row where it is 4-byte aligned, else one load a
+//   class.  Bound: the latency of a dependent load from the table's
+//   placement, L1, L2 or device memory, 524 a chain.
 //
 // What bounds them on the H100.  Each chain is a run of dependent loads:
 // the time of a step is the latency of the placement (a shuffle, a shared
@@ -124,6 +128,7 @@
 #include <cuda_runtime.h>
 
 #include "gather2d.cuh"
+#include "window_chain.cuh"
 
 namespace {
 
@@ -558,24 +563,15 @@ cudaError_t launch_select(int group, const SelectArgs& a, cudaStream_t st) {
 
 // ----------------------------------------------------------- window_chain
 
-constexpr int kWinThreads = 64;  // 8,192 windows: 128 blocks over the 132 SMs
+constexpr int kWinThreads = 64;  // the direct form: 8,192 windows in 128 blocks
 
-// The table word chain step s <- tab[at(s, c)] reads: flat (kRows false),
-// min(s * stride + c, last) in 32-bit arithmetic, as the JAX uint32 index
-// wraps and XLA clamps a gather; by rows (kRows), row min(s, rows_last) and
-// column min(c, stride - 1), as XLA clamps each index of table[s, c].
-template <bool kRows>
-__device__ __forceinline__ uint32_t chain_at(uint32_t s, uint32_t c, uint32_t stride,
-                                             uint32_t last, uint32_t rows_last) {
-  return kRows ? min(s, rows_last) * stride + min(c, stride - 1u) : min(s * stride + c, last);
-}
-
-// One chain a window, s = 0 then s <- tab[chain_at(s, c)] over every class
-// of the row; the block adds its chains' final states into out.  kCB: bytes
-// a class (1, 2 or 4).  Where `words` (the row's bytes a multiple of 4 and
-// the base 4-byte aligned), the classes come as 4-byte words of the row,
-// the next word loaded before the classes of this one are walked; else one
-// load a class.
+// The direct form, for rows that are not 16-byte aligned (the first
+// design): one chain a window, s = 0 then s <- tab[chain_at(s, c)] over
+// every class of the row; the block adds its chains' final states into out.
+// kCB: bytes a class (1, 2 or 4).  Where `words` (the row's bytes a
+// multiple of 4 and the base 4-byte aligned), the classes come as 4-byte
+// words of the row, the next word loaded before the classes of this one are
+// walked; else one load a class.
 template <int kCB, bool kRows>
 __global__ void __launch_bounds__(kWinThreads)
     window_kernel(const uint32_t* __restrict__ tab, uint32_t last, uint32_t rows_last,
@@ -602,7 +598,7 @@ __global__ void __launch_bounds__(kWinThreads)
           } else {
             c = (word >> (8 * kCB * q)) & ((1u << (8 * kCB)) - 1u);
           }
-          s = __ldg(tab + chain_at<kRows>(s, c, stride, last, rows_last));
+          s = __ldg(tab + wc::chain_at<kRows>(s, c, stride, last, rows_last));
         }
       }
     } else {
@@ -615,18 +611,23 @@ __global__ void __launch_bounds__(kWinThreads)
         } else {
           c = __ldg(reinterpret_cast<const uint32_t*>(row) + t);
         }
-        s = __ldg(tab + chain_at<kRows>(s, c, stride, last, rows_last));
+        s = __ldg(tab + wc::chain_at<kRows>(s, c, stride, last, rows_last));
       }
     }
   }
   block_sum(s, out, warp_sums);
 }
 
+// The staged form (csrc/window_chain.cuh) where the row is 16-byte aligned,
+// else the direct form.
 template <int kCB, bool kRows>
 cudaError_t launch_window(const uint32_t* tab, uint32_t last, uint32_t rows_last, uint32_t stride,
                           const uint8_t* w, int width, int64_t n, uint32_t* out, cudaStream_t st) {
-  const int words = (static_cast<int64_t>(width) * kCB) % 4 == 0 &&
-                    reinterpret_cast<uintptr_t>(w) % 4 == 0;
+  const int64_t row_bytes = static_cast<int64_t>(width) * kCB;
+  if (row_bytes % wc::kVec == 0 && reinterpret_cast<uintptr_t>(w) % wc::kVec == 0) {
+    return wc::launch_staged<kCB, kRows>(tab, last, rows_last, stride, w, row_bytes, n, out, st);
+  }
+  const int words = row_bytes % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 4 == 0;
   const unsigned grid = static_cast<unsigned>((n + kWinThreads - 1) / kWinThreads);
   window_kernel<kCB, kRows><<<grid, kWinThreads, 0, st>>>(tab, last, rows_last, stride, w, width,
                                                           n, words, out);

@@ -43,7 +43,7 @@ SOURCES = tuple(
 # Included by the sources; hashed with them, so an edited header rebuilds too.
 HEADERS = tuple(os.path.join(_PKG, "csrc", name)
                 for name in ("tile.cuh", "sweep.cuh", "pfac_walk.cuh", "gather2d.cuh",
-                             "pfac1_walk.cuh"))
+                             "pfac1_walk.cuh", "window_chain.cuh"))
 BUILD_DIR = os.path.join(_PKG, "_build")
 FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

@@ -42,7 +42,9 @@ H100):
 * ``window_chain(tab, windows, stride)`` — one chain a window from 0 over
   its classes, ``s <- tab[s * stride + c]`` (a flat table, a 32-bit index)
   or ``tab[s, c]`` (a 2-D one, each index clamped), the int32 sum of the
-  final states; a thread a window.
+  final states; a thread a window, its classes staged in shared memory in
+  tiles where its row is 16-byte aligned (``window_plan``,
+  ``csrc/window_chain.cuh``), else read from the row.
 
 Tables and indices are int32 or uint32 and read as unsigned words; the
 results are int32 (``sum_out``: their sum modulo 2**32, an int32 scalar), as
@@ -76,6 +78,10 @@ MMA_EXACT = 2048  # integers below this are exact in fp16
 MMA_COLS = 32  # onehot_mma takes a multiple of this many columns
 ONEHOT_SLAB = 16  # the columns of a onehot_mma block
 _WORDS = (torch.int32, torch.uint32)
+WINDOW_TILE_BYTES = 256  # a window's bytes a tile: csrc/window_chain.cuh kTileBytes
+WINDOW_VEC = 16  # bytes of a copy unit and of a shared read
+WINDOW_WARPS = 2  # warps a block of the staged form
+WINDOW_DIRECT_THREADS = 64  # windows a block of the direct form
 
 
 def default_placement(T: int) -> str:
@@ -331,6 +337,29 @@ def row_select_plain(tab, s0, cols, reps, how, mod, *, add_r=False) -> torch.Ten
 
 
 # ------------------------------------------------------------- window_chain
+
+
+def window_plan(window_bytes: int, width: int, n: int, base: int = 0) -> dict:
+    """How ``window_chain`` runs ``n`` windows of ``width`` classes of
+    ``window_bytes`` bytes at address ``base`` (``csrc/probes.cu``
+    ``launch_window`` and ``csrc/window_chain.cuh``, mirrored): where a row's
+    bytes and the base are multiples of ``WINDOW_VEC``, the staged form,
+    ``{"form": "staged", "tile_bytes", "stride", "tiles", "warps",
+    "blocks", "shared_bytes"}``: each warp's 32 windows (those before
+    ``n``) copied tile by tile into two buffers, ``tiles`` the ``(offset,
+    bytes)`` of each tile in a row, a lane's piece of a buffer at ``lane x
+    stride`` bytes (an odd number of 16-byte units); else the direct form,
+    ``{"form": "direct", "blocks"}``, one load a word or a class from the
+    row."""
+    row = width * window_bytes
+    if row % WINDOW_VEC or base % WINDOW_VEC:
+        return {"form": "direct", "blocks": -(-n // WINDOW_DIRECT_THREADS)}
+    tb = min(row, WINDOW_TILE_BYTES)
+    stride = tb if (tb // WINDOW_VEC) & 1 else tb + WINDOW_VEC
+    return {"form": "staged", "tile_bytes": tb, "stride": stride,
+            "tiles": [(o, min(tb, row - o)) for o in range(0, row, tb)] if row else [],
+            "warps": WINDOW_WARPS, "blocks": -(-n // (32 * WINDOW_WARPS)),
+            "shared_bytes": WINDOW_WARPS * 2 * 32 * stride}
 
 
 def window_chain(tab: torch.Tensor, windows: torch.Tensor, stride: int = None) -> torch.Tensor:

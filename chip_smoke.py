@@ -150,9 +150,12 @@ port only, the dictionary and text generators included (``bench.headline``,
    off a 16-byte boundary); the chain a window at probe7's part B and C
    tables (512 MB, every n, flat and as rows) and at its edges
    (``check_window_kernels``: uint8, uint16 and int32 windows of 0, 1, 3 and
-   525 classes, 1, 65 and 8,192 windows, one class off a 4-byte boundary,
-   strides 1, 32 and 33, both clamps), and probe7's part A tables (8 and 96
-   MB) under the count kernel;
+   525 classes and of rows of 16 to 784 bytes (the staged form, one tile to
+   four), 1, 65 and 8,192 windows, one class off a 4-byte boundary,
+   strides 1, 32 and 33, both clamps), with the staged design against its
+   first design (``ab window_chain``: n = 1, 65,536 and 2**22, each with its
+   latency floor at its table's placement, L1, L2 and device memory), and
+   probe7's part A tables (8 and 96 MB) under the count kernel;
    the PFAC walk's three modes (v2 planes, v2 count, v1 planes, v1 == v2) on
    fuzz, demo and the 10k dictionary at 1 Mi units, and the v2 walk at its
    edges (``check_pfac_edges``: text lengths around a warp's prefix pass
@@ -348,7 +351,10 @@ port only, the dictionary and text generators included (``bench.headline``,
    and 4 chains a thread, one block an SM); the one-hot product's fp16 and
    fp32 library chains; the chained row step at probe4's 8 MB cell and the
    chain a window on probe7's 512 MB table, each beside its twin, the eager
-   torch chain and its latency floor;
+   torch chain and its latency floor (the chain a window's the device-memory
+   floor, the L2 flushed before each call; the row step's beside
+   ``row_chain``'s max form on the same table, the same row read without
+   the select);
    the PFAC v2 walk's table
    loads a lane (mean,
    largest, a warp's longest) and the G loads/s of each mode, and its A/B
@@ -2334,26 +2340,36 @@ def check_rowsel_kernels(dev, errs):
     return len(errs_at)
 
 
-WINDOW_EDGES = {"W": (0, 1, 3, 525), "B": (1, 65, 8192)}
+# classes a window at every class width ("W"), and rows of these bytes
+# ("ROW_BYTES", a multiple of 16: the staged form, a short tile, one tile,
+# two with a partial one, four; probe7's rows take nine)
+WINDOW_EDGES = {"W": (0, 1, 3, 525), "ROW_BYTES": (16, 256, 272, 784), "B": (1, 65, 8192)}
 # probe7's tables: part B's rows, part C's, part A's MB
 WINDOW_TABLES = {"B": 1 << 22, "C": (262144, 1 << 20, 1 << 21), "A": (8, 96)}
 
 
-def check_window_kernels(dev, errs):
+def check_window_kernels(dev, errs, variants_lib=None, ab=None):
     """``window_chain`` against its twin, bit for bit: at the JAX probe's own
     tables (probe7's part B, 4,194,304 rows of 32 words with next states in
     [0, n) for n = 1, 4,096, 65,536, 2**20 and the rows, flat and as rows;
     part C, 262,144, 2**20 and 2**21 rows) over its windows (8,192 x 524
     int32 classes); and at its edges: uint8, uint16 and int32 windows of 0,
-    1, 3 and 525 classes (the row words and the one-load-a-class path), 1,
-    65 and 8,192 windows, a window tensor one class off a 4-byte boundary,
-    strides 1, 32 and 33 on a flat table and a 2-D one, next states and
-    classes past the table (both clamps), full-range words.  Then part A's
+    1, 3 and 525 classes (the direct form's row words and one load a class)
+    and of rows of 16, 256, 272 and 784 bytes (the staged form: a short
+    tile, one tile, two tiles and four, the last partial), 1, 65 and 8,192
+    windows, a window tensor one class off a 4-byte boundary (the direct
+    form), strides 1, 32 and 33 on a flat table and a 2-D one, next states
+    and classes past the table (both clamps), full-range words.  Then part A's
     hashed packed tables (8 and 96 MB) under ``packed_scan_count`` against
-    its twin at the probe's windows (K = 4 lanes a window).  Returns the
-    cases."""
+    its twin at the probe's windows (K = 4 lanes a window).  With
+    ``variants_lib`` (``bench/scan_variants.py``'s library), on the part B
+    tables already built at n = 1, 65,536 and 2**22 (flat), the package's
+    kernel against its first design, each with its latency floor at the
+    placement of its table's rows (``scan_variants.window_ab_cell``), into
+    ``ab`` by n.  Returns the cases."""
     import torch
 
+    from ahocorasick_tpu_torch.bench import scan_variants
     from ahocorasick_tpu_torch.kernels import probes as kp
     from ahocorasick_tpu_torch.kernels import scan_block
     from ahocorasick_tpu_torch.probes import probe7
@@ -2373,6 +2389,8 @@ def check_window_kernels(dev, errs):
         flat = probe7.chain_table(rows, n, dev)
         case(f"probe7 part B flat n={n}", flat, w7, probe7.AP)
         case(f"probe7 part B 2d n={n}", flat.view(rows, probe7.AP), w7)
+        if variants_lib is not None and n in scan_variants.WINDOW_PLACEMENTS:
+            ab[n] = scan_variants.window_ab_cell(n, flat, w7, variants_lib, probe7.AP)
         del flat
     for r in WINDOW_TABLES["C"]:
         case(f"probe7 part C rows={r}", probe7.chain_table(r, r, dev), w7, probe7.AP)
@@ -2382,7 +2400,9 @@ def check_window_kernels(dev, errs):
                           dtype=torch.int64).to(torch.int32)
     for name, dt, high in (("uint8", torch.uint8, 40), ("uint16", torch.uint16, 40),
                            ("int32", torch.int32, 40)):
-        for W in WINDOW_EDGES["W"]:
+        widths = sorted({*WINDOW_EDGES["W"],
+                         *(b // dt.itemsize for b in WINDOW_EDGES["ROW_BYTES"])})
+        for W in widths:
             classes = torch.randint(0, high, (max(WINDOW_EDGES["B"]) * W + 1,), generator=gen,
                                     device=dev, dtype=torch.int64)
             raw = classes.to(torch.int32) if dt == torch.int32 else classes.to(
@@ -3689,9 +3709,17 @@ def main() -> int:
     print(f"  row_select at probe4/5/6's shapes and its edges: {check_rowsel_kernels(dev, errs)} "
           f"cases, each == its twin (phase {time.perf_counter() - t0:.2f} s)")
     t0 = time.perf_counter()
+    window_ab = {}
     print(f"  window_chain at probe7's tables and its edges, probe7's part A tables: "
-          f"{check_window_kernels(dev, errs)} cases, each == its twin (phase "
-          f"{time.perf_counter() - t0:.2f} s)")
+          f"{check_window_kernels(dev, errs, scan_variants.library(), window_ab)} cases, each == "
+          f"its twin, and the A/B (phase {time.perf_counter() - t0:.2f} s)")
+    print(f"ab window_chain {json.dumps({'card': smi, **window_ab})}")
+    print("latency floors window_chain (8,192 windows x 524 classes; first design -> this): "
+          + "; ".join(f"{r['placement']} (n = {n}) {r['floor']['first']['floor_ms']} -> "
+                      f"{r['floor']['this']['floor_ms']} ms, kernel {r['ms']['first']} -> "
+                      f"{r['ms']['this']} ms, {r['over_floor']['first']} -> "
+                      f"{r['over_floor']['this']} x the floor"
+                      for n, r in window_ab.items()) + f" [{smi}]")
     prng = np.random.default_rng(SEED + 20)  # its own: the main path's texts stay as they were
     fuzz_m = port.AhoCorasickSet(fuzz_keywords(prng, "abcdef", 60, 8), engine="device", device=dev)
     demo_m = port.AhoCorasickSet(DEMO, engine="device", device=dev)
@@ -6214,6 +6242,21 @@ def main() -> int:
           f"{R4} steps x {(rs_idle[1] - rs_idle[0]) / R4 * 1e3} us a step (32 chains, idle) x "
           f"{rs_waves} wave = {latency_floor['row_select']} ms; kernel {ms['row_select'][0]} ms = "
           f"{ms['row_select'][0] / latency_floor['row_select']} x its floor [{smi}]")
+    # The same row read without row_select in it: row_chain's max form on the
+    # same table at G = 4 (bench/scan_variants.row_ab, no select, no column
+    # load, no signed modulo), its floor as row_select's, beside it.
+    rc_label = f"{S4} x 32"
+    ab_rc = scan_variants.row_ab({rc_label: (tab_rs, s0_rs, R4, S4)}, variants_lib,
+                                 every_group=False)
+    g_rs = f"G={kprobe.row_group(32)}"
+    rc_floor = ab_rc["row_floor_ms"][rc_label][g_rs]
+    print(f"latency floor row_select beside row_chain's max form, 65,536 x 32 rows, {g_rs}: "
+          f"row_chain's step {ab_rc['row_step_us'][rc_label][g_rs]} us (row_select's "
+          f"{(rs_idle[1] - rs_idle[0]) / R4 * 1e3} us), its floor {rc_floor} ms, row_chain at "
+          f"4,096 chains x {R4} steps {ab_rc['row_ms'][rc_label][g_rs]} ms; row_select "
+          f"{ms['row_select'][0]} ms = {ms['row_select'][0] / rc_floor} x row_chain's floor, "
+          f"{latency_floor['row_select']} / {ms['row_select'][0]} = "
+          f"{latency_floor['row_select'] / ms['row_select'][0]} of its own [{smi}]")
     w_wc = probe7._windows(7, dev)
     tab_wc = probe7.chain_table(1 << 22, 1 << 22, dev)
 
@@ -6228,16 +6271,20 @@ def main() -> int:
         "window_chain", lambda: kprobe.window_chain(tab_wc, w_wc, probe7.AP),
         lambda: kprobe.window_chain_plain(tab_wc, w_wc, probe7.AP), 20, 1)
     probe_library["window_chain"] = cuda_ms(torch_window, 2)
-    w32 = w_wc[:32].contiguous()
-    wc_idle = [scan_variants._card_ms(lambda x=x: kprobe.window_chain(tab_wc, x, probe7.AP), 3, dev)
-               for x in (w32, torch.cat([w32, w32], 1).contiguous())]
-    wc_waves = -(-w_wc.shape[0] // scan_variants.CARD_THREADS)
-    latency_floor["window_chain"] = (wc_idle[1] - wc_idle[0]) * wc_waves
-    print(f"latency floor window_chain, 512 MB table, 8,192 windows x {w_wc.shape[1]} classes: "
-          f"{w_wc.shape[1]} steps x {(wc_idle[1] - wc_idle[0]) / w_wc.shape[1] * 1e3} us a step "
-          f"(32 chains, idle) x {wc_waves} wave = {latency_floor['window_chain']} ms; kernel "
-          f"{ms['window_chain'][0]} ms = {ms['window_chain'][0] / latency_floor['window_chain']} "
-          f"x its floor [{smi}]")
+    # The timed call's chains spread over the whole 512 MB table, so its
+    # yardstick is the device-memory floor, measured with the L2 flushed
+    # before each call (check_window_kernels, scan_variants.window_floor);
+    # the L1 and L2 floors beside it.
+    fl = {r["placement"]: r["floor"]["this"] for r in window_ab.values()}
+    latency_floor["window_chain"] = fl["device"]["floor_ms"]
+    print(f"latency floor window_chain, 512 MB table (n = 2**22, flat), 8,192 windows x "
+          f"{w_wc.shape[1]} classes: the device-memory floor, {w_wc.shape[1]} steps x "
+          f"{fl['device']['step_us']} us a step (32 chains, L2 flushed before each call) x 1 "
+          f"wave = {latency_floor['window_chain']} ms (L1 {fl['L1']['floor_ms']} ms, "
+          f"{fl['L1']['step_us']} us; L2 {fl['L2']['floor_ms']} ms, {fl['L2']['step_us']} us); "
+          f"kernel {ms['window_chain'][0]} ms = "
+          f"{ms['window_chain'][0] / latency_floor['window_chain']} x its device-memory floor "
+          f"[{smi}]")
     for k, shape in (("row_select", f"65,536 x 32 rows, 4,096 chains x {R4} steps"),
                      ("window_chain", f"512 MB table, {w_wc.shape[0]} x {w_wc.shape[1]} "
                                       f"windows")):
@@ -6489,8 +6536,9 @@ def main() -> int:
           f"{seq_bound['seq_states_serial']} ms [{smi}]")
     gap = sorted(((g, k) for k, g in gaps.items()), reverse=True)
     print("launches x gap to bound (ms; the sequential scans over their units; the latency "
-          f"chains {sorted(latency_floor)} to their latency floors, chain_gather to the larger "
-          f"of its latency and throughput floors): " + "; ".join(
+          f"chains {sorted(latency_floor)} to their latency floors, window_chain to its "
+          f"device-memory floor (the placement of its timed call's table), chain_gather to the "
+          f"larger of its latency and throughput floors): " + "; ".join(
         f"{k} {counts[k]} x ({ms[k][0]} - {yardstick[k]}) = {g}" if k not in seq_time else
         f"{k} {seq_u[k]} units: {seq_time[k]} - {seq_bound[k]} = {g}" for g, k in gap)
           + f" [{smi}]")
